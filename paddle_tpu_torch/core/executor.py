@@ -1,0 +1,125 @@
+"""Executor + Scope.
+
+Parity: python/paddle/fluid/executor.py, paddle/fluid/framework/
+{executor.cc,scope.cc} and the JAX package's core/executor.py. Same
+`Executor(place).run(program, feed, fetch_list)` surface; a run walks the
+Program op by op (core/lowering.py) on one torch device. The device is
+the card unless the caller asks for the CPU: with no card and no explicit
+`"cpu"`, construction raises — nothing falls back to the CPU silently.
+"""
+import numpy as np
+import torch
+
+from .framework import convert_dtype, default_main_program, find_var
+from .lowering import Env, LowerCtx, lower_block
+from .registry import torch_dtype
+
+
+def resolve_device(device=None):
+    """The torch device an entry point runs on: `device` when given
+    ("cuda", "cuda:1", "cpu", a torch.device), else the current CUDA
+    device. Raises when a CUDA device is asked for (explicitly or by
+    default) and none is available."""
+    if device is None:
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "paddle_tpu_torch runs on a CUDA device unless asked "
+                "otherwise, and torch.cuda.is_available() is False here; "
+                "pass device='cpu' to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError("unsupported device %r (use 'cuda' or 'cpu')"
+                         % (device,))
+    return dev
+
+
+def to_tensor(value, dtype=None, device=None):
+    """Host array / tensor -> torch tensor of the declared dtype on
+    `device` (the feed and parameter-load conversion)."""
+    if isinstance(value, torch.Tensor):
+        t = value
+    else:
+        arr = np.asarray(value)
+        if dtype is not None:
+            arr = arr.astype(convert_dtype(dtype), copy=False)
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+    if dtype is not None:
+        t = t.to(torch_dtype(convert_dtype(dtype)))
+    if device is not None:
+        t = t.to(device)
+    return t
+
+
+class Scope(object):
+    """Name -> torch tensor store (parity: framework::Scope)."""
+
+    def __init__(self):
+        self._vars = {}
+        self._rng_counter = 0
+
+    def set(self, name, value):
+        self._vars[name] = value if isinstance(value, torch.Tensor) \
+            else torch.as_tensor(np.asarray(value))
+
+    def get(self, name):
+        return self._vars.get(name)
+
+    def has(self, name):
+        return name in self._vars
+
+    def names(self):
+        return list(self._vars)
+
+    def next_seed(self):
+        self._rng_counter += 1
+        return self._rng_counter
+
+
+_global_scope = Scope()
+
+
+def global_scope():
+    return _global_scope
+
+
+class Executor(object):
+    """Runs Programs on one device. `place`: "cuda" (default), "cuda:N",
+    "cpu" or a torch.device."""
+
+    def __init__(self, place=None):
+        self.device = resolve_device(place)
+
+    def run(self, program=None, feed=None, fetch_list=None, scope=None,
+            return_numpy=True):
+        """Run `program` once: feeds convert to their declared dtypes on
+        this executor's device, parameters read from `scope`, every
+        persistable the program writes is stored back into `scope`.
+        Returns the fetches as numpy arrays, or as device tensors with
+        return_numpy=False (no host sync)."""
+        if program is None:
+            program = default_main_program()
+        scope = scope if scope is not None else global_scope()
+        feed = feed or {}
+        fetch_names = [f if isinstance(f, str) else f.name
+                       for f in (fetch_list or [])]
+        persistable = {v.name for v in program.list_vars() if v.persistable}
+        env = Env(scope, persistable, self.device)
+        for name, value in feed.items():
+            var = find_var(program, name)
+            env.write(name, to_tensor(
+                value, var.dtype if var is not None else None, self.device))
+        ctx = LowerCtx(program, self.device, run_seed=scope.next_seed())
+        with torch.no_grad():
+            lower_block(ctx, program.global_block(), env)
+        for op in program.global_block().ops:
+            for name in op.all_output_vars():
+                if name in persistable:
+                    scope.set(name, env.values[name])
+        fetches = [env.read(n) for n in fetch_names]
+        if return_numpy:
+            return [f.detach().cpu().numpy() for f in fetches]
+        return fetches

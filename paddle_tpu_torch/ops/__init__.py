@@ -1,0 +1,3 @@
+"""Op rules. Importing this package registers every rule the port has."""
+from . import basic  # noqa: F401
+from . import nn_ops  # noqa: F401

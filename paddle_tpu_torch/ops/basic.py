@@ -1,0 +1,132 @@
+"""Elementwise / math / tensor op rules (the subset the serving slice runs).
+
+Parity: paddle/fluid/operators/{activation_op,elementwise_add_op,mul_op,
+scale_op,reshape_op,fill_constant_op,assign_value_op,uniform_random_op,
+gaussian_random_op}.cc and the JAX package's ops/basic.py, whose rules
+these mirror over torch tensors. `mul` stays a plain torch.matmul: the
+JAX package left the matrix product to XLA, outside any Pallas kernel.
+"""
+import numpy as np
+import torch
+
+from ..core.registry import register, single, torch_dtype
+
+
+def _out(x):
+    return {"Out": [x]}
+
+
+@register("relu")
+def _relu(ctx, ins, attrs):
+    return _out(torch.relu(single(ins, "X")))
+
+
+def _bcast_y(x, y, axis):
+    """Fluid broadcast: Y's shape must match a contiguous run of X's dims
+    starting at `axis` (axis=-1 => trailing alignment, numpy-style)."""
+    if x.dim() == y.dim():
+        return y
+    if axis == -1 or axis is None:
+        axis = x.dim() - y.dim()
+    new_shape = (1,) * axis + tuple(y.shape) + \
+        (1,) * (x.dim() - axis - y.dim())
+    return y.reshape(new_shape)
+
+
+@register("elementwise_add")
+def _elementwise_add(ctx, ins, attrs):
+    x, y = single(ins, "X"), single(ins, "Y")
+    return _out(x + _bcast_y(x, y, attrs.get("axis", -1)))
+
+
+@register("mul")
+def _mul(ctx, ins, attrs):
+    x, y = single(ins, "X"), single(ins, "Y")
+    xn = attrs.get("x_num_col_dims", 1)
+    yn = attrs.get("y_num_col_dims", 1)
+    lead = int(np.prod(x.shape[:xn])) if xn > 0 else 1
+    x2 = x.reshape(lead, -1)
+    y2 = y.reshape(int(np.prod(y.shape[:yn])), -1)
+    out = torch.matmul(x2, y2)
+    return _out(out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:])))
+
+
+@register("scale")
+def _scale(ctx, ins, attrs):
+    x = single(ins, "X")
+    out = x * attrs.get("scale", 1.0)
+    bias = attrs.get("bias", 0.0)
+    if bias:
+        if attrs.get("bias_after_scale", True):
+            out = out + bias
+        else:
+            out = (x + bias) * attrs.get("scale", 1.0)
+    return _out(out)
+
+
+@register("reshape")
+def _reshape(ctx, ins, attrs):
+    x = single(ins, "X")
+    # fluid semantics: 0 copies the input's dim, -1 infers
+    shape = [x.shape[i] if s == 0 else s
+             for i, s in enumerate(attrs["shape"])]
+    return _out(x.reshape(shape))
+
+
+def _attr_np_dtype(attrs, default="float32"):
+    """A "dtype" attr that may be a numpy-style string (the layers) OR the
+    era framework.proto VarType enum int (5=FP32, 2=INT32, ...)."""
+    v = attrs.get("dtype", default)
+    if isinstance(v, (int, np.integer)):
+        table = {0: "bool", 1: "int16", 2: "int32", 3: "int64",
+                 4: "float16", 5: "float32", 6: "float64"}
+        v = table.get(int(v), default)
+    return np.dtype(v)
+
+
+@register("fill_constant")
+def _fill_constant(ctx, ins, attrs):
+    shape = [1 if s == -1 else s for s in attrs.get("shape", [1])]
+    return _out(torch.full(shape, attrs.get("value", 0.0),
+                           dtype=torch_dtype(_attr_np_dtype(attrs).name),
+                           device=ctx.device))
+
+
+@register("assign_value")
+def _assign_value(ctx, ins, attrs):
+    """assign_value_op.cc stores the payload in a dtype-suffixed attr
+    (fp32_values / int32_values) in era descs — accept those alongside the
+    layers' own "values"."""
+    dtype = _attr_np_dtype(attrs)
+    if "values" in attrs:
+        vals = attrs["values"]
+    elif dtype == np.int32 and "int32_values" in attrs:
+        vals = attrs["int32_values"]
+    elif "fp32_values" in attrs:
+        vals = attrs["fp32_values"]
+    else:
+        raise KeyError("assign_value: none of values/fp32_values/int32_values "
+                       "in attrs %r" % sorted(attrs))
+    arr = np.asarray(vals, dtype=dtype).reshape(attrs["shape"])
+    return _out(torch.from_numpy(np.ascontiguousarray(arr)).to(ctx.device))
+
+
+def _random(ctx, attrs, fill):
+    shape = [1 if s == -1 else s for s in attrs["shape"]]
+    out = torch.empty(shape, dtype=torch_dtype(_attr_np_dtype(attrs).name),
+                      device=ctx.device)
+    if out.device.type != "meta":
+        fill(out, ctx.rng(seed=attrs.get("seed", 0)))
+    return _out(out)
+
+
+@register("uniform_random", uses_rng=True)
+def _uniform_random(ctx, ins, attrs):
+    return _random(ctx, attrs, lambda t, g: t.uniform_(
+        attrs.get("min", -1.0), attrs.get("max", 1.0), generator=g))
+
+
+@register("gaussian_random", uses_rng=True)
+def _gaussian_random(ctx, ins, attrs):
+    return _random(ctx, attrs, lambda t, g: t.normal_(
+        attrs.get("mean", 0.0), attrs.get("std", 1.0), generator=g))

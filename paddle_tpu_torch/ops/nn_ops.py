@@ -1,0 +1,113 @@
+"""NN op rules (the subset the serving slice runs): layer_norm,
+fused_attention, lookup_table.
+
+Parity: paddle/fluid/operators/{layer_norm_op,lookup_table_op}.cc and the
+JAX package's ops/nn_ops.py. layer_norm with scale and bias and the flash
+branch of fused_attention call the hand-written CUDA kernels through their
+wrappers (ops/cuda_kernels.py), which dispatch by device: the same rule
+runs the kernel on the card, the plain version on the CPU, and computes
+nothing on `meta` tensors during build-time shape inference.
+"""
+import math
+
+import numpy as np
+import torch
+
+from ..core.registry import register, single
+from . import cuda_kernels
+from .kernel_config import flash_at
+
+_NEG_INF = -1e30
+
+
+def _out(x):
+    return {"Out": [x]}
+
+
+@register("layer_norm")
+def _layer_norm(ctx, ins, attrs):
+    x = single(ins, "X")
+    scale = single(ins, "Scale")
+    bias = single(ins, "Bias")
+    eps = attrs.get("epsilon", 1e-5)
+    begin = attrs.get("begin_norm_axis", 1)
+    lead = int(np.prod(x.shape[:begin]))
+    x2 = x.reshape(lead, -1)
+    if scale is not None and bias is not None:
+        y, mean, var = cuda_kernels.layer_norm_fwd(
+            x2, scale.reshape(-1), bias.reshape(-1), eps=eps)
+        return {"Y": [y.reshape(x.shape).to(x.dtype)],
+                "Mean": [mean], "Variance": [var]}
+    xf = x2.float()
+    mean = xf.mean(dim=1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.reshape(1, -1)
+    if bias is not None:
+        y = y + bias.reshape(1, -1)
+    return {"Y": [y.reshape(x.shape).to(x.dtype)],
+            "Mean": [mean.reshape(lead)], "Variance": [var.reshape(lead)]}
+
+
+def attention_reference(q, k, v, causal=False, scale=None, kv_len=None):
+    """Dense single-device attention over [B, T, H, D] (parity:
+    paddle_tpu/parallel/ring_attention.py attention_reference). kv_len:
+    optional [B] or [B, 1] true key lengths. A row with no valid key
+    softmaxes uniformly over the -1e30 logits, as the reference does; the
+    flash path (cuda_kernels.flash_attention_fwd_plain) gives 0 there."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        tq, tk = logits.shape[-2], logits.shape[-1]
+        mask = torch.tril(torch.ones((tq, tk), dtype=torch.bool,
+                                     device=q.device))
+        logits = torch.where(mask, logits, torch.full_like(logits, _NEG_INF))
+    if kv_len is not None:
+        kv_len = kv_len.reshape(k.shape[0])
+        kpos = torch.arange(k.shape[1], device=q.device)
+        kmask = kpos[None, :] < kv_len[:, None]
+        logits = torch.where(kmask[:, None, None, :], logits,
+                             torch.full_like(logits, _NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+@register("fused_attention")
+def _fused_attention(ctx, ins, attrs):
+    """Attention over [B, T, H, D] q/k/v with optional [B] / [B, 1] key
+    lengths. kernel_config.flash_at decides flash (the CUDA kernel's
+    wrapper) or the dense reference; the block_q / block_k / sp_impl attrs
+    are TPU and mesh knobs the JAX package reads and this rule ignores."""
+    q = single(ins, "Q")
+    k = single(ins, "K")
+    v = single(ins, "V")
+    kv_len = single(ins, "KVLen") if ins.get("KVLen") else None
+    if kv_len is not None:
+        kv_len = kv_len.reshape(-1)
+    causal = attrs.get("causal", False)
+    scale = attrs.get("scale", None)
+    if not flash_at(q.shape[1], q.device.type):
+        return _out(attention_reference(q, k, v, causal=causal, scale=scale,
+                                        kv_len=kv_len).to(q.dtype))
+    out, _ = cuda_kernels.flash_attention_fwd(q, k, v, kv_len=kv_len,
+                                              causal=causal, scale=scale)
+    return _out(out)
+
+
+@register("lookup_table")
+def _lookup_table(ctx, ins, attrs):
+    w = single(ins, "W")        # [V, D]
+    ids = single(ins, "Ids")    # [..., 1] or [...] int
+    flat = ids.reshape(-1).long()
+    out = w.index_select(0, flat)
+    padding_idx = attrs.get("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        out = torch.where((flat == padding_idx)[:, None],
+                          torch.zeros_like(out), out)
+    if ids.dim() and ids.shape[-1] == 1:
+        out_shape = tuple(ids.shape[:-1]) + (w.shape[-1],)
+    else:
+        out_shape = tuple(ids.shape) + (w.shape[-1],)
+    return _out(out.reshape(out_shape))

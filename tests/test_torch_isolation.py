@@ -1,0 +1,97 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+its entry points run on the CUDA card unless the caller asks for the CPU.
+"""
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import paddle_tpu_torch
+from paddle_tpu_torch.core.executor import Executor, resolve_device
+from paddle_tpu_torch.serving import InferenceEngine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(os.path.abspath(paddle_tpu_torch.__file__))
+SOURCES = sorted(glob.glob(os.path.join(PKG, "**", "*.py"), recursive=True)
+                 + [os.path.join(REPO, "chip_smoke.py")])
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _forbidden(module):
+    return module is not None and module.split(".")[0] in FORBIDDEN
+
+
+def test_import_leaves_jax_and_the_jax_package_out():
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.io, "
+            "paddle_tpu_torch.serving, paddle_tpu_torch.models.transformer, "
+            "paddle_tpu_torch.ops.cuda_kernels\n"
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in %r)\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[os.path.relpath(p, REPO) for p in SOURCES])
+def test_source_imports_nothing_of_jax(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            names = [node.module]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", None)) in (
+                    "import_module", "__import__"):
+            names = [a.value for a in node.args
+                     if isinstance(a, ast.Constant)]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, "%s:%d imports %s" % (path, node.lineno, bad)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_executor_needs_a_card_or_an_explicit_cpu(no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Executor()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Executor("cuda:0")
+    assert Executor("cpu").device == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+def test_engine_raises_before_reading_the_model(no_card, tmp_path):
+    """No card, no device="cpu": the engine refuses before it opens the
+    directory (which here holds no model at all)."""
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferenceEngine(str(tmp_path / "absent"))
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """chip_smoke.py alone in a directory, on a machine without CUDA,
+    exits non-zero and prints no result line."""
+    script = tmp_path / "chip_smoke.py"
+    with open(os.path.join(REPO, "chip_smoke.py")) as src:
+        script.write_text(src.read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, str(script)], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
