@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py                 # every phase, one card
-    python3 chip_smoke.py --only kernels  # build + kernel checks only
-    python3 chip_smoke.py --ptxas         # also print nvcc's `ptxas -v`
+    python3 chip_smoke.py                   # every phase, one card
+    python3 chip_smoke.py --only kernels    # build + kernel checks only
+    python3 chip_smoke.py --ptxas           # also print nvcc's `ptxas -v`
+    python3 chip_smoke.py --trace out.json  # keep the traced step's trace
 
 Transformer-base runs at its full depth (6+6 layers) and width, with random
 weights from the fixed seed SEED.
@@ -15,8 +16,10 @@ Phases, each reported on lines of its own; any failure exits non-zero:
 2. build    — compile the hand-written kernels from paddle_tpu_torch/csrc
               (nvcc, one process per source) and report the seconds.
 3. kernels  — hold each kernel against its plain PyTorch version on the
-              card at the main path's shapes (max |kernel - plain| <= 1e-4:
-              fp32 with a different summation order), and time the kernel,
+              card at the main paths' shapes (max |kernel - plain| <= 1e-4:
+              fp32 with a different summation order; for the flash
+              backward the error is relative to max(1, max |plain|), as
+              its sums run over up to T terms), and time the kernel,
               the plain version and one library call computing the same
               function (CUDA graph of 20 calls, CUDA events, warmup,
               median), beside the least time the card could take (bound).
@@ -31,6 +34,24 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               CPU run of the same saved model (plain versions, atol 1e-3);
               the flash and layer-norm kernels launched exactly once per
               fused_attention / layer_norm op of every engine dispatch.
+5. training — the second path: build Transformer-base training
+              (transformer.build_train: the same widths, label smoothing
+              0.1, append_backward through Adam(0.9, 0.98, 1e-9) on noam
+              with 40 warm-up steps), run its startup program on the card
+              and take TRAIN_STEPS steps of batch 32 x T=256 on bench.py's
+              copy task through Executor.run, fetching avg_cost. Reports
+              step time, trained tokens/s, each loss, peak device memory
+              and launches per step. Checks: every loss finite and the
+              last below the first; per step one K1, K2 and K3 launch per
+              fused_attention op, one K4 per softmax_with_cross_entropy,
+              one K5 per layer_norm (18/18/18/1/32 at 6+6 layers); the
+              frozen position tables unchanged. One more step runs under
+              torch.profiler: device time by kernel, host and device time
+              and launches by program op, and the device's idle share
+              (the chrome trace kept with --trace). Then one step at 1+1
+              layers, batch 2, T=64 from the same weights on the card and
+              on the CPU: loss within 1e-4 relative, every gradient within
+              1e-3 of its largest value, every parameter within 2 * lr.
 
 The last lines are one JSON object listing every kernel, the card line,
 and `{"ok": true, "device": {...}}`.
@@ -56,15 +77,28 @@ BUCKET_TOL = 1e-5       # coalesced vs run_direct at the same bucket
 CPU_TOL = 1e-3          # card vs CPU through 12 fp32 layers
 SEED = 0                # weights, kernel inputs and requests
 N_LAYER = 6             # encoder and decoder depth of Transformer-base
+TRAIN_BATCH = 32        # sequences per training step (bench.py's batch)
+TRAIN_STEPS = (2, 6)    # training steps: warm-up, then timed
+WARMUP_STEPS = 40       # noam warm-up (bench.py's build_train default)
+LOSS_RTOL = 1e-4        # card vs CPU loss after one training step
+GRAD_RTOL = 1e-3        # card vs CPU gradients, relative to max |grad|
 
 # the main path's model: Transformer-base (bench.py's configuration)
 MODEL = dict(vocab=30000, max_length=256, d_model=512, n_head=8, d_key=64,
              d_inner=2048)
 
 FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention_fwd.cu"
+FLASH_BWD_SRC = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
+XENT_SRC = "paddle_tpu_torch/csrc/softmax_xent_fwd.cu"
 LN_SRC = "paddle_tpu_torch/csrc/layer_norm_fwd.cu"
 FLASH_TPU = "paddle_tpu/ops/pallas_kernels.py:64 (_flash_fwd_kernel, " \
     "launched by _flash_fwd :116)"
+DKDV_TPU = "paddle_tpu/ops/pallas_kernels.py:157 (_flash_bwd_dkdv_kernel, " \
+    "launched by _flash_bwd :240)"
+DQ_TPU = "paddle_tpu/ops/pallas_kernels.py:201 (_flash_bwd_dq_kernel, " \
+    "launched by _flash_bwd :240)"
+XENT_TPU = "paddle_tpu/ops/pallas_kernels.py:377 (_xent_kernel, launched " \
+    "by _xent_fwd_call :389)"
 LN_TPU = "paddle_tpu/ops/pallas_kernels.py:451 (_ln_kernel, launched by " \
     "_ln_fwd_call :464)"
 
@@ -155,9 +189,13 @@ def bound(flops, nbytes, peak_flops, peak_bw):
 
 # --------------------------------------------------------------- kernels --
 
-def flash_work(b, t, h, d, lens, causal):
-    """(flops, bytes) this input needs: 4*D flops per valid (query, key)
-    pair; q read, k/v rows below each length read, out and lse written."""
+def flash_work(b, t, h, d, lens, causal, part="fwd"):
+    """(flops, bytes) this input needs. Per valid (query, key) pair: 4*D
+    flops forward ("fwd"), 8*D for dK/dV ("dkdv"), 6*D for dQ ("dq").
+    Bytes: the [B, T, H, D] tensors the kernel reads and writes in full
+    (fwd: q, out; dkdv: q, g, dk, dv; dq: q, g, dq), the k/v rows below
+    each length, the [B, H, T] rows (fwd: lse; backward: lse, delta), and
+    kv_len, each once."""
     pairs = 0
     for n in lens:
         n = max(0, min(int(n), t))
@@ -166,12 +204,20 @@ def flash_work(b, t, h, d, lens, causal):
         else:
             pairs += n * t
     valid_rows = sum(max(0, min(int(n), t)) for n in lens)
-    nbytes = 4 * (b * t * h * d            # q
+    full, rows, per_pair = {"fwd": (2, 1, 4), "dkdv": (4, 2, 8),
+                            "dq": (3, 2, 6)}[part]
+    nbytes = 4 * (full * b * t * h * d      # q, out / q, g, grads
                   + 2 * valid_rows * h * d  # k, v rows that matter
-                  + b * t * h * d           # out
-                  + b * h * t               # lse
+                  + rows * b * h * t        # lse (and delta)
                   + b)                      # kv_len
-    return 4 * d * pairs * h, nbytes
+    return per_pair * d * pairs * h, nbytes
+
+
+def rel_err(got, want):
+    """max |got - want| over the larger of 1 and max |want|: backward
+    sums run over up to T terms, so their error grows with the values."""
+    return max((g - w).abs().max().item() / max(1.0, w.abs().max().item())
+               for g, w in zip(got, want))
 
 
 def run_kernels(torch, ck, peak_flops, peak_bw):
@@ -183,10 +229,14 @@ def run_kernels(torch, ck, peak_flops, peak_bw):
     g.manual_seed(SEED)
     results = {}
 
-    # K1: flash attention forward
+    # K1: flash attention forward. Cases: serving's ragged timing batch, a
+    # small odd one, and the training step's q, k, v at full lengths
     flash_err = 0.0
+    t_max = MODEL["max_length"]
     cases = [(8, 256, 8, 64, [256, 0, 37, 129, 200, 64, 255, 96]),
-             (2, 40, 2, 16, [17, 0])]
+             (2, 40, 2, 16, [17, 0]),
+             (TRAIN_BATCH, t_max, MODEL["n_head"], MODEL["d_key"],
+              [t_max] * TRAIN_BATCH)]
     main_inputs = None
     for b, t, h, d, lens in cases:
         q, k, v = (torch.randn((b, t, h, d), generator=g, device=dev)
@@ -239,20 +289,125 @@ def run_kernels(torch, ck, peak_flops, peak_bw):
             torch, lambda: ck.flash_attention_fwd(q, k, v, kv)),
     }
 
-    # K5: layer norm forward
-    n, dm = 2048, 512
-    x = torch.randn((n, dm), generator=g, device=dev)
+    # K2, K3: flash attention backward, from the plain forward's out and
+    # lse, a random output gradient and delta = rowsum(g * out)
+    dkdv_err = dq_err = 0.0
+    for b, t, h, d, lens in cases:
+        q, k, v, g_out = (torch.randn((b, t, h, d), generator=g, device=dev)
+                          for _ in range(4))
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for causal in (False, True):
+            for kv_len in (kv, None):
+                out, lse = ck.flash_attention_fwd_plain(q, k, v, kv_len,
+                                                        causal)
+                delta = ck.flash_delta(g_out, out)
+                args = (q, k, v, lse, delta, g_out, kv_len, causal)
+                ref = ck.flash_attention_bwd_plain(*args)
+                dk, dv = ck.flash_attention_bwd_dkdv(*args)
+                dq = ck.flash_attention_bwd_dq(*args)
+                torch.cuda.synchronize()
+                e_kv, e_q = rel_err((dk, dv), ref[1:]), rel_err((dq,), ref[:1])
+                print("kernels: flash bwd B=%d T=%d H=%d D=%d causal=%s "
+                      "kv_len=%s dkdv_rel_err=%.3e dq_rel_err=%.3e"
+                      % (b, t, h, d, causal,
+                         "ragged" if kv_len is not None else "full", e_kv,
+                         e_q))
+                check(np.isfinite(e_kv) and e_kv <= KERNEL_TOL
+                      and np.isfinite(e_q) and e_q <= KERNEL_TOL,
+                      "flash backward disagrees with its plain version: "
+                      "dK/dV %r, dQ %r (tolerance %r)"
+                      % (e_kv, e_q, KERNEL_TOL))
+                dkdv_err, dq_err = max(dkdv_err, e_kv), max(dq_err, e_q)
+    q, k, v, kv, lens = main_inputs
+    b, t, h, d = q.shape
+    g_out = torch.randn((b, t, h, d), generator=g, device=dev)
+    out, lse = ck.flash_attention_fwd(q, k, v, kv)
+    delta = ck.flash_delta(g_out, out)
+    args = (q, k, v, lse, delta, g_out, kv)
+    # the library yardstick: the backward of scaled_dot_product_attention
+    # with the same mask (dQ, dK and dV together). Autograd runs a backward
+    # on its forward's stream, so the graph captures forward + backward,
+    # and the forward's own time is taken off.
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    gt = g_out.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), gt)) - time_ms(torch, sdpa)
+    shape = "q,k,v,g [%d,%d,%d,%d] fp32, kv_len %s" % (b, t, h, d, lens)
+    for name, src, tpu, err, fn, plain_part in (
+            ("flash_attention_bwd_dkdv", FLASH_BWD_SRC, DKDV_TPU, dkdv_err,
+             ck.flash_attention_bwd_dkdv, "dkdv"),
+            ("flash_attention_bwd_dq", FLASH_BWD_SRC, DQ_TPU, dq_err,
+             ck.flash_attention_bwd_dq, "dq")):
+        flops, nbytes = flash_work(b, t, h, d, lens, False, plain_part)
+        bms, bby = bound(flops, nbytes, peak_flops, peak_bw)
+        results[name] = {
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "shape": shape, "max_abs_err": err, "err_kind": "relative "
+            "(max |kernel - plain| / max(1, max |plain|))",
+            "ms": time_ms(torch, lambda fn=fn: fn(*args)),
+            "plain_ms": time_ms(
+                torch, lambda: ck.flash_attention_bwd_plain(*args)),
+            "library_ms": sdpa_bwd_ms,
+            "library_covers": "dQ, dK and dV (one backward call)",
+            "bound_ms": bms, "bound_by": bby,
+        }
+
+    # K4: softmax cross-entropy forward at the training path's shape
+    n, vocab = TRAIN_BATCH * MODEL["max_length"], MODEL["vocab"]
+    logits = torch.randn((n, vocab), generator=g, device=dev) * 3
+    labels = torch.randint(0, vocab, (n,), generator=g, device=dev)
+    odd = labels.clone()
+    odd[:4] = torch.tensor([-1, vocab, -5, vocab + 7], device=dev)
+    xent_err = 0.0
+    for lab in (labels, odd):
+        got = ck.softmax_xent_fwd(logits, lab)
+        ref = ck.softmax_xent_fwd_plain(logits, lab)
+        torch.cuda.synchronize()
+        xent_err = max(xent_err, max((a - r).abs().max().item()
+                                     for a, r in zip(got, ref)))
+    print("kernels: softmax_xent N=%d V=%d (with out-of-range labels) "
+          "max_abs_err=%.3e" % (n, vocab, xent_err))
+    check(np.isfinite(xent_err) and xent_err <= KERNEL_TOL,
+          "softmax_xent_fwd disagrees with its plain version by %r"
+          % xent_err)
+    bms, bby = bound(4 * n * vocab, 4 * n * vocab + 8 * n + 2 * 4 * n,
+                     peak_flops, peak_bw)
+    results["softmax_xent_fwd"] = {
+        "name": "softmax_xent_fwd", "route": "cuda", "source": XENT_SRC,
+        "replaces": XENT_TPU, "shape": "logits [%d,%d] fp32" % (n, vocab),
+        "max_abs_err": xent_err,
+        "ms": time_ms(torch, lambda: ck.softmax_xent_fwd(logits, labels)),
+        "plain_ms": time_ms(
+            torch, lambda: ck.softmax_xent_fwd_plain(logits, labels)),
+        "library_ms": time_ms(torch, lambda: F.cross_entropy(
+            logits, labels, reduction="none")),
+        "bound_ms": bms, "bound_by": bby,
+    }
+    del logits
+
+    # K5: layer norm forward, checked at a serving dispatch's rows and the
+    # training step's, timed at the first
+    dm = MODEL["d_model"]
     sc = torch.randn((dm,), generator=g, device=dev)
     bi = torch.randn((dm,), generator=g, device=dev)
-    y, mean, var = ck.layer_norm_fwd(x, sc, bi, 1e-5)
-    ry, rmean, rvar = ck.layer_norm_fwd_plain(x, sc, bi, 1e-5)
-    torch.cuda.synchronize()
-    ln_err = max((y - ry).abs().max().item(),
-                 (mean - rmean).abs().max().item(),
-                 (var - rvar).abs().max().item())
-    print("kernels: layer_norm N=%d D=%d max_abs_err=%.3e" % (n, dm, ln_err))
-    check(np.isfinite(ln_err) and ln_err <= KERNEL_TOL,
-          "layer_norm_fwd disagrees with its plain version by %r" % ln_err)
+    ln_err = 0.0
+    for n in (TRAIN_BATCH * t_max, 2048):
+        x = torch.randn((n, dm), generator=g, device=dev)
+        y, mean, var = ck.layer_norm_fwd(x, sc, bi, 1e-5)
+        ry, rmean, rvar = ck.layer_norm_fwd_plain(x, sc, bi, 1e-5)
+        torch.cuda.synchronize()
+        err = max((y - ry).abs().max().item(),
+                  (mean - rmean).abs().max().item(),
+                  (var - rvar).abs().max().item())
+        print("kernels: layer_norm N=%d D=%d max_abs_err=%.3e" % (n, dm, err))
+        check(np.isfinite(err) and err <= KERNEL_TOL,
+              "layer_norm_fwd disagrees with its plain version by %r" % err)
+        ln_err = max(ln_err, err)
     bms, bby = bound(8 * n * dm, 4 * (2 * n * dm + 2 * dm + 2 * n),
                      peak_flops, peak_bw)
     results["layer_norm_fwd"] = {
@@ -270,9 +425,11 @@ def run_kernels(torch, ck, peak_flops, peak_bw):
     }
     for r in results.values():
         print("kernels: %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
-              "bound_ms=%.4f (%s) eager_ms=%.4f"
+              "bound_ms=%.4f (%s)%s"
               % (r["name"], r["ms"], r["plain_ms"], r["library_ms"],
-                 r["bound_ms"], r["bound_by"], r["eager_ms"]))
+                 r["bound_ms"], r["bound_by"],
+                 " eager_ms=%.4f" % r["eager_ms"] if "eager_ms" in r
+                 else ""))
     return results
 
 
@@ -289,7 +446,7 @@ def run_serving(torch, card, n_layer=N_LAYER):
     main, startup = fluid.Program(), fluid.Program()
     startup.random_seed = SEED
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
-        predict = transformer.transformer(
+        _, _, predict = transformer.transformer(
             vocab, vocab, t_max, n_layer=n_layer, n_head=MODEL["n_head"],
             d_key=MODEL["d_key"], d_value=MODEL["d_key"],
             d_model=MODEL["d_model"], d_inner_hid=MODEL["d_inner"])
@@ -429,11 +586,280 @@ def run_serving(torch, card, n_layer=N_LAYER):
     return counts
 
 
+# -------------------------------------------------------------- training --
+
+def build_train(fluid, transformer, n_layer, max_length=None):
+    """Transformer-base training program (bench.py's bench_transformer
+    configuration): returns (main, startup, avg_cost)."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, avg_cost, _ = transformer.build_train(
+            MODEL["vocab"], MODEL["vocab"],
+            max_length or MODEL["max_length"],
+            d_model=MODEL["d_model"], warmup_steps=WARMUP_STEPS,
+            n_layer=n_layer, n_head=MODEL["n_head"], d_key=MODEL["d_key"],
+            d_value=MODEL["d_key"], d_inner_hid=MODEL["d_inner"],
+            label_smooth_eps=0.1)
+    return main, startup, avg_cost
+
+
+def op_breakdown(trace_path):
+    """{program op type: [host us, device us, kernel launches, ops]} from a
+    chrome trace of a step whose ops each ran under record_function
+    ("op:<type>"), grad_of ops named by the forward type they
+    differentiate. A kernel belongs to the op during which the host
+    launched it (the CUDA runtime or driver call and the kernel share a
+    correlation id; autograd's device thread launches inside the grad_of
+    op's range)."""
+    import bisect
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"][3:])
+                   for e in events if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("op:"))
+    starts = [sp[0] for sp in spans]
+    rows = {}
+    for t0, t1, name in spans:
+        row = rows.setdefault(name, [0.0, 0.0, 0, 0])
+        row[0] += t1 - t0
+        row[3] += 1
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        ts = launched.get(e["args"].get("correlation"))
+        i = bisect.bisect_right(starts, ts) - 1 if ts is not None else -1
+        if i >= 0 and ts <= spans[i][1]:
+            row = rows[spans[i][2]]
+            row[1] += e["dur"]
+            row[2] += 1
+    return rows
+
+
+def profile_step(torch, step, trace_path=None):
+    """One training step under torch.profiler, each program op inside a
+    record_function range: prints the device time by kernel (top 15),
+    grouped as the port's kernels, matrix products and the rest; host ms,
+    device ms and kernel launches by program op type (top 12 by host
+    time); and the device's idle share of the traced step's wall time (the
+    profiler slows the host, so that share is an upper bound). The chrome
+    trace is kept at `trace_path` when one is given. Returns the device
+    busy ms, the groups' ms and the kernel launches of the step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from paddle_tpu_torch.core import lowering
+
+    run_op = lowering.lower_op
+
+    def named_op(ctx, op, env):
+        kind = op.type if op.type != "grad_of" else \
+            "grad_of:" + op.attrs["fwd_type"]
+        with record_function("op:" + kind):
+            run_op(ctx, op, env)
+
+    torch.cuda.synchronize()
+    lowering.lower_op = named_op
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ts = time.perf_counter()
+            step()
+            wall_us = (time.perf_counter() - ts) * 1e6
+    finally:
+        lowering.lower_op = run_op
+    with tempfile.TemporaryDirectory(prefix="ptt_trace_") as tmp:
+        trace = trace_path or os.path.join(tmp, "train_step_trace.json")
+        prof.export_chrome_trace(trace)
+        rows = op_breakdown(trace)
+    kernels, n_kernels = {}, 0
+    for e in prof.events():
+        # the op ranges show on the device's timeline too: not kernels
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not e.name.startswith("op:"):
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time
+            n_kernels += 1
+    busy = sum(kernels.values())
+    groups = {"port kernels": 0.0, "matrix products": 0.0, "other": 0.0}
+    for name, us in kernels.items():
+        low = name.lower()
+        if any(k in low for k in ("flash_fwd", "flash_bwd", "xent_fwd",
+                                  "layer_norm_fwd_kernel")):
+            groups["port kernels"] += us
+        elif any(k in low for k in ("gemm", "gemv", "cutlass", "cublas")):
+            groups["matrix products"] += us
+        else:
+            groups["other"] += us
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    print("profile: step wall %.1f ms, device busy %.1f ms, idle share "
+          "%.3f, %d device kernels" % (wall_us / 1e3, busy / 1e3,
+                                       1 - busy / wall_us, n_kernels))
+    print("profile: device ms by group %s"
+          % json.dumps({k: v / 1e3 for k, v in groups.items()}))
+    for name, us in top:
+        print("profile: %10.3f ms  %s" % (us / 1e3, name[:110]))
+    print("profile: by program op: host ms in op rules %.1f, kernels "
+          "attributed %d of %d" % (sum(r[0] for r in rows.values()) / 1e3,
+                                   sum(r[2] for r in rows.values()),
+                                   n_kernels))
+    for name, (host, dev, n, ops) in sorted(rows.items(),
+                                            key=lambda kv: -kv[1][0])[:12]:
+        print("profile: op %-32s x%-4d host %8.3f ms  device %8.3f ms  "
+              "%5d kernels" % (name, ops, host / 1e3, dev / 1e3, n))
+    return busy / 1e3, {k: v / 1e3 for k, v in groups.items()}, n_kernels
+
+
+def run_training(torch, card, n_layer=N_LAYER, batch=TRAIN_BATCH,
+                 trace_path=None):
+    """The training path: Adam + noam steps of Transformer-base on the card
+    through Executor.run, on bench.py's copy task (src = trg = random ids in
+    [3, V), full length, the same batch every step)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.models import transformer
+
+    vocab, t_max = MODEL["vocab"], MODEL["max_length"]
+    t0 = time.perf_counter()
+    main, startup, avg_cost = build_train(fluid, transformer, n_layer)
+    ops = main.global_block().ops
+    per_step = {
+        "flash_attention_fwd": sum(op.type == "fused_attention" for op in ops),
+        "flash_attention_bwd_dkdv": sum(
+            op.type == "grad_of" and op.attrs["fwd_type"] == "fused_attention"
+            for op in ops),
+        "softmax_xent_fwd": sum(op.type == "softmax_with_cross_entropy"
+                                for op in ops),
+        "layer_norm_fwd": sum(op.type == "layer_norm" for op in ops)}
+    per_step["flash_attention_bwd_dq"] = per_step["flash_attention_bwd_dkdv"]
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(scope.get(p.name).shape))
+                   for p in main.all_parameters())
+    print("training: built Transformer-base training (%d+%d layers, %d "
+          "parameters, %d ops) and ran its startup program on %s in %.1f s"
+          % (n_layer, n_layer, n_params, len(ops), exe.device,
+             time.perf_counter() - t0))
+    frozen = {name: scope.get(name).clone()
+              for name in transformer.POS_ENC_PARAM_NAMES}
+
+    rng = np.random.RandomState(SEED)
+    srcs = [rng.randint(3, vocab, t_max).tolist() for _ in range(batch)]
+    feed = transformer.prepare_batch(srcs, srcs, t_max, labels=True)
+    tokens = int(feed["lbl_weight"].sum())
+    warm, timed = TRAIN_STEPS
+    losses, step_s = [], []
+    # the counts: zero just before the main path, read just after
+    ck.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(warm + timed):
+        ts = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
+        # the numpy fetch waits for the step's last kernel
+        step_s.append(time.perf_counter() - ts)
+        losses.append(float(loss.reshape(-1)[0]))
+    counts = ck.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = warm + timed
+    busy_ms, groups_ms, n_kernels = profile_step(
+        torch, lambda: exe.run(main, feed=feed, fetch_list=[avg_cost],
+                               scope=scope), trace_path)
+    print("training: losses %s" % ["%.6f" % x for x in losses])
+    print("training: launches %s over %d steps (expected per step %s)"
+          % (counts, steps, per_step))
+    for name, n in per_step.items():
+        check(n > 0 and counts[name] == n * steps,
+              "%s launched %d times over %d steps, expected %d per step"
+              % (name, counts[name], steps, n))
+    check(all(np.isfinite(x) for x in losses), "a loss is not finite: %s"
+          % losses)
+    check(losses[-1] < losses[0], "the loss did not fall: %s" % losses)
+    for name, before in frozen.items():
+        check(torch.equal(scope.get(name), before),
+              "the frozen table %s changed in training" % name)
+    times = step_s[warm:]
+    med = statistics.median(times)
+    training = {
+        "layers": n_layer, "batch": batch, "seq": t_max, "tokens": tokens,
+        "steps_timed": timed, "step_ms_median": med * 1e3,
+        "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
+        "tokens_per_s": tokens / med, "peak_mem_bytes": peak,
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "device_busy_ms": busy_ms, "device_ms_by_group": groups_ms,
+        "device_kernels_per_step": n_kernels,
+        # an estimate: the traced step's device time over the untraced
+        # steps' median wall time (two runs; the trace slows only the host)
+        "idle_share_est": 1 - busy_ms / (med * 1e3),
+        "card": card,
+    }
+    print("training: " + json.dumps(training))
+    del scope
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_training_vs_cpu(torch):
+    """One training step of the same program from the same weights on the
+    card and on the CPU (plain versions), at full widths and reduced depth
+    and batch: 1+1 layers, batch 2, T=64 of ragged lengths. Holds the loss,
+    every gradient and every updated parameter against the CPU's."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch import io as pio
+
+    vocab, t = MODEL["vocab"], 64
+    main, startup, avg_cost = build_train(fluid, transformer, 1, t)
+    cpu = fluid.Executor("cpu")
+    cpu_scope = fluid.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    state = {v.name: cpu_scope.get(v.name).numpy().copy()
+             for v in main.list_vars() if v.persistable}
+    card_scope = pio.scope_from_numpy(state, "cuda", program=main)
+    rng = np.random.RandomState(SEED + 1)
+    srcs = [rng.randint(3, vocab, n).tolist() for n in (t, 37)]
+    trgs = [rng.randint(3, vocab, n).tolist() for n in (50, t)]
+    feed = transformer.prepare_batch(srcs, trgs, t, labels=True)
+    grads = sorted(p.name + "@GRAD" for p in main.all_parameters()
+                   if p.trainable)
+    fetch = [avg_cost.name] + grads
+    got = fluid.Executor().run(main, feed=feed, fetch_list=fetch,
+                               scope=card_scope)
+    want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    loss_diff = abs(float(got[0][0]) - float(want[0][0]))
+    grad_err = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                     1e-30)
+                   for a, b in zip(got[1:], want[1:]))
+    # Adam with epsilon 1e-9 moves every parameter by about lr * sign(g)
+    # on its first step, so a gradient at rounding-noise level can flip
+    # sign between the two devices: the most that moves a parameter is
+    # 2 * lr of step 1
+    lr1 = MODEL["d_model"] ** -0.5 * WARMUP_STEPS ** -1.5
+    param_diff = max(float(np.abs(card_scope.get(name).cpu().numpy()
+                                  - cpu_scope.get(name).numpy()).max())
+                     for name in state)
+    print("training: one step at 1+1 layers, batch 2, T=%d, card vs CPU: "
+          "loss %.6f vs %.6f (diff %.3e), max gradient error %.3e of its "
+          "max, max parameter diff %.3e (limit 2 * lr = %.3e)"
+          % (t, float(got[0][0]), float(want[0][0]), loss_diff, grad_err,
+             param_diff, 2 * lr1))
+    check(loss_diff <= LOSS_RTOL * abs(float(want[0][0])),
+          "card and CPU losses differ by %r" % loss_diff)
+    check(grad_err <= GRAD_RTOL, "card and CPU gradients differ by %r of "
+          "their max" % grad_err)
+    check(param_diff <= 2 * lr1 * 1.001, "card and CPU parameters differ "
+          "by %r after one step" % param_diff)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/shared-memory report")
+    ap.add_argument("--trace", metavar="PATH",
+                    help="keep the traced training step's chrome trace here")
     args = ap.parse_args(argv)
 
     import torch
@@ -459,13 +885,15 @@ def main(argv=None):
         print(ck.build_info.log)
 
     kernels = run_kernels(torch, ck, peak_flops, peak_bw)
-    counts = {}
     if args.only == "all":
-        counts = run_serving(torch, card)
+        serving = run_serving(torch, card)
+        training = run_training(torch, card, trace_path=args.trace)
+        run_training_vs_cpu(torch)
         for kname, r in kernels.items():
-            r["launches"] = counts[kname]
-            check(r["launches"] > 0, "%s never launched on the main path"
-                  % kname)
+            r["launches"] = training[kname]
+            r["serving_launches"] = serving[kname]
+            check(r["launches"] > 0, "%s never launched on the training "
+                  "path" % kname)
     for r in kernels.values():
         r.setdefault("launches", None)
     print(json.dumps({"kernels": list(kernels.values())}))

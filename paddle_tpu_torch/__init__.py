@@ -5,8 +5,11 @@ The public surface mirrors the JAX package's (and `paddle.fluid`'s):
     import paddle_tpu_torch as fluid
     x = fluid.layers.data(name="x", shape=[13], dtype="float32")
     y = fluid.layers.fc(input=x, size=1)
+    loss = fluid.layers.reduce_sum(y)
+    fluid.optimizer.Adam(learning_rate=0.01).minimize(loss)
     exe = fluid.Executor()            # the CUDA card; Executor("cpu") for CPU
     exe.run(fluid.default_startup_program())
+    exe.run(feed={"x": xs}, fetch_list=[loss])
 
 Programs are the same IR and serialize to the same JSON bytes as the JAX
 package's, so either package loads the other's saved models. Execution is
@@ -23,6 +26,14 @@ from .core.param_attr import ParamAttr  # noqa: F401
 from .core import initializer  # noqa: F401
 from .core import unique_name  # noqa: F401
 
+from .core.backward import append_backward, calc_gradient  # noqa: F401
+
 from . import ops as _ops  # noqa: F401  (registers the op rules)
 from . import layers  # noqa: F401
+from . import optimizer  # noqa: F401
+from . import regularizer  # noqa: F401
+from . import clip  # noqa: F401
+from .clip import (ErrorClipByValue, GradientClipByValue,  # noqa: F401
+                   GradientClipByNorm, GradientClipByGlobalNorm)
+from . import backward  # noqa: F401
 from . import io  # noqa: F401

@@ -1,0 +1,4 @@
+"""Alias module (parity: fluid.backward)."""
+from .core.backward import append_backward, calc_gradient  # noqa: F401
+
+__all__ = ["append_backward", "calc_gradient"]

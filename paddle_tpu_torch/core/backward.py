@@ -1,0 +1,251 @@
+"""append_backward: build gradient ops into the Program.
+
+Parity: python/paddle/fluid/backward.py + the reference's per-op GradOpMaker
+machinery (paddle/fluid/framework/grad_op_desc_maker.h), and a copy of the
+JAX package's core/backward.py: the same generic "grad_of" op per forward
+op, with the same attrs, in the same order, so a training Program built by
+either package serializes to the same bytes. Here a grad_of computes its
+input grads with torch.autograd from the forward op's kept local graph
+(core/lowering.py:_lower_grad_of). Gradient accumulation for fan-out (the
+reference's inserted sum_op after @RENAME@ bookkeeping) is handled by
+emitting grad ops in reverse topological order and accumulating into
+<var>@GRAD at run time.
+"""
+from .framework import grad_var_name, GRAD_SUFFIX
+from . import registry
+
+
+def _op_path(block, loss_name, no_grad_set, force_diff=()):
+    """Ops on a path from any differentiable input to the loss (or losses —
+    pass a set for multiple targets, parity: backward.py _find_op_path_),
+    plus the set of vars that need gradients. Names in `force_diff` are
+    treated as differentiable even if their var says stop_gradient (the
+    calc_gradient explicit-inputs contract)."""
+    # backward sweep: vars needing grads
+    needed = set(loss_name) if isinstance(loss_name, (set, frozenset)) \
+        else {loss_name}
+    path_flags = [False] * len(block.ops)
+    for idx in range(len(block.ops) - 1, -1, -1):
+        op = block.ops[idx]
+        outs = set(op.all_output_vars())
+        if outs & needed:
+            path_flags[idx] = True
+            for name in op.all_input_vars():
+                if name in force_diff:
+                    needed.add(name)
+                    continue
+                if name in no_grad_set:
+                    continue
+                v = block.vars.get(name)
+                if v is not None and v.stop_gradient:
+                    continue
+                needed.add(name)
+    return path_flags, needed
+
+
+def append_backward(loss, parameter_list=None, no_grad_set=None,
+                    callbacks=None):
+    """Append gradient ops for `loss` to its program.
+
+    Returns [(Parameter, grad Variable)] like the reference.
+    """
+    block = loss.block
+    program = block.program
+    no_grad = set(no_grad_set or ())
+    for v in block.vars.values():
+        if v.stop_gradient:
+            no_grad.add(v.name)
+
+    path_flags, needed = _op_path(block, loss.name, no_grad)
+    fwd_len = len(block.ops)
+
+    # d(loss)/d(loss) = 1
+    loss_grad = block.create_var(
+        name=grad_var_name(loss.name), shape=loss.shape, dtype=loss.dtype)
+    block.append_op(
+        type="fill_constant",
+        outputs={"Out": [loss_grad]},
+        attrs={"shape": list(loss.shape or (1,)), "value": 1.0,
+               "dtype": loss.dtype},
+        infer_shape=False)
+
+    _backward_sweep(block, path_flags, needed, no_grad, {loss.name}, fwd_len)
+
+    # collect (param, grad) pairs — in CANONICAL (sorted-by-name) order,
+    # not construction order. The pair order drives everything the
+    # optimizer appends downstream: gradient-clip/regularization ops,
+    # accumulator creation (whose unique_name counters land in var
+    # names) and the per-param update ops, so sorting here keeps the
+    # program bytes free of hash-seed and caller-order effects (asserted
+    # again in Optimizer._create_optimization_pass).
+    if parameter_list is not None:
+        params = [block.var_recursive(p) if isinstance(p, str) else p
+                  for p in parameter_list]
+    else:
+        params = [p for p in block.program.all_parameters() if p.trainable]
+    names = [p.name for p in params]
+    assert len(set(names)) == len(names), \
+        "duplicate parameter names break the canonical grad-pair order: %r" \
+        % sorted(n for n in names if names.count(n) > 1)
+    pairs = []
+    for p in sorted(params, key=lambda p: p.name):
+        g = block.vars.get(grad_var_name(p.name))
+        if g is not None and p.name in needed:
+            pairs.append((p, g))
+    return pairs
+
+
+def _backward_sweep(block, path_flags, needed, no_grad, seed_names,
+                    fwd_len):
+    """Emit grad_of ops in reverse topological order (shared by
+    append_backward and calc_gradient). seed_names are vars whose @GRAD
+    is already written (the seeded targets)."""
+    # A var "has a grad" once some consumer's grad op has (started)
+    # writing it.
+    from .lowering import SPECIAL_GRADS  # function-level: avoids cycle
+    has_grad = set(seed_names)
+    for idx in range(fwd_len - 1, -1, -1):
+        if not path_flags[idx]:
+            continue
+        op = block.ops[idx]
+        diff_slots = None   # None = every slot (generic registered path)
+        if op.type in SPECIAL_GRADS:
+            # same gate _lower_grad_of dispatches on — membership here
+            # wins over registration so the diff_slots contract and the
+            # grad implementation can never disagree
+            diff_slots = SPECIAL_GRADS[op.type]["diff_slots"]
+        elif not registry.is_registered(op.type):
+            # structure-only specials (lod_rank_table, max_sequence_len,
+            # ...) produce no float outputs: if no output carries a
+            # grad, there is nothing to differentiate — same skip the
+            # generic path applies via its `produces` check below
+            if any(n in has_grad for ns in op.outputs.values()
+                   for n in ns if n):
+                raise NotImplementedError(
+                    "no lowering registered for op %r; cannot "
+                    "differentiate" % op.type)
+            continue
+        out_grads = {}
+        produces = False
+        for slot, names in op.outputs.items():
+            out_grads[slot] = [grad_var_name(n) if n in has_grad else ""
+                               for n in names]
+            produces = produces or any(out_grads[slot])
+        if not produces:
+            continue
+
+        # error clipping (parity: reference backward.py error_clip_callback)
+        # appends a clip op on the fully-accumulated out-grad; the clip op
+        # is not ported yet (ROADMAP A3), so a var that asks for it raises
+        for slot, names in op.outputs.items():
+            for n, g in zip(names, out_grads[slot]):
+                v = block.vars.get(n)
+                if g and v is not None and v.error_clip is not None:
+                    raise NotImplementedError(
+                        "error clipping (%r carries error_clip) needs the "
+                        "clip op, which paddle_tpu_torch does not have yet"
+                        % n)
+
+        grad_in_names = []   # read by the grad op (for dependency analysis)
+        grad_out = {}        # slot -> grad var names written
+        for slot, names in op.inputs.items():
+            grad_in_names.extend(names)
+            outs = []
+            for n in names:
+                if n in no_grad or n not in needed or (
+                        diff_slots is not None and slot not in diff_slots):
+                    outs.append("")
+                else:
+                    outs.append(grad_var_name(n))
+            grad_out["InGrad::" + slot] = outs
+        for slot, gnames in out_grads.items():
+            grad_in_names.extend([g for g in gnames if g])
+
+        # declare grad vars in the block
+        for slot, outs in grad_out.items():
+            src = op.inputs[slot.split("::", 1)[1]]
+            for n, g in zip(src, outs):
+                if g and g not in block.vars:
+                    v = block.vars.get(n)
+                    block.create_var(
+                        name=g,
+                        shape=v.shape if v is not None else None,
+                        dtype=v.dtype if v is not None else "float32")
+
+        gop = block.append_op(
+            type="grad_of",
+            inputs={"Dep": grad_in_names},
+            outputs=grad_out,
+            attrs={
+                "fwd_type": op.type,
+                "fwd_uid": op.uid,
+                "fwd_attrs": dict(op.attrs),
+                "fwd_inputs": {s: list(n) for s, n in op.inputs.items()},
+                "fwd_outputs": {s: list(n) for s, n in op.outputs.items()},
+                # sorted: no_grad is a SET, and set iteration order
+                # varies with PYTHONHASHSEED — unsorted, identical
+                # builds would serialize differently per process
+                "no_grad_names": tuple(sorted(no_grad)),
+                "__accumulate_outputs__": True,
+            },
+            infer_shape=False)
+        for slot, outs in grad_out.items():
+            for g in outs:
+                if g:
+                    has_grad.add(g[:-len(GRAD_SUFFIX)])
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Backpropagate gradients of `targets` to `inputs` without an optimizer.
+
+    Parity: python/paddle/fluid/backward.py:555 calc_gradient. Appends
+    grad_of ops for the op path from `inputs` to `targets`; each target is
+    seeded with its matching entry of `target_gradients` (ones when None,
+    like the reference's filled loss grad). Returns the list of gradient
+    Variables for `inputs`, with None where a target is unreachable.
+    Unlike stop_gradient vars picked up implicitly, explicitly-passed
+    `inputs` are always treated as differentiable."""
+    targets = list(targets) if isinstance(targets, (list, tuple)) \
+        else [targets]
+    inputs = list(inputs) if isinstance(inputs, (list, tuple)) else [inputs]
+    tgs = list(target_gradients) if target_gradients is not None else \
+        [None] * len(targets)
+    if len(tgs) != len(targets):
+        raise ValueError("target_gradients must match targets (%d vs %d)"
+                         % (len(tgs), len(targets)))
+    block = targets[0].block
+    no_grad = set(no_grad_set or ())
+    for v in block.vars.values():
+        if v.stop_gradient:
+            no_grad.add(v.name)
+    force_diff = {i.name for i in inputs}
+    no_grad -= force_diff
+
+    path_flags, needed = _op_path(
+        block, {t.name for t in targets}, no_grad, force_diff=force_diff)
+    fwd_len = len(block.ops)
+
+    for t, tg in zip(targets, tgs):
+        gname = grad_var_name(t.name)
+        if gname not in block.vars:
+            block.create_var(name=gname, shape=t.shape, dtype=t.dtype)
+        if tg is None:
+            block.append_op(
+                type="fill_constant",
+                outputs={"Out": [block.vars[gname]]},
+                attrs={"shape": list(t.shape or (1,)), "value": 1.0,
+                       "dtype": t.dtype},
+                infer_shape=False)
+        else:
+            block.append_op(
+                type="assign", inputs={"X": [tg]},
+                outputs={"Out": [block.vars[gname]]}, infer_shape=False)
+
+    _backward_sweep(block, path_flags, needed, no_grad,
+                    {t.name for t in targets}, fwd_len)
+
+    grads = []
+    for i in inputs:
+        g = block.vars.get(grad_var_name(i.name))
+        grads.append(g if g is not None and i.name in needed else None)
+    return grads

@@ -70,6 +70,7 @@ class Variable(object):
         self.stop_gradient = stop_gradient
         self.is_data = is_data
         self.initializer = initializer
+        self.error_clip = None  # BaseErrorClipAttr; read by append_backward
         # name of the int32 [num_seqs] companion tensor holding true sequence
         # lengths; set for lod_level>0 vars
         self.seq_len_var = None
@@ -258,6 +259,16 @@ class Block(object):
                             ov.lod_level = src.lod_level
                             ov.seq_len_var = src.seq_len_var
                     break
+        self.program._bump_version()
+        if infer_shape:
+            from . import registry
+            registry.infer_and_set_shapes(self, op)
+        return op
+
+    def prepend_op(self, type, inputs=None, outputs=None, attrs=None,
+                   infer_shape=True):
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(0, op)
         self.program._bump_version()
         if infer_shape:
             from . import registry

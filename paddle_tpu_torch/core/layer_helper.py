@@ -135,6 +135,25 @@ class LayerHelper(object):
     # reference name
     create_tmp_variable = create_variable_for_type_inference
 
+    def create_global_variable(self, persistable=False, *args, **kwargs):
+        return self.main_program.global_block().create_var(
+            *args, persistable=persistable, **kwargs)
+
+    def create_or_get_global_variable(self, name, *args, **kwargs):
+        gb = self.main_program.global_block()
+        if not gb.has_var(name):
+            return self.create_global_variable(name=name, *args, **kwargs)
+        return gb.var(name)
+
+    def set_variable_initializer(self, var, initializer):
+        """Declare `var` in the startup program and append its init op
+        there (optimizer accumulators, step counters, global vars)."""
+        sb = self.startup_program.global_block()
+        sv = sb.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
+                           persistable=True)
+        initializer(sv, sb)
+        return sv
+
     def append_bias_op(self, input_var, dim_start=1, dim_end=None):
         size = list(input_var.shape[dim_start:dim_end])
         bias_attr = self.bias_attr

@@ -5,12 +5,23 @@ executor.cc: Executor::RunPreparedContext walks the BlockDesc and launches
 a kernel per OpDesc). The JAX package traces the whole Program into one XLA
 computation instead (its core/lowering.py); PyTorch runs eagerly, so here
 each op's rule is called in program order and its outputs land in an Env —
-the same names, the same rules, no trace. Inference needs no gradient
-machinery, remat or multi-step loop, so none of those exist here yet.
+the same names, the same rules, no trace.
+
+Gradients: core/backward.py appends one `grad_of` op per differentiated
+forward op, as in the JAX package. There the grad op replays the forward
+rule inside `jax.vjp` and XLA's CSE removes the duplicate forward; eager
+PyTorch has no CSE, so replaying would run every forward op (and launch
+every kernel) twice. Instead, a forward op that some `grad_of` of the run
+names by `fwd_uid` runs its rule under autograd, on detached float inputs
+that require grad, and keeps (those leaf inputs, its outputs); its
+`grad_of` calls `torch.autograd.grad` on them once and drops them. Every
+other op, and every run without `grad_of` ops (inference), runs under
+`torch.no_grad()`.
 """
 import torch
 
 from . import registry
+from .framework import GRAD_SUFFIX
 
 
 class LowerCtx(object):
@@ -26,6 +37,12 @@ class LowerCtx(object):
         self.is_startup = is_startup
         self._op_salt = 0
         self._op_calls = 0
+        # the forward ops some grad_of of this run differentiates (uid ->
+        # that grad_of's no_grad_names), and their kept local graphs: uid ->
+        # ({(slot, i): leaf input}, {name: output}), from the forward op's
+        # run until its grad_of
+        self.grad_stop = {}
+        self.saved = {}
 
     def begin_op(self, salt):
         self._op_salt = salt
@@ -79,8 +96,17 @@ class Env(object):
     def write(self, name, value):
         self.values[name] = value
 
+    def accumulate(self, name, value):
+        """values[name] += value, into a new tensor: a kept graph may still
+        read the old one."""
+        cur = self.values.get(name)
+        self.values[name] = value if cur is None else cur + value
+
 
 def lower_block(ctx, block, env):
+    ctx.grad_stop = {op.attrs["fwd_uid"]:
+                     frozenset(op.attrs.get("no_grad_names", ()))
+                     for op in block.ops if op.type == "grad_of"}
     for op in block.ops:
         lower_op(ctx, op, env)
 
@@ -99,19 +125,99 @@ def lower_op(ctx, op, env):
 
 
 def _lower_op_inner(ctx, op, env):
+    if op.type == "grad_of":
+        _lower_grad_of(ctx, op, env)
+        return
     od = registry.get(op.type)
     ins = {slot: [env.read(n) for n in names]
            for slot, names in op.inputs.items()}
     ctx.begin_op(op.uid)
-    outs = od.lower(ctx, ins, op.attrs)
-    _write_outputs(op, outs, env)
+    stop = ctx.grad_stop.get(op.uid)
+    if stop is None:
+        _write_outputs(op, od.lower(ctx, ins, op.attrs), env)
+        return
+    # keep this op's local graph for its grad_of: leaves are the float
+    # inputs the gradient may reach (not the program's no-grad names)
+    leaves = {}
+    for slot, names in op.inputs.items():
+        for i, name in enumerate(names):
+            v = ins[slot][i]
+            if v.is_floating_point() and name not in stop:
+                leaves[(slot, i)] = ins[slot][i] = \
+                    v.detach().requires_grad_(True)
+    with torch.enable_grad():
+        outs = od.lower(ctx, ins, op.attrs)
+    kept = {}
+    for slot, names in op.outputs.items():
+        for name, val in zip(names, outs.get(slot) or ()):
+            if name and val is not None and val.requires_grad:
+                kept[name] = val
+    ctx.saved[op.uid] = (leaves, kept)
+    _write_outputs(op, {slot: [v.detach() if v is not None else v
+                               for v in vals]
+                        for slot, vals in outs.items()}, env)
 
 
 def _write_outputs(op, outs, env):
+    acc = op.attrs.get("__accumulate_outputs__", False)
     for slot, names in op.outputs.items():
         vals = outs.get(slot)
         if vals is None:
             continue
         for name, val in zip(names, vals):
-            if name:
+            if not name:
+                continue
+            if acc:
+                env.accumulate(name, val)
+            else:
                 env.write(name, val)
+
+
+# Forward op types whose gradient is hand-written rather than autograd's
+# (parity: the JAX package's SPECIAL_GRADS, whose one entry is a LoD op
+# the port does not have yet). backward.py reads the same table.
+SPECIAL_GRADS = {}
+
+
+def _lower_grad_of(ctx, op, env):
+    """Input gradients of one forward op, from its kept local graph.
+
+    The JAX contract (its core/lowering.py _lower_grad_of): the cotangent
+    of each forward output is <out>@GRAD, broadcast to the output's shape
+    (an output with no such var contributes nothing, as a zero cotangent
+    would); only float inputs are differentiated; inputs named in
+    no_grad_names get nothing; every other input's gradient is ADDED to
+    <in>@GRAD (backward.py emits grad ops in reverse topological order,
+    so fan-out sums)."""
+    fwd_type = op.attrs["fwd_type"]
+    if fwd_type in SPECIAL_GRADS:
+        SPECIAL_GRADS[fwd_type]["fn"](ctx, op, env)
+        return
+    uid = op.attrs["fwd_uid"]
+    if uid not in ctx.saved:
+        raise RuntimeError("grad_of %r (fwd uid %d): the forward op kept no "
+                           "graph in this run" % (fwd_type, uid))
+    leaves, kept = ctx.saved.pop(uid)
+    fwd_inputs = op.attrs["fwd_inputs"]
+    outs, cots = [], []
+    for slot, names in sorted(op.attrs["fwd_outputs"].items()):
+        for name in names:
+            g = env.values.get(name + GRAD_SUFFIX) if name else None
+            p = kept.get(name)
+            if g is None or p is None:
+                continue
+            g = g.to(p.dtype)
+            if g.shape != p.shape:
+                g = g.broadcast_to(p.shape)
+            outs.append(p)
+            cots.append(g)
+    keys = list(leaves)
+    grads = [None] * len(keys)
+    if outs and keys:
+        grads = torch.autograd.grad(outs, [leaves[k] for k in keys], cots,
+                                    allow_unused=True)
+    # the leaves are the forward op's float inputs outside no_grad_names
+    for (slot, i), g in zip(keys, grads):
+        if g is None:
+            g = torch.zeros_like(leaves[(slot, i)])
+        env.accumulate(fwd_inputs[slot][i] + GRAD_SUFFIX, g)

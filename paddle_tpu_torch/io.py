@@ -139,31 +139,35 @@ def load_inference_model(dirname, executor, model_filename=None, scope=None):
 
 def scope_from_numpy(arrays, device, program=None):
     """A Scope holding `arrays` ({name: np.ndarray}) as tensors on
-    `device` — weights carried over by name from the JAX package, which
+    `device` — state carried over by name from the JAX package, which
     uses the same names and layouts (mul weights [in, out], embeddings
-    [V, D], layer-norm scale/bias [D]). With `program`, every parameter of
-    the program must be present with its declared shape, or this raises
-    before anything is converted; values then take the declared dtypes."""
+    [V, D], layer-norm scale/bias [D], Adam moments like their
+    parameters). With `program`, every persistable of the program —
+    parameters, optimizer accumulators, beta pows, learning-rate vars,
+    step counters — must be present with its declared shape, or this
+    raises before anything is converted; values then take the declared
+    dtypes (the JAX package's int32 counters become the declared
+    int64)."""
     from .core.executor import resolve_device
     device = resolve_device(device)
+    declared = {}
     if program is not None:
+        declared = {v.name: v for v in program.list_vars() if v.persistable}
         problems = []
-        for v in program.list_vars():
-            if not isinstance(v, Parameter):
+        for name, v in declared.items():
+            if name not in arrays:
+                problems.append("%s: missing" % name)
                 continue
-            if v.name not in arrays:
-                problems.append("%s: missing" % v.name)
-                continue
-            got = tuple(np.shape(arrays[v.name]))
+            got = tuple(np.shape(arrays[name]))
             if v.shape is not None and got != tuple(v.shape):
                 problems.append("%s: shape %s, program declares %s"
-                                % (v.name, got, tuple(v.shape)))
+                                % (name, got, tuple(v.shape)))
         if problems:
             raise ValueError("scope_from_numpy: arrays do not match the "
                              "program:\n  " + "\n  ".join(problems))
     scope = Scope()
     for name, arr in arrays.items():
-        var = program.global_block().vars.get(name) if program else None
+        var = declared.get(name)
         scope.set(name, to_tensor(arr, var.dtype if var is not None else None,
                                   device))
     return scope

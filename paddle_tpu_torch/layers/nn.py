@@ -1,4 +1,5 @@
-"""NN layers that build graph ops (the subset models/transformer.py calls).
+"""NN layers that build graph ops (the subset models/transformer.py and
+the noam schedule call).
 
 Parity: python/paddle/fluid/layers/nn.py and the JAX package's layers/nn.py
 — same function names, argument names and op emission, so both packages
@@ -9,7 +10,9 @@ import numpy as np
 from ..core.layer_helper import LayerHelper
 from ..core.initializer import ConstantInitializer
 
-__all__ = ["fc", "embedding", "layer_norm", "fused_attention"]
+__all__ = ["fc", "embedding", "layer_norm", "fused_attention",
+           "softmax_with_cross_entropy", "one_hot", "reduce_sum",
+           "autoincreased_step_counter"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -125,3 +128,55 @@ def fused_attention(q, k, v, causal=False, scale=None, kv_len=None,
     if q.shape is not None:
         out.shape = tuple(q.shape)
     return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False):
+    """Fused, numerically stable softmax + cross-entropy; returns the Loss
+    (the op's Softmax output is declared too, as in the reference)."""
+    helper = LayerHelper("softmax_with_cross_entropy", **locals())
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op(
+        type="softmax_with_cross_entropy",
+        inputs={"Logits": [logits], "Label": [label]},
+        outputs={"Softmax": [softmax_out], "Loss": [loss]},
+        attrs={"soft_label": soft_label})
+    return loss
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot", **locals())
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="reduce_sum", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"keep_dim": keep_dim, "reduce_all": dim is None,
+                            "dim": dim if dim is not None else 0})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """A persistable int64 counter incremented once per run, by an
+    increment op placed first in the program; drives LR schedules."""
+    helper = LayerHelper("global_step_counter")
+    counter_name = counter_name or "@STEP_COUNTER@"
+    counter = helper.create_or_get_global_variable(
+        name=counter_name, dtype="int64", shape=[1], persistable=True)
+    if counter.op is None:
+        helper.set_variable_initializer(
+            counter, initializer=ConstantInitializer(value=begin - 1))
+        counter.op = helper.main_program.global_block().prepend_op(
+            type="increment",
+            inputs={"X": [counter]},
+            outputs={"Out": [counter]},
+            attrs={"step": float(step)},
+            infer_shape=False)
+        counter.stop_gradient = True
+    return counter

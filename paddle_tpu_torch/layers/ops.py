@@ -1,5 +1,5 @@
-"""Thin layer wrappers over registered ops (reshape, scale, relu,
-elementwise_add, mul).
+"""Thin layer wrappers over registered ops (reshape, scale, relu, mul and
+the elementwise family).
 
 Parity: python/paddle/fluid/layers/ops.py + layer_function_generator.py
 and the JAX package's layers/ops.py: generated from a slot-spec table;
@@ -17,8 +17,10 @@ _SPECS = {
     "reshape": (_UNARY, ["Out"]),
     "scale": (_UNARY, ["Out"]),
     "relu": (_UNARY, ["Out"]),
-    "elementwise_add": (_BINARY, ["Out"]),
 }
+for _e in ("elementwise_add", "elementwise_sub", "elementwise_mul",
+           "elementwise_div", "elementwise_min", "elementwise_pow"):
+    _SPECS[_e] = (_BINARY, ["Out"])
 
 __all__ = list(_SPECS)
 

@@ -1,12 +1,15 @@
-"""Transformer (Attention is All You Need) scoring graph, built from the
-port's layers.
+"""Transformer (Attention is All You Need) built from the port's layers:
+the teacher-forced scoring graph, its training loss (label smoothing,
+per-token weights) and `build_train` (Adam with noam warmup).
 
 Parity: the JAX package's models/transformer.py, fused-attention branch:
 the same helpers, layer calls and parameter names, so both packages build
-the same Program for the same configuration. This slice ports the scoring
-graph only — `transformer()` returns the [B, T, trg_vocab] logits of
-teacher-forced decoding. The training loss and the decode builders are
-not ported yet.
+the same Program for the same configuration. `transformer()` returns
+(sum_cost, avg_cost, predict) as the JAX one does; `predict` is the
+[B, T, trg_vocab] logits a scoring model saves (save_inference_model
+prunes the loss away). Not ported yet: the dense attn_bias attention path,
+dropout, the fused-qkv projection, the unfused label-smoothing path and
+the decode builders.
 """
 import numpy as np
 
@@ -15,6 +18,7 @@ import paddle_tpu_torch as fluid
 POS_ENC_PARAM_NAMES = ("src_pos_enc_table", "trg_pos_enc_table")
 SCORING_FEED_NAMES = ["src_word", "src_pos", "trg_word", "trg_pos",
                       "src_len", "trg_len"]
+FUSED_FEED_NAMES = SCORING_FEED_NAMES + ["lbl_word", "lbl_weight"]
 
 
 def position_encoding_init(n_position, d_model):
@@ -133,24 +137,36 @@ def decoder(dec_input, enc_output, n_layer, n_head, d_key, d_value, d_model,
 
 
 def make_inputs(max_length):
-    """Declare the scoring feeds: [B, T] int64 token ids and positions,
-    [B, 1] int32 source and target lengths (the flash kernel's kv_len)."""
+    """Declare the feeds: [B, T] int64 token ids and positions, [B, 1]
+    int32 source and target lengths (the flash kernel's kv_len), and the
+    [B, T, 1] int64 labels and float32 per-token loss weights."""
     src_word = fluid.layers.data("src_word", [max_length], dtype="int64")
     src_pos = fluid.layers.data("src_pos", [max_length], dtype="int64")
     trg_word = fluid.layers.data("trg_word", [max_length], dtype="int64")
     trg_pos = fluid.layers.data("trg_pos", [max_length], dtype="int64")
     src_len = fluid.layers.data("src_len", [1], dtype="int32")
     trg_len = fluid.layers.data("trg_len", [1], dtype="int32")
-    return src_word, src_pos, trg_word, trg_pos, src_len, trg_len
+    lbl_word = fluid.layers.data("lbl_word", [max_length, 1], dtype="int64")
+    lbl_weight = fluid.layers.data("lbl_weight", [max_length, 1])
+    return (src_word, src_pos, trg_word, trg_pos, src_len, trg_len,
+            lbl_word, lbl_weight)
 
 
 def transformer(src_vocab_size, trg_vocab_size, max_length, n_layer=2,
-                n_head=4, d_key=16, d_value=16, d_model=64, d_inner_hid=128):
-    """Build the scoring graph (every attention core through the fused
-    flash op); returns the logits Variable [-1, max_length,
-    trg_vocab_size]. Feeds: SCORING_FEED_NAMES (see prepare_batch)."""
-    (src_word, src_pos, trg_word, trg_pos, src_len,
-     trg_len) = make_inputs(max_length)
+                n_head=4, d_key=16, d_value=16, d_model=64, d_inner_hid=128,
+                label_smooth_eps=0.0):
+    """Build the training graph (every attention core through the fused
+    flash op); returns (sum_cost, avg_cost, predict). Feeds:
+    FUSED_FEED_NAMES (see prepare_batch); a scoring model needs only
+    SCORING_FEED_NAMES.
+
+    label_smooth_eps > 0 takes the JAX package's exact decomposition of
+    uniform label smoothing: cost = nll + eps * (logit_label -
+    sum(logits) / V), with the hard-label softmax_with_cross_entropy (the
+    K4 kernel) for nll. This is the JAX builder with dropout_rate=0,
+    use_fused_attention=True and use_fused_label_smooth=True."""
+    (src_word, src_pos, trg_word, trg_pos, src_len, trg_len, lbl_word,
+     lbl_weight) = make_inputs(max_length)
     enc_input = prepare_encoder(
         src_word, src_pos, src_vocab_size, d_model, max_length,
         pos_enc_param_name=POS_ENC_PARAM_NAMES[0])
@@ -162,18 +178,58 @@ def transformer(src_vocab_size, trg_vocab_size, max_length, n_layer=2,
     dec_output = decoder(dec_input, enc_output, n_layer, n_head, d_key,
                          d_value, d_model, d_inner_hid, src_len=src_len,
                          trg_len=trg_len)
-    return fluid.layers.fc(input=dec_output, size=trg_vocab_size,
-                           bias_attr=False, num_flatten_dims=2)
+    predict = fluid.layers.fc(input=dec_output, size=trg_vocab_size,
+                              bias_attr=False, num_flatten_dims=2)
+    predict_2d = fluid.layers.reshape(predict, shape=[-1, trg_vocab_size])
+    lbl_flat = fluid.layers.reshape(lbl_word, shape=[-1, 1])
+    if label_smooth_eps:
+        # -(sum smoothed*logp) = nll + eps*(logit_label - sum(logits)/V)
+        nll = fluid.layers.softmax_with_cross_entropy(
+            logits=predict_2d, label=lbl_flat)
+        logit_lbl = fluid.layers.reduce_sum(
+            fluid.layers.one_hot(lbl_flat, depth=trg_vocab_size)
+            * predict_2d, dim=1, keep_dim=True)
+        cost = nll + label_smooth_eps * (
+            logit_lbl - fluid.layers.reduce_sum(
+                predict_2d, dim=1, keep_dim=True) / float(trg_vocab_size))
+    else:
+        cost = fluid.layers.softmax_with_cross_entropy(
+            logits=predict_2d, label=lbl_flat)
+    weight_flat = fluid.layers.reshape(lbl_weight, shape=[-1, 1])
+    weighted_cost = cost * weight_flat
+    sum_cost = fluid.layers.reduce_sum(weighted_cost)
+    token_num = fluid.layers.reduce_sum(weight_flat)
+    token_num.stop_gradient = True
+    avg_cost = sum_cost / token_num
+    return sum_cost, avg_cost, predict
 
 
-def prepare_batch(src_seqs, trg_seqs, max_length, pad_id=0):
-    """Pack python token lists into the dense scoring feeds (teacher
-    forcing: the decoder input is <s>=1 followed by trg[:-1])."""
+def build_train(src_vocab_size, trg_vocab_size, max_length, d_model=64,
+                warmup_steps=40, learning_rate=1.0, **kwargs):
+    """transformer() plus Adam(beta1 0.9, beta2 0.98, epsilon 1e-9) on the
+    noam schedule; returns (sum_cost, avg_cost, predict)."""
+    sum_cost, avg_cost, predict = transformer(
+        src_vocab_size, trg_vocab_size, max_length, d_model=d_model,
+        **kwargs)
+    lr = fluid.layers.noam_decay(d_model, warmup_steps, learning_rate)
+    optimizer = fluid.optimizer.Adam(learning_rate=lr, beta1=0.9,
+                                     beta2=0.98, epsilon=1e-9)
+    optimizer.minimize(avg_cost)
+    return sum_cost, avg_cost, predict
+
+
+def prepare_batch(src_seqs, trg_seqs, max_length, pad_id=0, labels=False):
+    """Pack python token lists into the dense feeds (teacher forcing: the
+    decoder input is <s>=1 followed by trg[:-1], the label is trg). The
+    scoring feeds (SCORING_FEED_NAMES), plus with labels=True the training
+    feeds lbl_word and lbl_weight (weight 1 on real tokens, 0 on pads)."""
     b = len(src_seqs)
     src = np.full((b, max_length), pad_id, "int64")
     src_pos = np.zeros((b, max_length), "int64")
     trg = np.full((b, max_length), pad_id, "int64")
     trg_pos = np.zeros((b, max_length), "int64")
+    lbl = np.full((b, max_length, 1), pad_id, "int64")
+    lbl_w = np.zeros((b, max_length, 1), "float32")
     src_len = np.zeros((b, 1), "int32")
     trg_len = np.zeros((b, 1), "int32")
     for i, (s, t) in enumerate(zip(src_seqs, trg_seqs)):
@@ -183,7 +239,14 @@ def prepare_batch(src_seqs, trg_seqs, max_length, pad_id=0):
         src_pos[i, :len(s)] = np.arange(len(s))
         trg[i, :len(t_in)] = t_in
         trg_pos[i, :len(t_in)] = np.arange(len(t_in))
+        tl = min(len(t), max_length)
+        lbl[i, :tl, 0] = list(t)[:tl]
+        lbl_w[i, :tl, 0] = 1.0
         src_len[i, 0] = len(s)
         trg_len[i, 0] = len(t_in)
-    return {"src_word": src, "src_pos": src_pos, "trg_word": trg,
-            "trg_pos": trg_pos, "src_len": src_len, "trg_len": trg_len}
+    feeds = {"src_word": src, "src_pos": src_pos, "trg_word": trg,
+             "trg_pos": trg_pos, "src_len": src_len, "trg_len": trg_len}
+    if labels:
+        feeds["lbl_word"] = lbl
+        feeds["lbl_weight"] = lbl_w
+    return feeds

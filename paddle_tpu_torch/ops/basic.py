@@ -1,10 +1,13 @@
-"""Elementwise / math / tensor op rules (the subset the serving slice runs).
+"""Elementwise / math / tensor op rules (the subset the Transformer's
+scoring and training programs run).
 
-Parity: paddle/fluid/operators/{activation_op,elementwise_add_op,mul_op,
-scale_op,reshape_op,fill_constant_op,assign_value_op,uniform_random_op,
-gaussian_random_op}.cc and the JAX package's ops/basic.py, whose rules
-these mirror over torch tensors. `mul` stays a plain torch.matmul: the
-JAX package left the matrix product to XLA, outside any Pallas kernel.
+Parity: paddle/fluid/operators/{activation_op,elementwise_*_op,mul_op,
+scale_op,reshape_op,reduce_op,cast_op,one_hot_op,increment_op,sign_op,
+assign_op,fill_constant_op,assign_value_op,uniform_random_op,gaussian_random_op}.cc
+and the JAX package's ops/basic.py, whose rules these mirror over torch
+tensors. `mul` stays a plain torch.matmul: the JAX package left the matrix
+product to XLA, outside any Pallas kernel. Gradients come from autograd
+through these same rules (core/lowering.py:_lower_grad_of).
 """
 import numpy as np
 import torch
@@ -33,10 +36,24 @@ def _bcast_y(x, y, axis):
     return y.reshape(new_shape)
 
 
-@register("elementwise_add")
-def _elementwise_add(ctx, ins, attrs):
-    x, y = single(ins, "X"), single(ins, "Y")
-    return _out(x + _bcast_y(x, y, attrs.get("axis", -1)))
+def _elementwise(name, fn):
+    def lower(ctx, ins, attrs):
+        x, y = single(ins, "X"), single(ins, "Y")
+        return _out(fn(x, _bcast_y(x, y, attrs.get("axis", -1))))
+    register(name)(lower)
+
+
+_elementwise("elementwise_add", torch.add)
+_elementwise("elementwise_sub", torch.sub)
+_elementwise("elementwise_mul", torch.mul)
+_elementwise("elementwise_div", torch.div)
+_elementwise("elementwise_min", torch.minimum)
+_elementwise("elementwise_pow", torch.pow)
+
+
+@register("sign")
+def _sign(ctx, ins, attrs):
+    return _out(torch.sign(single(ins, "X")))
 
 
 @register("mul")
@@ -71,6 +88,47 @@ def _reshape(ctx, ins, attrs):
     shape = [x.shape[i] if s == 0 else s
              for i, s in enumerate(attrs["shape"])]
     return _out(x.reshape(shape))
+
+
+@register("assign")
+def _assign(ctx, ins, attrs):
+    """calc_gradient seeds a target's gradient with it."""
+    return _out(single(ins, "X"))
+
+
+@register("cast")
+def _cast(ctx, ins, attrs):
+    return _out(single(ins, "X").to(
+        torch_dtype(np.dtype(attrs["out_dtype"]).name)))
+
+
+@register("reduce_sum")
+def _reduce_sum(ctx, ins, attrs):
+    x = single(ins, "X")
+    keep = attrs.get("keep_dim", False)
+    if attrs.get("reduce_all"):
+        out = x.sum(dim=tuple(range(x.dim())), keepdim=keep)
+        return _out(out if keep else out.reshape(1))
+    dim = attrs.get("dim", 0)
+    dim = tuple(dim) if isinstance(dim, (list, tuple)) else dim
+    return _out(x.sum(dim=dim, keepdim=keep))
+
+
+@register("one_hot")
+def _one_hot(ctx, ins, attrs):
+    """float32 one-hot over the last dim (a trailing 1 is dropped); an id
+    outside [0, depth) gives a zero row, as jax.nn.one_hot does."""
+    x = single(ins, "X")
+    idx = x.reshape(x.shape[:-1]) if x.dim() and x.shape[-1] == 1 else x
+    cols = torch.arange(attrs["depth"], device=x.device)
+    return _out((idx.long()[..., None] == cols).to(torch.float32))
+
+
+@register("increment")
+def _increment(ctx, ins, attrs):
+    x = single(ins, "X")
+    step = attrs.get("step", 1.0)
+    return _out(x + (step if x.is_floating_point() else int(step)))
 
 
 def _attr_np_dtype(attrs, default="float32"):

@@ -7,14 +7,21 @@ bounds it). The sources build at first use with `nvcc` into one shared
 library with a plain C interface (`build()`), loaded with ctypes.
 
 Beside each kernel:
-  * a wrapper (`flash_attention_fwd`, `layer_norm_fwd`) whose dispatch
-    rule is the tensor's device: `meta` returns empty outputs of the right
-    shape (build-time shape inference), `cpu` runs the plain version,
-    `cuda` launches the kernel or raises. Nothing falls back;
+  * a wrapper (`flash_attention_fwd`, `flash_attention_bwd_dkdv`,
+    `flash_attention_bwd_dq`, `softmax_xent_fwd`, `layer_norm_fwd`) whose
+    dispatch rule is the tensor's device: `meta` returns empty outputs of
+    the right shape (build-time shape inference), `cpu` runs the plain
+    version, `cuda` launches the kernel or raises. Nothing falls back;
   * a plain PyTorch version (`*_plain`) of the same function — what the
     CPU runs, and what the card's kernel is held against;
   * a launch counter (`wrapper.launches`), raised by one exactly where the
     kernel is launched, so a run can show the main path went through it.
+
+Gradients: three torch.autograd.Functions mirror the JAX package's
+custom_vjps — `FlashAttention` (forward K1, backward K2 + K3, as
+`_flash_core`), `LayerNorm` (forward K5, backward in torch, as
+`_ln_core_bwd`) and `SoftmaxXent` (forward K4, backward in torch, as
+`_xent_core_bwd`).
 """
 import ctypes
 import hashlib
@@ -28,13 +35,18 @@ import time
 import torch
 
 __all__ = ["build", "flash_attention_fwd", "flash_attention_fwd_plain",
-           "layer_norm_fwd", "layer_norm_fwd_plain", "launch_counts",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
+           "softmax_xent_fwd", "softmax_xent_fwd_plain",
+           "layer_norm_fwd", "layer_norm_fwd_plain", "FlashAttention",
+           "LayerNorm", "SoftmaxXent", "launch_counts",
            "reset_launch_counts", "FLASH_HEAD_DIMS"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("flash_attention_fwd.cu", "layer_norm_fwd.cu")
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
+           "softmax_xent_fwd.cu", "layer_norm_fwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -148,6 +160,13 @@ def _bind(lib):
     lib.ptt_flash_attention_fwd.argtypes = (
         [P, P, P, P, P, P, I, I, I, I] + [L] * 9 + [F, I, P])
     lib.ptt_flash_attention_fwd.restype = I
+    for name in ("ptt_flash_attention_bwd_dkdv", "ptt_flash_attention_bwd_dq"):
+        n_out = 2 if name.endswith("dkdv") else 1
+        fn = getattr(lib, name)
+        fn.argtypes = [P] * (7 + n_out) + [I] * 4 + [L] * 12 + [F, I, P]
+        fn.restype = I
+    lib.ptt_softmax_xent_fwd.argtypes = [P, P, P, P, I, I, I, P]
+    lib.ptt_softmax_xent_fwd.restype = I
     lib.ptt_layer_norm_fwd.argtypes = [P, P, P, P, P, P, I, I, F, I, P]
     lib.ptt_layer_norm_fwd.restype = I
 
@@ -157,16 +176,20 @@ def _count(wrapper):
         wrapper.launches += 1
 
 
+def _counted():
+    return (flash_attention_fwd, flash_attention_bwd_dkdv,
+            flash_attention_bwd_dq, softmax_xent_fwd, layer_norm_fwd)
+
+
 def launch_counts():
     """{wrapper name: launches since the last reset}."""
-    return {f.__name__: f.launches for f in (flash_attention_fwd,
-                                             layer_norm_fwd)}
+    return {f.__name__: f.launches for f in _counted()}
 
 
 def reset_launch_counts():
     with _count_lock:
-        flash_attention_fwd.launches = 0
-        layer_norm_fwd.launches = 0
+        for f in _counted():
+            f.launches = 0
 
 
 def _stream_of(t):
@@ -349,3 +372,326 @@ def layer_norm_fwd(x, scale, bias, eps=1e-5):
 
 
 layer_norm_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# flash attention backward (replaces pallas_kernels._flash_bwd_dkdv_kernel
+# and _flash_bwd_dq_kernel, launched by _flash_bwd)
+# ---------------------------------------------------------------------------
+
+def _valid_pairs(b, t, q_device, kv_len, causal):
+    """[B, 1, T, T] bool: key at or past kv_len[b] masked, and, causal,
+    keys past the query."""
+    kpos = torch.arange(t, device=q_device)
+    valid = torch.ones((1, 1, t, t), dtype=torch.bool, device=q_device)
+    if kv_len is not None:
+        lens = kv_len.reshape(b, 1).to(device=q_device, dtype=torch.int64)
+        valid = valid & (kpos[None, :] < lens)[:, None, None, :]
+    if causal:
+        valid = valid & (kpos[None, :] <= kpos[:, None])[None, None]
+    return valid
+
+
+def flash_attention_bwd_plain(q, k, v, lse, delta, g, kv_len=None,
+                              causal=False, scale=None):
+    """Plain version: the vjp of flash_attention_fwd_plain written out over
+    the dense [B, H, T, T] recompute, from the saved lse [B, H, T] and
+    delta = rowsum(g * out) [B, H, T], as the TPU kernels compute it:
+    p = exp(q.k * scale - lse) on valid pairs (masked before the
+    exponential, so an empty row gives 0), dS = p * (g.v - delta) * scale.
+    Returns (dq, dk, dv), each [B, T, H, D] in q's dtype."""
+    b, t, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    valid = _valid_pairs(b, t, q.device, kv_len, causal)
+    p = torch.where(valid, torch.exp(torch.where(valid, s - lse[..., None],
+                                                 torch.zeros_like(s))),
+                    torch.zeros_like(s))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _flash_bwd_args(what, q, k, v, lse, delta, g, kv_len):
+    """Checks for the backward kernels; returns (B, T, H, D, int32 lens or
+    None, lse and delta contiguous)."""
+    if q.dim() != 4 or any(x.shape != q.shape for x in (k, v, g)):
+        raise ValueError("%s needs q, k, v, g of one shape [B, T, H, D], got "
+                         "%s" % (what, [tuple(x.shape) for x in (q, k, v, g)]))
+    b, t, h, d = q.shape
+    if lse.shape != (b, h, t) or delta.shape != (b, h, t):
+        raise ValueError("%s needs lse and delta [B, H, T] = %s, got %s %s"
+                         % (what, (b, h, t), tuple(lse.shape),
+                            tuple(delta.shape)))
+    for name, x in (("q", q), ("k", k), ("v", v), ("g", g), ("lse", lse),
+                    ("delta", delta)):
+        if x.dtype != torch.float32:
+            raise ValueError("%s: the CUDA kernel takes fp32 (%s is %s)"
+                             % (what, name, x.dtype))
+        if x.device != q.device:
+            raise ValueError("%s: %s on %s, q on %s"
+                             % (what, name, x.device, q.device))
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError("%s: head dim %d not in %s"
+                         % (what, d, FLASH_HEAD_DIMS))
+    if b * h > 65535:
+        raise ValueError("%s: B*H = %d exceeds the grid limit 65535"
+                         % (what, b * h))
+    for name, x in (("q", q), ("k", k), ("v", v), ("g", g)):
+        _check_vec_layout(x, "%s %s" % (what, name))
+    lens = None
+    if kv_len is not None:
+        if kv_len.numel() != b:
+            raise ValueError("kv_len must hold one length per batch row "
+                             "(%d), got shape %s" % (b, tuple(kv_len.shape)))
+        lens = kv_len.reshape(b).to(device=q.device,
+                                    dtype=torch.int32).contiguous()
+    return b, t, h, d, lens, lse.contiguous(), delta.contiguous()
+
+
+def _bwd_call(fn, q, k, v, g, lse, delta, lens, outs, b, t, h, d, scale,
+              causal):
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(),
+             lens.data_ptr() if lens is not None else None,
+             *[o.data_ptr() for o in outs], b, t, h, d,
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *g.stride()[:3], float(scale), int(bool(causal)), _stream_of(q))
+    return err
+
+
+def flash_attention_bwd_dkdv(q, k, v, lse, delta, g, kv_len=None,
+                             causal=False, scale=None):
+    """dK, dV [B, T, H, D] of flash attention from the saved lse and delta
+    [B, H, T] and the output gradient g [B, T, H, D] (kernel K2). Dispatch
+    by q's device as in flash_attention_fwd."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    dev = q.device.type
+    if dev == "meta":
+        return torch.empty_like(k), torch.empty_like(v)
+    if dev == "cpu":
+        return flash_attention_bwd_plain(q, k, v, lse, delta, g, kv_len,
+                                         causal, scale)[1:]
+    if dev != "cuda":
+        raise ValueError("flash_attention_bwd_dkdv: unsupported device %s"
+                         % dev)
+    b, t, h, d, lens, lse, delta = _flash_bwd_args(
+        "flash_attention_bwd_dkdv", q, k, v, lse, delta, g, kv_len)
+    dk = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    if t == 0 or b * h == 0:
+        return dk, dv
+    lib = build()
+    err = _bwd_call(lib.ptt_flash_attention_bwd_dkdv, q, k, v, g, lse, delta,
+                    lens, (dk, dv), b, t, h, d, scale, causal)
+    _check_launch(err, "flash_attention_bwd_dkdv")
+    _count(flash_attention_bwd_dkdv)
+    return dk, dv
+
+
+flash_attention_bwd_dkdv.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, lse, delta, g, kv_len=None,
+                           causal=False, scale=None):
+    """dQ [B, T, H, D] of flash attention, from the same inputs as
+    flash_attention_bwd_dkdv (kernel K3)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    dev = q.device.type
+    if dev == "meta":
+        return torch.empty_like(q)
+    if dev == "cpu":
+        return flash_attention_bwd_plain(q, k, v, lse, delta, g, kv_len,
+                                         causal, scale)[0]
+    if dev != "cuda":
+        raise ValueError("flash_attention_bwd_dq: unsupported device %s" % dev)
+    b, t, h, d, lens, lse, delta = _flash_bwd_args(
+        "flash_attention_bwd_dq", q, k, v, lse, delta, g, kv_len)
+    dq = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    if t == 0 or b * h == 0:
+        return dq
+    lib = build()
+    err = _bwd_call(lib.ptt_flash_attention_bwd_dq, q, k, v, g, lse, delta,
+                    lens, (dq,), b, t, h, d, scale, causal)
+    _check_launch(err, "flash_attention_bwd_dq")
+    _count(flash_attention_bwd_dq)
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_delta(g, out):
+    """delta = rowsum(g * out) as [B, H, T] fp32 (the TPU path computes it
+    outside its kernels too)."""
+    return (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, kv_len=None, causal=False,
+                        scale=None):
+    """(dq, dk, dv) of flash attention: delta from g and the forward's out,
+    then K2 (dK, dV) and K3 (dQ) on the card; on the CPU one plain dense
+    recompute gives all three."""
+    delta = flash_delta(g, out)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, lse, delta, g, kv_len,
+                                         causal, scale)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, lse, delta, g, kv_len, causal,
+                                      scale)
+    dq = flash_attention_bwd_dq(q, k, v, lse, delta, g, kv_len, causal, scale)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# softmax cross-entropy forward (replaces pallas_kernels._xent_kernel)
+# ---------------------------------------------------------------------------
+
+def softmax_xent_fwd_plain(logits, labels):
+    """Plain version: (loss [N, 1], lse [N, 1]) in fp32, with
+    loss = lse - logits[label] and a label outside [0, V) picking 0."""
+    x = logits.float()
+    n, v = x.shape
+    lab = labels.reshape(n).long()
+    lse = torch.logsumexp(x, dim=-1, keepdim=True)
+    ok = (lab >= 0) & (lab < v)
+    picked = torch.where(ok, x.gather(1, lab.clamp(0, v - 1)[:, None])[:, 0],
+                         torch.zeros_like(x[:, 0]))
+    return lse - picked[:, None], lse
+
+
+def softmax_xent_fwd(logits, labels):
+    """Row log-sum-exp and hard-label cross-entropy of logits [N, V] with
+    int labels [N] (or [N, 1]): returns (loss [N, 1], lse [N, 1]) fp32.
+    Dispatch by the logits' device as in flash_attention_fwd (the CUDA
+    kernel takes fp32 logits)."""
+    if logits.dim() != 2 or labels.numel() != logits.shape[0]:
+        raise ValueError("softmax_xent_fwd needs logits [N, V] and N labels, "
+                         "got %s and %s" % (tuple(logits.shape),
+                                            tuple(labels.shape)))
+    n, v = logits.shape
+    dev = logits.device.type
+    if dev == "meta":
+        return (torch.empty((n, 1), dtype=torch.float32, device=logits.device),
+                torch.empty((n, 1), dtype=torch.float32, device=logits.device))
+    if dev == "cpu":
+        return softmax_xent_fwd_plain(logits, labels)
+    if dev != "cuda":
+        raise ValueError("softmax_xent_fwd: unsupported device %s" % dev)
+    if logits.dtype != torch.float32:
+        raise ValueError("softmax_xent_fwd: the CUDA kernel takes fp32 logits "
+                         "(got %s)" % logits.dtype)
+    if labels.device != logits.device or labels.is_floating_point():
+        raise ValueError("softmax_xent_fwd: labels must be an int tensor on "
+                         "%s (got %s on %s)" % (logits.device, labels.dtype,
+                                                labels.device))
+    x = logits.contiguous()
+    lab = labels.reshape(n).to(torch.int64).contiguous()
+    loss = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    lse = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return loss, lse
+    if v == 0 or n > 2 ** 31 - 1:
+        raise ValueError("softmax_xent_fwd: needs 0 < V and N < 2^31, got "
+                         "[%d, %d]" % (n, v))
+    vec4 = v % 4 == 0 and x.data_ptr() % 16 == 0
+    lib = build()
+    err = lib.ptt_softmax_xent_fwd(x.data_ptr(), lab.data_ptr(),
+                                   loss.data_ptr(), lse.data_ptr(), n, v,
+                                   int(vec4), _stream_of(x))
+    _check_launch(err, "softmax_xent_fwd")
+    _count(softmax_xent_fwd)
+    return loss, lse
+
+
+softmax_xent_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions (the JAX package's custom_vjps)
+# ---------------------------------------------------------------------------
+
+class FlashAttention(torch.autograd.Function):
+    """out = attention(q, k, v) through K1; backward through K2 and K3
+    (parity: pallas_kernels._flash_core / _flash_core_bwd). kv_len gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal, scale):
+        if scale is None:
+            scale = 1.0 / math.sqrt(q.shape[-1])
+        out, lse = flash_attention_fwd(q, k, v, kv_len, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse, kv_len)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, kv_len = ctx.saved_tensors
+        # the kernels read 16-byte aligned rows; autograd may hand over a
+        # strided or expanded gradient
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g.contiguous(),
+                                         kv_len, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+class LayerNorm(torch.autograd.Function):
+    """(y, mean, var) = layer_norm(x [N, D], scale, bias) through K5;
+    backward in torch from the saved statistics, with rstd = rsqrt(var +
+    eps) (parity: pallas_kernels._ln_core_bwd). mean and var carry no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        y, mean, var = layer_norm_fwd(x, scale, bias, eps)
+        ctx.save_for_backward(x, scale, mean, var)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _gmean, _gvar):
+        x, scale, mean, var = ctx.saved_tensors
+        gf = g.float()
+        rstd = torch.rsqrt(var + ctx.eps)[:, None]
+        xhat = (x.float() - mean[:, None]) * rstd
+        gs = gf * scale.float()[None, :]
+        dx = rstd * (gs - gs.mean(dim=-1, keepdim=True)
+                     - xhat * (gs * xhat).mean(dim=-1, keepdim=True))
+        return (dx.to(x.dtype), (gf * xhat).sum(dim=0).to(scale.dtype),
+                gf.sum(dim=0).to(scale.dtype), None)
+
+
+class SoftmaxXent(torch.autograd.Function):
+    """(loss, lse) [N, 1] = softmax cross-entropy of logits [N, V] with hard
+    labels through K4; backward in torch (parity:
+    pallas_kernels._xent_core_bwd): d logits = p * (g_loss + g_lse) -
+    onehot * g_loss, with p = exp(logits - lse) and a zero one-hot row for a
+    label outside [0, V). lse is differentiable so that a softmax built as
+    exp(logits - lse) gets its exact gradient. The [N, V] gradient is built
+    in place in one buffer (the exponential's), to hold one [N, V] tensor
+    rather than four."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        loss, lse = softmax_xent_fwd(logits, labels)
+        ctx.save_for_backward(logits, labels, lse)
+        return loss, lse
+
+    @staticmethod
+    def backward(ctx, g_loss, g_lse):
+        logits, labels, lse = ctx.saved_tensors
+        n, v = logits.shape
+        d = torch.sub(logits.float(), lse).exp_()
+        d.mul_(g_loss + g_lse)
+        lab = labels.reshape(n, 1).long()
+        ok = (lab >= 0) & (lab < v)
+        # a label outside [0, V) adds 0 (at column 0): no host sync
+        d.scatter_add_(1, lab.clamp(0, v - 1), -g_loss * ok)
+        return d.to(logits.dtype), None

@@ -1,12 +1,17 @@
-"""NN op rules (the subset the serving slice runs): layer_norm,
-fused_attention, lookup_table.
+"""NN op rules (the subset the Transformer's scoring and training
+programs run): layer_norm, fused_attention, lookup_table,
+softmax_with_cross_entropy.
 
-Parity: paddle/fluid/operators/{layer_norm_op,lookup_table_op}.cc and the
-JAX package's ops/nn_ops.py. layer_norm with scale and bias and the flash
-branch of fused_attention call the hand-written CUDA kernels through their
-wrappers (ops/cuda_kernels.py), which dispatch by device: the same rule
-runs the kernel on the card, the plain version on the CPU, and computes
-nothing on `meta` tensors during build-time shape inference.
+Parity: paddle/fluid/operators/{layer_norm_op,lookup_table_op,
+softmax_with_cross_entropy_op}.cc and the JAX package's ops/nn_ops.py.
+layer_norm with scale and bias, the flash branch of fused_attention and
+the hard-label 2-D softmax_with_cross_entropy call the hand-written CUDA
+kernels through their wrappers (ops/cuda_kernels.py), which dispatch by
+device: the same rule runs the kernel on the card, the plain version on
+the CPU, and computes nothing on `meta` tensors during build-time shape
+inference. Each goes through its kernel's autograd Function, whose
+backward is the kernel's backward; under no_grad (every inference run, and
+every op no grad_of differentiates) the Function records nothing.
 """
 import math
 
@@ -34,8 +39,8 @@ def _layer_norm(ctx, ins, attrs):
     lead = int(np.prod(x.shape[:begin]))
     x2 = x.reshape(lead, -1)
     if scale is not None and bias is not None:
-        y, mean, var = cuda_kernels.layer_norm_fwd(
-            x2, scale.reshape(-1), bias.reshape(-1), eps=eps)
+        args = (x2, scale.reshape(-1), bias.reshape(-1), eps)
+        y, mean, var = cuda_kernels.LayerNorm.apply(*args)
         return {"Y": [y.reshape(x.shape).to(x.dtype)],
                 "Mean": [mean], "Variance": [var]}
     xf = x2.float()
@@ -91,9 +96,8 @@ def _fused_attention(ctx, ins, attrs):
     if not flash_at(q.shape[1], q.device.type):
         return _out(attention_reference(q, k, v, causal=causal, scale=scale,
                                         kv_len=kv_len).to(q.dtype))
-    out, _ = cuda_kernels.flash_attention_fwd(q, k, v, kv_len=kv_len,
-                                              causal=causal, scale=scale)
-    return _out(out)
+    return _out(cuda_kernels.FlashAttention.apply(q, k, v, kv_len, causal,
+                                                  scale))
 
 
 @register("lookup_table")
@@ -111,3 +115,36 @@ def _lookup_table(ctx, ins, attrs):
     else:
         out_shape = tuple(ids.shape) + (w.shape[-1],)
     return _out(out.reshape(out_shape))
+
+
+def _gather_label_logits(logp, label):
+    """[..., C] values + [..., 1] (or [...]) int labels -> [...] picked
+    values (an out-of-range label is clamped, as a JAX gather is)."""
+    flat = logp.reshape(-1, logp.shape[-1])
+    lab = label.reshape(-1, 1).long().clamp(0, flat.shape[-1] - 1)
+    return flat.gather(1, lab).reshape(logp.shape[:-1])
+
+
+@register("softmax_with_cross_entropy")
+def _softmax_xent(ctx, ins, attrs):
+    """Hard labels on 2-D logits take the K4 kernel (loss and row lse in
+    one pass). The Softmax output the op also declares is exp(logits -
+    lse) from K4's lse, not a second reduction; the JAX rule leaves it to
+    XLA to drop when unread, and eager PyTorch materializes it ([N, V]).
+    Soft labels and other ranks take the plain log-softmax path."""
+    logits = single(ins, "Logits")
+    label = single(ins, "Label")
+    soft = attrs.get("soft_label", False)
+    if not soft and logits.dim() == 2:
+        lab = label.reshape(-1)
+        loss, lse = cuda_kernels.SoftmaxXent.apply(logits, lab)
+        return {"Softmax": [torch.exp(logits.float() - lse)
+                            .to(logits.dtype)],
+                "Loss": [loss.to(logits.dtype)]}
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    if soft:
+        loss = -(label * logp).sum(dim=-1, keepdim=True)
+    else:
+        loss = -_gather_label_logits(logp, label)[..., None]
+    return {"Softmax": [torch.exp(logp).to(logits.dtype)],
+            "Loss": [loss.to(logits.dtype)]}

@@ -5,7 +5,10 @@ holds them against these same plain versions there).
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerance: rtol = atol = 1e-5 — both sides compute in fp32, in a different
-summation order.
+summation order. The backward passes (the flash backward's plain version
+and the three autograd Functions against the JAX custom_vjps) need no
+looser tolerance at these sizes: each gradient element is a sum of at
+most T = 64 products, whose fp32 rounding stays near 1e-6 of the values.
 """
 import os
 
@@ -13,12 +16,16 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops import pallas_kernels as pk
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+# every counted kernel wrapper (K1-K5)
+_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+            "flash_attention_bwd_dq", "softmax_xent_fwd", "layer_norm_fwd")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -131,8 +138,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     for got, want in zip(ck.layer_norm_fwd(x, s, b),
                          ck.layer_norm_fwd_plain(x, s, b)):
         assert torch.equal(got, want)
-    assert ck.launch_counts() == {"flash_attention_fwd": 0,
-                                  "layer_norm_fwd": 0}
+    assert ck.launch_counts() == dict.fromkeys(_KERNELS, 0)
 
 
 def test_meta_tensors_give_shapes_and_compute_nothing():
@@ -146,8 +152,7 @@ def test_meta_tensors_give_shapes_and_compute_nothing():
     y, mean, var = ck.layer_norm_fwd(x, torch.empty(64, device="meta"),
                                      torch.empty(64, device="meta"))
     assert y.shape == x.shape and mean.shape == var.shape == (1021 * 32,)
-    assert ck.launch_counts() == {"flash_attention_fwd": 0,
-                                  "layer_norm_fwd": 0}
+    assert ck.launch_counts() == dict.fromkeys(_KERNELS, 0)
 
 
 def test_wrappers_reject_bad_shapes():
@@ -159,6 +164,152 @@ def test_wrappers_reject_bad_shapes():
                                kv_len=torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError):
         ck.layer_norm_fwd(torch.zeros(4, 8), torch.ones(7), torch.zeros(8))
+
+
+def _jax_flash_grads(q, k, v, kv_len, causal, g):
+    """(dq, dk, dv) of the JAX package's flash attention (its custom_vjp:
+    the dK/dV and dQ Pallas kernels in interpret mode)."""
+    def f(q, k, v):
+        return pk.flash_attention(
+            q, k, v, causal=causal,
+            kv_len=None if kv_len is None else jnp.asarray(kv_len),
+            interpret=True)
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    return [np.asarray(a) for a in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [8, 40, 64])
+def test_flash_bwd_plain_matches_jax_kernels(t, causal):
+    """K2/K3's plain version (from the plain forward's out and lse) against
+    jax.vjp of the JAX flash kernel, with an empty and a ragged row."""
+    q, k, v = _qkv(2, t, 2, 16, seed=100 + t)
+    g = np.random.RandomState(t).randn(*q.shape).astype(np.float32)
+    kv_len = np.array([0, t - 3], np.int32)
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    tlen = torch.from_numpy(kv_len)
+    out, lse = ck.flash_attention_fwd_plain(tq, tk, tv, tlen, causal)
+    got = ck.flash_attention_bwd(tq, tk, tv, out, lse, tg, tlen, causal)
+    want = _jax_flash_grads(q, k, v, kv_len, causal, g)
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), b, err_msg="d" + name, **TOL)
+        # the empty row: every gradient exactly 0, never inf * 0
+        assert np.all(a.numpy()[0] == 0.0), "d" + name
+    # the wrappers of the two kernels give the same slices on the CPU
+    delta = ck.flash_delta(tg, out)
+    args = (tq, tk, tv, lse, delta, tg, tlen, causal)
+    dk, dv = ck.flash_attention_bwd_dkdv(*args)
+    assert torch.equal(ck.flash_attention_bwd_dq(*args), got[0])
+    assert torch.equal(dk, got[1]) and torch.equal(dv, got[2])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_function_backward_matches_jax_custom_vjp(causal):
+    """FlashAttention (forward K1, backward K2 + K3) through
+    torch.autograd against the JAX _flash_core custom_vjp, full-length
+    rows and a non-contiguous output gradient."""
+    q, k, v = _qkv(2, 40, 2, 32, seed=9)
+    g = np.random.RandomState(4).randn(2, 2, 40, 32).astype(np.float32)
+    gt = torch.from_numpy(g).transpose(1, 2)          # strided [B, T, H, D]
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = ck.FlashAttention.apply(*leaves, None, causal, None)
+    got = torch.autograd.grad(out, leaves, gt)
+    want = _jax_flash_grads(q, k, v, None, causal, gt.numpy())
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), b, err_msg="d" + name, **TOL)
+
+
+def _xent_inputs(n=37, v=50, seed=11):
+    rng = np.random.RandomState(seed)
+    logits = (rng.randn(n, v) * 3).astype(np.float32)
+    labels = rng.randint(0, v, n).astype(np.int64)
+    labels[:3] = [-1, v, v + 5]                  # outside [0, V): pick 0
+    return logits, labels
+
+
+def test_xent_plain_matches_jax_kernel():
+    logits, labels = _xent_inputs()
+    loss, lse = ck.softmax_xent_fwd_plain(torch.from_numpy(logits),
+                                          torch.from_numpy(labels))
+    jloss, jlse = pk._xent_fwd_call(jnp.asarray(logits),
+                                    jnp.asarray(labels.astype(np.int32)), 8,
+                                    True)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(jloss), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
+    np.testing.assert_allclose(
+        loss.numpy(), np.asarray(pk.softmax_xent(
+            jnp.asarray(logits), jnp.asarray(labels.astype(np.int32)),
+            interpret=True)), **TOL)
+    # an out-of-range label picks 0: the loss is the row's lse
+    np.testing.assert_array_equal(loss.numpy()[:3], lse.numpy()[:3])
+
+
+def test_xent_function_backward_matches_jax_custom_vjp():
+    """SoftmaxXent (forward K4, backward in torch) against the JAX
+    _xent_core custom_vjp, out-of-range labels included (zero one-hot
+    row); and the lse output's own gradient against autograd's."""
+    logits, labels = _xent_inputs(seed=12)
+    g = np.random.RandomState(5).randn(logits.shape[0], 1).astype(np.float32)
+    x = torch.from_numpy(logits).requires_grad_(True)
+    loss, lse = ck.SoftmaxXent.apply(x, torch.from_numpy(labels))
+    got, = torch.autograd.grad(loss, x, torch.from_numpy(g),
+                               retain_graph=True)
+    _, vjp = jax.vjp(lambda a: pk.softmax_xent(
+        a, jnp.asarray(labels.astype(np.int32)), interpret=True),
+        jnp.asarray(logits))
+    want, = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    got_lse, = torch.autograd.grad(lse, x, torch.from_numpy(g))
+    y = torch.from_numpy(logits).requires_grad_(True)
+    want_lse, = torch.autograd.grad(torch.logsumexp(y, -1, keepdim=True), y,
+                                    torch.from_numpy(g))
+    np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), **TOL)
+
+
+def test_layer_norm_function_backward_matches_jax_custom_vjp():
+    """LayerNorm (forward K5, backward in torch from the saved mean and
+    variance) against the JAX _ln_core custom_vjp (saved mean and rstd)."""
+    rng = np.random.RandomState(6)
+    x = (rng.randn(37, 64) * 3 + 1).astype(np.float32)
+    scale, bias = (rng.randn(64).astype(np.float32) for _ in range(2))
+    g = rng.randn(37, 64).astype(np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (x, scale, bias)]
+    y, _, _ = ck.LayerNorm.apply(*leaves, 1e-5)
+    got = torch.autograd.grad(y, leaves, torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda a, s, b: pk.layer_norm(a, s, b, eps=1e-5,
+                                                   interpret=True)[0],
+                     *(jnp.asarray(a) for a in (x, scale, bias)))
+    want = vjp(jnp.asarray(g))
+    for name, a, b in zip(("dx", "dscale", "dbias"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **TOL)
+
+
+def test_training_wrappers_dispatch_by_device():
+    """The backward and cross-entropy wrappers: a CPU tensor takes the
+    plain version and launches nothing, a meta tensor gives shapes, and a
+    bad shape raises."""
+    ck.reset_launch_counts()
+    logits, labels = _xent_inputs(n=9, v=12)
+    tl, tlab = torch.from_numpy(logits), torch.from_numpy(labels)
+    for got, want in zip(ck.softmax_xent_fwd(tl, tlab[:, None]),
+                         ck.softmax_xent_fwd_plain(tl, tlab)):
+        assert torch.equal(got, want)
+    meta = torch.empty((1021, 30000), device="meta")
+    loss, lse = ck.softmax_xent_fwd(
+        meta, torch.empty(1021, dtype=torch.int64, device="meta"))
+    assert loss.shape == lse.shape == (1021, 1) and lse.device.type == "meta"
+    q = torch.empty((3, 32, 4, 16), device="meta")
+    s = torch.empty((3, 4, 32), device="meta")
+    dk, dv = ck.flash_attention_bwd_dkdv(q, q, q, s, s, q)
+    assert dk.shape == dv.shape == q.shape and dk.device.type == "meta"
+    assert ck.flash_attention_bwd_dq(q, q, q, s, s, q).shape == q.shape
+    assert ck.launch_counts() == dict.fromkeys(_KERNELS, 0)
+    with pytest.raises(ValueError):
+        ck.softmax_xent_fwd(tl, tlab[:5])
+    with pytest.raises(ValueError):
+        ck.softmax_xent_fwd(tl[0], tlab[:1])
 
 
 def test_kernel_sources_are_in_the_package():
