@@ -6,8 +6,9 @@
     python3 chip_smoke.py --ptxas           # also print nvcc's `ptxas -v`
     python3 chip_smoke.py --trace out.json  # keep the traced step's trace
 
-Transformer-base runs at its full depth (6+6 layers) and width, with random
-weights from the fixed seed SEED.
+Transformer-base runs at its full depth (6+6 layers) and width, and the
+IMDB sentiment classifiers at their book widths, with random weights from
+the fixed seed SEED.
 
 Phases, each reported on lines of its own; any failure exits non-zero:
 
@@ -23,6 +24,11 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               the plain version and one library call computing the same
               function (CUDA graph of 20 calls, CUDA events, warmup,
               median), beside the least time the card could take (bound).
+              K6 (fused LSTM) is checked forward and reverse, with zero
+              and given h0/c0, at a serving dispatch's x [8, 256, 512]
+              and a training step's [128, 64, 512] (h = 128); K9 (masked
+              pool) in its three pool types at the conv net's x [8, 256,
+              32] and at [128, 256, 512]; ragged lengths with 1 and T.
 4. serving  — the main path: build Transformer-base scoring (vocab 30000,
               d_model 512, 8 heads, 6+6 layers, d_inner 2048, T=256) with
               the port's layers, run its startup program on the card from
@@ -52,9 +58,31 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               layers, batch 2, T=64 from the same weights on the card and
               on the CPU: loss within 1e-4 relative, every gradient within
               1e-3 of its largest value, every parameter within 2 * lr.
+6. sequences, serving — the sequence path: the sentiment conv net as
+              written (dictionary 5148, emb 32, 32 filters of sizes 3 and
+              4, tanh, SQRT pools) and the stacked LSTM at its book widths
+              (emb 128, hid_dim 512 so h = 128, 3 layers, alternate ones
+              reversed, max pools) built with use_peepholes=False, each
+              initialized on the card, saved and served with LoD feeds
+              by InferenceEngine(batch_buckets=[1, 4, 8]) and the default
+              seq buckets, 16 concurrent one-review requests (lengths
+              16-256). Checks: answers finite, probabilities summing to 1;
+              each equals run_direct at its (batch, seq) bucket (<= 1e-5);
+              request 0 matches the CPU (<= 1e-4); K9 twice per conv-net
+              dispatch, K6 three times per LSTM dispatch.
+7. sequences, training — the no-peephole stacked LSTM at bench.py's
+              bench_stacked_lstm widths (vocab 10000, emb = hid = 512, 3
+              layers), mean(cross_entropy) and Adam(0.002) in fp32, batch
+              128 x T=64: TRAIN_STEPS steps through Executor.run, one
+              traced step, then one step at 1 layer, batch 4, lengths
+              1-16 on the card and on the CPU (the tolerances of phase 5).
+              Checks: losses finite and falling, K6 three times a step.
 
-The last lines are one JSON object listing every kernel, the card line,
-and `{"ok": true, "device": {...}}`.
+Every path counts launches from zero and predicts each kernel's count on
+it (0 for a kernel it does not run); each kernel must also launch on at
+least one path. The last lines are one JSON object listing every kernel
+with its launches by path, the card line, and `{"ok": true, "device":
+{...}}`.
 """
 import argparse
 import json
@@ -101,6 +129,26 @@ XENT_TPU = "paddle_tpu/ops/pallas_kernels.py:377 (_xent_kernel, launched " \
     "by _xent_fwd_call :389)"
 LN_TPU = "paddle_tpu/ops/pallas_kernels.py:451 (_ln_kernel, launched by " \
     "_ln_fwd_call :464)"
+LSTM_SRC = "paddle_tpu_torch/csrc/fused_lstm_fwd.cu"
+POOL_SRC = "paddle_tpu_torch/csrc/masked_pool_fwd.cu"
+LSTM_TPU = "paddle_tpu/ops/pallas_kernels.py:544 (_lstm_seq_kernel, " \
+    "launched by _lstm_fwd_call :575)"
+POOL_TPU = "paddle_tpu/ops/pallas_kernels.py:947 (_masked_pool_kernel, " \
+    "launched by _masked_pool_call :961)"
+
+# the sequence path: the IMDB sentiment classifiers (book chapter 06).
+# Serving: the conv net as written and the stacked LSTM at its book
+# widths, no peepholes; training: the stacked LSTM at bench.py's
+# stacked-LSTM configuration (bench_stacked_lstm), no peepholes, fp32.
+SENTIMENT = dict(dict_dim=5148, classes=2, conv_emb=32, conv_hid=32,
+                 lstm_emb=128, lstm_hid=512, stacked=3)
+SEQ_TRAIN = dict(vocab=10000, hid=512, stacked=3, batch=128, seq=64,
+                 lr=0.002)
+SEQ_BUCKETS = [16, 32, 64, 128, 256]  # the engine's default seq buckets
+# card vs CPU sentiment probabilities: fp32 through up to three 256-step
+# recurrences summed in another order than the CPU's (K6 alone agrees with
+# its plain loop to ~2e-7)
+SEQ_CPU_TOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -433,6 +481,202 @@ def run_kernels(torch, ck, peak_flops, peak_bw):
     return results
 
 
+def lstm_work(lens, t, d, b, with_state):
+    """(flops, bytes) K6 needs for these lengths: per valid (row, step)
+    the recurrent product (8*D*D) and ~18*D elementwise operations, and
+    the rows of x those steps read; W, the bias, the lengths, h0/c0 when
+    given and the full [B, T, D] hidden and cell outputs, each once."""
+    valid = sum(max(0, min(int(n), t)) for n in lens)
+    flops = valid * (8 * d * d + 18 * d)
+    nbytes = 4 * (valid * 4 * d + 4 * d * d + 4 * d + b
+                  + (2 * b * d if with_state else 0) + 2 * b * t * d)
+    return flops, nbytes
+
+
+def pool_work(lens, t, f, b):
+    """(flops, bytes) K9 needs: one add per valid element, the valid rows
+    of x, the lengths and the [B, F] output."""
+    valid = sum(max(0, min(int(n), t)) for n in lens)
+    return valid * f, 4 * (valid * f + b + b * f)
+
+
+def cudnn_lstm(torch, w, b):
+    """torch.nn.LSTM (cuDNN) computing fused_lstm at full lengths: input
+    size 4D with an identity input projection that reorders the port's
+    {candidate, input, forget, output} gates into torch's {i, f, g, o}, as
+    tests/unittests/test_torch_crossval.py maps them."""
+    d = w.shape[0]
+    order = [1, 2, 0, 3]
+    lstm = torch.nn.LSTM(input_size=4 * d, hidden_size=d, batch_first=True)
+    lstm = lstm.to(w.device)
+    with torch.no_grad():
+        wi = torch.zeros((4 * d, 4 * d), device=w.device)
+        for r, k in enumerate(order):
+            wi[r * d:(r + 1) * d, k * d:(k + 1) * d] = torch.eye(
+                d, device=w.device)
+        lstm.weight_ih_l0.copy_(wi)
+        lstm.weight_hh_l0.copy_(torch.cat(
+            [w[:, k * d:(k + 1) * d].t() for k in order], dim=0))
+        lstm.bias_ih_l0.copy_(torch.cat([b[k * d:(k + 1) * d]
+                                         for k in order]))
+        lstm.bias_hh_l0.zero_()
+    return lstm
+
+
+def run_sequence_kernels(torch, ck, peak_flops, peak_bw):
+    """K6 and K9 against their plain versions at the sequence path's
+    shapes, and timed (kernel, plain, library) beside their bounds."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+    rng = np.random.RandomState(SEED + 2)
+    results = {}
+
+    def ragged(b, t):
+        lens = rng.randint(1, t + 1, size=b)
+        lens[0], lens[-1] = t, 1
+        return lens.tolist()
+
+    # K6: a serving dispatch of the stacked LSTM (batch bucket 8, seq
+    # bucket 256) and a training step (batch 128, T 64), both at h = 128
+    d = SENTIMENT["lstm_hid"] // 4
+    lstm_cases = [(8, 256, ragged(8, 256)),
+                  (SEQ_TRAIN["batch"], SEQ_TRAIN["seq"],
+                   ragged(SEQ_TRAIN["batch"], SEQ_TRAIN["seq"]))]
+    w = torch.randn((d, 4 * d), generator=g, device=dev) * 0.1
+    bias = torch.randn((4 * d,), generator=g, device=dev) * 0.1
+    lstm_err = 0.0
+    timing = {}
+    for b, t, lens in lstm_cases:
+        x = torch.randn((b, t, 4 * d), generator=g, device=dev) * 0.5
+        h0 = torch.randn((b, d), generator=g, device=dev) * 0.2
+        c0 = torch.randn((b, d), generator=g, device=dev) * 0.2
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for reverse in (False, True):
+            for state in (None, (h0, c0)):
+                args = (x, w, bias) + (state or (None, None)) + (lt, reverse)
+                got = ck.fused_lstm(*args)
+                want = ck.fused_lstm_plain(*args)
+                torch.cuda.synchronize()
+                # absolute, on hidden and cell after up to 256 steps: each
+                # step's gates differ by the rounding of a 128-term
+                # product, the gates are squashed and the forget gate is
+                # below 1, so the carried error does not grow with T
+                err = max((a - r).abs().max().item()
+                          for a, r in zip(got, want))
+                print("kernels: fused_lstm B=%d T=%d D=%d reverse=%s "
+                      "h0/c0=%s max_abs_err=%.3e"
+                      % (b, t, d, reverse, "given" if state else "zero",
+                         err))
+                check(np.isfinite(err) and err <= KERNEL_TOL,
+                      "fused_lstm disagrees with its plain version by %r "
+                      "(tolerance %r)" % (err, KERNEL_TOL))
+                lstm_err = max(lstm_err, err)
+        full = torch.full((b,), t, dtype=torch.int32, device=dev)
+        ref = cudnn_lstm(torch, w, bias)
+        with torch.no_grad():
+            lib_out, _ = ref(x)
+            mine, _ = ck.fused_lstm(x, w, bias, None, None, full)
+        torch.cuda.synchronize()
+        lib_err = (lib_out - mine).abs().max().item()
+        print("kernels: fused_lstm B=%d T=%d vs cuDNN LSTM at full lengths: "
+              "max_abs_diff=%.3e" % (b, t, lib_err))
+
+        def lib_call(ref=ref, x=x):
+            with torch.no_grad():
+                return ref(x)
+
+        flops, nbytes = lstm_work(lens, t, d, b, False)
+        bms, bby = bound(flops, nbytes, peak_flops, peak_bw)
+        timing[(b, t)] = {
+            "ms": time_ms(torch, lambda: ck.fused_lstm(x, w, bias, None,
+                                                       None, lt)),
+            "plain_ms": time_ms(torch, lambda: ck.fused_lstm_plain(
+                x, w, bias, None, None, lt), iters=2, reps=3),
+            # a CUDA graph like the kernel's: device time, no launch cost
+            "library_ms": time_ms(torch, lib_call),
+            "bound_ms": bms, "bound_by": bby, "lens": lens,
+            "cudnn_max_abs_diff": lib_err}
+    (sb, st), (tb, tt) = [(b, t) for b, t, _ in lstm_cases]
+    serve, train = timing[(sb, st)], timing[(tb, tt)]
+    results["fused_lstm"] = {
+        "name": "fused_lstm", "route": "cuda", "source": LSTM_SRC,
+        "replaces": LSTM_TPU,
+        "shape": "x [%d,%d,%d] fp32, h=%d, lens %s" % (
+            sb, st, 4 * d, d, serve["lens"]),
+        "max_abs_err": lstm_err,
+        "ms": serve["ms"], "plain_ms": serve["plain_ms"],
+        "library_ms": serve["library_ms"],
+        "library_covers": "torch.nn.LSTM (cuDNN) at full lengths, identity "
+                          "input projection, in a CUDA graph",
+        "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+        "train_shape": "x [%d,%d,%d]" % (tb, tt, 4 * d),
+        "train_ms": train["ms"], "train_plain_ms": train["plain_ms"],
+        "train_library_ms": train["library_ms"],
+        "train_bound_ms": train["bound_ms"],
+        "cudnn_max_abs_diff": max(serve["cudnn_max_abs_diff"],
+                                  train["cudnn_max_abs_diff"]),
+    }
+
+    # K9: the conv net's SQRT pools (batch bucket 8, seq bucket 256,
+    # 32 filters) and a wide shape
+    pool_cases = [(8, 256, SENTIMENT["conv_hid"]), (128, 256, 512)]
+    pool_err = 0.0
+    timing = {}
+    for b, t, f in pool_cases:
+        x = torch.randn((b, t, f), generator=g, device=dev)
+        lens = ragged(b, t)
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for ptype in ck.POOL_TYPES:
+            got = ck.masked_pool(x, lt, ptype)
+            want = ck.masked_pool_plain(x, lt, ptype)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            print("kernels: masked_pool B=%d T=%d F=%d %s max_abs_err=%.3e"
+                  % (b, t, f, ptype, err))
+            check(np.isfinite(err) and err <= KERNEL_TOL,
+                  "masked_pool disagrees with its plain version by %r"
+                  % err)
+            pool_err = max(pool_err, err)
+        flops, nbytes = pool_work(lens, t, f, b)
+        bms, bby = bound(flops, nbytes, peak_flops, peak_bw)
+        timing[(b, t, f)] = {
+            "ms": time_ms(torch, lambda: ck.masked_pool(x, lt, "SQRT")),
+            "plain_ms": time_ms(
+                torch, lambda: ck.masked_pool_plain(x, lt, "SQRT")),
+            "library_ms": time_ms(torch, lambda: x.sum(1)),
+            "bound_ms": bms, "bound_by": bby, "lens": lens}
+    serve, wide = timing[pool_cases[0]], timing[pool_cases[1]]
+    results["masked_pool"] = {
+        "name": "masked_pool", "route": "cuda", "source": POOL_SRC,
+        "replaces": POOL_TPU,
+        "shape": "x [%d,%d,%d] fp32, SQRT, lens %s" % (
+            pool_cases[0] + (serve["lens"],)),
+        "max_abs_err": pool_err,
+        "ms": serve["ms"], "plain_ms": serve["plain_ms"],
+        "library_ms": serve["library_ms"],
+        "library_covers": "x.sum(1) at full lengths",
+        "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+        "wide_shape": "x [%d,%d,%d]" % pool_cases[1],
+        "wide_ms": wide["ms"], "wide_plain_ms": wide["plain_ms"],
+        "wide_library_ms": wide["library_ms"],
+        "wide_bound_ms": wide["bound_ms"],
+    }
+    for r in results.values():
+        print("kernels: %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
+              "bound_ms=%.4f (%s)" % (r["name"], r["ms"], r["plain_ms"],
+                                      r["library_ms"], r["bound_ms"],
+                                      r["bound_by"]))
+    print("kernels: fused_lstm at %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
+          "bound_ms=%.4f; masked_pool at %s ms=%.4f plain_ms=%.4f "
+          "library_ms=%.4f bound_ms=%.4f"
+          % (results["fused_lstm"]["train_shape"], train["ms"],
+             train["plain_ms"], train["library_ms"], train["bound_ms"],
+             results["masked_pool"]["wide_shape"], wide["ms"],
+             wide["plain_ms"], wide["library_ms"], wide["bound_ms"]))
+    return results
+
+
 # --------------------------------------------------------------- serving --
 
 def run_serving(torch, card, n_layer=N_LAYER):
@@ -583,7 +827,10 @@ def run_serving(torch, card, n_layer=N_LAYER):
         "card": card,
     }
     print("serving: " + json.dumps(serving))
-    return counts
+    expected = dict.fromkeys(counts, 0)
+    expected.update(flash_attention_fwd=n_flash * batches,
+                    layer_norm_fwd=n_ln * batches)
+    return counts, expected
 
 
 # -------------------------------------------------------------- training --
@@ -685,7 +932,9 @@ def profile_step(torch, step, trace_path=None):
     for name, us in kernels.items():
         low = name.lower()
         if any(k in low for k in ("flash_fwd", "flash_bwd", "xent_fwd",
-                                  "layer_norm_fwd_kernel")):
+                                  "layer_norm_fwd_kernel",
+                                  "fused_lstm_fwd_kernel",
+                                  "masked_pool_fwd_kernel")):
             groups["port kernels"] += us
         elif any(k in low for k in ("gemm", "gemv", "cutlass", "cublas")):
             groups["matrix products"] += us
@@ -798,7 +1047,9 @@ def run_training(torch, card, n_layer=N_LAYER, batch=TRAIN_BATCH,
     print("training: " + json.dumps(training))
     del scope
     torch.cuda.empty_cache()
-    return counts
+    expected = dict.fromkeys(counts, 0)
+    expected.update({k: n * steps for k, n in per_step.items()})
+    return counts, expected
 
 
 def run_training_vs_cpu(torch):
@@ -853,13 +1104,351 @@ def run_training_vs_cpu(torch):
           "by %r after one step" % param_diff)
 
 
+# ------------------------------------------------------------- sequences --
+
+def no_peephole_stacked_lstm_net(fluid, data, dict_dim, class_dim=2,
+                                 emb_dim=128, hid_dim=512, stacked_num=3):
+    """models/understand_sentiment.stacked_lstm_net's layer calls with
+    use_peepholes=False on each dynamic_lstm: the configuration in which
+    the JAX package dispatches its fused LSTM kernel, and the port K6."""
+    emb = fluid.layers.embedding(input=data, size=[dict_dim, emb_dim])
+    fc1 = fluid.layers.fc(input=emb, size=hid_dim)
+    lstm1, _ = fluid.layers.dynamic_lstm(input=fc1, size=hid_dim,
+                                         use_peepholes=False)
+    inputs = [fc1, lstm1]
+    for i in range(2, stacked_num + 1):
+        fc = fluid.layers.fc(input=inputs, size=hid_dim)
+        lstm, _ = fluid.layers.dynamic_lstm(
+            input=fc, size=hid_dim, is_reverse=(i % 2) == 0,
+            use_peepholes=False)
+        inputs = [fc, lstm]
+    fc_last = fluid.layers.sequence_pool(input=inputs[0], pool_type="max")
+    lstm_last = fluid.layers.sequence_pool(input=inputs[1], pool_type="max")
+    return fluid.layers.fc(input=[fc_last, lstm_last], size=class_dim,
+                           act="softmax")
+
+
+def build_sentiment(fluid, kind):
+    """The book's IMDB classifier: "conv" = understand_sentiment's
+    convolution_net as written, "lstm" = the stacked LSTM at its book
+    widths without peepholes. Returns (main, startup, prediction)."""
+    from paddle_tpu_torch.models import understand_sentiment
+    m = SENTIMENT
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        words = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                  lod_level=1)
+        if kind == "conv":
+            pred = understand_sentiment.convolution_net(
+                words, m["dict_dim"], m["classes"], m["conv_emb"],
+                m["conv_hid"])
+        else:
+            pred = no_peephole_stacked_lstm_net(
+                fluid, words, m["dict_dim"], m["classes"], m["lstm_emb"],
+                m["lstm_hid"], m["stacked"])
+    return main, startup, pred
+
+
+def serve_sentiment(torch, kind, model_dir, requests):
+    """Serve one saved sentiment model: 16 concurrent one-review requests
+    through InferenceEngine(batch_buckets=[1, 4, 8]) with the default seq
+    buckets, warmed over the whole (batch, seq) lattice. Returns the
+    report, the launch counts of the requests' run and the counts it
+    predicts."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    n = len(requests)
+    t0 = time.perf_counter()
+    engine = InferenceEngine(model_dir, batch_buckets=[1, 4, 8])
+    torch.cuda.synchronize()
+    ops = engine.program.global_block().ops
+    n_lstm = sum(op.type == "lstm" for op in ops)
+    n_pool = sum(op.type == "sequence_pool" and op.attrs.get("pooltype")
+                 in ck.POOL_TYPES for op in ops)
+    try:
+        check(engine.seq_buckets == SEQ_BUCKETS,
+              "the engine's seq buckets are %s, expected the default %s"
+              % (engine.seq_buckets, SEQ_BUCKETS))
+        print("sequences: %s engine loaded and warmed up over its %d "
+              "(batch, seq) buckets in %.1f s; %d lstm and %d linear "
+              "sequence_pool ops per dispatch"
+              % (kind, len(engine.batch_buckets) * len(SEQ_BUCKETS),
+                 time.perf_counter() - t0, n_lstm, n_pool))
+        answers, latencies, futures = [None] * n, [None] * n, [None] * n
+        errors = []
+        barrier = threading.Barrier(n)
+        fetch = engine.fetch_names[0]
+
+        def client(i):
+            try:
+                barrier.wait()
+                ts = time.perf_counter()
+                fut = engine.submit(requests[i])
+                answers[i] = fut.result(600).numpy()[fetch]
+                latencies[i] = time.perf_counter() - ts
+                futures[i] = fut
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+
+        # the counts: zero just before the main path, read just after
+        ck.reset_launch_counts()
+        batches0 = engine.metrics.snapshot()["batches_total"]
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n)]
+        tw = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        wall = time.perf_counter() - tw
+        counts = ck.launch_counts()
+        snap = engine.metrics.snapshot()
+        check(not any(th.is_alive() for th in threads),
+              "a client thread did not finish")
+        check(not errors, "%s requests failed: %s" % (kind, errors))
+        batches = snap["batches_total"] - batches0
+        expected = dict.fromkeys(counts, 0)
+        expected.update(fused_lstm=n_lstm * batches,
+                        masked_pool=n_pool * batches)
+        print("sequences: %s launches %s over %d engine dispatches"
+              % (kind, counts, batches))
+        for i, a in enumerate(answers):
+            check(a.shape == (1, SENTIMENT["classes"])
+                  and np.isfinite(a).all()
+                  and abs(float(a.sum()) - 1.0) <= 1e-5,
+                  "%s answer %d: %r" % (kind, i, a))
+        bucket_diff = 0.0
+        for i, fut in enumerate(futures):
+            direct, bucket = engine.run_direct(
+                requests[i], batch_bucket=fut.bucket[0],
+                seq_bucket=fut.bucket[1])
+            check(bucket == fut.bucket, "run_direct ran at %s, the future "
+                  "recorded %s" % (bucket, fut.bucket))
+            bucket_diff = max(bucket_diff, float(np.abs(
+                direct[fetch] - answers[i]).max()))
+        print("sequences: %s coalesced vs run_direct at the same (batch, "
+              "seq) bucket: max diff %.3e (buckets %s)"
+              % (kind, bucket_diff, sorted(set(f.bucket for f in futures))))
+        check(bucket_diff <= BUCKET_TOL, "%s coalesced answers differ from "
+              "run_direct by %r" % (kind, bucket_diff))
+    finally:
+        engine.close()
+
+    t0 = time.perf_counter()
+    cpu = InferenceEngine(model_dir, device="cpu", batch_buckets=[1],
+                          warmup=False)
+    try:
+        ref = cpu.run_direct(requests[0])[0][fetch]
+    finally:
+        cpu.close()
+    cpu_diff = float(np.abs(ref - answers[0]).max())
+    print("sequences: %s request 0 on the card vs on the CPU (plain "
+          "versions, same weights): max diff %.3e (%.1f s)"
+          % (kind, cpu_diff, time.perf_counter() - t0))
+    check(cpu_diff <= SEQ_CPU_TOL, "%s: card and CPU disagree by %r"
+          % (kind, cpu_diff))
+    tokens = sum(len(r["words"][0]) for r in requests)
+    lat_ms = sorted(x * 1e3 for x in latencies)
+    report = {
+        "model": kind, "requests": n, "batches": batches,
+        "occupancy": snap["mean_batch_occupancy"],
+        "row_utilization": snap["row_utilization"],
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "wall_s": wall, "review_tokens": tokens,
+        "review_tokens_per_s": tokens / wall,
+        "bucket_max_diff": bucket_diff, "cpu_max_diff": cpu_diff,
+    }
+    return report, counts, expected
+
+
+def run_sequence_serving(torch, card):
+    """The sequence path's serving half: both sentiment bodies, built with
+    the port's layers, initialized on the card from SEED, saved and served
+    with LoD feeds (16 concurrent one-review requests each, lengths
+    16-256). Returns the summed launch counts and predictions."""
+    import paddle_tpu_torch as fluid
+
+    rng = np.random.RandomState(SEED + 3)
+    requests = [{"words": [rng.randint(0, SENTIMENT["dict_dim"],
+                                       (int(n), 1)).astype("int64")]}
+                for n in rng.randint(16, 257, size=16)]
+    counts, expected = {}, {}
+    for kind in ("conv", "lstm"):
+        t0 = time.perf_counter()
+        main, startup, pred = build_sentiment(fluid, kind)
+        exe = fluid.Executor()
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        with tempfile.TemporaryDirectory(prefix="ptt_smoke_") as model_dir:
+            fluid.io.save_inference_model(model_dir, ["words"], [pred], exe,
+                                          main, scope=scope)
+            del scope
+            print("sequences: built, initialized and saved the %s sentiment "
+                  "model in %.1f s" % (kind, time.perf_counter() - t0))
+            report, c, e = serve_sentiment(torch, kind, model_dir, requests)
+        report["card"] = card
+        print("sequences: serving " + json.dumps(report))
+        for k in c:
+            counts[k] = counts.get(k, 0) + c[k]
+            expected[k] = expected.get(k, 0) + e[k]
+    return counts, expected
+
+
+def build_sentiment_train(fluid, stacked, vocab, hid):
+    """The no-peephole stacked LSTM training program at bench.py's
+    bench_stacked_lstm configuration: mean(cross_entropy(softmax)),
+    Adam(0.002), fp32. Returns (main, startup, avg_cost)."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        words = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                  lod_level=1)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        pred = no_peephole_stacked_lstm_net(
+            fluid, words, vocab, 2, emb_dim=hid, hid_dim=hid,
+            stacked_num=stacked)
+        cost = fluid.layers.mean(
+            x=fluid.layers.cross_entropy(input=pred, label=label))
+        fluid.optimizer.Adam(learning_rate=SEQ_TRAIN["lr"]).minimize(cost)
+    return main, startup, cost
+
+
+def run_sequence_training(torch, card, trace_path=None):
+    """The sequence path's training half: the stacked LSTM at bench.py's
+    widths (vocab 10000, emb = hid = 512, so h = 128; 3 layers) on batch
+    128 x T=64 of random ids from a seed, the same batch every step,
+    through Executor.run. Returns the launch counts and predictions."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = SEQ_TRAIN
+    t0 = time.perf_counter()
+    main, startup, avg_cost = build_sentiment_train(
+        fluid, cfg["stacked"], cfg["vocab"], cfg["hid"])
+    ops = main.global_block().ops
+    n_lstm = sum(op.type == "lstm" for op in ops)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(scope.get(p.name).shape))
+                   for p in main.all_parameters())
+    print("sequences: built the stacked LSTM training program (%d layers, "
+          "%d parameters, %d ops) and ran its startup program in %.1f s"
+          % (cfg["stacked"], n_params, len(ops), time.perf_counter() - t0))
+    # bench.py's feed: ids in [1, vocab), full length, labels in {0, 1}
+    rng = np.random.RandomState(SEED)
+    seqs = [rng.randint(1, cfg["vocab"], (cfg["seq"], 1)).astype("int64")
+            for _ in range(cfg["batch"])]
+    feed = {"words": fluid.LoDTensor.from_sequences(seqs),
+            "label": rng.randint(0, 2, (cfg["batch"], 1)).astype("int64")}
+    warm, timed = TRAIN_STEPS
+    losses, step_s = [], []
+    ck.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(warm + timed):
+        ts = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
+        step_s.append(time.perf_counter() - ts)
+        losses.append(float(loss.reshape(-1)[0]))
+    counts = ck.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = warm + timed
+    busy_ms, groups_ms, n_kernels = profile_step(
+        torch, lambda: exe.run(main, feed=feed, fetch_list=[avg_cost],
+                               scope=scope), trace_path)
+    print("sequences: training losses %s" % ["%.6f" % x for x in losses])
+    check(all(np.isfinite(x) for x in losses), "a loss is not finite: %s"
+          % losses)
+    check(losses[-1] < losses[0], "the loss did not fall: %s" % losses)
+    times = step_s[warm:]
+    med = statistics.median(times)
+    tokens = cfg["batch"] * cfg["seq"]
+    report = {
+        "layers": cfg["stacked"], "hid": cfg["hid"], "batch": cfg["batch"],
+        "seq": cfg["seq"], "steps_timed": timed,
+        "step_ms_median": med * 1e3, "step_ms_min": min(times) * 1e3,
+        "step_ms_max": max(times) * 1e3,
+        # bench.py's count: batch x T tokens per step
+        "tokens_per_s": tokens / med, "peak_mem_bytes": peak,
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "device_busy_ms": busy_ms, "device_ms_by_group": groups_ms,
+        "device_kernels_per_step": n_kernels,
+        "idle_share_est": 1 - busy_ms / (med * 1e3),
+        "card": card,
+    }
+    print("sequences: training " + json.dumps(report))
+    del scope
+    torch.cuda.empty_cache()
+    expected = dict.fromkeys(counts, 0)
+    expected["fused_lstm"] = n_lstm * steps
+    return counts, expected
+
+
+def run_sequence_training_vs_cpu(torch):
+    """One training step of the stacked LSTM at full widths and 1 layer,
+    batch 4 of ragged lengths 1-16, from the same weights on the card and
+    on the CPU (plain versions): loss within 1e-4 relative, every gradient
+    within 1e-3 of its largest value, every parameter within 2 * lr (Adam
+    moves a parameter by about lr whatever its gradient, so a gradient at
+    rounding-noise level may take it the other way on one device)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+
+    cfg = SEQ_TRAIN
+    main, startup, avg_cost = build_sentiment_train(fluid, 1, cfg["vocab"],
+                                                    cfg["hid"])
+    cpu = fluid.Executor("cpu")
+    cpu_scope = fluid.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    state = {v.name: cpu_scope.get(v.name).numpy().copy()
+             for v in main.list_vars() if v.persistable}
+    card_scope = pio.scope_from_numpy(state, "cuda", program=main)
+    rng = np.random.RandomState(SEED + 4)
+    lens = [16, 1, 9, 5]
+    seqs = [rng.randint(1, cfg["vocab"], (n, 1)).astype("int64")
+            for n in lens]
+    feed = {"words": fluid.LoDTensor.from_sequences(seqs),
+            "label": rng.randint(0, 2, (len(lens), 1)).astype("int64")}
+    grads = sorted(p.name + "@GRAD" for p in main.all_parameters()
+                   if p.trainable)
+    fetch = [avg_cost.name] + grads
+    got = fluid.Executor().run(main, feed=feed, fetch_list=fetch,
+                               scope=card_scope)
+    want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    loss_diff = abs(float(got[0][0]) - float(want[0][0]))
+    grad_err = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                     1e-30)
+                   for a, b in zip(got[1:], want[1:]))
+    param_diff = max(float(np.abs(card_scope.get(name).cpu().numpy()
+                                  - cpu_scope.get(name).numpy()).max())
+                     for name in state)
+    print("sequences: one step at 1 layer, batch 4, lengths %s, card vs "
+          "CPU: loss %.6f vs %.6f (diff %.3e), max gradient error %.3e of "
+          "its max, max parameter diff %.3e (limit 2 * lr = %.3e)"
+          % (lens, float(got[0][0]), float(want[0][0]), loss_diff, grad_err,
+             param_diff, 2 * cfg["lr"]))
+    check(loss_diff <= LOSS_RTOL * abs(float(want[0][0])),
+          "card and CPU losses differ by %r" % loss_diff)
+    check(grad_err <= GRAD_RTOL, "card and CPU gradients differ by %r of "
+          "their max" % grad_err)
+    check(param_diff <= 2 * cfg["lr"] * 1.001, "card and CPU parameters "
+          "differ by %r after one step" % param_diff)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/shared-memory report")
     ap.add_argument("--trace", metavar="PATH",
-                    help="keep the traced training step's chrome trace here")
+                    help="keep the traced Transformer training step's "
+                    "chrome trace here, and the stacked LSTM's beside it "
+                    "as <PATH stem>_sequences.json")
     args = ap.parse_args(argv)
 
     import torch
@@ -885,15 +1474,30 @@ def main(argv=None):
         print(ck.build_info.log)
 
     kernels = run_kernels(torch, ck, peak_flops, peak_bw)
+    kernels.update(run_sequence_kernels(torch, ck, peak_flops, peak_bw))
     if args.only == "all":
-        serving = run_serving(torch, card)
-        training = run_training(torch, card, trace_path=args.trace)
+        seq_trace = args.trace and os.path.splitext(args.trace)[0] \
+            + "_sequences.json"
+        # each path: the launch counts of its run and the counts it
+        # predicts (0 for a kernel the path does not run)
+        paths = [("transformer_serving", run_serving(torch, card)),
+                 ("transformer_training",
+                  run_training(torch, card, trace_path=args.trace))]
         run_training_vs_cpu(torch)
+        paths += [("sentiment_serving", run_sequence_serving(torch, card)),
+                  ("sentiment_training",
+                   run_sequence_training(torch, card, trace_path=seq_trace))]
+        run_sequence_training_vs_cpu(torch)
+        for path, (counts, expected) in paths:
+            for kname, n in expected.items():
+                check(counts[kname] == n, "%s: %s launched %d times, "
+                      "expected %d" % (path, kname, counts[kname], n))
         for kname, r in kernels.items():
-            r["launches"] = training[kname]
-            r["serving_launches"] = serving[kname]
-            check(r["launches"] > 0, "%s never launched on the training "
-                  "path" % kname)
+            r["launches_by_path"] = {path: counts[kname]
+                                     for path, (counts, _) in paths}
+            r["launches"] = sum(r["launches_by_path"].values())
+            check(r["launches"] > 0, "%s never launched on any path that "
+                  "chip_smoke.py drives" % kname)
     for r in kernels.values():
         r.setdefault("launches", None)
     print(json.dumps({"kernels": list(kernels.values())}))

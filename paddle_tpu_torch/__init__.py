@@ -22,6 +22,7 @@ from .core.framework import (Program, Operator, Variable, Parameter,  # noqa: F4
                              default_main_program, default_startup_program,
                              program_guard)
 from .core.executor import Executor, Scope, global_scope  # noqa: F401
+from .core.lod import LoDTensor, create_lod_tensor  # noqa: F401
 from .core.param_attr import ParamAttr  # noqa: F401
 from .core import initializer  # noqa: F401
 from .core import unique_name  # noqa: F401
@@ -30,6 +31,7 @@ from .core.backward import append_backward, calc_gradient  # noqa: F401
 
 from . import ops as _ops  # noqa: F401  (registers the op rules)
 from . import layers  # noqa: F401
+from . import nets  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import regularizer  # noqa: F401
 from . import clip  # noqa: F401

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .framework import convert_dtype, default_main_program, find_var
+from .lod import LoDTensor
 from .lowering import Env, LowerCtx, lower_block
 from .registry import torch_dtype
 
@@ -52,6 +53,35 @@ def to_tensor(value, dtype=None, device=None):
     if device is not None:
         t = t.to(device)
     return t
+
+
+def convert_feeds(program, feed):
+    """Expand a feed dict (parity: the JAX package's
+    core/executor.convert_feeds): a LoDTensor becomes its zero-padded
+    [num_seqs, max_len, ...] data plus `name@SEQLEN` int32 lengths; a
+    sequence var (lod_level > 0) fed any other way needs a padded array
+    of its declared rank AND its `@SEQLEN` lengths in the same feed."""
+    out = {}
+    for name, value in feed.items():
+        var = find_var(program, name)
+        if isinstance(value, LoDTensor):
+            out[name], out[name + "@SEQLEN"] = value.to_padded()
+            continue
+        if var is not None and var.lod_level > 0:
+            try:  # ragged python lists make np.ndim itself raise
+                ndim = np.ndim(value)
+            except ValueError:
+                ndim = -1
+            if ndim != len(var.shape or ()) or \
+                    name + "@SEQLEN" not in feed:
+                raise TypeError(
+                    "variable %r is a sequence (lod_level=%d): feed a "
+                    "LoDTensor (fluid.create_lod_tensor / "
+                    "LoDTensor.from_sequences), or a padded [num_seqs, "
+                    "max_len, ...] array plus %r lengths" %
+                    (name, var.lod_level, name + "@SEQLEN"))
+        out[name] = value
+    return out
 
 
 class Scope(object):
@@ -96,7 +126,8 @@ class Executor(object):
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
         """Run `program` once: feeds convert to their declared dtypes on
-        this executor's device, parameters read from `scope`, every
+        this executor's device (a LoDTensor feed expands as in
+        `convert_feeds`), parameters read from `scope`, every
         persistable the program writes is stored back into `scope`.
         Returns the fetches as numpy arrays, or as device tensors with
         return_numpy=False (no host sync)."""
@@ -108,7 +139,7 @@ class Executor(object):
                        for f in (fetch_list or [])]
         persistable = {v.name for v in program.list_vars() if v.persistable}
         env = Env(scope, persistable, self.device)
-        for name, value in feed.items():
+        for name, value in convert_feeds(program, feed).items():
             var = find_var(program, name)
             env.write(name, to_tensor(
                 value, var.dtype if var is not None else None, self.device))

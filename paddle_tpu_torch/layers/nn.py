@@ -1,5 +1,5 @@
-"""NN layers that build graph ops (the subset models/transformer.py and
-the noam schedule call).
+"""NN layers that build graph ops (the subset models/transformer.py,
+models/understand_sentiment.py and the noam schedule call).
 
 Parity: python/paddle/fluid/layers/nn.py and the JAX package's layers/nn.py
 — same function names, argument names and op emission, so both packages
@@ -11,8 +11,8 @@ from ..core.layer_helper import LayerHelper
 from ..core.initializer import ConstantInitializer
 
 __all__ = ["fc", "embedding", "layer_norm", "fused_attention",
-           "softmax_with_cross_entropy", "one_hot", "reduce_sum",
-           "autoincreased_step_counter"]
+           "softmax_with_cross_entropy", "softmax", "cross_entropy",
+           "accuracy", "one_hot", "reduce_sum", "autoincreased_step_counter"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -142,6 +142,49 @@ def softmax_with_cross_entropy(logits, label, soft_label=False):
         outputs={"Softmax": [softmax_out], "Loss": [loss]},
         attrs={"soft_label": soft_label})
     return loss
+
+
+def softmax(input, use_cudnn=True, name=None):
+    helper = LayerHelper("softmax", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False):
+    """Cross-entropy of probabilities `input` against `label`."""
+    helper = LayerHelper("cross_entropy", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="cross_entropy",
+        inputs={"X": [input], "Label": [label]},
+        outputs={"Y": [out]},
+        attrs={"soft_label": soft_label})
+    return out
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Top-k accuracy: emits a topk and an accuracy op."""
+    helper = LayerHelper("accuracy", **locals())
+    topk_out = helper.create_variable_for_type_inference(input.dtype)
+    topk_indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="topk", inputs={"X": [input]},
+        outputs={"Out": [topk_out], "Indices": [topk_indices]},
+        attrs={"k": k})
+    acc_out = helper.create_variable_for_type_inference("float32")
+    if correct is None:
+        correct = helper.create_variable_for_type_inference("int32")
+    if total is None:
+        total = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="accuracy",
+        inputs={"Out": [topk_out], "Indices": [topk_indices],
+                "Label": [label]},
+        outputs={"Accuracy": [acc_out], "Correct": [correct],
+                 "Total": [total]})
+    return acc_out
 
 
 def one_hot(input, depth):

@@ -1,5 +1,5 @@
-"""Thin layer wrappers over registered ops (reshape, scale, relu, mul and
-the elementwise family).
+"""Thin layer wrappers over registered ops (mean, reshape, scale, relu,
+tanh, mul and the elementwise family).
 
 Parity: python/paddle/fluid/layers/ops.py + layer_function_generator.py
 and the JAX package's layers/ops.py: generated from a slot-spec table;
@@ -13,10 +13,12 @@ _UNARY = [("X", "x", True)]
 _BINARY = [("X", "x", True), ("Y", "y", True)]
 
 _SPECS = {
+    "mean": (_UNARY, ["Out"]),
     "mul": (_BINARY, ["Out"]),
     "reshape": (_UNARY, ["Out"]),
     "scale": (_UNARY, ["Out"]),
     "relu": (_UNARY, ["Out"]),
+    "tanh": (_UNARY, ["Out"]),
 }
 for _e in ("elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "elementwise_min", "elementwise_pow"):

@@ -1,1 +1,2 @@
-"""Model builders of the port (this slice: the transformer scoring graph)."""
+"""Model builders of the port: the transformer (scoring and training) and
+the IMDB sentiment classifiers."""

@@ -2,3 +2,4 @@
 from . import basic  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import sequence_ops  # noqa: F401

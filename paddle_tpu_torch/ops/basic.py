@@ -1,9 +1,10 @@
-"""Elementwise / math / tensor op rules (the subset the Transformer's
-scoring and training programs run).
+"""Elementwise / math / tensor op rules (the subset the Transformer's and
+the sentiment classifiers' scoring and training programs run).
 
 Parity: paddle/fluid/operators/{activation_op,elementwise_*_op,mul_op,
-scale_op,reshape_op,reduce_op,cast_op,one_hot_op,increment_op,sign_op,
-assign_op,fill_constant_op,assign_value_op,uniform_random_op,gaussian_random_op}.cc
+mean_op,sum_op,topk_op,scale_op,reshape_op,reduce_op,cast_op,one_hot_op,
+increment_op,sign_op,assign_op,fill_constant_op,assign_value_op,
+uniform_random_op,gaussian_random_op}.cc
 and the JAX package's ops/basic.py, whose rules these mirror over torch
 tensors. `mul` stays a plain torch.matmul: the JAX package left the matrix
 product to XLA, outside any Pallas kernel. Gradients come from autograd
@@ -22,6 +23,11 @@ def _out(x):
 @register("relu")
 def _relu(ctx, ins, attrs):
     return _out(torch.relu(single(ins, "X")))
+
+
+@register("tanh")
+def _tanh(ctx, ins, attrs):
+    return _out(torch.tanh(single(ins, "X")))
 
 
 def _bcast_y(x, y, axis):
@@ -79,6 +85,27 @@ def _scale(ctx, ins, attrs):
         else:
             out = (x + bias) * attrs.get("scale", 1.0)
     return _out(out)
+
+
+@register("mean")
+def _mean(ctx, ins, attrs):
+    return _out(torch.mean(single(ins, "X")).reshape(1))
+
+
+@register("sum")
+def _sum(ctx, ins, attrs):
+    """Sum of the X inputs (a multi-input fc emits it)."""
+    xs = ins.get("X", [])
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return _out(out)
+
+
+@register("topk")
+def _topk(ctx, ins, attrs):
+    vals, idx = torch.topk(single(ins, "X"), attrs.get("k", 1), dim=-1)
+    return {"Out": [vals], "Indices": [idx]}
 
 
 @register("reshape")

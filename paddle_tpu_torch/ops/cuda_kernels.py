@@ -8,20 +8,23 @@ library with a plain C interface (`build()`), loaded with ctypes.
 
 Beside each kernel:
   * a wrapper (`flash_attention_fwd`, `flash_attention_bwd_dkdv`,
-    `flash_attention_bwd_dq`, `softmax_xent_fwd`, `layer_norm_fwd`) whose
-    dispatch rule is the tensor's device: `meta` returns empty outputs of
-    the right shape (build-time shape inference), `cpu` runs the plain
-    version, `cuda` launches the kernel or raises. Nothing falls back;
+    `flash_attention_bwd_dq`, `softmax_xent_fwd`, `layer_norm_fwd`,
+    `fused_lstm`, `masked_pool`) whose dispatch rule is the tensor's
+    device: `meta` returns empty outputs of the right shape (build-time
+    shape inference), `cpu` runs the plain version, `cuda` launches the
+    kernel or raises. Nothing falls back;
   * a plain PyTorch version (`*_plain`) of the same function — what the
     CPU runs, and what the card's kernel is held against;
   * a launch counter (`wrapper.launches`), raised by one exactly where the
     kernel is launched, so a run can show the main path went through it.
 
-Gradients: three torch.autograd.Functions mirror the JAX package's
+Gradients: five torch.autograd.Functions mirror the JAX package's
 custom_vjps — `FlashAttention` (forward K1, backward K2 + K3, as
 `_flash_core`), `LayerNorm` (forward K5, backward in torch, as
-`_ln_core_bwd`) and `SoftmaxXent` (forward K4, backward in torch, as
-`_xent_core_bwd`).
+`_ln_core_bwd`), `SoftmaxXent` (forward K4, backward in torch, as
+`_xent_core_bwd`), `FusedLSTM` (forward K6, backward the saved-state
+reverse scan in torch, as `_lstm_seq_core_bwd`) and `MaskedPool` (forward
+K9, backward in torch, as `_masked_pool_core_bwd`).
 """
 import ctypes
 import hashlib
@@ -38,15 +41,18 @@ __all__ = ["build", "flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
            "softmax_xent_fwd", "softmax_xent_fwd_plain",
-           "layer_norm_fwd", "layer_norm_fwd_plain", "FlashAttention",
-           "LayerNorm", "SoftmaxXent", "launch_counts",
-           "reset_launch_counts", "FLASH_HEAD_DIMS"]
+           "layer_norm_fwd", "layer_norm_fwd_plain", "fused_lstm",
+           "fused_lstm_plain", "fused_lstm_bwd", "masked_pool",
+           "masked_pool_plain", "FlashAttention", "LayerNorm",
+           "SoftmaxXent", "FusedLSTM", "MaskedPool", "launch_counts",
+           "reset_launch_counts", "FLASH_HEAD_DIMS", "POOL_TYPES"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
-           "softmax_xent_fwd.cu", "layer_norm_fwd.cu")
+           "softmax_xent_fwd.cu", "layer_norm_fwd.cu", "fused_lstm_fwd.cu",
+           "masked_pool_fwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -169,6 +175,10 @@ def _bind(lib):
     lib.ptt_softmax_xent_fwd.restype = I
     lib.ptt_layer_norm_fwd.argtypes = [P, P, P, P, P, P, I, I, F, I, P]
     lib.ptt_layer_norm_fwd.restype = I
+    lib.ptt_fused_lstm_fwd.argtypes = [P, L, L] + [P] * 7 + [I] * 4 + [P]
+    lib.ptt_fused_lstm_fwd.restype = I
+    lib.ptt_masked_pool_fwd.argtypes = [P, L, L, P, P, I, I, I, I, P]
+    lib.ptt_masked_pool_fwd.restype = I
 
 
 def _count(wrapper):
@@ -178,7 +188,8 @@ def _count(wrapper):
 
 def _counted():
     return (flash_attention_fwd, flash_attention_bwd_dkdv,
-            flash_attention_bwd_dq, softmax_xent_fwd, layer_norm_fwd)
+            flash_attention_bwd_dq, softmax_xent_fwd, layer_norm_fwd,
+            fused_lstm, masked_pool)
 
 
 def launch_counts():
@@ -614,6 +625,277 @@ softmax_xent_fwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# fused LSTM recurrence forward (replaces pallas_kernels._lstm_seq_kernel)
+# ---------------------------------------------------------------------------
+
+def step_mask(lens, b, t, device, dtype=torch.float32):
+    """[B, T] in `dtype`: 1 where step t < lens[b] (every step when lens is
+    None), else 0."""
+    if lens is None:
+        return torch.ones((b, t), dtype=dtype, device=device)
+    steps = torch.arange(t, device=device)
+    return (steps[None, :] < lens.reshape(-1, 1).to(
+        device=device, dtype=torch.int64)).to(dtype)
+
+
+def _lstm_args(x, w, b, h0, c0, lens):
+    if x.dim() != 3 or x.shape[2] % 4:
+        raise ValueError("fused_lstm needs x [B, T, 4D], got %s"
+                         % (tuple(x.shape),))
+    bsz, t, four_d = x.shape
+    d = four_d // 4
+    if w.shape != (d, four_d) or b.numel() != four_d:
+        raise ValueError("fused_lstm needs w [D, 4D] = %s and b [4D]; got "
+                         "%s %s" % ((d, four_d), tuple(w.shape),
+                                    tuple(b.shape)))
+    for name, s in (("h0", h0), ("c0", c0)):
+        if s is not None and s.shape != (bsz, d):
+            raise ValueError("fused_lstm %s must be [B, D] = %s, got %s"
+                             % (name, (bsz, d), tuple(s.shape)))
+    if lens is not None and lens.numel() != bsz:
+        raise ValueError("fused_lstm lens must hold one length per batch "
+                         "row (%d), got shape %s" % (bsz, tuple(lens.shape)))
+    return bsz, t, d
+
+
+def fused_lstm_plain(x, w, b, h0=None, c0=None, lens=None, reverse=False,
+                     peepholes=None, acts=(torch.sigmoid, torch.tanh,
+                                           torch.tanh),
+                     dtype=torch.float32):
+    """Plain version: the masked recurrence as a torch loop over T (the
+    JAX package's lax.scan step). Gate order {candidate, input, forget,
+    output}; a step at or past lens[b] carries (h, c) unchanged; reverse
+    walks t from T-1 down. Returns (hidden, cell) [B, T, D] in `dtype`.
+
+    The lstm rule also runs it for what K6 does not cover: peepholes
+    [3D] (w_ic, w_fc, w_oc, added as lstm_op.h adds them), other
+    (gate, cell, candidate) activations and another state dtype."""
+    bsz, t, d = _lstm_args(x, w, b, h0, c0, lens)
+    gate_act, cell_act, cand_act = acts
+    xf, wf, bf = x.to(dtype), w.to(dtype), b.reshape(-1).to(dtype)
+    h = torch.zeros((bsz, d), dtype=dtype, device=x.device) \
+        if h0 is None else h0.to(dtype)
+    c = torch.zeros_like(h) if c0 is None else c0.to(dtype)
+    if peepholes is not None:
+        w_ic, w_fc, w_oc = peepholes.reshape(3, d).to(dtype)
+    m = step_mask(lens, bsz, t, x.device, dtype)
+    hidden = torch.empty((bsz, t, d), dtype=dtype, device=x.device)
+    cell = torch.empty_like(hidden)
+    for k in range(t):
+        s = t - 1 - k if reverse else k
+        gates = xf[:, s] + h @ wf + bf
+        gc, gi, gf, go = torch.split(gates, d, dim=-1)
+        if peepholes is not None:
+            gi = gi + c * w_ic
+            gf = gf + c * w_fc
+        c_new = gate_act(gf) * c + gate_act(gi) * cand_act(gc)
+        if peepholes is not None:
+            go = go + c_new * w_oc
+        h_new = gate_act(go) * cell_act(c_new)
+        ms = m[:, s:s + 1]
+        h = ms * h_new + (1 - ms) * h
+        c = ms * c_new + (1 - ms) * c
+        hidden[:, s] = h
+        cell[:, s] = c
+    return hidden, cell
+
+
+def fused_lstm(x, w, b, h0=None, c0=None, lens=None, reverse=False):
+    """The whole masked LSTM recurrence over x [B, T, 4D] (the
+    pre-projected gate inputs; any batch and time strides, last dim
+    contiguous on the card), recurrent weight w [D, 4D], gate bias b [4D],
+    optional h0, c0 [B, D] (zeros when None) and lengths lens [B] (every
+    step when None). Returns (hidden, cell) [B, T, D] fp32.
+
+    Dispatch by x's device: meta -> empty outputs, cpu -> the plain
+    version, cuda -> the kernel (fp32 only; anything else raises)."""
+    bsz, t, d = _lstm_args(x, w, b, h0, c0, lens)
+    dev = x.device.type
+    if dev == "meta":
+        return (torch.empty((bsz, t, d), dtype=torch.float32,
+                            device=x.device),
+                torch.empty((bsz, t, d), dtype=torch.float32,
+                            device=x.device))
+    if dev == "cpu":
+        return fused_lstm_plain(x, w, b, h0, c0, lens, reverse)
+    if dev != "cuda":
+        raise ValueError("fused_lstm: unsupported device %s" % dev)
+    for name, a in (("x", x), ("w", w), ("b", b), ("h0", h0), ("c0", c0)):
+        if a is None:
+            continue
+        if a.dtype != torch.float32:
+            raise ValueError("fused_lstm: the CUDA kernel takes fp32 (%s is "
+                             "%s)" % (name, a.dtype))
+        if a.device != x.device:
+            raise ValueError("fused_lstm: %s on %s, x on %s"
+                             % (name, a.device, x.device))
+    if x.stride(2) != 1:
+        raise ValueError("fused_lstm: x needs a contiguous last dim (got "
+                         "strides %s)" % (tuple(x.stride()),))
+    w = w.contiguous()
+    b = b.reshape(-1).contiguous()
+    h0 = h0.contiguous() if h0 is not None else None
+    c0 = c0.contiguous() if c0 is not None else None
+    hidden = torch.empty((bsz, t, d), dtype=torch.float32, device=x.device)
+    cell = torch.empty_like(hidden)
+    if bsz == 0 or t == 0 or d == 0:
+        return hidden, cell
+    if lens is not None:
+        lens = lens.reshape(bsz).to(device=x.device,
+                                    dtype=torch.int32).contiguous()
+    lib = build()
+    err = lib.ptt_fused_lstm_fwd(
+        x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(), b.data_ptr(),
+        h0.data_ptr() if h0 is not None else None,
+        c0.data_ptr() if c0 is not None else None,
+        lens.data_ptr() if lens is not None else None,
+        hidden.data_ptr(), cell.data_ptr(), bsz, t, d, int(bool(reverse)),
+        _stream_of(x))
+    _check_launch(err, "fused_lstm")
+    _count(fused_lstm)
+    return hidden, cell
+
+
+fused_lstm.launches = 0
+
+
+def fused_lstm_bwd(x, w, b, h0, c0, lens, hidden, cell, g_hidden, g_cell,
+                   reverse=False):
+    """Gradients (dx, dw, db, dh0, dc0) of fused_lstm from its SAVED states
+    (parity: pallas_kernels._lstm_seq_core_bwd): no forward is run again.
+    The gates of every step are re-derived at once from the saved
+    (h_prev, c_prev) with one matrix product, and so are the gate
+    derivatives that do not depend on the carried gradients; the loop
+    then walks the steps in reverse processing order carrying (dh, dc),
+    and dw, db come from one product and one sum over all steps. Works on
+    any device (torch code, as in the JAX package)."""
+    bsz, t, d = _lstm_args(x, w, b, h0, c0, lens)
+    dev = x.device
+
+    def steps_first(a):          # [B, T, ...] -> [T, B, ...], walk order
+        a = a.float().transpose(0, 1)
+        return a.flip(0) if reverse else a
+
+    xs, hs, cs = steps_first(x), steps_first(hidden), steps_first(cell)
+    h_first = torch.zeros((bsz, d), dtype=torch.float32, device=dev) \
+        if h0 is None else h0.float()
+    c_first = torch.zeros_like(h_first) if c0 is None else c0.float()
+    h_prev = torch.cat([h_first[None], hs[:-1]], dim=0)        # [T, B, D]
+    c_prev = torch.cat([c_first[None], cs[:-1]], dim=0)
+    wf = w.float()
+    gates = xs + (h_prev.reshape(t * bsz, d) @ wf).reshape(t, bsz, 4 * d) \
+        + b.reshape(-1).float()
+    z = torch.tanh(gates[..., :d])
+    i = torch.sigmoid(gates[..., d:2 * d])
+    f = torch.sigmoid(gates[..., 2 * d:3 * d]).contiguous()
+    o = torch.sigmoid(gates[..., 3 * d:])
+    tc = torch.tanh(f * c_prev + i * z)
+    # dc_new = dc * m + dh_new * p;  dg = [dc_new * q_c, dh_new * q_o]
+    p = o * (1 - tc * tc)
+    q_c = torch.stack([i * (1 - z * z), z * i * (1 - i),
+                       c_prev * f * (1 - f)], dim=2)           # [T, B, 3, D]
+    q_o = tc * o * (1 - o)
+    del gates, z, i, o, tc
+    m = step_mask(lens, bsz, t, dev).transpose(0, 1)[..., None]
+    if reverse:
+        m = m.flip(0)
+    one_m = 1 - m
+    zeros = torch.zeros((t, bsz, d), dtype=torch.float32, device=dev)
+    gh = zeros if g_hidden is None else steps_first(g_hidden)
+    gc = zeros if g_cell is None else steps_first(g_cell)
+    dg = torch.empty((t, bsz, 4, d), dtype=torch.float32, device=dev)
+    wt = wf.t().contiguous()
+    dh_c = torch.zeros((bsz, d), dtype=torch.float32, device=dev)
+    dc_c = torch.zeros_like(dh_c)
+    for k in range(t - 1, -1, -1):
+        dh = dh_c + gh[k]
+        dc = dc_c + gc[k]
+        dh_new = dh * m[k]
+        dc_new = torch.addcmul(dc * m[k], dh_new, p[k])
+        torch.mul(dc_new[:, None], q_c[k], out=dg[k, :, :3])
+        torch.mul(dh_new, q_o[k], out=dg[k, :, 3])
+        dh_c = torch.addmm(dh * one_m[k], dg[k].reshape(bsz, 4 * d), wt)
+        dc_c = torch.addcmul(dc * one_m[k], dc_new, f[k])
+    dg = dg.reshape(t, bsz, 4 * d)
+    dw = h_prev.reshape(t * bsz, d).t() @ dg.reshape(t * bsz, 4 * d)
+    db = dg.sum(dim=(0, 1))
+    dx = (dg.flip(0) if reverse else dg).transpose(0, 1)
+    return (dx.to(x.dtype), dw.to(w.dtype), db.to(b.dtype).reshape(b.shape),
+            dh_c, dc_c)
+
+
+# ---------------------------------------------------------------------------
+# masked sequence pool forward (replaces pallas_kernels._masked_pool_kernel)
+# ---------------------------------------------------------------------------
+
+POOL_TYPES = ("SUM", "AVERAGE", "SQRT")
+
+
+def _pool_args(x, lens, ptype):
+    if ptype not in POOL_TYPES:
+        raise ValueError("masked_pool handles %s, got %r"
+                         % ("/".join(POOL_TYPES), ptype))
+    if x.dim() != 3 or lens.numel() != x.shape[0]:
+        raise ValueError("masked_pool needs x [B, T, F] and B lengths, got "
+                         "%s and %s" % (tuple(x.shape), tuple(lens.shape)))
+    return x.shape
+
+
+def masked_pool_plain(x, lens, ptype="AVERAGE"):
+    """Plain version: the sum over steps t < lens[b] of x [B, T, F] in
+    fp32, divided by max(len, 1) (AVERAGE) or its square root (SQRT).
+    Returns [B, F] in x's dtype."""
+    b, t, _ = _pool_args(x, lens, ptype)
+    m = step_mask(lens, b, t, x.device)[:, :, None]
+    s = (x.float() * m).sum(dim=1)
+    denom = lens.reshape(b, 1).to(device=x.device,
+                                  dtype=torch.float32).clamp_min(1.0)
+    if ptype == "AVERAGE":
+        s = s / denom
+    elif ptype == "SQRT":
+        s = s / torch.sqrt(denom)
+    return s.to(x.dtype)
+
+
+def masked_pool(x, lens, ptype="AVERAGE"):
+    """SUM / AVERAGE / SQRT pool over the time dim of x [B, T, F] (any
+    batch and time strides, last dim contiguous on the card) with lengths
+    lens [B]: returns [B, F]. Dispatch by x's device as in fused_lstm (the
+    CUDA kernel takes fp32 and B <= 65535)."""
+    b, t, f = _pool_args(x, lens, ptype)
+    dev = x.device.type
+    if dev == "meta":
+        return torch.empty((b, f), dtype=x.dtype, device=x.device)
+    if dev == "cpu":
+        return masked_pool_plain(x, lens, ptype)
+    if dev != "cuda":
+        raise ValueError("masked_pool: unsupported device %s" % dev)
+    if x.dtype != torch.float32:
+        raise ValueError("masked_pool: the CUDA kernel takes fp32 (got %s)"
+                         % x.dtype)
+    if x.stride(2) != 1:
+        raise ValueError("masked_pool: x needs a contiguous last dim (got "
+                         "strides %s)" % (tuple(x.stride()),))
+    if b > 65535:
+        raise ValueError("masked_pool: B = %d exceeds the grid limit 65535"
+                         % b)
+    out = torch.empty((b, f), dtype=torch.float32, device=x.device)
+    if b == 0 or f == 0:
+        return out
+    lens = lens.reshape(b).to(device=x.device, dtype=torch.int32).contiguous()
+    lib = build()
+    err = lib.ptt_masked_pool_fwd(
+        x.data_ptr(), x.stride(0), x.stride(1), lens.data_ptr(),
+        out.data_ptr(), b, t, f, POOL_TYPES.index(ptype), _stream_of(x))
+    _check_launch(err, "masked_pool")
+    _count(masked_pool)
+    return out
+
+
+masked_pool.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # autograd Functions (the JAX package's custom_vjps)
 # ---------------------------------------------------------------------------
 
@@ -695,3 +977,54 @@ class SoftmaxXent(torch.autograd.Function):
         # a label outside [0, V) adds 0 (at column 0): no host sync
         d.scatter_add_(1, lab.clamp(0, v - 1), -g_loss * ok)
         return d.to(logits.dtype), None
+
+
+class FusedLSTM(torch.autograd.Function):
+    """(hidden, cell) = the masked LSTM recurrence through K6; backward the
+    saved-state reverse scan of fused_lstm_bwd (parity:
+    pallas_kernels._lstm_seq_core / _lstm_seq_core_bwd). lens gets no
+    gradient; h0 and c0 get theirs when given."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, h0, c0, lens, reverse):
+        hidden, cell = fused_lstm(x, w, b, h0, c0, lens, reverse)
+        ctx.save_for_backward(x, w, b, h0, c0, lens, hidden, cell)
+        ctx.reverse = reverse
+        return hidden, cell
+
+    @staticmethod
+    def backward(ctx, g_hidden, g_cell):
+        x, w, b, h0, c0, lens, hidden, cell = ctx.saved_tensors
+        dx, dw, db, dh0, dc0 = fused_lstm_bwd(
+            x, w, b, h0, c0, lens, hidden, cell, g_hidden, g_cell,
+            ctx.reverse)
+        return (dx, dw, db, dh0 if h0 is not None else None,
+                dc0 if c0 is not None else None, None, None)
+
+
+class MaskedPool(torch.autograd.Function):
+    """out [B, F] = masked SUM / AVERAGE / SQRT pool of x [B, T, F] through
+    K9; backward in torch (parity: pallas_kernels._masked_pool_core_bwd):
+    the output gradient, scaled as the pool scales, spread over the steps
+    t < len and zero on the padding. lens gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, lens, ptype):
+        out = masked_pool(x, lens, ptype)
+        ctx.save_for_backward(lens)
+        ctx.shape, ctx.dtype, ctx.ptype = x.shape, x.dtype, ptype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        lens, = ctx.saved_tensors
+        b, t, _ = ctx.shape
+        gf = g.float()[:, None, :]
+        denom = lens.reshape(b, 1, 1).to(device=g.device,
+                                         dtype=torch.float32).clamp_min(1.0)
+        if ctx.ptype == "AVERAGE":
+            gf = gf / denom
+        elif ctx.ptype == "SQRT":
+            gf = gf / torch.sqrt(denom)
+        m = step_mask(lens, b, t, g.device)[:, :, None]
+        return (gf * m).to(ctx.dtype), None, None

@@ -1,9 +1,10 @@
-"""NN op rules (the subset the Transformer's scoring and training
-programs run): layer_norm, fused_attention, lookup_table,
-softmax_with_cross_entropy.
+"""NN op rules (the subset the Transformer's and the sentiment
+classifiers' programs run): layer_norm, fused_attention, lookup_table,
+softmax_with_cross_entropy, softmax, cross_entropy, accuracy.
 
 Parity: paddle/fluid/operators/{layer_norm_op,lookup_table_op,
-softmax_with_cross_entropy_op}.cc and the JAX package's ops/nn_ops.py.
+softmax_with_cross_entropy_op,softmax_op,cross_entropy_op,accuracy_op}.cc
+and the JAX package's ops/nn_ops.py.
 layer_norm with scale and bias, the flash branch of fused_attention and
 the hard-label 2-D softmax_with_cross_entropy call the hand-written CUDA
 kernels through their wrappers (ops/cuda_kernels.py), which dispatch by
@@ -115,6 +116,37 @@ def _lookup_table(ctx, ins, attrs):
     else:
         out_shape = tuple(ids.shape) + (w.shape[-1],)
     return _out(out.reshape(out_shape))
+
+
+@register("softmax")
+def _softmax(ctx, ins, attrs):
+    return _out(torch.softmax(single(ins, "X"), dim=-1))
+
+
+@register("cross_entropy")
+def _cross_entropy(ctx, ins, attrs):
+    """-log of the label's probability (X holds probabilities), floored at
+    1e-20 as the JAX rule does."""
+    x = single(ins, "X")
+    label = single(ins, "Label")
+    logp = torch.log(torch.clamp_min(x, 1e-20))
+    if attrs.get("soft_label", False):
+        return {"Y": [-(label * logp).sum(dim=-1, keepdim=True)]}
+    return {"Y": [-_gather_label_logits(logp, label)[..., None]]}
+
+
+@register("accuracy")
+def _accuracy(ctx, ins, attrs):
+    """Share of rows whose label is among the top-k Indices."""
+    pred_idx = single(ins, "Indices")   # [N, k] from topk
+    label = single(ins, "Label")        # [N, 1]
+    n = pred_idx.shape[0]
+    correct = (pred_idx.long() == label.long().reshape(-1, 1)).any(dim=1)
+    num_correct = correct.to(torch.float32).sum()
+    return {"Accuracy": [(num_correct / n).reshape(1)],
+            "Correct": [num_correct.to(torch.int32).reshape(1)],
+            "Total": [torch.full((1,), n, dtype=torch.int32,
+                                 device=pred_idx.device)]}
 
 
 def _gather_label_logits(logp, label):

@@ -28,6 +28,10 @@ def _forbidden(module):
 def test_import_leaves_jax_and_the_jax_package_out():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.io, "
             "paddle_tpu_torch.serving, paddle_tpu_torch.models.transformer, "
+            "paddle_tpu_torch.models.understand_sentiment, "
+            "paddle_tpu_torch.nets, paddle_tpu_torch.core.lod, "
+            "paddle_tpu_torch.layers.sequence, "
+            "paddle_tpu_torch.ops.sequence_ops, "
             "paddle_tpu_torch.ops.cuda_kernels\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r)\n"
@@ -58,6 +62,14 @@ def test_source_imports_nothing_of_jax(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, "%s:%d imports %s" % (path, node.lineno, bad)
+
+
+def test_every_sequence_module_is_checked():
+    """The sequence slice's modules are among the sources the import check
+    above walks."""
+    rel = {os.path.relpath(p, PKG) for p in SOURCES}
+    assert {"core/lod.py", "ops/sequence_ops.py", "layers/sequence.py",
+            "nets.py", "models/understand_sentiment.py"} <= rel
 
 
 @pytest.fixture

@@ -23,9 +23,10 @@ from paddle_tpu.ops import pallas_kernels as pk
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-# every counted kernel wrapper (K1-K5)
+# every counted kernel wrapper (K1-K6, K9)
 _KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
-            "flash_attention_bwd_dq", "softmax_xent_fwd", "layer_norm_fwd")
+            "flash_attention_bwd_dq", "softmax_xent_fwd", "layer_norm_fwd",
+            "fused_lstm", "masked_pool")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -322,3 +323,164 @@ def test_kernel_sources_are_in_the_package():
             assert 'extern "C" int ptt_' in f.read()
     assert len(ck._source_digest(ck.NVCC_FLAGS)) == 16
     assert "arch=compute_90a,code=sm_90a" in ck.NVCC_FLAGS
+
+
+# ---------------------------------------------------------------------------
+# K6 fused LSTM and K9 masked pool (the sequence slice)
+# ---------------------------------------------------------------------------
+
+def _lstm_inputs(b=4, t=11, d=8, seed=21, h0c0=True):
+    """x [B, T, 4D], w, bias, optional h0/c0 and ragged lengths with a
+    length-1 row and a full one, at the scales the JAX package's tests
+    use."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(b, t, 4 * d) * 0.4).astype(np.float32)
+    w = (rng.randn(d, 4 * d) * 0.3).astype(np.float32)
+    bias = (rng.randn(4 * d) * 0.1).astype(np.float32)
+    h0 = (rng.randn(b, d) * 0.2).astype(np.float32) if h0c0 else None
+    c0 = (rng.randn(b, d) * 0.2).astype(np.float32) if h0c0 else None
+    lens = rng.randint(1, t + 1, size=b).astype(np.int32)
+    lens[0], lens[-1] = t, 1
+    return x, w, bias, h0, c0, lens
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+@pytest.mark.parametrize("h0c0", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_fused_lstm_plain_matches_jax_kernel(reverse, h0c0):
+    """K6's plain version against the JAX fused_lstm (the Pallas kernel in
+    interpret mode): hidden and cell, forward and reverse, ragged lengths
+    with 1 and T, zero and given initial states."""
+    x, w, bias, h0, c0, lens = _lstm_inputs(h0c0=h0c0)
+    hidden, cell = ck.fused_lstm_plain(_t(x), _t(w), _t(bias), _t(h0),
+                                       _t(c0), _t(lens), reverse)
+    jh, jc = pk.fused_lstm(_j(x), _j(w), _j(bias), _j(h0), _j(c0),
+                           jnp.asarray(lens), reverse=reverse,
+                           interpret=True)
+    np.testing.assert_allclose(hidden.numpy(), np.asarray(jh), **TOL)
+    np.testing.assert_allclose(cell.numpy(), np.asarray(jc), **TOL)
+    # the length-1 row: every padding step carries the one valid step's
+    # state (forward) or the initial state into the valid step (reverse)
+    if not reverse:
+        assert np.all(hidden.numpy()[-1, 1:] == hidden.numpy()[-1, :1])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_fused_lstm_function_backward_matches_jax_custom_vjp(reverse):
+    """FusedLSTM (forward K6, backward the saved-state reverse scan in
+    torch) against jax.vjp of the JAX fused_lstm (_lstm_seq_core_bwd):
+    dx, dw, db, dh0, dc0 from random hidden and cell gradients."""
+    x, w, bias, h0, c0, lens = _lstm_inputs(seed=22)
+    rng = np.random.RandomState(3)
+    gh = rng.randn(*x.shape[:2], w.shape[0]).astype(np.float32)
+    gc = rng.randn(*gh.shape).astype(np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (x, w, bias, h0, c0)]
+    hidden, cell = ck.FusedLSTM.apply(*leaves, torch.from_numpy(lens),
+                                      reverse)
+    got = torch.autograd.grad((hidden, cell), leaves,
+                              (torch.from_numpy(gh), torch.from_numpy(gc)))
+    _, vjp = jax.vjp(lambda *a: pk.fused_lstm(
+        *a, jnp.asarray(lens), reverse=reverse, interpret=True),
+        *(jnp.asarray(a) for a in (x, w, bias, h0, c0)))
+    want = vjp((jnp.asarray(gh), jnp.asarray(gc)))
+    for name, a, b in zip(("dx", "dw", "db", "dh0", "dc0"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **TOL)
+    # padding steps of x get exactly zero gradient
+    assert np.all(got[0].numpy()[-1, 1:] == 0.0)
+
+
+def test_fused_lstm_backward_matches_autograd_of_the_plain_loop():
+    """fused_lstm_bwd against torch.autograd through fused_lstm_plain's own
+    loop, with only the hidden gradient given (the cell is unread)."""
+    x, w, bias, h0, c0, lens = _lstm_inputs(seed=23)
+    g = np.random.RandomState(8).randn(4, 11, 8).astype(np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (x, w, bias, h0, c0)]
+    hidden, _ = ck.fused_lstm_plain(*leaves, torch.from_numpy(lens), True)
+    want = torch.autograd.grad(hidden, leaves, torch.from_numpy(g))
+    hidden, cell = ck.fused_lstm_plain(
+        *(torch.from_numpy(a) for a in (x, w, bias, h0, c0)),
+        torch.from_numpy(lens), True)
+    got = ck.fused_lstm_bwd(*(torch.from_numpy(a)
+                              for a in (x, w, bias, h0, c0)),
+                            torch.from_numpy(lens), hidden, cell,
+                            torch.from_numpy(g), None, True)
+    for name, a, b in zip(("dx", "dw", "db", "dh0", "dc0"), got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=name, **TOL)
+
+
+def _pool_inputs(seed=31, b=5, t=9, f=6):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, t, f).astype(np.float32)
+    lens = rng.randint(1, t + 1, size=b).astype(np.int32)
+    lens[0], lens[-1] = t, 1
+    return x, lens
+
+
+@pytest.mark.parametrize("ptype", ["SUM", "AVERAGE", "SQRT"])
+def test_masked_pool_plain_matches_jax_kernel(ptype):
+    x, lens = _pool_inputs()
+    got = ck.masked_pool_plain(torch.from_numpy(x), torch.from_numpy(lens),
+                               ptype)
+    want = pk.masked_pool(jnp.asarray(x), jnp.asarray(lens), ptype=ptype,
+                          interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("ptype", ["SUM", "AVERAGE", "SQRT"])
+def test_masked_pool_function_backward_matches_jax_custom_vjp(ptype):
+    x, lens = _pool_inputs(seed=32)
+    g = np.random.RandomState(9).randn(5, 6).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = ck.MaskedPool.apply(xt, torch.from_numpy(lens), ptype)
+    got, = torch.autograd.grad(out, xt, torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda a: pk.masked_pool(
+        a, jnp.asarray(lens), ptype=ptype, interpret=True), jnp.asarray(x))
+    want, = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert np.all(got.numpy()[-1, 1:] == 0.0)   # padding: no gradient
+
+
+def test_sequence_wrappers_dispatch_by_device():
+    """K6 and K9: a CPU tensor takes the plain version and launches
+    nothing, a meta tensor gives shapes, and a bad shape or pool type
+    raises."""
+    ck.reset_launch_counts()
+    x, w, bias, h0, c0, lens = _lstm_inputs()
+    args = [_t(a) for a in (x, w, bias, h0, c0, lens)]
+    for got, want in zip(ck.fused_lstm(*args, reverse=True),
+                         ck.fused_lstm_plain(*args, reverse=True)):
+        assert torch.equal(got, want)
+    px, plens = _pool_inputs()
+    assert torch.equal(
+        ck.masked_pool(torch.from_numpy(px), torch.from_numpy(plens), "SUM"),
+        ck.masked_pool_plain(torch.from_numpy(px), torch.from_numpy(plens),
+                             "SUM"))
+    mx = torch.empty((1021, 1021, 512), device="meta")
+    mw = torch.empty((128, 512), device="meta")
+    mlen = torch.empty(1021, dtype=torch.int32, device="meta")
+    hidden, cell = ck.fused_lstm(mx, mw, torch.empty(512, device="meta"),
+                                 lens=mlen)
+    assert hidden.shape == cell.shape == (1021, 1021, 128)
+    assert hidden.device.type == "meta"
+    assert ck.masked_pool(mx, mlen, "SQRT").shape == (1021, 512)
+    assert ck.launch_counts() == dict.fromkeys(_KERNELS, 0)
+    with pytest.raises(ValueError, match="4D"):
+        ck.fused_lstm(torch.zeros(2, 3, 10), torch.zeros(2, 8),
+                      torch.zeros(8))
+    with pytest.raises(ValueError, match="w \\[D, 4D\\]"):
+        ck.fused_lstm(torch.zeros(2, 3, 8), torch.zeros(3, 8),
+                      torch.zeros(8))
+    with pytest.raises(ValueError, match="MAX"):
+        ck.masked_pool(torch.zeros(2, 3, 4), torch.ones(2), "MAX")
+    with pytest.raises(ValueError, match="B lengths"):
+        ck.masked_pool(torch.zeros(2, 3, 4), torch.ones(3), "SUM")

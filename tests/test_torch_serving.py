@@ -12,6 +12,11 @@ Tolerance for logits: rtol = atol = 1e-4 — 12 fp32 layers on each side,
 summed in a different order. Coalesced answers against run_direct at the
 same bucket: bit for bit (one device, one shape, the same arithmetic).
 Inputs and requests are made with numpy from a seed.
+
+The sequence half: the JAX package saves the sentiment conv net
+(dictionary 50, embedding 8, 16 filters, SQRT pools) and answers LoD
+requests with its masked-pool kernel in interpret mode; the port's engine
+serves the same directory with LoD feeds and (batch, seq) buckets.
 """
 import json
 import os
@@ -37,9 +42,10 @@ VOCAB, T = 100, 32
 CFG = dict(n_layer=2, n_head=4, d_key=16, d_value=16, d_model=64,
            d_inner_hid=128)
 TOL = dict(rtol=1e-4, atol=1e-4)
-# every counted kernel wrapper (K1-K5)
+# every counted kernel wrapper (K1-K6, K9)
 _KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
-            "flash_attention_bwd_dq", "softmax_xent_fwd", "layer_norm_fwd")
+            "flash_attention_bwd_dq", "softmax_xent_fwd", "layer_norm_fwd",
+            "fused_lstm", "masked_pool")
 FEEDS = ttr.SCORING_FEED_NAMES
 
 
@@ -294,3 +300,198 @@ def test_pipelined_dispatch_is_not_ported_yet(jax_model):
     with pytest.raises(NotImplementedError, match="pipeline_depth"):
         InferenceEngine(jax_model[0], device="cpu", batch_buckets=[1],
                         warmup=False, pipeline_depth=2)
+
+
+# ---------------------------------------------------------------------------
+# sequence (LoD) feeds: the sentiment conv net (dictionary 50, emb 8,
+# 16 filters) saved by the JAX package
+# ---------------------------------------------------------------------------
+
+SEQ_DICT = 50
+
+
+def _seq_requests(seed, lens=(3, 7, 12, 1)):
+    """One-review requests as lists of [len, 1] int64 id arrays."""
+    rng = np.random.RandomState(seed)
+    return [{"words": [rng.randint(0, SEQ_DICT, (n, 1)).astype("int64")]}
+            for n in lens]
+
+
+@pytest.fixture(scope="module")
+def jax_seq_model(tmp_path_factory):
+    """The JAX package's saved conv sentiment model and its engine's
+    answers to _seq_requests(0) (masked-pool kernel in interpret mode)."""
+    from paddle_tpu.models import understand_sentiment as jsent
+    model_dir = str(tmp_path_factory.mktemp("jax_sentiment"))
+    main, startup = jfluid.Program(), jfluid.Program()
+    with jfluid.unique_name.guard(), jfluid.program_guard(main, startup):
+        words = jfluid.layers.data(name="words", shape=[1], dtype="int64",
+                                   lod_level=1)
+        pred = jsent.convolution_net(words, SEQ_DICT, 2, 8, 16)
+    exe = jfluid.Executor(jfluid.CPUPlace())
+    with jfluid.scope_guard(jfluid.Scope()):
+        exe.run(startup)
+        jfluid.io.save_inference_model(model_dir, ["words"], [pred], exe,
+                                       main)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PADDLE_TPU_PALLAS", "seq")
+        engine = jserving.InferenceEngine(model_dir, batch_buckets=[4],
+                                          seq_buckets=[8, 16],
+                                          pipeline_depth=0)
+        try:
+            futures = [engine.submit(r) for r in _seq_requests(0)]
+            answers = [f.result(120).numpy()[pred.name] for f in futures]
+        finally:
+            engine.close()
+    return model_dir, pred.name, answers
+
+
+def test_jax_saved_sequence_model_serves_in_the_port(jax_seq_model):
+    model_dir, fetch, want = jax_seq_model
+    engine = InferenceEngine(model_dir, device="cpu", batch_buckets=[4],
+                             seq_buckets=[8, 16])
+    try:
+        assert engine._seq_feeds == {"words"}
+        futures = [engine.submit(r) for r in _seq_requests(0)]
+        for fut, w in zip(futures, want):
+            got = fut.result(120).numpy()[fetch]
+            assert got.shape == w.shape == (1, 2)
+            np.testing.assert_allclose(got, w, **TOL)
+    finally:
+        engine.close()
+
+
+def test_seq_bucket_choice(jax_seq_model, port_engine):
+    """The default seq buckets (none for a model with no sequence feed),
+    explicit ones sorted, and the covering (batch, seq) bucket of a
+    request; a sequence longer than the largest bucket is refused at
+    submit."""
+    assert port_engine.seq_buckets == []
+    assert port_engine._pick_buckets(3, 0) == (4, None)
+    engine = InferenceEngine(jax_seq_model[0], device="cpu",
+                             batch_buckets=[1, 2, 4], warmup=False)
+    try:
+        assert engine.seq_buckets == [16, 32, 64, 128, 256]
+        assert engine._pick_buckets(3, 17) == (4, 32)
+        assert engine._pick_buckets(1, 16) == (1, 16)
+        assert engine._pick_buckets(2, 0) == (2, 16)
+        req = _seq_requests(1, lens=(40,))[0]
+        _, bucket = engine.run_direct(req)
+        assert bucket == (1, 64)
+        with pytest.raises(InvalidRequestError, match="sequence length"):
+            engine.submit(_seq_requests(1, lens=(257,))[0])
+        with pytest.raises(InvalidRequestError, match="cannot hold"):
+            engine.run_direct(req, seq_bucket=32)
+    finally:
+        engine.close()
+    explicit = InferenceEngine(jax_seq_model[0], device="cpu",
+                               batch_buckets=[1], warmup=False,
+                               seq_buckets=[32, 8, 8])
+    try:
+        assert explicit.seq_buckets == [8, 32]
+    finally:
+        explicit.close()
+
+
+@pytest.mark.parametrize("buckets", [[4], [1, 2, 4]])
+def test_coalesced_sequence_answers_equal_run_direct(jax_seq_model,
+                                                     buckets):
+    """Ragged requests, of one and of several sequences, coalesce into one
+    (batch, seq) bucket; each equals run_direct at its recorded buckets,
+    bit for bit."""
+    engine = InferenceEngine(jax_seq_model[0], device="cpu",
+                             batch_buckets=buckets, seq_buckets=[8, 16],
+                             max_queue_delay_ms=50)
+    try:
+        rng = np.random.RandomState(4)
+        reqs = _seq_requests(2, lens=(3, 12)) + [{"words": [
+            rng.randint(0, SEQ_DICT, (n, 1)).astype("int64")
+            for n in (5, 2)]}]
+        futures = [engine.submit(r) for r in reqs]
+        for req, fut in zip(reqs, futures):
+            got = fut.result(120).numpy()
+            direct, bucket = engine.run_direct(req, *fut.bucket)
+            assert bucket == fut.bucket and bucket[1] in (8, 16)
+            for name in engine.fetch_names:
+                assert got[name].shape[0] == len(req["words"])
+                np.testing.assert_array_equal(direct[name], got[name])
+        assert engine.metrics.snapshot()["errors_total"] == 0
+    finally:
+        engine.close()
+
+
+def test_lodtensor_and_list_feeds_agree(jax_seq_model):
+    from paddle_tpu_torch.core.lod import LoDTensor
+    engine = InferenceEngine(jax_seq_model[0], device="cpu",
+                             batch_buckets=[2], seq_buckets=[8],
+                             max_queue_delay_ms=1)
+    try:
+        rng = np.random.RandomState(7)
+        seqs = [rng.randint(0, SEQ_DICT, (n, 1)).astype("int64")
+                for n in (4, 6)]
+        a = engine.infer({"words": seqs})
+        b = engine.infer({"words": LoDTensor.from_sequences(seqs)})
+        for name in engine.fetch_names:
+            np.testing.assert_array_equal(a[name], b[name])
+    finally:
+        engine.close()
+
+
+def test_pad_rows_carry_length_one_over_zeros(jax_seq_model):
+    engine = InferenceEngine(jax_seq_model[0], device="cpu",
+                             batch_buckets=[4], seq_buckets=[8, 16],
+                             warmup=False)
+    try:
+        norm = engine.normalize_feed(_seq_requests(3, lens=(5,))[0])
+        feed = engine._pad_batch([norm], 4, 8)
+        assert feed["words"].shape == (4, 8, 1)
+        np.testing.assert_array_equal(feed["words@SEQLEN"], [5, 1, 1, 1])
+        assert feed["words@SEQLEN"].dtype == np.int32
+        assert not feed["words"][1:].any() and not feed["words"][0, 5:].any()
+    finally:
+        engine.close()
+
+
+def test_malformed_sequence_requests_are_refused(jax_seq_model):
+    from paddle_tpu_torch.core.lod import LoDTensor
+    engine = InferenceEngine(jax_seq_model[0], device="cpu",
+                             batch_buckets=[4], seq_buckets=[8, 16],
+                             warmup=False)
+    ok = np.zeros((3, 1), np.int64)
+    try:
+        with pytest.raises(InvalidRequestError, match="empty sequence"):
+            engine.submit({"words": [ok, np.zeros((0, 1), np.int64)]})
+        with pytest.raises(InvalidRequestError, match="zero sequences"):
+            engine.submit({"words": []})
+        nested = LoDTensor(np.zeros((4, 1), np.int64), [[0, 1, 2], [0, 2, 4]])
+        with pytest.raises(InvalidRequestError, match="multi-level"):
+            engine.submit({"words": nested})
+        with pytest.raises(InvalidRequestError, match="per-token shape"):
+            engine.submit({"words": [np.zeros((3, 2), np.int64)]})
+        with pytest.raises(InvalidRequestError, match="LoDTensor"):
+            engine.submit({"words": np.zeros((1, 3, 1), np.int64)})
+        assert engine.metrics.snapshot()["batches_total"] == 0
+    finally:
+        engine.close()
+
+
+def test_warmup_covers_the_batch_by_seq_lattice(jax_seq_model,
+                                                monkeypatch):
+    shapes = []
+    real = InferenceEngine._run
+
+    def spy(self, feed):
+        shapes.append((feed["words"].shape, tuple(feed["words@SEQLEN"])))
+        return real(self, feed)
+
+    monkeypatch.setattr(InferenceEngine, "_run", spy)
+    engine = InferenceEngine(jax_seq_model[0], device="cpu",
+                             batch_buckets=[1, 2], seq_buckets=[8, 16, 32])
+    try:
+        assert sorted(s for s, _ in shapes) == sorted(
+            (b, t, 1) for b in (1, 2) for t in (8, 16, 32))
+        assert all(set(lens) == {1} for _, lens in shapes)
+        del shapes[:]
+        assert engine.warmup() == 6 and len(shapes) == 6
+    finally:
+        engine.close()
