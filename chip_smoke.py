@@ -4,11 +4,12 @@
     python3 chip_smoke.py                   # every phase, one card
     python3 chip_smoke.py --only kernels    # build + kernel checks only
     python3 chip_smoke.py --ptxas           # also print nvcc's `ptxas -v`
-    python3 chip_smoke.py --trace out.json  # keep the traced step's trace
+    python3 chip_smoke.py --trace out.json  # keep the traced steps' traces
 
-Transformer-base runs at its full depth (6+6 layers) and width, and the
-IMDB sentiment classifiers at their book widths, with random weights from
-the fixed seed SEED.
+Transformer-base runs at its full depth (6+6 layers) and width, the
+IMDB sentiment classifiers at their book widths, and the attention
+translator of book chapter 08 at the reference benchmark's widths, with
+random weights from the fixed seed SEED.
 
 Phases, each reported on lines of its own; any failure exits non-zero:
 
@@ -29,6 +30,10 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               and a training step's [128, 64, 512] (h = 128); K9 (masked
               pool) in its three pool types at the conv net's x [8, 256,
               32] and at [128, 256, 512]; ragged lengths with 1 and T.
+              K8 (masked softmax) at the translator's decoder step, x [16,
+              48] with lengths 1 and 48 among them, and at a wide [2048,
+              256] with lengths 0, 1 and 256; its library call is
+              torch.softmax(x, 1) at full lengths.
 4. serving  — the main path: build Transformer-base scoring (vocab 30000,
               d_model 512, 8 heads, 6+6 layers, d_inner 2048, T=256) with
               the port's layers, run its startup program on the card from
@@ -77,6 +82,22 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               traced step, then one step at 1 layer, batch 4, lengths
               1-16 on the card and on the CPU (the tolerances of phase 5).
               Checks: losses finite and falling, K6 three times a step.
+8. translation, training — the attention seq2seq translator (book
+              chapter 08; the reference's benchmark/fluid/
+              machine_translation.py defaults: embedding = encoder =
+              decoder size 512, dictionary 30000, batch 16, Adam at lr
+              2e-4) built by machine_translation.build_train(...,
+              use_attention=True): an LSTM encoder with peepholes (the
+              torch loop, no K6) and a DynamicRNN decoder, one rnn_scan op
+              whose step block runs attention with sequence_softmax (K8).
+              Source and target lengths 8-48 from SEED, one row of each at
+              48, random ids, the label the target shifted by one:
+              TRAIN_STEPS steps through Executor.run, then one traced step
+              (host and device time by program op, the step block's ops
+              as rnn_scan/<type>). Checks: losses finite and falling; K8
+              once per decoder step (48 a step) and no other kernel. Then
+              one step at dictionary 200, widths 32, batch 4, lengths
+              1-12 on the card and on the CPU (the tolerances of phase 5).
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run); each kernel must also launch on at
@@ -135,6 +156,9 @@ LSTM_TPU = "paddle_tpu/ops/pallas_kernels.py:544 (_lstm_seq_kernel, " \
     "launched by _lstm_fwd_call :575)"
 POOL_TPU = "paddle_tpu/ops/pallas_kernels.py:947 (_masked_pool_kernel, " \
     "launched by _masked_pool_call :961)"
+SOFTMAX_SRC = "paddle_tpu_torch/csrc/masked_softmax_fwd.cu"
+SOFTMAX_TPU = "paddle_tpu/ops/pallas_kernels.py:883 " \
+    "(_masked_softmax_kernel, launched by _masked_softmax_call :895)"
 
 # the sequence path: the IMDB sentiment classifiers (book chapter 06).
 # Serving: the conv net as written and the stacked LSTM at its book
@@ -149,6 +173,16 @@ SEQ_BUCKETS = [16, 32, 64, 128, 256]  # the engine's default seq buckets
 # recurrences summed in another order than the CPU's (K6 alone agrees with
 # its plain loop to ~2e-7)
 SEQ_CPU_TOL = 1e-4
+
+# the translation path: book chapter 08's attention seq2seq trainer at the
+# reference benchmark's defaults (benchmark/fluid/machine_translation.py:
+# embedding_dim = encoder_size = decoder_size = 512, dict_size 30000,
+# batch_size 16, Adam at 2e-4); WMT14-like sentence lengths 8-48
+MT = dict(dict_size=30000, word=512, hidden=512, decoder=512, batch=16,
+          lr=2e-4, min_len=8, max_len=48)
+# the card-vs-CPU step: the same program at small widths
+MT_SMALL = dict(dict_size=200, word=32, hidden=32, decoder=32, batch=4,
+                lr=2e-4, min_len=1, max_len=12)
 
 
 class SmokeFailure(RuntimeError):
@@ -677,6 +711,79 @@ def run_sequence_kernels(torch, ck, peak_flops, peak_bw):
     return results
 
 
+def softmax_work(lens, t, n):
+    """(flops, bytes) K8 needs: per valid element a max, a subtraction, an
+    exp, an add and a division; the valid steps of x, the full [N, T]
+    output and the lengths."""
+    valid = sum(max(0, min(int(v), t)) for v in lens)
+    return 5 * valid, 4 * (valid + n * t + n)
+
+
+def run_translation_kernels(torch, ck, peak_flops, peak_bw):
+    """K8 against its plain version at the translator's decoder-step shape
+    and a wide one, and timed (kernel, plain, library) beside its bound."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 5)
+    rng = np.random.RandomState(SEED + 5)
+    # (rows, steps, a length-0 row among them)
+    cases = [(MT["batch"], MT["max_len"], False), (2048, 256, True)]
+    err_max = 0.0
+    timing = {}
+    for n, t, empty_row in cases:
+        lens = rng.randint(1, t + 1, size=n)
+        lens[0], lens[-1] = t, 1
+        if empty_row:
+            lens[1] = 0
+        lens = lens.tolist()
+        # attention scores: products of 512-wide states, a few units large
+        x = torch.randn((n, t), generator=g, device=dev) * 3
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = ck.masked_softmax(x, lt)
+        want = ck.masked_softmax_plain(x, lt)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        print("kernels: masked_softmax N=%d T=%d max_abs_err=%.3e"
+              % (n, t, err))
+        check(np.isfinite(err) and err <= KERNEL_TOL,
+              "masked_softmax disagrees with its plain version by %r "
+              "(tolerance %r)" % (err, KERNEL_TOL))
+        check(bool((got[lt == 0] == 0).all()),
+              "masked_softmax: a length-0 row is not all 0")
+        err_max = max(err_max, err)
+        flops, nbytes = softmax_work(lens, t, n)
+        bms, bby = bound(flops, nbytes, peak_flops, peak_bw)
+        timing[(n, t)] = {
+            "ms": time_ms(torch, lambda: ck.masked_softmax(x, lt)),
+            "plain_ms": time_ms(torch,
+                                lambda: ck.masked_softmax_plain(x, lt)),
+            "library_ms": time_ms(torch, lambda: torch.softmax(x, 1)),
+            "bound_ms": bms, "bound_by": bby, "lens": lens}
+    (pn, pt, _), (wn, wt, _) = cases
+    path, wide = timing[(pn, pt)], timing[(wn, wt)]
+    r = {
+        "name": "masked_softmax", "route": "cuda", "source": SOFTMAX_SRC,
+        "replaces": SOFTMAX_TPU,
+        "shape": "x [%d,%d] fp32, lens %s" % (pn, pt, path["lens"]),
+        "max_abs_err": err_max,
+        "ms": path["ms"], "plain_ms": path["plain_ms"],
+        "library_ms": path["library_ms"],
+        "library_covers": "torch.softmax(x, 1) at full lengths",
+        "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
+        "wide_shape": "x [%d,%d]" % (wn, wt),
+        "wide_ms": wide["ms"], "wide_plain_ms": wide["plain_ms"],
+        "wide_library_ms": wide["library_ms"],
+        "wide_bound_ms": wide["bound_ms"],
+    }
+    print("kernels: masked_softmax ms=%.4f plain_ms=%.4f library_ms=%.4f "
+          "bound_ms=%.5f (%s); at %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
+          "bound_ms=%.5f" % (r["ms"], r["plain_ms"], r["library_ms"],
+                             r["bound_ms"], r["bound_by"], r["wide_shape"],
+                             wide["ms"], wide["plain_ms"],
+                             wide["library_ms"], wide["bound_ms"]))
+    return {"masked_softmax": r}
+
+
 # --------------------------------------------------------------- serving --
 
 def run_serving(torch, card, n_layer=N_LAYER):
@@ -858,7 +965,10 @@ def op_breakdown(trace_path):
     differentiate. A kernel belongs to the op during which the host
     launched it (the CUDA runtime or driver call and the kernel share a
     correlation id; autograd's device thread launches inside the grad_of
-    op's range)."""
+    op's range). An op run inside another (a step block's op inside
+    rnn_scan) is its own row, "<outer>/<type>", and its time and kernels
+    count in the outer op's row too: only the outermost rows add up to the
+    step. Returns (rows, the set of outermost row names)."""
     import bisect
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
@@ -866,11 +976,18 @@ def op_breakdown(trace_path):
                    for e in events if e.get("cat") == "user_annotation"
                    and e["name"].startswith("op:"))
     starts = [sp[0] for sp in spans]
-    rows = {}
-    for t0, t1, name in spans:
-        row = rows.setdefault(name, [0.0, 0.0, 0, 0])
+    rows, keys, parents, open_spans = {}, [], [], []
+    for i, (t0, t1, name) in enumerate(spans):
+        while open_spans and t0 >= spans[open_spans[-1]][1]:
+            open_spans.pop()
+        parent = open_spans[-1] if open_spans else -1
+        keys.append(name if parent < 0 else keys[parent] + "/" + name)
+        parents.append(parent)
+        open_spans.append(i)
+        row = rows.setdefault(keys[i], [0.0, 0.0, 0, 0])
         row[0] += t1 - t0
         row[3] += 1
+    outermost = {keys[i] for i, p in enumerate(parents) if p < 0}
     launched = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
@@ -879,11 +996,16 @@ def op_breakdown(trace_path):
             continue
         ts = launched.get(e["args"].get("correlation"))
         i = bisect.bisect_right(starts, ts) - 1 if ts is not None else -1
-        if i >= 0 and ts <= spans[i][1]:
-            row = rows[spans[i][2]]
+        # the innermost op still open at the launch: the last one started,
+        # or one that encloses it
+        while i >= 0 and ts > spans[i][1]:
+            i = parents[i]
+        while i >= 0:
+            row = rows[keys[i]]
             row[1] += e["dur"]
             row[2] += 1
-    return rows
+            i = parents[i]
+    return rows, outermost
 
 
 def profile_step(torch, step, trace_path=None):
@@ -919,7 +1041,7 @@ def profile_step(torch, step, trace_path=None):
     with tempfile.TemporaryDirectory(prefix="ptt_trace_") as tmp:
         trace = trace_path or os.path.join(tmp, "train_step_trace.json")
         prof.export_chrome_trace(trace)
-        rows = op_breakdown(trace)
+        rows, outermost = op_breakdown(trace)
     kernels, n_kernels = {}, 0
     for e in prof.events():
         # the op ranges show on the device's timeline too: not kernels
@@ -934,6 +1056,7 @@ def profile_step(torch, step, trace_path=None):
         if any(k in low for k in ("flash_fwd", "flash_bwd", "xent_fwd",
                                   "layer_norm_fwd_kernel",
                                   "fused_lstm_fwd_kernel",
+                                  "masked_softmax_fwd_kernel",
                                   "masked_pool_fwd_kernel")):
             groups["port kernels"] += us
         elif any(k in low for k in ("gemm", "gemv", "cutlass", "cublas")):
@@ -948,12 +1071,12 @@ def profile_step(torch, step, trace_path=None):
           % json.dumps({k: v / 1e3 for k, v in groups.items()}))
     for name, us in top:
         print("profile: %10.3f ms  %s" % (us / 1e3, name[:110]))
+    top_rows = [rows[k] for k in outermost]
     print("profile: by program op: host ms in op rules %.1f, kernels "
-          "attributed %d of %d" % (sum(r[0] for r in rows.values()) / 1e3,
-                                   sum(r[2] for r in rows.values()),
-                                   n_kernels))
+          "attributed %d of %d" % (sum(r[0] for r in top_rows) / 1e3,
+                                   sum(r[2] for r in top_rows), n_kernels))
     for name, (host, dev, n, ops) in sorted(rows.items(),
-                                            key=lambda kv: -kv[1][0])[:12]:
+                                            key=lambda kv: -kv[1][0])[:16]:
         print("profile: op %-32s x%-4d host %8.3f ms  device %8.3f ms  "
               "%5d kernels" % (name, ops, host / 1e3, dev / 1e3, n))
     return busy / 1e3, {k: v / 1e3 for k, v in groups.items()}, n_kernels
@@ -1440,6 +1563,159 @@ def run_sequence_training_vs_cpu(torch):
           "differ by %r after one step" % param_diff)
 
 
+# ----------------------------------------------------------- translation --
+
+def build_mt_train(fluid, cfg):
+    """machine_translation.build_train with attention and Adam at cfg's
+    widths. Returns (main, startup, avg_cost)."""
+    from paddle_tpu_torch.models import machine_translation
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        avg_cost, _ = machine_translation.build_train(
+            dict_size=cfg["dict_size"], word_dim=cfg["word"],
+            hidden_dim=cfg["hidden"], decoder_size=cfg["decoder"],
+            learning_rate=cfg["lr"], use_attention=True, optimizer="adam")
+    return main, startup, avg_cost
+
+
+def mt_feed(fluid, cfg, seed):
+    """A batch of source and target sentences with lengths in [min_len,
+    max_len] (one of each at max_len), random ids; the label is the target
+    shifted by one. Returns (feed, target token count)."""
+    rng = np.random.RandomState(seed)
+    b = cfg["batch"]
+    src_lens = rng.randint(cfg["min_len"], cfg["max_len"] + 1, size=b)
+    trg_lens = rng.randint(cfg["min_len"], cfg["max_len"] + 1, size=b)
+    src_lens[0], trg_lens[-1] = cfg["max_len"], cfg["max_len"]
+    src = [rng.randint(0, cfg["dict_size"], (n, 1)).astype("int64")
+           for n in src_lens]
+    trg = [rng.randint(0, cfg["dict_size"], (n + 1, 1)).astype("int64")
+           for n in trg_lens]
+    lod = fluid.LoDTensor.from_sequences
+    feed = {"src_word_id": lod(src),
+            "target_language_word": lod([s[:-1] for s in trg]),
+            "target_language_next_word": lod([s[1:] for s in trg])}
+    return feed, int(trg_lens.sum())
+
+
+def run_translation_training(torch, card, trace_path=None):
+    """The translation path: the attention translator at the reference
+    benchmark's widths, Adam steps on one batch through Executor.run.
+    Returns the launch counts and the counts it predicts."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    main, startup, avg_cost = build_mt_train(fluid, MT)
+    ops = main.global_block().ops
+    n_softmax = sum(op.type == "sequence_softmax" for op in main.blocks[1].ops)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(scope.get(p.name).shape))
+                   for p in main.all_parameters())
+    print("translation: built the attention translator's training program "
+          "(dictionary %d, widths %d/%d/%d, %d parameters, %d ops + %d in "
+          "the step block) and ran its startup program in %.1f s"
+          % (MT["dict_size"], MT["word"], MT["hidden"], MT["decoder"],
+             n_params, len(ops), len(main.blocks[1].ops),
+             time.perf_counter() - t0))
+    feed, tokens = mt_feed(fluid, MT, SEED)
+    # the decoder runs one step per padded target step
+    t_pad = feed["target_language_word"].to_padded()[0].shape[1]
+    warm, timed = TRAIN_STEPS
+    losses, step_s = [], []
+    ck.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(warm + timed):
+        ts = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
+        step_s.append(time.perf_counter() - ts)
+        losses.append(float(loss.reshape(-1)[0]))
+    counts = ck.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = warm + timed
+    busy_ms, groups_ms, n_kernels = profile_step(
+        torch, lambda: exe.run(main, feed=feed, fetch_list=[avg_cost],
+                               scope=scope), trace_path)
+    print("translation: training losses %s" % ["%.6f" % x for x in losses])
+    check(all(np.isfinite(x) for x in losses), "a loss is not finite: %s"
+          % losses)
+    check(losses[-1] < losses[0], "the loss did not fall: %s" % losses)
+    times = step_s[warm:]
+    med = statistics.median(times)
+    report = {
+        "dict_size": MT["dict_size"], "widths": [MT["word"], MT["hidden"],
+                                                 MT["decoder"]],
+        "batch": MT["batch"], "decoder_steps": t_pad,
+        "target_tokens": tokens, "steps_timed": timed,
+        "step_ms_median": med * 1e3, "step_ms_min": min(times) * 1e3,
+        "step_ms_max": max(times) * 1e3,
+        "target_tokens_per_s": tokens / med, "peak_mem_bytes": peak,
+        "losses": losses,
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "device_busy_ms": busy_ms, "device_ms_by_group": groups_ms,
+        "device_kernels_per_step": n_kernels,
+        "idle_share_est": 1 - busy_ms / (med * 1e3),
+        "card": card,
+    }
+    print("translation: training " + json.dumps(report))
+    del scope
+    torch.cuda.empty_cache()
+    expected = dict.fromkeys(counts, 0)
+    expected["masked_softmax"] = n_softmax * t_pad * steps
+    return counts, expected
+
+
+def run_translation_training_vs_cpu(torch):
+    """One training step of the attention translator at dictionary 200,
+    widths 32, batch 4 and lengths 1-12, from the same weights on the card
+    and on the CPU (plain versions): loss within 1e-4 relative, every
+    gradient within 1e-3 of its largest value, every parameter within 2 *
+    lr (Adam's first step moves a parameter by about lr whatever its
+    gradient)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+
+    cfg = MT_SMALL
+    main, startup, avg_cost = build_mt_train(fluid, cfg)
+    cpu = fluid.Executor("cpu")
+    cpu_scope = fluid.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    state = {v.name: cpu_scope.get(v.name).numpy().copy()
+             for v in main.list_vars() if v.persistable}
+    card_scope = pio.scope_from_numpy(state, "cuda", program=main)
+    feed, _ = mt_feed(fluid, cfg, SEED + 6)
+    grads = sorted(p.name + "@GRAD" for p in main.all_parameters()
+                   if p.trainable)
+    fetch = [avg_cost.name] + grads
+    got = fluid.Executor().run(main, feed=feed, fetch_list=fetch,
+                               scope=card_scope)
+    want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    loss_diff = abs(float(got[0][0]) - float(want[0][0]))
+    grad_err = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                     1e-30)
+                   for a, b in zip(got[1:], want[1:]))
+    param_diff = max(float(np.abs(card_scope.get(name).cpu().numpy()
+                                  - cpu_scope.get(name).numpy()).max())
+                     for name in state)
+    print("translation: one step at dictionary %d, widths %d, batch %d, "
+          "lengths %d-%d, card vs CPU: loss %.6f vs %.6f (diff %.3e), max "
+          "gradient error %.3e of its max, max parameter diff %.3e (limit "
+          "2 * lr = %.3e)" % (cfg["dict_size"], cfg["word"], cfg["batch"],
+                              cfg["min_len"], cfg["max_len"],
+                              float(got[0][0]), float(want[0][0]), loss_diff,
+                              grad_err, param_diff, 2 * cfg["lr"]))
+    check(loss_diff <= LOSS_RTOL * abs(float(want[0][0])),
+          "card and CPU losses differ by %r" % loss_diff)
+    check(grad_err <= GRAD_RTOL, "card and CPU gradients differ by %r of "
+          "their max" % grad_err)
+    check(param_diff <= 2 * cfg["lr"] * 1.001, "card and CPU parameters "
+          "differ by %r after one step" % param_diff)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
@@ -1447,8 +1723,9 @@ def main(argv=None):
                     help="print the compiler's register/shared-memory report")
     ap.add_argument("--trace", metavar="PATH",
                     help="keep the traced Transformer training step's "
-                    "chrome trace here, and the stacked LSTM's beside it "
-                    "as <PATH stem>_sequences.json")
+                    "chrome trace here, the stacked LSTM's beside it as "
+                    "<PATH stem>_sequences.json and the translator's as "
+                    "<PATH stem>_translation.json")
     args = ap.parse_args(argv)
 
     import torch
@@ -1475,9 +1752,9 @@ def main(argv=None):
 
     kernels = run_kernels(torch, ck, peak_flops, peak_bw)
     kernels.update(run_sequence_kernels(torch, ck, peak_flops, peak_bw))
+    kernels.update(run_translation_kernels(torch, ck, peak_flops, peak_bw))
     if args.only == "all":
-        seq_trace = args.trace and os.path.splitext(args.trace)[0] \
-            + "_sequences.json"
+        stem = args.trace and os.path.splitext(args.trace)[0]
         # each path: the launch counts of its run and the counts it
         # predicts (0 for a kernel the path does not run)
         paths = [("transformer_serving", run_serving(torch, card)),
@@ -1486,8 +1763,13 @@ def main(argv=None):
         run_training_vs_cpu(torch)
         paths += [("sentiment_serving", run_sequence_serving(torch, card)),
                   ("sentiment_training",
-                   run_sequence_training(torch, card, trace_path=seq_trace))]
+                   run_sequence_training(
+                       torch, card,
+                       trace_path=stem and stem + "_sequences.json"))]
         run_sequence_training_vs_cpu(torch)
+        paths.append(("translation_training", run_translation_training(
+            torch, card, trace_path=stem and stem + "_translation.json")))
+        run_translation_training_vs_cpu(torch)
         for path, (counts, expected) in paths:
             for kname, n in expected.items():
                 check(counts[kname] == n, "%s: %s launched %d times, "

@@ -212,6 +212,14 @@ class Block(object):
     def has_var(self, name):
         return name in self.vars
 
+    def has_var_recursive(self, name):
+        b = self
+        while b is not None:
+            if name in b.vars:
+                return True
+            b = b.parent_block
+        return False
+
     def var(self, name):
         v = self.vars.get(name)
         if v is None:
@@ -317,6 +325,21 @@ class Program(object):
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
+
+    def create_block(self, parent_idx=None):
+        """Append a sub-block (a control-flow op's body) whose parent is
+        the current block, or `parent_idx`, and make it current."""
+        new_idx = len(self.blocks)
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        self.blocks.append(Block(self, new_idx, parent))
+        self.current_block_idx = new_idx
+        self._bump_version()
+        return self.current_block()
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+        self._bump_version()
 
     def block(self, index):
         return self.blocks[index]

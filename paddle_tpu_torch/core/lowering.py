@@ -17,6 +17,11 @@ that require grad, and keeps (those leaf inputs, its outputs); its
 `grad_of` calls `torch.autograd.grad` on them once and drops them. Every
 other op, and every run without `grad_of` ops (inference), runs under
 `torch.no_grad()`.
+
+Sub-blocks: a control-flow op (rnn_scan, ops/control_ops.py) runs its
+body through `lower_sub_block`, inside its own rule. The body's ops are
+part of that one op: they run under whatever grad mode the op runs in,
+keep no graphs of their own, and leave the run's `grad_of` table alone.
 """
 import torch
 
@@ -104,9 +109,19 @@ class Env(object):
 
 
 def lower_block(ctx, block, env):
+    """Run a program's global block: its `grad_of` ops name the forward
+    ops that keep their local graphs in this run."""
     ctx.grad_stop = {op.attrs["fwd_uid"]:
                      frozenset(op.attrs.get("no_grad_names", ()))
                      for op in block.ops if op.type == "grad_of"}
+    lower_sub_block(ctx, block, env)
+
+
+def lower_sub_block(ctx, block, env):
+    """Run `block`'s ops in order in `env`. A control-flow op runs its body
+    through this, not lower_block: the run's grad_of table (ctx.grad_stop)
+    belongs to the global block and must outlive the body, or every
+    forward op after the control-flow op would keep no graph."""
     for op in block.ops:
         lower_op(ctx, op, env)
 

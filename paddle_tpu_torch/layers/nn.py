@@ -1,5 +1,6 @@
 """NN layers that build graph ops (the subset models/transformer.py,
-models/understand_sentiment.py and the noam schedule call).
+models/understand_sentiment.py, models/machine_translation.py and the noam
+schedule call).
 
 Parity: python/paddle/fluid/layers/nn.py and the JAX package's layers/nn.py
 — same function names, argument names and op emission, so both packages
@@ -7,12 +8,14 @@ build the same Program for the same calls.
 """
 import numpy as np
 
+from ..core.framework import Variable
 from ..core.layer_helper import LayerHelper
 from ..core.initializer import ConstantInitializer
 
 __all__ = ["fc", "embedding", "layer_norm", "fused_attention",
            "softmax_with_cross_entropy", "softmax", "cross_entropy",
-           "accuracy", "one_hot", "reduce_sum", "autoincreased_step_counter"]
+           "accuracy", "one_hot", "reduce_sum", "autoincreased_step_counter",
+           "matmul", "sequence_mask"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -223,3 +226,39 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
             infer_shape=False)
         counter.stop_gradient = True
     return counter
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
+    helper = LayerHelper("matmul", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="matmul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y})
+    return out
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    """[N] lengths -> [N, maxlen] 0/1 mask. Parity: fluid.layers.sequence_mask
+    / sequence_mask_op.h. `maxlen` is an int or a Variable whose dim 1 gives
+    the length (the padded time dim of a sequence)."""
+    helper = LayerHelper("sequence_mask", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [x]}
+    attrs = {"out_dtype": dtype}
+    if isinstance(maxlen, Variable):
+        inputs["MaxLenRef"] = [maxlen]
+    elif maxlen is not None:
+        attrs["maxlen"] = int(maxlen)
+    else:
+        raise ValueError("sequence_mask needs a static maxlen (int or a "
+                         "Variable whose second dim provides it)")
+    helper.append_op(type="sequence_mask", inputs=inputs,
+                     outputs={"Y": [out]}, attrs=attrs, infer_shape=False)
+    if isinstance(maxlen, Variable):
+        m = maxlen.shape[1] if maxlen.shape is not None else -1
+    else:
+        m = int(maxlen)
+    if x.shape is not None:
+        out.shape = (x.shape[0], m)
+    out.stop_gradient = True
+    return out

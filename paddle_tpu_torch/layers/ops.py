@@ -1,5 +1,5 @@
 """Thin layer wrappers over registered ops (mean, reshape, scale, relu,
-tanh, mul and the elementwise family).
+tanh, mul, squeeze, unsqueeze and the elementwise family).
 
 Parity: python/paddle/fluid/layers/ops.py + layer_function_generator.py
 and the JAX package's layers/ops.py: generated from a slot-spec table;
@@ -19,6 +19,8 @@ _SPECS = {
     "scale": (_UNARY, ["Out"]),
     "relu": (_UNARY, ["Out"]),
     "tanh": (_UNARY, ["Out"]),
+    "squeeze": (_UNARY, ["Out"]),
+    "unsqueeze": (_UNARY, ["Out"]),
 }
 for _e in ("elementwise_add", "elementwise_sub", "elementwise_mul",
            "elementwise_div", "elementwise_min", "elementwise_pow"):

@@ -1,16 +1,17 @@
-"""Sequence layers (LoD-aware): the subset the sentiment classifiers call.
+"""Sequence layers (LoD-aware): the subset the sentiment classifiers and
+the attention translator call.
 
 Parity: the sequence_* / dynamic_* functions of python/paddle/fluid/layers/
 nn.py and the JAX package's layers/sequence.py — same names, arguments and
 op emission, so both packages build the same Program for the same calls.
-The JAX package's sequence_softmax, sequence_expand, sequence_reshape,
+The JAX package's sequence_expand, sequence_reshape,
 dynamic_lstmp, dynamic_gru, gru_unit, lstm_unit, lod_reset, row_conv and
 beam-search layers are not ported yet.
 """
 from ..core.layer_helper import LayerHelper
 
 __all__ = ["sequence_pool", "sequence_first_step", "sequence_last_step",
-           "sequence_conv", "dynamic_lstm"]
+           "sequence_softmax", "sequence_conv", "dynamic_lstm"]
 
 
 def _seq_len(helper, x):
@@ -40,6 +41,19 @@ def sequence_first_step(input):
 
 def sequence_last_step(input):
     return sequence_pool(input, "last")
+
+
+def sequence_softmax(input, use_cudnn=False, name=None):
+    """Softmax over each sequence's time steps (input [B, T] or [B, T, 1]);
+    steps past a row's length get 0. The fp32 [B, T] case runs the
+    masked-softmax kernel (ops/sequence_ops.py)."""
+    helper = LayerHelper("sequence_softmax", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="sequence_softmax",
+        inputs={"X": [input], "XLen": [_seq_len(helper, input)]},
+        outputs={"Out": [out]})
+    return out
 
 
 def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,

@@ -1,2 +1,2 @@
-"""Model builders of the port: the transformer (scoring and training) and
-the IMDB sentiment classifiers."""
+"""Model builders of the port: the transformer (scoring and training),
+the IMDB sentiment classifiers and the attention translator (training)."""

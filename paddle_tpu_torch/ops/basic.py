@@ -1,9 +1,10 @@
-"""Elementwise / math / tensor op rules (the subset the Transformer's and
-the sentiment classifiers' scoring and training programs run).
+"""Elementwise / math / tensor op rules (the subset the Transformer's, the
+sentiment classifiers' and the attention translator's programs run).
 
 Parity: paddle/fluid/operators/{activation_op,elementwise_*_op,mul_op,
-mean_op,sum_op,topk_op,scale_op,reshape_op,reduce_op,cast_op,one_hot_op,
-increment_op,sign_op,assign_op,fill_constant_op,assign_value_op,
+matmul_op,mean_op,sum_op,topk_op,scale_op,reshape_op,squeeze_op,
+unsqueeze_op,reduce_op,cast_op,one_hot_op,increment_op,sign_op,assign_op,
+fill_constant_op,fill_constant_batch_size_like_op,assign_value_op,
 uniform_random_op,gaussian_random_op}.cc
 and the JAX package's ops/basic.py, whose rules these mirror over torch
 tensors. `mul` stays a plain torch.matmul: the JAX package left the matrix
@@ -72,6 +73,40 @@ def _mul(ctx, ins, attrs):
     y2 = y.reshape(int(np.prod(y.shape[:yn])), -1)
     out = torch.matmul(x2, y2)
     return _out(out.reshape(tuple(x.shape[:xn]) + tuple(y.shape[yn:])))
+
+
+@register("matmul")
+def _matmul(ctx, ins, attrs):
+    """Batched matmul with fluid's transpose_X / transpose_Y and alpha."""
+    x, y = single(ins, "X"), single(ins, "Y")
+    if attrs.get("transpose_X") and x.dim() > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y") and y.dim() > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    return _out(out)
+
+
+@register("squeeze")
+def _squeeze(ctx, ins, attrs):
+    """Drop the size-1 dims `axes` (every size-1 dim when none are given;
+    dropping a dim of another size fails in the reshape)."""
+    x = single(ins, "X")
+    axes = attrs.get("axes") or [i for i, d in enumerate(x.shape) if d == 1]
+    axes = {a % x.dim() for a in axes}
+    return _out(x.reshape([d for i, d in enumerate(x.shape)
+                           if i not in axes]))
+
+
+@register("unsqueeze")
+def _unsqueeze(ctx, ins, attrs):
+    x = single(ins, "X")
+    for a in sorted(attrs["axes"]):
+        x = x.unsqueeze(a)
+    return _out(x)
 
 
 @register("scale")
@@ -175,6 +210,19 @@ def _fill_constant(ctx, ins, attrs):
     return _out(torch.full(shape, attrs.get("value", 0.0),
                            dtype=torch_dtype(_attr_np_dtype(attrs).name),
                            device=ctx.device))
+
+
+@register("fill_constant_batch_size_like")
+def _fill_constant_batch_size_like(ctx, ins, attrs):
+    """A constant whose dim output_dim_idx copies Input's dim
+    input_dim_idx (an RNN memory's boot value takes the batch so)."""
+    ref = single(ins, "Input")
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ref.shape[attrs.get("input_dim_idx", 0)]
+    return _out(torch.full(shape, attrs.get("value", 0.0),
+                           dtype=torch_dtype(_attr_np_dtype(attrs).name),
+                           device=ref.device))
 
 
 @register("assign_value")

@@ -9,22 +9,23 @@ library with a plain C interface (`build()`), loaded with ctypes.
 Beside each kernel:
   * a wrapper (`flash_attention_fwd`, `flash_attention_bwd_dkdv`,
     `flash_attention_bwd_dq`, `softmax_xent_fwd`, `layer_norm_fwd`,
-    `fused_lstm`, `masked_pool`) whose dispatch rule is the tensor's
-    device: `meta` returns empty outputs of the right shape (build-time
-    shape inference), `cpu` runs the plain version, `cuda` launches the
-    kernel or raises. Nothing falls back;
+    `fused_lstm`, `masked_softmax`, `masked_pool`) whose dispatch rule is
+    the tensor's device: `meta` returns empty outputs of the right shape
+    (build-time shape inference), `cpu` runs the plain version, `cuda`
+    launches the kernel or raises. Nothing falls back;
   * a plain PyTorch version (`*_plain`) of the same function — what the
     CPU runs, and what the card's kernel is held against;
   * a launch counter (`wrapper.launches`), raised by one exactly where the
     kernel is launched, so a run can show the main path went through it.
 
-Gradients: five torch.autograd.Functions mirror the JAX package's
+Gradients: six torch.autograd.Functions mirror the JAX package's
 custom_vjps — `FlashAttention` (forward K1, backward K2 + K3, as
 `_flash_core`), `LayerNorm` (forward K5, backward in torch, as
 `_ln_core_bwd`), `SoftmaxXent` (forward K4, backward in torch, as
 `_xent_core_bwd`), `FusedLSTM` (forward K6, backward the saved-state
-reverse scan in torch, as `_lstm_seq_core_bwd`) and `MaskedPool` (forward
-K9, backward in torch, as `_masked_pool_core_bwd`).
+reverse scan in torch, as `_lstm_seq_core_bwd`), `MaskedSoftmax` (forward
+K8, backward in torch, as `_masked_softmax_core_bwd`) and `MaskedPool`
+(forward K9, backward in torch, as `_masked_pool_core_bwd`).
 """
 import ctypes
 import hashlib
@@ -42,9 +43,10 @@ __all__ = ["build", "flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
            "softmax_xent_fwd", "softmax_xent_fwd_plain",
            "layer_norm_fwd", "layer_norm_fwd_plain", "fused_lstm",
-           "fused_lstm_plain", "fused_lstm_bwd", "masked_pool",
-           "masked_pool_plain", "FlashAttention", "LayerNorm",
-           "SoftmaxXent", "FusedLSTM", "MaskedPool", "launch_counts",
+           "fused_lstm_plain", "fused_lstm_bwd", "masked_softmax",
+           "masked_softmax_plain", "masked_pool", "masked_pool_plain",
+           "FlashAttention", "LayerNorm", "SoftmaxXent", "FusedLSTM",
+           "MaskedSoftmax", "MaskedPool", "launch_counts",
            "reset_launch_counts", "FLASH_HEAD_DIMS", "POOL_TYPES"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,7 +54,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
            "softmax_xent_fwd.cu", "layer_norm_fwd.cu", "fused_lstm_fwd.cu",
-           "masked_pool_fwd.cu")
+           "masked_softmax_fwd.cu", "masked_pool_fwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -177,6 +179,8 @@ def _bind(lib):
     lib.ptt_layer_norm_fwd.restype = I
     lib.ptt_fused_lstm_fwd.argtypes = [P, L, L] + [P] * 7 + [I] * 4 + [P]
     lib.ptt_fused_lstm_fwd.restype = I
+    lib.ptt_masked_softmax_fwd.argtypes = [P, L, P, P, I, I, P]
+    lib.ptt_masked_softmax_fwd.restype = I
     lib.ptt_masked_pool_fwd.argtypes = [P, L, L, P, P, I, I, I, I, P]
     lib.ptt_masked_pool_fwd.restype = I
 
@@ -189,7 +193,7 @@ def _count(wrapper):
 def _counted():
     return (flash_attention_fwd, flash_attention_bwd_dkdv,
             flash_attention_bwd_dq, softmax_xent_fwd, layer_norm_fwd,
-            fused_lstm, masked_pool)
+            fused_lstm, masked_softmax, masked_pool)
 
 
 def launch_counts():
@@ -825,6 +829,65 @@ def fused_lstm_bwd(x, w, b, h0, c0, lens, hidden, cell, g_hidden, g_cell,
 
 
 # ---------------------------------------------------------------------------
+# masked sequence softmax forward (replaces
+# pallas_kernels._masked_softmax_kernel)
+# ---------------------------------------------------------------------------
+
+def _softmax_args(x, lens):
+    if x.dim() != 2 or lens.numel() != x.shape[0]:
+        raise ValueError("masked_softmax needs x [N, T] and N lengths, got "
+                         "%s and %s" % (tuple(x.shape), tuple(lens.shape)))
+    return x.shape
+
+
+def masked_softmax_plain(x, lens):
+    """Plain version: the softmax over t < lens[n] of each row of x [N, T]
+    in fp32, 0 at t >= lens[n] (a length-0 row is all 0: its sum is
+    floored at 1e-30, as in the TPU kernel). Returns [N, T] in x's
+    dtype."""
+    n, t = _softmax_args(x, lens)
+    valid = step_mask(lens, n, t, x.device, torch.bool)
+    s = torch.where(valid, x.float(), _NEG)
+    p = torch.where(valid, torch.exp(s - s.amax(dim=1, keepdim=True)), 0.0)
+    return (p / p.sum(dim=1, keepdim=True).clamp_min(1e-30)).to(x.dtype)
+
+
+def masked_softmax(x, lens):
+    """Softmax over the time dim of x [N, T] (any row stride, last dim
+    contiguous on the card) with lengths lens [N]: steps t >= lens[n] get
+    0. Dispatch by x's device as in fused_lstm (the CUDA kernel takes
+    fp32)."""
+    n, t = _softmax_args(x, lens)
+    dev = x.device.type
+    if dev == "meta":
+        return torch.empty((n, t), dtype=x.dtype, device=x.device)
+    if dev == "cpu":
+        return masked_softmax_plain(x, lens)
+    if dev != "cuda":
+        raise ValueError("masked_softmax: unsupported device %s" % dev)
+    if x.dtype != torch.float32:
+        raise ValueError("masked_softmax: the CUDA kernel takes fp32 (got %s)"
+                         % x.dtype)
+    if x.stride(1) != 1:
+        raise ValueError("masked_softmax: x needs a contiguous last dim (got "
+                         "strides %s)" % (tuple(x.stride()),))
+    y = torch.empty((n, t), dtype=torch.float32, device=x.device)
+    if n == 0 or t == 0:
+        return y
+    lens = lens.reshape(n).to(device=x.device, dtype=torch.int32).contiguous()
+    lib = build()
+    err = lib.ptt_masked_softmax_fwd(x.data_ptr(), x.stride(0),
+                                     lens.data_ptr(), y.data_ptr(), n, t,
+                                     _stream_of(x))
+    _check_launch(err, "masked_softmax")
+    _count(masked_softmax)
+    return y
+
+
+masked_softmax.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # masked sequence pool forward (replaces pallas_kernels._masked_pool_kernel)
 # ---------------------------------------------------------------------------
 
@@ -1000,6 +1063,27 @@ class FusedLSTM(torch.autograd.Function):
             ctx.reverse)
         return (dx, dw, db, dh0 if h0 is not None else None,
                 dc0 if c0 is not None else None, None, None)
+
+
+class MaskedSoftmax(torch.autograd.Function):
+    """y [N, T] = masked softmax of x [N, T] over t < lens through K8;
+    backward in torch from the saved output (parity:
+    pallas_kernels._masked_softmax_core_bwd): dx = y * (g - sum(g * y)).
+    Masked steps have y == 0, so their gradient is exactly 0. lens gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, lens):
+        y = masked_softmax(x, lens)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        yf, gf = y.float(), g.float()
+        dx = yf * (gf - (gf * yf).sum(dim=-1, keepdim=True))
+        return dx.to(y.dtype), None
 
 
 class MaskedPool(torch.autograd.Function):

@@ -1,4 +1,4 @@
-"""Optimizer update-rule op rules: adam and adam_beta_pow_update.
+"""Optimizer update-rule op rules: adam, adam_beta_pow_update and adagrad.
 
 Parity: paddle/fluid/operators/adam_op.{cc,h} and the JAX package's
 ops/optimizer_ops.py. Each writes ParamOut (and the moment outs) under the
@@ -6,7 +6,7 @@ same var name as its input, so the executor's write-back of persistables
 updates the Scope. The rules allocate new tensors rather than updating in
 place: a run's kept graphs and its fetches may still hold the old ones.
 Plain torch, as XLA computed these outside any Pallas kernel. The other
-optimizers' rules (sgd, momentum, adagrad, ...) are not ported yet.
+optimizers' rules (sgd, momentum, rmsprop, ...) are not ported yet.
 """
 import torch
 
@@ -39,3 +39,16 @@ def _adam_beta_pow(ctx, ins, attrs):
     return {"Beta1PowOut": [single(ins, "Beta1Pow") * attrs.get("beta1", 0.9)],
             "Beta2PowOut": [single(ins, "Beta2Pow")
                             * attrs.get("beta2", 0.999)]}
+
+
+@register("adagrad")
+def _adagrad(ctx, ins, attrs):
+    """moment += g^2; param -= lr * g / (sqrt(moment) + epsilon)."""
+    p = single(ins, "Param")
+    g = single(ins, "Grad")
+    mom = single(ins, "Moment")
+    lr = single(ins, "LearningRate").reshape(())
+    eps = attrs.get("epsilon", 1e-6)
+    m_out = mom + g * g
+    p_out = p - lr * g / (torch.sqrt(m_out) + eps)
+    return {"ParamOut": [p_out.to(p.dtype)], "MomentOut": [m_out]}

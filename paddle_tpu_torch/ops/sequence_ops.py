@@ -1,29 +1,33 @@
 """Sequence op rules over the padded-dense layout: sequence_pool (and its
-first/last-step forms), sequence_conv and the dynamic LSTM.
+first/last-step forms), sequence_softmax, sequence_mask, sequence_conv and
+the dynamic LSTM.
 
-Parity: paddle/fluid/operators/{sequence_pool_op,sequence_conv_op,
-lstm_op}.{cc,cu,h} and the JAX package's ops/sequence_ops.py. A lod_level-1
+Parity: paddle/fluid/operators/{sequence_pool_op,sequence_softmax_op,
+sequence_mask_op,sequence_conv_op,lstm_op}.{cc,cu,h} and the JAX package's
+ops/sequence_ops.py. A lod_level-1
 tensor is a padded dense array X [num_seqs, max_len, *feature] plus XLen
 int32 [num_seqs] of true lengths (core/lod.py), and every op masks by
 XLen.
 
-Two rules call hand-written CUDA kernels through their autograd Functions
-(ops/cuda_kernels.py), on the same conditions under which the JAX package
-dispatches its Pallas kernels, less its PADDLE_TPU_PALLAS switch, which has
-no counterpart here:
+Three rules call hand-written CUDA kernels through their autograd
+Functions (ops/cuda_kernels.py), on the same conditions under which the JAX
+package dispatches its Pallas kernels, less its PADDLE_TPU_PALLAS switch,
+which has no counterpart here:
   * sequence_pool SUM / AVERAGE / SQRT on fp32 -> MaskedPool (K9);
+  * sequence_softmax on fp32 [B, T] (or [B, T, 1]) -> MaskedSoftmax (K8);
+    other dtypes take the where-mask path;
   * lstm with no peepholes, fp32 and the default activations -> FusedLSTM
     (K6). Every other lstm (peepholes, other activations) runs the torch
     loop of cuda_kernels.fused_lstm_plain, as the JAX package runs its
     lax.scan: no kernel exists for it in either package.
-The JAX package's lstmp, sequence_softmax and gru rules wait for the paths
-that reach their kernels; a program that uses them fails with the
-registry's unknown-op error.
+The JAX package's lstmp and gru rules wait for the paths that reach their
+kernels; a program that uses them fails with the registry's unknown-op
+error.
 """
 import numpy as np
 import torch
 
-from ..core.registry import register, single
+from ..core.registry import register, single, torch_dtype
 from . import cuda_kernels
 
 
@@ -82,6 +86,33 @@ def _sequence_last_step(ctx, ins, attrs):
 @register("sequence_first_step")
 def _sequence_first_step(ctx, ins, attrs):
     return _sequence_pool(ctx, ins, dict(attrs, pooltype="FIRST"))
+
+
+@register("sequence_softmax")
+def _sequence_softmax(ctx, ins, attrs):
+    x = single(ins, "X")        # [B, T] or [B, T, 1]
+    xlen = single(ins, "XLen")
+    squeeze = x.dim() == 3 and x.shape[-1] == 1
+    logits = x.reshape(x.shape[0], x.shape[1]) if squeeze else x
+    if logits.dim() == 2 and logits.dtype == torch.float32:
+        out = cuda_kernels.MaskedSoftmax.apply(logits, xlen)
+    else:
+        m = _feat_mask(logits, xlen)
+        neg = torch.full((), -1e30, dtype=logits.dtype, device=x.device)
+        out = torch.softmax(torch.where(m > 0, logits, neg), dim=1) * m
+    return {"Out": [out.reshape(x.shape)]}
+
+
+@register("sequence_mask")
+def _sequence_mask(ctx, ins, attrs):
+    """lengths [N] -> [N, maxlen] mask, maxlen from the int attr or from
+    dim 1 of MaxLenRef. Parity: sequence_mask_op.h."""
+    x = single(ins, "X")
+    ref = single(ins, "MaxLenRef")
+    maxlen = ref.shape[1] if ref is not None else int(attrs["maxlen"])
+    mask = cuda_kernels.step_mask(x, x.shape[0], maxlen, x.device,
+                                  torch.bool)
+    return {"Y": [mask.to(torch_dtype(attrs.get("out_dtype", "int64")))]}
 
 
 @register("sequence_conv")

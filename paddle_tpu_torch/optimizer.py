@@ -5,8 +5,9 @@ optimizer.py — same classes, same accumulator names, same minimize()
 contract (append_backward -> clip -> regularization -> per-param update
 ops), so both packages build the same training Program. The update ops
 run as plain torch (ops/optimizer_ops.py); their ParamOut writes reach the
-Scope through the executor's write-back of persistables. Only Adam is
-ported; SGD, Momentum and the other optimizers are later work (ROADMAP A1).
+Scope through the executor's write-back of persistables. Adam and Adagrad
+are ported; SGD, Momentum and the other optimizers are later work (ROADMAP
+A1).
 """
 from collections import defaultdict
 
@@ -18,7 +19,8 @@ from .core.backward import append_backward
 from .core import unique_name
 from . import regularizer as regularizer_mod
 
-__all__ = ["Adam", "AdamOptimizer", "Optimizer"]
+__all__ = ["Adam", "AdamOptimizer", "Adagrad", "AdagradOptimizer",
+           "Optimizer"]
 
 
 class Optimizer(object):
@@ -138,6 +140,32 @@ class Optimizer(object):
         return optimize_ops, params_grads
 
 
+class AdagradOptimizer(Optimizer):
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, epsilon=1e-6, **kwargs):
+        super(AdagradOptimizer, self).__init__(learning_rate, **kwargs)
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment_acc = self._get_accumulator(self._moment_acc_str,
+                                           param_and_grad[0])
+        return block.append_op(
+            type="adagrad",
+            inputs={"Param": [param_and_grad[0]],
+                    "Grad": [param_and_grad[1]],
+                    "Moment": [moment_acc],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "MomentOut": [moment_acc]},
+            attrs={"epsilon": self._epsilon},
+            infer_shape=False)
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -201,3 +229,4 @@ class AdamOptimizer(Optimizer):
 
 
 Adam = AdamOptimizer
+Adagrad = AdagradOptimizer

@@ -32,7 +32,11 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "paddle_tpu_torch.nets, paddle_tpu_torch.core.lod, "
             "paddle_tpu_torch.layers.sequence, "
             "paddle_tpu_torch.ops.sequence_ops, "
-            "paddle_tpu_torch.ops.cuda_kernels\n"
+            "paddle_tpu_torch.ops.cuda_kernels, "
+            "paddle_tpu_torch.layers.control_flow, "
+            "paddle_tpu_torch.ops.control_ops, "
+            "paddle_tpu_torch.models.common, "
+            "paddle_tpu_torch.models.machine_translation\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r)\n"
             "print(bad)\n"
@@ -70,6 +74,14 @@ def test_every_sequence_module_is_checked():
     rel = {os.path.relpath(p, PKG) for p in SOURCES}
     assert {"core/lod.py", "ops/sequence_ops.py", "layers/sequence.py",
             "nets.py", "models/understand_sentiment.py"} <= rel
+
+
+def test_every_control_flow_and_translation_module_is_checked():
+    """The translator slice's modules are among the sources the import
+    check walks."""
+    rel = {os.path.relpath(p, PKG) for p in SOURCES}
+    assert {"layers/control_flow.py", "ops/control_ops.py",
+            "models/common.py", "models/machine_translation.py"} <= rel
 
 
 @pytest.fixture

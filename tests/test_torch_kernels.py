@@ -23,10 +23,10 @@ from paddle_tpu.ops import pallas_kernels as pk
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-# every counted kernel wrapper (K1-K6, K9)
+# every counted kernel wrapper (K1-K6, K8, K9)
 _KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
             "flash_attention_bwd_dq", "softmax_xent_fwd", "layer_norm_fwd",
-            "fused_lstm", "masked_pool")
+            "fused_lstm", "masked_softmax", "masked_pool")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -484,3 +484,88 @@ def test_sequence_wrappers_dispatch_by_device():
         ck.masked_pool(torch.zeros(2, 3, 4), torch.ones(2), "MAX")
     with pytest.raises(ValueError, match="B lengths"):
         ck.masked_pool(torch.zeros(2, 3, 4), torch.ones(3), "SUM")
+
+
+# ---------------------------------------------------------------------------
+# K8 masked softmax (the attention translator's slice)
+# ---------------------------------------------------------------------------
+
+def _softmax_inputs(n, t, seed):
+    """x [N, T] at the scale of attention scores, and lengths with 0, 1 and
+    T among them."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(n, t) * 3).astype(np.float32)
+    lens = rng.randint(0, t + 1, size=n).astype(np.int32)
+    lens[:3] = (0, 1, t)
+    return x, lens
+
+
+def _jax_where_mask_softmax(x, lens):
+    """The JAX package's sequence_softmax rule on its where-mask path
+    (PADDLE_TPU_PALLAS=0)."""
+    from paddle_tpu.core import registry as jreg
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PADDLE_TPU_PALLAS", "0")
+        out = jreg.get("sequence_softmax").lower(
+            None, {"X": [jnp.asarray(x)], "XLen": [jnp.asarray(lens)]}, {})
+    return np.asarray(out["Out"][0])
+
+
+@pytest.mark.parametrize("shape", [(5, 13), (16, 48)])
+def test_masked_softmax_plain_matches_jax_kernel_and_where_mask_rule(shape):
+    """K8's plain version against the JAX masked_softmax (the Pallas kernel
+    in interpret mode) and the where-mask rule, with a length-0, a
+    length-1 and a full row: exact zeros past each length, a length-0 row
+    all 0, every other row summing to 1."""
+    x, lens = _softmax_inputs(*shape, seed=41)
+    got = ck.masked_softmax_plain(torch.from_numpy(x),
+                                  torch.from_numpy(lens)).numpy()
+    kernel = pk.masked_softmax(jnp.asarray(x), jnp.asarray(lens),
+                               interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kernel), **TOL)
+    np.testing.assert_allclose(got, _jax_where_mask_softmax(x, lens), **TOL)
+    for row, n in zip(got, lens):
+        assert np.all(row[n:] == 0.0)
+        if n:
+            np.testing.assert_allclose(row.sum(), 1.0, rtol=1e-6)
+    assert got[1, 0] == 1.0
+
+
+def test_masked_softmax_function_backward_matches_jax_custom_vjp():
+    """MaskedSoftmax (forward K8, backward y * (g - sum(g * y)) in torch)
+    against jax.vjp of the JAX masked_softmax (_masked_softmax_core_bwd);
+    masked steps get exactly zero gradient."""
+    x, lens = _softmax_inputs(16, 48, seed=42)
+    g = np.random.RandomState(10).randn(16, 48).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = ck.MaskedSoftmax.apply(xt, torch.from_numpy(lens))
+    got, = torch.autograd.grad(y, xt, torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda a: pk.masked_softmax(
+        a, jnp.asarray(lens), interpret=True), jnp.asarray(x))
+    want, = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for row, n in zip(got.numpy(), lens):
+        assert np.all(row[n:] == 0.0)
+
+
+def test_masked_softmax_wrapper_dispatches_by_device():
+    """A CPU tensor takes the plain version and launches nothing, a meta
+    tensor gives the [N, T] shape, a strided row is read as it lies, and
+    a bad shape raises."""
+    ck.reset_launch_counts()
+    x, lens = _softmax_inputs(5, 13, seed=43)
+    tx, tl = torch.from_numpy(x), torch.from_numpy(lens)
+    assert torch.equal(ck.masked_softmax(tx, tl),
+                       ck.masked_softmax_plain(tx, tl))
+    wide = torch.from_numpy(np.concatenate([x, x], axis=1))[:, :13]
+    assert torch.equal(ck.masked_softmax(wide, tl),
+                       ck.masked_softmax_plain(tx, tl))
+    meta = torch.empty((1021, 1021), device="meta")
+    y = ck.masked_softmax(meta, torch.empty(1021, dtype=torch.int32,
+                                            device="meta"))
+    assert y.shape == (1021, 1021) and y.device.type == "meta"
+    assert ck.launch_counts() == dict.fromkeys(_KERNELS, 0)
+    with pytest.raises(ValueError, match="N lengths"):
+        ck.masked_softmax(tx, tl[:4])
+    with pytest.raises(ValueError, match="x \\[N, T\\]"):
+        ck.masked_softmax(tx[None], tl)
