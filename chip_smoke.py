@@ -7,8 +7,9 @@
     python3 chip_smoke.py --trace out.json  # keep the traced steps' traces
 
 Transformer-base runs at its full depth (6+6 layers) and width, the
-IMDB sentiment classifiers at their book widths, and the attention
-translator of book chapter 08 at the reference benchmark's widths, with
+IMDB sentiment classifiers at their book widths, the attention
+translator of book chapter 08 at the reference benchmark's widths, and
+the DeepASR stacked-LSTMP acoustic model at its train.py widths, with
 random weights from the fixed seed SEED.
 
 Phases, each reported on lines of its own; any failure exits non-zero:
@@ -33,7 +34,13 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               K8 (masked softmax) at the translator's decoder step, x [16,
               48] with lengths 1 and 48 among them, and at a wide [2048,
               256] with lengths 0, 1 and 256; its library call is
-              torch.softmax(x, 1) at full lengths.
+              torch.softmax(x, 1) at full lengths. K7 (fused LSTMP) is
+              checked forward and reverse, with zero and given r0/c0, at
+              a serving dispatch's x [8, 512, 4096] and a training step's
+              [32, 512, 4096] (D 1024, P 512), ragged lengths with 1 and
+              T; its library call is torch.nn.LSTM(1320, 1024,
+              proj_size=512) (cuDNN) on the frames at full lengths, which
+              has no tanh on its projection: only its time compares.
 4. serving  — the main path: build Transformer-base scoring (vocab 30000,
               d_model 512, 8 heads, 6+6 layers, d_inner 2048, T=256) with
               the port's layers, run its startup program on the card from
@@ -98,6 +105,28 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               once per decoder step (48 a step) and no other kernel. Then
               one step at dictionary 200, widths 32, batch 4, lengths
               1-12 on the card and on the CPU (the tolerances of phase 5).
+9. acoustic, serving — the DeepASR stacked-LSTMP model (PaddlePaddle/
+              models fluid/DeepASR stacked_lstmp_model at its train.py
+              defaults: 5 layers of fc(4096) + dynamic_lstmp(hidden 1024,
+              proj 512), a per-frame softmax over 1749 classes; frames of
+              1320 = 120 filterbank features x 11 spliced frames) built
+              without its batch_norm layers and with use_peepholes=False,
+              initialized on the card, saved and served by
+              InferenceEngine(batch_buckets=[1, 4, 8], seq_buckets=[128,
+              256, 512]) with float LoD frame feeds: 16 concurrent
+              one-utterance requests of 100-500 N(0, 1) frames. Checks:
+              answers finite, each frame's posteriors summing to 1; each
+              equals run_direct at its bucket (<= 1e-5); request 0
+              matches the CPU (<= 1e-4); K7 five times per dispatch.
+10. acoustic, training — the same model with cross_entropy against
+              random per-frame labels, the length-masked mean
+              (models/common.masked_mean_cost) and Adam at DeepASR's
+              0.00016, batch 32 utterances of 150-500 frames (one at
+              500): TRAIN_STEPS steps through Executor.run, one traced
+              step, then one step at 2 layers, hidden 8, proj 4, batch 4,
+              lengths 1-12 on the card and on the CPU (the tolerances of
+              phase 5). Checks: losses finite and falling; K7 five times
+              a step and no other kernel.
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run); each kernel must also launch on at
@@ -183,6 +212,23 @@ MT = dict(dict_size=30000, word=512, hidden=512, decoder=512, batch=16,
 # the card-vs-CPU step: the same program at small widths
 MT_SMALL = dict(dict_size=200, word=32, hidden=32, decoder=32, batch=4,
                 lr=2e-4, min_len=1, max_len=12)
+
+# the acoustic path: PaddlePaddle's DeepASR stacked-LSTMP model
+# (PaddlePaddle/models fluid/DeepASR model_utils/model.py
+# stacked_lstmp_model at its train.py defaults: hidden_dim 1024, proj_dim
+# 512, stacked_num 5, class_num 1749, batch_size 32, Adam at 0.00016),
+# frames of 120 filterbank features x 11 spliced frames, without its
+# batch_norm layers and with use_peepholes=False (the K7 configuration)
+ASR = dict(frame=1320, hidden=1024, proj=512, layers=5, classes=1749,
+           batch=32, lr=0.00016, min_len=150, max_len=500)
+ASR_SERVE_LENS = (100, 500)               # utterance frames per request
+ASR_SEQ_BUCKETS = [128, 256, 512]
+# the card-vs-CPU step: the same program at small LSTMP widths
+ASR_SMALL = dict(ASR, hidden=8, proj=4, layers=2, batch=4, min_len=1,
+                 max_len=12)
+LSTMP_SRC = "paddle_tpu_torch/csrc/fused_lstmp_fwd.cu"
+LSTMP_TPU = "paddle_tpu/ops/pallas_kernels.py:714 (_lstmp_seq_kernel, " \
+    "launched by _lstmp_fwd_call :745)"
 
 
 class SmokeFailure(RuntimeError):
@@ -784,6 +830,119 @@ def run_translation_kernels(torch, ck, peak_flops, peak_bw):
     return {"masked_softmax": r}
 
 
+def lstmp_work(lens, t, d, p, b, with_state):
+    """(flops, bytes) K7 needs for these lengths: per valid (row, step)
+    the two products, 2 * (P * 4D + D * P) flops (the ~20 * D
+    elementwise operations are under 1% of it), and the row of x it
+    reads; W, W_proj, the bias, the lengths, r0/c0 when given and the
+    full [B, T, P] projection and [B, T, D] cell outputs, each once."""
+    valid = sum(max(0, min(int(n), t)) for n in lens)
+    flops = valid * 2 * (p * 4 * d + d * p)
+    nbytes = 4 * (valid * 4 * d + p * 4 * d + d * p + 4 * d + b
+                  + (b * (p + d) if with_state else 0) + b * t * (p + d))
+    return flops, nbytes
+
+
+def run_acoustic_kernels(torch, ck, peak_flops, peak_bw):
+    """K7 against its plain version at the acoustic path's shapes (a
+    serving dispatch x [8, 512, 4096], a training step's [32, 512, 4096];
+    D 1024, P 512), forward and reverse, zero and given r0/c0, ragged
+    lengths with 1 and T; timed (kernel, plain, library) beside its
+    bound."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 7)
+    rng = np.random.RandomState(SEED + 7)
+    d, p, t = ASR["hidden"], ASR["proj"], ASR_SEQ_BUCKETS[-1]
+    # weights at the scale of a Xavier init: the gates stay unsaturated
+    w = torch.randn((p, 4 * d), generator=g, device=dev) * 0.05
+    wp = torch.randn((d, p), generator=g, device=dev) * 0.04
+    bias = torch.randn((4 * d,), generator=g, device=dev) * 0.1
+    err_max = 0.0
+    timing = {}
+    for b in (8, ASR["batch"]):
+        lens = rng.randint(1, t + 1, size=b)
+        lens[0], lens[-1] = t, 1
+        lens = lens.tolist()
+        x = torch.randn((b, t, 4 * d), generator=g, device=dev) * 0.5
+        r0 = torch.tanh(torch.randn((b, p), generator=g, device=dev) * 0.3)
+        c0 = torch.randn((b, d), generator=g, device=dev) * 0.2
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for reverse in (False, True):
+            for state in (None, (r0, c0)):
+                args = (x, w, wp, bias) + (state or (None, None)) \
+                    + (lt, reverse)
+                got = ck.fused_lstmp(*args)
+                want = ck.fused_lstmp_plain(*args)
+                torch.cuda.synchronize()
+                # absolute, on projection and cell after up to 512 steps:
+                # each step's gates differ by the rounding of a 512-term
+                # product and the projection's by a 1024-term one; the
+                # gates squash and the forget gate is below 1, so the
+                # carried error does not grow with T
+                err = max((a - r).abs().max().item()
+                          for a, r in zip(got, want))
+                print("kernels: fused_lstmp B=%d T=%d D=%d P=%d reverse=%s "
+                      "r0/c0=%s max_abs_err=%.3e"
+                      % (b, t, d, p, reverse, "given" if state else "zero",
+                         err))
+                check(np.isfinite(err) and err <= KERNEL_TOL,
+                      "fused_lstmp disagrees with its plain version by %r "
+                      "(tolerance %r)" % (err, KERNEL_TOL))
+                err_max = max(err_max, err)
+        del got, want
+        # the library yardstick: cuDNN's LSTM with a projection, from the
+        # frames (its input product included) at full lengths. It has no
+        # tanh on the projection and orders its gates {i, f, g, o}, so
+        # only its time compares
+        lib = torch.nn.LSTM(ASR["frame"], d, proj_size=p,
+                            batch_first=True).to(dev)
+        frames = torch.randn((b, t, ASR["frame"]), generator=g, device=dev)
+
+        def lib_call(lib=lib, frames=frames):
+            with torch.no_grad():
+                return lib(frames)
+
+        flops, nbytes = lstmp_work(lens, t, d, p, b, False)
+        bms, bby = bound(flops, nbytes, peak_flops, peak_bw)
+        timing[b] = {
+            "ms": time_ms(torch, lambda: ck.fused_lstmp(
+                x, w, wp, bias, None, None, lt), iters=2, reps=3),
+            "plain_ms": time_ms(torch, lambda: ck.fused_lstmp_plain(
+                x, w, wp, bias, None, None, lt), iters=1, reps=3),
+            "library_ms": time_ms(torch, lib_call, iters=2, reps=3),
+            "bound_ms": bms, "bound_by": bby, "lens": lens}
+        del x, lib, frames
+    serve, train = timing[8], timing[ASR["batch"]]
+    r = {
+        "name": "fused_lstmp", "route": "cuda", "source": LSTMP_SRC,
+        "replaces": LSTMP_TPU,
+        "shape": "x [8,%d,%d] fp32, D=%d, P=%d, lens %s" % (
+            t, 4 * d, d, p, serve["lens"]),
+        "max_abs_err": err_max,
+        "ms": serve["ms"], "plain_ms": serve["plain_ms"],
+        "library_ms": serve["library_ms"],
+        "library_covers": "torch.nn.LSTM(%d, %d, proj_size=%d) (cuDNN) on "
+                          "the frames at full lengths, its input product "
+                          "included, in a CUDA graph; no tanh on its "
+                          "projection and another gate order, so only the "
+                          "time compares" % (ASR["frame"], d, p),
+        "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+        "train_shape": "x [%d,%d,%d]" % (ASR["batch"], t, 4 * d),
+        "train_ms": train["ms"], "train_plain_ms": train["plain_ms"],
+        "train_library_ms": train["library_ms"],
+        "train_bound_ms": train["bound_ms"],
+    }
+    print("kernels: fused_lstmp ms=%.4f plain_ms=%.4f library_ms=%.4f "
+          "bound_ms=%.4f (%s); at %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
+          "bound_ms=%.4f" % (r["ms"], r["plain_ms"], r["library_ms"],
+                             r["bound_ms"], r["bound_by"], r["train_shape"],
+                             train["ms"], train["plain_ms"],
+                             train["library_ms"], train["bound_ms"]))
+    torch.cuda.empty_cache()
+    return {"fused_lstmp": r}
+
+
 # --------------------------------------------------------------- serving --
 
 def run_serving(torch, card, n_layer=N_LAYER):
@@ -1056,6 +1215,7 @@ def profile_step(torch, step, trace_path=None):
         if any(k in low for k in ("flash_fwd", "flash_bwd", "xent_fwd",
                                   "layer_norm_fwd_kernel",
                                   "fused_lstm_fwd_kernel",
+                                  "fused_lstmp_fwd_kernel",
                                   "masked_softmax_fwd_kernel",
                                   "masked_pool_fwd_kernel")):
             groups["port kernels"] += us
@@ -1082,13 +1242,59 @@ def profile_step(torch, step, trace_path=None):
     return busy / 1e3, {k: v / 1e3 for k, v in groups.items()}, n_kernels
 
 
+def train_steps(torch, tag, exe, main, feed, avg_cost, scope, trace_path,
+                tokens, unit):
+    """TRAIN_STEPS steps of `main` on one feed through Executor.run (the
+    numpy fetch of the loss waits for the step's last kernel), the launch
+    counts zeroed just before them and read just after, then one more
+    step under profile_step. Checks every loss finite and the last below
+    the first. Returns (the report's timing, memory, loss and device
+    fields, with `tokens` a step counted as `unit`; the launch counts;
+    the number of counted steps)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    warm, timed = TRAIN_STEPS
+    losses, step_s = [], []
+    ck.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(warm + timed):
+        ts = time.perf_counter()
+        loss, = exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
+        step_s.append(time.perf_counter() - ts)
+        losses.append(float(loss.reshape(-1)[0]))
+    counts = ck.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    busy_ms, groups_ms, n_kernels = profile_step(
+        torch, lambda: exe.run(main, feed=feed, fetch_list=[avg_cost],
+                               scope=scope), trace_path)
+    print("%s losses %s" % (tag, ["%.6f" % x for x in losses]))
+    check(all(np.isfinite(x) for x in losses), "a loss is not finite: %s"
+          % losses)
+    check(losses[-1] < losses[0], "the loss did not fall: %s" % losses)
+    steps = warm + timed
+    times = step_s[warm:]
+    med = statistics.median(times)
+    report = {
+        "steps_timed": timed, "step_ms_median": med * 1e3,
+        "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
+        unit + "_per_s": tokens / med, "peak_mem_bytes": peak,
+        "losses": losses,
+        "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "device_busy_ms": busy_ms, "device_ms_by_group": groups_ms,
+        "device_kernels_per_step": n_kernels,
+        # an estimate: the traced step's device time over the untraced
+        # steps' median wall time (two runs; the trace slows only the host)
+        "idle_share_est": 1 - busy_ms / (med * 1e3),
+    }
+    return report, counts, steps
+
+
 def run_training(torch, card, n_layer=N_LAYER, batch=TRAIN_BATCH,
                  trace_path=None):
     """The training path: Adam + noam steps of Transformer-base on the card
     through Executor.run, on bench.py's copy task (src = trg = random ids in
     [3, V), full length, the same batch every step)."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.ops import cuda_kernels as ck
     from paddle_tpu_torch.models import transformer
 
     vocab, t_max = MODEL["vocab"], MODEL["max_length"]
@@ -1121,52 +1327,20 @@ def run_training(torch, card, n_layer=N_LAYER, batch=TRAIN_BATCH,
     srcs = [rng.randint(3, vocab, t_max).tolist() for _ in range(batch)]
     feed = transformer.prepare_batch(srcs, srcs, t_max, labels=True)
     tokens = int(feed["lbl_weight"].sum())
-    warm, timed = TRAIN_STEPS
-    losses, step_s = [], []
-    # the counts: zero just before the main path, read just after
-    ck.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    for i in range(warm + timed):
-        ts = time.perf_counter()
-        loss, = exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
-        # the numpy fetch waits for the step's last kernel
-        step_s.append(time.perf_counter() - ts)
-        losses.append(float(loss.reshape(-1)[0]))
-    counts = ck.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    steps = warm + timed
-    busy_ms, groups_ms, n_kernels = profile_step(
-        torch, lambda: exe.run(main, feed=feed, fetch_list=[avg_cost],
-                               scope=scope), trace_path)
-    print("training: losses %s" % ["%.6f" % x for x in losses])
+    report, counts, steps = train_steps(torch, "training:", exe, main, feed,
+                                        avg_cost, scope, trace_path, tokens,
+                                        "tokens")
     print("training: launches %s over %d steps (expected per step %s)"
           % (counts, steps, per_step))
     for name, n in per_step.items():
         check(n > 0 and counts[name] == n * steps,
               "%s launched %d times over %d steps, expected %d per step"
               % (name, counts[name], steps, n))
-    check(all(np.isfinite(x) for x in losses), "a loss is not finite: %s"
-          % losses)
-    check(losses[-1] < losses[0], "the loss did not fall: %s" % losses)
     for name, before in frozen.items():
         check(torch.equal(scope.get(name), before),
               "the frozen table %s changed in training" % name)
-    times = step_s[warm:]
-    med = statistics.median(times)
-    training = {
-        "layers": n_layer, "batch": batch, "seq": t_max, "tokens": tokens,
-        "steps_timed": timed, "step_ms_median": med * 1e3,
-        "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
-        "tokens_per_s": tokens / med, "peak_mem_bytes": peak,
-        "first_loss": losses[0], "last_loss": losses[-1],
-        "launches_per_step": {k: v / steps for k, v in counts.items()},
-        "device_busy_ms": busy_ms, "device_ms_by_group": groups_ms,
-        "device_kernels_per_step": n_kernels,
-        # an estimate: the traced step's device time over the untraced
-        # steps' median wall time (two runs; the trace slows only the host)
-        "idle_share_est": 1 - busy_ms / (med * 1e3),
-        "card": card,
-    }
+    training = {"layers": n_layer, "batch": batch, "seq": t_max,
+                "tokens": tokens, **report, "card": card}
     print("training: " + json.dumps(training))
     del scope
     torch.cuda.empty_cache()
@@ -1175,27 +1349,22 @@ def run_training(torch, card, n_layer=N_LAYER, batch=TRAIN_BATCH,
     return counts, expected
 
 
-def run_training_vs_cpu(torch):
-    """One training step of the same program from the same weights on the
-    card and on the CPU (plain versions), at full widths and reduced depth
-    and batch: 1+1 layers, batch 2, T=64 of ragged lengths. Holds the loss,
-    every gradient and every updated parameter against the CPU's."""
+def step_vs_cpu(main, startup, avg_cost, feed, lr, what):
+    """One training step of `main` from the same weights (the CPU startup
+    program's) on the card and on the CPU (plain versions): the loss
+    within LOSS_RTOL relative, every gradient within GRAD_RTOL of its
+    largest value, every parameter within 2 * lr (Adam's first step moves
+    a parameter by about lr whatever its gradient, so a gradient at
+    rounding-noise level may take it the other way on one device)."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.models import transformer
     from paddle_tpu_torch import io as pio
 
-    vocab, t = MODEL["vocab"], 64
-    main, startup, avg_cost = build_train(fluid, transformer, 1, t)
     cpu = fluid.Executor("cpu")
     cpu_scope = fluid.Scope()
     cpu.run(startup, scope=cpu_scope)
     state = {v.name: cpu_scope.get(v.name).numpy().copy()
              for v in main.list_vars() if v.persistable}
     card_scope = pio.scope_from_numpy(state, "cuda", program=main)
-    rng = np.random.RandomState(SEED + 1)
-    srcs = [rng.randint(3, vocab, n).tolist() for n in (t, 37)]
-    trgs = [rng.randint(3, vocab, n).tolist() for n in (50, t)]
-    feed = transformer.prepare_batch(srcs, trgs, t, labels=True)
     grads = sorted(p.name + "@GRAD" for p in main.all_parameters()
                    if p.trainable)
     fetch = [avg_cost.name] + grads
@@ -1206,25 +1375,37 @@ def run_training_vs_cpu(torch):
     grad_err = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
                                                      1e-30)
                    for a, b in zip(got[1:], want[1:]))
-    # Adam with epsilon 1e-9 moves every parameter by about lr * sign(g)
-    # on its first step, so a gradient at rounding-noise level can flip
-    # sign between the two devices: the most that moves a parameter is
-    # 2 * lr of step 1
-    lr1 = MODEL["d_model"] ** -0.5 * WARMUP_STEPS ** -1.5
     param_diff = max(float(np.abs(card_scope.get(name).cpu().numpy()
                                   - cpu_scope.get(name).numpy()).max())
                      for name in state)
-    print("training: one step at 1+1 layers, batch 2, T=%d, card vs CPU: "
-          "loss %.6f vs %.6f (diff %.3e), max gradient error %.3e of its "
-          "max, max parameter diff %.3e (limit 2 * lr = %.3e)"
-          % (t, float(got[0][0]), float(want[0][0]), loss_diff, grad_err,
-             param_diff, 2 * lr1))
+    print("%s, card vs CPU: loss %.6f vs %.6f (diff %.3e), max gradient "
+          "error %.3e of its max, max parameter diff %.3e (limit 2 * lr = "
+          "%.3e)" % (what, float(got[0][0]), float(want[0][0]), loss_diff,
+                     grad_err, param_diff, 2 * lr))
     check(loss_diff <= LOSS_RTOL * abs(float(want[0][0])),
           "card and CPU losses differ by %r" % loss_diff)
     check(grad_err <= GRAD_RTOL, "card and CPU gradients differ by %r of "
           "their max" % grad_err)
-    check(param_diff <= 2 * lr1 * 1.001, "card and CPU parameters differ "
+    check(param_diff <= 2 * lr * 1.001, "card and CPU parameters differ "
           "by %r after one step" % param_diff)
+
+
+def run_training_vs_cpu(torch):
+    """One training step of Transformer-base at full widths and reduced
+    depth and batch (1+1 layers, batch 2, T=64 of ragged lengths) on the
+    card and on the CPU, held by step_vs_cpu; lr is noam's first step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+
+    vocab, t = MODEL["vocab"], 64
+    main, startup, avg_cost = build_train(fluid, transformer, 1, t)
+    rng = np.random.RandomState(SEED + 1)
+    srcs = [rng.randint(3, vocab, n).tolist() for n in (t, 37)]
+    trgs = [rng.randint(3, vocab, n).tolist() for n in (50, t)]
+    feed = transformer.prepare_batch(srcs, trgs, t, labels=True)
+    step_vs_cpu(main, startup, avg_cost, feed,
+                MODEL["d_model"] ** -0.5 * WARMUP_STEPS ** -1.5,
+                "training: one step at 1+1 layers, batch 2, T=%d" % t)
 
 
 # ------------------------------------------------------------- sequences --
@@ -1273,32 +1454,35 @@ def build_sentiment(fluid, kind):
     return main, startup, pred
 
 
-def serve_sentiment(torch, kind, model_dir, requests):
-    """Serve one saved sentiment model: 16 concurrent one-review requests
-    through InferenceEngine(batch_buckets=[1, 4, 8]) with the default seq
-    buckets, warmed over the whole (batch, seq) lattice. Returns the
-    report, the launch counts of the requests' run and the counts it
-    predicts."""
+def serve_lod_model(torch, what, model_dir, requests, answer_shape,
+                    per_dispatch, unit, seq_buckets=SEQ_BUCKETS):
+    """Serve one saved sequence model: the requests, all at once from as
+    many client threads, through InferenceEngine(batch_buckets=[1, 4, 8],
+    seq_buckets=seq_buckets) warmed over its (batch, seq) lattice. Checks
+    every answer finite, of answer_shape(bucket) and summing to 1 over its
+    last axis (per review, or per frame); each equal to run_direct at its
+    recorded bucket (<= BUCKET_TOL); request 0 against the CPU at the
+    same seq bucket (<= SEQ_CPU_TOL). per_dispatch(ops) gives the kernel
+    launches one dispatch of the program predicts; `unit` names what a
+    request's sequence holds in the report. Returns the report, the
+    launch counts of the requests' run and the counts predicted."""
     from paddle_tpu_torch.ops import cuda_kernels as ck
     from paddle_tpu_torch.serving import InferenceEngine
 
     n = len(requests)
     t0 = time.perf_counter()
-    engine = InferenceEngine(model_dir, batch_buckets=[1, 4, 8])
+    engine = InferenceEngine(model_dir, batch_buckets=[1, 4, 8],
+                             seq_buckets=seq_buckets)
     torch.cuda.synchronize()
-    ops = engine.program.global_block().ops
-    n_lstm = sum(op.type == "lstm" for op in ops)
-    n_pool = sum(op.type == "sequence_pool" and op.attrs.get("pooltype")
-                 in ck.POOL_TYPES for op in ops)
+    per = per_dispatch(engine.program.global_block().ops)
     try:
-        check(engine.seq_buckets == SEQ_BUCKETS,
-              "the engine's seq buckets are %s, expected the default %s"
-              % (engine.seq_buckets, SEQ_BUCKETS))
-        print("sequences: %s engine loaded and warmed up over its %d "
-              "(batch, seq) buckets in %.1f s; %d lstm and %d linear "
-              "sequence_pool ops per dispatch"
-              % (kind, len(engine.batch_buckets) * len(SEQ_BUCKETS),
-                 time.perf_counter() - t0, n_lstm, n_pool))
+        check(engine.seq_buckets == seq_buckets,
+              "the engine's seq buckets are %s, expected %s"
+              % (engine.seq_buckets, seq_buckets))
+        print("%s engine loaded and warmed up over its %d (batch, seq) "
+              "buckets in %.1f s; launches predicted per dispatch %s"
+              % (what, len(engine.batch_buckets) * len(seq_buckets),
+                 time.perf_counter() - t0, per))
         answers, latencies, futures = [None] * n, [None] * n, [None] * n
         errors = []
         barrier = threading.Barrier(n)
@@ -1330,18 +1514,18 @@ def serve_sentiment(torch, kind, model_dir, requests):
         snap = engine.metrics.snapshot()
         check(not any(th.is_alive() for th in threads),
               "a client thread did not finish")
-        check(not errors, "%s requests failed: %s" % (kind, errors))
+        check(not errors, "%s requests failed: %s" % (what, errors))
         batches = snap["batches_total"] - batches0
         expected = dict.fromkeys(counts, 0)
-        expected.update(fused_lstm=n_lstm * batches,
-                        masked_pool=n_pool * batches)
-        print("sequences: %s launches %s over %d engine dispatches"
-              % (kind, counts, batches))
+        expected.update({k: v * batches for k, v in per.items()})
+        print("%s launches %s over %d engine dispatches"
+              % (what, counts, batches))
         for i, a in enumerate(answers):
-            check(a.shape == (1, SENTIMENT["classes"])
-                  and np.isfinite(a).all()
-                  and abs(float(a.sum()) - 1.0) <= 1e-5,
-                  "%s answer %d: %r" % (kind, i, a))
+            sum_err = float(np.abs(a.sum(axis=-1) - 1.0).max())
+            check(a.shape == answer_shape(futures[i].bucket)
+                  and np.isfinite(a).all() and sum_err <= 1e-5,
+                  "%s answer %d: shape %s, finite %s, max |sum - 1| %r"
+                  % (what, i, a.shape, np.isfinite(a).all(), sum_err))
         bucket_diff = 0.0
         for i, fut in enumerate(futures):
             direct, bucket = engine.run_direct(
@@ -1351,40 +1535,49 @@ def serve_sentiment(torch, kind, model_dir, requests):
                   "recorded %s" % (bucket, fut.bucket))
             bucket_diff = max(bucket_diff, float(np.abs(
                 direct[fetch] - answers[i]).max()))
-        print("sequences: %s coalesced vs run_direct at the same (batch, "
-              "seq) bucket: max diff %.3e (buckets %s)"
-              % (kind, bucket_diff, sorted(set(f.bucket for f in futures))))
+        print("%s coalesced vs run_direct at the same (batch, seq) bucket: "
+              "max diff %.3e (buckets %s)"
+              % (what, bucket_diff, sorted(set(f.bucket for f in futures))))
         check(bucket_diff <= BUCKET_TOL, "%s coalesced answers differ from "
-              "run_direct by %r" % (kind, bucket_diff))
+              "run_direct by %r" % (what, bucket_diff))
     finally:
         engine.close()
 
     t0 = time.perf_counter()
     cpu = InferenceEngine(model_dir, device="cpu", batch_buckets=[1],
-                          warmup=False)
+                          seq_buckets=seq_buckets, warmup=False)
     try:
-        ref = cpu.run_direct(requests[0])[0][fetch]
+        ref = cpu.run_direct(requests[0],
+                             seq_bucket=futures[0].bucket[1])[0][fetch]
     finally:
         cpu.close()
     cpu_diff = float(np.abs(ref - answers[0]).max())
-    print("sequences: %s request 0 on the card vs on the CPU (plain "
-          "versions, same weights): max diff %.3e (%.1f s)"
-          % (kind, cpu_diff, time.perf_counter() - t0))
+    print("%s request 0 on the card vs on the CPU (plain versions, same "
+          "weights): max diff %.3e (%.1f s)"
+          % (what, cpu_diff, time.perf_counter() - t0))
     check(cpu_diff <= SEQ_CPU_TOL, "%s: card and CPU disagree by %r"
-          % (kind, cpu_diff))
-    tokens = sum(len(r["words"][0]) for r in requests)
+          % (what, cpu_diff))
+    tokens = sum(len(next(iter(r.values()))[0]) for r in requests)
     lat_ms = sorted(x * 1e3 for x in latencies)
     report = {
-        "model": kind, "requests": n, "batches": batches,
+        "requests": n, "batches": batches,
         "occupancy": snap["mean_batch_occupancy"],
         "row_utilization": snap["row_utilization"],
         "p50_ms": float(np.percentile(lat_ms, 50)),
         "p99_ms": float(np.percentile(lat_ms, 99)),
-        "wall_s": wall, "review_tokens": tokens,
-        "review_tokens_per_s": tokens / wall,
+        "wall_s": wall, unit: tokens, unit + "_per_s": tokens / wall,
         "bucket_max_diff": bucket_diff, "cpu_max_diff": cpu_diff,
     }
     return report, counts, expected
+
+
+def sentiment_launches(ops):
+    """K6 once per lstm op, K9 once per linear sequence_pool op."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    return {"fused_lstm": sum(op.type == "lstm" for op in ops),
+            "masked_pool": sum(op.type == "sequence_pool"
+                               and op.attrs.get("pooltype") in ck.POOL_TYPES
+                               for op in ops)}
 
 
 def run_sequence_serving(torch, card):
@@ -1411,8 +1604,11 @@ def run_sequence_serving(torch, card):
             del scope
             print("sequences: built, initialized and saved the %s sentiment "
                   "model in %.1f s" % (kind, time.perf_counter() - t0))
-            report, c, e = serve_sentiment(torch, kind, model_dir, requests)
-        report["card"] = card
+            report, c, e = serve_lod_model(
+                torch, "sequences: " + kind, model_dir, requests,
+                lambda bucket: (1, SENTIMENT["classes"]), sentiment_launches,
+                "review_tokens")
+        report.update(model=kind, card=card)
         print("sequences: serving " + json.dumps(report))
         for k in c:
             counts[k] = counts.get(k, 0) + c[k]
@@ -1445,7 +1641,6 @@ def run_sequence_training(torch, card, trace_path=None):
     128 x T=64 of random ids from a seed, the same batch every step,
     through Executor.run. Returns the launch counts and predictions."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.ops import cuda_kernels as ck
 
     cfg = SEQ_TRAIN
     t0 = time.perf_counter()
@@ -1468,42 +1663,13 @@ def run_sequence_training(torch, card, trace_path=None):
             for _ in range(cfg["batch"])]
     feed = {"words": fluid.LoDTensor.from_sequences(seqs),
             "label": rng.randint(0, 2, (cfg["batch"], 1)).astype("int64")}
-    warm, timed = TRAIN_STEPS
-    losses, step_s = [], []
-    ck.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(warm + timed):
-        ts = time.perf_counter()
-        loss, = exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
-        step_s.append(time.perf_counter() - ts)
-        losses.append(float(loss.reshape(-1)[0]))
-    counts = ck.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    steps = warm + timed
-    busy_ms, groups_ms, n_kernels = profile_step(
-        torch, lambda: exe.run(main, feed=feed, fetch_list=[avg_cost],
-                               scope=scope), trace_path)
-    print("sequences: training losses %s" % ["%.6f" % x for x in losses])
-    check(all(np.isfinite(x) for x in losses), "a loss is not finite: %s"
-          % losses)
-    check(losses[-1] < losses[0], "the loss did not fall: %s" % losses)
-    times = step_s[warm:]
-    med = statistics.median(times)
-    tokens = cfg["batch"] * cfg["seq"]
-    report = {
-        "layers": cfg["stacked"], "hid": cfg["hid"], "batch": cfg["batch"],
-        "seq": cfg["seq"], "steps_timed": timed,
-        "step_ms_median": med * 1e3, "step_ms_min": min(times) * 1e3,
-        "step_ms_max": max(times) * 1e3,
-        # bench.py's count: batch x T tokens per step
-        "tokens_per_s": tokens / med, "peak_mem_bytes": peak,
-        "first_loss": losses[0], "last_loss": losses[-1],
-        "launches_per_step": {k: v / steps for k, v in counts.items()},
-        "device_busy_ms": busy_ms, "device_ms_by_group": groups_ms,
-        "device_kernels_per_step": n_kernels,
-        "idle_share_est": 1 - busy_ms / (med * 1e3),
-        "card": card,
-    }
+    # bench.py's count: batch x T tokens per step
+    report, counts, steps = train_steps(
+        torch, "sequences: training", exe, main, feed, avg_cost, scope,
+        trace_path, cfg["batch"] * cfg["seq"], "tokens")
+    report = {"layers": cfg["stacked"], "hid": cfg["hid"],
+              "batch": cfg["batch"], "seq": cfg["seq"], **report,
+              "card": card}
     print("sequences: training " + json.dumps(report))
     del scope
     torch.cuda.empty_cache()
@@ -1514,53 +1680,22 @@ def run_sequence_training(torch, card, trace_path=None):
 
 def run_sequence_training_vs_cpu(torch):
     """One training step of the stacked LSTM at full widths and 1 layer,
-    batch 4 of ragged lengths 1-16, from the same weights on the card and
-    on the CPU (plain versions): loss within 1e-4 relative, every gradient
-    within 1e-3 of its largest value, every parameter within 2 * lr (Adam
-    moves a parameter by about lr whatever its gradient, so a gradient at
-    rounding-noise level may take it the other way on one device)."""
+    batch 4 of ragged lengths 1-16, on the card and on the CPU, held by
+    step_vs_cpu."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch import io as pio
 
     cfg = SEQ_TRAIN
     main, startup, avg_cost = build_sentiment_train(fluid, 1, cfg["vocab"],
                                                     cfg["hid"])
-    cpu = fluid.Executor("cpu")
-    cpu_scope = fluid.Scope()
-    cpu.run(startup, scope=cpu_scope)
-    state = {v.name: cpu_scope.get(v.name).numpy().copy()
-             for v in main.list_vars() if v.persistable}
-    card_scope = pio.scope_from_numpy(state, "cuda", program=main)
     rng = np.random.RandomState(SEED + 4)
     lens = [16, 1, 9, 5]
     seqs = [rng.randint(1, cfg["vocab"], (n, 1)).astype("int64")
             for n in lens]
     feed = {"words": fluid.LoDTensor.from_sequences(seqs),
             "label": rng.randint(0, 2, (len(lens), 1)).astype("int64")}
-    grads = sorted(p.name + "@GRAD" for p in main.all_parameters()
-                   if p.trainable)
-    fetch = [avg_cost.name] + grads
-    got = fluid.Executor().run(main, feed=feed, fetch_list=fetch,
-                               scope=card_scope)
-    want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
-    loss_diff = abs(float(got[0][0]) - float(want[0][0]))
-    grad_err = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
-                                                     1e-30)
-                   for a, b in zip(got[1:], want[1:]))
-    param_diff = max(float(np.abs(card_scope.get(name).cpu().numpy()
-                                  - cpu_scope.get(name).numpy()).max())
-                     for name in state)
-    print("sequences: one step at 1 layer, batch 4, lengths %s, card vs "
-          "CPU: loss %.6f vs %.6f (diff %.3e), max gradient error %.3e of "
-          "its max, max parameter diff %.3e (limit 2 * lr = %.3e)"
-          % (lens, float(got[0][0]), float(want[0][0]), loss_diff, grad_err,
-             param_diff, 2 * cfg["lr"]))
-    check(loss_diff <= LOSS_RTOL * abs(float(want[0][0])),
-          "card and CPU losses differ by %r" % loss_diff)
-    check(grad_err <= GRAD_RTOL, "card and CPU gradients differ by %r of "
-          "their max" % grad_err)
-    check(param_diff <= 2 * cfg["lr"] * 1.001, "card and CPU parameters "
-          "differ by %r after one step" % param_diff)
+    step_vs_cpu(main, startup, avg_cost, feed, cfg["lr"],
+                "sequences: one step at 1 layer, batch 4, lengths %s"
+                % lens)
 
 
 # ----------------------------------------------------------- translation --
@@ -1604,7 +1739,6 @@ def run_translation_training(torch, card, trace_path=None):
     benchmark's widths, Adam steps on one batch through Executor.run.
     Returns the launch counts and the counts it predicts."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.ops import cuda_kernels as ck
 
     t0 = time.perf_counter()
     main, startup, avg_cost = build_mt_train(fluid, MT)
@@ -1625,42 +1759,13 @@ def run_translation_training(torch, card, trace_path=None):
     feed, tokens = mt_feed(fluid, MT, SEED)
     # the decoder runs one step per padded target step
     t_pad = feed["target_language_word"].to_padded()[0].shape[1]
-    warm, timed = TRAIN_STEPS
-    losses, step_s = [], []
-    ck.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(warm + timed):
-        ts = time.perf_counter()
-        loss, = exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
-        step_s.append(time.perf_counter() - ts)
-        losses.append(float(loss.reshape(-1)[0]))
-    counts = ck.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    steps = warm + timed
-    busy_ms, groups_ms, n_kernels = profile_step(
-        torch, lambda: exe.run(main, feed=feed, fetch_list=[avg_cost],
-                               scope=scope), trace_path)
-    print("translation: training losses %s" % ["%.6f" % x for x in losses])
-    check(all(np.isfinite(x) for x in losses), "a loss is not finite: %s"
-          % losses)
-    check(losses[-1] < losses[0], "the loss did not fall: %s" % losses)
-    times = step_s[warm:]
-    med = statistics.median(times)
-    report = {
-        "dict_size": MT["dict_size"], "widths": [MT["word"], MT["hidden"],
-                                                 MT["decoder"]],
-        "batch": MT["batch"], "decoder_steps": t_pad,
-        "target_tokens": tokens, "steps_timed": timed,
-        "step_ms_median": med * 1e3, "step_ms_min": min(times) * 1e3,
-        "step_ms_max": max(times) * 1e3,
-        "target_tokens_per_s": tokens / med, "peak_mem_bytes": peak,
-        "losses": losses,
-        "launches_per_step": {k: v / steps for k, v in counts.items()},
-        "device_busy_ms": busy_ms, "device_ms_by_group": groups_ms,
-        "device_kernels_per_step": n_kernels,
-        "idle_share_est": 1 - busy_ms / (med * 1e3),
-        "card": card,
-    }
+    report, counts, steps = train_steps(
+        torch, "translation: training", exe, main, feed, avg_cost, scope,
+        trace_path, tokens, "target_tokens")
+    report = {"dict_size": MT["dict_size"],
+              "widths": [MT["word"], MT["hidden"], MT["decoder"]],
+              "batch": MT["batch"], "decoder_steps": t_pad,
+              "target_tokens": tokens, **report, "card": card}
     print("translation: training " + json.dumps(report))
     del scope
     torch.cuda.empty_cache()
@@ -1671,49 +1776,164 @@ def run_translation_training(torch, card, trace_path=None):
 
 def run_translation_training_vs_cpu(torch):
     """One training step of the attention translator at dictionary 200,
-    widths 32, batch 4 and lengths 1-12, from the same weights on the card
-    and on the CPU (plain versions): loss within 1e-4 relative, every
-    gradient within 1e-3 of its largest value, every parameter within 2 *
-    lr (Adam's first step moves a parameter by about lr whatever its
-    gradient)."""
+    widths 32, batch 4 and lengths 1-12 on the card and on the CPU, held
+    by step_vs_cpu."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch import io as pio
 
     cfg = MT_SMALL
     main, startup, avg_cost = build_mt_train(fluid, cfg)
-    cpu = fluid.Executor("cpu")
-    cpu_scope = fluid.Scope()
-    cpu.run(startup, scope=cpu_scope)
-    state = {v.name: cpu_scope.get(v.name).numpy().copy()
-             for v in main.list_vars() if v.persistable}
-    card_scope = pio.scope_from_numpy(state, "cuda", program=main)
     feed, _ = mt_feed(fluid, cfg, SEED + 6)
-    grads = sorted(p.name + "@GRAD" for p in main.all_parameters()
-                   if p.trainable)
-    fetch = [avg_cost.name] + grads
-    got = fluid.Executor().run(main, feed=feed, fetch_list=fetch,
-                               scope=card_scope)
-    want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
-    loss_diff = abs(float(got[0][0]) - float(want[0][0]))
-    grad_err = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
-                                                     1e-30)
-                   for a, b in zip(got[1:], want[1:]))
-    param_diff = max(float(np.abs(card_scope.get(name).cpu().numpy()
-                                  - cpu_scope.get(name).numpy()).max())
-                     for name in state)
-    print("translation: one step at dictionary %d, widths %d, batch %d, "
-          "lengths %d-%d, card vs CPU: loss %.6f vs %.6f (diff %.3e), max "
-          "gradient error %.3e of its max, max parameter diff %.3e (limit "
-          "2 * lr = %.3e)" % (cfg["dict_size"], cfg["word"], cfg["batch"],
-                              cfg["min_len"], cfg["max_len"],
-                              float(got[0][0]), float(want[0][0]), loss_diff,
-                              grad_err, param_diff, 2 * cfg["lr"]))
-    check(loss_diff <= LOSS_RTOL * abs(float(want[0][0])),
-          "card and CPU losses differ by %r" % loss_diff)
-    check(grad_err <= GRAD_RTOL, "card and CPU gradients differ by %r of "
-          "their max" % grad_err)
-    check(param_diff <= 2 * cfg["lr"] * 1.001, "card and CPU parameters "
-          "differ by %r after one step" % param_diff)
+    step_vs_cpu(main, startup, avg_cost, feed, cfg["lr"],
+                "translation: one step at dictionary %d, widths %d, batch "
+                "%d, lengths %d-%d" % (cfg["dict_size"], cfg["word"],
+                                       cfg["batch"], cfg["min_len"],
+                                       cfg["max_len"]))
+
+
+# -------------------------------------------------------------- acoustic --
+
+def stacked_lstmp_net(fluid, frames, hidden=1024, proj=512, layers=5,
+                      classes=1749):
+    """DeepASR's stacked_lstmp_model without its batch_norm layers and
+    with use_peepholes=False: per layer fc(4 * hidden) and dynamic_lstmp
+    (projection proj, tanh), then a per-frame softmax over the classes."""
+    x = frames
+    for _ in range(layers):
+        fc = fluid.layers.fc(input=x, size=hidden * 4)
+        x, _ = fluid.layers.dynamic_lstmp(
+            input=fc, size=hidden * 4, proj_size=proj, use_peepholes=False,
+            cell_activation="tanh", proj_activation="tanh")
+    return fluid.layers.fc(input=x, size=classes, act="softmax")
+
+
+def build_acoustic(fluid, cfg, train):
+    """The acoustic model at cfg's widths. Serving: (main, startup,
+    per-frame posteriors). Training: cross_entropy against per-frame
+    labels, the length-masked mean (padding frames count for nothing, as
+    in DeepASR's LoD mean) and Adam at cfg["lr"]: (main, startup,
+    avg_cost)."""
+    from paddle_tpu_torch.models.common import masked_mean_cost
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        frames = fluid.layers.data(name="frames", shape=[cfg["frame"]],
+                                   dtype="float32", lod_level=1)
+        pred = stacked_lstmp_net(fluid, frames, cfg["hidden"], cfg["proj"],
+                                 cfg["layers"], cfg["classes"])
+        if not train:
+            return main, startup, pred
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64",
+                                  lod_level=1)
+        cost = fluid.layers.cross_entropy(input=pred, label=label)
+        avg_cost = masked_mean_cost(cost, label, pred)
+        fluid.optimizer.Adam(learning_rate=cfg["lr"]).minimize(avg_cost)
+    return main, startup, avg_cost
+
+
+def asr_feed(fluid, cfg, lens, seed):
+    """Frames N(0, 1) [len, frame] and random class ids per frame."""
+    rng = np.random.RandomState(seed)
+    frames = [rng.randn(n, cfg["frame"]).astype("float32") for n in lens]
+    labels = [rng.randint(0, cfg["classes"], (n, 1)).astype("int64")
+              for n in lens]
+    lod = fluid.LoDTensor.from_sequences
+    return {"frames": lod(frames), "label": lod(labels)}
+
+
+def run_acoustic_serving(torch, card):
+    """The acoustic path's serving half: the 5-layer stacked-LSTMP model
+    at DeepASR's widths, initialized on the card from SEED, saved and
+    served with float LoD frame feeds (16 concurrent one-utterance
+    requests of 100-500 frames, per-frame posteriors). Returns the launch
+    counts and the counts it predicts."""
+    import paddle_tpu_torch as fluid
+
+    t0 = time.perf_counter()
+    main, startup, pred = build_acoustic(fluid, ASR, train=False)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(scope.get(p.name).shape))
+                   for p in main.all_parameters())
+    rng = np.random.RandomState(SEED + 8)
+    requests = [{"frames": [rng.randn(int(n), ASR["frame"]).astype(
+        "float32")]} for n in rng.randint(ASR_SERVE_LENS[0],
+                                          ASR_SERVE_LENS[1] + 1, size=16)]
+    with tempfile.TemporaryDirectory(prefix="ptt_smoke_") as model_dir:
+        fluid.io.save_inference_model(model_dir, ["frames"], [pred], exe,
+                                      main, scope=scope)
+        del scope
+        print("acoustic: built, initialized and saved the stacked-LSTMP "
+              "model (%d layers, hidden %d, proj %d, %d classes, %d "
+              "parameters) in %.1f s"
+              % (ASR["layers"], ASR["hidden"], ASR["proj"], ASR["classes"],
+                 n_params, time.perf_counter() - t0))
+        report, counts, expected = serve_lod_model(
+            torch, "acoustic:", model_dir, requests,
+            lambda bucket: (1, bucket[1], ASR["classes"]),
+            lambda ops: {"fused_lstmp": sum(op.type == "lstmp"
+                                            for op in ops)},
+            "frames", seq_buckets=ASR_SEQ_BUCKETS)
+    report["card"] = card
+    print("acoustic: serving " + json.dumps(report))
+    return counts, expected
+
+
+def run_acoustic_training(torch, card, trace_path=None):
+    """The acoustic path's training half: the stacked-LSTMP model at
+    DeepASR's widths, Adam steps on one batch of 32 utterances (150-500
+    frames, one at 500) through Executor.run. Returns the launch counts
+    and the counts it predicts."""
+    import paddle_tpu_torch as fluid
+
+    t0 = time.perf_counter()
+    main, startup, avg_cost = build_acoustic(fluid, ASR, train=True)
+    ops = main.global_block().ops
+    n_lstmp = sum(op.type == "lstmp" for op in ops)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(scope.get(p.name).shape))
+                   for p in main.all_parameters())
+    print("acoustic: built the training program (%d parameters, %d ops) "
+          "and ran its startup program in %.1f s"
+          % (n_params, len(ops), time.perf_counter() - t0))
+    rng = np.random.RandomState(SEED + 9)
+    lens = rng.randint(ASR["min_len"], ASR["max_len"] + 1, size=ASR["batch"])
+    lens[0] = ASR["max_len"]
+    feed = asr_feed(fluid, ASR, lens, SEED + 10)
+    frames = int(lens.sum())
+    report, counts, steps = train_steps(
+        torch, "acoustic: training", exe, main, feed, avg_cost, scope,
+        trace_path, frames, "frames")
+    report = {"layers": ASR["layers"], "hidden": ASR["hidden"],
+              "proj": ASR["proj"], "classes": ASR["classes"],
+              "batch": ASR["batch"], "max_frames": int(lens.max()),
+              "frames": frames, "lr": ASR["lr"], **report, "card": card}
+    print("acoustic: training " + json.dumps(report))
+    del scope
+    torch.cuda.empty_cache()
+    expected = dict.fromkeys(counts, 0)
+    expected["fused_lstmp"] = n_lstmp * steps
+    return counts, expected
+
+
+def run_acoustic_training_vs_cpu(torch):
+    """One training step of the acoustic model at 2 layers, hidden 8,
+    proj 4 (frame and class widths kept), batch 4 and lengths 1-12 on the
+    card and on the CPU, held by step_vs_cpu."""
+    import paddle_tpu_torch as fluid
+
+    cfg = ASR_SMALL
+    main, startup, avg_cost = build_acoustic(fluid, cfg, train=True)
+    lens = [12, 1, 9, 5]
+    step_vs_cpu(main, startup, avg_cost,
+                asr_feed(fluid, cfg, lens, SEED + 11), cfg["lr"],
+                "acoustic: one step at %d layers, hidden %d, proj %d, batch "
+                "%d, lengths %s" % (cfg["layers"], cfg["hidden"],
+                                    cfg["proj"], cfg["batch"], lens))
 
 
 def main(argv=None):
@@ -1724,8 +1944,9 @@ def main(argv=None):
     ap.add_argument("--trace", metavar="PATH",
                     help="keep the traced Transformer training step's "
                     "chrome trace here, the stacked LSTM's beside it as "
-                    "<PATH stem>_sequences.json and the translator's as "
-                    "<PATH stem>_translation.json")
+                    "<PATH stem>_sequences.json, the translator's as "
+                    "<PATH stem>_translation.json and the acoustic "
+                    "model's as <PATH stem>_acoustic.json")
     args = ap.parse_args(argv)
 
     import torch
@@ -1753,6 +1974,7 @@ def main(argv=None):
     kernels = run_kernels(torch, ck, peak_flops, peak_bw)
     kernels.update(run_sequence_kernels(torch, ck, peak_flops, peak_bw))
     kernels.update(run_translation_kernels(torch, ck, peak_flops, peak_bw))
+    kernels.update(run_acoustic_kernels(torch, ck, peak_flops, peak_bw))
     if args.only == "all":
         stem = args.trace and os.path.splitext(args.trace)[0]
         # each path: the launch counts of its run and the counts it
@@ -1770,6 +1992,11 @@ def main(argv=None):
         paths.append(("translation_training", run_translation_training(
             torch, card, trace_path=stem and stem + "_translation.json")))
         run_translation_training_vs_cpu(torch)
+        paths += [("acoustic_serving", run_acoustic_serving(torch, card)),
+                  ("acoustic_training", run_acoustic_training(
+                      torch, card,
+                      trace_path=stem and stem + "_acoustic.json"))]
+        run_acoustic_training_vs_cpu(torch)
         for path, (counts, expected) in paths:
             for kname, n in expected.items():
                 check(counts[kname] == n, "%s: %s launched %d times, "

@@ -1,5 +1,6 @@
 """Layer functions (the subset models/transformer.py, its training graph,
-models/understand_sentiment.py and models/machine_translation.py call)."""
+models/understand_sentiment.py, models/machine_translation.py and a
+stacked dynamic_lstmp acoustic model call)."""
 from .io import data  # noqa: F401
 from .nn import (accuracy, autoincreased_step_counter,  # noqa: F401
                  cross_entropy, embedding, fc, fused_attention, layer_norm,
@@ -8,7 +9,8 @@ from .nn import (accuracy, autoincreased_step_counter,  # noqa: F401
 from .ops import (elementwise_add, elementwise_div, elementwise_min,  # noqa: F401
                   elementwise_mul, elementwise_pow, elementwise_sub, mean,
                   mul, relu, reshape, scale, squeeze, tanh, unsqueeze)
-from .sequence import (dynamic_lstm, sequence_conv,  # noqa: F401
+from .sequence import (dynamic_lstm, dynamic_lstmp,  # noqa: F401
+                       sequence_conv,
                        sequence_first_step, sequence_last_step,
                        sequence_pool, sequence_softmax)
 from .control_flow import DynamicRNN, StaticRNN  # noqa: F401

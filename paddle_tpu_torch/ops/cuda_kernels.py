@@ -9,21 +9,22 @@ library with a plain C interface (`build()`), loaded with ctypes.
 Beside each kernel:
   * a wrapper (`flash_attention_fwd`, `flash_attention_bwd_dkdv`,
     `flash_attention_bwd_dq`, `softmax_xent_fwd`, `layer_norm_fwd`,
-    `fused_lstm`, `masked_softmax`, `masked_pool`) whose dispatch rule is
-    the tensor's device: `meta` returns empty outputs of the right shape
-    (build-time shape inference), `cpu` runs the plain version, `cuda`
-    launches the kernel or raises. Nothing falls back;
+    `fused_lstm`, `fused_lstmp`, `masked_softmax`, `masked_pool`) whose
+    dispatch rule is the tensor's device: `meta` returns empty outputs of
+    the right shape (build-time shape inference), `cpu` runs the plain
+    version, `cuda` launches the kernel or raises. Nothing falls back;
   * a plain PyTorch version (`*_plain`) of the same function — what the
     CPU runs, and what the card's kernel is held against;
   * a launch counter (`wrapper.launches`), raised by one exactly where the
     kernel is launched, so a run can show the main path went through it.
 
-Gradients: six torch.autograd.Functions mirror the JAX package's
+Gradients: seven torch.autograd.Functions mirror the JAX package's
 custom_vjps — `FlashAttention` (forward K1, backward K2 + K3, as
 `_flash_core`), `LayerNorm` (forward K5, backward in torch, as
 `_ln_core_bwd`), `SoftmaxXent` (forward K4, backward in torch, as
 `_xent_core_bwd`), `FusedLSTM` (forward K6, backward the saved-state
-reverse scan in torch, as `_lstm_seq_core_bwd`), `MaskedSoftmax` (forward
+reverse scan in torch, as `_lstm_seq_core_bwd`), `FusedLSTMP` (forward
+K7, backward likewise, as `_lstmp_seq_core_bwd`), `MaskedSoftmax` (forward
 K8, backward in torch, as `_masked_softmax_core_bwd`) and `MaskedPool`
 (forward K9, backward in torch, as `_masked_pool_core_bwd`).
 """
@@ -43,10 +44,11 @@ __all__ = ["build", "flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
            "softmax_xent_fwd", "softmax_xent_fwd_plain",
            "layer_norm_fwd", "layer_norm_fwd_plain", "fused_lstm",
-           "fused_lstm_plain", "fused_lstm_bwd", "masked_softmax",
+           "fused_lstm_plain", "fused_lstm_bwd", "fused_lstmp",
+           "fused_lstmp_plain", "fused_lstmp_bwd", "masked_softmax",
            "masked_softmax_plain", "masked_pool", "masked_pool_plain",
            "FlashAttention", "LayerNorm", "SoftmaxXent", "FusedLSTM",
-           "MaskedSoftmax", "MaskedPool", "launch_counts",
+           "FusedLSTMP", "MaskedSoftmax", "MaskedPool", "launch_counts",
            "reset_launch_counts", "FLASH_HEAD_DIMS", "POOL_TYPES"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,7 +56,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
            "softmax_xent_fwd.cu", "layer_norm_fwd.cu", "fused_lstm_fwd.cu",
-           "masked_softmax_fwd.cu", "masked_pool_fwd.cu")
+           "fused_lstmp_fwd.cu", "masked_softmax_fwd.cu",
+           "masked_pool_fwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -179,6 +182,8 @@ def _bind(lib):
     lib.ptt_layer_norm_fwd.restype = I
     lib.ptt_fused_lstm_fwd.argtypes = [P, L, L] + [P] * 7 + [I] * 4 + [P]
     lib.ptt_fused_lstm_fwd.restype = I
+    lib.ptt_fused_lstmp_fwd.argtypes = [P, L, L] + [P] * 8 + [I] * 5 + [P]
+    lib.ptt_fused_lstmp_fwd.restype = I
     lib.ptt_masked_softmax_fwd.argtypes = [P, L, P, P, I, I, P]
     lib.ptt_masked_softmax_fwd.restype = I
     lib.ptt_masked_pool_fwd.argtypes = [P, L, L, P, P, I, I, I, I, P]
@@ -193,7 +198,7 @@ def _count(wrapper):
 def _counted():
     return (flash_attention_fwd, flash_attention_bwd_dkdv,
             flash_attention_bwd_dq, softmax_xent_fwd, layer_norm_fwd,
-            fused_lstm, masked_softmax, masked_pool)
+            fused_lstm, fused_lstmp, masked_softmax, masked_pool)
 
 
 def launch_counts():
@@ -662,6 +667,22 @@ def _lstm_args(x, w, b, h0, c0, lens):
     return bsz, t, d
 
 
+def _cell_step(gates, c, peepholes, gate_act, cell_act, cand_act):
+    """One step of the LSTM cell (lstm_op.h) from its gate pre-activations
+    [B, 4D] in the order {candidate, input, forget, output} and c_prev
+    [B, D]; peepholes [3, D] (w_ic, w_fc, w_oc) or None. Returns (c_new,
+    h_new)."""
+    gc, gi, gf, go = gates.chunk(4, dim=-1)
+    if peepholes is not None:
+        w_ic, w_fc, w_oc = peepholes
+        gi = gi + c * w_ic
+        gf = gf + c * w_fc
+    c_new = gate_act(gf) * c + gate_act(gi) * cand_act(gc)
+    if peepholes is not None:
+        go = go + c_new * w_oc
+    return c_new, gate_act(go) * cell_act(c_new)
+
+
 def fused_lstm_plain(x, w, b, h0=None, c0=None, lens=None, reverse=False,
                      peepholes=None, acts=(torch.sigmoid, torch.tanh,
                                            torch.tanh),
@@ -675,27 +696,19 @@ def fused_lstm_plain(x, w, b, h0=None, c0=None, lens=None, reverse=False,
     [3D] (w_ic, w_fc, w_oc, added as lstm_op.h adds them), other
     (gate, cell, candidate) activations and another state dtype."""
     bsz, t, d = _lstm_args(x, w, b, h0, c0, lens)
-    gate_act, cell_act, cand_act = acts
     xf, wf, bf = x.to(dtype), w.to(dtype), b.reshape(-1).to(dtype)
     h = torch.zeros((bsz, d), dtype=dtype, device=x.device) \
         if h0 is None else h0.to(dtype)
     c = torch.zeros_like(h) if c0 is None else c0.to(dtype)
     if peepholes is not None:
-        w_ic, w_fc, w_oc = peepholes.reshape(3, d).to(dtype)
+        peepholes = peepholes.reshape(3, d).to(dtype)
     m = step_mask(lens, bsz, t, x.device, dtype)
     hidden = torch.empty((bsz, t, d), dtype=dtype, device=x.device)
     cell = torch.empty_like(hidden)
     for k in range(t):
         s = t - 1 - k if reverse else k
-        gates = xf[:, s] + h @ wf + bf
-        gc, gi, gf, go = torch.split(gates, d, dim=-1)
-        if peepholes is not None:
-            gi = gi + c * w_ic
-            gf = gf + c * w_fc
-        c_new = gate_act(gf) * c + gate_act(gi) * cand_act(gc)
-        if peepholes is not None:
-            go = go + c_new * w_oc
-        h_new = gate_act(go) * cell_act(c_new)
+        c_new, h_new = _cell_step(xf[:, s] + h @ wf + bf, c, peepholes,
+                                  *acts)
         ms = m[:, s:s + 1]
         h = ms * h_new + (1 - ms) * h
         c = ms * c_new + (1 - ms) * c
@@ -763,6 +776,43 @@ def fused_lstm(x, w, b, h0=None, c0=None, lens=None, reverse=False):
 fused_lstm.launches = 0
 
 
+def _walk(a, reverse):
+    """[B, T, ...] -> [T, B, ...] fp32, in the order the recurrence walks
+    the steps."""
+    a = a.float().transpose(0, 1)
+    return a.flip(0) if reverse else a
+
+
+def _entering(first, walked):
+    """The state entering each step, [T, B, ...]: `first` (or zeros when
+    None), then every step's output but the last."""
+    if first is None:
+        first = torch.zeros_like(walked[0])
+    return torch.cat([first.float()[None], walked[:-1]], dim=0)
+
+
+def _cell_terms(xs, s_prev, c_prev, w, b):
+    """The LSTM cell of every step at once, from its gate inputs xs [T, B,
+    4D], the saved recurrent state s_prev [T, B, K] entering each step (h
+    for the LSTM, the projection r for the LSTMP), c_prev [T, B, D], w [K,
+    4D] and b [4D]. Returns (f, h_new, p, q_c, q_o), the factors of the
+    chain rule that do not depend on the carried gradients: dc_new = dc *
+    m + dh_new * p, dg = [dc_new * q_c, dh_new * q_o] (gate order
+    candidate, input, forget, output)."""
+    t, bsz, four_d = xs.shape
+    d = four_d // 4
+    gates = xs + (s_prev.reshape(t * bsz, -1) @ w.float()).reshape(
+        t, bsz, four_d) + b.reshape(-1).float()
+    z = torch.tanh(gates[..., :d])
+    i = torch.sigmoid(gates[..., d:2 * d])
+    f = torch.sigmoid(gates[..., 2 * d:3 * d]).contiguous()
+    o = torch.sigmoid(gates[..., 3 * d:])
+    tc = torch.tanh(f * c_prev + i * z)
+    q_c = torch.stack([i * (1 - z * z), z * i * (1 - i),
+                       c_prev * f * (1 - f)], dim=2)           # [T, B, 3, D]
+    return f, o * tc, o * (1 - tc * tc), q_c, tc * o * (1 - o)
+
+
 def fused_lstm_bwd(x, w, b, h0, c0, lens, hidden, cell, g_hidden, g_cell,
                    reverse=False):
     """Gradients (dx, dw, db, dh0, dc0) of fused_lstm from its SAVED states
@@ -775,40 +825,16 @@ def fused_lstm_bwd(x, w, b, h0, c0, lens, hidden, cell, g_hidden, g_cell,
     any device (torch code, as in the JAX package)."""
     bsz, t, d = _lstm_args(x, w, b, h0, c0, lens)
     dev = x.device
-
-    def steps_first(a):          # [B, T, ...] -> [T, B, ...], walk order
-        a = a.float().transpose(0, 1)
-        return a.flip(0) if reverse else a
-
-    xs, hs, cs = steps_first(x), steps_first(hidden), steps_first(cell)
-    h_first = torch.zeros((bsz, d), dtype=torch.float32, device=dev) \
-        if h0 is None else h0.float()
-    c_first = torch.zeros_like(h_first) if c0 is None else c0.float()
-    h_prev = torch.cat([h_first[None], hs[:-1]], dim=0)        # [T, B, D]
-    c_prev = torch.cat([c_first[None], cs[:-1]], dim=0)
-    wf = w.float()
-    gates = xs + (h_prev.reshape(t * bsz, d) @ wf).reshape(t, bsz, 4 * d) \
-        + b.reshape(-1).float()
-    z = torch.tanh(gates[..., :d])
-    i = torch.sigmoid(gates[..., d:2 * d])
-    f = torch.sigmoid(gates[..., 2 * d:3 * d]).contiguous()
-    o = torch.sigmoid(gates[..., 3 * d:])
-    tc = torch.tanh(f * c_prev + i * z)
-    # dc_new = dc * m + dh_new * p;  dg = [dc_new * q_c, dh_new * q_o]
-    p = o * (1 - tc * tc)
-    q_c = torch.stack([i * (1 - z * z), z * i * (1 - i),
-                       c_prev * f * (1 - f)], dim=2)           # [T, B, 3, D]
-    q_o = tc * o * (1 - o)
-    del gates, z, i, o, tc
-    m = step_mask(lens, bsz, t, dev).transpose(0, 1)[..., None]
-    if reverse:
-        m = m.flip(0)
+    h_prev = _entering(h0, _walk(hidden, reverse))             # [T, B, D]
+    c_prev = _entering(c0, _walk(cell, reverse))
+    f, _, p, q_c, q_o = _cell_terms(_walk(x, reverse), h_prev, c_prev, w, b)
+    m = _walk(step_mask(lens, bsz, t, dev)[..., None], reverse)
     one_m = 1 - m
     zeros = torch.zeros((t, bsz, d), dtype=torch.float32, device=dev)
-    gh = zeros if g_hidden is None else steps_first(g_hidden)
-    gc = zeros if g_cell is None else steps_first(g_cell)
+    gh = zeros if g_hidden is None else _walk(g_hidden, reverse)
+    gc = zeros if g_cell is None else _walk(g_cell, reverse)
     dg = torch.empty((t, bsz, 4, d), dtype=torch.float32, device=dev)
-    wt = wf.t().contiguous()
+    wt = w.float().t().contiguous()
     dh_c = torch.zeros((bsz, d), dtype=torch.float32, device=dev)
     dc_c = torch.zeros_like(dh_c)
     for k in range(t - 1, -1, -1):
@@ -826,6 +852,195 @@ def fused_lstm_bwd(x, w, b, h0, c0, lens, hidden, cell, g_hidden, g_cell,
     dx = (dg.flip(0) if reverse else dg).transpose(0, 1)
     return (dx.to(x.dtype), dw.to(w.dtype), db.to(b.dtype).reshape(b.shape),
             dh_c, dc_c)
+
+
+# ---------------------------------------------------------------------------
+# fused LSTMP recurrence forward (replaces pallas_kernels._lstmp_seq_kernel)
+# ---------------------------------------------------------------------------
+
+def _lstmp_args(x, w, w_proj, b, r0, c0, lens):
+    if x.dim() != 3 or x.shape[2] % 4:
+        raise ValueError("fused_lstmp needs x [B, T, 4D], got %s"
+                         % (tuple(x.shape),))
+    bsz, t, four_d = x.shape
+    d = four_d // 4
+    if w_proj.dim() != 2 or w_proj.shape[0] != d:
+        raise ValueError("fused_lstmp needs w_proj [D, P] with D = %d, got %s"
+                         % (d, tuple(w_proj.shape)))
+    p = w_proj.shape[1]
+    if w.shape != (p, four_d) or b.numel() != four_d:
+        raise ValueError("fused_lstmp needs w [P, 4D] = %s and b [4D]; got "
+                         "%s %s" % ((p, four_d), tuple(w.shape),
+                                    tuple(b.shape)))
+    for name, s, width in (("r0", r0, p), ("c0", c0, d)):
+        if s is not None and s.shape != (bsz, width):
+            raise ValueError("fused_lstmp %s must be %s, got %s"
+                             % (name, (bsz, width), tuple(s.shape)))
+    if lens is not None and lens.numel() != bsz:
+        raise ValueError("fused_lstmp lens must hold one length per batch "
+                         "row (%d), got shape %s" % (bsz, tuple(lens.shape)))
+    return bsz, t, d, p
+
+
+def fused_lstmp_plain(x, w, w_proj, b, r0=None, c0=None, lens=None,
+                      reverse=False, peepholes=None,
+                      acts=(torch.sigmoid, torch.tanh, torch.tanh,
+                            torch.tanh),
+                      dtype=torch.float32):
+    """Plain version: the masked LSTMP recurrence as a torch loop over T
+    (the JAX package's lax.scan step of the lstmp rule). Per step, with
+    gate order {candidate, input, forget, output}: g = x_t + r_prev @ w +
+    b, c_new = act_gate(g_f) * c + act_gate(g_i) * act_cand(g_c), h_new =
+    act_gate(g_o) * act_cell(c_new), r_new = act_proj(h_new @ w_proj); a
+    step at or past lens[b] carries (r, c) unchanged; reverse walks t from
+    T-1 down. r0 [B, P] is the already projected initial state (zeros when
+    None). Returns (projection [B, T, P], cell [B, T, D]) in `dtype`.
+
+    The lstmp rule also runs it for what K7 does not cover: peepholes [3D]
+    (w_ic, w_fc, w_oc), other (gate, cell, candidate, proj) activations
+    and another state dtype."""
+    bsz, t, d, p = _lstmp_args(x, w, w_proj, b, r0, c0, lens)
+    xf, wf, wpf = x.to(dtype), w.to(dtype), w_proj.to(dtype)
+    bf = b.reshape(-1).to(dtype)
+    r = torch.zeros((bsz, p), dtype=dtype, device=x.device) \
+        if r0 is None else r0.to(dtype)
+    c = torch.zeros((bsz, d), dtype=dtype, device=x.device) \
+        if c0 is None else c0.to(dtype)
+    if peepholes is not None:
+        peepholes = peepholes.reshape(3, d).to(dtype)
+    m = step_mask(lens, bsz, t, x.device, dtype)
+    proj = torch.empty((bsz, t, p), dtype=dtype, device=x.device)
+    cell = torch.empty((bsz, t, d), dtype=dtype, device=x.device)
+    for k in range(t):
+        s = t - 1 - k if reverse else k
+        c_new, h_new = _cell_step(xf[:, s] + r @ wf + bf, c, peepholes,
+                                  *acts[:3])
+        r_new = acts[3](h_new @ wpf)
+        ms = m[:, s:s + 1]
+        r = ms * r_new + (1 - ms) * r
+        c = ms * c_new + (1 - ms) * c
+        proj[:, s] = r
+        cell[:, s] = c
+    return proj, cell
+
+
+def fused_lstmp(x, w, w_proj, b, r0=None, c0=None, lens=None, reverse=False):
+    """The whole masked LSTMP recurrence over x [B, T, 4D] (the
+    pre-projected gate inputs; any batch and time strides, last dim
+    contiguous on the card), recurrent weight w [P, 4D], projection
+    w_proj [D, P], gate bias b [4D], optional r0 [B, P] (the projected
+    initial state) and c0 [B, D] (zeros when None) and lengths lens [B]
+    (every step when None). Returns (projection [B, T, P], cell [B, T, D])
+    fp32.
+
+    Dispatch by x's device: meta -> empty outputs, cpu -> the plain
+    version, cuda -> the kernel (fp32 only; anything else raises)."""
+    bsz, t, d, p = _lstmp_args(x, w, w_proj, b, r0, c0, lens)
+    dev = x.device.type
+    if dev == "meta":
+        return (torch.empty((bsz, t, p), dtype=torch.float32,
+                            device=x.device),
+                torch.empty((bsz, t, d), dtype=torch.float32,
+                            device=x.device))
+    if dev == "cpu":
+        return fused_lstmp_plain(x, w, w_proj, b, r0, c0, lens, reverse)
+    if dev != "cuda":
+        raise ValueError("fused_lstmp: unsupported device %s" % dev)
+    for name, a in (("x", x), ("w", w), ("w_proj", w_proj), ("b", b),
+                    ("r0", r0), ("c0", c0)):
+        if a is None:
+            continue
+        if a.dtype != torch.float32:
+            raise ValueError("fused_lstmp: the CUDA kernel takes fp32 (%s is "
+                             "%s)" % (name, a.dtype))
+        if a.device != x.device:
+            raise ValueError("fused_lstmp: %s on %s, x on %s"
+                             % (name, a.device, x.device))
+    if x.stride(2) != 1:
+        raise ValueError("fused_lstmp: x needs a contiguous last dim (got "
+                         "strides %s)" % (tuple(x.stride()),))
+    w = w.contiguous()
+    if w.data_ptr() % 16:     # the kernel reads w's rows as float4
+        w = w.clone()
+    w_proj = w_proj.contiguous()
+    b = b.reshape(-1).contiguous()
+    r0 = r0.contiguous() if r0 is not None else None
+    c0 = c0.contiguous() if c0 is not None else None
+    proj = torch.empty((bsz, t, p), dtype=torch.float32, device=x.device)
+    cell = torch.empty((bsz, t, d), dtype=torch.float32, device=x.device)
+    if bsz == 0 or t == 0 or d == 0 or p == 0:
+        return proj, cell
+    if lens is not None:
+        lens = lens.reshape(bsz).to(device=x.device,
+                                    dtype=torch.int32).contiguous()
+    lib = build()
+    err = lib.ptt_fused_lstmp_fwd(
+        x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(),
+        w_proj.data_ptr(), b.data_ptr(),
+        r0.data_ptr() if r0 is not None else None,
+        c0.data_ptr() if c0 is not None else None,
+        lens.data_ptr() if lens is not None else None,
+        proj.data_ptr(), cell.data_ptr(), bsz, t, d, p, int(bool(reverse)),
+        _stream_of(x))
+    _check_launch(err, "fused_lstmp")
+    _count(fused_lstmp)
+    return proj, cell
+
+
+fused_lstmp.launches = 0
+
+
+def fused_lstmp_bwd(x, w, w_proj, b, r0, c0, lens, proj, cell, g_proj,
+                    g_cell, reverse=False):
+    """Gradients (dx, dw, dw_proj, db, dr0, dc0) of fused_lstmp from its
+    SAVED states (parity: pallas_kernels._lstmp_seq_core_bwd): no forward
+    is run again. Everything the carried gradients do not touch is
+    computed once over all steps with batched products: the gates from
+    the saved (r_prev, c_prev), z i f o, tanh(c_new), h_new and r_new =
+    tanh(h_new @ w_proj). The loop then walks the steps in reverse
+    processing order carrying (dr, dc); dw, dw_proj and db come from one
+    product or sum each after it. Works on any device (torch code, as in
+    the JAX package)."""
+    bsz, t, d, p = _lstmp_args(x, w, w_proj, b, r0, c0, lens)
+    dev = x.device
+    r_prev = _entering(r0, _walk(proj, reverse))               # [T, B, P]
+    c_prev = _entering(c0, _walk(cell, reverse))               # [T, B, D]
+    f, h_new, p_c, q_c, q_o = _cell_terms(_walk(x, reverse), r_prev, c_prev,
+                                          w, b)
+    wpf = w_proj.float()
+    r_new = torch.tanh(h_new.reshape(t * bsz, d) @ wpf).reshape(t, bsz, p)
+    m = _walk(step_mask(lens, bsz, t, dev)[..., None], reverse)
+    one_m = 1 - m
+    # dproj = dr * m * (1 - r_new^2), then dh_new = dproj @ w_proj^T
+    s_r = m * (1 - r_new * r_new)
+    del r_new
+    gr = torch.zeros((t, bsz, p), dtype=torch.float32, device=dev) \
+        if g_proj is None else _walk(g_proj, reverse)
+    gc = torch.zeros((t, bsz, d), dtype=torch.float32, device=dev) \
+        if g_cell is None else _walk(g_cell, reverse)
+    dg = torch.empty((t, bsz, 4, d), dtype=torch.float32, device=dev)
+    dproj = torch.empty((t, bsz, p), dtype=torch.float32, device=dev)
+    wt, wpt = w.float().t().contiguous(), wpf.t().contiguous()
+    dr_c = torch.zeros((bsz, p), dtype=torch.float32, device=dev)
+    dc_c = torch.zeros((bsz, d), dtype=torch.float32, device=dev)
+    for k in range(t - 1, -1, -1):
+        dr = dr_c + gr[k]
+        dc = dc_c + gc[k]
+        torch.mul(dr, s_r[k], out=dproj[k])
+        dh_new = dproj[k] @ wpt
+        dc_new = torch.addcmul(dc * m[k], dh_new, p_c[k])
+        torch.mul(dc_new[:, None], q_c[k], out=dg[k, :, :3])
+        torch.mul(dh_new, q_o[k], out=dg[k, :, 3])
+        dr_c = torch.addmm(dr * one_m[k], dg[k].reshape(bsz, 4 * d), wt)
+        dc_c = torch.addcmul(dc * one_m[k], dc_new, f[k])
+    dg = dg.reshape(t * bsz, 4 * d)
+    dw = r_prev.reshape(t * bsz, p).t() @ dg
+    dw_proj = h_new.reshape(t * bsz, d).t() @ dproj.reshape(t * bsz, p)
+    db = dg.sum(dim=0)
+    dg = dg.reshape(t, bsz, 4 * d)
+    dx = (dg.flip(0) if reverse else dg).transpose(0, 1)
+    return (dx.to(x.dtype), dw.to(w.dtype), dw_proj.to(w_proj.dtype),
+            db.to(b.dtype).reshape(b.shape), dr_c, dc_c)
 
 
 # ---------------------------------------------------------------------------
@@ -1062,6 +1277,29 @@ class FusedLSTM(torch.autograd.Function):
             x, w, b, h0, c0, lens, hidden, cell, g_hidden, g_cell,
             ctx.reverse)
         return (dx, dw, db, dh0 if h0 is not None else None,
+                dc0 if c0 is not None else None, None, None)
+
+
+class FusedLSTMP(torch.autograd.Function):
+    """(projection, cell) = the masked LSTMP recurrence through K7;
+    backward the saved-state reverse scan of fused_lstmp_bwd (parity:
+    pallas_kernels._lstmp_seq_core / _lstmp_seq_core_bwd). lens gets no
+    gradient; r0 and c0 get theirs when given."""
+
+    @staticmethod
+    def forward(ctx, x, w, w_proj, b, r0, c0, lens, reverse):
+        proj, cell = fused_lstmp(x, w, w_proj, b, r0, c0, lens, reverse)
+        ctx.save_for_backward(x, w, w_proj, b, r0, c0, lens, proj, cell)
+        ctx.reverse = reverse
+        return proj, cell
+
+    @staticmethod
+    def backward(ctx, g_proj, g_cell):
+        x, w, w_proj, b, r0, c0, lens, proj, cell = ctx.saved_tensors
+        dx, dw, dwp, db, dr0, dc0 = fused_lstmp_bwd(
+            x, w, w_proj, b, r0, c0, lens, proj, cell, g_proj, g_cell,
+            ctx.reverse)
+        return (dx, dw, dwp, db, dr0 if r0 is not None else None,
                 dc0 if c0 is not None else None, None, None)
 
 

@@ -1,15 +1,15 @@
 """Sequence op rules over the padded-dense layout: sequence_pool (and its
-first/last-step forms), sequence_softmax, sequence_mask, sequence_conv and
-the dynamic LSTM.
+first/last-step forms), sequence_softmax, sequence_mask, sequence_conv,
+the dynamic LSTM and the LSTM with recurrent projection (LSTMP).
 
 Parity: paddle/fluid/operators/{sequence_pool_op,sequence_softmax_op,
-sequence_mask_op,sequence_conv_op,lstm_op}.{cc,cu,h} and the JAX package's
-ops/sequence_ops.py. A lod_level-1
+sequence_mask_op,sequence_conv_op,lstm_op,lstmp_op}.{cc,cu,h} and the JAX
+package's ops/sequence_ops.py. A lod_level-1
 tensor is a padded dense array X [num_seqs, max_len, *feature] plus XLen
 int32 [num_seqs] of true lengths (core/lod.py), and every op masks by
 XLen.
 
-Three rules call hand-written CUDA kernels through their autograd
+Four rules call hand-written CUDA kernels through their autograd
 Functions (ops/cuda_kernels.py), on the same conditions under which the JAX
 package dispatches its Pallas kernels, less its PADDLE_TPU_PALLAS switch,
 which has no counterpart here:
@@ -19,10 +19,12 @@ which has no counterpart here:
   * lstm with no peepholes, fp32 and the default activations -> FusedLSTM
     (K6). Every other lstm (peepholes, other activations) runs the torch
     loop of cuda_kernels.fused_lstm_plain, as the JAX package runs its
-    lax.scan: no kernel exists for it in either package.
-The JAX package's lstmp and gru rules wait for the paths that reach their
-kernels; a program that uses them fails with the registry's unknown-op
-error.
+    lax.scan: no kernel exists for it in either package;
+  * lstmp on the same conditions (and the default proj_activation) ->
+    FusedLSTMP (K7); every other lstmp runs the torch loop of
+    cuda_kernels.fused_lstmp_plain.
+The JAX package's gru rule waits for its path; a program that uses it
+fails with the registry's unknown-op error.
 """
 import numpy as np
 import torch
@@ -197,3 +199,67 @@ def _lstm(ctx, ins, attrs):
     hidden, cell = hidden.to(x.dtype), cell.to(x.dtype)
     return {"Hidden": [hidden], "Cell": [cell],
             "BatchGate": [x], "BatchCellPreAct": [cell]}
+
+
+@register("lstmp")
+def _lstmp(ctx, ins, attrs):
+    """lstmp_op.cc — LSTM with recurrent projection: the [B, P] PROJECTED
+    state (not the [B, D] hidden) feeds the next step's gate product
+    (lstmp_op.h:161-167), so Weight is [P, 4D] and ProjWeight [D, P];
+    r_t = proj_act(h_t @ ProjWeight). H0 [B, D] enters through the same
+    projection (lstmp_op.h:174-187), computed here in torch so that its
+    gradient flows through autograd. As in the JAX rule, proj_act is
+    applied where the reference applies cell_act to the projection
+    (lstmp_op.h:201-203, an evident typo: both default to tanh).
+    BatchGate, BatchCellPreAct and BatchHidden alias the input and the
+    cell, as in the JAX rule."""
+    x = single(ins, "Input")            # [B, T, 4D]
+    w = single(ins, "Weight")           # [P, 4D]
+    w_proj = single(ins, "ProjWeight")  # [D, P]
+    bias = single(ins, "Bias")          # [1, 4D(+3D)]
+    h0 = single(ins, "H0")
+    c0 = single(ins, "C0")
+    xlen = single(ins, "XLen")
+    d, p = w_proj.shape
+    b, t, _ = x.shape
+    use_peep = attrs.get("use_peepholes", False)
+    gate_name = attrs.get("gate_activation", "sigmoid")
+    cell_name = attrs.get("cell_activation", "tanh")
+    cand_name = attrs.get("candidate_activation", "tanh")
+    proj_name = attrs.get("proj_activation", "tanh")
+    is_rev = attrs.get("is_reverse", False)
+
+    if (not use_peep and x.dtype == torch.float32 and gate_name == "sigmoid"
+            and cell_name == "tanh" and cand_name == "tanh"
+            and proj_name == "tanh"):
+        r0 = None if h0 is None else torch.tanh(h0.float() @ w_proj.float())
+        proj, cell = cuda_kernels.FusedLSTMP.apply(
+            x, w, w_proj, bias.reshape(-1)[:4 * d], r0, c0, xlen, is_rev)
+        if r0 is None:
+            r0 = torch.zeros((b, p), dtype=torch.float32, device=x.device)
+        return {"Projection": [proj], "Cell": [cell],
+                "BatchGate": [x], "BatchCellPreAct": [cell],
+                "BatchHidden": [cell], "OrderedP0": [r0.to(x.dtype)]}
+    state_dt = torch.float32 if x.dtype in (torch.float32, torch.bfloat16) \
+        else x.dtype
+    proj_act = _ACTS[proj_name]
+    r0 = torch.zeros((b, p), dtype=state_dt, device=x.device) \
+        if h0 is None else proj_act(h0.to(state_dt) @ w_proj.to(state_dt))
+    if x.device.type == "meta":
+        # build-time shape inference: skip the T-step loop
+        proj = torch.empty((b, t, p), dtype=x.dtype, device=x.device)
+        cell = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
+        return {"Projection": [proj], "Cell": [cell], "BatchGate": [x],
+                "BatchCellPreAct": [cell], "BatchHidden": [cell],
+                "OrderedP0": [r0]}
+    bias = bias.reshape(-1)
+    proj, cell = cuda_kernels.fused_lstmp_plain(
+        x, w, w_proj, bias[:4 * d], r0, c0, xlen, is_rev,
+        peepholes=bias[4 * d:7 * d] if use_peep else None,
+        acts=(_ACTS[gate_name], _ACTS[cell_name], _ACTS[cand_name],
+              proj_act),
+        dtype=state_dt)
+    proj, cell = proj.to(x.dtype), cell.to(x.dtype)
+    return {"Projection": [proj], "Cell": [cell],
+            "BatchGate": [x], "BatchCellPreAct": [cell],
+            "BatchHidden": [cell], "OrderedP0": [r0]}
