@@ -34,13 +34,21 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               K8 (masked softmax) at the translator's decoder step, x [16,
               48] with lengths 1 and 48 among them, and at a wide [2048,
               256] with lengths 0, 1 and 256; its library call is
-              torch.softmax(x, 1) at full lengths. K7 (fused LSTMP) is
-              checked forward and reverse, with zero and given r0/c0, at
-              a serving dispatch's x [8, 512, 4096] and a training step's
-              [32, 512, 4096] (D 1024, P 512), ragged lengths with 1 and
-              T; its library call is torch.nn.LSTM(1320, 1024,
+              torch.softmax(x, 1) at full lengths. K4 is also held on
+              labels -1 and V, which pick class V - 1 (the JAX CPU rule).
+              K7 (fused LSTMP, one cooperative launch of one block per
+              SM) is checked forward and reverse, with zero and given
+              r0/c0, at a serving dispatch's x [8, 512, 4096] and a
+              training step's [32, 512, 4096] (D 1024, P 512), at B = 1,
+              at T = 1, at D 1000 / P 500, at hidden 8 / proj 4, with
+              weights read from L2 (D 4096 / P 2048) and at B = 1024
+              (no x prefetch), ragged lengths with 1 and T, and replayed
+              from a CUDA graph; its library call is torch.nn.LSTM(1320, 1024,
               proj_size=512) (cuDNN) on the frames at full lengths, which
-              has no tanh on its projection: only its time compares.
+              has no tanh on its projection: only its time compares. The
+              K7 of commit c644094 (one block per batch row) is built
+              from its source (--k7-baseline, or git history) and timed
+              beside it.
 4. serving  — the main path: build Transformer-base scoring (vocab 30000,
               d_model 512, 8 heads, 6+6 layers, d_inner 2048, T=256) with
               the port's layers, run its startup program on the card from
@@ -137,6 +145,7 @@ with its launches by path, the card line, and `{"ok": true, "device":
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -229,6 +238,9 @@ ASR_SMALL = dict(ASR, hidden=8, proj=4, layers=2, batch=4, min_len=1,
 LSTMP_SRC = "paddle_tpu_torch/csrc/fused_lstmp_fwd.cu"
 LSTMP_TPU = "paddle_tpu/ops/pallas_kernels.py:714 (_lstmp_seq_kernel, " \
     "launched by _lstmp_fwd_call :745)"
+# the commit whose K7 (one block per batch row) the current one is timed
+# against
+K7_BASELINE_COMMIT = "c644094"
 
 
 class SmokeFailure(RuntimeError):
@@ -503,6 +515,21 @@ def run_kernels(torch, ck, peak_flops, peak_bw):
     check(np.isfinite(xent_err) and xent_err <= KERNEL_TOL,
           "softmax_xent_fwd disagrees with its plain version by %r"
           % xent_err)
+    # labels -1 and V pick class V - 1 (the JAX CPU path's rule) in K4 and
+    # in its plain version alike
+    edge = torch.tensor([-1, vocab, -1, vocab], device=dev)
+    got = ck.softmax_xent_fwd(logits[:4], edge)
+    ref = ck.softmax_xent_fwd_plain(logits[:4], edge)
+    rule = ref[1] - logits[:4, vocab - 1:]
+    torch.cuda.synchronize()
+    edge_err = max(max((a - r).abs().max().item() for a, r in zip(got, ref)),
+                   (got[0] - rule).abs().max().item())
+    print("kernels: softmax_xent labels -1 and V against the plain version "
+          "and the class V - 1: max_abs_err=%.3e" % edge_err)
+    check(np.isfinite(edge_err) and edge_err <= KERNEL_TOL,
+          "softmax_xent_fwd on labels -1 and V is %r away from class V - 1 "
+          "or from its plain version" % edge_err)
+    xent_err = max(xent_err, edge_err)
     bms, bby = bound(4 * n * vocab, 4 * n * vocab + 8 * n + 2 * 4 * n,
                      peak_flops, peak_bw)
     results["softmax_xent_fwd"] = {
@@ -843,54 +870,204 @@ def lstmp_work(lens, t, d, p, b, with_state):
     return flops, nbytes
 
 
-def run_acoustic_kernels(torch, ck, peak_flops, peak_bw):
-    """K7 against its plain version at the acoustic path's shapes (a
+def lstmp_inputs(torch, g, b, t, d, p):
+    """K7's inputs at one shape: weights at the scale of a Xavier init
+    (the gates stay unsaturated), x [B, T, 4D], r0 [B, P], c0 [B, D]."""
+    dev = torch.device("cuda")
+    w = torch.randn((p, 4 * d), generator=g, device=dev) * (1.13 / p ** 0.5)
+    wp = torch.randn((d, p), generator=g, device=dev) * (1.28 / d ** 0.5)
+    bias = torch.randn((4 * d,), generator=g, device=dev) * 0.1
+    x = torch.randn((b, t, 4 * d), generator=g, device=dev) * 0.5
+    r0 = torch.tanh(torch.randn((b, p), generator=g, device=dev) * 0.3)
+    c0 = torch.randn((b, d), generator=g, device=dev) * 0.2
+    return x, w, wp, bias, r0, c0
+
+
+def lstmp_check(torch, ck, what, x, w, wp, bias, r0, c0, lens):
+    """K7 against its plain version, forward and reverse, zero and given
+    r0/c0: the largest absolute error on projection and cell."""
+    b, t = x.shape[:2]
+    lt = torch.tensor(lens, dtype=torch.int32, device=x.device)
+    err_max = 0.0
+    for reverse in (False, True):
+        for state in (None, (r0, c0)):
+            args = (x, w, wp, bias) + (state or (None, None)) + (lt, reverse)
+            got = ck.fused_lstmp(*args)
+            want = ck.fused_lstmp_plain(*args)
+            torch.cuda.synchronize()
+            # absolute, on projection and cell after up to 512 steps: each
+            # step's gates differ by the rounding of a P-term product and
+            # the projection's by a D-term one; the gates squash and the
+            # forget gate is below 1, so the carried error does not grow
+            # with T
+            err = max((a - r).abs().max().item() for a, r in zip(got, want))
+            print("kernels: fused_lstmp %s B=%d T=%d D=%d P=%d reverse=%s "
+                  "r0/c0=%s max_abs_err=%.3e"
+                  % (what, b, t, w.shape[1] // 4, wp.shape[1], reverse,
+                     "given" if state else "zero", err))
+            check(np.isfinite(err) and err <= KERNEL_TOL,
+                  "fused_lstmp (%s) disagrees with its plain version by %r "
+                  "(tolerance %r)" % (what, err, KERNEL_TOL))
+            err_max = max(err_max, err)
+    return err_max
+
+
+def lstmp_graph_check(torch, ck, x, w, wp, bias, r0, c0, lens):
+    """K7 captured in a CUDA graph (as time_ms captures it: a cooperative
+    launch must capture) and replayed, against its plain version."""
+    lt = torch.tensor(lens, dtype=torch.int32, device=x.device)
+    args = (x, w, wp, bias, r0, c0, lt, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ck.fused_lstmp(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ck.fused_lstmp(*args)
+    graph.replay()
+    graph.replay()
+    want = ck.fused_lstmp_plain(*args)
+    torch.cuda.synchronize()
+    err = max((a - r).abs().max().item() for a, r in zip(got, want))
+    print("kernels: fused_lstmp in a CUDA graph B=%d T=%d reverse r0/c0 "
+          "given max_abs_err=%.3e" % (x.shape[0], x.shape[1], err))
+    check(np.isfinite(err) and err <= KERNEL_TOL,
+          "fused_lstmp replayed from a CUDA graph disagrees with its plain "
+          "version by %r" % err)
+    del graph
+    return err
+
+
+def baseline_lstmp_source(path):
+    """The baseline K7 source (commit K7_BASELINE_COMMIT, one block per
+    batch row) to time beside the current kernel: `path` when
+    given, else `git show` of it when the checkout has its history, else
+    None (not measured)."""
+    if path:
+        with open(path) as f:
+            return f.read()
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, ".git")):
+        return None
+    out = subprocess.run(["git", "-C", here, "show",
+                          "%s:%s" % (K7_BASELINE_COMMIT, LSTMP_SRC)],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout if out.returncode == 0 else None
+
+
+def baseline_lstmp(torch, ck, source, build_dir):
+    """Build the baseline K7 (one block per batch row) into build_dir, outside
+    the package, and return a function with fused_lstmp's signature that
+    launches it (no launch count: it is not on any path)."""
+    import ctypes
+    src = os.path.join(build_dir, "fused_lstmp_fwd_baseline.cu")
+    lib_path = os.path.join(build_dir, "libptt_lstmp_baseline.so")
+    with open(src, "w") as f:
+        f.write(source)
+    out = subprocess.run([ck._nvcc(), *ck.NVCC_FLAGS, "-shared", src, "-o",
+                          lib_path], capture_output=True, text=True,
+                         timeout=600)
+    check(out.returncode == 0, "nvcc failed for the baseline K7:\n%s%s"
+          % (out.stdout, out.stderr))
+    lib = ctypes.CDLL(lib_path)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ptt_fused_lstmp_fwd.argtypes = [P, L, L] + [P] * 8 + [I] * 5 + [P]
+    lib.ptt_fused_lstmp_fwd.restype = I
+
+    def run(x, w, wp, bias, r0, c0, lens, reverse=False):
+        b, t, four_d = x.shape
+        d, p = four_d // 4, wp.shape[1]
+        proj = torch.empty((b, t, p), dtype=torch.float32, device=x.device)
+        cell = torch.empty((b, t, d), dtype=torch.float32, device=x.device)
+        err = lib.ptt_fused_lstmp_fwd(
+            x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(),
+            wp.data_ptr(), bias.data_ptr(),
+            r0.data_ptr() if r0 is not None else None,
+            c0.data_ptr() if c0 is not None else None,
+            lens.data_ptr() if lens is not None else None,
+            proj.data_ptr(), cell.data_ptr(), b, t, d, p, int(reverse),
+            ck._stream_of(x))
+        check(err == 0, "the baseline K7 failed to launch (cudaError %d)"
+              % err)
+        return proj, cell
+    return run
+
+
+def run_acoustic_kernels(torch, ck, peak_flops, peak_bw,
+                         baseline_source=None):
+    """K7 against its plain version, forward and reverse, zero and given
+    r0/c0, ragged lengths with 1 and T: at the acoustic path's shapes (a
     serving dispatch x [8, 512, 4096], a training step's [32, 512, 4096];
-    D 1024, P 512), forward and reverse, zero and given r0/c0, ragged
-    lengths with 1 and T; timed (kernel, plain, library) beside its
-    bound."""
+    D 1024, P 512), at B = 1, at T = 1, at D 1000 / P 500 (slices not
+    multiples of the grid), at the card-vs-CPU step's hidden 8 / proj 4,
+    with weights too wide to stay in shared memory and with a batch too
+    large for the x prefetch, and replayed from a CUDA graph. Timed
+    (kernel, the baseline K7 when its source is at hand, plain, library)
+    beside its bound at the two path shapes."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 7)
     rng = np.random.RandomState(SEED + 7)
     d, p, t = ASR["hidden"], ASR["proj"], ASR_SEQ_BUCKETS[-1]
-    # weights at the scale of a Xavier init: the gates stay unsaturated
-    w = torch.randn((p, 4 * d), generator=g, device=dev) * 0.05
-    wp = torch.randn((d, p), generator=g, device=dev) * 0.04
-    bias = torch.randn((4 * d,), generator=g, device=dev) * 0.1
+    print("kernels: fused_lstmp launch plan at B=8 %s; at B=%d %s" % (
+        {k: v for k, v in ck.lstmp_launch_plan(
+            8, d, p, torch.cuda.get_device_properties(
+                0).multi_processor_count).items()
+         if k not in ("units", "cols")}, ASR["batch"],
+        {k: v for k, v in ck.lstmp_launch_plan(
+            ASR["batch"], d, p, torch.cuda.get_device_properties(
+                0).multi_processor_count).items()
+         if k not in ("units", "cols")}))
+
+    def ragged(b, tt):
+        lens = rng.randint(1, tt + 1, size=b)
+        lens[0], lens[-1] = tt, 1
+        return lens.tolist()
+
     err_max = 0.0
+    # the other shapes: one row, one step, ragged slices, the small
+    # widths, and the plans that leave shared memory: weights read from L2
+    # (4 x DeepASR's widths) and a batch whose x does not fit (several row
+    # tiles and h tiles)
+    for what, (b, tt, dd, pp) in (
+            ("one row", (1, t, d, p)), ("one step", (8, 1, d, p)),
+            ("D 1000 / P 500", (ASR["batch"], 64, 1000, 500)),
+            ("hidden 8 / proj 4", (ASR_SMALL["batch"], 12,
+                                   ASR_SMALL["hidden"], ASR_SMALL["proj"])),
+            ("streamed weights", (8, 4, 4 * d, 4 * p)),
+            ("no x prefetch", (1024, 2, d, p))):
+        inputs = lstmp_inputs(torch, g, b, tt, dd, pp)
+        lens = ragged(b, tt) if b > 1 else [tt]
+        err_max = max(err_max, lstmp_check(torch, ck, what, *inputs, lens))
+        err_max = max(err_max, lstmp_graph_check(torch, ck, *inputs, lens))
+        del inputs
+    base_k7 = None
+    build_dir = tempfile.mkdtemp(prefix="ptt_k7_baseline_")
+    if baseline_source is not None:
+        t0 = time.perf_counter()
+        base_k7 = baseline_lstmp(torch, ck, baseline_source, build_dir)
+        print("kernels: built the baseline fused_lstmp (%s) in %.1f s"
+              % (K7_BASELINE_COMMIT, time.perf_counter() - t0))
+    else:
+        print("kernels: the baseline fused_lstmp source is not at hand; its "
+              "time is not measured")
     timing = {}
     for b in (8, ASR["batch"]):
-        lens = rng.randint(1, t + 1, size=b)
-        lens[0], lens[-1] = t, 1
-        lens = lens.tolist()
-        x = torch.randn((b, t, 4 * d), generator=g, device=dev) * 0.5
-        r0 = torch.tanh(torch.randn((b, p), generator=g, device=dev) * 0.3)
-        c0 = torch.randn((b, d), generator=g, device=dev) * 0.2
+        lens = ragged(b, t)
+        x, w, wp, bias, r0, c0 = lstmp_inputs(torch, g, b, t, d, p)
+        err_max = max(err_max, lstmp_check(torch, ck, "path shape", x, w,
+                                           wp, bias, r0, c0, lens))
         lt = torch.tensor(lens, dtype=torch.int32, device=dev)
-        for reverse in (False, True):
-            for state in (None, (r0, c0)):
-                args = (x, w, wp, bias) + (state or (None, None)) \
-                    + (lt, reverse)
-                got = ck.fused_lstmp(*args)
-                want = ck.fused_lstmp_plain(*args)
-                torch.cuda.synchronize()
-                # absolute, on projection and cell after up to 512 steps:
-                # each step's gates differ by the rounding of a 512-term
-                # product and the projection's by a 1024-term one; the
-                # gates squash and the forget gate is below 1, so the
-                # carried error does not grow with T
-                err = max((a - r).abs().max().item()
-                          for a, r in zip(got, want))
-                print("kernels: fused_lstmp B=%d T=%d D=%d P=%d reverse=%s "
-                      "r0/c0=%s max_abs_err=%.3e"
-                      % (b, t, d, p, reverse, "given" if state else "zero",
-                         err))
-                check(np.isfinite(err) and err <= KERNEL_TOL,
-                      "fused_lstmp disagrees with its plain version by %r "
-                      "(tolerance %r)" % (err, KERNEL_TOL))
-                err_max = max(err_max, err)
-        del got, want
+        if base_k7 is not None:
+            got = base_k7(x, w, wp, bias, r0, c0, lt, True)
+            want = ck.fused_lstmp_plain(x, w, wp, bias, r0, c0, lt, True)
+            torch.cuda.synchronize()
+            print("kernels: the baseline fused_lstmp B=%d agrees with the "
+                  "plain version to %.3e"
+                  % (b, max((a - r).abs().max().item()
+                            for a, r in zip(got, want))))
+            del got, want
         # the library yardstick: cuDNN's LSTM with a projection, from the
         # frames (its input product included) at full lengths. It has no
         # tanh on the projection and orders its gates {i, f, g, o}, so
@@ -903,15 +1080,35 @@ def run_acoustic_kernels(torch, ck, peak_flops, peak_bw):
             with torch.no_grad():
                 return lib(frames)
 
+        def new_call():
+            return ck.fused_lstmp(x, w, wp, bias, None, None, lt)
+
+        def old_call():
+            return base_k7(x, w, wp, bias, None, None, lt)
+
         flops, nbytes = lstmp_work(lens, t, d, p, b, False)
         bms, bby = bound(flops, nbytes, peak_flops, peak_bw)
+        # in turns, old new new old, so that drift shows
+        old_ms = ([time_ms(torch, old_call, iters=2, reps=3)] if base_k7
+                  else [])
+        new_ms = [time_ms(torch, new_call, iters=10, reps=5)]
+        new_ms.append(time_ms(torch, new_call, iters=10, reps=5))
+        if base_k7:
+            old_ms.append(time_ms(torch, old_call, iters=2, reps=3))
         timing[b] = {
-            "ms": time_ms(torch, lambda: ck.fused_lstmp(
-                x, w, wp, bias, None, None, lt), iters=2, reps=3),
+            "ms": statistics.mean(new_ms), "ms_runs": new_ms,
+            "baseline_ms": statistics.mean(old_ms) if old_ms else None,
+            "baseline_ms_runs": old_ms,
             "plain_ms": time_ms(torch, lambda: ck.fused_lstmp_plain(
                 x, w, wp, bias, None, None, lt), iters=1, reps=3),
-            "library_ms": time_ms(torch, lib_call, iters=2, reps=3),
+            "library_ms": time_ms(torch, lib_call, iters=4, reps=5),
             "bound_ms": bms, "bound_by": bby, "lens": lens}
+        tm = timing[b]
+        print("kernels: fused_lstmp timing x [%d,%d,%d]: new %s ms, baseline "
+              "%s ms, plain %.4f ms, cuDNN %.4f ms, bound %.4f ms (%s)"
+              % (b, t, 4 * d, " / ".join("%.4f" % v for v in new_ms),
+                 " / ".join("%.4f" % v for v in old_ms) or "not measured",
+                 tm["plain_ms"], tm["library_ms"], bms, bby))
         del x, lib, frames
     serve, train = timing[8], timing[ASR["batch"]]
     r = {
@@ -928,17 +1125,25 @@ def run_acoustic_kernels(torch, ck, peak_flops, peak_bw):
                           "projection and another gate order, so only the "
                           "time compares" % (ASR["frame"], d, p),
         "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+        "baseline_ms": serve["baseline_ms"],
         "train_shape": "x [%d,%d,%d]" % (ASR["batch"], t, 4 * d),
         "train_ms": train["ms"], "train_plain_ms": train["plain_ms"],
         "train_library_ms": train["library_ms"],
         "train_bound_ms": train["bound_ms"],
+        "train_baseline_ms": train["baseline_ms"],
     }
-    print("kernels: fused_lstmp ms=%.4f plain_ms=%.4f library_ms=%.4f "
-          "bound_ms=%.4f (%s); at %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
-          "bound_ms=%.4f" % (r["ms"], r["plain_ms"], r["library_ms"],
-                             r["bound_ms"], r["bound_by"], r["train_shape"],
-                             train["ms"], train["plain_ms"],
-                             train["library_ms"], train["bound_ms"]))
+
+    def opt(v):
+        return "not measured" if v is None else "%.4f" % v
+
+    print("kernels: fused_lstmp ms=%.4f baseline_ms=%s plain_ms=%.4f "
+          "library_ms=%.4f bound_ms=%.4f (%s); at %s ms=%.4f baseline_ms=%s "
+          "plain_ms=%.4f library_ms=%.4f bound_ms=%.4f"
+          % (r["ms"], opt(r["baseline_ms"]), r["plain_ms"], r["library_ms"],
+             r["bound_ms"], r["bound_by"], r["train_shape"], train["ms"],
+             opt(train["baseline_ms"]), train["plain_ms"], train["library_ms"],
+             train["bound_ms"]))
+    shutil.rmtree(build_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     return {"fused_lstmp": r}
 
@@ -1939,6 +2144,11 @@ def run_acoustic_training_vs_cpu(torch):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
+    ap.add_argument("--k7-baseline", metavar="SRC",
+                    help="the baseline fused_lstmp_fwd.cu (one block per "
+                    "batch row) to time beside the "
+                    "new K7 (default: `git show %s:%s` when the checkout "
+                    "has its history)" % (K7_BASELINE_COMMIT, LSTMP_SRC))
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/shared-memory report")
     ap.add_argument("--trace", metavar="PATH",
@@ -1974,7 +2184,9 @@ def main(argv=None):
     kernels = run_kernels(torch, ck, peak_flops, peak_bw)
     kernels.update(run_sequence_kernels(torch, ck, peak_flops, peak_bw))
     kernels.update(run_translation_kernels(torch, ck, peak_flops, peak_bw))
-    kernels.update(run_acoustic_kernels(torch, ck, peak_flops, peak_bw))
+    kernels.update(run_acoustic_kernels(
+        torch, ck, peak_flops, peak_bw,
+        baseline_lstmp_source(args.k7_baseline)))
     if args.only == "all":
         stem = args.trace and os.path.splitext(args.trace)[0]
         # each path: the launch counts of its run and the counts it

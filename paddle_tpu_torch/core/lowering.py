@@ -42,6 +42,9 @@ class LowerCtx(object):
         self.is_startup = is_startup
         self._op_salt = 0
         self._op_calls = 0
+        # the iteration index of each enclosing loop (rnn_scan pushes its
+        # step), folded into every random op's seed
+        self._loop_iters = []
         # the forward ops some grad_of of this run differentiates (uid ->
         # that grad_of's no_grad_names), and their kept local graphs: uid ->
         # ({(slot, i): leaf input}, {name: output}), from the forward op's
@@ -57,17 +60,25 @@ class LowerCtx(object):
         """A torch.Generator on the run's device, seeded from (program
         seed, run seed, op uid, call index within the op). A nonzero user
         `seed` (the op's seed attr — fluid's reproducibility contract)
-        pins the stream independent of the run counter. The streams are
-        the port's own: they do not reproduce the JAX package's bits."""
+        pins the stream independent of the run counter. Inside a loop
+        body each enclosing loop's iteration is folded in after that, the
+        user seed too (as the JAX package's rng folds its loop stack), so
+        a random op in an RNN step draws anew at every step. The streams
+        are the port's own: they do not reproduce the JAX package's
+        bits."""
         self._op_calls += 1
         if seed:
             base = int(seed)
         else:
             base = int(getattr(self.program, "random_seed", 0) or 0) \
                 * 1000003 + self.run_seed
+        mask = 0x7FFFFFFFFFFFFFFF
+        s = (base * 1000003 + self._op_salt * 97 + self._op_calls * 7
+             + salt) & mask
+        for it in self._loop_iters:
+            s = (s * 1000003 + it + 1) & mask
         g = torch.Generator(device=self.device)
-        g.manual_seed((base * 1000003 + self._op_salt * 97
-                       + self._op_calls * 7 + salt) & 0x7FFFFFFFFFFFFFFF)
+        g.manual_seed(s)
         return g
 
 

@@ -4,7 +4,9 @@
 // Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py `_xent_kernel`
 // (launched by `_xent_fwd_call`): per row, lse = log(sum(exp(x))) and
 // loss = lse - x[label], the softmax never written. A label outside [0, V)
-// picks 0, as the TPU kernel's column compare does.
+// picks the class of the JAX package's CPU rule (cuda_kernels.
+// hard_label_index): a negative label wraps once (-1 -> V - 1), then the
+// label is clamped to [0, V - 1] (V + k -> V - 1).
 //
 // What bounds it on this card: bytes. Each logit is read once and costs one
 // exponential and a few flops, far below the H100's fp32 balance point, so
@@ -51,8 +53,9 @@ softmax_xent_fwd_kernel(const float* __restrict__ logits,
   const int row = blockIdx.x;
   const int tid = threadIdx.x;
   const float* x = logits + (long long)row * V;
-  const long long lab = labels[row];
-  const int pick = (lab >= 0 && lab < V) ? static_cast<int>(lab) : -1;
+  long long lab = labels[row];
+  if (lab < 0) lab += V;
+  const int pick = static_cast<int>(lab < 0 ? 0 : lab >= V ? V - 1 : lab);
 
   // -FLT_MAX, not -inf: merging two empty partials stays finite (exp(0)*0)
   float m = -FLT_MAX, s = 0.f, picked = 0.f;

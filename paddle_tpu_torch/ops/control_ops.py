@@ -47,7 +47,12 @@ def _rnn_scan(ctx, ins, attrs):
             env.write(n, v)
         for n, x_t in zip(in_names, xs_t):
             env.write(n, x_t[t])
-        lower_sub_block(ctx, sub, env)
+        # the step index salts the seeds of the body's random ops
+        ctx._loop_iters.append(t)
+        try:
+            lower_sub_block(ctx, sub, env)
+        finally:
+            ctx._loop_iters.pop()
         new_mems = [env.read(n).to(m.dtype)
                     for n, m in zip(update_names, mems)]
         outs = [env.read(n) for n in out_names]

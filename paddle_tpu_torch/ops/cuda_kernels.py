@@ -42,11 +42,12 @@ import torch
 __all__ = ["build", "flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
-           "softmax_xent_fwd", "softmax_xent_fwd_plain",
+           "softmax_xent_fwd", "softmax_xent_fwd_plain", "hard_label_index",
            "layer_norm_fwd", "layer_norm_fwd_plain", "fused_lstm",
            "fused_lstm_plain", "fused_lstm_bwd", "fused_lstmp",
-           "fused_lstmp_plain", "fused_lstmp_bwd", "masked_softmax",
-           "masked_softmax_plain", "masked_pool", "masked_pool_plain",
+           "fused_lstmp_plain", "fused_lstmp_bwd", "lstmp_launch_plan",
+           "masked_softmax", "masked_softmax_plain", "masked_pool",
+           "masked_pool_plain",
            "FlashAttention", "LayerNorm", "SoftmaxXent", "FusedLSTM",
            "FusedLSTMP", "MaskedSoftmax", "MaskedPool", "launch_counts",
            "reset_launch_counts", "FLASH_HEAD_DIMS", "POOL_TYPES"]
@@ -182,12 +183,17 @@ def _bind(lib):
     lib.ptt_layer_norm_fwd.restype = I
     lib.ptt_fused_lstm_fwd.argtypes = [P, L, L] + [P] * 7 + [I] * 4 + [P]
     lib.ptt_fused_lstm_fwd.restype = I
-    lib.ptt_fused_lstmp_fwd.argtypes = [P, L, L] + [P] * 8 + [I] * 5 + [P]
-    lib.ptt_fused_lstmp_fwd.restype = I
+    _bind_lstmp(lib)
     lib.ptt_masked_softmax_fwd.argtypes = [P, L, P, P, I, I, P]
     lib.ptt_masked_softmax_fwd.restype = I
     lib.ptt_masked_pool_fwd.argtypes = [P, L, L, P, P, I, I, I, I, P]
     lib.ptt_masked_pool_fwd.restype = I
+
+
+def _bind_lstmp(lib):
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ptt_fused_lstmp_fwd.argtypes = [P, L, L] + [P] * 9 + [I] * 14 + [P]
+    lib.ptt_fused_lstmp_fwd.restype = I
 
 
 def _count(wrapper):
@@ -573,17 +579,25 @@ def flash_attention_bwd(q, k, v, out, lse, g, kv_len=None, causal=False,
 # softmax cross-entropy forward (replaces pallas_kernels._xent_kernel)
 # ---------------------------------------------------------------------------
 
+def hard_label_index(label, num_classes):
+    """The class a hard label picks, the JAX package's CPU rule (numpy-
+    style indexing under JAX's clamping gather): a negative label wraps
+    once (-1 -> V - 1), then anything still outside [0, V) is clamped
+    (V + k -> V - 1, -V - k -> 0). K4 (forward and backward), its plain
+    version and the cross_entropy rules all take it."""
+    lab = label.long()
+    return torch.where(lab < 0, lab + num_classes, lab).clamp(
+        0, num_classes - 1)
+
+
 def softmax_xent_fwd_plain(logits, labels):
     """Plain version: (loss [N, 1], lse [N, 1]) in fp32, with
-    loss = lse - logits[label] and a label outside [0, V) picking 0."""
+    loss = lse - logits[hard_label_index(label)]."""
     x = logits.float()
     n, v = x.shape
-    lab = labels.reshape(n).long()
     lse = torch.logsumexp(x, dim=-1, keepdim=True)
-    ok = (lab >= 0) & (lab < v)
-    picked = torch.where(ok, x.gather(1, lab.clamp(0, v - 1)[:, None])[:, 0],
-                         torch.zeros_like(x[:, 0]))
-    return lse - picked[:, None], lse
+    lab = hard_label_index(labels.reshape(n, 1), v)
+    return lse - x.gather(1, lab), lse
 
 
 def softmax_xent_fwd(logits, labels):
@@ -882,6 +896,96 @@ def _lstmp_args(x, w, w_proj, b, r0, c0, lens):
     return bsz, t, d, p
 
 
+LSTMP_THREADS = 256        # threads per block of K7 (kThreads in the .cu)
+LSTMP_SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
+
+
+def _round_up(v, m):
+    return -(-v // m) * m
+
+
+def _lstmp_smem_floats(bsz, p, d, ku, kp, row_tile, h_rows, resident,
+                       prefetch):
+    """Shared memory K7 needs, in 4-byte words: its layout in
+    csrc/fused_lstmp_fwd.cu region by region, each a multiple of 4. One
+    region serves phase A (the r^T row tile, the partial sums of an 8 x 4
+    tile a thread, their sums) and then phase B (h_rows rows of h and a
+    word a thread for the warps' sums)."""
+    pp, dp = _round_up(p, 4), _round_up(d, 4)
+    weights = pp * 4 * ku + dp * _round_up(kp, 4) if resident else 0
+    shared = max(pp * row_tile + LSTMP_THREADS * 32 + row_tile * 4 * ku,
+                 h_rows * dp + LSTMP_THREADS)
+    xs = _round_up(2 * bsz * 4 * ku, 4) if prefetch else 0
+    return (weights + shared + xs + _round_up(bsz * ku, 4)
+            + _round_up(bsz * kp, 4) + bsz)
+
+
+def lstmp_launch_plan(bsz, d, p, sm_count, smem_limit=LSTMP_SMEM_LIMIT):
+    """K7's launch plan for B rows, D hidden units and P projection
+    columns on a card with `sm_count` SMs: a dict with
+      grid      -- blocks, one per SM: min(sm_count, max(D, P));
+      units     -- block j's hidden units [u0, u1) = [j D / G, (j+1) D / G);
+      cols      -- block j's projection columns, the same split of P;
+      ku, kp    -- the most units / columns any block owns;
+      row_tile  -- rows of r_prev staged in shared memory at once (a
+                   multiple of 8; B rounded up to 8 when it fits);
+      b_pad     -- B rounded up to the row tile (the exchanged r's rows);
+      h_rows    -- rows of h_new staged at once for the projection (as
+                   many as the shared memory left over holds, at most B
+                   and at most 8 rows a warp);
+      resident  -- the weight slices stay in shared memory for the launch
+                   (False: they are read from L2 at every step);
+      prefetch  -- the next step's x columns of all B rows are copied
+                   into shared memory during a step (False: the cell
+                   update reads them from global memory);
+      smem      -- dynamic shared memory bytes;
+      scratch   -- fp32 words of the zeroed scratch buffer: the grid
+                   barrier's counter, r [P, b_pad] and h [B, D] (P and D
+                   rounded up to 4);
+      threads   -- threads per block.
+    Resident weights come first, then the prefetch, then the largest row
+    tile that fits (a thread's tile is 8 rows x 4 gate columns, and a
+    row tile gives every thread at least one). Raises ValueError when not
+    even 8 rows fit (B's own state alone overflows a block)."""
+    if bsz <= 0 or d <= 0 or p <= 0 or sm_count <= 0:
+        raise ValueError("lstmp_launch_plan needs positive B, D, P and SM "
+                         "count, got %r" % ((bsz, d, p, sm_count),))
+    grid = min(sm_count, max(d, p))
+    ku, kp = -(-d // grid), -(-p // grid)
+    top = min(_round_up(bsz, 8), LSTMP_THREADS // ku * 8)
+    dp = _round_up(d, 4)
+    for resident, prefetch, row_tile in (
+            (r, f, n) for r in (True, False) for f in (True, False)
+            for n in range(top, 0, -8)):
+        # phase B's h rows take phase A's buffers and what is left over
+        base = _lstmp_smem_floats(bsz, p, d, ku, kp, row_tile, 0, resident,
+                                  prefetch)
+        phase_a = (_round_up(p, 4) * row_tile + LSTMP_THREADS * 32
+                   + row_tile * 4 * ku)
+        h_rows = min(bsz, LSTMP_THREADS // 32 * 8,
+                     (smem_limit // 4 - base + phase_a
+                      - LSTMP_THREADS) // dp)
+        if 4 * base <= smem_limit and h_rows >= 1:
+            words = _lstmp_smem_floats(bsz, p, d, ku, kp, row_tile, h_rows,
+                                       resident, prefetch)
+            b_pad = _round_up(bsz, row_tile)
+            return {
+                "grid": grid, "ku": ku, "kp": kp,
+                "units": [(j * d // grid, (j + 1) * d // grid)
+                          for j in range(grid)],
+                "cols": [(j * p // grid, (j + 1) * p // grid)
+                         for j in range(grid)],
+                "row_tile": row_tile, "b_pad": b_pad, "h_rows": h_rows,
+                "resident": resident,
+                "prefetch": prefetch, "smem": 4 * words,
+                "scratch": 4 + _round_up(p, 4) * b_pad
+                + bsz * _round_up(d, 4),
+                "threads": LSTMP_THREADS}
+    raise ValueError("fused_lstmp: batch %d at D=%d, P=%d needs more shared "
+                     "memory than a block has (%d bytes)"
+                     % (bsz, d, p, smem_limit))
+
+
 def fused_lstmp_plain(x, w, w_proj, b, r0=None, c0=None, lens=None,
                       reverse=False, peepholes=None,
                       acts=(torch.sigmoid, torch.tanh, torch.tanh,
@@ -934,7 +1038,9 @@ def fused_lstmp(x, w, w_proj, b, r0=None, c0=None, lens=None, reverse=False):
     fp32.
 
     Dispatch by x's device: meta -> empty outputs, cpu -> the plain
-    version, cuda -> the kernel (fp32 only; anything else raises)."""
+    version, cuda -> the kernel (fp32 only; anything else raises): one
+    cooperative launch of one block per SM, as lstmp_launch_plan lays it
+    out for this card; a refused launch raises."""
     bsz, t, d, p = _lstmp_args(x, w, w_proj, b, r0, c0, lens)
     dev = x.device.type
     if dev == "meta":
@@ -960,8 +1066,6 @@ def fused_lstmp(x, w, w_proj, b, r0=None, c0=None, lens=None, reverse=False):
         raise ValueError("fused_lstmp: x needs a contiguous last dim (got "
                          "strides %s)" % (tuple(x.stride()),))
     w = w.contiguous()
-    if w.data_ptr() % 16:     # the kernel reads w's rows as float4
-        w = w.clone()
     w_proj = w_proj.contiguous()
     b = b.reshape(-1).contiguous()
     r0 = r0.contiguous() if r0 is not None else None
@@ -973,17 +1077,39 @@ def fused_lstmp(x, w, w_proj, b, r0=None, c0=None, lens=None, reverse=False):
     if lens is not None:
         lens = lens.reshape(bsz).to(device=x.device,
                                     dtype=torch.int32).contiguous()
-    lib = build()
+    plan = lstmp_launch_plan(bsz, d, p, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    _launch_lstmp(build(), plan, x, w, w_proj, b, r0, c0, lens, reverse,
+                  proj, cell)
+    _count(fused_lstmp)
+    return proj, cell
+
+
+def _launch_lstmp(lib, plan, x, w, w_proj, b, r0, c0, lens, reverse,
+                  proj=None, cell=None):
+    """One launch of K7 from `lib` with `plan`, on checked CUDA tensors
+    (w, w_proj, b, r0, c0 contiguous; lens int32 or None). Allocates the
+    zeroed scratch (and the outputs when not given); raises when the
+    launch is refused. Returns (proj, cell)."""
+    bsz, t, four_d = x.shape
+    d, p = four_d // 4, w_proj.shape[1]
+    if proj is None:
+        proj = torch.empty((bsz, t, p), dtype=torch.float32, device=x.device)
+        cell = torch.empty((bsz, t, d), dtype=torch.float32, device=x.device)
+    scratch = torch.zeros(plan["scratch"], dtype=torch.float32,
+                          device=x.device)
     err = lib.ptt_fused_lstmp_fwd(
         x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(),
         w_proj.data_ptr(), b.data_ptr(),
         r0.data_ptr() if r0 is not None else None,
         c0.data_ptr() if c0 is not None else None,
         lens.data_ptr() if lens is not None else None,
-        proj.data_ptr(), cell.data_ptr(), bsz, t, d, p, int(bool(reverse)),
+        proj.data_ptr(), cell.data_ptr(), scratch.data_ptr(), bsz, t, d, p,
+        int(bool(reverse)), plan["grid"], plan["ku"], plan["kp"],
+        plan["row_tile"], plan["h_rows"], int(plan["prefetch"]),
+        plan["smem"], int(plan["resident"]), plan["threads"],
         _stream_of(x))
     _check_launch(err, "fused_lstmp")
-    _count(fused_lstmp)
     return proj, cell
 
 
@@ -1232,9 +1358,10 @@ class SoftmaxXent(torch.autograd.Function):
     """(loss, lse) [N, 1] = softmax cross-entropy of logits [N, V] with hard
     labels through K4; backward in torch (parity:
     pallas_kernels._xent_core_bwd): d logits = p * (g_loss + g_lse) -
-    onehot * g_loss, with p = exp(logits - lse) and a zero one-hot row for a
-    label outside [0, V). lse is differentiable so that a softmax built as
-    exp(logits - lse) gets its exact gradient. The [N, V] gradient is built
+    onehot * g_loss, with p = exp(logits - lse) and the one-hot at the
+    class hard_label_index picks (the forward's class). lse is
+    differentiable so that a softmax built as exp(logits - lse) gets its
+    exact gradient. The [N, V] gradient is built
     in place in one buffer (the exponential's), to hold one [N, V] tensor
     rather than four."""
 
@@ -1250,10 +1377,8 @@ class SoftmaxXent(torch.autograd.Function):
         n, v = logits.shape
         d = torch.sub(logits.float(), lse).exp_()
         d.mul_(g_loss + g_lse)
-        lab = labels.reshape(n, 1).long()
-        ok = (lab >= 0) & (lab < v)
-        # a label outside [0, V) adds 0 (at column 0): no host sync
-        d.scatter_add_(1, lab.clamp(0, v - 1), -g_loss * ok)
+        d.scatter_add_(1, hard_label_index(labels.reshape(n, 1), v),
+                       -g_loss.float())
         return d.to(logits.dtype), None
 
 

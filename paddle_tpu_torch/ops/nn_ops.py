@@ -103,10 +103,21 @@ def _fused_attention(ctx, ins, attrs):
 
 @register("lookup_table")
 def _lookup_table(ctx, ins, attrs):
+    """Rows of W [V, D] for the ids, with the JAX rule's jnp.take
+    semantics and no host sync: an id in [-V, 0) wraps to id + V; any
+    other id outside [0, V) gives a row of NaN (the index is clamped for
+    the gather, then the row replaced), and W gets no gradient from it.
+    A bad token id thus poisons only its own row, never the device (an
+    out-of-range index_select is a device-side assert on the card)."""
     w = single(ins, "W")        # [V, D]
     ids = single(ins, "Ids")    # [..., 1] or [...] int
     flat = ids.reshape(-1).long()
-    out = w.index_select(0, flat)
+    v = w.shape[0]
+    valid = (flat >= -v) & (flat < v)
+    idx = torch.where(flat < 0, flat + v, flat).clamp(0, v - 1)
+    out = torch.where(valid[:, None], w.index_select(0, idx),
+                      torch.full((), float("nan"), dtype=w.dtype,
+                                 device=w.device))
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((flat == padding_idx)[:, None],
@@ -151,17 +162,21 @@ def _accuracy(ctx, ins, attrs):
 
 def _gather_label_logits(logp, label):
     """[..., C] values + [..., 1] (or [...]) int labels -> [...] picked
-    values (an out-of-range label is clamped, as a JAX gather is)."""
+    values, the label mapped to its class by
+    cuda_kernels.hard_label_index."""
     flat = logp.reshape(-1, logp.shape[-1])
-    lab = label.reshape(-1, 1).long().clamp(0, flat.shape[-1] - 1)
+    lab = cuda_kernels.hard_label_index(label.reshape(-1, 1), flat.shape[-1])
     return flat.gather(1, lab).reshape(logp.shape[:-1])
 
 
 @register("softmax_with_cross_entropy")
 def _softmax_xent(ctx, ins, attrs):
     """Hard labels on 2-D logits take the K4 kernel (loss and row lse in
-    one pass). The Softmax output the op also declares is exp(logits -
-    lse) from K4's lse, not a second reduction; the JAX rule leaves it to
+    one pass). A hard label outside [0, V) picks the class of
+    cuda_kernels.hard_label_index on every path and rank (-1 -> V - 1,
+    V + k -> V - 1), as the JAX package's CPU path does. The Softmax
+    output the op also declares is exp(logits - lse) from K4's lse, not a
+    second reduction; the JAX rule leaves it to
     XLA to drop when unread, and eager PyTorch materializes it ([N, V]).
     Soft labels and other ranks take the plain log-softmax path."""
     logits = single(ins, "Logits")

@@ -1,0 +1,276 @@
+"""Three places where the port's result once differed from the JAX
+package's, each held to the JAX rule on the CPU.
+
+- lookup_table with ids outside [0, V): the JAX rule's jnp.take wraps an
+  id in [-V, 0) and gives a NaN row for any other, and W's gradient gets
+  nothing from such a row. Exact: both sides only select values.
+- softmax_with_cross_entropy and cross_entropy with hard labels outside
+  [0, V): the JAX package's CPU path (its `_gather_label_logits`) wraps
+  -1 to V - 1 and clamps V + k to V - 1. rtol = atol = 1e-5: fp32 log-
+  softmax summed in another order.
+- random ops inside an RNN step: the JAX rng folds each enclosing loop's
+  iteration into the key, so a step's draw differs from the last one's.
+  The port's streams are its own generators (the JAX package's threefry
+  bits are not portable), so this compares behaviour and statistics,
+  never bits.
+
+Inputs are made with numpy from a seed and handed to both packages.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import paddle_tpu  # noqa: F401  (registers the JAX rules)
+from paddle_tpu.core import registry as jreg
+from paddle_tpu.core.lowering import LowerCtx as JaxCtx
+
+import paddle_tpu_torch as tfluid
+from paddle_tpu_torch.core import registry as treg
+from paddle_tpu_torch.core.lowering import LowerCtx as TorchCtx
+from paddle_tpu_torch.ops import cuda_kernels as ck
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+CPU = torch.device("cpu")
+
+
+def _jax_rule(op_type, ins, attrs):
+    jins = {s: [jnp.asarray(a) for a in v] for s, v in ins.items()}
+    return jreg.get(op_type).lower(JaxCtx(None, base_key=jax.random.key(0)),
+                                   jins, attrs)
+
+
+def _port_rule(op_type, ins, attrs):
+    tins = {s: [torch.from_numpy(np.ascontiguousarray(a)) for a in v]
+            for s, v in ins.items()}
+    return treg.get(op_type).lower(TorchCtx(None, CPU, run_seed=1), tins,
+                                   attrs)
+
+
+# --------------------------------------------------------- lookup_table --
+
+_V = 6
+
+
+def _lookup_inputs(shape):
+    rng = np.random.RandomState(21)
+    w = rng.randn(_V, 5).astype(np.float32)
+    ids = rng.randint(0, _V, size=shape).astype(np.int64)
+    flat = ids.reshape(-1)
+    flat[:5] = [_V, _V + 5, -1, -_V, -_V - 1]   # NaN, NaN, V-1, 0, NaN
+    return w, flat.reshape(shape)
+
+
+@pytest.mark.parametrize("padding_idx", [-1, 2])
+@pytest.mark.parametrize("shape", [(9, 1), (3, 4)])
+def test_lookup_table_out_of_range_ids_match_jnp_take(shape, padding_idx):
+    """Ids V, V + 5 and -V - 1 give NaN rows, -1 and -V wrap; values
+    compared with NaN equal to NaN, exactly."""
+    w, ids = _lookup_inputs(shape)
+    ins = {"W": [w], "Ids": [ids]}
+    attrs = {"padding_idx": padding_idx}
+    want = np.asarray(_jax_rule("lookup_table", ins, attrs)["Out"][0])
+    got = _port_rule("lookup_table", ins, attrs)["Out"][0].numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    nan_rows = np.isnan(got.reshape(-1, w.shape[1])).all(axis=1)
+    assert list(nan_rows[:5]) == [True, True, False, False, True]
+
+
+def test_lookup_table_gradient_skips_out_of_range_ids():
+    """dW of sum(out * g) over the valid rows only: the rows of the ids
+    that wrap land on their wrapped row, the NaN rows add nothing."""
+    w, ids = _lookup_inputs((9, 1))
+    g = np.random.RandomState(22).randn(9, 5).astype(np.float32)
+    keep = np.ones(9, bool)
+    keep[[0, 1, 4]] = False     # the ids that give NaN rows
+
+    def jloss(wj):
+        out = _jax_rule("lookup_table", {"W": [wj], "Ids": [ids]},
+                        {})["Out"][0]
+        return jnp.sum(jnp.where(keep[:, None], out * g, 0.0))
+
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(w)))
+    wt = torch.from_numpy(w).requires_grad_(True)
+    out = treg.get("lookup_table").lower(
+        TorchCtx(None, CPU), {"W": [wt], "Ids": [torch.from_numpy(ids)]},
+        {})["Out"][0]
+    torch.where(torch.from_numpy(keep)[:, None], out * torch.from_numpy(g),
+                torch.zeros(())).sum().backward()
+    np.testing.assert_allclose(wt.grad.numpy(), want, **TOL)
+    # the full output's gradient also leaves W finite: a NaN row takes
+    # no part of W
+    wt.grad = None
+    out = treg.get("lookup_table").lower(
+        TorchCtx(None, CPU), {"W": [wt], "Ids": [torch.from_numpy(ids)]},
+        {})["Out"][0]
+    (out * torch.from_numpy(g)).sum().backward()
+    assert np.isfinite(wt.grad.numpy()).all()
+
+
+# ------------------------------------------------------ hard-label xent --
+
+def _xent_logits(shape):
+    """ROADMAP's [3, 5] example: rows 0 and 1 have labels -1 and 7."""
+    logits = np.random.RandomState(23).randn(*shape).astype(np.float32) * 2
+    return logits
+
+
+@pytest.mark.parametrize("labels", [[-1, 7, 2], [5, -5, -6]])
+@pytest.mark.parametrize("rank", [2, 3])
+def test_softmax_with_cross_entropy_out_of_range_labels(rank, labels):
+    """-1 -> V - 1, V + k -> V - 1, -V -> 0, -V - 1 -> 0 (the JAX CPU path,
+    PADDLE_TPU_PALLAS=0), on 2-D logits (K4's plain version) and 3-D (the
+    log-softmax path)."""
+    logits = _xent_logits((3, 5))
+    lab = np.array(labels, np.int64).reshape(3, 1)
+    if rank == 3:
+        logits, lab = logits[None], lab[None]
+    ins = {"Logits": [logits], "Label": [lab]}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PADDLE_TPU_PALLAS", "0")
+        want = np.asarray(_jax_rule("softmax_with_cross_entropy", ins,
+                                    {})["Loss"][0])
+    got = _port_rule("softmax_with_cross_entropy", ins, {})["Loss"][0]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # the rule by hand: the class hard_label_index picks
+    idx = [(v + 5 if v < 0 else v) for v in labels]
+    idx = [min(max(v, 0), 4) for v in idx]
+    lp = torch.log_softmax(torch.from_numpy(logits.reshape(3, 5)), -1)
+    np.testing.assert_allclose(got.numpy().reshape(3),
+                               -lp[torch.arange(3), idx].numpy(), **TOL)
+
+
+def test_roadmap_example_losses():
+    """ROADMAP §C3's numbers: a [3, 5] row block with labels -1 and 7 gives
+    1.385 / 1.419 on the JAX CPU path; the port now agrees (2-D and
+    3-D)."""
+    rng = np.random.RandomState(0)
+    logits = rng.randn(3, 5).astype(np.float32)
+    lab = np.array([[-1], [7], [0]], np.int64)
+    for lg, lb in ((logits, lab), (logits[None], lab[None])):
+        ins = {"Logits": [lg], "Label": [lb]}
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("PADDLE_TPU_PALLAS", "0")
+            want = np.asarray(_jax_rule("softmax_with_cross_entropy", ins,
+                                        {})["Loss"][0]).reshape(-1)
+        got = _port_rule("softmax_with_cross_entropy", ins,
+                         {})["Loss"][0].numpy().reshape(-1)
+        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_allclose(got[:2], [1.385, 1.419], atol=1e-3)
+
+
+def test_cross_entropy_out_of_range_labels():
+    """cross_entropy on probabilities takes the same class rule."""
+    probs = torch.softmax(torch.from_numpy(_xent_logits((4, 5))), -1).numpy()
+    lab = np.array([[-1], [5], [9], [-7]], np.int64)
+    ins = {"X": [probs], "Label": [lab]}
+    want = np.asarray(_jax_rule("cross_entropy", ins, {})["Y"][0])
+    got = _port_rule("cross_entropy", ins, {})["Y"][0].numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_softmax_xent_backward_takes_the_forward_class():
+    """SoftmaxXent's gradient puts the one-hot at the class the forward
+    picked: against autograd through log_softmax and that class for
+    every label, and against jax.vjp of the JAX CPU path for the labels
+    in [-V, V). (For a label that only the clamp brings into range, V + k
+    or -V - k, the JAX gradient is 0: its gather clamps but the scatter
+    that transposes it drops the index. The port keeps the gradient of
+    its own forward.)"""
+    logits = _xent_logits((6, 5))
+    lab = np.array([-1, 5, 12, -5, -9, 3], np.int64)
+    g = np.random.RandomState(24).randn(6, 1).astype(np.float32)
+    x = torch.from_numpy(logits).requires_grad_(True)
+    loss, _ = ck.SoftmaxXent.apply(x, torch.from_numpy(lab))
+    got, = torch.autograd.grad(loss, x, torch.from_numpy(g))
+    y = torch.from_numpy(logits).requires_grad_(True)
+    idx = ck.hard_label_index(torch.from_numpy(lab)[:, None], 5)
+    ref = -torch.log_softmax(y, -1).gather(1, idx)
+    want, = torch.autograd.grad(ref, y, torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+    def jloss(xj):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("PADDLE_TPU_PALLAS", "0")
+            return _jax_rule("softmax_with_cross_entropy",
+                             {"Logits": [xj], "Label": [lab[:, None]]},
+                             {})["Loss"][0]
+
+    _, vjp = jax.vjp(jloss, jnp.asarray(logits))
+    jwant, = vjp(jnp.asarray(g))
+    inside = (lab >= -5) & (lab < 5)
+    np.testing.assert_allclose(got.numpy()[inside],
+                               np.asarray(jwant)[inside], **TOL)
+
+
+# ------------------------------------------- random ops in an RNN step --
+
+def _noisy_rnn(b, t, h, seed):
+    """A StaticRNN whose step adds uniform_random [B, H] noise (op seed
+    `seed`; 0 = the run's stream) to its step input; the output stacks
+    the steps."""
+    main, startup = tfluid.Program(), tfluid.Program()
+    main.random_seed = 7
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        x = tfluid.layers.data(name="x", shape=[t, h], dtype="float32")
+        rnn = tfluid.layers.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            block = main.current_block()
+            noise = block.create_var(name="step_noise", shape=[b, h],
+                                     dtype="float32")
+            block.append_op(type="uniform_random", outputs={"Out": [noise]},
+                            attrs={"shape": [b, h], "min": 0.0, "max": 1.0,
+                                   "dtype": "float32", "seed": seed},
+                            infer_shape=False)
+            rnn.output(tfluid.layers.elementwise_add(xt, noise))
+        out = rnn()
+    return main, startup, out
+
+
+@pytest.mark.parametrize("seed", [0, 11])
+def test_random_op_in_rnn_step_draws_anew_each_step(seed):
+    """Each step's draw differs from every other step's, two runs of one
+    program repeat each other, and the draws keep U(0, 1)'s statistics
+    (mean 0.5, std 1/sqrt(12), within 5 standard errors over 4096
+    values)."""
+    b, t, h = 8, 4, 128
+    main, startup, out = _noisy_rnn(b, t, h, seed)
+    exe = tfluid.Executor("cpu")
+    scope = tfluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = {"x": np.zeros((b, t, h), np.float32)}
+    got, = exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+    again, = exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+    assert got.shape == (b, t, h)
+    for i in range(t):
+        for j in range(i):
+            assert not np.allclose(got[:, i], got[:, j]), (i, j)
+    if seed:
+        np.testing.assert_array_equal(got, again)
+    vals = got.reshape(-1)
+    se = (1 / np.sqrt(12)) / np.sqrt(vals.size)
+    assert abs(vals.mean() - 0.5) < 5 * se
+    assert abs(vals.std() - 1 / np.sqrt(12)) < 0.02
+    assert vals.min() >= 0.0 and vals.max() < 1.0
+
+
+def test_rnn_step_draws_repeat_between_runs_of_one_seed():
+    """Two executors on two fresh scopes, one program seed: the same
+    draws at every step (the run counter starts from the same place)."""
+    b, t, h = 4, 3, 16
+    runs = []
+    for _ in range(2):
+        main, startup, out = _noisy_rnn(b, t, h, 0)
+        exe = tfluid.Executor("cpu")
+        scope = tfluid.Scope()
+        exe.run(startup, scope=scope)
+        runs.append(exe.run(main, feed={"x": np.zeros((b, t, h),
+                                                       np.float32)},
+                            fetch_list=[out], scope=scope)[0])
+    np.testing.assert_array_equal(runs[0], runs[1])
+    assert not np.allclose(runs[0][:, 0], runs[0][:, 1])

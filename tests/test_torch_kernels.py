@@ -224,40 +224,51 @@ def _xent_inputs(n=37, v=50, seed=11):
     rng = np.random.RandomState(seed)
     logits = (rng.randn(n, v) * 3).astype(np.float32)
     labels = rng.randint(0, v, n).astype(np.int64)
-    labels[:3] = [-1, v, v + 5]                  # outside [0, V): pick 0
+    labels[:3] = [-1, v, v + 5]                  # outside [0, V): V - 1
     return logits, labels
+
+
+def _jax_cpu_labels(labels, v):
+    """The classes the JAX CPU path's gather picks (and the port's
+    hard_label_index): -1 wraps to V - 1, V + k clamps to V - 1. The JAX
+    Pallas kernel picks 0 for a label outside [0, V) instead, so it is
+    handed these."""
+    return np.clip(np.where(labels < 0, labels + v, labels), 0,
+                   v - 1).astype(np.int32)
 
 
 def test_xent_plain_matches_jax_kernel():
     logits, labels = _xent_inputs()
     loss, lse = ck.softmax_xent_fwd_plain(torch.from_numpy(logits),
                                           torch.from_numpy(labels))
+    classes = _jax_cpu_labels(labels, logits.shape[1])
     jloss, jlse = pk._xent_fwd_call(jnp.asarray(logits),
-                                    jnp.asarray(labels.astype(np.int32)), 8,
-                                    True)
+                                    jnp.asarray(classes), 8, True)
     np.testing.assert_allclose(loss.numpy(), np.asarray(jloss), **TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), **TOL)
     np.testing.assert_allclose(
         loss.numpy(), np.asarray(pk.softmax_xent(
-            jnp.asarray(logits), jnp.asarray(labels.astype(np.int32)),
-            interpret=True)), **TOL)
-    # an out-of-range label picks 0: the loss is the row's lse
-    np.testing.assert_array_equal(loss.numpy()[:3], lse.numpy()[:3])
+            jnp.asarray(logits), jnp.asarray(classes), interpret=True)),
+        **TOL)
+    # labels -1, V and V + 5 pick class V - 1
+    np.testing.assert_allclose(
+        loss.numpy()[:3, 0], lse.numpy()[:3, 0] - logits[:3, -1], **TOL)
 
 
 def test_xent_function_backward_matches_jax_custom_vjp():
     """SoftmaxXent (forward K4, backward in torch) against the JAX
-    _xent_core custom_vjp, out-of-range labels included (zero one-hot
-    row); and the lse output's own gradient against autograd's."""
+    _xent_core custom_vjp, out-of-range labels included (the one-hot at
+    the class the forward picks, handed to the JAX kernel as that class);
+    and the lse output's own gradient against autograd's."""
     logits, labels = _xent_inputs(seed=12)
     g = np.random.RandomState(5).randn(logits.shape[0], 1).astype(np.float32)
     x = torch.from_numpy(logits).requires_grad_(True)
     loss, lse = ck.SoftmaxXent.apply(x, torch.from_numpy(labels))
     got, = torch.autograd.grad(loss, x, torch.from_numpy(g),
                                retain_graph=True)
+    classes = _jax_cpu_labels(labels, logits.shape[1])
     _, vjp = jax.vjp(lambda a: pk.softmax_xent(
-        a, jnp.asarray(labels.astype(np.int32)), interpret=True),
-        jnp.asarray(logits))
+        a, jnp.asarray(classes), interpret=True), jnp.asarray(logits))
     want, = vjp(jnp.asarray(g))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     got_lse, = torch.autograd.grad(lse, x, torch.from_numpy(g))

@@ -219,6 +219,115 @@ def test_fused_lstmp_wrapper_dispatches_by_device():
                        r0=torch.zeros(2, 3))
 
 
+def _split_covers(ranges, n):
+    """The ranges are [j n / G, (j + 1) n / G): they tile [0, n) in order
+    with no gap or overlap, and their sizes differ by at most one."""
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0 and a0 <= a1
+    sizes = [hi - lo for lo, hi in ranges]
+    assert max(sizes) - min(sizes) <= 1
+    return max(sizes)
+
+
+def _plan_words(bsz, d, p, plan):
+    """K7's shared memory in 4-byte words, region by region as the kernel
+    lays it out (csrc/fused_lstmp_fwd.cu), written out independently of
+    cuda_kernels._lstmp_smem_floats."""
+    up4 = lambda v: -(-v // 4) * 4                       # noqa: E731
+    ku, kp, tile = plan["ku"], plan["kp"], plan["row_tile"]
+    words = 0
+    if plan["resident"]:
+        words += up4(p) * 4 * ku                 # W slices [Pp][4 ku]
+        words += up4(d) * up4(kp)                # W_proj slices [Dp][kp4]
+    # phase A's r_prev^T row tile, partial sums (8 x 4 a thread) and
+    # their sums, then phase B's rows of h
+    words += max(up4(p) * tile + plan["threads"] * 8 * 4 + tile * 4 * ku,
+                 plan["h_rows"] * up4(d) + plan["threads"])
+    if plan["prefetch"]:
+        words += up4(2 * bsz * 4 * ku)           # x of two steps
+    return words + up4(bsz * ku) + up4(bsz * kp) + bsz
+
+
+@pytest.mark.parametrize("sm", [132, 114])
+@pytest.mark.parametrize("bsz", [1, 8, 32])
+def test_lstmp_launch_plan_deepasr_widths(sm, bsz):
+    """D 1024 / P 512 (DeepASR): one block per SM, every block owns 7-9
+    hidden units and 3-5 projection columns, both weight slices resident
+    (64-72 KB + 16-20 KB) with the whole batch in one row tile, within
+    the 227 KB a Hopper block may use."""
+    plan = ck.lstmp_launch_plan(bsz, 1024, 512, sm)
+    assert plan["grid"] == sm and plan["threads"] == 256
+    assert plan["ku"] == _split_covers(plan["units"], 1024) == -(-1024 // sm)
+    assert plan["kp"] == _split_covers(plan["cols"], 512) == -(-512 // sm)
+    assert plan["resident"] and plan["prefetch"]
+    assert plan["row_tile"] == plan["b_pad"] == -(-bsz // 8) * 8
+    assert plan["smem"] == 4 * _plan_words(bsz, 1024, 512, plan)
+    assert plan["smem"] <= ck.LSTMP_SMEM_LIMIT
+    # the barrier's counter, r^T [512, b_pad] and h [B, 1024]
+    assert plan["scratch"] == 4 + 512 * plan["b_pad"] + bsz * 1024
+    # the whole batch's h_new in one tile, but for 27 rows at 114 SMs
+    assert plan["h_rows"] == (27 if (sm, bsz) == (114, 32) else bsz)
+    if (sm, bsz) == (132, 8):
+        # W 512 x 32 + W_proj 1024 x 4 + r^T 512 x 8 + partial sums 256 x
+        # 32 + their sums 8 x 32 + x 2 x 8 x 32 + c 8 x 8 + r 8 x 4 + lens
+        # 8 words
+        assert plan["smem"] == 4 * 33640
+
+
+def test_lstmp_launch_plan_small_widths():
+    """Hidden 8 / proj 4 (the card-vs-CPU step): 8 blocks, one unit each;
+    four of them own one projection column and four own none."""
+    plan = ck.lstmp_launch_plan(4, 8, 4, 132)
+    assert plan["grid"] == 8 and (plan["ku"], plan["kp"]) == (1, 1)
+    assert plan["units"] == [(j, j + 1) for j in range(8)]
+    sizes = [hi - lo for lo, hi in plan["cols"]]
+    assert sorted(sizes) == [0] * 4 + [1] * 4
+    _split_covers(plan["cols"], 4)
+    assert plan["resident"] and plan["row_tile"] == plan["b_pad"] == 8
+    assert plan["h_rows"] == 4
+    assert plan["smem"] == 4 * _plan_words(4, 8, 4, plan)
+
+
+@pytest.mark.parametrize("d,p,sm", [(1000, 500, 132), (37, 21, 5),
+                                    (130, 3, 132), (3, 130, 132)])
+def test_lstmp_launch_plan_ragged_slices(d, p, sm):
+    """D and P not multiples of the grid (and D < G or P < G): the balanced
+    split still tiles both, each block owning floor or ceil of D / G."""
+    plan = ck.lstmp_launch_plan(32, d, p, sm)
+    assert plan["grid"] == min(sm, max(d, p))
+    assert plan["ku"] == _split_covers(plan["units"], d)
+    assert plan["kp"] == _split_covers(plan["cols"], p)
+    assert plan["smem"] == 4 * _plan_words(32, d, p, plan)
+    assert plan["smem"] <= ck.LSTMP_SMEM_LIMIT
+
+
+def test_lstmp_launch_plan_falls_back_within_the_kernel():
+    """Where the slices or the batch's buffers crowd shared memory, the
+    plan keeps the same kernel: a smaller row tile, then no x prefetch,
+    then weights read from L2 at every step; past that it raises rather
+    than running anything else."""
+    plan = ck.lstmp_launch_plan(256, 1024, 512, 132)
+    assert plan["resident"] and plan["prefetch"] and plan["row_tile"] < 256
+    plan = ck.lstmp_launch_plan(1024, 1024, 512, 132)
+    assert plan["resident"] and not plan["prefetch"]
+    assert plan["b_pad"] % plan["row_tile"] == 0 and plan["b_pad"] >= 1024
+    plan = ck.lstmp_launch_plan(32, 4096, 2048, 132)
+    assert not plan["resident"] and plan["ku"] == 32
+    for bsz, d, p in ((256, 1024, 512), (1024, 1024, 512),
+                      (32, 4096, 2048)):
+        plan = ck.lstmp_launch_plan(bsz, d, p, 132)
+        # every thread gets at least one 8 x 4 tile of a row tile
+        assert plan["row_tile"] // 8 * plan["ku"] <= plan["threads"]
+        assert 1 <= plan["h_rows"] <= min(bsz - 1, 64)
+        assert plan["smem"] == 4 * _plan_words(bsz, d, p, plan)
+        assert plan["smem"] <= ck.LSTMP_SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.lstmp_launch_plan(8192, 1024, 512, 132)
+    with pytest.raises(ValueError, match="positive"):
+        ck.lstmp_launch_plan(8, 1024, 512, 0)
+
+
 # ----------------------------------------------------------- the lstmp rule --
 
 def _lengths(seed):

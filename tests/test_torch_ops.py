@@ -335,14 +335,15 @@ def test_sign():
 
 def _xent_case(kind):
     """(ins, attrs, PADDLE_TPU_PALLAS) of one softmax_with_cross_entropy
-    case. The hard-label 2-D case takes the K4 semantics in the port
-    (a label outside [0, V) picks 0); the JAX rule has them on its Pallas
-    path, so that case runs it with PADDLE_TPU_PALLAS=1."""
+    case. The hard-label 2-D case has labels -1 and V: the port (K4's
+    plain version) takes the JAX CPU path's rule (both pick V - 1), so
+    that case runs the JAX rule with PADDLE_TPU_PALLAS=0 (its Pallas path
+    picks 0 instead)."""
     rng = np.random.RandomState(8)
     if kind == "hard_2d":
         lab = rng.randint(0, 20, (12, 1)).astype(np.int64)
         lab[:2, 0] = [-1, 20]
-        return ({"Logits": [_rand(12, 20) * 3], "Label": [lab]}, {}, "1")
+        return ({"Logits": [_rand(12, 20) * 3], "Label": [lab]}, {}, "0")
     if kind == "hard_2d_dense":
         lab = rng.randint(0, 20, (12, 1)).astype(np.int64)
         return ({"Logits": [_rand(12, 20) * 3], "Label": [lab]}, {}, "0")
@@ -529,6 +530,15 @@ def _grad_cases():
     ]
     for kind in _XENT_KINDS:
         ins, attrs, pallas = _xent_case(kind)
+        if kind == "hard_2d":
+            # label V becomes -V here: the JAX CPU path's gradient drops a
+            # label its gather had to clamp (its forward picks V - 1, its
+            # scatter transpose drops V), while -1 and -V wrap in range.
+            # tests/test_torch_faults.py holds label V's gradient to the
+            # port's own forward.
+            lab = ins["Label"][0].copy()
+            lab[1, 0] = -20
+            ins = dict(ins, Label=[lab])
         cases.append(("softmax_with_cross_entropy", ins, attrs,
                       ["Loss", "Softmax"], pallas))
     return cases
