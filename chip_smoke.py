@@ -48,7 +48,17 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               has no tanh on its projection: only its time compares. The
               K7 of commit c644094 (one block per batch row) is built
               from its source (--k7-baseline, or git history) and timed
-              beside it.
+              beside it. K2/K3 (flash backward, 3xTF32 on the tensor
+              cores) are also checked at D 32 and 128, T = 1 and 100,
+              on strided q/k/v/g cut from one packed [B, T, H, 4D]
+              buffer and at B*H = 2048, each case also replayed from a
+              CUDA graph, a kv_len-0 row's gradients exactly 0; timed at
+              the serving shape and at the training step's [32, 256, 8,
+              64] with and without the causal mask, beside the fp32
+              (67 TFLOP/s) and 3xTF32 (TF32 peak / 3) bounds, with the
+              K2/K3 of commit 0ba7d56 (fp32 CUDA cores) built from its
+              source (--flash-bwd-baseline, or git history) and timed in
+              turns with them.
 4. serving  — the main path: build Transformer-base scoring (vocab 30000,
               d_model 512, 8 heads, 6+6 layers, d_inner 2048, T=256) with
               the port's layers, run its startup program on the card from
@@ -156,9 +166,11 @@ import time
 import numpy as np
 
 # published peaks (NVIDIA data sheets): fp32 outside the tensor cores in
-# FLOP/s, device memory in bytes/s
-PEAKS = (("H100 PCIe", 51e12, 2.0e12), ("H100 NVL", 60e12, 3.9e12),
-         ("H100", 67e12, 3.35e12), ("H200", 67e12, 4.8e12))
+# FLOP/s, device memory in bytes/s, dense TF32 on the tensor cores in
+# FLOP/s (a 3xTF32 product costs three TF32 ones)
+PEAKS = (("H100 PCIe", 51e12, 2.0e12, 378e12),
+         ("H100 NVL", 60e12, 3.9e12, 417e12),
+         ("H100", 67e12, 3.35e12, 495e12), ("H200", 67e12, 4.8e12, 495e12))
 KERNEL_TOL = 1e-4       # fp32, different summation order than the plain
 BUCKET_TOL = 1e-5       # coalesced vs run_direct at the same bucket
 CPU_TOL = 1e-3          # card vs CPU through 12 fp32 layers
@@ -241,6 +253,9 @@ LSTMP_TPU = "paddle_tpu/ops/pallas_kernels.py:714 (_lstmp_seq_kernel, " \
 # the commit whose K7 (one block per batch row) the current one is timed
 # against
 K7_BASELINE_COMMIT = "c644094"
+# the commit whose K2/K3 (fp32 on the CUDA cores) the current ones are
+# timed against
+FLASH_BWD_BASELINE_COMMIT = "0ba7d56"
 
 
 class SmokeFailure(RuntimeError):
@@ -266,10 +281,11 @@ def card_line():
 
 
 def peaks_for(name):
-    for key, flops, bw in PEAKS:
+    """(fp32 FLOP/s, bytes/s, TF32 FLOP/s) of the card named `name`."""
+    for key, *peaks in PEAKS:
         if key in name:
-            return flops, bw
-    return PEAKS[2][1], PEAKS[2][2]
+            return tuple(peaks)
+    return tuple(PEAKS[2][1:])
 
 
 def time_ms(torch, fn, iters=20, reps=7):
@@ -329,6 +345,38 @@ def bound(flops, nbytes, peak_flops, peak_bw):
 
 # --------------------------------------------------------------- kernels --
 
+def flash_bwd_registers(log):
+    """Registers and spill bytes of each flash backward kernel per D, from
+    nvcc's `ptxas -v` lines; fails on a spill."""
+    import re
+    name, found = None, []
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S+?)'?(?: for|$)", line.strip())
+        if m:
+            name = m.group(1)
+            continue
+        kind = name and re.search(r"flash_bwd_(dkdv|dq)_kernelILi(\d+)E",
+                                  name)
+        if not kind:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            found.append([kind.group(1), int(kind.group(2)), None,
+                          int(m.group(1)) + int(m.group(2))])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and found and found[-1][2] is None:
+            found[-1][2] = int(m.group(1))
+    for kind, d, regs, spill in sorted(found):
+        print("ptxas: flash_bwd_%s_kernel<%d>: %s registers, %d bytes "
+              "spilled" % (kind, d, regs, spill))
+    check(len(found) == 8, "ptxas: expected the register lines of 8 flash "
+          "backward kernels, found %d" % len(found))
+    check(all(spill == 0 for *_, spill in found),
+          "a flash backward kernel spills registers")
+
+
 def flash_work(b, t, h, d, lens, causal, part="fwd"):
     """(flops, bytes) this input needs. Per valid (query, key) pair: 4*D
     flops forward ("fwd"), 8*D for dK/dV ("dkdv"), 6*D for dQ ("dq").
@@ -360,7 +408,8 @@ def rel_err(got, want):
                for g, w in zip(got, want))
 
 
-def run_kernels(torch, ck, peak_flops, peak_bw):
+def run_kernels(torch, ck, peak_flops, peak_bw, tc_flops,
+                flash_bwd_source=None):
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -429,73 +478,9 @@ def run_kernels(torch, ck, peak_flops, peak_bw):
             torch, lambda: ck.flash_attention_fwd(q, k, v, kv)),
     }
 
-    # K2, K3: flash attention backward, from the plain forward's out and
-    # lse, a random output gradient and delta = rowsum(g * out)
-    dkdv_err = dq_err = 0.0
-    for b, t, h, d, lens in cases:
-        q, k, v, g_out = (torch.randn((b, t, h, d), generator=g, device=dev)
-                          for _ in range(4))
-        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
-        for causal in (False, True):
-            for kv_len in (kv, None):
-                out, lse = ck.flash_attention_fwd_plain(q, k, v, kv_len,
-                                                        causal)
-                delta = ck.flash_delta(g_out, out)
-                args = (q, k, v, lse, delta, g_out, kv_len, causal)
-                ref = ck.flash_attention_bwd_plain(*args)
-                dk, dv = ck.flash_attention_bwd_dkdv(*args)
-                dq = ck.flash_attention_bwd_dq(*args)
-                torch.cuda.synchronize()
-                e_kv, e_q = rel_err((dk, dv), ref[1:]), rel_err((dq,), ref[:1])
-                print("kernels: flash bwd B=%d T=%d H=%d D=%d causal=%s "
-                      "kv_len=%s dkdv_rel_err=%.3e dq_rel_err=%.3e"
-                      % (b, t, h, d, causal,
-                         "ragged" if kv_len is not None else "full", e_kv,
-                         e_q))
-                check(np.isfinite(e_kv) and e_kv <= KERNEL_TOL
-                      and np.isfinite(e_q) and e_q <= KERNEL_TOL,
-                      "flash backward disagrees with its plain version: "
-                      "dK/dV %r, dQ %r (tolerance %r)"
-                      % (e_kv, e_q, KERNEL_TOL))
-                dkdv_err, dq_err = max(dkdv_err, e_kv), max(dq_err, e_q)
-    q, k, v, kv, lens = main_inputs
-    b, t, h, d = q.shape
-    g_out = torch.randn((b, t, h, d), generator=g, device=dev)
-    out, lse = ck.flash_attention_fwd(q, k, v, kv)
-    delta = ck.flash_delta(g_out, out)
-    args = (q, k, v, lse, delta, g_out, kv)
-    # the library yardstick: the backward of scaled_dot_product_attention
-    # with the same mask (dQ, dK and dV together). Autograd runs a backward
-    # on its forward's stream, so the graph captures forward + backward,
-    # and the forward's own time is taken off.
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                  for x in (q, k, v))
-    gt = g_out.transpose(1, 2)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-
-    sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
-        sdpa(), (qt, kt, vt), gt)) - time_ms(torch, sdpa)
-    shape = "q,k,v,g [%d,%d,%d,%d] fp32, kv_len %s" % (b, t, h, d, lens)
-    for name, src, tpu, err, fn, plain_part in (
-            ("flash_attention_bwd_dkdv", FLASH_BWD_SRC, DKDV_TPU, dkdv_err,
-             ck.flash_attention_bwd_dkdv, "dkdv"),
-            ("flash_attention_bwd_dq", FLASH_BWD_SRC, DQ_TPU, dq_err,
-             ck.flash_attention_bwd_dq, "dq")):
-        flops, nbytes = flash_work(b, t, h, d, lens, False, plain_part)
-        bms, bby = bound(flops, nbytes, peak_flops, peak_bw)
-        results[name] = {
-            "name": name, "route": "cuda", "source": src, "replaces": tpu,
-            "shape": shape, "max_abs_err": err, "err_kind": "relative "
-            "(max |kernel - plain| / max(1, max |plain|))",
-            "ms": time_ms(torch, lambda fn=fn: fn(*args)),
-            "plain_ms": time_ms(
-                torch, lambda: ck.flash_attention_bwd_plain(*args)),
-            "library_ms": sdpa_bwd_ms,
-            "library_covers": "dQ, dK and dV (one backward call)",
-            "bound_ms": bms, "bound_by": bby,
-        }
+    # K2, K3: flash attention backward (run_flash_bwd_kernels)
+    results.update(run_flash_bwd_kernels(torch, ck, g, cases, peak_flops,
+                                         peak_bw, tc_flops, flash_bwd_source))
 
     # K4: softmax cross-entropy forward at the training path's shape
     n, vocab = TRAIN_BATCH * MODEL["max_length"], MODEL["vocab"]
@@ -585,6 +570,260 @@ def run_kernels(torch, ck, peak_flops, peak_bw):
                  r["bound_ms"], r["bound_by"],
                  " eager_ms=%.4f" % r["eager_ms"] if "eager_ms" in r
                  else ""))
+    return results
+
+
+def flash_bwd_case(torch, ck, q, k, v, g_out, kv_len, causal):
+    """K2 and K3 against flash_attention_bwd_plain on one input (from the
+    plain forward's out and lse, delta = rowsum(g * out)), launched directly
+    and replayed from a CUDA graph. Checks both within KERNEL_TOL (relative,
+    rel_err) and every gradient of a kv_len-0 row exactly 0. Returns the
+    largest dK/dV and dQ errors."""
+    out, lse = ck.flash_attention_fwd_plain(q, k, v, kv_len, causal)
+    delta = ck.flash_delta(g_out, out)
+    args = (q, k, v, lse, delta, g_out, kv_len, causal)
+    ref = ck.flash_attention_bwd_plain(*args)
+    direct = ck.flash_attention_bwd_dkdv(*args) + (
+        ck.flash_attention_bwd_dq(*args),)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ck.flash_attention_bwd_dkdv(*args)
+        ck.flash_attention_bwd_dq(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ck.flash_attention_bwd_dkdv(*args) + (
+            ck.flash_attention_bwd_dq(*args),)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    errs = []
+    for dk, dv, dq in (direct, replayed):
+        errs.append((rel_err((dk, dv), ref[1:]), rel_err((dq,), ref[:1])))
+        if kv_len is not None:
+            empty = kv_len.long() == 0
+            check(all(bool((x[empty] == 0).all()) for x in (dk, dv, dq)),
+                  "flash backward: a kv_len-0 row has a nonzero gradient")
+    del graph
+    e_kv = max(e for e, _ in errs)
+    e_q = max(e for _, e in errs)
+    check(np.isfinite(e_kv) and e_kv <= KERNEL_TOL
+          and np.isfinite(e_q) and e_q <= KERNEL_TOL,
+          "flash backward disagrees with its plain version: dK/dV %r, dQ %r "
+          "(direct, CUDA graph: %r; tolerance %r)"
+          % (e_kv, e_q, errs, KERNEL_TOL))
+    return e_kv, e_q
+
+
+def flash_bwd_baseline(torch, ck, source, build_dir):
+    """The K2/K3 of commit FLASH_BWD_BASELINE_COMMIT (fp32 on the CUDA
+    cores) built from `source`: (dkdv, dq) functions with the wrappers'
+    signatures and no launch count (they are on no path)."""
+    lib = build_baseline(ck, source, build_dir, "ptt_flash_bwd_baseline",
+                         "flash backward")
+    ck._bind_flash_bwd(lib)
+
+    def call(fn, n_out, q, k, v, lse, delta, g, kv_len=None, causal=False):
+        b, t, h, d, lens, lse, delta = ck._flash_bwd_args(
+            "baseline flash backward", q, k, v, lse, delta, g, kv_len)
+        outs = [torch.empty((b, t, h, d), dtype=torch.float32,
+                            device=q.device) for _ in range(n_out)]
+        err = ck._bwd_call(fn, q, k, v, g, lse, delta, lens, outs, b, t, h,
+                           d, 1.0 / d ** 0.5, causal)
+        check(err == 0, "the baseline flash backward failed to launch "
+              "(cudaError %d)" % err)
+        return tuple(outs)
+
+    return (lambda *a: call(lib.ptt_flash_attention_bwd_dkdv, 2, *a),
+            lambda *a: call(lib.ptt_flash_attention_bwd_dq, 1, *a))
+
+
+def sdpa_kernel_names(torch, sdpa, leaves, gt):
+    """The device kernels one backward of scaled_dot_product_attention
+    runs (from a torch.profiler trace): what the library yardstick is."""
+    from torch.profiler import ProfilerActivity, profile
+    out = sdpa()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, leaves, gt)
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def run_flash_bwd_kernels(torch, ck, gen, fwd_cases, peak_flops, peak_bw,
+                          tc_flops, source=None):
+    """K2 (dK, dV) and K3 (dQ) against their plain version at the K1
+    cases and at D 16-128, T = 1 and 100, q/k/v/g cut from one packed
+    [B, T, H, 4D] buffer and B*H = 2048, causal and not, ragged kv_len
+    (with a 0) and none, each launched directly and from a CUDA graph.
+    Then timed (new kernels, the FLASH_BWD_BASELINE_COMMIT kernels when
+    their source is at hand, plain, library) beside two bounds at the
+    serving shape and the training path's two shapes."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 3)
+    t_max = MODEL["max_length"]
+    big_lens = rng.randint(1, 129, size=64).tolist()
+    big_lens[0], big_lens[1], big_lens[-1] = 128, 0, 1
+    cases = [("path", c, False) for c in fwd_cases] + [
+        ("D=32, T=100", (4, 100, 3, 32, [100, 0, 57, 1]), False),
+        ("D=128", (2, 256, 4, 128, [256, 0]), False),
+        ("D=128, T=100", (3, 100, 2, 128, [100, 1, 0]), False),
+        ("T=1", (3, 1, 2, 64, [1, 0, 1]), False),
+        ("T=1, D=16", (2, 1, 3, 16, [1, 0]), False),
+        ("packed [B,T,H,4D] views", (4, 100, 8, 64, [100, 0, 33, 71]), True),
+        ("packed [B,T,H,4D] views, D=16", (2, 40, 2, 16, [17, 0]), True),
+        ("B*H=2048", (64, 128, 32, 64, big_lens), False)]
+    dkdv_err = dq_err = 0.0
+    for what, (b, t, h, d, lens), packed in cases:
+        if packed:
+            buf = torch.randn((b, t, h, 4 * d), generator=gen, device=dev)
+            q, k, v, g_out = (buf[..., i * d:(i + 1) * d] for i in range(4))
+        else:
+            q, k, v, g_out = (torch.randn((b, t, h, d), generator=gen,
+                                          device=dev) for _ in range(4))
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for causal in (False, True):
+            for kv_len in (kv, None):
+                e_kv, e_q = flash_bwd_case(torch, ck, q, k, v, g_out, kv_len,
+                                           causal)
+                print("kernels: flash bwd %s B=%d T=%d H=%d D=%d causal=%s "
+                      "kv_len=%s dkdv_rel_err=%.3e dq_rel_err=%.3e (direct "
+                      "and CUDA graph)"
+                      % (what, b, t, h, d, causal,
+                         "ragged" if kv_len is not None else "full", e_kv,
+                         e_q))
+                dkdv_err, dq_err = max(dkdv_err, e_kv), max(dq_err, e_q)
+        del q, k, v, g_out
+        torch.cuda.empty_cache()
+
+    base = None
+    build_dir = tempfile.mkdtemp(prefix="ptt_flash_bwd_baseline_")
+    if source is not None:
+        t0 = time.perf_counter()
+        base = flash_bwd_baseline(torch, ck, source, build_dir)
+        print("kernels: built the baseline flash backward (%s) in %.1f s"
+              % (FLASH_BWD_BASELINE_COMMIT, time.perf_counter() - t0))
+    else:
+        print("kernels: the baseline flash backward source is not at hand; "
+              "its time is not measured")
+
+    full = [t_max] * TRAIN_BATCH
+    train = (TRAIN_BATCH, t_max, MODEL["n_head"], MODEL["d_key"], full)
+    shapes = [("serving", fwd_cases[0], False), ("training", train, False),
+              ("training causal", train, True)]
+    rows = []
+    for what, (b, t, h, d, lens), causal in shapes:
+        q, k, v, g_out = (torch.randn((b, t, h, d), generator=gen,
+                                      device=dev) for _ in range(4))
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out, lse = ck.flash_attention_fwd(q, k, v, kv, causal)
+        delta = ck.flash_delta(g_out, out)
+        args = (q, k, v, lse, delta, g_out, kv, causal)
+        if base is not None:
+            got = base[0](*args) + base[1](*args)
+            ref = ck.flash_attention_bwd_plain(*args)
+            torch.cuda.synchronize()
+            print("kernels: the baseline flash backward at %s agrees with "
+                  "the plain version to dK/dV %.3e, dQ %.3e"
+                  % (what, rel_err(got[:2], ref[1:]),
+                     rel_err(got[2:], ref[:1])))
+            del got, ref
+        # the library yardstick: the backward of scaled_dot_product_attention
+        # with the same mask (dQ, dK and dV together). Autograd runs a
+        # backward on its forward's stream, so the graph captures forward +
+        # backward, and the forward's own time is taken off.
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        gt = g_out.transpose(1, 2)
+        mask = None if all(n == t for n in lens) else \
+            (torch.arange(t, device=dev)[None, :]
+             < kv.long()[:, None])[:, None, None, :]
+
+        def sdpa(qt=qt, kt=kt, vt=vt, mask=mask, causal=causal):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  is_causal=causal)
+
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa(), (qt, kt, vt), gt)) - time_ms(torch, sdpa)
+        if what != "serving":
+            print("kernels: the library backward's device kernels at %s: %s"
+                  % (what, sdpa_kernel_names(torch, sdpa, (qt, kt, vt), gt)))
+        times = {"dkdv": [], "dq": [], "base_dkdv": [], "base_dq": []}
+        # in turns, old new new old, so that drift shows
+        for order in ("old", "new", "new", "old"):
+            pair = ((ck.flash_attention_bwd_dkdv, ck.flash_attention_bwd_dq)
+                    if order == "new" else base)
+            if pair is None:
+                continue
+            for key, fn in zip(("dkdv", "dq"), pair):
+                times[key if order == "new" else "base_" + key].append(
+                    time_ms(torch, lambda fn=fn: fn(*args)))
+        row = {"what": what, "causal": causal, "library_ms": library_ms,
+               "shape": "q,k,v,g [%d,%d,%d,%d] fp32, kv_len %s"
+               % (b, t, h, d, lens if what == "serving" else "full"),
+               "plain_ms": time_ms(
+                   torch, lambda: ck.flash_attention_bwd_plain(*args))}
+        for part in ("dkdv", "dq"):
+            flops, nbytes = flash_work(b, t, h, d, lens, causal, part)
+            row[part + "_ms"] = statistics.mean(times[part])
+            row[part + "_runs"] = times[part]
+            row["baseline_%s_ms" % part] = (
+                statistics.mean(times["base_" + part]) if base else None)
+            row["baseline_%s_runs" % part] = times["base_" + part]
+            row[part + "_bound_fp32_ms"], row[part + "_bound_fp32_by"] = \
+                bound(flops, nbytes, peak_flops, peak_bw)
+            row[part + "_bound_3xtf32_ms"], row[part + "_bound_3xtf32_by"] = \
+                bound(flops, nbytes, tc_flops / 3, peak_bw)
+        row["sum_ms"] = row["dkdv_ms"] + row["dq_ms"]
+        row["baseline_sum_ms"] = (row["baseline_dkdv_ms"]
+                                  + row["baseline_dq_ms"] if base else None)
+
+        def runs(key):
+            return " / ".join("%.4f" % x for x in times[key]) or \
+                "not measured"
+
+        print("kernels: flash bwd timing %s (%s, causal=%s): K2 %s ms, K3 %s "
+              "ms, sum %.4f ms; baseline K2 %s, K3 %s, sum %s ms; plain "
+              "%.4f ms; library %.4f ms; bound 3xTF32 %.4f + %.4f ms (%s), "
+              "fp32 %.4f + %.4f ms (%s)"
+              % (what, row["shape"], causal, runs("dkdv"), runs("dq"),
+                 row["sum_ms"], runs("base_dkdv"), runs("base_dq"),
+                 "not measured" if base is None
+                 else "%.4f" % row["baseline_sum_ms"],
+                 row["plain_ms"], library_ms, row["dkdv_bound_3xtf32_ms"],
+                 row["dq_bound_3xtf32_ms"], row["dkdv_bound_3xtf32_by"],
+                 row["dkdv_bound_fp32_ms"], row["dq_bound_fp32_ms"],
+                 row["dkdv_bound_fp32_by"]))
+        rows.append(row)
+        del q, k, v, g_out, out, qt, kt, vt
+    shutil.rmtree(build_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    serve = rows[0]
+    results = {}
+    for name, tpu, err, part, other in (
+            ("flash_attention_bwd_dkdv", DKDV_TPU, dkdv_err, "dkdv", "dq"),
+            ("flash_attention_bwd_dq", DQ_TPU, dq_err, "dq", "dkdv")):
+        results[name] = {
+            "name": name, "route": "cuda", "source": FLASH_BWD_SRC,
+            "replaces": tpu, "shape": serve["shape"], "max_abs_err": err,
+            "err_kind": "relative (max |kernel - plain| / max(1, max "
+            "|plain|))",
+            "ms": serve[part + "_ms"], "plain_ms": serve["plain_ms"],
+            "library_ms": serve["library_ms"],
+            "library_covers": "dQ, dK and dV (one backward call)",
+            # the products run on the tensor cores in 3xTF32
+            "bound_ms": serve[part + "_bound_3xtf32_ms"],
+            "bound_by": serve[part + "_bound_3xtf32_by"],
+            "bound_fp32_ms": serve[part + "_bound_fp32_ms"],
+            "baseline_ms": serve["baseline_%s_ms" % part],
+            "rows": [{key: val for key, val in r.items()
+                      if not key.startswith((other, "baseline_" + other))}
+                     for r in rows],
+        }
     return results
 
 
@@ -939,21 +1178,36 @@ def lstmp_graph_check(torch, ck, x, w, wp, bias, r0, c0, lens):
     return err
 
 
-def baseline_lstmp_source(path):
-    """The baseline K7 source (commit K7_BASELINE_COMMIT, one block per
-    batch row) to time beside the current kernel: `path` when
-    given, else `git show` of it when the checkout has its history, else
-    None (not measured)."""
+def baseline_source(path, commit, src):
+    """An earlier kernel's source to time beside the current one: `path`
+    when given, else `git show commit:src` when the checkout has its
+    history, else None (not measured)."""
     if path:
         with open(path) as f:
             return f.read()
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, ".git")):
         return None
-    out = subprocess.run(["git", "-C", here, "show",
-                          "%s:%s" % (K7_BASELINE_COMMIT, LSTMP_SRC)],
+    out = subprocess.run(["git", "-C", here, "show", "%s:%s" % (commit, src)],
                          capture_output=True, text=True, timeout=60)
     return out.stdout if out.returncode == 0 else None
+
+
+def build_baseline(ck, source, build_dir, stem, what):
+    """Compile an earlier kernel's source into build_dir/lib<stem>.so,
+    outside the package, and load it (its C entry points keep their
+    names; ctypes loads it apart from the package's library)."""
+    import ctypes
+    src = os.path.join(build_dir, stem + ".cu")
+    lib_path = os.path.join(build_dir, "lib%s.so" % stem)
+    with open(src, "w") as f:
+        f.write(source)
+    out = subprocess.run([ck._nvcc(), *ck.NVCC_FLAGS, "-shared", src, "-o",
+                          lib_path], capture_output=True, text=True,
+                         timeout=600)
+    check(out.returncode == 0, "nvcc failed for the baseline %s:\n%s%s"
+          % (what, out.stdout, out.stderr))
+    return ctypes.CDLL(lib_path)
 
 
 def baseline_lstmp(torch, ck, source, build_dir):
@@ -961,16 +1215,7 @@ def baseline_lstmp(torch, ck, source, build_dir):
     the package, and return a function with fused_lstmp's signature that
     launches it (no launch count: it is not on any path)."""
     import ctypes
-    src = os.path.join(build_dir, "fused_lstmp_fwd_baseline.cu")
-    lib_path = os.path.join(build_dir, "libptt_lstmp_baseline.so")
-    with open(src, "w") as f:
-        f.write(source)
-    out = subprocess.run([ck._nvcc(), *ck.NVCC_FLAGS, "-shared", src, "-o",
-                          lib_path], capture_output=True, text=True,
-                         timeout=600)
-    check(out.returncode == 0, "nvcc failed for the baseline K7:\n%s%s"
-          % (out.stdout, out.stderr))
-    lib = ctypes.CDLL(lib_path)
+    lib = build_baseline(ck, source, build_dir, "ptt_lstmp_baseline", "K7")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ptt_fused_lstmp_fwd.argtypes = [P, L, L] + [P] * 8 + [I] * 5 + [P]
     lib.ptt_fused_lstmp_fwd.restype = I
@@ -995,7 +1240,7 @@ def baseline_lstmp(torch, ck, source, build_dir):
 
 
 def run_acoustic_kernels(torch, ck, peak_flops, peak_bw,
-                         baseline_source=None):
+                         k7_source=None):
     """K7 against its plain version, forward and reverse, zero and given
     r0/c0, ragged lengths with 1 and T: at the acoustic path's shapes (a
     serving dispatch x [8, 512, 4096], a training step's [32, 512, 4096];
@@ -1044,9 +1289,9 @@ def run_acoustic_kernels(torch, ck, peak_flops, peak_bw,
         del inputs
     base_k7 = None
     build_dir = tempfile.mkdtemp(prefix="ptt_k7_baseline_")
-    if baseline_source is not None:
+    if k7_source is not None:
         t0 = time.perf_counter()
-        base_k7 = baseline_lstmp(torch, ck, baseline_source, build_dir)
+        base_k7 = baseline_lstmp(torch, ck, k7_source, build_dir)
         print("kernels: built the baseline fused_lstmp (%s) in %.1f s"
               % (K7_BASELINE_COMMIT, time.perf_counter() - t0))
     else:
@@ -1428,6 +1673,11 @@ def profile_step(torch, step, trace_path=None):
             groups["matrix products"] += us
         else:
             groups["other"] += us
+    flash = {part: sum(us for name, us in kernels.items() if part in name)
+             for part in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+    print("profile: flash attention device ms %s, %.1f in all"
+          % (json.dumps({k: v / 1e3 for k, v in flash.items()}),
+             sum(flash.values()) / 1e3))
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
     print("profile: step wall %.1f ms, device busy %.1f ms, idle share "
           "%.3f, %d device kernels" % (wall_us / 1e3, busy / 1e3,
@@ -2149,6 +2399,11 @@ def main(argv=None):
                     "batch row) to time beside the "
                     "new K7 (default: `git show %s:%s` when the checkout "
                     "has its history)" % (K7_BASELINE_COMMIT, LSTMP_SRC))
+    ap.add_argument("--flash-bwd-baseline", metavar="SRC",
+                    help="the baseline flash_attention_bwd.cu (fp32 on the "
+                    "CUDA cores) to time beside the new K2/K3 (default: "
+                    "`git show %s:%s` when the checkout has its history)"
+                    % (FLASH_BWD_BASELINE_COMMIT, FLASH_BWD_SRC))
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/shared-memory report")
     ap.add_argument("--trace", metavar="PATH",
@@ -2168,11 +2423,11 @@ def main(argv=None):
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw = peaks_for(name)
+    peak_flops, peak_bw, tc_flops = peaks_for(name)
     print("device: %s | torch %s, CUDA %s | peaks used for bounds: %.0f "
-          "TFLOP/s fp32, %.2f TB/s" % (card, torch.__version__,
-                                       torch.version.cuda, peak_flops / 1e12,
-                                       peak_bw / 1e12))
+          "TFLOP/s fp32, %.0f TFLOP/s TF32, %.2f TB/s"
+          % (card, torch.__version__, torch.version.cuda, peak_flops / 1e12,
+             tc_flops / 1e12, peak_bw / 1e12))
 
     t0 = time.perf_counter()
     ck.build(verbose=args.ptxas)
@@ -2180,13 +2435,17 @@ def main(argv=None):
                                    time.perf_counter() - t0))
     if args.ptxas:
         print(ck.build_info.log)
+        flash_bwd_registers(ck.build_info.log)
 
-    kernels = run_kernels(torch, ck, peak_flops, peak_bw)
+    kernels = run_kernels(
+        torch, ck, peak_flops, peak_bw, tc_flops,
+        baseline_source(args.flash_bwd_baseline, FLASH_BWD_BASELINE_COMMIT,
+                        FLASH_BWD_SRC))
     kernels.update(run_sequence_kernels(torch, ck, peak_flops, peak_bw))
     kernels.update(run_translation_kernels(torch, ck, peak_flops, peak_bw))
     kernels.update(run_acoustic_kernels(
         torch, ck, peak_flops, peak_bw,
-        baseline_lstmp_source(args.k7_baseline)))
+        baseline_source(args.k7_baseline, K7_BASELINE_COMMIT, LSTMP_SRC)))
     if args.only == "all":
         stem = args.trace and os.path.splitext(args.trace)[0]
         # each path: the launch counts of its run and the counts it

@@ -12,7 +12,7 @@ import torch
 
 from .framework import convert_dtype, default_main_program, find_var
 from .lod import LoDTensor
-from .lowering import Env, LowerCtx, lower_block
+from .lowering import Env, LowerCtx, lower_block, unread_outputs
 from .registry import torch_dtype
 
 
@@ -122,6 +122,9 @@ class Executor(object):
 
     def __init__(self, place=None):
         self.device = resolve_device(place)
+        # (program uid, program version, fetch names) -> the global-block
+        # outputs nothing reads in such a run (lowering.unread_outputs)
+        self._unread = {}
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
@@ -143,7 +146,11 @@ class Executor(object):
             var = find_var(program, name)
             env.write(name, to_tensor(
                 value, var.dtype if var is not None else None, self.device))
-        ctx = LowerCtx(program, self.device, run_seed=scope.next_seed())
+        key = (program._uid, program._version, tuple(fetch_names))
+        if key not in self._unread:
+            self._unread[key] = unread_outputs(program, fetch_names)
+        ctx = LowerCtx(program, self.device, run_seed=scope.next_seed(),
+                       unread=self._unread[key])
         with torch.no_grad():
             lower_block(ctx, program.global_block(), env)
         for op in program.global_block().ops:

@@ -30,18 +30,23 @@ from .framework import GRAD_SUFFIX
 
 
 class LowerCtx(object):
-    """Per-run context handed to op rules: the run's device and a seeded
-    random generator per op."""
+    """Per-run context handed to op rules: the run's device, a seeded
+    random generator per op, and which outputs of the running op some op,
+    fetch or the scope reads (`output_read`)."""
 
     is_abstract = False
 
-    def __init__(self, program, device, run_seed=0, is_startup=False):
+    def __init__(self, program, device, run_seed=0, is_startup=False,
+                 unread=frozenset()):
         self.program = program
         self.device = device
         self.run_seed = int(run_seed)
         self.is_startup = is_startup
+        # names of global-block outputs nothing reads (unread_outputs)
+        self.unread = unread
         self._op_salt = 0
         self._op_calls = 0
+        self._op_outputs = None
         # the iteration index of each enclosing loop (rnn_scan pushes its
         # step), folded into every random op's seed
         self._loop_iters = []
@@ -52,9 +57,19 @@ class LowerCtx(object):
         self.grad_stop = {}
         self.saved = {}
 
-    def begin_op(self, salt):
+    def begin_op(self, salt, outputs=None):
         self._op_salt = salt
         self._op_calls = 0
+        self._op_outputs = outputs
+
+    def output_read(self, slot):
+        """Whether the running op's `slot` output is read by some op, a
+        fetch or the scope. False only when every name of the slot is in
+        `unread`; True for a rule run outside an op (no names known)."""
+        names = (self._op_outputs or {}).get(slot)
+        if names is None:
+            return True
+        return any(n and n not in self.unread for n in names)
 
     def rng(self, salt=0, seed=0):
         """A torch.Generator on the run's device, seeded from (program
@@ -119,6 +134,27 @@ class Env(object):
         self.values[name] = value if cur is None else cur + value
 
 
+def unread_outputs(program, fetch_names=()):
+    """The outputs of `program`'s global-block ops that nothing reads in a
+    run fetching `fetch_names`: no op of any block lists them as an input,
+    no grad_of reads their gradient (it differentiates a forward output
+    through that output when its <out>@GRAD is among its inputs), no fetch
+    names them and they are not persistable. A rule may skip building them
+    (the JAX package leaves that to XLA's dead-code elimination)."""
+    read = set(fetch_names)
+    for blk in program.blocks:
+        for op in blk.ops:
+            names = op.all_input_vars()
+            read.update(names)
+            if op.type == "grad_of":
+                grads = set(names)
+                read.update(n for outs in op.attrs["fwd_outputs"].values()
+                            for n in outs if n + GRAD_SUFFIX in grads)
+    read.update(v.name for v in program.list_vars() if v.persistable)
+    return frozenset(n for op in program.global_block().ops
+                     for n in op.all_output_vars() if n and n not in read)
+
+
 def lower_block(ctx, block, env):
     """Run a program's global block: its `grad_of` ops name the forward
     ops that keep their local graphs in this run."""
@@ -157,7 +193,7 @@ def _lower_op_inner(ctx, op, env):
     od = registry.get(op.type)
     ins = {slot: [env.read(n) for n in names]
            for slot, names in op.inputs.items()}
-    ctx.begin_op(op.uid)
+    ctx.begin_op(op.uid, op.outputs)
     stop = ctx.grad_stop.get(op.uid)
     if stop is None:
         _write_outputs(op, od.lower(ctx, ins, op.attrs), env)

@@ -83,6 +83,9 @@ class AbstractCtx(object):
     def rng(self, salt=0, seed=0):
         return None
 
+    def output_read(self, slot):
+        return True  # shape inference builds every output
+
 
 def _meta_for(var, idx=0):
     """Meta tensor for inference pass `idx` (0 = BATCH_SENTINEL,

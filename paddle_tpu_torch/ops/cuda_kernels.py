@@ -172,11 +172,7 @@ def _bind(lib):
     lib.ptt_flash_attention_fwd.argtypes = (
         [P, P, P, P, P, P, I, I, I, I] + [L] * 9 + [F, I, P])
     lib.ptt_flash_attention_fwd.restype = I
-    for name in ("ptt_flash_attention_bwd_dkdv", "ptt_flash_attention_bwd_dq"):
-        n_out = 2 if name.endswith("dkdv") else 1
-        fn = getattr(lib, name)
-        fn.argtypes = [P] * (7 + n_out) + [I] * 4 + [L] * 12 + [F, I, P]
-        fn.restype = I
+    _bind_flash_bwd(lib)
     lib.ptt_softmax_xent_fwd.argtypes = [P, P, P, P, I, I, I, P]
     lib.ptt_softmax_xent_fwd.restype = I
     lib.ptt_layer_norm_fwd.argtypes = [P, P, P, P, P, P, I, I, F, I, P]
@@ -188,6 +184,16 @@ def _bind(lib):
     lib.ptt_masked_softmax_fwd.restype = I
     lib.ptt_masked_pool_fwd.argtypes = [P, L, L, P, P, I, I, I, I, P]
     lib.ptt_masked_pool_fwd.restype = I
+
+
+def _bind_flash_bwd(lib):
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name in ("ptt_flash_attention_bwd_dkdv", "ptt_flash_attention_bwd_dq"):
+        n_out = 2 if name.endswith("dkdv") else 1
+        fn = getattr(lib, name)
+        fn.argtypes = [P] * (7 + n_out) + [I] * 4 + [L] * 12 + \
+            [ctypes.c_float, I, P]
+        fn.restype = I
 
 
 def _bind_lstmp(lib):

@@ -175,9 +175,10 @@ def _softmax_xent(ctx, ins, attrs):
     one pass). A hard label outside [0, V) picks the class of
     cuda_kernels.hard_label_index on every path and rank (-1 -> V - 1,
     V + k -> V - 1), as the JAX package's CPU path does. The Softmax
-    output the op also declares is exp(logits - lse) from K4's lse, not a
-    second reduction; the JAX rule leaves it to
-    XLA to drop when unread, and eager PyTorch materializes it ([N, V]).
+    output the op also declares ([N, V], exp(logits - lse) from K4's lse,
+    not a second reduction) is built only when some op, fetch or the
+    scope reads it (ctx.output_read): the JAX rule leaves an unread one to
+    XLA to drop, and eager PyTorch would materialize it at every step.
     Soft labels and other ranks take the plain log-softmax path."""
     logits = single(ins, "Logits")
     label = single(ins, "Label")
@@ -185,13 +186,17 @@ def _softmax_xent(ctx, ins, attrs):
     if not soft and logits.dim() == 2:
         lab = label.reshape(-1)
         loss, lse = cuda_kernels.SoftmaxXent.apply(logits, lab)
-        return {"Softmax": [torch.exp(logits.float() - lse)
-                            .to(logits.dtype)],
-                "Loss": [loss.to(logits.dtype)]}
+        outs = {"Loss": [loss.to(logits.dtype)]}
+        if ctx.output_read("Softmax"):
+            outs["Softmax"] = [torch.exp(logits.float() - lse)
+                               .to(logits.dtype)]
+        return outs
     logp = torch.log_softmax(logits.float(), dim=-1)
     if soft:
         loss = -(label * logp).sum(dim=-1, keepdim=True)
     else:
         loss = -_gather_label_logits(logp, label)[..., None]
-    return {"Softmax": [torch.exp(logp).to(logits.dtype)],
-            "Loss": [loss.to(logits.dtype)]}
+    outs = {"Loss": [loss.to(logits.dtype)]}
+    if ctx.output_read("Softmax"):
+        outs["Softmax"] = [torch.exp(logp).to(logits.dtype)]
+    return outs

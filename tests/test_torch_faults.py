@@ -274,3 +274,167 @@ def test_rnn_step_draws_repeat_between_runs_of_one_seed():
                             fetch_list=[out], scope=scope)[0])
     np.testing.assert_array_equal(runs[0], runs[1])
     assert not np.allclose(runs[0][:, 0], runs[0][:, 1])
+
+
+# --------------------------------------- outputs that nothing reads (C4) --
+
+_TV, _TT, _TB = 32, 8, 2
+_TCFG = dict(n_layer=1, n_head=2, d_key=8, d_value=8, d_model=16,
+             d_inner_hid=32, label_smooth_eps=0.1)
+
+
+def _softmax_names(main):
+    return [n for op in main.global_block().ops
+            if op.type == "softmax_with_cross_entropy"
+            for n in op.outputs["Softmax"]]
+
+
+def _both_transformers():
+    """The small Transformer training program in both packages, the port's
+    scope holding the JAX startup's state: (JAX main, JAX scope, JAX
+    avg_cost, port main, port scope, port avg_cost)."""
+    import paddle_tpu as jfluid
+    from paddle_tpu.models import transformer as jtr
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.models import transformer as ttr
+    jmain, jstartup = jfluid.Program(), jfluid.Program()
+    with jfluid.unique_name.guard(), jfluid.program_guard(jmain, jstartup):
+        _, javg, _ = jtr.build_train(_TV, _TV, _TT, use_fused_attention=True,
+                                     **_TCFG)
+    tmain, tstartup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(tmain, tstartup):
+        _, tavg, _ = ttr.build_train(_TV, _TV, _TT, **_TCFG)
+    jscope = jfluid.Scope()
+    with jfluid.scope_guard(jscope):
+        jfluid.Executor(jfluid.CPUPlace()).run(jstartup)
+    state = {v.name: np.array(jscope.get(v.name))
+             for v in jmain.list_vars() if v.persistable}
+    tscope = tio.scope_from_numpy(state, "cpu", program=tmain)
+    return jmain, jscope, javg, tmain, tscope, tavg
+
+
+def _transformer_feed(step):
+    from paddle_tpu.models import transformer as jtr
+    rng = np.random.RandomState(300 + step)
+    src = [rng.randint(3, _TV, rng.randint(3, _TT + 1)).tolist()
+           for _ in range(_TB)]
+    trg = [rng.randint(3, _TV, rng.randint(3, _TT + 1)).tolist()
+           for _ in range(_TB)]
+    return jtr.prepare_batch(src, trg, _TT, _TCFG["n_head"], fused=True)
+
+
+def test_unread_softmax_is_not_built_and_losses_match_jax():
+    """A Transformer training step that fetches only the loss leaves no
+    Softmax tensor in the run's env or scope, and three steps' losses
+    still match the JAX package's (rtol 1e-5: fp32 in another summation
+    order, as tests/test_torch_training.py holds twenty)."""
+    import paddle_tpu as jfluid
+    from paddle_tpu_torch.core import executor as texec
+    jmain, jscope, javg, tmain, tscope, tavg = _both_transformers()
+    names = _softmax_names(tmain)
+    assert names
+    envs = []
+    run_block = texec.lower_block
+
+    def capture(ctx, block, env):
+        envs.append(env)
+        run_block(ctx, block, env)
+
+    jexe, texe = jfluid.Executor(jfluid.CPUPlace()), tfluid.Executor("cpu")
+    jl, tl = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("FLAGS_flash_min_seq", "0")
+        mp.setenv("PADDLE_TPU_PALLAS", "1")
+        mp.setattr(texec, "lower_block", capture)
+        for step in range(3):
+            feed = _transformer_feed(step)
+            with jfluid.scope_guard(jscope):
+                jl.append(float(np.asarray(jexe.run(
+                    jmain, feed=feed, fetch_list=[javg])[0]).reshape(-1)[0]))
+            tl.append(float(texe.run(tmain, feed=feed, fetch_list=[tavg],
+                                     scope=tscope)[0].reshape(-1)[0]))
+    assert len(envs) == 3
+    for env in envs:
+        assert not any(n in env.values for n in names)
+        assert tavg.name in env.values
+    assert not any(tscope.has(n) for n in names)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+
+
+def test_fetched_softmax_is_built_and_matches_jax():
+    """Fetching the Softmax output of the same program builds it, and it
+    equals the JAX package's (rtol = atol = 1e-5), with the loss."""
+    import paddle_tpu as jfluid
+    jmain, jscope, javg, tmain, tscope, tavg = _both_transformers()
+    jname, = _softmax_names(jmain)
+    tname, = _softmax_names(tmain)
+    feed = _transformer_feed(0)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("FLAGS_flash_min_seq", "0")
+        mp.setenv("PADDLE_TPU_PALLAS", "1")
+        with jfluid.scope_guard(jscope):
+            jsm, jloss = jfluid.Executor(jfluid.CPUPlace()).run(
+                jmain, feed=feed, fetch_list=[jname, javg])
+        tsm, tloss = tfluid.Executor("cpu").run(
+            tmain, feed=feed, fetch_list=[tname, tavg], scope=tscope)
+    assert tsm.shape == np.asarray(jsm).shape == (_TB * _TT, _TV)
+    np.testing.assert_allclose(tsm, np.asarray(jsm), **TOL)
+    np.testing.assert_allclose(tsm.sum(-1), 1.0, atol=1e-5)
+    np.testing.assert_allclose(tloss, np.asarray(jloss), rtol=1e-5)
+
+
+@pytest.mark.parametrize("soft_label", [False, True])
+def test_unread_outputs_names_only_what_nothing_reads(soft_label):
+    """lowering.unread_outputs: Softmax unread until it is fetched or an
+    op reads it; the loss, read by mean, never; both paths of the rule
+    build Softmax only when it is read, and the loss either way."""
+    from paddle_tpu_torch.core.lowering import unread_outputs
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        x = tfluid.layers.data(name="x", shape=[5], dtype="float32")
+        lab = tfluid.layers.data(name="lab", shape=[5 if soft_label else 1],
+                                 dtype="float32" if soft_label else "int64")
+        loss = tfluid.layers.softmax_with_cross_entropy(x, lab, soft_label)
+        avg = tfluid.layers.mean(loss)
+    sm, = _softmax_names(main)
+    assert unread_outputs(main, [avg.name]) >= {sm}
+    assert loss.name not in unread_outputs(main, [avg.name])
+    assert sm not in unread_outputs(main, [sm])
+    rng = np.random.RandomState(31)
+    feed = {"x": rng.randn(4, 5).astype(np.float32),
+            "lab": (rng.dirichlet(np.ones(5), 4).astype(np.float32)
+                    if soft_label else rng.randint(0, 5, (4, 1)))}
+    exe = tfluid.Executor("cpu")
+    got_sm, got_avg = exe.run(main, feed=feed, fetch_list=[sm, avg])
+    only_avg, = exe.run(main, feed=feed, fetch_list=[avg])
+    np.testing.assert_allclose(got_sm, torch.softmax(
+        torch.from_numpy(feed["x"]), -1).numpy(), **TOL)
+    np.testing.assert_array_equal(only_avg, got_avg)
+
+
+def test_an_output_whose_gradient_is_read_counts_as_read():
+    """A grad_of that differentiates through Softmax (its Softmax@GRAD is
+    an input) needs the forward's Softmax: calc_gradient from Softmax
+    with a random cotangent keeps it out of the unread set, and x's
+    gradient equals autograd's through torch.softmax."""
+    from paddle_tpu_torch.core.lowering import unread_outputs
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        x = tfluid.layers.data(name="x", shape=[5], dtype="float32")
+        lab = tfluid.layers.data(name="lab", shape=[1], dtype="int64")
+        cot = tfluid.layers.data(name="cot", shape=[5], dtype="float32")
+        tfluid.layers.softmax_with_cross_entropy(x, lab)
+        sm, = _softmax_names(main)
+        dx, = tfluid.backward.calc_gradient(
+            [main.global_block().var(sm)], [x], target_gradients=[cot])
+    assert sm not in unread_outputs(main, [dx.name])
+    rng = np.random.RandomState(32)
+    feed = {"x": rng.randn(4, 5).astype(np.float32),
+            "lab": rng.randint(0, 5, (4, 1)),
+            "cot": rng.randn(4, 5).astype(np.float32)}
+    got, = tfluid.Executor("cpu").run(main, feed=feed, fetch_list=[dx])
+    xt = torch.from_numpy(feed["x"]).requires_grad_(True)
+    want, = torch.autograd.grad(torch.softmax(xt, -1), xt,
+                                torch.from_numpy(feed["cot"]))
+    assert np.abs(want.numpy()).max() > 0.1
+    np.testing.assert_allclose(got, want.numpy(), **TOL)
