@@ -4,6 +4,7 @@
     python3 chip_smoke.py                   # every phase, one card
     python3 chip_smoke.py --only kernels    # build + kernel checks only
     python3 chip_smoke.py --ptxas           # also print nvcc's `ptxas -v`
+                                            # (fails on a flash kernel spill)
     python3 chip_smoke.py --trace out.json  # keep the traced steps' traces
 
 Transformer-base runs at its full depth (6+6 layers) and width, the
@@ -48,17 +49,27 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               has no tanh on its projection: only its time compares. The
               K7 of commit c644094 (one block per batch row) is built
               from its source (--k7-baseline, or git history) and timed
-              beside it. K2/K3 (flash backward, 3xTF32 on the tensor
-              cores) are also checked at D 32 and 128, T = 1 and 100,
-              on strided q/k/v/g cut from one packed [B, T, H, 4D]
-              buffer and at B*H = 2048, each case also replayed from a
-              CUDA graph, a kv_len-0 row's gradients exactly 0; timed at
-              the serving shape and at the training step's [32, 256, 8,
-              64] with and without the causal mask, beside the fp32
-              (67 TFLOP/s) and 3xTF32 (TF32 peak / 3) bounds, with the
-              K2/K3 of commit 0ba7d56 (fp32 CUDA cores) built from its
-              source (--flash-bwd-baseline, or git history) and timed in
-              turns with them.
+              beside it. K1 (flash forward) and K2/K3 (flash backward),
+              all three 3xTF32 on the tensor cores, are also checked at
+              D 16-128, T = 1 and 100, on strided q/k/v/g cut from one
+              packed [B, T, H, 4D] buffer and at B*H = 2048, each case
+              also replayed from a CUDA graph, a kv_len-0 row exactly out
+              0 and lse -1e30 + log(1e-30) (K1) and its gradients exactly
+              0 (K2/K3); timed at the serving shape and at the training
+              step's [32, 256, 8, 64] with and without the causal mask,
+              beside the fp32 (67 TFLOP/s) and 3xTF32 (TF32 peak / 3)
+              bounds and the library's forward or backward (its device
+              kernels named from a trace), with the K1 of commit db823af
+              and the K2/K3 of commit 0ba7d56 (fp32 CUDA cores) built
+              from their sources (--flash-fwd-baseline,
+              --flash-bwd-baseline, or git history) and timed in turns
+              with them. Then the flash-vs-dense crossover, measured and
+              not acted on: K1 against the dense attention_reference at
+              q, k, v [8, T, 8, 64], T = 16-1024 (`crossover:` lines).
+              Then fused_attention with a query length other than the
+              key length (fault C5): a one-op program with its gradients
+              on the card against the CPU, through the dense path, K1
+              never launched.
 4. serving  — the main path: build Transformer-base scoring (vocab 30000,
               d_model 512, 8 heads, 6+6 layers, d_inner 2048, T=256) with
               the port's layers, run its startup program on the card from
@@ -256,6 +267,9 @@ K7_BASELINE_COMMIT = "c644094"
 # the commit whose K2/K3 (fp32 on the CUDA cores) the current ones are
 # timed against
 FLASH_BWD_BASELINE_COMMIT = "0ba7d56"
+# the commit whose K1 (fp32 on the CUDA cores) the current one is timed
+# against
+FLASH_FWD_BASELINE_COMMIT = "db823af"
 
 
 class SmokeFailure(RuntimeError):
@@ -345,9 +359,9 @@ def bound(flops, nbytes, peak_flops, peak_bw):
 
 # --------------------------------------------------------------- kernels --
 
-def flash_bwd_registers(log):
-    """Registers and spill bytes of each flash backward kernel per D, from
-    nvcc's `ptxas -v` lines; fails on a spill."""
+def flash_registers(log):
+    """Registers and spill bytes of each flash kernel (K1 forward, K2 dK/dV,
+    K3 dQ) per D, from nvcc's `ptxas -v` lines; fails on a spill."""
     import re
     name, found = None, []
     for line in log.splitlines():
@@ -356,8 +370,8 @@ def flash_bwd_registers(log):
         if m:
             name = m.group(1)
             continue
-        kind = name and re.search(r"flash_bwd_(dkdv|dq)_kernelILi(\d+)E",
-                                  name)
+        kind = name and re.search(r"flash_(fwd|bwd_dkdv|bwd_dq)_kernelILi"
+                                  r"(\d+)E", name)
         if not kind:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -369,12 +383,12 @@ def flash_bwd_registers(log):
         if m and found and found[-1][2] is None:
             found[-1][2] = int(m.group(1))
     for kind, d, regs, spill in sorted(found):
-        print("ptxas: flash_bwd_%s_kernel<%d>: %s registers, %d bytes "
-              "spilled" % (kind, d, regs, spill))
-    check(len(found) == 8, "ptxas: expected the register lines of 8 flash "
-          "backward kernels, found %d" % len(found))
+        print("ptxas: flash_%s_kernel<%d>: %s registers, %d bytes spilled"
+              % (kind, d, regs, spill))
+    check(len(found) == 12, "ptxas: expected the register lines of 12 flash "
+          "kernels, found %d" % len(found))
     check(all(spill == 0 for *_, spill in found),
-          "a flash backward kernel spills registers")
+          "a flash kernel spills registers")
 
 
 def flash_work(b, t, h, d, lens, causal, part="fwd"):
@@ -409,7 +423,7 @@ def rel_err(got, want):
 
 
 def run_kernels(torch, ck, peak_flops, peak_bw, tc_flops,
-                flash_bwd_source=None):
+                flash_fwd_source=None, flash_bwd_source=None):
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -418,68 +432,16 @@ def run_kernels(torch, ck, peak_flops, peak_bw, tc_flops,
     g.manual_seed(SEED)
     results = {}
 
-    # K1: flash attention forward. Cases: serving's ragged timing batch, a
-    # small odd one, and the training step's q, k, v at full lengths
-    flash_err = 0.0
+    # K1: flash attention forward (run_flash_fwd_kernels), with the
+    # flash-vs-dense crossover (run_flash_crossover)
+    results.update(run_flash_fwd_kernels(torch, ck, g, peak_flops, peak_bw,
+                                         tc_flops, flash_fwd_source))
+    results["flash_attention_fwd"]["crossover"] = run_flash_crossover(
+        torch, ck, g)
     t_max = MODEL["max_length"]
-    cases = [(8, 256, 8, 64, [256, 0, 37, 129, 200, 64, 255, 96]),
-             (2, 40, 2, 16, [17, 0]),
-             (TRAIN_BATCH, t_max, MODEL["n_head"], MODEL["d_key"],
-              [t_max] * TRAIN_BATCH)]
-    main_inputs = None
-    for b, t, h, d, lens in cases:
-        q, k, v = (torch.randn((b, t, h, d), generator=g, device=dev)
-                   for _ in range(3))
-        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
-        for causal in (False, True):
-            for kv_len in (kv, None):
-                out, lse = ck.flash_attention_fwd(q, k, v, kv_len, causal)
-                ref, ref_lse = ck.flash_attention_fwd_plain(q, k, v, kv_len,
-                                                            causal)
-                torch.cuda.synchronize()
-                err = max((out - ref).abs().max().item(),
-                          (lse - ref_lse).abs().max().item())
-                print("kernels: flash B=%d T=%d H=%d D=%d causal=%s "
-                      "kv_len=%s max_abs_err=%.3e"
-                      % (b, t, h, d, causal,
-                         "ragged" if kv_len is not None else "full", err))
-                check(np.isfinite(err) and err <= KERNEL_TOL,
-                      "flash_attention_fwd disagrees with its plain version "
-                      "by %r (tolerance %r)" % (err, KERNEL_TOL))
-                flash_err = max(flash_err, err)
-        if main_inputs is None:
-            main_inputs = (q, k, v, kv, lens)
-    q, k, v, kv, lens = main_inputs
-    b, t, h, d = q.shape
-    mask = (torch.arange(t, device=dev)[None, :]
-            < kv.long()[:, None])[:, None, None, :]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    flops, nbytes = flash_work(b, t, h, d, lens, False)
-    bms, bby = bound(flops, nbytes, peak_flops, peak_bw)
-    c_flops, c_bytes = flash_work(b, t, h, d, lens, True)
-    c_bms, _ = bound(c_flops, c_bytes, peak_flops, peak_bw)
-    results["flash_attention_fwd"] = {
-        "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
-        "replaces": FLASH_TPU,
-        "shape": "q,k,v [%d,%d,%d,%d] fp32, kv_len %s" % (b, t, h, d, lens),
-        "max_abs_err": flash_err,
-        "ms": time_ms(torch, lambda: ck.flash_attention_fwd(q, k, v, kv)),
-        "plain_ms": time_ms(
-            torch, lambda: ck.flash_attention_fwd_plain(q, k, v, kv)),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask)),
-        "bound_ms": bms, "bound_by": bby,
-        "causal_ms": time_ms(
-            torch, lambda: ck.flash_attention_fwd(q, k, v, kv, True)),
-        "causal_plain_ms": time_ms(
-            torch, lambda: ck.flash_attention_fwd_plain(q, k, v, kv, True)),
-        "causal_bound_ms": c_bms,
-        "eager_ms": eager_ms(
-            torch, lambda: ck.flash_attention_fwd(q, k, v, kv)),
-    }
 
     # K2, K3: flash attention backward (run_flash_bwd_kernels)
-    results.update(run_flash_bwd_kernels(torch, ck, g, cases, peak_flops,
+    results.update(run_flash_bwd_kernels(torch, ck, g, peak_flops,
                                          peak_bw, tc_flops, flash_bwd_source))
 
     # K4: softmax cross-entropy forward at the training path's shape
@@ -573,6 +535,319 @@ def run_kernels(torch, ck, peak_flops, peak_bw, tc_flops,
     return results
 
 
+def flash_path_cases():
+    """K1's inputs on the paths (b, t, h, d, kv_len): serving's ragged
+    timing batch, a small odd one, and the training step's q, k, v at full
+    lengths."""
+    t_max = MODEL["max_length"]
+    return [(8, 256, 8, 64, [256, 0, 37, 129, 200, 64, 255, 96]),
+            (2, 40, 2, 16, [17, 0]),
+            (TRAIN_BATCH, t_max, MODEL["n_head"], MODEL["d_key"],
+             [t_max] * TRAIN_BATCH)]
+
+
+def flash_check_cases():
+    """(what, (b, t, h, d, kv_len), packed) every flash kernel is checked
+    at: the path cases, D 16-128, T = 1 and 100, q/k/v/g cut from one
+    packed [B, T, H, 4D] buffer, and B*H = 2048; every kv_len holds a 0."""
+    rng = np.random.RandomState(SEED + 3)
+    big_lens = rng.randint(1, 129, size=64).tolist()
+    big_lens[0], big_lens[1], big_lens[-1] = 128, 0, 1
+    return [("path", c, False) for c in flash_path_cases()] + [
+        ("D=32, T=100", (4, 100, 3, 32, [100, 0, 57, 1]), False),
+        ("D=128", (2, 256, 4, 128, [256, 0]), False),
+        ("D=128, T=100", (3, 100, 2, 128, [100, 1, 0]), False),
+        ("T=1", (3, 1, 2, 64, [1, 0, 1]), False),
+        ("T=1, D=16", (2, 1, 3, 16, [1, 0]), False),
+        ("packed [B,T,H,4D] views", (4, 100, 8, 64, [100, 0, 33, 71]), True),
+        ("packed [B,T,H,4D] views, D=16", (2, 40, 2, 16, [17, 0]), True),
+        ("B*H=2048", (64, 128, 32, 64, big_lens), False)]
+
+
+def flash_timing_shapes():
+    """(what, (b, t, h, d, kv_len), causal) the flash kernels are timed
+    at: the serving shape, and the training step's without and with the
+    causal mask."""
+    t_max = MODEL["max_length"]
+    train = (TRAIN_BATCH, t_max, MODEL["n_head"], MODEL["d_key"],
+             [t_max] * TRAIN_BATCH)
+    return [("serving", flash_path_cases()[0], False),
+            ("training", train, False), ("training causal", train, True)]
+
+
+def flash_inputs(torch, gen, b, t, h, d, packed, n):
+    """n random [B, T, H, D] tensors on the card: separate, or strided
+    views cut from one packed [B, T, H, 4D] buffer."""
+    dev = torch.device("cuda")
+    if packed:
+        buf = torch.randn((b, t, h, 4 * d), generator=gen, device=dev)
+        return [buf[..., i * d:(i + 1) * d] for i in range(n)]
+    return [torch.randn((b, t, h, d), generator=gen, device=dev)
+            for _ in range(n)]
+
+
+# lse of a row with no valid key: -1e30 + log(1e-30) in fp32, the TPU
+# kernel's l_safe value (and out exactly 0)
+EMPTY_LSE = np.float32(-1e30) + np.float32(np.log(np.float32(1e-30)))
+
+
+def flash_fwd_case(torch, ck, q, k, v, kv_len, causal):
+    """K1 against flash_attention_fwd_plain on one input, launched directly
+    and replayed from a CUDA graph: out and lse within KERNEL_TOL, and
+    every row of a kv_len-0 batch row exactly out 0 and lse EMPTY_LSE.
+    Returns the largest error."""
+    ref = ck.flash_attention_fwd_plain(q, k, v, kv_len, causal)
+    direct = ck.flash_attention_fwd(q, k, v, kv_len, causal)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ck.flash_attention_fwd(q, k, v, kv_len, causal)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ck.flash_attention_fwd(q, k, v, kv_len, causal)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    errs = []
+    for out, lse in (direct, replayed):
+        errs.append(max((out - ref[0]).abs().max().item(),
+                        (lse - ref[1]).abs().max().item()))
+        if kv_len is not None:
+            empty = kv_len.long() == 0
+            check(bool((out[empty] == 0).all())
+                  and bool((lse[empty] == float(EMPTY_LSE)).all()),
+                  "flash forward: a kv_len-0 row is not out 0, lse %r"
+                  % float(EMPTY_LSE))
+    del graph
+    err = max(errs)
+    check(np.isfinite(err) and err <= KERNEL_TOL,
+          "flash_attention_fwd disagrees with its plain version by %r "
+          "(direct, CUDA graph: %r; tolerance %r)" % (err, errs, KERNEL_TOL))
+    return err
+
+
+def flash_fwd_baseline(torch, ck, source, build_dir):
+    """The K1 of commit FLASH_FWD_BASELINE_COMMIT (fp32 on the CUDA cores)
+    built from `source`: a function with flash_attention_fwd's signature
+    and no launch count (it is on no path)."""
+    lib = build_baseline(ck, source, build_dir, "ptt_flash_fwd_baseline",
+                         "flash forward")
+    ck._bind_flash_fwd(lib)
+
+    def call(q, k, v, kv_len=None, causal=False):
+        b, t, h, d = q.shape
+        out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+        lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        lens = None if kv_len is None else \
+            kv_len.to(dtype=torch.int32).contiguous()
+        err = ck._fwd_call(lib.ptt_flash_attention_fwd, q, k, v, lens, out,
+                           lse, 1.0 / d ** 0.5, causal)
+        check(err == 0, "the baseline flash forward failed to launch "
+              "(cudaError %d)" % err)
+        return out, lse
+
+    return call
+
+
+def run_flash_fwd_kernels(torch, ck, gen, peak_flops, peak_bw, tc_flops,
+                          source=None):
+    """K1 against its plain version at flash_check_cases, causal and not,
+    ragged kv_len (with a 0) and none, each launched directly and from a
+    CUDA graph. Then timed at flash_timing_shapes: the new kernel and the
+    FLASH_FWD_BASELINE_COMMIT one when its source is at hand, in turns;
+    the plain version; the forward of scaled_dot_product_attention (fp32,
+    TF32 off, the same mask; its device kernels from a trace at the
+    training shapes); beside the fp32 (67 TFLOP/s) and 3xTF32 (TF32 peak
+    / 3) bounds."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    err_max = 0.0
+    for what, (b, t, h, d, lens), packed in flash_check_cases():
+        q, k, v = flash_inputs(torch, gen, b, t, h, d, packed, 3)
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for causal in (False, True):
+            for kv_len in (kv, None):
+                err = flash_fwd_case(torch, ck, q, k, v, kv_len, causal)
+                print("kernels: flash fwd %s B=%d T=%d H=%d D=%d causal=%s "
+                      "kv_len=%s max_abs_err=%.3e (direct and CUDA graph)"
+                      % (what, b, t, h, d, causal,
+                         "ragged" if kv_len is not None else "full", err))
+                err_max = max(err_max, err)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    base = None
+    build_dir = tempfile.mkdtemp(prefix="ptt_flash_fwd_baseline_")
+    if source is not None:
+        t0 = time.perf_counter()
+        base = flash_fwd_baseline(torch, ck, source, build_dir)
+        print("kernels: built the baseline flash forward (%s) in %.1f s"
+              % (FLASH_FWD_BASELINE_COMMIT, time.perf_counter() - t0))
+    else:
+        print("kernels: the baseline flash forward source is not at hand; "
+              "its time is not measured")
+
+    rows = []
+    eager = None
+    for what, (b, t, h, d, lens), causal in flash_timing_shapes():
+        q, k, v = flash_inputs(torch, gen, b, t, h, d, False, 3)
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if base is not None:
+            got = base(q, k, v, kv, causal)
+            ref = ck.flash_attention_fwd_plain(q, k, v, kv, causal)
+            torch.cuda.synchronize()
+            print("kernels: the baseline flash forward at %s agrees with the "
+                  "plain version to %.3e" % (what, max(
+                      (a - r).abs().max().item() for a, r in zip(got, ref))))
+            del got, ref
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = None if all(n == t for n in lens) else \
+            (torch.arange(t, device=dev)[None, :]
+             < kv.long()[:, None])[:, None, None, :]
+
+        def sdpa(qt=qt, kt=kt, vt=vt, mask=mask, causal=causal):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  is_causal=causal)
+
+        if what != "serving":
+            print("kernels: the library forward's device kernels at %s: %s"
+                  % (what, device_kernel_names(torch, sdpa)))
+        runs = {"new": [], "old": []}
+        # in turns, old new new old, so that drift shows
+        for order in ("old", "new", "new", "old"):
+            fn = ck.flash_attention_fwd if order == "new" else base
+            if fn is not None:
+                runs[order].append(time_ms(
+                    torch, lambda fn=fn: fn(q, k, v, kv, causal)))
+        flops, nbytes = flash_work(b, t, h, d, lens, causal)
+        row = {"what": what, "causal": causal,
+               "shape": "q,k,v [%d,%d,%d,%d] fp32, kv_len %s"
+               % (b, t, h, d, lens if what == "serving" else "full"),
+               "ms": statistics.mean(runs["new"]), "runs": runs["new"],
+               "baseline_ms": statistics.mean(runs["old"]) if base else None,
+               "baseline_runs": runs["old"],
+               "plain_ms": time_ms(torch, lambda: ck.flash_attention_fwd_plain(
+                   q, k, v, kv, causal)),
+               "library_ms": time_ms(torch, sdpa)}
+        row["bound_fp32_ms"], row["bound_fp32_by"] = bound(
+            flops, nbytes, peak_flops, peak_bw)
+        row["bound_3xtf32_ms"], row["bound_3xtf32_by"] = bound(
+            flops, nbytes, tc_flops / 3, peak_bw)
+        if what == "serving":
+            eager = eager_ms(torch, lambda: ck.flash_attention_fwd(q, k, v,
+                                                                   kv))
+        print("kernels: flash fwd timing %s (%s, causal=%s): K1 %s ms; "
+              "baseline K1 %s ms; plain %.4f ms; library %.4f ms; bound "
+              "3xTF32 %.4f ms (%s), fp32 %.4f ms (%s)"
+              % (what, row["shape"], causal,
+                 " / ".join("%.4f" % x for x in runs["new"]),
+                 " / ".join("%.4f" % x for x in runs["old"])
+                 or "not measured", row["plain_ms"], row["library_ms"],
+                 row["bound_3xtf32_ms"], row["bound_3xtf32_by"],
+                 row["bound_fp32_ms"], row["bound_fp32_by"]))
+        rows.append(row)
+        del q, k, v, qt, kt, vt
+    shutil.rmtree(build_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    serve = rows[0]
+    return {"flash_attention_fwd": {
+        "name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
+        "replaces": FLASH_TPU, "shape": serve["shape"],
+        "max_abs_err": err_max, "ms": serve["ms"],
+        "plain_ms": serve["plain_ms"], "library_ms": serve["library_ms"],
+        # the products run on the tensor cores in 3xTF32
+        "bound_ms": serve["bound_3xtf32_ms"],
+        "bound_by": serve["bound_3xtf32_by"],
+        "bound_fp32_ms": serve["bound_fp32_ms"],
+        "baseline_ms": serve["baseline_ms"], "eager_ms": eager,
+        "rows": rows}}
+
+
+CROSSOVER_T = (16, 32, 64, 128, 256, 512, 1024)
+
+
+def run_flash_crossover(torch, ck, gen):
+    """The flash-vs-dense crossover, measured and not acted on: K1 against
+    the port's dense attention_reference (what fused_attention runs where
+    kernel_config.flash_at says dense) at q, k, v [8, T, 8, 64], T in
+    CROSSOVER_T, non-causal, full lengths, each timed in a CUDA graph
+    (time_ms). One `crossover:` line per T; returns the rows."""
+    from paddle_tpu_torch.ops.nn_ops import attention_reference
+    rows = []
+    for t in CROSSOVER_T:
+        q, k, v = flash_inputs(torch, gen, 8, t, 8, 64, False, 3)
+        flash = time_ms(torch, lambda: ck.flash_attention_fwd(q, k, v))
+        dense = time_ms(torch, lambda: attention_reference(q, k, v))
+        rows.append({"t": t, "flash_ms": flash, "dense_ms": dense})
+        print("crossover: q,k,v [8,%d,8,64] fp32, full lengths: flash K1 "
+              "%.4f ms, dense attention_reference %.4f ms, dense / flash "
+              "%.3f" % (t, flash, dense, dense / flash))
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_unequal_attention_vs_cpu(torch):
+    """Fault C5: fused_attention of q [B, Tq, H, D] over k, v [B, Tk, H,
+    D] with Tq != Tk (a decoder over a source of another padded length)
+    takes the dense path on the card. A one-op program (the loss
+    mean(out * w), q, k, v's gradients through append_backward) runs
+    through Executor.run on the card and on the CPU, causal and not, with
+    ragged key lengths (a 0 among them): every fetch within KERNEL_TOL of
+    the larger of 1 and its largest CPU value, and K1 never launched."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    rng = np.random.RandomState(SEED + 9)
+    for b, tq, tk, h, d in ((2, 5, 7, 2, 8), (8, 128, 256, 8, 64)):
+        lens = rng.randint(1, tk + 1, size=(b, 1)).astype(np.int32)
+        lens[-1, 0] = 0
+        feed = {n: rng.randn(b, t, h, d).astype(np.float32)
+                for n, t in (("q", tq), ("k", tk), ("v", tk), ("w", tq))}
+        feed["kv_len"] = lens
+        for causal in (False, True):
+            main, startup = fluid.Program(), fluid.Program()
+            with fluid.unique_name.guard(), \
+                    fluid.program_guard(main, startup):
+                q, k, v = (fluid.layers.data(n, shape=[t, h, d],
+                                             dtype="float32")
+                           for n, t in (("q", tq), ("k", tk), ("v", tk)))
+                for x in (q, k, v):
+                    x.stop_gradient = False
+                w = fluid.layers.data("w", shape=[tq, h, d], dtype="float32")
+                kv_len = fluid.layers.data("kv_len", shape=[1],
+                                           dtype="int32")
+                out = fluid.layers.fused_attention(q, k, v, causal=causal,
+                                                   kv_len=kv_len)
+                loss = fluid.layers.mean(fluid.layers.elementwise_mul(out,
+                                                                      w))
+                fluid.append_backward(loss)
+            fetch = [out.name, loss.name, "q@GRAD", "k@GRAD", "v@GRAD"]
+            ck.reset_launch_counts()
+            got = fluid.Executor().run(main, feed=feed, fetch_list=fetch,
+                                       scope=fluid.Scope())
+            launched = ck.launch_counts()["flash_attention_fwd"]
+            want = fluid.Executor("cpu").run(main, feed=feed,
+                                             fetch_list=fetch,
+                                             scope=fluid.Scope())
+            err = max(float(np.abs(a - c).max())
+                      / max(1.0, float(np.abs(c).max()))
+                      for a, c in zip(got, want))
+            print("unequal lengths: fused_attention q [%d,%d,%d,%d] over k, "
+                  "v [%d,%d,%d,%d] causal=%s on the card vs the CPU (out, "
+                  "loss, dq, dk, dv): max error %.3e of max(1, max |cpu|), "
+                  "K1 launches %d" % (b, tq, h, d, b, tk, h, d, causal, err,
+                                      launched))
+            check(got[0].shape == (b, tq, h, d), "fused_attention with Tq "
+                  "!= Tk gave shape %s" % (got[0].shape,))
+            check(np.isfinite(err) and err <= KERNEL_TOL,
+                  "fused_attention with Tq != Tk: card and CPU differ by %r"
+                  % err)
+            check(launched == 0, "fused_attention with Tq != Tk launched "
+                  "K1 %d times" % launched)
+
+
 def flash_bwd_case(torch, ck, q, k, v, g_out, kv_len, causal):
     """K2 and K3 against flash_attention_bwd_plain on one input (from the
     plain forward's out and lse, delta = rowsum(g * out)), launched directly
@@ -639,51 +914,30 @@ def flash_bwd_baseline(torch, ck, source, build_dir):
             lambda *a: call(lib.ptt_flash_attention_bwd_dq, 1, *a))
 
 
-def sdpa_kernel_names(torch, sdpa, leaves, gt):
-    """The device kernels one backward of scaled_dot_product_attention
-    runs (from a torch.profiler trace): what the library yardstick is."""
+def device_kernel_names(torch, fn):
+    """The device kernels one call of fn runs (from a torch.profiler
+    trace): what a library yardstick is."""
     from torch.profiler import ProfilerActivity, profile
-    out = sdpa()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.autograd.grad(out, leaves, gt)
+        fn()
         torch.cuda.synchronize()
     return sorted({e.name for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
-def run_flash_bwd_kernels(torch, ck, gen, fwd_cases, peak_flops, peak_bw,
-                          tc_flops, source=None):
-    """K2 (dK, dV) and K3 (dQ) against their plain version at the K1
-    cases and at D 16-128, T = 1 and 100, q/k/v/g cut from one packed
-    [B, T, H, 4D] buffer and B*H = 2048, causal and not, ragged kv_len
-    (with a 0) and none, each launched directly and from a CUDA graph.
-    Then timed (new kernels, the FLASH_BWD_BASELINE_COMMIT kernels when
-    their source is at hand, plain, library) beside two bounds at the
-    serving shape and the training path's two shapes."""
+def run_flash_bwd_kernels(torch, ck, gen, peak_flops, peak_bw, tc_flops,
+                          source=None):
+    """K2 (dK, dV) and K3 (dQ) against their plain version at
+    flash_check_cases, causal and not, ragged kv_len (with a 0) and none,
+    each launched directly and from a CUDA graph. Then timed (new
+    kernels, the FLASH_BWD_BASELINE_COMMIT kernels when their source is at
+    hand, plain, library) beside two bounds at flash_timing_shapes."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    rng = np.random.RandomState(SEED + 3)
-    t_max = MODEL["max_length"]
-    big_lens = rng.randint(1, 129, size=64).tolist()
-    big_lens[0], big_lens[1], big_lens[-1] = 128, 0, 1
-    cases = [("path", c, False) for c in fwd_cases] + [
-        ("D=32, T=100", (4, 100, 3, 32, [100, 0, 57, 1]), False),
-        ("D=128", (2, 256, 4, 128, [256, 0]), False),
-        ("D=128, T=100", (3, 100, 2, 128, [100, 1, 0]), False),
-        ("T=1", (3, 1, 2, 64, [1, 0, 1]), False),
-        ("T=1, D=16", (2, 1, 3, 16, [1, 0]), False),
-        ("packed [B,T,H,4D] views", (4, 100, 8, 64, [100, 0, 33, 71]), True),
-        ("packed [B,T,H,4D] views, D=16", (2, 40, 2, 16, [17, 0]), True),
-        ("B*H=2048", (64, 128, 32, 64, big_lens), False)]
     dkdv_err = dq_err = 0.0
-    for what, (b, t, h, d, lens), packed in cases:
-        if packed:
-            buf = torch.randn((b, t, h, 4 * d), generator=gen, device=dev)
-            q, k, v, g_out = (buf[..., i * d:(i + 1) * d] for i in range(4))
-        else:
-            q, k, v, g_out = (torch.randn((b, t, h, d), generator=gen,
-                                          device=dev) for _ in range(4))
+    for what, (b, t, h, d, lens), packed in flash_check_cases():
+        q, k, v, g_out = flash_inputs(torch, gen, b, t, h, d, packed, 4)
         kv = torch.tensor(lens, dtype=torch.int32, device=dev)
         for causal in (False, True):
             for kv_len in (kv, None):
@@ -710,12 +964,8 @@ def run_flash_bwd_kernels(torch, ck, gen, fwd_cases, peak_flops, peak_bw,
         print("kernels: the baseline flash backward source is not at hand; "
               "its time is not measured")
 
-    full = [t_max] * TRAIN_BATCH
-    train = (TRAIN_BATCH, t_max, MODEL["n_head"], MODEL["d_key"], full)
-    shapes = [("serving", fwd_cases[0], False), ("training", train, False),
-              ("training causal", train, True)]
     rows = []
-    for what, (b, t, h, d, lens), causal in shapes:
+    for what, (b, t, h, d, lens), causal in flash_timing_shapes():
         q, k, v, g_out = (torch.randn((b, t, h, d), generator=gen,
                                       device=dev) for _ in range(4))
         kv = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -749,8 +999,12 @@ def run_flash_bwd_kernels(torch, ck, gen, fwd_cases, peak_flops, peak_bw,
         library_ms = time_ms(torch, lambda: torch.autograd.grad(
             sdpa(), (qt, kt, vt), gt)) - time_ms(torch, sdpa)
         if what != "serving":
+            out_t = sdpa()
             print("kernels: the library backward's device kernels at %s: %s"
-                  % (what, sdpa_kernel_names(torch, sdpa, (qt, kt, vt), gt)))
+                  % (what, device_kernel_names(torch, lambda: torch.autograd
+                                               .grad(out_t, (qt, kt, vt),
+                                                     gt))))
+            del out_t
         times = {"dkdv": [], "dq": [], "base_dkdv": [], "base_dq": []}
         # in turns, old new new old, so that drift shows
         for order in ("old", "new", "new", "old"):
@@ -2399,6 +2653,11 @@ def main(argv=None):
                     "batch row) to time beside the "
                     "new K7 (default: `git show %s:%s` when the checkout "
                     "has its history)" % (K7_BASELINE_COMMIT, LSTMP_SRC))
+    ap.add_argument("--flash-fwd-baseline", metavar="SRC",
+                    help="the baseline flash_attention_fwd.cu (fp32 on the "
+                    "CUDA cores) to time beside the new K1 (default: `git "
+                    "show %s:%s` when the checkout has its history)"
+                    % (FLASH_FWD_BASELINE_COMMIT, FLASH_SRC))
     ap.add_argument("--flash-bwd-baseline", metavar="SRC",
                     help="the baseline flash_attention_bwd.cu (fp32 on the "
                     "CUDA cores) to time beside the new K2/K3 (default: "
@@ -2435,12 +2694,15 @@ def main(argv=None):
                                    time.perf_counter() - t0))
     if args.ptxas:
         print(ck.build_info.log)
-        flash_bwd_registers(ck.build_info.log)
+        flash_registers(ck.build_info.log)
 
     kernels = run_kernels(
         torch, ck, peak_flops, peak_bw, tc_flops,
+        baseline_source(args.flash_fwd_baseline, FLASH_FWD_BASELINE_COMMIT,
+                        FLASH_SRC),
         baseline_source(args.flash_bwd_baseline, FLASH_BWD_BASELINE_COMMIT,
                         FLASH_BWD_SRC))
+    run_unequal_attention_vs_cpu(torch)
     kernels.update(run_sequence_kernels(torch, ck, peak_flops, peak_bw))
     kernels.update(run_translation_kernels(torch, ck, peak_flops, peak_bw))
     kernels.update(run_acoustic_kernels(

@@ -169,9 +169,7 @@ def _compile(flags, path):
 def _bind(lib):
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     F = ctypes.c_float
-    lib.ptt_flash_attention_fwd.argtypes = (
-        [P, P, P, P, P, P, I, I, I, I] + [L] * 9 + [F, I, P])
-    lib.ptt_flash_attention_fwd.restype = I
+    _bind_flash_fwd(lib)
     _bind_flash_bwd(lib)
     lib.ptt_softmax_xent_fwd.argtypes = [P, P, P, P, I, I, I, P]
     lib.ptt_softmax_xent_fwd.restype = I
@@ -184,6 +182,13 @@ def _bind(lib):
     lib.ptt_masked_softmax_fwd.restype = I
     lib.ptt_masked_pool_fwd.argtypes = [P, L, L, P, P, I, I, I, I, P]
     lib.ptt_masked_pool_fwd.restype = I
+
+
+def _bind_flash_fwd(lib):
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ptt_flash_attention_fwd.argtypes = (
+        [P, P, P, P, P, P, I, I, I, I] + [L] * 9 + [ctypes.c_float, I, P])
+    lib.ptt_flash_attention_fwd.restype = I
 
 
 def _bind_flash_bwd(lib):
@@ -327,19 +332,23 @@ def flash_attention_fwd(q, k, v, kv_len=None, causal=False, scale=None):
     lens = None
     if kv_len is not None:
         lens = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
-    lib = build()
-    err = lib.ptt_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        lens.data_ptr() if lens is not None else None,
-        out.data_ptr(), lse.data_ptr(), b, t, h, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(scale), int(bool(causal)), _stream_of(q))
+    err = _fwd_call(build().ptt_flash_attention_fwd, q, k, v, lens, out, lse,
+                    scale, causal)
     _check_launch(err, "flash_attention_fwd")
     _count(flash_attention_fwd)
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+
+
+def _fwd_call(fn, q, k, v, lens, out, lse, scale, causal):
+    b, t, h, d = q.shape
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              lens.data_ptr() if lens is not None else None,
+              out.data_ptr(), lse.data_ptr(), b, t, h, d,
+              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+              float(scale), int(bool(causal)), _stream_of(q))
 
 
 # ---------------------------------------------------------------------------

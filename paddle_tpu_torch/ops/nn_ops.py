@@ -82,10 +82,11 @@ def attention_reference(q, k, v, causal=False, scale=None, kv_len=None):
 
 @register("fused_attention")
 def _fused_attention(ctx, ins, attrs):
-    """Attention over [B, T, H, D] q/k/v with optional [B] / [B, 1] key
-    lengths. kernel_config.flash_at decides flash (the CUDA kernel's
-    wrapper) or the dense reference; the block_q / block_k / sp_impl attrs
-    are TPU and mesh knobs the JAX package reads and this rule ignores."""
+    """Attention of q [B, Tq, H, D] over k, v [B, Tk, H, D] with optional
+    [B] / [B, 1] key lengths. kernel_config.flash_at decides flash (the
+    CUDA kernel's wrapper, Tq = Tk) or the dense reference (Tq != Tk, or
+    Tq <= 1); the block_q / block_k / sp_impl attrs are TPU and mesh knobs
+    the JAX package reads and this rule ignores."""
     q = single(ins, "Q")
     k = single(ins, "K")
     v = single(ins, "V")
@@ -94,7 +95,7 @@ def _fused_attention(ctx, ins, attrs):
         kv_len = kv_len.reshape(-1)
     causal = attrs.get("causal", False)
     scale = attrs.get("scale", None)
-    if not flash_at(q.shape[1], q.device.type):
+    if not flash_at(q.shape[1], q.device.type, k.shape[1]):
         return _out(attention_reference(q, k, v, causal=causal, scale=scale,
                                         kv_len=kv_len).to(q.dtype))
     return _out(cuda_kernels.FlashAttention.apply(q, k, v, kv_len, causal,

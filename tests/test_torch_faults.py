@@ -1,5 +1,5 @@
-"""Three places where the port's result once differed from the JAX
-package's, each held to the JAX rule on the CPU.
+"""Places where the port's result once differed from the JAX package's,
+each held to the JAX rule on the CPU.
 
 - lookup_table with ids outside [0, V): the JAX rule's jnp.take wraps an
   id in [-V, 0) and gives a NaN row for any other, and W's gradient gets
@@ -13,6 +13,12 @@ package's, each held to the JAX rule on the CPU.
   The port's streams are its own generators (the JAX package's threefry
   bits are not portable), so this compares behaviour and statistics,
   never bits.
+- outputs that nothing reads (softmax_with_cross_entropy's Softmax) are
+  not built, and the losses still match.
+- fused_attention with a query length other than the key length: the
+  JAX rule answers through its dense attention_reference; the port sent
+  every such shape to its flash kernel, which takes one length for q, k
+  and v, and raised. rtol = atol = 1e-5: fp32 in another order.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -438,3 +444,90 @@ def test_an_output_whose_gradient_is_read_counts_as_read():
                                 torch.from_numpy(feed["cot"]))
     assert np.abs(want.numpy()).max() > 0.1
     np.testing.assert_allclose(got, want.numpy(), **TOL)
+
+
+# ------------------------------ unequal query and key lengths (C5) --
+
+_AQ, _AK, _AH, _AD = 5, 7, 2, 8
+
+
+def _attention_build(causal, with_len):
+    """A one-op program: fused_attention of q [B, 5, 2, 8] over k, v [B,
+    7, 2, 8] (key lengths fed as [B, 1] int32 when with_len), the loss
+    mean(out * w), and q, k, v's gradients through append_backward."""
+    def build(fluid):
+        q, k, v = (fluid.layers.data(n, shape=[t, _AH, _AD],
+                                     dtype="float32")
+                   for n, t in (("q", _AQ), ("k", _AK), ("v", _AK)))
+        for x in (q, k, v):
+            x.stop_gradient = False
+        w = fluid.layers.data("w", shape=[_AQ, _AH, _AD], dtype="float32")
+        kv_len = fluid.layers.data("kv_len", shape=[1], dtype="int32") \
+            if with_len else None
+        out = fluid.layers.fused_attention(q, k, v, causal=causal,
+                                           kv_len=kv_len)
+        loss = fluid.layers.mean(fluid.layers.elementwise_mul(out, w))
+        fluid.append_backward(loss)
+        block = q.block
+        return [out, loss] + [block.var(n + "@GRAD") for n in "qkv"]
+    return build
+
+
+def _attention_feed(with_len):
+    rng = np.random.RandomState(41)
+    feed = {n: rng.randn(2, t, _AH, _AD).astype(np.float32)
+            for n, t in (("q", _AQ), ("k", _AK), ("v", _AK), ("w", _AQ))}
+    if with_len:
+        feed["kv_len"] = np.array([[6], [0]], np.int32)   # ragged and empty
+    return feed
+
+
+@pytest.mark.parametrize("with_len", [False, True], ids=["full", "kv_len"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_fused_attention_unequal_lengths_match_jax(causal, with_len):
+    """q [2, 5, 2, 8] against k, v [2, 7, 2, 8] through a one-op program
+    in both packages: the output [B, Tq, H, D] (also the shape the port's
+    build inferred), the loss and the gradients of q, k and v agree with
+    the JAX package's within 1e-5; the port never reaches its flash
+    kernel's wrapper for such shapes."""
+    import paddle_tpu as jfluid
+    build, feed = _attention_build(causal, with_len), \
+        _attention_feed(with_len)
+    jmain, jstartup = jfluid.Program(), jfluid.Program()
+    with jfluid.unique_name.guard(), jfluid.program_guard(jmain, jstartup):
+        jfetch = build(jfluid)
+    with jfluid.scope_guard(jfluid.Scope()):
+        want = [np.asarray(a) for a in jfluid.Executor(
+            jfluid.CPUPlace()).run(jmain, feed=feed, fetch_list=jfetch)]
+    tmain, tstartup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(tmain, tstartup):
+        tfetch = build(tfluid)
+    assert tuple(tfetch[0].shape) == (-1, _AQ, _AH, _AD)
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ck.FlashAttention, "apply",
+                   lambda *a: calls.append(a) or pytest.fail("flash"))
+        got = tfluid.Executor("cpu").run(
+            tmain, feed=feed, fetch_list=[v.name for v in tfetch],
+            scope=tfluid.Scope())
+    assert not calls
+    assert got[0].shape == (2, _AQ, _AH, _AD)
+    for name, g, w in zip(["out", "loss", "dq", "dk", "dv"], got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, err_msg=name, **TOL)
+    assert np.abs(got[3]).max() > 1e-3      # the gradients are not all 0
+
+
+def test_unequal_lengths_are_dense_on_every_device(monkeypatch):
+    """kernel_config.flash_at's structural rule: q_len != k_len is dense
+    on the CPU and on the card, whatever the pin; equal lengths keep the
+    flash kernel at the default crossover."""
+    from paddle_tpu_torch.ops.kernel_config import flash_at
+    monkeypatch.delenv("FLAGS_flash_min_seq", raising=False)
+    for dev in ("cpu", "cuda"):
+        assert flash_at(5, dev, 7) is False
+        assert flash_at(256, dev, 128) is False
+        assert flash_at(256, dev, 256) is True
+        assert flash_at(256, dev) is True
+    monkeypatch.setenv("FLAGS_flash_min_seq", "1024")
+    assert flash_at(256, "cuda", 300) is False     # no raise: structural
