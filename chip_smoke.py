@@ -4,7 +4,8 @@
     python3 chip_smoke.py                   # every phase, one card
     python3 chip_smoke.py --only kernels    # build + kernel checks only
     python3 chip_smoke.py --ptxas           # also print nvcc's `ptxas -v`
-                                            # (fails on a flash kernel spill)
+                                            # (fails on a K1-K3, K6 or K8
+                                            # spill)
     python3 chip_smoke.py --trace out.json  # keep the traced steps' traces
 
 Transformer-base runs at its full depth (6+6 layers) and width, the
@@ -27,15 +28,28 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               the plain version and one library call computing the same
               function (CUDA graph of 20 calls, CUDA events, warmup,
               median), beside the least time the card could take (bound).
-              K6 (fused LSTM) is checked forward and reverse, with zero
-              and given h0/c0, at a serving dispatch's x [8, 256, 512]
-              and a training step's [128, 64, 512] (h = 128); K9 (masked
-              pool) in its three pool types at the conv net's x [8, 256,
-              32] and at [128, 256, 512]; ragged lengths with 1 and T.
-              K8 (masked softmax) at the translator's decoder step, x [16,
-              48] with lengths 1 and 48 among them, and at a wide [2048,
-              256] with lengths 0, 1 and 256; its library call is
-              torch.softmax(x, 1) at full lengths. K4 is also held on
+              K6 (fused LSTM, a thread-block cluster per group of rows;
+              its launch plan printed) is checked forward and reverse,
+              with zero and given h0/c0, each launched directly and
+              replayed from a CUDA graph, at a serving dispatch's x [8,
+              256, 512] and a training step's [128, 64, 512] (h = 128),
+              at B = 1 and 4, T = 1, a length-0 row (exactly h0 and c0),
+              D 1, 37, 100 and 512 (W streamed from L2), x cut as a
+              strided view from a wider buffer, and under plans pinned
+              to every cluster size 1-16; timed beside the K6 of
+              commit 276bea2 (--k6-baseline, or git history), cuDNN's
+              LSTM and the step floor (k6_ablation.py's "floor": the
+              same launch doing only the exchange of h and the cluster
+              barrier). K9 (masked pool) in its three pool types at the
+              conv net's x [8, 256, 32] and at [128, 256, 512]; ragged
+              lengths with 1 and T. K8 (masked softmax) at the
+              translator's decoder step x [16, 48], a wide [2048, 256],
+              T 1023 and 3000 (the online pass above the registers'
+              1024) and rows whose stride is not a multiple of 4,
+              lengths 0, 1 and T, direct and from a CUDA graph; timed at
+              the first two beside the K8 of commit 276bea2
+              (--k8-baseline); its library call is torch.softmax(x, 1)
+              at full lengths. K4 is also held on
               labels -1 and V, which pick class V - 1 (the JAX CPU rule).
               K7 (fused LSTMP, one cooperative launch of one block per
               SM) is checked forward and reverse, with zero and given
@@ -270,6 +284,11 @@ FLASH_BWD_BASELINE_COMMIT = "0ba7d56"
 # the commit whose K1 (fp32 on the CUDA cores) the current one is timed
 # against
 FLASH_FWD_BASELINE_COMMIT = "db823af"
+# the commit whose K6 (one block per batch row, W read from L2 at every
+# step) and K8 (three walks over each row) the current ones are timed
+# against
+K6_BASELINE_COMMIT = "276bea2"
+K8_BASELINE_COMMIT = "276bea2"
 
 
 class SmokeFailure(RuntimeError):
@@ -389,6 +408,43 @@ def flash_registers(log):
           "kernels, found %d" % len(found))
     check(all(spill == 0 for *_, spill in found),
           "a flash kernel spills registers")
+
+
+def sequence_registers(log):
+    """Registers and spill bytes of every K6 instantiation
+    (fused_lstm_fwd_kernel<RESIDENT, RG>) and K8 one
+    (masked_softmax_reg_kernel<CHUNKS, VEC>, masked_softmax_online_kernel)
+    from nvcc's `ptxas -v` lines; fails on a spill."""
+    import re
+    name, found = None, []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+?)'", line)
+        if m:
+            name = m.group(1)
+            kind = re.search(r"(fused_lstm_fwd_kernel)ILb(\d)ELi(\d+)E|"
+                             r"(masked_softmax_reg_kernel)ILi(\d+)ELi(\d+)E|"
+                             r"(masked_softmax_online_kernel)", name)
+            if kind:
+                parts = [p for p in kind.groups() if p is not None]
+                found.append([parts[0] + ("<%s>" % ", ".join(parts[1:])
+                                          if parts[1:] else ""), None, None])
+            continue
+        if not found or found[-1][1] is not None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            found[-1][2] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[-1][1] = int(m.group(1))
+    for kname, regs, spill in found:
+        print("ptxas: %s: %s registers, %s bytes spilled" % (kname, regs,
+                                                              spill))
+    check(len(found) == 15, "ptxas: expected the register lines of 4 K6 and "
+          "11 K8 kernels, found %d" % len(found))
+    check(all(spill == 0 for _, _, spill in found),
+          "a K6 or K8 kernel spills registers")
 
 
 def flash_work(b, t, h, d, lens, causal, part="fwd"):
@@ -1123,55 +1179,211 @@ def cudnn_lstm(torch, w, b):
     return lstm
 
 
-def run_sequence_kernels(torch, ck, peak_flops, peak_bw):
-    """K6 and K9 against their plain versions at the sequence path's
-    shapes, and timed (kernel, plain, library) beside their bounds."""
+def lstm_inputs(torch, g, b, t, d, strided=False):
+    """K6's inputs at one shape: w at the path's 0.1 (D = 128, as the
+    serving and training checks always used) or 1.13 / sqrt(D) elsewhere,
+    bias 0.1, x 0.5, h0 and c0 0.2; x either contiguous or a view [B, T,
+    4D] cut at an odd offset from a wider [B, T, 4D + 12] buffer."""
     dev = torch.device("cuda")
+    scale = 0.1 if d == 128 else 1.13 / d ** 0.5
+    w = torch.randn((d, 4 * d), generator=g, device=dev) * scale
+    bias = torch.randn((4 * d,), generator=g, device=dev) * 0.1
+    if strided:
+        wide = torch.randn((b, t, 4 * d + 12), generator=g, device=dev) * 0.5
+        x = wide[:, :, 5:5 + 4 * d]
+    else:
+        x = torch.randn((b, t, 4 * d), generator=g, device=dev) * 0.5
+    h0 = torch.randn((b, d), generator=g, device=dev) * 0.2
+    c0 = torch.randn((b, d), generator=g, device=dev) * 0.2
+    return x, w, bias, h0, c0
+
+
+def direct_and_graph(torch, fn):
+    """fn() launched directly, then captured in a CUDA graph (after a warm
+    call on a side stream) and replayed twice: (direct, replayed)."""
+    direct = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fn()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    del graph
+    return direct, replayed
+
+
+def lstm_check(torch, ck, what, x, w, bias, h0, c0, lens):
+    """K6 against fused_lstm_plain, forward and reverse, zero and given
+    h0/c0, each launched directly and replayed from a CUDA graph: the
+    largest absolute error on hidden and cell; a row of length 0 must be
+    exactly h0 and c0 (zeros) at every step."""
+    b, t, four_d = x.shape
+    lt = torch.tensor(lens, dtype=torch.int32, device=x.device)
+    empty = [i for i, n in enumerate(lens) if n == 0]
+    err_max = 0.0
+    for reverse in (False, True):
+        for state in (None, (h0, c0)):
+            args = (x, w, bias) + (state or (None, None)) + (lt, reverse)
+            want = ck.fused_lstm_plain(*args)
+            runs = direct_and_graph(torch, lambda: ck.fused_lstm(*args))
+            # absolute, on hidden and cell after up to 256 steps: each
+            # step's gates differ by the rounding of a D-term product, the
+            # gates are squashed and the forget gate is below 1, so the
+            # carried error does not grow with T
+            err = max((a - r).abs().max().item()
+                      for got in runs for a, r in zip(got, want))
+            for i in empty:
+                hh = h0[i] if state else torch.zeros_like(h0[i])
+                cc = c0[i] if state else torch.zeros_like(c0[i])
+                check(all(bool((got[0][i] == hh).all())
+                          and bool((got[1][i] == cc).all())
+                          for got in runs),
+                      "fused_lstm (%s): a length-0 row is not exactly its "
+                      "initial state" % what)
+            print("kernels: fused_lstm %s B=%d T=%d D=%d reverse=%s "
+                  "h0/c0=%s max_abs_err=%.3e (direct and CUDA graph)"
+                  % (what, b, t, four_d // 4, reverse,
+                     "given" if state else "zero", err))
+            check(np.isfinite(err) and err <= KERNEL_TOL,
+                  "fused_lstm (%s) disagrees with its plain version by %r "
+                  "(tolerance %r)" % (what, err, KERNEL_TOL))
+            err_max = max(err_max, err)
+    return err_max
+
+
+def baseline_lstm(torch, ck, source, build_dir):
+    """The K6 of commit K6_BASELINE_COMMIT (one block per batch row, W from
+    L2) built from `source`: a function with fused_lstm's signature and no
+    launch count (it is on no path)."""
+    import ctypes
+    lib = build_baseline(ck, source, build_dir, "ptt_lstm_baseline", "K6")
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ptt_fused_lstm_fwd.argtypes = [P, L, L] + [P] * 7 + [I] * 4 + [P]
+    lib.ptt_fused_lstm_fwd.restype = I
+
+    def run(x, w, bias, h0, c0, lens, reverse=False):
+        b, t, four_d = x.shape
+        d = four_d // 4
+        hidden = torch.empty((b, t, d), dtype=torch.float32, device=x.device)
+        cell = torch.empty_like(hidden)
+        err = lib.ptt_fused_lstm_fwd(
+            x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(),
+            bias.data_ptr(), h0.data_ptr() if h0 is not None else None,
+            c0.data_ptr() if c0 is not None else None,
+            lens.data_ptr() if lens is not None else None, hidden.data_ptr(),
+            cell.data_ptr(), b, t, d, int(reverse), ck._stream_of(x))
+        check(err == 0, "the baseline K6 failed to launch (cudaError %d)"
+              % err)
+        return hidden, cell
+    return run
+
+
+def run_sequence_kernels(torch, ck, peak_flops, peak_bw, k6_source=None):
+    """K6 and K9 against their plain versions at the sequence path's
+    shapes, and timed (kernel, plain, library) beside their bounds; K6
+    also at the other batch buckets, T = 1, a length-0 row, D 1, 37, 100
+    and 512 (streamed W), x strided, each direct and from a CUDA graph,
+    and timed beside the K6 of commit K6_BASELINE_COMMIT and the step
+    floor (k6_ablation.py's "floor" variant: only the exchange of h and
+    the cluster barrier of each step)."""
+    import k6_ablation
+    dev = torch.device("cuda")
+
+    def plan_of(b, dd):
+        return k6_ablation.describe(ck.lstm_plan_on_card(ck.build(), b, dd,
+                                                         dev))
+
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 2)
     rng = np.random.RandomState(SEED + 2)
     results = {}
 
-    def ragged(b, t):
+    def ragged(b, t, empty=False):
         lens = rng.randint(1, t + 1, size=b)
         lens[0], lens[-1] = t, 1
+        if empty:
+            lens[1] = 0
         return lens.tolist()
 
     # K6: a serving dispatch of the stacked LSTM (batch bucket 8, seq
-    # bucket 256) and a training step (batch 128, T 64), both at h = 128
+    # bucket 256) and a training step (batch 128, T 64), both at h = 128,
+    # then the other shapes the lstm rule sends it
     d = SENTIMENT["lstm_hid"] // 4
     lstm_cases = [(8, 256, ragged(8, 256)),
                   (SEQ_TRAIN["batch"], SEQ_TRAIN["seq"],
                    ragged(SEQ_TRAIN["batch"], SEQ_TRAIN["seq"]))]
-    w = torch.randn((d, 4 * d), generator=g, device=dev) * 0.1
-    bias = torch.randn((4 * d,), generator=g, device=dev) * 0.1
+    for b, t, _ in lstm_cases:
+        print("kernels: fused_lstm launch plan at B=%d D=%d: %s"
+              % (b, d, plan_of(b, d)))
     lstm_err = 0.0
+    for what, (b, t, dd, lens, strided) in (
+            ("B=1", (1, 64, d, [64], False)),
+            ("B=4", (4, 128, d, ragged(4, 128), False)),
+            ("T=1", (8, 1, d, [1] * 8, False)),
+            ("a length-0 row", (8, 32, d, ragged(8, 32, True), False)),
+            ("D=1", (4, 16, 1, ragged(4, 16, True), False)),
+            ("D=37", (4, 16, 37, ragged(4, 16), False)),
+            ("D=100", (4, 16, 100, ragged(4, 16), False)),
+            ("D=512 (W streamed)", (8, 16, 512, ragged(8, 16), False)),
+            ("x strided", (8, 32, d, ragged(8, 32), True))):
+        inputs = lstm_inputs(torch, g, b, t, dd, strided)
+        if dd != d:
+            print("kernels: fused_lstm launch plan at B=%d D=%d: %s"
+                  % (b, dd, plan_of(b, dd)))
+        lstm_err = max(lstm_err, lstm_check(torch, ck, what, *inputs, lens))
+        del inputs
+    # every cluster size under plans pinned as k6_ablation.py sweeps them
+    # (the default plan picks one size per shape)
+    x, w, bias, h0, c0 = lstm_inputs(torch, g, 8, 32, d)
+    lens = ragged(8, 32, True)
+    lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+    want = ck.fused_lstm_plain(x, w, bias, h0, c0, lt, True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for cs, rows in ((1, 8), (2, 2), (4, 4), (8, 1), (16, 2), (16, 8)):
+        plan = ck.lstm_launch_plan(8, d, sms, cs=cs, rows=rows)
+        got = ck._launch_lstm(ck.build(), plan, x, w, bias, h0, c0, lt,
+                              True)
+        torch.cuda.synchronize()
+        err = max((a - r).abs().max().item() for a, r in zip(got, want))
+        print("kernels: fused_lstm pinned plan %s B=8 T=32 reverse h0/c0 "
+              "given max_abs_err=%.3e" % (k6_ablation.describe(plan), err))
+        check(np.isfinite(err) and err <= KERNEL_TOL
+              and bool((got[0][1] == h0[1]).all()),
+              "fused_lstm under the pinned plan %s disagrees with its plain "
+              "version by %r" % (k6_ablation.describe(plan), err))
+        lstm_err = max(lstm_err, err)
+    del x, w, bias, h0, c0, got, want
+    base = None
+    build_dir = tempfile.mkdtemp(prefix="ptt_k6_baseline_")
+    if k6_source is not None:
+        t0 = time.perf_counter()
+        base = baseline_lstm(torch, ck, k6_source, build_dir)
+        print("kernels: built the baseline fused_lstm (%s) in %.1f s"
+              % (K6_BASELINE_COMMIT, time.perf_counter() - t0))
+    else:
+        print("kernels: the baseline fused_lstm source is not at hand; its "
+              "time is not measured")
+    floor_lib = k6_ablation.floor_lib(ck, build_dir)
     timing = {}
     for b, t, lens in lstm_cases:
-        x = torch.randn((b, t, 4 * d), generator=g, device=dev) * 0.5
-        h0 = torch.randn((b, d), generator=g, device=dev) * 0.2
-        c0 = torch.randn((b, d), generator=g, device=dev) * 0.2
+        x, w, bias, h0, c0 = lstm_inputs(torch, g, b, t, d)
+        lstm_err = max(lstm_err, lstm_check(torch, ck, "path shape", x, w,
+                                            bias, h0, c0, lens))
         lt = torch.tensor(lens, dtype=torch.int32, device=dev)
-        for reverse in (False, True):
-            for state in (None, (h0, c0)):
-                args = (x, w, bias) + (state or (None, None)) + (lt, reverse)
-                got = ck.fused_lstm(*args)
-                want = ck.fused_lstm_plain(*args)
-                torch.cuda.synchronize()
-                # absolute, on hidden and cell after up to 256 steps: each
-                # step's gates differ by the rounding of a 128-term
-                # product, the gates are squashed and the forget gate is
-                # below 1, so the carried error does not grow with T
-                err = max((a - r).abs().max().item()
-                          for a, r in zip(got, want))
-                print("kernels: fused_lstm B=%d T=%d D=%d reverse=%s "
-                      "h0/c0=%s max_abs_err=%.3e"
-                      % (b, t, d, reverse, "given" if state else "zero",
-                         err))
-                check(np.isfinite(err) and err <= KERNEL_TOL,
-                      "fused_lstm disagrees with its plain version by %r "
-                      "(tolerance %r)" % (err, KERNEL_TOL))
-                lstm_err = max(lstm_err, err)
+        if base is not None:
+            got = base(x, w, bias, h0, c0, lt, True)
+            want = ck.fused_lstm_plain(x, w, bias, h0, c0, lt, True)
+            torch.cuda.synchronize()
+            print("kernels: the baseline fused_lstm B=%d agrees with the "
+                  "plain version to %.3e"
+                  % (b, max((a - r).abs().max().item()
+                            for a, r in zip(got, want))))
+            del got, want
         full = torch.full((b,), t, dtype=torch.int32, device=dev)
         ref = cudnn_lstm(torch, w, bias)
         with torch.no_grad():
@@ -1186,17 +1398,38 @@ def run_sequence_kernels(torch, ck, peak_flops, peak_bw):
             with torch.no_grad():
                 return ref(x)
 
+        runs = {"new": [], "old": []}
+        # in turns, old new new old, so that drift shows
+        for order in ("old", "new", "new", "old"):
+            fn = ck.fused_lstm if order == "new" else base
+            if fn is not None:
+                runs[order].append(time_ms(
+                    torch, lambda fn=fn: fn(x, w, bias, None, None, lt)))
+        floor = k6_ablation.step_floor_ms(torch, ck, floor_lib, x, w, bias,
+                                          full, time_ms)
         flops, nbytes = lstm_work(lens, t, d, b, False)
         bms, bby = bound(flops, nbytes, peak_flops, peak_bw)
         timing[(b, t)] = {
-            "ms": time_ms(torch, lambda: ck.fused_lstm(x, w, bias, None,
-                                                       None, lt)),
+            "ms": statistics.mean(runs["new"]), "runs": runs["new"],
+            "baseline_ms": statistics.mean(runs["old"]) if base else None,
+            "baseline_runs": runs["old"],
             "plain_ms": time_ms(torch, lambda: ck.fused_lstm_plain(
                 x, w, bias, None, None, lt), iters=2, reps=3),
             # a CUDA graph like the kernel's: device time, no launch cost
             "library_ms": time_ms(torch, lib_call),
-            "bound_ms": bms, "bound_by": bby, "lens": lens,
-            "cudnn_max_abs_diff": lib_err}
+            "bound_ms": bms, "bound_by": bby, "floor_ms": floor,
+            "lens": lens, "cudnn_max_abs_diff": lib_err,
+            "plan": plan_of(b, d)}
+        tm = timing[(b, t)]
+        print("kernels: fused_lstm timing x [%d,%d,%d]: new %s ms; baseline "
+              "%s ms; plain %.4f ms; cuDNN %.4f ms; bound %.4f ms (%s); step "
+              "floor %.4f ms (%.3f us a step)"
+              % (b, t, 4 * d, " / ".join("%.4f" % v for v in runs["new"]),
+                 " / ".join("%.4f" % v for v in runs["old"])
+                 or "not measured", tm["plain_ms"], tm["library_ms"], bms,
+                 bby, floor, floor * 1e3 / t))
+        del x, ref
+    shutil.rmtree(build_dir, ignore_errors=True)
     (sb, st), (tb, tt) = [(b, t) for b, t, _ in lstm_cases]
     serve, train = timing[(sb, st)], timing[(tb, tt)]
     results["fused_lstm"] = {
@@ -1210,10 +1443,14 @@ def run_sequence_kernels(torch, ck, peak_flops, peak_bw):
         "library_covers": "torch.nn.LSTM (cuDNN) at full lengths, identity "
                           "input projection, in a CUDA graph",
         "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+        "baseline_ms": serve["baseline_ms"], "floor_ms": serve["floor_ms"],
+        "plan": serve["plan"],
         "train_shape": "x [%d,%d,%d]" % (tb, tt, 4 * d),
         "train_ms": train["ms"], "train_plain_ms": train["plain_ms"],
         "train_library_ms": train["library_ms"],
         "train_bound_ms": train["bound_ms"],
+        "train_baseline_ms": train["baseline_ms"],
+        "train_floor_ms": train["floor_ms"], "train_plan": train["plan"],
         "cudnn_max_abs_diff": max(serve["cudnn_max_abs_diff"],
                                   train["cudnn_max_abs_diff"]),
     }
@@ -1285,16 +1522,83 @@ def softmax_work(lens, t, n):
     return 5 * valid, 4 * (valid + n * t + n)
 
 
-def run_translation_kernels(torch, ck, peak_flops, peak_bw):
+def baseline_softmax(torch, ck, source, build_dir):
+    """The K8 of commit K8_BASELINE_COMMIT (three walks over each row)
+    built from `source`: a function with masked_softmax's signature and
+    no launch count (it is on no path)."""
+    import ctypes
+    lib = build_baseline(ck, source, build_dir, "ptt_softmax_baseline", "K8")
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ptt_masked_softmax_fwd.argtypes = [P, L, P, P, I, I, P]
+    lib.ptt_masked_softmax_fwd.restype = I
+
+    def run(x, lens):
+        n, t = x.shape
+        y = torch.empty((n, t), dtype=torch.float32, device=x.device)
+        err = lib.ptt_masked_softmax_fwd(x.data_ptr(), x.stride(0),
+                                         lens.data_ptr(), y.data_ptr(), n, t,
+                                         ck._stream_of(x))
+        check(err == 0, "the baseline K8 failed to launch (cudaError %d)"
+              % err)
+        return y
+    return run
+
+
+def run_translation_kernels(torch, ck, peak_flops, peak_bw, k8_source=None):
     """K8 against its plain version at the translator's decoder-step shape
-    and a wide one, and timed (kernel, plain, library) beside its bound."""
+    x [16, 48], a wide [2048, 256], rows of 1023 steps and of 3000 (above
+    the registers' 1024: the online pass), and rows whose stride is not a
+    multiple of 4 (scalar loads), lengths 0, 1 and T among them, each
+    launched directly and from a CUDA graph; a length-0 row exactly 0.
+    Timed at the first two (kernel, the K8 of commit K8_BASELINE_COMMIT in
+    turns with it, plain, library) beside its bound."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 5)
     rng = np.random.RandomState(SEED + 5)
+
+    def case_lens(n, t):
+        lens = rng.randint(1, t + 1, size=n)
+        lens[0], lens[-1], lens[1] = t, 1, 0
+        return lens.tolist()
+
+    err_max = 0.0
+    # (what, rows, steps, row stride)
+    for what, n, t, stride in (
+            ("translator step", MT["batch"], MT["max_len"], MT["max_len"]),
+            ("wide", 2048, 256, 256), ("T=1023", 64, 1023, 1023),
+            ("T=3000 (online pass)", 64, 3000, 3000),
+            ("row stride 51", MT["batch"], MT["max_len"], 51),
+            ("row stride 259", 64, 256, 259)):
+        # attention scores: products of 512-wide states, a few units large
+        x = (torch.randn((n, stride), generator=g, device=dev) * 3)[:, :t]
+        lens = case_lens(n, t)
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        want = ck.masked_softmax_plain(x, lt)
+        runs = direct_and_graph(torch, lambda: ck.masked_softmax(x, lt))
+        err = max((got - want).abs().max().item() for got in runs)
+        print("kernels: masked_softmax %s N=%d T=%d row stride %d "
+              "max_abs_err=%.3e (direct and CUDA graph)"
+              % (what, n, t, x.stride(0), err))
+        check(np.isfinite(err) and err <= KERNEL_TOL,
+              "masked_softmax disagrees with its plain version by %r "
+              "(tolerance %r)" % (err, KERNEL_TOL))
+        check(all(bool((got[lt == 0] == 0).all()) for got in runs),
+              "masked_softmax: a length-0 row is not all 0")
+        err_max = max(err_max, err)
+
+    base = None
+    build_dir = tempfile.mkdtemp(prefix="ptt_k8_baseline_")
+    if k8_source is not None:
+        t0 = time.perf_counter()
+        base = baseline_softmax(torch, ck, k8_source, build_dir)
+        print("kernels: built the baseline masked_softmax (%s) in %.1f s"
+              % (K8_BASELINE_COMMIT, time.perf_counter() - t0))
+    else:
+        print("kernels: the baseline masked_softmax source is not at hand; "
+              "its time is not measured")
     # (rows, steps, a length-0 row among them)
     cases = [(MT["batch"], MT["max_len"], False), (2048, 256, True)]
-    err_max = 0.0
     timing = {}
     for n, t, empty_row in cases:
         lens = rng.randint(1, t + 1, size=n)
@@ -1302,29 +1606,38 @@ def run_translation_kernels(torch, ck, peak_flops, peak_bw):
         if empty_row:
             lens[1] = 0
         lens = lens.tolist()
-        # attention scores: products of 512-wide states, a few units large
         x = torch.randn((n, t), generator=g, device=dev) * 3
         lt = torch.tensor(lens, dtype=torch.int32, device=dev)
-        got = ck.masked_softmax(x, lt)
-        want = ck.masked_softmax_plain(x, lt)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        print("kernels: masked_softmax N=%d T=%d max_abs_err=%.3e"
-              % (n, t, err))
-        check(np.isfinite(err) and err <= KERNEL_TOL,
-              "masked_softmax disagrees with its plain version by %r "
-              "(tolerance %r)" % (err, KERNEL_TOL))
-        check(bool((got[lt == 0] == 0).all()),
-              "masked_softmax: a length-0 row is not all 0")
-        err_max = max(err_max, err)
+        if base is not None:
+            got = base(x, lt)
+            torch.cuda.synchronize()
+            print("kernels: the baseline masked_softmax N=%d T=%d agrees "
+                  "with the plain version to %.3e" % (n, t, (
+                      got - ck.masked_softmax_plain(x, lt)).abs().max()
+                      .item()))
+        runs = {"new": [], "old": []}
+        for order in ("old", "new", "new", "old"):
+            fn = ck.masked_softmax if order == "new" else base
+            if fn is not None:
+                runs[order].append(time_ms(torch, lambda fn=fn: fn(x, lt)))
         flops, nbytes = softmax_work(lens, t, n)
         bms, bby = bound(flops, nbytes, peak_flops, peak_bw)
         timing[(n, t)] = {
-            "ms": time_ms(torch, lambda: ck.masked_softmax(x, lt)),
+            "ms": statistics.mean(runs["new"]), "runs": runs["new"],
+            "baseline_ms": statistics.mean(runs["old"]) if base else None,
+            "baseline_runs": runs["old"],
             "plain_ms": time_ms(torch,
                                 lambda: ck.masked_softmax_plain(x, lt)),
             "library_ms": time_ms(torch, lambda: torch.softmax(x, 1)),
             "bound_ms": bms, "bound_by": bby, "lens": lens}
+        tm = timing[(n, t)]
+        print("kernels: masked_softmax timing x [%d,%d]: new %s ms; baseline "
+              "%s ms; plain %.4f ms; torch.softmax %.4f ms; bound %.5f ms "
+              "(%s)" % (n, t, " / ".join("%.4f" % v for v in runs["new"]),
+                        " / ".join("%.4f" % v for v in runs["old"])
+                        or "not measured", tm["plain_ms"], tm["library_ms"],
+                        bms, bby))
+    shutil.rmtree(build_dir, ignore_errors=True)
     (pn, pt, _), (wn, wt, _) = cases
     path, wide = timing[(pn, pt)], timing[(wn, wt)]
     r = {
@@ -1336,17 +1649,24 @@ def run_translation_kernels(torch, ck, peak_flops, peak_bw):
         "library_ms": path["library_ms"],
         "library_covers": "torch.softmax(x, 1) at full lengths",
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
+        "baseline_ms": path["baseline_ms"],
         "wide_shape": "x [%d,%d]" % (wn, wt),
         "wide_ms": wide["ms"], "wide_plain_ms": wide["plain_ms"],
         "wide_library_ms": wide["library_ms"],
         "wide_bound_ms": wide["bound_ms"],
+        "wide_baseline_ms": wide["baseline_ms"],
     }
-    print("kernels: masked_softmax ms=%.4f plain_ms=%.4f library_ms=%.4f "
-          "bound_ms=%.5f (%s); at %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
-          "bound_ms=%.5f" % (r["ms"], r["plain_ms"], r["library_ms"],
-                             r["bound_ms"], r["bound_by"], r["wide_shape"],
-                             wide["ms"], wide["plain_ms"],
-                             wide["library_ms"], wide["bound_ms"]))
+
+    def opt(v):
+        return "not measured" if v is None else "%.4f" % v
+
+    print("kernels: masked_softmax ms=%.4f baseline_ms=%s plain_ms=%.4f "
+          "library_ms=%.4f bound_ms=%.5f (%s); at %s ms=%.4f baseline_ms=%s "
+          "plain_ms=%.4f library_ms=%.4f bound_ms=%.5f"
+          % (r["ms"], opt(r["baseline_ms"]), r["plain_ms"], r["library_ms"],
+             r["bound_ms"], r["bound_by"], r["wide_shape"], wide["ms"],
+             opt(wide["baseline_ms"]), wide["plain_ms"], wide["library_ms"],
+             wide["bound_ms"]))
     return {"masked_softmax": r}
 
 
@@ -2653,6 +2973,16 @@ def main(argv=None):
                     "batch row) to time beside the "
                     "new K7 (default: `git show %s:%s` when the checkout "
                     "has its history)" % (K7_BASELINE_COMMIT, LSTMP_SRC))
+    ap.add_argument("--k6-baseline", metavar="SRC",
+                    help="the baseline fused_lstm_fwd.cu (one block per "
+                    "batch row) to time beside the new K6 (default: `git "
+                    "show %s:%s` when the checkout has its history)"
+                    % (K6_BASELINE_COMMIT, LSTM_SRC))
+    ap.add_argument("--k8-baseline", metavar="SRC",
+                    help="the baseline masked_softmax_fwd.cu (three walks "
+                    "over each row) to time beside the new K8 (default: "
+                    "`git show %s:%s` when the checkout has its history)"
+                    % (K8_BASELINE_COMMIT, SOFTMAX_SRC))
     ap.add_argument("--flash-fwd-baseline", metavar="SRC",
                     help="the baseline flash_attention_fwd.cu (fp32 on the "
                     "CUDA cores) to time beside the new K1 (default: `git "
@@ -2695,6 +3025,7 @@ def main(argv=None):
     if args.ptxas:
         print(ck.build_info.log)
         flash_registers(ck.build_info.log)
+        sequence_registers(ck.build_info.log)
 
     kernels = run_kernels(
         torch, ck, peak_flops, peak_bw, tc_flops,
@@ -2703,8 +3034,12 @@ def main(argv=None):
         baseline_source(args.flash_bwd_baseline, FLASH_BWD_BASELINE_COMMIT,
                         FLASH_BWD_SRC))
     run_unequal_attention_vs_cpu(torch)
-    kernels.update(run_sequence_kernels(torch, ck, peak_flops, peak_bw))
-    kernels.update(run_translation_kernels(torch, ck, peak_flops, peak_bw))
+    kernels.update(run_sequence_kernels(
+        torch, ck, peak_flops, peak_bw,
+        baseline_source(args.k6_baseline, K6_BASELINE_COMMIT, LSTM_SRC)))
+    kernels.update(run_translation_kernels(
+        torch, ck, peak_flops, peak_bw,
+        baseline_source(args.k8_baseline, K8_BASELINE_COMMIT, SOFTMAX_SRC)))
     kernels.update(run_acoustic_kernels(
         torch, ck, peak_flops, peak_bw,
         baseline_source(args.k7_baseline, K7_BASELINE_COMMIT, LSTMP_SRC)))

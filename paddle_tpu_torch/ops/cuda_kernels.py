@@ -44,7 +44,8 @@ __all__ = ["build", "flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
            "softmax_xent_fwd", "softmax_xent_fwd_plain", "hard_label_index",
            "layer_norm_fwd", "layer_norm_fwd_plain", "fused_lstm",
-           "fused_lstm_plain", "fused_lstm_bwd", "fused_lstmp",
+           "fused_lstm_plain", "fused_lstm_bwd", "lstm_launch_plan",
+           "fused_lstmp",
            "fused_lstmp_plain", "fused_lstmp_bwd", "lstmp_launch_plan",
            "masked_softmax", "masked_softmax_plain", "masked_pool",
            "masked_pool_plain",
@@ -175,10 +176,9 @@ def _bind(lib):
     lib.ptt_softmax_xent_fwd.restype = I
     lib.ptt_layer_norm_fwd.argtypes = [P, P, P, P, P, P, I, I, F, I, P]
     lib.ptt_layer_norm_fwd.restype = I
-    lib.ptt_fused_lstm_fwd.argtypes = [P, L, L] + [P] * 7 + [I] * 4 + [P]
-    lib.ptt_fused_lstm_fwd.restype = I
+    _bind_lstm(lib)
     _bind_lstmp(lib)
-    lib.ptt_masked_softmax_fwd.argtypes = [P, L, P, P, I, I, P]
+    lib.ptt_masked_softmax_fwd.argtypes = [P, L, P, P, I, I, I, P]
     lib.ptt_masked_softmax_fwd.restype = I
     lib.ptt_masked_pool_fwd.argtypes = [P, L, L, P, P, I, I, I, I, P]
     lib.ptt_masked_pool_fwd.restype = I
@@ -199,6 +199,14 @@ def _bind_flash_bwd(lib):
         fn.argtypes = [P] * (7 + n_out) + [I] * 4 + [L] * 12 + \
             [ctypes.c_float, I, P]
         fn.restype = I
+
+
+def _bind_lstm(lib):
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ptt_fused_lstm_fwd.argtypes = [P, L, L] + [P] * 7 + [I] * 13 + [P]
+    lib.ptt_fused_lstm_fwd.restype = I
+    lib.ptt_fused_lstm_max_clusters.argtypes = [I, I, I, I, P]
+    lib.ptt_fused_lstm_max_clusters.restype = I
 
 
 def _bind_lstmp(lib):
@@ -754,7 +762,9 @@ def fused_lstm(x, w, b, h0=None, c0=None, lens=None, reverse=False):
     step when None). Returns (hidden, cell) [B, T, D] fp32.
 
     Dispatch by x's device: meta -> empty outputs, cpu -> the plain
-    version, cuda -> the kernel (fp32 only; anything else raises)."""
+    version, cuda -> the kernel (fp32 only; anything else raises): one
+    launch of thread-block clusters as lstm_plan_on_card lays it out for
+    this card; a refused plan or launch raises."""
     bsz, t, d = _lstm_args(x, w, b, h0, c0, lens)
     dev = x.device.type
     if dev == "meta":
@@ -790,19 +800,180 @@ def fused_lstm(x, w, b, h0=None, c0=None, lens=None, reverse=False):
         lens = lens.reshape(bsz).to(device=x.device,
                                     dtype=torch.int32).contiguous()
     lib = build()
+    _launch_lstm(lib, lstm_plan_on_card(lib, bsz, d, x.device), x, w, b, h0,
+                 c0, lens, reverse, hidden, cell)
+    _count(fused_lstm)
+    return hidden, cell
+
+
+fused_lstm.launches = 0
+
+LSTM_THREADS = 256        # threads per block of K6 (kThreads in the .cu)
+LSTM_MAX_CLUSTER = 16     # blocks a cluster (above 8: non-portable)
+LSTM_MIN_SLICE = 8        # the fewest terms of D a thread's tile sums
+# what one more block of a cluster costs a step (its exchange and the
+# wider barrier), in (padded rows x units) of a block's work: fitted to
+# k6_ablation.py's sweep of cluster sizes and rows on an H100
+LSTM_BLOCK_COST = 8
+
+
+def _lstm_smem_floats(d, rows, ku, rp, ks, resident, prefetch):
+    """Shared memory K6 needs, in 4-byte words: its layout in
+    csrc/fused_lstm_fwd.cu (smem_floats) region by region: the W slice [D,
+    4 ku] (resident only), h [2, D, rp], the partial sums [ks, rp, 4 ku],
+    x [2, rows, 4 ku] (prefetch only), the bias [4 ku], c [rows, ku], the
+    lengths."""
+    return ((4 * d * ku if resident else 0) + 2 * d * rp + 4 * ks * rp * ku
+            + (8 * rows * ku if prefetch else 0) + 4 * ku
+            + _round_up(rows * ku, 4) + _round_up(rows, 4))
+
+
+def lstm_launch_plan(bsz, d, sm_count, active=None, cs=None, rows=None):
+    """K6's launch plan for B rows and D hidden units on a card with
+    `sm_count` SMs: a dict with
+      cs        -- blocks a thread-block cluster (1-16, at most D);
+      rows      -- R, the batch rows a cluster owns ([q R, q R + R));
+      clusters  -- ceil(B / R); grid -- clusters * cs blocks;
+      units     -- block j's hidden units [j D / cs, (j + 1) D / cs);
+      ku        -- the most units any block owns (ceil(D / cs));
+      rg, rp    -- the rows of a thread's tile (4 or 8) and R rounded up
+                   to it;
+      ks        -- the slices of D the gate product is split into;
+      resident  -- the W slices stay in shared memory for the launch
+                   (False: read from L2 at every step);
+      prefetch  -- the next step's x columns are copied into shared memory
+                   during a step (False: the cell update reads them from
+                   global memory);
+      smem      -- dynamic shared memory bytes; threads -- a block's;
+      waves     -- ceil(clusters / the clusters the card runs at once).
+    `active(cs, rg, resident, smem)` says how many clusters the card runs
+    at once (cudaOccupancyMaxActiveClusters on the card, 0 for a size it
+    refuses); without it, sm_count // cs. The plan has the fewest waves,
+    then a resident W, then the least cost a step, (padded rows x units)
+    of a block's work plus LSTM_BLOCK_COST for each block of the cluster,
+    then the fewest real (rows x units), then the smallest cluster. cs and
+    rows pin those choices (the ablation's variants). Raises
+    ValueError on sizes that are not positive or when no plan fits."""
+    if bsz <= 0 or d <= 0 or sm_count <= 0:
+        raise ValueError("lstm_launch_plan needs positive B, D and SM count, "
+                         "got %r" % ((bsz, d, sm_count),))
+    limit = LSTMP_SMEM_LIMIT
+    sizes = [c for c in (1, 2, 4, 8, 16) if c <= min(LSTM_MAX_CLUSTER, d)] \
+        if cs is None else [int(cs)]
+    if rows is None:
+        row_opts = sorted({-(-bsz // n) for n in range(1, bsz + 1)})
+    else:
+        row_opts = [min(int(rows), bsz)]
+    best = None
+    for c in sizes:
+        if c < 1 or c > d:
+            raise ValueError("lstm_launch_plan: a cluster of %d blocks at "
+                             "D = %d" % (c, d))
+        ku = -(-d // c)
+        for r in row_opts:
+            rg = 4 if r <= 4 else 8
+            rp = _round_up(r, rg)
+            # the slices of D: as many as the threads left over by the
+            # (row group, unit) tiles allow, each LSTM_MIN_SLICE terms or
+            # more
+            k = min(max(1, LSTM_THREADS // (rp // rg * ku)),
+                    max(1, d // LSTM_MIN_SLICE))
+            for resident, prefetch in ((True, True), (True, False),
+                                       (False, True), (False, False)):
+                while 4 * _lstm_smem_floats(d, r, ku, rp, k, resident,
+                                            prefetch) > limit and k > 1:
+                    k = -(-k // 2)
+                smem = 4 * _lstm_smem_floats(d, r, ku, rp, k, resident,
+                                             prefetch)
+                if smem <= limit:
+                    break
+            else:
+                continue
+            clusters = -(-bsz // r)
+            at_once = sm_count // c if active is None else \
+                active(c, rg, resident, smem)
+            if at_once < 1:
+                continue
+            waves = -(-clusters // at_once)
+            key = (waves, not resident, rp * ku + LSTM_BLOCK_COST * c,
+                   r * ku, c)
+            if best is None or key < best[0]:
+                best = (key, {
+                    "cs": c, "rows": r, "clusters": clusters,
+                    "grid": clusters * c, "ku": ku,
+                    "units": [(j * d // c, (j + 1) * d // c)
+                              for j in range(c)],
+                    "rg": rg, "rp": rp, "ks": k, "resident": resident,
+                    "prefetch": prefetch, "smem": smem,
+                    "threads": LSTM_THREADS, "waves": waves})
+    if best is None:
+        raise ValueError("fused_lstm: no cluster plan fits B = %d, D = %d "
+                         "(shared memory %d bytes a block)"
+                         % (bsz, d, limit))
+    return best[1]
+
+
+_lstm_plans = {}
+
+
+def lstm_plan_on_card(lib, bsz, d, device):
+    """lstm_launch_plan for this card, the clusters it runs at once from
+    cudaOccupancyMaxActiveClusters at the plan's own shared memory (cached
+    per shape and device). Raises when the card runs no cluster of the
+    plan."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (bsz, d, index)
+    plan = _lstm_plans.get(key)
+    if plan is not None:
+        return plan
+    counts = {}
+
+    def active(cs, rg, resident, smem):
+        arg = (cs, rg, int(resident), smem)
+        if arg not in counts:
+            n = ctypes.c_int(0)
+            with torch.cuda.device(index):
+                err = lib.ptt_fused_lstm_max_clusters(*arg, ctypes.byref(n))
+            if err != 0 and cs <= 8:
+                _check_launch(err, "fused_lstm occupancy query")
+            counts[arg] = n.value if err == 0 else 0
+        return counts[arg]
+
+    plan = lstm_launch_plan(
+        bsz, d, torch.cuda.get_device_properties(index).multi_processor_count,
+        active=active)
+    if active(plan["cs"], plan["rg"], plan["resident"], plan["smem"]) < 1:
+        raise RuntimeError("fused_lstm: the card runs no cluster of %d blocks "
+                           "with %d bytes of shared memory"
+                           % (plan["cs"], plan["smem"]))
+    _lstm_plans[key] = plan
+    return plan
+
+
+def _launch_lstm(lib, plan, x, w, b, h0, c0, lens, reverse, hidden=None,
+                 cell=None):
+    """One launch of K6 from `lib` with `plan`, on checked CUDA tensors
+    (w, b, h0, c0 contiguous; lens int32 or None). Allocates the outputs
+    when not given; raises when the launch is refused. Returns (hidden,
+    cell)."""
+    bsz, t, four_d = x.shape
+    d = four_d // 4
+    if hidden is None:
+        hidden = torch.empty((bsz, t, d), dtype=torch.float32,
+                             device=x.device)
+        cell = torch.empty_like(hidden)
     err = lib.ptt_fused_lstm_fwd(
         x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(), b.data_ptr(),
         h0.data_ptr() if h0 is not None else None,
         c0.data_ptr() if c0 is not None else None,
         lens.data_ptr() if lens is not None else None,
         hidden.data_ptr(), cell.data_ptr(), bsz, t, d, int(bool(reverse)),
-        _stream_of(x))
+        plan["cs"], plan["rows"], plan["ku"], plan["rg"], plan["ks"],
+        int(plan["prefetch"]), plan["smem"], int(plan["resident"]),
+        plan["threads"], _stream_of(x))
     _check_launch(err, "fused_lstm")
-    _count(fused_lstm)
     return hidden, cell
-
-
-fused_lstm.launches = 0
 
 
 def _walk(a, reverse):
@@ -1189,6 +1360,10 @@ def fused_lstmp_bwd(x, w, w_proj, b, r0, c0, lens, proj, cell, g_proj,
 # pallas_kernels._masked_softmax_kernel)
 # ---------------------------------------------------------------------------
 
+SOFTMAX_WARPS = 2   # rows (one warp each) a block of K8 (k6_ablation.py)
+SOFTMAX_REG_CAP = 1024  # the longest row K8 holds in registers
+
+
 def _softmax_args(x, lens):
     if x.dim() != 2 or lens.numel() != x.shape[0]:
         raise ValueError("masked_softmax needs x [N, T] and N lengths, got "
@@ -1234,7 +1409,7 @@ def masked_softmax(x, lens):
     lib = build()
     err = lib.ptt_masked_softmax_fwd(x.data_ptr(), x.stride(0),
                                      lens.data_ptr(), y.data_ptr(), n, t,
-                                     _stream_of(x))
+                                     SOFTMAX_WARPS, _stream_of(x))
     _check_launch(err, "masked_softmax")
     _count(masked_softmax)
     return y
