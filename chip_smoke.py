@@ -4,8 +4,8 @@
     python3 chip_smoke.py                   # every phase, one card
     python3 chip_smoke.py --only kernels    # build + kernel checks only
     python3 chip_smoke.py --ptxas           # also print nvcc's `ptxas -v`
-                                            # (fails on a K1-K3, K6 or K8
-                                            # spill)
+                                            # (fails on a K1-K3, K6, K8 or
+                                            # K9 spill)
     python3 chip_smoke.py --trace out.json  # keep the traced steps' traces
 
 Transformer-base runs at its full depth (6+6 layers) and width, the
@@ -40,9 +40,18 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               commit 276bea2 (--k6-baseline, or git history), cuDNN's
               LSTM and the step floor (k6_ablation.py's "floor": the
               same launch doing only the exchange of h and the cluster
-              barrier). K9 (masked pool) in its three pool types at the
-              conv net's x [8, 256, 32] and at [128, 256, 512]; ragged
-              lengths with 1 and T. K8 (masked softmax) at the
+              barrier). K9 (masked pool, a thread-block cluster over
+              time per row and feature tile, 16-byte loads) in its three
+              pool types at the conv net's x [8, 256, 32], a wide [128,
+              256, 512] and a long [4, 4096, 512] (ragged lengths with 1
+              and T), at B = 70000 (fault C6), T = 1, F = 3, an
+              unaligned and a strided x, lengths 0 (exactly 0), negative
+              and over T, under every pinned cluster size (each plan run
+              twice: the same bits) and from a CUDA graph; timed beside
+              the launch floor (an empty kernel), the K9 of commit
+              bc496a2 (--k9-baseline, or git history) and x.sum(1), the
+              wide shape also cold (calls rotating over copies of x
+              beyond L2). K8 (masked softmax) at the
               translator's decoder step x [16, 48], a wide [2048, 256],
               T 1023 and 3000 (the online pass above the registers'
               1024) and rows whose stride is not a multiple of 4,
@@ -83,7 +92,8 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               Then fused_attention with a query length other than the
               key length (fault C5): a one-op program with its gradients
               on the card against the CPU, through the dense path, K1
-              never launched.
+              never launched. Then K1-K3 at B * H = 65544 (fault C7: B
+              8193, H 8, T 16, D 64) against their plain versions.
 4. serving  — the main path: build Transformer-base scoring (vocab 30000,
               d_model 512, 8 heads, 6+6 layers, d_inner 2048, T=256) with
               the port's layers, run its startup program on the card from
@@ -289,6 +299,9 @@ FLASH_FWD_BASELINE_COMMIT = "db823af"
 # against
 K6_BASELINE_COMMIT = "276bea2"
 K8_BASELINE_COMMIT = "276bea2"
+# the commit whose K9 (one block per row and feature tile, rows on grid.y)
+# the current one is timed against
+K9_BASELINE_COMMIT = "bc496a2"
 
 
 class SmokeFailure(RuntimeError):
@@ -1284,9 +1297,9 @@ def baseline_lstm(torch, ck, source, build_dir):
 
 
 def run_sequence_kernels(torch, ck, peak_flops, peak_bw, k6_source=None):
-    """K6 and K9 against their plain versions at the sequence path's
-    shapes, and timed (kernel, plain, library) beside their bounds; K6
-    also at the other batch buckets, T = 1, a length-0 row, D 1, 37, 100
+    """K6 against its plain version at the sequence path's shapes, and
+    timed (kernel, plain, library) beside its bound; also at the other
+    batch buckets, T = 1, a length-0 row, D 1, 37, 100
     and 512 (streamed W), x strided, each direct and from a CUDA graph,
     and timed beside the K6 of commit K6_BASELINE_COMMIT and the step
     floor (k6_ablation.py's "floor" variant: only the exchange of h and
@@ -1455,63 +1468,255 @@ def run_sequence_kernels(torch, ck, peak_flops, peak_bw, k6_source=None):
                                   train["cudnn_max_abs_diff"]),
     }
 
-    # K9: the conv net's SQRT pools (batch bucket 8, seq bucket 256,
-    # 32 filters) and a wide shape
-    pool_cases = [(8, 256, SENTIMENT["conv_hid"]), (128, 256, 512)]
-    pool_err = 0.0
-    timing = {}
-    for b, t, f in pool_cases:
-        x = torch.randn((b, t, f), generator=g, device=dev)
-        lens = ragged(b, t)
-        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
-        for ptype in ck.POOL_TYPES:
-            got = ck.masked_pool(x, lt, ptype)
-            want = ck.masked_pool_plain(x, lt, ptype)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            print("kernels: masked_pool B=%d T=%d F=%d %s max_abs_err=%.3e"
-                  % (b, t, f, ptype, err))
-            check(np.isfinite(err) and err <= KERNEL_TOL,
-                  "masked_pool disagrees with its plain version by %r"
-                  % err)
-            pool_err = max(pool_err, err)
-        flops, nbytes = pool_work(lens, t, f, b)
-        bms, bby = bound(flops, nbytes, peak_flops, peak_bw)
-        timing[(b, t, f)] = {
-            "ms": time_ms(torch, lambda: ck.masked_pool(x, lt, "SQRT")),
-            "plain_ms": time_ms(
-                torch, lambda: ck.masked_pool_plain(x, lt, "SQRT")),
-            "library_ms": time_ms(torch, lambda: x.sum(1)),
-            "bound_ms": bms, "bound_by": bby, "lens": lens}
-    serve, wide = timing[pool_cases[0]], timing[pool_cases[1]]
-    results["masked_pool"] = {
-        "name": "masked_pool", "route": "cuda", "source": POOL_SRC,
-        "replaces": POOL_TPU,
-        "shape": "x [%d,%d,%d] fp32, SQRT, lens %s" % (
-            pool_cases[0] + (serve["lens"],)),
-        "max_abs_err": pool_err,
-        "ms": serve["ms"], "plain_ms": serve["plain_ms"],
-        "library_ms": serve["library_ms"],
-        "library_covers": "x.sum(1) at full lengths",
-        "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
-        "wide_shape": "x [%d,%d,%d]" % pool_cases[1],
-        "wide_ms": wide["ms"], "wide_plain_ms": wide["plain_ms"],
-        "wide_library_ms": wide["library_ms"],
-        "wide_bound_ms": wide["bound_ms"],
-    }
     for r in results.values():
         print("kernels: %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
               "bound_ms=%.4f (%s)" % (r["name"], r["ms"], r["plain_ms"],
                                       r["library_ms"], r["bound_ms"],
                                       r["bound_by"]))
     print("kernels: fused_lstm at %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
-          "bound_ms=%.4f; masked_pool at %s ms=%.4f plain_ms=%.4f "
-          "library_ms=%.4f bound_ms=%.4f"
-          % (results["fused_lstm"]["train_shape"], train["ms"],
-             train["plain_ms"], train["library_ms"], train["bound_ms"],
-             results["masked_pool"]["wide_shape"], wide["ms"],
-             wide["plain_ms"], wide["library_ms"], wide["bound_ms"]))
+          "bound_ms=%.4f" % (results["fused_lstm"]["train_shape"],
+                             train["ms"], train["plain_ms"],
+                             train["library_ms"], train["bound_ms"]))
     return results
+
+
+def pool_registers(log):
+    """Registers and spill bytes of both K9 instantiations
+    (masked_pool_fwd_kernel<VEC>, VEC 1 and 4) from nvcc's `ptxas -v`
+    lines; fails on a spill."""
+    import re
+    name, found = None, []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+?)'", line)
+        if m:
+            kind = re.search(r"masked_pool_fwd_kernelILi(\d+)E", m.group(1))
+            name = kind and "masked_pool_fwd_kernel<%s>" % kind.group(1)
+            if name:
+                found.append([name, None, None])
+            continue
+        if not name or found[-1][1] is not None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            found[-1][2] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found[-1][1] = int(m.group(1))
+    for kname, regs, spill in found:
+        print("ptxas: %s: %s registers, %s bytes spilled" % (kname, regs,
+                                                              spill))
+    check(len(found) == 2, "ptxas: expected the register lines of 2 K9 "
+          "kernels, found %d" % len(found))
+    check(all(spill == 0 for _, _, spill in found), "a K9 kernel spills "
+          "registers")
+
+
+def pool_plans(ck, x):
+    """{name: plan}: K9's plan for x on this card pinned to every cluster
+    size."""
+    return {"CS=%d" % cs: ck.pool_plan_of(x, cs=cs)
+            for cs in ck.POOL_CLUSTERS}
+
+
+def pool_case(torch, ck, what, x, lens):
+    """K9 against masked_pool_plain on x and lens (int32 on the card) in
+    every pool type: through the wrapper, and launched under each plan of
+    pool_plans twice (the two runs must give the same bits). Checks every
+    result within KERNEL_TOL and every row of length <= 0 exactly 0.
+    Returns the largest error."""
+    import k9_ablation
+    lib = ck.build()
+    b, _, f = x.shape
+    plans = pool_plans(ck, x)
+    err = 0.0
+    for ptype in ck.POOL_TYPES:
+        want = ck.masked_pool_plain(x, lens, ptype)
+        got = {"wrapper": ck.masked_pool(x, lens, ptype)}
+        for name, plan in plans.items():
+            got[name] = [ck._launch_pool(
+                lib, plan, x, lens, ptype,
+                torch.empty((b, f), dtype=torch.float32, device=x.device))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        for name, outs in got.items():
+            outs = outs if isinstance(outs, list) else [outs]
+            check(all(torch.equal(outs[0], o) for o in outs[1:]),
+                  "masked_pool %s %s: two runs of one plan differ"
+                  % (what, name))
+            e = (outs[0] - want).abs().max().item()
+            check(np.isfinite(e) and e <= KERNEL_TOL,
+                  "masked_pool %s %s %s disagrees with its plain version by "
+                  "%r" % (what, ptype, name, e))
+            check(bool((outs[0][lens <= 0] == 0).all()),
+                  "masked_pool %s %s: a row of length <= 0 is not exactly 0"
+                  % (what, name))
+            err = max(err, e)
+    print("kernels: masked_pool %s x %s strides %s, plan %s, every pool type "
+          "and plans %s (twice each, same bits): max_abs_err=%.3e"
+          % (what, list(x.shape), list(x.stride()),
+             k9_ablation.describe(ck.pool_plan_of(x)),
+             ", ".join(plans), err))
+    return err
+
+
+def run_pool_kernels(torch, ck, peak_flops, peak_bw, k9_source=None):
+    """K9 against its plain version: every pool type at the timing shapes
+    (k9_ablation.SHAPES: the conv net's serving x [8, 256, 32], a wide
+    [128, 256, 512], a long [4, 4096, 512]), at B = 70000 (fault C6), T =
+    1, F = 3 and an unaligned x (4-byte loads), a strided x (time stride
+    2F), lengths 0, negative and over T among them, each under every
+    pinned cluster size, and replayed from a CUDA graph. Timed beside the launch floor (an empty kernel),
+    the K9 of commit K9_BASELINE_COMMIT in turns with it, x.sum(1) and the
+    plain version; the wide shape also cold (calls rotating over copies
+    of x beyond L2)."""
+    import k9_ablation
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 9)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 9)
+    err = 0.0
+    for what, b, t, f in k9_ablation.SHAPES:
+        xs, lens = k9_ablation.case_inputs(torch, b, t, f)
+        err = max(err, pool_case(torch, ck, what, xs[0], lens))
+        del xs
+
+    def edge_lens(b, t):
+        lens = rng.randint(0, t + 3, size=b)
+        lens[:4] = [t, 0, -3, t + 5][:b] if b >= 4 else lens[:4]
+        return torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    # (what, x): C6's batch, T = 1, the scalar path, a strided x
+    wide_base = torch.randn((8, 40, 65), generator=g, device=dev)
+    strided_base = torch.randn((8, 40, 128), generator=g, device=dev)
+    for what, x in (
+            ("B=70000 (C6)", torch.randn((70000, 8, 32), generator=g,
+                                         device=dev)),
+            ("T=1", torch.randn((16, 1, 64), generator=g, device=dev)),
+            ("F=3", torch.randn((8, 40, 3), generator=g, device=dev)),
+            ("unaligned", wide_base[..., 1:]),
+            ("strided", strided_base[..., :64])):
+        err = max(err, pool_case(torch, ck, what, x,
+                                 edge_lens(x.shape[0], x.shape[1])))
+    # a CUDA graph: the wrapper captured, replayed twice
+    xs, lens = k9_ablation.case_inputs(torch, *k9_ablation.SHAPES[0][1:])
+    want = ck.masked_pool_plain(xs[0], lens, "SQRT")
+    runs = direct_and_graph(torch, lambda: ck.masked_pool(xs[0], lens,
+                                                          "SQRT"))
+    e = max((r - want).abs().max().item() for r in runs)
+    print("kernels: masked_pool serving SQRT direct and from a CUDA graph: "
+          "max_abs_err=%.3e" % e)
+    check(np.isfinite(e) and e <= KERNEL_TOL, "masked_pool in a CUDA graph "
+          "disagrees with its plain version by %r" % e)
+    err = max(err, e)
+
+    build_dir = tempfile.mkdtemp(prefix="ptt_k9_baseline_")
+    base = None
+    if k9_source is not None:
+        t0 = time.perf_counter()
+        base = k9_ablation.baseline_pool(torch, ck, build_baseline(
+            ck, k9_source, build_dir, "ptt_pool_baseline", "K9"))
+        print("kernels: built the baseline masked_pool (%s) in %.1f s"
+              % (K9_BASELINE_COMMIT, time.perf_counter() - t0))
+    else:
+        print("kernels: the baseline masked_pool source is not at hand; its "
+              "time is not measured")
+    empty = k9_ablation.empty_lib(ck, build_dir)
+    floor = time_ms(torch, k9_ablation.launch_floor(torch, ck, empty,
+                                                    xs[0]))
+    print("launch floor: an empty kernel (1 block of 256 threads) %.4f ms in "
+          "a CUDA graph of 20" % floor)
+    timing = {}
+    for what, b, t, f in k9_ablation.SHAPES:
+        cold_n = k9_ablation.cold_copies(b, t, f) if what == "wide" else 1
+        xs, lens = k9_ablation.case_inputs(torch, b, t, f, copies=cold_n)
+        x = xs[0]
+        fns = {"new": lambda c: ck.masked_pool(c, lens, "SQRT"),
+               "old": base and (lambda c: base(c, lens, "SQRT")),
+               "x.sum(1)": lambda c: c.sum(1)}
+        tm = {"new": [], "old": [], "x.sum(1)": []}
+        cold = {"new": [], "old": [], "x.sum(1)": []}
+        for order in ("old", "new", "x.sum(1)", "new", "old", "x.sum(1)"):
+            fn = fns[order]
+            if fn is None:
+                continue
+            tm[order].append(time_ms(torch, lambda fn=fn: fn(x)))
+            if cold_n > 1:
+                cold[order].append(k9_ablation.rotating_ms(
+                    torch, [lambda fn=fn, c=c: fn(c) for c in xs]))
+        flops, nbytes = pool_work(lens.tolist(), t, f, b)
+        bms, bby = bound(flops, nbytes, peak_flops, peak_bw)
+
+        def mean(v):
+            return statistics.mean(v) if v else None
+        timing[what] = {
+            "shape": "x [%d,%d,%d] fp32, SQRT" % (b, t, f),
+            "ms": mean(tm["new"]), "runs": tm["new"],
+            "baseline_ms": mean(tm["old"]), "baseline_runs": tm["old"],
+            "library_ms": mean(tm["x.sum(1)"]),
+            "cold_ms": mean(cold["new"]),
+            "cold_baseline_ms": mean(cold["old"]),
+            "cold_library_ms": mean(cold["x.sum(1)"]),
+            "plain_ms": time_ms(torch, lambda: ck.masked_pool_plain(
+                x, lens, "SQRT")),
+            "bound_ms": bms, "bound_by": bby,
+            "plan": k9_ablation.describe(ck.pool_plan_of(x)),
+            "lens": lens.tolist()}
+        r = timing[what]
+
+        def ms(v):
+            return " / ".join("%.4f" % u for u in v) + " ms" if v \
+                else "not measured"
+        print("kernels: masked_pool timing %s x [%d,%d,%d] SQRT, plan %s: new "
+              "%s%s; old %s%s; x.sum(1) %s%s; plain %.4f ms; bound %.5f ms "
+              "(%s); launch floor %.4f ms"
+              % (what, b, t, f, r["plan"], ms(tm["new"]),
+                 " (cold %s)" % ms(cold["new"]) if cold_n > 1 else "",
+                 ms(tm["old"]),
+                 " (cold %s)" % ms(cold["old"]) if cold_n > 1 else "",
+                 ms(tm["x.sum(1)"]),
+                 " (cold %s)" % ms(cold["x.sum(1)"]) if cold_n > 1 else "",
+                 r["plain_ms"], bms, bby, floor))
+        del xs, x
+    shutil.rmtree(build_dir, ignore_errors=True)
+    serve, wide, long_ = (timing[w] for w, *_ in k9_ablation.SHAPES)
+    return {"masked_pool": {
+        "name": "masked_pool", "route": "cuda", "source": POOL_SRC,
+        "replaces": POOL_TPU,
+        "shape": serve["shape"] + ", lens %s" % serve["lens"],
+        "max_abs_err": err,
+        "ms": serve["ms"], "plain_ms": serve["plain_ms"],
+        "library_ms": serve["library_ms"],
+        "library_covers": "x.sum(1) at full lengths",
+        "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+        "baseline_ms": serve["baseline_ms"], "floor_ms": floor,
+        "plan": serve["plan"],
+        **{"%s_%s" % (w, k): r[k] for w, r in (("wide", wide),
+                                               ("long", long_))
+           for k in ("shape", "ms", "cold_ms", "plain_ms", "library_ms",
+                     "cold_library_ms", "bound_ms", "baseline_ms",
+                     "cold_baseline_ms", "plan")},
+    }}
+
+
+def run_flash_grid_check(torch, ck):
+    """Fault C7: K1, K2 and K3 at B * H = 65544 (B = 8193, H = 8, T = 16,
+    D = 64, one kv_len-0 row) against their plain versions, direct and
+    from a CUDA graph (flash_fwd_case, flash_bwd_case)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 10)
+    b, t, h, d = 8193, 16, 8, 64
+    q, k, v, g_out = (torch.randn((b, t, h, d), generator=g, device=dev)
+                      for _ in range(4))
+    kv_len = torch.randint(1, t + 1, (b,), generator=g, device=dev,
+                           dtype=torch.int32)
+    kv_len[1] = 0
+    e_fwd = flash_fwd_case(torch, ck, q, k, v, kv_len, False)
+    e_kv, e_q = flash_bwd_case(torch, ck, q, k, v, g_out, kv_len, False)
+    print("kernels: flash at B*H = %d (C7) q [%d,%d,%d,%d]: forward "
+          "max_abs_err=%.3e, dK/dV %.3e, dQ %.3e (relative; direct and CUDA "
+          "graph)" % (b * h, b, t, h, d, e_fwd, e_kv, e_q))
 
 
 def softmax_work(lens, t, n):
@@ -2983,6 +3188,11 @@ def main(argv=None):
                     "over each row) to time beside the new K8 (default: "
                     "`git show %s:%s` when the checkout has its history)"
                     % (K8_BASELINE_COMMIT, SOFTMAX_SRC))
+    ap.add_argument("--k9-baseline", metavar="SRC",
+                    help="the baseline masked_pool_fwd.cu (one block per "
+                    "row and feature tile) to time beside the new K9 "
+                    "(default: `git show %s:%s` when the checkout has its "
+                    "history)" % (K9_BASELINE_COMMIT, POOL_SRC))
     ap.add_argument("--flash-fwd-baseline", metavar="SRC",
                     help="the baseline flash_attention_fwd.cu (fp32 on the "
                     "CUDA cores) to time beside the new K1 (default: `git "
@@ -3026,6 +3236,7 @@ def main(argv=None):
         print(ck.build_info.log)
         flash_registers(ck.build_info.log)
         sequence_registers(ck.build_info.log)
+        pool_registers(ck.build_info.log)
 
     kernels = run_kernels(
         torch, ck, peak_flops, peak_bw, tc_flops,
@@ -3034,9 +3245,13 @@ def main(argv=None):
         baseline_source(args.flash_bwd_baseline, FLASH_BWD_BASELINE_COMMIT,
                         FLASH_BWD_SRC))
     run_unequal_attention_vs_cpu(torch)
+    run_flash_grid_check(torch, ck)
     kernels.update(run_sequence_kernels(
         torch, ck, peak_flops, peak_bw,
         baseline_source(args.k6_baseline, K6_BASELINE_COMMIT, LSTM_SRC)))
+    kernels.update(run_pool_kernels(
+        torch, ck, peak_flops, peak_bw,
+        baseline_source(args.k9_baseline, K9_BASELINE_COMMIT, POOL_SRC)))
     kernels.update(run_translation_kernels(
         torch, ck, peak_flops, peak_bw,
         baseline_source(args.k8_baseline, K8_BASELINE_COMMIT, SOFTMAX_SRC)))

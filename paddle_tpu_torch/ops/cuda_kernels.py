@@ -48,7 +48,7 @@ __all__ = ["build", "flash_attention_fwd", "flash_attention_fwd_plain",
            "fused_lstmp",
            "fused_lstmp_plain", "fused_lstmp_bwd", "lstmp_launch_plan",
            "masked_softmax", "masked_softmax_plain", "masked_pool",
-           "masked_pool_plain",
+           "masked_pool_plain", "pool_launch_plan", "flash_grid",
            "FlashAttention", "LayerNorm", "SoftmaxXent", "FusedLSTM",
            "FusedLSTMP", "MaskedSoftmax", "MaskedPool", "launch_counts",
            "reset_launch_counts", "FLASH_HEAD_DIMS", "POOL_TYPES"]
@@ -64,7 +64,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
+FLASH_ROWS = 64   # query (K1, K3) or key (K2) rows a block (kRows in the .cu)
 _NEG = -1e30  # the masked-score value and empty-row max (TPU kernel's _NEG)
+_INT_MAX = 2 ** 31 - 1   # a grid's x dimension
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -180,8 +182,15 @@ def _bind(lib):
     _bind_lstmp(lib)
     lib.ptt_masked_softmax_fwd.argtypes = [P, L, P, P, I, I, I, P]
     lib.ptt_masked_softmax_fwd.restype = I
-    lib.ptt_masked_pool_fwd.argtypes = [P, L, L, P, P, I, I, I, I, P]
+    _bind_pool(lib)
+
+
+def _bind_pool(lib):
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ptt_masked_pool_fwd.argtypes = [P, L, L, P, P] + [I] * 8 + [P]
     lib.ptt_masked_pool_fwd.restype = I
+    lib.ptt_masked_pool_blocks_per_sm.argtypes = [I, P]
+    lib.ptt_masked_pool_blocks_per_sm.restype = I
 
 
 def _bind_flash_fwd(lib):
@@ -325,9 +334,7 @@ def flash_attention_fwd(q, k, v, kv_len=None, causal=False, scale=None):
     if d not in FLASH_HEAD_DIMS:
         raise ValueError("flash_attention_fwd: head dim %d not in %s"
                          % (d, FLASH_HEAD_DIMS))
-    if b * h > 65535:
-        raise ValueError("flash_attention_fwd: B*H = %d exceeds the grid "
-                         "limit 65535" % (b * h))
+    flash_grid(b, h, t, "flash_attention_fwd")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError("flash_attention_fwd: %s on %s, q on %s"
@@ -348,6 +355,19 @@ def flash_attention_fwd(q, k, v, kv_len=None, causal=False, scale=None):
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_grid(b, h, t, what="flash attention"):
+    """The grid of K1, K2 and K3: (B * H, ceil(T / FLASH_ROWS)). grid.x
+    takes B * H up to 2^31 - 1 (the kernels index it with 64-bit
+    offsets), grid.y the row tiles up to 65535 (T up to 4194240). Raises
+    ValueError beyond either."""
+    tiles = -(-t // FLASH_ROWS)
+    if b * h > _INT_MAX or tiles > 65535:
+        raise ValueError("%s: B*H = %d and %d row tiles of T = %d exceed "
+                         "the grid limits %d and 65535"
+                         % (what, b * h, tiles, t, _INT_MAX))
+    return b * h, tiles
 
 
 def _fwd_call(fn, q, k, v, lens, out, lse, scale, causal):
@@ -488,9 +508,7 @@ def _flash_bwd_args(what, q, k, v, lse, delta, g, kv_len):
     if d not in FLASH_HEAD_DIMS:
         raise ValueError("%s: head dim %d not in %s"
                          % (what, d, FLASH_HEAD_DIMS))
-    if b * h > 65535:
-        raise ValueError("%s: B*H = %d exceeds the grid limit 65535"
-                         % (what, b * h))
+    flash_grid(b, h, t, what)
     for name, x in (("q", q), ("k", k), ("v", v), ("g", g)):
         _check_vec_layout(x, "%s %s" % (what, name))
     lens = None
@@ -1423,6 +1441,119 @@ masked_softmax.launches = 0
 # ---------------------------------------------------------------------------
 
 POOL_TYPES = ("SUM", "AVERAGE", "SQRT")
+POOL_THREADS = 256      # a block of K9 (kThreads in csrc/masked_pool_fwd.cu)
+POOL_CLUSTERS = (1, 2, 4, 8)   # blocks a cluster along T (portable sizes)
+POOL_COLS = 32          # the most columns a block spans (a warp's width)
+# a row (feature tile) is split over a cluster until a block reads at most
+# POOL_BLOCK_BYTES of its padded span, but not beyond one wave of blocks
+# (the blocks the card holds at once): k9_ablation.py measured a
+# cluster's two barriers at ~0.8 us a launch, and grids of more than one
+# wave of short blocks slower than one wave, on an H100
+POOL_BLOCK_BYTES = 32 * 1024
+POOL_BLOCKS_PER_SM = 8  # 2048 threads an SM / POOL_THREADS (registers
+                        # permitting; on the card the occupancy query says)
+
+
+def _pool_vec(f, sxb, sxt, aligned):
+    """4 (float4 loads) when F and the strides are multiples of 4 and x's
+    base is 16-byte aligned, else 1."""
+    return 4 if (f % 4 == 0 and sxb % 4 == 0 and sxt % 4 == 0
+                 and aligned) else 1
+
+
+def pool_launch_plan(b, t, f, sxb, sxt, aligned, sm_count, cs=None,
+                     blocks_per_sm=POOL_BLOCKS_PER_SM):
+    """K9's launch plan for x [B, T, F] with batch and time strides sxb,
+    sxt (elements), `aligned` when x's base is 16-byte aligned, on a card
+    with `sm_count` SMs each holding `blocks_per_sm` blocks of K9 at once.
+    From shapes only (the lengths stay on the card). A dict with
+      vec      -- 4 (float4 loads) when F, sxb and sxt are multiples of 4
+                  and x is aligned, else 1;
+      cols     -- ceil(F / vec) columns of vec floats;
+      lf, lt   -- a block's lanes along F (a power of 2 up to POOL_COLS)
+                  and along T (POOL_THREADS / lf);
+      tiles    -- ceil(cols / lf) feature tiles (grid.y, at most 65535);
+      cs       -- blocks a thread-block cluster along T (POOL_CLUSTERS);
+      chunk    -- ceil(T / cs) steps a block (at least 1);
+      ranges   -- block c's steps [c chunk, (c + 1) chunk) cut to [0, T);
+      grid     -- (B * cs, tiles); blocks_per_sm -- as given.
+    cs is the smallest size whose blocks read at most POOL_BLOCK_BYTES of
+    a tile's padded span T * min(F, lf * vec) * 4, halved while the grid
+    holds more than one wave (sm_count * blocks_per_sm blocks); `cs` pins
+    it (tests, ablation). Raises ValueError on sizes the grid cannot take
+    (tiles over 65535, B * cs over 2^31 - 1)."""
+    if b < 1 or t < 0 or f < 1 or sm_count < 1 or blocks_per_sm < 1:
+        raise ValueError("pool_launch_plan needs B, F, SM count, blocks an "
+                         "SM >= 1 and T >= 0, got %r"
+                         % ((b, t, f, sm_count, blocks_per_sm),))
+    vec = _pool_vec(f, sxb, sxt, aligned)
+    cols = -(-f // vec)
+    lf = 1
+    while lf < min(cols, POOL_COLS):
+        lf *= 2
+    tiles = -(-cols // lf)
+    if tiles > 65535:
+        raise ValueError("masked_pool: F = %d needs %d feature tiles, over "
+                         "the grid limit 65535" % (f, tiles))
+    if cs is None:
+        span = t * min(f, lf * vec) * 4
+        cs = 1
+        while cs < POOL_CLUSTERS[-1] and span > POOL_BLOCK_BYTES * cs:
+            cs *= 2
+        while cs > 1 and b * tiles * cs > sm_count * blocks_per_sm:
+            cs //= 2
+    elif cs not in POOL_CLUSTERS:
+        raise ValueError("masked_pool: a cluster of %r blocks (not in %s)"
+                         % (cs, POOL_CLUSTERS))
+    if b * cs > _INT_MAX:
+        raise ValueError("masked_pool: B * CS = %d over the grid limit %d"
+                         % (b * cs, _INT_MAX))
+    chunk = max(1, -(-t // cs))
+    return {"vec": vec, "cols": cols, "lf": lf, "lt": POOL_THREADS // lf,
+            "tiles": tiles, "cs": cs, "chunk": chunk,
+            "ranges": [(min(c * chunk, t), min((c + 1) * chunk, t))
+                       for c in range(cs)],
+            "grid": (b * cs, tiles), "blocks_per_sm": blocks_per_sm}
+
+
+_pool_cards = {}
+
+
+def pool_plan_of(x, cs=None):
+    """pool_launch_plan for the CUDA tensor x [B, T, F] on its card: the
+    SM count from the device's properties and the blocks an SM holds from
+    the occupancy query of the kernel the plan's vec picks (cached per
+    card and vec)."""
+    b, t, f = x.shape
+    index = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    aligned = x.data_ptr() % 16 == 0
+    vec = _pool_vec(f, x.stride(0), x.stride(1), aligned)
+    key = (index, vec)
+    if key not in _pool_cards:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = build().ptt_masked_pool_blocks_per_sm(vec, ctypes.byref(n))
+        _check_launch(err, "masked_pool occupancy query")
+        _pool_cards[key] = (
+            torch.cuda.get_device_properties(index).multi_processor_count,
+            n.value)
+    sms, per_sm = _pool_cards[key]
+    return pool_launch_plan(b, t, f, x.stride(0), x.stride(1), aligned, sms,
+                            cs=cs, blocks_per_sm=per_sm)
+
+
+def _launch_pool(lib, plan, x, lens, ptype, out):
+    """One launch of K9 from `lib` with `plan` on checked CUDA tensors
+    (lens int32 [B] contiguous, out fp32 [B, F] contiguous); raises when
+    the launch is refused."""
+    b, t, f = x.shape
+    err = lib.ptt_masked_pool_fwd(
+        x.data_ptr(), x.stride(0), x.stride(1), lens.data_ptr(),
+        out.data_ptr(), b, t, f, POOL_TYPES.index(ptype), plan["vec"],
+        plan["lf"], plan["cs"], plan["chunk"], _stream_of(x))
+    _check_launch(err, "masked_pool")
+    return out
 
 
 def _pool_args(x, lens, ptype):
@@ -1455,7 +1586,7 @@ def masked_pool(x, lens, ptype="AVERAGE"):
     """SUM / AVERAGE / SQRT pool over the time dim of x [B, T, F] (any
     batch and time strides, last dim contiguous on the card) with lengths
     lens [B]: returns [B, F]. Dispatch by x's device as in fused_lstm (the
-    CUDA kernel takes fp32 and B <= 65535)."""
+    CUDA kernel takes fp32, any B, and F up to 65535 tiles of its plan)."""
     b, t, f = _pool_args(x, lens, ptype)
     dev = x.device.type
     if dev == "meta":
@@ -1470,18 +1601,12 @@ def masked_pool(x, lens, ptype="AVERAGE"):
     if x.stride(2) != 1:
         raise ValueError("masked_pool: x needs a contiguous last dim (got "
                          "strides %s)" % (tuple(x.stride()),))
-    if b > 65535:
-        raise ValueError("masked_pool: B = %d exceeds the grid limit 65535"
-                         % b)
     out = torch.empty((b, f), dtype=torch.float32, device=x.device)
     if b == 0 or f == 0:
         return out
+    plan = pool_plan_of(x)
     lens = lens.reshape(b).to(device=x.device, dtype=torch.int32).contiguous()
-    lib = build()
-    err = lib.ptt_masked_pool_fwd(
-        x.data_ptr(), x.stride(0), x.stride(1), lens.data_ptr(),
-        out.data_ptr(), b, t, f, POOL_TYPES.index(ptype), _stream_of(x))
-    _check_launch(err, "masked_pool")
+    _launch_pool(build(), plan, x, lens, ptype, out)
     _count(masked_pool)
     return out
 

@@ -18,7 +18,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(paddle_tpu_torch.__file__))
 SOURCES = sorted(glob.glob(os.path.join(PKG, "**", "*.py"), recursive=True)
                  + [os.path.join(REPO, "chip_smoke.py"),
-                    os.path.join(REPO, "k6_ablation.py")])
+                    os.path.join(REPO, "k6_ablation.py"),
+                    os.path.join(REPO, "k9_ablation.py")])
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 
 
