@@ -10,9 +10,10 @@
 
 Transformer-base runs at its full depth (6+6 layers) and width, the
 IMDB sentiment classifiers at their book widths, the attention
-translator of book chapter 08 at the reference benchmark's widths, and
-the DeepASR stacked-LSTMP acoustic model at its train.py widths, with
-random weights from the fixed seed SEED.
+translator of book chapter 08 at the reference benchmark's widths, the
+DeepASR stacked-LSTMP acoustic model at its train.py widths, book
+chapter 02's LeNet and ResNet-50 at 224 x 224, with random weights from
+the fixed seed SEED.
 
 Phases, each reported on lines of its own; any failure exits non-zero:
 
@@ -93,7 +94,14 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               key length (fault C5): a one-op program with its gradients
               on the card against the CPU, through the dense path, K1
               never launched. Then K1-K3 at B * H = 65544 (fault C7: B
-              8193, H 8, T 16, D 64) against their plain versions.
+              8193, H 8, T 16, D 64) against their plain versions. Then
+              fault C8: sequence_last_step and sequence_pool LAST on a
+              padded feed whose @SEQLEN (5) exceeds T (3) give a NaN row
+              and no device-side assert, and the next Executor run and an
+              InferenceEngine request on the card match the CPU exactly;
+              and fault C9: fused_attention with a kv_len-0 row gives
+              the mean of v at T = 8 and 0 at T = 1024 (K1 launched once
+              each), within 1e-4 of the CPU.
 4. serving  — the main path: build Transformer-base scoring (vocab 30000,
               d_model 512, 8 heads, 6+6 layers, d_inner 2048, T=256) with
               the port's layers, run its startup program on the card from
@@ -180,6 +188,44 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               lengths 1-12 on the card and on the CPU (the tolerances of
               phase 5). Checks: losses finite and falling; K7 five times
               a step and no other kernel.
+11. lenet   — book chapter 02's conv net (zoo mnist:
+              recognize_digits.build, Adam 0.001), 5 steps of batch 64 on
+              the card and on the CPU from the same weights: each loss
+              within 1e-4 relative. No kernel of the port (the conv-net
+              path reaches no Pallas kernel in the JAX package).
+12. resnet50, training — image_classification.build_train("resnet50"):
+              resnet_imagenet of depth 50, 1000 classes, 224 x 224,
+              Momentum(0.01, 0.9), batch 32 (benchmark/fluid's default),
+              conv, pool and batch_norm as plain torch calls (cuDNN):
+              TRAIN_STEPS steps plus a traced one in fp32 (TF32 off) and
+              again under enable_mixed_precision (bf16 convolutions and
+              fc, f32 masters; --trace PATH keeps PATH's stem +
+              _resnet50_fp32.json / _resnet50_bf16.json). Reports
+              images/s, the device's busy share, peak memory and launches
+              a step. Checks: losses finite and falling, the batch_norm
+              moving statistics moved, every parameter f32, no kernel of
+              the port launched.
+13. resnet50, serving — the same net on a uint8 image feed (cast and
+              scaled by 1/255 in the program), saved with
+              save_inference_model (batch_norm is_test) and served by
+              InferenceEngine(batch_buckets=[1, 8, 32]): 16 concurrent
+              requests of 1-8 images. p50 / p99, images/s, the burst
+              again under the profiler for the device's busy share, and
+              run_direct's time at each bucket. Checks:
+              rows finite and summing to 1, each answer equal to
+              run_direct at its bucket (<= 1e-5), request 0 against the
+              CPU (<= 1e-3), no kernel of the port launched.
+14. resnet, card vs CPU — one step of build_train("resnet50") at 3 x 32
+              x 32 (resnet_cifar10 of depth 32 by the JAX package's rule),
+              batch 8, Momentum(1e-4), from one state and batch, in fp32
+              (TF32 off) and under use_bf16. fp32: the loss within 1e-4
+              relative, each gradient within 1e-3 and their median within
+              1e-4 as ||card - cpu|| / ||cpu||. bf16: the loss within
+              1e-2 relative; each gradient and each moving statistic's
+              change within 3 x the CPU's own bf16-vs-fp32 spread of it
+              + 2e-2 (bf16 rounding grows through the backward; see
+              run_resnet_training_vs_cpu).
+              A `convnet:` line then sums up phases 12-14.
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run); each kernel must also launch on at
@@ -282,6 +328,27 @@ ASR_SEQ_BUCKETS = [128, 256, 512]
 # the card-vs-CPU step: the same program at small LSTMP widths
 ASR_SMALL = dict(ASR, hidden=8, proj=4, layers=2, batch=4, min_len=1,
                  max_len=12)
+# the conv-net path: ResNet-50 as the JAX package's benchmark trains it
+# (image_classification.build_train: resnet_imagenet of depth 50, 1000
+# classes, 224 x 224, Momentum 0.9 at lr 0.01) at benchmark/fluid's
+# default batch of 32; served on uint8 pixels from requests of 1-8
+# images; the card-vs-CPU step at 3 x 32 x 32, where build_train makes
+# resnet_cifar10 of depth 32 (the JAX package's rule); book chapter 02's
+# LeNet (zoo mnist) with its Adam at 0.001
+RESNET = dict(image=224, classes=1000, batch=32, lr=0.01)
+RESNET_SERVE = dict(requests=16, images=(1, 8), buckets=[1, 8, 32])
+RESNET_SMALL = dict(image=32, classes=10, batch=8, lr=1e-4)
+LENET = dict(batch=64, steps=5, lr=0.001)
+CONV_LOSS_RTOL = 1e-4            # card vs CPU, fp32
+# card vs CPU fp32 gradients, ||card - cpu|| / ||cpu|| per parameter, on
+# RESNET_SMALL (an NVIDIA H100 80GB HBM3 at 700 W read 9.5e-6 and 3.7e-6)
+CONV_GRAD_MAX, CONV_GRAD_MEDIAN = 1e-3, 1e-4
+# card vs CPU under use_bf16: the loss's relative error (the same card
+# read 3.0e-3, the CPU's own bf16 against its fp32 2.0e-3), and each
+# gradient's and moving statistic's within BF16_SPREAD_X x the CPU's
+# bf16-vs-fp32 spread of it + BF16_FLOOR (the worst read 0.41 of that;
+# see run_resnet_training_vs_cpu)
+BF16_LOSS_RTOL, BF16_SPREAD_X, BF16_FLOOR = 1e-2, 3.0, 2e-2
 LSTMP_SRC = "paddle_tpu_torch/csrc/fused_lstmp_fwd.cu"
 LSTMP_TPU = "paddle_tpu/ops/pallas_kernels.py:714 (_lstmp_seq_kernel, " \
     "launched by _lstmp_fwd_call :745)"
@@ -2399,9 +2466,9 @@ def op_breakdown(trace_path):
 def profile_step(torch, step, trace_path=None):
     """One training step under torch.profiler, each program op inside a
     record_function range: prints the device time by kernel (top 15),
-    grouped as the port's kernels, matrix products and the rest; host ms,
-    device ms and kernel launches by program op type (top 12 by host
-    time); and the device's idle share of the traced step's wall time (the
+    grouped as the port's kernels, convolutions (cuDNN), matrix products
+    and the rest; host ms, device ms and kernel launches by program op
+    type (top 12 by host time); and the device's idle share of the traced step's wall time (the
     profiler slows the host, so that share is an upper bound). The chrome
     trace is kept at `trace_path` when one is given. Returns the device
     busy ms, the groups' ms and the kernel launches of the step."""
@@ -2438,7 +2505,8 @@ def profile_step(torch, step, trace_path=None):
             kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time
             n_kernels += 1
     busy = sum(kernels.values())
-    groups = {"port kernels": 0.0, "matrix products": 0.0, "other": 0.0}
+    groups = {"port kernels": 0.0, "convolutions": 0.0,
+              "matrix products": 0.0, "other": 0.0}
     for name, us in kernels.items():
         low = name.lower()
         if any(k in low for k in ("flash_fwd", "flash_bwd", "xent_fwd",
@@ -2448,6 +2516,9 @@ def profile_step(torch, step, trace_path=None):
                                   "masked_softmax_fwd_kernel",
                                   "masked_pool_fwd_kernel")):
             groups["port kernels"] += us
+        elif any(k in low for k in ("conv", "fprop", "dgrad", "wgrad",
+                                    "cudnn")):
+            groups["convolutions"] += us
         elif any(k in low for k in ("gemm", "gemv", "cutlass", "cublas")):
             groups["matrix products"] += us
         else:
@@ -3170,6 +3241,454 @@ def run_acoustic_training_vs_cpu(torch):
                                     cfg["proj"], cfg["batch"], lens))
 
 
+# -------------------------------------------------------------- conv net --
+
+def zero_counts(counts):
+    """The expected launch counts of a path that runs none of the port's
+    kernels: the conv-net path reaches no Pallas kernel in the JAX
+    package (conv, pool, batch_norm, fc, softmax and cross_entropy are
+    XLA there), so none of K1-K9 on the card."""
+    return dict.fromkeys(counts, 0)
+
+
+def build_resnet(fluid, use_bf16, cfg=None):
+    """image_classification.build_train("resnet50") at cfg's image size,
+    classes and Momentum rate (RESNET: resnet_imagenet of depth 50 at 224
+    x 224): (main, startup, avg_cost)."""
+    from paddle_tpu_torch.models import image_classification
+    cfg = cfg or RESNET
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, avg_cost, _ = image_classification.build_train(
+            "resnet50", class_dim=cfg["classes"],
+            image_shape=(3, cfg["image"], cfg["image"]),
+            learning_rate=cfg["lr"], momentum=0.9, use_bf16=use_bf16)
+    return main, startup, avg_cost
+
+
+def image_feed(cfg, seed, dtype="float32"):
+    """A batch of cfg's images (uniform in [0, 1), or uint8 pixels) and
+    random class labels."""
+    rng = np.random.RandomState(seed)
+    shape = (cfg["batch"], 3, cfg["image"], cfg["image"])
+    images = rng.randint(0, 256, shape).astype(np.uint8) \
+        if dtype == "uint8" else rng.rand(*shape).astype(np.float32)
+    return {"image": images, "label": rng.randint(
+        0, cfg["classes"], (cfg["batch"], 1)).astype(np.int64)}
+
+
+def run_resnet_training(torch, card, use_bf16, trace_path=None):
+    """The conv-net path's training half: ResNet-50 at 224 x 224, batch
+    32, Momentum(0.01, 0.9) on one batch through Executor.run, in fp32
+    (TF32 off for matrix products and convolutions) or under
+    enable_mixed_precision (bf16 convolutions and fc with f32 masters).
+    Reports images/s, the device's busy share, peak memory and launches
+    a step. Returns the launch counts and the counts it predicts (0)."""
+    import paddle_tpu_torch as fluid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag = "resnet50 %s:" % ("bf16" if use_bf16 else "fp32")
+    t0 = time.perf_counter()
+    main, startup, avg_cost = build_resnet(fluid, use_bf16)
+    ops = main.global_block().ops
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(scope.get(p.name).shape))
+                   for p in main.all_parameters() if p.trainable)
+    moving = [p.name for p in main.all_parameters() if not p.trainable]
+    before = {name: scope.get(name).clone() for name in moving}
+    print("%s built the training program (%d trainable parameters, %d "
+          "ops: %d conv2d, %d batch_norm) and ran its startup program in "
+          "%.1f s" % (tag, n_params, len(ops),
+                      sum(op.type == "conv2d" for op in ops),
+                      sum(op.type == "batch_norm" for op in ops),
+                      time.perf_counter() - t0))
+    feed = image_feed(RESNET, SEED + 12)
+    report, counts, steps = train_steps(
+        torch, tag, exe, main, feed, avg_cost, scope, trace_path,
+        RESNET["batch"], "images")
+    check(all(not torch.equal(scope.get(n), before[n]) for n in moving),
+          "a batch_norm moving statistic did not move")
+    check(all(scope.get(p.name).dtype == torch.float32
+              for p in main.all_parameters()),
+          "a parameter is not an f32 master")
+    report = {"amp_bf16": use_bf16, "tf32": False, "image": RESNET["image"],
+              "batch": RESNET["batch"], "lr": RESNET["lr"],
+              "parameters": n_params, **report, "card": card}
+    print("%s training %s" % (tag, json.dumps(report)))
+    del scope
+    torch.cuda.empty_cache()
+    return (counts, zero_counts(counts)), report
+
+
+def run_resnet_training_vs_cpu(torch):
+    """One step of build_train("resnet50") at 3 x 32 x 32 (resnet_cifar10
+    of depth 32, by the JAX package's rule), batch 8, Momentum(1e-4), on
+    the card and on the CPU from the CPU startup program's state and one
+    batch, in fp32 (TF32 off) and under use_bf16.
+
+    fp32: the loss within CONV_LOSS_RTOL, each gradient within
+    CONV_GRAD_MAX and their median within CONV_GRAD_MEDIAN, as
+    ||card - cpu|| / ||cpu||.
+
+    bf16 (cuDNN's bf16 convolutions and torch's batch_norm on a bf16
+    input with f32 statistics, against the CPU's): bf16 rounding of the
+    conv outputs grows through the backward, where each batch_norm takes
+    the differences of its inputs from their mean, so the CPU's own bf16
+    gradients lie about 1e-2 from its fp32 ones at the fc and up to 0.6
+    at the first conv (the JAX package's bf16 likewise). Each gradient
+    and each moving statistic's change after the step must lie within
+    BF16_SPREAD_X x the CPU's bf16-vs-fp32 spread of it + BF16_FLOOR of
+    the CPU's bf16 value (||a - b|| / ||b|| for a gradient, max |a - b| /
+    max |b| for a change); the loss within BF16_LOSS_RTOL."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+
+    cfg = RESNET_SMALL
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    main, startup, avg_cost = build_resnet(fluid, False, cfg)
+    cpu = fluid.Executor("cpu")
+    scope0 = fluid.Scope()
+    cpu.run(startup, scope=scope0)
+    state = {v.name: scope0.get(v.name).numpy().copy()
+             for v in main.list_vars() if v.persistable}
+    moving = [p.name for p in main.all_parameters() if not p.trainable]
+    grads = sorted(p.name + "@GRAD" for p in main.all_parameters()
+                   if p.trainable)
+    feed = image_feed(cfg, SEED + 13)
+    fetch = [avg_cost.name] + grads
+
+    def step(use_bf16, device):
+        """(loss, [gradients], {moving statistic: its change})."""
+        prog = build_resnet(fluid, use_bf16, cfg)[0] if use_bf16 else main
+        scope = pio.scope_from_numpy(state, device, program=prog)
+        out = fluid.Executor(device).run(prog, feed=feed, fetch_list=fetch,
+                                         scope=scope)
+        return float(out[0][0]), out[1:], {
+            n: scope.get(n).cpu().numpy() - state[n] for n in moving}
+
+    def norm_rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    def max_rel(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    def loss_rel(a, b):
+        return abs(a - b) / abs(b)
+
+    card32, cpu32 = step(False, "cuda"), step(False, "cpu")
+    card16, cpu16 = step(True, "cuda"), step(True, "cpu")
+    errs = [norm_rel(a, b) for a, b in zip(card32[1], cpu32[1])]
+    rel32 = loss_rel(card32[0], cpu32[0])
+    print("resnet: one step of resnet_cifar10 depth 32 at %d x %d, batch "
+          "%d, card vs CPU, fp32: loss %.6f vs %.6f (rel %.3e), gradients "
+          "||card - cpu|| / ||cpu|| median %.3e, max %.3e (%s), over %d"
+          % (cfg["image"], cfg["image"], cfg["batch"], card32[0], cpu32[0],
+             rel32, float(np.median(errs)), max(errs),
+             grads[int(np.argmax(errs))], len(errs)))
+    check(rel32 <= CONV_LOSS_RTOL, "card and CPU losses differ by %r"
+          % rel32)
+    check(max(errs) <= CONV_GRAD_MAX and np.median(errs) <= CONV_GRAD_MEDIAN,
+          "card and CPU gradients differ: median %r, max %r"
+          % (float(np.median(errs)), max(errs)))
+
+    rel16 = loss_rel(card16[0], cpu16[0])
+    pairs = [(g, norm_rel(a, b), norm_rel(b, c))
+             for g, a, b, c in zip(grads, card16[1], cpu16[1], cpu32[1])]
+    pairs += [(n, max_rel(card16[2][n], cpu16[2][n]),
+               max_rel(cpu16[2][n], cpu32[2][n])) for n in moving]
+    ratio = [(err / (BF16_SPREAD_X * spread + BF16_FLOOR), name, err, spread)
+             for name, err, spread in pairs]
+    worst = max(ratio)
+    print("resnet: the same step under use_bf16, card vs CPU: loss %.6f vs "
+          "%.6f (rel %.3e; the CPU's fp32 %.6f); %d gradients and moving "
+          "statistics: card vs CPU median %.3e, max %.3e; the CPU's bf16 vs "
+          "fp32 median %.3e, max %.3e; worst against its limit %s: %.3e vs "
+          "spread %.3e (%.2f of the limit)"
+          % (card16[0], cpu16[0], rel16, cpu32[0], len(pairs),
+             float(np.median([p[1] for p in pairs])),
+             max(p[1] for p in pairs),
+             float(np.median([p[2] for p in pairs])),
+             max(p[2] for p in pairs), worst[1], worst[2], worst[3],
+             worst[0]))
+    check(np.isfinite(card16[0]) and rel16 <= BF16_LOSS_RTOL,
+          "bf16 card and CPU losses differ by %r" % rel16)
+    check(worst[0] <= 1.0, "bf16 card and CPU differ at %s: %r, the CPU's "
+          "bf16-vs-fp32 spread %r" % (worst[1], worst[2], worst[3]))
+
+
+def run_lenet_training_vs_cpu(torch):
+    """Book chapter 02's LeNet (zoo mnist: recognize_digits.build, Adam
+    0.001) for LENET["steps"] steps on the card and on the CPU from the
+    CPU startup program's state, batch 64 of random 1 x 28 x 28 images:
+    each loss within CONV_LOSS_RTOL. The card's steps are the path whose
+    launches are counted. Returns the counts and the counts predicted."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.models import recognize_digits
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, avg_loss, _ = recognize_digits.build(
+            nn_type="conv", learning_rate=LENET["lr"])
+    cpu, cpu_scope = fluid.Executor("cpu"), fluid.Scope()
+    cpu.run(startup, scope=cpu_scope)
+    card_scope = pio.scope_from_numpy(
+        {v.name: cpu_scope.get(v.name).numpy().copy()
+         for v in main.list_vars() if v.persistable}, "cuda", program=main)
+    rng = np.random.RandomState(SEED + 14)
+    feeds = [{"img": rng.rand(LENET["batch"], 1, 28, 28).astype(np.float32),
+              "label": rng.randint(0, 10, (LENET["batch"], 1)).astype(
+                  np.int64)} for _ in range(LENET["steps"])]
+    exe = fluid.Executor()
+    ck.reset_launch_counts()
+    got = [float(exe.run(main, feed=f, fetch_list=[avg_loss],
+                         scope=card_scope)[0][0]) for f in feeds]
+    counts = ck.launch_counts()
+    want = [float(cpu.run(main, feed=f, fetch_list=[avg_loss],
+                          scope=cpu_scope)[0][0]) for f in feeds]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print("lenet: %d Adam steps, batch %d, card vs CPU losses %s vs %s "
+          "(max rel %.3e); launches %s"
+          % (LENET["steps"], LENET["batch"], ["%.6f" % x for x in got],
+             ["%.6f" % x for x in want], rel, counts))
+    check(all(np.isfinite(got)), "LeNet losses on the card: %s" % got)
+    check(rel <= CONV_LOSS_RTOL, "LeNet card and CPU losses differ by %r"
+          % rel)
+    return counts, zero_counts(counts)
+
+
+def run_resnet_serving(torch, card):
+    """The conv-net path's serving half: ResNet-50 at 224 x 224 on a uint8
+    image feed (cast and scaled by 1/255 in the program), initialized on
+    the card from SEED, saved by io.save_inference_model (every
+    batch_norm is_test) and served by InferenceEngine(batch_buckets=[1,
+    8, 32]): RESNET_SERVE["requests"] concurrent requests of 1-8 images.
+    Checks every answer's rows finite and summing to 1, each equal to
+    run_direct at its bucket (<= BUCKET_TOL), request 0 against the CPU
+    (<= CPU_TOL). The same burst again (its p50), then once more under
+    the profiler, gives the device's busy time; run_direct at each bucket
+    (median of 5) the time of one dispatch. Returns the launch counts and the counts it predicts
+    (0), and the report."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import image_classification
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    side, classes = RESNET["image"], RESNET["classes"]
+    t0 = time.perf_counter()
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        raw = fluid.layers.data(name="image", shape=[3, side, side],
+                                dtype="uint8")
+        image = fluid.layers.scale(fluid.layers.cast(raw, "float32"),
+                                   scale=1.0 / 255.0)
+        pred = image_classification.resnet_imagenet(image, classes, 50)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED + 15)
+    n = RESNET_SERVE["requests"]
+    requests = [{"image": rng.randint(0, 256, (int(k), 3, side, side)).astype(
+        np.uint8)} for k in rng.randint(RESNET_SERVE["images"][0],
+                                        RESNET_SERVE["images"][1] + 1, n)]
+    with tempfile.TemporaryDirectory(prefix="ptt_smoke_") as model_dir:
+        program = fluid.io.save_inference_model(model_dir, ["image"], [pred],
+                                                exe, main, scope=scope)
+        del scope
+        bns = [op for op in program.global_block().ops
+               if op.type == "batch_norm"]
+        check(len(bns) == 53 and all(op.attrs["is_test"] for op in bns),
+              "the saved ResNet-50 has %d batch_norm ops, is_test %s"
+              % (len(bns), sorted({op.attrs["is_test"] for op in bns})))
+        engine = InferenceEngine(model_dir,
+                                 batch_buckets=RESNET_SERVE["buckets"])
+        torch.cuda.synchronize()
+        print("resnet50 serving: built, initialized, saved, loaded and "
+              "warmed up (buckets %s) in %.1f s"
+              % (engine.batch_buckets, time.perf_counter() - t0))
+        try:
+            def burst():
+                """The requests, all at once from as many client threads:
+                (answers, latencies in s, futures, wall s)."""
+                answers, latencies, futures = [None] * n, [None] * n, \
+                    [None] * n
+                errors = []
+                barrier = threading.Barrier(n)
+
+                def client(i):
+                    try:
+                        barrier.wait()
+                        ts = time.perf_counter()
+                        fut = engine.submit(requests[i])
+                        answers[i] = fut.result(600).numpy()[pred.name]
+                        latencies[i] = time.perf_counter() - ts
+                        futures[i] = fut
+                    except Exception as e:  # noqa: BLE001 — reported below
+                        errors.append(repr(e))
+
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(n)]
+                tw = time.perf_counter()
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(900)
+                wall = time.perf_counter() - tw
+                check(not any(th.is_alive() for th in threads),
+                      "a client thread did not finish")
+                check(not errors, "resnet50 requests failed: %s" % errors)
+                return answers, latencies, futures, wall
+
+            # the counts: zero just before the main path, read just after
+            ck.reset_launch_counts()
+            batches0 = engine.metrics.snapshot()["batches_total"]
+            answers, latencies, futures, wall = burst()
+            counts = ck.launch_counts()
+            batches = engine.metrics.snapshot()["batches_total"] - batches0
+            for i, a in enumerate(answers):
+                rows = requests[i]["image"].shape[0]
+                check(a.shape == (rows, classes) and np.isfinite(a).all()
+                      and np.allclose(a.sum(1), 1.0, atol=1e-4),
+                      "resnet50 answer %d: shape %s, finite %s"
+                      % (i, a.shape, np.isfinite(a).all()))
+            bucket_diff = max(float(np.abs(engine.run_direct(
+                requests[i], batch_bucket=fut.bucket[0])[0][pred.name]
+                - answers[i]).max()) for i, fut in enumerate(futures))
+            check(bucket_diff <= BUCKET_TOL, "resnet50 coalesced answers "
+                  "differ from run_direct by %r" % bucket_diff)
+            # the same burst again, untraced (the first after warm-up may
+            # differ), then traced: the device's busy time over it
+            again = sorted(x * 1e3 for x in burst()[1])
+            busy_ms, _, n_kernels = profile_step(torch, burst)
+            dispatch_ms = {}
+            for nb in engine.batch_buckets:
+                probe = {"image": requests[0]["image"][:1].repeat(nb, 0)}
+                times = []
+                for _ in range(5):
+                    ts = time.perf_counter()
+                    engine.run_direct(probe, batch_bucket=nb)
+                    times.append(time.perf_counter() - ts)
+                dispatch_ms[nb] = statistics.median(times) * 1e3
+        finally:
+            engine.close()
+        cpu = InferenceEngine(model_dir, device="cpu", batch_buckets=[1],
+                              warmup=False)
+        try:
+            ref = cpu.run_direct({"image": requests[0]["image"][:1]})[0][
+                pred.name]
+        finally:
+            cpu.close()
+    cpu_diff = float(np.abs(ref - answers[0][:1]).max())
+    check(cpu_diff <= CPU_TOL, "resnet50 card and CPU disagree by %r"
+          % cpu_diff)
+    lat_ms = sorted(x * 1e3 for x in latencies)
+    images = sum(r["image"].shape[0] for r in requests)
+    report = {
+        "requests": n, "images": images, "batches": batches,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)), "wall_s": wall,
+        "second_burst_p50_ms": float(np.percentile(again, 50)),
+        "images_per_s": images / wall,
+        "device_busy_ms": busy_ms,
+        # an estimate: the traced burst's device time over the untraced
+        # burst's wall time (the trace slows only the host)
+        "busy_share_est": busy_ms / (wall * 1e3),
+        "device_kernels": n_kernels,
+        "run_direct_ms_by_bucket": dispatch_ms,
+        "bucket_max_diff": bucket_diff, "cpu_max_diff": cpu_diff,
+        "launches": counts, "card": card}
+    print("resnet50 serving " + json.dumps(report))
+    return (counts, zero_counts(counts)), report
+
+
+def run_fault_checks(torch):
+    """Faults C8 and C9 on the card. C8: sequence_last_step and
+    sequence_pool LAST on a padded feed whose @SEQLEN says 5 for a T of
+    3 give a NaN row (no device-side assert), the other row its last
+    step; the next runs on the same device (an Executor, then an
+    InferenceEngine of the same model) still answer like the CPU. C9:
+    fused_attention with a kv_len-0 row at T = 8 returns the mean of v
+    there and at T = 1024 returns 0 (K1 launched once each), each within
+    KERNEL_TOL of the CPU."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.lowering import LowerCtx
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[2], dtype="float32",
+                              lod_level=1)
+        outs = [fluid.layers.sequence_last_step(x),
+                fluid.layers.sequence_pool(x, "last")]
+    rng = np.random.RandomState(SEED + 16)
+    padded = rng.randn(2, 3, 2).astype(np.float32)
+    bad = {"x": padded, "x@SEQLEN": np.array([5, 1], np.int32)}
+    good = {"x": padded, "x@SEQLEN": np.array([3, 1], np.int32)}
+    exe, cpu = fluid.Executor(), fluid.Executor("cpu")
+    got = exe.run(main, feed=bad, fetch_list=outs, scope=fluid.Scope())
+    torch.cuda.synchronize()
+    for g in got:
+        check(np.isnan(g[0]).all() and np.array_equal(g[1], padded[1, 0]),
+              "C8: LAST with a length above T gave %s" % g)
+    again = exe.run(main, feed=good, fetch_list=outs, scope=fluid.Scope())
+    want = cpu.run(main, feed=good, fetch_list=outs, scope=fluid.Scope())
+    check(all(np.array_equal(a, b) for a, b in zip(again, want)),
+          "C8: the run after it differs from the CPU")
+    with tempfile.TemporaryDirectory(prefix="ptt_smoke_") as model_dir:
+        fluid.io.save_inference_model(model_dir, ["x"], outs[:1], cpu, main,
+                                      scope=fluid.Scope())
+        engine = InferenceEngine(model_dir, batch_buckets=[1],
+                                 seq_buckets=[8], warmup=False)
+        try:
+            seq = [padded[0]]
+            answer = engine.run_direct({"x": seq})[0][outs[0].name]
+        finally:
+            engine.close()
+    check(np.array_equal(answer[0], padded[0, -1]),
+          "C8: the engine's answer after the NaN run is %s" % answer)
+    print("C8: LAST with length 5 > T = 3 on the card: NaN row, no device "
+          "assert; the next Executor run and an InferenceEngine request "
+          "match the CPU exactly")
+
+    rule = registry.get("fused_attention").lower
+    card_dev = fluid.Executor().device
+    for t in (8, 1024):
+        g = np.random.RandomState(SEED + t)
+        q, k, v = (g.randn(2, t, 2, 64).astype(np.float32)
+                   for _ in range(3))
+        lens = np.array([0, t - 3], np.int32)
+        res, launched = [], []
+        for dev in (card_dev, torch.device("cpu")):
+            ins = {"Q": [torch.from_numpy(q).to(dev)],
+                   "K": [torch.from_numpy(k).to(dev)],
+                   "V": [torch.from_numpy(v).to(dev)],
+                   "KVLen": [torch.from_numpy(lens).to(dev)]}
+            ck.reset_launch_counts()
+            res.append(rule(LowerCtx(None, dev), ins, {"causal": False})[
+                "Out"][0].cpu().numpy())
+            launched.append(ck.launch_counts()["flash_attention_fwd"])
+        check(launched == [1, 0], "C9: K1 launched %s times (card, CPU), "
+              "expected [1, 0]" % launched)
+        err = float(np.abs(res[0] - res[1]).max())
+        row0 = v[0].mean(axis=0) if t < 1024 else np.zeros((2, 64))
+        row_err = float(np.abs(res[0][0] - row0).max())
+        print("C9: fused_attention at T = %d with a kv_len-0 row: card vs "
+              "CPU max diff %.3e; row 0 vs %s max diff %.3e"
+              % (t, err, "mean of v" if t < 1024 else "0", row_err))
+        check(err <= KERNEL_TOL and row_err <= KERNEL_TOL,
+              "C9 at T = %d: card vs CPU %r, row 0 %r" % (t, err, row_err))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
@@ -3246,6 +3765,7 @@ def main(argv=None):
                         FLASH_BWD_SRC))
     run_unequal_attention_vs_cpu(torch)
     run_flash_grid_check(torch, ck)
+    run_fault_checks(torch)
     kernels.update(run_sequence_kernels(
         torch, ck, peak_flops, peak_bw,
         baseline_source(args.k6_baseline, K6_BASELINE_COMMIT, LSTM_SRC)))
@@ -3280,6 +3800,29 @@ def main(argv=None):
                       torch, card,
                       trace_path=stem and stem + "_acoustic.json"))]
         run_acoustic_training_vs_cpu(torch)
+        paths.append(("lenet_training", run_lenet_training_vs_cpu(torch)))
+        conv = {}
+        for bf16 in (False, True):
+            kind = "bf16" if bf16 else "fp32"
+            run, conv[kind] = run_resnet_training(
+                torch, card, bf16,
+                trace_path=stem and stem + "_resnet50_%s.json" % kind)
+            paths.append(("resnet50_training_" + kind, run))
+        run, conv["serving"] = run_resnet_serving(torch, card)
+        paths.append(("resnet50_serving", run))
+        run_resnet_training_vs_cpu(torch)
+        summary = {kind: {k: conv[kind][k] for k in (
+            "images_per_s", "step_ms_median", "idle_share_est",
+            "device_busy_ms", "peak_mem_bytes", "device_kernels_per_step")}
+            for kind in ("fp32", "bf16")}
+        summary["serving"] = {k: conv["serving"][k] for k in (
+            "p50_ms", "p99_ms", "second_burst_p50_ms", "images_per_s",
+            "busy_share_est", "run_direct_ms_by_bucket")}
+        summary["port_kernel_launches"] = {
+            path: sum(counts.values()) for path, (counts, _) in paths
+            if path.startswith(("resnet50", "lenet"))}
+        summary["card"] = card
+        print("convnet: " + json.dumps(summary))
         for path, (counts, expected) in paths:
             for kname, n in expected.items():
                 check(counts[kname] == n, "%s: %s launched %d times, "

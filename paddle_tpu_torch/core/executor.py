@@ -55,6 +55,14 @@ def to_tensor(value, dtype=None, device=None):
     return t
 
 
+def to_numpy(t):
+    """A tensor as a host numpy array. numpy has no bfloat16: a bf16
+    tensor (a mixed-precision activation) comes back as float32, which
+    holds every bf16 value exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def convert_feeds(program, feed):
     """Expand a feed dict (parity: the JAX package's
     core/executor.convert_feeds): a LoDTensor becomes its zero-padded
@@ -159,5 +167,5 @@ class Executor(object):
                     scope.set(name, env.values[name])
         fetches = [env.read(n) for n in fetch_names]
         if return_numpy:
-            return [f.detach().cpu().numpy() for f in fetches]
+            return [to_numpy(f) for f in fetches]
         return fetches

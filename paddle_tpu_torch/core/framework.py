@@ -307,7 +307,7 @@ class Program(object):
         self._version = 0
         self.random_seed = 0
         self._op_uid_counter = 0
-        self._amp = False  # bf16 mixed precision flag (kept for the desc)
+        self._amp = False  # bf16 mixed precision (enable_mixed_precision)
         # accumulator-var -> param-name map (optimizers; kept for the desc)
         self._accumulator_owner = {}
         # process-unique identity (id() of a collected program is recycled)
@@ -351,6 +351,16 @@ class Program(object):
         for blk in self.blocks:
             for v in blk.vars.values():
                 yield v
+
+    def enable_mixed_precision(self, enable=True):
+        """bf16 mixed precision: the run casts the contractions' float
+        inputs (conv2d, depthwise_conv2d, mul, matmul, fused_attention) to
+        bf16 and the loss ops' back to f32 (core/lowering.py), and leaves
+        every parameter in the Scope an f32 master copy, so optimizers,
+        checkpoints and the saved desc are unchanged. No graph rewrite,
+        no extra state."""
+        self._amp = bool(enable)
+        self._bump_version()
 
     # ---- clone / prune (parity: Program.clone, Program.prune) --------
     def clone(self, for_test=False):

@@ -28,6 +28,38 @@ import torch
 from . import registry
 from .framework import GRAD_SUFFIX
 
+# bf16 mixed precision (Program.enable_mixed_precision), the JAX package's
+# tables (its core/lowering.py): the contractions take bf16 operands (f32
+# accumulation: cuBLAS and cuDNN accumulate bf16 products in f32) and
+# return bf16, which then flows through the elementwise and norm ops
+# between them (batch_norm and layer_norm keep f32 statistics whatever
+# their input); the numerically sensitive ops take their float inputs
+# back up to f32, so the loss path never rounds through bf16.
+_AMP_BF16_OPS = frozenset({
+    "conv2d", "depthwise_conv2d", "conv2d_transpose", "mul", "matmul",
+    "fused_attention"})
+_AMP_F32_OPS = frozenset({
+    "softmax", "log_softmax", "cross_entropy", "softmax_with_cross_entropy",
+    "sigmoid_cross_entropy_with_logits", "mean"})
+
+
+def _amp_cast_ins(ins, dtype, from_dtype):
+    return {slot: [v.to(dtype) if v is not None and v.dtype == from_dtype
+                   else v for v in vals]
+            for slot, vals in ins.items()}
+
+
+def _apply_amp(op_type, ins):
+    """An op's inputs as mixed precision runs it: f32 -> bf16 for the
+    contractions, bf16 -> f32 for the sensitive ops, else as they are.
+    The casts run inside the op's kept graph, so an f32 master parameter
+    receives an f32 gradient."""
+    if op_type in _AMP_BF16_OPS:
+        return _amp_cast_ins(ins, torch.bfloat16, torch.float32)
+    if op_type in _AMP_F32_OPS:
+        return _amp_cast_ins(ins, torch.float32, torch.bfloat16)
+    return ins
+
 
 class LowerCtx(object):
     """Per-run context handed to op rules: the run's device, a seeded
@@ -40,6 +72,7 @@ class LowerCtx(object):
                  unread=frozenset()):
         self.program = program
         self.device = device
+        self.amp = bool(getattr(program, "_amp", False))
         self.run_seed = int(run_seed)
         self.is_startup = is_startup
         # names of global-block outputs nothing reads (unread_outputs)
@@ -196,6 +229,8 @@ def _lower_op_inner(ctx, op, env):
     ctx.begin_op(op.uid, op.outputs)
     stop = ctx.grad_stop.get(op.uid)
     if stop is None:
+        if ctx.amp:
+            ins = _apply_amp(op.type, ins)
         _write_outputs(op, od.lower(ctx, ins, op.attrs), env)
         return
     # keep this op's local graph for its grad_of: leaves are the float
@@ -208,6 +243,8 @@ def _lower_op_inner(ctx, op, env):
                 leaves[(slot, i)] = ins[slot][i] = \
                     v.detach().requires_grad_(True)
     with torch.enable_grad():
+        if ctx.amp:
+            ins = _apply_amp(op.type, ins)
         outs = od.lower(ctx, ins, op.attrs)
     kept = {}
     for slot, names in op.outputs.items():

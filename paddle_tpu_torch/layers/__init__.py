@@ -1,10 +1,12 @@
 """Layer functions (the subset models/transformer.py, its training graph,
-models/understand_sentiment.py, models/machine_translation.py and a
-stacked dynamic_lstmp acoustic model call)."""
+models/understand_sentiment.py, models/machine_translation.py, a stacked
+dynamic_lstmp acoustic model, models/recognize_digits.py and
+models/image_classification.py call)."""
 from .io import data  # noqa: F401
 from .nn import (accuracy, autoincreased_step_counter,  # noqa: F401
-                 cross_entropy, embedding, fc, fused_attention, layer_norm,
-                 matmul, one_hot, reduce_sum, sequence_mask, softmax,
+                 batch_norm, conv2d, cross_entropy, embedding, fc,
+                 fused_attention, layer_norm, matmul, one_hot, pool2d,
+                 reduce_sum, sequence_mask, softmax,
                  softmax_with_cross_entropy)
 from .ops import (elementwise_add, elementwise_div, elementwise_min,  # noqa: F401
                   elementwise_mul, elementwise_pow, elementwise_sub, mean,

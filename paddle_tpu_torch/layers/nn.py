@@ -1,5 +1,6 @@
 """NN layers that build graph ops (the subset models/transformer.py,
-models/understand_sentiment.py, models/machine_translation.py and the noam
+models/understand_sentiment.py, models/machine_translation.py,
+models/recognize_digits.py, models/image_classification.py and the noam
 schedule call).
 
 Parity: python/paddle/fluid/layers/nn.py and the JAX package's layers/nn.py
@@ -10,9 +11,12 @@ import numpy as np
 
 from ..core.framework import Variable
 from ..core.layer_helper import LayerHelper
-from ..core.initializer import ConstantInitializer
+from ..core.initializer import ConstantInitializer, NormalInitializer
+from ..core.param_attr import ParamAttr
+from ..ops.nn_ops import pair as _pair
 
-__all__ = ["fc", "embedding", "layer_norm", "fused_attention",
+__all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
+           "layer_norm", "fused_attention",
            "softmax_with_cross_entropy", "softmax", "cross_entropy",
            "accuracy", "one_hot", "reduce_sum", "autoincreased_step_counter",
            "matmul", "sequence_mask"]
@@ -70,6 +74,111 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         attrs={"is_sparse": is_sparse, "is_distributed": is_distributed,
                "padding_idx": padding_idx})
     return tmp
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
+           use_mkldnn=False, act=None, name=None):
+    """A conv2d op over an NCHW input with an OIHW filter parameter
+    (default init Normal(0, sqrt(2 / (k_h^2 * C_in)))), then the bias op
+    over the channel axis (none with bias_attr=False) and the
+    activation."""
+    helper = LayerHelper("conv2d", **locals())
+    dtype = helper.input_dtype()
+    num_channels = input.shape[1]
+    groups = groups or 1
+    if num_channels % groups != 0:
+        raise ValueError("num_channels must be divisible by groups")
+    filter_size = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+    std = (2.0 / (filter_size[0] ** 2 * num_channels)) ** 0.5
+    filter_param = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype,
+        default_initializer=NormalInitializer(0.0, std, 0))
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d",
+        inputs={"Input": [input], "Filter": [filter_param]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": list(stride), "paddings": list(padding),
+               "dilations": list(dilation), "groups": groups,
+               "use_cudnn": use_cudnn})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, use_mkldnn=False, name=None):
+    """A pool2d op (max or avg) over an NCHW input."""
+    if pool_type not in ("max", "avg"):
+        raise ValueError("pool_type must be 'max' or 'avg'")
+    helper = LayerHelper("pool2d", **locals())
+    out = helper.create_variable_for_type_inference(helper.input_dtype())
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": list(_pair(pool_size)),
+               "global_pooling": global_pooling,
+               "strides": list(_pair(pool_stride)),
+               "paddings": list(_pair(pool_padding)),
+               "ceil_mode": ceil_mode})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               in_place=False, use_mkldnn=False, name=None,
+               moving_mean_name=None, moving_variance_name=None,
+               do_model_average_for_mean_and_var=False):
+    """A batch_norm op: scale (init 1) and bias parameters, and the
+    moving mean (init 0) and variance (init 1) as persistable parameters
+    that are not trainable and take no gradient (the op itself writes
+    them each training step). in_place is accepted and always gives a
+    new output var, as in the JAX package."""
+    helper = LayerHelper("batch_norm", **locals())
+    dtype = helper.input_dtype()
+    input_shape = input.shape
+    if data_layout == "NCHW":
+        channel_num = input_shape[1] if len(input_shape) > 2 \
+            else input_shape[-1]
+    else:
+        channel_num = input_shape[-1]
+    param_shape = [channel_num]
+    scale = helper.create_parameter(
+        attr=helper.param_attr, shape=param_shape, dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(
+        attr=helper.bias_attr, shape=param_shape, dtype=dtype, is_bias=True)
+    mean = helper.create_parameter(
+        attr=ParamAttr(name=moving_mean_name,
+                       initializer=ConstantInitializer(0.0), trainable=False),
+        shape=param_shape, dtype=dtype)
+    mean.stop_gradient = True
+    variance = helper.create_parameter(
+        attr=ParamAttr(name=moving_variance_name,
+                       initializer=ConstantInitializer(1.0), trainable=False),
+        shape=param_shape, dtype=dtype)
+    variance.stop_gradient = True
+    saved_mean = helper.create_variable_for_type_inference(
+        dtype=dtype, stop_gradient=True)
+    saved_variance = helper.create_variable_for_type_inference(
+        dtype=dtype, stop_gradient=True)
+    batch_norm_out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [batch_norm_out], "MeanOut": [mean],
+                 "VarianceOut": [variance], "SavedMean": [saved_mean],
+                 "SavedVariance": [saved_variance]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout})
+    return helper.append_activation(batch_norm_out)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

@@ -21,6 +21,9 @@ table and the PADDLE_TPU_PALLAS switch have no counterpart here.
 import os
 
 DEFAULT_FLASH_MIN_SEQ = 0
+# the JAX package's default crossover (its ops/kernel_config.py): below it
+# that package answers fused_attention through its dense path
+REFERENCE_FLASH_MIN_SEQ = 1024
 
 
 def flash_min_seq():
@@ -61,3 +64,13 @@ def flash_at(q_len, device_type="cpu", k_len=None):
             "<= %d"
             % (min_seq, q_len, q_len))
     return False
+
+
+def reference_is_dense(q_len):
+    """Whether the JAX package answers an equal-length fused_attention at
+    `q_len` through its dense path: below FLAGS_flash_min_seq when the pin
+    is set (it reads the same flag), else below REFERENCE_FLASH_MIN_SEQ.
+    Its dense path gives a row with no valid key the mean of v over all
+    keys; its flash kernel, like the port's, gives 0 (fault C9)."""
+    pinned = os.environ.get("FLAGS_flash_min_seq", "")
+    return q_len < (flash_min_seq() if pinned else REFERENCE_FLASH_MIN_SEQ)

@@ -1,10 +1,11 @@
-"""NN op rules (the subset the Transformer's and the sentiment
-classifiers' programs run): layer_norm, fused_attention, lookup_table,
-softmax_with_cross_entropy, softmax, cross_entropy, accuracy.
+"""NN op rules (the subset the Transformer's, the sentiment classifiers'
+and the conv nets' programs run): layer_norm, fused_attention,
+lookup_table, softmax_with_cross_entropy, softmax, cross_entropy,
+accuracy, conv2d, depthwise_conv2d, pool2d, batch_norm.
 
 Parity: paddle/fluid/operators/{layer_norm_op,lookup_table_op,
-softmax_with_cross_entropy_op,softmax_op,cross_entropy_op,accuracy_op}.cc
-and the JAX package's ops/nn_ops.py.
+softmax_with_cross_entropy_op,softmax_op,cross_entropy_op,accuracy_op,
+conv_op,pool_op,batch_norm_op}.cc and the JAX package's ops/nn_ops.py.
 layer_norm with scale and bias, the flash branch of fused_attention and
 the hard-label 2-D softmax_with_cross_entropy call the hand-written CUDA
 kernels through their wrappers (ops/cuda_kernels.py), which dispatch by
@@ -21,7 +22,7 @@ import torch
 
 from ..core.registry import register, single
 from . import cuda_kernels
-from .kernel_config import flash_at
+from .kernel_config import flash_at, reference_is_dense
 
 _NEG_INF = -1e30
 
@@ -86,7 +87,16 @@ def _fused_attention(ctx, ins, attrs):
     [B] / [B, 1] key lengths. kernel_config.flash_at decides flash (the
     CUDA kernel's wrapper, Tq = Tk) or the dense reference (Tq != Tk, or
     Tq <= 1); the block_q / block_k / sp_impl attrs are TPU and mesh knobs
-    the JAX package reads and this rule ignores."""
+    the JAX package reads and this rule ignores.
+
+    A row with no valid key (kv_len <= 0) on the flash path comes back as
+    the mean of v over all keys where the JAX package would have answered
+    through its dense path (kernel_config.reference_is_dense: below its
+    1024 crossover), by a select with no host sync, so v's gradient
+    follows; above it both packages' flash kernels give 0 (fault C9).
+    The flash kernels take fp32 only: bf16 q, k, v (a program under
+    enable_mixed_precision casts them so) on the flash path raise, as no
+    bf16 flash kernel is ported yet."""
     q = single(ins, "Q")
     k = single(ins, "K")
     v = single(ins, "V")
@@ -95,11 +105,22 @@ def _fused_attention(ctx, ins, attrs):
         kv_len = kv_len.reshape(-1)
     causal = attrs.get("causal", False)
     scale = attrs.get("scale", None)
-    if not flash_at(q.shape[1], q.device.type, k.shape[1]):
+    t = q.shape[1]
+    if not flash_at(t, q.device.type, k.shape[1]):
         return _out(attention_reference(q, k, v, causal=causal, scale=scale,
                                         kv_len=kv_len).to(q.dtype))
-    return _out(cuda_kernels.FlashAttention.apply(q, k, v, kv_len, causal,
-                                                  scale))
+    if any(x.dtype != torch.float32 for x in (q, k, v)):
+        raise NotImplementedError(
+            "fused_attention on the flash path takes float32 q, k and v "
+            "(got %s): a bf16 flash kernel for mixed precision "
+            "(Program.enable_mixed_precision) is an open ROADMAP item"
+            % (q.dtype,))
+    out = cuda_kernels.FlashAttention.apply(q, k, v, kv_len, causal, scale)
+    if kv_len is not None and reference_is_dense(t):
+        empty = (kv_len <= 0).reshape(-1, 1, 1, 1)
+        out = torch.where(empty, v.mean(dim=1, keepdim=True).to(out.dtype),
+                          out)
+    return _out(out)
 
 
 @register("lookup_table")
@@ -201,3 +222,125 @@ def _softmax_xent(ctx, ins, attrs):
     if ctx.output_read("Softmax"):
         outs["Softmax"] = [torch.exp(logp).to(logits.dtype)]
     return outs
+
+
+# ------------------------------------------------------- conv net family --
+# Plain torch calls (cuDNN on the card): the JAX package leaves conv, pool
+# and batch_norm to XLA, outside any Pallas kernel. Layouts are fluid's
+# NCHW / OIHW; the JAX rule's FLAGS_conv_layout (an internal TPU layout
+# knob, the fluid-facing contract NCHW either way) is not read here.
+
+def pair(v):
+    """An int or a 2-sequence -> an (h, w) tuple of ints."""
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v), int(v))
+
+
+@register("conv2d")
+def _conv2d(ctx, ins, attrs):
+    """NCHW input, OIHW filter, with strides, symmetric paddings,
+    dilations and groups. Under mixed precision both operands arrive
+    bf16 (core/lowering.py casts them) and cuDNN accumulates in fp32."""
+    x = single(ins, "Input")
+    w = single(ins, "Filter")
+    out = torch.nn.functional.conv2d(
+        x, w, stride=pair(attrs.get("strides", [1, 1])),
+        padding=pair(attrs.get("paddings", [0, 0])),
+        dilation=pair(attrs.get("dilations", [1, 1])),
+        groups=attrs.get("groups", 1) or 1)
+    return {"Output": [out.to(x.dtype)]}
+
+
+@register("depthwise_conv2d")
+def _depthwise_conv2d(ctx, ins, attrs):
+    return _conv2d(ctx, ins, attrs)
+
+
+@register("pool2d")
+def _pool2d(ctx, ins, attrs):
+    """max / avg pooling over NCHW with the JAX rule's edges, which
+    torch's own ceil_mode and count_include_pad do not give: ceil_mode
+    adds padding at the end only, as much as makes ceil((H - k + 2p) / s)
+    + 1 windows (a window may then lie wholly in padding: -inf for max, 0
+    for avg); max pads with -inf; avg divides by the window's count of
+    real elements when `exclusive` (the default) and there is padding or
+    ceil_mode extra, else by kh * kw. global_pooling takes the whole
+    plane with no padding."""
+    f = torch.nn.functional
+    x = single(ins, "X")
+    ksize = pair(attrs.get("ksize", [2, 2]))
+    strides = pair(attrs.get("strides", [1, 1]))
+    pads = pair(attrs.get("paddings", [0, 0]))
+    if attrs.get("global_pooling"):
+        ksize, pads, strides = (x.shape[2], x.shape[3]), (0, 0), (1, 1)
+    extra = [0, 0]
+    if attrs.get("ceil_mode", False):
+        for d, hw in enumerate((x.shape[2], x.shape[3])):
+            span = hw - ksize[d] + 2 * pads[d]
+            out_ceil = -(-span // strides[d]) + 1
+            extra[d] = max(0, (out_ceil - 1) * strides[d] - span)
+    # F.pad's order: (w begin, w end, h begin, h end)
+    widths = (pads[1], pads[1] + extra[1], pads[0], pads[0] + extra[0])
+    padded = any(widths)
+    if attrs.get("pooling_type", "max") == "max":
+        xp = f.pad(x, widths, value=float("-inf")) if padded else x
+        out = f.max_pool2d(xp, ksize, strides)
+    elif attrs.get("exclusive", True) and padded:
+        s = f.avg_pool2d(f.pad(x, widths), ksize, strides,
+                         divisor_override=1)
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                          device=x.device)
+        cnt = f.avg_pool2d(f.pad(ones, widths), ksize, strides,
+                           divisor_override=1)
+        out = s / cnt.clamp_min(1.0)
+    else:
+        out = f.avg_pool2d(f.pad(x, widths) if padded else x, ksize,
+                           strides)
+    return _out(out.to(x.dtype))
+
+
+@register("batch_norm")
+def _batch_norm(ctx, ins, attrs):
+    """Batch normalization over every axis but the channel axis (1 for
+    NCHW input of rank > 2, the last otherwise), as the JAX rule does.
+    Training: the batch mean and the BIASED batch variance normalize x
+    (torch.batch_norm's dispatch with no running stats: cuDNN on the card,
+    whose saved mean and inverse std give the batch statistics); the moving
+    statistics become momentum * old + (1 - momentum) * batch, outside
+    the gradient (torch's own running update is unbiased, with
+    the momentum the other way round, so it is not used); SavedMean and
+    SavedVariance are the batch mean and variance themselves. is_test
+    normalizes by the moving statistics and passes them through.
+    Statistics are fp32 whatever x's dtype; Y takes x's dtype."""
+    x = single(ins, "X")
+    scale = single(ins, "Scale")
+    bias = single(ins, "Bias")
+    mean = single(ins, "Mean")
+    var = single(ins, "Variance")
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    nchw = attrs.get("data_layout", "NCHW") == "NCHW" and x.dim() > 2
+    xc = x if nchw or x.dim() == 2 else x.movedim(-1, 1)
+    # torch.batch_norm, not F.batch_norm: the latter refuses a channel
+    # with one value per batch, which the JAX rule normalizes (to bias)
+    cudnn = torch.backends.cudnn.enabled
+    if attrs.get("is_test", False):
+        y = torch.batch_norm(xc, scale, bias, mean, var, False, 0.0, eps,
+                             cudnn)
+        mean_out, var_out, saved_mean, saved_var = mean, var, mean, var
+    else:
+        # torch.batch_norm's own dispatch (cuDNN or native), keeping the
+        # batch mean and 1 / sqrt(var + eps) it saves for the backward, so
+        # x is reduced once
+        y, saved_mean, invstd = torch._batch_norm_impl_index(
+            xc, scale, bias, None, None, True, 0.0, eps, cudnn)[:3]
+        saved_mean = saved_mean.detach()
+        saved_var = invstd.detach().pow(-2) - eps
+        mean_out = momentum * mean + (1 - momentum) * saved_mean
+        var_out = momentum * var + (1 - momentum) * saved_var
+    if xc is not x:
+        y = y.movedim(1, -1)
+    return {"Y": [y.to(x.dtype)], "MeanOut": [mean_out],
+            "VarianceOut": [var_out], "SavedMean": [saved_mean],
+            "SavedVariance": [saved_var]}

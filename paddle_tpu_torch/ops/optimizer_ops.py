@@ -1,16 +1,44 @@
-"""Optimizer update-rule op rules: adam, adam_beta_pow_update and adagrad.
+"""Optimizer update-rule op rules: sgd, momentum, adam,
+adam_beta_pow_update and adagrad.
 
-Parity: paddle/fluid/operators/adam_op.{cc,h} and the JAX package's
+Parity: paddle/fluid/operators/{sgd_op,momentum_op,adam_op,adagrad_op}
+.{cc,h} and the JAX package's
 ops/optimizer_ops.py. Each writes ParamOut (and the moment outs) under the
 same var name as its input, so the executor's write-back of persistables
 updates the Scope. The rules allocate new tensors rather than updating in
 place: a run's kept graphs and its fetches may still hold the old ones.
 Plain torch, as XLA computed these outside any Pallas kernel. The other
-optimizers' rules (sgd, momentum, rmsprop, ...) are not ported yet.
+optimizers' rules (rmsprop, adamax, ftrl, ...) are not ported yet.
 """
 import torch
 
 from ..core.registry import register, single
+
+
+@register("sgd")
+def _sgd(ctx, ins, attrs):
+    """param -= lr * grad."""
+    p = single(ins, "Param")
+    g = single(ins, "Grad")
+    lr = single(ins, "LearningRate").reshape(())
+    return {"ParamOut": [(p - lr * g).to(p.dtype)]}
+
+
+@register("momentum")
+def _momentum(ctx, ins, attrs):
+    """velocity = mu * velocity + grad; param -= lr * velocity, or with
+    use_nesterov param -= lr * (grad + mu * velocity)."""
+    p = single(ins, "Param")
+    g = single(ins, "Grad")
+    v = single(ins, "Velocity")
+    lr = single(ins, "LearningRate").reshape(())
+    mu = attrs["mu"]
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": [p_out.to(p.dtype)], "VelocityOut": [v_out]}
 
 
 @register("adam")

@@ -69,10 +69,17 @@ def _sequence_pool(ctx, ins, attrs):
                          device=x.device)
         out = torch.where(m > 0, x, neg).amax(dim=1)
     elif ptype == "LAST":
-        idx = (xlen.long() - 1).clamp_min(0)
-        idx = idx.reshape((-1, 1) + (1,) * (x.dim() - 2)).expand(
+        # jnp.take_along_axis's fill rule, with no host sync: a length
+        # above T gives a NaN row and no gradient (the index is clamped
+        # for the gather, then the row replaced); an out-of-range gather
+        # is a device-side assert on the card (fault C8)
+        lens = xlen.long().reshape((-1,) + (1,) * (x.dim() - 2))
+        idx = (lens - 1).clamp(0, x.shape[1] - 1).unsqueeze(1).expand(
             (x.shape[0], 1) + tuple(x.shape[2:]))
-        out = x.gather(1, idx).squeeze(1)
+        out = torch.where(lens > x.shape[1],
+                          torch.full((), float("nan"), dtype=x.dtype,
+                                     device=x.device),
+                          x.gather(1, idx).squeeze(1))
     elif ptype == "FIRST":
         out = x[:, 0]
     else:

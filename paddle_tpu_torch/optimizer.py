@@ -5,9 +5,9 @@ optimizer.py — same classes, same accumulator names, same minimize()
 contract (append_backward -> clip -> regularization -> per-param update
 ops), so both packages build the same training Program. The update ops
 run as plain torch (ops/optimizer_ops.py); their ParamOut writes reach the
-Scope through the executor's write-back of persistables. Adam and Adagrad
-are ported; SGD, Momentum and the other optimizers are later work (ROADMAP
-A1).
+Scope through the executor's write-back of persistables. SGD, Momentum,
+Adam and Adagrad are ported; the other optimizers are later work (ROADMAP
+A2).
 """
 from collections import defaultdict
 
@@ -19,8 +19,8 @@ from .core.backward import append_backward
 from .core import unique_name
 from . import regularizer as regularizer_mod
 
-__all__ = ["Adam", "AdamOptimizer", "Adagrad", "AdagradOptimizer",
-           "Optimizer"]
+__all__ = ["SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer", "Adam",
+           "AdamOptimizer", "Adagrad", "AdagradOptimizer", "Optimizer"]
 
 
 class Optimizer(object):
@@ -140,6 +140,49 @@ class Optimizer(object):
         return optimize_ops, params_grads
 
 
+class SGDOptimizer(Optimizer):
+    """param -= lr * grad (sgd_op.cc)."""
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return block.append_op(
+            type="sgd",
+            inputs={"Param": [param_and_grad[0]],
+                    "Grad": [param_and_grad[1]],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]]},
+            infer_shape=False)
+
+
+class MomentumOptimizer(Optimizer):
+    """Momentum with a persistable velocity per parameter (momentum_op.cc),
+    optionally Nesterov's."""
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super(MomentumOptimizer, self).__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = bool(use_nesterov)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity_acc = self._get_accumulator(
+            self._velocity_acc_str, param_and_grad[0])
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [param_and_grad[0]],
+                    "Grad": [param_and_grad[1]],
+                    "Velocity": [velocity_acc],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "VelocityOut": [velocity_acc]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+            infer_shape=False)
+
+
 class AdagradOptimizer(Optimizer):
     _moment_acc_str = "moment"
 
@@ -228,5 +271,7 @@ class AdamOptimizer(Optimizer):
             infer_shape=False)
 
 
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer
 Adagrad = AdagradOptimizer

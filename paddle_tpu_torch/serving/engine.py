@@ -23,7 +23,7 @@ import time
 import numpy as np
 
 from .. import io as _io
-from ..core.executor import Executor, Scope, resolve_device
+from ..core.executor import Executor, Scope, resolve_device, to_numpy
 from ..core.framework import Parameter, convert_dtype, find_var
 from ..core.lod import LoDTensor
 from .batcher import Batcher, ServingError
@@ -87,7 +87,7 @@ class ResultSlice(object):
                 policy == "dynamic" and h.dim()
                 and h.shape[0] == self._bucket_rows)
             t = h[self._lo:self._hi] if slice_rows else h
-            out[name] = t.detach().cpu().numpy()
+            out[name] = to_numpy(t)
         return out
 
     def __repr__(self):

@@ -19,6 +19,15 @@ each held to the JAX rule on the CPU.
   JAX rule answers through its dense attention_reference; the port sent
   every such shape to its flash kernel, which takes one length for q, k
   and v, and raised. rtol = atol = 1e-5: fp32 in another order.
+- sequence_pool LAST and sequence_last_step with a length above T (C8):
+  the JAX rule's jnp.take_along_axis fills the row with NaN and it gets
+  no gradient; the port's gather raised. Lengths 0 and negative take
+  step 0 in both. Exact: both sides only select values.
+- fused_attention with a row that has no valid key (C9): below its 1024
+  crossover the JAX package answers through its dense path, which gives
+  the mean of v over all keys; at and above it through its flash kernel,
+  which gives 0, as the port's does at every length. rtol = atol = 1e-5
+  for values and gradients: fp32 in another order.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -531,3 +540,119 @@ def test_unequal_lengths_are_dense_on_every_device(monkeypatch):
         assert flash_at(256, dev) is True
     monkeypatch.setenv("FLAGS_flash_min_seq", "1024")
     assert flash_at(256, "cuda", 300) is False     # no raise: structural
+
+
+# ----------------------------------------------- sequence_pool LAST, C8 --
+
+_LAST_LENS = np.array([5, 1, 0, -2, 3], np.int32)   # T = 3: over, in, 0, <0
+
+
+@pytest.mark.parametrize("op_type,attrs", [
+    ("sequence_pool", {"pooltype": "LAST"}),
+    ("sequence_last_step", {})], ids=["pool_last", "last_step"])
+@pytest.mark.parametrize("feat", [(), (2,), (2, 3)], ids=["2d", "3d", "4d"])
+def test_last_step_past_t_gives_nan_rows_like_take_along_axis(op_type, attrs,
+                                                             feat):
+    """x [5, 3, *feat] with lengths [5, 1, 0, -2, 3]: the row of length 5
+    is NaN in both packages, the others pick step min(max(len - 1, 0),
+    2); values compared with NaN equal to NaN, exactly. The ROADMAP's
+    example (x [2, 3, 2], lengths [5, 1]) is the first two rows' case."""
+    rng = np.random.RandomState(61)
+    x = rng.randn(5, 3, *feat).astype(np.float32)
+    ins = {"X": [x], "XLen": [_LAST_LENS]}
+    want = np.asarray(_jax_rule(op_type, ins, attrs)["Out"][0])
+    got = _port_rule(op_type, ins, attrs)["Out"][0].numpy()
+    assert got.shape == want.shape == (5,) + feat
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got[0]).all() and not np.isnan(got[1:]).any()
+    np.testing.assert_array_equal(got[2], x[2, 0])
+
+
+def test_last_step_past_t_gets_no_gradient():
+    """d x of sum(out * g) over the rows that are not NaN: the same in
+    both packages, and the NaN row adds nothing (its x rows stay 0)."""
+    rng = np.random.RandomState(62)
+    x = rng.randn(5, 3, 2).astype(np.float32)
+    g = rng.randn(5, 2).astype(np.float32)
+    keep = _LAST_LENS <= 3
+
+    def jloss(xj):
+        out = _jax_rule("sequence_pool", {"X": [xj], "XLen": [_LAST_LENS]},
+                        {"pooltype": "LAST"})["Out"][0]
+        return jnp.sum(jnp.where(keep[:, None], out * g, 0.0))
+
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = treg.get("sequence_pool").lower(
+        TorchCtx(None, CPU), {"X": [xt], "XLen": [torch.from_numpy(
+            _LAST_LENS)]}, {"pooltype": "LAST"})["Out"][0]
+    torch.where(torch.from_numpy(keep)[:, None], out * torch.from_numpy(g),
+                torch.zeros(())).sum().backward()
+    np.testing.assert_array_equal(xt.grad.numpy(), want)
+    assert not xt.grad[0].any()
+
+
+# ---------------------------------------- fused_attention empty rows, C9 --
+
+def _empty_row_attention(t, causal):
+    """q, k, v [2, t, 2, 4] and key lengths [0, t - 3]: row 0 has no valid
+    key."""
+    rng = np.random.RandomState(63 + t)
+    q, k, v = (rng.randn(2, t, 2, 4).astype(np.float32) for _ in range(3))
+    ins = {"Q": [q], "K": [k], "V": [v],
+           "KVLen": [np.array([[0], [t - 3]], np.int32)]}
+    return ins, {"causal": causal, "scale": None}
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("t", [8, 1024])
+def test_fused_attention_empty_row_matches_jax(monkeypatch, t, causal):
+    """At the JAX package's default crossover (FLAGS_flash_min_seq unset):
+    T = 8 is its dense path (row 0 the mean of v), T = 1024 its flash
+    kernel in interpret mode (row 0 exactly 0). The port takes its flash
+    path at both; values and q, k, v's gradients of sum(out * g) agree
+    within 1e-5."""
+    monkeypatch.delenv("FLAGS_flash_min_seq", raising=False)
+    monkeypatch.setenv("PADDLE_TPU_PALLAS", "1")
+    ins, attrs = _empty_row_attention(t, causal)
+    g = np.random.RandomState(64).randn(2, t, 2, 4).astype(np.float32)
+
+    def jout(q, k, v):
+        jins = dict(ins, Q=[q], K=[k], V=[v])
+        return _jax_rule("fused_attention", jins, attrs)["Out"][0]
+
+    want, vjp = jax.vjp(jout, *(jnp.asarray(ins[s][0]) for s in "QKV"))
+    want_grads = vjp(jnp.asarray(g))
+    leaves = [torch.from_numpy(ins[s][0]).requires_grad_(True)
+              for s in "QKV"]
+    tins = {"Q": [leaves[0]], "K": [leaves[1]], "V": [leaves[2]],
+            "KVLen": [torch.from_numpy(ins["KVLen"][0])]}
+    calls = []
+    with pytest.MonkeyPatch.context() as mp:
+        apply = ck.FlashAttention.apply
+        mp.setattr(ck.FlashAttention, "apply",
+                   lambda *a: calls.append(1) or apply(*a))
+        got = treg.get("fused_attention").lower(
+            TorchCtx(None, CPU), tins, attrs)["Out"][0]
+    assert calls                            # the port's flash path
+    got_grads = torch.autograd.grad(got, leaves, torch.from_numpy(g))
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+    expect_row0 = ins["V"][0][0].mean(axis=0) if t < 1024 else 0.0
+    np.testing.assert_allclose(want[0], np.broadcast_to(
+        expect_row0, want[0].shape), **TOL)
+    for name, a, b in zip("qkv", got_grads, want_grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **TOL)
+
+
+def test_fused_attention_empty_row_follows_the_pin(monkeypatch):
+    """FLAGS_flash_min_seq=0 sends the JAX package to its flash kernel at
+    T = 8 too: both give 0 on the empty row there."""
+    monkeypatch.setenv("FLAGS_flash_min_seq", "0")
+    monkeypatch.setenv("PADDLE_TPU_PALLAS", "1")
+    ins, attrs = _empty_row_attention(8, False)
+    want = np.asarray(_jax_rule("fused_attention", ins, attrs)["Out"][0])
+    got = _port_rule("fused_attention", ins, attrs)["Out"][0].numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert not got[0].any()
