@@ -12,8 +12,9 @@ Transformer-base runs at its full depth (6+6 layers) and width, the
 IMDB sentiment classifiers at their book widths, the attention
 translator of book chapter 08 at the reference benchmark's widths, the
 DeepASR stacked-LSTMP acoustic model at its train.py widths, book
-chapter 02's LeNet and ResNet-50 at 224 x 224, with random weights from
-the fixed seed SEED.
+chapter 02's LeNet and ResNet-50 at 224 x 224, the CTR model, the
+recommender, word2vec and the PTB language model at their defaults, with
+random weights from the fixed seed SEED.
 
 Phases, each reported on lines of its own; any failure exits non-zero:
 
@@ -226,6 +227,53 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               + 2e-2 (bf16 rounding grows through the backward; see
               run_resnet_training_vs_cpu).
               A `convnet:` line then sums up phases 12-14.
+15. ctr     — the wide & deep CTR model (models/ctr.build at its
+              defaults: 26 slots of 100000 ids, each an [N, 16] and an
+              [N, 1] table, 13 dense features, a 3 x 400 relu tower, sums,
+              sigmoid_cross_entropy_with_logits, Adam 1e-3) trained at
+              batch 1024 (ids uniform per slot, dense features in [0, 1),
+              0/1 labels from SEED): TRAIN_STEPS steps and a traced one;
+              then its predict program (with_optimizer=False) saved and
+              served by InferenceEngine(batch_buckets=[1, 64, 256]) to 16
+              concurrent requests of 1-64 rows. Reports step time, rows/s,
+              peak memory, launches a step, the device's idle share and
+              p50 / p99. Checks: losses finite and falling; answers in [0,
+              1], each equal to run_direct at its bucket (<= 1e-5),
+              request 0 against the CPU (<= 1e-4); no kernel of the port
+              launched (its path reaches no Pallas kernel in the JAX
+              package).
+16. recommender — book chapter 05 (recommender_system.build_train at its
+              book widths: emb 32, fc 200, SGD 0.2) over the port's
+              movielens metadata, trained at batch 256 (1-3 categories and
+              1-5 title words a movie) and its scale_infer served with LoD
+              feeds (batch buckets [1, 8, 32], seq bucket 8) to 16 requests
+              of 1-8 pairs; the same reports and checks (answers in [-5,
+              5]), and K9 twice a step and twice a dispatch (the category
+              sum pool and the title's sequence_conv_pool).
+17. word2vec, language model — book chapter 04's word2vec
+              (word2vec.build at its defaults: dictionary 1000, embed 32,
+              hidden 256, SGD 1e-3) at batch 128, and the PTB RNN LM
+              (language_model.build at its defaults: vocabulary 2075, emb
+              = hidden = 64, 2 peephole LSTM layers run as the torch loop,
+              the output tied to the embedding, Adam 3e-3) at 20
+              sentences of 8-35 words (one of 35), fetching avg_cost and
+              ppl = exp(avg_cost); the training reports and checks, no
+              kernel of the port. Then one step of each of the four models
+              at its zoo config on the card and on the CPU (phase 5's
+              tolerances).
+18. optimizers — fit_a_line (book chapter 01) under Adamax,
+              DecayedAdagrad, Adadelta, RMSProp with momentum, Ftrl
+              (lr_power -0.5 and -0.3), ProximalGD and ProximalAdagrad,
+              and under SGD on the exponential, natural_exp and
+              inverse_time schedules with staircase, polynomial with and
+              without cycle and piecewise (boundaries crossed within the
+              steps): 6 steps from one state on the card and on the CPU,
+              each loss and learning rate within 1e-5 relative, every
+              persistable within 1e-5 of its largest value; ModelAverage's
+              apply and restore on the card; each schedule alone three
+              times under torch.cuda.set_sync_debug_mode("error") (no host
+              sync in its Switch). A `dense_zoo:` line sums up phases
+              15-18.
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run); each kernel must also launch on at
@@ -349,6 +397,28 @@ CONV_GRAD_MAX, CONV_GRAD_MEDIAN = 1e-3, 1e-4
 # bf16-vs-fp32 spread of it + BF16_FLOOR (the worst read 0.41 of that;
 # see run_resnet_training_vs_cpu)
 BF16_LOSS_RTOL, BF16_SPREAD_X, BF16_FLOOR = 1e-2, 3.0, 2e-2
+# the dense zoo paths at their JAX package defaults (models/ctr.py: the
+# era's wide & deep CTR over Criteo's 26 categorical and 13 dense fields,
+# 100000 hashed ids a slot; book chapter 05's recommender at its book
+# widths over the MovieLens metadata; book chapter 04's word2vec; the PTB
+# RNN LM at its defaults), batches as the reference's scripts take them
+CTR = dict(sparse=100000, emb=16, hidden=(400, 400, 400), lr=1e-3,
+           batch=1024)
+CTR_SERVE = dict(requests=16, rows=(1, 64), buckets=[1, 64, 256])
+REC = dict(emb=32, fc=200, lr=0.2, batch=256)
+REC_SERVE = dict(requests=16, pairs=(1, 8), buckets=[1, 8, 32],
+                 seq_buckets=[8])
+W2V = dict(dict_size=1000, embed=32, hidden=256, lr=1e-3, batch=128)
+LM = dict(vocab=2075, emb=64, hidden=64, layers=2, lr=3e-3, batch=20,
+          min_len=8, max_len=35)
+# the optimizers and schedules, card against CPU: fit_a_line (book chapter
+# 01: fc(13 -> 1), square_error_cost, mean) at batch 32 for 6 steps from
+# one state. fp32 in another order on each device: each step's loss within
+# OPT_LOSS_RTOL and every persistable after the steps within OPT_STATE_TOL
+# of its largest value (schedules: every learning rate within
+# OPT_LOSS_RTOL)
+OPT_STEPS, OPT_BATCH = 6, 32
+OPT_LOSS_RTOL, OPT_STATE_TOL = 1e-5, 1e-5
 LSTMP_SRC = "paddle_tpu_torch/csrc/fused_lstmp_fwd.cu"
 LSTMP_TPU = "paddle_tpu/ops/pallas_kernels.py:714 (_lstmp_seq_kernel, " \
     "launched by _lstmp_fwd_call :745)"
@@ -1746,6 +1816,25 @@ def run_pool_kernels(torch, ck, peak_flops, peak_bw, k9_source=None):
                  r["plain_ms"], bms, bby, floor))
         del xs, x
     shutil.rmtree(build_dir, ignore_errors=True)
+    # the recommender's title pool: x [256, 8, 32] (batch 256, titles of
+    # 1-5 words padded to 8 steps), SUM
+    x = torch.randn((REC["batch"], 8, REC["emb"]), generator=g, device=dev)
+    lens = torch.tensor(rng.randint(1, 6, REC["batch"]), dtype=torch.int32,
+                        device=dev)
+    err = max(err, pool_case(torch, ck, "recommender", x, lens))
+    flops, nbytes = pool_work(lens.tolist(), 8, REC["emb"], REC["batch"])
+    rec = {"shape": "x [%d,8,%d] fp32, SUM, lens 1-5" % (REC["batch"],
+                                                          REC["emb"]),
+           "ms": time_ms(torch, lambda: ck.masked_pool(x, lens, "SUM")),
+           "library_ms": time_ms(torch, lambda: x.sum(1)),
+           "plain_ms": time_ms(torch, lambda: ck.masked_pool_plain(
+               x, lens, "SUM"))}
+    rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, peak_flops,
+                                             peak_bw)
+    print("kernels: masked_pool timing recommender %s: %.4f ms; x.sum(1) "
+          "%.4f ms; plain %.4f ms; bound %.5f ms (%s)"
+          % (rec["shape"], rec["ms"], rec["library_ms"], rec["plain_ms"],
+             rec["bound_ms"], rec["bound_by"]))
     serve, wide, long_ = (timing[w] for w, *_ in k9_ablation.SHAPES)
     return {"masked_pool": {
         "name": "masked_pool", "route": "cuda", "source": POOL_SRC,
@@ -1763,6 +1852,7 @@ def run_pool_kernels(torch, ck, peak_flops, peak_bw, k9_source=None):
            for k in ("shape", "ms", "cold_ms", "plain_ms", "library_ms",
                      "cold_library_ms", "bound_ms", "baseline_ms",
                      "cold_baseline_ms", "plan")},
+        **{"recommender_" + k: v for k, v in rec.items()},
     }}
 
 
@@ -2301,38 +2391,13 @@ def run_serving(torch, card, n_layer=N_LAYER):
         print("serving: engine loaded and warmed up in %.1f s"
               % (time.perf_counter() - t0))
         try:
-            answers, latencies, futures = [None] * 16, [None] * 16, \
-                [None] * 16
-            errors = []
-            barrier = threading.Barrier(16)
-
-            def client(i):
-                try:
-                    barrier.wait()
-                    ts = time.perf_counter()
-                    fut = engine.submit(requests[i])
-                    answers[i] = fut.result(600).numpy()[predict.name]
-                    latencies[i] = time.perf_counter() - ts
-                    futures[i] = fut
-                except Exception as e:  # noqa: BLE001 — reported below
-                    errors.append(repr(e))
-
             # the counts: zero just before the main path, read just after
             ck.reset_launch_counts()
             batches0 = engine.metrics.snapshot()["batches_total"]
-            threads = [threading.Thread(target=client, args=(i,))
-                       for i in range(16)]
-            tw = time.perf_counter()
-            for th in threads:
-                th.start()
-            for th in threads:
-                th.join(900)
-            wall = time.perf_counter() - tw
+            answers, latencies, futures, wall = serve_burst(
+                engine, requests, predict.name)
             counts = ck.launch_counts()
             snap = engine.metrics.snapshot()
-            check(not any(th.is_alive() for th in threads),
-                  "a client thread did not finish")
-            check(not errors, "requests failed: %s" % errors)
             batches = snap["batches_total"] - batches0
             print("serving: launches %s over %d engine dispatches"
                   % (counts, batches))
@@ -2562,6 +2627,8 @@ def train_steps(torch, tag, exe, main, feed, avg_cost, scope, trace_path,
     losses, step_s = [], []
     ck.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold: the peak below includes it
+    at_start = torch.cuda.memory_allocated()
     for _ in range(warm + timed):
         ts = time.perf_counter()
         loss, = exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope)
@@ -2583,6 +2650,7 @@ def train_steps(torch, tag, exe, main, feed, avg_cost, scope, trace_path,
         "steps_timed": timed, "step_ms_median": med * 1e3,
         "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
         unit + "_per_s": tokens / med, "peak_mem_bytes": peak,
+        "mem_at_start_bytes": at_start,
         "losses": losses,
         "launches_per_step": {k: v / steps for k, v in counts.items()},
         "device_busy_ms": busy_ms, "device_ms_by_group": groups_ms,
@@ -2759,6 +2827,38 @@ def build_sentiment(fluid, kind):
     return main, startup, pred
 
 
+def serve_burst(engine, requests, fetch):
+    """The requests, all at once from as many client threads, each
+    answer's `fetch`: (answers, latencies in s, futures, wall s)."""
+    n = len(requests)
+    answers, latencies, futures = [None] * n, [None] * n, [None] * n
+    errors = []
+    barrier = threading.Barrier(n)
+
+    def client(i):
+        try:
+            barrier.wait()
+            ts = time.perf_counter()
+            fut = engine.submit(requests[i])
+            answers[i] = fut.result(600).numpy()[fetch]
+            latencies[i] = time.perf_counter() - ts
+            futures[i] = fut
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    tw = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    wall = time.perf_counter() - tw
+    check(not any(th.is_alive() for th in threads),
+          "a client thread did not finish")
+    check(not errors, "requests failed: %s" % errors)
+    return answers, latencies, futures, wall
+
+
 def serve_lod_model(torch, what, model_dir, requests, answer_shape,
                     per_dispatch, unit, seq_buckets=SEQ_BUCKETS):
     """Serve one saved sequence model: the requests, all at once from as
@@ -2788,38 +2888,14 @@ def serve_lod_model(torch, what, model_dir, requests, answer_shape,
               "buckets in %.1f s; launches predicted per dispatch %s"
               % (what, len(engine.batch_buckets) * len(seq_buckets),
                  time.perf_counter() - t0, per))
-        answers, latencies, futures = [None] * n, [None] * n, [None] * n
-        errors = []
-        barrier = threading.Barrier(n)
         fetch = engine.fetch_names[0]
-
-        def client(i):
-            try:
-                barrier.wait()
-                ts = time.perf_counter()
-                fut = engine.submit(requests[i])
-                answers[i] = fut.result(600).numpy()[fetch]
-                latencies[i] = time.perf_counter() - ts
-                futures[i] = fut
-            except Exception as e:  # noqa: BLE001 — reported below
-                errors.append(repr(e))
-
         # the counts: zero just before the main path, read just after
         ck.reset_launch_counts()
         batches0 = engine.metrics.snapshot()["batches_total"]
-        threads = [threading.Thread(target=client, args=(i,))
-                   for i in range(n)]
-        tw = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(900)
-        wall = time.perf_counter() - tw
+        answers, latencies, futures, wall = serve_burst(engine, requests,
+                                                        fetch)
         counts = ck.launch_counts()
         snap = engine.metrics.snapshot()
-        check(not any(th.is_alive() for th in threads),
-              "a client thread did not finish")
-        check(not errors, "%s requests failed: %s" % (what, errors))
         batches = snap["batches_total"] - batches0
         expected = dict.fromkeys(counts, 0)
         expected.update({k: v * batches for k, v in per.items()})
@@ -2878,11 +2954,8 @@ def serve_lod_model(torch, what, model_dir, requests, answer_shape,
 
 def sentiment_launches(ops):
     """K6 once per lstm op, K9 once per linear sequence_pool op."""
-    from paddle_tpu_torch.ops import cuda_kernels as ck
-    return {"fused_lstm": sum(op.type == "lstm" for op in ops),
-            "masked_pool": sum(op.type == "sequence_pool"
-                               and op.attrs.get("pooltype") in ck.POOL_TYPES
-                               for op in ops)}
+    return dict(k9_per_run(ops),
+                fused_lstm=sum(op.type == "lstm" for op in ops))
 
 
 def run_sequence_serving(torch, card):
@@ -3516,36 +3589,7 @@ def run_resnet_serving(torch, card):
               % (engine.batch_buckets, time.perf_counter() - t0))
         try:
             def burst():
-                """The requests, all at once from as many client threads:
-                (answers, latencies in s, futures, wall s)."""
-                answers, latencies, futures = [None] * n, [None] * n, \
-                    [None] * n
-                errors = []
-                barrier = threading.Barrier(n)
-
-                def client(i):
-                    try:
-                        barrier.wait()
-                        ts = time.perf_counter()
-                        fut = engine.submit(requests[i])
-                        answers[i] = fut.result(600).numpy()[pred.name]
-                        latencies[i] = time.perf_counter() - ts
-                        futures[i] = fut
-                    except Exception as e:  # noqa: BLE001 — reported below
-                        errors.append(repr(e))
-
-                threads = [threading.Thread(target=client, args=(i,))
-                           for i in range(n)]
-                tw = time.perf_counter()
-                for th in threads:
-                    th.start()
-                for th in threads:
-                    th.join(900)
-                wall = time.perf_counter() - tw
-                check(not any(th.is_alive() for th in threads),
-                      "a client thread did not finish")
-                check(not errors, "resnet50 requests failed: %s" % errors)
-                return answers, latencies, futures, wall
+                return serve_burst(engine, requests, pred.name)
 
             # the counts: zero just before the main path, read just after
             ck.reset_launch_counts()
@@ -3689,6 +3733,469 @@ def run_fault_checks(torch):
               "C9 at T = %d: card vs CPU %r, row 0 %r" % (t, err, row_err))
 
 
+# ------------------------------------------------------------- dense zoo --
+
+def ctr_feed(rng, rows, sparse, with_label=True):
+    """rows of the CTR feeds: 13 dense features uniform in [0, 1), one id
+    uniform in [0, sparse) for each of the 26 slots, a 0/1 click label."""
+    feed = {"dense_input": rng.rand(rows, 13).astype(np.float32)}
+    for i in range(26):
+        feed["C%d" % i] = rng.randint(0, sparse, (rows, 1)).astype(np.int64)
+    if with_label:
+        feed["label"] = rng.randint(0, 2, (rows, 1)).astype(np.float32)
+    return feed
+
+
+def rec_feed(fluid, rng, rows, with_score=True, lod=True):
+    """rows of the recommender's feeds, the ids drawn within the port's
+    movielens metadata: a user (id, gender, age bucket, job), a movie (id,
+    1-3 distinct categories and 1-5 title words, as the synthetic tables
+    give) and a 1-5 star score. Sequences as LoDTensors, or with lod=False
+    as lists of per-row arrays (an InferenceEngine request)."""
+    from paddle_tpu_torch.datasets import movielens
+
+    def ids(lo, hi):
+        return rng.randint(lo, hi, (rows, 1)).astype(np.int64)
+
+    n_cat = len(movielens.movie_categories())
+    n_title = len(movielens.get_movie_title_dict())
+    cats = [rng.choice(n_cat, int(rng.randint(1, 4)), replace=False)
+            .reshape(-1, 1).astype(np.int64) for _ in range(rows)]
+    titles = [rng.randint(0, n_title, (int(rng.randint(1, 6)), 1))
+              .astype(np.int64) for _ in range(rows)]
+    seq = fluid.LoDTensor.from_sequences if lod else list
+    feed = {"user_id": ids(1, movielens.max_user_id() + 1),
+            "gender_id": ids(0, 2),
+            "age_id": ids(0, len(movielens.age_table)),
+            "job_id": ids(0, movielens.max_job_id() + 1),
+            "movie_id": ids(1, movielens.max_movie_id() + 1),
+            "category_id": seq(cats), "movie_title": seq(titles)}
+    if with_score:
+        feed["score"] = rng.randint(1, 6, (rows, 1)).astype(np.float32)
+    return feed
+
+
+def w2v_feed(rng, rows, dict_size):
+    return {n: rng.randint(0, dict_size, (rows, 1)).astype(np.int64)
+            for n in ("firstw", "secondw", "thirdw", "forthw", "nextw")}
+
+
+def lm_feed(fluid, rng, cfg):
+    """cfg["batch"] sentences of random ids, lengths min_len-max_len (one
+    at max_len); nextwords is each shifted by one. Returns (feed,
+    tokens)."""
+    lens = rng.randint(cfg["min_len"], cfg["max_len"] + 1, cfg["batch"])
+    lens[0] = cfg["max_len"]
+    sents = [rng.randint(0, cfg["vocab"], (int(n) + 1, 1)).astype(np.int64)
+             for n in lens]
+    lod = fluid.LoDTensor.from_sequences
+    return {"words": lod([s[:-1] for s in sents]),
+            "nextwords": lod([s[1:] for s in sents])}, int(lens.sum())
+
+
+def build_dense(fluid, name, cfg, train=True):
+    """A dense zoo model at cfg's widths, startup seeded from SEED:
+    (main, startup, avg_cost, extra) with extra the CTR's predict, the
+    recommender's scale_infer or the LM's ppl (None for word2vec). With
+    train=False, the CTR and the recommender are built with no
+    optimizer (the programs their servers save)."""
+    from paddle_tpu_torch.models import (ctr, language_model,
+                                         recommender_system, word2vec)
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        if name == "ctr":
+            _, avg, extra = ctr.build(
+                sparse_feature_dim=cfg["sparse"], embedding_size=cfg["emb"],
+                hidden_sizes=cfg["hidden"], learning_rate=cfg["lr"],
+                with_optimizer=train)
+        elif name == "recommender":
+            if train:
+                extra, avg = recommender_system.build_train(
+                    cfg["lr"], cfg["emb"], cfg["fc"])
+            else:
+                extra, avg = recommender_system.model(cfg["emb"],
+                                                      cfg["fc"])
+        elif name == "word2vec":
+            _, avg = word2vec.build(cfg["dict_size"], cfg["embed"],
+                                    cfg["hidden"], learning_rate=cfg["lr"])
+            extra = None
+        else:
+            _, _, avg, extra = language_model.build(
+                cfg["vocab"], cfg["emb"], cfg["hidden"], cfg["layers"],
+                learning_rate=cfg["lr"])
+    return main, startup, avg, extra
+
+
+def k9_per_run(ops):
+    """K9 launches one run of a program predicts: one per SUM / AVERAGE /
+    SQRT sequence_pool (every such pool of the ported models is fp32)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    return {"masked_pool": sum(op.type == "sequence_pool"
+                               and op.attrs.get("pooltype") in ck.POOL_TYPES
+                               for op in ops)}
+
+
+def run_dense_training(torch, card, name, trace_path=None):
+    """Training of one dense zoo model at its defaults: TRAIN_STEPS steps
+    of one batch through Executor.run and a traced one (train_steps: step
+    time, rows or tokens a second, peak memory, launches a step, the
+    device's idle share). The CTR at batch 1024, the recommender at 256,
+    word2vec at 128 and the LM at 20 sentences, whose ppl fetch must be
+    exp(avg_cost). Returns ((launch counts, the counts predicted), the
+    report)."""
+    import paddle_tpu_torch as fluid
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = {"ctr": CTR, "recommender": REC, "word2vec": W2V,
+           "language_model": LM}[name]
+    tag = "%s training:" % name
+    t0 = time.perf_counter()
+    main, startup, avg, extra = build_dense(fluid, name, cfg)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(scope.get(p.name).shape))
+                   for p in main.all_parameters())
+    rng = np.random.RandomState(SEED + 17)
+    if name == "ctr":
+        feed, work, unit = ctr_feed(rng, cfg["batch"], cfg["sparse"]), \
+            cfg["batch"], "rows"
+    elif name == "recommender":
+        feed, work, unit = rec_feed(fluid, rng, cfg["batch"]), \
+            cfg["batch"], "rows"
+    elif name == "word2vec":
+        feed, work, unit = w2v_feed(rng, cfg["batch"], cfg["dict_size"]), \
+            cfg["batch"], "rows"
+    else:
+        (feed, work), unit = lm_feed(fluid, rng, cfg), "tokens"
+    ops = main.global_block().ops
+    print("%s built (%d parameters, %d ops) and ran its startup program in "
+          "%.1f s" % (tag, n_params, len(ops), time.perf_counter() - t0))
+    report, counts, steps = train_steps(torch, tag, exe, main, feed, avg,
+                                        scope, trace_path, work, unit)
+    if name == "language_model":
+        cost, ppl = exe.run(main, feed=feed, fetch_list=[avg, extra],
+                            scope=scope)
+        check(np.isfinite(ppl).all() and np.allclose(
+            ppl, np.exp(cost), rtol=1e-6),
+            "LM ppl %s is not exp(avg_cost %s)" % (ppl, cost))
+        report["ppl"] = float(ppl.reshape(-1)[0])
+    expected = dict.fromkeys(counts, 0)
+    expected.update({k: n * steps for k, n in k9_per_run(ops).items()})
+    print("%s launches %s over %d steps (expected %s)"
+          % (tag, counts, steps, expected))
+    report = {"batch": cfg["batch"], unit: work, "parameters": n_params,
+              **report, "card": card}
+    print("%s %s" % (tag, json.dumps(report)))
+    del scope
+    torch.cuda.empty_cache()
+    return (counts, expected), report
+
+
+def run_dense_serving(torch, card, name):
+    """Serving of the CTR (its predict, with no optimizer; 16 concurrent
+    requests of 1-64 rows through InferenceEngine(batch_buckets=[1, 64,
+    256])) or the recommender (scale_infer with LoD feeds, 16 requests of
+    1-8 user-movie pairs, batch buckets [1, 8, 32], seq bucket 8), built
+    and initialized on the card from SEED and saved by
+    save_inference_model. Checks each answer's shape and range, each
+    equal to run_direct at its bucket (<= BUCKET_TOL), request 0 against
+    the CPU (<= SEQ_CPU_TOL); the burst again for its p50 and once more
+    under the profiler for the device's busy share. Returns ((launch
+    counts, the counts predicted: K9 twice a recommender dispatch), the
+    report)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import recommender_system
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, serve = (CTR, CTR_SERVE) if name == "ctr" else (REC, REC_SERVE)
+    tag = "%s serving:" % name
+    t0 = time.perf_counter()
+    main, startup, _, pred = build_dense(fluid, name, cfg, train=False)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED + 18)
+    lo, hi = serve["rows"] if name == "ctr" else serve["pairs"]
+    sizes = rng.randint(lo, hi + 1, serve["requests"])
+    if name == "ctr":
+        feeds = ["dense_input"] + ["C%d" % i for i in range(26)]
+        requests = [ctr_feed(rng, int(k), cfg["sparse"], with_label=False)
+                    for k in sizes]
+        lo_ans, hi_ans = 0.0, 1.0
+    else:
+        feeds = recommender_system.FEED_ORDER[:-1]
+        requests = [rec_feed(fluid, rng, int(k), with_score=False,
+                             lod=False) for k in sizes]
+        lo_ans, hi_ans = -5.0, 5.0
+    with tempfile.TemporaryDirectory(prefix="ptt_smoke_") as model_dir:
+        fluid.io.save_inference_model(model_dir, feeds, [pred], exe, main,
+                                      scope=scope)
+        del scope
+        engine = InferenceEngine(model_dir, batch_buckets=serve["buckets"],
+                                 seq_buckets=serve.get("seq_buckets"))
+        torch.cuda.synchronize()
+        per = k9_per_run(engine.program.global_block().ops)
+        print("%s built, initialized, saved, loaded and warmed up (buckets "
+              "%s, seq %s) in %.1f s; launches predicted per dispatch %s"
+              % (tag, engine.batch_buckets, engine.seq_buckets,
+                 time.perf_counter() - t0, per))
+        try:
+            # the counts: zero just before the main path, read just after
+            ck.reset_launch_counts()
+            batches0 = engine.metrics.snapshot()["batches_total"]
+            answers, latencies, futures, wall = serve_burst(
+                engine, requests, pred.name)
+            counts = ck.launch_counts()
+            batches = engine.metrics.snapshot()["batches_total"] - batches0
+            for i, a in enumerate(answers):
+                check(a.shape == (int(sizes[i]), 1) and np.isfinite(a).all()
+                      and a.min() >= lo_ans and a.max() <= hi_ans,
+                      "%s answer %d: shape %s, range [%r, %r]"
+                      % (tag, i, a.shape, float(a.min()), float(a.max())))
+            bucket_diff = 0.0
+            for i, fut in enumerate(futures):
+                direct, bucket = engine.run_direct(
+                    requests[i], batch_bucket=fut.bucket[0],
+                    seq_bucket=fut.bucket[1])
+                check(bucket == fut.bucket, "run_direct ran at %s, the "
+                      "future recorded %s" % (bucket, fut.bucket))
+                bucket_diff = max(bucket_diff, float(np.abs(
+                    direct[pred.name] - answers[i]).max()))
+            check(bucket_diff <= BUCKET_TOL, "%s coalesced answers differ "
+                  "from run_direct by %r" % (tag, bucket_diff))
+            again = sorted(x * 1e3 for x in serve_burst(
+                engine, requests, pred.name)[1])
+            busy_ms, _, n_kernels = profile_step(
+                torch, lambda: serve_burst(engine, requests, pred.name))
+        finally:
+            engine.close()
+        cpu = InferenceEngine(model_dir, device="cpu", batch_buckets=[hi],
+                              seq_buckets=serve.get("seq_buckets"),
+                              warmup=False)
+        try:
+            ref = cpu.run_direct(requests[0])[0][pred.name]
+        finally:
+            cpu.close()
+    cpu_diff = float(np.abs(ref - answers[0]).max())
+    check(cpu_diff <= SEQ_CPU_TOL, "%s card and CPU disagree by %r"
+          % (tag, cpu_diff))
+    expected = dict.fromkeys(counts, 0)
+    expected.update({k: v * batches for k, v in per.items()})
+    rows = int(sizes.sum())
+    lat_ms = sorted(x * 1e3 for x in latencies)
+    report = {
+        "requests": len(requests), "rows": rows, "batches": batches,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)), "wall_s": wall,
+        "second_burst_p50_ms": float(np.percentile(again, 50)),
+        "rows_per_s": rows / wall, "device_busy_ms": busy_ms,
+        # the traced burst's device time over the untraced one's wall
+        "busy_share_est": busy_ms / (wall * 1e3),
+        "device_kernels": n_kernels, "bucket_max_diff": bucket_diff,
+        "cpu_max_diff": cpu_diff, "launches": counts, "card": card}
+    print("%s %s" % (tag, json.dumps(report)))
+    torch.cuda.empty_cache()
+    return (counts, expected), report
+
+
+def run_dense_vs_cpu(torch):
+    """One step of each dense zoo model at its zoo config (models/zoo.py:
+    ctr at 1000 ids and width 8, word2vec at 100 words, widths 8 / 16, the
+    recommender at widths 8 / 16, the LM at vocabulary 120, widths 8, 2
+    layers) on the card and on the CPU from the CPU startup state, held by
+    step_vs_cpu (phase 5's tolerances)."""
+    import paddle_tpu_torch as fluid
+
+    rng = np.random.RandomState(SEED + 19)
+    small = {"ctr": (dict(CTR, sparse=1000, emb=8), 16),
+             "recommender": (dict(REC, emb=8, fc=16), 16),
+             "word2vec": (dict(W2V, dict_size=100, embed=8, hidden=16), 16),
+             "language_model": (dict(LM, vocab=120, emb=8, hidden=8,
+                                     batch=4, min_len=1, max_len=12), 4)}
+    for name, (cfg, rows) in small.items():
+        main, startup, avg, _ = build_dense(fluid, name, cfg)
+        if name == "ctr":
+            feed = ctr_feed(rng, rows, cfg["sparse"])
+        elif name == "recommender":
+            feed = rec_feed(fluid, rng, rows)
+        elif name == "word2vec":
+            feed = w2v_feed(rng, rows, cfg["dict_size"])
+        else:
+            feed = lm_feed(fluid, rng, cfg)[0]
+        step_vs_cpu(main, startup, avg, feed, cfg["lr"],
+                    "%s: one step at the zoo config, batch %d" % (name, rows))
+
+
+FIT_OPTIMIZERS = (
+    ("Adamax", dict(learning_rate=0.01)),
+    ("DecayedAdagrad", dict(learning_rate=0.01)),
+    ("Adadelta", dict(learning_rate=1.0, rho=0.9)),
+    ("RMSProp", dict(learning_rate=0.01, momentum=0.9)),
+    ("Ftrl", dict(learning_rate=0.1, l1=0.01, l2=0.01)),
+    ("Ftrl", dict(learning_rate=0.1, l1=0.01, l2=0.01, lr_power=-0.3)),
+    ("ProximalGD", dict(learning_rate=0.05, l1=0.01, l2=0.01)),
+    ("ProximalAdagrad", dict(learning_rate=0.05, l1=0.01, l2=0.01)),
+)
+FIT_SCHEDULES = (
+    ("exponential_decay", (0.1, 2, 0.5), dict(staircase=True)),
+    ("natural_exp_decay", (0.1, 2, 0.5), dict(staircase=True)),
+    ("inverse_time_decay", (0.1, 2, 0.5), dict(staircase=True)),
+    ("polynomial_decay", (0.1, 4, 0.01), dict(power=2.0)),
+    ("polynomial_decay", (0.1, 2, 0.01), dict(power=2.0, cycle=True)),
+    ("piecewise_decay", ([2, 4], [0.1, 0.05, 0.01]), {}),
+)
+
+
+def build_fit_a_line(fluid, optimizer=None, schedule=None, average=False):
+    """Book chapter 01: fc(13 -> 1), square_error_cost, mean, under one of
+    FIT_OPTIMIZERS, or SGD on one of FIT_SCHEDULES, or SGD(0.05) with a
+    ModelAverage after it. Returns (main, startup, avg_cost, lr or the
+    ModelAverage)."""
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[13], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        pred = fluid.layers.fc(input=x, size=1)
+        avg = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+        extra = None
+        if optimizer is not None:
+            getattr(fluid.optimizer, optimizer[0])(**optimizer[1]) \
+                .minimize(avg)
+        elif schedule is not None:
+            extra = getattr(fluid.layers, schedule[0])(*schedule[1],
+                                                       **schedule[2])
+            fluid.optimizer.SGD(learning_rate=extra).minimize(avg)
+        else:
+            fluid.optimizer.SGD(learning_rate=0.05).minimize(avg)
+            extra = fluid.optimizer.ModelAverage(0.15)
+    return main, startup, avg, extra
+
+
+def fit_feeds():
+    """One batch of fit_a_line for every step (y = x w for a random w), so
+    that every optimizer's loss falls from step to step."""
+    rng = np.random.RandomState(SEED + 20)
+    w = rng.randn(13, 1).astype(np.float32)
+    x = rng.rand(OPT_BATCH, 13).astype(np.float32)
+    return [{"x": x, "y": x @ w}] * OPT_STEPS
+
+
+def run_optimizers_vs_cpu(torch, card):
+    """Phase 18: fit_a_line under each of FIT_OPTIMIZERS and under SGD on
+    each of FIT_SCHEDULES, OPT_STEPS steps from one state (the CPU startup
+    program's) on the card and on the CPU: each loss (and learning rate)
+    within OPT_LOSS_RTOL, every persistable after the steps within
+    OPT_STATE_TOL of its largest value, the losses falling on the card.
+    ModelAverage: apply() on the card swaps in sum / count as on the CPU,
+    restore() puts the trained parameters back exactly. Each schedule's
+    program alone runs three times on the card under
+    torch.cuda.set_sync_debug_mode("error"): its Switch and
+    conditional_blocks read no value on the host. Returns ((launch counts
+    of the card's runs, the counts predicted: none), the report)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feeds = fit_feeds()
+    cases = [("%s%s" % (o[0], "(lr_power=%s)" % o[1]["lr_power"]
+                        if "lr_power" in o[1] else ""),
+              dict(optimizer=o)) for o in FIT_OPTIMIZERS]
+    cases += [("SGD on %s%s" % (s[0], "(cycle)" if s[2].get("cycle")
+                                else ""), dict(schedule=s))
+              for s in FIT_SCHEDULES]
+    cases.append(("SGD + ModelAverage", dict(average=True)))
+    counts = None
+    worst = {"loss": 0.0, "state": 0.0}
+    report = {}
+    for what, kwargs in cases:
+        main, startup, avg, extra = build_fit_a_line(fluid, **kwargs)
+        cpu, cpu_scope = fluid.Executor("cpu"), fluid.Scope()
+        cpu.run(startup, scope=cpu_scope)
+        state = {v.name: cpu_scope.get(v.name).numpy().copy()
+                 for v in main.list_vars() if v.persistable}
+        card_scope = pio.scope_from_numpy(state, "cuda", program=main)
+        fetch = [avg] + ([extra] if "schedule" in kwargs else [])
+        exe = fluid.Executor()
+        ck.reset_launch_counts()
+        got = [exe.run(main, feed=f, fetch_list=fetch, scope=card_scope)
+               for f in feeds]
+        c = ck.launch_counts()
+        counts = c if counts is None else {k: counts[k] + c[k] for k in c}
+        want = [cpu.run(main, feed=f, fetch_list=fetch, scope=cpu_scope)
+                for f in feeds]
+        loss_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                       for g, w in zip(got, want) for a, b in zip(g, w))
+        state_err = max(float(np.abs(card_scope.get(n).cpu().numpy()
+                                     - cpu_scope.get(n).numpy()).max()
+                              / max(np.abs(cpu_scope.get(n).numpy()).max(),
+                                    1e-30)) for n in state)
+        losses = [float(g[0][0]) for g in got]
+        print("optimizers: %s, %d steps, card vs CPU: losses %s, max loss%s "
+              "error %.3e, max persistable error %.3e of its largest value"
+              % (what, OPT_STEPS, ["%.5f" % x for x in losses],
+                 " / lr" if "schedule" in kwargs else "", loss_err,
+                 state_err))
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              "%s: the card's losses %s" % (what, losses))
+        check(loss_err <= OPT_LOSS_RTOL and state_err <= OPT_STATE_TOL,
+              "%s: card and CPU differ (loss %r, state %r)"
+              % (what, loss_err, state_err))
+        worst["loss"] = max(worst["loss"], loss_err)
+        worst["state"] = max(worst["state"], state_err)
+        report[what] = {"loss_err": loss_err, "state_err": state_err,
+                        "first_loss": losses[0], "last_loss": losses[-1]}
+        if "average" in kwargs:
+            params = [p.name for p in main.all_parameters()]
+            trained = {n: card_scope.get(n).clone() for n in params}
+            with extra.apply(cpu, scope=cpu_scope):
+                cpu_avg = {n: cpu_scope.get(n).numpy().copy()
+                           for n in params}
+            with extra.apply(exe, need_restore=False, scope=card_scope):
+                avg_err = max(float(np.abs(card_scope.get(n).cpu().numpy()
+                                           - cpu_avg[n]).max())
+                              for n in params)
+                moved = all(not torch.equal(card_scope.get(n), trained[n])
+                            for n in params)
+            extra.restore(exe)
+            back = all(torch.equal(card_scope.get(n), trained[n])
+                       for n in params)
+            print("optimizers: ModelAverage apply on the card vs the CPU: "
+                  "max diff %.3e; restore puts the trained parameters back "
+                  "exactly: %s" % (avg_err, back))
+            check(moved and back and avg_err <= OPT_STATE_TOL,
+                  "ModelAverage on the card: moved %s, restored %s, diff "
+                  "%r" % (moved, back, avg_err))
+            report[what]["average_err"] = avg_err
+    for name, args, kw in FIT_SCHEDULES:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            lr = getattr(fluid.layers, name)(*args, **kw)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            lrs = [exe.run(main, fetch_list=[lr], scope=scope,
+                           return_numpy=False)[0] for _ in range(3)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        print("optimizers: %s%s alone, 3 runs under sync debug mode "
+              "'error': lr %s" % (name, "(cycle)" if kw.get("cycle")
+                                    else "",
+                                    [float(x[0]) for x in lrs]))
+    report["max_loss_err"] = worst["loss"]
+    report["max_state_err"] = worst["state"]
+    report["card"] = card
+    print("optimizers: " + json.dumps(report))
+    return (counts, dict.fromkeys(counts, 0)), report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
@@ -3728,8 +4235,10 @@ def main(argv=None):
                     help="keep the traced Transformer training step's "
                     "chrome trace here, the stacked LSTM's beside it as "
                     "<PATH stem>_sequences.json, the translator's as "
-                    "<PATH stem>_translation.json and the acoustic "
-                    "model's as <PATH stem>_acoustic.json")
+                    "<PATH stem>_translation.json, the acoustic "
+                    "model's as <PATH stem>_acoustic.json, the ResNet-50's "
+                    "as <PATH stem>_resnet50_{fp32,bf16}.json and the dense "
+                    "zoo models' as <PATH stem>_<model>.json")
     args = ap.parse_args(argv)
 
     import torch
@@ -3823,6 +4332,29 @@ def main(argv=None):
             if path.startswith(("resnet50", "lenet"))}
         summary["card"] = card
         print("convnet: " + json.dumps(summary))
+        dense = {}
+        for model in ("ctr", "recommender", "word2vec", "language_model"):
+            run, dense[model + "_training"] = run_dense_training(
+                torch, card, model,
+                trace_path=stem and stem + "_%s.json" % model)
+            paths.append((model + "_training", run))
+            if model in ("ctr", "recommender"):
+                run, dense[model + "_serving"] = run_dense_serving(
+                    torch, card, model)
+                paths.append((model + "_serving", run))
+        run_dense_vs_cpu(torch)
+        run, opt = run_optimizers_vs_cpu(torch, card)
+        paths.append(("fit_a_line_optimizers", run))
+        summary = {path: {k: v for k, v in r.items() if k in (
+            "step_ms_median", "rows_per_s", "tokens_per_s", "peak_mem_bytes",
+            "mem_at_start_bytes", "launches_per_step", "idle_share_est", "device_busy_ms",
+            "device_kernels_per_step", "p50_ms", "p99_ms",
+            "second_burst_p50_ms", "busy_share_est", "launches")}
+            for path, r in dense.items()}
+        summary["optimizers"] = {k: opt[k] for k in ("max_loss_err",
+                                                     "max_state_err")}
+        summary["card"] = card
+        print("dense_zoo: " + json.dumps(summary))
         for path, (counts, expected) in paths:
             for kname, n in expected.items():
                 check(counts[kname] == n, "%s: %s launched %d times, "
@@ -3839,7 +4371,7 @@ def main(argv=None):
     print(card)
     if args.only == "all":
         print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": name,
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
     return 0
 

@@ -160,6 +160,13 @@ class Env(object):
     def write(self, name, value):
         self.values[name] = value
 
+    def fork(self):
+        """A child Env for a sub-block: the same Scope read-through, a
+        copy of the values written so far (its writes stay its own)."""
+        child = Env(self._scope, self._persistable, self._device)
+        child.values = dict(self.values)
+        return child
+
     def accumulate(self, name, value):
         """values[name] += value, into a new tensor: a kept graph may still
         read the old one."""
@@ -224,10 +231,18 @@ def _lower_op_inner(ctx, op, env):
         _lower_grad_of(ctx, op, env)
         return
     od = registry.get(op.type)
+    stop = ctx.grad_stop.get(op.uid)
+    if od.special:
+        if stop is not None:
+            raise NotImplementedError(
+                "op %r has a special rule, which keeps no graph: it cannot "
+                "be differentiated" % op.type)
+        ctx.begin_op(op.uid, op.outputs)
+        od.lower(ctx, op, env)
+        return
     ins = {slot: [env.read(n) for n in names]
            for slot, names in op.inputs.items()}
     ctx.begin_op(op.uid, op.outputs)
-    stop = ctx.grad_stop.get(op.uid)
     if stop is None:
         if ctx.amp:
             ins = _apply_amp(op.type, ins)

@@ -34,20 +34,29 @@ def dtype_name(dtype):
 
 
 class OpDef(object):
-    def __init__(self, type, lower, infer=None, uses_rng=False):
+    """An op's rule. A `special` rule is called as lower(ctx, op, env)
+    and writes its outputs into the Env itself (a control-flow op whose
+    sub-block reads the enclosing block's vars by name: the JAX package's
+    register_special); every other rule maps input tensors to output
+    tensors."""
+
+    def __init__(self, type, lower, infer=None, uses_rng=False,
+                 special=False):
         self.type = type
         self.lower = lower
         self.infer = infer
         self.uses_rng = uses_rng
+        self.special = special
 
 
 _OPS = {}
 
 
-def register(type, lower=None, infer=None, uses_rng=False):
+def register(type, lower=None, infer=None, uses_rng=False, special=False):
     """Register an op. Usable as decorator: @register('relu')."""
     def deco(fn):
-        _OPS[type] = OpDef(type, fn, infer=infer, uses_rng=uses_rng)
+        _OPS[type] = OpDef(type, fn, infer=infer, uses_rng=uses_rng,
+                           special=special)
         return fn
     if lower is not None:
         return deco(lower)
@@ -117,7 +126,7 @@ def abstract_eval(block, op):
     if not is_registered(op.type):
         return None
     od = get(op.type)
-    if od.infer is not None:
+    if od.infer is not None or od.special:
         return None
     try:
         ins, ins_b = {}, {}

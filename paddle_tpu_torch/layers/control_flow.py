@@ -1,19 +1,24 @@
-"""Control-flow layers: StaticRNN and DynamicRNN.
+"""Control-flow layers: StaticRNN, DynamicRNN, the compare layers and the
+scalar conditional blocks (ConditionalBlock, Switch).
 
 Parity: python/paddle/fluid/layers/control_flow.py and the JAX package's
 layers/control_flow.py — the same graph-building API (a step sub-block
 under a BlockGuard, step inputs, memories, outputs) emitting the same ONE
 `rnn_scan` op in the parent block, so both packages build the same Program.
-The op runs its step block once per time step (ops/control_ops.py).
+The op runs its step block once per time step (ops/control_ops.py). A
+Switch case is a conditional_block op over a sub-block, run on the device
+with no host sync (ops/control_ops.py).
 
-While, Switch, IfElse, conditional blocks, tensor arrays, rank tables and
-beam search are not ported yet: they come with the beam-search decode path.
+While, IfElse (ROADMAP A6), tensor arrays, rank tables and beam search are
+not ported yet: they come with the beam-search decode path.
 """
 from ..core import unique_name
 from ..core.framework import Variable
 from ..core.layer_helper import LayerHelper
 
-__all__ = ["StaticRNN", "DynamicRNN", "BlockGuard"]
+__all__ = ["StaticRNN", "DynamicRNN", "BlockGuard", "ConditionalBlock",
+           "ConditionalBlockGuard", "Switch", "less_than", "less_equal",
+           "greater_than", "greater_equal", "equal", "not_equal"]
 
 
 class BlockGuard(object):
@@ -269,3 +274,117 @@ class DynamicRNN(_RNNBase):
             raise ValueError(
                 "DynamicRNN.step_input needs a sequence (lod_level>0) input")
         return super(DynamicRNN, self).step_input(x, level)
+
+
+# ------------------------------------------------------------ compare --
+
+def _compare(op_type):
+    def fn(x, y, cond=None, **ignored):
+        helper = LayerHelper(op_type, x=x, y=y)
+        if cond is None:
+            cond = helper.create_variable_for_type_inference("bool")
+            cond.stop_gradient = True
+        helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [cond]})
+        return cond
+    fn.__name__ = op_type
+    return fn
+
+
+less_than = _compare("less_than")
+less_equal = _compare("less_equal")
+greater_than = _compare("greater_than")
+greater_equal = _compare("greater_equal")
+equal = _compare("equal")
+not_equal = _compare("not_equal")
+
+
+# ------------------------------------------------------------- Switch --
+
+class ConditionalBlock(object):
+    """Scalar-condition conditional block (the building block of Switch).
+
+    Parity: control_flow.py ConditionalBlock / conditional_block_op.cc.
+    The op lists the out vars' previous values as OutPrev inputs too, so
+    a persistable one reads its value from the Scope. Only the scalar
+    form runs in this port; the IfElse form (is_scalar_condition=False)
+    builds and raises when run (ROADMAP A6)."""
+
+    def __init__(self, inputs, is_scalar_condition=True, name=None):
+        self.inputs = inputs
+        self.is_scalar_condition = is_scalar_condition
+        self.helper = LayerHelper("conditional_block", name=name)
+
+    def block(self):
+        return ConditionalBlockGuard(self)
+
+    def complete(self):
+        program = self.helper.main_program
+        inside_block = program.current_block()
+        parent_block = program.blocks[inside_block.parent_idx]
+        out_names = [n for n in sorted(_written_names(inside_block))
+                     if not inside_block.has_var(n)
+                     and parent_block.has_var_recursive(n)]
+        parent_block.append_op(
+            type="conditional_block",
+            inputs={"Cond": [v.name for v in self.inputs],
+                    "OutPrev": out_names},
+            outputs={"Out": out_names},
+            attrs={"sub_block": inside_block.idx,
+                   "out_names": out_names,
+                   "is_scalar_condition": self.is_scalar_condition},
+            infer_shape=False)
+
+
+class ConditionalBlockGuard(BlockGuard):
+    def __init__(self, cond_block):
+        super(ConditionalBlockGuard, self).__init__(
+            cond_block.helper.main_program)
+        self.cond_block = cond_block
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if exc_type is None:
+            self.cond_block.complete()
+        return super(ConditionalBlockGuard, self).__exit__(
+            exc_type, exc_val, exc_tb)
+
+
+class Switch(object):
+    """switch { case(cond): ... default: ... }: the first matching case
+    wins.
+
+    Parity: control_flow.py `Switch` (the LR schedules use it). Each case
+    is a conditional_block guarded by cond_i AND NOT(any earlier cond)."""
+
+    def __init__(self, name=None):
+        self.helper = LayerHelper("switch", name=name)
+        self.inside_scope = False
+        self.pre_not_taken = None  # Variable: no earlier case matched
+
+    def case(self, condition):
+        if not self.inside_scope:
+            raise ValueError("case should be called inside with")
+        from . import ops
+        if self.pre_not_taken is None:
+            eff = condition
+            self.pre_not_taken = ops.logical_not(x=condition)
+        else:
+            eff = ops.logical_and(x=self.pre_not_taken, y=condition)
+            self.pre_not_taken = ops.logical_and(
+                x=self.pre_not_taken, y=ops.logical_not(x=condition))
+        return ConditionalBlock([eff], is_scalar_condition=True).block()
+
+    def default(self):
+        if self.pre_not_taken is None:
+            raise ValueError("there should be at least one case before "
+                             "default")
+        return ConditionalBlock([self.pre_not_taken],
+                                is_scalar_condition=True).block()
+
+    def __enter__(self):
+        self.inside_scope = True
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        self.inside_scope = False
+        return False

@@ -1,11 +1,13 @@
 """Python operator overloading on Variable: + - * / ** (and the reversed
-forms) and unary -.
+forms), unary - and the comparisons < <= > >=.
 
 Parity: python/paddle/fluid/layers/math_op_patch.py and the JAX package's
 layers/math_op_patch.py (monkey_patch_variable), which build the same ops:
 `x op y` appends elementwise_<op> (axis -1); a scalar operand of + - * on
 the right becomes a `scale` op, any other scalar operand a fill_constant
-[1] var. The comparison operators wait for the compare ops (ROADMAP A3).
+[1] var; a comparison appends the compare op (less_than, ...), its
+scalar operand a fill_constant [1] var. == and != stay Python's identity
+comparisons, as in the JAX package (Variables are dict keys).
 """
 from ..core.framework import Variable
 from ..core.layer_helper import LayerHelper
@@ -58,3 +60,19 @@ def monkey_patch_variable():
     Variable.__pow__ = _elementwise_method("elementwise_pow")
     Variable.__rpow__ = _elementwise_method("elementwise_pow", reverse=True)
     Variable.__neg__ = lambda self: self * (-1.0)
+    Variable.__lt__ = _compare_method("less_than")
+    Variable.__le__ = _compare_method("less_equal")
+    Variable.__gt__ = _compare_method("greater_than")
+    Variable.__ge__ = _compare_method("greater_equal")
+
+
+def _compare_method(op_type):
+    def method(self, other):
+        helper = LayerHelper(op_type)
+        if isinstance(other, (int, float)):
+            other = _create_scalar_op(other, self.dtype)
+        out = helper.create_variable_for_type_inference("bool")
+        helper.append_op(type=op_type, inputs={"X": [self], "Y": [other]},
+                         outputs={"Out": [out]})
+        return out
+    return method

@@ -1,7 +1,5 @@
-"""NN layers that build graph ops (the subset models/transformer.py,
-models/understand_sentiment.py, models/machine_translation.py,
-models/recognize_digits.py, models/image_classification.py and the noam
-schedule call).
+"""NN layers that build graph ops (the subset the port's models and the LR
+schedules call).
 
 Parity: python/paddle/fluid/layers/nn.py and the JAX package's layers/nn.py
 — same function names, argument names and op emission, so both packages
@@ -19,7 +17,8 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "layer_norm", "fused_attention",
            "softmax_with_cross_entropy", "softmax", "cross_entropy",
            "accuracy", "one_hot", "reduce_sum", "autoincreased_step_counter",
-           "matmul", "sequence_mask"]
+           "matmul", "sequence_mask", "cos_sim", "square_error_cost",
+           "lrn", "transpose"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -370,4 +369,47 @@ def sequence_mask(x, maxlen=None, dtype="int64", name=None):
     if x.shape is not None:
         out.shape = (x.shape[0], m)
     out.stop_gradient = True
+    return out
+
+
+def square_error_cost(input, label):
+    """(input - label)^2, elementwise."""
+    helper = LayerHelper("square_error_cost", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="square_error_cost",
+        inputs={"X": [input], "Y": [label]},
+        outputs={"Out": [out]})
+    return out
+
+
+def cos_sim(X, Y):
+    """Row-wise cosine similarity [N, 1] (the op also outputs both
+    norms)."""
+    helper = LayerHelper("cos_sim", **locals())
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xnorm = helper.create_variable_for_type_inference(X.dtype)
+    ynorm = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op(type="cos_sim", inputs={"X": [X], "Y": [Y]},
+                     outputs={"Out": [out], "XNorm": [xnorm],
+                              "YNorm": [ynorm]})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """Local response normalization across the channels of NCHW."""
+    helper = LayerHelper("lrn", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    mid = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="lrn", inputs={"X": [input]},
+                     outputs={"Out": [out], "MidOut": [mid]},
+                     attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="transpose", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": list(perm)})
     return out

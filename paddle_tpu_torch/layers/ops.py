@@ -1,13 +1,17 @@
-"""Thin layer wrappers over registered ops (mean, reshape, scale, relu,
-tanh, mul, squeeze, unsqueeze and the elementwise family).
+"""Thin layer wrappers over registered ops: mean, mul, reshape, scale,
+squeeze, unsqueeze, sum, sigmoid_cross_entropy_with_logits, the 30
+activations and the elementwise and logical families.
 
 Parity: python/paddle/fluid/layers/ops.py + layer_function_generator.py
 and the JAX package's layers/ops.py: generated from a slot-spec table;
 both calling styles work, `scale(x)` and `scale(x=var, scale=2.0)`, and
-every keyword that is not an input slot becomes an op attr.
+every keyword that is not an input slot becomes an op attr. Of the JAX
+table, clip, clip_by_norm, cumsum, scatter, gather and the random layers
+are not here yet (ROADMAP A3, A11).
 """
 from ..core.framework import Variable
 from ..core.layer_helper import LayerHelper
+from ..ops.basic import ACTIVATIONS as __activations__
 
 _UNARY = [("X", "x", True)]
 _BINARY = [("X", "x", True), ("Y", "y", True)]
@@ -17,14 +21,21 @@ _SPECS = {
     "mul": (_BINARY, ["Out"]),
     "reshape": (_UNARY, ["Out"]),
     "scale": (_UNARY, ["Out"]),
-    "relu": (_UNARY, ["Out"]),
-    "tanh": (_UNARY, ["Out"]),
+    "sigmoid_cross_entropy_with_logits":
+        ([("X", "x", True), ("Label", "label", True)], ["Out"]),
+    "logical_not": (_UNARY, ["Out"]),
+    "sum": ([("X", "x", True)], ["Out"]),
     "squeeze": (_UNARY, ["Out"]),
     "unsqueeze": (_UNARY, ["Out"]),
 }
-for _e in ("elementwise_add", "elementwise_sub", "elementwise_mul",
-           "elementwise_div", "elementwise_min", "elementwise_pow"):
+for _a in __activations__:
+    _SPECS[_a] = (_UNARY, ["Out"])
+for _e in ("elementwise_add", "elementwise_div", "elementwise_sub",
+           "elementwise_mul", "elementwise_max", "elementwise_min",
+           "elementwise_pow"):
     _SPECS[_e] = (_BINARY, ["Out"])
+for _l in ("logical_and", "logical_or", "logical_xor"):
+    _SPECS[_l] = (_BINARY, ["Out"])
 
 __all__ = list(_SPECS)
 

@@ -1,3 +1,5 @@
 """Model builders of the port: the transformer (scoring and training),
 the IMDB sentiment classifiers, the attention translator (training), the
-recognize_digits nets and the ResNets of image_classification."""
+recognize_digits nets, the ResNets of image_classification, the dense zoo
+models (word2vec, ctr, recommender_system, language_model) and the zoo
+registry over them."""

@@ -87,13 +87,8 @@ def resnet_cifar10(input, class_dim=10, depth=32, is_test=False):
     return fluid.layers.fc(input=pool, size=class_dim, act="softmax")
 
 
-_NOT_PORTED = {
-    "vgg16": "the dropout layer (ROADMAP A3)",
-    "alexnet": "the lrn and dropout layers (ROADMAP A2, A3)",
-    "googlenet": "the concat and dropout layers (ROADMAP A2, A3)",
-    "se_resnext": "the sigmoid activation and the dropout layer (ROADMAP "
-                  "A2, A3)",
-}
+_NOT_PORTED = dict.fromkeys(("vgg16", "alexnet", "googlenet", "se_resnext"),
+                            "the dropout layer (ROADMAP A3)")
 
 
 def build_train(model="resnet50", class_dim=1000, image_shape=(3, 224, 224),

@@ -1,11 +1,13 @@
-"""Elementwise / math / tensor op rules (the subset the Transformer's, the
-sentiment classifiers' and the attention translator's programs run).
+"""Elementwise / math / tensor op rules: the activations, the elementwise,
+compare and logical families, mul / matmul, concat, cos_sim and the
+shape, fill and random ops the ported programs run.
 
 Parity: paddle/fluid/operators/{activation_op,elementwise_*_op,mul_op,
-matmul_op,mean_op,sum_op,topk_op,scale_op,reshape_op,squeeze_op,
-unsqueeze_op,reduce_op,cast_op,one_hot_op,increment_op,sign_op,assign_op,
-fill_constant_op,fill_constant_batch_size_like_op,assign_value_op,
-uniform_random_op,gaussian_random_op}.cc
+matmul_op,mean_op,sum_op,concat_op,transpose_op,compare_op,logical_op,cos_sim_op,
+topk_op,scale_op,reshape_op,squeeze_op,unsqueeze_op,reduce_op,cast_op,
+one_hot_op,increment_op,sign_op,assign_op,fill_constant_op,
+fill_constant_batch_size_like_op,assign_value_op,uniform_random_op,
+gaussian_random_op}.cc
 and the JAX package's ops/basic.py, whose rules these mirror over torch
 tensors. `mul` stays a plain torch.matmul: the JAX package left the matrix
 product to XLA, outside any Pallas kernel. Gradients come from autograd
@@ -21,14 +23,74 @@ def _out(x):
     return {"Out": [x]}
 
 
-@register("relu")
-def _relu(ctx, ins, attrs):
-    return _out(torch.relu(single(ins, "X")))
+# ---------------------------------------------------- activations --
+# The JAX package's _act table (its ops/basic.py), each with its attrs and
+# their defaults. Where it uses a jnp.where or a clip, so does this table,
+# so the gradients agree too (torch.maximum and torch.minimum split a tie's
+# gradient as jnp.maximum and jnp.minimum do; torch.clamp would not).
+
+def _clip(x, lo, hi):
+    return torch.minimum(torch.maximum(x, torch.full_like(x, lo)),
+                         torch.full_like(x, hi))
 
 
-@register("tanh")
-def _tanh(ctx, ins, attrs):
-    return _out(torch.tanh(single(ins, "X")))
+def _softplus(x):
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _act(name, fn):
+    register(name)(lambda ctx, ins, attrs, fn=fn:
+                   _out(fn(single(ins, "X"), attrs)))
+
+
+_act("sigmoid", lambda x, a: torch.sigmoid(x))
+_act("logsigmoid", lambda x, a: -_softplus(-x))
+_act("exp", lambda x, a: torch.exp(x))
+_act("relu", lambda x, a: torch.relu(x))
+_act("tanh", lambda x, a: torch.tanh(x))
+_act("tanh_shrink", lambda x, a: x - torch.tanh(x))
+_act("softshrink", lambda x, a: torch.where(
+    x > a.get("lambda", 0.5), x - a.get("lambda", 0.5),
+    torch.where(x < -a.get("lambda", 0.5), x + a.get("lambda", 0.5),
+                torch.zeros_like(x))))
+_act("sqrt", lambda x, a: torch.sqrt(x))
+_act("abs", lambda x, a: torch.abs(x))
+_act("ceil", lambda x, a: torch.ceil(x))
+_act("floor", lambda x, a: torch.floor(x))
+_act("cos", lambda x, a: torch.cos(x))
+_act("sin", lambda x, a: torch.sin(x))
+_act("round", lambda x, a: torch.round(x))
+_act("reciprocal", lambda x, a: 1.0 / x)
+_act("log", lambda x, a: torch.log(x))
+_act("square", lambda x, a: torch.square(x))
+_act("softplus", lambda x, a: _softplus(x))
+_act("softsign", lambda x, a: x / (1 + torch.abs(x)))
+_act("brelu", lambda x, a: _clip(x, a.get("t_min", 0.0),
+                                 a.get("t_max", 24.0)))
+_act("leaky_relu", lambda x, a: torch.where(
+    x >= 0, x, a.get("alpha", 0.02) * x))
+_act("soft_relu", lambda x, a: torch.log1p(torch.exp(_clip(
+    x, -a.get("threshold", 40.0), a.get("threshold", 40.0)))))
+_act("elu", lambda x, a: torch.where(
+    x > 0, x, a.get("alpha", 1.0) * torch.expm1(x)))
+_act("relu6", lambda x, a: _clip(x, 0.0, a.get("threshold", 6.0)))
+_act("pow", lambda x, a: torch.pow(x, a.get("factor", 1.0)))
+_act("stanh", lambda x, a: a.get("scale_b", 1.7159) * torch.tanh(
+    a.get("scale_a", 2.0 / 3.0) * x))
+_act("hard_shrink", lambda x, a: torch.where(
+    torch.abs(x) > a.get("threshold", 0.5), x, torch.zeros_like(x)))
+_act("thresholded_relu", lambda x, a: torch.where(
+    x > a.get("threshold", 1.0), x, torch.zeros_like(x)))
+_act("hard_sigmoid", lambda x, a: _clip(
+    a.get("slope", 0.2) * x + a.get("offset", 0.5), 0.0, 1.0))
+_act("swish", lambda x, a: x * torch.sigmoid(a.get("beta", 1.0) * x))
+
+ACTIVATIONS = (
+    "sigmoid", "logsigmoid", "exp", "relu", "tanh", "tanh_shrink",
+    "softshrink", "sqrt", "abs", "ceil", "floor", "cos", "sin", "round",
+    "reciprocal", "log", "square", "softplus", "softsign", "brelu",
+    "leaky_relu", "soft_relu", "elu", "relu6", "pow", "stanh", "hard_shrink",
+    "thresholded_relu", "hard_sigmoid", "swish")
 
 
 def _bcast_y(x, y, axis):
@@ -54,8 +116,50 @@ _elementwise("elementwise_add", torch.add)
 _elementwise("elementwise_sub", torch.sub)
 _elementwise("elementwise_mul", torch.mul)
 _elementwise("elementwise_div", torch.div)
+_elementwise("elementwise_max", torch.maximum)
 _elementwise("elementwise_min", torch.minimum)
 _elementwise("elementwise_pow", torch.pow)
+
+
+# ------------------------------------------------ compare / logical --
+# Boolean outputs, numpy broadcasting (compare_op.cc, logical_op.cc).
+
+def _compare(name, fn):
+    register(name)(lambda ctx, ins, attrs, fn=fn:
+                   _out(fn(single(ins, "X"), single(ins, "Y"))))
+
+
+_compare("less_than", torch.lt)
+_compare("less_equal", torch.le)
+_compare("greater_than", torch.gt)
+_compare("greater_equal", torch.ge)
+_compare("equal", torch.eq)
+_compare("not_equal", torch.ne)
+_compare("logical_and", torch.logical_and)
+_compare("logical_or", torch.logical_or)
+_compare("logical_xor", torch.logical_xor)
+
+
+@register("logical_not")
+def _logical_not(ctx, ins, attrs):
+    return _out(torch.logical_not(single(ins, "X")))
+
+
+@register("concat")
+def _concat(ctx, ins, attrs):
+    return _out(torch.cat(ins["X"], dim=attrs.get("axis", 0)))
+
+
+@register("cos_sim")
+def _cos_sim(ctx, ins, attrs):
+    """Row-wise cosine over the last axis, the denominator floored at
+    1e-12; also the two norms (cos_sim_op.h)."""
+    x, y = single(ins, "X"), single(ins, "Y")
+    xn = torch.sqrt(torch.square(x).sum(dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.square(y).sum(dim=-1, keepdim=True))
+    out = (x * y).sum(dim=-1, keepdim=True) / torch.clamp_min(xn * yn,
+                                                              1e-12)
+    return {"Out": [out], "XNorm": [xn], "YNorm": [yn]}
 
 
 @register("sign")
@@ -88,6 +192,11 @@ def _matmul(ctx, ins, attrs):
     if alpha != 1.0:
         out = out * alpha
     return _out(out)
+
+
+@register("transpose")
+def _transpose(ctx, ins, attrs):
+    return _out(single(ins, "X").permute(*attrs["axis"]))
 
 
 @register("squeeze")

@@ -1,5 +1,6 @@
 """Control-flow op rules: rnn_scan (the lowering target of StaticRNN and
-DynamicRNN).
+DynamicRNN) and conditional_block in its scalar form (the lowering target
+of Switch).
 
 Parity: the recurrent_op / DynamicRNN machinery of the reference and the
 JAX package's ops/control_ops.py, whose rnn_scan is one masked lax.scan
@@ -12,11 +13,16 @@ its rule runs under autograd (core/lowering.py), so the kept graph spans
 all T steps and reaches every Static input (the step block's parameters
 and closed-over tensors): the step block's ops keep no graphs of their
 own.
+
+conditional_block runs its block on every run and selects each output
+against its previous value with torch.where on the scalar condition, as
+the JAX rule does: the condition never leaves the device, so the step has
+no host sync and stays capturable by a CUDA graph.
 """
 import torch
 
 from ..core import registry
-from ..core.lowering import Env, lower_sub_block
+from ..core.lowering import Env, EnvReadError, lower_sub_block
 from ..core.registry import single
 
 
@@ -99,3 +105,52 @@ def _rnn_scan_infer(block, op, out_vars):
 
 
 registry.register("rnn_scan", _rnn_scan, infer=_rnn_scan_infer)
+
+
+def _conditional_block(ctx, op, env):
+    """Scalar form (is_scalar_condition=True): the block runs
+    unconditionally in a copy of the enclosing Env, and each out var
+    becomes where(cond, block's value, previous value), the previous value
+    zeros when nothing wrote it before. A Switch's cases carry exclusive
+    conditions (case i: cond_i and no earlier cond), so the last where
+    reproduces first-match-wins. A special rule (it reads the Env: the
+    block closes over the enclosing block's vars by name, and an out var
+    may have no previous value)."""
+    attrs = op.attrs
+    if not attrs.get("is_scalar_condition", True):
+        raise NotImplementedError(
+            "conditional_block with is_scalar_condition=False (the IfElse "
+            "form, split_lod_tensor / merge_lod_tensor) is not ported yet "
+            "(ROADMAP A6)")
+    sub = ctx.program.blocks[attrs["sub_block"]]
+    cond = env.read(op.inputs["Cond"][0]).reshape(()).to(torch.bool)
+    benv = env.fork()
+    lower_sub_block(ctx, sub, benv)
+    for name in attrs["out_names"]:
+        new = benv.read(name)
+        try:
+            prev = env.read(name).to(new.dtype).broadcast_to(new.shape)
+        except EnvReadError:
+            prev = torch.zeros_like(new)
+        env.write(name, torch.where(cond, new, prev))
+
+
+def _conditional_block_infer(block, op, out_vars):
+    """Build-time shapes: each out var is a var of the enclosing block
+    that the sub-block's ops assign; it keeps the shape and dtype its
+    producer gave it, or else takes those of the sub-block's writer's
+    first input (an assign copies its X)."""
+    sub = block.program.blocks[op.attrs["sub_block"]]
+    for var in out_vars.get("Out", ()):
+        if var.shape is not None:
+            continue
+        for sop in sub.ops:
+            if var.name in sop.all_output_vars():
+                src = sub.var_recursive(sop.all_input_vars()[0]) \
+                    if sop.all_input_vars() else None
+                if src is not None and src.shape is not None:
+                    var.shape, var.dtype = src.shape, src.dtype
+
+
+registry.register("conditional_block", _conditional_block,
+                  infer=_conditional_block_infer, special=True)

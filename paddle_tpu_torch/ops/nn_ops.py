@@ -1,11 +1,14 @@
 """NN op rules (the subset the Transformer's, the sentiment classifiers'
 and the conv nets' programs run): layer_norm, fused_attention,
 lookup_table, softmax_with_cross_entropy, softmax, cross_entropy,
-accuracy, conv2d, depthwise_conv2d, pool2d, batch_norm.
+sigmoid_cross_entropy_with_logits, square_error_cost, accuracy, conv2d,
+depthwise_conv2d, pool2d, batch_norm, lrn.
 
 Parity: paddle/fluid/operators/{layer_norm_op,lookup_table_op,
-softmax_with_cross_entropy_op,softmax_op,cross_entropy_op,accuracy_op,
-conv_op,pool_op,batch_norm_op}.cc and the JAX package's ops/nn_ops.py.
+softmax_with_cross_entropy_op,softmax_op,cross_entropy_op,
+sigmoid_cross_entropy_with_logits_op,squared_l2_distance_op,accuracy_op,
+conv_op,pool_op,batch_norm_op,lrn_op}.cc and the JAX package's
+ops/nn_ops.py.
 layer_norm with scale and bias, the flash branch of fused_attention and
 the hard-label 2-D softmax_with_cross_entropy call the hand-written CUDA
 kernels through their wrappers (ops/cuda_kernels.py), which dispatch by
@@ -224,6 +227,21 @@ def _softmax_xent(ctx, ins, attrs):
     return outs
 
 
+@register("sigmoid_cross_entropy_with_logits")
+def _sigmoid_xent(ctx, ins, attrs):
+    """Elementwise max(x, 0) - x z + log1p(exp(-|x|)): stable for logits
+    of any size."""
+    x = single(ins, "X")
+    label = single(ins, "Label")
+    return _out(torch.maximum(x, torch.zeros_like(x)) - x * label
+                + torch.log1p(torch.exp(-torch.abs(x))))
+
+
+@register("square_error_cost")
+def _square_error(ctx, ins, attrs):
+    return _out(torch.square(single(ins, "X") - single(ins, "Y")))
+
+
 # ------------------------------------------------------- conv net family --
 # Plain torch calls (cuDNN on the card): the JAX package leaves conv, pool
 # and batch_norm to XLA, outside any Pallas kernel. Layouts are fluid's
@@ -344,3 +362,21 @@ def _batch_norm(ctx, ins, attrs):
     return {"Y": [y.to(x.dtype)], "MeanOut": [mean_out],
             "VarianceOut": [var_out], "SavedMean": [saved_mean],
             "SavedVariance": [saved_var]}
+
+
+@register("lrn")
+def _lrn(ctx, ins, attrs):
+    """Local response normalization across channels of an NCHW input:
+    mid = k + alpha * (sum of x^2 over the n channels centred on c),
+    out = x / mid^beta (lrn_op.h). MidOut is mid."""
+    x = single(ins, "X")
+    n = attrs.get("n", 5)
+    k = attrs.get("k", 2.0)
+    alpha = attrs.get("alpha", 1e-4)
+    beta = attrs.get("beta", 0.75)
+    half = n // 2
+    sq = torch.nn.functional.pad(torch.square(x),
+                                 (0, 0, 0, 0, half, half))
+    acc = sum(sq[:, i:i + x.shape[1]] for i in range(n))
+    mid = k + alpha * acc
+    return {"Out": [x / torch.pow(mid, beta)], "MidOut": [mid]}

@@ -5,11 +5,13 @@ optimizer.py — same classes, same accumulator names, same minimize()
 contract (append_backward -> clip -> regularization -> per-param update
 ops), so both packages build the same training Program. The update ops
 run as plain torch (ops/optimizer_ops.py); their ParamOut writes reach the
-Scope through the executor's write-back of persistables. SGD, Momentum,
-Adam and Adagrad are ported; the other optimizers are later work (ROADMAP
-A2).
+Scope through the executor's write-back of persistables. ModelAverage
+keeps running sums of the parameters in the program and swaps their
+average into a Scope on apply().
 """
 from collections import defaultdict
+
+import torch
 
 from .core.framework import (Variable, default_main_program,
                              default_startup_program, program_guard)
@@ -19,8 +21,14 @@ from .core.backward import append_backward
 from .core import unique_name
 from . import regularizer as regularizer_mod
 
-__all__ = ["SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer", "Adam",
-           "AdamOptimizer", "Adagrad", "AdagradOptimizer", "Optimizer"]
+__all__ = [
+    "SGD", "Momentum", "Adagrad", "Adam", "Adamax", "DecayedAdagrad",
+    "Adadelta", "RMSProp", "Ftrl", "SGDOptimizer", "MomentumOptimizer",
+    "AdagradOptimizer", "AdamOptimizer", "AdamaxOptimizer",
+    "DecayedAdagradOptimizer", "AdadeltaOptimizer", "RMSPropOptimizer",
+    "FtrlOptimizer", "ModelAverage", "Optimizer",
+    "ProximalGD", "ProximalAdagrad", "ProximalGDOptimizer",
+    "ProximalAdagradOptimizer"]
 
 
 class Optimizer(object):
@@ -271,7 +279,307 @@ class AdamOptimizer(Optimizer):
             infer_shape=False)
 
 
+class AdamaxOptimizer(AdamOptimizer):
+    """Adam with the infinity norm (adamax_op.h); its one beta power is
+    scaled by beta1 after every step."""
+    _moment_acc_str = "moment"
+    _inf_norm_acc_str = "inf_norm"
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+            self._add_accumulator(self._inf_norm_acc_str, p)
+        self._beta1_pow_acc = self._add_global_accumulator(
+            "beta1_pow_acc", self._beta1)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str,
+                                       param_and_grad[0])
+        inf_norm = self._get_accumulator(self._inf_norm_acc_str,
+                                         param_and_grad[0])
+        return block.append_op(
+            type="adamax",
+            inputs={"Param": [param_and_grad[0]],
+                    "Grad": [param_and_grad[1]],
+                    "LearningRate": [self._create_param_lr(param_and_grad)],
+                    "Moment": [moment], "InfNorm": [inf_norm],
+                    "Beta1Pow": [self._beta1_pow_acc]},
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "MomentOut": [moment], "InfNormOut": [inf_norm]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon},
+            infer_shape=False)
+
+    def _finish_update(self, block):
+        block.append_op(
+            type="scale",
+            inputs={"X": [self._beta1_pow_acc]},
+            outputs={"Out": [self._beta1_pow_acc]},
+            attrs={"scale": self._beta1},
+            infer_shape=False)
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kwargs):
+        super(DecayedAdagradOptimizer, self).__init__(learning_rate,
+                                                      **kwargs)
+        self._decay = decay
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str,
+                                       param_and_grad[0])
+        return block.append_op(
+            type="decayed_adagrad",
+            inputs={"Param": [param_and_grad[0]],
+                    "Grad": [param_and_grad[1]],
+                    "Moment": [moment],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]], "MomentOut": [moment]},
+            attrs={"decay": self._decay, "epsilon": self._epsilon},
+            infer_shape=False)
+
+
+class AdadeltaOptimizer(Optimizer):
+    """Its update op reads no learning rate (adadelta_op.h): the
+    learning-rate var is created all the same, as in the JAX package."""
+    _avg_squared_grad_acc_str = "_avg_squared_grad"
+    _avg_squared_update_acc_str = "_avg_squared_update"
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kwargs):
+        super(AdadeltaOptimizer, self).__init__(learning_rate, **kwargs)
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._avg_squared_grad_acc_str, p)
+            self._add_accumulator(self._avg_squared_update_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        g = self._get_accumulator(self._avg_squared_grad_acc_str,
+                                  param_and_grad[0])
+        u = self._get_accumulator(self._avg_squared_update_acc_str,
+                                  param_and_grad[0])
+        return block.append_op(
+            type="adadelta",
+            inputs={"Param": [param_and_grad[0]],
+                    "Grad": [param_and_grad[1]],
+                    "AvgSquaredGrad": [g], "AvgSquaredUpdate": [u]},
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "AvgSquaredGradOut": [g], "AvgSquaredUpdateOut": [u]},
+            attrs={"epsilon": self._epsilon, "rho": self._rho},
+            infer_shape=False)
+
+
+class RMSPropOptimizer(Optimizer):
+    _momentum_acc_str = "momentum"
+    _mean_square_acc_str = "mean_square"
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 **kwargs):
+        super(RMSPropOptimizer, self).__init__(learning_rate, **kwargs)
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._momentum_acc_str, p)
+            self._add_accumulator(self._mean_square_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        momentum_acc = self._get_accumulator(self._momentum_acc_str,
+                                             param_and_grad[0])
+        mean_square_acc = self._get_accumulator(self._mean_square_acc_str,
+                                                param_and_grad[0])
+        return block.append_op(
+            type="rmsprop",
+            inputs={"Param": [param_and_grad[0]],
+                    "Grad": [param_and_grad[1]],
+                    "Moment": [momentum_acc],
+                    "MeanSquare": [mean_square_acc],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "MomentOut": [momentum_acc],
+                     "MeanSquareOut": [mean_square_acc]},
+            attrs={"epsilon": self._epsilon, "decay": self._rho,
+                   "momentum": self._momentum},
+            infer_shape=False)
+
+
+class FtrlOptimizer(Optimizer):
+    _squared_acc_str = "squared"
+    _linear_acc_str = "linear"
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 **kwargs):
+        super(FtrlOptimizer, self).__init__(learning_rate, **kwargs)
+        self._l1 = l1
+        self._l2 = l2
+        self._lr_power = lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._squared_acc_str, p)
+            self._add_accumulator(self._linear_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        sq = self._get_accumulator(self._squared_acc_str, param_and_grad[0])
+        lin = self._get_accumulator(self._linear_acc_str, param_and_grad[0])
+        return block.append_op(
+            type="ftrl",
+            inputs={"Param": [param_and_grad[0]],
+                    "Grad": [param_and_grad[1]],
+                    "SquaredAccumulator": [sq],
+                    "LinearAccumulator": [lin],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "SquaredAccumOut": [sq], "LinearAccumOut": [lin]},
+            attrs={"l1": self._l1, "l2": self._l2,
+                   "lr_power": self._lr_power},
+            infer_shape=False)
+
+
+class ProximalGDOptimizer(Optimizer):
+    """proximal_gd_op.cc (FOBOS): prox = param - lr * grad; param =
+    sign(prox) / (1 + lr*l2) * max(|prox| - lr*l1, 0)."""
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, **kwargs):
+        super(ProximalGDOptimizer, self).__init__(learning_rate, **kwargs)
+        self._l1 = l1
+        self._l2 = l2
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return block.append_op(
+            type="proximal_gd",
+            inputs={"Param": [param_and_grad[0]],
+                    "Grad": [param_and_grad[1]],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]]},
+            attrs={"l1": self._l1, "l2": self._l2},
+            infer_shape=False)
+
+
+class ProximalAdagradOptimizer(Optimizer):
+    """proximal_adagrad_op.cc: the proximal step on an adagrad-scaled
+    gradient."""
+
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, **kwargs):
+        super(ProximalAdagradOptimizer, self).__init__(learning_rate,
+                                                       **kwargs)
+        self._l1 = l1
+        self._l2 = l2
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str,
+                                       param_and_grad[0])
+        return block.append_op(
+            type="proximal_adagrad",
+            inputs={"Param": [param_and_grad[0]],
+                    "Grad": [param_and_grad[1]],
+                    "Moment": [moment],
+                    "LearningRate": [self._create_param_lr(param_and_grad)]},
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "MomentOut": [moment]},
+            attrs={"l1": self._l1, "l2": self._l2},
+            infer_shape=False)
+
+
+class ModelAverage(Optimizer):
+    """fluid.optimizer.ModelAverage (average_accumulates_op): built after
+    the optimizer's minimize, it appends to the main program, for every
+    parameter not marked do_model_average=False, a persistable sum that
+    each run adds the updated parameter to, and one run counter.
+    `apply(executor)` is a context manager that swaps each parameter for
+    sum / max(counter, 1) in the scope and, with need_restore, swaps the
+    parameters back on exit; `restore(executor)` swaps them back after an
+    apply(need_restore=False). The sums, the counter and the averages stay
+    tensors on the scope's device."""
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, **kwargs):
+        super(ModelAverage, self).__init__(0.0, **kwargs)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        self.params_grads = []
+        self._sums = {}
+        self._backup = {}
+        program = default_main_program()
+        for param in program.global_block().all_parameters():
+            if param.do_model_average is False:
+                continue
+            s = self._add_accumulator("sum_1", param)
+            self._sums[param.name] = s
+            program.current_block().append_op(
+                type="elementwise_add",
+                inputs={"X": [s], "Y": [param]},
+                outputs={"Out": [s]},
+                attrs={"axis": -1},
+                infer_shape=False)
+        self._counter = self._add_counter()
+
+    def _add_counter(self):
+        helper = LayerHelper("ma_counter")
+        var = helper.create_or_get_global_variable(
+            name=unique_name.generate("ma_counter"), persistable=True,
+            dtype="float32", shape=[1])
+        helper.set_variable_initializer(var, ConstantInitializer(0.0))
+        var.block.program._accumulator_owner.setdefault(var.name, "")
+        default_main_program().current_block().append_op(
+            type="increment", inputs={"X": [var]}, outputs={"Out": [var]},
+            attrs={"step": 1.0}, infer_shape=False)
+        return var
+
+    def apply(self, executor, need_restore=True, scope=None):
+        """Context manager: the averaged parameters in `scope` (default
+        the global scope) inside the with block."""
+        import contextlib
+        from .core.executor import global_scope
+        scope = scope if scope is not None else global_scope()
+
+        @contextlib.contextmanager
+        def _ctx():
+            counter = torch.clamp_min(scope.get(self._counter.name), 1.0)
+            for pname, svar in self._sums.items():
+                self._backup[pname] = scope.get(pname)
+                s = scope.get(svar.name)
+                scope.set(pname, (s / counter.to(s.device)).to(s.dtype))
+            self._scope = scope
+            yield
+            if need_restore:
+                self.restore(executor)
+        return _ctx()
+
+    def restore(self, executor):
+        """Put back the parameters the last apply() replaced."""
+        for pname, val in self._backup.items():
+            self._scope.set(pname, val)
+        self._backup = {}
+
+
+# short aliases (fluid exposes both)
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
-Adam = AdamOptimizer
 Adagrad = AdagradOptimizer
+Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+ProximalGD = ProximalGDOptimizer
+ProximalAdagrad = ProximalAdagradOptimizer
