@@ -12,9 +12,10 @@ Transformer-base runs at its full depth (6+6 layers) and width, the
 IMDB sentiment classifiers at their book widths, the attention
 translator of book chapter 08 at the reference benchmark's widths, the
 DeepASR stacked-LSTMP acoustic model at its train.py widths, book
-chapter 02's LeNet and ResNet-50 at 224 x 224, the CTR model, the
-recommender, word2vec and the PTB language model at their defaults, with
-random weights from the fixed seed SEED.
+chapter 02's LeNet, ResNet-50, VGG-16, AlexNet, GoogLeNet and
+SE-ResNeXt-50 at 224 x 224, the CTR model, the recommender, word2vec and
+the PTB language model at their defaults, with random weights from the
+fixed seed SEED.
 
 Phases, each reported on lines of its own; any failure exits non-zero:
 
@@ -88,7 +89,18 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               and the K2/K3 of commit 0ba7d56 (fp32 CUDA cores) built
               from their sources (--flash-fwd-baseline,
               --flash-bwd-baseline, or git history) and timed in turns
-              with them. Then the flash-vs-dense crossover, measured and
+              with them. The same three in bf16 (mixed precision: bf16
+              q, k, v, g, out, dQ, dK, dV; lse and delta fp32) against
+              their plain versions in bf16 at the timing shapes, D 16,
+              32 and 128 at odd T and packed views (within 2^-7 of
+              max(1, max |plain|): two bf16 ulps, each side rounding an
+              fp32 sum once; lse within 1e-4), timed beside the fp32
+              kernels on the same values, the plain versions and
+              scaled_dot_product_attention on the bf16 inputs, with
+              bounds from bf16 bytes and the TF32 products the bf16
+              kernels issue (a bf16 operand is exact in TF32: 2 a
+              product in K1, 12 D for 8 D a pair in K2, 8 D for 6 D in
+              K3). Then the flash-vs-dense crossover, measured and
               not acted on: K1 against the dense attention_reference at
               q, k, v [8, T, 8, 64], T = 16-1024 (`crossover:` lines).
               Then fused_attention with a query length other than the
@@ -115,9 +127,11 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               the flash and layer-norm kernels launched exactly once per
               fused_attention / layer_norm op of every engine dispatch.
 5. training — the second path: build Transformer-base training
-              (transformer.build_train: the same widths, label smoothing
-              0.1, append_backward through Adam(0.9, 0.98, 1e-9) on noam
-              with 40 warm-up steps), run its startup program on the card
+              (transformer.build_train: the same widths, fused attention,
+              label smoothing 0.1, append_backward through Adam(0.9,
+              0.98, 1e-9) on noam with 40 warm-up steps; bench.py's
+              bench_transformer model in fp32: its own default is bf16,
+              phase 19), run its startup program on the card
               and take TRAIN_STEPS steps of batch 32 x T=256 on bench.py's
               copy task through Executor.run, fetching avg_cost. Reports
               step time, trained tokens/s, each loss, peak device memory
@@ -275,11 +289,60 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               sync in its Switch). A `dense_zoo:` line sums up phases
               15-18.
 
+19. transformer, bf16 — bench.py's bench_transformer configuration as
+              the JAX package benchmarks it (BENCH_DTYPE bf16, its
+              default): phase 5's program under
+              Program.enable_mixed_precision, trained the same way. Checks:
+              losses finite and falling; per step 18 / 18 / 18 launches of
+              the bf16 K1 / K2 / K3 (none of the fp32 ones), one K4 and
+              32 K5 (layer_norm sees f32: the residual adds promote the
+              bf16 projections); every parameter an f32 master. Then one
+              step at 1+1 layers, batch 2, T=64 on the card and on the
+              CPU, each gradient within 3 x the CPU's own bf16-vs-fp32
+              spread of it + 2e-2, the loss within 1e-2 relative.
+20. transformer, dropout — the JAX package's default dense attention
+              (the attn_bias feeds) with Transformer-base's dropout 0.1,
+              the unfused label smoothing (one_hot -> label_smooth ->
+              soft-label softmax_with_cross_entropy) and the fused qkv
+              projection, fp32, batch 32 x T=256: K5 32 a step, K1-K4
+              none (a soft label never takes K4); the loss falls; peak
+              memory reported. A `transformer_variants:` line sums up
+              phases 5, 19 and 20.
+21. image nets — image_classification.build_train at the JAX defaults
+              (224 x 224, 1000 classes, Momentum 0.01 / 0.9), fp32 with
+              TF32 off, batch 32: vgg16, alexnet, googlenet and
+              se_resnext50, each with its dropout, trained as phase 12
+              trains ResNet-50 (--trace PATH keeps PATH's stem +
+              _<model>.json); VGG-16 served as phase 13 serves ResNet-50
+              (its batch_norms and dropout in test mode, dropout scaling
+              by 0.5). Then one step of each at the CPU tests' sizes
+              (vgg16 and se_resnext50 32 x 32, googlenet 64 x 64, alexnet
+              67 x 67, the least its pools take), 10 classes, batch 8,
+              every dropout at p = 0, card against CPU: the loss within
+              1e-4, the gradients within 10x each net's own readings
+              (IMAGE_NETS_GRAD_BOUNDS; vgg16's biases before a batch_norm,
+              0 in exact arithmetic, within IMAGE_NETS_BIAS_FLOOR of the
+              largest gradient's norm). No kernel of the port. An
+              `image_nets:` line sums up.
+22. clipping — fit_a_line under GradientClipByValue(0.5),
+              GradientClipByNorm(0.5), GradientClipByGlobalNorm(0.5) and
+              ErrorClipByValue(0.02) on the prediction, SGD 0.05, 6 steps
+              from one state on the card under
+              torch.cuda.set_sync_debug_mode("error") (feeds placed on the
+              card, losses fetched as device tensors) and on the CPU:
+              losses within 1e-5 relative, persistables within 1e-5 of
+              their largest value, each clip changing the CPU's losses.
+23. language model, clipped — phase 17's PTB LM with
+              GradientClipByGlobalNorm(5.0) before Adam, trained as phase
+              17 (--trace PATH keeps PATH's stem +
+              _language_model_clip.json). A `clipping_summary:` line sets
+              its step beside phase 17's.
+
 Every path counts launches from zero and predicts each kernel's count on
-it (0 for a kernel it does not run); each kernel must also launch on at
-least one path. The last lines are one JSON object listing every kernel
-with its launches by path, the card line, and `{"ok": true, "device":
-{...}}`.
+it (0 for a kernel it does not run; the bf16 flash kernels counted under
+their own names); each kernel must also launch on at least one path. The
+last lines are one JSON object listing every kernel with its launches by
+path, the card line, and `{"ok": true, "device": {...}}`.
 """
 import argparse
 import json
@@ -296,10 +359,12 @@ import numpy as np
 
 # published peaks (NVIDIA data sheets): fp32 outside the tensor cores in
 # FLOP/s, device memory in bytes/s, dense TF32 on the tensor cores in
-# FLOP/s (a 3xTF32 product costs three TF32 ones)
-PEAKS = (("H100 PCIe", 51e12, 2.0e12, 378e12),
-         ("H100 NVL", 60e12, 3.9e12, 417e12),
-         ("H100", 67e12, 3.35e12, 495e12), ("H200", 67e12, 4.8e12, 495e12))
+# FLOP/s (a 3xTF32 product costs three TF32 ones), dense bf16 on the
+# tensor cores in FLOP/s
+PEAKS = (("H100 PCIe", 51e12, 2.0e12, 378e12, 756e12),
+         ("H100 NVL", 60e12, 3.9e12, 417e12, 835e12),
+         ("H100", 67e12, 3.35e12, 495e12, 989e12),
+         ("H200", 67e12, 4.8e12, 495e12, 989e12))
 KERNEL_TOL = 1e-4       # fp32, different summation order than the plain
 BUCKET_TOL = 1e-5       # coalesced vs run_direct at the same bucket
 CPU_TOL = 1e-3          # card vs CPU through 12 fp32 layers
@@ -464,7 +529,8 @@ def card_line():
 
 
 def peaks_for(name):
-    """(fp32 FLOP/s, bytes/s, TF32 FLOP/s) of the card named `name`."""
+    """(fp32 FLOP/s, bytes/s, TF32 FLOP/s, bf16 FLOP/s) of the card named
+    `name`."""
     for key, *peaks in PEAKS:
         if key in name:
             return tuple(peaks)
@@ -530,7 +596,8 @@ def bound(flops, nbytes, peak_flops, peak_bw):
 
 def flash_registers(log):
     """Registers and spill bytes of each flash kernel (K1 forward, K2 dK/dV,
-    K3 dQ) per D, from nvcc's `ptxas -v` lines; fails on a spill."""
+    K3 dQ) per D and element type (fp32, bf16), from nvcc's `ptxas -v`
+    lines; fails on a spill."""
     import re
     name, found = None, []
     for line in log.splitlines():
@@ -540,22 +607,23 @@ def flash_registers(log):
             name = m.group(1)
             continue
         kind = name and re.search(r"flash_(fwd|bwd_dkdv|bwd_dq)_kernelILi"
-                                  r"(\d+)E", name)
+                                  r"(\d+)E(f|13__nv_bfloat16)E", name)
         if not kind:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            found.append([kind.group(1), int(kind.group(2)), None,
+            found.append([kind.group(1), int(kind.group(2)),
+                          "fp32" if kind.group(3) == "f" else "bf16", None,
                           int(m.group(1)) + int(m.group(2))])
         m = re.search(r"Used (\d+) registers", line)
-        if m and found and found[-1][2] is None:
-            found[-1][2] = int(m.group(1))
-    for kind, d, regs, spill in sorted(found):
-        print("ptxas: flash_%s_kernel<%d>: %s registers, %d bytes spilled"
-              % (kind, d, regs, spill))
-    check(len(found) == 12, "ptxas: expected the register lines of 12 flash "
-          "kernels, found %d" % len(found))
+        if m and found and found[-1][3] is None:
+            found[-1][3] = int(m.group(1))
+    for kind, d, dtype, regs, spill in sorted(found):
+        print("ptxas: flash_%s_kernel<%d, %s>: %s registers, %d bytes "
+              "spilled" % (kind, d, dtype, regs, spill))
+    check(len(found) == 24, "ptxas: expected the register lines of 24 flash "
+          "kernels (3 kernels x 4 D x fp32, bf16), found %d" % len(found))
     check(all(spill == 0 for *_, spill in found),
           "a flash kernel spills registers")
 
@@ -597,13 +665,14 @@ def sequence_registers(log):
           "a K6 or K8 kernel spills registers")
 
 
-def flash_work(b, t, h, d, lens, causal, part="fwd"):
+def flash_work(b, t, h, d, lens, causal, part="fwd", elem=4):
     """(flops, bytes) this input needs. Per valid (query, key) pair: 4*D
     flops forward ("fwd"), 8*D for dK/dV ("dkdv"), 6*D for dQ ("dq").
     Bytes: the [B, T, H, D] tensors the kernel reads and writes in full
     (fwd: q, out; dkdv: q, g, dk, dv; dq: q, g, dq), the k/v rows below
-    each length, the [B, H, T] rows (fwd: lse; backward: lse, delta), and
-    kv_len, each once."""
+    each length, at `elem` bytes an element (4 fp32, 2 bf16); the fp32
+    [B, H, T] rows (fwd: lse; backward: lse, delta), and kv_len, each
+    once."""
     pairs = 0
     for n in lens:
         n = max(0, min(int(n), t))
@@ -614,10 +683,10 @@ def flash_work(b, t, h, d, lens, causal, part="fwd"):
     valid_rows = sum(max(0, min(int(n), t)) for n in lens)
     full, rows, per_pair = {"fwd": (2, 1, 4), "dkdv": (4, 2, 8),
                             "dq": (3, 2, 6)}[part]
-    nbytes = 4 * (full * b * t * h * d      # q, out / q, g, grads
-                  + 2 * valid_rows * h * d  # k, v rows that matter
-                  + rows * b * h * t        # lse (and delta)
-                  + b)                      # kv_len
+    nbytes = (elem * (full * b * t * h * d      # q, out / q, g, grads
+                      + 2 * valid_rows * h * d)  # k, v rows that matter
+              + 4 * (rows * b * h * t            # lse (and delta)
+                     + b))                       # kv_len
     return per_pair * d * pairs * h, nbytes
 
 
@@ -628,7 +697,87 @@ def rel_err(got, want):
                for g, w in zip(got, want))
 
 
-def run_kernels(torch, ck, peak_flops, peak_bw, tc_flops,
+def norm_rel(a, b):
+    """||a - b|| / ||b|| of two numpy arrays."""
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def hold_fp32_grads(what, names, got, want, each, median, floored=()):
+    """An fp32 training step, card (`got`: loss, [gradients `names`])
+    against the CPU (`want`): the loss within CONV_LOSS_RTOL
+    relative, each gradient within `each` and their median within
+    `median` as ||card - cpu|| / ||cpu||. The gradients in `floored` (0 in
+    exact arithmetic: the biases before a batch_norm) are held instead to
+    IMAGE_NETS_BIAS_FLOOR of the largest gradient's norm in
+    ||card - cpu||. Prints `what`'s line; returns the report."""
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    top = max(float(np.linalg.norm(b)) for b in want[1])
+    held, floor = [], []
+    for name, a, b in zip(names, got[1], want[1]):
+        if name in floored:
+            floor.append((float(np.linalg.norm(a - b)) / top, name))
+        else:
+            held.append((norm_rel(a, b), name))
+    errs = [e for e, _ in held]
+    worst = max(held)
+    print("%s: loss %.6f vs %.6f (rel %.3e), gradients ||card - cpu|| / "
+          "||cpu|| median %.3e, max %.3e (%s), over %d%s"
+          % (what, got[0], want[0], rel,
+             float(np.median(errs)), worst[0], worst[1], len(errs),
+             "; %d biases before a batch_norm: ||card - cpu|| up to %.3e of "
+             "the largest gradient's norm (%s)" % (len(floor), *max(floor))
+             if floor else ""))
+    check(rel <= CONV_LOSS_RTOL, "%s: card and CPU losses differ by %r"
+          % (what, rel))
+    check(worst[0] <= each and np.median(errs) <= median,
+          "%s: card and CPU gradients differ: median %r, max %r (%s)"
+          % (what, float(np.median(errs)), worst[0], worst[1]))
+    check(all(e <= IMAGE_NETS_BIAS_FLOOR for e, _ in floor),
+          "%s: a bias before a batch_norm differs: %r"
+          % (what, max(floor, default=None)))
+    report = {"loss_rel": rel, "grad_err_max": worst[0],
+              "grad_err_median": float(np.median(errs))}
+    if floor:
+        report["bn_bias_err_of_top"] = max(floor)[0]
+    return report
+
+
+def hold_bf16_step(what, names, card16, cpu16, cpu32, extra=(),
+                   kinds="gradients"):
+    """A bf16 training step, card (`card16`: loss, [arrays of `names`])
+    against the CPU's bf16 step (`cpu16`), with the CPU's fp32 step
+    (`cpu32`) as the measure of bf16's own error. bf16 rounds at other
+    places on each device, so each array is held, as ||card - cpu|| /
+    ||cpu|| in bf16, within BF16_SPREAD_X x the CPU's own bf16-vs-fp32
+    spread of it + BF16_FLOOR, as are the (name, err, spread) triples in
+    `extra`; the loss within BF16_LOSS_RTOL. Prints `what`'s line; returns
+    the report."""
+    pairs = [(n, norm_rel(a, b), norm_rel(b, c))
+             for n, a, b, c in zip(names, card16[1], cpu16[1], cpu32[1])]
+    pairs += list(extra)
+    worst = max((err / (BF16_SPREAD_X * spread + BF16_FLOOR), n, err, spread)
+                for n, err, spread in pairs)
+    rel = abs(card16[0] - cpu16[0]) / abs(cpu16[0])
+    report = {"loss_rel": rel, "worst_of_limit": worst[0],
+              "grad_err_median": float(np.median([p[1] for p in pairs])),
+              "grad_spread_median": float(np.median([p[2] for p in pairs]))}
+    print("%s card vs CPU: loss %.6f vs %.6f (rel %.3e; the CPU's fp32 "
+          "%.6f); %d %s: card vs CPU median %.3e, max %.3e; the CPU's bf16 "
+          "vs fp32 median %.3e, max %.3e; worst against its limit %s: %.3e "
+          "vs spread %.3e (%.2f of the limit)"
+          % (what, card16[0], cpu16[0], rel, cpu32[0], len(pairs), kinds,
+             report["grad_err_median"], max(p[1] for p in pairs),
+             report["grad_spread_median"], max(p[2] for p in pairs),
+             worst[1], worst[2], worst[3], worst[0]))
+    check(np.isfinite(card16[0]) and rel <= BF16_LOSS_RTOL,
+          "%s bf16 card and CPU losses differ by %r" % (what, rel))
+    check(worst[0] <= 1.0, "%s bf16 card and CPU differ at %s: %r, the "
+          "CPU's bf16-vs-fp32 spread %r" % (what, worst[1], worst[2],
+                                            worst[3]))
+    return report
+
+
+def run_kernels(torch, ck, peak_flops, peak_bw, tc_flops, bf16_flops,
                 flash_fwd_source=None, flash_bwd_source=None):
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -649,6 +798,9 @@ def run_kernels(torch, ck, peak_flops, peak_bw, tc_flops,
     # K2, K3: flash attention backward (run_flash_bwd_kernels)
     results.update(run_flash_bwd_kernels(torch, ck, g, peak_flops,
                                          peak_bw, tc_flops, flash_bwd_source))
+    # K1-K3 in bf16 (mixed precision): run_flash_bf16_kernels
+    results.update(run_flash_bf16_kernels(torch, ck, g, peak_bw, tc_flops,
+                                          bf16_flops))
 
     # K4: softmax cross-entropy forward at the training path's shape
     n, vocab = TRAIN_BATCH * MODEL["max_length"], MODEL["vocab"]
@@ -1282,6 +1434,231 @@ def run_flash_bwd_kernels(torch, ck, gen, peak_flops, peak_bw, tc_flops,
             "baseline_ms": serve["baseline_%s_ms" % part],
             "rows": [{key: val for key, val in r.items()
                       if not key.startswith((other, "baseline_" + other))}
+                     for r in rows],
+        }
+    return results
+
+
+# bf16 K1-K3 against their plain versions, both fed the same bf16 inputs:
+# every product and sum runs in fp32 in each, in another order, and each
+# rounds its outputs to bf16 once; a sum that lands near a rounding
+# boundary takes the neighbouring bf16 value, one ulp (2^-8 of the
+# value) away. Held to two ulps of the largest value: max |kernel - plain|
+# / max(1, max |plain|) <= 2^-7. lse (fp32) stays at KERNEL_TOL.
+BF16_KERNEL_TOL = 2.0 ** -7
+# the TF32 products a useful fp32 product costs in the bf16 kernels as
+# they are built (the `bound_design_ms` beside each bf16 row's bound): a
+# bf16 operand is exact in TF32, so its lo product drops. K1: Q K^T (Q *
+# scale split, K exact) and P V (P split, V exact) take 2; K2: S and dP 1
+# each, dV and dK 2 each (12 D for 8 D a pair); K3: S and dP 1, dQ 2 (8 D
+# for 6 D)
+BF16_TF32_COST = {"fwd": 2.0, "dkdv": 12.0 / 8.0, "dq": 8.0 / 6.0}
+
+
+def flash_bf16_cases():
+    """(what, (b, t, h, d, kv_len), causal, packed) the bf16 flash kernels
+    are held against their plain versions at: flash_timing_shapes (the
+    serving batch with ragged lengths and a 0, the training step's without
+    and with the causal mask), then D 16, 32 and 128 at odd T, and strided
+    views of one packed [B, T, H, 4D] buffer."""
+    return [(what, shape, causal, False)
+            for what, shape, causal in flash_timing_shapes()] + [
+        ("D=16, T=40", (2, 40, 2, 16, [17, 0]), True, False),
+        ("D=32, T=100", (4, 100, 3, 32, [100, 0, 57, 1]), False, False),
+        ("D=128, T=100", (3, 100, 2, 128, [100, 1, 0]), True, False),
+        ("packed [B,T,H,4D] views", (4, 100, 8, 64, [100, 0, 33, 71]),
+         False, True)]
+
+
+def flash_bf16_inputs(torch, gen, b, t, h, d, packed, n):
+    """flash_inputs rounded to bf16 (the packed buffer rounded whole, so
+    the views keep their strides)."""
+    dev = torch.device("cuda")
+    if packed:
+        buf = torch.randn((b, t, h, 4 * d), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        return [buf[..., i * d:(i + 1) * d] for i in range(n)]
+    return [torch.randn((b, t, h, d), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(n)]
+
+
+def flash_bf16_case(torch, ck, q, k, v, g_out, kv_len, causal):
+    """bf16 K1, K2 and K3 against their plain versions on one input: out,
+    dK, dV and dQ bf16 within BF16_KERNEL_TOL (rel_err), lse fp32 within
+    KERNEL_TOL, and a kv_len-0 row out 0, lse EMPTY_LSE and gradients 0.
+    Returns the three errors (K1 the larger of out's and lse's)."""
+    out, lse = ck.flash_attention_fwd(q, k, v, kv_len, causal)
+    ref_out, ref_lse = ck.flash_attention_fwd_plain(q, k, v, kv_len, causal)
+    delta = ck.flash_delta(g_out, ref_out)
+    args = (q, k, v, ref_lse, delta, g_out, kv_len, causal)
+    dk, dv = ck.flash_attention_bwd_dkdv(*args)
+    dq = ck.flash_attention_bwd_dq(*args)
+    ref = ck.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    check(out.dtype == dk.dtype == dv.dtype == dq.dtype == torch.bfloat16
+          and lse.dtype == delta.dtype == torch.float32,
+          "bf16 flash kernels: out %s, dK %s, dV %s, dQ %s, lse %s"
+          % (out.dtype, dk.dtype, dv.dtype, dq.dtype, lse.dtype))
+    e_out = rel_err((out.float(),), (ref_out.float(),))
+    e_lse = (lse - ref_lse).abs().max().item()
+    e_kv = rel_err((dk.float(), dv.float()),
+                   (ref[1].float(), ref[2].float()))
+    e_q = rel_err((dq.float(),), (ref[0].float(),))
+    if kv_len is not None:
+        empty = kv_len.long() == 0
+        check(bool((out[empty] == 0).all())
+              and bool((lse[empty] == float(EMPTY_LSE)).all())
+              and all(bool((x[empty] == 0).all()) for x in (dk, dv, dq)),
+              "bf16 flash kernels: a kv_len-0 row is not out 0, lse %r, "
+              "gradients 0" % float(EMPTY_LSE))
+    check(np.isfinite(e_out) and e_out <= BF16_KERNEL_TOL
+          and np.isfinite(e_lse) and e_lse <= KERNEL_TOL
+          and np.isfinite(e_kv) and e_kv <= BF16_KERNEL_TOL
+          and np.isfinite(e_q) and e_q <= BF16_KERNEL_TOL,
+          "bf16 flash kernels disagree with their plain versions: out %r, "
+          "lse %r, dK/dV %r, dQ %r (tolerances %r, %r)"
+          % (e_out, e_lse, e_kv, e_q, BF16_KERNEL_TOL, KERNEL_TOL))
+    return max(e_out, e_lse), e_kv, e_q
+
+
+def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops):
+    """K1, K2 and K3 on bf16 q, k, v and g (the mixed-precision
+    Transformer's): each against its plain version in bf16 at
+    flash_bf16_cases (flash_bf16_case), then timed at flash_timing_shapes
+    beside the fp32 kernels on the same values widened (in turns: fp32,
+    bf16, bf16, fp32), the plain versions, and scaled_dot_product_attention
+    on the bf16 inputs (forward; backward as the graph of forward +
+    backward less the forward). Bound: the larger of the bytes at 2 an
+    element (lse, delta fp32) over the memory rate and the function's
+    products over the bf16 tensor-core peak. Beside it the bound of the
+    kernels' design (bound_design_ms): the TF32 products they issue
+    (BF16_TF32_COST) over the TF32 peak. Returns the three kernels'
+    rows for the `kernels` line, keyed by ck.launch_counts()' names."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    errs = {"fwd": 0.0, "dkdv": 0.0, "dq": 0.0}
+    for what, (b, t, h, d, lens), causal, packed in flash_bf16_cases():
+        q, k, v, g_out = flash_bf16_inputs(torch, gen, b, t, h, d, packed, 4)
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for kv_len in (kv, None):
+            got = flash_bf16_case(torch, ck, q, k, v, g_out, kv_len, causal)
+            print("kernels: flash bf16 %s B=%d T=%d H=%d D=%d causal=%s "
+                  "kv_len=%s K1 err %.3e, K2 (dK, dV) rel err %.3e, K3 (dQ) "
+                  "rel err %.3e" % (what, b, t, h, d, causal,
+                                    "ragged" if kv_len is not None
+                                    else "full", *got))
+            for key, e in zip(("fwd", "dkdv", "dq"), got):
+                errs[key] = max(errs[key], e)
+        del q, k, v, g_out
+        torch.cuda.empty_cache()
+
+    rows = []
+    for what, (b, t, h, d, lens), causal in flash_timing_shapes():
+        q, k, v, g_out = flash_bf16_inputs(torch, gen, b, t, h, d, False, 4)
+        q32, k32, v32, g32 = (x.float() for x in (q, k, v, g_out))
+        kv = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out, lse = ck.flash_attention_fwd(q, k, v, kv, causal)
+        out32, lse32 = ck.flash_attention_fwd(q32, k32, v32, kv, causal)
+        args = (q, k, v, lse, ck.flash_delta(g_out, out), g_out, kv, causal)
+        args32 = (q32, k32, v32, lse32, ck.flash_delta(g32, out32), g32, kv,
+                  causal)
+        fns = {"fwd": (lambda: ck.flash_attention_fwd(q, k, v, kv, causal),
+                       lambda: ck.flash_attention_fwd(q32, k32, v32, kv,
+                                                      causal)),
+               "dkdv": (lambda: ck.flash_attention_bwd_dkdv(*args),
+                        lambda: ck.flash_attention_bwd_dkdv(*args32)),
+               "dq": (lambda: ck.flash_attention_bwd_dq(*args),
+                      lambda: ck.flash_attention_bwd_dq(*args32))}
+        row = {"what": what, "causal": causal,
+               "shape": "q,k,v,g [%d,%d,%d,%d] bf16, kv_len %s"
+               % (b, t, h, d, lens if what == "serving" else "full")}
+        for part, (fn16, fn32) in fns.items():
+            runs = {"bf16": [], "fp32": []}
+            for order in ("fp32", "bf16", "bf16", "fp32"):
+                runs[order].append(time_ms(torch, fn16 if order == "bf16"
+                                           else fn32))
+            flops, nbytes = flash_work(b, t, h, d, lens, causal, part, 2)
+            row[part + "_ms"] = statistics.mean(runs["bf16"])
+            row[part + "_runs"] = runs["bf16"]
+            row[part + "_fp32_ms"] = statistics.mean(runs["fp32"])
+            row[part + "_fp32_runs"] = runs["fp32"]
+            row[part + "_bound_ms"], row[part + "_bound_by"] = bound(
+                flops, nbytes, bf16_flops, peak_bw)
+            row[part + "_bound_design_ms"], row[part + "_bound_design_by"] = \
+                bound(flops * BF16_TF32_COST[part], nbytes, tc_flops,
+                      peak_bw)
+        row["fwd_plain_ms"] = time_ms(
+            torch, lambda: ck.flash_attention_fwd_plain(q, k, v, kv, causal))
+        row["bwd_plain_ms"] = time_ms(
+            torch, lambda: ck.flash_attention_bwd_plain(*args))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        gt = g_out.transpose(1, 2)
+        mask = None if all(n == t for n in lens) else \
+            (torch.arange(t, device=dev)[None, :]
+             < kv.long()[:, None])[:, None, None, :]
+
+        def sdpa(qt=qt, kt=kt, vt=vt, mask=mask, causal=causal):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  is_causal=causal)
+
+        row["fwd_library_ms"] = time_ms(torch, sdpa)
+        row["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa(), (qt, kt, vt), gt)) - row["fwd_library_ms"]
+        if what != "serving":
+            print("kernels: the library's bf16 forward device kernels at %s: "
+                  "%s" % (what, device_kernel_names(torch, sdpa)))
+        print("kernels: flash bf16 timing %s (%s, causal=%s): K1 %s ms (fp32 "
+              "K1 %s), bound %.4f ms (%s; design %.4f, %s), plain %.4f, "
+              "library %.4f; K2 %s ms (fp32 %s), bound %.4f (%s; design "
+              "%.4f, %s); K3 %s ms (fp32 %s), bound %.4f (%s; design %.4f, "
+              "%s); backward plain %.4f, library %.4f ms (dQ, dK, dV)"
+              % (what, row["shape"], causal,
+                 " / ".join("%.4f" % x for x in row["fwd_runs"]),
+                 " / ".join("%.4f" % x for x in row["fwd_fp32_runs"]),
+                 row["fwd_bound_ms"], row["fwd_bound_by"],
+                 row["fwd_bound_design_ms"], row["fwd_bound_design_by"],
+                 row["fwd_plain_ms"], row["fwd_library_ms"],
+                 " / ".join("%.4f" % x for x in row["dkdv_runs"]),
+                 " / ".join("%.4f" % x for x in row["dkdv_fp32_runs"]),
+                 row["dkdv_bound_ms"], row["dkdv_bound_by"],
+                 row["dkdv_bound_design_ms"], row["dkdv_bound_design_by"],
+                 " / ".join("%.4f" % x for x in row["dq_runs"]),
+                 " / ".join("%.4f" % x for x in row["dq_fp32_runs"]),
+                 row["dq_bound_ms"], row["dq_bound_by"],
+                 row["dq_bound_design_ms"], row["dq_bound_design_by"],
+                 row["bwd_plain_ms"], row["bwd_library_ms"]))
+        rows.append(row)
+        del q, k, v, g_out, q32, k32, v32, g32, out, out32, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    serve = rows[0]
+    results = {}
+    for name, src, tpu, part, stage in (
+            ("flash_attention_fwd", FLASH_SRC, FLASH_TPU, "fwd", "fwd"),
+            ("flash_attention_bwd_dkdv", FLASH_BWD_SRC, DKDV_TPU, "dkdv",
+             "bwd"),
+            ("flash_attention_bwd_dq", FLASH_BWD_SRC, DQ_TPU, "dq", "bwd")):
+        results[name + "_bf16"] = {
+            "name": name + "_bf16", "route": "cuda", "source": src,
+            "replaces": tpu, "shape": serve["shape"],
+            "max_abs_err": errs[part],
+            "err_kind": "relative to max(1, max |plain|), bf16 outputs"
+            + (" (lse absolute)" if part == "fwd" else ""),
+            "ms": serve[part + "_ms"], "fp32_kernel_ms": serve[
+                part + "_fp32_ms"],
+            "plain_ms": serve[stage + "_plain_ms"],
+            "library_ms": serve[stage + "_library_ms"],
+            "library_covers": "scaled_dot_product_attention on the bf16 "
+            "inputs" + (", backward: dQ, dK and dV in one call"
+                        if stage == "bwd" else ""),
+            "bound_ms": serve[part + "_bound_ms"],
+            "bound_by": serve[part + "_bound_by"],
+            "bound_design_ms": serve[part + "_bound_design_ms"],
+            "bound_design_by": serve[part + "_bound_design_by"],
+            "rows": [{key: val for key, val in r.items()
+                      if key in ("what", "causal", "shape")
+                      or key.startswith((part + "_", stage + "_"))}
                      for r in rows],
         }
     return results
@@ -2345,7 +2722,8 @@ def run_serving(torch, card, n_layer=N_LAYER):
         _, _, predict = transformer.transformer(
             vocab, vocab, t_max, n_layer=n_layer, n_head=MODEL["n_head"],
             d_key=MODEL["d_key"], d_value=MODEL["d_key"],
-            d_model=MODEL["d_model"], d_inner_hid=MODEL["d_inner"])
+            d_model=MODEL["d_model"], d_inner_hid=MODEL["d_inner"],
+            use_fused_attention=True)
     exe = fluid.Executor()
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
@@ -2462,11 +2840,35 @@ def run_serving(torch, card, n_layer=N_LAYER):
 
 # -------------------------------------------------------------- training --
 
-def build_train(fluid, transformer, n_layer, max_length=None):
-    """Transformer-base training program (bench.py's bench_transformer
-    configuration): returns (main, startup, avg_cost)."""
+# the Transformer-base training programs chip_smoke.py runs, each at
+# bench.py's widths with label smoothing 0.1 (transformer.build_train's
+# arguments; "amp" turns on Program.enable_mixed_precision):
+TRAIN_VARIANTS = {
+    # fused attention in fp32 (TF32 off): bench.py's bench_transformer
+    # model with BENCH_DTYPE=fp32
+    "fp32": dict(use_fused_attention=True),
+    # bench.py's bench_transformer as the JAX package benchmarks it:
+    # fused attention under bf16 mixed precision (BENCH_DTYPE bf16, its
+    # default), the fused label smoothing
+    "bf16": dict(use_fused_attention=True, amp=True),
+    # the JAX package's default dense attention with Transformer-base's
+    # published dropout 0.1, the unfused label smoothing (a soft-label
+    # softmax_with_cross_entropy) and the fused qkv projection, fp32
+    "dropout": dict(dropout_rate=0.1, use_fused_label_smooth=False,
+                    use_qkv_fusion=True),
+}
+
+
+def build_train(fluid, transformer, n_layer, max_length=None,
+                variant="fp32"):
+    """A Transformer-base training program of TRAIN_VARIANTS: returns
+    (main, startup, avg_cost)."""
+    kwargs = dict(TRAIN_VARIANTS[variant])
+    amp = kwargs.pop("amp", False)
     main, startup = fluid.Program(), fluid.Program()
     startup.random_seed = SEED
+    if amp:
+        main.enable_mixed_precision()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         _, avg_cost, _ = transformer.build_train(
             MODEL["vocab"], MODEL["vocab"],
@@ -2474,7 +2876,7 @@ def build_train(fluid, transformer, n_layer, max_length=None):
             d_model=MODEL["d_model"], warmup_steps=WARMUP_STEPS,
             n_layer=n_layer, n_head=MODEL["n_head"], d_key=MODEL["d_key"],
             d_value=MODEL["d_key"], d_inner_hid=MODEL["d_inner"],
-            label_smooth_eps=0.1)
+            label_smooth_eps=0.1, **kwargs)
     return main, startup, avg_cost
 
 
@@ -2584,7 +2986,9 @@ def profile_step(torch, step, trace_path=None):
         elif any(k in low for k in ("conv", "fprop", "dgrad", "wgrad",
                                     "cudnn")):
             groups["convolutions"] += us
-        elif any(k in low for k in ("gemm", "gemv", "cutlass", "cublas")):
+        # nvjet: cuBLAS's Hopper GEMMs (the bf16 products run there)
+        elif any(k in low for k in ("gemm", "gemv", "cutlass", "cublas",
+                                    "nvjet")):
             groups["matrix products"] += us
         else:
             groups["other"] += us
@@ -2663,63 +3067,82 @@ def train_steps(torch, tag, exe, main, feed, avg_cost, scope, trace_path,
 
 
 def run_training(torch, card, n_layer=N_LAYER, batch=TRAIN_BATCH,
-                 trace_path=None):
-    """The training path: Adam + noam steps of Transformer-base on the card
-    through Executor.run, on bench.py's copy task (src = trg = random ids in
-    [3, V), full length, the same batch every step)."""
+                 trace_path=None, variant="fp32"):
+    """The training path: Adam + noam steps of Transformer-base (a
+    TRAIN_VARIANTS program) on the card through Executor.run, on bench.py's
+    copy task (src = trg = random ids in [3, V), full length, the same
+    batch every step; the dense variant's attn_bias feeds from
+    prepare_batch with n_head). Per step, one K1, K2 and K3 launch per
+    fused_attention op (their bf16 kernels under mixed precision), one K4
+    per hard-label softmax_with_cross_entropy, one K5 per layer_norm."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     vocab, t_max = MODEL["vocab"], MODEL["max_length"]
+    tag = "training:" if variant == "fp32" else "training %s:" % variant
     t0 = time.perf_counter()
-    main, startup, avg_cost = build_train(fluid, transformer, n_layer)
+    main, startup, avg_cost = build_train(fluid, transformer, n_layer,
+                                          variant=variant)
     ops = main.global_block().ops
+    flash = "_bf16" if main._amp else ""
+    n_attn = sum(op.type == "fused_attention" for op in ops)
     per_step = {
-        "flash_attention_fwd": sum(op.type == "fused_attention" for op in ops),
-        "flash_attention_bwd_dkdv": sum(
+        "flash_attention_fwd" + flash: n_attn,
+        "flash_attention_bwd_dkdv" + flash: sum(
             op.type == "grad_of" and op.attrs["fwd_type"] == "fused_attention"
             for op in ops),
         "softmax_xent_fwd": sum(op.type == "softmax_with_cross_entropy"
+                                and not op.attrs.get("soft_label")
                                 for op in ops),
         "layer_norm_fwd": sum(op.type == "layer_norm" for op in ops)}
-    per_step["flash_attention_bwd_dq"] = per_step["flash_attention_bwd_dkdv"]
+    per_step["flash_attention_bwd_dq" + flash] = \
+        per_step["flash_attention_bwd_dkdv" + flash]
     exe = fluid.Executor()
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
     torch.cuda.synchronize()
     n_params = sum(int(np.prod(scope.get(p.name).shape))
                    for p in main.all_parameters())
-    print("training: built Transformer-base training (%d+%d layers, %d "
-          "parameters, %d ops) and ran its startup program on %s in %.1f s"
-          % (n_layer, n_layer, n_params, len(ops), exe.device,
-             time.perf_counter() - t0))
+    print("%s built Transformer-base training (%s: %d+%d layers, %d "
+          "parameters, %d ops, %d dropout) and ran its startup program on "
+          "%s in %.1f s" % (tag, variant, n_layer, n_layer, n_params,
+                            len(ops), sum(op.type == "dropout" for op in ops),
+                            exe.device, time.perf_counter() - t0))
     frozen = {name: scope.get(name).clone()
               for name in transformer.POS_ENC_PARAM_NAMES}
 
     rng = np.random.RandomState(SEED)
     srcs = [rng.randint(3, vocab, t_max).tolist() for _ in range(batch)]
-    feed = transformer.prepare_batch(srcs, srcs, t_max, labels=True)
+    dense = not TRAIN_VARIANTS[variant].get("use_fused_attention")
+    feed = transformer.prepare_batch(
+        srcs, srcs, t_max, labels=True,
+        n_head=MODEL["n_head"] if dense else None)
     tokens = int(feed["lbl_weight"].sum())
-    report, counts, steps = train_steps(torch, "training:", exe, main, feed,
+    report, counts, steps = train_steps(torch, tag, exe, main, feed,
                                         avg_cost, scope, trace_path, tokens,
                                         "tokens")
-    print("training: launches %s over %d steps (expected per step %s)"
-          % (counts, steps, per_step))
+    print("%s launches %s over %d steps (expected per step %s)"
+          % (tag, counts, steps, per_step))
     for name, n in per_step.items():
-        check(n > 0 and counts[name] == n * steps,
+        check(counts[name] == n * steps,
               "%s launched %d times over %d steps, expected %d per step"
               % (name, counts[name], steps, n))
     for name, before in frozen.items():
         check(torch.equal(scope.get(name), before),
               "the frozen table %s changed in training" % name)
-    training = {"layers": n_layer, "batch": batch, "seq": t_max,
+    check(all(scope.get(p.name).dtype == torch.float32
+              for p in main.all_parameters()),
+          "a parameter is not an f32 master")
+    training = {"variant": variant, "amp_bf16": main._amp,
+                "layers": n_layer, "batch": batch, "seq": t_max,
                 "tokens": tokens, **report, "card": card}
-    print("training: " + json.dumps(training))
+    print("%s %s" % (tag, json.dumps(training)))
     del scope
     torch.cuda.empty_cache()
     expected = dict.fromkeys(counts, 0)
     expected.update({k: n * steps for k, n in per_step.items()})
-    return counts, expected
+    return (counts, expected), training
 
 
 def step_vs_cpu(main, startup, avg_cost, feed, lr, what):
@@ -2779,6 +3202,47 @@ def run_training_vs_cpu(torch):
     step_vs_cpu(main, startup, avg_cost, feed,
                 MODEL["d_model"] ** -0.5 * WARMUP_STEPS ** -1.5,
                 "training: one step at 1+1 layers, batch 2, T=%d" % t)
+
+
+def run_training_bf16_vs_cpu(torch):
+    """One step of the mixed-precision Transformer-base (TRAIN_VARIANTS
+    "bf16": the bf16 K1-K3 on the card, their plain versions on the CPU)
+    at full widths and reduced depth and batch (1+1 layers, batch 2, T=64
+    of ragged lengths), from the CPU startup program's state, on the card
+    and on the CPU, and the same step in fp32 on the CPU, held by
+    hold_bf16_step (cuBLAS's bf16 products against the CPU's), as
+    run_resnet_training_vs_cpu holds ResNet-50's bf16 step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vocab, t = MODEL["vocab"], 64
+    rng = np.random.RandomState(SEED + 1)
+    srcs = [rng.randint(3, vocab, n).tolist() for n in (t, 37)]
+    trgs = [rng.randint(3, vocab, n).tolist() for n in (50, t)]
+    feed = transformer.prepare_batch(srcs, trgs, t, labels=True)
+    main32, startup, avg = build_train(fluid, transformer, 1, t, "fp32")
+    main16 = build_train(fluid, transformer, 1, t, "bf16")[0]
+    cpu = fluid.Executor("cpu")
+    scope0 = fluid.Scope()
+    cpu.run(startup, scope=scope0)
+    state = {v.name: scope0.get(v.name).numpy().copy()
+             for v in main32.list_vars() if v.persistable}
+    grads = sorted(p.name + "@GRAD" for p in main32.all_parameters()
+                   if p.trainable)
+    fetch = [avg.name] + grads
+
+    def step(prog, device):
+        scope = pio.scope_from_numpy(state, device, program=prog)
+        out = fluid.Executor(device).run(prog, feed=feed, fetch_list=fetch,
+                                         scope=scope)
+        return float(out[0][0]), out[1:]
+
+    card16, cpu16, cpu32 = step(main16, "cuda"), step(main16, "cpu"), \
+        step(main32, "cpu")
+    return hold_bf16_step("training bf16: one step at 1+1 layers, batch 2, "
+                          "T=%d," % t, grads, card16, cpu16, cpu32)
 
 
 # ------------------------------------------------------------- sequences --
@@ -3324,17 +3788,18 @@ def zero_counts(counts):
     return dict.fromkeys(counts, 0)
 
 
-def build_resnet(fluid, use_bf16, cfg=None):
-    """image_classification.build_train("resnet50") at cfg's image size,
-    classes and Momentum rate (RESNET: resnet_imagenet of depth 50 at 224
-    x 224): (main, startup, avg_cost)."""
+def build_resnet(fluid, use_bf16, cfg=None, model="resnet50"):
+    """image_classification.build_train(model) (resnet50 or one of
+    IMAGE_NETS) at cfg's image size, classes and Momentum rate (RESNET:
+    resnet_imagenet of depth 50 at 224 x 224): (main, startup,
+    avg_cost)."""
     from paddle_tpu_torch.models import image_classification
     cfg = cfg or RESNET
     main, startup = fluid.Program(), fluid.Program()
     startup.random_seed = SEED
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         _, _, avg_cost, _ = image_classification.build_train(
-            "resnet50", class_dim=cfg["classes"],
+            model, class_dim=cfg["classes"],
             image_shape=(3, cfg["image"], cfg["image"]),
             learning_rate=cfg["lr"], momentum=0.9, use_bf16=use_bf16)
     return main, startup, avg_cost
@@ -3351,10 +3816,12 @@ def image_feed(cfg, seed, dtype="float32"):
         0, cfg["classes"], (cfg["batch"], 1)).astype(np.int64)}
 
 
-def run_resnet_training(torch, card, use_bf16, trace_path=None):
-    """The conv-net path's training half: ResNet-50 at 224 x 224, batch
-    32, Momentum(0.01, 0.9) on one batch through Executor.run, in fp32
-    (TF32 off for matrix products and convolutions) or under
+def run_resnet_training(torch, card, use_bf16, trace_path=None,
+                        model="resnet50"):
+    """The conv-net path's training half: ResNet-50 (or `model`, one of
+    IMAGE_NETS, with its dropout layers) at 224 x 224, batch 32,
+    Momentum(0.01, 0.9) on one batch through Executor.run, in fp32 (TF32
+    off for matrix products and convolutions) or under
     enable_mixed_precision (bf16 convolutions and fc with f32 masters).
     Reports images/s, the device's busy share, peak memory and launches
     a step. Returns the launch counts and the counts it predicts (0)."""
@@ -3362,9 +3829,9 @@ def run_resnet_training(torch, card, use_bf16, trace_path=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tag = "resnet50 %s:" % ("bf16" if use_bf16 else "fp32")
+    tag = "%s %s:" % (model, "bf16" if use_bf16 else "fp32")
     t0 = time.perf_counter()
-    main, startup, avg_cost = build_resnet(fluid, use_bf16)
+    main, startup, avg_cost = build_resnet(fluid, use_bf16, model=model)
     ops = main.global_block().ops
     exe = fluid.Executor()
     scope = fluid.Scope()
@@ -3375,11 +3842,12 @@ def run_resnet_training(torch, card, use_bf16, trace_path=None):
     moving = [p.name for p in main.all_parameters() if not p.trainable]
     before = {name: scope.get(name).clone() for name in moving}
     print("%s built the training program (%d trainable parameters, %d "
-          "ops: %d conv2d, %d batch_norm) and ran its startup program in "
-          "%.1f s" % (tag, n_params, len(ops),
-                      sum(op.type == "conv2d" for op in ops),
-                      sum(op.type == "batch_norm" for op in ops),
-                      time.perf_counter() - t0))
+          "ops: %d conv2d, %d batch_norm, %d dropout) and ran its startup "
+          "program in %.1f s" % (tag, n_params, len(ops),
+                                 sum(op.type == "conv2d" for op in ops),
+                                 sum(op.type == "batch_norm" for op in ops),
+                                 sum(op.type == "dropout" for op in ops),
+                                 time.perf_counter() - t0))
     feed = image_feed(RESNET, SEED + 12)
     report, counts, steps = train_steps(
         torch, tag, exe, main, feed, avg_cost, scope, trace_path,
@@ -3389,7 +3857,8 @@ def run_resnet_training(torch, card, use_bf16, trace_path=None):
     check(all(scope.get(p.name).dtype == torch.float32
               for p in main.all_parameters()),
           "a parameter is not an f32 master")
-    report = {"amp_bf16": use_bf16, "tf32": False, "image": RESNET["image"],
+    report = {"model": model, "amp_bf16": use_bf16, "tf32": False,
+              "image": RESNET["image"],
               "batch": RESNET["batch"], "lr": RESNET["lr"],
               "parameters": n_params, **report, "card": card}
     print("%s training %s" % (tag, json.dumps(report)))
@@ -3445,54 +3914,20 @@ def run_resnet_training_vs_cpu(torch):
         return float(out[0][0]), out[1:], {
             n: scope.get(n).cpu().numpy() - state[n] for n in moving}
 
-    def norm_rel(a, b):
-        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
-
     def max_rel(a, b):
         return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
-    def loss_rel(a, b):
-        return abs(a - b) / abs(b)
-
     card32, cpu32 = step(False, "cuda"), step(False, "cpu")
+    hold_fp32_grads("resnet: one step of resnet_cifar10 depth 32 at %d x %d, "
+                    "batch %d, card vs CPU, fp32"
+                    % (cfg["image"], cfg["image"], cfg["batch"]),
+                    grads, card32, cpu32, CONV_GRAD_MAX, CONV_GRAD_MEDIAN)
     card16, cpu16 = step(True, "cuda"), step(True, "cpu")
-    errs = [norm_rel(a, b) for a, b in zip(card32[1], cpu32[1])]
-    rel32 = loss_rel(card32[0], cpu32[0])
-    print("resnet: one step of resnet_cifar10 depth 32 at %d x %d, batch "
-          "%d, card vs CPU, fp32: loss %.6f vs %.6f (rel %.3e), gradients "
-          "||card - cpu|| / ||cpu|| median %.3e, max %.3e (%s), over %d"
-          % (cfg["image"], cfg["image"], cfg["batch"], card32[0], cpu32[0],
-             rel32, float(np.median(errs)), max(errs),
-             grads[int(np.argmax(errs))], len(errs)))
-    check(rel32 <= CONV_LOSS_RTOL, "card and CPU losses differ by %r"
-          % rel32)
-    check(max(errs) <= CONV_GRAD_MAX and np.median(errs) <= CONV_GRAD_MEDIAN,
-          "card and CPU gradients differ: median %r, max %r"
-          % (float(np.median(errs)), max(errs)))
-
-    rel16 = loss_rel(card16[0], cpu16[0])
-    pairs = [(g, norm_rel(a, b), norm_rel(b, c))
-             for g, a, b, c in zip(grads, card16[1], cpu16[1], cpu32[1])]
-    pairs += [(n, max_rel(card16[2][n], cpu16[2][n]),
-               max_rel(cpu16[2][n], cpu32[2][n])) for n in moving]
-    ratio = [(err / (BF16_SPREAD_X * spread + BF16_FLOOR), name, err, spread)
-             for name, err, spread in pairs]
-    worst = max(ratio)
-    print("resnet: the same step under use_bf16, card vs CPU: loss %.6f vs "
-          "%.6f (rel %.3e; the CPU's fp32 %.6f); %d gradients and moving "
-          "statistics: card vs CPU median %.3e, max %.3e; the CPU's bf16 vs "
-          "fp32 median %.3e, max %.3e; worst against its limit %s: %.3e vs "
-          "spread %.3e (%.2f of the limit)"
-          % (card16[0], cpu16[0], rel16, cpu32[0], len(pairs),
-             float(np.median([p[1] for p in pairs])),
-             max(p[1] for p in pairs),
-             float(np.median([p[2] for p in pairs])),
-             max(p[2] for p in pairs), worst[1], worst[2], worst[3],
-             worst[0]))
-    check(np.isfinite(card16[0]) and rel16 <= BF16_LOSS_RTOL,
-          "bf16 card and CPU losses differ by %r" % rel16)
-    check(worst[0] <= 1.0, "bf16 card and CPU differ at %s: %r, the CPU's "
-          "bf16-vs-fp32 spread %r" % (worst[1], worst[2], worst[3]))
+    hold_bf16_step(
+        "resnet: the same step under use_bf16,", grads, card16, cpu16, cpu32,
+        [(n, max_rel(card16[2][n], cpu16[2][n]),
+          max_rel(cpu16[2][n], cpu32[2][n])) for n in moving],
+        "gradients and moving statistics")
 
 
 def run_lenet_training_vs_cpu(torch):
@@ -3538,11 +3973,19 @@ def run_lenet_training_vs_cpu(torch):
     return counts, zero_counts(counts)
 
 
-def run_resnet_serving(torch, card):
-    """The conv-net path's serving half: ResNet-50 at 224 x 224 on a uint8
-    image feed (cast and scaled by 1/255 in the program), initialized on
-    the card from SEED, saved by io.save_inference_model (every
-    batch_norm is_test) and served by InferenceEngine(batch_buckets=[1,
+# the test-mode ops a served net holds (save_inference_model sets is_test
+# on each): resnet_imagenet's 53 batch_norms; VGG-16's 13 conv batch_norms,
+# the fc's and its dropout
+SERVED_TEST_OPS = {"resnet50": {"batch_norm": 53},
+                   "vgg16": {"batch_norm": 14, "dropout": 1}}
+
+
+def run_resnet_serving(torch, card, model="resnet50"):
+    """The conv-net path's serving half: ResNet-50 (or VGG-16) at 224 x
+    224 on a uint8 image feed (cast and scaled by 1/255 in the program),
+    initialized on the card from SEED, saved by io.save_inference_model
+    (every batch_norm and dropout is_test: a dropout then scales by 1 -
+    p) and served by InferenceEngine(batch_buckets=[1,
     8, 32]): RESNET_SERVE["requests"] concurrent requests of 1-8 images.
     Checks every answer's rows finite and summing to 1, each equal to
     run_direct at its bucket (<= BUCKET_TOL), request 0 against the CPU
@@ -3564,7 +4007,10 @@ def run_resnet_serving(torch, card):
                                 dtype="uint8")
         image = fluid.layers.scale(fluid.layers.cast(raw, "float32"),
                                    scale=1.0 / 255.0)
-        pred = image_classification.resnet_imagenet(image, classes, 50)
+        if model == "resnet50":
+            pred = image_classification.resnet_imagenet(image, classes, 50)
+        else:
+            pred = getattr(image_classification, model)(image, classes)
     exe, scope = fluid.Executor(), fluid.Scope()
     exe.run(startup, scope=scope)
     rng = np.random.RandomState(SEED + 15)
@@ -3576,17 +4022,19 @@ def run_resnet_serving(torch, card):
         program = fluid.io.save_inference_model(model_dir, ["image"], [pred],
                                                 exe, main, scope=scope)
         del scope
-        bns = [op for op in program.global_block().ops
-               if op.type == "batch_norm"]
-        check(len(bns) == 53 and all(op.attrs["is_test"] for op in bns),
-              "the saved ResNet-50 has %d batch_norm ops, is_test %s"
-              % (len(bns), sorted({op.attrs["is_test"] for op in bns})))
+        for kind, n in SERVED_TEST_OPS[model].items():
+            held = [op for op in program.global_block().ops
+                    if op.type == kind]
+            check(len(held) == n and all(op.attrs["is_test"] for op in held),
+                  "the saved %s has %d %s ops (expected %d), is_test %s"
+                  % (model, len(held), kind, n,
+                     sorted({op.attrs["is_test"] for op in held})))
         engine = InferenceEngine(model_dir,
                                  batch_buckets=RESNET_SERVE["buckets"])
         torch.cuda.synchronize()
-        print("resnet50 serving: built, initialized, saved, loaded and "
+        print("%s serving: built, initialized, saved, loaded and "
               "warmed up (buckets %s) in %.1f s"
-              % (engine.batch_buckets, time.perf_counter() - t0))
+              % (model, engine.batch_buckets, time.perf_counter() - t0))
         try:
             def burst():
                 return serve_burst(engine, requests, pred.name)
@@ -3601,13 +4049,13 @@ def run_resnet_serving(torch, card):
                 rows = requests[i]["image"].shape[0]
                 check(a.shape == (rows, classes) and np.isfinite(a).all()
                       and np.allclose(a.sum(1), 1.0, atol=1e-4),
-                      "resnet50 answer %d: shape %s, finite %s"
-                      % (i, a.shape, np.isfinite(a).all()))
+                      "%s answer %d: shape %s, finite %s"
+                      % (model, i, a.shape, np.isfinite(a).all()))
             bucket_diff = max(float(np.abs(engine.run_direct(
                 requests[i], batch_bucket=fut.bucket[0])[0][pred.name]
                 - answers[i]).max()) for i, fut in enumerate(futures))
-            check(bucket_diff <= BUCKET_TOL, "resnet50 coalesced answers "
-                  "differ from run_direct by %r" % bucket_diff)
+            check(bucket_diff <= BUCKET_TOL, "%s coalesced answers differ "
+                  "from run_direct by %r" % (model, bucket_diff))
             # the same burst again, untraced (the first after warm-up may
             # differ), then traced: the device's busy time over it
             again = sorted(x * 1e3 for x in burst()[1])
@@ -3631,12 +4079,12 @@ def run_resnet_serving(torch, card):
         finally:
             cpu.close()
     cpu_diff = float(np.abs(ref - answers[0][:1]).max())
-    check(cpu_diff <= CPU_TOL, "resnet50 card and CPU disagree by %r"
-          % cpu_diff)
+    check(cpu_diff <= CPU_TOL, "%s card and CPU disagree by %r"
+          % (model, cpu_diff))
     lat_ms = sorted(x * 1e3 for x in latencies)
     images = sum(r["image"].shape[0] for r in requests)
     report = {
-        "requests": n, "images": images, "batches": batches,
+        "model": model, "requests": n, "images": images, "batches": batches,
         "p50_ms": float(np.percentile(lat_ms, 50)),
         "p99_ms": float(np.percentile(lat_ms, 99)), "wall_s": wall,
         "second_burst_p50_ms": float(np.percentile(again, 50)),
@@ -3649,7 +4097,7 @@ def run_resnet_serving(torch, card):
         "run_direct_ms_by_bucket": dispatch_ms,
         "bucket_max_diff": bucket_diff, "cpu_max_diff": cpu_diff,
         "launches": counts, "card": card}
-    print("resnet50 serving " + json.dumps(report))
+    print("%s serving %s" % (model, json.dumps(report)))
     return (counts, zero_counts(counts)), report
 
 
@@ -4050,11 +4498,13 @@ FIT_SCHEDULES = (
 )
 
 
-def build_fit_a_line(fluid, optimizer=None, schedule=None, average=False):
+def build_fit_a_line(fluid, optimizer=None, schedule=None, average=False,
+                     clip=None):
     """Book chapter 01: fc(13 -> 1), square_error_cost, mean, under one of
-    FIT_OPTIMIZERS, or SGD on one of FIT_SCHEDULES, or SGD(0.05) with a
-    ModelAverage after it. Returns (main, startup, avg_cost, lr or the
-    ModelAverage)."""
+    FIT_OPTIMIZERS, or SGD on one of FIT_SCHEDULES, or SGD(0.05) with one
+    of CLIPS (a gradient clip on every parameter, or an error clip on the
+    prediction), or SGD(0.05) with a ModelAverage after it. Returns (main,
+    startup, avg_cost, lr or the ModelAverage)."""
     main, startup = fluid.Program(), fluid.Program()
     startup.random_seed = SEED
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
@@ -4070,6 +4520,13 @@ def build_fit_a_line(fluid, optimizer=None, schedule=None, average=False):
             extra = getattr(fluid.layers, schedule[0])(*schedule[1],
                                                        **schedule[2])
             fluid.optimizer.SGD(learning_rate=extra).minimize(avg)
+        elif clip is not None:
+            attr = getattr(fluid.clip, clip[0])(**clip[1])
+            if clip[0] == "ErrorClipByValue":
+                pred.error_clip = attr
+            else:
+                fluid.clip.set_gradient_clip(attr)
+            fluid.optimizer.SGD(learning_rate=0.05).minimize(avg)
         else:
             fluid.optimizer.SGD(learning_rate=0.05).minimize(avg)
             extra = fluid.optimizer.ModelAverage(0.15)
@@ -4196,6 +4653,206 @@ def run_optimizers_vs_cpu(torch, card):
     return (counts, dict.fromkeys(counts, 0)), report
 
 
+# ------------------------------------------------ image nets, clipping --
+
+# the JAX zoo's other image nets: build_train(model) at its defaults (3 x
+# 224 x 224, 1000 classes, Momentum 0.01 / 0.9), each with its dropout
+IMAGE_NETS = ("vgg16", "alexnet", "googlenet", "se_resnext50")
+# the card-vs-CPU step's image side per net, the CPU tests'
+# (tests/test_torch_image_nets.py and the nets' own files): alexnet's
+# stride-4 conv and three 3 x 3 / 2 pools leave nothing below a side of 67
+IMAGE_NETS_SMALL = {"vgg16": 32, "alexnet": 67, "googlenet": 64,
+                    "se_resnext50": 32}
+# its bounds on ||card - cpu|| / ||cpu||, per gradient and for their
+# median: 10x each net's own readings on an NVIDIA H100 80GB HBM3 at 700 W
+# (fp32, TF32 off; PERF.md section 4 gives them)
+IMAGE_NETS_GRAD_BOUNDS = {"vgg16": (2.6e-4, 2.0e-4),
+                          "alexnet": (1.1e-5, 5.3e-6),
+                          "googlenet": (1.2e-5, 6.8e-6),
+                          "se_resnext50": (1.4e-3, 1.0e-3)}
+# a bias before a batch_norm has a gradient of 0 in exact arithmetic (the
+# batch_norm takes the mean out), so ||card - cpu|| / ||cpu|| of it says
+# nothing: it is held to this share of the largest gradient's norm (10x
+# vgg16's 14 such biases' worst reading, 9.1e-8, on the same card)
+IMAGE_NETS_BIAS_FLOOR = 1e-6
+
+
+def run_image_nets_vs_cpu(torch):
+    """One step of each of IMAGE_NETS at IMAGE_NETS_SMALL's side, 10
+    classes, batch 8, Momentum(1e-4), fp32 (TF32 off), on the card and on
+    the CPU from the CPU startup program's state and one batch, with every
+    dropout op's dropout_prob set to 0 in the built Program (the two
+    devices' random streams differ; at p = 0 both masks are all ones):
+    hold_fp32_grads with IMAGE_NETS_GRAD_BOUNDS, the biases before a
+    batch_norm held to IMAGE_NETS_BIAS_FLOOR. Returns {net: its
+    errors}."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {}
+    for model in IMAGE_NETS:
+        cfg = dict(RESNET_SMALL, image=IMAGE_NETS_SMALL[model])
+        main, startup, avg_cost = build_resnet(fluid, False, cfg, model)
+        drops = [op for op in main.global_block().ops if op.type == "dropout"]
+        for op in drops:
+            op.attrs["dropout_prob"] = 0.0
+        for op in main.global_block().ops:
+            if op.type == "grad_of" and op.attrs["fwd_type"] == "dropout":
+                op.attrs["fwd_attrs"]["dropout_prob"] = 0.0
+        cpu = fluid.Executor("cpu")
+        scope0 = fluid.Scope()
+        cpu.run(startup, scope=scope0)
+        state = {v.name: scope0.get(v.name).numpy().copy()
+                 for v in main.list_vars() if v.persistable}
+        grads = sorted(p.name + "@GRAD" for p in main.all_parameters()
+                       if p.trainable)
+        feed = image_feed(cfg, SEED + 21)
+        fetch = [avg_cost.name] + grads
+        got, want = (fluid.Executor(dev).run(
+            main, feed=feed, fetch_list=fetch,
+            scope=pio.scope_from_numpy(state, dev, program=main))
+            for dev in ("cuda", "cpu"))
+        check(len(drops) == {"vgg16": 1, "alexnet": 2}.get(model, 1),
+              "%s has %d dropout ops" % (model, len(drops)))
+        ops = main.global_block().ops
+        bn_in = {op.inputs["X"][0] for op in ops if op.type == "batch_norm"}
+        floored = {op.inputs["Y"][0] + "@GRAD" for op in ops
+                   if op.type == "elementwise_add"
+                   and op.outputs["Out"][0] in bn_in}
+        report[model] = hold_fp32_grads(
+            "image nets: %s, one step at %d x %d, batch %d, %d dropout at p "
+            "= 0, card vs CPU" % (model, cfg["image"], cfg["image"],
+                                  cfg["batch"], len(drops)),
+            grads, (float(got[0][0]), got[1:]),
+            (float(want[0][0]), want[1:]), *IMAGE_NETS_GRAD_BOUNDS[model],
+            floored=floored)
+    return report
+
+
+# fit_a_line's clips (clip.py): the gradient clips on every parameter, the
+# error clip on the prediction's gradient (2 (pred - y) / batch). Their
+# limits bite at the first steps (the CPU tests show each changes the
+# losses).
+CLIPS = (("GradientClipByValue", dict(max=0.5)),
+         ("GradientClipByNorm", dict(clip_norm=0.5)),
+         ("GradientClipByGlobalNorm", dict(clip_norm=0.5)),
+         ("ErrorClipByValue", dict(max=0.02)))
+
+
+def run_clipping_vs_cpu(torch, card):
+    """Fit_a_line under each of CLIPS with SGD(0.05), OPT_STEPS steps from
+    one state (the CPU startup program's) on the card and on the CPU. The
+    card's steps run under torch.cuda.set_sync_debug_mode("error"), their
+    feeds placed on the card first and their losses fetched as device
+    tensors: no clip rule reads a value on the host. Each loss within
+    OPT_LOSS_RTOL, every persistable after the steps within OPT_STATE_TOL
+    of its largest value, and the CPU's clipped losses differ from its
+    unclipped ones (the clip bites). Returns ((launch counts, the counts
+    predicted: none), the report)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feeds = fit_feeds()
+
+    def cpu_losses(main, startup, avg):
+        cpu, scope = fluid.Executor("cpu"), fluid.Scope()
+        cpu.run(startup, scope=scope)
+        state = {v.name: scope.get(v.name).numpy().copy()
+                 for v in main.list_vars() if v.persistable}
+        return state, scope, [float(cpu.run(main, feed=f, fetch_list=[avg],
+                                            scope=scope)[0][0])
+                              for f in feeds]
+
+    plain = cpu_losses(*build_fit_a_line(fluid)[:3])[2]
+    counts, report = None, {}
+    for name, kwargs in CLIPS:
+        main, startup, avg, _ = build_fit_a_line(fluid, clip=(name, kwargs))
+        state, cpu_scope, want = cpu_losses(main, startup, avg)
+        exe = fluid.Executor()
+        card_scope = pio.scope_from_numpy(state, exe.device, program=main)
+        card_feeds = [{k: torch.from_numpy(v).to(exe.device)
+                       for k, v in f.items()} for f in feeds]
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [exe.run(main, feed=f, fetch_list=[avg], scope=card_scope,
+                           return_numpy=False)[0] for f in card_feeds]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        c = ck.launch_counts()
+        counts = c if counts is None else {k: counts[k] + c[k] for k in c}
+        got = [float(x.reshape(-1)[0]) for x in got]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        state_err = max(float(np.abs(card_scope.get(n).cpu().numpy()
+                                     - cpu_scope.get(n).numpy()).max()
+                              / max(np.abs(cpu_scope.get(n).numpy()).max(),
+                                    1e-30)) for n in state)
+        bite = max(abs(a - b) for a, b in zip(want, plain))
+        ops = sorted({op.type for op in main.global_block().ops
+                      if "clip" in op.type or op.type in (
+                          "reduce_sum_square", "global_norm_scale")})
+        print("clipping: %s(%s), %d steps under sync debug mode 'error', "
+              "card vs CPU: losses %s, max loss error %.3e, max persistable "
+              "error %.3e; clip ops %s; the CPU's losses move %.3e from the "
+              "unclipped run's" % (name, kwargs, OPT_STEPS,
+                                   ["%.5f" % x for x in got], loss_err,
+                                   state_err, ops, bite))
+        check(all(np.isfinite(got)) and loss_err <= OPT_LOSS_RTOL
+              and state_err <= OPT_STATE_TOL,
+              "%s: card and CPU differ (loss %r, state %r)"
+              % (name, loss_err, state_err))
+        check(bite > 0, "%s did not change the losses" % name)
+        report[name] = {"loss_err": loss_err, "state_err": state_err,
+                        "bite": bite}
+    report["card"] = card
+    print("clipping: " + json.dumps(report))
+    return (counts, dict.fromkeys(counts, 0)), report
+
+
+def run_lm_clip_training(torch, card, trace_path=None):
+    """The PTB LM of phase 17 (LM: its defaults) built as
+    language_model.build builds it, but with GradientClipByGlobalNorm(5.0)
+    on every parameter before Adam: TRAIN_STEPS steps and a traced one
+    (train_steps). What the clip costs a step, beside phase 17's LM.
+    Returns ((launch counts, the counts predicted: none), the report)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import language_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LM
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        # is_test builds the training graph without its optimizer (the LM
+        # has no dropout at its defaults)
+        _, _, avg, _ = language_model.build(
+            cfg["vocab"], cfg["emb"], cfg["hidden"], cfg["layers"],
+            learning_rate=cfg["lr"], is_test=True)
+        fluid.clip.set_gradient_clip(fluid.GradientClipByGlobalNorm(5.0))
+        fluid.optimizer.Adam(learning_rate=cfg["lr"]).minimize(avg)
+    ops = main.global_block().ops
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed, tokens = lm_feed(fluid, np.random.RandomState(SEED + 17), cfg)
+    tag = "language_model clip training:"
+    print("%s %d ops, %d reduce_sum_square, %d global_norm_scale"
+          % (tag, len(ops), sum(op.type == "reduce_sum_square" for op in ops),
+             sum(op.type == "global_norm_scale" for op in ops)))
+    report, counts, _ = train_steps(torch, tag, exe, main, feed, avg, scope,
+                                    trace_path, tokens, "tokens")
+    report = {"clip": "GradientClipByGlobalNorm(5.0)", "tokens": tokens,
+              **report, "card": card}
+    print("%s %s" % (tag, json.dumps(report)))
+    del scope
+    torch.cuda.empty_cache()
+    return (counts, dict.fromkeys(counts, 0)), report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
@@ -4250,11 +4907,11 @@ def main(argv=None):
 
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw, tc_flops = peaks_for(name)
+    peak_flops, peak_bw, tc_flops, bf16_flops = peaks_for(name)
     print("device: %s | torch %s, CUDA %s | peaks used for bounds: %.0f "
-          "TFLOP/s fp32, %.0f TFLOP/s TF32, %.2f TB/s"
+          "TFLOP/s fp32, %.0f TFLOP/s TF32, %.0f TFLOP/s bf16, %.2f TB/s"
           % (card, torch.__version__, torch.version.cuda, peak_flops / 1e12,
-             tc_flops / 1e12, peak_bw / 1e12))
+             tc_flops / 1e12, bf16_flops / 1e12, peak_bw / 1e12))
 
     t0 = time.perf_counter()
     ck.build(verbose=args.ptxas)
@@ -4267,7 +4924,7 @@ def main(argv=None):
         pool_registers(ck.build_info.log)
 
     kernels = run_kernels(
-        torch, ck, peak_flops, peak_bw, tc_flops,
+        torch, ck, peak_flops, peak_bw, tc_flops, bf16_flops,
         baseline_source(args.flash_fwd_baseline, FLASH_FWD_BASELINE_COMMIT,
                         FLASH_SRC),
         baseline_source(args.flash_bwd_baseline, FLASH_BWD_BASELINE_COMMIT,
@@ -4291,10 +4948,27 @@ def main(argv=None):
         stem = args.trace and os.path.splitext(args.trace)[0]
         # each path: the launch counts of its run and the counts it
         # predicts (0 for a kernel the path does not run)
-        paths = [("transformer_serving", run_serving(torch, card)),
-                 ("transformer_training",
-                  run_training(torch, card, trace_path=args.trace))]
+        paths = [("transformer_serving", run_serving(torch, card))]
+        variants = {}
+        run, variants["fp32"] = run_training(torch, card,
+                                             trace_path=args.trace)
+        paths.append(("transformer_training", run))
         run_training_vs_cpu(torch)
+        for variant in ("bf16", "dropout"):
+            run, variants[variant] = run_training(
+                torch, card, variant=variant,
+                trace_path=stem and stem + "_transformer_%s.json" % variant)
+            paths.append(("transformer_training_" + variant, run))
+        bf16_vs_cpu = run_training_bf16_vs_cpu(torch)
+        summary = {variant: {k: r[k] for k in (
+            "step_ms_median", "tokens_per_s", "peak_mem_bytes",
+            "mem_at_start_bytes", "idle_share_est", "device_busy_ms",
+            "device_kernels_per_step", "launches_per_step")}
+            for variant, r in variants.items()}
+        summary["dropout"]["losses"] = variants["dropout"]["losses"]
+        summary["bf16_vs_cpu"] = bf16_vs_cpu
+        summary["card"] = card
+        print("transformer_variants: " + json.dumps(summary))
         paths += [("sentiment_serving", run_sequence_serving(torch, card)),
                   ("sentiment_training",
                    run_sequence_training(
@@ -4320,6 +4994,24 @@ def main(argv=None):
         run, conv["serving"] = run_resnet_serving(torch, card)
         paths.append(("resnet50_serving", run))
         run_resnet_training_vs_cpu(torch)
+        nets = {}
+        for model in IMAGE_NETS:
+            run, nets[model] = run_resnet_training(
+                torch, card, False, model=model,
+                trace_path=stem and stem + "_%s.json" % model)
+            paths.append((model + "_training", run))
+        run, nets["vgg16_serving"] = run_resnet_serving(torch, card, "vgg16")
+        paths.append(("vgg16_serving", run))
+        nets_summary = {model: {k: nets[model][k] for k in (
+            "images_per_s", "step_ms_median", "idle_share_est",
+            "device_busy_ms", "peak_mem_bytes", "mem_at_start_bytes",
+            "device_kernels_per_step")} for model in IMAGE_NETS}
+        nets_summary["vgg16_serving"] = {k: nets["vgg16_serving"][k] for k in (
+            "p50_ms", "p99_ms", "second_burst_p50_ms", "images_per_s",
+            "busy_share_est", "run_direct_ms_by_bucket")}
+        nets_summary["vs_cpu"] = run_image_nets_vs_cpu(torch)
+        nets_summary["card"] = card
+        print("image_nets: " + json.dumps(nets_summary))
         summary = {kind: {k: conv[kind][k] for k in (
             "images_per_s", "step_ms_median", "idle_share_est",
             "device_busy_ms", "peak_mem_bytes", "device_kernels_per_step")}
@@ -4345,6 +5037,21 @@ def main(argv=None):
         run_dense_vs_cpu(torch)
         run, opt = run_optimizers_vs_cpu(torch, card)
         paths.append(("fit_a_line_optimizers", run))
+        run, clipping = run_clipping_vs_cpu(torch, card)
+        paths.append(("fit_a_line_clipping", run))
+        run, lm_clip = run_lm_clip_training(
+            torch, card,
+            trace_path=stem and stem + "_language_model_clip.json")
+        paths.append(("language_model_clip_training", run))
+        print("clipping_summary: " + json.dumps({
+            "fit_a_line": {k: v for k, v in clipping.items() if k != "card"},
+            "language_model_clip": {k: lm_clip[k] for k in (
+                "step_ms_median", "tokens_per_s", "idle_share_est",
+                "device_busy_ms", "device_kernels_per_step")},
+            "language_model": {k: dense["language_model_training"][k]
+                               for k in ("step_ms_median", "tokens_per_s",
+                                         "device_kernels_per_step")},
+            "card": card}))
         summary = {path: {k: v for k, v in r.items() if k in (
             "step_ms_median", "rows_per_s", "tokens_per_s", "peak_mem_bytes",
             "mem_at_start_bytes", "launches_per_step", "idle_share_est", "device_busy_ms",

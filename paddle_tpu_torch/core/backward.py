@@ -13,6 +13,7 @@ emitting grad ops in reverse topological order and accumulating into
 """
 from .framework import grad_var_name, GRAD_SUFFIX
 from . import registry
+from ..clip import append_error_clip
 
 
 def _op_path(block, loss_name, no_grad_set, force_diff=()):
@@ -134,17 +135,16 @@ def _backward_sweep(block, path_flags, needed, no_grad, seed_names,
         if not produces:
             continue
 
-        # error clipping (parity: reference backward.py error_clip_callback)
-        # appends a clip op on the fully-accumulated out-grad; the clip op
-        # is not ported yet (ROADMAP A3), so a var that asks for it raises
+        # error clipping (parity: reference backward.py error_clip_callback):
+        # by this point every consumer's grad op has contributed to the
+        # out-grads, so clipping here clips the fully-accumulated gradient.
         for slot, names in op.outputs.items():
             for n, g in zip(names, out_grads[slot]):
+                if not g:
+                    continue
                 v = block.vars.get(n)
-                if g and v is not None and v.error_clip is not None:
-                    raise NotImplementedError(
-                        "error clipping (%r carries error_clip) needs the "
-                        "clip op, which paddle_tpu_torch does not have yet"
-                        % n)
+                if v is not None and v.error_clip is not None:
+                    append_error_clip(block, g, v.error_clip)
 
         grad_in_names = []   # read by the grad op (for dependency analysis)
         grad_out = {}        # slot -> grad var names written

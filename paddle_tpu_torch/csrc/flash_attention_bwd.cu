@@ -1,4 +1,4 @@
-// Flash attention backward, fp32, for Hopper (sm_90a): two kernels.
+// Flash attention backward, fp32 or bf16, for Hopper (sm_90a): two kernels.
 //
 // Replaces the TPU kernels paddle_tpu/ops/pallas_kernels.py
 // `_flash_bwd_dkdv_kernel` (:157) and `_flash_bwd_dq_kernel` (:201), both
@@ -64,6 +64,21 @@
 //     gradient is 0, as in the TPU kernels.
 // It reads q, k, v and g with their strides from the [B, T, H, D] layout
 // (no transpose) and allocates nothing.
+//
+// bf16 (mixed precision). Both kernels are templates on the element type E
+// of q, k, v, g, dq, dk and dv, as the TPU kernels take bf16 tiles, widen
+// them to f32 and write the gradients in the input's dtype (lse and delta
+// stay f32). The tiles reach shared memory as bf16 through the same
+// cp.async copies (a copy cannot convert), [rows, D + 8] bf16: the row
+// pitch is again an odd number of 16-byte chunks, and the fragment reads
+// stay free of bank conflicts (two lanes that read the two halves of one
+// word share it); they widen to f32 as the fragments load. A bf16 value is
+// exact in TF32 (8 significant bits against 11), so its lo term is 0 and a
+// product drops it, exactly: S and dP (both operands bf16) take one TF32
+// product, dV, dK and dQ (P or dS in f32 against a bf16 tile) two. P and
+// dS are not rounded to bf16 (the TPU kernels multiply them in f32); the
+// gradients narrow to bf16 (round to nearest even) only at their store.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -75,23 +90,28 @@ constexpr int kThreads = kWarps * 32;  // 128
 constexpr int kRows = kWarps * 16;     // owned rows per block: 64
 constexpr int kSmemLimit = 232448;     // bytes of shared memory a block may use
 
-template <int D>
+// a bf16 operand is exact in TF32: its lo term is 0
+template <typename E>
+constexpr bool kExact = sizeof(E) == 2;
+
+template <int D, typename E>
 struct Cfg {
   // streamed rows per tile: 32 keeps K2 at D = 64 under 168 registers (3
   // blocks an SM; 64 rows took 213 and ran slower, flash_bwd_variants.py;
   // at D = 128 the dK, dV sums alone take 128 registers)
   static constexpr int BC = 32;
-  static constexpr int LD = D + 4;                 // floats per smem row
+  static constexpr int LD = D + 16 / sizeof(E);    // elements per smem row
   static constexpr int KS = D / 8;                 // k-steps over D
   static constexpr int NT = BC / 8;                // n-tiles over a tile
   static constexpr int ND = D / 8;                 // n-tiles over D
-  static constexpr int kTile = BC * LD;            // floats of one tile
-  static constexpr int kOwned = kRows * LD;        // floats of an owned tile
-  // dK/dV: K, V owned; per stage q, g tiles and the lse, delta rows
-  static constexpr int kDkdvSmem =
-      4 * (2 * kOwned + 2 * (2 * kTile + 2 * BC));
+  static constexpr int kTile = BC * LD;            // elements of one tile
+  static constexpr int kOwned = kRows * LD;        // elements of an owned tile
+  static constexpr int kE = sizeof(E);
+  // dK/dV: K, V owned; per stage q, g tiles and the lse, delta rows (f32)
+  static constexpr int kStageBytes = 2 * kTile * kE + 2 * BC * 4;
+  static constexpr int kDkdvSmem = 2 * kOwned * kE + 2 * kStageBytes;
   // dQ: Q, G owned; per stage k, v tiles
-  static constexpr int kDqSmem = 4 * (2 * kOwned + 2 * 2 * kTile);
+  static constexpr int kDqSmem = kE * (2 * kOwned + 2 * 2 * kTile);
   static_assert(kDkdvSmem <= kSmemLimit && kDqSmem <= kSmemLimit,
                 "shared memory plan exceeds the block limit");
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
@@ -107,7 +127,7 @@ __device__ __forceinline__ int at(int r, int c) {
   return r * LD + c;
 }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int n = valid ? 16 : 0;  // 0: nothing read, the 16 bytes zeroed
@@ -134,17 +154,18 @@ __device__ __forceinline__ void cp_wait() {
 
 // rows [r0, r0 + ROWS) of one head of a strided [B, T, H, D] tensor into a
 // tile; rows at or past `limit` are zero-filled
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* tile, const float* base,
+template <int D, int ROWS, typename E>
+__device__ __forceinline__ void load_tile(E* tile, const E* base,
                                           long long row_stride, int r0,
                                           int limit, int tid) {
-  constexpr int LD = Cfg<D>::LD;
-  constexpr int kChunks = D / 4;
+  constexpr int LD = Cfg<D, E>::LD;
+  constexpr int kPer = 16 / sizeof(E);  // elements a 16-byte copy moves
+  constexpr int kChunks = D / kPer;
   for (int idx = tid; idx < ROWS * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
-    const int c = (idx - r * kChunks) * 4;
+    const int c = (idx - r * kChunks) * kPer;
     const bool ok = r0 + r < limit;
-    const float* src = ok ? base + (long long)(r0 + r) * row_stride + c : base;
+    const E* src = ok ? base + (long long)(r0 + r) * row_stride + c : base;
     cp_async16(tile + at<LD>(r, c), src, ok);
   }
 }
@@ -180,49 +201,75 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a * b in 3xTF32: the small terms first, hi * hi last
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// two consecutive outputs, narrowed to E (bf16: round to nearest even)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// x as a split operand: a widened bf16 value is its own hi, lo = 0
+template <typename E>
+__device__ __forceinline__ void split_in(E x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kExact<E>) {
+    hi = __float_as_uint(widen(x));
+    lo = 0u;
+  } else {
+    split(x, hi, lo);
+  }
+}
+
+// d += a * b in 3xTF32: the small terms first, hi * hi last; the term of
+// an exact operand's lo (0) is left out
+template <bool EXACT_A = false, bool EXACT_B = false>
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
                                      const uint32_t (&alo)[4],
                                      const uint32_t (&bhi)[2],
                                      const uint32_t (&blo)[2]) {
-  mma(d, alo, bhi[0], bhi[1]);
-  mma(d, ahi, blo[0], blo[1]);
+  if constexpr (!EXACT_A) mma(d, alo, bhi[0], bhi[1]);
+  if constexpr (!EXACT_B) mma(d, ahi, blo[0], blo[1]);
   mma(d, ahi, bhi[0], bhi[1]);
 }
 
 // The A fragment (16 rows x 8 of D) of a tile at rows r0..r0+15,
 // k-step ks: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-template <int LD>
-__device__ __forceinline__ void frag_a(const float* tile, int r0, int ks,
+template <int LD, typename E>
+__device__ __forceinline__ void frag_a(const E* tile, int r0, int ks,
                                        int g, int t, uint32_t (&hi)[4],
                                        uint32_t (&lo)[4]) {
   const int c = ks * 8 + t;
-  split(tile[at<LD>(r0 + g, c)], hi[0], lo[0]);
-  split(tile[at<LD>(r0 + g + 8, c)], hi[1], lo[1]);
-  split(tile[at<LD>(r0 + g, c + 4)], hi[2], lo[2]);
-  split(tile[at<LD>(r0 + g + 8, c + 4)], hi[3], lo[3]);
+  split_in(tile[at<LD>(r0 + g, c)], hi[0], lo[0]);
+  split_in(tile[at<LD>(r0 + g + 8, c)], hi[1], lo[1]);
+  split_in(tile[at<LD>(r0 + g, c + 4)], hi[2], lo[2]);
+  split_in(tile[at<LD>(r0 + g + 8, c + 4)], hi[3], lo[3]);
 }
 
 // The B fragment reducing over D (n = tile rows n0..n0+7, k-step ks):
 // b0 (k t, n g), b1 (k t + 4, n g)
-template <int LD>
-__device__ __forceinline__ void frag_b_d(const float* tile, int n0, int ks,
+template <int LD, typename E>
+__device__ __forceinline__ void frag_b_d(const E* tile, int n0, int ks,
                                          int g, int t, uint32_t (&hi)[2],
                                          uint32_t (&lo)[2]) {
   const int c = ks * 8 + t;
-  split(tile[at<LD>(n0 + g, c)], hi[0], lo[0]);
-  split(tile[at<LD>(n0 + g, c + 4)], hi[1], lo[1]);
+  split_in(tile[at<LD>(n0 + g, c)], hi[0], lo[0]);
+  split_in(tile[at<LD>(n0 + g, c + 4)], hi[1], lo[1]);
 }
 
 // The B fragment reducing over the tile's rows with the permuted k
 // (k t <-> row k0 + 2t, k t + 4 <-> row k0 + 2t + 1), n = D columns
 // n0..n0+7
-template <int LD>
-__device__ __forceinline__ void frag_b_rows(const float* tile, int k0, int n0,
+template <int LD, typename E>
+__device__ __forceinline__ void frag_b_rows(const E* tile, int k0, int n0,
                                             int g, int t, uint32_t (&hi)[2],
                                             uint32_t (&lo)[2]) {
-  split(tile[at<LD>(k0 + 2 * t, n0 + g)], hi[0], lo[0]);
-  split(tile[at<LD>(k0 + 2 * t + 1, n0 + g)], hi[1], lo[1]);
+  split_in(tile[at<LD>(k0 + 2 * t, n0 + g)], hi[0], lo[0]);
+  split_in(tile[at<LD>(k0 + 2 * t + 1, n0 + g)], hi[1], lo[1]);
 }
 
 // An accumulator n-tile as the A fragment of the permuted k-step
@@ -235,22 +282,24 @@ __device__ __forceinline__ void acc_as_a(const float (&c)[4],
   split(c[3], hi[3], lo[3]);  // (g + 8, 2t + 1)
 }
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ g,
+flash_bwd_dkdv_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                      const E* __restrict__ v, const E* __restrict__ g,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
-                      const int* __restrict__ kv_len, float* __restrict__ dk,
-                      float* __restrict__ dv, int T, int H, Strides st,
+                      const int* __restrict__ kv_len, E* __restrict__ dk,
+                      E* __restrict__ dv, int T, int H, Strides st,
                       float scale, int causal) {
-  using C = Cfg<D>;
+  using C = Cfg<D, E>;
   constexpr int BC = C::BC, LD = C::LD, NT = C::NT, ND = C::ND;
+  constexpr bool kEx = kExact<E>;
   extern __shared__ __align__(16) float smem[];
-  float* ks_t = smem;                   // K [kRows, LD]
-  float* vs_t = ks_t + C::kOwned;       // V [kRows, LD]
-  float* ring = vs_t + C::kOwned;       // per stage: q, g tiles, lse, delta
-  constexpr int kStage = 2 * C::kTile + 2 * BC;
+  E* ks_t = reinterpret_cast<E*>(smem);  // K [kRows, LD]
+  E* vs_t = ks_t + C::kOwned;            // V [kRows, LD]
+  // per stage: q, g tiles (E), then the lse and delta rows (f32)
+  unsigned char* ring = reinterpret_cast<unsigned char*>(vs_t + C::kOwned);
+  constexpr int kStage = C::kStageBytes;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -262,10 +311,10 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int wr = warp * 16;  // this warp's rows of the key tile
   int len = kv_len ? kv_len[b] : T;
   len = max(0, min(len, T));
-  const float* qb = q + b * st.qsb + h * st.qsh;
-  const float* kb = k + b * st.ksb + h * st.ksh;
-  const float* vb = v + b * st.vsb + h * st.vsh;
-  const float* gb = g + b * st.gsb + h * st.gsh;
+  const E* qb = q + b * st.qsb + h * st.qsh;
+  const E* kb = k + b * st.ksb + h * st.ksh;
+  const E* vb = v + b * st.vsb + h * st.vsh;
+  const E* gb = g + b * st.gsb + h * st.gsh;
   const float* lse_row = lse + (long long)bh * T;
   const float* delta_row = delta + (long long)bh * T;
 
@@ -285,12 +334,13 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_tile<D, kRows>(ks_t, kb, st.kst, k0, len, tid);
     load_tile<D, kRows>(vs_t, vb, st.vst, k0, len, tid);
     auto load_stage = [&](int tile, int s) {
-      float* base = ring + s * kStage;
+      E* base = reinterpret_cast<E*>(ring + s * kStage);
+      float* rows = reinterpret_cast<float*>(base + 2 * C::kTile);
       const int q0 = tile * BC;
       load_tile<D, BC>(base, qb, st.qst, q0, T, tid);
       load_tile<D, BC>(base + C::kTile, gb, st.gst, q0, T, tid);
-      load_vec(base + 2 * C::kTile, lse_row, q0, BC, T, tid);
-      load_vec(base + 2 * C::kTile + BC, delta_row, q0, BC, T, tid);
+      load_vec(rows, lse_row, q0, BC, T, tid);
+      load_vec(rows + BC, delta_row, q0, BC, T, tid);
     };
     load_stage(first, 0);
     cp_commit();
@@ -305,9 +355,9 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         cp_wait<0>();
       }
       __syncthreads();
-      const float* qs = ring + s * kStage;
-      const float* gs = qs + C::kTile;
-      const float* ls = gs + C::kTile;
+      const E* qs = reinterpret_cast<const E*>(ring + s * kStage);
+      const E* gs = qs + C::kTile;
+      const float* ls = reinterpret_cast<const float*>(gs + C::kTile);
       const float* ds_row = ls + BC;
       const int q0 = tile * BC;
 
@@ -326,9 +376,9 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int n = 0; n < NT; ++n) {
           uint32_t bhi[2], blo[2];
           frag_b_d<LD>(qs, n * 8, kk, gi, ti, bhi, blo);
-          mma3(sa[n], khi, klo, bhi, blo);
+          mma3<kEx, kEx>(sa[n], khi, klo, bhi, blo);
           frag_b_d<LD>(gs, n * 8, kk, gi, ti, bhi, blo);
-          mma3(pa[n], vhi, vlo, bhi, blo);
+          mma3<kEx, kEx>(pa[n], vhi, vlo, bhi, blo);
         }
       }
 
@@ -360,9 +410,9 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int n = 0; n < ND; ++n) {
           uint32_t bhi[2], blo[2];
           frag_b_rows<LD>(gs, j * 8, n * 8, gi, ti, bhi, blo);
-          mma3(dva[n], phi, plo, bhi, blo);
+          mma3<false, kEx>(dva[n], phi, plo, bhi, blo);
           frag_b_rows<LD>(qs, j * 8, n * 8, gi, ti, bhi, blo);
-          mma3(dka[n], shi, slo, bhi, blo);
+          mma3<false, kEx>(dka[n], shi, slo, bhi, blo);
         }
       }
       __syncthreads();  // this stage is consumed before it is refilled
@@ -378,30 +428,29 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       const int c = n * 8 + 2 * ti;
-      *reinterpret_cast<float2*>(dk + off + c) =
-          make_float2(dka[n][2 * half], dka[n][2 * half + 1]);
-      *reinterpret_cast<float2*>(dv + off + c) =
-          make_float2(dva[n][2 * half], dva[n][2 * half + 1]);
+      store2(dk + off + c, dka[n][2 * half], dka[n][2 * half + 1]);
+      store2(dv + off + c, dva[n][2 * half], dva[n][2 * half + 1]);
     }
   }
 }
 
 // at least 2 blocks an SM: without that floor ptxas held the D = 64
 // variant to 128 registers (4 blocks) and spilled
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ g,
+flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                    const E* __restrict__ v, const E* __restrict__ g,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const int* __restrict__ kv_len, float* __restrict__ dq,
+                    const int* __restrict__ kv_len, E* __restrict__ dq,
                     int T, int H, Strides st, float scale, int causal) {
-  using C = Cfg<D>;
+  using C = Cfg<D, E>;
   constexpr int BC = C::BC, LD = C::LD, NT = C::NT, ND = C::ND;
+  constexpr bool kEx = kExact<E>;
   extern __shared__ __align__(16) float smem[];
-  float* qs_t = smem;                   // Q [kRows, LD]
-  float* gs_t = qs_t + C::kOwned;       // G [kRows, LD]
-  float* ring = gs_t + C::kOwned;       // per stage: k, v tiles
+  E* qs_t = reinterpret_cast<E*>(smem);  // Q [kRows, LD]
+  E* gs_t = qs_t + C::kOwned;            // G [kRows, LD]
+  E* ring = gs_t + C::kOwned;            // per stage: k, v tiles
   constexpr int kStage = 2 * C::kTile;
 
   const int bh = blockIdx.x;
@@ -416,8 +465,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int wr = warp * 16;  // this warp's rows of the query tile
   int len = kv_len ? kv_len[b] : T;
   len = max(0, min(len, T));
-  const float* kb = k + b * st.ksb + h * st.ksh;
-  const float* vb = v + b * st.vsb + h * st.vsh;
+  const E* kb = k + b * st.ksb + h * st.ksh;
+  const E* vb = v + b * st.vsb + h * st.vsh;
 
   // the lse and delta of this thread's two rows
   float lse_r[2], delta_r[2];
@@ -442,7 +491,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_tile<D, kRows>(qs_t, q + b * st.qsb + h * st.qsh, st.qst, q0, T, tid);
     load_tile<D, kRows>(gs_t, g + b * st.gsb + h * st.gsh, st.gst, q0, T, tid);
     auto load_stage = [&](int tile, int s) {
-      float* base = ring + s * kStage;
+      E* base = ring + s * kStage;
       load_tile<D, BC>(base, kb, st.kst, tile * BC, len, tid);
       load_tile<D, BC>(base + C::kTile, vb, st.vst, tile * BC, len, tid);
     };
@@ -459,8 +508,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         cp_wait<0>();
       }
       __syncthreads();
-      const float* kt = ring + s * kStage;
-      const float* vt = kt + C::kTile;
+      const E* kt = ring + s * kStage;
+      const E* vt = kt + C::kTile;
       const int kk0 = tile * BC;
 
       // S = Q K^T and dP = G V^T for this warp's 16 queries x BC keys
@@ -478,9 +527,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int n = 0; n < NT; ++n) {
           uint32_t bhi[2], blo[2];
           frag_b_d<LD>(kt, n * 8, kk, gi, ti, bhi, blo);
-          mma3(sa[n], qhi, qlo, bhi, blo);
+          mma3<kEx, kEx>(sa[n], qhi, qlo, bhi, blo);
           frag_b_d<LD>(vt, n * 8, kk, gi, ti, bhi, blo);
-          mma3(pa[n], ghi, glo, bhi, blo);
+          mma3<kEx, kEx>(pa[n], ghi, glo, bhi, blo);
         }
       }
 
@@ -511,7 +560,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int n = 0; n < ND; ++n) {
           uint32_t bhi[2], blo[2];
           frag_b_rows<LD>(kt, j * 8, n * 8, gi, ti, bhi, blo);
-          mma3(dqa[n], shi, slo, bhi, blo);
+          mma3<false, kEx>(dqa[n], shi, slo, bhi, blo);
         }
       }
       __syncthreads();  // this stage is consumed before it is refilled
@@ -525,8 +574,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const long long off = (((long long)b * T + qp) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<float2*>(dq + off + n * 8 + 2 * ti) =
-          make_float2(dqa[n][2 * half], dqa[n][2 * half + 1]);
+      store2(dq + off + n * 8 + 2 * ti, dqa[n][2 * half],
+             dqa[n][2 * half + 1]);
     }
   }
 }
@@ -542,37 +591,37 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
   return err;
 }
 
-template <int D>
-cudaError_t launch_dkdv(const float* q, const float* k, const float* v,
-                        const float* g, const float* lse, const float* delta,
-                        const int* kv_len, float* dk, float* dv, int B, int T,
-                        int H, const Strides& st, float scale, int causal,
+template <int D, typename E>
+cudaError_t launch_dkdv(const E* q, const E* k, const E* v, const E* g,
+                        const float* lse, const float* delta,
+                        const int* kv_len, E* dk, E* dv, int B, int T, int H,
+                        const Strides& st, float scale, int causal,
                         cudaStream_t stream) {
   static bool ready = false;
-  constexpr int bytes = Cfg<D>::kDkdvSmem;
-  const cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<D>, bytes, ready);
+  constexpr int bytes = Cfg<D, E>::kDkdvSmem;
+  const cudaError_t err =
+      allow_smem(flash_bwd_dkdv_kernel<D, E>, bytes, ready);
   if (err != cudaSuccess) return err;
   // blocks start in index order, x fastest: the heads inside a tile index,
   // so the causal mask's longest blocks (the first key tiles) start first
   // and the shortest fill the last wave
   dim3 grid(B * H, (T + kRows - 1) / kRows);
-  flash_bwd_dkdv_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_bwd_dkdv_kernel<D, E><<<grid, kThreads, bytes, stream>>>(
       q, k, v, g, lse, delta, kv_len, dk, dv, T, H, st, scale, causal);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq(const float* q, const float* k, const float* v,
-                      const float* g, const float* lse, const float* delta,
-                      const int* kv_len, float* dq, int B, int T, int H,
-                      const Strides& st, float scale, int causal,
-                      cudaStream_t stream) {
+template <int D, typename E>
+cudaError_t launch_dq(const E* q, const E* k, const E* v, const E* g,
+                      const float* lse, const float* delta, const int* kv_len,
+                      E* dq, int B, int T, int H, const Strides& st,
+                      float scale, int causal, cudaStream_t stream) {
   static bool ready = false;
-  constexpr int bytes = Cfg<D>::kDqSmem;
-  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, bytes, ready);
+  constexpr int bytes = Cfg<D, E>::kDqSmem;
+  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, E>, bytes, ready);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (T + kRows - 1) / kRows);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_bwd_dq_kernel<D, E><<<grid, kThreads, bytes, stream>>>(
       q, k, v, g, lse, delta, kv_len, dq, T, H, st, scale, causal);
   return cudaGetLastError();
 }
@@ -585,22 +634,12 @@ Strides make_strides(long long qsb, long long qst, long long qsh,
   return st;
 }
 
-}  // namespace
-
-// q, k, v, g: fp32 [B, T, H, D] with the given element strides (the last
-// dim contiguous, every row 16-byte aligned); lse, delta: fp32 [B, H, T]
-// contiguous; kv_len: int32 [B] or null (all T); dk, dv: fp32 [B, T, H, D]
-// contiguous. Returns the cudaError_t of the launch.
-extern "C" int ptt_flash_attention_bwd_dkdv(
-    const float* q, const float* k, const float* v, const float* g,
-    const float* lse, const float* delta, const int* kv_len, float* dk,
-    float* dv, int B, int T, int H, int D, long long qsb, long long qst,
-    long long qsh, long long ksb, long long kst, long long ksh, long long vsb,
-    long long vst, long long vsh, long long gsb, long long gst, long long gsh,
-    float scale, int causal, void* stream) {
+template <typename E>
+int dkdv_entry(const E* q, const E* k, const E* v, const E* g,
+               const float* lse, const float* delta, const int* kv_len,
+               E* dk, E* dv, int B, int T, int H, int D, const Strides& st,
+               float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides st = make_strides(qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
-                                  gsb, gst, gsh);
   cudaError_t err;
   switch (D) {
     case 16:
@@ -625,17 +664,12 @@ extern "C" int ptt_flash_attention_bwd_dkdv(
   return static_cast<int>(err);
 }
 
-// The same inputs; dq: fp32 [B, T, H, D] contiguous.
-extern "C" int ptt_flash_attention_bwd_dq(
-    const float* q, const float* k, const float* v, const float* g,
-    const float* lse, const float* delta, const int* kv_len, float* dq,
-    int B, int T, int H, int D, long long qsb, long long qst, long long qsh,
-    long long ksb, long long kst, long long ksh, long long vsb, long long vst,
-    long long vsh, long long gsb, long long gst, long long gsh, float scale,
-    int causal, void* stream) {
+template <typename E>
+int dq_entry(const E* q, const E* k, const E* v, const E* g,
+             const float* lse, const float* delta, const int* kv_len, E* dq,
+             int B, int T, int H, int D, const Strides& st, float scale,
+             int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides st = make_strides(qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
-                                  gsb, gst, gsh);
   cudaError_t err;
   switch (D) {
     case 16:
@@ -658,4 +692,71 @@ extern "C" int ptt_flash_attention_bwd_dq(
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+using bf = __nv_bfloat16;
+
+}  // namespace
+
+// q, k, v, g: fp32 [B, T, H, D] with the given element strides (the last
+// dim contiguous, every row 16-byte aligned); lse, delta: fp32 [B, H, T]
+// contiguous; kv_len: int32 [B] or null (all T); dk, dv: fp32 [B, T, H, D]
+// contiguous. Returns the cudaError_t of the launch.
+extern "C" int ptt_flash_attention_bwd_dkdv(
+    const float* q, const float* k, const float* v, const float* g,
+    const float* lse, const float* delta, const int* kv_len, float* dk,
+    float* dv, int B, int T, int H, int D, long long qsb, long long qst,
+    long long qsh, long long ksb, long long kst, long long ksh, long long vsb,
+    long long vst, long long vsh, long long gsb, long long gst, long long gsh,
+    float scale, int causal, void* stream) {
+  const Strides st = make_strides(qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
+                                  gsb, gst, gsh);
+  return dkdv_entry(q, k, v, g, lse, delta, kv_len, dk, dv, B, T, H, D, st,
+                    scale, causal, stream);
+}
+
+// The same with q, k, v, g, dk and dv bf16 (lse, delta fp32).
+extern "C" int ptt_flash_attention_bwd_dkdv_bf16(
+    const void* q, const void* k, const void* v, const void* g,
+    const float* lse, const float* delta, const int* kv_len, void* dk,
+    void* dv, int B, int T, int H, int D, long long qsb, long long qst,
+    long long qsh, long long ksb, long long kst, long long ksh, long long vsb,
+    long long vst, long long vsh, long long gsb, long long gst, long long gsh,
+    float scale, int causal, void* stream) {
+  const Strides st = make_strides(qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
+                                  gsb, gst, gsh);
+  return dkdv_entry(static_cast<const bf*>(q), static_cast<const bf*>(k),
+                    static_cast<const bf*>(v), static_cast<const bf*>(g), lse,
+                    delta, kv_len, static_cast<bf*>(dk), static_cast<bf*>(dv),
+                    B, T, H, D, st, scale, causal, stream);
+}
+
+// The same inputs; dq: fp32 [B, T, H, D] contiguous.
+extern "C" int ptt_flash_attention_bwd_dq(
+    const float* q, const float* k, const float* v, const float* g,
+    const float* lse, const float* delta, const int* kv_len, float* dq,
+    int B, int T, int H, int D, long long qsb, long long qst, long long qsh,
+    long long ksb, long long kst, long long ksh, long long vsb, long long vst,
+    long long vsh, long long gsb, long long gst, long long gsh, float scale,
+    int causal, void* stream) {
+  const Strides st = make_strides(qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
+                                  gsb, gst, gsh);
+  return dq_entry(q, k, v, g, lse, delta, kv_len, dq, B, T, H, D, st, scale,
+                  causal, stream);
+}
+
+// The same with q, k, v, g and dq bf16 (lse, delta fp32).
+extern "C" int ptt_flash_attention_bwd_dq_bf16(
+    const void* q, const void* k, const void* v, const void* g,
+    const float* lse, const float* delta, const int* kv_len, void* dq, int B,
+    int T, int H, int D, long long qsb, long long qst, long long qsh,
+    long long ksb, long long kst, long long ksh, long long vsb, long long vst,
+    long long vsh, long long gsb, long long gst, long long gsh, float scale,
+    int causal, void* stream) {
+  const Strides st = make_strides(qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
+                                  gsb, gst, gsh);
+  return dq_entry(static_cast<const bf*>(q), static_cast<const bf*>(k),
+                  static_cast<const bf*>(v), static_cast<const bf*>(g), lse,
+                  delta, kv_len, static_cast<bf*>(dq), B, T, H, D, st, scale,
+                  causal, stream);
 }

@@ -1,4 +1,4 @@
-// Flash attention forward, fp32, for Hopper (sm_90a).
+// Flash attention forward, fp32 or bf16, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py
 // `_flash_fwd_kernel` (:64, launched by `_flash_fwd` :116): exact softmax
@@ -64,6 +64,22 @@
 // transpose), masks the ragged T edge itself, and allocates nothing. A row
 // whose key length is 0 gives out = 0 and lse = -1e30 + log(1e-30), the
 // TPU kernel's `l_safe` values.
+//
+// bf16 (mixed precision). The kernel is a template on the element type E
+// of q, k, v and out, as the TPU kernel takes bf16 tiles, widens them to
+// f32 and writes out in the input's dtype (lse stays f32). K and V tiles
+// reach shared memory as bf16 through the same cp.async ring (a copy
+// cannot convert), [rows, D + 8] bf16: the row pitch is again an odd number
+// of 16-byte chunks, and the fragment reads are free of bank conflicts
+// (two lanes that read the two halves of one word share it). They widen to
+// f32 as the fragments load; Q widens as it is scaled and split. A bf16
+// value is exact in TF32 (8 significant bits against 11), so its lo term
+// is 0: a product with a bf16 operand drops that operand's lo product,
+// exactly (Q K^T and P V take two TF32 products, not three). Every
+// product and sum stays f32; P is not rounded to bf16 before P V (the TPU
+// kernel multiplies it in f32). out narrows to bf16 (round to nearest
+// even) only at its store.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -76,17 +92,23 @@ constexpr int kRows = kWarps * 16;     // query rows per block: 64
 constexpr int kSmemLimit = 232448;     // bytes of shared memory a block may use
 constexpr float kNeg = -1e30f;         // the masked score and empty-row max
 
-template <int D>
+// a bf16 operand is exact in TF32: its lo term is 0
+template <typename E>
+constexpr bool kExact = sizeof(E) == 2;
+
+template <int D, typename E>
 struct Cfg {
   static constexpr int BC = 32;                    // keys per streamed tile
-  static constexpr int LD = D + 4;                 // words per smem row
+  static constexpr int LD = D + 16 / sizeof(E);    // elements per K/V row
+  static constexpr int LDQ = D + 4;                // words per Q row
   static constexpr int KS = D / 8;                 // k-steps over D
   static constexpr int NT = BC / 8;                // n-tiles over a tile
   static constexpr int ND = D / 8;                 // n-tiles over D
-  static constexpr int kTile = BC * LD;            // words of one tile
-  static constexpr int kOwned = kRows * LD;        // words of the Q tile
+  static constexpr int kTile = BC * LD;            // elements of one tile
+  static constexpr int kOwned = kRows * LDQ;       // words of a Q tile
   // Q's hi and lo tiles; per stage the k and v tiles
-  static constexpr int kSmem = 4 * (2 * kOwned + 2 * 2 * kTile);
+  static constexpr int kSmem =
+      4 * 2 * kOwned + 2 * 2 * kTile * (int)sizeof(E);
   static_assert(kSmem <= kSmemLimit,
                 "shared memory plan exceeds the block limit");
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
@@ -102,7 +124,7 @@ __device__ __forceinline__ int at(int r, int c) {
   return r * LD + c;
 }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int n = valid ? 16 : 0;  // 0: nothing read, the 16 bytes zeroed
@@ -121,19 +143,46 @@ __device__ __forceinline__ void cp_wait() {
 
 // rows [r0, r0 + ROWS) of one head of a strided [B, T, H, D] tensor into a
 // tile; rows at or past `limit` are zero-filled
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* tile, const float* base,
+template <int D, int ROWS, typename E>
+__device__ __forceinline__ void load_tile(E* tile, const E* base,
                                           long long row_stride, int r0,
                                           int limit, int tid) {
-  constexpr int LD = Cfg<D>::LD;
-  constexpr int kChunks = D / 4;
+  constexpr int LD = Cfg<D, E>::LD;
+  constexpr int kPer = 16 / sizeof(E);  // elements a 16-byte copy moves
+  constexpr int kChunks = D / kPer;
   for (int idx = tid; idx < ROWS * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
-    const int c = (idx - r * kChunks) * 4;
+    const int c = (idx - r * kChunks) * kPer;
     const bool ok = r0 + r < limit;
-    const float* src = ok ? base + (long long)(r0 + r) * row_stride + c : base;
+    const E* src = ok ? base + (long long)(r0 + r) * row_stride + c : base;
     cp_async16(tile + at<LD>(r, c), src, ok);
   }
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// four consecutive elements at p (8- or 16-byte aligned), widened
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  // the element at the lower address is the low half of each word
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xFFFF0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xFFFF0000u));
+}
+
+// two consecutive outputs, narrowed to E (bf16: round to nearest even)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from
@@ -157,13 +206,26 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a * b in 3xTF32: the small terms first, hi * hi last
+// x as a split operand: a widened bf16 value is its own hi, lo = 0
+template <typename E>
+__device__ __forceinline__ void split_in(E x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kExact<E>) {
+    hi = __float_as_uint(widen(x));
+    lo = 0u;
+  } else {
+    split(x, hi, lo);
+  }
+}
+
+// d += a * b in 3xTF32: the small terms first, hi * hi last; the term of
+// an exact operand's lo (0) is left out
+template <bool EXACT_A = false, bool EXACT_B = false>
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
                                      const uint32_t (&alo)[4],
                                      const uint32_t (&bhi)[2],
                                      const uint32_t (&blo)[2]) {
-  mma(d, alo, bhi[0], bhi[1]);
-  mma(d, ahi, blo[0], blo[1]);
+  if constexpr (!EXACT_A) mma(d, alo, bhi[0], bhi[1]);
+  if constexpr (!EXACT_B) mma(d, ahi, blo[0], blo[1]);
   mma(d, ahi, bhi[0], bhi[1]);
 }
 
@@ -190,24 +252,24 @@ __device__ __forceinline__ void frag_a_split(const uint32_t* hi_t,
 
 // The B fragment reducing over D (n = tile rows n0..n0+7, k-step ks):
 // b0 (k t, n g), b1 (k t + 4, n g)
-template <int LD>
-__device__ __forceinline__ void frag_b_d(const float* tile, int n0, int ks,
+template <int LD, typename E>
+__device__ __forceinline__ void frag_b_d(const E* tile, int n0, int ks,
                                          int g, int t, uint32_t (&hi)[2],
                                          uint32_t (&lo)[2]) {
   const int c = ks * 8 + t;
-  split(tile[at<LD>(n0 + g, c)], hi[0], lo[0]);
-  split(tile[at<LD>(n0 + g, c + 4)], hi[1], lo[1]);
+  split_in(tile[at<LD>(n0 + g, c)], hi[0], lo[0]);
+  split_in(tile[at<LD>(n0 + g, c + 4)], hi[1], lo[1]);
 }
 
 // The B fragment reducing over the tile's rows with the permuted k
 // (k t <-> row k0 + 2t, k t + 4 <-> row k0 + 2t + 1), n = D columns
 // n0..n0+7
-template <int LD>
-__device__ __forceinline__ void frag_b_rows(const float* tile, int k0, int n0,
+template <int LD, typename E>
+__device__ __forceinline__ void frag_b_rows(const E* tile, int k0, int n0,
                                             int g, int t, uint32_t (&hi)[2],
                                             uint32_t (&lo)[2]) {
-  split(tile[at<LD>(k0 + 2 * t, n0 + g)], hi[0], lo[0]);
-  split(tile[at<LD>(k0 + 2 * t + 1, n0 + g)], hi[1], lo[1]);
+  split_in(tile[at<LD>(k0 + 2 * t, n0 + g)], hi[0], lo[0]);
+  split_in(tile[at<LD>(k0 + 2 * t + 1, n0 + g)], hi[1], lo[1]);
 }
 
 // An accumulator n-tile as the A fragment of the permuted k-step
@@ -220,18 +282,20 @@ __device__ __forceinline__ void acc_as_a(const float (&c)[4],
   split(c[3], hi[3], lo[3]);  // (g + 8, 2t + 1)
 }
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ kv_len,
-                 float* __restrict__ out, float* __restrict__ lse, int T,
+flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                 const E* __restrict__ v, const int* __restrict__ kv_len,
+                 E* __restrict__ out, float* __restrict__ lse, int T,
                  int H, Strides st, float scale, int causal) {
-  using C = Cfg<D>;
-  constexpr int BC = C::BC, LD = C::LD, NT = C::NT, ND = C::ND;
+  using C = Cfg<D, E>;
+  constexpr int BC = C::BC, LD = C::LD, LDQ = C::LDQ, NT = C::NT,
+                ND = C::ND;
+  constexpr bool kEx = kExact<E>;
   extern __shared__ __align__(16) float smem[];
-  uint32_t* qhi_t = reinterpret_cast<uint32_t*>(smem);  // Q hi [kRows, LD]
-  uint32_t* qlo_t = qhi_t + C::kOwned;                   // Q lo [kRows, LD]
-  float* ring = smem + 2 * C::kOwned;                    // per stage: k, v
+  uint32_t* qhi_t = reinterpret_cast<uint32_t*>(smem);  // Q hi [kRows, LDQ]
+  uint32_t* qlo_t = qhi_t + C::kOwned;                   // Q lo [kRows, LDQ]
+  E* ring = reinterpret_cast<E*>(smem + 2 * C::kOwned);  // per stage: k, v
   constexpr int kStage = 2 * C::kTile;
 
   const int bh = blockIdx.x;
@@ -246,8 +310,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int wr = warp * 16;  // this warp's rows of the query tile
   int len = kv_len ? kv_len[b] : T;
   len = max(0, min(len, T));
-  const float* kb = k + b * st.ksb + h * st.ksh;
-  const float* vb = v + b * st.vsb + h * st.vsh;
+  const E* kb = k + b * st.ksb + h * st.ksh;
+  const E* vb = v + b * st.vsb + h * st.vsh;
 
   // this thread's rows gi and gi + 8: O's fragments (columns 2t and 2t + 1
   // of each n-tile), the running max and the thread's share of the
@@ -267,31 +331,30 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (n_tiles > 0) {
     auto load_stage = [&](int tile, int s) {
-      float* base = ring + s * kStage;
+      E* base = ring + s * kStage;
       load_tile<D, BC>(base, kb, st.kst, tile * BC, len, tid);
       load_tile<D, BC>(base + C::kTile, vb, st.vst, tile * BC, len, tid);
     };
     load_stage(0, 0);
     cp_commit();
 
-    // Q * scale, split once into its hi and lo tiles while the first K/V
-    // stage loads; rows past T are zero
-    const float* qb = q + b * st.qsb + h * st.qsh;
+    // Q * scale (in f32, so not exact in TF32 even from bf16), split once
+    // into its hi and lo tiles while the first K/V stage loads; rows past
+    // T are zero
+    const E* qb = q + b * st.qsb + h * st.qsh;
     constexpr int kChunks = D / 4;
     for (int idx = tid; idx < kRows * kChunks; idx += kThreads) {
       const int r = idx / kChunks;
       const int c = (idx - r * kChunks) * 4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (q0 + r < T)
-        x = *reinterpret_cast<const float4*>(
-            qb + (long long)(q0 + r) * st.qst + c);
+      if (q0 + r < T) x = load4(qb + (long long)(q0 + r) * st.qst + c);
       uint4 hi, lo;
       split(x.x * scale, hi.x, lo.x);
       split(x.y * scale, hi.y, lo.y);
       split(x.z * scale, hi.z, lo.z);
       split(x.w * scale, hi.w, lo.w);
-      *reinterpret_cast<uint4*>(qhi_t + at<LD>(r, c)) = hi;
-      *reinterpret_cast<uint4*>(qlo_t + at<LD>(r, c)) = lo;
+      *reinterpret_cast<uint4*>(qhi_t + at<LDQ>(r, c)) = hi;
+      *reinterpret_cast<uint4*>(qlo_t + at<LDQ>(r, c)) = lo;
     }
 
     for (int tile = 0; tile < n_tiles; ++tile) {
@@ -304,8 +367,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         cp_wait<0>();
       }
       __syncthreads();  // this stage (and, first, the Q tiles) is in place
-      const float* kt = ring + s * kStage;
-      const float* vt = kt + C::kTile;
+      const E* kt = ring + s * kStage;
+      const E* vt = kt + C::kTile;
       const int kk0 = tile * BC;
 
       // S = (Q * scale) K^T for this warp's 16 queries x BC keys
@@ -317,12 +380,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int ks = 0; ks < C::KS; ++ks) {
         uint32_t qhi[4], qlo[4];
-        frag_a_split<LD>(qhi_t, qlo_t, wr, ks, gi, ti, qhi, qlo);
+        frag_a_split<LDQ>(qhi_t, qlo_t, wr, ks, gi, ti, qhi, qlo);
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           uint32_t bhi[2], blo[2];
           frag_b_d<LD>(kt, n * 8, ks, gi, ti, bhi, blo);
-          mma3(sa[n], qhi, qlo, bhi, blo);
+          mma3<false, kEx>(sa[n], qhi, qlo, bhi, blo);
         }
       }
 
@@ -375,7 +438,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int n = 0; n < ND; ++n) {
           uint32_t bhi[2], blo[2];
           frag_b_rows<LD>(vt, j * 8, n * 8, gi, ti, bhi, blo);
-          mma3(oa[n], phi, plo, bhi, blo);
+          mma3<false, kEx>(oa[n], phi, plo, bhi, blo);
         }
       }
       __syncthreads();  // this stage is consumed before it is refilled
@@ -394,8 +457,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const long long off = (((long long)b * T + qp) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<float2*>(out + off + n * 8 + 2 * ti) =
-          make_float2(oa[n][2 * half] / l_safe, oa[n][2 * half + 1] / l_safe);
+      store2(out + off + n * 8 + 2 * ti, oa[n][2 * half] / l_safe,
+             oa[n][2 * half + 1] / l_safe);
     }
     if (ti == 0) lse[(long long)bh * T + qp] = m_r[half] + logf(l_safe);
   }
@@ -412,38 +475,28 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
   return err;
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const int* kv_len, float* out, float* lse, int B, int T,
-                   int H, const Strides& st, float scale, int causal,
-                   cudaStream_t stream) {
+template <int D, typename E>
+cudaError_t launch(const E* q, const E* k, const E* v, const int* kv_len,
+                   E* out, float* lse, int B, int T, int H, const Strides& st,
+                   float scale, int causal, cudaStream_t stream) {
   static bool ready = false;
-  constexpr int bytes = Cfg<D>::kSmem;
-  const cudaError_t err = allow_smem(flash_fwd_kernel<D>, bytes, ready);
+  constexpr int bytes = Cfg<D, E>::kSmem;
+  const cudaError_t err = allow_smem(flash_fwd_kernel<D, E>, bytes, ready);
   if (err != cudaSuccess) return err;
   // blocks start in index order, x fastest: the heads inside a query tile
   // index, so the causal mask's longest blocks (the last query tiles)
   // start first and the shortest fill the last wave
   dim3 grid(B * H, (T + kRows - 1) / kRows);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_kernel<D, E><<<grid, kThreads, bytes, stream>>>(
       q, k, v, kv_len, out, lse, T, H, st, scale, causal);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// q, k, v: fp32 [B, T, H, D] with the given element strides (the last dim
-// contiguous, every row 16-byte aligned); kv_len: int32 [B] or null (all
-// T); out: fp32 [B, T, H, D] contiguous; lse: fp32 [B, H, T] contiguous.
-// Returns the cudaError_t of the launch.
-extern "C" int ptt_flash_attention_fwd(
-    const float* q, const float* k, const float* v, const int* kv_len,
-    float* out, float* lse, int B, int T, int H, int D, long long qsb,
-    long long qst, long long qsh, long long ksb, long long kst, long long ksh,
-    long long vsb, long long vst, long long vsh, float scale, int causal,
-    void* stream) {
+template <typename E>
+int fwd_entry(const E* q, const E* k, const E* v, const int* kv_len, E* out,
+              float* lse, int B, int T, int H, int D, const Strides& st,
+              float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides st = {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh};
   cudaError_t err;
   switch (D) {
     case 16:
@@ -466,4 +519,35 @@ extern "C" int ptt_flash_attention_fwd(
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// q, k, v: fp32 [B, T, H, D] with the given element strides (the last dim
+// contiguous, every row 16-byte aligned); kv_len: int32 [B] or null (all
+// T); out: fp32 [B, T, H, D] contiguous; lse: fp32 [B, H, T] contiguous.
+// Returns the cudaError_t of the launch.
+extern "C" int ptt_flash_attention_fwd(
+    const float* q, const float* k, const float* v, const int* kv_len,
+    float* out, float* lse, int B, int T, int H, int D, long long qsb,
+    long long qst, long long qsh, long long ksb, long long kst, long long ksh,
+    long long vsb, long long vst, long long vsh, float scale, int causal,
+    void* stream) {
+  const Strides st = {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh};
+  return fwd_entry(q, k, v, kv_len, out, lse, B, T, H, D, st, scale, causal,
+                   stream);
+}
+
+// The same with q, k, v and out bf16 (lse fp32).
+extern "C" int ptt_flash_attention_fwd_bf16(
+    const void* q, const void* k, const void* v, const int* kv_len,
+    void* out, float* lse, int B, int T, int H, int D, long long qsb,
+    long long qst, long long qsh, long long ksb, long long kst, long long ksh,
+    long long vsb, long long vst, long long vsh, float scale, int causal,
+    void* stream) {
+  using bf = __nv_bfloat16;
+  const Strides st = {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh};
+  return fwd_entry(static_cast<const bf*>(q), static_cast<const bf*>(k),
+                   static_cast<const bf*>(v), kv_len, static_cast<bf*>(out),
+                   lse, B, T, H, D, st, scale, causal, stream);
 }

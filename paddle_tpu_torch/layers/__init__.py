@@ -2,10 +2,11 @@
 schedules call)."""
 from .io import data  # noqa: F401
 from .nn import (accuracy, autoincreased_step_counter,  # noqa: F401
-                 batch_norm, conv2d, cos_sim, cross_entropy, embedding, fc,
-                 fused_attention, layer_norm, lrn, matmul, one_hot, pool2d,
-                 reduce_sum, sequence_mask, softmax,
-                 softmax_with_cross_entropy, square_error_cost, transpose)
+                 batch_norm, conv2d, cos_sim, cross_entropy, dropout,
+                 embedding, fc, fused_attention, label_smooth, layer_norm,
+                 lrn, matmul, one_hot, pool2d, reduce_sum, sequence_mask,
+                 softmax, softmax_with_cross_entropy, split,
+                 square_error_cost, transpose)
 from .ops import *  # noqa: F401,F403  (the generated op layers)
 from .sequence import (dynamic_lstm, dynamic_lstmp,  # noqa: F401
                        sequence_conv,

@@ -18,7 +18,7 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "softmax_with_cross_entropy", "softmax", "cross_entropy",
            "accuracy", "one_hot", "reduce_sum", "autoincreased_step_counter",
            "matmul", "sequence_mask", "cos_sim", "square_error_cost",
-           "lrn", "transpose"]
+           "lrn", "transpose", "dropout", "split", "label_smooth"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -412,4 +412,53 @@ def transpose(x, perm, name=None):
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op(type="transpose", inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs={"axis": list(perm)})
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None):
+    """Parity: fluid.layers.dropout (Mask output, downgrade_in_infer:
+    clone(for_test=True) flips is_test, and Out is then X * (1 - p))."""
+    helper = LayerHelper("dropout", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op(
+        type="dropout",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed if seed is not None else 0})
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """Parity: fluid.layers.split: `num_or_sections` an int (equal parts)
+    or a list of section sizes along `dim`."""
+    helper = LayerHelper("split", **locals())
+    input_shape = input.shape
+    dim = dim if dim >= 0 else dim + len(input_shape)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        attrs = {"num": num, "sections": [], "axis": dim}
+    else:
+        num = len(num_or_sections)
+        attrs = {"num": 0, "sections": list(num_or_sections), "axis": dim}
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(num)]
+    helper.append_op(type="split", inputs={"X": [input]},
+                     outputs={"Out": outs}, attrs=attrs)
+    return outs
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    """Parity: fluid.layers.label_smooth, with or without a prior
+    distribution."""
+    helper = LayerHelper("label_smooth", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]}, attrs={"epsilon": float(epsilon)})
     return out

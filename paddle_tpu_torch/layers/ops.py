@@ -6,8 +6,8 @@ Parity: python/paddle/fluid/layers/ops.py + layer_function_generator.py
 and the JAX package's layers/ops.py: generated from a slot-spec table;
 both calling styles work, `scale(x)` and `scale(x=var, scale=2.0)`, and
 every keyword that is not an input slot becomes an op attr. Of the JAX
-table, clip, clip_by_norm, cumsum, scatter, gather and the random layers
-are not here yet (ROADMAP A3, A11).
+table, cumsum, scatter, gather and the random layers are not here yet
+(ROADMAP A11).
 """
 from ..core.framework import Variable
 from ..core.layer_helper import LayerHelper
@@ -23,6 +23,8 @@ _SPECS = {
     "scale": (_UNARY, ["Out"]),
     "sigmoid_cross_entropy_with_logits":
         ([("X", "x", True), ("Label", "label", True)], ["Out"]),
+    "clip": (_UNARY, ["Out"]),
+    "clip_by_norm": (_UNARY, ["Out"]),
     "logical_not": (_UNARY, ["Out"]),
     "sum": ([("X", "x", True)], ["Out"]),
     "squeeze": (_UNARY, ["Out"]),

@@ -48,9 +48,7 @@ def build(vocab_size=2075, emb_size=64, hidden_size=64, num_layers=2,
                          bias_attr=ParamAttr(name="lm_lstm_b_%d" % i))
         hidden, _cell = layers.dynamic_lstm(input=proj, size=hidden_size * 4)
         if dropout_prob and not is_test:
-            raise NotImplementedError(
-                "language_model with dropout_prob needs the dropout layer, "
-                "which is not ported yet (ROADMAP A3)")
+            hidden = layers.dropout(hidden, dropout_prob=dropout_prob)
         x = hidden                                          # [B,T,H]
 
     if tie_weights:

@@ -2,18 +2,17 @@
 the teacher-forced scoring graph, its training loss (label smoothing,
 per-token weights) and `build_train` (Adam with noam warmup).
 
-Parity: the JAX package's models/transformer.py: the same helpers, layer
-calls and parameter names, so both packages build the same Program for
-the same configuration. `transformer()` returns (sum_cost, avg_cost,
-predict) as the JAX one does; `predict` is the [B, T, trg_vocab] logits a
-scoring model saves (save_inference_model prunes the loss away). The
-attention core runs the fused flash op (use_fused_attention=True, the
-port's default: padding as src_len / trg_len, the decoder's mask as
-causal) or, with use_fused_attention=False (the JAX package's default),
-the dense path: [B, H, T, T] scores plus the additive attn_bias feeds,
-softmax, and the weighted sum. Not ported yet: dropout, the fused-qkv
-projection, the unfused label-smoothing path (ROADMAP A3) and the decode
-builders.
+Parity: the JAX package's models/transformer.py: the same helpers,
+signatures, defaults, layer calls and parameter names, so both packages
+build the same Program for the same call. `transformer()` returns
+(sum_cost, avg_cost, predict) as the JAX one does; `predict` is the [B,
+T, trg_vocab] logits a scoring model saves (save_inference_model prunes
+the loss away). The attention core runs the dense path by default: [B,
+H, T, T] scores plus the additive attn_bias feeds, softmax, dropout on
+the weights, and the weighted sum; use_fused_attention=True runs the
+fused flash op instead (padding as src_len / trg_len, the decoder's mask
+as causal; no dropout there). Not ported yet: the decode builders
+(ROADMAP A6).
 """
 import numpy as np
 
@@ -40,26 +39,62 @@ def position_encoding_init(n_position, d_model):
 
 
 def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
-                         d_model, n_head=1, use_fused=True, causal=False,
-                         kv_len=None):
-    """q/k/v fc -> split heads -> attention -> combine fc. use_fused: the
-    fused (flash) op over [B, T, H, d], padding as kv_len and decoder
-    causality as causal=True (attn_bias must be None). Otherwise the dense
-    path over [B, H, T, d]: scaled scores plus the additive attn_bias,
-    softmax, weighted sum."""
+                         d_model, n_head=1, dropout_rate=0.0,
+                         use_fused=False, causal=False, kv_len=None,
+                         fuse_qkv=False):
+    """q/k/v fc -> split heads -> attention -> combine fc.
+
+    use_fused: the fused (flash) op over [B, T, H, d], padding as kv_len
+    and decoder causality as causal=True (attn_bias must be None, and
+    dropout_rate 0: attention-weight dropout cannot run inside the flash
+    kernel). Otherwise the dense path over [B, H, T, d]: scaled scores
+    plus the additive attn_bias, softmax, dropout on the weights, weighted
+    sum.
+
+    fuse_qkv (self-attention only, d_value == d_key): one [D, 3 * d_key *
+    H] projection named fused_qkv.w, split into q, k and v (its columns
+    are [W_q | W_k | W_v]), its Xavier init with fan_out pinned to one
+    projection's so the default init matches the unfused path's scale."""
+    if use_fused and dropout_rate:
+        raise ValueError(
+            "use_fused attention requires dropout_rate=0: attention-weight "
+            "dropout can't run inside the flash kernel, and the dense path "
+            "expresses masks as attn_bias, not causal/kv_len")
     if use_fused and attn_bias is not None:
         raise ValueError(
-            "use_fused attention ignores dense attn_bias tensors: express "
+            "use_fused attention ignores dense attn_bias tensors — express "
             "the mask as kv_len (key padding) and/or causal=True instead")
+    if fuse_qkv and keys is not None:
+        raise ValueError("fuse_qkv requires self-attention (keys=None): "
+                         "cross-attention projects different inputs")
+    if fuse_qkv and d_value != d_key:
+        raise ValueError(
+            "fuse_qkv requires d_value == d_key: a single Xavier init "
+            "cannot match both per-slice scales otherwise")
     keys = queries if keys is None else keys
     values = keys if values is None else values
-    q = fluid.layers.fc(input=queries, size=d_key * n_head,
-                        bias_attr=False, num_flatten_dims=2)
-    k = fluid.layers.fc(input=keys, size=d_key * n_head,
-                        bias_attr=False, num_flatten_dims=2)
-    v = fluid.layers.fc(input=values, size=d_value * n_head,
-                        bias_attr=False, num_flatten_dims=2)
+
+    if fuse_qkv:
+        qkv = fluid.layers.fc(
+            input=queries, size=(2 * d_key + d_value) * n_head,
+            bias_attr=False, num_flatten_dims=2,
+            param_attr=fluid.ParamAttr(
+                name=fluid.unique_name.generate("fused_qkv.w"),
+                initializer=fluid.initializer.XavierInitializer(
+                    fan_out=d_key * n_head)))
+        q, k, v = fluid.layers.split(
+            qkv, num_or_sections=[d_key * n_head, d_key * n_head,
+                                  d_value * n_head], dim=-1)
+    else:
+        q = fluid.layers.fc(input=queries, size=d_key * n_head,
+                            bias_attr=False, num_flatten_dims=2)
+        k = fluid.layers.fc(input=keys, size=d_key * n_head,
+                            bias_attr=False, num_flatten_dims=2)
+        v = fluid.layers.fc(input=values, size=d_value * n_head,
+                            bias_attr=False, num_flatten_dims=2)
+
     if use_fused:
+        # [B, T, H*d] -> [B, T, H, d] (BTHD, the fused kernel's layout)
         qf = fluid.layers.reshape(q, shape=[0, -1, n_head, d_key])
         kf = fluid.layers.reshape(k, shape=[0, -1, n_head, d_key])
         vf = fluid.layers.reshape(v, shape=[0, -1, n_head, d_value])
@@ -82,6 +117,8 @@ def multi_head_attention(queries, keys, values, attn_bias, d_key, d_value,
     if attn_bias is not None:
         product = product + attn_bias
     weights = fluid.layers.softmax(product)
+    if dropout_rate:
+        weights = fluid.layers.dropout(weights, dropout_prob=dropout_rate)
     ctx = fluid.layers.matmul(weights, v)              # [B, H, T, dv]
     ctx = fluid.layers.transpose(ctx, perm=[0, 2, 1, 3])
     ctx = fluid.layers.reshape(ctx, shape=[0, -1, n_head * d_value])
@@ -95,9 +132,9 @@ def positionwise_feed_forward(x, d_inner_hid, d_model):
     return fluid.layers.fc(input=hidden, size=d_model, num_flatten_dims=2)
 
 
-def pre_post_process_layer(prev_out, out, process_cmd):
-    """'a': residual add, 'n': layer_norm ('d', dropout, is a no-op at
-    inference and is accepted for parity)."""
+def pre_post_process_layer(prev_out, out, process_cmd, dropout_rate=0.0):
+    """'a': residual add, 'n': layer_norm, 'd': dropout (at a nonzero
+    dropout_rate)."""
     for cmd in process_cmd:
         if cmd == "a":
             out = out + prev_out if prev_out is not None else out
@@ -106,12 +143,15 @@ def pre_post_process_layer(prev_out, out, process_cmd):
                 out, begin_norm_axis=len(out.shape) - 1,
                 param_attr=fluid.initializer.Constant(1.0),
                 bias_attr=fluid.initializer.Constant(0.0))
+        elif cmd == "d":
+            if dropout_rate:
+                out = fluid.layers.dropout(out, dropout_prob=dropout_rate)
     return out
 
 
 def prepare_encoder(src_word, src_pos, src_vocab_size, src_emb_dim,
-                    src_max_len, pos_enc_param_name=None):
-    """word emb * sqrt(d) + frozen sinusoid position emb."""
+                    src_max_len, dropout_rate=0.0, pos_enc_param_name=None):
+    """word emb * sqrt(d) + frozen sinusoid position emb, then dropout."""
     word_emb = fluid.layers.embedding(
         src_word, size=[src_vocab_size, src_emb_dim],
         param_attr=fluid.ParamAttr(
@@ -123,61 +163,78 @@ def prepare_encoder(src_word, src_pos, src_vocab_size, src_emb_dim,
             name=pos_enc_param_name, trainable=False,
             initializer=fluid.initializer.NumpyArrayInitializer(
                 position_encoding_init(src_max_len, src_emb_dim))))
-    return word_emb + pos_enc
+    enc_input = word_emb + pos_enc
+    if dropout_rate:
+        enc_input = fluid.layers.dropout(enc_input,
+                                         dropout_prob=dropout_rate)
+    return enc_input
 
 
 def encoder_layer(enc_input, attn_bias, n_head, d_key, d_value, d_model,
-                  d_inner_hid, use_fused=True, kv_len=None):
+                  d_inner_hid, dropout_rate=0.0, use_fused=False,
+                  kv_len=None, fuse_qkv=False):
     attn_output = multi_head_attention(
         pre_post_process_layer(None, enc_input, "n"), None, None, attn_bias,
-        d_key, d_value, d_model, n_head, use_fused=use_fused, kv_len=kv_len)
-    attn_output = pre_post_process_layer(enc_input, attn_output, "da")
+        d_key, d_value, d_model, n_head, dropout_rate,
+        use_fused=use_fused, kv_len=kv_len, fuse_qkv=fuse_qkv)
+    attn_output = pre_post_process_layer(enc_input, attn_output, "da",
+                                         dropout_rate)
     ffd_output = positionwise_feed_forward(
         pre_post_process_layer(None, attn_output, "n"), d_inner_hid, d_model)
-    return pre_post_process_layer(attn_output, ffd_output, "da")
+    return pre_post_process_layer(attn_output, ffd_output, "da",
+                                  dropout_rate)
 
 
 def decoder_layer(dec_input, enc_output, slf_attn_bias, dec_enc_attn_bias,
                   n_head, d_key, d_value, d_model, d_inner_hid,
-                  use_fused=True, src_len=None, trg_len=None):
+                  dropout_rate=0.0, use_fused=False, src_len=None,
+                  trg_len=None, fuse_qkv=False):
     slf_attn_output = multi_head_attention(
         pre_post_process_layer(None, dec_input, "n"), None, None,
-        slf_attn_bias, d_key, d_value, d_model, n_head, use_fused=use_fused,
-        causal=True, kv_len=trg_len)
-    slf_attn_output = pre_post_process_layer(dec_input, slf_attn_output, "da")
+        slf_attn_bias, d_key, d_value, d_model, n_head, dropout_rate,
+        use_fused=use_fused, causal=True, kv_len=trg_len,
+        fuse_qkv=fuse_qkv)
+    slf_attn_output = pre_post_process_layer(dec_input, slf_attn_output,
+                                             "da", dropout_rate)
     enc_attn_output = multi_head_attention(
         pre_post_process_layer(None, slf_attn_output, "n"), enc_output,
         enc_output, dec_enc_attn_bias, d_key, d_value, d_model, n_head,
-        use_fused=use_fused, kv_len=src_len)
+        dropout_rate, use_fused=use_fused, kv_len=src_len)
     enc_attn_output = pre_post_process_layer(slf_attn_output,
-                                             enc_attn_output, "da")
+                                             enc_attn_output, "da",
+                                             dropout_rate)
     ffd_output = positionwise_feed_forward(
         pre_post_process_layer(None, enc_attn_output, "n"), d_inner_hid,
         d_model)
-    return pre_post_process_layer(enc_attn_output, ffd_output, "da")
+    return pre_post_process_layer(enc_attn_output, ffd_output, "da",
+                                  dropout_rate)
 
 
 def encoder(enc_input, attn_bias, n_layer, n_head, d_key, d_value, d_model,
-            d_inner_hid, use_fused=True, kv_len=None):
+            d_inner_hid, dropout_rate=0.0, use_fused=False, kv_len=None,
+            fuse_qkv=False):
     for _ in range(n_layer):
         enc_input = encoder_layer(enc_input, attn_bias, n_head, d_key,
                                   d_value, d_model, d_inner_hid,
-                                  use_fused=use_fused, kv_len=kv_len)
+                                  dropout_rate, use_fused=use_fused,
+                                  fuse_qkv=fuse_qkv, kv_len=kv_len)
     return pre_post_process_layer(None, enc_input, "n")
 
 
 def decoder(dec_input, enc_output, slf_attn_bias, dec_enc_attn_bias,
             n_layer, n_head, d_key, d_value, d_model, d_inner_hid,
-            use_fused=True, src_len=None, trg_len=None):
+            dropout_rate=0.0, use_fused=False, src_len=None, trg_len=None,
+            fuse_qkv=False):
     for _ in range(n_layer):
         dec_input = decoder_layer(dec_input, enc_output, slf_attn_bias,
                                   dec_enc_attn_bias, n_head, d_key, d_value,
-                                  d_model, d_inner_hid, use_fused=use_fused,
+                                  d_model, d_inner_hid, dropout_rate,
+                                  use_fused=use_fused, fuse_qkv=fuse_qkv,
                                   src_len=src_len, trg_len=trg_len)
     return pre_post_process_layer(None, dec_input, "n")
 
 
-def make_inputs(max_length, n_head=None, fused=True):
+def make_inputs(max_length, n_head=None, fused=False):
     """Declare the feeds: [B, T] int64 token ids and positions; with fused,
     [B, 1] int32 source and target lengths (the flash kernel's kv_len),
     else the three [B, H, T, T] float32 additive attention biases
@@ -201,18 +258,36 @@ def make_inputs(max_length, n_head=None, fused=True):
 
 def transformer(src_vocab_size, trg_vocab_size, max_length, n_layer=2,
                 n_head=4, d_key=16, d_value=16, d_model=64, d_inner_hid=128,
-                label_smooth_eps=0.0, use_fused_attention=True):
+                dropout_rate=0.0, label_smooth_eps=0.0,
+                use_fused_attention=False, use_fused_label_smooth=True,
+                use_qkv_fusion=False):
     """Build the training graph; returns (sum_cost, avg_cost, predict).
-    use_fused_attention (the default here): every attention core through
-    the fused flash op, feeds FUSED_FEED_NAMES (see prepare_batch; a
-    scoring model needs only SCORING_FEED_NAMES). False: the dense path
-    with the attn_bias feeds of FEED_NAMES (prepare_batch with n_head).
+    The JAX package's signature and defaults.
 
-    label_smooth_eps > 0 takes the JAX package's exact decomposition of
-    uniform label smoothing: cost = nll + eps * (logit_label -
-    sum(logits) / V), with the hard-label softmax_with_cross_entropy (the
-    K4 kernel) for nll. This is the JAX builder with dropout_rate=0 and
-    use_fused_label_smooth=True."""
+    use_fused_attention: every attention core through the fused flash op,
+    feeds FUSED_FEED_NAMES (see prepare_batch; a scoring model needs only
+    SCORING_FEED_NAMES); requires dropout_rate == 0. Otherwise (the
+    default) the dense path with the attn_bias feeds of FEED_NAMES
+    (prepare_batch with n_head), where dropout_rate also drops attention
+    weights.
+
+    dropout_rate: dropout after the embeddings, on every sublayer's output
+    before its residual add ('d' of pre_post_process_layer) and, dense,
+    on the attention weights.
+
+    label_smooth_eps > 0 with use_fused_label_smooth (the default) takes
+    the exact decomposition of uniform label smoothing: cost = nll + eps *
+    (logit_label - sum(logits) / V), with the hard-label
+    softmax_with_cross_entropy (the K4 kernel) for nll. Without it:
+    one_hot -> label_smooth -> soft-label softmax_with_cross_entropy (the
+    plain log-softmax rule; K4 takes hard labels only).
+
+    use_qkv_fusion: each self-attention's q, k, v from one fused_qkv.w
+    projection (multi_head_attention's fuse_qkv)."""
+    if use_fused_attention and dropout_rate:
+        raise ValueError("use_fused_attention requires dropout_rate=0 "
+                         "(attention-weight dropout can't run inside "
+                         "the flash kernel)")
     inputs = make_inputs(max_length, n_head, use_fused_attention)
     src_word, src_pos, trg_word, trg_pos = inputs[:4]
     lbl_word, lbl_weight = inputs[-2:]
@@ -224,22 +299,24 @@ def transformer(src_vocab_size, trg_vocab_size, max_length, n_layer=2,
         src_len = trg_len = None
     enc_input = prepare_encoder(
         src_word, src_pos, src_vocab_size, d_model, max_length,
-        pos_enc_param_name=POS_ENC_PARAM_NAMES[0])
+        dropout_rate, pos_enc_param_name=POS_ENC_PARAM_NAMES[0])
     enc_output = encoder(enc_input, src_bias, n_layer, n_head, d_key,
-                         d_value, d_model, d_inner_hid,
-                         use_fused=use_fused_attention, kv_len=src_len)
+                         d_value, d_model, d_inner_hid, dropout_rate,
+                         use_fused=use_fused_attention, kv_len=src_len,
+                         fuse_qkv=use_qkv_fusion)
     dec_input = prepare_encoder(
         trg_word, trg_pos, trg_vocab_size, d_model, max_length,
-        pos_enc_param_name=POS_ENC_PARAM_NAMES[1])
+        dropout_rate, pos_enc_param_name=POS_ENC_PARAM_NAMES[1])
     dec_output = decoder(dec_input, enc_output, trg_bias, cross_bias,
                          n_layer, n_head, d_key, d_value, d_model,
-                         d_inner_hid, use_fused=use_fused_attention,
-                         src_len=src_len, trg_len=trg_len)
+                         d_inner_hid, dropout_rate,
+                         use_fused=use_fused_attention, src_len=src_len,
+                         trg_len=trg_len, fuse_qkv=use_qkv_fusion)
     predict = fluid.layers.fc(input=dec_output, size=trg_vocab_size,
                               bias_attr=False, num_flatten_dims=2)
     predict_2d = fluid.layers.reshape(predict, shape=[-1, trg_vocab_size])
     lbl_flat = fluid.layers.reshape(lbl_word, shape=[-1, 1])
-    if label_smooth_eps:
+    if label_smooth_eps and use_fused_label_smooth:
         # -(sum smoothed*logp) = nll + eps*(logit_label - sum(logits)/V)
         nll = fluid.layers.softmax_with_cross_entropy(
             logits=predict_2d, label=lbl_flat)
@@ -249,6 +326,12 @@ def transformer(src_vocab_size, trg_vocab_size, max_length, n_layer=2,
         cost = nll + label_smooth_eps * (
             logit_lbl - fluid.layers.reduce_sum(
                 predict_2d, dim=1, keep_dim=True) / float(trg_vocab_size))
+    elif label_smooth_eps:
+        smoothed = fluid.layers.label_smooth(
+            fluid.layers.one_hot(lbl_flat, depth=trg_vocab_size),
+            epsilon=label_smooth_eps)
+        cost = fluid.layers.softmax_with_cross_entropy(
+            logits=predict_2d, label=smoothed, soft_label=True)
     else:
         cost = fluid.layers.softmax_with_cross_entropy(
             logits=predict_2d, label=lbl_flat)

@@ -26,8 +26,8 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
                    pool_stride=1, pool_type="max", use_cudnn=True,
                    use_mkldnn=False):
     """A group of convs (each optionally followed by batch_norm, the
-    activation moving after the norm) and one pool. A nonzero
-    conv_batchnorm_drop_rate needs `dropout`, which is not ported."""
+    activation moving after the norm, and by dropout at a nonzero
+    conv_batchnorm_drop_rate) and one pool."""
     if not isinstance(conv_num_filter, (list, tuple)):
         raise TypeError("conv_num_filter must be a list/tuple (one entry "
                         "per conv in the group)")
@@ -52,10 +52,7 @@ def img_conv_group(input, conv_num_filter, pool_size, conv_padding=1,
         if with_bn:
             out = layers.batch_norm(input=out, act=conv_act)
             if abs(drop) > 1e-5:
-                raise NotImplementedError(
-                    "img_conv_group with conv_batchnorm_drop_rate needs "
-                    "the dropout layer, which is not ported yet (ROADMAP "
-                    "A3)")
+                out = layers.dropout(x=out, dropout_prob=drop)
     return layers.pool2d(input=out, pool_size=pool_size,
                          pool_type=pool_type, pool_stride=pool_stride,
                          use_cudnn=use_cudnn)

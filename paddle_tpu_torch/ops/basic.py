@@ -1,13 +1,14 @@
 """Elementwise / math / tensor op rules: the activations, the elementwise,
-compare and logical families, mul / matmul, concat, cos_sim and the
-shape, fill and random ops the ported programs run.
+compare and logical families, mul / matmul, concat, split, cos_sim, the
+clip ops behind gradient and error clipping, and the shape, fill and
+random ops the ported programs run.
 
 Parity: paddle/fluid/operators/{activation_op,elementwise_*_op,mul_op,
-matmul_op,mean_op,sum_op,concat_op,transpose_op,compare_op,logical_op,cos_sim_op,
-topk_op,scale_op,reshape_op,squeeze_op,unsqueeze_op,reduce_op,cast_op,
-one_hot_op,increment_op,sign_op,assign_op,fill_constant_op,
-fill_constant_batch_size_like_op,assign_value_op,uniform_random_op,
-gaussian_random_op}.cc
+matmul_op,mean_op,sum_op,concat_op,split_op,transpose_op,compare_op,
+logical_op,cos_sim_op,clip_op,clip_by_norm_op,topk_op,scale_op,reshape_op,
+squeeze_op,unsqueeze_op,reduce_op,cast_op,one_hot_op,increment_op,sign_op,
+assign_op,fill_constant_op,fill_constant_batch_size_like_op,
+assign_value_op,uniform_random_op,gaussian_random_op}.cc
 and the JAX package's ops/basic.py, whose rules these mirror over torch
 tensors. `mul` stays a plain torch.matmul: the JAX package left the matrix
 product to XLA, outside any Pallas kernel. Gradients come from autograd
@@ -150,6 +151,25 @@ def _concat(ctx, ins, attrs):
     return _out(torch.cat(ins["X"], dim=attrs.get("axis", 0)))
 
 
+@register("split")
+def _split(ctx, ins, attrs):
+    """X cut along `axis` into the given `sections`, or into `num` equal
+    parts (which must divide the axis, as jnp.split requires)."""
+    x = single(ins, "X")
+    axis = attrs.get("axis", 0)
+    sections = attrs.get("sections")
+    if sections:
+        outs = torch.split(x, list(sections), dim=axis)
+    else:
+        num = attrs.get("num", 1)
+        if x.shape[axis] % num:
+            raise ValueError("split: axis %d of size %d does not divide "
+                             "into %d equal parts"
+                             % (axis, x.shape[axis], num))
+        outs = torch.split(x, x.shape[axis] // num, dim=axis)
+    return {"Out": list(outs)}
+
+
 @register("cos_sim")
 def _cos_sim(ctx, ins, attrs):
     """Row-wise cosine over the last axis, the denominator floored at
@@ -165,6 +185,44 @@ def _cos_sim(ctx, ins, attrs):
 @register("sign")
 def _sign(ctx, ins, attrs):
     return _out(torch.sign(single(ins, "X")))
+
+
+# ------------------------------------------------------------ clipping --
+# Gradient and error clipping (clip.py, core/backward.py) build these. Each
+# stays on the device: the norms are tensors, selected with torch.where,
+# never read back to the host.
+
+@register("clip")
+def _clip_op(ctx, ins, attrs):
+    return _out(_clip(single(ins, "X"), attrs["min"], attrs["max"]))
+
+
+@register("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    """X * max_norm / ||X|| where the L2 norm of all of X exceeds
+    max_norm, else X (the norm floored at 1e-12 in the division)."""
+    x = single(ins, "X")
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp_min(norm, 1e-12),
+                        torch.ones_like(norm))
+    return _out(x * scale)
+
+
+@register("reduce_sum_square")
+def _reduce_sum_square(ctx, ins, attrs):
+    return _out(torch.sum(torch.square(single(ins, "X"))).reshape(1))
+
+
+@register("global_norm_scale")
+def _global_norm_scale(ctx, ins, attrs):
+    """min(1, clip_norm / sqrt(X)) as [1], X the summed squares of a
+    gradient group (the square root floored at 1e-12)."""
+    total_sq = single(ins, "X").reshape(())
+    norm = torch.sqrt(total_sq)
+    scale = attrs["clip_norm"] / torch.clamp_min(norm, 1e-12)
+    return _out(torch.minimum(torch.ones_like(scale), scale).reshape(1))
 
 
 @register("mul")

@@ -15,8 +15,11 @@ Beside each kernel:
     version, `cuda` launches the kernel or raises. Nothing falls back;
   * a plain PyTorch version (`*_plain`) of the same function — what the
     CPU runs, and what the card's kernel is held against;
-  * a launch counter (`wrapper.launches`), raised by one exactly where the
-    kernel is launched, so a run can show the main path went through it.
+  * a launch count per kernel (`launch_counts()`, keyed by
+    `KERNEL_NAMES`), raised by one exactly where the kernel is launched,
+    so a run can show the main path went through it. The flash wrappers
+    (K1-K3) launch an fp32 or a bf16 instantiation of their kernel, each
+    counted under its own name (the bf16 one's ends in "_bf16").
 
 Gradients: seven torch.autograd.Functions mirror the JAX package's
 custom_vjps — `FlashAttention` (forward K1, backward K2 + K3, as
@@ -51,7 +54,8 @@ __all__ = ["build", "flash_attention_fwd", "flash_attention_fwd_plain",
            "masked_pool_plain", "pool_launch_plan", "flash_grid",
            "FlashAttention", "LayerNorm", "SoftmaxXent", "FusedLSTM",
            "FusedLSTMP", "MaskedSoftmax", "MaskedPool", "launch_counts",
-           "reset_launch_counts", "FLASH_HEAD_DIMS", "POOL_TYPES"]
+           "reset_launch_counts", "KERNEL_NAMES", "FLASH_HEAD_DIMS",
+           "FLASH_DTYPES", "POOL_TYPES"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -64,6 +68,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
+# the element types of q, k, v, g and out the flash kernels take (one per
+# call; lse and delta stay fp32), as the TPU kernels take f32 or bf16 tiles
+FLASH_DTYPES = (torch.float32, torch.bfloat16)
 FLASH_ROWS = 64   # query (K1, K3) or key (K2) rows a block (kRows in the .cu)
 _NEG = -1e30  # the masked-score value and empty-row max (TPU kernel's _NEG)
 _INT_MAX = 2 ** 31 - 1   # a grid's x dimension
@@ -71,6 +78,14 @@ _INT_MAX = 2 ** 31 - 1   # a grid's x dimension
 _lib = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
+# the kernels a launch is counted under: each wrapper's, then the bf16
+# instantiations of K1-K3
+KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
+                "flash_attention_bwd_dq", "softmax_xent_fwd",
+                "layer_norm_fwd", "fused_lstm", "fused_lstmp",
+                "masked_softmax", "masked_pool", "flash_attention_fwd_bf16",
+                "flash_attention_bwd_dkdv_bf16", "flash_attention_bwd_dq_bf16")
+_launches = dict.fromkeys(KERNEL_NAMES, 0)
 
 
 class BuildInfo(object):
@@ -174,6 +189,7 @@ def _bind(lib):
     F = ctypes.c_float
     _bind_flash_fwd(lib)
     _bind_flash_bwd(lib)
+    _bind_flash_bf16(lib)
     lib.ptt_softmax_xent_fwd.argtypes = [P, P, P, P, I, I, I, P]
     lib.ptt_softmax_xent_fwd.restype = I
     lib.ptt_layer_norm_fwd.argtypes = [P, P, P, P, P, P, I, I, F, I, P]
@@ -200,6 +216,22 @@ def _bind_flash_fwd(lib):
     lib.ptt_flash_attention_fwd.restype = I
 
 
+def _bind_flash_bf16(lib):
+    """The bf16 entries of K1-K3 (the fp32 entries' arguments), bound
+    apart from those: a library built from an older, fp32-only source
+    (chip_smoke.py's baseline kernels) binds the fp32 ones alone."""
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ptt_flash_attention_fwd_bf16.argtypes = (
+        [P, P, P, P, P, P, I, I, I, I] + [L] * 9 + [ctypes.c_float, I, P])
+    lib.ptt_flash_attention_fwd_bf16.restype = I
+    for name, n_out in (("ptt_flash_attention_bwd_dkdv_bf16", 2),
+                        ("ptt_flash_attention_bwd_dq_bf16", 1)):
+        fn = getattr(lib, name)
+        fn.argtypes = [P] * (7 + n_out) + [I] * 4 + [L] * 12 + \
+            [ctypes.c_float, I, P]
+        fn.restype = I
+
+
 def _bind_flash_bwd(lib):
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name in ("ptt_flash_attention_bwd_dkdv", "ptt_flash_attention_bwd_dq"):
@@ -224,26 +256,25 @@ def _bind_lstmp(lib):
     lib.ptt_fused_lstmp_fwd.restype = I
 
 
-def _count(wrapper):
+def _count(name, dtype=torch.float32):
+    """One launch of kernel `name` (its bf16 instantiation's for bf16)."""
+    if dtype == torch.bfloat16:
+        name += "_bf16"
     with _count_lock:
-        wrapper.launches += 1
-
-
-def _counted():
-    return (flash_attention_fwd, flash_attention_bwd_dkdv,
-            flash_attention_bwd_dq, softmax_xent_fwd, layer_norm_fwd,
-            fused_lstm, fused_lstmp, masked_softmax, masked_pool)
+        _launches[name] += 1
 
 
 def launch_counts():
-    """{wrapper name: launches since the last reset}."""
-    return {f.__name__: f.launches for f in _counted()}
+    """{kernel name: launches since the last reset}, in KERNEL_NAMES'
+    order."""
+    with _count_lock:
+        return dict(_launches)
 
 
 def reset_launch_counts():
     with _count_lock:
-        for f in _counted():
-            f.launches = 0
+        for name in _launches:
+            _launches[name] = 0
 
 
 def _stream_of(t):
@@ -257,14 +288,29 @@ def _check_launch(err, what):
 
 
 def _check_vec_layout(t, what):
-    """float4 loads need 16-byte aligned rows: last dim contiguous,
-    other strides multiples of 4 elements, 16-byte aligned base."""
-    if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) \
+    """16-byte loads need 16-byte aligned rows: last dim contiguous,
+    other strides multiples of 16 bytes (4 fp32, 8 bf16 elements), a
+    16-byte aligned base."""
+    per = 16 // t.element_size()
+    if t.stride(-1) != 1 or any(s % per for s in t.stride()[:-1]) \
             or t.data_ptr() % 16:
         raise ValueError("%s: tensor must have a contiguous last dim, "
-                         "strides that are multiples of 4 and a 16-byte "
+                         "strides that are multiples of %d and a 16-byte "
                          "aligned base (got strides %s)"
-                         % (what, tuple(t.stride())))
+                         % (what, per, tuple(t.stride())))
+
+
+def _flash_dtype(what, tensors):
+    """The one element type of the named tensors, fp32 or bf16 (the flash
+    kernels' instantiations); anything else, or a mix, raises."""
+    dtypes = {x.dtype for _, x in tensors}
+    if len(dtypes) != 1 or not dtypes <= set(FLASH_DTYPES):
+        raise ValueError("%s: the CUDA kernel takes %s all float32 or all "
+                         "bfloat16, got %s"
+                         % (what, ", ".join(n for n, _ in tensors),
+                            ", ".join("%s %s" % (n, x.dtype)
+                                      for n, x in tensors)))
+    return dtypes.pop()
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +319,8 @@ def _check_vec_layout(t, what):
 
 def flash_attention_fwd_plain(q, k, v, kv_len=None, causal=False,
                               scale=None):
-    """Plain version: dense masked softmax over [B, H, T, T] in fp32.
+    """Plain version: dense masked softmax over [B, H, T, T] in fp32 (bf16
+    inputs are widened first, as the kernel and the TPU kernel do).
     Keys at or past kv_len[b] (and, causal, past the query) are masked; a
     row with no valid key gives out = 0 and lse = -1e30 + log(1e-30), the
     TPU kernel's `l_safe` convention. Returns (out [B, T, H, D] in q's
@@ -305,9 +352,10 @@ def flash_attention_fwd(q, k, v, kv_len=None, causal=False, scale=None):
     keys masked at or past kv_len ([B] or [B, 1] int; None = all T) and,
     causal, past each query. Returns (out [B, T, H, D], lse [B, H, T] fp32).
 
-    Dispatch by q's device: meta -> empty outputs, cpu -> the plain
-    version, cuda -> the kernel (fp32, D in FLASH_HEAD_DIMS; anything else
-    raises)."""
+    q, k, v are all fp32 or all bf16 (anything else raises, on every
+    device); out comes back in their dtype. Dispatch by q's device: meta
+    -> empty outputs, cpu -> the plain version, cuda -> the kernel (D in
+    FLASH_HEAD_DIMS; anything else raises)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("flash_attention_fwd needs q, k, v of one shape "
                          "[B, T, H, D], got %s %s %s"
@@ -320,6 +368,8 @@ def flash_attention_fwd(q, k, v, kv_len=None, causal=False, scale=None):
         kv_len = kv_len.reshape(b)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    dtype = _flash_dtype("flash_attention_fwd", (("q", q), ("k", k),
+                                                  ("v", v)))
     dev = q.device.type
     if dev == "meta":
         return (torch.empty(q.shape, dtype=q.dtype, device=q.device),
@@ -328,9 +378,6 @@ def flash_attention_fwd(q, k, v, kv_len=None, causal=False, scale=None):
         return flash_attention_fwd_plain(q, k, v, kv_len, causal, scale)
     if dev != "cuda":
         raise ValueError("flash_attention_fwd: unsupported device %s" % dev)
-    if q.dtype != torch.float32 or k.dtype != torch.float32 \
-            or v.dtype != torch.float32:
-        raise ValueError("flash_attention_fwd: the CUDA kernel takes fp32")
     if d not in FLASH_HEAD_DIMS:
         raise ValueError("flash_attention_fwd: head dim %d not in %s"
                          % (d, FLASH_HEAD_DIMS))
@@ -340,21 +387,20 @@ def flash_attention_fwd(q, k, v, kv_len=None, causal=False, scale=None):
             raise ValueError("flash_attention_fwd: %s on %s, q on %s"
                              % (name, x.device, q.device))
         _check_vec_layout(x, "flash_attention_fwd %s" % name)
-    out = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, t, h, d), dtype=dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if t == 0 or b * h == 0:
         return out, lse
     lens = None
     if kv_len is not None:
         lens = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
-    err = _fwd_call(build().ptt_flash_attention_fwd, q, k, v, lens, out, lse,
-                    scale, causal)
+    lib = build()
+    fn = lib.ptt_flash_attention_fwd if dtype == torch.float32 \
+        else lib.ptt_flash_attention_fwd_bf16
+    err = _fwd_call(fn, q, k, v, lens, out, lse, scale, causal)
     _check_launch(err, "flash_attention_fwd")
-    _count(flash_attention_fwd)
+    _count("flash_attention_fwd", dtype)
     return out, lse
-
-
-flash_attention_fwd.launches = 0
 
 
 def flash_grid(b, h, t, what="flash attention"):
@@ -436,11 +482,8 @@ def layer_norm_fwd(x, scale, bias, eps=1e-5):
         mean.data_ptr(), var.data_ptr(), n, d, float(eps), int(vec4),
         _stream_of(x))
     _check_launch(err, "layer_norm_fwd")
-    _count(layer_norm_fwd)
+    _count("layer_norm_fwd")
     return y, mean, var
-
-
-layer_norm_fwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -467,8 +510,9 @@ def flash_attention_bwd_plain(q, k, v, lse, delta, g, kv_len=None,
     the dense [B, H, T, T] recompute, from the saved lse [B, H, T] and
     delta = rowsum(g * out) [B, H, T], as the TPU kernels compute it:
     p = exp(q.k * scale - lse) on valid pairs (masked before the
-    exponential, so an empty row gives 0), dS = p * (g.v - delta) * scale.
-    Returns (dq, dk, dv), each [B, T, H, D] in q's dtype."""
+    exponential, so an empty row gives 0), dS = p * (g.v - delta) * scale,
+    every product in fp32 (bf16 inputs widened first). Returns (dq, dk,
+    dv), each [B, T, H, D] in q's dtype."""
     b, t, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -499,8 +543,8 @@ def _flash_bwd_args(what, q, k, v, lse, delta, g, kv_len):
                             tuple(delta.shape)))
     for name, x in (("q", q), ("k", k), ("v", v), ("g", g), ("lse", lse),
                     ("delta", delta)):
-        if x.dtype != torch.float32:
-            raise ValueError("%s: the CUDA kernel takes fp32 (%s is %s)"
+        if name in ("lse", "delta") and x.dtype != torch.float32:
+            raise ValueError("%s: the CUDA kernel takes %s in fp32 (got %s)"
                              % (what, name, x.dtype))
         if x.device != q.device:
             raise ValueError("%s: %s on %s, q on %s"
@@ -535,10 +579,14 @@ def _bwd_call(fn, q, k, v, g, lse, delta, lens, outs, b, t, h, d, scale,
 def flash_attention_bwd_dkdv(q, k, v, lse, delta, g, kv_len=None,
                              causal=False, scale=None):
     """dK, dV [B, T, H, D] of flash attention from the saved lse and delta
-    [B, H, T] and the output gradient g [B, T, H, D] (kernel K2). Dispatch
-    by q's device as in flash_attention_fwd."""
+    [B, H, T] (fp32) and the output gradient g [B, T, H, D] (kernel K2).
+    Dispatch by q's device as in flash_attention_fwd: q, k, v, g all fp32
+    or all bf16 (else it raises, on every device), dK and dV in their
+    dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    _flash_dtype("flash_attention_bwd_dkdv",
+                 (("q", q), ("k", k), ("v", v), ("g", g)))
     dev = q.device.type
     if dev == "meta":
         return torch.empty_like(k), torch.empty_like(v)
@@ -550,19 +598,18 @@ def flash_attention_bwd_dkdv(q, k, v, lse, delta, g, kv_len=None,
                          % dev)
     b, t, h, d, lens, lse, delta = _flash_bwd_args(
         "flash_attention_bwd_dkdv", q, k, v, lse, delta, g, kv_len)
-    dk = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if t == 0 or b * h == 0:
         return dk, dv
     lib = build()
-    err = _bwd_call(lib.ptt_flash_attention_bwd_dkdv, q, k, v, g, lse, delta,
-                    lens, (dk, dv), b, t, h, d, scale, causal)
+    fn = lib.ptt_flash_attention_bwd_dkdv if q.dtype == torch.float32 \
+        else lib.ptt_flash_attention_bwd_dkdv_bf16
+    err = _bwd_call(fn, q, k, v, g, lse, delta, lens, (dk, dv), b, t, h, d,
+                    scale, causal)
     _check_launch(err, "flash_attention_bwd_dkdv")
-    _count(flash_attention_bwd_dkdv)
+    _count("flash_attention_bwd_dkdv", q.dtype)
     return dk, dv
-
-
-flash_attention_bwd_dkdv.launches = 0
 
 
 def flash_attention_bwd_dq(q, k, v, lse, delta, g, kv_len=None,
@@ -571,6 +618,8 @@ def flash_attention_bwd_dq(q, k, v, lse, delta, g, kv_len=None,
     flash_attention_bwd_dkdv (kernel K3)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    _flash_dtype("flash_attention_bwd_dq",
+                 (("q", q), ("k", k), ("v", v), ("g", g)))
     dev = q.device.type
     if dev == "meta":
         return torch.empty_like(q)
@@ -581,23 +630,22 @@ def flash_attention_bwd_dq(q, k, v, lse, delta, g, kv_len=None,
         raise ValueError("flash_attention_bwd_dq: unsupported device %s" % dev)
     b, t, h, d, lens, lse, delta = _flash_bwd_args(
         "flash_attention_bwd_dq", q, k, v, lse, delta, g, kv_len)
-    dq = torch.empty((b, t, h, d), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     if t == 0 or b * h == 0:
         return dq
     lib = build()
-    err = _bwd_call(lib.ptt_flash_attention_bwd_dq, q, k, v, g, lse, delta,
-                    lens, (dq,), b, t, h, d, scale, causal)
+    fn = lib.ptt_flash_attention_bwd_dq if q.dtype == torch.float32 \
+        else lib.ptt_flash_attention_bwd_dq_bf16
+    err = _bwd_call(fn, q, k, v, g, lse, delta, lens, (dq,), b, t, h, d,
+                    scale, causal)
     _check_launch(err, "flash_attention_bwd_dq")
-    _count(flash_attention_bwd_dq)
+    _count("flash_attention_bwd_dq", q.dtype)
     return dq
 
 
-flash_attention_bwd_dq.launches = 0
-
-
 def flash_delta(g, out):
-    """delta = rowsum(g * out) as [B, H, T] fp32 (the TPU path computes it
-    outside its kernels too)."""
+    """delta = rowsum(g * out) as [B, H, T], summed in fp32 from bf16 or
+    fp32 g and out (the TPU path computes it outside its kernels too)."""
     return (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
@@ -606,6 +654,8 @@ def flash_attention_bwd(q, k, v, out, lse, g, kv_len=None, causal=False,
     """(dq, dk, dv) of flash attention: delta from g and the forward's out,
     then K2 (dK, dV) and K3 (dQ) on the card; on the CPU one plain dense
     recompute gives all three."""
+    _flash_dtype("flash_attention_bwd",
+                 (("q", q), ("k", k), ("v", v), ("g", g), ("out", out)))
     delta = flash_delta(g, out)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, lse, delta, g, kv_len,
@@ -681,11 +731,8 @@ def softmax_xent_fwd(logits, labels):
                                    loss.data_ptr(), lse.data_ptr(), n, v,
                                    int(vec4), _stream_of(x))
     _check_launch(err, "softmax_xent_fwd")
-    _count(softmax_xent_fwd)
+    _count("softmax_xent_fwd")
     return loss, lse
-
-
-softmax_xent_fwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -820,11 +867,9 @@ def fused_lstm(x, w, b, h0=None, c0=None, lens=None, reverse=False):
     lib = build()
     _launch_lstm(lib, lstm_plan_on_card(lib, bsz, d, x.device), x, w, b, h0,
                  c0, lens, reverse, hidden, cell)
-    _count(fused_lstm)
+    _count("fused_lstm")
     return hidden, cell
 
-
-fused_lstm.launches = 0
 
 LSTM_THREADS = 256        # threads per block of K6 (kThreads in the .cu)
 LSTM_MAX_CLUSTER = 16     # blocks a cluster (above 8: non-portable)
@@ -1285,7 +1330,7 @@ def fused_lstmp(x, w, w_proj, b, r0=None, c0=None, lens=None, reverse=False):
         x.device).multi_processor_count)
     _launch_lstmp(build(), plan, x, w, w_proj, b, r0, c0, lens, reverse,
                   proj, cell)
-    _count(fused_lstmp)
+    _count("fused_lstmp")
     return proj, cell
 
 
@@ -1315,9 +1360,6 @@ def _launch_lstmp(lib, plan, x, w, w_proj, b, r0, c0, lens, reverse,
         _stream_of(x))
     _check_launch(err, "fused_lstmp")
     return proj, cell
-
-
-fused_lstmp.launches = 0
 
 
 def fused_lstmp_bwd(x, w, w_proj, b, r0, c0, lens, proj, cell, g_proj,
@@ -1429,11 +1471,8 @@ def masked_softmax(x, lens):
                                      lens.data_ptr(), y.data_ptr(), n, t,
                                      SOFTMAX_WARPS, _stream_of(x))
     _check_launch(err, "masked_softmax")
-    _count(masked_softmax)
+    _count("masked_softmax")
     return y
-
-
-masked_softmax.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1607,11 +1646,8 @@ def masked_pool(x, lens, ptype="AVERAGE"):
     plan = pool_plan_of(x)
     lens = lens.reshape(b).to(device=x.device, dtype=torch.int32).contiguous()
     _launch_pool(build(), plan, x, lens, ptype, out)
-    _count(masked_pool)
+    _count("masked_pool")
     return out
-
-
-masked_pool.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,14 @@
 """NN op rules (the subset the Transformer's, the sentiment classifiers'
 and the conv nets' programs run): layer_norm, fused_attention,
-lookup_table, softmax_with_cross_entropy, softmax, cross_entropy,
-sigmoid_cross_entropy_with_logits, square_error_cost, accuracy, conv2d,
-depthwise_conv2d, pool2d, batch_norm, lrn.
+lookup_table, dropout, softmax_with_cross_entropy, softmax, cross_entropy,
+sigmoid_cross_entropy_with_logits, square_error_cost, label_smooth,
+accuracy, conv2d, depthwise_conv2d, pool2d, batch_norm, lrn.
 
-Parity: paddle/fluid/operators/{layer_norm_op,lookup_table_op,
+Parity: paddle/fluid/operators/{layer_norm_op,lookup_table_op,dropout_op,
 softmax_with_cross_entropy_op,softmax_op,cross_entropy_op,
-sigmoid_cross_entropy_with_logits_op,squared_l2_distance_op,accuracy_op,
-conv_op,pool_op,batch_norm_op,lrn_op}.cc and the JAX package's
-ops/nn_ops.py.
+sigmoid_cross_entropy_with_logits_op,squared_l2_distance_op,
+label_smooth_op,accuracy_op,conv_op,pool_op,batch_norm_op,lrn_op}.cc and
+the JAX package's ops/nn_ops.py.
 layer_norm with scale and bias, the flash branch of fused_attention and
 the hard-label 2-D softmax_with_cross_entropy call the hand-written CUDA
 kernels through their wrappers (ops/cuda_kernels.py), which dispatch by
@@ -97,9 +97,9 @@ def _fused_attention(ctx, ins, attrs):
     through its dense path (kernel_config.reference_is_dense: below its
     1024 crossover), by a select with no host sync, so v's gradient
     follows; above it both packages' flash kernels give 0 (fault C9).
-    The flash kernels take fp32 only: bf16 q, k, v (a program under
-    enable_mixed_precision casts them so) on the flash path raise, as no
-    bf16 flash kernel is ported yet."""
+    The flash kernels take q, k, v all fp32 or all bf16 (a program under
+    enable_mixed_precision casts them to bf16): out comes back in their
+    dtype, every product and sum in fp32, as the TPU kernels do."""
     q = single(ins, "Q")
     k = single(ins, "K")
     v = single(ins, "V")
@@ -112,12 +112,6 @@ def _fused_attention(ctx, ins, attrs):
     if not flash_at(t, q.device.type, k.shape[1]):
         return _out(attention_reference(q, k, v, causal=causal, scale=scale,
                                         kv_len=kv_len).to(q.dtype))
-    if any(x.dtype != torch.float32 for x in (q, k, v)):
-        raise NotImplementedError(
-            "fused_attention on the flash path takes float32 q, k and v "
-            "(got %s): a bf16 flash kernel for mixed precision "
-            "(Program.enable_mixed_precision) is an open ROADMAP item"
-            % (q.dtype,))
     out = cuda_kernels.FlashAttention.apply(q, k, v, kv_len, causal, scale)
     if kv_len is not None and reference_is_dense(t):
         empty = (kv_len <= 0).reshape(-1, 1, 1, 1)
@@ -152,6 +146,38 @@ def _lookup_table(ctx, ins, attrs):
     else:
         out_shape = tuple(ids.shape) + (w.shape[-1],)
     return _out(out.reshape(out_shape))
+
+
+@register("dropout", uses_rng=True)
+def _dropout(ctx, ins, attrs):
+    """Out = X * Mask with Mask (X's dtype) 1 where a uniform draw on X's
+    device falls below 1 - dropout_prob, else 0: the JAX rule's
+    bernoulli(1 - p), fluid's downgrade_in_infer, so no rescale in
+    training. With is_test, Out = X * (1 - p) and Mask is all ones. The
+    draw comes from the op's generator (LowerCtx.rng): a nonzero `seed`
+    attr pins the mask across runs, seed 0 draws anew each run and each
+    step of a loop body. The backward differentiates the kept graph of
+    this one draw (dX = dOut * Mask), so it never draws again."""
+    x = single(ins, "X")
+    p = attrs.get("dropout_prob", 0.5)
+    if attrs.get("is_test", False):
+        return {"Out": [x * (1.0 - p)], "Mask": [torch.ones_like(x)]}
+    draw = torch.rand(x.shape, generator=ctx.rng(seed=attrs.get("seed", 0)),
+                      device=x.device)
+    mask = (draw < 1.0 - p).to(x.dtype)
+    return {"Out": [x * mask], "Mask": [mask]}
+
+
+@register("label_smooth")
+def _label_smooth(ctx, ins, attrs):
+    """(1 - epsilon) * X + epsilon * PriorDist, or + epsilon / C (C the
+    last dim) without a prior."""
+    x = single(ins, "X")
+    eps = attrs.get("epsilon", 0.0)
+    dist = single(ins, "PriorDist")
+    if dist is not None:
+        return _out((1 - eps) * x + eps * dist)
+    return _out((1 - eps) * x + eps / x.shape[-1])
 
 
 @register("softmax")

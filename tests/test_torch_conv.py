@@ -477,16 +477,23 @@ def _attention_program(amp):
 
 
 def test_amp_fused_attention_raises_and_plain_does_not():
-    """The port's flash kernels take fp32 only: under mixed precision the
-    JAX package runs fused_attention in bf16, the port raises rather
-    than run it in fp32 unasked. The same program without mixed
-    precision runs."""
-    feed = {"q": _rand(2, 8, 2, 4, seed=13)}
+    """Under mixed precision fused_attention runs in bf16 on the flash
+    path, as the JAX package runs it (fault C10, fixed: it raised before
+    the port had bf16 flash kernels): no raise, and its answer is the
+    fp32 program's on the same values rounded to bf16 first, within two
+    bf16 ulps of the largest value (2^-7; compared in float32 against
+    the JAX package in tests/test_torch_amp_flash.py). The same program
+    without mixed precision runs in fp32."""
+    q = torch.from_numpy(_rand(2, 8, 2, 4, seed=13))
+    feed = {"q": q.bfloat16().float().numpy()}
     main, out = _attention_program(amp=False)
-    got, = tfluid.Executor("cpu").run(main, feed=feed, fetch_list=[out],
-                                      scope=tfluid.Scope())
-    assert got.shape == (2, 8, 2, 4) and np.isfinite(got).all()
+    want, = tfluid.Executor("cpu").run(main, feed=feed, fetch_list=[out],
+                                       scope=tfluid.Scope())
+    assert want.shape == (2, 8, 2, 4) and np.isfinite(want).all()
     main, out = _attention_program(amp=True)
-    with pytest.raises(NotImplementedError, match="bf16 flash kernel"):
-        tfluid.Executor("cpu").run(main, feed=feed, fetch_list=[out],
-                                   scope=tfluid.Scope())
+    got, = tfluid.Executor("cpu").run(main, feed=feed, fetch_list=[out],
+                                      scope=tfluid.Scope(),
+                                      return_numpy=False)
+    assert got.dtype == torch.bfloat16
+    err = float((got.float() - torch.from_numpy(want)).abs().max())
+    assert err <= 2.0 ** -7 * max(1.0, float(np.abs(want).max())), err

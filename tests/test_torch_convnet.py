@@ -133,21 +133,33 @@ def test_build_train_resnet50_small_image_matches_the_jax_one(kwargs):
 @pytest.mark.parametrize("model", ["vgg16", "alexnet", "googlenet",
                                    "se_resnext50"])
 def test_unported_models_raise_naming_the_roadmap(model):
-    """The four wait only for dropout: lrn, concat and sigmoid are
-    ported."""
-    with pytest.raises(NotImplementedError,
-                       match=r"needs the dropout layer \(ROADMAP A3\)$"):
-        _built(tfluid, lambda: tic.build_train(model, class_dim=10))
+    """The four waited only for dropout (ROADMAP A3, now ported; they
+    raised before): build_train builds each at the JAX defaults to the
+    JAX package's bytes, with its dropout layers in training mode
+    (tests/test_torch_image_nets.py holds their numbers)."""
+    jmain, _, _ = _built(jfluid, lambda: jic.build_train(model, class_dim=10))
+    tmain, _, out = _built(tfluid, lambda: tic.build_train(model,
+                                                           class_dim=10))
+    assert len(out) == 4
+    assert _same_bytes(jmain, tmain) <= 2
+    drops = [op for op in tmain.global_block().ops if op.type == "dropout"]
+    assert drops and not any(op.attrs["is_test"] for op in drops)
 
 
 def test_img_conv_group_dropout_raises_naming_the_roadmap():
-    def build():
-        img = tfluid.layers.data("img", shape=[3, 8, 8], dtype="float32")
-        return tfluid.nets.img_conv_group(
+    """A nonzero conv_batchnorm_drop_rate puts a dropout after each
+    batch_norm (it raised before dropout was ported, ROADMAP A3): the JAX
+    package's program bytes."""
+    def build(fluid):
+        img = fluid.layers.data("img", shape=[3, 8, 8], dtype="float32")
+        return fluid.nets.img_conv_group(
             img, conv_num_filter=[4, 4], pool_size=2,
             conv_with_batchnorm=True, conv_batchnorm_drop_rate=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        _built(tfluid, build)
+    jmain, jstartup, _ = _built(jfluid, lambda: build(jfluid))
+    tmain, tstartup, _ = _built(tfluid, lambda: build(tfluid))
+    _same_bytes(jmain, tmain)
+    _same_bytes(jstartup, tstartup)
+    assert [op.type for op in tmain.global_block().ops].count("dropout") == 2
 
 
 def test_img_conv_group_matches_the_jax_one():

@@ -318,7 +318,8 @@ def _both_transformers():
                                      **_TCFG)
     tmain, tstartup = tfluid.Program(), tfluid.Program()
     with tfluid.unique_name.guard(), tfluid.program_guard(tmain, tstartup):
-        _, tavg, _ = ttr.build_train(_TV, _TV, _TT, **_TCFG)
+        _, tavg, _ = ttr.build_train(_TV, _TV, _TT, use_fused_attention=True,
+                                     **_TCFG)
     jscope = jfluid.Scope()
     with jfluid.scope_guard(jscope):
         jfluid.Executor(jfluid.CPUPlace()).run(jstartup)

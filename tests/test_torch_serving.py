@@ -42,10 +42,12 @@ VOCAB, T = 100, 32
 CFG = dict(n_layer=2, n_head=4, d_key=16, d_value=16, d_model=64,
            d_inner_hid=128)
 TOL = dict(rtol=1e-4, atol=1e-4)
-# every counted kernel wrapper (K1-K9)
+# every counted kernel (K1-K9, then K1-K3's bf16 instantiations)
 _KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
             "flash_attention_bwd_dq", "softmax_xent_fwd", "layer_norm_fwd",
-            "fused_lstm", "fused_lstmp", "masked_softmax", "masked_pool")
+            "fused_lstm", "fused_lstmp", "masked_softmax", "masked_pool",
+            "flash_attention_fwd_bf16", "flash_attention_bwd_dkdv_bf16",
+            "flash_attention_bwd_dq_bf16")
 FEEDS = ttr.SCORING_FEED_NAMES
 
 
@@ -81,7 +83,8 @@ def _jax_build():
 def _port_build():
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
-        _, _, predict = ttr.transformer(VOCAB, VOCAB, T, **CFG)
+        _, _, predict = ttr.transformer(VOCAB, VOCAB, T,
+                                        use_fused_attention=True, **CFG)
     return main, startup, predict
 
 

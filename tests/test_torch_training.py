@@ -75,7 +75,8 @@ def _jax_build():
 def _port_build():
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
-        out = ttr.build_train(VOCAB, VOCAB, T, **CFG)
+        out = ttr.build_train(VOCAB, VOCAB, T, use_fused_attention=True,
+                               **CFG)
     return main, startup, out
 
 
@@ -322,15 +323,31 @@ def test_weight_decay_matches_the_jax_package(kind):
 
 
 def test_unported_gradient_clips_raise_when_the_program_is_built():
-    """Clipping needs ops of a later slice: asking for it fails at build
-    time, naming what is missing, never silently unclipped."""
+    """Clipping is ported (ROADMAP A3; it raised at build time before):
+    GradientClipByNorm builds one clip_by_norm op per gradient, and Adam
+    updates from the clipped gradient, whose norm is at most clip_norm
+    (tests/test_torch_clip.py holds every clip against the JAX
+    package)."""
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
         x = tfluid.layers.data("x", [8])
         loss = tfluid.layers.reduce_sum(tfluid.layers.fc(input=x, size=3))
         tfluid.clip.set_gradient_clip(tfluid.GradientClipByNorm(1.0))
-        with pytest.raises(NotImplementedError, match="clip_by_norm"):
-            tfluid.optimizer.Adam(learning_rate=0.01).minimize(loss)
+        tfluid.optimizer.Adam(learning_rate=0.01).minimize(loss)
+    clips = [op for op in main.global_block().ops
+             if op.type == "clip_by_norm"]
+    assert len(clips) == 2
+    exe, scope = tfluid.Executor("cpu"), tfluid.Scope()
+    exe.run(startup, scope=scope)
+    names = [op.outputs["Out"][0] for op in clips]
+    raw = [op.inputs["X"][0] for op in clips]
+    got = exe.run(main, feed={"x": np.full((4, 8), 3.0, np.float32)},
+                  fetch_list=names + raw, scope=scope)
+    for clipped, grad in zip(got[:2], got[2:]):
+        assert np.linalg.norm(grad) > 1.0
+        np.testing.assert_allclose(np.linalg.norm(clipped), 1.0, rtol=1e-5)
+        np.testing.assert_allclose(clipped, grad / np.linalg.norm(grad),
+                                   rtol=1e-5, atol=1e-7)
 
 
 def test_kept_graphs_are_released_and_inference_keeps_none():
@@ -341,7 +358,8 @@ def test_kept_graphs_are_released_and_inference_keeps_none():
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
         _, avg_cost, predict = ttr.build_train(
-            VOCAB, VOCAB, T, **dict(CFG, n_layer=1))
+            VOCAB, VOCAB, T, use_fused_attention=True,
+            **dict(CFG, n_layer=1))
     exe = tfluid.Executor("cpu")
     scope = tfluid.Scope()
     exe.run(startup, scope=scope)
