@@ -5,7 +5,8 @@
     python3 chip_smoke.py --only kernels    # build + kernel checks only
     python3 chip_smoke.py --ptxas           # also print nvcc's `ptxas -v`
                                             # (fails on a K1-K3, K6, K8 or
-                                            # K9 spill)
+                                            # K9 spill, or on serialised
+                                            # wgmma in the bf16 K1, K2)
     python3 chip_smoke.py --trace out.json  # keep the traced steps' traces
 
 Transformer-base runs at its full depth (6+6 layers) and width, the
@@ -90,17 +91,25 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               from their sources (--flash-fwd-baseline,
               --flash-bwd-baseline, or git history) and timed in turns
               with them. The same three in bf16 (mixed precision: bf16
-              q, k, v, g, out, dQ, dK, dV; lse and delta fp32) against
-              their plain versions in bf16 at the timing shapes, D 16,
-              32 and 128 at odd T and packed views (within 2^-7 of
-              max(1, max |plain|): two bf16 ulps, each side rounding an
-              fp32 sum once; lse within 1e-4), timed beside the fp32
-              kernels on the same values, the plain versions and
+              q, k, v, g, out, dQ, dK, dV; lse and delta fp32; K1 and
+              K2 the bf16 wgmma kernels of flash_attention_fwd_bf16.cu
+              and flash_attention_bwd_dkdv_bf16.cu, whose SASS must
+              hold HGMMA and no HMMA in each of their 8 kernels, K3
+              the fp32 template's TF32 mma.sync) against their plain
+              versions in bf16 at the timing shapes, D 16, 32 and 128 at
+              odd T and packed views, launched directly and replayed
+              from a CUDA graph (within 2^-7 of max(1, max |plain|): two
+              bf16 ulps, each side rounding an fp32 sum once; lse within
+              1e-4), timed beside the fp32 kernels on the same values,
+              the bf16 K1 and K2 of commit bb43ba4 (TF32 mma.sync; built
+              from --flash-bf16-fwd-baseline, --flash-bf16-bwd-baseline
+              or git history, each held to the current one first; the
+              new ones must be faster), the plain versions and
               scaled_dot_product_attention on the bf16 inputs, with
-              bounds from bf16 bytes and the TF32 products the bf16
-              kernels issue (a bf16 operand is exact in TF32: 2 a
-              product in K1, 12 D for 8 D a pair in K2, 8 D for 6 D in
-              K3). Then the flash-vs-dense crossover, measured and
+              bounds from bf16 bytes and the function's products at the
+              bf16 peak, and the design's (K1, K2: 1.5 bf16 products a
+              product, P and dS split in two; K3: 8 D TF32 flops for 6
+              D). Then the flash-vs-dense crossover, measured and
               not acted on: K1 against the dense attention_reference at
               q, k, v [8, T, 8, 64], T = 16-1024 (`crossover:` lines).
               Then fused_attention with a query length other than the
@@ -114,7 +123,11 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               InferenceEngine request on the card match the CPU exactly;
               and fault C9: fused_attention with a kv_len-0 row gives
               the mean of v at T = 8 and 0 at T = 1024 (K1 launched once
-              each), within 1e-4 of the CPU.
+              each), within 1e-4 of the CPU. Then faults C12 and C13:
+              topk on tied, zero and NaN rows gives lax.top_k's indices
+              (the lower index first among equal values) on the card
+              and the CPU, accuracy on a uniform row with label 0 is
+              1.0, and abs's gradient at 0 is +1 (`C12:`, `C13:`).
 4. serving  — the main path: build Transformer-base scoring (vocab 30000,
               d_model 512, 8 heads, 6+6 layers, d_inner 2048, T=256) with
               the port's layers, run its startup program on the card from
@@ -382,6 +395,9 @@ MODEL = dict(vocab=30000, max_length=256, d_model=512, n_head=8, d_key=64,
 
 FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention_fwd.cu"
 FLASH_BWD_SRC = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
+# the bf16 K1 and K2 (bf16 wgmma); the bf16 K3 stays in FLASH_BWD_SRC
+FLASH_BF16_SRC = "paddle_tpu_torch/csrc/flash_attention_fwd_bf16.cu"
+DKDV_BF16_SRC = "paddle_tpu_torch/csrc/flash_attention_bwd_dkdv_bf16.cu"
 XENT_SRC = "paddle_tpu_torch/csrc/softmax_xent_fwd.cu"
 LN_SRC = "paddle_tpu_torch/csrc/layer_norm_fwd.cu"
 FLASH_TPU = "paddle_tpu/ops/pallas_kernels.py:64 (_flash_fwd_kernel, " \
@@ -496,6 +512,10 @@ FLASH_BWD_BASELINE_COMMIT = "0ba7d56"
 # the commit whose K1 (fp32 on the CUDA cores) the current one is timed
 # against
 FLASH_FWD_BASELINE_COMMIT = "db823af"
+# the commit whose bf16 K1 and K2 (the fp32 kernels' template on bf16
+# tiles, TF32 mma.sync) the bf16 wgmma ones are timed against; they lie in
+# FLASH_SRC and FLASH_BWD_SRC at that commit
+FLASH_BF16_BASELINE_COMMIT = "bb43ba4"
 # the commit whose K6 (one block per batch row, W read from L2 at every
 # step) and K8 (three walks over each row) the current ones are timed
 # against
@@ -596,8 +616,12 @@ def bound(flops, nbytes, peak_flops, peak_bw):
 
 def flash_registers(log):
     """Registers and spill bytes of each flash kernel (K1 forward, K2 dK/dV,
-    K3 dQ) per D and element type (fp32, bf16), from nvcc's `ptxas -v`
-    lines; fails on a spill."""
+    K3 dQ) per D and element type (fp32; bf16: K3 the fp32 template's
+    instantiation, K1 and K2 the wgmma kernels of FLASH_BF16_SRC and
+    DKDV_BF16_SRC), from nvcc's `ptxas -v` lines; fails on a spill, and
+    on ptxas serialising a wgmma kernel's products (it says so when an
+    accumulator or A fragment is touched between an issue and its
+    wait)."""
     import re
     name, found = None, []
     for line in log.splitlines():
@@ -606,15 +630,17 @@ def flash_registers(log):
         if m:
             name = m.group(1)
             continue
-        kind = name and re.search(r"flash_(fwd|bwd_dkdv|bwd_dq)_kernelILi"
-                                  r"(\d+)E(f|13__nv_bfloat16)E", name)
+        kind = name and re.search(r"flash_(fwd|bwd_dkdv|bwd_dq)(_bf16)?_kernel"
+                                  r"ILi(\d+)E(?:(f|13__nv_bfloat16)E)?", name)
         if not kind:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
-            found.append([kind.group(1), int(kind.group(2)),
-                          "fp32" if kind.group(3) == "f" else "bf16", None,
+            dtype = "bf16" if kind.group(2) or kind.group(4) != "f" \
+                else "fp32"
+            found.append([kind.group(1) + (kind.group(2) or ""),
+                          int(kind.group(3)), dtype, None,
                           int(m.group(1)) + int(m.group(2))])
         m = re.search(r"Used (\d+) registers", line)
         if m and found and found[-1][3] is None:
@@ -623,9 +649,45 @@ def flash_registers(log):
         print("ptxas: flash_%s_kernel<%d, %s>: %s registers, %d bytes "
               "spilled" % (kind, d, dtype, regs, spill))
     check(len(found) == 24, "ptxas: expected the register lines of 24 flash "
-          "kernels (3 kernels x 4 D x fp32, bf16), found %d" % len(found))
+          "kernels (3 kernels x 4 D x fp32, bf16; the bf16 K1 and K2 the "
+          "wgmma ones), found %d" % len(found))
+    check(sum(kind.endswith("_bf16") for kind, *_ in found) == 8,
+          "ptxas: expected 8 wgmma flash kernels (bf16 K1, K2 x 4 D)")
     check(all(spill == 0 for *_, spill in found),
           "a flash kernel spills registers")
+    serial = [line.strip() for line in log.splitlines()
+              if "wgmma" in line and "serializ" in line]
+    print("ptxas: %d lines on serialised wgmma" % len(serial))
+    check(not serial, "ptxas serialises wgmma: %s" % "; ".join(serial))
+
+
+def wgmma_sass(ck):
+    """The bf16 K1 and K2 (wgmma) in the built library's SASS (cuobjdump
+    -sass): each of their 8 kernels (4 D each) holds HGMMA, Hopper's
+    warpgroup product, and no HMMA (mma.sync). Returns {kernel: HGMMA
+    count}."""
+    import re
+    tool = os.path.join(os.path.dirname(ck._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", ck.build_info.path],
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, "cuobjdump -sass failed: %s" % out.stderr)
+    counts = {}
+    for body in re.split(r"\n\s*Function : ", out.stdout)[1:]:
+        fname = body.split("\n", 1)[0].strip()
+        kind = re.search(r"flash_(fwd|bwd_dkdv)_bf16_kernelILi(\d+)E", fname)
+        if not kind:
+            continue
+        key = "flash_%s_bf16_kernel<%s>" % kind.groups()
+        counts[key] = body.count("HGMMA")
+        check(counts[key] > 0 and not re.search(r"\bHMMA\b", body),
+              "SASS: %s holds %d HGMMA and %d HMMA" % (
+                  key, counts[key], len(re.findall(r"\bHMMA\b", body))))
+    check(len(counts) == 8, "SASS: expected 8 wgmma flash kernels, found %s"
+          % sorted(counts))
+    print("kernels: SASS of the bf16 K1 and K2: HGMMA in every kernel, no "
+          "HMMA: %s" % ", ".join("%s %d" % kv for kv in sorted(
+              counts.items())))
+    return counts
 
 
 def sequence_registers(log):
@@ -778,7 +840,8 @@ def hold_bf16_step(what, names, card16, cpu16, cpu32, extra=(),
 
 
 def run_kernels(torch, ck, peak_flops, peak_bw, tc_flops, bf16_flops,
-                flash_fwd_source=None, flash_bwd_source=None):
+                flash_fwd_source=None, flash_bwd_source=None,
+                flash_bf16_sources=(None, None)):
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -798,9 +861,11 @@ def run_kernels(torch, ck, peak_flops, peak_bw, tc_flops, bf16_flops,
     # K2, K3: flash attention backward (run_flash_bwd_kernels)
     results.update(run_flash_bwd_kernels(torch, ck, g, peak_flops,
                                          peak_bw, tc_flops, flash_bwd_source))
-    # K1-K3 in bf16 (mixed precision): run_flash_bf16_kernels
+    # K1-K3 in bf16 (mixed precision): run_flash_bf16_kernels, after the
+    # SASS of the bf16 K1 and K2 shows their wgmma products
+    wgmma_sass(ck)
     results.update(run_flash_bf16_kernels(torch, ck, g, peak_bw, tc_flops,
-                                          bf16_flops))
+                                          bf16_flops, *flash_bf16_sources))
 
     # K4: softmax cross-entropy forward at the training path's shape
     n, vocab = TRAIN_BATCH * MODEL["max_length"], MODEL["vocab"]
@@ -1272,6 +1337,47 @@ def flash_bwd_baseline(torch, ck, source, build_dir):
             lambda *a: call(lib.ptt_flash_attention_bwd_dq, 1, *a))
 
 
+def flash_bf16_call(torch, ck, lib, part):
+    """A function with flash_attention_fwd's signature (part "fwd") or
+    flash_attention_bwd_dkdv's ("dkdv"), on bf16 inputs, that launches the
+    bf16 entry of `lib`: an earlier or a variant kernel's library, with no
+    launch count (it is on no path)."""
+    ck._bind_flash_bf16(lib, (part,))
+    if part == "fwd":
+        fn = lib.ptt_flash_attention_fwd_bf16
+
+        def call(q, k, v, kv_len=None, causal=False):
+            b, t, h, d = q.shape
+            out = torch.empty((b, t, h, d), dtype=torch.bfloat16,
+                              device=q.device)
+            lse = torch.empty((b, h, t), dtype=torch.float32,
+                              device=q.device)
+            lens = None if kv_len is None else \
+                kv_len.to(dtype=torch.int32).contiguous()
+            err = ck._fwd_call(fn, q, k, v, lens, out, lse, 1.0 / d ** 0.5,
+                               causal)
+            check(err == 0, "a bf16 flash forward of another source failed "
+                  "to launch (cudaError %d)" % err)
+            return out, lse
+
+        return call
+    fn = lib.ptt_flash_attention_bwd_dkdv_bf16
+
+    def call(q, k, v, lse, delta, g, kv_len=None, causal=False):
+        b, t, h, d, lens, lse, delta = ck._flash_bwd_args(
+            "bf16 flash dK/dV of another source", q, k, v, lse, delta, g,
+            kv_len)
+        outs = [torch.empty((b, t, h, d), dtype=torch.bfloat16,
+                            device=q.device) for _ in range(2)]
+        err = ck._bwd_call(fn, q, k, v, g, lse, delta, lens, outs, b, t, h, d,
+                           1.0 / d ** 0.5, causal)
+        check(err == 0, "a bf16 flash dK/dV of another source failed to "
+              "launch (cudaError %d)" % err)
+        return tuple(outs)
+
+    return call
+
+
 def device_kernel_names(torch, fn):
     """The device kernels one call of fn runs (from a torch.profiler
     trace): what a library yardstick is."""
@@ -1446,13 +1552,14 @@ def run_flash_bwd_kernels(torch, ck, gen, peak_flops, peak_bw, tc_flops,
 # value) away. Held to two ulps of the largest value: max |kernel - plain|
 # / max(1, max |plain|) <= 2^-7. lse (fp32) stays at KERNEL_TOL.
 BF16_KERNEL_TOL = 2.0 ** -7
-# the TF32 products a useful fp32 product costs in the bf16 kernels as
-# they are built (the `bound_design_ms` beside each bf16 row's bound): a
-# bf16 operand is exact in TF32, so its lo product drops. K1: Q K^T (Q *
-# scale split, K exact) and P V (P split, V exact) take 2; K2: S and dP 1
-# each, dV and dK 2 each (12 D for 8 D a pair); K3: S and dP 1, dQ 2 (8 D
-# for 6 D)
-BF16_TF32_COST = {"fwd": 2.0, "dkdv": 12.0 / 8.0, "dq": 8.0 / 6.0}
+# what a useful fp32 product costs in the bf16 kernels as they are built
+# (the `bound_design_ms` beside each bf16 row's bound), and on which
+# tensor-core peak. K1 and K2 (wgmma): S, dP one bf16 product each (exact:
+# bf16 operands), P V, dV, dK two (P and dS split into bf16 hi + lo), so
+# 1.5 for K1 (4 D a pair) and 1.5 for K2 (12 D for 8 D); K3 (TF32
+# mma.sync, bf16 operands exact in TF32): S and dP 1, dQ 2 (8 D for 6 D)
+BF16_DESIGN = {"fwd": (1.5, "bf16"), "dkdv": (12.0 / 8.0, "bf16"),
+               "dq": (8.0 / 6.0, "tf32")}
 
 
 def flash_bf16_cases():
@@ -1483,59 +1590,107 @@ def flash_bf16_inputs(torch, gen, b, t, h, d, packed, n):
 
 
 def flash_bf16_case(torch, ck, q, k, v, g_out, kv_len, causal):
-    """bf16 K1, K2 and K3 against their plain versions on one input: out,
-    dK, dV and dQ bf16 within BF16_KERNEL_TOL (rel_err), lse fp32 within
-    KERNEL_TOL, and a kv_len-0 row out 0, lse EMPTY_LSE and gradients 0.
-    Returns the three errors (K1 the larger of out's and lse's)."""
-    out, lse = ck.flash_attention_fwd(q, k, v, kv_len, causal)
+    """bf16 K1, K2 and K3 against their plain versions on one input,
+    launched directly and replayed from a CUDA graph: out, dK, dV and dQ
+    bf16 within BF16_KERNEL_TOL (rel_err), lse fp32 within KERNEL_TOL, and
+    a kv_len-0 row out 0, lse EMPTY_LSE and gradients 0. Returns the three
+    errors (K1 the larger of out's and lse's), the worse of the two
+    runs."""
     ref_out, ref_lse = ck.flash_attention_fwd_plain(q, k, v, kv_len, causal)
     delta = ck.flash_delta(g_out, ref_out)
     args = (q, k, v, ref_lse, delta, g_out, kv_len, causal)
-    dk, dv = ck.flash_attention_bwd_dkdv(*args)
-    dq = ck.flash_attention_bwd_dq(*args)
     ref = ck.flash_attention_bwd_plain(*args)
+
+    def run():
+        return (ck.flash_attention_fwd(q, k, v, kv_len, causal)
+                + ck.flash_attention_bwd_dkdv(*args)
+                + (ck.flash_attention_bwd_dq(*args),))
+
+    direct = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = run()
+    graph.replay()
+    graph.replay()
     torch.cuda.synchronize()
-    check(out.dtype == dk.dtype == dv.dtype == dq.dtype == torch.bfloat16
-          and lse.dtype == delta.dtype == torch.float32,
-          "bf16 flash kernels: out %s, dK %s, dV %s, dQ %s, lse %s"
-          % (out.dtype, dk.dtype, dv.dtype, dq.dtype, lse.dtype))
-    e_out = rel_err((out.float(),), (ref_out.float(),))
-    e_lse = (lse - ref_lse).abs().max().item()
-    e_kv = rel_err((dk.float(), dv.float()),
-                   (ref[1].float(), ref[2].float()))
-    e_q = rel_err((dq.float(),), (ref[0].float(),))
-    if kv_len is not None:
-        empty = kv_len.long() == 0
-        check(bool((out[empty] == 0).all())
-              and bool((lse[empty] == float(EMPTY_LSE)).all())
-              and all(bool((x[empty] == 0).all()) for x in (dk, dv, dq)),
-              "bf16 flash kernels: a kv_len-0 row is not out 0, lse %r, "
-              "gradients 0" % float(EMPTY_LSE))
-    check(np.isfinite(e_out) and e_out <= BF16_KERNEL_TOL
-          and np.isfinite(e_lse) and e_lse <= KERNEL_TOL
-          and np.isfinite(e_kv) and e_kv <= BF16_KERNEL_TOL
-          and np.isfinite(e_q) and e_q <= BF16_KERNEL_TOL,
-          "bf16 flash kernels disagree with their plain versions: out %r, "
-          "lse %r, dK/dV %r, dQ %r (tolerances %r, %r)"
-          % (e_out, e_lse, e_kv, e_q, BF16_KERNEL_TOL, KERNEL_TOL))
-    return max(e_out, e_lse), e_kv, e_q
+    errs = []
+    for how, (out, lse, dk, dv, dq) in (("direct", direct),
+                                        ("CUDA graph", replayed)):
+        check(out.dtype == dk.dtype == dv.dtype == dq.dtype == torch.bfloat16
+              and lse.dtype == delta.dtype == torch.float32,
+              "bf16 flash kernels: out %s, dK %s, dV %s, dQ %s, lse %s"
+              % (out.dtype, dk.dtype, dv.dtype, dq.dtype, lse.dtype))
+        e_out = rel_err((out.float(),), (ref_out.float(),))
+        e_lse = (lse - ref_lse).abs().max().item()
+        e_kv = rel_err((dk.float(), dv.float()),
+                       (ref[1].float(), ref[2].float()))
+        e_q = rel_err((dq.float(),), (ref[0].float(),))
+        if kv_len is not None:
+            empty = kv_len.long() == 0
+            check(bool((out[empty] == 0).all())
+                  and bool((lse[empty] == float(EMPTY_LSE)).all())
+                  and all(bool((x[empty] == 0).all()) for x in (dk, dv, dq)),
+                  "bf16 flash kernels (%s): a kv_len-0 row is not out 0, "
+                  "lse %r, gradients 0" % (how, float(EMPTY_LSE)))
+        check(np.isfinite(e_out) and e_out <= BF16_KERNEL_TOL
+              and np.isfinite(e_lse) and e_lse <= KERNEL_TOL
+              and np.isfinite(e_kv) and e_kv <= BF16_KERNEL_TOL
+              and np.isfinite(e_q) and e_q <= BF16_KERNEL_TOL,
+              "bf16 flash kernels (%s) disagree with their plain versions: "
+              "out %r, lse %r, dK/dV %r, dQ %r (tolerances %r, %r)"
+              % (how, e_out, e_lse, e_kv, e_q, BF16_KERNEL_TOL, KERNEL_TOL))
+        errs.append((max(e_out, e_lse), e_kv, e_q))
+    del graph
+    return tuple(max(e) for e in zip(*errs))
 
 
-def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops):
+def flash_bf16_baseline(torch, ck, fwd_source, bwd_source):
+    """The bf16 K1 and K2 of commit FLASH_BF16_BASELINE_COMMIT (the fp32
+    template on bf16 tiles, TF32 mma.sync), each built from its source
+    (None: not measured): {"fwd": fn, "dkdv": fn} with the wrappers'
+    signatures and no launch count (they are on no path)."""
+    fns = {}
+    for part, source in (("fwd", fwd_source), ("dkdv", bwd_source)):
+        if source is None:
+            print("kernels: the %s bf16 %s source is not at hand; its time "
+                  "prints as not measured" % (FLASH_BF16_BASELINE_COMMIT,
+                                              part))
+            continue
+        t0 = time.perf_counter()
+        lib = build_baseline(ck, source, tempfile.mkdtemp(
+            prefix="ptt_flash_bf16_baseline_"), "ptt_flash_bf16_" + part,
+            "bf16 flash " + part)
+        fns[part] = flash_bf16_call(torch, ck, lib, part)
+        print("kernels: built the %s bf16 %s in %.1f s"
+              % (FLASH_BF16_BASELINE_COMMIT, part, time.perf_counter() - t0))
+    return fns
+
+
+def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops,
+                           fwd_source=None, bwd_source=None):
     """K1, K2 and K3 on bf16 q, k, v and g (the mixed-precision
     Transformer's): each against its plain version in bf16 at
-    flash_bf16_cases (flash_bf16_case), then timed at flash_timing_shapes
-    beside the fp32 kernels on the same values widened (in turns: fp32,
-    bf16, bf16, fp32), the plain versions, and scaled_dot_product_attention
-    on the bf16 inputs (forward; backward as the graph of forward +
-    backward less the forward). Bound: the larger of the bytes at 2 an
-    element (lse, delta fp32) over the memory rate and the function's
-    products over the bf16 tensor-core peak. Beside it the bound of the
-    kernels' design (bound_design_ms): the TF32 products they issue
-    (BF16_TF32_COST) over the TF32 peak. Returns the three kernels'
-    rows for the `kernels` line, keyed by ck.launch_counts()' names."""
+    flash_bf16_cases (flash_bf16_case: directly and from a CUDA graph),
+    then timed at flash_timing_shapes beside the fp32 kernels on the same
+    values widened and, for K1 and K2, the bf16 kernels of commit
+    FLASH_BF16_BASELINE_COMMIT built from `fwd_source` / `bwd_source`
+    (in turns: earlier, fp32, bf16, bf16, fp32, earlier), the plain
+    versions, and scaled_dot_product_attention on the bf16 inputs
+    (forward; backward as the graph of forward + backward less the
+    forward). Bound: the larger of the bytes at 2 an element (lse, delta
+    fp32) over the memory rate and the function's products over the bf16
+    tensor-core peak. Beside it the bound of the kernels' design
+    (bound_design_ms): the products they issue (BF16_DESIGN) over their
+    peak. Returns the three kernels' rows for the `kernels` line, keyed by
+    ck.launch_counts()' names."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
+    base = flash_bf16_baseline(torch, ck, fwd_source, bwd_source)
     errs = {"fwd": 0.0, "dkdv": 0.0, "dq": 0.0}
     for what, (b, t, h, d, lens), causal, packed in flash_bf16_cases():
         q, k, v, g_out = flash_bf16_inputs(torch, gen, b, t, h, d, packed, 4)
@@ -1543,14 +1698,15 @@ def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops):
         for kv_len in (kv, None):
             got = flash_bf16_case(torch, ck, q, k, v, g_out, kv_len, causal)
             print("kernels: flash bf16 %s B=%d T=%d H=%d D=%d causal=%s "
-                  "kv_len=%s K1 err %.3e, K2 (dK, dV) rel err %.3e, K3 (dQ) "
-                  "rel err %.3e" % (what, b, t, h, d, causal,
-                                    "ragged" if kv_len is not None
-                                    else "full", *got))
+                  "kv_len=%s (direct and CUDA graph) K1 err %.3e, K2 (dK, "
+                  "dV) rel err %.3e, K3 (dQ) rel err %.3e"
+                  % (what, b, t, h, d, causal,
+                     "ragged" if kv_len is not None else "full", *got))
             for key, e in zip(("fwd", "dkdv", "dq"), got):
                 errs[key] = max(errs[key], e)
         del q, k, v, g_out
         torch.cuda.empty_cache()
+    peaks = {"bf16": bf16_flops, "tf32": tc_flops}
 
     rows = []
     for what, (b, t, h, d, lens), causal in flash_timing_shapes():
@@ -1569,24 +1725,47 @@ def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops):
                         lambda: ck.flash_attention_bwd_dkdv(*args32)),
                "dq": (lambda: ck.flash_attention_bwd_dq(*args),
                       lambda: ck.flash_attention_bwd_dq(*args32))}
+        old = {}
+        if "fwd" in base:
+            old["fwd"] = lambda: base["fwd"](q, k, v, kv, causal)
+        if "dkdv" in base:
+            old["dkdv"] = lambda: base["dkdv"](*args)
+        for part, fn in old.items():
+            got = fn()
+            want = fns[part][0]()
+            torch.cuda.synchronize()
+            err = rel_err([x.float() for x in got], [x.float() for x in want])
+            print("kernels: the %s bf16 %s at %s agrees with the current "
+                  "one within %.3e" % (FLASH_BF16_BASELINE_COMMIT, part,
+                                       what, err))
+            check(err <= 2 * BF16_KERNEL_TOL, "the %s bf16 %s disagrees "
+                  "with the current one by %r" % (FLASH_BF16_BASELINE_COMMIT,
+                                                  part, err))
         row = {"what": what, "causal": causal,
                "shape": "q,k,v,g [%d,%d,%d,%d] bf16, kv_len %s"
                % (b, t, h, d, lens if what == "serving" else "full")}
         for part, (fn16, fn32) in fns.items():
-            runs = {"bf16": [], "fp32": []}
-            for order in ("fp32", "bf16", "bf16", "fp32"):
-                runs[order].append(time_ms(torch, fn16 if order == "bf16"
-                                           else fn32))
+            runs = {"bf16": [], "fp32": [], "old": []}
+            order = ("fp32", "bf16", "bf16", "fp32")
+            if part in old:
+                order = ("old",) + order + ("old",)
+            for turn in order:
+                runs[turn].append(time_ms(torch, {
+                    "bf16": fn16, "fp32": fn32}.get(turn, old.get(part))))
             flops, nbytes = flash_work(b, t, h, d, lens, causal, part, 2)
             row[part + "_ms"] = statistics.mean(runs["bf16"])
             row[part + "_runs"] = runs["bf16"]
             row[part + "_fp32_ms"] = statistics.mean(runs["fp32"])
             row[part + "_fp32_runs"] = runs["fp32"]
+            if part in ("fwd", "dkdv"):
+                row[part + "_baseline_ms"] = (statistics.mean(runs["old"])
+                                              if runs["old"] else None)
+                row[part + "_baseline_runs"] = runs["old"]
             row[part + "_bound_ms"], row[part + "_bound_by"] = bound(
                 flops, nbytes, bf16_flops, peak_bw)
+            cost, peak = BF16_DESIGN[part]
             row[part + "_bound_design_ms"], row[part + "_bound_design_by"] = \
-                bound(flops * BF16_TF32_COST[part], nbytes, tc_flops,
-                      peak_bw)
+                bound(flops * cost, nbytes, peaks[peak], peak_bw)
         row["fwd_plain_ms"] = time_ms(
             torch, lambda: ck.flash_attention_fwd_plain(q, k, v, kv, causal))
         row["bwd_plain_ms"] = time_ms(
@@ -1608,26 +1787,37 @@ def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops):
         if what != "serving":
             print("kernels: the library's bf16 forward device kernels at %s: "
                   "%s" % (what, device_kernel_names(torch, sdpa)))
-        print("kernels: flash bf16 timing %s (%s, causal=%s): K1 %s ms (fp32 "
-              "K1 %s), bound %.4f ms (%s; design %.4f, %s), plain %.4f, "
-              "library %.4f; K2 %s ms (fp32 %s), bound %.4f (%s; design "
-              "%.4f, %s); K3 %s ms (fp32 %s), bound %.4f (%s; design %.4f, "
-              "%s); backward plain %.4f, library %.4f ms (dQ, dK, dV)"
-              % (what, row["shape"], causal,
-                 " / ".join("%.4f" % x for x in row["fwd_runs"]),
-                 " / ".join("%.4f" % x for x in row["fwd_fp32_runs"]),
+
+        def runs_of(key):
+            return " / ".join("%.4f" % x for x in row[key]) or "not measured"
+
+        print("kernels: flash bf16 timing %s (%s, causal=%s): K1 %s ms (%s "
+              "K1 %s; fp32 K1 %s), bound %.4f ms (%s; design %.4f, %s), "
+              "plain %.4f, library %.4f; K2 %s ms (%s K2 %s; fp32 %s), bound "
+              "%.4f (%s; design %.4f, %s); K3 %s ms (fp32 %s), bound %.4f "
+              "(%s; design %.4f, %s); backward plain %.4f, library %.4f ms "
+              "(dQ, dK, dV)"
+              % (what, row["shape"], causal, runs_of("fwd_runs"),
+                 FLASH_BF16_BASELINE_COMMIT, runs_of("fwd_baseline_runs"),
+                 runs_of("fwd_fp32_runs"),
                  row["fwd_bound_ms"], row["fwd_bound_by"],
                  row["fwd_bound_design_ms"], row["fwd_bound_design_by"],
                  row["fwd_plain_ms"], row["fwd_library_ms"],
-                 " / ".join("%.4f" % x for x in row["dkdv_runs"]),
-                 " / ".join("%.4f" % x for x in row["dkdv_fp32_runs"]),
+                 runs_of("dkdv_runs"), FLASH_BF16_BASELINE_COMMIT,
+                 runs_of("dkdv_baseline_runs"), runs_of("dkdv_fp32_runs"),
                  row["dkdv_bound_ms"], row["dkdv_bound_by"],
                  row["dkdv_bound_design_ms"], row["dkdv_bound_design_by"],
-                 " / ".join("%.4f" % x for x in row["dq_runs"]),
-                 " / ".join("%.4f" % x for x in row["dq_fp32_runs"]),
+                 runs_of("dq_runs"), runs_of("dq_fp32_runs"),
                  row["dq_bound_ms"], row["dq_bound_by"],
                  row["dq_bound_design_ms"], row["dq_bound_design_by"],
                  row["bwd_plain_ms"], row["bwd_library_ms"]))
+        for part in ("fwd", "dkdv"):
+            if row[part + "_baseline_ms"] is not None:
+                check(row[part + "_ms"] < row[part + "_baseline_ms"],
+                      "the bf16 %s (%.4f ms) is not faster than the %s one "
+                      "(%.4f ms) at %s" % (part, row[part + "_ms"],
+                                           FLASH_BF16_BASELINE_COMMIT,
+                                           row[part + "_baseline_ms"], what))
         rows.append(row)
         del q, k, v, g_out, q32, k32, v32, g32, out, out32, qt, kt, vt
     torch.cuda.empty_cache()
@@ -1635,8 +1825,8 @@ def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops):
     serve = rows[0]
     results = {}
     for name, src, tpu, part, stage in (
-            ("flash_attention_fwd", FLASH_SRC, FLASH_TPU, "fwd", "fwd"),
-            ("flash_attention_bwd_dkdv", FLASH_BWD_SRC, DKDV_TPU, "dkdv",
+            ("flash_attention_fwd", FLASH_BF16_SRC, FLASH_TPU, "fwd", "fwd"),
+            ("flash_attention_bwd_dkdv", DKDV_BF16_SRC, DKDV_TPU, "dkdv",
              "bwd"),
             ("flash_attention_bwd_dq", FLASH_BWD_SRC, DQ_TPU, "dq", "bwd")):
         results[name + "_bf16"] = {
@@ -1661,6 +1851,11 @@ def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops):
                       or key.startswith((part + "_", stage + "_"))}
                      for r in rows],
         }
+        if part in ("fwd", "dkdv"):
+            results[name + "_bf16"]["baseline_ms"] = serve[
+                part + "_baseline_ms"]
+            results[name + "_bf16"]["baseline_commit"] = \
+                FLASH_BF16_BASELINE_COMMIT
     return results
 
 
@@ -4181,6 +4376,65 @@ def run_fault_checks(torch):
               "C9 at T = %d: card vs CPU %r, row 0 %r" % (t, err, row_err))
 
 
+# C12: lax.top_k's order (the lower index first among equal values, NaN
+# above inf, +0 above -0), as the JAX package gives it on these rows (the
+# CPU tests hold the port to it there): (row, k, indices)
+_NAN_ROW = [1.0, float("nan"), 3.0, 3.0, -float("nan"), 2.0, 0.0, -0.0,
+            float("inf"), -float("inf")]
+TOPK_CASES = (([1.0, 3.0, 3.0, 2.0, 3.0], 3, [1, 2, 4]),
+              ([0.0] * 40, 1, [0]),
+              (_NAN_ROW, 10, [1, 8, 2, 3, 5, 0, 6, 7, 9, 4]))
+
+
+def run_topk_abs_checks(torch):
+    """Faults C12 and C13 on the card. C12: topk's indices on a tied row,
+    a row of zeros and a row with NaN, inf and signed zeros are
+    lax.top_k's (TOPK_CASES) and the CPU rule's, its values the CPU's; a
+    uniform [4, 10] input with label 0 gives accuracy 1.0 at k 1 and 3.
+    C13: the gradient of abs at [-1, 0, 1, 0, 2, -0] is jax.grad(jnp.abs)'s
+    [-1, 1, 1, 1, 1, 1]."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.lowering import LowerCtx
+
+    card = fluid.Executor().device
+    cpu = torch.device("cpu")
+
+    def rule(op, ins, attrs, dev):
+        return registry.get(op).lower(LowerCtx(None, dev), ins, attrs)
+
+    for row, k, want in TOPK_CASES:
+        x = torch.tensor([row], dtype=torch.float32)
+        got = [rule("topk", {"X": [x.to(dev)]}, {"k": k}, dev)
+               for dev in (card, cpu)]
+        idx = [g["Indices"][0].cpu().numpy() for g in got]
+        vals = [g["Out"][0].cpu().numpy() for g in got]
+        check(idx[0].tolist() == [want] and idx[1].tolist() == [want]
+              and np.array_equal(vals[0], vals[1], equal_nan=True),
+              "C12: topk of %s at k = %d: card %s, CPU %s, lax.top_k %s"
+              % (row, k, idx[0].tolist(), idx[1].tolist(), want))
+    x = torch.full((4, 10), 0.1, device=card)
+    label = torch.zeros((4, 1), dtype=torch.int64, device=card)
+    for k in (1, 3):
+        top = rule("topk", {"X": [x]}, {"k": k}, card)
+        acc = rule("accuracy", {"Indices": top["Indices"], "Label": [label]},
+                   {}, card)["Accuracy"][0].item()
+        check(acc == 1.0, "C12: accuracy on a uniform row at k = %d is %r"
+              % (k, acc))
+    print("C12: topk on the card: tied, zero and NaN rows in lax.top_k's "
+          "order, equal to the CPU; accuracy 1.0 on a uniform [4, 10] with "
+          "label 0")
+    x = torch.tensor([-1.0, 0.0, 1.0, 0.0, 2.0, -0.0], device=card,
+                     requires_grad=True)
+    y = rule("abs", {"X": [x]}, {}, card)["Out"][0]
+    grad, = torch.autograd.grad(y.sum(), x)
+    check(grad.cpu().tolist() == [-1.0, 1.0, 1.0, 1.0, 1.0, 1.0],
+          "C13: the gradient of abs at %s is %s" % (x.tolist(),
+                                                   grad.cpu().tolist()))
+    print("C13: abs's gradient on the card at [-1, 0, 1, 0, 2, -0]: %s "
+          "(jax.grad(jnp.abs): +1 at 0)" % grad.cpu().tolist())
+
+
 # ------------------------------------------------------------- dense zoo --
 
 def ctr_feed(rng, rows, sparse, with_label=True):
@@ -4886,6 +5140,18 @@ def main(argv=None):
                     "CUDA cores) to time beside the new K2/K3 (default: "
                     "`git show %s:%s` when the checkout has its history)"
                     % (FLASH_BWD_BASELINE_COMMIT, FLASH_BWD_SRC))
+    ap.add_argument("--flash-bf16-fwd-baseline", metavar="SRC",
+                    help="the %s flash_attention_fwd.cu (its bf16 K1: TF32 "
+                    "mma.sync) to time beside the bf16 wgmma K1 (default: "
+                    "`git show %s:%s` when the checkout has its history)"
+                    % (FLASH_BF16_BASELINE_COMMIT, FLASH_BF16_BASELINE_COMMIT,
+                       FLASH_SRC))
+    ap.add_argument("--flash-bf16-bwd-baseline", metavar="SRC",
+                    help="the %s flash_attention_bwd.cu (its bf16 K2) to "
+                    "time beside the bf16 wgmma K2 (default: `git show "
+                    "%s:%s` when the checkout has its history)"
+                    % (FLASH_BF16_BASELINE_COMMIT, FLASH_BF16_BASELINE_COMMIT,
+                       FLASH_BWD_SRC))
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/shared-memory report")
     ap.add_argument("--trace", metavar="PATH",
@@ -4928,10 +5194,15 @@ def main(argv=None):
         baseline_source(args.flash_fwd_baseline, FLASH_FWD_BASELINE_COMMIT,
                         FLASH_SRC),
         baseline_source(args.flash_bwd_baseline, FLASH_BWD_BASELINE_COMMIT,
-                        FLASH_BWD_SRC))
+                        FLASH_BWD_SRC),
+        (baseline_source(args.flash_bf16_fwd_baseline,
+                         FLASH_BF16_BASELINE_COMMIT, FLASH_SRC),
+         baseline_source(args.flash_bf16_bwd_baseline,
+                         FLASH_BF16_BASELINE_COMMIT, FLASH_BWD_SRC)))
     run_unequal_attention_vs_cpu(torch)
     run_flash_grid_check(torch, ck)
     run_fault_checks(torch)
+    run_topk_abs_checks(torch)
     kernels.update(run_sequence_kernels(
         torch, ck, peak_flops, peak_bw,
         baseline_source(args.k6_baseline, K6_BASELINE_COMMIT, LSTM_SRC)))

@@ -1,4 +1,5 @@
 // Flash attention backward, fp32 or bf16, for Hopper (sm_90a): two kernels.
+// The bf16 dK/dV kernel (bf16 wgmma) is flash_attention_bwd_dkdv_bf16.cu.
 //
 // Replaces the TPU kernels paddle_tpu/ops/pallas_kernels.py
 // `_flash_bwd_dkdv_kernel` (:157) and `_flash_bwd_dq_kernel` (:201), both
@@ -78,6 +79,8 @@
 // product, dV, dK and dQ (P or dS in f32 against a bf16 tile) two. P and
 // dS are not rounded to bf16 (the TPU kernels multiply them in f32); the
 // gradients narrow to bf16 (round to nearest even) only at their store.
+// Entry points: fp32 dK/dV, fp32 dQ and bf16 dQ;
+// flash_attention_bwd_dkdv_bf16.cu replaced the bf16 dK/dV one.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -713,22 +716,6 @@ extern "C" int ptt_flash_attention_bwd_dkdv(
                                   gsb, gst, gsh);
   return dkdv_entry(q, k, v, g, lse, delta, kv_len, dk, dv, B, T, H, D, st,
                     scale, causal, stream);
-}
-
-// The same with q, k, v, g, dk and dv bf16 (lse, delta fp32).
-extern "C" int ptt_flash_attention_bwd_dkdv_bf16(
-    const void* q, const void* k, const void* v, const void* g,
-    const float* lse, const float* delta, const int* kv_len, void* dk,
-    void* dv, int B, int T, int H, int D, long long qsb, long long qst,
-    long long qsh, long long ksb, long long kst, long long ksh, long long vsb,
-    long long vst, long long vsh, long long gsb, long long gst, long long gsh,
-    float scale, int causal, void* stream) {
-  const Strides st = make_strides(qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
-                                  gsb, gst, gsh);
-  return dkdv_entry(static_cast<const bf*>(q), static_cast<const bf*>(k),
-                    static_cast<const bf*>(v), static_cast<const bf*>(g), lse,
-                    delta, kv_len, static_cast<bf*>(dk), static_cast<bf*>(dv),
-                    B, T, H, D, st, scale, causal, stream);
 }
 
 // The same inputs; dq: fp32 [B, T, H, D] contiguous.

@@ -1,4 +1,5 @@
-// Flash attention forward, fp32 or bf16, for Hopper (sm_90a).
+// Flash attention forward, fp32, for Hopper (sm_90a). The bf16 kernel
+// (mixed precision, bf16 wgmma) is flash_attention_fwd_bf16.cu.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas_kernels.py
 // `_flash_fwd_kernel` (:64, launched by `_flash_fwd` :116): exact softmax
@@ -78,7 +79,8 @@
 // exactly (Q K^T and P V take two TF32 products, not three). Every
 // product and sum stays f32; P is not rounded to bf16 before P V (the TPU
 // kernel multiplies it in f32). out narrows to bf16 (round to nearest
-// even) only at its store.
+// even) only at its store. Only the fp32 instantiation has an entry
+// point now: flash_attention_fwd_bf16.cu replaced the bf16 one.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -536,18 +538,4 @@ extern "C" int ptt_flash_attention_fwd(
   const Strides st = {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh};
   return fwd_entry(q, k, v, kv_len, out, lse, B, T, H, D, st, scale, causal,
                    stream);
-}
-
-// The same with q, k, v and out bf16 (lse fp32).
-extern "C" int ptt_flash_attention_fwd_bf16(
-    const void* q, const void* k, const void* v, const int* kv_len,
-    void* out, float* lse, int B, int T, int H, int D, long long qsb,
-    long long qst, long long qsh, long long ksb, long long kst, long long ksh,
-    long long vsb, long long vst, long long vsh, float scale, int causal,
-    void* stream) {
-  using bf = __nv_bfloat16;
-  const Strides st = {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh};
-  return fwd_entry(static_cast<const bf*>(q), static_cast<const bf*>(k),
-                   static_cast<const bf*>(v), kv_len, static_cast<bf*>(out),
-                   lse, B, T, H, D, st, scale, causal, stream);
 }

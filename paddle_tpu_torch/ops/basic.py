@@ -39,6 +39,21 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+class _Abs(torch.autograd.Function):
+    """|x| with the JAX package's gradient: jax.grad(jnp.abs) is +1 at 0
+    (and at -0), where torch.abs's is 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
 def _act(name, fn):
     register(name)(lambda ctx, ins, attrs, fn=fn:
                    _out(fn(single(ins, "X"), attrs)))
@@ -55,7 +70,7 @@ _act("softshrink", lambda x, a: torch.where(
     torch.where(x < -a.get("lambda", 0.5), x + a.get("lambda", 0.5),
                 torch.zeros_like(x))))
 _act("sqrt", lambda x, a: torch.sqrt(x))
-_act("abs", lambda x, a: torch.abs(x))
+_act("abs", lambda x, a: _Abs.apply(x))
 _act("ceil", lambda x, a: torch.ceil(x))
 _act("floor", lambda x, a: torch.floor(x))
 _act("cos", lambda x, a: torch.cos(x))
@@ -304,10 +319,30 @@ def _sum(ctx, ins, attrs):
     return _out(out)
 
 
+def _total_order(x):
+    """x's values as integers in IEEE total order (-NaN < -inf < ... < -0
+    < +0 < ... < inf < NaN), the order lax.top_k ranks floats in; other
+    dtypes as they are."""
+    if not x.is_floating_point():
+        return x
+    if x.dtype == torch.float64:
+        i = x.view(torch.int64)
+        return i ^ ((i >> 63) & 0x7FFFFFFFFFFFFFFF)
+    i = x.float().view(torch.int32)
+    return i ^ ((i >> 31) & 0x7FFFFFFF)
+
+
 @register("topk")
 def _topk(ctx, ins, attrs):
-    vals, idx = torch.topk(single(ins, "X"), attrs.get("k", 1), dim=-1)
-    return {"Out": [vals], "Indices": [idx]}
+    """The k largest along the last dim, as lax.top_k gives them: a stable
+    descending sort, so among equal values the lower index comes first
+    (torch.topk leaves ties in an order of its own, fault C12), NaN above
+    inf and +0 above -0."""
+    x = single(ins, "X")
+    order = torch.sort(_total_order(x), dim=-1, descending=True,
+                       stable=True).indices
+    idx = order[..., :attrs.get("k", 1)]
+    return {"Out": [torch.gather(x, -1, idx)], "Indices": [idx]}
 
 
 @register("reshape")

@@ -18,8 +18,10 @@ Beside each kernel:
   * a launch count per kernel (`launch_counts()`, keyed by
     `KERNEL_NAMES`), raised by one exactly where the kernel is launched,
     so a run can show the main path went through it. The flash wrappers
-    (K1-K3) launch an fp32 or a bf16 instantiation of their kernel, each
-    counted under its own name (the bf16 one's ends in "_bf16").
+    (K1-K3) launch an fp32 or a bf16 kernel (K1 and K2 in bf16: the
+    wgmma kernels of flash_attention_fwd_bf16.cu and
+    flash_attention_bwd_dkdv_bf16.cu), each counted under its own name
+    (the bf16 one's ends in "_bf16").
 
 Gradients: seven torch.autograd.Functions mirror the JAX package's
 custom_vjps — `FlashAttention` (forward K1, backward K2 + K3, as
@@ -61,6 +63,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
+           "flash_attention_fwd_bf16.cu", "flash_attention_bwd_dkdv_bf16.cu",
            "softmax_xent_fwd.cu", "layer_norm_fwd.cu", "fused_lstm_fwd.cu",
            "fused_lstmp_fwd.cu", "masked_softmax_fwd.cu",
            "masked_pool_fwd.cu")
@@ -216,17 +219,20 @@ def _bind_flash_fwd(lib):
     lib.ptt_flash_attention_fwd.restype = I
 
 
-def _bind_flash_bf16(lib):
+def _bind_flash_bf16(lib, parts=("fwd", "dkdv", "dq")):
     """The bf16 entries of K1-K3 (the fp32 entries' arguments), bound
-    apart from those: a library built from an older, fp32-only source
-    (chip_smoke.py's baseline kernels) binds the fp32 ones alone."""
+    apart from those: a library built from one source alone (chip_smoke.py's
+    earlier kernels, flash_bf16_variants.py's variants) binds the `parts`
+    it holds."""
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ptt_flash_attention_fwd_bf16.argtypes = (
-        [P, P, P, P, P, P, I, I, I, I] + [L] * 9 + [ctypes.c_float, I, P])
-    lib.ptt_flash_attention_fwd_bf16.restype = I
-    for name, n_out in (("ptt_flash_attention_bwd_dkdv_bf16", 2),
-                        ("ptt_flash_attention_bwd_dq_bf16", 1)):
-        fn = getattr(lib, name)
+    if "fwd" in parts:
+        lib.ptt_flash_attention_fwd_bf16.argtypes = (
+            [P, P, P, P, P, P, I, I, I, I] + [L] * 9 + [ctypes.c_float, I, P])
+        lib.ptt_flash_attention_fwd_bf16.restype = I
+    for part, n_out in (("dkdv", 2), ("dq", 1)):
+        if part not in parts:
+            continue
+        fn = getattr(lib, "ptt_flash_attention_bwd_%s_bf16" % part)
         fn.argtypes = [P] * (7 + n_out) + [I] * 4 + [L] * 12 + \
             [ctypes.c_float, I, P]
         fn.restype = I

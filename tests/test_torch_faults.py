@@ -28,6 +28,10 @@ each held to the JAX rule on the CPU.
   the mean of v over all keys; at and above it through its flash kernel,
   which gives 0, as the port's does at every length. rtol = atol = 1e-5
   for values and gradients: fp32 in another order.
+- topk among equal values (C12): lax.top_k puts the lower index first
+  (and ranks NaN above inf, +0 above -0); the port's torch.topk left ties
+  in an order of its own, so `accuracy` on a tied row differed. Exact:
+  both sides only select values.
 
 Inputs are made with numpy from a seed and handed to both packages.
 """
@@ -46,6 +50,8 @@ import paddle_tpu_torch as tfluid
 from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.core.lowering import LowerCtx as TorchCtx
 from paddle_tpu_torch.ops import cuda_kernels as ck
+
+from test_torch_ops import _run_both
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CPU = torch.device("cpu")
@@ -657,3 +663,45 @@ def test_fused_attention_empty_row_follows_the_pin(monkeypatch):
     got = _port_rule("fused_attention", ins, attrs)["Out"][0].numpy()
     np.testing.assert_allclose(got, want, **TOL)
     assert not got[0].any()
+
+
+# ------------------------------------------------------------ topk (C12) --
+
+def _nan_row():
+    row = np.array([[1.0, np.nan, 3.0, 3.0, np.nan, 2.0, 0.0, -0.0, np.inf,
+                     -np.inf]], np.float32)
+    row[0, 4] = -row[0, 4]      # a NaN with its sign bit set
+    return row
+
+
+@pytest.mark.parametrize("x, k", [
+    (np.array([[1, 3, 3, 2, 3]], np.float32), 3),
+    (np.zeros((1, 40), np.float32), 1),
+    (_nan_row(), 10),
+    (np.random.RandomState(5).randint(0, 3, (6, 9)).astype(np.float32), 4),
+], ids=["ties", "zeros", "nan", "small-ints"])
+def test_topk_orders_ties_as_lax_top_k(x, k):
+    """The lower index first among equal values; NaN, signed zeros and
+    infinities where lax.top_k puts them."""
+    jout, tout = _run_both("topk", {"X": [x]}, {"k": k})
+    for slot in ("Out", "Indices"):
+        np.testing.assert_array_equal(tout[slot][0], jout[slot][0],
+                                      err_msg=slot)
+    assert tout["Indices"][0].dtype == np.int64
+
+
+def test_accuracy_on_a_uniform_row_matches_jax():
+    """A uniform [4, 10] input with label 0: topk's first index is 0 in
+    both packages, so accuracy is 1.0 in both (the port gave 0.0)."""
+    x = np.full((4, 10), 0.1, np.float32)
+    label = np.zeros((4, 1), np.int64)
+    for k in (1, 3):
+        jtop, ttop = _run_both("topk", {"X": [x]}, {"k": k})
+        ins = {"Indices": [jtop["Indices"][0]], "Label": [label]}
+        jacc, _ = _run_both("accuracy", ins, {})
+        _, tacc = _run_both("accuracy", dict(
+            ins, Indices=[ttop["Indices"][0]]), {})
+        for slot in ("Accuracy", "Correct", "Total"):
+            np.testing.assert_array_equal(tacc[slot][0], jacc[slot][0],
+                                          err_msg=slot)
+        assert float(tacc["Accuracy"][0][0]) == 1.0

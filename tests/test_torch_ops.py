@@ -541,6 +541,9 @@ def _grad_cases():
             ins = dict(ins, Label=[lab])
         cases.append(("softmax_with_cross_entropy", ins, attrs,
                       ["Loss", "Softmax"], pallas))
+    # C13: jax.grad(jnp.abs) is +1 at 0 (and at -0); torch.abs's is 0
+    cases.append(("abs", {"X": [np.array([-1.0, 0.0, 1.0, 0.0, 2.0, -0.0],
+                                         np.float32)]}, {}, ["Out"], "0"))
     return cases
 
 
