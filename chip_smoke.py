@@ -6,7 +6,7 @@
     python3 chip_smoke.py --ptxas           # also print nvcc's `ptxas -v`
                                             # (fails on a K1-K3, K6, K8 or
                                             # K9 spill, or on serialised
-                                            # wgmma in the bf16 K1, K2)
+                                            # wgmma in the bf16 K1-K3)
     python3 chip_smoke.py --trace out.json  # keep the traced steps' traces
 
 Transformer-base runs at its full depth (6+6 layers) and width, the
@@ -91,25 +91,27 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               from their sources (--flash-fwd-baseline,
               --flash-bwd-baseline, or git history) and timed in turns
               with them. The same three in bf16 (mixed precision: bf16
-              q, k, v, g, out, dQ, dK, dV; lse and delta fp32; K1 and
-              K2 the bf16 wgmma kernels of flash_attention_fwd_bf16.cu
-              and flash_attention_bwd_dkdv_bf16.cu, whose SASS must
-              hold HGMMA and no HMMA in each of their 8 kernels, K3
-              the fp32 template's TF32 mma.sync) against their plain
-              versions in bf16 at the timing shapes, D 16, 32 and 128 at
-              odd T and packed views, launched directly and replayed
-              from a CUDA graph (within 2^-7 of max(1, max |plain|): two
-              bf16 ulps, each side rounding an fp32 sum once; lse within
-              1e-4), timed beside the fp32 kernels on the same values,
-              the bf16 K1 and K2 of commit bb43ba4 (TF32 mma.sync; built
-              from --flash-bf16-fwd-baseline, --flash-bf16-bwd-baseline
-              or git history, each held to the current one first; the
-              new ones must be faster), the plain versions and
+              q, k, v, g, out, dQ, dK, dV; lse and delta fp32; K1, K2
+              and K3 the bf16 wgmma kernels of
+              flash_attention_fwd_bf16.cu, flash_attention_bwd_dkdv_
+              bf16.cu and flash_attention_bwd_dq_bf16.cu, whose SASS
+              must hold HGMMA and no HMMA in each of their 12 kernels)
+              against their plain versions in bf16 at the timing
+              shapes, D 16, 32 and 128 at odd T and packed views,
+              launched directly and replayed from a CUDA graph (within
+              2^-7 of max(1, max |plain|): two bf16 ulps, each side
+              rounding an fp32 sum once; lse within 1e-4), timed beside
+              the fp32 kernels on the same values, the bf16 K1 and K2 of
+              commit bb43ba4 and the bf16 K3 of commit dbc895c (TF32
+              mma.sync; built from --flash-bf16-fwd-baseline,
+              --flash-bf16-bwd-baseline, --flash-bf16-dq-baseline or git
+              history, each held to the current one first; the new ones
+              must be faster), the plain versions and
               scaled_dot_product_attention on the bf16 inputs, with
               bounds from bf16 bytes and the function's products at the
               bf16 peak, and the design's (K1, K2: 1.5 bf16 products a
-              product, P and dS split in two; K3: 8 D TF32 flops for 6
-              D). Then the flash-vs-dense crossover, measured and
+              product, K3: 8 D bf16 flops for 6 D; P and dS split in
+              two). Then the flash-vs-dense crossover, measured and
               not acted on: K1 against the dense attention_reference at
               q, k, v [8, T, 8, 64], T = 16-1024 (`crossover:` lines).
               Then fused_attention with a query length other than the
@@ -350,6 +352,21 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               17 (--trace PATH keeps PATH's stem +
               _language_model_clip.json). A `clipping_summary:` line sets
               its step beside phase 17's.
+24. verbatim scripts — the four book scripts of
+              tests/book/test_migration_verbatim.py (fit_a_line, the
+              recognize_digits conv net, the word2vec N-gram model, the
+              sentiment LSTM on LoD feeds), their text read from that file
+              and run unmodified with `fluid` bound to paddle_tpu_torch,
+              `fluid.CPUPlace()` given as `fluid.CUDAPlace(0)`: on the
+              card, then on the CPU from the card run's startup state (its
+              Executor records the state after the script's startup run;
+              the CPU run's takes it). Checks: each script's own
+              assertions on the card's results; the first VERBATIM_FIRST
+              losses within VERBATIM_FIRST_RTOL of the CPU's and every one
+              within VERBATIM_TOL of the first CPU loss (the sentiment
+              script returns accuracies of 16 rows: its first
+              VERBATIM_FIRST equal); no kernel of the port launched. A
+              `verbatim:` line sums up.
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run; the bf16 flash kernels counted under
@@ -395,9 +412,10 @@ MODEL = dict(vocab=30000, max_length=256, d_model=512, n_head=8, d_key=64,
 
 FLASH_SRC = "paddle_tpu_torch/csrc/flash_attention_fwd.cu"
 FLASH_BWD_SRC = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
-# the bf16 K1 and K2 (bf16 wgmma); the bf16 K3 stays in FLASH_BWD_SRC
+# the bf16 K1, K2 and K3 (bf16 wgmma kernels fed by TMA)
 FLASH_BF16_SRC = "paddle_tpu_torch/csrc/flash_attention_fwd_bf16.cu"
 DKDV_BF16_SRC = "paddle_tpu_torch/csrc/flash_attention_bwd_dkdv_bf16.cu"
+DQ_BF16_SRC = "paddle_tpu_torch/csrc/flash_attention_bwd_dq_bf16.cu"
 XENT_SRC = "paddle_tpu_torch/csrc/softmax_xent_fwd.cu"
 LN_SRC = "paddle_tpu_torch/csrc/layer_norm_fwd.cu"
 FLASH_TPU = "paddle_tpu/ops/pallas_kernels.py:64 (_flash_fwd_kernel, " \
@@ -516,6 +534,14 @@ FLASH_FWD_BASELINE_COMMIT = "db823af"
 # tiles, TF32 mma.sync) the bf16 wgmma ones are timed against; they lie in
 # FLASH_SRC and FLASH_BWD_SRC at that commit
 FLASH_BF16_BASELINE_COMMIT = "bb43ba4"
+# the commit whose bf16 K3 (the fp32 template on bf16 tiles, TF32
+# mma.sync) the bf16 wgmma K3 is timed against; it lies in FLASH_BWD_SRC
+# at that commit
+FLASH_BF16_DQ_BASELINE_COMMIT = "dbc895c"
+# each bf16 kernel's earlier version: (commit, its source at that commit)
+BF16_BASELINES = {"fwd": (FLASH_BF16_BASELINE_COMMIT, FLASH_SRC),
+                  "dkdv": (FLASH_BF16_BASELINE_COMMIT, FLASH_BWD_SRC),
+                  "dq": (FLASH_BF16_DQ_BASELINE_COMMIT, FLASH_BWD_SRC)}
 # the commit whose K6 (one block per batch row, W read from L2 at every
 # step) and K8 (three walks over each row) the current ones are timed
 # against
@@ -616,9 +642,9 @@ def bound(flops, nbytes, peak_flops, peak_bw):
 
 def flash_registers(log):
     """Registers and spill bytes of each flash kernel (K1 forward, K2 dK/dV,
-    K3 dQ) per D and element type (fp32; bf16: K3 the fp32 template's
-    instantiation, K1 and K2 the wgmma kernels of FLASH_BF16_SRC and
-    DKDV_BF16_SRC), from nvcc's `ptxas -v` lines; fails on a spill, and
+    K3 dQ) per D and element type (fp32; bf16: the wgmma kernels of
+    FLASH_BF16_SRC, DKDV_BF16_SRC and DQ_BF16_SRC), from nvcc's `ptxas
+    -v` lines; fails on a spill, and
     on ptxas serialising a wgmma kernel's products (it says so when an
     accumulator or A fragment is touched between an issue and its
     wait)."""
@@ -649,10 +675,10 @@ def flash_registers(log):
         print("ptxas: flash_%s_kernel<%d, %s>: %s registers, %d bytes "
               "spilled" % (kind, d, dtype, regs, spill))
     check(len(found) == 24, "ptxas: expected the register lines of 24 flash "
-          "kernels (3 kernels x 4 D x fp32, bf16; the bf16 K1 and K2 the "
-          "wgmma ones), found %d" % len(found))
-    check(sum(kind.endswith("_bf16") for kind, *_ in found) == 8,
-          "ptxas: expected 8 wgmma flash kernels (bf16 K1, K2 x 4 D)")
+          "kernels (3 kernels x 4 D x fp32, bf16; the bf16 ones the wgmma "
+          "kernels), found %d" % len(found))
+    check(sum(kind.endswith("_bf16") for kind, *_ in found) == 12,
+          "ptxas: expected 12 wgmma flash kernels (bf16 K1, K2, K3 x 4 D)")
     check(all(spill == 0 for *_, spill in found),
           "a flash kernel spills registers")
     serial = [line.strip() for line in log.splitlines()
@@ -662,10 +688,10 @@ def flash_registers(log):
 
 
 def wgmma_sass(ck):
-    """The bf16 K1 and K2 (wgmma) in the built library's SASS (cuobjdump
-    -sass): each of their 8 kernels (4 D each) holds HGMMA, Hopper's
-    warpgroup product, and no HMMA (mma.sync). Returns {kernel: HGMMA
-    count}."""
+    """The bf16 K1, K2 and K3 (wgmma) in the built library's SASS
+    (cuobjdump -sass): each of their 12 kernels (4 D each) holds HGMMA,
+    Hopper's warpgroup product, and no HMMA (mma.sync). Returns {kernel:
+    HGMMA count}."""
     import re
     tool = os.path.join(os.path.dirname(ck._nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", ck.build_info.path],
@@ -674,7 +700,8 @@ def wgmma_sass(ck):
     counts = {}
     for body in re.split(r"\n\s*Function : ", out.stdout)[1:]:
         fname = body.split("\n", 1)[0].strip()
-        kind = re.search(r"flash_(fwd|bwd_dkdv)_bf16_kernelILi(\d+)E", fname)
+        kind = re.search(r"flash_(fwd|bwd_dkdv|bwd_dq)_bf16_kernelILi(\d+)E",
+                         fname)
         if not kind:
             continue
         key = "flash_%s_bf16_kernel<%s>" % kind.groups()
@@ -682,9 +709,9 @@ def wgmma_sass(ck):
         check(counts[key] > 0 and not re.search(r"\bHMMA\b", body),
               "SASS: %s holds %d HGMMA and %d HMMA" % (
                   key, counts[key], len(re.findall(r"\bHMMA\b", body))))
-    check(len(counts) == 8, "SASS: expected 8 wgmma flash kernels, found %s"
-          % sorted(counts))
-    print("kernels: SASS of the bf16 K1 and K2: HGMMA in every kernel, no "
+    check(len(counts) == 12, "SASS: expected 12 wgmma flash kernels, found "
+          "%s" % sorted(counts))
+    print("kernels: SASS of the bf16 K1, K2 and K3: HGMMA in every kernel, no "
           "HMMA: %s" % ", ".join("%s %d" % kv for kv in sorted(
               counts.items())))
     return counts
@@ -841,7 +868,7 @@ def hold_bf16_step(what, names, card16, cpu16, cpu32, extra=(),
 
 def run_kernels(torch, ck, peak_flops, peak_bw, tc_flops, bf16_flops,
                 flash_fwd_source=None, flash_bwd_source=None,
-                flash_bf16_sources=(None, None)):
+                flash_bf16_sources=None):
     import torch.nn.functional as F
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -862,10 +889,10 @@ def run_kernels(torch, ck, peak_flops, peak_bw, tc_flops, bf16_flops,
     results.update(run_flash_bwd_kernels(torch, ck, g, peak_flops,
                                          peak_bw, tc_flops, flash_bwd_source))
     # K1-K3 in bf16 (mixed precision): run_flash_bf16_kernels, after the
-    # SASS of the bf16 K1 and K2 shows their wgmma products
+    # SASS of the bf16 K1-K3 shows their wgmma products
     wgmma_sass(ck)
     results.update(run_flash_bf16_kernels(torch, ck, g, peak_bw, tc_flops,
-                                          bf16_flops, *flash_bf16_sources))
+                                          bf16_flops, flash_bf16_sources))
 
     # K4: softmax cross-entropy forward at the training path's shape
     n, vocab = TRAIN_BATCH * MODEL["max_length"], MODEL["vocab"]
@@ -1338,10 +1365,11 @@ def flash_bwd_baseline(torch, ck, source, build_dir):
 
 
 def flash_bf16_call(torch, ck, lib, part):
-    """A function with flash_attention_fwd's signature (part "fwd") or
-    flash_attention_bwd_dkdv's ("dkdv"), on bf16 inputs, that launches the
-    bf16 entry of `lib`: an earlier or a variant kernel's library, with no
-    launch count (it is on no path)."""
+    """A function with flash_attention_fwd's signature (part "fwd"),
+    flash_attention_bwd_dkdv's ("dkdv") or flash_attention_bwd_dq's
+    ("dq"), on bf16 inputs, that launches the bf16 entry of `lib`: an
+    earlier or a variant kernel's library, with no launch count (it is on
+    no path). The backward ones return a tuple (dk, dv) or (dq,)."""
     ck._bind_flash_bf16(lib, (part,))
     if part == "fwd":
         fn = lib.ptt_flash_attention_fwd_bf16
@@ -1361,18 +1389,19 @@ def flash_bf16_call(torch, ck, lib, part):
             return out, lse
 
         return call
-    fn = lib.ptt_flash_attention_bwd_dkdv_bf16
+    fn = getattr(lib, "ptt_flash_attention_bwd_%s_bf16" % part)
+    n_out = 2 if part == "dkdv" else 1
 
     def call(q, k, v, lse, delta, g, kv_len=None, causal=False):
         b, t, h, d, lens, lse, delta = ck._flash_bwd_args(
-            "bf16 flash dK/dV of another source", q, k, v, lse, delta, g,
+            "bf16 flash %s of another source" % part, q, k, v, lse, delta, g,
             kv_len)
         outs = [torch.empty((b, t, h, d), dtype=torch.bfloat16,
-                            device=q.device) for _ in range(2)]
+                            device=q.device) for _ in range(n_out)]
         err = ck._bwd_call(fn, q, k, v, g, lse, delta, lens, outs, b, t, h, d,
                            1.0 / d ** 0.5, causal)
-        check(err == 0, "a bf16 flash dK/dV of another source failed to "
-              "launch (cudaError %d)" % err)
+        check(err == 0, "a bf16 flash %s of another source failed to "
+              "launch (cudaError %d)" % (part, err))
         return tuple(outs)
 
     return call
@@ -1554,12 +1583,12 @@ def run_flash_bwd_kernels(torch, ck, gen, peak_flops, peak_bw, tc_flops,
 BF16_KERNEL_TOL = 2.0 ** -7
 # what a useful fp32 product costs in the bf16 kernels as they are built
 # (the `bound_design_ms` beside each bf16 row's bound), and on which
-# tensor-core peak. K1 and K2 (wgmma): S, dP one bf16 product each (exact:
-# bf16 operands), P V, dV, dK two (P and dS split into bf16 hi + lo), so
-# 1.5 for K1 (4 D a pair) and 1.5 for K2 (12 D for 8 D); K3 (TF32
-# mma.sync, bf16 operands exact in TF32): S and dP 1, dQ 2 (8 D for 6 D)
+# tensor-core peak. All three are wgmma kernels: S, dP one bf16 product
+# each (exact: bf16 operands), P V, dV, dK, dQ two (P and dS split into
+# bf16 hi + lo), so 1.5 for K1 (4 D a pair), 1.5 for K2 (12 D for 8 D)
+# and 8 / 6 for K3 (8 D for 6 D)
 BF16_DESIGN = {"fwd": (1.5, "bf16"), "dkdv": (12.0 / 8.0, "bf16"),
-               "dq": (8.0 / 6.0, "tf32")}
+               "dq": (8.0 / 6.0, "bf16")}
 
 
 def flash_bf16_cases():
@@ -1649,36 +1678,47 @@ def flash_bf16_case(torch, ck, q, k, v, g_out, kv_len, causal):
     return tuple(max(e) for e in zip(*errs))
 
 
-def flash_bf16_baseline(torch, ck, fwd_source, bwd_source):
-    """The bf16 K1 and K2 of commit FLASH_BF16_BASELINE_COMMIT (the fp32
-    template on bf16 tiles, TF32 mma.sync), each built from its source
-    (None: not measured): {"fwd": fn, "dkdv": fn} with the wrappers'
-    signatures and no launch count (they are on no path)."""
-    fns = {}
-    for part, source in (("fwd", fwd_source), ("dkdv", bwd_source)):
+def flash_bf16_baseline(torch, ck, sources):
+    """The bf16 K1 and K2 of commit FLASH_BF16_BASELINE_COMMIT and the bf16
+    K3 of FLASH_BF16_DQ_BASELINE_COMMIT (each the fp32 template on bf16
+    tiles, TF32 mma.sync), built from sources {part: source or None (not
+    measured)}, all at once: {part: fn} with the wrappers' signatures and
+    no launch count (they are on no path)."""
+    import concurrent.futures
+    todo = {}
+    for part, source in sources.items():
         if source is None:
             print("kernels: the %s bf16 %s source is not at hand; its time "
-                  "prints as not measured" % (FLASH_BF16_BASELINE_COMMIT,
-                                              part))
-            continue
-        t0 = time.perf_counter()
-        lib = build_baseline(ck, source, tempfile.mkdtemp(
+                  "prints as not measured" % (BF16_BASELINES[part][0], part))
+        else:
+            todo[part] = source
+    t0 = time.perf_counter()
+
+    def one(part):
+        return build_baseline(ck, todo[part], tempfile.mkdtemp(
             prefix="ptt_flash_bf16_baseline_"), "ptt_flash_bf16_" + part,
             "bf16 flash " + part)
-        fns[part] = flash_bf16_call(torch, ck, lib, part)
-        print("kernels: built the %s bf16 %s in %.1f s"
-              % (FLASH_BF16_BASELINE_COMMIT, part, time.perf_counter() - t0))
+
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(todo))) as pool:
+        libs = dict(zip(todo, pool.map(one, todo)))
+    fns = {part: flash_bf16_call(torch, ck, lib, part)
+           for part, lib in libs.items()}
+    if fns:
+        print("kernels: built the earlier bf16 %s in %.1f s" % (
+            ", ".join("%s (%s)" % (part, BF16_BASELINES[part][0])
+                      for part in fns), time.perf_counter() - t0))
     return fns
 
 
 def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops,
-                           fwd_source=None, bwd_source=None):
+                           sources=None):
     """K1, K2 and K3 on bf16 q, k, v and g (the mixed-precision
     Transformer's): each against its plain version in bf16 at
     flash_bf16_cases (flash_bf16_case: directly and from a CUDA graph),
     then timed at flash_timing_shapes beside the fp32 kernels on the same
-    values widened and, for K1 and K2, the bf16 kernels of commit
-    FLASH_BF16_BASELINE_COMMIT built from `fwd_source` / `bwd_source`
+    values widened and the earlier bf16 kernels (BF16_BASELINES: K1 and K2
+    of commit FLASH_BF16_BASELINE_COMMIT, K3 of
+    FLASH_BF16_DQ_BASELINE_COMMIT) built from `sources` {part: source}
     (in turns: earlier, fp32, bf16, bf16, fp32, earlier), the plain
     versions, and scaled_dot_product_attention on the bf16 inputs
     (forward; backward as the graph of forward + backward less the
@@ -1690,7 +1730,7 @@ def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops,
     ck.launch_counts()' names."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
-    base = flash_bf16_baseline(torch, ck, fwd_source, bwd_source)
+    base = flash_bf16_baseline(torch, ck, sources or {})
     errs = {"fwd": 0.0, "dkdv": 0.0, "dq": 0.0}
     for what, (b, t, h, d, lens), causal, packed in flash_bf16_cases():
         q, k, v, g_out = flash_bf16_inputs(torch, gen, b, t, h, d, packed, 4)
@@ -1730,16 +1770,20 @@ def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops,
             old["fwd"] = lambda: base["fwd"](q, k, v, kv, causal)
         if "dkdv" in base:
             old["dkdv"] = lambda: base["dkdv"](*args)
+        if "dq" in base:
+            old["dq"] = lambda: base["dq"](*args)
         for part, fn in old.items():
             got = fn()
             want = fns[part][0]()
+            if part == "dq":
+                want = (want,)
             torch.cuda.synchronize()
             err = rel_err([x.float() for x in got], [x.float() for x in want])
             print("kernels: the %s bf16 %s at %s agrees with the current "
-                  "one within %.3e" % (FLASH_BF16_BASELINE_COMMIT, part,
+                  "one within %.3e" % (BF16_BASELINES[part][0], part,
                                        what, err))
             check(err <= 2 * BF16_KERNEL_TOL, "the %s bf16 %s disagrees "
-                  "with the current one by %r" % (FLASH_BF16_BASELINE_COMMIT,
+                  "with the current one by %r" % (BF16_BASELINES[part][0],
                                                   part, err))
         row = {"what": what, "causal": causal,
                "shape": "q,k,v,g [%d,%d,%d,%d] bf16, kv_len %s"
@@ -1757,10 +1801,9 @@ def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops,
             row[part + "_runs"] = runs["bf16"]
             row[part + "_fp32_ms"] = statistics.mean(runs["fp32"])
             row[part + "_fp32_runs"] = runs["fp32"]
-            if part in ("fwd", "dkdv"):
-                row[part + "_baseline_ms"] = (statistics.mean(runs["old"])
-                                              if runs["old"] else None)
-                row[part + "_baseline_runs"] = runs["old"]
+            row[part + "_baseline_ms"] = (statistics.mean(runs["old"])
+                                          if runs["old"] else None)
+            row[part + "_baseline_runs"] = runs["old"]
             row[part + "_bound_ms"], row[part + "_bound_by"] = bound(
                 flops, nbytes, bf16_flops, peak_bw)
             cost, peak = BF16_DESIGN[part]
@@ -1794,9 +1837,9 @@ def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops,
         print("kernels: flash bf16 timing %s (%s, causal=%s): K1 %s ms (%s "
               "K1 %s; fp32 K1 %s), bound %.4f ms (%s; design %.4f, %s), "
               "plain %.4f, library %.4f; K2 %s ms (%s K2 %s; fp32 %s), bound "
-              "%.4f (%s; design %.4f, %s); K3 %s ms (fp32 %s), bound %.4f "
-              "(%s; design %.4f, %s); backward plain %.4f, library %.4f ms "
-              "(dQ, dK, dV)"
+              "%.4f (%s; design %.4f, %s); K3 %s ms (%s K3 %s; fp32 %s), "
+              "bound %.4f (%s; design %.4f, %s); backward plain %.4f, "
+              "library %.4f ms (dQ, dK, dV)"
               % (what, row["shape"], causal, runs_of("fwd_runs"),
                  FLASH_BF16_BASELINE_COMMIT, runs_of("fwd_baseline_runs"),
                  runs_of("fwd_fp32_runs"),
@@ -1807,16 +1850,17 @@ def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops,
                  runs_of("dkdv_baseline_runs"), runs_of("dkdv_fp32_runs"),
                  row["dkdv_bound_ms"], row["dkdv_bound_by"],
                  row["dkdv_bound_design_ms"], row["dkdv_bound_design_by"],
-                 runs_of("dq_runs"), runs_of("dq_fp32_runs"),
+                 runs_of("dq_runs"), FLASH_BF16_DQ_BASELINE_COMMIT,
+                 runs_of("dq_baseline_runs"), runs_of("dq_fp32_runs"),
                  row["dq_bound_ms"], row["dq_bound_by"],
                  row["dq_bound_design_ms"], row["dq_bound_design_by"],
                  row["bwd_plain_ms"], row["bwd_library_ms"]))
-        for part in ("fwd", "dkdv"):
+        for part in ("fwd", "dkdv", "dq"):
             if row[part + "_baseline_ms"] is not None:
                 check(row[part + "_ms"] < row[part + "_baseline_ms"],
                       "the bf16 %s (%.4f ms) is not faster than the %s one "
                       "(%.4f ms) at %s" % (part, row[part + "_ms"],
-                                           FLASH_BF16_BASELINE_COMMIT,
+                                           BF16_BASELINES[part][0],
                                            row[part + "_baseline_ms"], what))
         rows.append(row)
         del q, k, v, g_out, q32, k32, v32, g32, out, out32, qt, kt, vt
@@ -1828,7 +1872,7 @@ def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops,
             ("flash_attention_fwd", FLASH_BF16_SRC, FLASH_TPU, "fwd", "fwd"),
             ("flash_attention_bwd_dkdv", DKDV_BF16_SRC, DKDV_TPU, "dkdv",
              "bwd"),
-            ("flash_attention_bwd_dq", FLASH_BWD_SRC, DQ_TPU, "dq", "bwd")):
+            ("flash_attention_bwd_dq", DQ_BF16_SRC, DQ_TPU, "dq", "bwd")):
         results[name + "_bf16"] = {
             "name": name + "_bf16", "route": "cuda", "source": src,
             "replaces": tpu, "shape": serve["shape"],
@@ -1851,11 +1895,8 @@ def run_flash_bf16_kernels(torch, ck, gen, peak_bw, tc_flops, bf16_flops,
                       or key.startswith((part + "_", stage + "_"))}
                      for r in rows],
         }
-        if part in ("fwd", "dkdv"):
-            results[name + "_bf16"]["baseline_ms"] = serve[
-                part + "_baseline_ms"]
-            results[name + "_bf16"]["baseline_commit"] = \
-                FLASH_BF16_BASELINE_COMMIT
+        results[name + "_bf16"]["baseline_ms"] = serve[part + "_baseline_ms"]
+        results[name + "_bf16"]["baseline_commit"] = BF16_BASELINES[part][0]
     return results
 
 
@@ -3975,6 +4016,124 @@ def run_acoustic_training_vs_cpu(torch):
 
 # -------------------------------------------------------------- conv net --
 
+# phase 24: the migration scripts, read from this file (which imports the
+# JAX package, so its text is parsed, never imported), and the assertions
+# its tests make on their results
+VERBATIM_SRC = "tests/book/test_migration_verbatim.py"
+VERBATIM_ASSERTS = {
+    "FIT_A_LINE": lambda r: r[-1] < 0.1 * r[0],
+    "RECOGNIZE_DIGITS_CONV": lambda r: np.mean(r[1][-5:]) > 0.9
+    and r[0][-1] < 0.5 * r[0][0],
+    "WORD2VEC_NGRAM": lambda r: r[-1] < 0.3 * r[0],
+    "SENTIMENT_LSTM": lambda r: np.mean(r[-10:]) > 0.85}
+VERBATIM_FIRST = 5           # losses held tight, card vs CPU
+VERBATIM_FIRST_RTOL = 1e-4   # as LeNet's: fp32, another summation order
+VERBATIM_TOL = 1e-2          # every loss, of the first CPU loss: 40-300
+#                              steps let the summation orders drift apart
+
+
+def verbatim_scripts():
+    """{name: script text} of VERBATIM_SRC's four scripts, taken from its
+    syntax tree."""
+    import ast
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        VERBATIM_SRC)
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    found = {node.targets[0].id: ast.literal_eval(node.value)
+             for node in tree.body if isinstance(node, ast.Assign)
+             and len(node.targets) == 1
+             and isinstance(node.targets[0], ast.Name)
+             and node.targets[0].id in VERBATIM_ASSERTS}
+    check(set(found) == set(VERBATIM_ASSERTS), "%s holds scripts %s, "
+          "expected %s" % (VERBATIM_SRC, sorted(found),
+                           sorted(VERBATIM_ASSERTS)))
+    return found
+
+
+def run_verbatim(torch, src, place, init=None):
+    """One script with `fluid` bound to paddle_tpu_torch in a fresh scope
+    and programs (as the test file's _run_script), `fluid.CPUPlace()`
+    replaced by `place`, its Executor recording the persistables after
+    the startup run, or, given `init`, setting them to it. Returns the
+    script's result and the recorded state."""
+    import types
+    import paddle_tpu_torch as fluid
+    state = {}
+
+    class Executor(fluid.Executor):
+        def run(self, program=None, *args, **kwargs):
+            out = fluid.Executor.run(self, program, *args, **kwargs)
+            if program is fluid.default_startup_program():
+                for v in program.list_vars():
+                    if not v.persistable:
+                        continue
+                    if init is None:
+                        state[v.name] = fluid.fetch_var(v.name)
+                    else:
+                        fluid.global_scope().set(v.name, torch.from_numpy(
+                            init[v.name]).to(self.device))
+            return out
+
+    proxy = types.ModuleType("fluid")
+    proxy.__dict__.update(vars(fluid))
+    proxy.Executor = Executor
+    env = {"fluid": proxy}
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.scope_guard(fluid.Scope()), \
+            fluid.program_guard(main, startup):
+        exec(src.replace("fluid.CPUPlace()", place), env)
+    return env["result"], state
+
+
+def run_verbatim_vs_cpu(torch, place="fluid.CUDAPlace(0)"):
+    """Phase 24 (see the module's docstring). Returns the card runs'
+    launch counts and the counts predicted (none)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    summary = {}
+    counts = None
+    for name, src in verbatim_scripts().items():
+        t0 = time.perf_counter()
+        ck.reset_launch_counts()
+        card, state = run_verbatim(torch, src, place)
+        run = ck.launch_counts()
+        counts = run if counts is None else {
+            k: counts[k] + n for k, n in run.items()}
+        card_s = time.perf_counter() - t0
+        cpu, _ = run_verbatim(torch, src, "fluid.CPUPlace()", init=state)
+        check(VERBATIM_ASSERTS[name](card), "%s on the card fails %s's "
+              "assertions: %s" % (name, VERBATIM_SRC, card))
+        got, want = (card[0], cpu[0]) if name == "RECOGNIZE_DIGITS_CONV" \
+            else (card, cpu)
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        first = np.abs(got[:VERBATIM_FIRST] - want[:VERBATIM_FIRST]) / \
+            np.maximum(np.abs(want[:VERBATIM_FIRST]), 1e-12)
+        drift = np.abs(got - want).max() / abs(want[0])
+        summary[name] = {"steps": len(got), "first": float(got[0]),
+                         "last": float(got[-1]), "cpu_last": float(want[-1]),
+                         "first_rel_err": float(first.max()),
+                         "max_drift": float(drift), "card_s": card_s}
+        print("verbatim: %s, %d steps on %s: first %.6f, last %.6f (CPU "
+              "%.6f); first %d within %.3e, drift %.3e of the first; %.1f s"
+              % (name, len(got), place, got[0], got[-1], want[-1],
+                 VERBATIM_FIRST, first.max(), drift, card_s))
+        if name == "SENTIMENT_LSTM":
+            # accuracies of 16 rows: one prediction more or less moves
+            # one by 1/16, so only the first ones are held, exactly
+            check(np.array_equal(got[:VERBATIM_FIRST],
+                                 want[:VERBATIM_FIRST]),
+                  "%s: the card's first accuracies %s, the CPU's %s"
+                  % (name, got[:VERBATIM_FIRST], want[:VERBATIM_FIRST]))
+            continue
+        check(first.max() <= VERBATIM_FIRST_RTOL, "%s: the first losses "
+              "on the card and the CPU differ by %r" % (name, first.max()))
+        check(np.isfinite(drift) and drift <= VERBATIM_TOL,
+              "%s: card and CPU losses drift apart by %r of the first"
+              % (name, drift))
+    print("verbatim: " + json.dumps(summary))
+    return counts, zero_counts(counts)
+
+
 def zero_counts(counts):
     """The expected launch counts of a path that runs none of the port's
     kernels: the conv-net path reaches no Pallas kernel in the JAX
@@ -5152,6 +5311,12 @@ def main(argv=None):
                     "%s:%s` when the checkout has its history)"
                     % (FLASH_BF16_BASELINE_COMMIT, FLASH_BF16_BASELINE_COMMIT,
                        FLASH_BWD_SRC))
+    ap.add_argument("--flash-bf16-dq-baseline", metavar="SRC",
+                    help="the %s flash_attention_bwd.cu (its bf16 K3: TF32 "
+                    "mma.sync) to time beside the bf16 wgmma K3 (default: "
+                    "`git show %s:%s` when the checkout has its history)"
+                    % (FLASH_BF16_DQ_BASELINE_COMMIT,
+                       FLASH_BF16_DQ_BASELINE_COMMIT, FLASH_BWD_SRC))
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register/shared-memory report")
     ap.add_argument("--trace", metavar="PATH",
@@ -5195,10 +5360,10 @@ def main(argv=None):
                         FLASH_SRC),
         baseline_source(args.flash_bwd_baseline, FLASH_BWD_BASELINE_COMMIT,
                         FLASH_BWD_SRC),
-        (baseline_source(args.flash_bf16_fwd_baseline,
-                         FLASH_BF16_BASELINE_COMMIT, FLASH_SRC),
-         baseline_source(args.flash_bf16_bwd_baseline,
-                         FLASH_BF16_BASELINE_COMMIT, FLASH_BWD_SRC)))
+        {part: baseline_source(path, *BF16_BASELINES[part])
+         for part, path in (("fwd", args.flash_bf16_fwd_baseline),
+                            ("dkdv", args.flash_bf16_bwd_baseline),
+                            ("dq", args.flash_bf16_dq_baseline))})
     run_unequal_attention_vs_cpu(torch)
     run_flash_grid_check(torch, ck)
     run_fault_checks(torch)
@@ -5314,6 +5479,7 @@ def main(argv=None):
             torch, card,
             trace_path=stem and stem + "_language_model_clip.json")
         paths.append(("language_model_clip_training", run))
+        paths.append(("verbatim_scripts", run_verbatim_vs_cpu(torch)))
         print("clipping_summary: " + json.dumps({
             "fit_a_line": {k: v for k, v in clipping.items() if k != "card"},
             "language_model_clip": {k: lm_clip[k] for k in (

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Why the bf16 flash kernels (K1 forward, K2 dK/dV) are built as they are:
-time design alternatives and ablations of
-paddle_tpu_torch/csrc/flash_attention_fwd_bf16.cu and
-flash_attention_bwd_dkdv_bf16.cu beside them on one NVIDIA card.
+"""Why the bf16 flash kernels (K1 forward, K2 dK/dV, K3 dQ) are built as
+they are: time design alternatives and ablations of
+paddle_tpu_torch/csrc/flash_attention_fwd_bf16.cu,
+flash_attention_bwd_dkdv_bf16.cu and flash_attention_bwd_dq_bf16.cu beside
+them on one NVIDIA card.
 
     python3 flash_bf16_variants.py [--fwd-baseline SRC] [--bwd-baseline SRC]
-                                   [--clock]
+                                   [--dq-baseline SRC] [--clock]
+                                   [--parts fwd,dkdv,dq]
 
 Each variant is its kernel's source with lines replaced (VARIANTS for
 other designs, each held to its plain version within chip_smoke's
@@ -16,10 +18,10 @@ for ever), built by nvcc into a temporary directory, all at once, and
 called through the port's C interface (chip_smoke.flash_bf16_call).
 `--clock` adds the current kernels with clock64() read at the ends of
 their phases (CLOCK): the cycles a block spends in each.
-`--fwd-baseline SRC` / `--bwd-baseline SRC` (default: `git show
-bb43ba4:<source>` when the
-checkout has its history) add the bf16 K1 / K2 that the wgmma ones
-replaced. Shapes: chip_smoke.flash_timing_shapes (the serving batch with
+`--fwd-baseline SRC` / `--bwd-baseline SRC` / `--dq-baseline SRC`
+(default: `git show <commit>:<source>` of chip_smoke.BF16_BASELINES when
+the checkout has its history) add the bf16 K1 / K2 / K3 that the wgmma
+ones replaced. `--parts` keeps the named kernels only. Shapes: chip_smoke.flash_timing_shapes (the serving batch with
 ragged lengths, the Transformer training step's [32, 256, 8, 64] without
 and with the causal mask). Times: chip_smoke.time_ms (a CUDA graph of 20
 calls, median of 7 replays), every kernel twice, in turns.
@@ -32,7 +34,8 @@ import tempfile
 
 import chip_smoke as cs
 
-SRCS = {"fwd": cs.FLASH_BF16_SRC, "dkdv": cs.DKDV_BF16_SRC}
+SRCS = {"fwd": cs.FLASH_BF16_SRC, "dkdv": cs.DKDV_BF16_SRC,
+        "dq": cs.DQ_BF16_SRC}
 # two warpgroups a block (128 rows) sharing each streamed tile
 _GROUPS = ("constexpr int kGroups = 1;", "constexpr int kGroups = 2;")
 _BC128 = ("  static constexpr int BC = 64;       // keys a streamed tile",
@@ -57,6 +60,36 @@ _DKDV_3 = ("__global__ void __launch_bounds__(kThreads)\n"
            "flash_bwd_dkdv_bf16_kernel(",
            "__global__ void __launch_bounds__(kThreads, 3)\n"
            "flash_bwd_dkdv_bf16_kernel(")
+_DQ_STAGES = "  static constexpr int kStages = D == 128 ? 2 : 3;\n"
+_DQ_BOUNDS = ("__global__ void __launch_bounds__(kThreads)\n"
+              "flash_bwd_dq_bf16_kernel(")
+_DQ_S_PRODUCT = ("#pragma unroll\n      for (int ks = 0; ks < D / 16; ++ks)\n"
+               "#pragma unroll\n        for (int n = 0; n < NB; ++n)\n"
+               "          Mma<64>::ss(sa[n], desc_k<D, kRows>(q_g, ks),\n"
+               "                      desc_k<D, BC>(kt + n * 64 * Sw<D>::W, "
+               "ks), ks);\n")
+_DQ_DP_PRODUCT = ("#pragma unroll\n      for (int ks = 0; ks < D / 16; ++ks)\n"
+                "#pragma unroll\n        for (int n = 0; n < NB; ++n)\n"
+                "          Mma<64>::ss(pa[n], desc_k<D, kRows>(g_g, ks),\n"
+                "                      desc_k<D, BC>(vt + n * 64 * Sw<D>::W, "
+                "ks), ks);\n")
+_DQ_V_WAIT = "      bar_wait(kbar(tile) + 8, (tile / S) & 1);\n"
+_DQ_RS = ("          Mma<NW>::rs(dqa[n], dl[c / 4][c % 4], kd, 1);\n"
+          "          Mma<NW>::rs(dqa[n], dh[c / 4][c % 4], kd, 1);\n")
+_DQ_S_WAIT = ("      wg_commit();\n      wg_wait1();\n#pragma unroll\n"
+              "      for (int n = 0; n < NB; ++n) hold(sa[n]);\n")
+_DQ_DP_WAIT = ("      wg_wait();\n#pragma unroll\n"
+               "      for (int n = 0; n < NB; ++n) hold(pa[n]);\n\n")
+# the first design: K and V both waited for, S and dP in one commit group,
+# the exponential after both
+_DQ_TOGETHER = [
+    (_DQ_S_PRODUCT + "      wg_commit();\n" + _DQ_V_WAIT + _DQ_DP_PRODUCT,
+     _DQ_V_WAIT + _DQ_S_PRODUCT + _DQ_DP_PRODUCT),
+    (_DQ_S_WAIT,
+     "      wg_commit();\n      wg_wait();\n#pragma unroll\n"
+     "      for (int n = 0; n < NB; ++n) {\n        hold(sa[n]);\n"
+     "        hold(pa[n]);\n      }\n"),
+    (_DQ_DP_WAIT, "\n")]
 _DV_WAIT = ("      wg_commit();\n\n      // dS^T = P^T (dP^T - delta) scale",
             "      wg_commit();\n      wg_wait();\n      hold(ph);\n"
             "      hold(pl);\n\n      // dS^T = P^T (dP^T - delta) scale")
@@ -124,6 +157,31 @@ VARIANTS = {
             ("          Mma<NW>::rs(dka[n], dl[c], qd, 1);\n", "")],
     },
 }
+VARIANTS["dq"] = {
+    "2 stages": [(_DQ_STAGES,
+                  "  static constexpr int kStages = 2;\n")],
+    "4 stages": [(_DQ_STAGES,
+                  "  static constexpr int kStages = D == 128 ? 2 : 4;\n")],
+    # 128 keys a tile: two S and dP wgmmas of N = 64 each k-step
+    "128 keys a tile": [(
+        "  static constexpr int BC = 64;  // keys a streamed tile",
+        "  static constexpr int BC = 128;  // keys a streamed tile")],
+    # two warpgroups a block (128 queries) sharing each K/V tile, alone
+    # and at 2 blocks an SM (at most 128 registers)
+    "2 warpgroups": [_GROUPS],
+    "2 warpgroups, 2 blocks an SM": [_GROUPS, (
+        _DQ_BOUNDS, _DQ_BOUNDS.replace("(kThreads)", "(kThreads, 2)"))],
+    # at most 168 registers: 3 blocks an SM
+    "3 blocks an SM": [(
+        _DQ_BOUNDS, _DQ_BOUNDS.replace("(kThreads)", "(kThreads, 3)"))],
+    "S, dP waited together": _DQ_TOGETHER,
+    "exp2f": [("valid ? ex2(fmaf(sa[n][e], c2, -ml[hf])) : 0.f;",
+               "valid ? exp2f(fmaf(sa[n][e], c2, -ml[hf])) : 0.f;")],
+    "hi by truncation": [_TRUNC],
+    # dS rounded once to bf16: one dQ product instead of two
+    "dS rounded once": [(
+        "          Mma<NW>::rs(dqa[n], dl[c / 4][c % 4], kd, 1);\n", "")],
+}
 ABLATIONS = {
     "fwd": {
         "no exponential": [(
@@ -152,8 +210,14 @@ ABLATIONS = {
             ("        Mma<BQ>::ss(pa, desc_k<D, kRows>(v_g, ks), "
              "desc_k<D, BQ>(gt, ks),\n                    ks);\n", "")],
     },
+    "dq": {
+        "no exponential": [(
+            "valid ? ex2(fmaf(sa[n][e], c2, -ml[hf])) : 0.f;",
+            "valid ? fmaf(sa[n][e], c2, -ml[hf]) : 0.f;")],
+        "no dQ": [(_DQ_RS, "")],
+        "no S, dP": [(_DQ_S_PRODUCT, ""), (_DQ_DP_PRODUCT, "")],
+    },
 }
-BASELINE_SRCS = {"fwd": cs.FLASH_SRC, "dkdv": cs.FLASH_BWD_SRC}
 
 # `--clock`: the current kernels with clock64() read by thread 0 of each
 # block at the ends of its phases, the cycles summed over blocks into a
@@ -161,6 +225,10 @@ BASELINE_SRCS = {"fwd": cs.FLASH_SRC, "dkdv": cs.FLASH_BWD_SRC}
 # ptt_clock_read copies out: where a block's time goes
 CLOCK_PHASES = ("first copies", "later copies", "S products",
                 "softmax, split", "second products", "epilogue")
+# what those phases are in K3: "first copies" and "later copies" end once
+# K has landed, after which S is issued and V waited for; "S products"
+# ends once dP is done (the exponential runs inside it), "softmax, split"
+# is dS and its split, "second products" dQ
 _CLK = "      CLK(%d)\n"
 _CLOCK_COMMON = [
     ("template <int D>\n__global__ void __launch_bounds__(kThreads)",
@@ -224,6 +292,20 @@ CLOCK = {
          "      for (int n = 0; n < NH; ++n) {\n        hold(dka[n]);",
          "      wg_wait();\n" + _CLK % 4 + "#pragma unroll\n"
          "      for (int n = 0; n < NH; ++n) {\n        hold(dka[n]);")],
+    "dq": _CLOCK_COMMON + [
+        (_DQ_S_PRODUCT + "      wg_commit();\n" + _DQ_V_WAIT,
+         _DQ_S_PRODUCT + "      wg_commit();\n" + _DQ_V_WAIT
+         + "      CLK(tile == 0 ? 0 : 1)\n"),
+        (_DQ_DP_WAIT, _DQ_DP_WAIT.replace("      wg_wait();\n",
+                                          "      wg_wait();\n" + _CLK % 2)),
+        ("      wg_fence();\n#pragma unroll\n"
+         "      for (int c = 0; c < BC / 16; ++c)",
+         _CLK % 3 + "      wg_fence();\n#pragma unroll\n"
+         "      for (int c = 0; c < BC / 16; ++c)"),
+        ("      wg_wait();\n#pragma unroll\n"
+         "      for (int n = 0; n < NH; ++n) hold(dqa[n]);\n",
+         "      wg_wait();\n" + _CLK % 4 + "#pragma unroll\n"
+         "      for (int n = 0; n < NH; ++n) hold(dqa[n]);\n")],
 }
 
 
@@ -242,6 +324,10 @@ def main(argv=None):
                     "to time beside the variants")
     ap.add_argument("--bwd-baseline", metavar="SRC",
                     help="the bb43ba4 flash_attention_bwd.cu (its bf16 K2)")
+    ap.add_argument("--dq-baseline", metavar="SRC",
+                    help="the dbc895c flash_attention_bwd.cu (its bf16 K3)")
+    ap.add_argument("--parts", default=",".join(SRCS),
+                    help="the kernels to time, of %s" % ", ".join(SRCS))
     ap.add_argument("--clock", action="store_true",
                     help="also print the cycles a block spends in each "
                     "phase (CLOCK_PHASES) of the current kernels")
@@ -253,20 +339,22 @@ def main(argv=None):
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
     print(cs.card_line())
+    parts = [part for part in SRCS if part in args.parts.split(",")]
+    baselines = {"fwd": args.fwd_baseline, "dkdv": args.bwd_baseline,
+                 "dq": args.dq_baseline}
     texts = {}   # (part, name, checked) -> source
-    for part, path in SRCS.items():
+    for part in parts:
+        path = SRCS[part]
         with open(path) as f:
             source = f.read()
         for table, checked in ((VARIANTS, True), (ABLATIONS, False)):
             for name, edits in table[part].items():
                 texts[(part, name, checked)] = edited(source, path, name,
                                                       edits)
-        base = cs.baseline_source(
-            args.fwd_baseline if part == "fwd" else args.bwd_baseline,
-            cs.FLASH_BF16_BASELINE_COMMIT, BASELINE_SRCS[part])
+        commit, src = cs.BF16_BASELINES[part]
+        base = cs.baseline_source(baselines[part], commit, src)
         if base is not None:
-            texts[(part, "%s kernel" % cs.FLASH_BF16_BASELINE_COMMIT,
-                   True)] = base
+            texts[(part, "%s kernel" % commit, True)] = base
 
     def build(item):
         (part, name, _), text = item
@@ -281,17 +369,21 @@ def main(argv=None):
 
     clocks = {}
     if args.clock:
-        for part, path in SRCS.items():
+        for part in parts:
+            path = SRCS[part]
             with open(path) as f:
                 text = edited(f.read(), path, "clock", CLOCK[part])
             texts[(part, "clock", False)] = text + _CLOCK_READ
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         built = dict(zip(texts, pool.map(build, texts.items())))
-    for part in SRCS:
+    for part in parts:
         if (part, "clock", False) in built:
             clocks[part] = built.pop((part, "clock", False))
-    fns = {"fwd": {("current", True): ck.flash_attention_fwd},
-           "dkdv": {("current", True): ck.flash_attention_bwd_dkdv}}
+    current = {"fwd": ck.flash_attention_fwd,
+               "dkdv": ck.flash_attention_bwd_dkdv,
+               "dq": lambda *a: (ck.flash_attention_bwd_dq(*a),)}
+    fns = {part: {("current", True): current[part]} for part in parts}
+    n_out = {"fwd": 1, "dkdv": 2, "dq": 1}  # outputs held to the plain
     for (part, name, checked), fn in built.items():
         fns[part][(name, checked)] = fn
 
@@ -305,19 +397,19 @@ def main(argv=None):
         ref_out, ref_lse = ck.flash_attention_fwd_plain(q, k, v, kv, causal)
         delta = ck.flash_delta(g, ref_out)
         bargs = (q, k, v, ref_lse, delta, g, kv, causal)
-        ref = {"fwd": (ref_out, ref_lse),
-               "dkdv": ck.flash_attention_bwd_plain(*bargs)[1:]}
+        grads = ck.flash_attention_bwd_plain(*bargs)
+        ref = {"fwd": (ref_out, ref_lse), "dkdv": grads[1:],
+               "dq": grads[:1]}
         calls = {"fwd": lambda fn: fn(q, k, v, kv, causal),
-                 "dkdv": lambda fn: fn(*bargs)}
+                 "dkdv": lambda fn: fn(*bargs), "dq": lambda fn: fn(*bargs)}
         for part, table in fns.items():
             errs = {}
             for (name, checked), fn in table.items():
                 got = calls[part](fn)
                 torch.cuda.synchronize()
                 errs[name] = cs.rel_err(
-                    [x.float() for x in got[:1 if part == "fwd" else 2]],
-                    [x.float() for x in ref[part][:1 if part == "fwd"
-                                                  else 2]])
+                    [x.float() for x in got[:n_out[part]]],
+                    [x.float() for x in ref[part][:n_out[part]]])
                 if part == "fwd":
                     errs[name] = max(errs[name], (got[1] - ref_lse).abs()
                                      .max().item())
@@ -328,9 +420,9 @@ def main(argv=None):
                           % (part, what, causal, name, errs[name]))
             times = {key: [] for key in table if (part, key[0]) not in wrong}
             for _ in range(2):
-                for key, fn in table.items():
+                for key in times:
                     times[key].append(cs.time_ms(
-                        torch, lambda fn=fn: calls[part](fn)))
+                        torch, lambda fn=table[key]: calls[part](fn)))
             for (name, checked), runs in times.items():
                 print("flash_bf16_variants: %s %s [%d,%d,%d,%d] causal=%s "
                       "%-30s %s ms, mean %.4f ms; err %.3e%s"

@@ -7,7 +7,8 @@ The public surface mirrors the JAX package's (and `paddle.fluid`'s):
     y = fluid.layers.fc(input=x, size=1)
     loss = fluid.layers.reduce_sum(y)
     fluid.optimizer.Adam(learning_rate=0.01).minimize(loss)
-    exe = fluid.Executor()            # the CUDA card; Executor("cpu") for CPU
+    exe = fluid.Executor()            # the CUDA card (fluid.CUDAPlace(0));
+                                      # Executor(fluid.CPUPlace()) for CPU
     exe.run(fluid.default_startup_program())
     exe.run(feed={"x": xs}, fetch_list=[loss])
 
@@ -21,9 +22,14 @@ from .core import framework  # noqa: F401
 from .core.framework import (Program, Operator, Variable, Parameter,  # noqa: F401
                              default_main_program, default_startup_program,
                              program_guard)
-from .core.executor import Executor, Scope, global_scope  # noqa: F401
+from .core.framework import (Block, get_var,  # noqa: F401
+                             switch_main_program, switch_startup_program)
+from .core.executor import (Executor, Scope, fetch_var,  # noqa: F401
+                            global_scope, scope_guard, switch_scope)
 from .core.lod import LoDTensor, create_lod_tensor  # noqa: F401
-from .core.param_attr import ParamAttr  # noqa: F401
+from .core.param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
+from .places import (CPUPlace, CUDAPlace, TPUPlace,  # noqa: F401
+                     is_compiled_with_cuda, is_compiled_with_tpu)
 from .core import initializer  # noqa: F401
 from .core import unique_name  # noqa: F401
 
@@ -39,3 +45,19 @@ from .clip import (ErrorClipByValue, GradientClipByValue,  # noqa: F401
                    GradientClipByNorm, GradientClipByGlobalNorm)
 from . import backward  # noqa: F401
 from . import io  # noqa: F401
+from .io import (save_params, load_params,  # noqa: F401
+                 save_persistables, load_persistables, save_inference_model,
+                 load_inference_model)
+from . import metrics  # noqa: F401
+from . import evaluator  # noqa: F401
+from . import average  # noqa: F401
+from .average import WeightedAverage  # noqa: F401
+from .data_feeder import DataFeeder  # noqa: F401
+from . import default_scope_funcs  # noqa: F401
+from . import concurrency  # noqa: F401
+from .concurrency import (make_channel, channel_send,  # noqa: F401
+                          channel_recv, channel_close, Select)
+from . import reader  # noqa: F401
+from .reader import batch  # noqa: F401
+
+Tensor = LoDTensor

@@ -4,9 +4,14 @@ Parity: python/paddle/fluid/executor.py, paddle/fluid/framework/
 {executor.cc,scope.cc} and the JAX package's core/executor.py. Same
 `Executor(place).run(program, feed, fetch_list)` surface; a run walks the
 Program op by op (core/lowering.py) on one torch device. The device is
-the card unless the caller asks for the CPU: with no card and no explicit
-`"cpu"`, construction raises — nothing falls back to the CPU silently.
+the card unless the caller asks for the CPU (`"cpu"` or `CPUPlace()`):
+with no card, construction raises — nothing falls back to the CPU
+silently. Scopes nest as the JAX package's do (`new_scope`, parent
+lookup, `drop_kids`); `scope_guard` / `switch_scope` swap the global
+scope that runs and `fetch_var` read by default.
 """
+import contextlib
+
 import numpy as np
 import torch
 
@@ -18,11 +23,15 @@ from .registry import torch_dtype
 
 def resolve_device(device=None):
     """The torch device an entry point runs on: `device` when given
-    ("cuda", "cuda:1", "cpu", a torch.device), else the current CUDA
+    ("cuda", "cuda:1", "cpu", a torch.device, or a Place: CPUPlace() the
+    CPU, CUDAPlace(i) and TPUPlace(i) card i), else the current CUDA
     device. Raises when a CUDA device is asked for (explicitly or by
     default) and none is available."""
+    from ..places import Place
     if device is None:
         device = "cuda"
+    if isinstance(device, Place):
+        device = device.torch_device()
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -92,22 +101,67 @@ def convert_feeds(program, feed):
     return out
 
 
-class Scope(object):
-    """Name -> torch tensor store (parity: framework::Scope)."""
+class _ScopeVar(object):
+    """A named slot of a Scope (parity: framework::Variable as the
+    reference's scope.find_var / scope.var return it)."""
 
-    def __init__(self):
+    def __init__(self, scope, name):
+        self.scope = scope
+        self.name = name
+
+    def get_tensor(self):
+        return self.scope._vars.get(self.name)
+
+    def set(self, value, place=None):
+        self.scope.set(self.name, value)
+
+
+class Scope(object):
+    """Name -> torch tensor store (parity: framework::Scope, with the
+    kid-scope tree: new_scope, lookup through the parents, drop_kids)."""
+
+    def __init__(self, parent=None):
         self._vars = {}
         self._rng_counter = 0
+        self._parent = parent
+        self._kids = []
+
+    def new_scope(self):
+        kid = Scope(parent=self)
+        self._kids.append(kid)
+        return kid
+
+    def parent(self):
+        return self._parent
+
+    def drop_kids(self):
+        self._kids = []
 
     def set(self, name, value):
         self._vars[name] = value if isinstance(value, torch.Tensor) \
             else torch.as_tensor(np.asarray(value))
 
     def get(self, name):
-        return self._vars.get(name)
+        if name in self._vars:
+            return self._vars[name]
+        return self._parent.get(name) if self._parent is not None else None
 
     def has(self, name):
-        return name in self._vars
+        return name in self._vars or (
+            self._parent is not None and self._parent.has(name))
+
+    def find_var(self, name):
+        """This scope's slot `name`, else the nearest parent's, else None
+        (parity: Scope::FindVar)."""
+        if name in self._vars:
+            return _ScopeVar(self, name)
+        return self._parent.find_var(name) if self._parent is not None \
+            else None
+
+    def var(self, name):
+        """This scope's slot `name`, created empty if missing."""
+        self._vars.setdefault(name, None)
+        return _ScopeVar(self, name)
 
     def names(self):
         return list(self._vars)
@@ -124,9 +178,44 @@ def global_scope():
     return _global_scope
 
 
+def switch_scope(scope):
+    """Make `scope` the global scope, returning the previous one (parity:
+    fluid.executor.switch_scope)."""
+    global _global_scope
+    old = _global_scope
+    _global_scope = scope
+    return old
+
+
+@contextlib.contextmanager
+def scope_guard(scope):
+    """The global scope is `scope` inside the block (parity:
+    fluid.executor.scope_guard)."""
+    old = switch_scope(scope)
+    try:
+        yield
+    finally:
+        switch_scope(old)
+
+
+def fetch_var(name, scope=None, return_numpy=True):
+    """A variable's value from `scope` (default: the global scope), as
+    numpy or as the tensor (parity: fluid.executor.fetch_var)."""
+    if scope is None:
+        scope = _global_scope
+    v = scope.find_var(name)
+    if v is None or v.get_tensor() is None:
+        raise RuntimeError(
+            "cannot find variable %r in the scope; only persistable vars "
+            "survive Executor.run (set persistable=True or fetch it in "
+            "fetch_list)" % name)
+    val = v.get_tensor()
+    return to_numpy(val) if return_numpy else val
+
+
 class Executor(object):
     """Runs Programs on one device. `place`: "cuda" (default), "cuda:N",
-    "cpu" or a torch.device."""
+    "cpu", a torch.device or a Place (CPUPlace, CUDAPlace, TPUPlace)."""
 
     def __init__(self, place=None):
         self.device = resolve_device(place)

@@ -502,3 +502,13 @@ def find_var(program, name):
         if name in block.vars:
             return block.vars[name]
     return None
+
+
+def get_var(name, program=None):
+    """A variable of a program's global block by name (default: the main
+    program; parity: fluid.framework.get_var)."""
+    if program is None:
+        program = default_main_program()
+    if not isinstance(program, Program):
+        raise TypeError("get_var expects a Program, got %r" % (program,))
+    return program.global_block().var(name)

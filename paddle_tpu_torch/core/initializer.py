@@ -102,6 +102,33 @@ class MSRAInitializer(Initializer):
         return NormalInitializer(0.0, std, self.seed)(var, block)
 
 
+class BilinearInitializer(Initializer):
+    """The bilinear-upsampling kernel of a conv2d_transpose weight [C_in,
+    C_out, kh, kw], as one assign_value op (parity: fluid initializer.py
+    Bilinear and the JAX package's)."""
+
+    def __call__(self, var, block):
+        shape = var.shape
+        if len(shape) != 4:
+            raise ValueError("BilinearInitializer needs a 4-D weight")
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        weight = np.zeros(shape, dtype="float32")
+        size = shape[2] * shape[3]
+        for i in range(int(np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            w = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+            weight[i // (shape[2] * shape[3] * shape[1]),
+                   (i // size) % shape[1], y, x] = w
+        return block.append_op(
+            type="assign_value",
+            outputs={"Out": [var]},
+            attrs={"shape": list(shape), "dtype": var.dtype,
+                   "values": weight.reshape(-1).tolist()},
+            infer_shape=False)
+
+
 class NumpyArrayInitializer(Initializer):
     """Initialize a parameter from a fixed numpy array (e.g. sinusoid
     position-encoding tables, pretrained embeddings)."""
@@ -127,3 +154,4 @@ Uniform = UniformInitializer
 Normal = NormalInitializer
 Xavier = XavierInitializer
 MSRA = MSRAInitializer
+Bilinear = BilinearInitializer

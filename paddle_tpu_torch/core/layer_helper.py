@@ -106,6 +106,9 @@ class LayerHelper(object):
             attr.name = unique_name.generate(".".join([self.name, "w"]))
 
         shape = [int(s) for s in shape]
+        from .param_attr import WeightNormParamAttr
+        if isinstance(attr, WeightNormParamAttr):
+            return self._create_weight_normalized(attr, shape, dtype)
         main_block = self.main_program.global_block()
         if main_block.has_var(attr.name):
             # shared parameter (same ParamAttr name reused): one init op only
@@ -125,6 +128,46 @@ class LayerHelper(object):
         # main program: the parameter itself
         return main_block.create_parameter(
             shape=shape, dtype=dtype, **attr.to_kwargs())
+
+    def _create_weight_normalized(self, attr, shape, dtype):
+        """w = g * v / ||v||: parameters v (the user's initializer) and g
+        ([shape[dim]], or [1] for dim=None), g set to ||v|| by a wn_norm
+        op in the startup program, and w a derived main-program variable
+        written by one weight_norm op."""
+        from .initializer import ConstantInitializer
+        from .param_attr import WeightNormParamAttr
+        main_block = self.main_program.global_block()
+        if main_block.has_var(attr.name):
+            existing = main_block.var(attr.name)   # shared, like a param
+            if existing.shape is not None and \
+                    tuple(existing.shape) != tuple(shape):
+                raise ValueError(
+                    "weight-norm parameter %r reused with shape %s but was "
+                    "created with shape %s"
+                    % (attr.name, shape, existing.shape))
+            return existing
+        dim = attr.dim
+        base = dict(learning_rate=attr.learning_rate,
+                    regularizer=attr.regularizer, trainable=attr.trainable,
+                    gradient_clip=attr.gradient_clip)
+        v = self.create_parameter(
+            ParamAttr(name=attr.name + ".wn_v", initializer=attr.initializer,
+                      **base), shape=shape, dtype=dtype)
+        g = self.create_parameter(
+            ParamAttr(name=attr.name + ".wn_g",
+                      initializer=ConstantInitializer(1.0), **base),
+            shape=[shape[dim]] if dim is not None else [1], dtype=dtype)
+        self.startup_program.global_block().append_op(
+            type="wn_norm", inputs={"X": [v.name]},
+            outputs={"Out": [g.name]}, attrs={"dim": dim},
+            infer_shape=False)
+        w = main_block.create_var(name=attr.name, dtype=dtype)
+        w.shape = tuple(shape)
+        main_block.append_op(
+            type="weight_norm", inputs={"G": [g], "V": [v]},
+            outputs={"Out": [w]}, attrs={"dim": dim})
+        WeightNormParamAttr.params_with_weight_norm.append(w)
+        return w
 
     def create_variable_for_type_inference(self, dtype=None,
                                            stop_gradient=False):

@@ -58,3 +58,19 @@ class ParamAttr(object):
         if with_initializer:
             kwargs["initializer"] = self.initializer
         return kwargs
+
+
+class WeightNormParamAttr(ParamAttr):
+    """Weight normalization (parity: fluid.WeightNormParamAttr and the JAX
+    package's): the parameter is w = g * v / ||v||, the norm over every
+    axis but `dim` (dim=None: one scalar g). v keeps the initializer; g
+    starts at ||v|| (a wn_norm op in the startup program), so the first w
+    equals v. One `weight_norm` op computes w; autograd gives g and v
+    their gradients."""
+
+    # the derived w variables, as the reference lists them
+    params_with_weight_norm = []
+
+    def __init__(self, dim=None, **kwargs):
+        super(WeightNormParamAttr, self).__init__(**kwargs)
+        self.dim = dim

@@ -1,5 +1,6 @@
-// Flash attention backward, fp32 or bf16, for Hopper (sm_90a): two kernels.
-// The bf16 dK/dV kernel (bf16 wgmma) is flash_attention_bwd_dkdv_bf16.cu.
+// Flash attention backward in fp32 for Hopper (sm_90a): two kernels. The
+// bf16 kernels (bf16 wgmma) are flash_attention_bwd_dkdv_bf16.cu and
+// flash_attention_bwd_dq_bf16.cu.
 //
 // Replaces the TPU kernels paddle_tpu/ops/pallas_kernels.py
 // `_flash_bwd_dkdv_kernel` (:157) and `_flash_bwd_dq_kernel` (:201), both
@@ -66,22 +67,12 @@
 // It reads q, k, v and g with their strides from the [B, T, H, D] layout
 // (no transpose) and allocates nothing.
 //
-// bf16 (mixed precision). Both kernels are templates on the element type E
-// of q, k, v, g, dq, dk and dv, as the TPU kernels take bf16 tiles, widen
-// them to f32 and write the gradients in the input's dtype (lse and delta
-// stay f32). The tiles reach shared memory as bf16 through the same
-// cp.async copies (a copy cannot convert), [rows, D + 8] bf16: the row
-// pitch is again an odd number of 16-byte chunks, and the fragment reads
-// stay free of bank conflicts (two lanes that read the two halves of one
-// word share it); they widen to f32 as the fragments load. A bf16 value is
-// exact in TF32 (8 significant bits against 11), so its lo term is 0 and a
-// product drops it, exactly: S and dP (both operands bf16) take one TF32
-// product, dV, dK and dQ (P or dS in f32 against a bf16 tile) two. P and
-// dS are not rounded to bf16 (the TPU kernels multiply them in f32); the
-// gradients narrow to bf16 (round to nearest even) only at their store.
-// Entry points: fp32 dK/dV, fp32 dQ and bf16 dQ;
-// flash_attention_bwd_dkdv_bf16.cu replaced the bf16 dK/dV one.
-#include <cuda_bf16.h>
+// The element type. Both kernels are templates on the element type E of
+// q, k, v, g, dq, dk and dv (lse and delta stay f32), and the tiles are
+// [rows, D + 16 / sizeof(E)] in shared memory; a 2-byte E would be exact
+// in TF32 (its lo term 0, dropped from each product). Only E = float is
+// instantiated: the bf16 kernels of the mixed-precision path are the
+// wgmma sources named above, which replaced the bf16 instantiations.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -205,16 +196,10 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
 }
 
 __device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
-// two consecutive outputs, narrowed to E (bf16: round to nearest even)
+// two consecutive outputs
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // x as a split operand: a widened bf16 value is its own hi, lo = 0
@@ -697,8 +682,6 @@ int dq_entry(const E* q, const E* k, const E* v, const E* g,
   return static_cast<int>(err);
 }
 
-using bf = __nv_bfloat16;
-
 }  // namespace
 
 // q, k, v, g: fp32 [B, T, H, D] with the given element strides (the last
@@ -729,21 +712,5 @@ extern "C" int ptt_flash_attention_bwd_dq(
   const Strides st = make_strides(qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
                                   gsb, gst, gsh);
   return dq_entry(q, k, v, g, lse, delta, kv_len, dq, B, T, H, D, st, scale,
-                  causal, stream);
-}
-
-// The same with q, k, v, g and dq bf16 (lse, delta fp32).
-extern "C" int ptt_flash_attention_bwd_dq_bf16(
-    const void* q, const void* k, const void* v, const void* g,
-    const float* lse, const float* delta, const int* kv_len, void* dq, int B,
-    int T, int H, int D, long long qsb, long long qst, long long qsh,
-    long long ksb, long long kst, long long ksh, long long vsb, long long vst,
-    long long vsh, long long gsb, long long gst, long long gsh, float scale,
-    int causal, void* stream) {
-  const Strides st = make_strides(qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh,
-                                  gsb, gst, gsh);
-  return dq_entry(static_cast<const bf*>(q), static_cast<const bf*>(k),
-                  static_cast<const bf*>(v), static_cast<const bf*>(g), lse,
-                  delta, kv_len, static_cast<bf*>(dq), B, T, H, D, st, scale,
                   causal, stream);
 }

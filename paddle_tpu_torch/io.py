@@ -6,7 +6,9 @@ directory of .npy files (one per var) plus a JSON manifest, and for an
 inference model the versioned JSON program desc (`__model__`,
 core/program_desc.py) and `__model_meta__.json` naming feeds and fetches.
 Each function takes the Scope it reads or fills (default: the global
-scope).
+scope, which `scope_guard` sets). The JAX package's keywords are taken
+too: `filename` and `params_filename` (accepted, as there: one file per
+var) and `allow_missing` (a partial save or load on purpose).
 """
 import json
 import os
@@ -14,11 +16,13 @@ import os
 import numpy as np
 
 from .core import program_desc as _program_desc
-from .core.executor import Scope, global_scope, to_tensor
+from .core.executor import Scope, global_scope, to_numpy, to_tensor
 from .core.framework import Parameter, Variable, default_main_program
 
-__all__ = ["save_vars", "save_params", "load_vars", "load_params",
-           "save_inference_model", "load_inference_model",
+__all__ = ["save_vars", "save_params", "save_persistables", "load_vars",
+           "load_params", "load_persistables", "save_inference_model",
+           "load_inference_model", "get_inference_program",
+           "get_parameter_value", "get_parameter_value_by_name",
            "scope_from_numpy"]
 
 
@@ -40,19 +44,24 @@ def _var_list(main_program, predicate, vars):
 
 
 def save_vars(executor, dirname, main_program=None, vars=None,
-              predicate=None, scope=None):
+              predicate=None, filename=None, allow_missing=False,
+              scope=None):
     """Write `vars` (or the program's vars matching `predicate`, default
     persistables) as .npy files + a manifest. A var with no value in the
-    scope raises: the file set would silently omit it. Everything is
-    checked before the first byte is written."""
+    scope raises (the file set would silently omit it) unless
+    allow_missing=True. Everything is checked before the first byte is
+    written."""
     scope = scope if scope is not None else global_scope()
     to_write = []
     for v in _var_list(main_program, predicate or is_persistable, vars):
         val = scope.get(v.name)
         if val is None:
+            if allow_missing:
+                continue
             raise RuntimeError(
                 "save_vars: variable %r has no value in the scope; run the "
-                "startup program first" % v.name)
+                "startup program first, or pass allow_missing=True for an "
+                "intentionally partial save" % v.name)
         to_write.append((v, val))
     os.makedirs(dirname, exist_ok=True)
     manifest = {}
@@ -68,16 +77,26 @@ def save_vars(executor, dirname, main_program=None, vars=None,
 
 
 def save_params(executor, dirname, main_program=None, vars=None,
-                scope=None):
-    save_vars(executor, dirname, main_program, vars, is_parameter,
-              scope=scope)
+                filename=None, allow_missing=False, scope=None):
+    save_vars(executor, dirname, main_program, vars, is_parameter, filename,
+              allow_missing, scope=scope)
+
+
+def save_persistables(executor, dirname, main_program=None, filename=None,
+                      allow_missing=False, scope=None):
+    """Every persistable of the program: parameters, optimizer state,
+    learning-rate vars and step counters (what a resumed run needs)."""
+    save_vars(executor, dirname, main_program, None, is_persistable,
+              filename, allow_missing, scope=scope)
 
 
 def load_vars(executor, dirname, main_program=None, vars=None,
-              predicate=None, scope=None, params_only=False):
+              predicate=None, filename=None, params_only=False,
+              allow_missing=False, scope=None):
     """Restore vars from a save_vars directory onto the executor's device.
     A requested var the manifest does not carry raises (it would silently
-    keep its init value)."""
+    keep its init value) unless allow_missing=True; nothing is restored
+    before that check."""
     scope = scope if scope is not None else global_scope()
     with open(os.path.join(dirname, "manifest.json")) as f:
         manifest = json.load(f)
@@ -86,7 +105,7 @@ def load_vars(executor, dirname, main_program=None, vars=None,
         want = set(v.name for v in
                    _var_list(main_program, predicate or is_persistable, vars))
         absent = sorted(want - set(manifest))
-        if absent:
+        if absent and not allow_missing:
             raise RuntimeError(
                 "load_vars: %d requested variable(s) are not in the manifest "
                 "at %r: %s" % (len(absent), dirname, absent))
@@ -99,13 +118,51 @@ def load_vars(executor, dirname, main_program=None, vars=None,
         scope.set(name, to_tensor(arr, device=executor.device))
 
 
-def load_params(executor, dirname, main_program=None, scope=None):
-    load_vars(executor, dirname, main_program, None, is_parameter,
-              scope=scope, params_only=True)
+def load_params(executor, dirname, main_program=None, filename=None,
+                allow_missing=False, scope=None):
+    load_vars(executor, dirname, main_program, None, is_parameter, filename,
+              params_only=True, allow_missing=allow_missing, scope=scope)
+
+
+def load_persistables(executor, dirname, main_program=None, filename=None,
+                      allow_missing=False, scope=None):
+    load_vars(executor, dirname, main_program, None, is_persistable,
+              filename, allow_missing=allow_missing, scope=scope)
+
+
+def get_inference_program(target_vars, main_program=None):
+    """The program cloned for inference (dropout and batch_norm in test
+    mode), as the JAX package gives it."""
+    if main_program is None:
+        main_program = default_main_program()
+    return main_program.clone(for_test=True)
+
+
+def get_parameter_value(para, executor, scope=None):
+    """A Parameter's current value as numpy (parity: fluid.io
+    get_parameter_value; values live in the scope, no fetch program
+    needed)."""
+    scope = scope if scope is not None else global_scope()
+    val = scope.get(para.name)
+    if val is None:
+        raise ValueError("parameter %r not initialized in the current "
+                         "scope; run the startup program first" % para.name)
+    return to_numpy(val)
+
+
+def get_parameter_value_by_name(name, executor, program=None, scope=None):
+    """The Parameter `name` of `program` (default: the main program) as
+    numpy; a variable that is not a Parameter raises."""
+    program = program or default_main_program()
+    var = program.global_block().var(name)
+    if not isinstance(var, Parameter):
+        raise TypeError("variable %r is not a Parameter" % name)
+    return get_parameter_value(var, executor, scope=scope)
 
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,
-                         main_program=None, model_filename=None, scope=None):
+                         main_program=None, model_filename=None,
+                         params_filename=None, scope=None):
     """Prune `main_program` to the subgraph the targets need (for_test),
     and store the program desc, the feed/fetch names and the parameters
     the pruned program reads. Returns the pruned program."""
@@ -123,7 +180,8 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
     return inference_program
 
 
-def load_inference_model(dirname, executor, model_filename=None, scope=None):
+def load_inference_model(dirname, executor, model_filename=None,
+                         params_filename=None, scope=None):
     """Load a save_inference_model directory written by either package:
     returns (program, feed_names, fetch_vars), parameters loaded into
     `scope` on the executor's device."""

@@ -10,7 +10,8 @@ Switch case is a conditional_block op over a sub-block, run on the device
 with no host sync (ops/control_ops.py).
 
 While, IfElse (ROADMAP A6), tensor arrays, rank tables and beam search are
-not ported yet: they come with the beam-search decode path.
+not ported yet: they come with the beam-search decode path. increment,
+is_empty and Print are the scalar helpers of the same module.
 """
 from ..core import unique_name
 from ..core.framework import Variable
@@ -18,7 +19,8 @@ from ..core.layer_helper import LayerHelper
 
 __all__ = ["StaticRNN", "DynamicRNN", "BlockGuard", "ConditionalBlock",
            "ConditionalBlockGuard", "Switch", "less_than", "less_equal",
-           "greater_than", "greater_equal", "equal", "not_equal"]
+           "greater_than", "greater_equal", "equal", "not_equal",
+           "increment", "is_empty", "Print"]
 
 
 class BlockGuard(object):
@@ -388,3 +390,48 @@ class Switch(object):
     def __exit__(self, exc_type, exc_val, exc_tb):
         self.inside_scope = False
         return False
+
+
+def increment(x, value=1.0, in_place=True):
+    """x + value, written back into x unless in_place=False."""
+    helper = LayerHelper("increment", **locals())
+    out = x if in_place else helper.create_variable_for_type_inference(
+        x.dtype)
+    helper.append_op(type="increment", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"step": float(value)},
+                     infer_shape=False)
+    return out
+
+
+def is_empty(x, cond=None, **ignored):
+    """A bool: whether x holds no element."""
+    helper = LayerHelper("is_empty", x=x)
+    if cond is None:
+        cond = helper.create_variable_for_type_inference("bool")
+        cond.stop_gradient = True
+    helper.append_op(type="is_empty", inputs={"X": [x]},
+                     outputs={"Out": [cond]}, infer_shape=False)
+    return cond
+
+
+def Print(input, first_n=-1, message=None, summarize=-1,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=True,
+          print_phase="both"):
+    """The input through an identity `print` op that prints `message` and
+    the value each time it runs (ops/basic.py); gradients pass through.
+    Returns the op's output, so the print stays live in the graph."""
+    helper = LayerHelper("print", name=None)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="print", inputs={"In": [input]}, outputs={"Out": [out]},
+        attrs={"first_n": int(first_n), "message": message or "",
+               "summarize": int(summarize),
+               "print_tensor_name": bool(print_tensor_name),
+               "print_tensor_type": bool(print_tensor_type),
+               "print_tensor_shape": bool(print_tensor_shape),
+               "print_phase": str(print_phase),
+               "var_name": input.name})
+    if input.shape is not None:
+        out.shape = tuple(input.shape)
+    return out

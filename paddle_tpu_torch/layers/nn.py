@@ -18,7 +18,10 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "softmax_with_cross_entropy", "softmax", "cross_entropy",
            "accuracy", "one_hot", "reduce_sum", "autoincreased_step_counter",
            "matmul", "sequence_mask", "cos_sim", "square_error_cost",
-           "lrn", "transpose", "dropout", "split", "label_smooth"]
+           "lrn", "transpose", "dropout", "split", "label_smooth",
+           "conv2d_transpose", "smooth_l1", "topk", "reduce_mean",
+           "reduce_max", "reduce_min", "reduce_prod", "l2_normalize",
+           "multiplex", "maxout", "nce", "expand"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -306,14 +309,25 @@ def one_hot(input, depth):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", **locals())
-    out = helper.create_variable_for_type_inference(input.dtype)
-    helper.append_op(type="reduce_sum", inputs={"X": [input]},
-                     outputs={"Out": [out]},
-                     attrs={"keep_dim": keep_dim, "reduce_all": dim is None,
-                            "dim": dim if dim is not None else 0})
-    return out
+def _reduce_layer(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, **locals())
+        out = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op(type=op_type, inputs={"X": [input]},
+                         outputs={"Out": [out]},
+                         attrs={"keep_dim": keep_dim,
+                                "reduce_all": dim is None,
+                                "dim": dim if dim is not None else 0})
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
 
 
 def autoincreased_step_counter(counter_name=None, begin=1, step=1):
@@ -461,4 +475,132 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
         inputs["PriorDist"] = [prior_dist]
     helper.append_op(type="label_smooth", inputs=inputs,
                      outputs={"Out": [out]}, attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, param_attr=None,
+                     bias_attr=None, use_cudnn=True, act=None, name=None):
+    """Transposed convolution (NCHW, filter [C_in, num_filters, kh, kw]);
+    filter_size may be derived from output_size, as in fluid."""
+    helper = LayerHelper("conv2d_transpose", **locals())
+    dtype = helper.input_dtype()
+    input_channel = input.shape[1]
+    stride, padding, dilation = _pair(stride), _pair(padding), \
+        _pair(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError("output_size must be set when filter_size is "
+                             "None")
+        output_size = _pair(output_size)
+        h_in, w_in = input.shape[2], input.shape[3]
+        filter_size = [
+            (output_size[0] - (h_in - 1) * stride[0] + 2 * padding[0] - 1)
+            // dilation[0] + 1,
+            (output_size[1] - (w_in - 1) * stride[1] + 2 * padding[1] - 1)
+            // dilation[1] + 1]
+    else:
+        filter_size = _pair(filter_size)
+    img_filter = helper.create_parameter(
+        dtype=dtype, shape=[input_channel, num_filters] + list(filter_size),
+        attr=helper.param_attr)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input], "Filter": [img_filter]},
+        outputs={"Output": [pre_bias]},
+        attrs={"strides": list(stride), "paddings": list(padding),
+               "dilations": list(dilation)})
+    pre_act = helper.append_bias_op(pre_bias, dim_start=1, dim_end=2)
+    return helper.append_activation(pre_act)
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1", **locals())
+    diff = helper.create_variable_for_type_inference(x.dtype)
+    loss = helper.create_variable_for_type_inference(x.dtype)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op(
+        type="smooth_l1_loss", inputs=inputs,
+        outputs={"Diff": [diff], "Out": [loss]},
+        attrs={"sigma": sigma if sigma is not None else 1.0})
+    return loss
+
+
+def topk(input, k):
+    """(values, int64 indices) of the k largest along the last dim."""
+    helper = LayerHelper("topk", **locals())
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="topk", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    return values, indices
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    norm = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="l2_normalize", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def multiplex(inputs, index):
+    helper = LayerHelper("multiplex", **locals())
+    out = helper.create_variable_for_type_inference(inputs[0].dtype)
+    helper.append_op(type="multiplex",
+                     inputs={"X": inputs, "Ids": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="maxout", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"groups": groups})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None, param_attr=None,
+        bias_attr=None, num_neg_samples=None, name=None):
+    """Noise-contrastive estimation: W [classes, D] and b [classes, 1]
+    parameters, the nce op, its cost over num_neg_samples + 1."""
+    helper = LayerHelper("nce", **locals())
+    dim = input.shape[1]
+    num_neg_samples = 10 if num_neg_samples is None else int(num_neg_samples)
+    w = helper.create_parameter(
+        attr=helper.param_attr, shape=[num_total_classes, dim],
+        dtype=input.dtype, is_bias=False)
+    b = helper.create_parameter(
+        attr=helper.bias_attr, shape=[num_total_classes, 1],
+        dtype=input.dtype, is_bias=True)
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    sample_logits = helper.create_variable_for_type_inference(input.dtype)
+    sample_labels = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="nce",
+        inputs={"Input": [input], "Label": [label], "Weight": [w],
+                "Bias": [b]},
+        outputs={"Cost": [cost], "SampleLogits": [sample_logits],
+                 "SampleLabels": [sample_labels]},
+        attrs={"num_total_classes": int(num_total_classes),
+               "num_neg_samples": num_neg_samples})
+    return cost / (num_neg_samples + 1)
+
+
+def expand(x, expand_times, name=None):
+    """x tiled expand_times along each dim."""
+    helper = LayerHelper("expand", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="expand", inputs={"X": [x]}, outputs={"Out": [out]},
+        attrs={"expand_times": list(expand_times)})
     return out

@@ -5,9 +5,10 @@ activations and the elementwise and logical families.
 Parity: python/paddle/fluid/layers/ops.py + layer_function_generator.py
 and the JAX package's layers/ops.py: generated from a slot-spec table;
 both calling styles work, `scale(x)` and `scale(x=var, scale=2.0)`, and
-every keyword that is not an input slot becomes an op attr. Of the JAX
-table, cumsum, scatter, gather and the random layers are not here yet
-(ROADMAP A11).
+every keyword that is not an input slot becomes an op attr; the random
+layers take theirs (shape, dtype, min / max or mean / std, seed) so.
+`fill_constant_batch_size_like` is layers/tensor.py's, as in the JAX
+package, whose tensor module shadows its generated one.
 """
 from ..core.framework import Variable
 from ..core.layer_helper import LayerHelper
@@ -29,6 +30,14 @@ _SPECS = {
     "sum": ([("X", "x", True)], ["Out"]),
     "squeeze": (_UNARY, ["Out"]),
     "unsqueeze": (_UNARY, ["Out"]),
+    "cumsum": (_UNARY, ["Out"]),
+    "scatter": ([("X", "x", True), ("Ids", "ids", True),
+                 ("Updates", "updates", True)], ["Out"]),
+    "gather": ([("X", "x", True), ("Index", "index", True)], ["Out"]),
+    "uniform_random": ([], ["Out"]),
+    "gaussian_random": ([], ["Out"]),
+    "uniform_random_batch_size_like": ([("Input", "input", True)], ["Out"]),
+    "gaussian_random_batch_size_like": ([("Input", "input", True)], ["Out"]),
 }
 for _a in __activations__:
     _SPECS[_a] = (_UNARY, ["Out"])

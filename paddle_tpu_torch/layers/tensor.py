@@ -1,5 +1,6 @@
-"""Tensor creation layers: create_parameter, create_global_var, cast,
-concat, sums, assign, fill_constant, zeros and ones.
+"""Tensor creation layers: create_tensor, create_parameter,
+create_global_var, cast, concat, sums, assign, fill_constant,
+fill_constant_batch_size_like, zeros, ones and argmax.
 
 Parity: python/paddle/fluid/layers/tensor.py and the JAX package's
 layers/tensor.py, which build the same ops.
@@ -10,8 +11,16 @@ from ..core.framework import Variable
 from ..core.layer_helper import LayerHelper
 from ..core.initializer import ConstantInitializer
 
-__all__ = ["create_parameter", "create_global_var", "cast", "concat",
-           "sums", "assign", "fill_constant", "zeros", "ones"]
+__all__ = ["create_tensor", "create_parameter", "create_global_var", "cast",
+           "concat", "sums", "assign", "fill_constant",
+           "fill_constant_batch_size_like", "zeros", "ones", "argmax"]
+
+
+def create_tensor(dtype, name=None, persistable=False):
+    """An empty variable of the current block, named after the layer."""
+    helper = LayerHelper("create_tensor", **locals())
+    return helper.block.create_var(name=helper.name, dtype=dtype,
+                                   persistable=persistable)
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
@@ -104,3 +113,28 @@ def ones(shape, dtype, force_cpu=False):
 
 def zeros(shape, dtype, force_cpu=False):
     return fill_constant(value=0.0, shape=shape, dtype=dtype)
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    """A constant of `shape` whose dim output_dim_idx is input's dim
+    input_dim_idx (the batch, as a whole)."""
+    helper = LayerHelper("fill_constant_batch_size_like", **locals())
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="fill_constant_batch_size_like",
+        inputs={"Input": [input]},
+        outputs={"Out": [out]},
+        attrs={"shape": [int(s) for s in shape], "dtype": dtype,
+               "value": float(value), "input_dim_idx": input_dim_idx,
+               "output_dim_idx": output_dim_idx})
+    out.stop_gradient = True
+    return out
+
+
+def argmax(x, axis=0):
+    helper = LayerHelper("arg_max", **locals())
+    out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="arg_max", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out

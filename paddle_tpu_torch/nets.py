@@ -1,12 +1,14 @@
-"""Composite network helpers (the subset the sentiment conv net, the
-recognize_digits LeNet and the VGG-style conv groups call).
+"""Composite network helpers: the conv-pool blocks of the sentiment conv
+net, the recognize_digits LeNet and the VGG-style conv groups, glu and
+scaled_dot_product_attention.
 
-Parity: python/paddle/fluid/nets.py and the JAX package's nets.py. Its
-glu and scaled_dot_product_attention are not ported yet.
+Parity: python/paddle/fluid/nets.py and the JAX package's nets.py, which
+build the same ops.
 """
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "sequence_conv_pool",
+           "glu", "scaled_dot_product_attention"]
 
 
 def simple_img_conv_pool(input, num_filters, filter_size, pool_size,
@@ -64,3 +66,42 @@ def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                                     filter_size=filter_size,
                                     param_attr=param_attr, act=act)
     return layers.sequence_pool(input=conv_out, pool_type=pool_type)
+
+
+def glu(input, dim=-1):
+    """The gated linear unit: input split in two along dim, a * sigmoid(b)."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    return layers.elementwise_mul(x=a, y=layers.sigmoid(x=b))
+
+
+def scaled_dot_product_attention(queries, keys, values, num_heads=1,
+                                 dropout_rate=0.0):
+    """softmax(Q K^T / sqrt(d)) V over 3-D [B, T, D] q, k, v, split into
+    num_heads heads first and merged back after (dense: the product and
+    the softmax are plain ops, as in the JAX package)."""
+    if num_heads != 1:
+        def _split_heads(x):
+            reshaped = layers.reshape(
+                x=x, shape=[x.shape[0] if x.shape[0] > 0 else -1, x.shape[1],
+                            num_heads, x.shape[2] // num_heads])
+            return layers.transpose(x=reshaped, perm=[0, 2, 1, 3])
+        q, k, v = map(_split_heads, (queries, keys, values))
+    else:
+        q, k, v = queries, keys, values
+    key_dim = float(k.shape[-1])
+    scaled_q = layers.scale(x=q, scale=key_dim ** -0.5)
+    product = layers.matmul(x=scaled_q, y=k, transpose_y=True)
+    weights = layers.reshape(
+        x=layers.softmax(layers.reshape(
+            x=product, shape=[-1, product.shape[-1]])),
+        shape=[d if d > 0 else -1 for d in product.shape[:-1]] +
+              [product.shape[-1]])
+    if dropout_rate:
+        weights = layers.dropout(x=weights, dropout_prob=dropout_rate)
+    ctx_multiheads = layers.matmul(weights, v)
+    if num_heads == 1:
+        return ctx_multiheads
+    t = layers.transpose(ctx_multiheads, perm=[0, 2, 1, 3])
+    return layers.reshape(x=t, shape=[t.shape[0] if t.shape[0] > 0 else -1,
+                                      t.shape[1],
+                                      t.shape[2] * t.shape[3]])

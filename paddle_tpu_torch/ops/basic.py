@@ -1,14 +1,18 @@
 """Elementwise / math / tensor op rules: the activations, the elementwise,
-compare and logical families, mul / matmul, concat, split, cos_sim, the
-clip ops behind gradient and error clipping, and the shape, fill and
-random ops the ported programs run.
+compare and logical families, minus, mul / matmul, concat, split, cos_sim,
+the clip ops behind gradient and error clipping, the reductions, the
+shape, fill, index and random ops, print, and weight normalization.
 
-Parity: paddle/fluid/operators/{activation_op,elementwise_*_op,mul_op,
-matmul_op,mean_op,sum_op,concat_op,split_op,transpose_op,compare_op,
-logical_op,cos_sim_op,clip_op,clip_by_norm_op,topk_op,scale_op,reshape_op,
-squeeze_op,unsqueeze_op,reduce_op,cast_op,one_hot_op,increment_op,sign_op,
-assign_op,fill_constant_op,fill_constant_batch_size_like_op,
-assign_value_op,uniform_random_op,gaussian_random_op}.cc
+Parity: paddle/fluid/operators/{activation_op,elementwise_*_op,minus_op,
+mul_op,matmul_op,mean_op,sum_op,concat_op,split_op,transpose_op,
+compare_op,logical_op,cos_sim_op,clip_op,clip_by_norm_op,topk_op,scale_op,
+reshape_op,squeeze_op,unsqueeze_op,reduce_op,cast_op,one_hot_op,
+increment_op,sign_op,assign_op,fill_constant_op,
+fill_constant_batch_size_like_op,fill_zeros_like_op,fill_op,
+assign_value_op,uniform_random_op,uniform_random_batch_size_like_op,
+gaussian_random_op,gaussian_random_batch_size_like_op,
+truncated_gaussian_random_op,expand_op,print_op,shape_op,arg_max_op,
+is_empty_op,multiplex_op,cumsum_op,gather_op,scatter_op}.cc
 and the JAX package's ops/basic.py, whose rules these mirror over torch
 tensors. `mul` stays a plain torch.matmul: the JAX package left the matrix
 product to XLA, outside any Pallas kernel. Gradients come from autograd
@@ -366,16 +370,35 @@ def _cast(ctx, ins, attrs):
         torch_dtype(np.dtype(attrs["out_dtype"]).name)))
 
 
-@register("reduce_sum")
-def _reduce_sum(ctx, ins, attrs):
-    x = single(ins, "X")
-    keep = attrs.get("keep_dim", False)
-    if attrs.get("reduce_all"):
-        out = x.sum(dim=tuple(range(x.dim())), keepdim=keep)
-        return _out(out if keep else out.reshape(1))
-    dim = attrs.get("dim", 0)
-    dim = tuple(dim) if isinstance(dim, (list, tuple)) else dim
-    return _out(x.sum(dim=dim, keepdim=keep))
+def _prod(x, dim, keepdim):
+    """torch.prod reduces one dim at a time: the highest first, so the
+    others keep their places."""
+    for d in sorted((d % x.dim() for d in dim), reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
+def _reduce(name, fn):
+    """reduce_<fn> over attr dim (an int or a list), or every dim with
+    reduce_all ([1] then unless keep_dim). max and min are torch.amax and
+    torch.amin, which split a tie's gradient evenly as jnp.max does."""
+    def lower(ctx, ins, attrs):
+        x = single(ins, "X")
+        keep = attrs.get("keep_dim", False)
+        if attrs.get("reduce_all"):
+            out = fn(x, tuple(range(x.dim())), keep)
+            return _out(out if keep else out.reshape(1))
+        dim = attrs.get("dim", 0)
+        dim = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
+        return _out(fn(x, dim, keep))
+    register(name)(lower)
+
+
+_reduce("reduce_sum", lambda x, d, k: x.sum(dim=d, keepdim=k))
+_reduce("reduce_mean", lambda x, d, k: x.mean(dim=d, keepdim=k))
+_reduce("reduce_max", lambda x, d, k: torch.amax(x, dim=d, keepdim=k))
+_reduce("reduce_min", lambda x, d, k: torch.amin(x, dim=d, keepdim=k))
+_reduce("reduce_prod", _prod)
 
 
 @register("one_hot")
@@ -414,14 +437,21 @@ def _fill_constant(ctx, ins, attrs):
                            device=ctx.device))
 
 
+def _batch_size_like(ref, attrs):
+    """A *_batch_size_like op's shape: attr shape with dim output_dim_idx
+    copied from Input's dim input_dim_idx."""
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ref.shape[attrs.get("input_dim_idx", 0)]
+    return shape
+
+
 @register("fill_constant_batch_size_like")
 def _fill_constant_batch_size_like(ctx, ins, attrs):
     """A constant whose dim output_dim_idx copies Input's dim
     input_dim_idx (an RNN memory's boot value takes the batch so)."""
     ref = single(ins, "Input")
-    shape = list(attrs["shape"])
-    shape[attrs.get("output_dim_idx", 0)] = \
-        ref.shape[attrs.get("input_dim_idx", 0)]
+    shape = _batch_size_like(ref, attrs)
     return _out(torch.full(shape, attrs.get("value", 0.0),
                            dtype=torch_dtype(_attr_np_dtype(attrs).name),
                            device=ref.device))
@@ -446,8 +476,11 @@ def _assign_value(ctx, ins, attrs):
     return _out(torch.from_numpy(np.ascontiguousarray(arr)).to(ctx.device))
 
 
-def _random(ctx, attrs, fill):
-    shape = [1 if s == -1 else s for s in attrs["shape"]]
+def _random(ctx, attrs, fill, shape=None):
+    """A draw of attr shape (-1 read as 1), or `shape`, from the op's
+    generator (ctx.rng: the run's seed, or the op's seed attr)."""
+    if shape is None:
+        shape = [1 if s == -1 else s for s in attrs["shape"]]
     out = torch.empty(shape, dtype=torch_dtype(_attr_np_dtype(attrs).name),
                       device=ctx.device)
     if out.device.type != "meta":
@@ -465,3 +498,182 @@ def _uniform_random(ctx, ins, attrs):
 def _gaussian_random(ctx, ins, attrs):
     return _random(ctx, attrs, lambda t, g: t.normal_(
         attrs.get("mean", 0.0), attrs.get("std", 1.0), generator=g))
+
+
+@register("uniform_random_batch_size_like", uses_rng=True)
+def _uniform_random_bsl(ctx, ins, attrs):
+    return _random(ctx, attrs, lambda t, g: t.uniform_(
+        attrs.get("min", -1.0), attrs.get("max", 1.0), generator=g),
+        _batch_size_like(single(ins, "Input"), attrs))
+
+
+@register("gaussian_random_batch_size_like", uses_rng=True)
+def _gaussian_random_bsl(ctx, ins, attrs):
+    return _random(ctx, attrs, lambda t, g: t.normal_(
+        attrs.get("mean", 0.0), attrs.get("std", 1.0), generator=g),
+        _batch_size_like(single(ins, "Input"), attrs))
+
+
+_PHI2 = 0.9772498680518208   # the standard normal's CDF at 2
+
+
+def _truncated_normal(t, mean, std, g):
+    """N(mean, std) cut at two standard deviations, as
+    jax.random.truncated_normal(-2, 2) scaled: a uniform draw between
+    the CDF's values at -2 and 2 through the inverse CDF."""
+    t.uniform_(1.0 - _PHI2, _PHI2, generator=g)
+    t.mul_(2.0).sub_(1.0).erfinv_().mul_(std * 2.0 ** 0.5).add_(mean)
+    return t
+
+
+@register("truncated_gaussian_random", uses_rng=True)
+def _truncated_gaussian_random(ctx, ins, attrs):
+    return _random(ctx, attrs, lambda t, g: _truncated_normal(
+        t, attrs.get("mean", 0.0), attrs.get("std", 1.0), g))
+
+
+# ------------------------------------------ shape, fill and index ops --
+
+@register("minus")
+def _minus(ctx, ins, attrs):
+    return _out(single(ins, "X") - single(ins, "Y"))
+
+
+@register("expand")
+def _expand(ctx, ins, attrs):
+    """x tiled expand_times along each dim (np.tile's rule)."""
+    return _out(torch.tile(single(ins, "X"), tuple(attrs["expand_times"])))
+
+
+_printed = {}   # id of a print op's attrs -> times it has printed
+
+
+@register("print")
+def _print(ctx, ins, attrs):
+    """Identity that prints `message`, the var's name, dtype and shape and
+    its first `summarize` values (all when -1) each time it runs, at most
+    first_n times an op (-1: always). On the card the print copies the
+    values to the host, a sync, as any print of a device value does."""
+    x = single(ins, "In")
+    if x.device.type == "meta":
+        return _out(x)
+    parts = [attrs.get("message") or ""]
+    if attrs.get("print_tensor_name", True):
+        parts.append(attrs.get("var_name", ""))
+    if attrs.get("print_tensor_type", True):
+        parts.append(str(np.dtype(str(x.dtype).replace("torch.", ""))))
+    if attrs.get("print_tensor_shape", True):
+        parts.append(str(tuple(x.shape)))
+    shown = x.detach().reshape(-1)
+    summarize = attrs.get("summarize", -1)
+    if summarize and summarize > 0:
+        shown = shown[:summarize]
+    first_n = attrs.get("first_n", -1)
+    n = _printed.get(id(attrs), 0)
+    if first_n < 0 or n < first_n:
+        _printed[id(attrs)] = n + 1
+        print(" ".join(p for p in parts if p), shown.cpu().numpy())
+    return _out(x)
+
+
+@register("shape")
+def _shape(ctx, ins, attrs):
+    x = single(ins, "Input")
+    return _out(torch.tensor(list(x.shape), dtype=torch.int32,
+                             device=x.device))
+
+
+@register("arg_max")
+def _arg_max(ctx, ins, attrs):
+    """The first index of the largest value along attr axis, int64."""
+    return _out(torch.argmax(single(ins, "X"), dim=attrs.get("axis", -1)))
+
+
+@register("fill_zeros_like")
+def _fill_zeros_like(ctx, ins, attrs):
+    return _out(torch.zeros_like(single(ins, "X")))
+
+
+@register("fill")
+def _fill(ctx, ins, attrs):
+    """Out = the row-major float list `value` in `shape`, cast to
+    `dtype` (force_cpu places nothing: the program's device holds it)."""
+    arr = np.asarray(attrs["value"], dtype=np.float32).reshape(
+        attrs["shape"]).astype(_attr_np_dtype(attrs))
+    return _out(torch.from_numpy(np.ascontiguousarray(arr)).to(ctx.device))
+
+
+@register("is_empty")
+def _is_empty(ctx, ins, attrs):
+    x = single(ins, "X")
+    return _out(torch.tensor(x.numel() == 0, device=x.device))
+
+
+@register("multiplex")
+def _multiplex(ctx, ins, attrs):
+    """Row i of the output is row i of input Ids[i]."""
+    ids = single(ins, "Ids").reshape(-1).long()
+    xs = torch.stack(ins["X"], dim=0)   # [candidates, batch, ...]
+    return _out(xs[ids, torch.arange(ids.shape[0], device=ids.device)])
+
+
+@register("cumsum")
+def _cumsum(ctx, ins, attrs):
+    """Running sum along attr axis; exclusive drops each element's own
+    term, reverse runs from the end (the JAX rule's order of operations,
+    so the gradients agree too)."""
+    x = single(ins, "X")
+    axis = attrs.get("axis", -1)
+    out = torch.cumsum(x, dim=axis)
+    if attrs.get("exclusive"):
+        out = out - x
+    if attrs.get("reverse"):
+        out = torch.flip(torch.cumsum(torch.flip(x, (axis,)), dim=axis),
+                         (axis,))
+        if attrs.get("exclusive"):
+            out = out - x
+    return _out(out)
+
+
+@register("gather")
+def _gather(ctx, ins, attrs):
+    """Rows Index of X (along dim 0)."""
+    x, idx = single(ins, "X"), single(ins, "Index")
+    return _out(x[idx.reshape(-1).long()])
+
+
+@register("scatter")
+def _scatter(ctx, ins, attrs):
+    """X with rows Ids replaced by Updates (out of place)."""
+    x, ids, upd = single(ins, "X"), single(ins, "Ids"), single(ins, "Updates")
+    out = x.clone()
+    out[ids.reshape(-1).long()] = upd
+    return _out(out)
+
+
+# ------------------------------------------------ weight normalization --
+
+def _wn_axes(x, dim):
+    return tuple(i for i in range(x.dim()) if i != dim) if dim is not None \
+        else tuple(range(x.dim()))
+
+
+@register("wn_norm")
+def _wn_norm(ctx, ins, attrs):
+    """||X|| over every axis but attr dim: weight norm's g at startup."""
+    x = single(ins, "X")
+    return _out(torch.sqrt(torch.sum(torch.square(x), dim=_wn_axes(
+        x, attrs.get("dim")))).reshape(-1))
+
+
+@register("weight_norm")
+def _weight_norm(ctx, ins, attrs):
+    """W = G * V / ||V||, the norm over every axis but attr dim (the
+    reference's 9-op weight-norm graph as one op, as in the JAX
+    package); autograd gives the G and V gradients."""
+    g, v = single(ins, "G"), single(ins, "V")
+    dim = attrs.get("dim")
+    norm = torch.sqrt(torch.sum(torch.square(v), dim=_wn_axes(v, dim),
+                                keepdim=True))
+    shape = [v.shape[dim] if i == dim else 1 for i in range(v.dim())]
+    return _out(v * (g.reshape(shape) / torch.clamp_min(norm, 1e-12)))

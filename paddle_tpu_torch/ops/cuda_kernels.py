@@ -18,10 +18,10 @@ Beside each kernel:
   * a launch count per kernel (`launch_counts()`, keyed by
     `KERNEL_NAMES`), raised by one exactly where the kernel is launched,
     so a run can show the main path went through it. The flash wrappers
-    (K1-K3) launch an fp32 or a bf16 kernel (K1 and K2 in bf16: the
-    wgmma kernels of flash_attention_fwd_bf16.cu and
-    flash_attention_bwd_dkdv_bf16.cu), each counted under its own name
-    (the bf16 one's ends in "_bf16").
+    (K1-K3) launch an fp32 or a bf16 kernel (in bf16 the wgmma kernels
+    of flash_attention_fwd_bf16.cu, flash_attention_bwd_dkdv_bf16.cu and
+    flash_attention_bwd_dq_bf16.cu), each counted under its own name (the
+    bf16 one's ends in "_bf16").
 
 Gradients: seven torch.autograd.Functions mirror the JAX package's
 custom_vjps — `FlashAttention` (forward K1, backward K2 + K3, as
@@ -64,9 +64,9 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
            "flash_attention_fwd_bf16.cu", "flash_attention_bwd_dkdv_bf16.cu",
-           "softmax_xent_fwd.cu", "layer_norm_fwd.cu", "fused_lstm_fwd.cu",
-           "fused_lstmp_fwd.cu", "masked_softmax_fwd.cu",
-           "masked_pool_fwd.cu")
+           "flash_attention_bwd_dq_bf16.cu", "softmax_xent_fwd.cu",
+           "layer_norm_fwd.cu", "fused_lstm_fwd.cu", "fused_lstmp_fwd.cu",
+           "masked_softmax_fwd.cu", "masked_pool_fwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 

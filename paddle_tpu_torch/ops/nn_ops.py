@@ -1,14 +1,17 @@
-"""NN op rules (the subset the Transformer's, the sentiment classifiers'
-and the conv nets' programs run): layer_norm, fused_attention,
-lookup_table, dropout, softmax_with_cross_entropy, softmax, cross_entropy,
+"""NN op rules: layer_norm, fused_attention, lookup_table, dropout,
+softmax_with_cross_entropy, softmax, log_softmax, cross_entropy,
 sigmoid_cross_entropy_with_logits, square_error_cost, label_smooth,
-accuracy, conv2d, depthwise_conv2d, pool2d, batch_norm, lrn.
+accuracy, auc, conv2d, depthwise_conv2d, conv2d_transpose, pool2d,
+maxout, batch_norm, lrn, l2_normalize, nce and the losses smooth_l1_loss,
+log_loss, huber_loss, hinge_loss, rank_loss and margin_rank_loss.
 
 Parity: paddle/fluid/operators/{layer_norm_op,lookup_table_op,dropout_op,
 softmax_with_cross_entropy_op,softmax_op,cross_entropy_op,
 sigmoid_cross_entropy_with_logits_op,squared_l2_distance_op,
-label_smooth_op,accuracy_op,conv_op,pool_op,batch_norm_op,lrn_op}.cc and
-the JAX package's ops/nn_ops.py.
+label_smooth_op,accuracy_op,auc_op,conv_op,conv_transpose_op,pool_op,
+maxout_op,batch_norm_op,lrn_op,norm_op,nce_op,smooth_l1_loss_op,
+log_loss_op,huber_loss_op,hinge_loss_op,rank_loss_op,
+margin_rank_loss_op}.cc and the JAX package's ops/nn_ops.py.
 layer_norm with scale and bias, the flash branch of fused_attention and
 the hard-label 2-D softmax_with_cross_entropy call the hand-written CUDA
 kernels through their wrappers (ops/cuda_kernels.py), which dispatch by
@@ -406,3 +409,172 @@ def _lrn(ctx, ins, attrs):
     acc = sum(sq[:, i:i + x.shape[1]] for i in range(n))
     mid = k + alpha * acc
     return {"Out": [x / torch.pow(mid, beta)], "MidOut": [mid]}
+
+
+@register("conv2d_transpose")
+def _conv2d_transpose(ctx, ins, attrs):
+    """The input gradient of a conv2d: NCHW input, filter [C_in, C_out,
+    kh, kw] (torch's conv_transpose2d layout as it is), fluid's paddings
+    those of the forward conv: out (H - 1) stride - 2 pad + dil (k - 1) +
+    1. groups must be 1, as the reference enforces."""
+    x = single(ins, "Input")
+    w = single(ins, "Filter")
+    if int(attrs.get("groups", 1) or 1) != 1:
+        raise ValueError(
+            "conv2d_transpose: groups != 1 is not supported (the "
+            "reference enforces groups == 1 for transposed convolution)")
+    out = torch.nn.functional.conv_transpose2d(
+        x, w, stride=pair(attrs.get("strides", [1, 1])),
+        padding=pair(attrs.get("paddings", [0, 0])),
+        dilation=pair(attrs.get("dilations", [1, 1])))
+    return {"Output": [out.to(x.dtype)]}
+
+
+@register("maxout")
+def _maxout(ctx, ins, attrs):
+    """NCHW: the max over each group of `groups` consecutive channels."""
+    x = single(ins, "X")
+    g = attrs["groups"]
+    n, c, h, w = x.shape
+    return _out(torch.amax(x.reshape(n, c // g, g, h, w), dim=2))
+
+
+@register("l2_normalize")
+def _l2_normalize(ctx, ins, attrs):
+    """X / sqrt(sum(X^2) along attr axis + epsilon)."""
+    x = single(ins, "X")
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", -1),
+                                keepdim=True) + attrs.get("epsilon", 1e-10))
+    return {"Out": [x / norm], "Norm": [norm]}
+
+
+@register("log_softmax")
+def _log_softmax(ctx, ins, attrs):
+    return _out(torch.log_softmax(single(ins, "X"), dim=-1))
+
+
+# ------------------------------------------------------------- losses --
+
+@register("smooth_l1_loss")
+def _smooth_l1(ctx, ins, attrs):
+    """Per row, the sum of 0.5 (sigma d)^2 where |d| < 1 / sigma^2, else
+    |d| - 0.5 / sigma^2, with d = (X - Y) * InsideWeight and each term
+    times OutsideWeight (when given)."""
+    x, y = single(ins, "X"), single(ins, "Y")
+    s2 = attrs.get("sigma", 1.0) ** 2
+    diff = x - y
+    iw, ow = single(ins, "InsideWeight"), single(ins, "OutsideWeight")
+    if iw is not None:
+        diff = diff * iw
+    ad = torch.abs(diff)
+    elem = torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff, ad - 0.5 / s2)
+    if ow is not None:
+        elem = elem * ow
+    loss = torch.sum(elem.reshape(elem.shape[0], -1), dim=1, keepdim=True)
+    return {"Out": [loss], "Diff": [diff]}
+
+
+@register("log_loss")
+def _log_loss(ctx, ins, attrs):
+    p, label = single(ins, "Predicted"), single(ins, "Labels")
+    eps = attrs.get("epsilon", 1e-4)
+    return {"Loss": [-label * torch.log(p + eps)
+                     - (1 - label) * torch.log(1 - p + eps)]}
+
+
+@register("huber_loss")
+def _huber_loss(ctx, ins, attrs):
+    x, y = single(ins, "X"), single(ins, "Y")
+    delta = attrs.get("delta", 1.0)
+    r = y - x
+    ar = torch.abs(r)
+    loss = torch.where(ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta))
+    return {"Out": [loss], "Residual": [r]}
+
+
+def _relu_max(x):
+    """max(0, x) with jnp.maximum's gradient (split at a tie)."""
+    return torch.maximum(torch.zeros_like(x), x)
+
+
+@register("hinge_loss")
+def _hinge_loss(ctx, ins, attrs):
+    logits, labels = single(ins, "Logits"), single(ins, "Labels")
+    return {"Loss": [_relu_max(1.0 - (2.0 * labels - 1.0) * logits)]}
+
+
+@register("rank_loss")
+def _rank_loss(ctx, ins, attrs):
+    """log(1 + exp(Left - Right)) - Label (Left - Right)."""
+    label = single(ins, "Label")
+    d = single(ins, "Left") - single(ins, "Right")
+    return _out(torch.log1p(torch.exp(d)) - label * d)
+
+
+@register("margin_rank_loss")
+def _margin_rank_loss(ctx, ins, attrs):
+    label = single(ins, "Label")
+    x1, x2 = single(ins, "X1"), single(ins, "X2")
+    act = _relu_max(-label * (x1 - x2) + attrs.get("margin", 0.0))
+    return {"Out": [act], "Activated": [(act > 0).to(x1.dtype)]}
+
+
+# ------------------------------------------------------------ metrics --
+
+@register("auc")
+def _auc(ctx, ins, attrs):
+    """Streaming ROC AUC: each prediction's positive score (column 1 of a
+    two-column Predict) falls in one of num_thresholds buckets, TP / FP
+    (the running counts, persistable) gain this batch's positives and
+    negatives, and AUC is the trapezoid area under the ROC curve their
+    reversed running sums trace. The integer counts add exactly in any
+    order; the area is summed in float64."""
+    pred = single(ins, "Predict")
+    label = single(ins, "Label").reshape(-1)
+    tp_in, fp_in = single(ins, "TP"), single(ins, "FP")
+    num_t = attrs.get("num_thresholds", 200)
+    score = pred[:, 1] if pred.dim() == 2 and pred.shape[1] == 2 \
+        else pred.reshape(-1)
+    bucket = torch.clamp((score * num_t).to(torch.int32), 0, num_t - 1).long()
+    pos = (label > 0).to(tp_in.dtype)
+    tp = tp_in + torch.zeros_like(tp_in).index_add_(0, bucket, pos)
+    fp = fp_in + torch.zeros_like(fp_in).index_add_(0, bucket, 1 - pos)
+    tp_c = torch.flip(torch.cumsum(torch.flip(tp, (0,)), 0), (0,)).double()
+    fp_c = torch.flip(torch.cumsum(torch.flip(fp, (0,)), 0), (0,)).double()
+    tpr = tp_c / torch.clamp_min(tp_c[0], 1)
+    fpr = fp_c / torch.clamp_min(fp_c[0], 1)
+    auc = -torch.trapezoid(tpr, fpr)
+    return {"AUC": [auc.float().reshape(1)], "TPOut": [tp], "FPOut": [fp]}
+
+
+# ---------------------------------------------------------------- nce --
+
+@register("nce", uses_rng=True)
+def _nce(ctx, ins, attrs):
+    """Noise-contrastive estimation: each row's true classes (Label) and
+    num_neg_samples classes drawn uniformly from [0, num_total_classes)
+    by the op's generator (SampleLabels), their logits x . W[c] + b[c]
+    (SampleLogits), and Cost = the sum over those of the sigmoid cross
+    entropy against 1 (true) or 0 (drawn). The draws are the port's own:
+    they do not reproduce the JAX package's bits."""
+    x, label = single(ins, "Input"), single(ins, "Label")
+    w, b = single(ins, "Weight"), single(ins, "Bias")
+    num_neg = attrs.get("num_neg_samples", 10)
+    n = x.shape[0]
+    label = label.reshape(n, -1).long()
+    num_true = label.shape[1]
+    neg = torch.empty((n, num_neg), dtype=torch.int64, device=x.device)
+    if neg.device.type != "meta":
+        neg.random_(0, attrs.get("num_total_classes"),
+                    generator=ctx.rng(seed=attrs.get("seed", 0)))
+    samples = torch.cat([label, neg], dim=1)          # [N, T + S]
+    logits = torch.einsum("nd,nsd->ns", x, w[samples.reshape(-1)].reshape(
+        n, -1, w.shape[1]))
+    if b is not None:
+        logits = logits + b.reshape(-1)[samples.reshape(-1)].reshape(n, -1)
+    ones = torch.cat([torch.ones((n, num_true), device=x.device),
+                      torch.zeros((n, num_neg), device=x.device)], dim=1)
+    ce = torch.clamp_min(logits, 0) - logits * ones + \
+        torch.log1p(torch.exp(-torch.abs(logits)))
+    return {"Cost": [ce.sum(dim=1, keepdim=True)], "SampleLogits": [logits],
+            "SampleLabels": [samples]}

@@ -28,7 +28,44 @@ __all__ = [
     "DecayedAdagradOptimizer", "AdadeltaOptimizer", "RMSPropOptimizer",
     "FtrlOptimizer", "ModelAverage", "Optimizer",
     "ProximalGD", "ProximalAdagrad", "ProximalGDOptimizer",
-    "ProximalAdagradOptimizer"]
+    "ProximalAdagradOptimizer", "scale_learning_rate",
+    "persistable_lr_names"]
+
+
+def persistable_lr_names(program):
+    """Names of the persistable learning-rate variables the program's
+    update ops read (in op order, each once). Empty for scheduler-derived
+    rates, which are recomputed in the program each step."""
+    names = []
+    for op in program.global_block().ops:
+        for n in op.inputs.get("LearningRate", ()):
+            if n and n not in names:
+                v = program.global_block().vars.get(n)
+                if v is not None and v.persistable:
+                    names.append(n)
+    return names
+
+
+def scale_learning_rate(program, scope, factor):
+    """Scale every persistable learning rate the program's update ops read
+    by `factor`, in the scope, on its device and in its dtype. Returns the
+    scaled names; raises when no such rate holds a value (a
+    scheduler-derived rate is recomputed each step and cannot be scaled
+    this way)."""
+    scaled = []
+    for n in persistable_lr_names(program):
+        val = scope.get(n)
+        if val is None:
+            continue
+        scope.set(n, (val * factor).to(val.dtype))
+        scaled.append(n)
+    if not scaled:
+        raise ValueError(
+            "scale_learning_rate: no persistable learning-rate variable "
+            "holds a value in the scope — scheduler-derived rates are "
+            "recomputed in-graph each step and cannot be damped this "
+            "way")
+    return scaled
 
 
 class Optimizer(object):

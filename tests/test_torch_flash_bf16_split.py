@@ -1,8 +1,9 @@
-"""The arithmetic of the bf16 wgmma kernels (K1 forward, K2 dK/dV) on the
-CPU, where the CUDA kernels cannot run.
+"""The arithmetic of the bf16 wgmma kernels (K1 forward, K2 dK/dV, K3 dQ)
+on the CPU, where the CUDA kernels cannot run.
 
-`csrc/flash_attention_fwd_bf16.cu` and `csrc/flash_attention_bwd_dkdv_bf16.cu`
-multiply bf16 operands on the tensor cores (wgmma) with f32 sums. A bf16
+`csrc/flash_attention_fwd_bf16.cu`, `csrc/flash_attention_bwd_dkdv_bf16.cu`
+and `csrc/flash_attention_bwd_dq_bf16.cu` multiply bf16 operands on the
+tensor cores (wgmma) with f32 sums. A bf16
 value times a bf16 value is exact in f32, so S = Q K^T (and dP = G V^T)
 is one product of the unscaled bf16 tiles, the scale applied to the f32
 result, folded with log2(e) into exp2. P (and, in the backward, dS) is
@@ -11,13 +12,15 @@ bf16(x - hi) and multiply both halves, so P keeps about 16 bits. These
 tests emulate that walk in torch (a float32 matmul of bf16 values has
 exact products and f32 sums, in another order than the tensor cores),
 over the kernels' tiles (the forward's 64 keys and its 128-key variant;
-the backward's 64 and 32 queries), and hold it on bf16-representable
+dK/dV's 64 and 32 queries; dQ's 64 keys and its 128-key variant), and
+hold it on bf16-representable
 inputs at B = 2, T = 256, H = 2, D = 64, causal and not, with an empty
 and a ragged row:
-- against the JAX package's Pallas forward and its dK/dV kernel (jax.vjp
-  of flash_attention) in interpret mode, which compute in f32 from the
-  same values, and against the port's plain versions: within SPLIT_TOL
-  (out and lse absolute, dK and dV relative to max(1, max |dX|)); the
+- against the JAX package's Pallas forward and its dK/dV and dQ kernels
+  (jax.vjp of flash_attention) in interpret mode, which compute in f32
+  from the same values, and against the port's plain versions: within
+  SPLIT_TOL (out and lse absolute, dQ, dK and dV relative to max(1, max
+  |dX|)); the
   empty row exactly out 0 and lse -1e30 + log(1e-30), its gradients 0;
 - rounding P (and dS) once to bf16, one product each, misses SPLIT_TOL
   by ten times at least: why the kernels split;
@@ -157,6 +160,32 @@ def emulated_dkdv(q, k, v, g, lse, delta, kv_len, causal, tile, once=False):
     return dk.transpose(1, 2), dv.transpose(1, 2)
 
 
+def emulated_dq(q, k, v, g, lse, delta, kv_len, causal, tile, once=False):
+    """dq [B, T, H, D] of the dQ kernel's walk over key tiles of `tile`
+    (from key 0 up to the row's length): S = Q K^T and dP = G V^T of the
+    bf16 tiles, P = exp2(S c - lse log2(e)) on valid pairs (0 elsewhere, a
+    select), dS = P (dP - delta) scale, dQ += dS K with dS split (or
+    rounded once)."""
+    b, t, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    c2 = scale * LOG2E
+    qh, kh, vh, gh = (x.transpose(1, 2) for x in (q, k, v, g))
+    qpos = torch.arange(t)[:, None]
+    lens = kv_len.long()
+    ls, dl = lse[..., None], delta[..., None]
+    dq = torch.zeros((b, h, t, d))
+    for k0 in range(0, t, tile):
+        ks, vs = kh[:, :, k0:k0 + tile], vh[:, :, k0:k0 + tile]
+        kpos = torch.arange(k0, min(k0 + tile, t))[None, :]
+        valid = _valid(b, kpos, qpos, lens, causal)
+        s = qh @ ks.transpose(-1, -2)                    # [B, H, T, tile]
+        dp = gh @ vs.transpose(-1, -2)
+        p = torch.where(valid, torch.exp2(s * c2 - ls * LOG2E),
+                        torch.zeros_like(s))
+        dq = dq + product(p * (dp - dl) * scale, ks, once)
+    return dq.transpose(1, 2)
+
+
 def rel_err(got, want):
     """chip_smoke.py's measure: max |got - want| over max(1, max |want|)."""
     return max(float(np.abs(g - w).max()) / max(1.0, float(np.abs(w).max()))
@@ -176,8 +205,8 @@ def _inputs(seed):
 
 def _jax(q, k, v, g, causal):
     """The JAX package's Pallas forward (out, lse) at its 128-row blocks
-    and the dK, dV of jax.vjp through its flash kernels, in interpret
-    mode, from the same float32 values."""
+    and the dK, dV and dQ of jax.vjp through its flash kernels, in
+    interpret mode, from the same float32 values."""
     def to_bh(x):
         return jnp.asarray(x.numpy()).transpose(0, 2, 1, 3).reshape(
             B * H, T, D)
@@ -192,24 +221,26 @@ def _jax(q, k, v, g, causal):
                                   kv_len=jnp.asarray(LENS, jnp.int32),
                                   interpret=True)
     _, vjp = jax.vjp(f, *(jnp.asarray(x.numpy()) for x in (q, k, v)))
-    _, dk, dv = vjp(jnp.asarray(g.numpy()))
+    dq, dk, dv = vjp(jnp.asarray(g.numpy()))
     return (out, np.asarray(lse).reshape(B, H, T)), (np.asarray(dk),
-                                                     np.asarray(dv))
+                                                     np.asarray(dv)), \
+        (np.asarray(dq),)
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["full", "causal"])
 def case(request):
     """One input, the JAX kernels' answers, the plain versions', and the
     emulated walks: forward over 64- and 128-key tiles, dK/dV over 64-
-    and 32-query tiles, split and rounded once."""
+    and 32-query tiles, dQ over 64- and 128-key tiles, split and rounded
+    once."""
     causal = request.param
     q, k, v, g = _inputs(60 + causal)
     lens = torch.tensor(LENS, dtype=torch.int32)
     out, lse = ck.flash_attention_fwd_plain(q, k, v, lens, causal)
     delta = ck.flash_delta(g, out)
-    plain_grads = ck.flash_attention_bwd_plain(q, k, v, lse, delta, g, lens,
-                                               causal)[1:]
-    jax_fwd, jax_grads = _jax(q, k, v, g, causal)
+    plain_dq, *plain_grads = ck.flash_attention_bwd_plain(
+        q, k, v, lse, delta, g, lens, causal)
+    jax_fwd, jax_grads, jax_dq = _jax(q, k, v, g, causal)
     emu = {}
     for once in (False, True):
         for tile in (64, 128):
@@ -218,10 +249,14 @@ def case(request):
         for tile in (64, 32):
             emu[("dkdv", tile, once)] = [x.numpy() for x in emulated_dkdv(
                 q, k, v, g, lse, delta, lens, causal, tile, once)]
+        for tile in (64, 128):
+            emu[("dq", tile, once)] = [emulated_dq(
+                q, k, v, g, lse, delta, lens, causal, tile, once).numpy()]
     return dict(causal=causal, emu=emu,
-                jax={"fwd": jax_fwd, "dkdv": jax_grads},
+                jax={"fwd": jax_fwd, "dkdv": jax_grads, "dq": jax_dq},
                 plain={"fwd": (out.numpy(), lse.numpy()),
-                       "dkdv": [x.numpy() for x in plain_grads]})
+                       "dkdv": [x.numpy() for x in plain_grads],
+                       "dq": [plain_dq.numpy()]})
 
 
 def _error(case, part, tile, once, against):
@@ -264,12 +299,27 @@ def test_split_dkdv_matches_the_plain_version(case, tile):
     assert _error(case, "dkdv", tile, False, "plain") <= SPLIT_TOL
 
 
-@pytest.mark.parametrize("part", ["fwd", "dkdv"])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_split_dq_matches_the_jax_kernel(case, tile):
+    """dQ within SPLIT_TOL of max(1, max |dQ|) of jax.vjp through the JAX
+    kernels (its `_flash_bwd_dq_kernel`); the empty row's dQ exactly 0."""
+    dq, = case["emu"][("dq", tile, False)]
+    assert dq.shape == case["jax"]["dq"][0].shape
+    assert _error(case, "dq", tile, False, "jax") <= SPLIT_TOL
+    assert not dq[0].any()
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_split_dq_matches_the_plain_version(case, tile):
+    assert _error(case, "dq", tile, False, "plain") <= SPLIT_TOL
+
+
+@pytest.mark.parametrize("part", ["fwd", "dkdv", "dq"])
 def test_rounding_once_misses_the_tolerance(case, part):
     """P (and dS) rounded once to bf16, one product each, lands ten times
     SPLIT_TOL away from the JAX kernels at least, and ten times farther
     than the split: why the kernels multiply both halves."""
-    for tile in ((64, 128) if part == "fwd" else (64, 32)):
+    for tile in ((64, 32) if part == "dkdv" else (64, 128)):
         once = _error(case, part, tile, True, "jax")
         split2 = _error(case, part, tile, False, "jax")
         assert once > 10 * SPLIT_TOL
@@ -289,7 +339,8 @@ def test_the_split_keeps_sixteen_bits():
 
 
 @pytest.mark.parametrize("name", ["flash_attention_fwd_bf16.cu",
-                                  "flash_attention_bwd_dkdv_bf16.cu"])
+                                  "flash_attention_bwd_dkdv_bf16.cu",
+                                  "flash_attention_bwd_dq_bf16.cu"])
 def test_the_kernel_sources_issue_bf16_wgmma(name):
     """What the CPU cannot run, read from the source: bf16 wgmma (register
     A fragments for the split products, the MN-major B operand), the
@@ -313,9 +364,8 @@ def test_the_kernel_sources_issue_bf16_wgmma(name):
 
 
 def test_the_old_sources_lost_only_their_bf16_entries():
-    """The fp32 sources keep their entries (and K3's bf16 one); the bf16
-    K1 and K2 entries live in the new sources alone, and the library
-    builds all four."""
+    """The fp32 sources keep their entries; the bf16 K1, K2 and K3 entries
+    live in the new sources alone, and the library builds all five."""
     with open(os.path.join(ck.CSRC_DIR, "flash_attention_fwd.cu")) as f:
         fwd = f.read()
     with open(os.path.join(ck.CSRC_DIR, "flash_attention_bwd.cu")) as f:
@@ -324,10 +374,15 @@ def test_the_old_sources_lost_only_their_bf16_entries():
     assert "ptt_flash_attention_fwd_bf16" not in fwd
     assert 'extern "C" int ptt_flash_attention_bwd_dkdv(' in bwd
     assert 'extern "C" int ptt_flash_attention_bwd_dq(' in bwd
-    assert 'extern "C" int ptt_flash_attention_bwd_dq_bf16(' in bwd
+    assert "ptt_flash_attention_bwd_dq_bf16" not in bwd
     assert "ptt_flash_attention_bwd_dkdv_bf16" not in bwd
-    for name in ("flash_attention_fwd_bf16.cu",
-                 "flash_attention_bwd_dkdv_bf16.cu"):
+    with open(os.path.join(ck.CSRC_DIR, "flash_attention_bwd_dq_bf16.cu")) \
+            as f:
+        assert 'extern "C" int ptt_flash_attention_bwd_dq_bf16(' in f.read()
+    for name in ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
+                 "flash_attention_fwd_bf16.cu",
+                 "flash_attention_bwd_dkdv_bf16.cu",
+                 "flash_attention_bwd_dq_bf16.cu"):
         assert name in ck.SOURCES
 
 
