@@ -367,6 +367,45 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               script returns accuracies of 16 rows: its first
               VERBATIM_FIRST equal); no kernel of the port launched. A
               `verbatim:` line sums up.
+25. multi-step — Executor.run(steps=K), one step captured into a CUDA
+              graph and replayed K times, on six training paths at the
+              full width of the phase each comes from (MULTISTEP_PATHS:
+              the Transformer in fp32, bf16 AMP and with dropout, the
+              PTB LM, the stacked LSTM, DeepASR). From one copied state
+              and seed counter, under torch.use_deterministic_algorithms
+              (index_add_ then sums in a fixed order): two eager runs of
+              4 steps, then run(steps=4). Checks: fetches and every
+              persistable bit-identical to the eager run where the two
+              eager runs are, else within MULTISTEP_GAP x their gap (the
+              largest max |diff| / max |value| over the arrays; the line
+              says which case held); then, in the default mode, a new
+              runner's second steps=4 call with return_numpy=False under
+              torch.cuda.set_sync_debug_mode("error"), its launch counts
+              equal to 4 eager steps'; on the LM, fetch_reduce "last"
+              and "mean" (MEAN_RTOL) against the eager losses. Recorded:
+              the eager steps' median (deterministic; the path's own
+              phase times the default one), the step's wall time at K =
+              4 and 16 (median of MULTISTEP_TIMED calls, host clock to a
+              synchronize), the device's busy time (the port's kernels'
+              part) and idle share over a K = 4 call (torch.profiler),
+              peak memory, the graph's pool, the warm-up and capture
+              seconds, the state's bytes and one clone's time; one
+              `multistep:` line a path. Then a step with a
+              Print op (a host sync) must raise GraphCaptureError
+              naming it.
+26. pipelined serving — phase 4's Transformer-base scoring model and
+              phase 6's IMDB stacked LSTM (LoD feeds, K6) saved and
+              served at pipeline_depth 0 and 2 (PIPELINE_DEPTHS), bursts
+              of 16 and 64 concurrent requests (PIPELINE_BURSTS). Checks:
+              a burst under torch.cuda.set_sync_debug_mode("error")
+              (clients wait on their futures only: a host sync on the
+              dispatch path fails its batch); each answer equal to
+              run_direct at its recorded bucket within BUCKET_TOL; the
+              launches a dispatch predicts; at depth 2 the window's
+              completions equal the dispatches. A `pipelined:` line
+              gives p50, p99, items a second and the window's idle_s.
+              The serving phases before it run at the engine's default
+              depth, 2.
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run; the bf16 flash kernels counted under
@@ -3166,6 +3205,13 @@ def op_breakdown(trace_path):
     return rows, outermost
 
 
+# parts of the port's kernels' device names (the profiler's "port kernels")
+PORT_KERNEL_PARTS = ("flash_fwd", "flash_bwd", "xent_fwd",
+                     "layer_norm_fwd_kernel", "fused_lstm_fwd_kernel",
+                     "fused_lstmp_fwd_kernel", "masked_softmax_fwd_kernel",
+                     "masked_pool_fwd_kernel")
+
+
 def profile_step(torch, step, trace_path=None):
     """One training step under torch.profiler, each program op inside a
     record_function range: prints the device time by kernel (top 15),
@@ -3212,12 +3258,7 @@ def profile_step(torch, step, trace_path=None):
               "matrix products": 0.0, "other": 0.0}
     for name, us in kernels.items():
         low = name.lower()
-        if any(k in low for k in ("flash_fwd", "flash_bwd", "xent_fwd",
-                                  "layer_norm_fwd_kernel",
-                                  "fused_lstm_fwd_kernel",
-                                  "fused_lstmp_fwd_kernel",
-                                  "masked_softmax_fwd_kernel",
-                                  "masked_pool_fwd_kernel")):
+        if any(k in low for k in PORT_KERNEL_PARTS):
             groups["port kernels"] += us
         elif any(k in low for k in ("conv", "fprop", "dgrad", "wgrad",
                                     "cudnn")):
@@ -5266,6 +5307,490 @@ def run_lm_clip_training(torch, card, trace_path=None):
     return (counts, dict.fromkeys(counts, 0)), report
 
 
+# ------------------------------------------------------------ multi-step --
+
+# phase 25: Executor.run(steps=K) on six training paths, each at the full
+# width of the phase named
+MULTISTEP_PATHS = (
+    ("transformer_fp32", "phase 5"), ("transformer_bf16", "phase 19"),
+    ("transformer_dropout", "phase 20"), ("language_model", "phase 17"),
+    ("stacked_lstm", "phase 7"), ("acoustic", "phase 10"))
+MULTISTEP_K = (4, 16)    # steps a call: the checked one, then a long one
+MULTISTEP_TIMED = 3      # timed calls at each K
+MULTISTEP_GAP = 10       # graph vs eager within 10x two eager runs' gap
+MEAN_RTOL = 1e-6         # fetch_reduce="mean" against the eager losses
+
+
+def multistep_program(fluid, path):
+    """(main, startup, avg_cost, feed) of a phase 25 path, built and fed as
+    the phase it comes from builds and feeds it."""
+    if path.startswith("transformer_"):
+        from paddle_tpu_torch.models import transformer
+        variant = path[len("transformer_"):]
+        main, startup, avg = build_train(fluid, transformer, N_LAYER,
+                                         variant=variant)
+        rng = np.random.RandomState(SEED)
+        t_max = MODEL["max_length"]
+        srcs = [rng.randint(3, MODEL["vocab"], t_max).tolist()
+                for _ in range(TRAIN_BATCH)]
+        dense = not TRAIN_VARIANTS[variant].get("use_fused_attention")
+        feed = transformer.prepare_batch(
+            srcs, srcs, t_max, labels=True,
+            n_head=MODEL["n_head"] if dense else None)
+        return main, startup, avg, feed
+    if path == "language_model":
+        main, startup, avg, _ = build_dense(fluid, "language_model", LM)
+        feed, _ = lm_feed(fluid, np.random.RandomState(SEED + 17), LM)
+        return main, startup, avg, feed
+    if path == "stacked_lstm":
+        cfg = SEQ_TRAIN
+        main, startup, avg = build_sentiment_train(
+            fluid, cfg["stacked"], cfg["vocab"], cfg["hid"])
+        rng = np.random.RandomState(SEED)
+        seqs = [rng.randint(1, cfg["vocab"], (cfg["seq"], 1)).astype("int64")
+                for _ in range(cfg["batch"])]
+        feed = {"words": fluid.LoDTensor.from_sequences(seqs),
+                "label": rng.randint(0, 2, (cfg["batch"], 1)).astype(
+                    "int64")}
+        return main, startup, avg, feed
+    main, startup, avg = build_acoustic(fluid, ASR, train=True)
+    rng = np.random.RandomState(SEED + 9)
+    lens = rng.randint(ASR["min_len"], ASR["max_len"] + 1, size=ASR["batch"])
+    lens[0] = ASR["max_len"]
+    return main, startup, avg, asr_feed(fluid, ASR, lens, SEED + 10)
+
+
+def host_state(scope):
+    """Every tensor of the scope, on the host."""
+    return {n: scope.get(n).detach().cpu() for n in scope.names()
+            if scope.get(n) is not None}
+
+
+def state_diff(torch, ref, got):
+    """(every array bit-identical, the largest max |got - ref| / max
+    |ref| over the arrays, its name) of two {name: host tensor}."""
+    check(sorted(ref) == sorted(got), "the arrays differ in names: %s"
+          % sorted(set(ref) ^ set(got)))
+    same, worst, where = True, 0.0, None
+    for n in sorted(ref):
+        a, b = ref[n], got[n]
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              "%s: %s %s against %s %s" % (n, tuple(b.shape), b.dtype,
+                                          tuple(a.shape), a.dtype))
+        if torch.equal(a, b):
+            continue
+        same = False
+        a, b = a.double(), b.double()
+        d = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+        if d > worst or where is None:
+            worst, where = d, n
+    return same, worst, where
+
+
+def call_ms(torch, fn):
+    """Host wall ms of fn() and a synchronize after it."""
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - ts) * 1e3
+
+
+def device_busy_ms(torch, fn):
+    """(device kernel ms, of which the port's kernels', host wall ms) of
+    fn() under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ts = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - ts) * 1e3
+    busy = port = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.device_time / 1e3
+            if any(k in e.name.lower() for k in PORT_KERNEL_PARTS):
+                port += e.device_time / 1e3
+    return busy, port, wall
+
+
+def run_multistep(torch, card, path, reduce_check=False):
+    """Phase 25 on one path (see the module's docstring). Returns ((the
+    launch counts of the second steps=4 call, 4 x one eager step's), the
+    report)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    k = MULTISTEP_K[0]
+    tag = "multistep %s:" % path
+    t0 = time.perf_counter()
+    main, startup, avg_cost, feed = multistep_program(fluid, path)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    init = {n: scope.get(n).clone() for n in scope.names()}
+    counter = scope._rng_counter
+    del scope
+    print("%s built and initialized in %.1f s"
+          % (tag, time.perf_counter() - t0))
+
+    def fresh():
+        s = fluid.Scope()
+        for n, v in init.items():
+            s.set(n, v.clone())
+        s._rng_counter = counter
+        return s
+
+    def run(scope, steps, fetch_reduce="stack", return_numpy=True):
+        return exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope,
+                       steps=steps, fetch_reduce=fetch_reduce,
+                       return_numpy=return_numpy)[0]
+
+    # The comparison runs under torch.use_deterministic_algorithms, so
+    # index_add_ (the embeddings' backward) sums in a fixed order: left
+    # to its atomics the order varies from run to run, and Adam turns a
+    # near-zero gradient's flipped sign into a step of ~lr, so any two
+    # runs could differ by a few such steps in any array. Two eager runs
+    # of k steps from the same state and seed counter: the reference, and
+    # how far two eager runs differ; then one steps=k call.
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        eager, step_ms = [], []
+        for i in range(2):
+            s = fresh()
+            ck.reset_launch_counts()
+            losses = []
+            for _ in range(k):
+                ts = time.perf_counter()
+                losses.append(run(s, 1))
+                step_ms.append((time.perf_counter() - ts) * 1e3)
+            eager_counts = ck.launch_counts()
+            state = host_state(s)
+            state["@losses"] = torch.from_numpy(np.stack(losses))
+            eager.append(state)
+            del s
+        torch.cuda.empty_cache()
+        eager_same, eager_gap, gap_at = state_diff(torch, eager[0],
+                                                   eager[1])
+        s = fresh()
+        stacked = run(s, k)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    check(stacked.shape[0] == k, "%s stacked fetch of shape %s"
+          % (tag, stacked.shape))
+    graph = host_state(s)
+    graph["@losses"] = torch.from_numpy(stacked)
+    same, err, err_at = state_diff(torch, eager[0], graph)
+    if eager_same:
+        case = "bit-identical"
+        check(same, "%s two eager runs agree bit for bit, the graph's run "
+              "differs from them (%s by %r)" % (tag, err_at, err))
+    else:
+        case = "within %dx the eager gap" % MULTISTEP_GAP
+        check(err <= MULTISTEP_GAP * eager_gap,
+              "%s graph vs eager %r (%s) > %d x two eager runs' %r (%s)"
+              % (tag, err, err_at, MULTISTEP_GAP, eager_gap, gap_at))
+    exe._cache.clear()
+    torch.cuda.empty_cache()
+
+    # the default runner, from where that call left the state: its first
+    # call (warm-up, capture and k replays), then the second call: no
+    # host sync, the kernels' counts k x one eager step's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    ts = time.perf_counter()
+    run(s, k, return_numpy=False)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - ts
+    runner = next(reversed(exe._cache.values()))
+    check(runner._graph is not None, "%s steps=%d ran no CUDA graph"
+          % (tag, k))
+    # the second call: no host sync, the kernels' counts k x one step's
+    ck.reset_launch_counts()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ts = time.perf_counter()
+        run(s, k, return_numpy=False)
+        enqueue_ms = (time.perf_counter() - ts) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    check(counts == eager_counts, "%s the second steps=%d call launched %s, "
+          "%d eager steps %s" % (tag, k, counts, k, eager_counts))
+    peak = torch.cuda.max_memory_allocated()
+    times = {k: sorted(call_ms(torch, lambda: run(s, k, return_numpy=False))
+                       for _ in range(MULTISTEP_TIMED))}
+    busy, port, wall = device_busy_ms(
+        torch, lambda: run(s, k, return_numpy=False))
+    report = {
+        "path": path, "from": dict(MULTISTEP_PATHS)[path], "case": case,
+        "eager_gap": eager_gap, "eager_gap_at": gap_at,
+        "graph_vs_eager": err, "graph_vs_eager_at": err_at,
+        # the comparison's eager steps, under deterministic algorithms;
+        # the phase the path comes from times the default eager step
+        "eager_step_ms_deterministic": statistics.median(step_ms),
+        "first_call_s": first_s, "warmup_s": runner.warmup_s,
+        "capture_s": runner.capture_s, "pool_bytes": {k: runner.pool_bytes},
+        "second_call_enqueue_ms": enqueue_ms,
+        "peak_mem_bytes": peak, "mem_at_start_bytes": at_start,
+        "device_busy_ms_per_step": busy / k,
+        "port_kernels_ms_per_step": port / k,
+        "idle_share": 1 - busy / wall if busy else None,
+        "launches_per_step": {n: c // k for n, c in counts.items() if c},
+    }
+    # the state's copy-back: the step's last copies move these bytes in
+    # the graph; a call hands the scope one clone of them
+    bufs = list(runner._bufs.values())
+    report["state_bytes"] = sum(b.numel() * b.element_size() for b in bufs)
+    report["state_clone_ms"] = eager_ms(
+        torch, lambda: [b.clone() for b in bufs], iters=5, reps=3)
+    del runner, bufs
+    exe._cache.clear()
+    torch.cuda.empty_cache()
+    for kk in MULTISTEP_K[1:]:
+        run(s, kk, return_numpy=False)
+        report["pool_bytes"][kk] = \
+            next(reversed(exe._cache.values())).pool_bytes
+        times[kk] = sorted(call_ms(torch,
+                                   lambda: run(s, kk, return_numpy=False))
+                           for _ in range(MULTISTEP_TIMED))
+        exe._cache.clear()
+        torch.cuda.empty_cache()
+    report["step_ms"] = {kk: statistics.median(t) / kk
+                         for kk, t in times.items()}
+    if reduce_check:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            last = run(fresh(), k, "last")
+            mean = run(fresh(), k, "mean")
+        finally:
+            torch.use_deterministic_algorithms(deterministic)
+        ref = eager[0]["@losses"]
+        same_last, err_last, _ = state_diff(
+            torch, {"last": ref[-1]}, {"last": torch.from_numpy(last)})
+        check(same_last if eager_same else
+              err_last <= MULTISTEP_GAP * eager_gap,
+              "%s fetch_reduce='last' %r from the last eager loss"
+              % (tag, err_last))
+        want = ref.double().mean(0).numpy()
+        check(np.allclose(mean, want, rtol=MEAN_RTOL, atol=0),
+              "%s fetch_reduce='mean' %s, the eager losses' mean %s"
+              % (tag, mean, want))
+        report["reduce"] = {"last": case if same_last else err_last,
+                            "mean_rel_err": float(np.abs(
+                                mean - want).max() / np.abs(want).max())}
+        exe._cache.clear()
+    report["card"] = card
+    print("multistep: " + json.dumps(report))
+    del s, init
+    torch.cuda.empty_cache()
+    return (counts, eager_counts), report
+
+
+def run_capture_refusal(torch):
+    """Phase 25's refusal: a step that syncs with the host (a Print op:
+    its values go to the host) cannot be captured, and steps=2 raises
+    GraphCaptureError naming the op; the scope keeps its state: nothing
+    ran eager instead."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.lowering import GraphCaptureError
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[4], dtype="float32")
+        h = fluid.layers.Print(fluid.layers.fc(input=x, size=4),
+                               message="refusal")
+        loss = fluid.layers.mean(h)
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    before = {n: scope.get(n).clone() for n in scope.names()}
+    feed = {"x": np.ones((2, 4), "float32")}
+    try:
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope, steps=2)
+        message = None
+    except GraphCaptureError as e:
+        message = str(e)
+    check(message is not None and "'print'" in message,
+          "a step with a Print op did not raise GraphCaptureError naming "
+          "it: %r" % message)
+    check(all(torch.equal(scope.get(n), v) for n, v in before.items()),
+          "a refused steps=2 call changed the scope")
+    print("multistep refusal: %s" % message.splitlines()[0][:300])
+
+
+# ------------------------------------------------------ pipelined serving --
+
+# phase 26: both depths, both burst sizes, on two served models
+PIPELINE_DEPTHS = (0, 2)
+PIPELINE_BURSTS = (16, 64)
+
+
+def pipelined_models(fluid, tmp):
+    """{name: (model dir, requests, fetch answer check, kernels a
+    dispatch launches)} of phase 26: phase 4's Transformer-base scoring
+    model and phase 6's IMDB stacked LSTM, built, initialized from SEED
+    and saved under `tmp`, with max(PIPELINE_BURSTS) requests each."""
+    from paddle_tpu_torch.models import transformer
+    n = max(PIPELINE_BURSTS)
+    vocab, t_max = MODEL["vocab"], MODEL["max_length"]
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        _, _, predict = transformer.transformer(
+            vocab, vocab, t_max, n_layer=N_LAYER, n_head=MODEL["n_head"],
+            d_key=MODEL["d_key"], d_value=MODEL["d_key"],
+            d_model=MODEL["d_model"], d_inner_hid=MODEL["d_inner"],
+            use_fused_attention=True)
+    rng = np.random.RandomState(SEED + 26)
+    requests = []
+    for _ in range(n):
+        s = rng.randint(3, vocab, rng.randint(t_max // 8, t_max + 1)).tolist()
+        tg = rng.randint(3, vocab, rng.randint(t_max // 8, t_max + 1)).tolist()
+        requests.append(transformer.prepare_batch([s], [tg], t_max))
+    models = {}
+    for name, (m, st, pred, feeds, reqs, per) in {
+            "transformer_serving": (
+                main, startup, predict, transformer.SCORING_FEED_NAMES,
+                requests, lambda ops: {
+                    "flash_attention_fwd": sum(op.type == "fused_attention"
+                                               for op in ops),
+                    "layer_norm_fwd": sum(
+                        op.type == "layer_norm" and bool(op.inputs.get(
+                            "Scale")) and bool(op.inputs.get("Bias"))
+                        for op in ops)}),
+            "sentiment_lstm_serving": build_sentiment(fluid, "lstm") + (
+                ["words"], [{"words": [rng.randint(
+                    0, SENTIMENT["dict_dim"], (int(t), 1)).astype("int64")]}
+                    for t in rng.randint(16, 257, size=n)],
+                sentiment_launches)}.items():
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(st, scope=scope)
+        model_dir = os.path.join(tmp, name)
+        fluid.io.save_inference_model(model_dir, feeds, [pred], exe, m,
+                                      scope=scope)
+        models[name] = (model_dir, reqs, per)
+    return models
+
+
+def no_sync_burst(torch, engine, requests):
+    """Submit the requests and wait for every future with
+    torch.cuda.set_sync_debug_mode("error") on: a host sync on the
+    dispatch path fails its batch. Returns the errors."""
+    errors = []
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        futures = [engine.submit(r) for r in requests]
+        for f in futures:
+            try:
+                f.result(600)
+            except Exception as e:  # noqa: BLE001 — reported by the caller
+                errors.append(repr(e))
+        engine.drain(600)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    return errors
+
+
+def run_pipelined_serving(torch, card):
+    """Phase 26 (see the module's docstring). Returns [(path, (launch
+    counts, the counts predicted))] and the report."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    paths, report = [], {}
+    with tempfile.TemporaryDirectory(prefix="ptt_smoke_") as tmp:
+        t0 = time.perf_counter()
+        models = pipelined_models(fluid, tmp)
+        print("pipelined: built, initialized and saved %s in %.1f s"
+              % (sorted(models), time.perf_counter() - t0))
+        for name, (model_dir, requests, per_dispatch) in models.items():
+            seq = name.startswith("sentiment")
+            direct = {}   # (request, bucket) -> run_direct's answer
+            for depth in PIPELINE_DEPTHS:
+                engine = InferenceEngine(
+                    model_dir, batch_buckets=[1, 4, 8],
+                    seq_buckets=SEQ_BUCKETS if seq else None,
+                    pipeline_depth=depth)
+                try:
+                    check(engine.pipeline_depth == depth and (
+                        engine.pipeline_stats() is None) == (depth == 0),
+                        "%s: an engine at depth %d" % (name, depth))
+                    fetch = engine.fetch_names[0]
+                    per = per_dispatch(engine.program.global_block().ops)
+                    errors = no_sync_burst(torch, engine,
+                                           requests[:PIPELINE_BURSTS[0]])
+                    check(not errors, "%s depth %d: the dispatch path made "
+                          "a host sync: %s" % (name, depth, errors[:2]))
+                    for n in PIPELINE_BURSTS:
+                        ck.reset_launch_counts()
+                        batches0 = engine.metrics.snapshot()["batches_total"]
+                        answers, lat, futures, wall = serve_burst(
+                            engine, requests[:n], fetch)
+                        counts = ck.launch_counts()
+                        batches = engine.metrics.snapshot()[
+                            "batches_total"] - batches0
+                        expected = dict.fromkeys(counts, 0)
+                        expected.update({kn: v * batches
+                                         for kn, v in per.items()})
+                        paths.append(("%s_depth%d_x%d" % (name, depth, n),
+                                      (counts, expected)))
+                        diff = 0.0
+                        for i, fut in enumerate(futures):
+                            key = (i, fut.bucket)
+                            if key not in direct:
+                                direct[key] = engine.run_direct(
+                                    requests[i], batch_bucket=fut.bucket[0],
+                                    seq_bucket=fut.bucket[1])[0][fetch]
+                            check(np.isfinite(answers[i]).all(),
+                                  "%s answer %d is not finite" % (name, i))
+                            diff = max(diff, float(np.abs(
+                                direct[key] - answers[i]).max()))
+                        check(diff <= BUCKET_TOL, "%s depth %d x%d: answers "
+                              "differ from run_direct by %r"
+                              % (name, depth, n, diff))
+                        lat_ms = [x * 1e3 for x in lat]
+                        report.setdefault(name, {})["depth%d_x%d" % (
+                            depth, n)] = {
+                            "p50_ms": float(np.percentile(lat_ms, 50)),
+                            "p99_ms": float(np.percentile(lat_ms, 99)),
+                            "items_per_s": n / wall, "batches": batches,
+                            "bucket_max_diff": diff}
+                    check(engine.drain(600), "%s: drain timed out" % name)
+                    stats = engine.pipeline_stats()
+                    dispatches = engine.metrics.snapshot()["batches_total"]
+                    if stats is not None:
+                        limit = time.monotonic() + 10
+                        while engine.pipeline_stats()["completed"] < \
+                                dispatches and time.monotonic() < limit:
+                            time.sleep(0.01)
+                        stats = engine.pipeline_stats()
+                        check(stats["completed"] == dispatches,
+                              "%s: the window completed %d of %d dispatches"
+                              % (name, stats["completed"], dispatches))
+                    report[name]["depth%d" % depth] = {
+                        "idle_s": stats and stats["idle_s"],
+                        "window": stats, "dispatches": dispatches}
+                finally:
+                    engine.close()
+    report["card"] = card
+    print("pipelined: " + json.dumps(report))
+    return paths, report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
@@ -5480,6 +6005,14 @@ def main(argv=None):
             trace_path=stem and stem + "_language_model_clip.json")
         paths.append(("language_model_clip_training", run))
         paths.append(("verbatim_scripts", run_verbatim_vs_cpu(torch)))
+        multistep = {}
+        for path, _ in MULTISTEP_PATHS:
+            run, multistep[path] = run_multistep(
+                torch, card, path, reduce_check=path == "language_model")
+            paths.append(("multistep_" + path, run))
+        run_capture_refusal(torch)
+        pipelined_paths, pipelined = run_pipelined_serving(torch, card)
+        paths += pipelined_paths
         print("clipping_summary: " + json.dumps({
             "fit_a_line": {k: v for k, v in clipping.items() if k != "card"},
             "language_model_clip": {k: lm_clip[k] for k in (

@@ -10,14 +10,18 @@ silently. Scopes nest as the JAX package's do (`new_scope`, parent
 lookup, `drop_kids`); `scope_guard` / `switch_scope` swap the global
 scope that runs and `fetch_var` read by default.
 """
+import collections
 import contextlib
+import os
 
 import numpy as np
 import torch
 
+from .dispatch import dispatch_with_deadline
 from .framework import convert_dtype, default_main_program, find_var
 from .lod import LoDTensor
-from .lowering import Env, LowerCtx, lower_block, unread_outputs
+from .lowering import (FETCH_REDUCE_POLICIES, Env, LowerCtx, analyze_state,
+                       lower_block, lower_multi_step, unread_outputs)
 from .registry import torch_dtype
 
 
@@ -170,6 +174,14 @@ class Scope(object):
         self._rng_counter += 1
         return self._rng_counter
 
+    def next_seed_block(self, k):
+        """Reserve k consecutive seeds, returning the first. A K-step run
+        draws seed..seed+K-1, one a step; the counter moves past all of
+        them, as K sequential runs would move it."""
+        first = self._rng_counter + 1
+        self._rng_counter += k
+        return first
+
 
 _global_scope = Scope()
 
@@ -213,6 +225,52 @@ def fetch_var(name, scope=None, return_numpy=True):
     return to_numpy(val) if return_numpy else val
 
 
+class DispatchTimeoutError(RuntimeError):
+    """Executor.run(timeout=) watchdog: a run did not complete within its
+    deadline. `cache_key` carries the run's cache key (program uid and
+    version, feed signature, fetch names, steps, fetch_reduce, AMP). The
+    abandoned worker never writes the scope: in watchdog mode it waits
+    for the device before the write-back and stops there once the
+    deadline has passed."""
+
+    def __init__(self, message, cache_key=None):
+        super(DispatchTimeoutError, self).__init__(message)
+        self.cache_key = cache_key
+
+
+def _feed_signature(feeds):
+    """(name, shape, dtype) of every converted feed tensor, by name."""
+    return tuple((n, tuple(feeds[n].shape), str(feeds[n].dtype))
+                 for n in sorted(feeds))
+
+
+def _jit_cache_capacity():
+    """Most multi-step runners an executor keeps (LRU beyond this); each
+    holds its buffers and its CUDA graph's memory pool. The JAX
+    package's PADDLE_TPU_JIT_CACHE_SIZE knob (0 = unbounded)."""
+    try:
+        return int(os.environ.get("PADDLE_TPU_JIT_CACHE_SIZE", "64"))
+    except ValueError:
+        return 64
+
+
+def _cache_put_lru(cache, key, entry, capacity):
+    """Insert into an OrderedDict LRU, evicting least-recently-used."""
+    cache[key] = entry
+    cache.move_to_end(key)
+    if capacity > 0:
+        while len(cache) > capacity:
+            cache.popitem(last=False)
+
+
+def _feed_to_device(t, device):
+    """A host feed tensor on `device` without a host sync: through pinned
+    memory as a non-blocking copy on the card."""
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 class Executor(object):
     """Runs Programs on one device. `place`: "cuda" (default), "cuda:N",
     "cpu", a torch.device or a Place (CPUPlace, CUDAPlace, TPUPlace)."""
@@ -222,39 +280,144 @@ class Executor(object):
         # (program uid, program version, fetch names) -> the global-block
         # outputs nothing reads in such a run (lowering.unread_outputs)
         self._unread = {}
+        # run cache key -> lowering.MultiStepRunner (steps > 1), LRU
+        self._cache = collections.OrderedDict()
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
-        """Run `program` once: feeds convert to their declared dtypes on
-        this executor's device (a LoDTensor feed expands as in
-        `convert_feeds`), parameters read from `scope`, every
-        persistable the program writes is stored back into `scope`.
-        Returns the fetches as numpy arrays, or as device tensors with
-        return_numpy=False (no host sync)."""
+            return_numpy=True, use_program_cache=True, steps=1,
+            fetch_reduce="stack", validate=None, timeout=None,
+            apply_tuned=False, prefetch=False):
+        """Run `program` once — or, with steps=K > 1, K times in one call.
+        Feeds convert to their declared dtypes on this executor's device
+        (a LoDTensor feed expands as in `convert_feeds`), parameters read
+        from `scope`, every persistable the program writes is stored back
+        into `scope`. Returns the fetches as numpy arrays, or as device
+        tensors with return_numpy=False (no host sync).
+
+        steps=1 runs the program op by op (core/lowering.lower_block).
+        steps=K > 1 runs a lowering.MultiStepRunner: on CUDA one step
+        captured into a CUDA graph and replayed K times with no host sync
+        between steps (a step that cannot be captured raises
+        GraphCaptureError naming its op; nothing runs eager instead), on
+        the CPU the same step K times eagerly. The K steps give the bits
+        of K sequential runs (step i draws seed s + i of
+        Scope.next_seed_block(K)); explicit feeds replay every step.
+        `fetch_reduce` picks what the K per-step fetch values collapse
+        to: 'stack' (default, leading-K axis), 'last', or 'mean' (in
+        f32). Runners are cached per (program uid and version, feed
+        signature, fetch names, K, fetch_reduce, AMP), at most
+        PADDLE_TPU_JIT_CACHE_SIZE of them (LRU);
+        use_program_cache=False builds a fresh one and keeps nothing.
+
+        timeout=SECONDS runs the call on a watchdog worker: it waits for
+        the device (an event recorded after the run), and a call past its
+        deadline raises DispatchTimeoutError carrying the cache key; the
+        abandoned worker never writes the scope.
+
+        prefetch=True overlaps a reader-fed program's host input work
+        with the device in the JAX package; the port has no in-graph
+        reader ops (ROADMAP A8), every program is feed-fed, and there the
+        flag changes nothing, as in the JAX package. validate=True and
+        apply_tuned=True (the static analyzer and the tuning store) come
+        with ROADMAP A11 and raise."""
+        if validate:
+            raise NotImplementedError(
+                "Executor.run(validate=True): the static program analyzer "
+                "comes with ROADMAP A11")
+        if apply_tuned:
+            raise NotImplementedError(
+                "Executor.run(apply_tuned=True): the tuning store comes "
+                "with ROADMAP A11")
+        args = (program, feed, fetch_list, scope, return_numpy,
+                use_program_cache, steps, fetch_reduce)
+        if timeout is None:
+            return self._run_impl(*args)
+        return dispatch_with_deadline(
+            lambda cancelled, info: self._run_impl(
+                *args, cancelled=cancelled, info=info),
+            timeout, "Executor.run dispatch")
+
+    def _run_impl(self, program, feed, fetch_list, scope, return_numpy,
+                  use_program_cache, steps, fetch_reduce, cancelled=None,
+                  info=None):
         if program is None:
             program = default_main_program()
         scope = scope if scope is not None else global_scope()
-        feed = feed or {}
+        steps = int(steps)
+        if steps < 1:
+            raise ValueError("steps must be >= 1, got %r" % (steps,))
+        if fetch_reduce not in FETCH_REDUCE_POLICIES:
+            raise ValueError("fetch_reduce must be one of %r, got %r"
+                             % (FETCH_REDUCE_POLICIES, fetch_reduce))
         fetch_names = [f if isinstance(f, str) else f.name
                        for f in (fetch_list or [])]
-        persistable = {v.name for v in program.list_vars() if v.persistable}
-        env = Env(scope, persistable, self.device)
-        for name, value in convert_feeds(program, feed).items():
+        feeds = {}
+        for name, value in convert_feeds(program, feed or {}).items():
             var = find_var(program, name)
-            env.write(name, to_tensor(
-                value, var.dtype if var is not None else None, self.device))
-        key = (program._uid, program._version, tuple(fetch_names))
-        if key not in self._unread:
-            self._unread[key] = unread_outputs(program, fetch_names)
-        ctx = LowerCtx(program, self.device, run_seed=scope.next_seed(),
-                       unread=self._unread[key])
-        with torch.no_grad():
-            lower_block(ctx, program.global_block(), env)
-        for op in program.global_block().ops:
-            for name in op.all_output_vars():
-                if name in persistable:
-                    scope.set(name, env.values[name])
-        fetches = [env.read(n) for n in fetch_names]
+            feeds[name] = to_tensor(value,
+                                    var.dtype if var is not None else None)
+        key = (program._uid, program._version, _feed_signature(feeds),
+               tuple(fetch_names), steps,
+               fetch_reduce if steps > 1 else None, bool(program._amp))
+        if info is not None:
+            info["cache_key"] = key
+        ukey = (program._uid, program._version, tuple(fetch_names))
+        if ukey not in self._unread:
+            self._unread[ukey] = unread_outputs(program, fetch_names)
+        if steps == 1:
+            fetches, new_state = self._run_step(
+                program, scope, feeds, fetch_names, self._unread[ukey])
+        else:
+            runner = self._runner(key, program, scope, feeds, fetch_names,
+                                  steps, fetch_reduce, self._unread[ukey],
+                                  use_program_cache)
+            fetches, new_state = runner(
+                scope, feeds, scope.next_seed_block(steps))
+        if cancelled is not None:
+            # watchdog mode: the deadline needs a completion signal, so
+            # the worker waits for the device before the scope write-back
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                done.synchronize()
+            if cancelled.is_set():
+                return None   # the caller raised: write nothing
+        for name, value in new_state.items():
+            scope.set(name, value)
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         return fetches
+
+    def _run_step(self, program, scope, feeds, fetch_names, unread):
+        """One op-by-op run: (fetches, {persistable written: value})."""
+        persistable = {v.name for v in program.list_vars() if v.persistable}
+        env = Env(scope, persistable, self.device)
+        for name, value in feeds.items():
+            env.write(name, _feed_to_device(value, self.device))
+        ctx = LowerCtx(program, self.device, run_seed=scope.next_seed(),
+                       unread=unread)
+        with torch.no_grad():
+            lower_block(ctx, program.global_block(), env)
+        new_state = {}
+        for op in program.global_block().ops:
+            for name in op.all_output_vars():
+                if name in persistable:
+                    new_state[name] = env.values[name]
+        return [env.read(n) for n in fetch_names], new_state
+
+    def _runner(self, key, program, scope, feeds, fetch_names, steps,
+                fetch_reduce, unread, use_program_cache):
+        """The cached MultiStepRunner of `key`, or a new one."""
+        runner = self._cache.get(key) if use_program_cache else None
+        if runner is not None and runner.fits(scope):
+            self._cache.move_to_end(key)
+            return runner
+        state_rw, state_ro, state_out = analyze_state(
+            program, list(feeds), fetch_names)
+        runner = lower_multi_step(
+            program, self.device, sorted(feeds), fetch_names, state_rw,
+            state_ro, state_out, steps, fetch_reduce=fetch_reduce,
+            unread=unread)
+        if use_program_cache:
+            _cache_put_lru(self._cache, key, runner, _jit_cache_capacity())
+        return runner

@@ -23,6 +23,9 @@ body through `lower_sub_block`, inside its own rule. The body's ops are
 part of that one op: they run under whatever grad mode the op runs in,
 keep no graphs of their own, and leave the run's `grad_of` table alone.
 """
+import time
+import weakref
+
 import torch
 
 from . import registry
@@ -89,6 +92,7 @@ class LowerCtx(object):
         # run until its grad_of
         self.grad_stop = {}
         self.saved = {}
+        self.op = None
 
     def begin_op(self, salt, outputs=None):
         self._op_salt = salt
@@ -115,19 +119,33 @@ class LowerCtx(object):
         are the port's own: they do not reproduce the JAX package's
         bits."""
         self._op_calls += 1
-        if seed:
-            base = int(seed)
-        else:
-            base = int(getattr(self.program, "random_seed", 0) or 0) \
-                * 1000003 + self.run_seed
-        mask = 0x7FFFFFFFFFFFFFFF
-        s = (base * 1000003 + self._op_salt * 97 + self._op_calls * 7
-             + salt) & mask
-        for it in self._loop_iters:
-            s = (s * 1000003 + it + 1) & mask
+        return self._generator((int(seed), self._op_salt, self._op_calls,
+                                salt, tuple(self._loop_iters)))
+
+    def _generator(self, spec):
+        """The generator of one rng call, `spec` its place in the run
+        (rng_seed's)."""
         g = torch.Generator(device=self.device)
-        g.manual_seed(s)
+        g.manual_seed(rng_seed(self.program, spec, self.run_seed))
         return g
+
+
+def rng_seed(program, spec, run_seed):
+    """The seed LowerCtx.rng gives the random op call `spec` = (user seed,
+    op uid, call index within the op, salt, enclosing loop iterations) in
+    the run drawing `run_seed`. A captured step (MultiStepRunner) reseeds
+    its generators with it before each replay."""
+    seed, op_salt, op_calls, salt, loop_iters = spec
+    if seed:
+        base = seed
+    else:
+        base = int(getattr(program, "random_seed", 0) or 0) * 1000003 \
+            + int(run_seed)
+    mask = 0x7FFFFFFFFFFFFFFF
+    s = (base * 1000003 + op_salt * 97 + op_calls * 7 + salt) & mask
+    for it in loop_iters:
+        s = (s * 1000003 + it + 1) & mask
+    return s
 
 
 class EnvReadError(KeyError):
@@ -214,8 +232,11 @@ def lower_sub_block(ctx, block, env):
 
 
 def lower_op(ctx, op, env):
+    # the innermost op running: after a raise it names the op at fault
+    outer, ctx.op = ctx.op, op
     try:
         _lower_op_inner(ctx, op, env)
+        ctx.op = outer
     except EnvReadError as e:
         raise RuntimeError("%s\n  [while running op %r (uid %d)]"
                            % (e.args[0], op.type, op.uid)) from e
@@ -335,3 +356,429 @@ def _lower_grad_of(ctx, op, env):
         if g is None:
             g = torch.zeros_like(leaves[(slot, i)])
         env.accumulate(fwd_inputs[slot][i] + GRAD_SUFFIX, g)
+
+
+# ---------------------------------------------------------------------------
+# Multi-step execution: Executor.run(steps=K)
+# ---------------------------------------------------------------------------
+
+# fetch-reduce policies for multi-step execution: how K per-step fetch
+# values collapse into the one value the caller sees per K-step call
+FETCH_REDUCE_POLICIES = ("last", "mean", "stack")
+
+
+def _mean_acc_dtype(dtype):
+    """Accumulation dtype for fetch_reduce='mean': float fetches accumulate
+    in (at least) f32 so K bf16 losses don't round to garbage; f64 stays
+    f64; bool/int fetches also go through f32 — their mean is a rate."""
+    if dtype.is_floating_point:
+        return torch.promote_types(dtype, torch.float32)
+    return torch.float32
+
+
+def _find_var(program, name):
+    for blk in program.blocks:
+        if name in blk.vars:
+            return blk.vars[name]
+    return None
+
+
+def analyze_state(program, feed_names, fetch_names=()):
+    """Decide which persistable vars are program state (static analysis).
+
+    Returns (state_rw, state_ro, state_out):
+      state_rw — read from the Scope AND overwritten
+      state_ro — read from the Scope, never written
+      state_out — all persistables written (order of the new state)
+
+    `fetch_names` count as reads: fetching a persistable var no op
+    produces (the evaluator.eval pattern — an empty program fetching
+    state) reads it straight from the Scope."""
+    feed = set(feed_names)
+    written = set()
+    state_in = []
+    state_out = []
+    seen_in = set()
+    seen_out = set()
+
+    def visit_read(name):
+        if name in feed or name in written or name in seen_in:
+            return
+        v = _find_var(program, name)
+        if v is not None and v.persistable:
+            seen_in.add(name)
+            state_in.append(name)
+
+    for blk in program.blocks:
+        for op in blk.ops:
+            for name in op.all_input_vars():
+                visit_read(name)
+            for name in op.all_output_vars():
+                if not name:
+                    continue
+                written.add(name)
+                v = _find_var(program, name)
+                if v is not None and v.persistable and name not in seen_out:
+                    seen_out.add(name)
+                    state_out.append(name)
+    # fetches of persistable vars NO op writes read straight from the
+    # Scope; after the op walk, so fetching a var this program produces
+    # stays a plain fetch
+    for name in fetch_names:
+        visit_read(name)
+    state_rw = [n for n in state_in if n in seen_out]
+    state_ro = [n for n in state_in if n not in seen_out]
+    return state_rw, state_ro, state_out
+
+
+class GraphCaptureError(RuntimeError):
+    """A training step that cannot run inside a CUDA graph (a host sync,
+    or a tensor made from host values inside the step): Executor.run(
+    steps=K) raises this naming the op; it never runs eager instead."""
+
+
+class _StepCtx(LowerCtx):
+    """The LowerCtx of a captured step. Each random op call records its
+    place in the step (`specs`); with `gens` given (the capture, and
+    every step of the CPU's plain version) the call gets the next of
+    those generators, which the runner reseeds before each step with the
+    seed an eager run would draw."""
+
+    def __init__(self, program, device, run_seed, unread, gens=None):
+        super(_StepCtx, self).__init__(program, device, run_seed=run_seed,
+                                       unread=unread)
+        self.gens = gens
+        self.specs = []
+
+    def _generator(self, spec):
+        self.specs.append(spec)
+        if self.gens is None:
+            return super(_StepCtx, self)._generator(spec)
+        if len(self.specs) > len(self.gens):
+            raise GraphCaptureError(
+                "the step drew more random streams than its warm-up run "
+                "did (%d): its random ops depend on something other than "
+                "the program and the feed shapes" % len(self.gens))
+        return self.gens[len(self.specs) - 1]
+
+
+def _storage_ptr(t):
+    return t.untyped_storage().data_ptr()
+
+
+def _copy_into(buf, value):
+    """buf <- value without a host sync: a CPU value bound for the card
+    goes through pinned memory as a non-blocking copy."""
+    if value.device == buf.device:
+        buf.copy_(value)
+    elif buf.device.type == "cuda":
+        buf.copy_(value.pin_memory(), non_blocking=True)
+    else:
+        buf.copy_(value)
+
+
+class MultiStepRunner(object):
+    """One training step over static buffers, run K times per call.
+
+    Buffers: one per feed, one per persistable the step reads (state_rw
+    and state_ro) and one per persistable it writes that it does not read.
+    The step reads them and ends by copying its new state into them, so
+    step i + 1 starts where step i ended.
+
+    On CUDA the first call warms the step up on a side stream (under
+    `torch.cuda.set_sync_debug_mode("error")`: a step that syncs with the
+    host cannot be captured, and raises GraphCaptureError naming its op),
+    then captures ONE step into a torch.cuda.CUDAGraph whose random ops
+    draw from generators made before the capture and registered with the
+    graph. Each call then replays it K times with no host sync between
+    replays, reseeding the generators before each replay with the seeds K
+    sequential runs would draw, and collects each replay's fetches on the
+    device. On the CPU (the plain version) each of the K steps runs the
+    same step eagerly over the same buffers and generators.
+
+    A call copies into the buffers only the scope values that changed
+    since the runner last saw them (any scope.set between calls is
+    seen), and hands the scope fresh copies of the new state: nothing a
+    caller or the scope holds changes under a later replay."""
+
+    def __init__(self, program, device, feed_names, fetch_names, state_rw,
+                 state_ro, state_out, steps, fetch_reduce="stack",
+                 unread=frozenset()):
+        self.program = program
+        self.device = torch.device(device)
+        self.feed_names = list(feed_names)
+        self.fetch_names = list(fetch_names)
+        self.in_names = list(state_rw) + list(state_ro)
+        # the state the eager run writes back: global-block outputs
+        glob = {n for op in program.global_block().ops
+                for n in op.all_output_vars() if n}
+        self.out_names = [n for n in state_out if n in glob]
+        self.steps = int(steps)
+        self.fetch_reduce = fetch_reduce
+        self.unread = unread
+        self.cuda = self.device.type == "cuda"
+        self._built = False    # set once a build has run to its end
+        self._feed_bufs = None
+        self._bufs = {}        # persistable name -> static buffer
+        self._handed = {}      # name -> (weakref, _version) last seen
+        self._specs = None     # one spec per random op call of a step
+        self._gens = None
+        self._graph = None
+        self._fetch_out = None
+        self.launches = {}     # the port's kernels one step launches
+        self.warmup_s = self.capture_s = None
+        self.pool_bytes = None
+
+    # ---------------------------------------------------------- buffers --
+    def fits(self, scope):
+        """Whether the buffers still fit the scope's state (a state
+        re-created at another shape or dtype needs a new runner; the
+        feeds' shapes are in the cache key)."""
+        if not self._built:
+            return True
+        for n, buf in self._bufs.items():
+            cur = scope.get(n) if n in self.in_names else buf
+            if cur is None or cur.shape != buf.shape or \
+                    cur.dtype != buf.dtype:
+                return False
+        return True
+
+    def _read_scope(self, scope):
+        vals = {}
+        for n in self.in_names:
+            v = scope.get(n)
+            if v is None:
+                raise RuntimeError(
+                    "persistable variable %r is not initialized in the "
+                    "scope; run the startup program first" % n)
+            vals[n] = v
+        return vals
+
+    def _sync_in(self, scope, feeds):
+        """Copy the feeds, and the scope values changed since the last
+        call, into the buffers (no host sync)."""
+        for n in self.feed_names:
+            _copy_into(self._feed_bufs[n], feeds[n])
+        for n, cur in self._read_scope(scope).items():
+            seen = self._handed.get(n)
+            if seen is not None and seen[0]() is cur and \
+                    seen[1] == cur._version:
+                continue
+            _copy_into(self._bufs[n], cur)
+            self._handed[n] = (weakref.ref(cur), cur._version)
+
+    def _alloc(self, scope, feeds):
+        self._bufs, self._handed = {}, {}
+        self._feed_bufs = {n: torch.empty(feeds[n].shape,
+                                          dtype=feeds[n].dtype,
+                                          device=self.device)
+                           for n in self.feed_names}
+        for n, cur in self._read_scope(scope).items():
+            self._bufs[n] = torch.empty_like(cur, device=self.device)
+
+    # ------------------------------------------------------------- step --
+    def _ctx(self, run_seed, gens=None):
+        return _StepCtx(self.program, self.device, run_seed, self.unread,
+                        gens)
+
+    def _step(self, ctx, copy_back):
+        """One step over the buffers under `ctx`: returns (fetches, new
+        state)."""
+        env = Env(None, (), self.device)
+        env.values.update(self._feed_bufs)
+        env.values.update((n, self._bufs[n]) for n in self.in_names)
+        with torch.no_grad():
+            lower_block(ctx, self.program.global_block(), env)
+        fetches = [env.read(n) for n in self.fetch_names]
+        new = {n: env.values[n] for n in self.out_names if n in env.values}
+        if copy_back:
+            self._copy_back(new)
+        return fetches, new
+
+    def _copy_back(self, new):
+        """New state -> its buffers. A new value that shares storage with
+        another buffer (an assign between two persistables) is cloned
+        first, so no copy reads a buffer an earlier copy overwrote."""
+        ptrs = {_storage_ptr(b) for b in self._bufs.values()}
+        ptrs.update(_storage_ptr(b) for b in self._feed_bufs.values())
+        vals = []
+        for n, v in new.items():
+            buf = self._bufs[n]
+            if v is buf:
+                continue
+            if _storage_ptr(v) in ptrs:
+                v = v.clone()
+            vals.append((buf, v))
+        for buf, v in vals:
+            buf.copy_(v)
+
+    def _reseed(self, run_seed):
+        for spec, g in zip(self._specs, self._gens):
+            g.manual_seed(rng_seed(self.program, spec, run_seed))
+
+    def _build(self, scope, feeds, run_seed):
+        """Allocate the buffers and warm the step up (on CUDA: capture
+        it). Runs no step that the caller sees."""
+        self._alloc(scope, feeds)
+        self._sync_in(scope, feeds)
+        if not self.cuda:
+            ctx = self._ctx(run_seed)
+            self._write_only_bufs(self._step(ctx, copy_back=False)[1])
+            self._specs = ctx.specs
+            self._gens = [torch.Generator(device=self.device)
+                          for _ in self._specs]
+            self._built = True
+            return
+        from ..ops import cuda_kernels as ck
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        mode = torch.cuda.get_sync_debug_mode()
+        ctx = None
+        try:
+            with torch.cuda.stream(side):
+                torch.cuda.set_sync_debug_mode("error")
+                ctx = self._ctx(run_seed)
+                self._write_only_bufs(self._step(ctx, copy_back=False)[1])
+        except Exception as e:
+            raise self._capture_error(ctx, e, "its warm-up run") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self._specs = ctx.specs
+        self._gens = [torch.Generator(device=self.device)
+                      for _ in self._specs]
+        self.warmup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        if self._gens and not hasattr(graph, "register_generator_state"):
+            raise GraphCaptureError(
+                "this PyTorch (%s) has no CUDAGraph.register_generator_state"
+                ": a step with random ops cannot be captured"
+                % torch.__version__)
+        for g in self._gens:
+            graph.register_generator_state(g)
+        self._reseed(run_seed)
+        before = ck.launch_counts()
+        # the capture empties the cache first (torch.cuda.graph): do it
+        # here, so the reserved bytes' rise is the graph's pool
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        ctx, failure = None, []
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                try:
+                    ctx = self._ctx(run_seed, self._gens)
+                    fetches = self._step(ctx, copy_back=True)[0]
+                except Exception as e:
+                    failure.append(e)
+                    raise
+        except Exception as e:
+            cause = failure[0] if failure else e
+            raise self._capture_error(ctx, cause, "its capture") from cause
+        finally:
+            self.launches = ck.take_launches(before)
+        if len(ctx.specs) != len(self._gens):
+            raise GraphCaptureError(
+                "the captured step drew %d random streams, its warm-up run "
+                "%d" % (len(ctx.specs), len(self._gens)))
+        self._graph = graph
+        self._fetch_out = fetches
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self._built = True
+
+    def _capture_error(self, ctx, cause, phase):
+        op = getattr(ctx, "op", None)
+        where = ("op %r (uid %d)" % (op.type, op.uid) if op is not None
+                 else "the step")
+        return GraphCaptureError(
+            "Executor.run(steps=%d) captures one step of the program into "
+            "a CUDA graph, and %s failed in %s: %s. A step that syncs with "
+            "the host or builds tensors from host values cannot be "
+            "captured; run it with steps=1"
+            % (self.steps, where, phase, cause))
+
+    def _write_only_bufs(self, new):
+        for n in self.out_names:
+            if n not in self._bufs:
+                if n not in new:
+                    raise RuntimeError(
+                        "persistable %r is written by the program but "
+                        "its step left no value" % n)
+                self._bufs[n] = torch.empty_like(new[n])
+
+    # ------------------------------------------------------------- call --
+    def __call__(self, scope, feeds, seed):
+        """Run K steps from the scope's state, step i drawing seed
+        `seed + i`. Returns (fetches reduced per fetch_reduce, {name: new
+        state tensor}); writes nothing into the scope."""
+        if not self._built:
+            self._build(scope, feeds, seed)
+        else:
+            self._sync_in(scope, feeds)
+        out = None
+        for i in range(self.steps):
+            self._reseed(seed + i)
+            if self.cuda:
+                self._graph.replay()
+                fetches = self._fetch_out
+            else:
+                fetches = self._step(self._ctx(seed + i, self._gens),
+                                     copy_back=True)[0]
+            out = self._collect(i, fetches, out)
+        if self.launches:
+            from ..ops import cuda_kernels as ck
+            ck.add_launches(self.launches, self.steps)
+        if self.fetch_reduce == "mean":
+            out = [a / self.steps for a in out]
+        new_state = {}
+        for n in self.out_names:
+            t = self._bufs[n].clone()
+            new_state[n] = t
+            self._handed[n] = (weakref.ref(t), t._version)
+        return out, new_state
+
+    def _collect(self, i, fetches, out):
+        if self.fetch_reduce == "stack":
+            if out is None:
+                out = [torch.empty((self.steps,) + tuple(f.shape),
+                                   dtype=f.dtype, device=f.device)
+                       for f in fetches]
+            for acc, f in zip(out, fetches):
+                acc[i].copy_(f)
+        elif self.fetch_reduce == "mean":
+            if out is None:
+                out = [torch.zeros(f.shape, dtype=_mean_acc_dtype(f.dtype),
+                                   device=f.device) for f in fetches]
+            for acc, f in zip(out, fetches):
+                acc.add_(f.to(acc.dtype))
+        elif i == self.steps - 1:
+            out = [f.clone() for f in fetches]
+        return out
+
+
+def lower_multi_step(program, device, feed_names, fetch_names, state_rw,
+                     state_ro, state_out, steps, fetch_reduce="stack",
+                     unread=frozenset()):
+    """The K-step runner of `program` (the JAX package's lower_multi_step,
+    whose lax.scan runs the step K times in one dispatch).
+
+    Contract (tests/test_torch_multi_step.py):
+      * a K-step call gives the same bits as K sequential Executor.run
+        calls — step i runs with seed + i, the seeds Scope.next_seed would
+        have issued, so dropout masks line up;
+      * feeds replay identically every step;
+      * fetches collapse per `fetch_reduce`: 'last' (step K-1's value),
+        'mean' (accumulated in f32, then divided by K), 'stack' (a
+        leading-K stack).
+    See MultiStepRunner for how the step runs on CUDA and on the CPU."""
+    if steps < 1:
+        raise ValueError("steps must be >= 1, got %r" % (steps,))
+    if fetch_reduce not in FETCH_REDUCE_POLICIES:
+        raise ValueError("fetch_reduce must be one of %r, got %r"
+                         % (FETCH_REDUCE_POLICIES, fetch_reduce))
+    return MultiStepRunner(program, device, feed_names, fetch_names,
+                           state_rw, state_ro, state_out, steps,
+                           fetch_reduce=fetch_reduce, unread=unread)

@@ -17,7 +17,9 @@ Beside each kernel:
     CPU runs, and what the card's kernel is held against;
   * a launch count per kernel (`launch_counts()`, keyed by
     `KERNEL_NAMES`), raised by one exactly where the kernel is launched,
-    so a run can show the main path went through it. The flash wrappers
+    so a run can show the main path went through it (a CUDA graph's
+    capture takes its counts back out and each replay adds them again:
+    `take_launches`, `add_launches`). The flash wrappers
     (K1-K3) launch an fp32 or a bf16 kernel (in bf16 the wgmma kernels
     of flash_attention_fwd_bf16.cu, flash_attention_bwd_dkdv_bf16.cu and
     flash_attention_bwd_dq_bf16.cu), each counted under its own name (the
@@ -56,7 +58,8 @@ __all__ = ["build", "flash_attention_fwd", "flash_attention_fwd_plain",
            "masked_pool_plain", "pool_launch_plan", "flash_grid",
            "FlashAttention", "LayerNorm", "SoftmaxXent", "FusedLSTM",
            "FusedLSTMP", "MaskedSoftmax", "MaskedPool", "launch_counts",
-           "reset_launch_counts", "KERNEL_NAMES", "FLASH_HEAD_DIMS",
+           "reset_launch_counts", "take_launches", "add_launches",
+           "KERNEL_NAMES", "FLASH_HEAD_DIMS",
            "FLASH_DTYPES", "POOL_TYPES"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -281,6 +284,28 @@ def reset_launch_counts():
     with _count_lock:
         for name in _launches:
             _launches[name] = 0
+
+
+def take_launches(before):
+    """The counts added since `before` (a launch_counts() snapshot), taken
+    back out: a CUDA graph capture records its kernels and launches none.
+    Returns {name: n} of the kernels one replay of the graph launches."""
+    with _count_lock:
+        took = {}
+        for name, n in _launches.items():
+            if n != before.get(name, 0):
+                took[name] = n - before.get(name, 0)
+                _launches[name] = before.get(name, 0)
+        return took
+
+
+def add_launches(counts, times=1):
+    """Count `times` launches of each kernel in `counts` ({name: n}, as
+    take_launches returns): `times` replays of a captured graph. The
+    counts live on the host and do not move when a graph replays."""
+    with _count_lock:
+        for name, n in counts.items():
+            _launches[name] += n * times
 
 
 def _stream_of(t):

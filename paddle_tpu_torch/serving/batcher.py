@@ -1,20 +1,28 @@
 """Micro-batching: a bounded queue and one worker that coalesces requests.
 
-Parity: the JAX package's serving/batcher.py `Batcher` with
-`pipeline_depth=0` — the serial loop: form a batch -> pad -> dispatch ->
-scatter, on one thread. Requests enter via `submit()` (any thread) and wait
-at most `max_queue_delay_ms` — or until `max_batch_size` rows are pending
-— before the worker pops a contiguous batch. Pipelined dispatch
-(`pipeline_depth > 0`) needs an in-flight window over CUDA events and
-comes with a later slice of the port.
+Parity: the JAX package's serving/batcher.py `Batcher`. Requests enter
+via `submit()` (any thread) and wait at most `max_queue_delay_ms` — or
+until `max_batch_size` rows are pending — before a worker pops a
+contiguous batch.
+
+  * pipeline_depth >= 1 (the engine's default is 2): continuous batching.
+    A formation worker owns the request queue and a dispatch worker owns
+    the device, joined by a short formed-batch queue; up to
+    `pipeline_depth` dispatches stay outstanding on the device, tracked by
+    a core/dispatch.InflightWindow whose completion thread waits on a CUDA
+    event behind each dispatch and recycles its slot — off the dispatch
+    path, which makes no host sync.
+  * pipeline_depth=0: the serial loop — form -> pad -> dispatch ->
+    scatter on one thread.
 
 Robustness contract:
   * bounded queue — `submit()` on a full queue raises `QueueFullError`
     immediately,
   * per-request deadlines — expired requests never reach the device,
   * graceful shutdown — `close(drain=True)` stops intake, drains every
-    queued request, then joins the worker; `close(drain=False)` fails
-    queued requests immediately.
+    queued and formed request, then joins the workers; `close(drain=False)`
+    fails queued and formed requests immediately, and a dispatch worker
+    parked on a full window gives up its batch rather than wedge.
 """
 import collections
 import threading
@@ -48,28 +56,53 @@ class RequestTooLargeError(ServingError):
 
 class RequestFuture(object):
     """Completion handle for one submitted request: `result(timeout)`
-    blocks until the worker scatters the batch output (an
-    `engine.ResultSlice`) or fails the request."""
+    blocks until a worker scatters the batch output (an
+    `engine.ResultSlice`, still on the device: `numpy()` copies this
+    request's rows) or fails the request."""
 
-    __slots__ = ("_event", "_value", "_error", "latency_s", "bucket")
+    __slots__ = ("_event", "_value", "_error", "_callbacks", "_cb_lock",
+                 "latency_s", "bucket")
 
     def __init__(self):
         self._event = threading.Event()
         self._value = None
         self._error = None
+        self._callbacks = []
+        self._cb_lock = threading.Lock()
         self.latency_s = None   # submit -> scatter, set by the worker
         self.bucket = None      # (batch_bucket, seq_bucket|None) dispatched
 
     def done(self):
         return self._event.is_set()
 
+    def add_done_callback(self, fn):
+        """Run fn(self) once the future completes — at once (on the
+        calling thread) if it already has, else on the completing thread
+        (a batcher worker). Callbacks must be cheap and must not block:
+        they run inside the dispatch loop."""
+        with self._cb_lock:
+            if not self._event.is_set():
+                self._callbacks.append(fn)
+                return
+        fn(self)
+
+    def _fire_callbacks(self):
+        self._event.set()
+        with self._cb_lock:
+            cbs, self._callbacks = self._callbacks, []
+        for fn in cbs:
+            try:
+                fn(self)
+            except Exception:  # noqa: BLE001 — an observer must never
+                pass           # fail the dispatch loop that notified it
+
     def set_result(self, value):
         self._value = value
-        self._event.set()
+        self._fire_callbacks()
 
     def set_exception(self, exc):
         self._error = exc
-        self._event.set()
+        self._fire_callbacks()
 
     def result(self, timeout=None):
         if not self._event.wait(timeout):
@@ -94,27 +127,32 @@ class _Request(object):
         self.enqueued_at = time.monotonic()
 
 
+def _fail_closed(reqs):
+    for req in reqs:
+        if not req.future.done():
+            req.future.set_exception(ServingClosedError(
+                "serving engine shut down before dispatch"))
+
+
 class Batcher(object):
-    """The coalescing loop. `dispatch_fn(requests)` (the engine) pads the
-    requests into one bucket, runs the program once and scatters
-    per-request results into `req.future`; the batcher decides WHAT rides
-    in a batch and WHEN it leaves."""
+    """The coalescing pipeline. `dispatch_fn(requests)` (the engine) pads
+    the requests into one bucket, runs the program once, scatters
+    per-request results into `req.future` and returns the batch's fetch
+    tensors; the batcher decides WHAT rides in a batch, WHEN it leaves
+    and HOW MANY batches may be in flight on the device at once."""
 
     def __init__(self, dispatch_fn, max_batch_size=32, max_queue_delay_ms=5,
                  queue_capacity=256, metrics=None, name="batcher",
-                 pipeline_depth=0):
+                 pipeline_depth=2):
         if max_batch_size < 1:
             raise ValueError("max_batch_size must be >= 1")
-        if pipeline_depth != 0:
-            raise NotImplementedError(
-                "pipeline_depth=%r: pipelined dispatch (an in-flight window "
-                "over CUDA events) comes with a later slice of the port; "
-                "use pipeline_depth=0" % (pipeline_depth,))
+        if pipeline_depth < 0:
+            raise ValueError("pipeline_depth must be >= 0")
         self._dispatch = dispatch_fn
         self.max_batch_size = int(max_batch_size)
         self.max_queue_delay_s = float(max_queue_delay_ms) / 1e3
         self.queue_capacity = int(queue_capacity)
-        self.pipeline_depth = 0
+        self.pipeline_depth = int(pipeline_depth)
         self._metrics = metrics
         self._queue = collections.deque()
         self._pending_rows = 0   # running sum over _queue
@@ -125,11 +163,27 @@ class Batcher(object):
         self._draining = False
         self._drainers = 0       # live drain() calls: skip the window
         self._dispatching = False
-        self._worker = threading.Thread(target=self._loop, daemon=True,
-                                        name="ptt-" + name)
+        self._formed = collections.deque()  # formed, awaiting dispatch
+        self._formed_cap = max(1, self.pipeline_depth)
+        self._form_busy = False  # formation holds a popped batch
+        self._form_done = False  # formation worker exited
+        self._window = None
+        if self.pipeline_depth >= 1:
+            from ..core.dispatch import InflightWindow
+            self._window = InflightWindow(self.pipeline_depth,
+                                          tag="serving/%s" % name)
+            self._workers = [
+                threading.Thread(target=self._form_loop, daemon=True,
+                                 name="ptt-%s-form" % name),
+                threading.Thread(target=self._dispatch_loop, daemon=True,
+                                 name="ptt-%s-dispatch" % name)]
+        else:
+            self._workers = [threading.Thread(
+                target=self._loop, daemon=True, name="ptt-" + name)]
         if metrics is not None:
             metrics.bind_queue_depth(lambda: len(self._queue))
-        self._worker.start()
+        for w in self._workers:
+            w.start()
 
     # ---------------------------------------------------------- intake --
     def submit(self, feed, rows, deadline_ms=None):
@@ -158,6 +212,8 @@ class Batcher(object):
             self._pending_rows += req.rows
             if req.deadline is not None:
                 self._deadlined += 1
+            # the formation worker, the dispatch worker and any drainers
+            # share this condition
             self._cond.notify_all()
         if self._metrics is not None:
             self._metrics.on_submit()
@@ -165,6 +221,15 @@ class Batcher(object):
 
     def queue_depth(self):
         return len(self._queue)
+
+    def pipeline_stats(self):
+        """The in-flight window's stats ({"depth", "completed", "idle_s",
+        "gaps"}), or None in serial mode."""
+        if self._window is None:
+            return None
+        stats = self._window.stats()
+        stats["depth"] = self._window.depth
+        return stats
 
     # ---------------------------------------------------------- worker --
     def _collect_batch(self):
@@ -204,8 +269,11 @@ class Batcher(object):
                 batch.append(self._pop_head())
                 rows += req.rows
             # busy while STILL holding the lock, so a drain() cannot
-            # declare victory with a popped batch mid-flight
-            self._dispatching = bool(batch)
+            # declare victory with a popped batch between the queues
+            if self._window is not None:
+                self._form_busy = bool(batch)
+            else:
+                self._dispatching = bool(batch)
             return batch, expired
 
     def _pop_head(self):
@@ -226,16 +294,42 @@ class Batcher(object):
             self._metrics.on_deadline_expired(len(expired))
 
     def _run_batch(self, batch):
+        """Dispatch one formed batch: deadline re-check (a formed batch
+        may have waited behind a full window), window slot, dispatch,
+        completion tracking."""
+        now = time.monotonic()
+        live = [r for r in batch
+                if r.deadline is None or r.deadline >= now]
+        if len(live) != len(batch):
+            self._fail_expired([r for r in batch if r not in live])
+        if not live:
+            return
+        window = self._window
+        if window is not None:
+            # park until the device finishes a batch; poll, so a hard
+            # close cannot wedge this worker behind a slot that never frees
+            while not window.acquire(timeout=0.1):
+                with self._cond:
+                    if self._closed and not self._draining:
+                        _fail_closed(live)
+                        return
+        enq_t = time.monotonic()
         try:
-            self._dispatch(batch)
+            handles = self._dispatch(live)
         except Exception as e:  # noqa: BLE001 — fail the batch, not the
-            for req in batch:   # worker: serving outlives one bad batch
+            if window is not None:   # worker: serving outlives one bad
+                window.release()     # batch
+            for req in live:
                 if not req.future.done():
                     req.future.set_exception(e)
             if self._metrics is not None:
-                self._metrics.on_error(len(batch))
+                self._metrics.on_error(len(live))
+        else:
+            if window is not None:
+                window.track(handles or (), enq_t)
 
     def _loop(self):
+        """Serial mode (pipeline_depth=0): form -> dispatch, one thread."""
         while True:
             batch, expired = self._collect_batch()
             if batch is None:
@@ -253,10 +347,58 @@ class Batcher(object):
                     self._dispatching = False
                     self._cond.notify_all()   # wake drain() waiters
 
+    def _form_loop(self):
+        """Pipelined formation: owns the request queue and hands formed
+        batches to the dispatch worker through the bounded formed queue;
+        while one batch dispatches, the next one forms here."""
+        while True:
+            batch, expired = self._collect_batch()
+            if batch is None:
+                break
+            self._fail_expired(expired)
+            if not batch:
+                if expired:
+                    with self._cond:
+                        self._cond.notify_all()
+                continue
+            with self._cond:
+                while len(self._formed) >= self._formed_cap \
+                        and not self._closed:
+                    self._cond.wait()
+                self._form_busy = False
+                self._cond.notify_all()
+                if self._closed and not self._draining:
+                    _fail_closed(batch)   # a hard close caught it formed
+                    continue
+                self._formed.append(batch)
+        with self._cond:
+            self._form_done = True
+            self._cond.notify_all()
+
+    def _dispatch_loop(self):
+        """Pipelined dispatch: enqueues formed batches behind the
+        in-flight window; exits once formation has exited and the formed
+        queue is empty."""
+        while True:
+            with self._cond:
+                while not self._formed and not self._form_done:
+                    self._cond.wait()
+                if not self._formed:
+                    return
+                batch = self._formed.popleft()
+                self._dispatching = True
+                self._cond.notify_all()  # formation may wait on space
+            try:
+                self._run_batch(batch)
+            finally:
+                with self._cond:
+                    self._dispatching = False
+                    self._cond.notify_all()   # wake drain() waiters
+
     # ----------------------------------------------------------- drain --
     def drain(self, timeout=None):
-        """Block until everything queued or mid-dispatch has been
-        scattered. Intake stays open; while a drain waits the worker skips
+        """Block until everything queued, formed or mid-dispatch has been
+        scattered. Intake stays open; while a drain waits the workers skip
         the coalescing window. Returns True when drained, False on
         timeout."""
         deadline = (time.monotonic() + timeout) if timeout is not None \
@@ -265,8 +407,10 @@ class Batcher(object):
             self._drainers += 1
             self._cond.notify_all()
             try:
-                while self._queue or self._dispatching:
-                    if not self._worker.is_alive() and not self._queue:
+                while self._queue or self._formed or self._form_busy \
+                        or self._dispatching:
+                    if not any(w.is_alive() for w in self._workers) \
+                            and not self._queue and not self._formed:
                         return True
                     remaining = None
                     if deadline is not None:
@@ -280,9 +424,10 @@ class Batcher(object):
 
     # -------------------------------------------------------- shutdown --
     def close(self, drain=True, timeout=None):
-        """Stop intake; with drain=True the worker finishes every queued
-        request first, otherwise pending requests fail with
-        ServingClosedError."""
+        """Stop intake; with drain=True the workers finish every queued
+        request first, otherwise queued and formed requests fail with
+        ServingClosedError. The window closes after the workers, once
+        every tracked dispatch has completed."""
         with self._cond:
             already = self._closed
             self._closed = True
@@ -290,12 +435,15 @@ class Batcher(object):
                 self._draining = True
             if not drain and not already:
                 while self._queue:
-                    self._pop_head().future.set_exception(
-                        ServingClosedError("serving engine shut down "
-                                           "before dispatch"))
+                    _fail_closed([self._pop_head()])
+                while self._formed:
+                    _fail_closed(self._formed.popleft())
             self._cond.notify_all()
         if already:
             return
         if drain:
             self.drain(timeout)
-        self._worker.join(timeout)
+        for w in self._workers:
+            w.join(timeout)
+        if self._window is not None:
+            self._window.close(timeout)

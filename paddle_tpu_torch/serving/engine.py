@@ -12,9 +12,14 @@ strangers: at one shape, each row's result depends only on that row (on
 the card, cuBLAS picks its algorithm by shape, which is why the comparison
 holds only at the same bucket).
 
+Dispatch is pipelined by default (the Batcher's continuous batching at
+`pipeline_depth` 2): a dispatch enqueues its run on the device and
+returns the batch's fetch tensors without a host sync; a client's
+`ResultSlice.numpy()` is where its rows come to the host.
+
 Waiting for later slices: the decode engine, tensor parallelism,
-quantized weights, tuned configs, the analysis/deployment tier, tracing,
-the era-wire model format and pipelined dispatch.
+quantized weights, tuned configs, the analysis/deployment tier, tracing
+and the era-wire model format.
 """
 import os
 import threading
@@ -121,15 +126,17 @@ class InferenceEngine(object):
     batch_buckets / max_batch_size: the batch lattice (default powers of
     two up to max_batch_size=32). seq_buckets: the padded lengths a
     sequence model's dispatches run at (default [16, 32, 64, 128, 256]
-    when the model has a sequence feed, else none). pipeline_depth must be
-    0 (the serial batcher) in this slice."""
+    when the model has a sequence feed, else none). pipeline_depth: how
+    many dispatches may be outstanding on the device while the next batch
+    forms (None: FLAGS_serving_pipeline_depth, else 2; 0 is the serial
+    batcher)."""
 
     def __init__(self, model_dir, device=None, name=None,
                  model_filename=None, batch_buckets=None,
                  max_batch_size=None, seq_buckets=None,
                  max_queue_delay_ms=5.0, queue_capacity=256,
                  default_deadline_ms=None, warmup=True,
-                 latency_window=2048, pipeline_depth=0):
+                 latency_window=2048, pipeline_depth=None):
         self.device = resolve_device(device)
         self.name = name or os.path.basename(os.path.normpath(model_dir))
         self._scope = Scope()
@@ -192,6 +199,14 @@ class InferenceEngine(object):
                             if seq_buckets else
                             ([16, 32, 64, 128, 256] if self._seq_feeds
                              else []))
+
+        # an explicit argument wins over FLAGS_serving_pipeline_depth
+        if pipeline_depth is None:
+            try:
+                pipeline_depth = int(os.environ.get(
+                    "FLAGS_serving_pipeline_depth", "2"))
+            except ValueError:
+                pipeline_depth = 2
 
         self.metrics = ServingMetrics(latency_window=latency_window)
         self._batcher = Batcher(
@@ -359,21 +374,25 @@ class InferenceEngine(object):
     def _dispatch(self, requests):
         """Batcher callback. Requests group by concrete-shape signature;
         each group pads into one bucket dispatch, and a group that fails
-        fails only ITS requests."""
+        fails only ITS requests. Returns every group's fetch tensors (for
+        the in-flight window's completion event)."""
         groups = {}
         for req in requests:
             groups.setdefault(req.feed.shape_sig, []).append(req)
+        handles = []
         for reqs in groups.values():
             try:
-                self._dispatch_group(reqs)
+                handles.extend(self._dispatch_group(reqs))
             except Exception as e:  # noqa: BLE001 — isolate the group
                 for r in reqs:
                     if not r.future.done():
                         r.future.set_exception(e)
                 self.metrics.on_error(len(reqs))
+        return handles
 
     def _dispatch_group(self, requests):
-        """Pad one shape-compatible group -> one run -> scatter."""
+        """Pad one shape-compatible group -> one run -> scatter; returns
+        the run's fetch tensors."""
         normalized = [req.feed for req in requests]
         rows = sum(r.rows for r in normalized)
         bucket = self._pick_buckets(
@@ -391,6 +410,7 @@ class InferenceEngine(object):
                 offset, offset + norm.rows, batch_bucket, bucket))
             offset += norm.rows
         self.metrics.on_batch(len(requests), rows, batch_bucket, latencies)
+        return handles
 
     # ---------------------------------------------------------- public --
     def submit(self, feed, deadline_ms=None):
@@ -468,11 +488,16 @@ class InferenceEngine(object):
     def queue_depth(self):
         return self._batcher.queue_depth()
 
+    def pipeline_stats(self):
+        """The batcher's in-flight window stats, or None in serial
+        mode."""
+        return self._batcher.pipeline_stats()
+
     def drain(self, timeout=None):
         return self._batcher.drain(timeout)
 
     def close(self, drain=True, timeout=None):
         """Graceful shutdown: stop intake, drain queued requests, join the
-        worker."""
+        workers."""
         self.closed = True
         self._batcher.close(drain=drain, timeout=timeout)

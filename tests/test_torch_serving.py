@@ -299,12 +299,6 @@ def test_expired_deadline_never_reaches_the_device(jax_model):
         engine.close()
 
 
-def test_pipelined_dispatch_is_not_ported_yet(jax_model):
-    with pytest.raises(NotImplementedError, match="pipeline_depth"):
-        InferenceEngine(jax_model[0], device="cpu", batch_buckets=[1],
-                        warmup=False, pipeline_depth=2)
-
-
 # ---------------------------------------------------------------------------
 # sequence (LoD) feeds: the sentiment conv net (dictionary 50, emb 8,
 # 16 filters) saved by the JAX package
