@@ -225,6 +225,28 @@ def fetch_var(name, scope=None, return_numpy=True):
     return to_numpy(val) if return_numpy else val
 
 
+def raise_program_errors(errors):
+    """Raise on tripped in-graph assertions (LowerCtx.add_error), as the
+    JAX package's executor does after a run: ONE host read of the
+    combined flag in the clean case, each message's flag read only after
+    it tripped; a RuntimeError listing every tripped message, sorted (the
+    JAX package's jitted step returns its flags as a dict, which comes
+    back in key order)."""
+    if not errors:
+        return
+    flags = list(errors.values())
+    any_flag = flags[0] if len(flags) == 1 else torch.stack(
+        [f.reshape(()) for f in flags]).any()
+    if not bool(any_flag):
+        return
+    tripped = sorted(m for m, f in errors.items() if bool(f))
+    if len(tripped) == 1:
+        raise RuntimeError(tripped[0])
+    raise RuntimeError(
+        "%d in-graph assertions tripped in this run:\n- %s"
+        % (len(tripped), "\n- ".join(tripped)))
+
+
 class DispatchTimeoutError(RuntimeError):
     """Executor.run(timeout=) watchdog: a run did not complete within its
     deadline. `cache_key` carries the run's cache key (program uid and
@@ -282,6 +304,10 @@ class Executor(object):
         self._unread = {}
         # run cache key -> lowering.MultiStepRunner (steps > 1), LRU
         self._cache = collections.OrderedDict()
+        # runs that read their in-graph assertion flags on the host: every
+        # run of a program with an asserting op (one read of the combined
+        # flag when none tripped), no other run
+        self.flag_reads = 0
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True, use_program_cache=True, steps=1,
@@ -365,13 +391,13 @@ class Executor(object):
         if ukey not in self._unread:
             self._unread[ukey] = unread_outputs(program, fetch_names)
         if steps == 1:
-            fetches, new_state = self._run_step(
+            fetches, new_state, errors = self._run_step(
                 program, scope, feeds, fetch_names, self._unread[ukey])
         else:
             runner = self._runner(key, program, scope, feeds, fetch_names,
                                   steps, fetch_reduce, self._unread[ukey],
                                   use_program_cache)
-            fetches, new_state = runner(
+            fetches, new_state, errors = runner(
                 scope, feeds, scope.next_seed_block(steps))
         if cancelled is not None:
             # watchdog mode: the deadline needs a completion signal, so
@@ -382,14 +408,20 @@ class Executor(object):
                 done.synchronize()
             if cancelled.is_set():
                 return None   # the caller raised: write nothing
+        # the state first, as the JAX package writes it back before any
+        # raise: a caller that catches the assertion can still read it
         for name, value in new_state.items():
             scope.set(name, value)
+        if errors:
+            self.flag_reads += 1
+            raise_program_errors(errors)
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         return fetches
 
     def _run_step(self, program, scope, feeds, fetch_names, unread):
-        """One op-by-op run: (fetches, {persistable written: value})."""
+        """One op-by-op run: (fetches, {persistable written: value},
+        {assertion message: flag})."""
         persistable = {v.name for v in program.list_vars() if v.persistable}
         env = Env(scope, persistable, self.device)
         for name, value in feeds.items():
@@ -403,7 +435,7 @@ class Executor(object):
             for name in op.all_output_vars():
                 if name in persistable:
                     new_state[name] = env.values[name]
-        return [env.read(n) for n in fetch_names], new_state
+        return [env.read(n) for n in fetch_names], new_state, ctx.op_errors
 
     def _runner(self, key, program, scope, feeds, fetch_names, steps,
                 fetch_reduce, unread, use_program_cache):

@@ -66,8 +66,9 @@ def _apply_amp(op_type, ins):
 
 class LowerCtx(object):
     """Per-run context handed to op rules: the run's device, a seeded
-    random generator per op, and which outputs of the running op some op,
-    fetch or the scope reads (`output_read`)."""
+    random generator per op, which outputs of the running op some op,
+    fetch or the scope reads (`output_read`), and the run's in-graph
+    assertions (`add_error`)."""
 
     is_abstract = False
 
@@ -93,6 +94,21 @@ class LowerCtx(object):
         self.grad_stop = {}
         self.saved = {}
         self.op = None
+        # message -> 0-d bool tensor on the run's device: the in-graph
+        # assertions, raised on the host after the run (raise_op_errors)
+        self.op_errors = {}
+
+    def add_error(self, message, flag):
+        """Record an in-graph assertion: `flag` (a 0-d bool tensor, never
+        read here) is True where the program is at fault. Flags of one
+        message combine by sticky OR. Inside a loop body (an enclosing
+        rnn_scan's step) it records nothing, as the JAX package's rule
+        records nothing inside a lax loop body, whose flags cannot leave
+        the trace."""
+        if self._loop_iters:
+            return
+        prev = self.op_errors.get(message)
+        self.op_errors[message] = flag if prev is None else prev | flag
 
     def begin_op(self, salt, outputs=None):
         self._op_salt = salt
@@ -499,7 +515,14 @@ class MultiStepRunner(object):
     A call copies into the buffers only the scope values that changed
     since the runner last saw them (any scope.set between calls is
     seen), and hands the scope fresh copies of the new state: nothing a
-    caller or the scope holds changes under a later replay."""
+    caller or the scope holds changes under a later replay.
+
+    In-graph assertions (LowerCtx.add_error): one static 0-d bool buffer
+    per message of the step, zeroed at the start of each call and ORed
+    with the step's flag inside the step (inside the captured graph), so
+    after K replays each holds the sticky OR over the K steps, as the
+    JAX package's lax.scan carries its flags (its fold_errors). The
+    caller reads them once, after the K steps."""
 
     def __init__(self, program, device, feed_names, fetch_names, state_rw,
                  state_ro, state_out, steps, fetch_reduce="stack",
@@ -525,6 +548,7 @@ class MultiStepRunner(object):
         self._gens = None
         self._graph = None
         self._fetch_out = None
+        self._errs = {}        # assertion message -> static flag buffer
         self.launches = {}     # the port's kernels one step launches
         self.warmup_s = self.capture_s = None
         self.pool_bytes = None
@@ -593,7 +617,20 @@ class MultiStepRunner(object):
         new = {n: env.values[n] for n in self.out_names if n in env.values}
         if copy_back:
             self._copy_back(new)
+            self._fold_errors(ctx.op_errors)
         return fetches, new
+
+    def _fold_errors(self, errors):
+        """The step's assertion flags ORed into their buffers (sticky
+        across the call's steps)."""
+        if set(errors) != set(self._errs):
+            raise RuntimeError(
+                "the step raised assertions %s, its warm-up run %s: its "
+                "assertions depend on something other than the program"
+                % (sorted(errors), sorted(self._errs)))
+        for m, f in errors.items():
+            buf = self._errs[m]
+            torch.logical_or(buf, f.reshape(()), out=buf)
 
     def _copy_back(self, new):
         """New state -> its buffers. A new value that shares storage with
@@ -624,6 +661,7 @@ class MultiStepRunner(object):
         if not self.cuda:
             ctx = self._ctx(run_seed)
             self._write_only_bufs(self._step(ctx, copy_back=False)[1])
+            self._alloc_errors(ctx)
             self._specs = ctx.specs
             self._gens = [torch.Generator(device=self.device)
                           for _ in self._specs]
@@ -645,6 +683,7 @@ class MultiStepRunner(object):
         finally:
             torch.cuda.set_sync_debug_mode(mode)
         torch.cuda.current_stream(self.device).wait_stream(side)
+        self._alloc_errors(ctx)
         self._specs = ctx.specs
         self._gens = [torch.Generator(device=self.device)
                       for _ in self._specs]
@@ -700,6 +739,11 @@ class MultiStepRunner(object):
             "captured; run it with steps=1"
             % (self.steps, where, phase, cause))
 
+    def _alloc_errors(self, ctx):
+        """One flag buffer per assertion message of the warm-up step."""
+        self._errs = {m: torch.zeros((), dtype=torch.bool, device=self.device)
+                      for m in ctx.op_errors}
+
     def _write_only_bufs(self, new):
         for n in self.out_names:
             if n not in self._bufs:
@@ -713,11 +757,14 @@ class MultiStepRunner(object):
     def __call__(self, scope, feeds, seed):
         """Run K steps from the scope's state, step i drawing seed
         `seed + i`. Returns (fetches reduced per fetch_reduce, {name: new
-        state tensor}); writes nothing into the scope."""
+        state tensor}, {assertion message: its flag's sticky OR over the
+        K steps}); writes nothing into the scope."""
         if not self._built:
             self._build(scope, feeds, seed)
         else:
             self._sync_in(scope, feeds)
+        for buf in self._errs.values():
+            buf.zero_()
         out = None
         for i in range(self.steps):
             self._reseed(seed + i)
@@ -738,7 +785,7 @@ class MultiStepRunner(object):
             t = self._bufs[n].clone()
             new_state[n] = t
             self._handed[n] = (weakref.ref(t), t._version)
-        return out, new_state
+        return out, new_state, dict(self._errs)
 
     def _collect(self, i, fetches, out):
         if self.fetch_reduce == "stack":

@@ -7,8 +7,8 @@ appended to the main program update each run (so accumulation runs on
 the device with the step); `reset` zeroes them with a side program and
 `eval` fetches them. DetectionMAP accumulates fetched detections on the
 host (metrics.DetectionMAP), as in the JAX package. ChunkEvaluator and
-EditDistance wait for their chunk_eval and edit_distance op rules
-(ROADMAP A5).
+EditDistance accumulate the counts of the chunk_eval and edit_distance
+ops (ops/crf_ops.py, ops/ctc_ops.py) on the device.
 """
 import numpy as np
 
@@ -17,7 +17,7 @@ from .core.layer_helper import LayerHelper
 from .core import unique_name
 from . import layers
 
-__all__ = ["Accuracy", "DetectionMAP"]
+__all__ = ["Accuracy", "ChunkEvaluator", "EditDistance", "DetectionMAP"]
 
 
 def _clone_var_(block, var):
@@ -89,6 +89,79 @@ class Accuracy(Evaluator):
         total = float(np.ravel(total)[0])
         correct = float(np.ravel(correct)[0])
         return np.array([correct / total if total else 0.0], "float32")
+
+
+class ChunkEvaluator(Evaluator):
+    """Accumulated chunk precision/recall/F1 (evaluator.py ChunkEvaluator)."""
+
+    def __init__(self, input, label, chunk_scheme, num_chunk_types,
+                 excluded_chunk_types=None):
+        super(ChunkEvaluator, self).__init__("chunk_eval")
+        self.num_infer_chunks = self.create_state(
+            dtype="int64", shape=[1], suffix="num_infer_chunks")
+        self.num_label_chunks = self.create_state(
+            dtype="int64", shape=[1], suffix="num_label_chunks")
+        self.num_correct_chunks = self.create_state(
+            dtype="int64", shape=[1], suffix="num_correct_chunks")
+        (precision, recall, f1_score, num_infer_chunks, num_label_chunks,
+         num_correct_chunks) = layers.chunk_eval(
+            input=input, label=label, chunk_scheme=chunk_scheme,
+            num_chunk_types=num_chunk_types,
+            excluded_chunk_types=excluded_chunk_types)
+        layers.sums(input=[self.num_infer_chunks, num_infer_chunks],
+                    out=self.num_infer_chunks)
+        layers.sums(input=[self.num_label_chunks, num_label_chunks],
+                    out=self.num_label_chunks)
+        layers.sums(input=[self.num_correct_chunks, num_correct_chunks],
+                    out=self.num_correct_chunks)
+        self.metrics.extend([precision, recall, f1_score])
+
+    def eval(self, executor, eval_program=None):
+        ni, nl, nc = [float(np.ravel(v)[0]) for v in
+                      self._fetch_states(executor, eval_program)]
+        precision = nc / ni if ni else 0.0
+        recall = nc / nl if nl else 0.0
+        f1 = 2 * precision * recall / (precision + recall) if nc else 0.0
+        return (np.array([precision], "float32"),
+                np.array([recall], "float32"), np.array([f1], "float32"))
+
+
+class EditDistance(Evaluator):
+    """Accumulated average edit distance + instance error rate."""
+
+    def __init__(self, input, label, ignored_tokens=None, **kwargs):
+        super(EditDistance, self).__init__("edit_distance", **kwargs)
+        self.total_distance = self.create_state(
+            dtype="float32", shape=[1], suffix="total_distance")
+        self.seq_num = self.create_state(dtype="int64", shape=[1],
+                                         suffix="seq_num")
+        self.instance_error = self.create_state(
+            dtype="int64", shape=[1], suffix="instance_error")
+        distances, seq_num = layers.edit_distance(
+            input=input, label=label, ignored_tokens=ignored_tokens)
+        zero = layers.fill_constant(shape=[1], value=0.0, dtype="float32")
+        compare_result = layers.equal(distances, zero)
+        compare_result_int = layers.cast(x=compare_result, dtype="int64")
+        seq_right_count = layers.reduce_sum(compare_result_int)
+        instance_error_count = layers.elementwise_sub(x=seq_num,
+                                                      y=seq_right_count)
+        total_distance = layers.reduce_sum(distances)
+        layers.sums(input=[self.total_distance, total_distance],
+                    out=self.total_distance)
+        layers.sums(input=[self.seq_num, seq_num], out=self.seq_num)
+        layers.sums(input=[self.instance_error, instance_error_count],
+                    out=self.instance_error)
+        self.metrics.append(total_distance)
+        self.metrics.append(instance_error_count)
+
+    def eval(self, executor, eval_program=None):
+        total, seq_num, inst_err = [
+            float(np.ravel(v)[0]) for v in
+            self._fetch_states(executor, eval_program)]
+        avg_distance = total / seq_num if seq_num else 0.0
+        inst_err_rate = inst_err / seq_num if seq_num else 0.0
+        return (np.array([avg_distance], "float32"),
+                np.array([inst_err_rate], "float32"))
 
 
 class DetectionMAP(object):

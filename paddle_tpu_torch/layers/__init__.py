@@ -2,19 +2,23 @@
 schedules call)."""
 from .io import data  # noqa: F401
 from .nn import (accuracy, autoincreased_step_counter,  # noqa: F401
-                 batch_norm, conv2d, conv2d_transpose, cos_sim,
-                 cross_entropy, dropout, embedding, expand, fc,
-                 fused_attention, l2_normalize, label_smooth, layer_norm,
-                 lrn, matmul, maxout, multiplex, nce, one_hot, pool2d,
-                 reduce_max, reduce_mean, reduce_min, reduce_prod,
-                 reduce_sum, sequence_mask, smooth_l1, softmax,
+                 batch_norm, chunk_eval, conv2d, conv2d_transpose, cos_sim,
+                 crf_decoding, cross_entropy, dropout, edit_distance,
+                 embedding, expand, fc, fused_attention, l2_normalize,
+                 label_smooth, layer_norm, linear_chain_crf, lrn, matmul,
+                 maxout, multiplex, nce, one_hot, pool2d, reduce_max,
+                 reduce_mean, reduce_min, reduce_prod, reduce_sum,
+                 sequence_erase, sequence_mask, smooth_l1, softmax,
                  softmax_with_cross_entropy, split, square_error_cost,
                  topk, transpose)
 from .ops import *  # noqa: F401,F403  (the generated op layers)
-from .sequence import (dynamic_lstm, dynamic_lstmp,  # noqa: F401
-                       sequence_conv,
-                       sequence_first_step, sequence_last_step,
-                       sequence_pool, sequence_softmax)
+from .sequence import (dynamic_gru, dynamic_lstm,  # noqa: F401
+                       dynamic_lstmp, gru_unit, lod_reset, lstm_unit,
+                       row_conv, sequence_cache_write, sequence_conv,
+                       sequence_expand, sequence_first_step,
+                       sequence_last_step, sequence_pool, sequence_reshape,
+                       sequence_softmax)
+from .extras import sequence_concat, sequence_slice  # noqa: F401
 from .control_flow import (ConditionalBlock, DynamicRNN,  # noqa: F401
                            Print, StaticRNN, Switch, equal, greater_equal,
                            greater_than, increment, is_empty, less_equal,

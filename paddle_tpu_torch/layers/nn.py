@@ -21,7 +21,8 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "lrn", "transpose", "dropout", "split", "label_smooth",
            "conv2d_transpose", "smooth_l1", "topk", "reduce_mean",
            "reduce_max", "reduce_min", "reduce_prod", "l2_normalize",
-           "multiplex", "maxout", "nce", "expand"]
+           "multiplex", "maxout", "nce", "expand", "linear_chain_crf",
+           "crf_decoding", "chunk_eval", "sequence_erase", "edit_distance"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -604,3 +605,151 @@ def expand(x, expand_times, name=None):
         type="expand", inputs={"X": [x]}, outputs={"Out": [out]},
         attrs={"expand_times": list(expand_times)})
     return out
+
+
+def _crf_seq_len(helper, x):
+    from .sequence import _seq_len
+    return _seq_len(helper, x)
+
+
+def linear_chain_crf(input, label, param_attr=None):
+    """Linear-chain CRF negative log-likelihood, one cost per sequence.
+
+    Parity: fluid.layers.linear_chain_crf (reference nn.py:786) over
+    linear_chain_crf_op.h. Creates the [size+2, size] transition parameter
+    (row 0 start, row 1 end, rows 2.. tag->tag); returns LogLikelihood
+    [num_seqs, 1]. The reference's Alpha/EmissionExps/TransitionExps
+    outputs existed only to feed the hand-written grad kernel and have no
+    equivalent here (autograd derives the backward pass).
+    """
+    helper = LayerHelper("linear_chain_crf", **locals())
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=helper.param_attr, shape=[size + 2, size],
+        dtype=helper.input_dtype())
+    ll = helper.create_variable_for_type_inference(helper.input_dtype())
+    helper.append_op(
+        type="linear_chain_crf",
+        inputs={"Emission": [input], "Transition": [transition],
+                "Label": [label], "XLen": [_crf_seq_len(helper, input)]},
+        outputs={"LogLikelihood": [ll]})
+    ll.lod_level = 0
+    ll.seq_len_var = None
+    ll.shape = (-1, 1)
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None):
+    """Viterbi decode with the trained CRF transitions.
+
+    Parity: fluid.layers.crf_decoding (reference nn.py:812) over
+    crf_decoding_op.h. Without label: the best tag path (sequence, int64).
+    With label: per-token 1/0 correctness indicators.
+    """
+    helper = LayerHelper("crf_decoding", **locals())
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=helper.param_attr, shape=[size + 2, size],
+        dtype=helper.input_dtype())
+    path = helper.create_variable_for_type_inference("int64")
+    inputs = {"Emission": [input], "Transition": [transition],
+              "XLen": [_crf_seq_len(helper, input)]}
+    if label is not None:
+        inputs["Label"] = [label]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [path]})
+    path.stop_gradient = True
+    return path
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None):
+    """Chunk-level precision/recall/F1 (IOB/IOE/IOBES/plain schemes).
+
+    Parity: fluid.layers.chunk_eval (reference nn.py:1014) over
+    chunk_eval_op.h; label encodes (chunk_type, tag) as
+    chunk_type * num_tag_types + tag.
+    """
+    helper = LayerHelper("chunk_eval", **locals())
+    precision = helper.create_variable_for_type_inference("float32")
+    recall = helper.create_variable_for_type_inference("float32")
+    f1_score = helper.create_variable_for_type_inference("float32")
+    num_infer = helper.create_variable_for_type_inference("int64")
+    num_label = helper.create_variable_for_type_inference("int64")
+    num_correct = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="chunk_eval",
+        inputs={"Inference": [input], "Label": [label],
+                "XLen": [_crf_seq_len(helper, input)]},
+        outputs={"Precision": [precision], "Recall": [recall],
+                 "F1-Score": [f1_score], "NumInferChunks": [num_infer],
+                 "NumLabelChunks": [num_label],
+                 "NumCorrectChunks": [num_correct]},
+        attrs={"num_chunk_types": num_chunk_types,
+               "chunk_scheme": chunk_scheme,
+               "excluded_chunk_types": excluded_chunk_types or []})
+    for v in (precision, recall, f1_score, num_infer, num_label, num_correct):
+        v.lod_level = 0
+        v.seq_len_var = None
+        v.shape = (1,)
+        v.stop_gradient = True
+    return (precision, recall, f1_score, num_infer, num_label, num_correct)
+
+
+def _erase_or_align_out(helper, op_type, inputs, attrs, dtype="int64"):
+    """Emit an op that compacts sequences (new data + new lengths)."""
+    out = helper.create_variable_for_type_inference(dtype)
+    out_len = helper.block.create_var(
+        name=out.name + "@SEQLEN", shape=[-1], dtype="int32",
+        stop_gradient=True)
+    helper.append_op(
+        type=op_type, inputs=inputs,
+        outputs={"Out": [out], "OutLen": [out_len]}, attrs=attrs,
+        infer_shape=False)
+    out.lod_level = 1
+    out.seq_len_var = out_len.name
+    out.stop_gradient = True
+    return out
+
+
+def sequence_erase(input, tokens):
+    """Remove the given token ids from each sequence (compacting it).
+
+    Parity: sequence_erase_op (used by edit_distance's ignored_tokens)."""
+    helper = LayerHelper("sequence_erase", **locals())
+    out = _erase_or_align_out(
+        helper, "sequence_erase",
+        {"X": [input], "XLen": [_crf_seq_len(helper, input)]},
+        {"tokens": list(tokens)})
+    if input.shape is not None:
+        out.shape = tuple(input.shape[:2])
+    return out
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  name=None):
+    """Levenshtein distance between hypothesis and reference sequences.
+
+    Parity: fluid.layers.edit_distance (reference nn.py:2532). Returns
+    (distances [num_seqs, 1] float32, sequence_num [1] int64).
+    """
+    helper = LayerHelper("edit_distance", **locals())
+    if ignored_tokens:
+        input = sequence_erase(input, ignored_tokens)
+        label = sequence_erase(label, ignored_tokens)
+    out = helper.create_variable_for_type_inference("float32")
+    seq_num = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="edit_distance",
+        inputs={"Hyps": [input], "Refs": [label],
+                "HypsLen": [_crf_seq_len(helper, input)],
+                "RefsLen": [_crf_seq_len(helper, label)]},
+        outputs={"Out": [out], "SequenceNum": [seq_num]},
+        attrs={"normalized": normalized})
+    for v in (out, seq_num):
+        v.lod_level = 0
+        v.seq_len_var = None
+        v.stop_gradient = True
+    out.shape = (-1, 1)
+    seq_num.shape = (1,)
+    return out, seq_num

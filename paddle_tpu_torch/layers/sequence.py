@@ -1,18 +1,20 @@
-"""Sequence layers (LoD-aware): the subset the sentiment classifiers, the
-attention translator and the stacked-LSTMP acoustic model call.
+"""Sequence layers (LoD-aware).
 
 Parity: the sequence_* / dynamic_* functions of python/paddle/fluid/layers/
 nn.py and the JAX package's layers/sequence.py — same names, arguments and
 op emission, so both packages build the same Program for the same calls.
-The JAX package's sequence_expand, sequence_reshape, dynamic_gru,
-gru_unit, lstm_unit, lod_reset, row_conv and beam-search layers are not
-ported yet.
+The JAX package's beam_search and beam_search_decode come with ROADMAP
+A6.
 """
+import warnings
+
 from ..core.layer_helper import LayerHelper
 
 __all__ = ["sequence_pool", "sequence_first_step", "sequence_last_step",
-           "sequence_softmax", "sequence_conv", "dynamic_lstm",
-           "dynamic_lstmp"]
+           "sequence_softmax", "sequence_conv", "sequence_expand",
+           "sequence_reshape", "dynamic_lstm", "dynamic_lstmp",
+           "dynamic_gru", "gru_unit", "lstm_unit", "lod_reset", "row_conv",
+           "sequence_cache_write"]
 
 
 def _seq_len(helper, x):
@@ -161,3 +163,199 @@ def dynamic_lstmp(input, size, proj_size, param_attr=None, bias_attr=None,
                "candidate_activation": candidate_activation,
                "proj_activation": proj_activation})
     return projection, cell_out
+
+
+def sequence_expand(x, y, name=None):
+    helper = LayerHelper("sequence_expand", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="sequence_expand",
+        inputs={"X": [x], "Y": [y], "YLen": [_seq_len(helper, y)]},
+        outputs={"Out": [out]})
+    out.lod_level = max(y.lod_level, 1)
+    out.seq_len_var = y.seq_len_var
+    return out
+
+
+def sequence_reshape(input, new_dim):
+    """Parity: fluid.layers.sequence_reshape (sequence_reshape_op.cc) —
+    repacks each sequence's row data to width new_dim; a length-L sequence
+    of dim D becomes length L*D/new_dim. The op's rule reshapes
+    the padded data (valid data is a contiguous row prefix, so it stays
+    contiguous) and emits the integer-rescaled OutLen companion."""
+    helper = LayerHelper("sequence_reshape", **locals())
+    if helper.block.idx != 0:
+        # inside a While/RNN sub-block the rule's per-sequence
+        # divisibility assertion is not recorded (LowerCtx.add_error
+        # records nothing inside a loop body): the reference op would
+        # hard-error on a non-divisible tail, here it would be silently
+        # truncated. Surface that at build time.
+        warnings.warn(
+            "sequence_reshape inside a control-flow sub-block: the "
+            "per-sequence len*dim % new_dim divisibility check is not "
+            "enforceable in-graph there; a non-divisible sequence tail "
+            "would be silently dropped. Verify shapes statically.",
+            stacklevel=2)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out_len = helper.block.create_var(
+        name=out.name + "@SEQLEN", shape=[-1], dtype="int32",
+        stop_gradient=True)
+    helper.append_op(
+        type="sequence_reshape",
+        inputs={"X": [input], "XLen": [_seq_len(helper, input)]},
+        outputs={"Out": [out], "OutLen": [out_len]},
+        attrs={"new_dim": new_dim})
+    out.lod_level = 1
+    out.seq_len_var = out_len.name
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None):
+    """Re-segment x's flat data stream (reference lod_reset_op.cc: new LoD
+    from Y's own LoD, Y.data offsets, or attr target_lod [0, n1, n2...];
+    plain per-sequence lengths are also accepted for target_lod — a list
+    whose first element is 0 is ALWAYS read as offsets, per the reference,
+    so an empty-first-sequence lengths list must be given as offsets)."""
+    if y is None and not target_lod:
+        raise ValueError(
+            "lod_reset: either y or a non-empty target_lod must be "
+            "provided (reference lod_reset_op enforces the same)")
+    helper = LayerHelper("lod_reset", **locals())
+    if helper.block.idx != 0:
+        # inside a While/RNN sub-block the rule's length-sum assertion is
+        # not recorded (LowerCtx.add_error records nothing inside a loop
+        # body): a mismatched target would silently clip or drop rows.
+        # Surface that at build time, like sequence_reshape above.
+        warnings.warn(
+            "lod_reset inside a control-flow sub-block: the target-"
+            "segmentation length-sum check is not enforceable in-graph "
+            "there; a mismatched target_lod would silently clip or drop "
+            "rows. Verify lengths statically.", stacklevel=2)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out_len = helper.block.create_var(
+        name=out.name + "@SEQLEN", shape=[-1], dtype="int32",
+        stop_gradient=True)
+    inputs = {"X": [x]}
+    attrs = {}
+    if getattr(x, "lod_level", 0):
+        inputs["XLen"] = [_seq_len(helper, x)]
+    if y is not None:
+        if getattr(y, "lod_level", 0):
+            inputs["Y"] = [y]
+            inputs["YLen"] = [_seq_len(helper, y)]
+        else:
+            inputs["YData"] = [y]
+    elif target_lod is not None:
+        tl = [int(v) for v in target_lod]
+        attrs["target_lens"] = (
+            [b - a for a, b in zip(tl, tl[1:])]
+            if tl and tl[0] == 0 and len(tl) > 1 else tl)
+    helper.append_op(type="lod_reset", inputs=inputs,
+                     outputs={"Out": [out], "OutLen": [out_len]},
+                     attrs=attrs)
+    out.lod_level = 1
+    out.seq_len_var = out_len.name
+    return out
+
+
+def dynamic_gru(input, size, param_attr=None, bias_attr=None,
+                is_reverse=False, gate_activation="sigmoid",
+                candidate_activation="tanh", h_0=None):
+    """Parity: fluid.layers.dynamic_gru — input [.., 3*size]."""
+    helper = LayerHelper("dynamic_gru", **locals())
+    dtype = helper.input_dtype()
+    weight = helper.create_parameter(
+        attr=helper.param_attr, shape=[size, 3 * size], dtype=dtype)
+    bias = helper.create_parameter(
+        attr=helper.bias_attr, shape=[1, 3 * size], dtype=dtype, is_bias=True)
+    hidden = helper.create_variable_for_type_inference(dtype)
+    batch_gate = helper.create_variable_for_type_inference(dtype)
+    batch_reset = helper.create_variable_for_type_inference(dtype)
+    batch_hidden = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Input": [input], "Weight": [weight], "Bias": [bias],
+              "XLen": [_seq_len(helper, input)]}
+    if h_0 is not None:
+        inputs["H0"] = [h_0]
+    helper.append_op(
+        type="gru", inputs=inputs,
+        outputs={"Hidden": [hidden], "BatchGate": [batch_gate],
+                 "BatchResetHiddenPrev": [batch_reset],
+                 "BatchHidden": [batch_hidden]},
+        attrs={"is_reverse": is_reverse,
+               "gate_activation": gate_activation,
+               "activation": candidate_activation})
+    return hidden
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid"):
+    """Parity: fluid.layers.gru_unit (one step; used in DynamicRNN decoders)."""
+    helper = LayerHelper("gru_unit", **locals())
+    dtype = helper.input_dtype()
+    size = size // 3
+    weight = helper.create_parameter(
+        attr=helper.param_attr, shape=[size, 3 * size], dtype=dtype)
+    bias = helper.create_parameter(
+        attr=helper.bias_attr, shape=[1, 3 * size], dtype=dtype, is_bias=True)
+    gate = helper.create_variable_for_type_inference(dtype)
+    reset_hidden_pre = helper.create_variable_for_type_inference(dtype)
+    updated_hidden = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="gru_unit",
+        inputs={"Input": [input], "HiddenPrev": [hidden],
+                "Weight": [weight], "Bias": [bias]},
+        outputs={"Hidden": [updated_hidden], "Gate": [gate],
+                 "ResetHiddenPrev": [reset_hidden_pre]},
+        attrs={"activation": activation, "gate_activation": gate_activation})
+    return updated_hidden, reset_hidden_pre, gate
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """Parity: fluid.layers.lstm_unit — fc(x_t ++ h_prev) then lstm_unit op."""
+    from . import nn, tensor
+    size = cell_t_prev.shape[-1]
+    concat_out = tensor.concat(input=[x_t, hidden_t_prev], axis=-1)
+    fc_out = nn.fc(input=concat_out, size=4 * size, param_attr=param_attr,
+                   bias_attr=bias_attr)
+    helper = LayerHelper("lstm_unit", **locals())
+    c = helper.create_variable_for_type_inference(x_t.dtype)
+    h = helper.create_variable_for_type_inference(x_t.dtype)
+    helper.append_op(
+        type="lstm_unit",
+        inputs={"X": [fc_out], "C_prev": [cell_t_prev]},
+        outputs={"C": [c], "H": [h]},
+        attrs={"forget_bias": forget_bias})
+    return h, c
+
+
+def sequence_cache_write(cache, x, pos, name=None):
+    """Write each row of `x` [B, ...] into `cache` [B, T, ...] at that
+    row's position `pos` [B] (the JAX package's addition: the KV-cache
+    write of a decode step). Returns the updated cache; make `cache` (and
+    `pos`) persistable state and assign the result back to keep the cache
+    on the device across runs."""
+    helper = LayerHelper("sequence_cache_write", **locals())
+    out = helper.create_variable_for_type_inference(cache.dtype)
+    helper.append_op(
+        type="sequence_cache_write",
+        inputs={"Cache": [cache], "X": [x], "Pos": [pos]},
+        outputs={"Out": [out]})
+    if cache.shape is not None:
+        out.shape = tuple(cache.shape)
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None):
+    helper = LayerHelper("row_conv", **locals())
+    dtype = helper.input_dtype()
+    filter_shape = [future_context_size + 1, input.shape[-1]]
+    filter_param = helper.create_parameter(
+        attr=helper.param_attr, shape=filter_shape, dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="row_conv",
+        inputs={"X": [input], "Filter": [filter_param],
+                "XLen": [_seq_len(helper, input)]},
+        outputs={"Out": [out]})
+    return helper.append_activation(out)

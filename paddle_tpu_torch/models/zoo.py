@@ -3,8 +3,6 @@
 Parity: the JAX package's models/zoo.py: the same nine names, each built
 at the same small config into the same Program (the SHAPE of each program,
 its op vocabulary, sub-blocks and sequence plumbing, not its capacity).
-`srl` needs linear_chain_crf, which is not ported yet: building it raises
-(ROADMAP A6).
 
     for name in zoo.names():
         main, startup = zoo.build(name)
@@ -38,9 +36,11 @@ def _builders():
                         d_inner_hid=32, use_fused_attention=False)
 
     def srl():
-        raise NotImplementedError(
-            "zoo model 'srl' (label_semantic_roles) needs the "
-            "linear_chain_crf op, which is not ported yet (ROADMAP A6)")
+        from . import label_semantic_roles
+        label_semantic_roles.build_train(
+            word_dict_len=50, label_dict_len=9, pred_dict_len=20,
+            word_dim=8, mark_dim=4, hidden_dim=16, depth=2, lr=0.03,
+            mix_hidden_lr=1.0)
 
     def ctr():
         from . import ctr as m

@@ -1,6 +1,9 @@
 """Op rules. Importing this package registers every rule the port has."""
 from . import basic  # noqa: F401
 from . import control_ops  # noqa: F401
+from . import crf_ops  # noqa: F401
+from . import ctc_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
+from . import tail_ops  # noqa: F401

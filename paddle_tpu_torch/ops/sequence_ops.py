@@ -23,9 +23,17 @@ which has no counterpart here:
   * lstmp on the same conditions (and the default proj_activation) ->
     FusedLSTMP (K7); every other lstmp runs the torch loop of
     cuda_kernels.fused_lstmp_plain.
-The JAX package's gru rule waits for its path; a program that uses it
-fails with the registry's unknown-op error.
+The rest of the JAX file's rules (sequence_expand, sequence_reshape,
+lod_reset, row_conv, gru, gru_unit, lstm_unit, sequence_cache_write)
+are plain torch: the JAX package has no kernel for them either. Their
+recurrence, gru, is a torch loop over T, as the JAX rule's lax.scan; its
+gradient comes from autograd through the loop. sequence_reshape and
+lod_reset keep static output shapes and assert their preconditions
+in-graph (LowerCtx.add_error): no rule reads a tensor's value on the
+host, so a step holding them stays capturable by a CUDA graph.
 """
+import math
+
 import numpy as np
 import torch
 
@@ -270,3 +278,277 @@ def _lstmp(ctx, ins, attrs):
     return {"Projection": [proj], "Cell": [cell],
             "BatchGate": [x], "BatchCellPreAct": [cell],
             "BatchHidden": [cell], "OrderedP0": [r0]}
+
+
+@register("sequence_reshape")
+def _sequence_reshape(ctx, ins, attrs):
+    """Repack row data to width new_dim (reference: sequence_reshape_op.cc).
+
+    Padded-dense: each row's valid data is a contiguous prefix of the
+    flattened [T*D] row, so reshaping to [T*D/new_dim, new_dim] keeps it a
+    contiguous prefix; only the lengths rescale (exact integer math). T is
+    zero-padded up when T*D doesn't divide new_dim (bucketed padding). A
+    sequence whose len*D new_dim does not divide trips an in-graph
+    assertion (the reference op enforces it; a floor would drop its
+    tail)."""
+    x = single(ins, "X")        # [B, T, D]
+    xlen = single(ins, "XLen")  # [B]
+    new_dim = int(attrs["new_dim"])
+    b, t, d = x.shape
+    # smallest pad with (t+pad)*d % new_dim == 0: t+pad = 0 (mod nd/gcd)
+    m = new_dim // math.gcd(d, new_dim)
+    pad_t = (-t) % m
+    if pad_t:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad_t))
+        t += pad_t
+    out = x.reshape(b, (t * d) // new_dim, new_dim)
+    elems = xlen.to(torch.int32) * d
+    ctx.add_error(
+        "sequence_reshape: a sequence's len*dim (%d per step) is not "
+        "divisible by new_dim=%d; its tail would be dropped" % (d, new_dim),
+        (elems % new_dim != 0).any())
+    return {"Out": [out], "OutLen": [elems // new_dim]}
+
+
+@register("sequence_expand")
+def _sequence_expand(ctx, ins, attrs):
+    """Expand each row of X to match Y's sequence lengths.
+
+    Padded-layout semantics: X [B, 1-or-T, ...] or [B, ...]; the output
+    repeats X's per-sequence row across Y's max_len steps (masked)."""
+    x = single(ins, "X")
+    y = single(ins, "Y")
+    ylen = single(ins, "YLen")
+    t = y.shape[1]
+    head = x[:, 0] if x.dim() == y.dim() else x
+    rep = head[:, None].expand((x.shape[0], t) + tuple(head.shape[1:]))
+    return {"Out": [rep * _feat_mask(rep, ylen)]}
+
+
+def _device_ints(values, device):
+    """A 1-d int32 tensor of `values` built on `device` by fills, not by a
+    host copy (a copy from host memory cannot be captured into a CUDA
+    graph)."""
+    out = torch.zeros(len(values), dtype=torch.int32, device=device)
+    for i, v in enumerate(values):
+        if v:
+            out[i] = int(v)
+    return out
+
+
+@register("lod_reset")
+def _lod_reset(ctx, ins, attrs):
+    """lod_reset_op.cc: keep the flat data stream, replace the segmentation.
+
+    The padded-dense layout repacks rows: X's valid rows are scattered
+    into one contiguous stream (by the old exclusive prefix sums), then
+    gathered per the new lengths. New lengths come from attr target_lens
+    (static), YLen (Y's own LoD), or YData (Y.data holding offsets). The
+    output's shape comes from static shapes only: [len(target_lens),
+    max(target_lens)], Y's [B, T], or [number of offsets - 1, the stream's
+    capacity]. A target whose lengths do not sum to the stream's length,
+    or a negative length, trips an in-graph assertion (the reference
+    enforces both)."""
+    x = single(ins, "X")
+    xlen = single(ins, "XLen")
+    ylen = single(ins, "YLen")
+    ydata = single(ins, "YData")
+    y = single(ins, "Y")
+    t_lens = attrs.get("target_lens") or []
+    if ylen is None and ydata is None and not t_lens:
+        # no target: pass through unchanged (as the JAX rule tolerates
+        # for metadata-only program clones)
+        return {"Out": [x]} if xlen is None else \
+            {"Out": [x], "OutLen": [xlen]}
+    dev = x.device
+    # 1. flatten valid rows into one contiguous stream
+    if xlen is not None:
+        b, t = x.shape[:2]
+        feat = tuple(x.shape[2:])
+        cap = b * t
+        xl = xlen.reshape(-1).to(torch.int64)
+        cum = torch.cumsum(xl, 0) - xl                  # exclusive prefix
+        steps = torch.arange(t, device=dev)
+        pos = cum[:, None] + steps[None, :]
+        valid = steps[None, :] < xl[:, None]
+        pos = torch.where(valid, pos, torch.full_like(pos, cap))  # park pads
+        flat = torch.zeros((cap + 1,) + feat, dtype=x.dtype,
+                           device=dev).index_put(
+            (pos.reshape(-1),), x.reshape((cap,) + feat))[:cap]
+        total = xl.sum()
+    else:                       # dense X: its rows are the stream
+        feat = tuple(x.shape[1:])
+        flat = x
+        cap = x.shape[0]
+        total = torch.full((), cap, dtype=torch.int64, device=dev)
+    # 2. the new segmentation
+    if ylen is not None:
+        newlen = ylen.reshape(-1).to(torch.int32)
+        b2 = y.shape[0] if y is not None else newlen.shape[0]
+        t2 = y.shape[1] if y is not None and y.dim() > 1 else cap
+    elif ydata is not None:
+        off = ydata.reshape(-1).to(torch.int32)
+        newlen = off[1:] - off[:-1]
+        b2, t2 = newlen.shape[0], cap
+    else:
+        lens = [int(v) for v in t_lens]
+        newlen = _device_ints(lens, dev)
+        b2, t2 = len(lens), max(lens)
+    nl = newlen.to(torch.int64)
+    ctx.add_error(
+        "lod_reset: target segmentation length sum != data stream length",
+        (nl.sum() != total) | (nl < 0).any())
+    cum2 = torch.cumsum(nl, 0) - nl
+    steps2 = torch.arange(t2, device=dev)
+    idx = cum2[:, None] + steps2[None, :]
+    valid2 = steps2[None, :] < nl[:, None]
+    out = flat[idx.clamp(0, cap - 1).reshape(-1)].reshape((b2, t2) + feat)
+    out = torch.where(valid2.reshape((b2, t2) + (1,) * len(feat)), out,
+                      torch.zeros((), dtype=x.dtype, device=dev))
+    return {"Out": [out], "OutLen": [newlen]}
+
+
+@register("row_conv")
+def _row_conv(ctx, ins, attrs):
+    """Lookahead row convolution (reference: row_conv_op, DeepSpeech2)."""
+    x = single(ins, "X")        # [B, T, D]
+    w = single(ins, "Filter")   # [future_ctx, D]
+    xlen = single(ins, "XLen")
+    t = x.shape[1]
+    mask = _feat_mask(x, xlen)
+    xm = x * mask
+    steps = torch.arange(t, device=x.device)
+    out = torch.zeros_like(x)
+    for k in range(w.shape[0]):
+        shifted = torch.roll(xm, -k, dims=1)
+        valid = (steps < (t - k)).to(x.dtype)
+        out = out + shifted * valid[None, :, None] * w[k][None, None, :]
+    return {"Out": [out * mask]}
+
+
+def _amp_recurrence(ctx, x_dtype):
+    """The JAX rule's mixed-precision discipline for a recurrence: under
+    AMP (or a bf16 input) the step's recurrent product takes bf16
+    operands, while the carried state stays f32. Returns (state dtype,
+    rmat(h, w))."""
+    bf = getattr(ctx, "amp", False) or x_dtype == torch.bfloat16
+    state_dt = torch.float32 if x_dtype in (torch.float32, torch.bfloat16) \
+        else x_dtype
+
+    def rmat(h, wm):
+        if bf:
+            return (h.to(torch.bfloat16) @ wm.to(torch.bfloat16)).float()
+        return h @ wm.to(state_dt)
+
+    return state_dt, rmat
+
+
+@register("gru")
+def _gru(ctx, ins, attrs):
+    """dynamic_gru: input [B, T, 3D] pre-projected, weight packed
+    [D, 3D] = [update|reset (2D) ; candidate (D)] as in gru_op.cc. A torch
+    loop over T (the JAX rule's lax.scan); past a row's length the state
+    is carried unchanged."""
+    x = single(ins, "Input")     # [B, T, 3D]
+    w = single(ins, "Weight")    # [D, 3D]
+    bias = single(ins, "Bias")   # [1, 3D]
+    h0 = single(ins, "H0")
+    xlen = single(ins, "XLen")
+    d = w.shape[0]
+    b, t, _ = x.shape
+    if x.device.type == "meta":
+        # build-time shape inference: skip the T-step loop
+        hidden = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
+        return {"Hidden": [hidden], "BatchGate": [x],
+                "BatchResetHiddenPrev": [hidden], "BatchHidden": [hidden]}
+    gact = _ACTS[attrs.get("gate_activation", "sigmoid")]
+    cact = _ACTS[attrs.get("activation", "tanh")]
+    is_rev = attrs.get("is_reverse", False)
+    state_dt, rmat = _amp_recurrence(ctx, x.dtype)
+    w_g = w[:, :2 * d]      # update + reset recurrent weights
+    w_c = w[:, 2 * d:]      # candidate recurrent weights
+    bias = bias.reshape(-1).to(state_dt) if bias is not None \
+        else torch.zeros(3 * d, dtype=state_dt, device=x.device)
+    h = h0.to(state_dt) if h0 is not None \
+        else torch.zeros((b, d), dtype=state_dt, device=x.device)
+    m = cuda_kernels.step_mask(xlen, b, t, x.device, state_dt)
+    xs = x.to(state_dt).unbind(1)
+    order = range(t - 1, -1, -1) if is_rev else range(t)
+    hs = [None] * t
+    for k in order:
+        xt, mt = xs[k], m[:, k:k + 1]
+        xu = xt[:, :2 * d] + rmat(h, w_g) + bias[:2 * d]
+        u, r = gact(xu).chunk(2, dim=-1)
+        c = cact(xt[:, 2 * d:] + rmat(r * h, w_c) + bias[2 * d:])
+        # the reference's convention (gru_kernel.h): the update gate
+        # weights the CANDIDATE, not the carried state
+        h_new = u * c + (1 - u) * h
+        h = mt * h_new + (1 - mt) * h
+        hs[k] = h
+    hidden = torch.stack(hs, dim=1).to(x.dtype)
+    return {"Hidden": [hidden], "BatchGate": [x],
+            "BatchResetHiddenPrev": [hidden], "BatchHidden": [hidden]}
+
+
+_UNIT_ACTS = {0: "identity", 1: "sigmoid", 2: "tanh", 3: "relu"}
+
+
+def _unit_act(value, default):
+    """gru_unit's activation attr: the reference's int code or a name."""
+    if isinstance(value, int):
+        return _ACTS[_UNIT_ACTS.get(value, default)]
+    return _ACTS[value]
+
+
+@register("gru_unit")
+def _gru_unit(ctx, ins, attrs):
+    """Single GRU step (reference: gru_unit_op), used inside DynamicRNN."""
+    x = single(ins, "Input")        # [B, 3D]
+    h_prev = single(ins, "HiddenPrev")
+    w = single(ins, "Weight")       # [D, 3D]
+    bias = single(ins, "Bias")
+    d = w.shape[0]
+    gact = _unit_act(attrs.get("gate_activation", 1), "sigmoid")
+    cact = _unit_act(attrs.get("activation", 2), "tanh")
+    if bias is not None:
+        x = x + bias.reshape(-1)
+    xu = x[:, :2 * d] + h_prev @ w[:, :2 * d]
+    u, r = gact(xu).chunk(2, dim=-1)
+    c = cact(x[:, 2 * d:] + (r * h_prev) @ w[:, 2 * d:])
+    h = u * c + (1 - u) * h_prev   # gru_unit_op: u weights the candidate
+    return {"Hidden": [h], "Gate": [xu], "ResetHiddenPrev": [r * h_prev]}
+
+
+@register("lstm_unit")
+def _lstm_unit(ctx, ins, attrs):
+    """Single LSTM step (reference: lstm_unit_op): X [B, 4D] pre-gates,
+    packed i, f, o, j (the candidate LAST, unlike lstm_op's
+    candidate-first order)."""
+    x = single(ins, "X")
+    c_prev = single(ins, "C_prev")
+    forget_bias = attrs.get("forget_bias", 0.0)
+    gi, gf, go, gj = x.chunk(4, dim=-1)
+    c = torch.sigmoid(gf + forget_bias) * c_prev + \
+        torch.sigmoid(gi) * torch.tanh(gj)
+    h = torch.sigmoid(go) * torch.tanh(c)
+    return {"C": [c], "H": [h]}
+
+
+@register("sequence_cache_write")
+def _sequence_cache_write(ctx, ins, attrs):
+    """Per-row timestep write into a [B, T, ...] cache: Out[b, Pos[b]] =
+    X[b], every other cell Cache's. A negative Pos counts from the end
+    and a Pos outside [-T, T) writes nothing, as the JAX rule's scatter
+    drops it; here the write is clamped and then masked, so no index
+    leaves the cache on the card."""
+    cache = single(ins, "Cache")                      # [B, T, ...]
+    x = single(ins, "X")                              # [B, ...]
+    pos = single(ins, "Pos").reshape(-1).to(torch.int64)   # [B]
+    b, t = cache.shape[:2]
+    pos = torch.where(pos < 0, pos + t, pos)
+    ok = (pos >= 0) & (pos < t)
+    rows = torch.arange(b, device=cache.device)
+    idx = pos.clamp(0, t - 1)
+    keep = ok.reshape((-1,) + (1,) * (cache.dim() - 2))
+    val = torch.where(keep, x.to(cache.dtype), cache[rows, idx])
+    return {"Out": [cache.index_put((rows, idx), val)]}

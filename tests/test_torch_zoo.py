@@ -2,9 +2,9 @@
 
 - Program bytes: each of models/zoo.py's nine names, built by the port at
   the zoo's config, serializes to the JAX package's bytes but for its
-  int64 -> int32 narrowing of inferred dtypes (x64 is off there). `srl`
-  raises naming ROADMAP A6 (linear_chain_crf). Zoo `transformer` takes the
-  JAX package's default, the dense attn_bias attention.
+  int64 -> int32 narrowing of inferred dtypes (x64 is off there). Zoo
+  `transformer` takes the JAX package's default, the dense attn_bias
+  attention.
 - Training: word2vec, ctr, recommender, language_model, transformer (zoo
   configs; the transformer's dense feeds from the port's prepare_batch,
   which equals the JAX package's) and fit_a_line (book chapter 01:
@@ -103,18 +103,18 @@ def test_zoo_has_the_jax_names():
         tzoo.build("alexnet")
 
 
-@pytest.mark.parametrize("name", sorted(set(jzoo.names()) - {"srl"}))
+# vars the JAX package narrows from int64 to int32: at most 2 a model,
+# but srl's 4 (its Viterbi path and chunk_eval's three counts)
+NARROWED = {"srl": 4}
+
+
+@pytest.mark.parametrize("name", sorted(jzoo.names()))
 def test_zoo_program_matches_the_jax_one(name):
     tmain, tstartup = tzoo.build(name)
     jmain, jstartup = jzoo.build(name)
-    assert _same_bytes(jmain, tmain) <= 2
+    assert _same_bytes(jmain, tmain) <= NARROWED.get(name, 2)
     assert tdesc.program_to_bytes(tstartup) == \
         jdesc.program_to_bytes(jstartup)
-
-
-def test_zoo_srl_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tzoo.build("srl")
 
 
 def test_zoo_models_take_their_ops():
