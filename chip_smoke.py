@@ -15,8 +15,10 @@ translator of book chapter 08 at the reference benchmark's widths, the
 DeepASR stacked-LSTMP acoustic model at its train.py widths, book
 chapter 02's LeNet, ResNet-50, VGG-16, AlexNet, GoogLeNet and
 SE-ResNeXt-50 at 224 x 224, the CTR model, the recommender, word2vec and
-the PTB language model at their defaults, and book chapter 07's semantic
-role labeller at the book's widths, with random weights from the fixed
+the PTB language model at their defaults, book chapter 07's semantic
+role labeller at the book's widths, the CRNN-CTC OCR model at the
+PaddlePaddle models repo's settings, and the beam decoders of
+Transformer-base and the translator, with random weights from the fixed
 seed SEED.
 
 Phases, each reported on lines of its own; any failure exits non-zero:
@@ -458,6 +460,45 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               the torch loop in the port and the lax.scan in the JAX
               package. Phase 25 also runs this training as its seventh
               path. An `srl_summary:` line sums up.
+29. ocr      — the CRNN-CTC OCR model (ocr_recognition.ctc_train_net: four
+              conv-bn-pool groups of 16, 32, 64, 128 channels,
+              im2sequence into 24 columns of 384 features, a relu-
+              candidate bidirectional GRU of 200, 95 classes and the blank,
+              warpctc with norm_by_times, Momentum 0.9 at 1e-3; see OCR)
+              trained on batch 32 of 1 x 48 x 384 images of 1-12 glyphs:
+              TRAIN_STEPS steps and a traced one (--trace PATH keeps PATH's
+              stem + _ocr.json), losses finite and falling; the is_test
+              encoder's greedy decode (ctc_greedy_decoder) and edit
+              distance on the batch; warpctc's eager forward beside
+              F.ctc_loss on the same feasible logits [32, 24, 96] (within
+              CTC_TOL). One step at two conv groups, batch 4, on the card
+              and on the CPU (phase 5's tolerances). The is_test encoder
+              with the greedy decoder saved (the decode and its lengths as
+              targets) and served by InferenceEngine(batch_buckets=[1, 4,
+              8, 16]) to 16 one-image requests: each answer equal to
+              run_direct at its bucket and to a CPU engine's, exactly.
+              K1-K9: 0 launches. An `ocr_summary:` line sums up.
+30. decode   — beam decoding through While, tensor arrays, beam_search and
+              beam_search_decode: Transformer-base (MODEL, N_LAYER
+              layers) trained DECODE_TRAIN_STEPS steps as phase 5 trains
+              it, then build_cached_decode and build_decode for 8 source
+              sentences of 16-64 tokens, beam 4, max_out_len 64 (DECODE):
+              ids [8, 4, 65] from BOS, the two decodes equal for the first
+              DECODE_SAME_TOKENS tokens, K5 once per layer_norm outside the
+              loop and once per loop-block layer_norm an iteration; the
+              cached decode cut to DECODE_SAME_TOKENS tokens on the card
+              and on the CPU: ids equal, scores within DECODE_SCORE_RTOL.
+              The attention translator at phase 8's widths trained
+              DECODE_TRAIN_STEPS steps, then its build_decode (beam 4,
+              MT_DECODE_LEN steps) for phase 8's 16 sentences. For each
+              decode: host ms (a token's), device ms under the profiler,
+              and the synchronizing calls (set_sync_debug_mode("warn"): at
+              most the loop's condition reads, the assertion read and one
+              constant's copy). Then a While writing past its array's
+              capacity raises the JAX package's RuntimeError and K5 still
+              runs after it (no device-side assert), and steps=4 on a
+              While program raises GraphCaptureError. A `decode_summary:`
+              line sums up.
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run; the bf16 flash kernels counted under
@@ -466,6 +507,7 @@ last lines are one JSON object listing every kernel with its launches by
 path, the card line, and `{"ok": true, "device": {...}}`.
 """
 import argparse
+import collections
 import json
 import os
 import shutil
@@ -1033,14 +1075,19 @@ def run_kernels(torch, ck, peak_flops, peak_bw, tc_flops, bf16_flops,
     }
     del logits
 
-    # K5: layer norm forward, checked at a serving dispatch's rows and the
-    # training step's, timed at the first
+    # K5: layer norm forward, checked at a serving dispatch's rows, the
+    # training step's and the beam decodes' (phase 30), timed at the first
+    # and at the decodes'
     dm = MODEL["d_model"]
     sc = torch.randn((dm,), generator=g, device=dev)
     bi = torch.randn((dm,), generator=g, device=dev)
     ln_err = 0.0
-    for n in (TRAIN_BATCH * t_max, 2048):
+    decode_rows = (DECODE["sentences"] * DECODE["beam"],
+                   DECODE["sentences"] * DECODE["beam"] * t_max)
+    decode_x = {}
+    for n in (TRAIN_BATCH * t_max,) + decode_rows + (2048,):
         x = torch.randn((n, dm), generator=g, device=dev)
+        decode_x[n] = x
         y, mean, var = ck.layer_norm_fwd(x, sc, bi, 1e-5)
         ry, rmean, rvar = ck.layer_norm_fwd_plain(x, sc, bi, 1e-5)
         torch.cuda.synchronize()
@@ -1066,6 +1113,25 @@ def run_kernels(torch, ck, peak_flops, peak_bw, tc_flops, bf16_flops,
         "eager_ms": eager_ms(
             torch, lambda: ck.layer_norm_fwd(x, sc, bi, 1e-5)),
     }
+    # the beam decodes' rows (phase 30): a cached-decode step's [B*K, 512]
+    # and a full-decode step's [B*K*T, 512]
+    results["layer_norm_fwd"]["decode_shapes"] = []
+    for kind, n in zip(("cached", "full"), decode_rows):
+        xd = decode_x[n]
+        bms_d, bby_d = bound(8 * n * dm, 4 * (2 * n * dm + 2 * dm + 2 * n),
+                             peak_flops, peak_bw)
+        results["layer_norm_fwd"]["decode_shapes"].append({
+            "decode": kind, "shape": "x [%d,%d] fp32" % (n, dm),
+            "ms": time_ms(torch, lambda: ck.layer_norm_fwd(xd, sc, bi,
+                                                           1e-5)),
+            "plain_ms": time_ms(
+                torch, lambda: ck.layer_norm_fwd_plain(xd, sc, bi, 1e-5)),
+            "library_ms": time_ms(
+                torch, lambda: F.layer_norm(xd, (dm,), sc, bi, 1e-5)),
+            "bound_ms": bms_d, "bound_by": bby_d})
+        print("kernels: layer_norm decode %s %s" % (
+            kind, json.dumps(results["layer_norm_fwd"]["decode_shapes"][-1])))
+    del decode_x
     for r in results.values():
         print("kernels: %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
               "bound_ms=%.4f (%s)%s"
@@ -3622,7 +3688,8 @@ def build_sentiment(fluid, kind):
 
 def serve_burst(engine, requests, fetch):
     """The requests, all at once from as many client threads, each
-    answer's `fetch`: (answers, latencies in s, futures, wall s)."""
+    answer's `fetch` (every fetch, as a dict, for None): (answers,
+    latencies in s, futures, wall s)."""
     n = len(requests)
     answers, latencies, futures = [None] * n, [None] * n, [None] * n
     errors = []
@@ -3633,7 +3700,8 @@ def serve_burst(engine, requests, fetch):
             barrier.wait()
             ts = time.perf_counter()
             fut = engine.submit(requests[i])
-            answers[i] = fut.result(600).numpy()[fetch]
+            out = fut.result(600).numpy()
+            answers[i] = out if fetch is None else out[fetch]
             latencies[i] = time.perf_counter() - ts
             futures[i] = fut
         except Exception as e:  # noqa: BLE001 — reported below
@@ -6085,12 +6153,12 @@ def _step2_prog(fluid):
     return main, startup, out, counter
 
 
-def _sync_warnings(torch, fn):
+def _sync_warnings(torch, fn, tag="sequence ops"):
     """(fn()'s result, the number of synchronizing CUDA calls it made),
     counted by torch.cuda.set_sync_debug_mode("warn") (its "called a
     synchronizing CUDA operation" warnings; setting the mode warns too,
-    and is not counted); each is printed with the Python line that made
-    it."""
+    and is not counted); the Python lines that made them are printed,
+    each with its count, after `tag`."""
     import traceback
     import warnings
     mode = torch.cuda.get_sync_debug_mode()
@@ -6112,8 +6180,9 @@ def _sync_warnings(torch, fn):
         finally:
             torch.cuda.set_sync_debug_mode(mode)
     torch.cuda.synchronize()
-    for w in where:
-        print("sequence ops: synchronizing call at %s" % w)
+    for w, n in collections.Counter(where).items():
+        print("%s: synchronizing call%s at %s" % (
+            tag, " x %d" % n if n > 1 else "", w))
     return out, len(where)
 
 
@@ -6449,6 +6518,591 @@ def run_srl_serving(torch, card, scope):
     return (counts, dict.fromkeys(counts, 0)), report
 
 
+# ------------------------------------------------------------------ ocr --
+
+# phase 29: the CRNN-CTC OCR model (models/ocr_recognition.py ctc_train_net)
+# at the settings of the PaddlePaddle models repo's fluid/ocr_recognition
+# CRNN-CTC as far as the JAX function's arguments express them: channels
+# (16, 32, 64, 128), rnn_hidden_size 200, 1 x 48 x 384 grey images, 95
+# classes and the blank, batch 32, Momentum 0.9 at 1e-3. Four conv groups
+# halve each side four times: 24 columns of 3 x 128 = 384 features. The
+# images are each label's glyphs side by side, a glyph a fixed random
+# 48 x 32 pattern of its class drawn from the seed; labels 1-12 characters
+# (12 labels with repeats need at most 23 of the 24 steps)
+OCR = dict(classes=95, hidden=200, channels=(16, 32, 64, 128), height=48,
+           width=384, glyph=32, batch=32, lr=1e-3, min_chars=1,
+           max_chars=12)
+OCR_SMALL = dict(OCR, channels=(16, 32), batch=4)  # the card-vs-CPU step
+OCR_SERVE = dict(requests=16, buckets=[1, 4, 8, 16])
+CTC_TOL = 1e-4   # warpctc vs F.ctc_loss, relative (fp32, another order)
+
+
+def ocr_batch(cfg, rng, n):
+    """n images of 1-12 glyphs and their label sequences: (images [n, 1,
+    H, W] float32, [labels [k, 1] int64])."""
+    book = (np.random.RandomState(SEED + 290).rand(
+        cfg["classes"], cfg["height"], cfg["glyph"]) < 0.5).astype("float32")
+    imgs = np.zeros((n, 1, cfg["height"], cfg["width"]), "float32")
+    labels = []
+    for i in range(n):
+        chars = rng.randint(0, cfg["classes"],
+                            rng.randint(cfg["min_chars"],
+                                        cfg["max_chars"] + 1))
+        for j, c in enumerate(chars):
+            imgs[i, 0, :, j * cfg["glyph"]:(j + 1) * cfg["glyph"]] = book[c]
+        labels.append(chars.reshape(-1, 1).astype("int64"))
+    return imgs, labels
+
+
+def build_ocr(fluid, cfg):
+    """ctc_train_net at cfg: (main, startup, sum_cost)."""
+    from paddle_tpu_torch.models import ocr_recognition as ocr
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        images = fluid.layers.data(name="pixel", shape=[
+            1, cfg["height"], cfg["width"]], dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64",
+                                  lod_level=1)
+        sum_cost, _, _, _ = ocr.ctc_train_net(
+            images, label, cfg["classes"], learning_rate=cfg["lr"],
+            rnn_hidden_size=cfg["hidden"], channels=cfg["channels"])
+    return main, startup, sum_cost
+
+
+def build_ocr_infer(fluid, cfg, with_label=False):
+    """The is_test encoder and the greedy decoder (and, with_label, the
+    edit distance against a label), built apart from the training program
+    with its parameter names: (program, [decoded, its lengths(, distance)
+    ])."""
+    from paddle_tpu_torch.models import ocr_recognition as ocr
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        images = fluid.layers.data(name="pixel", shape=[
+            1, cfg["height"], cfg["width"]], dtype="float32")
+        fc_out = ocr.encoder_net(images, cfg["classes"], is_test=True,
+                                 rnn_hidden_size=cfg["hidden"],
+                                 channels=cfg["channels"])
+        decoded = fluid.layers.ctc_greedy_decoder(input=fc_out,
+                                                  blank=cfg["classes"])
+        fetch = [decoded, main.global_block().var(decoded.seq_len_var)]
+        if with_label:
+            label = fluid.layers.data(name="label", shape=[1],
+                                      dtype="int64", lod_level=1)
+            fetch.append(fluid.layers.edit_distance(
+                input=decoded, label=label, normalized=True)[0])
+    return main, fetch
+
+
+def run_warpctc_vs_library(torch, labels, steps, classes):
+    """warpctc's eager forward (the port's alpha loop) against
+    F.ctc_loss on the same feasible input: logits [B, steps, classes + 1]
+    from the seed, the batch's labels, blank = classes. The losses within
+    CTC_TOL relative; returns their ms (eager, host included) and the
+    error."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.core import registry
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 291)
+    b = len(labels)
+    logits = torch.randn((b, steps, classes + 1), generator=g, device=dev)
+    u = max(len(x) for x in labels)
+    lab = np.zeros((b, u), "int64")
+    for i, x in enumerate(labels):
+        lab[i, :len(x)] = x[:, 0]
+    label = torch.from_numpy(lab).to(dev)
+    xlen = torch.full((b,), steps, dtype=torch.int32, device=dev)
+    llen = torch.tensor([len(x) for x in labels], dtype=torch.int32,
+                        device=dev)
+    ins = {"Logits": [logits], "Label": [label], "XLen": [xlen],
+           "LabelLen": [llen]}
+    attrs = {"blank": classes, "norm_by_times": True}
+    rule = registry.get("warpctc").lower
+
+    def port():
+        return rule(None, ins, attrs)["Loss"][0]
+
+    def library():
+        lp = torch.log_softmax(logits, -1).transpose(0, 1)
+        return F.ctc_loss(lp, label, xlen, llen, blank=classes,
+                          reduction="none")
+
+    with torch.no_grad():
+        got, want = port()[:, 0], library()
+        torch.cuda.synchronize()
+        err = float(((got - want).abs() / want.abs()).max())
+        ms, lib_ms = eager_ms(torch, port, 10, 5), eager_ms(torch, library,
+                                                            10, 5)
+    check(np.isfinite(err) and err <= CTC_TOL,
+          "ocr: warpctc and F.ctc_loss differ by %r relative" % err)
+    return {"shape": [b, steps, classes + 1], "labels": [
+        min(len(x) for x in labels), u], "max_rel_err": err,
+        "eager_ms": ms, "f_ctc_loss_eager_ms": lib_ms}
+
+
+def run_ocr_training(torch, card, trace_path=None):
+    """Phase 29's training and evaluation: ctc_train_net at OCR's settings
+    on the card, TRAIN_STEPS Momentum steps on one batch and a traced one
+    (train_steps), then the is_test encoder's greedy decode and edit
+    distance on the batch; warpctc's eager forward beside F.ctc_loss's.
+    Returns ((launch counts, predicted: none of K1-K9), the report, the
+    trained scope)."""
+    import paddle_tpu_torch as fluid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = OCR
+    t0 = time.perf_counter()
+    main, startup, sum_cost = build_ocr(fluid, cfg)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(int(np.prod(scope.get(p.name).shape))
+                   for p in main.all_parameters())
+    ops = main.global_block().ops
+    print("ocr: built ctc_train_net (channels %s, hidden %d, %d classes, "
+          "%d parameters, %d ops) and ran its startup program in %.1f s"
+          % (list(cfg["channels"]), cfg["hidden"], cfg["classes"], n_params,
+             len(ops), time.perf_counter() - t0))
+    rng = np.random.RandomState(SEED + 292)
+    imgs, labels = ocr_batch(cfg, rng, cfg["batch"])
+    feed = {"pixel": imgs, "label": fluid.LoDTensor.from_sequences(labels)}
+    report, counts, _ = train_steps(torch, "ocr: training", exe, main, feed,
+                                    sum_cost, scope, trace_path,
+                                    cfg["batch"], "images")
+    infer, fetch = build_ocr_infer(fluid, cfg, with_label=True)
+    decoded, lens, dist = exe.run(infer, feed=feed, fetch_list=fetch,
+                                  scope=scope)
+    steps = cfg["width"] // 2 ** len(cfg["channels"])
+    check(decoded.shape == (cfg["batch"], steps) and (lens <= steps).all()
+          and ((decoded >= 0) & (decoded < cfg["classes"])).all()
+          and np.isfinite(dist).all(),
+          "ocr: the greedy decode %s, lengths %s, distances %s"
+          % (decoded.shape, lens.tolist(), dist.ravel().tolist()))
+    evaluation = {"mean_edit_distance": float(dist.mean()),
+                  "decoded_lengths": [int(lens.min()), int(lens.max())],
+                  "label_lengths": [min(len(x) for x in labels),
+                                    max(len(x) for x in labels)],
+                  "first_decode": decoded[0, :int(lens[0])].tolist(),
+                  "first_label": labels[0][:, 0].tolist()}
+    print("ocr: evaluation (is_test, greedy decode + edit distance) "
+          + json.dumps(evaluation))
+    ctc = run_warpctc_vs_library(torch, labels, steps, cfg["classes"])
+    print("ocr: warpctc " + json.dumps(ctc))
+    report = {"classes": cfg["classes"], "hidden": cfg["hidden"],
+              "channels": list(cfg["channels"]),
+              "image": [1, cfg["height"], cfg["width"]],
+              "batch": cfg["batch"], "steps_t": steps,
+              "parameters": n_params, **report, "evaluation": evaluation,
+              "warpctc": ctc,
+              "port_kernels": "none launched: no op of the path reaches "
+              "K1-K9 (the GRU's relu candidate runs the torch loop; the "
+              "JAX package has no Pallas GRU or CTC kernel)", "card": card}
+    print("ocr: training " + json.dumps(report))
+    return (counts, dict.fromkeys(counts, 0)), report, scope
+
+
+def run_ocr_training_vs_cpu(torch):
+    """One Momentum step of ctc_train_net at OCR's widths and half its
+    depth (two conv groups: 96 steps of 384 features), batch 4, on the
+    card and on the CPU from the same state (step_vs_cpu)."""
+    import paddle_tpu_torch as fluid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = OCR_SMALL
+    main, startup, sum_cost = build_ocr(fluid, cfg)
+    imgs, labels = ocr_batch(cfg, np.random.RandomState(SEED + 293),
+                             cfg["batch"])
+    step_vs_cpu(main, startup, sum_cost, {
+        "pixel": imgs, "label": fluid.LoDTensor.from_sequences(labels)},
+        cfg["lr"], "ocr: one step at channels %s, batch %d"
+        % (list(cfg["channels"]), cfg["batch"]))
+
+
+def run_ocr_serving(torch, card, scope):
+    """Phase 29's serving: the is_test encoder with the greedy decoder
+    saved with the trained scope (its decode and the decode's lengths as
+    targets) and served by InferenceEngine on the card (OCR_SERVE's
+    buckets) to a burst of 16 one-image requests. Checks: each answer
+    equal to run_direct at its bucket and to a CPU engine's run_direct at
+    the same bucket (exact), classes in range, zero past its length, no
+    port kernel launched. Returns ((counts, predicted), the report)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    cfg, serve = OCR, OCR_SERVE
+    infer, fetch = build_ocr_infer(fluid, cfg)
+    imgs, labels = ocr_batch(cfg, np.random.RandomState(SEED + 294),
+                             serve["requests"])
+    requests = [{"pixel": img[None]} for img in imgs]
+    with tempfile.TemporaryDirectory(prefix="ptt_ocr_") as tmp:
+        path = os.path.join(tmp, "ocr")
+        pio.save_inference_model(path, ["pixel"], fetch, fluid.Executor(),
+                                 main_program=infer, scope=scope)
+        t0 = time.perf_counter()
+        engine = InferenceEngine(path, batch_buckets=serve["buckets"])
+        warm_s = time.perf_counter() - t0
+        try:
+            names = engine.fetch_names
+            ck.reset_launch_counts()
+            b0 = engine.metrics.snapshot()["batches_total"]
+            answers, latencies, futures, wall = serve_burst(engine,
+                                                            requests, None)
+            counts = ck.launch_counts()
+            batches = engine.metrics.snapshot()["batches_total"] - b0
+            direct = [engine.run_direct(r, batch_bucket=f.bucket[0])[0]
+                      for r, f in zip(requests, futures)]
+        finally:
+            engine.close()
+        cpu = InferenceEngine(path, device="cpu",
+                              batch_buckets=serve["buckets"], warmup=False)
+        try:
+            on_cpu = [cpu.run_direct(r, batch_bucket=f.bucket[0])[0]
+                      for r, f in zip(requests, futures)]
+        finally:
+            cpu.close()
+    steps = cfg["width"] // 2 ** len(cfg["channels"])
+    for i, (ans, d, c) in enumerate(zip(answers, direct, on_cpu)):
+        dec, n = ans[names[0]], int(ans[names[1]][0])
+        check(dec.shape == (1, steps) and dec.dtype == np.int64,
+              "ocr: answer %d is %s %s" % (i, dec.shape, dec.dtype))
+        for name in names:
+            check(np.array_equal(ans[name], d[name]), "ocr: answer %d's %s "
+                  "differs from run_direct at its bucket" % (i, name))
+            check(np.array_equal(ans[name], c[name]), "ocr: answer %d's %s "
+                  "differs from the CPU engine's" % (i, name))
+        check(not dec[0, n:].any() and ((dec[0, :n] >= 0) &
+                                        (dec[0, :n] < cfg["classes"])).all(),
+              "ocr: answer %d has classes outside [0, %d) or past its "
+              "length %d" % (i, cfg["classes"], n))
+    lat_ms = sorted(x * 1e3 for x in latencies)
+    report = {"requests": serve["requests"], "batches": batches,
+              "warmup_s": warm_s, "p50_ms": float(np.percentile(lat_ms, 50)),
+              "p99_ms": float(np.percentile(lat_ms, 99)), "wall_s": wall,
+              "images_per_s": serve["requests"] / wall,
+              "buckets": sorted(set(f.bucket for f in futures)),
+              "decoded_lengths": [int(a[names[1]][0]) for a in answers],
+              "equal_to_run_direct_and_cpu": True, "card": card}
+    print("ocr: serving " + json.dumps(report))
+    return (counts, dict.fromkeys(counts, 0)), report
+
+
+# --------------------------------------------------------------- decode --
+
+# phase 30: beam decoding through While, tensor arrays and beam_search.
+# Transformer-base at bench.py's widths (MODEL, N_LAYER layers) trained
+# as phase 5's fp32 program is (DECODE_TRAIN_STEPS steps of its copy
+# task), then build_cached_decode and build_decode for 8 source
+# sentences of 16-64 tokens, beam 4, max_out_len 64 (the cut: 64 of the
+# 255 output tokens max_length 256 allows); the attention translator at
+# phase 8's widths (MT) trained DECODE_TRAIN_STEPS Adam steps, then
+# build_decode, beam 4, max_length MT_DECODE_LEN, for phase 8's 16
+# source sentences
+DECODE = dict(sentences=8, beam=4, max_out_len=64, min_len=16, max_len=64,
+              bos=1, eos=2)
+DECODE_TRAIN_STEPS = 2
+DECODE_SAME_TOKENS = 8   # cached = full, and card = CPU, for this many
+DECODE_SCORE_RTOL = 1e-4  # card vs CPU sentence scores (fp32, 8 steps)
+MT_DECODE_LEN = 32
+
+
+def transformer_decode_program(fluid, transformer, cached, max_out_len):
+    """build_cached_decode (cached) or build_decode at MODEL's widths:
+    (program, [sentence ids, sentence scores])."""
+    fn = (transformer.build_cached_decode if cached
+          else transformer.build_decode)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = fn(MODEL["vocab"], MODEL["vocab"], MODEL["max_length"],
+                 n_layer=N_LAYER, n_head=MODEL["n_head"],
+                 d_key=MODEL["d_key"], d_value=MODEL["d_key"],
+                 d_model=MODEL["d_model"], d_inner_hid=MODEL["d_inner"],
+                 beam_size=DECODE["beam"], max_out_len=max_out_len,
+                 bos_id=DECODE["bos"], eos_id=DECODE["eos"])
+    return main, list(out)
+
+
+def while_iterations(program):
+    """The iterations of `program`'s one While: its counter's limit, the
+    fill_constant feeding the condition's less_than."""
+    ops = program.global_block().ops
+    wop = next(op for op in ops if op.type == "while")
+    cond = wop.inputs["Condition"][0]
+    less = next(op for op in ops if op.type == "less_than"
+                and op.outputs["Out"][0] == cond)
+    limit = next(op for op in ops if op.type == "fill_constant"
+                 and op.outputs["Out"][0] == less.inputs["Y"][0])
+    return int(limit.attrs["value"]), program.blocks[wop.attrs["sub_block"]]
+
+
+def run_one_decode(torch, tag, exe, program, fetch, feed, scope, steps):
+    """One decode program on the card: its fetches and launch counts from
+    a first run, its host wall ms (call_ms), its synchronizing calls
+    (_sync_warnings, fetching device tensors so only the run's own are
+    counted) and its device ms (device_busy_ms). Returns (fetches,
+    counts, report)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    ck.reset_launch_counts()
+    out = exe.run(program, feed=feed, fetch_list=fetch, scope=scope)
+    counts = ck.launch_counts()
+    wall = call_ms(torch, lambda: exe.run(program, feed=feed,
+                                          fetch_list=fetch, scope=scope))
+    _, syncs = _sync_warnings(
+        torch, lambda: exe.run(program, feed=feed, fetch_list=fetch,
+                               scope=scope, return_numpy=False), tag)
+    busy, port, prof_wall = device_busy_ms(
+        torch, lambda: exe.run(program, feed=feed, fetch_list=fetch,
+                               scope=scope))
+    report = {"wall_ms": wall, "ms_per_output_token": wall / steps,
+              "device_busy_ms": busy, "port_kernel_ms": port,
+              "traced_wall_ms": prof_wall,
+              "idle_share_est": 1 - busy / wall,
+              "synchronizing_calls": syncs, "loop_iterations": steps}
+    print("%s: %s" % (tag, json.dumps(report)))
+    # the condition's steps + 1 reads, the assertion flags' one read, and
+    # in the cached decode one copy of an assign_value constant (pos_row)
+    # to the card before the loop
+    check(syncs <= steps + 3, "%s made %d synchronizing calls for %d "
+          "iterations: the loop reads more than its condition" % (tag, syncs,
+                                                                  steps))
+    return out, counts, report
+
+
+def run_transformer_decode(torch, card):
+    """Phase 30's Transformer-base decodes (see DECODE): trained as phase
+    5 trains, then the cached and the full decode on the card (ids of
+    [8, 4, 65], BOS first, finite scores; the two equal for the first
+    DECODE_SAME_TOKENS tokens), K5 once per layer_norm op of the program
+    outside the loop and once per op of the loop's block per iteration;
+    then the cached decode cut to DECODE_SAME_TOKENS tokens on the card
+    and on the CPU: the same ids, the scores within DECODE_SCORE_RTOL.
+    Returns ([(path, (counts, predicted))], the report)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    main, startup, avg_cost = build_train(fluid, transformer, N_LAYER)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    t_max = MODEL["max_length"]
+    srcs = [rng.randint(3, MODEL["vocab"], t_max).tolist()
+            for _ in range(TRAIN_BATCH)]
+    feed = transformer.prepare_batch(srcs, srcs, t_max, labels=True)
+    losses = [float(exe.run(main, feed=feed, fetch_list=[avg_cost],
+                            scope=scope)[0][0])
+              for _ in range(DECODE_TRAIN_STEPS)]
+    print("decode: trained Transformer-base (phase 5's fp32 program) %d "
+          "steps, losses %s, in %.1f s" % (DECODE_TRAIN_STEPS, losses,
+                                           time.perf_counter() - t0))
+    del main, feed
+    rng = np.random.RandomState(SEED + 300)
+    sents = [rng.randint(3, MODEL["vocab"], rng.randint(
+        DECODE["min_len"], DECODE["max_len"] + 1)).tolist()
+        for _ in range(DECODE["sentences"])]
+    args = (sents, t_max, MODEL["n_head"], DECODE["beam"])
+    paths, report, ids = [], {"train_losses": losses}, {}
+    for kind, cached, prep in (
+            ("cached", True, transformer.prepare_cached_decode_batch),
+            ("full", False, transformer.prepare_decode_batch)):
+        prog, fetch = transformer_decode_program(fluid, transformer, cached,
+                                                 DECODE["max_out_len"])
+        steps, sub = while_iterations(prog)
+        n_ln = (sum(op.type == "layer_norm"
+                    for op in prog.global_block().ops),
+                sum(op.type == "layer_norm" for op in sub.ops))
+        tag = "decode: transformer %s" % kind
+        (sid, sscore), counts, r = run_one_decode(
+            torch, tag, exe, prog, fetch, prep(*args), scope, steps)
+        check(sid.shape == (DECODE["sentences"], DECODE["beam"], steps + 1)
+              and (sid[:, :, 0] == DECODE["bos"]).all()
+              and np.isfinite(sscore).all(),
+              "%s: ids %s, scores %s" % (tag, sid.shape, sscore))
+        expected = dict.fromkeys(counts, 0)
+        expected["layer_norm_fwd"] = n_ln[0] + n_ln[1] * steps
+        r.update({"layer_norm_ops": {"outside_loop": n_ln[0],
+                                     "per_iteration": n_ln[1]},
+                  "k5_launches": counts["layer_norm_fwd"],
+                  "k5_per_iteration": n_ln[1], "first_beam": sid[0, 0,
+                                                              :12].tolist()})
+        report[kind], ids[kind] = r, sid
+        paths.append(("transformer_%s_decode" % kind, (counts, expected)))
+        del prog
+    same = DECODE_SAME_TOKENS + 1
+    check(np.array_equal(ids["cached"][:, :, :same],
+                         ids["full"][:, :, :same]),
+          "decode: the cached and the full decode differ within the first "
+          "%d tokens" % DECODE_SAME_TOKENS)
+    report["cached_equals_full_tokens"] = int(next(
+        (t for t in range(1, steps + 1)
+         if not np.array_equal(ids["cached"][:, :, t], ids["full"][:, :, t])),
+        steps + 1) - 1)
+    # the cached decode cut to DECODE_SAME_TOKENS tokens, card vs CPU
+    prog, fetch = transformer_decode_program(fluid, transformer, True,
+                                             DECODE_SAME_TOKENS)
+    feed = transformer.prepare_cached_decode_batch(*args)
+    card_out = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+    state = {v.name: scope.get(v.name).cpu().numpy()
+             for v in prog.list_vars() if v.persistable}
+    t0 = time.perf_counter()
+    cpu_out = fluid.Executor("cpu").run(
+        prog, feed=feed, fetch_list=fetch,
+        scope=pio.scope_from_numpy(state, "cpu", program=prog))
+    cpu_s = time.perf_counter() - t0
+    score_err = float((np.abs(card_out[1] - cpu_out[1])
+                       / np.abs(cpu_out[1])).max())
+    print("decode: the cached decode cut to %d tokens, card vs CPU: ids "
+          "equal %s, scores max relative error %.3e (the CPU took %.1f s)"
+          % (DECODE_SAME_TOKENS, np.array_equal(card_out[0], cpu_out[0]),
+             score_err, cpu_s))
+    check(np.array_equal(card_out[0], cpu_out[0]),
+          "decode: the card's and the CPU's cached decodes differ")
+    check(score_err <= DECODE_SCORE_RTOL, "decode: the card's and the "
+          "CPU's sentence scores differ by %r relative" % score_err)
+    report["card_vs_cpu"] = {"tokens": DECODE_SAME_TOKENS,
+                             "ids_equal": True,
+                             "score_max_rel_err": score_err}
+    del scope
+    torch.cuda.empty_cache()
+    return paths, report
+
+
+def run_translator_decode(torch, card):
+    """Phase 30's translator decode: build_train at MT's widths trained
+    DECODE_TRAIN_STEPS Adam steps on phase 8's batch, then build_decode
+    (attention, beam 4, max_length MT_DECODE_LEN) for its 16 source
+    sentences: ids [16, 4, MT_DECODE_LEN + 1] from the start id, finite
+    scores, no port kernel. Returns ((counts, predicted), the report)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import machine_translation
+
+    main, startup, avg_cost = build_mt_train(fluid, MT)
+    exe, scope = fluid.Executor(), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed, _ = mt_feed(fluid, MT, SEED)
+    losses = [float(exe.run(main, feed=feed, fetch_list=[avg_cost],
+                            scope=scope)[0][0])
+              for _ in range(DECODE_TRAIN_STEPS)]
+    prog, dstartup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog, dstartup):
+        fetch = machine_translation.build_decode(
+            dict_size=MT["dict_size"], word_dim=MT["word"],
+            hidden_dim=MT["hidden"], decoder_size=MT["decoder"],
+            beam_size=DECODE["beam"], max_length=MT_DECODE_LEN,
+            start_id=DECODE["bos"], end_id=DECODE["eos"],
+            use_attention=True)
+    b = MT["batch"]
+    init_scores = np.zeros((b, DECODE["beam"]), "float32")
+    init_scores[:, 1:] = -1e9
+    dfeed = {"src_word_id": feed["src_word_id"],
+             "init_ids": np.full((b, DECODE["beam"]), DECODE["bos"],
+                                 "int64"),
+             "init_scores": init_scores}
+    steps, _ = while_iterations(prog)
+    (sid, sscore), counts, report = run_one_decode(
+        torch, "decode: translator", exe, prog, list(fetch), dfeed, scope,
+        steps)
+    check(sid.shape == (b, DECODE["beam"], steps + 1)
+          and (sid[:, :, 0] == DECODE["bos"]).all()
+          and np.isfinite(sscore).all(),
+          "decode: translator ids %s, scores %s" % (sid.shape, sscore))
+    report.update({"train_losses": losses, "sentences": b,
+                   "first_beam": sid[0, 0, :12].tolist()})
+    del scope
+    torch.cuda.empty_cache()
+    return (counts, dict.fromkeys(counts, 0)), report
+
+
+# the JAX package's text for a While writing past its array's capacity 4
+# (tests/test_torch_while.py holds the port to it on the CPU), %r the
+# array's name
+OVERFLOW_MESSAGE = (
+    "2 in-graph assertions tripped in this run:\n"
+    "- tensor array %r overflowed its capacity 4 inside traced "
+    "control flow; pass a larger capacity to create_array()\n"
+    "- a tensor array confined to a loop/conditional sub-block overflowed "
+    "its capacity inside traced control flow; pass a larger capacity to "
+    "create_array()")
+
+
+def overflow_program(fluid, capacity, iters):
+    """A While writing a new [4] value at index i + 1 for i < iters into
+    an array of `capacity`."""
+    layers = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        counter = layers.zeros(shape=[1], dtype="int32")
+        counter.stop_gradient = True
+        limit = layers.fill_constant(shape=[1], dtype="int32", value=iters)
+        arr = layers.create_array("float32", capacity=capacity)
+        x = layers.fill_constant(shape=[4], dtype="float32", value=1.0)
+        layers.array_write(x, counter, arr)
+        cond = layers.less_than(x=counter, y=limit)
+        while_op = layers.While(cond=cond)
+        with while_op.block():
+            v = layers.array_read(arr, counter)
+            layers.increment(counter, 1, in_place=True)
+            layers.array_write(layers.elementwise_add(x=v, y=x), counter,
+                               arr)
+            layers.less_than(x=counter, y=limit, cond=cond)
+        out = layers.array_read(arr, counter)
+    return main, out, arr.name
+
+
+def run_control_flow_checks(torch):
+    """Phase 30's checks of the loop machinery on the card: a While
+    writing past its array's capacity raises the JAX package's
+    RuntimeError, and the context still runs a kernel after it (K5
+    against its plain version: no device-side assert); within capacity
+    the loop gives 11; Executor.run(steps=4) on a program with a While
+    raises GraphCaptureError naming the op."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.lowering import GraphCaptureError
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    exe = fluid.Executor()
+    main, out, name = overflow_program(fluid, 4, 10)
+    try:
+        exe.run(main, fetch_list=[out], scope=fluid.Scope())
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised == OVERFLOW_MESSAGE % name, "decode: the overflowing "
+          "While raised %r" % raised)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 301)
+    x = torch.randn((32, MODEL["d_model"]), generator=g, device=dev)
+    sc, bi = x[0].clone(), x[1].clone()
+    y = ck.layer_norm_fwd(x, sc, bi, 1e-5)[0]
+    torch.cuda.synchronize()
+    err = float((y - ck.layer_norm_fwd_plain(x, sc, bi, 1e-5)[0]).abs().max())
+    check(err <= KERNEL_TOL, "decode: K5 after the overflow is %r from its "
+          "plain version" % err)
+    main, out, _ = overflow_program(fluid, 16, 10)
+    val, = exe.run(main, fetch_list=[out], scope=fluid.Scope())
+    check(np.array_equal(val, np.full(4, 11.0, "float32")),
+          "decode: the While within capacity gave %s" % val)
+    try:
+        exe.run(main, fetch_list=[out], scope=fluid.Scope(), steps=4)
+        refused = None
+    except GraphCaptureError as e:
+        refused = str(e)
+    check(refused is not None and "op 'while'" in refused,
+          "decode: steps=4 on a While program did not raise "
+          "GraphCaptureError naming the op: %r" % refused)
+    print("decode: an overflowing While raised the JAX package's message, "
+          "then K5 ran (max_abs_err %.3e against its plain version); "
+          "steps=4 on a While program raised GraphCaptureError: %s"
+          % (err, refused.split(":")[0]))
+    return {"overflow_raised": True, "k5_after_overflow_err": err,
+            "graph_capture_error": True}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
@@ -6509,8 +7163,9 @@ def main(argv=None):
                     "<PATH stem>_translation.json, the acoustic "
                     "model's as <PATH stem>_acoustic.json, the ResNet-50's "
                     "as <PATH stem>_resnet50_{fp32,bf16}.json, the dense "
-                    "zoo models' as <PATH stem>_<model>.json and the "
-                    "SRL's as <PATH stem>_srl.json")
+                    "zoo models' as <PATH stem>_<model>.json, the "
+                    "SRL's as <PATH stem>_srl.json and the OCR model's as "
+                    "<PATH stem>_ocr.json")
     args = ap.parse_args(argv)
 
     import torch
@@ -6693,6 +7348,31 @@ def main(argv=None):
             "sequence_ops_forward_ms": {
                 n: seq_ops[n]["forward_ms"] for n in (
                     "dynamic_gru", "linear_chain_crf", "crf_decoding")},
+            "card": card}))
+        run, ocr_train, ocr_scope = run_ocr_training(
+            torch, card, trace_path=stem and stem + "_ocr.json")
+        paths.append(("ocr_training", run))
+        run_ocr_training_vs_cpu(torch)
+        run, ocr_serve = run_ocr_serving(torch, card, ocr_scope)
+        paths.append(("ocr_serving", run))
+        del ocr_scope
+        torch.cuda.empty_cache()
+        print("ocr_summary: " + json.dumps({
+            "training": {k: ocr_train[k] for k in (
+                "step_ms_median", "images_per_s", "device_busy_ms",
+                "idle_share_est", "peak_mem_bytes", "device_kernels_per_step",
+                "launches_per_step", "losses", "evaluation", "warpctc")},
+            "serving": {k: ocr_serve[k] for k in (
+                "p50_ms", "p99_ms", "images_per_s", "batches")},
+            "card": card}))
+        decode_paths, transformer_decode = run_transformer_decode(torch, card)
+        paths += decode_paths
+        run, translator_decode = run_translator_decode(torch, card)
+        paths.append(("translator_decode", run))
+        loop_checks = run_control_flow_checks(torch)
+        print("decode_summary: " + json.dumps({
+            "transformer": transformer_decode,
+            "translator": translator_decode, "control_flow": loop_checks,
             "card": card}))
         print("clipping_summary: " + json.dumps({
             "fit_a_line": {k: v for k, v in clipping.items() if k != "card"},

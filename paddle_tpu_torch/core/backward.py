@@ -115,9 +115,11 @@ def _backward_sweep(block, path_flags, needed, no_grad, seed_names,
             # wins over registration so the diff_slots contract and the
             # grad implementation can never disagree
             diff_slots = SPECIAL_GRADS[op.type]["diff_slots"]
-        elif not registry.is_registered(op.type):
-            # structure-only specials (lod_rank_table, max_sequence_len,
-            # ...) produce no float outputs: if no output carries a
+        elif not registry.is_registered(op.type) or \
+                registry.get(op.type).special:
+            # special rules (while, conditional_block, the tensor array
+            # and rank table ops: the JAX package's register_special,
+            # outside its registry) keep no graph: if no output carries a
             # grad, there is nothing to differentiate — same skip the
             # generic path applies via its `produces` check below
             if any(n in has_grad for ns in op.outputs.values()

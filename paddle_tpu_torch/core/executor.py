@@ -231,7 +231,7 @@ def raise_program_errors(errors):
     combined flag in the clean case, each message's flag read only after
     it tripped; a RuntimeError listing every tripped message, sorted (the
     JAX package's jitted step returns its flags as a dict, which comes
-    back in key order)."""
+    back in key order), those naming a tensor array first."""
     if not errors:
         return
     flags = list(errors.values())
@@ -240,11 +240,26 @@ def raise_program_errors(errors):
     if not bool(any_flag):
         return
     tripped = sorted(m for m, f in errors.items() if bool(f))
+    # the JAX package's order: the messages naming an array lead
+    named = [m for m in tripped if m.startswith("tensor array '")]
+    tripped = named + [m for m in tripped if m not in named]
     if len(tripped) == 1:
         raise RuntimeError(tripped[0])
     raise RuntimeError(
         "%d in-graph assertions tripped in this run:\n- %s"
         % (len(tripped), "\n- ".join(tripped)))
+
+
+def array_safety_enabled():
+    """In-graph assertion checking (default on; the JAX package's
+    FLAGS_tensor_array_safety, read when an Executor is made). Checking
+    costs one host read of the combined flag per run of a program with an
+    asserting op or a tensor array; a decode loop that sizes its arrays
+    can set FLAGS_tensor_array_safety=0 to skip it, and then no
+    assertion raises, as in the JAX package (which keeps only its
+    numerical guards, which the port does not have yet)."""
+    return os.environ.get("FLAGS_tensor_array_safety", "1") not in (
+        "0", "false", "False")
 
 
 class DispatchTimeoutError(RuntimeError):
@@ -305,9 +320,10 @@ class Executor(object):
         # run cache key -> lowering.MultiStepRunner (steps > 1), LRU
         self._cache = collections.OrderedDict()
         # runs that read their in-graph assertion flags on the host: every
-        # run of a program with an asserting op (one read of the combined
-        # flag when none tripped), no other run
+        # run of a program with an asserting op or a tensor array (one read
+        # of the combined flag when none tripped), no other run
         self.flag_reads = 0
+        self._array_safety = array_safety_enabled()
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True, use_program_cache=True, steps=1,
@@ -412,7 +428,7 @@ class Executor(object):
         # raise: a caller that catches the assertion can still read it
         for name, value in new_state.items():
             scope.set(name, value)
-        if errors:
+        if errors and self._array_safety:
             self.flag_reads += 1
             raise_program_errors(errors)
         if return_numpy:

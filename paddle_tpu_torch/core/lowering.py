@@ -71,6 +71,8 @@ class LowerCtx(object):
     assertions (`add_error`)."""
 
     is_abstract = False
+    # whether the run is one step of Executor.run(steps=K) (_StepCtx)
+    in_multi_step = False
 
     def __init__(self, program, device, run_seed=0, is_startup=False,
                  unread=frozenset()):
@@ -102,9 +104,10 @@ class LowerCtx(object):
         """Record an in-graph assertion: `flag` (a 0-d bool tensor, never
         read here) is True where the program is at fault. Flags of one
         message combine by sticky OR. Inside a loop body (an enclosing
-        rnn_scan's step) it records nothing, as the JAX package's rule
-        records nothing inside a lax loop body, whose flags cannot leave
-        the trace."""
+        rnn_scan's step or while's iteration) it records nothing, as the
+        JAX package's rule records nothing inside a lax loop body, whose
+        flags cannot leave the trace; a tensor array's overflow flag
+        leaves a loop through PROGRAM_ERR instead."""
         if self._loop_iters:
             return
         prev = self.op_errors.get(message)
@@ -229,13 +232,43 @@ def unread_outputs(program, fetch_names=()):
                      for n in op.all_output_vars() if n and n not in read)
 
 
+# The reserved Env name of the OR of the overflow flags of tensor arrays
+# confined to a loop or conditional sub-block (the JAX package's
+# PROGRAM_ERR): the control-flow rules sweep a sub-block's arrays into it
+# (ops/control_ops.py), and lower_block turns it into an assertion.
+PROGRAM_ERR = "__tensor_array_overflow__"
+ARRAY_OVERFLOW = ("tensor array %r overflowed its capacity %d inside traced "
+                  "control flow; pass a larger capacity to create_array()")
+SUB_BLOCK_OVERFLOW = (
+    "a tensor array confined to a loop/conditional sub-block overflowed "
+    "its capacity inside traced control flow; pass a larger capacity to "
+    "create_array()")
+
+
+def accumulate_error(env, flag):
+    """OR `flag` into the Env's PROGRAM_ERR."""
+    cur = env.values.get(PROGRAM_ERR)
+    env.write(PROGRAM_ERR, flag if cur is None else cur | flag)
+
+
 def lower_block(ctx, block, env):
     """Run a program's global block: its `grad_of` ops name the forward
-    ops that keep their local graphs in this run."""
+    ops that keep their local graphs in this run. After it, every tensor
+    array left in the Env and the sub-blocks' PROGRAM_ERR become in-graph
+    assertions with the JAX package's messages (its build_program_fn
+    collect_errors); a program with neither adds none."""
     ctx.grad_stop = {op.attrs["fwd_uid"]:
                      frozenset(op.attrs.get("no_grad_names", ()))
                      for op in block.ops if op.type == "grad_of"}
     lower_sub_block(ctx, block, env)
+    from ..ops.control_ops import TensorArray
+    for name, v in list(env.values.items()):
+        if isinstance(v, TensorArray):
+            ctx.add_error(ARRAY_OVERFLOW % (name, v.buffer.shape[0]),
+                          v.overflow)
+    sub_err = env.values.get(PROGRAM_ERR)
+    if sub_err is not None:
+        ctx.add_error(SUB_BLOCK_OVERFLOW, sub_err)
 
 
 def lower_sub_block(ctx, block, env):
@@ -270,7 +303,7 @@ def _lower_op_inner(ctx, op, env):
     od = registry.get(op.type)
     stop = ctx.grad_stop.get(op.uid)
     if od.special:
-        if stop is not None:
+        if stop is not None and op.type not in SPECIAL_GRADS:
             raise NotImplementedError(
                 "op %r has a special rule, which keeps no graph: it cannot "
                 "be differentiated" % op.type)
@@ -324,9 +357,12 @@ def _write_outputs(op, outs, env):
                 env.write(name, val)
 
 
-# Forward op types whose gradient is hand-written rather than autograd's
-# (parity: the JAX package's SPECIAL_GRADS, whose one entry is a LoD op
-# the port does not have yet). backward.py reads the same table.
+# Forward op types whose gradient is hand-written rather than autograd's:
+# special rules that are differentiable (parity: the JAX package's
+# SPECIAL_GRADS; ops/control_ops.py registers its one entry,
+# reorder_lod_tensor_by_rank). Each entry: {"fn": fn(ctx, grad_of op,
+# env), "diff_slots": the input slots that receive a gradient}.
+# backward.py reads the same table.
 SPECIAL_GRADS = {}
 
 
@@ -459,6 +495,8 @@ class _StepCtx(LowerCtx):
     every step of the CPU's plain version) the call gets the next of
     those generators, which the runner reseeds before each step with the
     seed an eager run would draw."""
+
+    in_multi_step = True
 
     def __init__(self, program, device, run_seed, unread, gens=None):
         super(_StepCtx, self).__init__(program, device, run_seed=run_seed,

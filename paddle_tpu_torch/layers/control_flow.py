@@ -1,26 +1,30 @@
-"""Control-flow layers: StaticRNN, DynamicRNN, the compare layers and the
-scalar conditional blocks (ConditionalBlock, Switch).
+"""Control-flow layers: While, IfElse, StaticRNN, DynamicRNN, the scalar
+conditional blocks (ConditionalBlock, Switch), the tensor arrays, the
+rank tables and the compare layers.
 
 Parity: python/paddle/fluid/layers/control_flow.py and the JAX package's
-layers/control_flow.py — the same graph-building API (a step sub-block
-under a BlockGuard, step inputs, memories, outputs) emitting the same ONE
-`rnn_scan` op in the parent block, so both packages build the same Program.
-The op runs its step block once per time step (ops/control_ops.py). A
-Switch case is a conditional_block op over a sub-block, run on the device
-with no host sync (ops/control_ops.py).
-
-While, IfElse (ROADMAP A6), tensor arrays, rank tables and beam search are
-not ported yet: they come with the beam-search decode path. increment,
-is_empty and Print are the scalar helpers of the same module.
+layers/control_flow.py — the same graph-building API (sub-blocks under a
+BlockGuard, step inputs, memories, outputs, tensor arrays, rank tables)
+emitting the same ops, so both packages build the same Program. A
+StaticRNN or DynamicRNN is ONE `rnn_scan` op that runs its step block
+once per time step; a While is one `while` op that runs its block while
+its condition holds; a Switch case and each IfElse branch are a
+conditional_block op (ops/control_ops.py). increment, is_empty and Print
+are the scalar helpers of the same module.
 """
 from ..core import unique_name
 from ..core.framework import Variable
 from ..core.layer_helper import LayerHelper
 
-__all__ = ["StaticRNN", "DynamicRNN", "BlockGuard", "ConditionalBlock",
-           "ConditionalBlockGuard", "Switch", "less_than", "less_equal",
-           "greater_than", "greater_equal", "equal", "not_equal",
-           "increment", "is_empty", "Print"]
+__all__ = ["While", "WhileGuard", "IfElse", "StaticRNN", "DynamicRNN",
+           "BlockGuard", "ConditionalBlock", "ConditionalBlockGuard",
+           "Switch", "less_than", "less_equal", "greater_than",
+           "greater_equal", "equal", "not_equal", "increment", "is_empty",
+           "Print", "create_array", "array_write", "array_read",
+           "array_length", "lod_rank_table", "max_sequence_len",
+           "reorder_lod_tensor_by_rank", "shrink_memory",
+           "lod_tensor_to_array", "array_to_lod_tensor",
+           "split_lod_tensor", "merge_lod_tensor"]
 
 
 class BlockGuard(object):
@@ -308,9 +312,9 @@ class ConditionalBlock(object):
 
     Parity: control_flow.py ConditionalBlock / conditional_block_op.cc.
     The op lists the out vars' previous values as OutPrev inputs too, so
-    a persistable one reads its value from the Scope. Only the scalar
-    form runs in this port; the IfElse form (is_scalar_condition=False)
-    builds and raises when run (ROADMAP A6)."""
+    a persistable one reads its value from the Scope. With
+    is_scalar_condition=False it is an IfElse branch (IfElse builds
+    it)."""
 
     def __init__(self, inputs, is_scalar_condition=True, name=None):
         self.inputs = inputs
@@ -435,3 +439,319 @@ def Print(input, first_n=-1, message=None, summarize=-1,
     if input.shape is not None:
         out.shape = tuple(input.shape)
     return out
+
+
+# ------------------------------------------- tensor arrays, rank tables --
+
+def create_array(dtype, capacity=None):
+    """A LoDTensorArray var. `capacity` (the JAX package's extension)
+    fixes the buffer's length; default
+    ops/control_ops.DEFAULT_ARRAY_CAPACITY."""
+    helper = LayerHelper("array")
+    arr = helper.block.create_var(
+        name=unique_name.generate("array"), dtype=dtype)
+    arr.is_tensor_array = True
+    arr.capacity = capacity
+    return arr
+
+
+def array_write(x, i, array=None):
+    """array[i] = x (a new array when `array` is None); returns the
+    array."""
+    helper = LayerHelper("array_write", **locals())
+    if array is None:
+        array = create_array(x.dtype)
+    helper.append_op(type="write_to_array",
+                     inputs={"X": [x], "I": [i]},
+                     outputs={"Out": [array]}, infer_shape=False)
+    if array.shape is None:
+        array.shape = x.shape  # the element's shape, for array_read
+        array.dtype = x.dtype
+    return array
+
+
+def array_read(array, i):
+    """array[i]."""
+    helper = LayerHelper("array_read", **locals())
+    out = helper.create_variable_for_type_inference(array.dtype)
+    helper.append_op(type="read_from_array",
+                     inputs={"X": [array], "I": [i]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    out.shape = array.shape
+    return out
+
+
+def array_length(array):
+    """The array's length (one past its highest written index), [1]
+    int32."""
+    helper = LayerHelper("array_length", **locals())
+    out = helper.create_variable_for_type_inference("int32")
+    out.stop_gradient = True
+    out.shape = (1,)
+    helper.append_op(type="lod_array_length", inputs={"X": [array]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def lod_rank_table(x, level=0):
+    """The sequences of x ranked by length, longest first (stable)."""
+    helper = LayerHelper("lod_rank_table", **locals())
+    if x.seq_len_var is None:
+        raise ValueError("lod_rank_table needs a sequence input")
+    table = helper.block.create_var(
+        name=unique_name.generate("lod_rank_table"), dtype="int32")
+    helper.append_op(
+        type="lod_rank_table",
+        inputs={"XLen": [helper.block.var_recursive(x.seq_len_var)]},
+        outputs={"Out": [table]}, attrs={"level": level}, infer_shape=False)
+    return table
+
+
+def max_sequence_len(rank_table):
+    """The longest sequence's length, [1] int32."""
+    helper = LayerHelper("max_seqence_len", **locals())
+    out = helper.create_variable_for_type_inference("int32")
+    out.stop_gradient = True
+    out.shape = (1,)
+    helper.append_op(type="max_sequence_len",
+                     inputs={"RankTable": [rank_table]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def reorder_lod_tensor_by_rank(x, rank_table):
+    """x's rows in the table's rank order (a sequence keeps its lengths,
+    permuted alike)."""
+    helper = LayerHelper("reorder_lod_tensor_by_rank", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    inputs = {"X": [x], "RankTable": [rank_table]}
+    outputs = {"Out": [out]}
+    if x.seq_len_var is not None:
+        out_len = helper.block.create_var(
+            name=out.name + "@SEQLEN", shape=[-1], dtype="int32",
+            stop_gradient=True)
+        inputs["XLen"] = [helper.block.var_recursive(x.seq_len_var)]
+        outputs["OutLen"] = [out_len]
+        out.lod_level = x.lod_level
+        out.seq_len_var = out_len.name
+    helper.append_op(type="reorder_lod_tensor_by_rank", inputs=inputs,
+                     outputs=outputs, infer_shape=False)
+    return out
+
+
+def shrink_memory(x, i, table):
+    """The identity in the padded-dense layout (see
+    ops/control_ops.py)."""
+    helper = LayerHelper("shrink_memory", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out.shape = x.shape
+    helper.append_op(type="shrink_rnn_memory",
+                     inputs={"X": [x], "I": [i], "RankTable": [table]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def lod_tensor_to_array(x, table=None):
+    """A sequence [B, T, ...] as an array of its T steps [B, ...] (rows in
+    the table's rank order when a table is given)."""
+    helper = LayerHelper("lod_tensor_to_array", **locals())
+    arr = create_array(x.dtype)
+    inputs = {"X": [x]}
+    if table is not None:
+        inputs["RankTable"] = [table]
+        arr.rank_table_var = table.name
+    helper.append_op(type="lod_tensor_to_array",
+                     inputs=inputs, outputs={"Out": [arr]},
+                     infer_shape=False)
+    if x.shape is not None:
+        arr.shape = (x.shape[0],) + tuple(x.shape[2:])
+    return arr
+
+
+def array_to_lod_tensor(x, table=None):
+    """An array of steps back to a sequence [B, capacity, ...] in the
+    original row order; its lengths companion holds the written length."""
+    helper = LayerHelper("array_to_lod_tensor", **locals())
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out_len = helper.block.create_var(
+        name=out.name + "@SEQLEN", shape=[-1], dtype="int32",
+        stop_gradient=True)
+    inputs = {"X": [x]}
+    if table is not None:
+        inputs["RankTable"] = [table]
+    elif getattr(x, "rank_table_var", None):
+        inputs["RankTable"] = [x.rank_table_var]
+    helper.append_op(type="array_to_lod_tensor",
+                     inputs=inputs,
+                     outputs={"Out": [out], "OutLen": [out_len]},
+                     infer_shape=False)
+    out.lod_level = 1
+    out.seq_len_var = out_len.name
+    return out
+
+
+def split_lod_tensor(input, mask, level=0):
+    """(rows where mask holds, the others): both the full batch here, the
+    mask applied at merge_lod_tensor."""
+    helper = LayerHelper("split_lod_tensor", **locals())
+    out_true = helper.create_variable_for_type_inference(input.dtype)
+    out_false = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="split_lod_tensor",
+                     inputs={"X": [input], "Mask": [mask]},
+                     outputs={"OutTrue": [out_true], "OutFalse": [out_false]},
+                     attrs={"level": level})
+    return out_true, out_false
+
+
+def merge_lod_tensor(in_true, in_false, x, mask, level=0):
+    """Rows of in_true where mask holds, of in_false elsewhere."""
+    helper = LayerHelper("merge_lod_tensor", **locals())
+    out = helper.create_variable_for_type_inference(in_true.dtype)
+    helper.append_op(type="merge_lod_tensor",
+                     inputs={"InTrue": [in_true], "InFalse": [in_false],
+                             "X": [x], "Mask": [mask]},
+                     outputs={"Out": [out]}, attrs={"level": level})
+    return out
+
+
+# ---------------------------------------------------------------- While --
+
+class While(object):
+    """while cond: run the block. One `while` op.
+
+    Parity: control_flow.py `While` (while_op.cc). The vars the block
+    writes that live in an enclosing block are the loop's carries; a
+    tensor array carried through the loop must be written once before it
+    (the fluid decoder idiom does)."""
+    BEFORE_WHILE_BLOCK = 0
+    IN_WHILE_BLOCK = 1
+    AFTER_WHILE_BLOCK = 2
+
+    def __init__(self, cond, name=None):
+        self.helper = LayerHelper("while", name=name)
+        self.status = While.BEFORE_WHILE_BLOCK
+        if not isinstance(cond, Variable):
+            raise TypeError("condition should be a Variable")
+        self.cond_var = cond
+
+    def block(self):
+        return WhileGuard(self)
+
+    def complete(self):
+        program = self.helper.main_program
+        while_block = program.current_block()
+        parent_block = program.blocks[while_block.parent_idx]
+        carry = [n for n in sorted(_written_names(while_block))
+                 if not while_block.has_var(n) and n != self.cond_var.name]
+        out_vars = [parent_block.var_recursive(n) for n in carry
+                    if parent_block.has_var_recursive(n)]
+        # the carries are inputs ("X") too, so the state analysis loads a
+        # persistable carry from the Scope before marking it written
+        parent_block.append_op(
+            type="while",
+            inputs={"Condition": [self.cond_var], "X": out_vars},
+            outputs={"Out": out_vars},
+            attrs={"sub_block": while_block.idx,
+                   "carry_names": [v.name for v in out_vars]},
+            infer_shape=False)
+
+
+class WhileGuard(BlockGuard):
+    def __init__(self, while_op):
+        super(WhileGuard, self).__init__(while_op.helper.main_program)
+        self.while_op = while_op
+
+    def __enter__(self):
+        self.while_op.status = While.IN_WHILE_BLOCK
+        return super(WhileGuard, self).__enter__()
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if exc_type is not None:
+            return False
+        self.while_op.status = While.AFTER_WHILE_BLOCK
+        self.while_op.complete()
+        return super(WhileGuard, self).__exit__(exc_type, exc_val, exc_tb)
+
+
+# --------------------------------------------------------------- IfElse --
+
+class IfElse(object):
+    """A row-wise conditional: the rows of the batch where `cond` holds
+    flow through the true block, the others through the false block.
+
+    Parity: control_flow.py `IfElse` (split_lod_tensor / merge_lod_tensor
+    + conditional_block). As in the JAX package both branches compute on
+    the full batch and merge_lod_tensor selects per row: static shapes,
+    no ragged sub-batches (ops/control_ops.py)."""
+    OUT_IF_ELSE_BLOCKS = 0
+    IN_IF_ELSE_TRUE_BLOCKS = 1
+    IN_IF_ELSE_FALSE_BLOCKS = 2
+
+    def __init__(self, cond, name=None):
+        self.helper = LayerHelper("ifelse", name=name)
+        self.cond = cond
+        self.status = IfElse.OUT_IF_ELSE_BLOCKS
+        self.conditional_true_block = ConditionalBlock(
+            [cond], is_scalar_condition=False)
+        self.conditional_false_block = ConditionalBlock(
+            [cond], is_scalar_condition=False)
+        self.output_table = [[], []]  # (true outputs, false outputs)
+
+    def input(self, x):
+        if self.status == IfElse.OUT_IF_ELSE_BLOCKS:
+            raise ValueError("input must be called inside a block")
+        # both branches see the full batch; the mask selects at the merge
+        return x
+
+    def _block(self, status):
+        ie = self
+
+        class _Guard(BlockGuard):
+            def __init__(self):
+                super(_Guard, self).__init__(ie.helper.main_program)
+
+            def __enter__(self):
+                ie.status = status
+                return super(_Guard, self).__enter__()
+
+            def __exit__(self, t, v, tb):
+                if t is None:
+                    cb = (ie.conditional_true_block
+                          if status == IfElse.IN_IF_ELSE_TRUE_BLOCKS
+                          else ie.conditional_false_block)
+                    cb.complete()
+                ie.status = IfElse.OUT_IF_ELSE_BLOCKS
+                return super(_Guard, self).__exit__(t, v, tb)
+
+        return _Guard()
+
+    def true_block(self):
+        return self._block(IfElse.IN_IF_ELSE_TRUE_BLOCKS)
+
+    def false_block(self):
+        return self._block(IfElse.IN_IF_ELSE_FALSE_BLOCKS)
+
+    def output(self, *outs):
+        if self.status == IfElse.OUT_IF_ELSE_BLOCKS:
+            raise ValueError("output can only be invoked in an if/else block")
+        false_side = self.status == IfElse.IN_IF_ELSE_FALSE_BLOCKS
+        table = self.output_table[1 if false_side else 0]
+        from . import tensor
+        parent_block = self.helper.main_program.blocks[
+            self.helper.main_program.current_block().parent_idx]
+        for o in outs:
+            outside = parent_block.create_var(
+                name=unique_name.generate("ifelse_out"),
+                dtype=o.dtype, shape=o.shape)
+            tensor.assign(o, outside)
+            table.append(outside)
+
+    def __call__(self):
+        if self.status != IfElse.OUT_IF_ELSE_BLOCKS:
+            raise ValueError("__call__ only at out-block status")
+        if len(self.output_table[0]) != len(self.output_table[1]):
+            raise ValueError("true/false blocks must produce the same number "
+                             "of outputs")
+        return [merge_lod_tensor(t, f, t, self.cond)
+                for t, f in zip(*self.output_table)]

@@ -22,7 +22,8 @@ __all__ = ["fc", "embedding", "conv2d", "pool2d", "batch_norm",
            "conv2d_transpose", "smooth_l1", "topk", "reduce_mean",
            "reduce_max", "reduce_min", "reduce_prod", "l2_normalize",
            "multiplex", "maxout", "nce", "expand", "linear_chain_crf",
-           "crf_decoding", "chunk_eval", "sequence_erase", "edit_distance"]
+           "crf_decoding", "chunk_eval", "sequence_erase", "edit_distance",
+           "im2sequence", "warpctc", "ctc_greedy_decoder"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -702,13 +703,76 @@ def _erase_or_align_out(helper, op_type, inputs, attrs, dtype="int64"):
     out_len = helper.block.create_var(
         name=out.name + "@SEQLEN", shape=[-1], dtype="int32",
         stop_gradient=True)
+    out_slot = "Output" if op_type == "ctc_align" else "Out"
     helper.append_op(
         type=op_type, inputs=inputs,
-        outputs={"Out": [out], "OutLen": [out_len]}, attrs=attrs,
+        outputs={out_slot: [out], "OutLen": [out_len]}, attrs=attrs,
         infer_shape=False)
     out.lod_level = 1
     out.seq_len_var = out_len.name
     out.stop_gradient = True
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    """Parity: fluid.layers.im2sequence (the OCR path). The output is a
+    sequence: one step per output pixel, its feature the C*kh*kw patch."""
+    helper = LayerHelper("im2sequence", **locals())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out_len = helper.block.create_var(
+        name=out.name + "@SEQLEN", shape=[-1], dtype="int32",
+        stop_gradient=True)
+    helper.append_op(
+        type="im2sequence", inputs={"X": [input]},
+        outputs={"Out": [out], "OutLen": [out_len]},
+        attrs={"kernels": list(_pair(filter_size)),
+               "strides": list(_pair(stride)),
+               "paddings": list(_pair(padding)) * 2})
+    out.lod_level = 1
+    out.seq_len_var = out_len.name
+    return out
+
+
+def warpctc(input, label, blank=0, norm_by_times=False):
+    """CTC loss on unnormalized logit sequences, one loss per sequence.
+
+    Parity: fluid.layers.warpctc (reference nn.py:2620) over warpctc_op;
+    the warp-ctc library's softmax is part of the op. Returns Loss
+    [num_seqs, 1]."""
+    helper = LayerHelper("warpctc", **locals())
+    loss_out = helper.create_variable_for_type_inference(input.dtype)
+    grad_out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="warpctc",
+        inputs={"Logits": [input], "Label": [label],
+                "XLen": [_crf_seq_len(helper, input)],
+                "LabelLen": [_crf_seq_len(helper, label)]},
+        outputs={"Loss": [loss_out], "WarpCTCGrad": [grad_out]},
+        attrs={"blank": blank, "norm_by_times": norm_by_times})
+    loss_out.lod_level = 0
+    loss_out.seq_len_var = None
+    loss_out.shape = (-1, 1)
+    return loss_out
+
+
+def ctc_greedy_decoder(input, blank, name=None):
+    """Greedy CTC decode: the best class per step (topk with k=1), then
+    repeats merged and blanks dropped (ctc_align).
+
+    Parity: fluid.layers.ctc_greedy_decoder (reference nn.py:2478)."""
+    helper = LayerHelper("ctc_greedy_decoder", **locals())
+    topk_out = helper.create_variable_for_type_inference(input.dtype)
+    topk_indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="topk", inputs={"X": [input]},
+        outputs={"Out": [topk_out], "Indices": [topk_indices]},
+        attrs={"k": 1})
+    out = _erase_or_align_out(
+        helper, "ctc_align",
+        {"Input": [topk_indices], "XLen": [_crf_seq_len(helper, input)]},
+        {"merge_repeated": True, "blank": blank})
+    if input.shape is not None:
+        out.shape = (input.shape[0], input.shape[1])
     return out
 
 

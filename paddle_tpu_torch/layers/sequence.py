@@ -3,8 +3,6 @@
 Parity: the sequence_* / dynamic_* functions of python/paddle/fluid/layers/
 nn.py and the JAX package's layers/sequence.py — same names, arguments and
 op emission, so both packages build the same Program for the same calls.
-The JAX package's beam_search and beam_search_decode come with ROADMAP
-A6.
 """
 import warnings
 
@@ -14,7 +12,7 @@ __all__ = ["sequence_pool", "sequence_first_step", "sequence_last_step",
            "sequence_softmax", "sequence_conv", "sequence_expand",
            "sequence_reshape", "dynamic_lstm", "dynamic_lstmp",
            "dynamic_gru", "gru_unit", "lstm_unit", "lod_reset", "row_conv",
-           "sequence_cache_write"]
+           "sequence_cache_write", "beam_search", "beam_search_decode"]
 
 
 def _seq_len(helper, x):
@@ -359,3 +357,75 @@ def row_conv(input, future_context_size, param_attr=None, act=None):
                 "XLen": [_seq_len(helper, input)]},
         outputs={"Out": [out]})
     return helper.append_activation(out)
+
+
+def beam_search(pre_ids, ids, scores, beam_size, end_id, level=0,
+                pre_scores=None, return_parent_idx=False, name=None):
+    """One beam-search expansion step on the dense [batch, beam] layout.
+
+    Parity: python/paddle/fluid/layers/nn.py beam_search /
+    operators/beam_search_op.cc and the JAX package's layer. The
+    reference keeps its beams in 2-level-LoD candidate lists; here each
+    batch row always holds exactly `beam_size` beams, so the decode loop
+    keeps static shapes.
+
+    `scores` is [batch, beam, vocab] next-token log-probs, `pre_ids` and
+    `pre_scores` [batch, beam]. Returns (selected_ids, selected_scores)
+    and, with return_parent_idx, the [batch, beam] parent beam index
+    beam_search_decode needs. `ids` (the reference's top-k candidates) is
+    accepted and ignored: the op takes its own top-k over beam * vocab.
+
+    At step 0, when every beam of a row starts the same (the usual
+    [start_token] * beam), give pre_scores [0, -1e9, -1e9, ...] per row,
+    not zeros: otherwise the top-k picks the best token once per
+    duplicate beam and the search is beam_size copies of greedy
+    decoding."""
+    helper = LayerHelper("beam_search", **locals())
+    if pre_scores is None:
+        raise ValueError(
+            "TPU beam_search needs pre_scores (cumulative log-probs); pass "
+            "the previous step's selected_scores")
+    selected_ids = helper.create_variable_for_type_inference(pre_ids.dtype)
+    selected_scores = helper.create_variable_for_type_inference(scores.dtype)
+    parent_idx = helper.create_variable_for_type_inference("int32")
+    for v in (selected_ids, selected_scores, parent_idx):
+        v.shape = pre_ids.shape
+    helper.append_op(
+        type="beam_search",
+        inputs={"pre_ids": [pre_ids], "pre_scores": [pre_scores],
+                "scores": [scores]},
+        outputs={"selected_ids": [selected_ids],
+                 "selected_scores": [selected_scores],
+                 "parent_idx": [parent_idx]},
+        attrs={"beam_size": int(beam_size), "end_id": int(end_id),
+               "level": level},
+        infer_shape=False)
+    if return_parent_idx:
+        return selected_ids, selected_scores, parent_idx
+    return selected_ids, selected_scores
+
+
+def beam_search_decode(ids, scores, parent_idx=None, beam_size=None,
+                       end_id=0, name=None):
+    """Backtrack the per-step beam arrays into sentences.
+
+    Parity: python/paddle/fluid/layers/nn.py beam_search_decode /
+    operators/beam_search_decode_op.cc and the JAX package's layer.
+    `ids` and `scores` are the arrays written at each step, `parent_idx`
+    the array of parent beams from beam_search(return_parent_idx=True).
+    Returns (sentence_ids [B, beam, T], end_id past each sentence's end;
+    sentence_scores [B, beam])."""
+    helper = LayerHelper("beam_search_decode", **locals())
+    if parent_idx is None:
+        raise ValueError("TPU beam_search_decode needs the parent_idx array "
+                         "(beam_search(..., return_parent_idx=True))")
+    sentence_ids = helper.create_variable_for_type_inference(ids.dtype)
+    sentence_scores = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        type="beam_search_decode",
+        inputs={"Ids": [ids], "ParentIdx": [parent_idx], "Scores": [scores]},
+        outputs={"SentenceIds": [sentence_ids],
+                 "SentenceScores": [sentence_scores]},
+        attrs={"end_id": int(end_id)},
+        infer_shape=False)
+    return sentence_ids, sentence_scores

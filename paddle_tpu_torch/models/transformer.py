@@ -11,8 +11,10 @@ the loss away). The attention core runs the dense path by default: [B,
 H, T, T] scores plus the additive attn_bias feeds, softmax, dropout on
 the weights, and the weighted sum; use_fused_attention=True runs the
 fused flash op instead (padding as src_len / trg_len, the decoder's mask
-as causal; no dropout there). Not ported yet: the decode builders
-(ROADMAP A6).
+as causal; no dropout there). The decode builders (`build_decode`,
+`build_cached_decode`) beam-search with a While loop over dense [batch,
+beam] state, built with `transformer`'s parameter-creation sequence so
+they run in its training scope.
 """
 import numpy as np
 
@@ -356,6 +358,387 @@ def build_train(src_vocab_size, trg_vocab_size, max_length, d_model=64,
                                      beta2=0.98, epsilon=1e-9)
     optimizer.minimize(avg_cost)
     return sum_cost, avg_cost, predict
+
+
+def build_decode(src_vocab_size, trg_vocab_size, max_length, n_layer=2,
+                 n_head=4, d_key=16, d_value=16, d_model=64,
+                 d_inner_hid=128, beam_size=2, max_out_len=None,
+                 bos_id=1, eos_id=2, fuse_qkv=False):
+    """Autoregressive beam-search decode (the era's transformer infer
+    path: re-run the whole decoder on the growing prefix each step — no
+    KV cache in the reference either; the dense [batch, beam] state rides
+    one While loop like models/machine_translation.decoder_decode).
+
+    Build under a fresh unique_name.guard with the SAME call sequence as
+    `transformer`, so every parameter shares its training name and the
+    decode program runs in the training scope. Returns
+    (sentence_ids [B, K, C], sentence_scores [B, K]).
+    """
+    if fuse_qkv:
+        raise NotImplementedError(
+            "the decode builders create the unfused q/k/v weight layout; "
+            "decode a fuse_qkv-trained scope is not supported — train "
+            "with use_qkv_fusion=False for decode interop")
+
+    L = fluid.layers
+    K = beam_size
+    T = max_length
+    limit_steps = T - 1 if max_out_len is None else min(max_out_len, T - 1)
+
+    src_word = L.data("src_word", [T], dtype="int64")
+    src_pos = L.data("src_pos", [T], dtype="int64")
+    src_slf = L.data("src_slf_attn_bias", [n_head, T, T])
+    trg_pos_full = L.data("trg_pos_full", [T], dtype="int64")
+    trg_slf = L.data("trg_slf_attn_bias", [n_head, T, T])
+    trg_src = L.data("trg_src_attn_bias", [n_head, T, T])
+    init_ids = L.data("init_ids", [K], dtype="int64")
+    init_scores = L.data("init_scores", [K])
+
+    # encoder: identical call order to `transformer` => identical param
+    # names (word emb, encoder fcs)
+    enc_input = prepare_encoder(
+        src_word, src_pos, src_vocab_size, d_model, T, 0.0,
+        pos_enc_param_name=POS_ENC_PARAM_NAMES[0])
+    enc_output = encoder(enc_input, src_slf, n_layer, n_head, d_key,
+                         d_value, d_model, d_inner_hid)
+
+    def beam_rep(x, tail_dims):
+        """[B, ...] -> [B*K, ...] (repeat each row per beam)."""
+        r = L.expand(L.unsqueeze(x, axes=[1]),
+                     [1, K] + [1] * len(tail_dims))
+        return L.reshape(r, shape=[-1] + list(tail_dims))
+
+    enc_rep = beam_rep(enc_output, [T, d_model])
+    trg_slf_rep = beam_rep(trg_slf, [n_head, T, T])
+    trg_src_rep = beam_rep(trg_src, [n_head, T, T])
+    trg_pos_rep = beam_rep(trg_pos_full, [T])
+
+    counter = L.zeros(shape=[1], dtype="int32")
+    counter.stop_gradient = True
+    limit = L.fill_constant(shape=[1], dtype="int32", value=limit_steps)
+
+    ids_array = L.create_array("int64", capacity=limit_steps + 1)
+    scores_array = L.create_array("float32", capacity=limit_steps + 1)
+    parent_array = L.create_array("int32", capacity=limit_steps + 1)
+    L.array_write(init_ids, counter, ids_array)
+    L.array_write(init_scores, counter, scores_array)
+    init_parent = L.fill_constant_batch_size_like(
+        input=init_ids, shape=[-1, K], dtype="int32", value=0)
+    L.array_write(init_parent, counter, parent_array)
+
+    # the decoded prefix, float-typed so one_hot matmul reordering works;
+    # cast to int64 for the embedding lookup each step
+    prefix = L.fill_constant_batch_size_like(
+        input=init_ids, shape=[-1, K, T], dtype="float32", value=0.0)
+
+    cond = L.less_than(x=counter, y=limit)
+    while_op = L.While(cond=cond)
+    with while_op.block():
+        pre_ids = L.array_read(ids_array, counter)        # [B, K] int64
+        pre_scores = L.array_read(scores_array, counter)  # [B, K]
+
+        # prefix[:, :, t] = pre_ids
+        t64 = L.cast(L.reshape(counter, shape=[1, 1]), "int64")
+        onehot_t = L.one_hot(t64, T)                      # [1, T]
+        keep = L.elementwise_sub(
+            x=L.fill_constant(shape=[1, T], dtype="float32", value=1.0),
+            y=onehot_t)
+        new_prefix = L.elementwise_add(
+            x=L.elementwise_mul(x=prefix, y=keep),
+            y=L.elementwise_mul(
+                x=L.expand(L.unsqueeze(L.cast(pre_ids, "float32"),
+                                       axes=[2]), [1, 1, T]),
+                y=onehot_t))
+        L.assign(new_prefix, prefix)
+
+        tokens = L.cast(L.reshape(prefix, shape=[-1, T]), "int64")
+        # trg embedding + pos enc: same prepare_encoder call as training
+        dec_input = prepare_encoder(
+            tokens, trg_pos_rep, trg_vocab_size, d_model, T, 0.0,
+            pos_enc_param_name=POS_ENC_PARAM_NAMES[1])
+        dec_output = decoder(dec_input, enc_rep, trg_slf_rep, trg_src_rep,
+                             n_layer, n_head, d_key, d_value, d_model,
+                             d_inner_hid)
+        logits = fluid.layers.fc(input=dec_output, size=trg_vocab_size,
+                                 bias_attr=False, num_flatten_dims=2)
+        # logits at position t: mask-and-reduce (no dynamic slicing op
+        # needed)
+        step_logits = L.reduce_sum(
+            L.elementwise_mul(
+                x=logits, y=L.reshape(onehot_t, shape=[1, T, 1])),
+            dim=1)                                        # [B*K, V]
+        logp = L.log(L.softmax(L.reshape(
+            step_logits, shape=[-1, K, trg_vocab_size])))  # [B, K, V]
+
+        selected_ids, selected_scores, parent = L.beam_search(
+            pre_ids=pre_ids, pre_scores=pre_scores, ids=None, scores=logp,
+            beam_size=K, end_id=eos_id, return_parent_idx=True)
+
+        # reorder prefixes to follow their selected parent beams
+        onehot_p = L.one_hot(parent, K)                   # [B, K, Ksrc]
+        L.assign(L.matmul(onehot_p, prefix), prefix)
+
+        L.increment(counter, 1, in_place=True)
+        L.array_write(selected_ids, counter, ids_array)
+        L.array_write(selected_scores, counter, scores_array)
+        L.array_write(parent, counter, parent_array)
+        L.less_than(x=counter, y=limit, cond=cond)
+
+    return L.beam_search_decode(ids_array, scores_array,
+                                parent_idx=parent_array, end_id=eos_id)
+
+
+def build_cached_decode(src_vocab_size, trg_vocab_size, max_length,
+                        n_layer=2, n_head=4, d_key=16, d_value=16,
+                        d_model=64, d_inner_hid=128, beam_size=2,
+                        max_out_len=None, bos_id=1, eos_id=2, fuse_qkv=False):
+    """Incremental beam decode with per-layer self-attention KV caches —
+    the JAX package's upgrade over build_decode (and over the reference
+    era, which re-ran the whole decoder on the growing prefix each step,
+    python/paddle/fluid's transformer infer path): step t computes ONE
+    query position and attends its cached keys, so total decode FLOPs
+    drop from O(T^2) decoder runs to O(T), with the caches living as
+    While carries (beam-reordered by parent via one_hot matmul — static
+    shapes end to end).
+
+    Built under a fresh unique_name.guard with the SAME parameter-creation
+    sequence as `transformer`, so every weight shares its training name
+    and the decode program runs in the training scope. Feeds: src_word,
+    src_pos, src_slf_attn_bias, src_len [B,1] int32 (cross-attention key
+    padding), init_ids, init_scores. Returns
+    (sentence_ids [B,K,C], sentence_scores [B,K]) — must match
+    build_decode token-for-token (tested)."""
+    if fuse_qkv:
+        raise NotImplementedError(
+            "the decode builders create the unfused q/k/v weight layout; "
+            "decode a fuse_qkv-trained scope is not supported — train "
+            "with use_qkv_fusion=False for decode interop")
+
+    L = fluid.layers
+    K = beam_size
+    T = max_length
+    limit_steps = T - 1 if max_out_len is None else min(max_out_len, T - 1)
+
+    src_word = L.data("src_word", [T], dtype="int64")
+    src_pos = L.data("src_pos", [T], dtype="int64")
+    src_slf = L.data("src_slf_attn_bias", [n_head, T, T])
+    src_len = L.data("src_len", [1], dtype="int32")
+    init_ids = L.data("init_ids", [K], dtype="int64")
+    init_scores = L.data("init_scores", [K])
+
+    enc_input = prepare_encoder(
+        src_word, src_pos, src_vocab_size, d_model, T, 0.0,
+        pos_enc_param_name=POS_ENC_PARAM_NAMES[0])
+    enc_output = encoder(enc_input, src_slf, n_layer, n_head, d_key,
+                         d_value, d_model, d_inner_hid)
+
+    def beam_rep(x, tail_dims):
+        r = L.expand(L.unsqueeze(x, axes=[1]),
+                     [1, K] + [1] * len(tail_dims))
+        return L.reshape(r, shape=[-1] + list(tail_dims))
+
+    enc_rep = beam_rep(enc_output, [T, d_model])            # [B*K, Ts, D]
+    src_len_rep = L.cast(beam_rep(L.cast(src_len, "float32"), [1]),
+                         "float32")                          # [B*K, 1]
+
+    counter = L.zeros(shape=[1], dtype="int32")
+    counter.stop_gradient = True
+    limit = L.fill_constant(shape=[1], dtype="int32", value=limit_steps)
+
+    ids_array = L.create_array("int64", capacity=limit_steps + 1)
+    scores_array = L.create_array("float32", capacity=limit_steps + 1)
+    parent_array = L.create_array("int32", capacity=limit_steps + 1)
+    L.array_write(init_ids, counter, ids_array)
+    L.array_write(init_scores, counter, scores_array)
+    init_parent = L.fill_constant_batch_size_like(
+        input=init_ids, shape=[-1, K], dtype="int32", value=0)
+    L.array_write(init_parent, counter, parent_array)
+
+    # per-layer self-attention KV caches [B*K, T, H*d]
+    caches = []
+    for _ in range(n_layer):
+        ck = L.fill_constant_batch_size_like(
+            input=enc_rep, shape=[-1, T, n_head * d_key],
+            dtype="float32", value=0.0)
+        cv = L.fill_constant_batch_size_like(
+            input=enc_rep, shape=[-1, T, n_head * d_value],
+            dtype="float32", value=0.0)
+        caches.append((ck, cv))
+
+    # constant position row [1, 1, 1, T] for building step masks
+    pos_row = L.assign(np.arange(T, dtype="float32").reshape(1, 1, 1, T))
+
+    def one_query_attention(q, ks, vs, valid, dk, dv):
+        """q [BK,1,H*dk] attends ks/vs [BK,Tk,H*dk] under `valid`
+        [*,1,1,Tk] (1 = attendable) — the O(Tk) cached step."""
+        qh = L.transpose(L.reshape(q, shape=[0, 1, n_head, dk]),
+                         perm=[0, 2, 1, 3])                  # [BK,H,1,dk]
+        kh = L.transpose(L.reshape(ks, shape=[0, -1, n_head, dk]),
+                         perm=[0, 2, 1, 3])
+        vh = L.transpose(L.reshape(vs, shape=[0, -1, n_head, dv]),
+                         perm=[0, 2, 1, 3])
+        sc = L.scale(L.matmul(qh, kh, transpose_y=True),
+                     scale=dk ** -0.5)                       # [BK,H,1,Tk]
+        sc = sc + (valid - 1.0) * 1e9
+        w = L.softmax(sc)
+        ctx = L.matmul(w, vh)                                # [BK,H,1,dv]
+        return L.reshape(L.transpose(ctx, perm=[0, 2, 1, 3]),
+                         shape=[0, 1, n_head * dv])
+
+    cond = L.less_than(x=counter, y=limit)
+    while_op = L.While(cond=cond)
+    with while_op.block():
+        pre_ids = L.array_read(ids_array, counter)           # [B, K]
+        pre_scores = L.array_read(scores_array, counter)
+
+        t_f = L.cast(L.reshape(counter, shape=[1, 1]), "float32")
+        t64 = L.cast(L.reshape(counter, shape=[1, 1]), "int64")
+        onehot_t = L.one_hot(t64, T)                         # [1, T]
+
+        # current token embedding + position encoding (same call order as
+        # prepare_encoder: word emb then pos table)
+        cur = L.reshape(L.cast(pre_ids, "int64"), shape=[-1, 1])
+        word_emb = L.embedding(
+            cur, size=[trg_vocab_size, d_model],
+            param_attr=fluid.ParamAttr(
+                initializer=fluid.initializer.Normal(
+                    0., d_model ** -0.5)))
+        word_emb = L.scale(x=word_emb, scale=d_model ** 0.5)
+        pos_ids = L.cast(
+            L.fill_constant_batch_size_like(
+                input=cur, shape=[-1, 1], dtype="int32", value=0)
+            + L.cast(L.reshape(counter, shape=[1]), "int32"), "int64")
+        pos_enc = L.embedding(
+            pos_ids, size=[T, d_model],
+            param_attr=fluid.ParamAttr(
+                name=POS_ENC_PARAM_NAMES[1], trainable=False,
+                initializer=fluid.initializer.NumpyArrayInitializer(
+                    position_encoding_init(T, d_model))))
+        # embedding of [BK, 1] ids yields [BK, D] (reference lookup_table
+        # squeezes the id column); restore the explicit one-step time axis so
+        # every fc below sees [BK, 1, D] and creates [D, size] weights that
+        # share shapes (and names) with the training program's.
+        x = L.reshape(word_emb + pos_enc, shape=[-1, 1, d_model])
+
+        # step masks: self-attn sees cache positions <= t; cross-attn sees
+        # source positions < src_len
+        t4 = L.reshape(t_f, shape=[1, 1, 1, 1])
+        self_valid = L.clip(t4 + 1.0 - pos_row, min=0.0, max=1.0)
+        cross_valid = L.clip(
+            L.reshape(src_len_rep, shape=[-1, 1, 1, 1]) - pos_row,
+            min=0.0, max=1.0)                                # [BK,1,1,T]
+
+        new_caches = []
+        for l in range(n_layer):
+            ck, cv = caches[l]
+            # EXACT training param order per decoder_layer: LN; self
+            # q/k/v fc, out fc; LN; cross q/k/v fc, out fc; LN; ffn fc1/2
+            xn = pre_post_process_layer(None, x, "n")
+            q = L.fc(input=xn, size=d_key * n_head, bias_attr=False,
+                     num_flatten_dims=2)
+            k = L.fc(input=xn, size=d_key * n_head, bias_attr=False,
+                     num_flatten_dims=2)
+            v = L.fc(input=xn, size=d_value * n_head, bias_attr=False,
+                     num_flatten_dims=2)
+            # cache[:, t] = k / v (one_hot write, static shapes)
+            keep = L.reshape(1.0 - onehot_t, shape=[1, T, 1])
+            put = L.reshape(onehot_t, shape=[1, T, 1])
+            ck = ck * keep + L.expand(k, [1, T, 1]) * put
+            cv = cv * keep + L.expand(v, [1, T, 1]) * put
+            new_caches.append((ck, cv))
+            att = one_query_attention(q, ck, cv, self_valid, d_key,
+                                      d_value)
+            x = x + L.fc(input=att, size=d_model, bias_attr=False,
+                         num_flatten_dims=2)
+
+            xn = pre_post_process_layer(None, x, "n")
+            q2 = L.fc(input=xn, size=d_key * n_head, bias_attr=False,
+                      num_flatten_dims=2)
+            ek = L.fc(input=enc_rep, size=d_key * n_head, bias_attr=False,
+                      num_flatten_dims=2)
+            ev = L.fc(input=enc_rep, size=d_value * n_head,
+                      bias_attr=False, num_flatten_dims=2)
+            att2 = one_query_attention(q2, ek, ev, cross_valid, d_key,
+                                       d_value)
+            x = x + L.fc(input=att2, size=d_model, bias_attr=False,
+                         num_flatten_dims=2)
+
+            xn = pre_post_process_layer(None, x, "n")
+            x = x + positionwise_feed_forward(xn, d_inner_hid, d_model)
+
+        dec_out = pre_post_process_layer(None, x, "n")       # final LN
+        logits = L.fc(input=dec_out, size=trg_vocab_size, bias_attr=False,
+                      num_flatten_dims=2)                    # [BK, 1, V]
+        logp = L.log(L.softmax(L.reshape(
+            logits, shape=[-1, K, trg_vocab_size])))         # [B, K, V]
+
+        selected_ids, selected_scores, parent = L.beam_search(
+            pre_ids=pre_ids, pre_scores=pre_scores, ids=None, scores=logp,
+            beam_size=K, end_id=eos_id, return_parent_idx=True)
+
+        # reorder every cache row to follow its selected parent beam
+        onehot_p = L.one_hot(parent, K)                      # [B, K, Ksrc]
+        for l, (ck, cv) in enumerate(new_caches):
+            ckb = L.reshape(ck, shape=[-1, K, T * n_head * d_key])
+            cvb = L.reshape(cv, shape=[-1, K, T * n_head * d_value])
+            L.assign(L.reshape(L.matmul(onehot_p, ckb),
+                               shape=[-1, T, n_head * d_key]),
+                     caches[l][0])
+            L.assign(L.reshape(L.matmul(onehot_p, cvb),
+                               shape=[-1, T, n_head * d_value]),
+                     caches[l][1])
+
+        L.increment(counter, 1, in_place=True)
+        L.array_write(selected_ids, counter, ids_array)
+        L.array_write(selected_scores, counter, scores_array)
+        L.array_write(parent, counter, parent_array)
+        L.less_than(x=counter, y=limit, cond=cond)
+
+    return L.beam_search_decode(ids_array, scores_array,
+                                parent_idx=parent_array, end_id=eos_id)
+
+
+def prepare_cached_decode_batch(src_seqs, max_length, n_head, beam_size,
+                                bos_id=1, pad_id=0):
+    """Feed arrays for build_cached_decode: encoder feeds + src_len +
+    beam init (no [H,T,T] target bias tensors needed)."""
+    feeds = prepare_decode_batch(src_seqs, max_length, n_head, beam_size,
+                                 bos_id=bos_id, pad_id=pad_id)
+    feeds["src_len"] = np.array(
+        [[min(len(s), max_length)] for s in src_seqs], "int32")
+    for k in ("trg_pos_full", "trg_slf_attn_bias", "trg_src_attn_bias"):
+        feeds.pop(k)
+    return feeds
+
+
+def prepare_decode_batch(src_seqs, max_length, n_head, beam_size,
+                         bos_id=1, pad_id=0):
+    """Feed arrays for build_decode: encoder feeds + beam init."""
+    b = len(src_seqs)
+    neg = -1e9
+    src = np.full((b, max_length), pad_id, "int64")
+    src_pos = np.zeros((b, max_length), "int64")
+    src_bias = np.zeros((b, n_head, max_length, max_length), "float32")
+    cross_bias = np.zeros((b, n_head, max_length, max_length), "float32")
+    causal = np.triu(np.full((max_length, max_length), neg, "float32"), 1)
+    trg_bias = np.tile(causal[None, None], (b, n_head, 1, 1))
+    for i, s in enumerate(src_seqs):
+        s = list(s)[:max_length]
+        src[i, :len(s)] = s
+        src_pos[i, :len(s)] = np.arange(len(s))
+        src_bias[i, :, :, len(s):] = neg
+        cross_bias[i, :, :, len(s):] = neg
+    init_ids = np.full((b, beam_size), bos_id, "int64")
+    init_scores = np.zeros((b, beam_size), "float32")
+    init_scores[:, 1:] = neg  # break initial beam symmetry
+    return {
+        "src_word": src, "src_pos": src_pos, "src_slf_attn_bias": src_bias,
+        "trg_pos_full": np.tile(np.arange(max_length, dtype="int64")[None],
+                                (b, 1)),
+        "trg_slf_attn_bias": trg_bias.astype("float32"),
+        "trg_src_attn_bias": cross_bias,
+        "init_ids": init_ids, "init_scores": init_scores,
+    }
 
 
 def prepare_batch(src_seqs, trg_seqs, max_length, pad_id=0, labels=False,

@@ -336,17 +336,22 @@ def _total_order(x):
     return i ^ ((i >> 31) & 0x7FFFFFFF)
 
 
-@register("topk")
-def _topk(ctx, ins, attrs):
-    """The k largest along the last dim, as lax.top_k gives them: a stable
-    descending sort, so among equal values the lower index comes first
-    (torch.topk leaves ties in an order of its own, fault C12), NaN above
-    inf and +0 above -0."""
-    x = single(ins, "X")
+def stable_topk(x, k):
+    """(values, indices) of the k largest along the last dim, as
+    lax.top_k gives them: a stable descending sort, so among equal values
+    the lower index comes first (torch.topk leaves ties in an order of
+    its own, fault C12), NaN above inf and +0 above -0."""
     order = torch.sort(_total_order(x), dim=-1, descending=True,
                        stable=True).indices
-    idx = order[..., :attrs.get("k", 1)]
-    return {"Out": [torch.gather(x, -1, idx)], "Indices": [idx]}
+    idx = order[..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
+@register("topk")
+def _topk(ctx, ins, attrs):
+    """The k largest along the last dim (stable_topk)."""
+    out, idx = stable_topk(single(ins, "X"), attrs.get("k", 1))
+    return {"Out": [out], "Indices": [idx]}
 
 
 @register("reshape")

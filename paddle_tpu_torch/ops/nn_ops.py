@@ -2,15 +2,16 @@
 softmax_with_cross_entropy, softmax, log_softmax, cross_entropy,
 sigmoid_cross_entropy_with_logits, square_error_cost, label_smooth,
 accuracy, auc, conv2d, depthwise_conv2d, conv2d_transpose, pool2d,
-maxout, batch_norm, lrn, l2_normalize, nce and the losses smooth_l1_loss,
-log_loss, huber_loss, hinge_loss, rank_loss and margin_rank_loss.
+maxout, batch_norm, lrn, l2_normalize, nce, im2sequence and the losses
+smooth_l1_loss, log_loss, huber_loss, hinge_loss, rank_loss and
+margin_rank_loss.
 
 Parity: paddle/fluid/operators/{layer_norm_op,lookup_table_op,dropout_op,
 softmax_with_cross_entropy_op,softmax_op,cross_entropy_op,
 sigmoid_cross_entropy_with_logits_op,squared_l2_distance_op,
 label_smooth_op,accuracy_op,auc_op,conv_op,conv_transpose_op,pool_op,
-maxout_op,batch_norm_op,lrn_op,norm_op,nce_op,smooth_l1_loss_op,
-log_loss_op,huber_loss_op,hinge_loss_op,rank_loss_op,
+maxout_op,batch_norm_op,lrn_op,norm_op,nce_op,im2sequence_op,
+smooth_l1_loss_op,log_loss_op,huber_loss_op,hinge_loss_op,rank_loss_op,
 margin_rank_loss_op}.cc and the JAX package's ops/nn_ops.py.
 layer_norm with scale and bias, the flash branch of fused_attention and
 the hard-label 2-D softmax_with_cross_entropy call the hand-written CUDA
@@ -578,3 +579,33 @@ def _nce(ctx, ins, attrs):
         torch.log1p(torch.exp(-torch.abs(logits)))
     return {"Cost": [ce.sum(dim=1, keepdim=True)], "SampleLogits": [logits],
             "SampleLabels": [samples]}
+
+
+@register("im2sequence")
+def _im2sequence(ctx, ins, attrs):
+    """Patches -> a sequence per image (reference im2sequence_op.h's
+    Im2Col): X [B, C, H, W] -> Out [B, oh*ow, C*kh*kw] and OutLen, the
+    constant oh*ow for every image. F.unfold orders a patch's features
+    channel-major (c, kh, kw), as lax.conv_general_dilated_patches does.
+    The paddings are (up, left, down, right), or (up, left) for both
+    sides; F.unfold pads symmetrically only, so uneven ones go through
+    F.pad first."""
+    import torch.nn.functional as F
+    x = single(ins, "X")
+    kh, kw = attrs["kernels"]
+    sh, sw = attrs.get("strides", [1, 1])
+    pads = attrs.get("paddings", [0, 0, 0, 0])
+    up, left, down, right = (pads if len(pads) == 4 else
+                             [pads[0], pads[1], pads[0], pads[1]])
+    b, _, h, w = x.shape
+    if (up, left) == (down, right):
+        padding = (up, left)
+    else:
+        x = F.pad(x, (left, right, up, down))
+        padding = (0, 0)
+    patches = F.unfold(x, (kh, kw), padding=padding, stride=(sh, sw))
+    oh = (h + up + down - kh) // sh + 1
+    ow = (w + left + right - kw) // sw + 1
+    out = patches.transpose(1, 2)                   # [B, oh*ow, C*kh*kw]
+    out_len = torch.full((b,), oh * ow, dtype=torch.int32, device=x.device)
+    return {"Out": [out], "OutLen": [out_len]}

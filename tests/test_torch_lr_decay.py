@@ -11,10 +11,10 @@ package, on the CPU.
   package, 1.3e-7 against the float64 formula).
 - Switch: first-match-wins over overlapping cases, and the default,
   against the JAX package (exact: a selected constant).
-- conditional_block: its IfElse form (is_scalar_condition=False) raises
-  naming ROADMAP A6; its rule, and each rule of this slice, holds no host
-  sync (.item(), .cpu(), .tolist(), .numpy(), nonzero or bool of a tensor)
-  in its source.
+- conditional_block: its IfElse form (is_scalar_condition=False) runs
+  as the JAX package's does; its rule, and each rule of this slice, holds
+  no host sync (.item(), .cpu(), .tolist(), .numpy(), nonzero or bool of
+  a tensor) in its source.
 - The compare and logical ops, and the comparison operators on Variable,
   against the JAX package (exact: booleans).
 """
@@ -182,6 +182,10 @@ def test_switch_first_match_wins(v, want):
 
 
 def test_ifelse_form_of_conditional_block_raises_naming_the_roadmap():
+    """The IfElse form (is_scalar_condition=False) raised naming ROADMAP
+    A6 until A6 was ported; it now runs its block and writes its outputs
+    unselected (merge_lod_tensor's row mask selects), as the JAX package
+    does: the same value in both packages, whichever the condition."""
     def build(fluid):
         L = fluid.layers
         v = L.data(name="v", shape=[1], dtype="float32",
@@ -191,10 +195,17 @@ def test_ifelse_form_of_conditional_block_raises_naming_the_roadmap():
         with L.ConditionalBlock([cond], is_scalar_condition=False).block():
             L.assign(v, out)
         return out
+    jmain, _, jout = _built(jfluid, build)
     main, _, out = _built(tfluid, build)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tfluid.Executor("cpu").run(main, feed={"v": np.zeros(1, "f")},
-                                   fetch_list=[out], scope=tfluid.Scope())
+    assert tdesc.program_to_bytes(main) == jdesc.program_to_bytes(jmain)
+    for v in (0.0, 2.0):
+        feed = {"v": np.array([v], "f")}
+        with jfluid.scope_guard(jfluid.Scope()):
+            j, = jfluid.Executor(jfluid.CPUPlace()).run(
+                jmain, feed=feed, fetch_list=[jout])
+        t, = tfluid.Executor("cpu").run(main, feed=feed, fetch_list=[out],
+                                        scope=tfluid.Scope())
+        assert float(t[0]) == float(np.asarray(j)[0]) == v
 
 
 _SLICE_RULES = (
