@@ -499,6 +499,38 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               runs after it (no device-side assert), and steps=4 on a
               While program raises GraphCaptureError. A `decode_summary:`
               line sums up.
+31. serving  — decode serving, weight dtypes and HTTP (ROADMAP A7).
+              (a) bench.py's decode leg at its defaults (DECODE_BENCH:
+              slots 8, 48 streams, its mixed budgets about 24 tokens,
+              hidden 256, vocab 4096, 4 tanh fcs, seed 11) through
+              DecodeEngine: the serial run through solo_clone, the open
+              loop on bench.py's fixed arrival schedule at 2x the serial
+              stream rate; every stream equal to its solo decode, the
+              first DECODE_VS_CPU equal to a CPU engine's on the same
+              weights; tokens/s continuous and serial, inter-token p50 /
+              p99, slot occupancy, and over closed bursts of DECODE_PROBE
+              streams host ms an iteration, device ms an iteration and
+              the idle share under the profiler, and synchronizing calls
+              an iteration (set_sync_debug_mode("warn"): one, the token
+              and finished rows' read). (b) the same step with a
+              layer_norm after each fc at Transformer-base's d_model 512
+              and vocab 30000, 6 layers, 16 streams of 8-32 tokens
+              (DECODE_LN): (a)'s gates, K5 6 launches an iteration, and K5
+              at [8, 512] against its plain version (KERNEL_TOL), timed
+              beside its bound and F.layer_norm. (c) Transformer-base
+              scoring (phase 4's model and requests) at weights_dtype
+              fp32, "bf16" and "int8", 16 requests each: answers within
+              divergence_bound of fp32's, p50 / p99, the weights' bytes on
+              the card, a bucket-8 dispatch's ms, int8's dequantize ms a
+              dispatch, the bf16 K1 18 launches a dispatch and held to its
+              plain version at [8, 256, 8, 64] (BF16_KERNEL_TOL). (d) a
+              ModelServer on 127.0.0.1, port 0, over (a)'s engine and
+              (c)'s fp32 engine: a :predict equal to run_direct, a
+              streamed :decode equal to the solo decode, /metrics with
+              the decode gauges. A `decode_serving_summary:` line sums
+              up. Phase 3 also prints `C14:` / `C15:` lines: warpctc and
+              edit_distance with out-of-range indices on the card equal
+              to the CPU, NaN for NaN (faults C14, C15).
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run; the bf16 flash kernels counted under
@@ -3101,14 +3133,10 @@ def run_acoustic_kernels(torch, ck, peak_flops, peak_bw,
 
 # --------------------------------------------------------------- serving --
 
-def run_serving(torch, card, n_layer=N_LAYER):
-    import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.ops import cuda_kernels as ck
-    from paddle_tpu_torch.models import transformer
-    from paddle_tpu_torch.serving import InferenceEngine
-
+def build_scoring(fluid, transformer, n_layer=N_LAYER):
+    """Transformer-base scoring (MODEL, fused attention, startup seeded
+    by SEED): (main, startup, predict)."""
     vocab, t_max = MODEL["vocab"], MODEL["max_length"]
-    t0 = time.perf_counter()
     main, startup = fluid.Program(), fluid.Program()
     startup.random_seed = SEED
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
@@ -3117,6 +3145,31 @@ def run_serving(torch, card, n_layer=N_LAYER):
             d_key=MODEL["d_key"], d_value=MODEL["d_key"],
             d_model=MODEL["d_model"], d_inner_hid=MODEL["d_inner"],
             use_fused_attention=True)
+    return main, startup, predict
+
+
+def scoring_requests(transformer, n=16):
+    """Phase 4's requests: `n` single-sentence scoring feeds of 32-256
+    source and target tokens, from SEED."""
+    vocab, t_max = MODEL["vocab"], MODEL["max_length"]
+    rng = np.random.RandomState(SEED)
+    requests = []
+    for _ in range(n):
+        s = rng.randint(3, vocab, rng.randint(t_max // 8, t_max + 1)).tolist()
+        tg = rng.randint(3, vocab, rng.randint(t_max // 8, t_max + 1)).tolist()
+        requests.append(transformer.prepare_batch([s], [tg], t_max))
+    return requests
+
+
+def run_serving(torch, card, n_layer=N_LAYER):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    vocab, t_max = MODEL["vocab"], MODEL["max_length"]
+    t0 = time.perf_counter()
+    main, startup, predict = build_scoring(fluid, transformer, n_layer)
     exe = fluid.Executor()
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
@@ -3128,12 +3181,7 @@ def run_serving(torch, card, n_layer=N_LAYER):
           % (n_layer, n_layer, n_params, exe.device,
              time.perf_counter() - t0))
 
-    rng = np.random.RandomState(SEED)
-    requests = []
-    for _ in range(16):
-        s = rng.randint(3, vocab, rng.randint(t_max // 8, t_max + 1)).tolist()
-        tg = rng.randint(3, vocab, rng.randint(t_max // 8, t_max + 1)).tolist()
-        requests.append(transformer.prepare_batch([s], [tg], t_max))
+    requests = scoring_requests(transformer)
 
     with tempfile.TemporaryDirectory(prefix="ptt_smoke_") as model_dir:
         t0 = time.perf_counter()
@@ -7103,6 +7151,571 @@ def run_control_flow_checks(torch):
             "graph_capture_error": True}
 
 
+# faults C14 and C15: warpctc and edit_distance with indices out of range
+# take jnp.take_along_axis's rule (a negative index wraps, one past the end
+# reads NaN); the card must equal the CPU, NaN for NaN
+C14_CASES = {"label_len_above_u": dict(label_len=(4, 2, 7)),
+             "label_len_negative": dict(label_len=(1, -1, 2)),
+             "label_at_or_above_c": dict(labels=[[1, 2, 3], [7, 1, 2],
+                                                 [5, 5, 1]]),
+             "label_negative": dict(labels=[[-1, 2, 3], [1, -2, 3],
+                                            [-6, 3, 4]])}
+C15_CASES = {"hyps_len_above_u": ((5, 4), (4, 4)),
+             "refs_len_above_u": ((4, 4), (3, 5)),
+             "negative_lengths": ((-1, 4), (4, -2))}
+
+
+def ctc_fault_inputs(labels=None, label_len=(3, 2, 1)):
+    """warpctc's C14 case: B 3, T 6, C 5, U 3, blank 0, XLen 6."""
+    rng = np.random.RandomState(SEED)
+    label = rng.randint(1, 5, (3, 3)).astype(np.int64) if labels is None \
+        else np.asarray(labels, np.int64)
+    return {"Logits": [rng.randn(3, 6, 5).astype(np.float32)],
+            "Label": [label[:, :, None]],
+            "XLen": [np.full((3,), 6, np.int32)],
+            "LabelLen": [np.asarray(label_len, np.int32)]}
+
+
+def nan_equal(a, b, tol):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    same_nan = np.array_equal(np.isnan(a), np.isnan(b))
+    ok = ~np.isnan(b)
+    return same_nan and (not ok.any() or float(
+        np.abs(a[ok] - b[ok]).max()) <= tol * max(1.0, float(
+            np.abs(b[ok]).max())))
+
+
+def run_ctc_fault_checks(torch):
+    """C14 (warpctc's loss and its gradient) and C15 (edit_distance, raw
+    and normalized) on the card against the CPU, NaN for NaN, values
+    within SEQ_OPS_TOL of max(1, max |cpu|)."""
+    rows = []
+    for case, kw in sorted(C14_CASES.items()):
+        ins = ctc_fault_inputs(**kw)
+        got, ggot, cots, _ = run_seq_op(torch, "warpctc", ins, {"blank": 0},
+                                        ["Loss"], "cuda")
+        want, gwant, _, _ = run_seq_op(torch, "warpctc", ins, {"blank": 0},
+                                       ["Loss"], "cpu", cots=cots)
+        loss, ref = got["Loss"][0].numpy(), want["Loss"][0].numpy()
+        ok = nan_equal(loss, ref, SEQ_OPS_TOL) and nan_equal(
+            ggot[("Logits", 0)].numpy(), gwant[("Logits", 0)].numpy(),
+            SEQ_OPS_TOL)
+        rows.append(ok)
+        print("C14: warpctc %s: card loss %s, cpu %s, gradient NaN rows "
+              "%d; %s" % (case, np.round(loss[:, 0], 4).tolist(),
+                          np.round(ref[:, 0], 4).tolist(),
+                          int(np.isnan(ggot[("Logits", 0)].numpy()).any(
+                              axis=(1, 2)).sum()),
+                          "equal" if ok else "DIFFER"))
+    check(all(rows), "C14: warpctc differs between the card and the CPU")
+    rows = []
+    for case, (hlen, rlen) in sorted(C15_CASES.items()):
+        ins = {"Hyps": [np.array([[1, 2, 3, 4], [2, 3, 4, 5]], np.int64)],
+               "Refs": [np.array([[1, 2, 4, 0], [2, 2, 2, 2]], np.int64)],
+               "HypsLen": [np.asarray(hlen, np.int64)],
+               "RefsLen": [np.asarray(rlen, np.int64)]}
+        for normalized in (False, True):
+            attrs = {"normalized": normalized}
+            got = run_seq_op(torch, "edit_distance", ins, attrs, [],
+                             "cuda")[0]["Out"][0].numpy()
+            want = run_seq_op(torch, "edit_distance", ins, attrs, [],
+                              "cpu")[0]["Out"][0].numpy()
+            ok = np.array_equal(got, want, equal_nan=True)
+            rows.append(ok)
+            print("C15: edit_distance %s normalized=%s: card %s, cpu %s; %s"
+                  % (case, normalized, got[:, 0].tolist(),
+                     want[:, 0].tolist(), "equal" if ok else "DIFFER"))
+    check(all(rows), "C15: edit_distance differs between the card and the "
+          "CPU")
+
+
+# phase 31: decode serving (ROADMAP A7). (a) the repo's decode leg at its
+# own defaults (bench.py:624-629: slots 8, 48 streams, base tokens 24 with
+# the leg's mixed budgets, hidden 256, vocab 4096, 4 tanh layers, seed 11;
+# the serial run through solo_clone, the open loop on the leg's fixed
+# arrival schedule at 2x the serial stream rate); (b) the same step with a
+# layer_norm after each hidden fc at Transformer-base's d_model 512 and
+# vocab 30000, 6 layers, 16 streams of 8-32 tokens (K5 on rows [8, 512]);
+# (c) Transformer-base scoring (phase 4's model and requests) at
+# weights_dtype "bf16" and "int8" against fp32; (d) the HTTP ModelServer
+# over (a)'s engine and (c)'s fp32 engine.
+DECODE_BENCH = dict(slots=8, streams=48, tokens=24, hidden=256, vocab=4096,
+                    layers=4, seed=11, layer_norm=False)
+DECODE_LN = dict(slots=8, streams=16, tokens=(8, 32), hidden=512,
+                 vocab=30000, layers=6, seed=11, layer_norm=True)
+DECODE_VS_CPU = 8        # streams decoded on the CPU too, tokens equal
+DECODE_PROBE = 8         # streams a closed burst (host / device / syncs)
+WD_BUCKETS = [1, 4, 8]   # weight-dtype serving's batch buckets (phase 4's)
+
+
+def build_decode_step(fluid, cfg):
+    """bench.py's decode step (bench_decode): carried token, hidden and
+    context rows per slot, `layers` tanh fcs (each followed by layer_norm
+    with cfg["layer_norm"]), logits over the vocabulary, greedy argmax fed
+    back, finished = (token == 0). Returns (main, startup, token,
+    finished)."""
+    slots, hidden = cfg["slots"], cfg["hidden"]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = cfg["seed"]
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        tok = fluid.layers.create_global_var([slots, 1], 0, "int64",
+                                             persistable=True, name="tok")
+        h = fluid.layers.create_global_var([slots, hidden], 0.0, "float32",
+                                           persistable=True, name="h")
+        ctx = fluid.layers.create_global_var([slots, hidden], 0.0,
+                                             "float32", persistable=True,
+                                             name="ctx")
+        z = fluid.layers.concat(
+            [fluid.layers.cast(tok, "float32"), h, ctx], axis=1)
+        for _ in range(cfg["layers"]):
+            z = fluid.layers.fc(input=z, size=hidden, act="tanh")
+            if cfg["layer_norm"]:
+                z = fluid.layers.layer_norm(z, begin_norm_axis=1)
+        logits = fluid.layers.fc(input=z, size=cfg["vocab"])
+        nxt = fluid.layers.reshape(
+            fluid.layers.argmax(logits, axis=1), shape=[slots, 1])
+        fin = fluid.layers.equal(
+            nxt, fluid.layers.fill_constant([slots, 1], "int64", 0))
+        fluid.layers.assign(nxt, output=tok)
+        fluid.layers.assign(z, output=h)
+    return main, startup, nxt, fin
+
+
+def decode_streams(cfg):
+    """(feeds, budgets): bench.py's stream feeds (start token i mod
+    (vocab - 1) + 1, a random context row from seed 0) and its mixed
+    budgets, or budgets spread over cfg["tokens"] = (lo, hi)."""
+    n, vocab = cfg["streams"], cfg["vocab"]
+    rng = np.random.RandomState(0)
+    feeds = [{"tok": np.array([i % (vocab - 1) + 1], dtype="int64"),
+              "ctx": rng.randn(cfg["hidden"]).astype("float32")}
+             for i in range(n)]
+    if isinstance(cfg["tokens"], tuple):
+        lo, hi = cfg["tokens"]
+        budgets = [lo + (i * 7) % (hi - lo + 1) for i in range(n)]
+    else:
+        base = cfg["tokens"]
+        budgets = [max(4, base // 2 + (i * 7) % base) for i in range(n)]
+    return feeds, budgets
+
+
+def cpu_decoder(engine):
+    """A DecodeEngine on the CPU over `engine`'s program and weights."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    cpu = DecodeEngine(program=engine.program, token_var=engine.token_name,
+                       finished_var=engine.finished_name,
+                       slot_vars=list(engine.slot_vars),
+                       max_slots=engine.max_slots, place="cpu",
+                       name=engine.name + "-cpu", warmup=False)
+    for n in engine._state_ro:
+        if n not in engine.slot_vars:
+            cpu._scope.set(n, engine._scope.get(n).detach().cpu())
+    return cpu
+
+
+def decode_burst(engine, feeds, budgets):
+    """The streams submitted at once, each's tokens as a flat array."""
+    streams = [engine.submit(f, max_new_tokens=b)
+               for f, b in zip(feeds, budgets)]
+    return [np.asarray(s.result(600)).reshape(-1) for s in streams]
+
+
+def run_decode_leg(torch, card, cfg, tag):
+    """One decode leg of phase 31 on the card: the serial run through
+    solo_clone, then the open loop (counts zeroed just before it, read
+    just after), divergence from solo (must be 0), the first
+    DECODE_VS_CPU streams on the CPU (tokens equal), then closed bursts
+    of DECODE_PROBE streams for host ms an iteration, device ms an
+    iteration under the profiler and synchronizing calls an iteration.
+    Returns ((counts, expected), summary, the engine, the serial
+    tokens)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    t0 = time.perf_counter()
+    main, startup, nxt, fin = build_decode_step(fluid, cfg)
+    feeds, budgets = decode_streams(cfg)
+    base = max(budgets)
+    engine = DecodeEngine(program=main, startup_program=startup,
+                          token_var=nxt, finished_var=fin,
+                          max_slots=cfg["slots"], name="decode-" + tag,
+                          queue_capacity=max(1024, len(feeds)),
+                          default_max_new_tokens=base)
+    build_s = time.perf_counter() - t0
+    solo = engine.solo_clone(name="decode-%s-solo" % tag)
+    try:
+        t0 = time.perf_counter()
+        serial = [np.asarray(solo.decode(f, max_new_tokens=b)).reshape(-1)
+                  for f, b in zip(feeds, budgets)]
+        serial_dt = time.perf_counter() - t0
+    finally:
+        solo.close()
+    serial_tokens = int(sum(len(s) for s in serial))
+
+    rate = 2.0 * len(feeds) / serial_dt
+    before = engine.decode_stats()
+    ck.reset_launch_counts()
+    streams, t0 = [], time.perf_counter()
+    for i, f in enumerate(feeds):
+        delay = t0 + i / rate - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        streams.append(engine.submit(f, max_new_tokens=budgets[i]))
+    cont = [np.asarray(s.result(600)).reshape(-1) for s in streams]
+    cont_dt = time.perf_counter() - t0
+    counts = ck.launch_counts()
+    stats = engine.decode_stats()
+    iters = stats["iterations"] - before["iterations"]
+    cont_tokens = int(sum(len(s) for s in cont))
+    mismatched = [i for i, (a, b) in enumerate(zip(cont, serial))
+                  if a.shape != b.shape or not np.array_equal(a, b)]
+    print("decode %s: %d streams, %d tokens, %d iterations; divergence "
+          "from solo %d/%d" % (tag, len(feeds), cont_tokens, iters,
+                               len(mismatched), len(feeds)))
+    check(not mismatched, "decode %s: streams %s differ from their solo "
+          "decodes" % (tag, mismatched))
+
+    cpu = cpu_decoder(engine)
+    try:
+        t0 = time.perf_counter()
+        on_cpu = [np.asarray(cpu.decode(f, max_new_tokens=b)).reshape(-1)
+                  for f, b in zip(feeds[:DECODE_VS_CPU],
+                                  budgets[:DECODE_VS_CPU])]
+        cpu_s = time.perf_counter() - t0
+    finally:
+        cpu.close()
+    cpu_diff = [i for i, (a, b) in enumerate(zip(on_cpu, serial))
+                if a.shape != b.shape or not np.array_equal(a, b)]
+    print("decode %s: the first %d streams on the CPU (same weights): %d "
+          "differ (%.1f s)" % (tag, DECODE_VS_CPU, len(cpu_diff), cpu_s))
+    check(not cpu_diff, "decode %s: streams %s differ between the card "
+          "and the CPU" % (tag, cpu_diff))
+
+    probe_feeds = feeds[:DECODE_PROBE]
+    probe_budgets = [base] * DECODE_PROBE
+
+    def probe(fn):
+        i0 = engine.decode_stats()["iterations"]
+        out = fn()
+        return out, engine.decode_stats()["iterations"] - i0
+
+    wall_ms, n_plain = probe(lambda: call_ms(torch, lambda: decode_burst(
+        engine, probe_feeds, probe_budgets)))
+    (busy, port, wall), n_prof = probe(lambda: device_busy_ms(
+        torch, lambda: decode_burst(engine, probe_feeds, probe_budgets)))
+    (_, syncs), n_sync = probe(lambda: _sync_warnings(
+        torch, lambda: decode_burst(engine, probe_feeds, probe_budgets),
+        tag="decode %s" % tag))
+    summary = {
+        "config": {k: cfg[k] for k in ("slots", "streams", "hidden",
+                                       "vocab", "layers", "seed",
+                                       "layer_norm")},
+        "build_s": build_s,
+        "serial_tokens": serial_tokens, "serial_s": serial_dt,
+        "serial_tokens_per_s": serial_tokens / serial_dt,
+        "continuous_tokens": cont_tokens, "continuous_s": cont_dt,
+        "continuous_tokens_per_s": cont_tokens / cont_dt,
+        "speedup_vs_serial": (cont_tokens / cont_dt) /
+        (serial_tokens / serial_dt),
+        "open_arrival_streams_per_s": rate,
+        "divergence_vs_solo": len(mismatched) / float(len(feeds)),
+        "cpu_streams_equal": len(on_cpu) - len(cpu_diff),
+        "iterations": iters,
+        "mean_slot_occupancy": (stats["mean_slot_occupancy"]),
+        "inter_token_p50_ms": stats["inter_token_p50_ms"],
+        "inter_token_p99_ms": stats["inter_token_p99_ms"],
+        "host_ms_per_iteration": wall_ms / max(n_plain, 1),
+        "profiled_iterations": n_prof,
+        "profiled_host_ms_per_iteration": wall / max(n_prof, 1),
+        "device_ms_per_iteration": busy / max(n_prof, 1),
+        "port_kernel_ms_per_iteration": port / max(n_prof, 1),
+        "idle_share": 1.0 - busy / wall if wall > 0 else None,
+        "sync_calls": syncs, "sync_iterations": n_sync,
+        "sync_calls_per_iteration": syncs / max(n_sync, 1),
+        "launches_per_iteration": {k: v / max(iters, 1)
+                                   for k, v in counts.items() if v},
+        "card": card,
+    }
+    print("decode %s: %s" % (tag, json.dumps(summary)))
+    check(0.5 <= summary["sync_calls_per_iteration"] <= 1.5,
+          "decode %s: %d synchronizing calls over %d iterations, expected "
+          "one an iteration" % (tag, syncs, n_sync))
+    expected = dict.fromkeys(counts, 0)
+    if cfg["layer_norm"]:
+        expected["layer_norm_fwd"] = cfg["layers"] * iters
+    return (counts, expected), summary, engine, serial
+
+
+def run_decode_k5(torch, card, peak_flops, peak_bw):
+    """K5 against its plain version at the slot-decode rows [slots, d]
+    (phase 30's tolerance), timed beside its bound and F.layer_norm."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    n, dm = DECODE_LN["slots"], DECODE_LN["hidden"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 310)
+    x = torch.randn((n, dm), generator=g, device="cuda")
+    sc = torch.randn((dm,), generator=g, device="cuda")
+    bi = torch.randn((dm,), generator=g, device="cuda")
+    got = ck.layer_norm_fwd(x, sc, bi, 1e-5)
+    want = ck.layer_norm_fwd_plain(x, sc, bi, 1e-5)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    check(np.isfinite(err) and err <= KERNEL_TOL,
+          "decode: layer_norm_fwd at [%d, %d] disagrees with its plain "
+          "version by %r" % (n, dm, err))
+    bms, bby = bound(8 * n * dm, 4 * (2 * n * dm + 2 * dm + 2 * n),
+                     peak_flops, peak_bw)
+    row = {"shape": "x [%d,%d] fp32" % (n, dm), "max_abs_err": err,
+           "ms": time_ms(torch, lambda: ck.layer_norm_fwd(x, sc, bi, 1e-5)),
+           "plain_ms": time_ms(
+               torch, lambda: ck.layer_norm_fwd_plain(x, sc, bi, 1e-5)),
+           "library_ms": time_ms(
+               torch, lambda: F.layer_norm(x, (dm,), sc, bi, 1e-5)),
+           "bound_ms": bms, "bound_by": bby, "card": card}
+    print("decode k5: %s" % json.dumps(row))
+    return row
+
+
+def weights_bytes(engine):
+    """Bytes of the engine scope's persistables on the device."""
+    total = 0
+    for v in engine.program.list_vars():
+        t = engine._scope.get(v.name) if v.persistable else None
+        if t is not None:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def run_bf16_k1_serving_shape(torch):
+    """The bf16 K1 against its plain version at the scoring dispatch's
+    attention shape ([8, 256, 8, 64], ragged kv_len), within
+    BF16_KERNEL_TOL."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    g = torch.Generator(device="cuda").manual_seed(SEED + 311)
+    b, t, h, d = WD_BUCKETS[-1], MODEL["max_length"], MODEL["n_head"], \
+        MODEL["d_key"]
+    q, k, v = [torch.randn((b, t, h, d), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3)]
+    kv = torch.tensor([256, 0, 37, 129, 200, 64, 255, 96], device="cuda",
+                      dtype=torch.int32)
+    out, lse = ck.flash_attention_fwd(q, k, v, kv)
+    ref, ref_lse = ck.flash_attention_fwd_plain(q, k, v, kv)
+    torch.cuda.synchronize()
+    err = rel_err((out.float(),), (ref.float(),))
+    e_lse = (lse - ref_lse).abs().max().item()
+    check(np.isfinite(err) and err <= BF16_KERNEL_TOL and e_lse <= KERNEL_TOL,
+          "weights_dtype: the bf16 K1 at [%d, %d, %d, %d] disagrees with its "
+          "plain version: out %r, lse %r" % (b, t, h, d, err, e_lse))
+    return {"shape": "q, k, v [%d,%d,%d,%d] bf16" % (b, t, h, d),
+            "rel_err": err, "lse_err": e_lse}
+
+
+def run_weights_dtype_serving(torch, card, model_dir, requests, predict):
+    """Phase 31 (c): the fp32, bf16 and int8 engines over one saved
+    Transformer-base scoring model, 16 requests each (counts zeroed just
+    before each burst and read just after); every bf16 / int8 answer
+    within divergence_bound of the fp32 engine's; p50 / p99; the weights'
+    bytes on the device; one dispatch's host ms at bucket 8; int8's
+    dequantize ops' device ms a dispatch. Returns (paths, summary, the
+    fp32 engine, its answers)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import InferenceEngine
+    from paddle_tpu_torch.serving.quantize import divergence_bound
+
+    n_flash, n_ln = 3 * N_LAYER, 5 * N_LAYER + 2
+    paths, summary, ref, ref_engine = [], {}, None, None
+    for wd in ("fp32", "bf16", "int8"):
+        t0 = time.perf_counter()
+        engine = InferenceEngine(model_dir, batch_buckets=WD_BUCKETS,
+                                 weights_dtype=wd, name="transformer-" + wd)
+        load_s = time.perf_counter() - t0
+        try:
+            ck.reset_launch_counts()
+            b0 = engine.metrics.snapshot()["batches_total"]
+            answers, latencies, _, wall = serve_burst(engine, requests,
+                                                      predict.name)
+            counts = ck.launch_counts()
+            batches = engine.metrics.snapshot()["batches_total"] - b0
+            flash = "flash_attention_fwd_bf16" if wd == "bf16" \
+                else "flash_attention_fwd"
+            expected = dict.fromkeys(counts, 0)
+            expected.update({flash: n_flash * batches,
+                             "layer_norm_fwd": n_ln * batches})
+            paths.append(("transformer_serving_" + wd, (counts, expected)))
+            lat = sorted(x * 1e3 for x in latencies)
+            row = {"load_s": load_s, "batches": batches,
+                   "p50_ms": float(np.percentile(lat, 50)),
+                   "p99_ms": float(np.percentile(lat, 99)),
+                   "wall_s": wall,
+                   "weights_bytes": weights_bytes(engine),
+                   "flash_launches_per_dispatch":
+                   counts[flash] / max(batches, 1),
+                   "layer_norm_launches_per_dispatch":
+                   counts["layer_norm_fwd"] / max(batches, 1),
+                   "dispatch_ms_bucket8": statistics.median(
+                       call_ms(torch, lambda: engine.run_direct(
+                           requests[0], batch_bucket=WD_BUCKETS[-1]))
+                       for _ in range(5))}
+            if wd == "fp32":
+                ref, ref_engine = answers, engine
+                engine = None
+            else:
+                div = max(float(np.abs(a.astype(np.float64)
+                                       - r.astype(np.float64)).max()
+                                / (np.abs(r).max() + 1e-6))
+                          for a, r in zip(answers, ref))
+                row["divergence"] = div
+                row["divergence_bound"] = divergence_bound(wd)
+                row["weights_bytes_vs_fp32"] = \
+                    row["weights_bytes"] / summary["fp32"]["weights_bytes"]
+                check(all(np.isfinite(a).all() for a in answers)
+                      and div <= divergence_bound(wd),
+                      "weights_dtype %s: answers %r from fp32's (bound %r)"
+                      % (wd, div, divergence_bound(wd)))
+            if wd == "int8":
+                row["dequantize_ms_per_dispatch"] = int8_dequantize_ms(
+                    torch, engine)
+            summary[wd] = row
+            print("weights_dtype %s: %s" % (wd, json.dumps(row)))
+        finally:
+            if engine is not None:
+                engine.close()
+    summary["bf16_k1_serving_shape"] = run_bf16_k1_serving_shape(torch)
+    summary["card"] = card
+    return paths, summary, ref_engine, ref
+
+
+def int8_dequantize_ms(torch, engine):
+    """Device ms of one dispatch's dequantize_channel ops: the plain
+    widening of every int8 weight to f32 (the rule, replayed from a CUDA
+    graph)."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.lowering import LowerCtx
+    ops = [op for op in engine.program.global_block().ops
+           if op.type == "dequantize_channel"]
+    rule = registry.get("dequantize_channel")
+    ctx = LowerCtx(None, engine.device)
+    ins = [{"X": [engine._scope.get(op.input("X")[0])],
+            "Scale": [engine._scope.get(op.input("Scale")[0])]}
+           for op in ops]
+
+    def run():
+        for op, i in zip(ops, ins):
+            rule.lower(ctx, i, op.attrs)
+    return time_ms(torch, run, iters=5)
+
+
+def http_json(url, payload=None, timeout=600):
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=timeout)
+
+
+def run_model_server(torch, card, decoder, feed, budget, want_tokens,
+                     scorer, request):
+    """Phase 31 (d): a ModelServer on 127.0.0.1, port 0, over the decode
+    engine and the fp32 scoring engine: one :predict equal to run_direct
+    exactly, one streamed :decode equal to the solo decode exactly, and
+    /metrics with the decode gauges."""
+    from paddle_tpu_torch.serving import ModelServer
+    server = ModelServer({"decode": decoder, "transformer": scorer},
+                         port=0).start()
+    base = "http://%s" % server.address
+    try:
+        t0 = time.perf_counter()
+        resp = json.loads(http_json(
+            base + "/v1/models/transformer:predict",
+            {"inputs": {k: np.asarray(v).tolist()
+                        for k, v in request.items()}}).read())
+        predict_s = time.perf_counter() - t0
+        name = scorer.fetch_names[0]
+        got = np.asarray(resp["outputs"][name], dtype=np.float32)
+        want, _ = scorer.run_direct(request, batch_bucket=resp["bucket"][0])
+        check(got.shape == want[name].shape
+              and np.array_equal(got, want[name]),
+              "server: :predict differs from run_direct (shape %s)"
+              % (got.shape,))
+        t0 = time.perf_counter()
+        lines = [json.loads(x) for x in http_json(
+            base + "/v1/models/decode:decode",
+            {"inputs": {k: np.asarray(v).tolist() for k, v in feed.items()},
+             "max_new_tokens": budget}).read().decode().splitlines()
+            if x.strip()]
+        decode_s = time.perf_counter() - t0
+        tokens = [ln["token"][0] for ln in lines if "token" in ln]
+        check(lines and lines[-1].get("done") is True
+              and np.array_equal(tokens, want_tokens),
+              "server: :decode streamed %s, the solo decode gave %s"
+              % (lines[-1:], list(want_tokens)))
+        text = http_json(base + "/metrics").read().decode()
+        check("ptpu_decode_slots" in text
+              and "ptpu_decode_tokens_total" in text
+              and 'ptpu_serving_requests_total{model="transformer"}' in text,
+              "server: /metrics lacks the decode or serving families")
+        health = json.loads(http_json(base + "/healthz").read())
+        check(health["status"] == "ok", "server: /healthz %r" % health)
+    finally:
+        server.shutdown()
+    row = {"predict_s": predict_s, "decode_s": decode_s,
+           "decode_lines": len(lines), "metrics_lines": len(
+               text.splitlines()), "card": card}
+    print("server: %s" % json.dumps(row))
+    return row
+
+
+def run_decode_serving(torch, card, peak_flops, peak_bw):
+    """Phase 31 (see the constants above). Returns (paths, summary)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+
+    paths, summary = [], {}
+    run, summary["bench"], bench_engine, bench_serial = run_decode_leg(
+        torch, card, DECODE_BENCH, "bench")
+    paths.append(("decode_bench", run))
+    try:
+        run, summary["layer_norm"], ln_engine, _ = run_decode_leg(
+            torch, card, DECODE_LN, "layer_norm")
+        ln_engine.close()
+        paths.append(("decode_layer_norm", run))
+        summary["k5_slot_rows"] = run_decode_k5(torch, card, peak_flops,
+                                                peak_bw)
+        summary["k5_slot_rows"]["launches_per_iteration"] = \
+            summary["layer_norm"]["launches_per_iteration"].get(
+                "layer_norm_fwd", 0)
+        check(summary["k5_slot_rows"]["launches_per_iteration"] ==
+              DECODE_LN["layers"], "decode: K5 launched %r times an "
+              "iteration, expected %d" % (
+                  summary["k5_slot_rows"]["launches_per_iteration"],
+                  DECODE_LN["layers"]))
+        requests = scoring_requests(transformer)
+        main, startup, predict = build_scoring(fluid, transformer)
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        with tempfile.TemporaryDirectory(prefix="ptt_smoke_") as model_dir:
+            fluid.io.save_inference_model(
+                model_dir, transformer.SCORING_FEED_NAMES, [predict], exe,
+                main, scope=scope)
+            del scope
+            wd_paths, summary["weights_dtype"], scorer, _ = \
+                run_weights_dtype_serving(torch, card, model_dir, requests,
+                                          predict)
+            paths += wd_paths
+            try:
+                feeds, budgets = decode_streams(DECODE_BENCH)
+                summary["server"] = run_model_server(
+                    torch, card, bench_engine, feeds[0], budgets[0],
+                    bench_serial[0], scorer, requests[1])
+            finally:
+                scorer.close()
+    finally:
+        bench_engine.close()
+    torch.cuda.empty_cache()
+    return paths, summary
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
@@ -7207,6 +7820,7 @@ def main(argv=None):
     run_flash_grid_check(torch, ck)
     run_fault_checks(torch)
     run_topk_abs_checks(torch)
+    run_ctc_fault_checks(torch)
     kernels.update(run_sequence_kernels(
         torch, ck, peak_flops, peak_bw,
         baseline_source(args.k6_baseline, K6_BASELINE_COMMIT, LSTM_SRC)))
@@ -7374,6 +7988,17 @@ def main(argv=None):
             "transformer": transformer_decode,
             "translator": translator_decode, "control_flow": loop_checks,
             "card": card}))
+        serving_paths, decode_serving = run_decode_serving(
+            torch, card, peak_flops, peak_bw)
+        paths += serving_paths
+        kernels["layer_norm_fwd"]["slot_decode"] = \
+            decode_serving["k5_slot_rows"]
+        kernels["flash_attention_fwd_bf16"]["serving_dispatch"] = {
+            k: decode_serving["weights_dtype"]["bf16"][k] for k in (
+                "flash_launches_per_dispatch", "batches")}
+        kernels["flash_attention_fwd_bf16"]["serving_dispatch"].update(
+            decode_serving["weights_dtype"]["bf16_k1_serving_shape"])
+        print("decode_serving_summary: " + json.dumps(decode_serving))
         print("clipping_summary: " + json.dumps({
             "fit_a_line": {k: v for k, v in clipping.items() if k != "card"},
             "language_model_clip": {k: lm_clip[k] for k in (

@@ -14,6 +14,10 @@ prefetcher of that module waits for in-graph reader ops (ROADMAP A8).
     completes at once. The completion thread also sums the device's idle
     gaps (one dispatch's completion to the next one's enqueue).
 
+  * `run_step_traced` wraps one Executor run in its `exec/step` span,
+    inheriting the thread's ambient trace (the serving batcher scopes
+    each batch's trace around its dispatch).
+
   * `run_with_deadline` runs a function on a worker thread and gives up
     on it after `timeout` seconds; `dispatch_with_deadline` is the
     executor's wrapper that attaches the run's cache key to the raise.
@@ -24,7 +28,11 @@ import time
 
 import torch
 
-__all__ = ["InflightWindow", "run_with_deadline", "dispatch_with_deadline"]
+from ..observability import registry as _obsreg
+from ..observability import trace as _trace
+
+__all__ = ["InflightWindow", "run_with_deadline", "dispatch_with_deadline",
+           "run_step_traced"]
 
 _CLOSE = object()
 
@@ -69,10 +77,14 @@ class InflightWindow(object):
         self._idle_s = 0.0
         self._gaps = 0
         self._completed = 0
+        self._iterations = 0  # decode iterations (note_iteration)
         self._thread = threading.Thread(
             target=self._completion_loop, daemon=True,
             name="ptt-window-%s" % (tag or "anon"))
         self._thread.start()
+        # depth/completed/idle on /metrics for this window's lifetime
+        # (a weak reference: a closed, dropped window drops off)
+        _obsreg.note_window(self)
 
     # ------------------------------------------------------------ slots --
     def acquire(self, timeout=None):
@@ -124,10 +136,18 @@ class InflightWindow(object):
                 self._completed += 1
             self._sem.release()
 
+    def note_iteration(self):
+        """Count one decode iteration (serving.DecodeBatcher): a step loop
+        runs one tracked dispatch an iteration, and the count surfaces in
+        stats() beside `completed`."""
+        with self._lock:
+            self._iterations += 1
+
     def stats(self):
         with self._lock:
             return {"idle_s": self._idle_s, "gaps": self._gaps,
-                    "completed": self._completed}
+                    "completed": self._completed,
+                    "iterations": self._iterations}
 
     def close(self, timeout=None):
         self._q.put(_CLOSE)
@@ -174,3 +194,28 @@ def dispatch_with_deadline(run_impl, timeout, what):
     except DispatchTimeoutError as e:
         e.cache_key = info.get("cache_key")
         raise
+
+
+def run_step_traced(label, cancelled, body_fn, **span_args):
+    """One `exec/step` span around `body_fn(tspan)` (parity: the JAX
+    package's dispatch.run_step_traced): the span takes the thread's
+    ambient trace when a layer above owns one (a serving batch), else a
+    new one; a raise ends every open span of the trace with the error's
+    name, and a watchdog-cancelled body ends it as DispatchCancelled."""
+    tr = _trace.ambient()
+    tspan = _trace.span("exec/step", cat="train",
+                        trace=tr if tr is not None else _trace.new_trace(),
+                        executor=label, **span_args)
+    try:
+        out = body_fn(tspan)
+    except BaseException as e:
+        err = type(e).__name__
+        _trace.end_open(tspan.trace, error=err)
+        tspan.end(error=err)
+        raise
+    if cancelled is not None and cancelled.is_set():
+        _trace.end_open(tspan.trace, error="DispatchCancelled")
+        tspan.end(error="DispatchCancelled")
+        return out
+    tspan.end()
+    return out

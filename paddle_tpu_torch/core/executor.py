@@ -17,7 +17,7 @@ import os
 import numpy as np
 import torch
 
-from .dispatch import dispatch_with_deadline
+from .dispatch import dispatch_with_deadline, run_step_traced
 from .framework import convert_dtype, default_main_program, find_var
 from .lod import LoDTensor
 from .lowering import (FETCH_REDUCE_POLICIES, Env, LowerCtx, analyze_state,
@@ -149,6 +149,10 @@ class Scope(object):
         if name in self._vars:
             return self._vars[name]
         return self._parent.get(name) if self._parent is not None else None
+
+    def drop(self, name):
+        """Remove `name` from this scope (no-op when absent)."""
+        self._vars.pop(name, None)
 
     def has(self, name):
         return name in self._vars or (
@@ -382,12 +386,26 @@ class Executor(object):
     def _run_impl(self, program, feed, fetch_list, scope, return_numpy,
                   use_program_cache, steps, fetch_reduce, cancelled=None,
                   info=None):
+        # one `exec/step` span a run, in the ambient trace of a serving
+        # batch when there is one (observability/trace: host stamps only)
+        return run_step_traced(
+            "exe", cancelled,
+            lambda tspan: self._run_traced(
+                program, feed, fetch_list, scope, return_numpy,
+                use_program_cache, steps, fetch_reduce, cancelled, info,
+                tspan))
+
+    def _run_traced(self, program, feed, fetch_list, scope, return_numpy,
+                    use_program_cache, steps, fetch_reduce, cancelled, info,
+                    tspan):
         if program is None:
             program = default_main_program()
         scope = scope if scope is not None else global_scope()
         steps = int(steps)
         if steps < 1:
             raise ValueError("steps must be >= 1, got %r" % (steps,))
+        tspan.set(program=str(program._uid), version=int(program._version),
+                  steps=steps)
         if fetch_reduce not in FETCH_REDUCE_POLICIES:
             raise ValueError("fetch_reduce must be one of %r, got %r"
                              % (FETCH_REDUCE_POLICIES, fetch_reduce))

@@ -26,6 +26,7 @@ keep no graphs of their own, and leave the run's `grad_of` table alone.
 import time
 import weakref
 
+import numpy as np
 import torch
 
 from . import registry
@@ -481,6 +482,42 @@ def analyze_state(program, feed_names, fetch_names=()):
     state_rw = [n for n in state_in if n in seen_out]
     state_ro = [n for n in state_in if n not in seen_out]
     return state_rw, state_ro, state_out
+
+
+def build_slot_update_fn():
+    """The row writer of decode slot state (serving.DecodeEngine).
+
+    fn(state_vals, slot, row_vals) -> state_vals
+
+    state_vals: [slots, ...] tensors (the carried decode state: hidden
+    rows, token cursors, caches); slot: a Python int; row_vals: one row
+    per tensor (shape state.shape[1:], numpy or a tensor). Row `slot` of
+    each tensor is overwritten IN PLACE on its device (`copy_` into the
+    row view): the tensor object and its storage stay, so a later CUDA
+    graph that holds its pointer keeps seeing it, and the other rows'
+    bits are not touched. The slot is a Python int, so indexing makes no
+    host sync; a host row reaches a card through pinned memory as a
+    non-blocking copy, ordered before the next step on the same stream.
+    Parity: the JAX package's donated dynamic_update_index_in_dim.
+
+    A tensor that cannot take a row write in place (an expanded or
+    otherwise non-contiguous step output) is first replaced by a
+    contiguous copy; the returned tuple holds what to keep."""
+    def update(state_vals, slot, row_vals):
+        slot = int(slot)
+        out = []
+        for s, r in zip(state_vals, row_vals):
+            if not s.is_contiguous():
+                s = s.contiguous()
+            row = r if isinstance(r, torch.Tensor) \
+                else torch.from_numpy(np.ascontiguousarray(r))
+            if row.device.type == "cpu" and s.device.type == "cuda":
+                row = row.pin_memory()
+            s[slot].copy_(row.reshape(s.shape[1:]),
+                          non_blocking=s.device.type == "cuda")
+            out.append(s)
+        return tuple(out)
+    return update
 
 
 class GraphCaptureError(RuntimeError):

@@ -1,0 +1,476 @@
+"""One metrics registry for the port's runtime surfaces.
+
+Parity: the JAX package's observability/registry.py, copied (pure
+Python): the same family names, types and label sets, rendered through
+the same Prometheus text path serving exposes.
+
+  * `Counter` / `Gauge` / `Histogram` primitives, labeled, get-or-create
+    by family name.
+  * COLLECTORS: callables sampled at render time that read existing
+    surfaces instead of duplicating their bookkeeping: every live
+    `InflightWindow`'s depth/completed/idle, every live `Batcher`'s queue
+    depths, every live `DecodeBatcher`'s slots, streams and tokens, and
+    the trace ring's size.
+  * EXPORT: `REGISTRY.render_prometheus()`, appended to the serving
+    server's `/metrics`; `serve_metrics(port=)` gives a training process
+    the same scrape endpoint without the serving stack;
+    `write_textfile(path)` dumps the rendering atomically.
+
+Waiting for later slices: the profiler's collector (its sync, cache and
+entry counters; ROADMAP A11) and `watch_cluster` / `unwatch_cluster`
+(heartbeat-derived fleet gauges; ROADMAP A10).
+
+Family naming: everything here is `ptpu_<area>_...`; the serving families
+stay `ptpu_serving_*` in serving/metrics.py, and the two renders
+concatenate into one valid exposition (HELP/TYPE once per family).
+"""
+import os
+import threading
+import weakref
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "REGISTRY", "note_window", "note_batcher", "note_decoder",
+           "serve_metrics", "MetricsServer", "write_textfile"]
+
+
+def _escape_label(value):
+    return str(value).replace("\\", "\\\\").replace('"', '\\"') \
+        .replace("\n", "\\n")
+
+
+def _label_key(labels):
+    return tuple(sorted(labels.items()))
+
+
+def _label_str(label_key):
+    if not label_key:
+        return ""
+    return "{%s}" % ",".join('%s="%s"' % (k, _escape_label(v))
+                             for k, v in label_key)
+
+
+def _fmt(v):
+    if v != v:  # NaN
+        return "NaN"
+    f = float(v)
+    return "%d" % f if f == int(f) and abs(f) < 1e15 else repr(f)
+
+
+class _Metric(object):
+    mtype = "untyped"
+
+    def __init__(self, name, help_text=""):
+        self.name = name
+        self.help = help_text
+        self._lock = threading.Lock()
+
+    def samples(self):
+        """[(label_key, value)] — one Prometheus sample line each."""
+        with self._lock:
+            return sorted(self._values.items())
+
+
+class _ScalarMetric(_Metric):
+    """Counter/Gauge base: one float per label set. Histogram keeps its
+    own bucketed _state instead — it deliberately does NOT get _values,
+    so a stray write to the wrong dict fails loudly."""
+
+    def __init__(self, name, help_text=""):
+        super(_ScalarMetric, self).__init__(name, help_text)
+        self._values = {}  # label_key -> float
+
+
+class Counter(_ScalarMetric):
+    mtype = "counter"
+
+    def inc(self, amount=1.0, **labels):
+        if amount < 0:
+            raise ValueError("counters only go up (got %r)" % (amount,))
+        key = _label_key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + float(amount)
+
+    def value(self, **labels):
+        with self._lock:
+            return self._values.get(_label_key(labels), 0.0)
+
+
+class Gauge(_ScalarMetric):
+    mtype = "gauge"
+
+    def set(self, value, **labels):
+        with self._lock:
+            self._values[_label_key(labels)] = float(value)
+
+    def value(self, **labels):
+        with self._lock:
+            return self._values.get(_label_key(labels))
+
+
+# latency-shaped default buckets (seconds); +Inf is implicit
+_DEFAULT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                    0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+
+
+class Histogram(_Metric):
+    mtype = "histogram"
+
+    def __init__(self, name, help_text="", buckets=None):
+        super(Histogram, self).__init__(name, help_text)
+        self.buckets = tuple(sorted(buckets or _DEFAULT_BUCKETS))
+        self._state = {}  # label_key -> [bucket_counts, count, sum]
+
+    def observe(self, value, **labels):
+        key = _label_key(labels)
+        v = float(value)
+        with self._lock:
+            st = self._state.get(key)
+            if st is None:
+                st = self._state[key] = [[0] * len(self.buckets), 0, 0.0]
+            for i, le in enumerate(self.buckets):
+                if v <= le:
+                    st[0][i] += 1
+            st[1] += 1
+            st[2] += v
+
+    def count(self, **labels):
+        with self._lock:
+            st = self._state.get(_label_key(labels))
+            return 0 if st is None else st[1]
+
+    def render_lines(self):
+        lines = []
+        with self._lock:
+            items = sorted(self._state.items())
+        for key, (bucket_counts, count, total) in items:
+            for le, c in zip(self.buckets, bucket_counts):
+                lk = key + (("le", repr(float(le))),)
+                lines.append("%s_bucket%s %s"
+                             % (self.name, _label_str(lk), c))
+            lines.append("%s_bucket%s %s"
+                         % (self.name,
+                            _label_str(key + (("le", "+Inf"),)), count))
+            lines.append("%s_sum%s %s" % (self.name, _label_str(key),
+                                          _fmt(total)))
+            lines.append("%s_count%s %s" % (self.name, _label_str(key),
+                                            count))
+        return lines
+
+    def samples(self):  # snapshot() view: counts per label set
+        with self._lock:
+            return sorted((key, st[1]) for key, st in self._state.items())
+
+
+class MetricsRegistry(object):
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._metrics = {}     # name -> metric (insertion-ordered)
+        self._collectors = []  # fn() -> [(name, type, help, samples)]
+
+    # ----------------------------------------------------- get-or-create --
+    def _get(self, name, cls, help_text, **kw):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = self._metrics[name] = cls(name, help_text, **kw)
+            elif not isinstance(m, cls):
+                raise ValueError(
+                    "metric %r already registered as %s, wanted %s"
+                    % (name, type(m).__name__, cls.__name__))
+            return m
+
+    def counter(self, name, help_text=""):
+        return self._get(name, Counter, help_text)
+
+    def gauge(self, name, help_text=""):
+        return self._get(name, Gauge, help_text)
+
+    def histogram(self, name, help_text="", buckets=None):
+        return self._get(name, Histogram, help_text, buckets=buckets)
+
+    def register_collector(self, fn):
+        """fn() -> iterable of (name, mtype, help, [(labels_dict, value)])
+        families, sampled fresh at every render — the adapter seam that
+        fronts surfaces owning their own state (windows, batchers,
+        decoders) without double bookkeeping. A collector that raises is
+        skipped for that render (a broken surface must not take /metrics
+        down)."""
+        with self._lock:
+            self._collectors.append(fn)
+        return fn
+
+    def unregister_collector(self, fn):
+        """Remove a collector registered with register_collector (a
+        collector must not outlive the thing it reads)."""
+        with self._lock:
+            try:
+                self._collectors.remove(fn)
+            except ValueError:
+                pass
+
+    # ---------------------------------------------------------- render --
+    def _collect(self):
+        """[(name, mtype, help, sample_lines_renderer)] in stable order."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+            collectors = list(self._collectors)
+        out = []
+        for m in metrics:
+            out.append((m.name, m.mtype, m.help, m))
+        for fn in collectors:
+            try:
+                fams = list(fn())
+            except Exception:  # noqa: BLE001 — a broken surface must
+                continue       # not take the whole exposition down
+            for name, mtype, help_text, samples in fams:
+                out.append((name, mtype, help_text,
+                            [(_label_key(lbl), v) for lbl, v in samples]))
+        return out
+
+    def render_prometheus(self):
+        lines = []
+        seen = set()
+        for name, mtype, help_text, src in self._collect():
+            if name not in seen:
+                seen.add(name)
+                lines.append("# HELP %s %s" % (name, help_text or name))
+                lines.append("# TYPE %s %s" % (name, mtype))
+            if isinstance(src, Histogram):
+                lines.extend(src.render_lines())
+            elif isinstance(src, _Metric):
+                for key, v in src.samples():
+                    lines.append("%s%s %s" % (name, _label_str(key),
+                                              _fmt(v)))
+            else:
+                for key, v in src:
+                    lines.append("%s%s %s" % (name, _label_str(key),
+                                              _fmt(v)))
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def snapshot(self):
+        """Machine-readable view: {family: {"type", "help",
+        "samples": [[labels, value], ...]}} — the CLI/status surface."""
+        out = {}
+        for name, mtype, help_text, src in self._collect():
+            fam = out.setdefault(name, {"type": mtype, "help": help_text,
+                                        "samples": []})
+            samples = src.samples() if isinstance(src, _Metric) else src
+            fam["samples"].extend(
+                [dict(key), v] for key, v in samples)
+        return out
+
+
+REGISTRY = MetricsRegistry()
+
+
+# ---------------------------------------------------------------------------
+# built-in collectors: the existing measurement surfaces, fronted
+# ---------------------------------------------------------------------------
+
+_live_windows = weakref.WeakValueDictionary()   # label -> InflightWindow
+_live_batchers = weakref.WeakValueDictionary()  # label -> Batcher
+_live_decoders = weakref.WeakValueDictionary()  # label -> DecodeBatcher
+_note_lock = threading.Lock()
+_note_seq = {"window": 0, "batcher": 0, "decoder": 0}
+
+
+def _note(kind, table, obj, name):
+    with _note_lock:
+        _note_seq[kind] += 1
+        label = "%s#%d" % (name or kind, _note_seq[kind])
+        table[label] = obj
+    return label
+
+
+def note_window(window):
+    """Called by InflightWindow.__init__: expose this window's
+    depth/completed/device-idle through the registry for its lifetime
+    (weakref — a closed, dropped window disappears from /metrics)."""
+    return _note("window", _live_windows, window, window.tag)
+
+
+def note_batcher(batcher, name):
+    """Called by Batcher.__init__: expose queue/formed depths."""
+    return _note("batcher", _live_batchers, batcher, name)
+
+
+def note_decoder(decoder, name):
+    """Called by serving.DecodeBatcher.__init__: expose the decode
+    step-loop's slot/stream/token gauges through the registry for the
+    batcher's lifetime (weakref, like windows).  The object contract is
+    one `decode_stats()` dict — the same snapshot `pool_state()`
+    carries per replica."""
+    return _note("decoder", _live_decoders, decoder, name)
+
+
+@REGISTRY.register_collector
+def _window_collector():
+    depth, completed, idle, gaps = [], [], [], []
+    for label, w in sorted(_live_windows.items()):
+        try:
+            s = w.stats()
+        except Exception:  # noqa: BLE001 — a dying window is not news
+            continue
+        lbl = {"window": label}
+        depth.append((lbl, w.depth))
+        completed.append((lbl, s["completed"]))
+        idle.append((lbl, s["idle_s"]))
+        gaps.append((lbl, s["gaps"]))
+    return [
+        ("ptpu_window_depth", "gauge",
+         "bounded in-flight dispatch window depth", depth),
+        ("ptpu_window_completed_total", "counter",
+         "dispatches whose device completion was observed", completed),
+        ("ptpu_window_device_idle_seconds_total", "counter",
+         "summed device idle gaps between completion and next enqueue",
+         idle),
+        ("ptpu_window_idle_gaps_total", "counter",
+         "count of observed device idle gaps", gaps),
+    ]
+
+
+@REGISTRY.register_collector
+def _batcher_collector():
+    qdepth, fdepth = [], []
+    for label, b in sorted(_live_batchers.items()):
+        lbl = {"batcher": label}
+        qdepth.append((lbl, len(b._queue)))
+        fdepth.append((lbl, len(b._formed)))
+    return [
+        ("ptpu_batcher_queue_depth", "gauge",
+         "requests waiting in the batcher queue", qdepth),
+        ("ptpu_batcher_formed_depth", "gauge",
+         "formed batches waiting for a dispatch slot", fdepth),
+    ]
+
+
+@REGISTRY.register_collector
+def _decoder_collector():
+    slots, occ, act, toks, iters, tps, p50, p99, done = (
+        [], [], [], [], [], [], [], [], [])
+    for label, d in sorted(_live_decoders.items()):
+        try:
+            s = d.decode_stats()
+        except Exception:  # noqa: BLE001 — a closing decoder is not news
+            continue
+        lbl = {"decoder": label}
+        slots.append((lbl, s["slots"]))
+        occ.append((lbl, s["occupied_slots"]))
+        act.append((lbl, s["active_streams"]))
+        toks.append((lbl, s["tokens_total"]))
+        iters.append((lbl, s["iterations"]))
+        tps.append((lbl, s["tokens_per_s"]))
+        p50.append((lbl, s["inter_token_p50_ms"]))
+        p99.append((lbl, s["inter_token_p99_ms"]))
+        done.append((lbl, s["streams_completed"]))
+    return [
+        ("ptpu_decode_slots", "gauge",
+         "compiled decode batch rows (max concurrent streams)", slots),
+        ("ptpu_decode_occupied_slots", "gauge",
+         "slots currently carrying a live stream", occ),
+        ("ptpu_decode_active_streams", "gauge",
+         "streams admitted and not yet retired", act),
+        ("ptpu_decode_tokens_total", "counter",
+         "tokens delivered to streams", toks),
+        ("ptpu_decode_iterations_total", "counter",
+         "decode step-loop iterations dispatched", iters),
+        ("ptpu_decode_tokens_per_s", "gauge",
+         "recent token throughput across all slots", tps),
+        ("ptpu_decode_inter_token_p50_ms", "gauge",
+         "median inter-token latency over the recent window", p50),
+        ("ptpu_decode_inter_token_p99_ms", "gauge",
+         "p99 inter-token latency over the recent window", p99),
+        ("ptpu_decode_streams_completed_total", "counter",
+         "streams retired after finishing normally", done),
+    ]
+
+
+@REGISTRY.register_collector
+def _trace_collector():
+    from . import trace
+    s = trace.recorder().stats()  # O(1): never copies the ring
+    return [
+        ("ptpu_trace_ring_events", "gauge",
+         "events currently in the flight-recorder ring",
+         [({}, s["events"])]),
+        ("ptpu_trace_ring_dropped_total", "counter",
+         "events that fell off the bounded ring",
+         [({}, s["dropped"])]),
+        ("ptpu_trace_open_spans", "gauge",
+         "spans started but not yet ended",
+         [({}, s["open"])]),
+    ]
+
+
+# ------------------------------------------------------------- endpoints --
+class MetricsServer(object):
+    """Trainer-side scrape endpoint: /metrics (this registry's
+    Prometheus rendering) + /healthz. One daemon thread; `close()`
+    stops it. Serving processes don't need this: their ModelServer
+    /metrics already appends the registry."""
+
+    def __init__(self, registry=None, host="127.0.0.1", port=0):
+        from http.server import BaseHTTPRequestHandler, \
+            ThreadingHTTPServer
+        reg = registry or REGISTRY
+
+        class _Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):  # metrics, not access logs
+                pass
+
+            def do_GET(self):
+                if self.path == "/metrics":
+                    body = reg.render_prometheus().encode("utf-8")
+                    ctype = "text/plain; version=0.0.4"
+                elif self.path == "/healthz":
+                    body = b'{"status": "ok"}'
+                    ctype = "application/json"
+                else:
+                    body = b"not found"
+                    self.send_response(404)
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self.httpd = ThreadingHTTPServer((host, int(port)), _Handler)
+        self.httpd.daemon_threads = True
+        self._thread = threading.Thread(target=self.httpd.serve_forever,
+                                        daemon=True, name="ptpu-metrics")
+        self._thread.start()
+
+    @property
+    def port(self):
+        return self.httpd.server_address[1]
+
+    @property
+    def address(self):
+        host, port = self.httpd.server_address[:2]
+        return "%s:%d" % (host, port)
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self._thread.join(timeout=5)
+
+
+def serve_metrics(port=0, host="127.0.0.1", registry=None):
+    """Start a MetricsServer (port=0 picks a free port; read `.port`)."""
+    return MetricsServer(registry=registry, host=host, port=port)
+
+
+def write_textfile(path, registry=None):
+    """Atomically dump the Prometheus rendering to `path` — the
+    node-exporter textfile-collector flow for batch trainers that
+    cannot open a port. tmp + os.replace like every other publish."""
+    reg = registry or REGISTRY
+    tmp = "%s.tmp.%d" % (path, os.getpid())
+    with open(tmp, "w") as f:
+        f.write(reg.render_prometheus())
+    os.replace(tmp, path)
+    return path

@@ -1,0 +1,476 @@
+"""Flight recorder + distributed trace spans.
+
+Parity: the JAX package's observability/trace.py, copied (it is pure
+Python): the same event schema, span names and args, so a trace from
+either package reads the same. A bounded ring that is always recording
+host-side timestamps of pipeline stages (a span per serving request,
+batch, decode stream and decode iteration, with child spans for queue
+wait, formation, pad/H2D, window slot occupancy, device enqueue and
+materialize), never a device value: recording makes no host sync.
+
+  * ALWAYS ON. `set_enabled(False)` exists for A/B overhead measurements.
+  * LOCK-CHEAP. Recording is one dict build and one append to a
+    `collections.deque(maxlen=capacity)` (atomic under the GIL); only the
+    open-span table takes a small lock, at span start and end.
+  * BOUNDED. The ring holds `capacity` completed events (default 4096,
+    `PTPU_TRACE_RING` overrides); older events fall off, `dropped` counts
+    them. The open-span table is capped too (`PTPU_TRACE_OPEN_CAP`).
+
+Span identity: every span carries a process-local `trace` id (one per
+request / stream / batch: the correlation key across threads) and a
+`span` id with an optional `parent`.
+
+Export: `export_chrome_trace()` writes Chrome trace-event JSON
+(chrome://tracing / Perfetto); `dump()` returns the raw ring;
+`render_timeline()` renders a dump as text, open spans flagged.
+"""
+import collections
+import contextlib
+import itertools
+import json
+import os
+import threading
+import time
+
+__all__ = ["FlightRecorder", "Span", "recorder", "configure",
+           "set_enabled", "enabled", "new_trace", "span", "instant",
+           "ambient", "scope_trace", "end_open",
+           "dump", "clear", "export_chrome_trace", "render_timeline"]
+
+
+def _default_capacity():
+    try:
+        return max(64, int(os.environ.get("PTPU_TRACE_RING", "4096")))
+    except ValueError:
+        return 4096
+
+
+# id sources: itertools.count.__next__ is atomic under the GIL, so trace
+# and span ids need no lock even from concurrent submit threads
+_trace_ids = itertools.count(1)
+_span_ids = itertools.count(1)
+
+# open-span table bound: a span that is never end()ed (abandoned watchdog
+# worker, a test that leaks one) must not grow memory forever — evicted
+# entries simply stop being listed as "open"; their eventual end() still
+# records a normal completed event. Eviction is oldest-first, and the
+# OLDEST open span is often the wedged one a postmortem needs — so the
+# cap sits comfortably ABOVE the open-span count of a fully backed-up
+# default serving config (queue_capacity=256 requests x 2 spans each,
+# plus formed/window/dispatch batch spans): 4096, PTPU_TRACE_OPEN_CAP
+# overrides for unusually large queue configurations.
+def _open_cap():
+    try:
+        return max(64, int(os.environ.get("PTPU_TRACE_OPEN_CAP",
+                                          "4096")))
+    except ValueError:
+        return 4096
+
+
+_OPEN_CAP = _open_cap()
+
+
+class _NoopSpan(object):
+    """The disabled-recorder span: every method is a no-op, `child`
+    returns itself, so instrumented code needs no enabled-checks."""
+
+    __slots__ = ()
+
+    trace = None
+    sid = None
+
+    def set(self, **args):
+        return self
+
+    def child(self, name, cat=None, **args):
+        return self
+
+    def event(self, name, **args):
+        return self
+
+    def end(self, **args):
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOOP = _NoopSpan()
+
+
+class Span(object):
+    """One live span. Cheap to create (no recording until `end`);
+    `end()` is idempotent — the window completion thread and an error
+    path may both try to close the same span, only the first records."""
+
+    __slots__ = ("name", "cat", "trace", "sid", "parent", "tid", "args",
+                 "_t0", "_rec", "_ended")
+
+    def __init__(self, rec, name, cat, trace, parent, args):
+        self.name = name
+        self.cat = cat
+        self.trace = trace
+        self.sid = next(_span_ids)
+        self.parent = parent
+        self.tid = threading.current_thread().name
+        self.args = args or None
+        self._t0 = time.perf_counter()
+        self._rec = rec
+        self._ended = False
+        rec._open_add(self)
+
+    def set(self, **args):
+        """Merge args into the span (recorded at end)."""
+        if args:
+            self.args = dict(self.args or (), **args)
+        return self
+
+    def child(self, name, cat=None, **args):
+        """A child span in the same trace."""
+        return Span(self._rec, name, cat or self.cat, self.trace,
+                    self.sid, args)
+
+    def event(self, name, **args):
+        """An instant event inside this span's trace."""
+        self._rec.instant(name, cat=self.cat, trace=self.trace,
+                          parent=self.sid, **args)
+        return self
+
+    def end(self, **args):
+        if self._ended:
+            return self
+        self._ended = True
+        if args:
+            self.args = dict(self.args or (), **args)
+        t1 = time.perf_counter()
+        rec = self._rec
+        rec._open_remove(self)
+        rec._record({"ph": "X", "name": self.name, "cat": self.cat,
+                     "ts": (self._t0 - rec._epoch) * 1e6,
+                     "dur": (t1 - self._t0) * 1e6,
+                     "tid": self.tid, "trace": self.trace,
+                     "span": self.sid, "parent": self.parent,
+                     "args": self.args})
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, etype, exc, tb):
+        self.end(**({"error": etype.__name__} if etype else {}))
+        return False
+
+    def __repr__(self):
+        return "Span(%s, trace=%s, span=%s%s)" % (
+            self.name, self.trace, self.sid,
+            ", ended" if self._ended else ", open")
+
+
+class FlightRecorder(object):
+    """The always-on bounded event ring (see module doc)."""
+
+    def __init__(self, capacity=None):
+        self.capacity = int(capacity or _default_capacity())
+        self._ring = collections.deque(maxlen=self.capacity)
+        self._seq = itertools.count(1)  # per-event seq; the newest seq
+        # IS the total-recorded count (dropped = seq_max - ring length)
+        self._epoch = time.perf_counter()
+        self._epoch_wall = time.time()
+        self._open = collections.OrderedDict()  # sid -> Span
+        self._open_lock = threading.Lock()
+        self.enabled = True
+
+    # ----------------------------------------------------------- write --
+    def _record(self, ev):
+        ev["seq"] = next(self._seq)
+        self._ring.append(ev)  # deque append: atomic under the GIL
+
+    def _open_add(self, sp):
+        with self._open_lock:
+            self._open[sp.sid] = sp
+            while len(self._open) > _OPEN_CAP:
+                self._open.popitem(last=False)
+
+    def _open_remove(self, sp):
+        with self._open_lock:
+            self._open.pop(sp.sid, None)
+
+    def span(self, name, cat="runtime", trace=None, parent=None, **args):
+        if not self.enabled:
+            return _NOOP
+        return Span(self, name, cat, trace, parent, args)
+
+    def instant(self, name, cat="event", trace=None, parent=None, **args):
+        if not self.enabled:
+            return
+        self._record({"ph": "i", "name": name, "cat": cat,
+                      "ts": (time.perf_counter() - self._epoch) * 1e6,
+                      "tid": threading.current_thread().name,
+                      "trace": trace, "span": None, "parent": parent,
+                      "args": args or None})
+
+    # ------------------------------------------------------------ read --
+    def stats(self):
+        """O(1) ring stats for the metrics collector — a /metrics
+        scrape must not copy the whole ring to report three gauges."""
+        try:
+            recorded = self._ring[-1].get("seq", 0)
+        except IndexError:  # empty ring (or a concurrent clear)
+            recorded = 0
+        n = len(self._ring)
+        with self._open_lock:
+            n_open = len(self._open)
+        return {"events": n, "dropped": max(0, recorded - n),
+                "open": n_open}
+
+    def dump(self, include_open=True):
+        """The ring as a JSON-able dict: the diagnostic-bundle payload.
+        `open` lists spans started but not ended at dump time — for a
+        hang postmortem those ARE the answer (what was the pipeline
+        doing when it wedged)."""
+        events = list(self._ring)  # snapshot; appends during the copy
+        # are either fully in or fully out (GIL)
+        now = time.perf_counter()
+        recorded = max((ev.get("seq", 0) for ev in events), default=0)
+        out = {"epoch_wall": self._epoch_wall,
+               "capacity": self.capacity,
+               "recorded": recorded,
+               "dropped": max(0, recorded - len(events)),
+               "events": events}
+        if include_open:
+            with self._open_lock:
+                open_spans = list(self._open.values())
+            out["open"] = [
+                {"name": s.name, "cat": s.cat, "trace": s.trace,
+                 "span": s.sid, "parent": s.parent, "tid": s.tid,
+                 "ts": (s._t0 - self._epoch) * 1e6,
+                 "age_s": round(now - s._t0, 6),
+                 "args": s.args}
+                for s in open_spans if not s._ended]
+        return out
+
+    def clear(self):
+        self._ring.clear()
+        self._seq = itertools.count(1)  # dropped derives from seq
+        with self._open_lock:
+            self._open.clear()
+
+
+# --------------------------------------------------------------- module --
+_recorder = FlightRecorder()
+
+
+def recorder():
+    return _recorder
+
+
+def configure(capacity=None, enabled=None):
+    """Swap in a fresh ring (tests / benches scope a window with it).
+    Returns the active recorder."""
+    global _recorder
+    if capacity is not None:
+        rec = FlightRecorder(capacity)
+        rec.enabled = _recorder.enabled
+        _recorder = rec
+    if enabled is not None:
+        _recorder.enabled = bool(enabled)
+    return _recorder
+
+
+def set_enabled(flag):
+    """Overhead A/B switch. The recorder defaults ON and is
+    meant to stay on — spans are host timestamps into a bounded ring."""
+    _recorder.enabled = bool(flag)
+
+
+def enabled():
+    return _recorder.enabled
+
+
+def new_trace():
+    """A fresh trace id — one per serving request / per training step."""
+    return next(_trace_ids)
+
+
+_ambient_tls = threading.local()
+
+
+def ambient():
+    """The thread's ambient trace id (None outside a scope_trace).
+    The cross-layer correlation seam: the serving batcher scopes each
+    batch's trace around its dispatch call, so the Executor's exec/step
+    span — minted layers below, with no trace parameter in the public
+    run() signature — inherits the batch's trace instead of starting an
+    uncorrelated one."""
+    return getattr(_ambient_tls, "trace", None)
+
+
+@contextlib.contextmanager
+def scope_trace(trace_id):
+    """Set the thread's ambient trace id for the duration."""
+    prev = getattr(_ambient_tls, "trace", None)
+    _ambient_tls.trace = trace_id
+    try:
+        yield
+    finally:
+        _ambient_tls.trace = prev
+
+
+def span(name, cat="runtime", trace=None, parent=None, **args):
+    """trace=None inherits the thread's ambient trace (scope_trace) —
+    how the engine's pad/enqueue spans land in their batch's trace
+    without threading an id through every call signature."""
+    if trace is None:
+        trace = ambient()
+    return _recorder.span(name, cat=cat, trace=trace, parent=parent,
+                          **args)
+
+
+def instant(name, cat="event", trace=None, **args):
+    _recorder.instant(name, cat=cat, trace=trace, **args)
+
+
+def end_open(trace_id, **args):
+    """End every still-open span of `trace_id` (error unwind: the owner
+    raised past its children's normal close points — without this each
+    failed dispatch would strand its child spans in the open table and
+    a later bundle would list long-dead spans as live). No-op for
+    trace_id None. Does NOT run on the watchdog-timeout path — there
+    the children really ARE still running, and keeping them open is
+    the whole point of the bundle embedding."""
+    if trace_id is None:
+        return
+    rec = _recorder
+    with rec._open_lock:
+        spans = [s for s in rec._open.values() if s.trace == trace_id]
+    for s in spans:
+        s.end(**args)
+
+
+def dump(include_open=True):
+    return _recorder.dump(include_open=include_open)
+
+
+def dump_jsonable(include_open=True):
+    """`dump()` round-tripped through JSON with default=repr: a span arg
+    that isn't JSON-serializable degrades to its repr instead of failing
+    a JSON write of the dump."""
+    return json.loads(json.dumps(dump(include_open=include_open),
+                                 default=repr))
+
+
+def clear():
+    _recorder.clear()
+
+
+# --------------------------------------------------------------- export --
+def export_chrome_trace(path=None, data=None):
+    """Chrome trace-event JSON (the `timeline.py` successor): load the
+    file in chrome://tracing or https://ui.perfetto.dev. `data` is a
+    `dump()` (default: the live recorder's). Returns the trace dict;
+    writes it to `path` when given."""
+    data = data if data is not None else dump()
+    tids = {}
+
+    def _tid(name):
+        if name not in tids:
+            tids[name] = len(tids) + 1
+        return tids[name]
+
+    events = []
+    for ev in data.get("events", ()):
+        out = {"ph": ev.get("ph", "X"), "name": ev["name"],
+               "cat": ev.get("cat") or "runtime", "pid": 1,
+               "tid": _tid(ev.get("tid") or "?"),
+               "ts": round(float(ev.get("ts", 0.0)), 3)}
+        if ev.get("ph", "X") == "X":
+            out["dur"] = round(float(ev.get("dur", 0.0)), 3)
+        else:
+            out["s"] = "t"
+        args = dict(ev.get("args") or {})
+        for k in ("trace", "span", "parent"):
+            if ev.get(k) is not None:
+                args[k] = ev[k]
+        if args:
+            out["args"] = args
+        events.append(out)
+    # open spans export as complete events up to the dump instant,
+    # flagged open:true — Perfetto renders them; dangling "B" events
+    # would be silently dropped by some viewers
+    horizon = max([float(e.get("ts", 0.0)) + float(e.get("dur", 0.0))
+                   for e in data.get("events", ())] +
+                  [float(o.get("ts", 0.0)) + float(
+                      o.get("age_s", 0.0)) * 1e6
+                   for o in data.get("open", ())] + [0.0])
+    for o in data.get("open", ()):
+        args = dict(o.get("args") or {})
+        args.update({"open": True, "trace": o.get("trace"),
+                     "span": o.get("span")})
+        events.append({"ph": "X", "name": o["name"],
+                       "cat": o.get("cat") or "runtime", "pid": 1,
+                       "tid": _tid(o.get("tid") or "?"),
+                       "ts": round(float(o.get("ts", 0.0)), 3),
+                       "dur": round(
+                           max(0.0, horizon - float(o.get("ts", 0.0))),
+                           3),
+                       "args": args})
+    events.sort(key=lambda e: e["ts"])
+    meta = [{"ph": "M", "name": "thread_name", "pid": 1, "tid": i,
+             "args": {"name": tname}} for tname, i in tids.items()]
+    trace_doc = {"traceEvents": meta + events,
+                 "displayTimeUnit": "ms",
+                 "otherData": {"epoch_wall": data.get("epoch_wall"),
+                               "dropped": data.get("dropped", 0)}}
+    if path is not None:
+        with open(path, "w") as f:
+            json.dump(trace_doc, f)
+    return trace_doc
+
+
+def render_timeline(data=None, last=60):
+    """Text rendering of a `dump()`: the
+    newest `last` events in ts order, then the spans still OPEN at
+    capture (the hang postmortem's headline)."""
+    data = data if data is not None else dump()
+    events = sorted(data.get("events", ()),
+                    key=lambda e: float(e.get("ts", 0.0)))
+    lines = ["flight recorder: %d event(s) in ring (capacity %s, "
+             "dropped %s), %d open span(s)"
+             % (len(events), data.get("capacity", "?"),
+                data.get("dropped", "?"), len(data.get("open", ())))]
+    shown = events[-int(last):] if last else events
+    if len(shown) < len(events):
+        lines.append("  ... %d older event(s) elided (--last)"
+                     % (len(events) - len(shown)))
+    for ev in shown:
+        dur = ("%9.3fms" % (float(ev["dur"]) / 1e3)
+               if ev.get("ph", "X") == "X" else "   instant")
+        args = ev.get("args") or {}
+        extra = " ".join("%s=%s" % (k, args[k]) for k in sorted(args))
+        lines.append("%12.3fms %s  %-28s %-24s %s%s"
+                     % (float(ev.get("ts", 0.0)) / 1e3, dur,
+                        (ev.get("tid") or "?")[:28], ev["name"][:24],
+                        "trace=%s " % ev["trace"]
+                        if ev.get("trace") is not None else "",
+                        extra))
+    open_spans = data.get("open", ())
+    if open_spans:
+        lines.append("OPEN SPANS AT CAPTURE (what the pipeline was "
+                     "doing when this was recorded):")
+        for o in sorted(open_spans, key=lambda s: float(s.get("ts", 0))):
+            args = o.get("args") or {}
+            extra = " ".join("%s=%s" % (k, args[k]) for k in sorted(args))
+            lines.append("  OPEN %12.3fms age=%.3fs %-28s %-24s %s%s"
+                         % (float(o.get("ts", 0.0)) / 1e3,
+                            float(o.get("age_s", 0.0)),
+                            (o.get("tid") or "?")[:28],
+                            o["name"][:24],
+                            "trace=%s " % o["trace"]
+                            if o.get("trace") is not None else "",
+                            extra))
+    else:
+        lines.append("no open spans at capture")
+    return "\n".join(lines)

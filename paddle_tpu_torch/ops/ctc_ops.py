@@ -32,6 +32,19 @@ from .crf_ops import squeeze_label
 _NEG = -1e30
 
 
+def take_along_axis(x, idx, dim):
+    """jnp.take_along_axis's rule (faults C14, C15): an index in [-n, -1]
+    wraps to index + n, and an index still outside [0, n) gives NaN (and
+    no gradient). The gather itself reads an index clamped into range, so
+    the card never meets a device-side assert and no host read is made.
+    `x` is a float tensor; `idx` broadcasts as torch.gather takes it."""
+    n = x.shape[dim]
+    idx = torch.where(idx < 0, idx + n, idx)
+    out = x.gather(dim, idx.clamp(0, n - 1))
+    nan = torch.full((), float("nan"), dtype=out.dtype, device=out.device)
+    return torch.where((idx >= 0) & (idx < n), out, nan)
+
+
 def _compact(x, keep, pad_value=0):
     """Move the kept tokens to the front of each row, pad the rest."""
     order = torch.argsort((~keep).to(torch.int32), dim=1, stable=True)
@@ -70,17 +83,17 @@ def _warpctc(ctx, ins, attrs):
     neg = torch.full((), _NEG, dtype=torch.float32, device=dev)
 
     # the extended labels: blank at the even states, the labels at the
-    # odd ones (clamped into the classes: a gather past them would assert
-    # on the card)
+    # odd ones (a label outside the classes reads NaN, a negative one
+    # wraps, as jnp.take_along_axis does)
     ext = torch.full((b, s), blank, dtype=torch.int64, device=dev)
-    ext[:, 1::2] = label.clamp(0, lp.shape[-1] - 1)
+    ext[:, 1::2] = label.to(torch.int64)
     # the skip s-2 -> s is allowed into a label state whose label differs
     # from the one before it; states past 2*llen never reach the final
     # selection (transitions only move forward), so padded labels are
     # harmless
     skip_ok = torch.zeros((b, s), dtype=torch.bool, device=dev)
     skip_ok[:, 3::2] = label[:, 1:] != label[:, :-1]
-    lp_ext = lp.gather(2, ext[:, None, :].expand(b, t_len, s))    # [B, T, S]
+    lp_ext = take_along_axis(lp, ext[:, None, :].expand(b, t_len, s), 2)
 
     alpha = torch.cat([lp_ext[:, 0, :1],
                        torch.where(llen > 0, lp_ext[:, 0, 1], neg)[:, None],
@@ -93,11 +106,12 @@ def _warpctc(ctx, ins, attrs):
         new = _logaddexp3(alpha, diag, skip) + lp_ext[:, t]
         alpha = torch.where((t < xlen)[:, None], new, alpha)
 
-    # the end: state 2*llen (the trailing blank) or 2*llen-1 (the last label)
-    end = (2 * llen).clamp(0, s - 1)[:, None]
-    f_blank = alpha.gather(1, end)[:, 0]
-    f_label = torch.where(
-        llen > 0, alpha.gather(1, (end - 1).clamp_min(0))[:, 0], neg)
+    # the end: state 2*llen (the trailing blank) or 2*llen-1 (the last
+    # label); an end past the states reads NaN, a negative one wraps
+    f_blank = take_along_axis(alpha, (2 * llen)[:, None], 1)[:, 0]
+    last = (2 * llen - 1).clamp_min(0)[:, None]
+    f_label = torch.where(llen > 0, take_along_axis(alpha, last, 1)[:, 0],
+                          neg)
     m = torch.maximum(f_blank, f_label)
     loss = -(m + torch.log(torch.exp(f_blank - m) + torch.exp(f_label - m)))
     if norm_by_times:
@@ -162,9 +176,11 @@ def _edit_distance(ctx, ins, attrs):
         row = (cand - jcol).cummin(dim=1).values + jcol
         rows.append(row)
     table = torch.stack(rows, dim=1)                # [B, U1+1, U2+1]
-    d_h = table.gather(
-        1, hlen.clamp(0, u1)[:, None, None].expand(b, 1, u2 + 1))[:, 0]
-    dist = d_h.gather(1, rlen.clamp(0, u2)[:, None])[:, 0]
+    # d[hlen][rlen] by jnp.take_along_axis's rule: a length past the
+    # table reads NaN, a negative one wraps
+    d_h = take_along_axis(
+        table, hlen[:, None, None].expand(b, 1, u2 + 1), 1)[:, 0]
+    dist = take_along_axis(d_h, rlen[:, None], 1)[:, 0]
     if normalized:
         dist = dist / rlen.clamp_min(1).to(dist.dtype)
     seq_num = torch.full((1,), b, dtype=torch.int64, device=dev)

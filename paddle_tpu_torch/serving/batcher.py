@@ -1,6 +1,9 @@
 """Micro-batching: a bounded queue and one worker that coalesces requests.
 
-Parity: the JAX package's serving/batcher.py `Batcher`. Requests enter
+Parity: the JAX package's serving/batcher.py: `Batcher`, and for
+autoregressive decode `DecodeStream` and `DecodeBatcher` (iteration-level
+continuous batching: streams admitted into free slots and retired from
+finished ones between decode iterations at one fixed shape). Requests enter
 via `submit()` (any thread) and wait at most `max_queue_delay_ms` — or
 until `max_batch_size` rows are pending — before a worker pops a
 contiguous batch.
@@ -23,22 +26,36 @@ Robustness contract:
     queued and formed request, then joins the workers; `close(drain=False)`
     fails queued and formed requests immediately, and a dispatch worker
     parked on a full window gives up its batch rather than wedge.
+
+Tracing: the JAX package's spans, names and args (observability/trace):
+`serving/request` with its `serving/queue` child per request,
+`serving/window_wait`, `serving/dispatch`, `serving/execute` (ended by
+the window's completion thread) and `serving/formed_wait` per batch;
+`serving/stream`, `serving/decode_admit`, `serving/decode_step` and
+`serving/decode_execute` for decode. Spans are host timestamps: they add
+no host sync to the dispatch path.
 """
 import collections
 import threading
 import time
 
+from ..observability import registry as _obsreg
+from ..observability import trace as _trace
+
 __all__ = ["Batcher", "RequestFuture", "ServingError", "QueueFullError",
            "DeadlineExceededError", "ServingClosedError",
-           "RequestTooLargeError"]
+           "RequestTooLargeError", "DecodeStream", "DecodeBatcher"]
 
 
 class ServingError(RuntimeError):
-    """Base class for serving-runtime errors."""
+    """Base class for serving-runtime errors (HTTP layer maps these to
+    status codes)."""
 
 
 class QueueFullError(ServingError):
-    """Fast rejection: the bounded request queue is at capacity."""
+    """Fast rejection: the bounded request queue is at capacity.
+    `retry_after_s`, when set, is the client backoff hint the HTTP layer
+    surfaces as a 429 `Retry-After` header."""
     retry_after_s = None
 
 
@@ -51,14 +68,18 @@ class ServingClosedError(ServingError):
 
 
 class RequestTooLargeError(ServingError):
-    """A single request exceeds max_batch_size rows."""
+    """A single request exceeds max_batch_size rows — it could never be
+    dispatched; reject at submit time instead of wedging the queue."""
 
 
 class RequestFuture(object):
-    """Completion handle for one submitted request: `result(timeout)`
-    blocks until a worker scatters the batch output (an
-    `engine.ResultSlice`, still on the device: `numpy()` copies this
-    request's rows) or fails the request."""
+    """Completion handle for one submitted request.
+
+    `result(timeout)` blocks until the batcher scatters the batch output
+    (or fails the request) and returns the per-request value. The value a
+    successful dispatch sets is an `engine.ResultSlice`: device-resident,
+    row-sliced lazily — `result()` triggers only this request's D2H.
+    """
 
     __slots__ = ("_event", "_value", "_error", "_callbacks", "_cb_lock",
                  "latency_s", "bucket")
@@ -76,10 +97,10 @@ class RequestFuture(object):
         return self._event.is_set()
 
     def add_done_callback(self, fn):
-        """Run fn(self) once the future completes — at once (on the
-        calling thread) if it already has, else on the completing thread
-        (a batcher worker). Callbacks must be cheap and must not block:
-        they run inside the dispatch loop."""
+        """Run fn(self) once the future completes — immediately (on the
+        calling thread) if it already has, otherwise on the completing
+        thread (the batcher worker). Callbacks must be cheap and must not
+        block (they run inside the dispatch loop)."""
         with self._cb_lock:
             if not self._event.is_set():
                 self._callbacks.append(fn)
@@ -112,12 +133,14 @@ class RequestFuture(object):
         return self._value
 
 
-# dispatch this far ahead of a pending deadline
+# dispatch this far ahead of a pending deadline: a batch released exactly
+# AT the deadline would lose the strict expiry check to scheduler jitter
 _DEADLINE_MARGIN_S = 1e-3
 
 
 class _Request(object):
-    __slots__ = ("feed", "rows", "future", "deadline", "enqueued_at")
+    __slots__ = ("feed", "rows", "future", "deadline", "enqueued_at",
+                 "trace", "span", "qspan")
 
     def __init__(self, feed, rows, deadline):
         self.feed = feed
@@ -125,21 +148,37 @@ class _Request(object):
         self.future = RequestFuture()
         self.deadline = deadline          # monotonic seconds, or None
         self.enqueued_at = time.monotonic()
+        # distributed-trace identity: one trace
+        # per request; the root span + queue-wait child are armed at
+        # submit, downstream batch spans carry this trace in their args
+        self.trace = None
+        self.span = _trace._NOOP
+        self.qspan = _trace._NOOP
 
 
-def _fail_closed(reqs):
-    for req in reqs:
-        if not req.future.done():
-            req.future.set_exception(ServingClosedError(
-                "serving engine shut down before dispatch"))
+def _span_closer(span):
+    """Future done-callback that ends the request's root span — runs on
+    the completing thread (scatter or failure), cheap by contract."""
+    def _cb(fut):
+        err = getattr(fut, "_error", None)
+        span.end(**({"error": type(err).__name__}
+                    if err is not None else {}))
+    return _cb
 
 
 class Batcher(object):
     """The coalescing pipeline. `dispatch_fn(requests)` (the engine) pads
-    the requests into one bucket, runs the program once, scatters
-    per-request results into `req.future` and returns the batch's fetch
-    tensors; the batcher decides WHAT rides in a batch, WHEN it leaves
-    and HOW MANY batches may be in flight on the device at once."""
+    the requests into one bucket, runs the executor once, scatters
+    per-request results into `req.future`, and returns the batch's lazy
+    fetch handles — the batcher decides WHAT rides in a batch, WHEN it
+    leaves, and HOW MANY batches may be in flight on the device at once.
+
+    pipeline_depth >= 1: continuous batching — a formation worker owns
+    the request queue and a dispatch worker owns the device, joined by a
+    short formed-batch queue; up to `pipeline_depth` dispatches stay
+    outstanding (an InflightWindow completion thread recycles slots as
+    the device finishes, off the dispatch path). pipeline_depth=0: the
+    serial loop."""
 
     def __init__(self, dispatch_fn, max_batch_size=32, max_queue_delay_ms=5,
                  queue_capacity=256, metrics=None, name="batcher",
@@ -155,14 +194,14 @@ class Batcher(object):
         self.pipeline_depth = int(pipeline_depth)
         self._metrics = metrics
         self._queue = collections.deque()
-        self._pending_rows = 0   # running sum over _queue
-        self._deadlined = 0      # queued requests that carry a deadline
+        self._pending_rows = 0   # running sum over _queue (O(1) wakeups:
+        self._deadlined = 0      # a burst must not cost O(n^2) rescans)
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._closed = False
         self._draining = False
-        self._drainers = 0       # live drain() calls: skip the window
-        self._dispatching = False
+        self._drainers = 0       # live drain() calls: worker skips the
+        self._dispatching = False  # coalescing window while any waits
         self._formed = collections.deque()  # formed, awaiting dispatch
         self._formed_cap = max(1, self.pipeline_depth)
         self._form_busy = False  # formation holds a popped batch
@@ -171,7 +210,7 @@ class Batcher(object):
         if self.pipeline_depth >= 1:
             from ..core.dispatch import InflightWindow
             self._window = InflightWindow(self.pipeline_depth,
-                                          tag="serving/%s" % name)
+                                          tag="serving/%s/window" % name)
             self._workers = [
                 threading.Thread(target=self._form_loop, daemon=True,
                                  name="ptt-%s-form" % name),
@@ -182,6 +221,7 @@ class Batcher(object):
                 target=self._loop, daemon=True, name="ptt-" + name)]
         if metrics is not None:
             metrics.bind_queue_depth(lambda: len(self._queue))
+        _obsreg.note_batcher(self, name)  # queue depths on /metrics
         for w in self._workers:
             w.start()
 
@@ -189,7 +229,7 @@ class Batcher(object):
     def submit(self, feed, rows, deadline_ms=None):
         """Enqueue one request; returns its RequestFuture. Raises
         QueueFullError / ServingClosedError / RequestTooLargeError
-        without blocking."""
+        WITHOUT blocking — backpressure must be cheap for the caller."""
         if rows < 1:
             raise ValueError("request must carry at least one row")
         if rows > self.max_batch_size:
@@ -199,12 +239,28 @@ class Batcher(object):
         deadline = (time.monotonic() + float(deadline_ms) / 1e3
                     if deadline_ms is not None else None)
         req = _Request(feed, rows, deadline)
+        # per-request trace: root span submit -> scatter (ended by the
+        # future's done callback, whatever thread completes it) with a
+        # queue-wait child ended when the formation worker pops the
+        # request. Armed BEFORE the lock: span creation is just an
+        # object + perf_counter, but no reason to hold the queue lock
+        req.trace = _trace.new_trace()
+        req.span = _trace.span("serving/request", cat="serving",
+                               trace=req.trace, rows=rows)
+        req.qspan = req.span.child("serving/queue")
+        if req.span is not _trace._NOOP:
+            # recorder disabled = zero per-request cost: no callback
+            req.future.add_done_callback(_span_closer(req.span))
         with self._cond:
             if self._closed:
+                req.qspan.end(error="ServingClosedError")
+                req.span.end(error="ServingClosedError")
                 raise ServingClosedError("serving engine is shut down")
             if len(self._queue) >= self.queue_capacity:
                 if self._metrics is not None:
                     self._metrics.on_queue_full()
+                req.qspan.end(error="QueueFullError")
+                req.span.end(error="QueueFullError")
                 raise QueueFullError(
                     "request queue at capacity (%d); retry with backoff"
                     % self.queue_capacity)
@@ -212,8 +268,9 @@ class Batcher(object):
             self._pending_rows += req.rows
             if req.deadline is not None:
                 self._deadlined += 1
-            # the formation worker, the dispatch worker and any drainers
-            # share this condition
+            # notify_all: the formation worker, dispatch worker and any
+            # drainers share this condition — a single notify could land
+            # on a thread that isn't waiting for new requests
             self._cond.notify_all()
         if self._metrics is not None:
             self._metrics.on_submit()
@@ -223,8 +280,10 @@ class Batcher(object):
         return len(self._queue)
 
     def pipeline_stats(self):
-        """The in-flight window's stats ({"depth", "completed", "idle_s",
-        "gaps"}), or None in serial mode."""
+        """Continuous-batching window stats ({"depth", "completed",
+        "idle_s", "gaps"}), or None in serial mode — the public surface
+        for engine observability (the window itself stays an
+        implementation detail)."""
         if self._window is None:
             return None
         stats = self._window.stats()
@@ -240,16 +299,21 @@ class Batcher(object):
                 if self._closed:
                     return None, None
                 self._cond.wait()
-            # coalescing window anchored at the OLDEST pending request; a
-            # full batch leaves at once, and a pending deadline inside the
-            # window caps it
+            # coalescing window: anchored at the OLDEST pending request so
+            # queue time is bounded by max_queue_delay even under trickle
+            # arrivals; a full batch releases immediately. A pending
+            # DEADLINE inside the window caps it — a request whose
+            # deadline is shorter than max_queue_delay must be dispatched
+            # before it expires, not held for coalescing it can't afford
+            # (waiting the full window would 504 every such request under
+            # light load).
             leave_at = self._queue[0].enqueued_at + self.max_queue_delay_s
             while not (self._closed or self._draining or self._drainers):
                 if self._pending_rows >= self.max_batch_size \
                         or leave_at <= time.monotonic():
-                    break
+                    break  # O(1) fast paths BEFORE any deadline scan
                 wake_at = leave_at
-                if self._deadlined:
+                if self._deadlined:  # only then is a scan needed at all
                     wake_at = min(
                         [leave_at] + [r.deadline - _DEADLINE_MARGIN_S
                                       for r in self._queue
@@ -268,8 +332,11 @@ class Batcher(object):
                     break
                 batch.append(self._pop_head())
                 rows += req.rows
-            # busy while STILL holding the lock, so a drain() cannot
-            # declare victory with a popped batch between the queues
+            # mark the worker busy while STILL holding the lock: between
+            # popping a batch and handing it on (formed queue or
+            # dispatch) the queue may be empty, and a drain() that
+            # declared victory in that window would return with requests
+            # mid-flight
             if self._window is not None:
                 self._form_busy = bool(batch)
             else:
@@ -277,11 +344,13 @@ class Batcher(object):
             return batch, expired
 
     def _pop_head(self):
-        """Pop the queue head, keeping the counters true (lock held)."""
+        """Pop the queue head, keeping the incremental counters true.
+        Caller holds the lock."""
         req = self._queue.popleft()
         self._pending_rows -= req.rows
         if req.deadline is not None:
             self._deadlined -= 1
+        req.qspan.end()  # queue wait over: forming (or expiring) now
         return req
 
     def _fail_expired(self, expired):
@@ -294,9 +363,10 @@ class Batcher(object):
             self._metrics.on_deadline_expired(len(expired))
 
     def _run_batch(self, batch):
-        """Dispatch one formed batch: deadline re-check (a formed batch
-        may have waited behind a full window), window slot, dispatch,
-        completion tracking."""
+        """Pad+dispatch one formed batch: deadline re-check (a formed
+        batch may have waited behind a full in-flight window), window
+        slot, dispatch, completion tracking. The dispatch makes no host
+        sync: the window's completion thread is the one wait."""
         now = time.monotonic()
         live = [r for r in batch
                 if r.deadline is None or r.deadline >= now]
@@ -304,29 +374,59 @@ class Batcher(object):
             self._fail_expired([r for r in batch if r not in live])
         if not live:
             return
+        traces = [r.trace for r in live]
+        # one BATCH trace groups this dispatch's spans — and is scoped
+        # ambient around the dispatch call, so the engine's pad/enqueue
+        # spans AND the Executor's exec/step span (minted layers below,
+        # no trace parameter in run()) inherit it instead of starting
+        # uncorrelated traces; the request traces ride in args
+        btrace = _trace.new_trace()
         window = self._window
         if window is not None:
-            # park until the device finishes a batch; poll, so a hard
-            # close cannot wedge this worker behind a slot that never frees
+            # bounded in-flight: park until the device finishes a batch.
+            # Poll so a hard close (drain=False) can't wedge this worker
+            # behind a slot that will never free.
+            wspan = _trace.span("serving/window_wait", cat="serving",
+                                trace=btrace, traces=traces)
             while not window.acquire(timeout=0.1):
                 with self._cond:
                     if self._closed and not self._draining:
-                        _fail_closed(live)
+                        wspan.end(error="ServingClosedError")
+                        for req in live:
+                            if not req.future.done():
+                                req.future.set_exception(
+                                    ServingClosedError(
+                                        "serving engine shut down before "
+                                        "dispatch"))
                         return
+            wspan.end()
         enq_t = time.monotonic()
+        dspan = _trace.span("serving/dispatch", cat="serving",
+                            trace=btrace, reqs=len(live), traces=traces)
         try:
-            handles = self._dispatch(live)
+            with _trace.scope_trace(btrace):
+                handles = self._dispatch(live)
         except Exception as e:  # noqa: BLE001 — fail the batch, not the
-            if window is not None:   # worker: serving outlives one bad
-                window.release()     # batch
+            dspan.end(error=type(e).__name__)
+            if window is not None:   # worker: serving must outlive one
+                window.release()     # bad request batch
             for req in live:
                 if not req.future.done():
                     req.future.set_exception(e)
             if self._metrics is not None:
                 self._metrics.on_error(len(live))
         else:
+            dspan.end()
             if window is not None:
-                window.track(handles or (), enq_t)
+                # window-slot occupancy span: enqueue -> the completion
+                # thread observes the device finish (its one host sync
+                # closes the span at the REAL completion instant — the
+                # overlap of these spans across batches IS the
+                # continuous-batching picture, bounded by the depth)
+                espan = _trace.span("serving/execute", cat="serving",
+                                    trace=btrace, traces=traces)
+                window.track(handles or (), enq_t,
+                             on_complete=espan.end)
 
     def _loop(self):
         """Serial mode (pipeline_depth=0): form -> dispatch, one thread."""
@@ -337,8 +437,12 @@ class Batcher(object):
             self._fail_expired(expired)
             if not batch:
                 if expired:
+                    # an expired-only collection may have just emptied
+                    # the queue: a drain() waiter parked on the
+                    # condition would otherwise never be woken (the
+                    # dispatch path's finally-notify is skipped here)
                     with self._cond:
-                        self._cond.notify_all()  # wake drain() waiters
+                        self._cond.notify_all()
                 continue
             try:
                 self._run_batch(batch)
@@ -348,9 +452,9 @@ class Batcher(object):
                     self._cond.notify_all()   # wake drain() waiters
 
     def _form_loop(self):
-        """Pipelined formation: owns the request queue and hands formed
-        batches to the dispatch worker through the bounded formed queue;
-        while one batch dispatches, the next one forms here."""
+        """Pipelined formation: owns the request queue; hands formed
+        batches to the dispatch worker through the bounded formed
+        queue. While a batch dispatches, the NEXT one forms here."""
         while True:
             batch, expired = self._collect_batch()
             if batch is None:
@@ -361,31 +465,45 @@ class Batcher(object):
                     with self._cond:
                         self._cond.notify_all()
                 continue
+            # formed-batch span: formation done -> popped for dispatch
+            # (the stage where a batch waits behind a full window)
+            fspan = _trace.span("serving/formed_wait", cat="serving",
+                                reqs=len(batch),
+                                traces=[r.trace for r in batch])
             with self._cond:
                 while len(self._formed) >= self._formed_cap \
                         and not self._closed:
                     self._cond.wait()
+                if self._closed and not self._draining:
+                    # hard close caught us holding a formed batch
+                    self._form_busy = False
+                    self._cond.notify_all()
+                    fspan.end(error="ServingClosedError")
+                    for req in batch:
+                        if not req.future.done():
+                            req.future.set_exception(ServingClosedError(
+                                "serving engine shut down before "
+                                "dispatch"))
+                    continue
+                self._formed.append((batch, fspan))
                 self._form_busy = False
                 self._cond.notify_all()
-                if self._closed and not self._draining:
-                    _fail_closed(batch)   # a hard close caught it formed
-                    continue
-                self._formed.append(batch)
         with self._cond:
             self._form_done = True
             self._cond.notify_all()
 
     def _dispatch_loop(self):
-        """Pipelined dispatch: enqueues formed batches behind the
-        in-flight window; exits once formation has exited and the formed
-        queue is empty."""
+        """Pipelined dispatch: pads and enqueues formed batches behind
+        the in-flight window; exits once formation has exited and the
+        formed queue is drained."""
         while True:
             with self._cond:
                 while not self._formed and not self._form_done:
                     self._cond.wait()
                 if not self._formed:
-                    return
-                batch = self._formed.popleft()
+                    return  # formation exited, nothing left
+                batch, fspan = self._formed.popleft()
+                fspan.end()
                 self._dispatching = True
                 self._cond.notify_all()  # formation may wait on space
             try:
@@ -397,21 +515,24 @@ class Batcher(object):
 
     # ----------------------------------------------------------- drain --
     def drain(self, timeout=None):
-        """Block until everything queued, formed or mid-dispatch has been
-        scattered. Intake stays open; while a drain waits the workers skip
-        the coalescing window. Returns True when drained, False on
-        timeout."""
+        """Block until everything queued or mid-dispatch has been
+        scattered (results set on every future). Intake stays open —
+        this is the ONE drain implementation: `close(drain=True)` calls
+        it after stopping intake.
+        While a drain is waiting the worker skips the coalescing window
+        — queued work leaves in max_batch_size chunks immediately.
+        Returns True when drained, False on timeout."""
         deadline = (time.monotonic() + timeout) if timeout is not None \
             else None
         with self._cond:
             self._drainers += 1
-            self._cond.notify_all()
+            self._cond.notify_all()        # cut the coalescing wait short
             try:
                 while self._queue or self._formed or self._form_busy \
                         or self._dispatching:
                     if not any(w.is_alive() for w in self._workers) \
                             and not self._queue and not self._formed:
-                        return True
+                        return True        # workers exited post-dispatch
                     remaining = None
                     if deadline is not None:
                         remaining = deadline - time.monotonic()
@@ -424,10 +545,10 @@ class Batcher(object):
 
     # -------------------------------------------------------- shutdown --
     def close(self, drain=True, timeout=None):
-        """Stop intake; with drain=True the workers finish every queued
-        request first, otherwise queued and formed requests fail with
-        ServingClosedError. The window closes after the workers, once
-        every tracked dispatch has completed."""
+        """Stop intake; with drain=True the worker finishes every queued
+        request first (via the shared `drain()` implementation — no
+        further coalescing delay), otherwise pending requests fail with
+        ServingClosedError."""
         with self._cond:
             already = self._closed
             self._closed = True
@@ -435,9 +556,17 @@ class Batcher(object):
                 self._draining = True
             if not drain and not already:
                 while self._queue:
-                    _fail_closed([self._pop_head()])
+                    self._pop_head().future.set_exception(
+                        ServingClosedError("serving engine shut down "
+                                           "before dispatch"))
                 while self._formed:
-                    _fail_closed(self._formed.popleft())
+                    formed_batch, fspan = self._formed.popleft()
+                    fspan.end(error="ServingClosedError")
+                    for req in formed_batch:
+                        if not req.future.done():
+                            req.future.set_exception(ServingClosedError(
+                                "serving engine shut down before "
+                                "dispatch"))
             self._cond.notify_all()
         if already:
             return
@@ -446,4 +575,470 @@ class Batcher(object):
         for w in self._workers:
             w.join(timeout)
         if self._window is not None:
+            # after the workers: every tracked dispatch gets its
+            # completion observed, then the completion thread exits
             self._window.close(timeout)
+
+
+# ---------------------------------------------------------------------------
+# Iteration-level continuous batching for autoregressive decode
+# ---------------------------------------------------------------------------
+
+class DecodeStream(object):
+    """Handle for ONE decoding sequence under a DecodeBatcher.
+
+    The request-shaped analogue of RequestFuture, except completion is
+    incremental: the step-loop worker `_deliver`s a token per iteration
+    while the stream occupies a slot, and `_finish`es it at retire.
+    Consumers read tokens as they land (`next_token` / iteration) or
+    wait for the whole sequence (`result`). Thread contract: `_deliver`/
+    `_finish` are worker-only; everything public is any-thread."""
+
+    __slots__ = ("stream_id", "feeds", "max_new_tokens", "deadline",
+                 "enqueued_at", "slot", "trace", "span", "qspan",
+                 "_cond", "_tokens", "_done", "_error", "_read",
+                 "_last_tok_t", "admitted_at")
+
+    def __init__(self, feeds, max_new_tokens, deadline):
+        self.stream_id = None        # assigned at submit
+        self.feeds = feeds           # per-slot init rows {var: row}
+        self.max_new_tokens = int(max_new_tokens)
+        self.deadline = deadline     # monotonic seconds, or None
+        self.enqueued_at = time.monotonic()
+        self.admitted_at = None
+        self.slot = None             # batch row while resident
+        self.trace = None
+        self.span = _trace._NOOP
+        self.qspan = _trace._NOOP
+        self._cond = threading.Condition()
+        self._tokens = []
+        self._done = False
+        self._error = None
+        self._read = 0               # next_token cursor
+        self._last_tok_t = None      # for inter-token gap accounting
+
+    # ------------------------------------------------------- consumers --
+    def done(self):
+        with self._cond:
+            return self._done
+
+    def token_count(self):
+        with self._cond:
+            return len(self._tokens)
+
+    def tokens(self):
+        """Tokens delivered so far (list of per-step numpy values)."""
+        with self._cond:
+            return list(self._tokens)
+
+    def next_token(self, timeout=None):
+        """Block for the next undelivered token; returns it, or None
+        once the stream finished and every token was read. Raises the
+        stream's error (DeadlineExceededError / ServingClosedError /
+        dispatch failure) as soon as it is observed past the delivered
+        tokens — a consumer always sees every good token first."""
+        with self._cond:
+            if not self._cond.wait_for(
+                    lambda: self._read < len(self._tokens) or self._done,
+                    timeout):
+                raise TimeoutError(
+                    "no token within %rs (stream %r)"
+                    % (timeout, self.stream_id))
+            if self._read < len(self._tokens):
+                tok = self._tokens[self._read]
+                self._read += 1
+                return tok
+            if self._error is not None:
+                raise self._error
+            return None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        tok = self.next_token()
+        if tok is None:
+            raise StopIteration
+        return tok
+
+    def result(self, timeout=None):
+        """Block until the stream retires; returns ALL tokens stacked
+        into one np.ndarray [n_tokens, ...]. Raises the stream's error
+        (after a partial decode the delivered prefix stays readable via
+        `tokens()`)."""
+        import numpy as np
+        with self._cond:
+            if not self._cond.wait_for(lambda: self._done, timeout):
+                raise TimeoutError(
+                    "stream not finished within %rs" % (timeout,))
+            if self._error is not None:
+                raise self._error
+            return np.stack(self._tokens) if self._tokens \
+                else np.zeros((0,))
+
+    # ---------------------------------------------------... worker-only --
+    def _deliver(self, token, now):
+        with self._cond:
+            if self._done:
+                return None
+            gap = (now - self._last_tok_t) if self._last_tok_t is not None \
+                else (now - (self.admitted_at or self.enqueued_at))
+            self._last_tok_t = now
+            self._tokens.append(token)
+            self._cond.notify_all()
+            return gap
+
+    def _finish(self, error=None):
+        with self._cond:
+            if self._done:
+                return False
+            self._done = True
+            self._error = error
+            self._cond.notify_all()
+        self.span.end(**({"error": type(error).__name__}
+                         if error is not None else {}))
+        return True
+
+
+class DecodeBatcher(object):
+    """Iteration-level (Orca-style) continuous batching for
+    autoregressive decode: one step-loop worker owns a fixed lattice of
+    `max_slots` batch rows and a compiled decode step at that ONE shape;
+    streams are admitted into free slots and retired from finished ones
+    BETWEEN iterations, so a long decode never blocks short strangers
+    and slots refill mid-flight instead of waiting for the whole batch
+    to drain.
+
+    The engine supplies the device halves:
+      admit_fn(slot, feeds) — reset slot `slot`'s carried state and
+        write the stream's init rows (per-slot reset-on-admit: the
+        invariant guard for slot reuse);
+      step_fn() — one fixed-shape decode step over all slots; returns
+        (tokens [slots, ...] np, finished [slots] bool np, handles)
+        where handles are the step's lazy fetch handles for window
+        completion tracking.
+
+    Correctness under slot sharing is the engine's bucket-lattice
+    invariant applied per step: at the fixed compiled shape a row's
+    outputs and carried state depend only on that row, so a stream's
+    token sequence is bit-identical to a solo decode regardless of who
+    shares the batch or what previously occupied its slot
+    The step loop is intentionally serial
+    (depth-1 window): each iteration must observe `finished` before it
+    can schedule the next admit/retire, so decode pipelining happens
+    ACROSS slots, not across iterations.
+
+    The port's step_fn brings the token and finished rows to the host in
+    one device-to-host read an iteration: the loop's one synchronizing
+    call. `device` (a torch device) is the card the worker thread drives:
+    the thread makes it its current device before its first step."""
+
+    def __init__(self, step_fn, admit_fn, max_slots,
+                 queue_capacity=256, default_max_new_tokens=128,
+                 metrics=None, name="decode", device=None):
+        if max_slots < 1:
+            raise ValueError("max_slots must be >= 1, got %r"
+                             % (max_slots,))
+        from ..core.dispatch import InflightWindow
+        from .metrics import DecodeMetrics
+        self._step = step_fn
+        self._admit = admit_fn
+        self.max_slots = int(max_slots)
+        self.queue_capacity = int(queue_capacity)
+        self.default_max_new_tokens = int(default_max_new_tokens)
+        self._metrics = metrics if metrics is not None else DecodeMetrics()
+        self.device = device     # the card the worker drives, or None
+        self._slots = [None] * self.max_slots   # slot -> DecodeStream
+        self._free = list(range(self.max_slots - 1, -1, -1))
+        self._pending = collections.deque()
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+        self._closed = False
+        self._draining = False
+        self._next_id = 0
+        # depth 1: iterations are serial by construction (see class
+        # docstring) but ride the window anyway — its completion thread
+        # observes per-step device completion and its stats carry the
+        # iteration counter to /metrics
+        self._window = InflightWindow(1, tag="serving/%s/decode" % name)
+        self._worker = threading.Thread(
+            target=self._step_loop, daemon=True,
+            name="ptt-%s-decode" % name)
+        _obsreg.note_decoder(self, name)
+        self._worker.start()
+
+    # ---------------------------------------------------------- intake --
+    def submit(self, feeds, max_new_tokens=None, deadline_ms=None):
+        """Enqueue one sequence; returns its DecodeStream. Raises
+        QueueFullError / ServingClosedError without blocking."""
+        if max_new_tokens is None:
+            max_new_tokens = self.default_max_new_tokens
+        if int(max_new_tokens) < 1:
+            raise ValueError("max_new_tokens must be >= 1, got %r"
+                             % (max_new_tokens,))
+        deadline = (time.monotonic() + float(deadline_ms) / 1e3
+                    if deadline_ms is not None else None)
+        stream = DecodeStream(feeds, max_new_tokens, deadline)
+        stream.trace = _trace.new_trace()
+        stream.span = _trace.span("serving/stream", cat="serving",
+                                  trace=stream.trace,
+                                  max_new_tokens=int(max_new_tokens))
+        stream.qspan = stream.span.child("serving/queue")
+        with self._cond:
+            if self._closed:
+                stream.qspan.end(error="ServingClosedError")
+                stream.span.end(error="ServingClosedError")
+                raise ServingClosedError("decode engine is shut down")
+            if len(self._pending) >= self.queue_capacity:
+                self._metrics.on_queue_full()
+                stream.qspan.end(error="QueueFullError")
+                stream.span.end(error="QueueFullError")
+                raise QueueFullError(
+                    "decode queue at capacity (%d); retry with backoff"
+                    % self.queue_capacity)
+            self._next_id += 1
+            stream.stream_id = self._next_id
+            self._pending.append(stream)
+            self._cond.notify_all()
+        return stream
+
+    def queue_depth(self):
+        return len(self._pending)
+
+    def decode_stats(self):
+        """One snapshot joining slot occupancy (live) with the
+        DecodeMetrics counters — the per-replica decode block
+        `pool_state()` carries and the registry's decoder collector
+        renders on /metrics."""
+        with self._lock:
+            occupied = sum(1 for s in self._slots if s is not None)
+            pending = len(self._pending)
+        snap = self._metrics.snapshot()
+        snap.update({
+            "slots": self.max_slots,
+            "occupied_slots": occupied,
+            "active_streams": occupied,
+            "pending_streams": pending,
+            "window": self._window.stats(),
+        })
+        return snap
+
+    # ---------------------------------------------------------- worker --
+    def _fail_stream(self, stream, exc, deadline=False):
+        if stream._finish(exc):
+            if deadline:
+                self._metrics.on_deadline_expired()
+            else:
+                self._metrics.on_stream_failed()
+
+    def _expire_pending_locked(self, now):
+        """Drop overdue pending streams (typed, at the boundary)."""
+        kept = collections.deque()
+        while self._pending:
+            s = self._pending.popleft()
+            if s.deadline is not None and s.deadline < now:
+                s.qspan.end(error="DeadlineExceededError")
+                self._fail_stream(s, DeadlineExceededError(
+                    "deadline passed after %.1fms waiting for a slot"
+                    % ((now - s.enqueued_at) * 1e3)), deadline=True)
+            else:
+                kept.append(s)
+        self._pending = kept
+
+    def _collect_iteration(self):
+        """Admit pending streams into free slots; return (admits,
+        active) or (None, None) on shutdown. Blocks while idle."""
+        with self._cond:
+            while True:
+                now = time.monotonic()
+                self._expire_pending_locked(now)
+                occupied = any(s is not None for s in self._slots)
+                if self._closed and not self._draining:
+                    return None, None           # hard close: streams
+                if occupied or self._pending:   # already failed
+                    break
+                if self._closed:
+                    return None, None           # drained dry
+                self._cond.wait(timeout=0.5)
+            admits = []
+            while self._free and self._pending:
+                s = self._pending.popleft()
+                if s.deadline is not None and s.deadline < now:
+                    s.qspan.end(error="DeadlineExceededError")
+                    self._fail_stream(s, DeadlineExceededError(
+                        "deadline passed after %.1fms waiting for a slot"
+                        % ((now - s.enqueued_at) * 1e3)), deadline=True)
+                    continue
+                slot = self._free.pop()
+                s.slot = slot
+                self._slots[slot] = s
+                admits.append(s)
+            active = [(i, s) for i, s in enumerate(self._slots)
+                      if s is not None]
+            return admits, active
+
+    def _retire_locked(self, slot, stream):
+        """Free `slot` iff `stream` still owns it (a hard close may have
+        reaped it concurrently — double-freeing would hand one slot to
+        two streams)."""
+        if self._slots[slot] is stream:
+            self._slots[slot] = None
+            self._free.append(slot)
+
+    def _step_loop(self):
+        dev = self.device
+        if dev is not None and getattr(dev, "type", None) == "cuda":
+            # this thread drives the card: its current device is the
+            # engine's (a CPU engine makes no CUDA call at all)
+            import torch
+            torch.cuda.set_device(dev)
+        while True:
+            admits, active = self._collect_iteration()
+            if admits is None:
+                return
+            # device-side admit: reset-on-admit + the stream's init rows,
+            # OUTSIDE the lock (submit/consumers must not wait on device
+            # writes). The worker is the only device-touching thread.
+            for s in admits:
+                s.qspan.end()      # slot granted: queue wait over
+                s.admitted_at = time.monotonic()
+                try:
+                    with _trace.span("serving/decode_admit", cat="serving",
+                                     trace=s.trace, slot=s.slot,
+                                     stream=s.stream_id):
+                        self._admit(s.slot, s.feeds)
+                    self._metrics.on_admit()
+                except Exception as e:  # noqa: BLE001 — fail THIS
+                    with self._cond:    # stream, not the loop
+                        self._retire_locked(s.slot, s)
+                        self._fail_stream(s, e)
+                        self._cond.notify_all()
+            # admits are already in the slot table (placed under the
+            # lock in _collect_iteration); drop any stream a failed
+            # admit or concurrent hard close finished meanwhile
+            active = [(i, s) for i, s in active if not s.done()]
+            if not active:
+                continue
+            # one decode iteration at the fixed compiled shape
+            if not self._acquire_slot_or_bail(active):
+                continue
+            btrace = _trace.new_trace()
+            enq_t = time.monotonic()
+            dspan = _trace.span(
+                "serving/decode_step", cat="serving", trace=btrace,
+                slots=len(active),
+                streams=[s.stream_id for _, s in active],
+                traces=[s.trace for _, s in active])
+            try:
+                with _trace.scope_trace(btrace):
+                    tokens, finished, handles = self._step()
+            except Exception as e:  # noqa: BLE001 — fail the resident
+                dspan.end(error=type(e).__name__)   # streams, keep the
+                self._window.release()              # loop serving
+                with self._cond:
+                    for slot, s in active:
+                        self._retire_locked(slot, s)
+                        self._fail_stream(s, e)
+                    self._cond.notify_all()
+                continue
+            dspan.end()
+            espan = _trace.span("serving/decode_execute", cat="serving",
+                                trace=btrace,
+                                streams=[s.stream_id for _, s in active])
+            self._window.track(handles or (), enq_t,
+                               on_complete=espan.end)
+            self._window.note_iteration()
+            self._deliver_iteration(active, tokens, finished)
+
+    def _acquire_slot_or_bail(self, active):
+        """Window slot for this iteration; a hard close while the
+        window is busy fails the resident streams instead of wedging."""
+        while not self._window.acquire(timeout=0.1):
+            with self._cond:
+                if self._closed and not self._draining:
+                    for slot, s in active:
+                        self._retire_locked(slot, s)
+                        self._fail_stream(s, ServingClosedError(
+                            "decode engine shut down mid-stream"))
+                    self._cond.notify_all()
+                    return False
+        return True
+
+    def _deliver_iteration(self, active, tokens, finished):
+        """Scatter this iteration's tokens to their streams and retire
+        finished ones — the admit/retire boundary the next
+        `_collect_iteration` sees."""
+        now = time.monotonic()
+        delivered, gaps = 0, []
+        with self._cond:
+            for slot, stream in active:
+                if stream.done():   # hard close raced the step
+                    self._retire_locked(slot, stream)
+                    continue
+                gap = stream._deliver(tokens[slot], now)
+                if gap is not None:
+                    delivered += 1
+                    gaps.append(gap)
+                n = stream.token_count()
+                if bool(finished[slot]) or n >= stream.max_new_tokens:
+                    self._retire_locked(slot, stream)
+                    if stream._finish():
+                        self._metrics.on_stream_completed()
+                elif stream.deadline is not None and stream.deadline < now:
+                    self._retire_locked(slot, stream)
+                    self._fail_stream(stream, DeadlineExceededError(
+                        "per-stream deadline passed after %d token(s)"
+                        % n), deadline=True)
+            self._cond.notify_all()   # admits may proceed; drain waiters
+        self._metrics.on_iteration(len(active), delivered, gaps)
+
+    # ----------------------------------------------------------- drain --
+    def drain(self, timeout=None):
+        """Block until every pending and resident stream has retired
+        (tokens delivered, futures finished). Intake stays open, like
+        Batcher.drain. Returns True when drained, False on timeout."""
+        deadline = (time.monotonic() + timeout) if timeout is not None \
+            else None
+        with self._cond:
+            while self._pending \
+                    or any(s is not None for s in self._slots):
+                if not self._worker.is_alive():
+                    return True
+                remaining = None
+                if deadline is not None:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return False
+                self._cond.wait(timeout=remaining)
+            return True
+
+    # -------------------------------------------------------- shutdown --
+    def close(self, drain=True, timeout=None):
+        """Stop intake; drain=True finishes every pending and resident
+        stream first, drain=False fails them ALL with
+        ServingClosedError — typed, immediate, no hang: the worker bails
+        at the next boundary and mid-flight consumers wake with the
+        error after reading every already-delivered token."""
+        with self._cond:
+            already = self._closed
+            self._closed = True
+            if drain and not already:
+                self._draining = True
+            if not drain and not already:
+                while self._pending:
+                    s = self._pending.popleft()
+                    s.qspan.end(error="ServingClosedError")
+                    self._fail_stream(s, ServingClosedError(
+                        "decode engine shut down before admit"))
+                for slot, s in enumerate(self._slots):
+                    if s is not None:
+                        self._retire_locked(slot, s)
+                        self._fail_stream(s, ServingClosedError(
+                            "decode engine shut down mid-stream"))
+            self._cond.notify_all()
+        if already:
+            return
+        if drain:
+            self.drain(timeout)
+        self._worker.join(timeout)
+        self._window.close(timeout)

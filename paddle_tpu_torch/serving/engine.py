@@ -1,42 +1,61 @@
-"""InferenceEngine: a loaded model + private Scope + bucketed dispatch.
+"""Serving engines: InferenceEngine (bucketed scoring) and DecodeEngine
+(slot-resident continuous decode).
 
-Parity: the JAX package's serving/engine.py `InferenceEngine` — the
+Parity: the JAX package's serving/engine.py. `InferenceEngine`: the
 native-format load (a `save_inference_model` directory written by either
-package), the feed contract for dense and sequence (LoD) feeds, the
-per-fetch row policy, the (batch, seq) bucket lattice, coalescing through
-the Batcher, and `run_direct`. Every dispatch runs at a batch size, and
-for a sequence model at a padded length, from a small configured lattice
-of buckets, so a request's rows come back the same whether it was
-dispatched alone (`run_direct` at the same buckets) or coalesced with
-strangers: at one shape, each row's result depends only on that row (on
-the card, cuBLAS picks its algorithm by shape, which is why the comparison
-holds only at the same bucket).
+package) or an in-memory program, the feed contract for dense and
+sequence (LoD) feeds, the per-fetch row policy, the (batch, seq) bucket
+lattice, coalescing through the Batcher, `run_direct`, and weight-dtype
+serving (`weights_dtype` "bf16" / "int8", serving/quantize.py). Every
+dispatch runs at a batch size, and for a sequence model at a padded
+length, from a small configured lattice of buckets, so a request's rows
+come back the same whether it was dispatched alone (`run_direct` at the
+same buckets) or coalesced with strangers: at one shape, each row's
+result depends only on that row (on the card, cuBLAS picks its algorithm
+by shape, which is why the comparison holds only at the same bucket).
 
 Dispatch is pipelined by default (the Batcher's continuous batching at
 `pipeline_depth` 2): a dispatch enqueues its run on the device and
 returns the batch's fetch tensors without a host sync; a client's
 `ResultSlice.numpy()` is where its rows come to the host.
 
-Waiting for later slices: the decode engine, tensor parallelism,
-quantized weights, tuned configs, the analysis/deployment tier, tracing
-and the era-wire model format.
+`DecodeEngine` serves ONE step of an autoregressive loop at a fixed
+[max_slots, ...] shape, its carried state in persistable slot vars, one
+`Executor.run` an iteration, streams admitted and retired between
+iterations by a `DecodeBatcher`.
+
+`validate`: the analysis tier (ROADMAP A11) is not ported. Both engines
+always run their own checks (feed and fetch names against the program,
+the feed contract, the decode slot vars); `validate=True` asked for
+explicitly raises NotImplementedError naming A11, so no analysis a
+caller asks for is skipped silently, and `deployment_report` stays None.
+
+Waiting for later slices: tensor parallelism and device meshes (`tp`,
+`mesh_devices`; A10), `from_checkpoint` and the era-wire model format
+(A8), tuned configs (`apply_tuned`; A11).
 """
 import os
 import threading
 import time
 
 import numpy as np
+import torch
 
 from .. import io as _io
 from ..core.executor import Executor, Scope, resolve_device, to_numpy
 from ..core.framework import Parameter, convert_dtype, find_var
 from ..core.lod import LoDTensor
-from .batcher import Batcher, ServingError
-from .metrics import ServingMetrics
+from ..observability import trace as _trace
+from .batcher import Batcher, DecodeBatcher, ServingError
+from .metrics import DecodeMetrics, ServingMetrics
 
-__all__ = ["InferenceEngine", "ResultSlice", "InvalidRequestError"]
+__all__ = ["InferenceEngine", "ResultSlice", "InvalidRequestError",
+           "DecodeEngine"]
 
 SEQLEN_SUFFIX = "@SEQLEN"
+
+# validate's default: the engine's own checks, and no analysis tier
+ENGINE_CHECKS = "engine_checks"
 
 
 class InvalidRequestError(ServingError):
@@ -51,6 +70,38 @@ def _default_batch_buckets(max_batch_size):
         b *= 2
     buckets.append(max_batch_size)
     return buckets
+
+
+def _check_validate(validate, what):
+    """`validate` of an engine: the sentinel default (or False) runs the
+    engine's own checks; True asks for the analysis tier, which comes
+    with ROADMAP A11 and raises rather than being skipped."""
+    if validate is True:
+        raise NotImplementedError(
+            "%s(validate=True): the analysis tier (validate_or_raise, "
+            "analyze_deployment, row certificates) comes with ROADMAP A11; "
+            "the engine's own checks run by default" % what)
+
+
+def _load_model(exe, scope, model_dir, model_format, model_filename,
+                params_filename):
+    """(program, feed_names, fetch_vars) of a model directory loaded into
+    `scope`. model_format "auto" reads a native directory (its
+    `__model_meta__.json`); the era-wire format waits for ROADMAP A8."""
+    if model_format not in ("auto", "native", "reference"):
+        raise ValueError("model_format must be auto|native|reference, "
+                         "got %r" % (model_format,))
+    native = os.path.exists(os.path.join(model_dir, "__model_meta__.json"))
+    if model_format == "reference" or (model_format == "auto"
+                                       and os.path.isdir(model_dir)
+                                       and not native):
+        raise NotImplementedError(
+            "%r is not a native save_inference_model directory: the "
+            "reference-era (era-wire ProgramDesc) format comes with ROADMAP "
+            "A8" % model_dir)
+    return _io.load_inference_model(
+        model_dir, exe, model_filename=model_filename,
+        params_filename=params_filename, scope=scope)
 
 
 def _covering_bucket(buckets, n, what):
@@ -72,10 +123,10 @@ class ResultSlice(object):
     returning the full batch would hand one client strangers' rows)."""
 
     __slots__ = ("_fetch_names", "_handles", "_row_policy", "_lo", "_hi",
-                 "_bucket_rows", "bucket")
+                 "_bucket_rows", "bucket", "_trace")
 
     def __init__(self, fetch_names, handles, row_policy, lo, hi,
-                 bucket_rows, bucket):
+                 bucket_rows, bucket, trace=None):
         self._fetch_names = fetch_names
         self._handles = handles
         self._row_policy = row_policy
@@ -83,17 +134,21 @@ class ResultSlice(object):
         self._hi = hi
         self._bucket_rows = bucket_rows
         self.bucket = bucket  # (batch_bucket, seq_bucket | None)
+        self._trace = trace   # the request's trace id: its materialize
+        # span records under it, completing the per-request timeline
 
     def numpy(self):
-        out = {}
-        for name, h in zip(self._fetch_names, self._handles):
-            policy = self._row_policy[name]
-            slice_rows = policy == "rows" or (
-                policy == "dynamic" and h.dim()
-                and h.shape[0] == self._bucket_rows)
-            t = h[self._lo:self._hi] if slice_rows else h
-            out[name] = to_numpy(t)
-        return out
+        with _trace.span("serving/materialize", cat="serving",
+                         trace=self._trace):
+            out = {}
+            for name, h in zip(self._fetch_names, self._handles):
+                policy = self._row_policy[name]
+                slice_rows = policy == "rows" or (
+                    policy == "dynamic" and h.dim()
+                    and h.shape[0] == self._bucket_rows)
+                t = h[self._lo:self._hi] if slice_rows else h
+                out[name] = to_numpy(t)
+            return out
 
     def __repr__(self):
         return "ResultSlice(rows=[%d:%d), bucket=%r)" % (
@@ -119,38 +174,82 @@ class _NormalizedRequest(object):
 
 
 class InferenceEngine(object):
-    """Serve a `save_inference_model` directory on one device.
+    """Serve a `save_inference_model` directory (or an in-memory program)
+    on one device.
 
-    device: "cuda" (the default) or "cpu"; with no card and no explicit
-    "cpu", construction raises before anything is read.
-    batch_buckets / max_batch_size: the batch lattice (default powers of
-    two up to max_batch_size=32). seq_buckets: the padded lengths a
-    sequence model's dispatches run at (default [16, 32, 64, 128, 256]
-    when the model has a sequence feed, else none). pipeline_depth: how
-    many dispatches may be outstanding on the device while the next batch
-    forms (None: FLAGS_serving_pipeline_depth, else 2; 0 is the serial
-    batcher)."""
+    device: "cuda" (the default) or "cpu" (or a Place); with no card and
+    no explicit CPU, construction raises before anything is read.
+    model_dir (with model_filename, params_filename and model_format
+    "auto" | "native") or program=, feed_names= and fetch_vars=.
+    batch_buckets / max_batch_size: the
+    batch lattice (default powers of two up to max_batch_size=32).
+    seq_buckets: the padded lengths a sequence model's dispatches run at
+    (default [16, 32, 64, 128, 256] when the model has a sequence feed,
+    else none). pipeline_depth: how many dispatches may be outstanding on
+    the device while the next batch forms (None:
+    FLAGS_serving_pipeline_depth, else 2; 0 is the serial batcher).
+    weights_dtype: None/"fp32", "bf16" (weights cast, the program's
+    mixed precision on) or "int8" (per-channel quantized weights behind
+    `dequantize_channel` ops), applied to a model_dir load; see
+    serving/quantize.py. validate: see the module docstring. tp waits for
+    ROADMAP A10 (with int8 it is refused as in the JAX package)."""
 
-    def __init__(self, model_dir, device=None, name=None,
+    def __init__(self, model_dir=None, device=None, name=None,
                  model_filename=None, batch_buckets=None,
                  max_batch_size=None, seq_buckets=None,
                  max_queue_delay_ms=5.0, queue_capacity=256,
                  default_deadline_ms=None, warmup=True,
-                 latency_window=2048, pipeline_depth=None):
+                 latency_window=2048, pipeline_depth=None,
+                 params_filename=None, model_format="auto", program=None,
+                 feed_names=None, fetch_vars=None, weights_dtype=None,
+                 validate=ENGINE_CHECKS, tp=None):
+        _check_validate(validate, "InferenceEngine")
+        if tp is not None and int(tp) < 1:
+            raise ValueError("tp must be >= 1, got %r" % (tp,))
+        self.tp = int(tp) if tp is not None else None
         self.device = resolve_device(device)
-        self.name = name or os.path.basename(os.path.normpath(model_dir))
+        self.name = name or (os.path.basename(os.path.normpath(model_dir))
+                             if model_dir else "model")
         self._scope = Scope()
         self._exe = Executor(self.device)
         self._run_lock = threading.Lock()
         self.default_deadline_ms = default_deadline_ms
         self.closed = False
+        self.deployment_report = None   # the analysis tier: ROADMAP A11
+        self.quantize_report = None
+        self._set_weights_dtype(weights_dtype)
+        if self.tp is not None:
+            raise NotImplementedError(
+                "InferenceEngine(tp=): tensor-parallel engines come with "
+                "ROADMAP A10")
 
-        program, feed_names, fetch_vars = _io.load_inference_model(
-            model_dir, self._exe, model_filename=model_filename,
-            scope=self._scope)
+        if program is None:
+            if model_dir is None:
+                raise ValueError("need model_dir or an in-memory program")
+            program, feed_names, fetch_vars = _load_model(
+                self._exe, self._scope, model_dir, model_format,
+                model_filename, params_filename)
+        elif feed_names is None or fetch_vars is None:
+            raise ValueError("in-memory program needs feed_names and "
+                             "fetch_vars")
         self.program = program
         self.feed_names = list(feed_names)
-        self.fetch_names = [v.name for v in fetch_vars]
+        self.fetch_names = [v if isinstance(v, str) else v.name
+                            for v in fetch_vars]
+        for n in self.fetch_names:
+            if find_var(self.program, n) is None:
+                raise ValueError(
+                    "model metadata names fetch %r but the program has no "
+                    "such variable" % n)
+        if model_dir is not None:
+            self._apply_weights_dtype()    # the weights are in the scope
+        elif self.weights_dtype != "fp32":
+            # an in-memory program has no loaded weights to quantize:
+            # serving fp32 under an int8 label would pass every gate
+            raise ValueError(
+                "weights_dtype=%r needs a model_dir load; an in-memory "
+                "program= engine has no loaded weights to quantize"
+                % (self.weights_dtype,))
 
         # feed contract: per-feed declared feature dims + sequence-ness
         self._feed_vars = {}
@@ -223,6 +322,30 @@ class InferenceEngine(object):
                 # must not leak a live thread per retry
                 self.close(drain=False)
                 raise
+
+    # --------------------------------------------------- weights dtype --
+    def _set_weights_dtype(self, weights_dtype):
+        """Validate and record the weight-dtype contract."""
+        from .quantize import WEIGHTS_DTYPES
+        self.weights_dtype = (weights_dtype or "fp32").lower()
+        if self.weights_dtype not in WEIGHTS_DTYPES:
+            raise ValueError("weights_dtype must be one of %s, got %r"
+                             % (WEIGHTS_DTYPES, weights_dtype))
+        if self.weights_dtype == "int8" and self.tp is not None:
+            raise ValueError(
+                "weights_dtype='int8' does not compose with "
+                "tensor-parallel engines (a sharding plan partitions the "
+                "fp32 param names, not the @QVAL rewrite); use "
+                "weights_dtype='bf16' for TP replicas")
+
+    def _apply_weights_dtype(self):
+        """Apply weights_dtype to the loaded (program, scope) pair once,
+        before the first run. No-op for fp32 or when already applied."""
+        if self.weights_dtype == "fp32" or self.quantize_report is not None:
+            return
+        from .quantize import apply_weights_dtype
+        self.quantize_report = apply_weights_dtype(
+            self.program, self._scope, self.weights_dtype)
 
     # ------------------------------------------------------- normalize --
     def normalize_feed(self, feed):
@@ -394,20 +517,28 @@ class InferenceEngine(object):
         """Pad one shape-compatible group -> one run -> scatter; returns
         the run's fetch tensors."""
         normalized = [req.feed for req in requests]
+        traces = [getattr(req, "trace", None) for req in requests]
         rows = sum(r.rows for r in normalized)
         bucket = self._pick_buckets(
             rows, max(r.max_seq_len for r in normalized))
         batch_bucket = bucket[0]
-        handles = self._run(self._pad_batch(normalized, *bucket))
+        with _trace.span("serving/pad_h2d", cat="serving", traces=traces,
+                         rows=rows) as psp:
+            feed = self._pad_batch(normalized, *bucket)
+            psp.set(bucket=batch_bucket)
+        with _trace.span("serving/enqueue", cat="serving", traces=traces,
+                         bucket=batch_bucket):
+            handles = self._run(feed)
         now = time.monotonic()
         offset, latencies = 0, []
-        for req, norm in zip(requests, normalized):
+        for req, norm, rtrace in zip(requests, normalized, traces):
             req.future.bucket = bucket
             req.future.latency_s = now - req.enqueued_at
             latencies.append(req.future.latency_s)
             req.future.set_result(ResultSlice(
                 self.fetch_names, handles, self._fetch_row_policy,
-                offset, offset + norm.rows, batch_bucket, bucket))
+                offset, offset + norm.rows, batch_bucket, bucket,
+                trace=rtrace))
             offset += norm.rows
         self.metrics.on_batch(len(requests), rows, batch_bucket, latencies)
         return handles
@@ -418,8 +549,14 @@ class InferenceEngine(object):
         RequestFuture whose result is a ResultSlice. A malformed request,
         or one longer than the largest seq bucket, fails here, on the
         caller's thread."""
-        norm = self.normalize_feed(feed)
-        if self._seq_feeds:
+        return self.submit_normalized(self.normalize_feed(feed),
+                                      deadline_ms=deadline_ms)
+
+    def submit_normalized(self, norm, deadline_ms=None):
+        """Enqueue an already-normalized request (a `normalize_feed`
+        result): every engine over one program shares the contract, so a
+        caller that normalized once may resubmit the same request."""
+        if self._seq_feeds:     # reject unservable lengths before queueing
             _covering_bucket(self.seq_buckets, max(norm.max_seq_len, 1),
                              "sequence length")
         if deadline_ms is None:
@@ -457,15 +594,16 @@ class InferenceEngine(object):
                           0, norm.rows, batch_bucket, bucket)
         return res.numpy(), bucket
 
-    def warmup(self):
-        """Run every bucket of the lattice once on zero feeds (builds the
+    def warmup(self, buckets=None):
+        """Run buckets of the lattice once on zero feeds (builds the
         kernels and the libraries' per-shape state before the first
-        request): every batch bucket, by every seq bucket for a sequence
-        model. Sequence feeds warm up with every row of length 1; feature
-        dims declared -1 warm up at 1. Returns the number of buckets
-        run."""
-        buckets = [(b, s) for b in self.batch_buckets
-                   for s in (self.seq_buckets or [None])]
+        request). `buckets`: explicit [(batch, seq | None), ...]; default
+        every batch bucket, by every seq bucket for a sequence model.
+        Sequence feeds warm up with every row of length 1; feature dims
+        declared -1 warm up at 1. Returns the number of buckets run."""
+        if buckets is None:
+            buckets = [(b, s) for b in self.batch_buckets
+                       for s in (self.seq_buckets or [None])]
         for batch_bucket, seq_bucket in buckets:
             feed = {}
             for n in self.feed_names:
@@ -483,6 +621,7 @@ class InferenceEngine(object):
                             for d in list(var.shape or [])[1:]]
                     feed[n] = np.zeros([batch_bucket] + feat, dtype=dtype)
             self._run(feed)
+        self.metrics.on_warmup_compile(len(buckets))
         return len(buckets)
 
     def queue_depth(self):
@@ -493,11 +632,390 @@ class InferenceEngine(object):
         mode."""
         return self._batcher.pipeline_stats()
 
+    def device_span(self):
+        """The devices this engine's dispatches run on (one)."""
+        return [str(self.device)]
+
+    def describe(self):
+        """The /v1/models entry for this engine."""
+        return {
+            "name": self.name,
+            "tp": self.tp,
+            "weights_dtype": self.weights_dtype,
+            "devices": self.device_span(),
+            "feeds": [
+                {"name": n,
+                 "shape": list(self._feed_vars[n].shape or []),
+                 "dtype": convert_dtype(self._feed_vars[n].dtype)
+                 if self._feed_vars[n].dtype else None,
+                 "sequence": n in self._seq_feeds}
+                for n in self.feed_names],
+            "fetches": self.fetch_names,
+            "batch_buckets": self.batch_buckets,
+            "seq_buckets": self.seq_buckets,
+            "max_batch_size": self.max_batch_size,
+            "pipeline_depth": self.pipeline_depth,
+            "status": "closed" if self.closed else "serving",
+            "metrics": self.metrics.snapshot(),
+        }
+
     def drain(self, timeout=None):
         return self._batcher.drain(timeout)
 
     def close(self, drain=True, timeout=None):
         """Graceful shutdown: stop intake, drain queued requests, join the
         workers."""
+        self.closed = True
+        self._batcher.close(drain=drain, timeout=timeout)
+
+
+# ---------------------------------------------------------------------------
+# DecodeEngine: slot-resident continuous decode
+# ---------------------------------------------------------------------------
+
+class DecodeEngine(object):
+    """A decode-step program + private Scope + iteration-level batcher.
+
+    The served artifact is ONE step of an autoregressive loop, authored
+    (or exported) at a fixed [max_slots, ...] batch shape with its
+    carried state (hidden rows, token cursors, caches) held in
+    persistable "slot vars", one slot per batch row. Every iteration is
+    one eager `Executor.run` of that step at the one shape; the token and
+    finished rows come to the host in ONE device-to-host read (the decode
+    loop's one synchronizing call: it must see `finished` to admit and
+    retire), and the DecodeBatcher admits and retires streams between
+    iterations.
+
+    Bit-exactness contract: the program must be deterministic (greedy
+    decode, no dropout or sampling), and then a stream's token sequence
+    equals a solo decode of that stream on a fresh engine, whatever
+    shared the batch or used its slot before: at the fixed shape a row's
+    outputs and next state depend only on that row (on the card, cuBLAS
+    picks its kernel by shape, so the solo clone runs the same
+    [max_slots] shape), and admit rewrites EVERY slot var's row (init
+    rows from the stream, zeros otherwise) in place
+    (core/lowering.build_slot_update_fn).
+
+    Export caveat: `save_inference_model` prunes to the fetch subgraph,
+    so a decode step must be saved with its state-writing outputs among
+    the fetch targets (token and finished first; the engine takes
+    fetch[0] / fetch[1] as token / finished by default) or the state
+    `assign`s are pruned.
+
+    Parity: the JAX package's serving.DecodeEngine, with its signature:
+    `place=` is a Place or a device string ("cuda", "cpu"), the card
+    unless the caller asks for the CPU (core/executor.resolve_device)."""
+
+    def __init__(self, model_dir=None, model_format="auto",
+                 model_filename=None, params_filename=None, place=None,
+                 name=None, program=None, startup_program=None,
+                 token_var=None,
+                 finished_var=None, slot_vars=None, max_slots=8,
+                 queue_capacity=256, default_max_new_tokens=128,
+                 default_deadline_ms=None, validate=ENGINE_CHECKS,
+                 warmup=True, latency_window=4096):
+        from ..core.lowering import analyze_state, build_slot_update_fn
+        _check_validate(validate, "DecodeEngine")
+        self.device = resolve_device(place)
+        self.name = name or (os.path.basename(os.path.normpath(model_dir))
+                             if model_dir else "decode")
+        self._scope = Scope()
+        self._exe = Executor(self.device)
+        self._run_lock = threading.Lock()
+        self.closed = False
+        self.deployment_report = None   # the analysis tier: ROADMAP A11
+        self.max_slots = int(max_slots)
+        if self.max_slots < 1:
+            raise ValueError("max_slots must be >= 1, got %r"
+                             % (max_slots,))
+        self.default_deadline_ms = default_deadline_ms
+
+        if program is None:
+            if model_dir is None:
+                raise ValueError("need model_dir or an in-memory program")
+            program, _feeds, fetch_vars = _load_model(
+                self._exe, self._scope, model_dir, model_format,
+                model_filename, params_filename)
+            fetch_names = [v if isinstance(v, str) else v.name
+                           for v in fetch_vars]
+            if token_var is None or finished_var is None:
+                if len(fetch_names) < 2:
+                    raise ValueError(
+                        "a decode model dir must be saved with at least "
+                        "[token, finished] fetch targets (got %r); or "
+                        "pass token_var/finished_var explicitly"
+                        % (fetch_names,))
+                token_var = token_var or fetch_names[0]
+                finished_var = finished_var or fetch_names[1]
+        elif token_var is None or finished_var is None:
+            raise ValueError("an in-memory decode program needs "
+                             "token_var and finished_var")
+        self.program = program
+        self.token_name = token_var if isinstance(token_var, str) \
+            else token_var.name
+        self.finished_name = finished_var if isinstance(finished_var, str) \
+            else finished_var.name
+        self.fetch_names = [self.token_name, self.finished_name]
+        for n in self.fetch_names:
+            if find_var(self.program, n) is None:
+                raise ValueError("decode program has no variable %r" % n)
+        if startup_program is not None:
+            # the in-memory form: weights into the private scope from the
+            # program's seeds (two engines over one pair decode alike);
+            # slot vars re-zero below regardless
+            self._exe.run(startup_program, scope=self._scope)
+
+        # the step feeds on nothing (everything it consumes is carried
+        # persistable state), so analyze_state sees every scope read and
+        # write
+        self._state_rw, self._state_ro, self._state_out = analyze_state(
+            self.program, feed_names=[], fetch_names=self.fetch_names)
+        state_read = list(self._state_rw) + list(self._state_ro)
+
+        # slot vars: an explicit list wins; else every WRITTEN persistable
+        # (inference programs never write weights) plus read-only state
+        # whose leading dim is exactly max_slots (per-slot context set at
+        # admit). Pass slot_vars when a [max_slots, d] weight exists.
+        if slot_vars is None:
+            slot_vars = list(self._state_out)
+            for n in self._state_ro:
+                var = find_var(self.program, n)
+                shape = list(var.shape or []) if var is not None else []
+                if shape and shape[0] in (-1, self.max_slots):
+                    slot_vars.append(n)
+        self.slot_vars = [v if isinstance(v, str) else v.name
+                          for v in slot_vars]
+        if not self.slot_vars:
+            raise ValueError(
+                "decode program carries no slot state (no persistable "
+                "var is written and none matches max_slots=%d); a decode "
+                "step must carry its loop state in persistables"
+                % self.max_slots)
+        self._slot_var_meta = {}   # name -> (row_shape, dtype)
+        for n in self.slot_vars:
+            var = find_var(self.program, n)
+            if var is None or not var.persistable:
+                raise ValueError(
+                    "slot var %r is not a persistable variable of the "
+                    "decode program" % n)
+            shape = list(var.shape or [])
+            if not shape or shape[0] not in (-1, self.max_slots):
+                raise ValueError(
+                    "slot var %r has shape %r; its leading dim must be "
+                    "the slot count (max_slots=%d, or -1)"
+                    % (n, shape, self.max_slots))
+            feat = shape[1:]
+            if any(d < 0 for d in feat):
+                raise ValueError(
+                    "slot var %r has free feature dims %r; decode slot "
+                    "state needs concrete per-slot shapes" % (n, feat))
+            dtype = convert_dtype(var.dtype) if var.dtype else "float32"
+            self._slot_var_meta[n] = (tuple(feat), dtype)
+
+        # non-slot state the step reads must exist in the scope too
+        # (zeros for whatever the model load didn't provide)
+        self._reset_slot_state()
+        for n in state_read:
+            if n not in self._slot_var_meta \
+                    and self._scope.get(n) is None:
+                var = find_var(self.program, n)
+                shape = [d if d >= 0 else 1 for d in (var.shape or [1])]
+                dtype = convert_dtype(var.dtype) if var.dtype \
+                    else "float32"
+                self._scope.set(n, self._device_zeros(shape, dtype))
+
+        self._update_rows = build_slot_update_fn()
+        self.metrics = DecodeMetrics(latency_window=latency_window)
+        self._batcher = DecodeBatcher(
+            self._step, self._admit, self.max_slots,
+            queue_capacity=queue_capacity,
+            default_max_new_tokens=default_max_new_tokens,
+            metrics=self.metrics, name=self.name, device=self.device)
+        if warmup:
+            try:
+                self.warmup()
+            except Exception:
+                self.close(drain=False)   # no thread leak per failed
+                raise                     # constructor
+
+    # ----------------------------------------------------- slot state --
+    def _device_zeros(self, shape, dtype):
+        return torch.from_numpy(np.zeros(shape, dtype=dtype)).to(self.device)
+
+    def _zero_row(self, name):
+        feat, dtype = self._slot_var_meta[name]
+        return np.zeros(feat, dtype=dtype)
+
+    def _reset_slot_state(self):
+        """All slots to zeros: at startup and after warmup (a warmup step
+        changes carried state; serving starts from the zeros a fresh solo
+        engine starts from)."""
+        for n, (feat, dtype) in self._slot_var_meta.items():
+            self._scope.set(n, self._device_zeros(
+                (self.max_slots,) + feat, dtype))
+
+    def _admit(self, slot, feeds):
+        """DecodeBatcher admit callback: overwrite row `slot` of EVERY
+        slot var in place, the stream's init rows where given, zeros
+        otherwise; the other slots' rows are not touched."""
+        feeds = feeds or {}
+        names = list(self.slot_vars)
+        with self._run_lock:
+            vals = tuple(self._scope.get(n) for n in names)
+            # a step may leave two slot vars on one tensor (one assign
+            # feeding both): each gets its own before a row is written
+            seen = set()
+            vals = list(vals)
+            for i, v in enumerate(vals):
+                key = (v.untyped_storage().data_ptr(), v.storage_offset())
+                if key in seen:
+                    vals[i] = v.clone()
+                seen.add(key)
+            rows = tuple(feeds[n] if n in feeds else self._zero_row(n)
+                         for n in names)
+            new_vals = self._update_rows(tuple(vals), slot, rows)
+            for n, v in zip(names, new_vals):
+                if v is not self._scope.get(n):
+                    self._scope.set(n, v)
+
+    def _run_step(self):
+        with self._run_lock:
+            return self._exe.run(self.program, feed={},
+                                 fetch_list=self.fetch_names,
+                                 scope=self._scope, return_numpy=False)
+
+    def _step(self):
+        """DecodeBatcher step callback: ONE fixed-shape decode iteration
+        (an eager Executor.run), then the token and finished rows to the
+        host in ONE device-to-host read. Returns (tokens [slots, ...],
+        finished [slots] bool, the step's fetch tensors)."""
+        handles = self._run_step()
+        tok, fin = handles
+        wide = torch.float64 if tok.dtype.is_floating_point \
+            else torch.int64
+        both = torch.cat([tok.reshape(-1).to(wide),
+                          fin.reshape(-1).to(wide)]).cpu().numpy()
+        k = tok.numel()
+        # the token dtype as numpy has it (bf16 comes back as f32, as
+        # to_numpy gives it), read off a host tensor: no device copy
+        np_dtype = np.float32 if tok.dtype == torch.bfloat16 else \
+            torch.empty(0, dtype=tok.dtype).numpy().dtype
+        tokens = both[:k].astype(np_dtype).reshape(tuple(tok.shape))
+        finished = both[k:].reshape(-1) != 0
+        return tokens, finished, handles
+
+    def warmup(self):
+        """Run the step once (builds the kernels and the libraries' state
+        at the step's shape) and reset slot state to zeros. Returns 1."""
+        self._run_step()
+        with self._run_lock:
+            self._reset_slot_state()
+        return 1
+
+    # ---------------------------------------------------------- public --
+    def normalize_stream_feed(self, feeds):
+        """Validate one stream's init rows: {slot var: row}, each row of
+        the var's per-slot shape (dtype cast here). Unknown names and
+        shape mismatches are client faults (InvalidRequestError)."""
+        feeds = dict(feeds or {})
+        out = {}
+        for n, value in feeds.items():
+            if n not in self._slot_var_meta:
+                raise InvalidRequestError(
+                    "unknown slot var %r (decode slot state: %r)"
+                    % (n, self.slot_vars))
+            feat, dtype = self._slot_var_meta[n]
+            row = np.asarray(value).astype(dtype, copy=False)
+            if tuple(row.shape) != feat:
+                raise InvalidRequestError(
+                    "init row for %r has shape %r but the slot carries "
+                    "%r per stream" % (n, tuple(row.shape), feat))
+            out[n] = row
+        return out
+
+    def submit(self, feeds=None, max_new_tokens=None, deadline_ms=None):
+        """Admit one sequence for continuous-batched decode; returns its
+        DecodeStream (tokens arrive incrementally). `feeds` are per-slot
+        init rows for a subset of `slot_vars` (the start token, a context
+        vector); everything else resets to zeros."""
+        if deadline_ms is None:
+            deadline_ms = self.default_deadline_ms
+        return self._batcher.submit(self.normalize_stream_feed(feeds),
+                                    max_new_tokens=max_new_tokens,
+                                    deadline_ms=deadline_ms)
+
+    def decode(self, feeds=None, max_new_tokens=None, deadline_ms=None,
+               timeout=120.0):
+        """Synchronous convenience: submit + wait; returns the stacked
+        token array."""
+        return self.submit(feeds, max_new_tokens=max_new_tokens,
+                           deadline_ms=deadline_ms).result(timeout)
+
+    def solo_clone(self, name=None, warmup=True):
+        """A fresh engine over the SAME program and weights, the
+        bit-exactness reference: decode one stream at a time on the clone
+        and compare with the continuously batched original. Read-only
+        persistables (the weights) are shared: the clone's scope holds
+        the very same tensors. Written non-slot state is copied, and slot
+        state starts from zeros, as always: the clone shares none of it."""
+        clone = DecodeEngine(
+            program=self.program, token_var=self.token_name,
+            finished_var=self.finished_name,
+            slot_vars=list(self.slot_vars), max_slots=self.max_slots,
+            place=self.device, name=name or (self.name + "-solo"),
+            warmup=False,
+            default_max_new_tokens=self._batcher.default_max_new_tokens)
+        for n in self._state_ro:
+            if n not in self._slot_var_meta:
+                v = self._scope.get(n)
+                if v is not None:
+                    clone._scope.set(n, v)
+        for n in set(self._state_rw) | set(self._state_out):
+            if n not in self._slot_var_meta:
+                v = self._scope.get(n)
+                if v is not None:
+                    clone._scope.set(n, v.clone())
+        if warmup:
+            try:
+                clone.warmup()
+            except Exception:
+                clone.close(drain=False)
+                raise
+        return clone
+
+    def decode_stats(self):
+        return self._batcher.decode_stats()
+
+    def queue_depth(self):
+        return self._batcher.queue_depth()
+
+    def device_span(self):
+        return [str(self.device)]
+
+    def describe(self):
+        """The /v1/models entry for this engine."""
+        return {
+            "name": self.name,
+            "mode": "decode",
+            "devices": self.device_span(),
+            "slot_vars": [
+                {"name": n, "row_shape": list(feat), "dtype": dtype}
+                for n, (feat, dtype) in sorted(
+                    self._slot_var_meta.items())],
+            "token_var": self.token_name,
+            "finished_var": self.finished_name,
+            "max_slots": self.max_slots,
+            "default_max_new_tokens":
+                self._batcher.default_max_new_tokens,
+            "status": "closed" if self.closed else "serving",
+            "metrics": self.decode_stats(),
+        }
+
+    def drain(self, timeout=None):
+        return self._batcher.drain(timeout)
+
+    def close(self, drain=True, timeout=None):
+        """Stop intake; drain=True retires every pending and resident
+        stream first, drain=False fails them typed (no hang)."""
         self.closed = True
         self._batcher.close(drain=drain, timeout=timeout)

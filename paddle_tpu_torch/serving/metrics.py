@@ -1,15 +1,19 @@
-"""Serving metrics: latency percentiles, batch occupancy, request counts.
+"""Serving metrics: latency percentiles, batch occupancy, request counts,
+and the decode step loop's counters, with their Prometheus exposition.
 
-Parity: the JAX package's serving/metrics.py `ServingMetrics` (the
-Prometheus exposition and the decode metrics are not ported yet). One
-`ServingMetrics` per `InferenceEngine`; writers are the request threads
-and the batcher worker, readers call `snapshot()`, all under one lock.
+Parity: the JAX package's serving/metrics.py: `ServingMetrics` (one per
+`InferenceEngine`), `DecodeMetrics` (one per `DecodeEngine`) and
+`render_prometheus_all`, the `/metrics` text of every scoring engine a
+server holds (the decode engines publish through the observability
+registry's decoder collector). Writers are the request threads and the
+batcher workers, readers call `snapshot()`, all under one lock. The
+replica pool's families wait for ROADMAP A10.
 """
 import collections
 import threading
 import time
 
-__all__ = ["ServingMetrics"]
+__all__ = ["ServingMetrics", "DecodeMetrics", "render_prometheus_all"]
 
 
 def _percentile(sorted_vals, q):
@@ -24,8 +28,10 @@ def _percentile(sorted_vals, q):
 class ServingMetrics(object):
     """Thread-safe counters + a bounded latency window.
 
-    Occupancy counts REQUESTS per batch (the coalescing win); row
-    utilization is real rows over padded bucket rows.
+    Occupancy bookkeeping distinguishes REQUESTS from ROWS: a batch of 5
+    one-row requests padded into an 8-row bucket counts occupancy 5
+    (requests/batch — the coalescing win) and row utilization 5/8 (how
+    much of the compiled bucket carried real data).
     """
 
     def __init__(self, latency_window=2048):
@@ -40,6 +46,7 @@ class ServingMetrics(object):
         self.batch_requests_total = 0  # requests across all batches
         self.batch_rows_total = 0      # real rows across all batches
         self.bucket_rows_total = 0     # padded bucket rows dispatched
+        self.warmup_compiles = 0       # buckets traced at startup
         self._latencies = collections.deque(maxlen=latency_window)
         self._queue_depth_fn = None    # live gauge, set by the batcher
 
@@ -62,9 +69,14 @@ class ServingMetrics(object):
         with self._lock:
             self.errors_total += n
 
+    def on_warmup_compile(self, n=1):
+        with self._lock:
+            self.warmup_compiles += n
+
     def on_batch(self, num_requests, num_rows, bucket_rows, latencies_s):
-        """One dispatch scattered; latencies_s are per-request submit ->
-        scatter times."""
+        """One dispatch scattered: latencies_s are per-request
+        submit->scatter times (dispatch enqueued; the device-to-host copy
+        is the caller's, paid per request in ResultSlice.numpy())."""
         with self._lock:
             self.batches_total += 1
             self.batch_requests_total += num_requests
@@ -83,23 +95,171 @@ class ServingMetrics(object):
             elapsed = max(time.monotonic() - self._t0, 1e-9)
             batches = max(self.batches_total, 1)
             return {
-                "uptime_s": elapsed,
+                "uptime_s": round(elapsed, 3),
                 "requests_total": self.requests_total,
                 "responses_total": self.responses_total,
                 "rejected_queue_full": self.rejected_queue_full,
                 "deadline_expired": self.deadline_expired,
                 "errors_total": self.errors_total,
                 "batches_total": self.batches_total,
-                "qps": self.responses_total / elapsed,
+                "qps": round(self.responses_total / elapsed, 3),
                 "mean_batch_occupancy":
-                    self.batch_requests_total / batches,
+                    round(self.batch_requests_total / batches, 3),
                 "row_utilization":
-                    self.batch_rows_total / max(self.bucket_rows_total, 1),
+                    round(self.batch_rows_total /
+                          max(self.bucket_rows_total, 1), 4),
+                "warmup_compiles": self.warmup_compiles,
                 "queue_depth": self.queue_depth(),
                 "latency_ms": {
-                    "p50": _percentile(lat, 0.50) * 1e3,
-                    "p95": _percentile(lat, 0.95) * 1e3,
-                    "p99": _percentile(lat, 0.99) * 1e3,
+                    "p50": round(_percentile(lat, 0.50) * 1e3, 3),
+                    "p95": round(_percentile(lat, 0.95) * 1e3, 3),
+                    "p99": round(_percentile(lat, 0.99) * 1e3, 3),
                     "window": len(lat),
                 },
             }
+
+
+class DecodeMetrics(object):
+    """Counters for one decode step-loop (serving.DecodeEngine).
+
+    The unit of work is the ITERATION (one fixed-shape step over all
+    slots), not the request: occupancy is slots-carrying-streams per
+    iteration (the continuous-batching win — admits refill slots
+    mid-flight, so mean occupancy > 1 under concurrent load), the
+    latency window holds inter-token gaps (wall time between a stream's
+    consecutive tokens — the latency a generative client feels), and
+    tokens/s is measured over a recent bounded window so the gauge
+    tracks current load, not lifetime average.  Readers: the
+    observability-registry decoder collector (`/metrics`) and
+    `decode_stats()`."""
+
+    def __init__(self, latency_window=4096):
+        self._lock = threading.Lock()
+        self._t0 = time.monotonic()
+        self.streams_admitted = 0      # admitted into a slot
+        self.streams_completed = 0     # retired after finishing
+        self.streams_failed = 0        # retired with an error/deadline
+        self.rejected_queue_full = 0   # pending-queue backpressure
+        self.deadline_expired = 0      # per-stream deadline retires
+        self.tokens_total = 0          # tokens delivered to streams
+        self.iterations_total = 0      # step-loop dispatches
+        self.occupied_rows_total = 0   # sum of occupied slots per iter
+        self._inter_token = collections.deque(maxlen=latency_window)
+        self._rate = collections.deque(maxlen=latency_window)  # (t, n)
+
+    def on_admit(self, n=1):
+        with self._lock:
+            self.streams_admitted += n
+
+    def on_queue_full(self):
+        with self._lock:
+            self.rejected_queue_full += 1
+
+    def on_deadline_expired(self, n=1):
+        with self._lock:
+            self.deadline_expired += n
+            self.streams_failed += n
+
+    def on_stream_failed(self, n=1):
+        with self._lock:
+            self.streams_failed += n
+
+    def on_stream_completed(self, n=1):
+        with self._lock:
+            self.streams_completed += n
+
+    def on_iteration(self, occupied, tokens, inter_token_gaps_s=()):
+        """One decode step delivered: `occupied` slots carried live
+        streams, `tokens` tokens went out, `inter_token_gaps_s` are the
+        per-stream gaps since each stream's previous token."""
+        with self._lock:
+            self.iterations_total += 1
+            self.occupied_rows_total += occupied
+            self.tokens_total += tokens
+            self._inter_token.extend(inter_token_gaps_s)
+            self._rate.append((time.monotonic(), tokens))
+
+    def snapshot(self):
+        with self._lock:
+            gaps = sorted(self._inter_token)
+            elapsed = max(time.monotonic() - self._t0, 1e-9)
+            if len(self._rate) >= 2:
+                span = max(self._rate[-1][0] - self._rate[0][0], 1e-9)
+                recent = sum(n for _, n in self._rate) / span
+            else:
+                recent = self.tokens_total / elapsed
+            iters = max(self.iterations_total, 1)
+            return {
+                "uptime_s": round(elapsed, 3),
+                "streams_admitted": self.streams_admitted,
+                "streams_completed": self.streams_completed,
+                "streams_failed": self.streams_failed,
+                "rejected_queue_full": self.rejected_queue_full,
+                "deadline_expired": self.deadline_expired,
+                "tokens_total": self.tokens_total,
+                "iterations": self.iterations_total,
+                "tokens_per_s": round(recent, 3),
+                "mean_slot_occupancy":
+                    round(self.occupied_rows_total / iters, 3),
+                "inter_token_p50_ms":
+                    round(_percentile(gaps, 0.50) * 1e3, 3),
+                "inter_token_p99_ms":
+                    round(_percentile(gaps, 0.99) * 1e3, 3),
+                "inter_token_window": len(gaps),
+            }
+
+
+# (family, type, help, snapshot key) — one HELP/TYPE per family in the
+# exposition, one labeled sample line per model
+_FAMILIES = [
+    ("requests_total", "counter", "accepted requests", "requests_total"),
+    ("responses_total", "counter", "completed requests",
+     "responses_total"),
+    ("rejected_queue_full_total", "counter",
+     "fast rejections due to a full queue (backpressure)",
+     "rejected_queue_full"),
+    ("deadline_expired_total", "counter",
+     "requests dropped before batching: deadline passed",
+     "deadline_expired"),
+    ("errors_total", "counter", "dispatch failures", "errors_total"),
+    ("batches_total", "counter", "device dispatches", "batches_total"),
+    ("qps", "gauge", "responses per second since start", "qps"),
+    ("mean_batch_occupancy", "gauge",
+     "mean requests coalesced per dispatch", "mean_batch_occupancy"),
+    ("row_utilization", "gauge", "real rows / padded bucket rows",
+     "row_utilization"),
+    ("queue_depth", "gauge", "requests waiting right now", "queue_depth"),
+]
+
+
+def _escape_label(value):
+    """Prometheus exposition label escaping: backslash, double quote,
+    newline — an unescaped quote in a model name would invalidate the
+    whole scrape for every model on the server."""
+    return str(value).replace("\\", "\\\\").replace('"', '\\"') \
+        .replace("\n", "\\n")
+
+
+def render_prometheus_all(named_metrics):
+    """One valid exposition covering every scoring engine
+    ({model: ServingMetrics}): HELP/TYPE exactly once per family, one
+    labeled sample per model (the replica pools' families wait for
+    ROADMAP A10)."""
+    entries = []    # (label_str, snapshot) for the per-engine families
+    for name, m in sorted(named_metrics.items()):
+        entries.append(('model="%s"' % _escape_label(name), m.snapshot()))
+    lines = []
+    for family, mtype, help_text, key in _FAMILIES:
+        lines.append("# HELP ptpu_serving_%s %s" % (family, help_text))
+        lines.append("# TYPE ptpu_serving_%s %s" % (family, mtype))
+        for labels, s in entries:
+            lines.append('ptpu_serving_%s{%s} %s' % (family, labels,
+                                                     s[key]))
+    lines.append("# HELP ptpu_serving_latency_ms request latency "
+                 "percentiles (submit -> scatter)")
+    lines.append("# TYPE ptpu_serving_latency_ms gauge")
+    for labels, s in entries:
+        for q in ("p50", "p95", "p99"):
+            lines.append('ptpu_serving_latency_ms{%s,quantile="%s"} %s'
+                         % (labels, q, s["latency_ms"][q]))
+    return "\n".join(lines) + "\n"

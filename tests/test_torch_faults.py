@@ -28,6 +28,12 @@ each held to the JAX rule on the CPU.
   the mean of v over all keys; at and above it through its flash kernel,
   which gives 0, as the port's does at every length. rtol = atol = 1e-5
   for values and gradients: fp32 in another order.
+- warpctc with a Label or LabelLen out of range (C14) and
+  edit_distance with a HypsLen or RefsLen out of range (C15): the JAX
+  rules gather with jnp.take_along_axis, which wraps an index in
+  [-n, -1] and gives NaN past the end; the port clamped. Losses and
+  gradients at rtol = atol = 1e-5 (fp32 log-sum-exp in another order),
+  distances exact (both sides select one table entry), NaN equal to NaN.
 - topk among equal values (C12): lax.top_k puts the lower index first
   (and ranks NaN above inf, +0 above -0); the port's torch.topk left ties
   in an order of its own, so `accuracy` on a tied row differed. Exact:
@@ -51,7 +57,7 @@ from paddle_tpu_torch.core import registry as treg
 from paddle_tpu_torch.core.lowering import LowerCtx as TorchCtx
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
-from test_torch_ops import _run_both
+from test_torch_ops import _grads_both, _run_both
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CPU = torch.device("cpu")
@@ -705,3 +711,91 @@ def test_accuracy_on_a_uniform_row_matches_jax():
             np.testing.assert_array_equal(tacc[slot][0], jacc[slot][0],
                                           err_msg=slot)
         assert float(tacc["Accuracy"][0][0]) == 1.0
+
+
+# ------------------------------------------------ warpctc, edit_distance --
+
+def _ctc_fault_case(labels=None, label_len=(3, 2, 1)):
+    """B 3, T 6, C 5, U 3, blank 0, XLen 6 (seed 0)."""
+    rng = np.random.RandomState(0)
+    label = rng.randint(1, 5, (3, 3)).astype(np.int64) if labels is None \
+        else np.asarray(labels, np.int64)
+    return {"Logits": [rng.randn(3, 6, 5).astype(np.float32)],
+            "Label": [label[:, :, None]],
+            "XLen": [np.full((3,), 6, np.int32)],
+            "LabelLen": [np.asarray(label_len, np.int32)]}
+
+
+C14_CASES = {
+    "label_len_above_u": dict(label_len=(4, 2, 7)),
+    "label_len_negative": dict(label_len=(1, -1, 2)),
+    "label_len_minus_two": dict(label_len=(-2, 3, 3)),
+    "label_at_or_above_c": dict(labels=[[1, 2, 3], [7, 1, 2], [5, 5, 1]]),
+    "label_below_minus_c": dict(labels=[[-6, 1, 2], [1, 2, 3], [2, 3, 4]]),
+    "label_negative_wraps": dict(labels=[[-1, 2, 3], [1, -2, 3], [4, 3, -1]]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(C14_CASES))
+def test_warpctc_out_of_range_matches_take_along_axis(case):
+    ins = _ctc_fault_case(**C14_CASES[case])
+    jout, tout = _run_both("warpctc", ins, {"blank": 0})
+    want, got = jout["Loss"][0], tout["Loss"][0]
+    assert np.array_equal(np.isnan(got), np.isnan(want)), (got, want)
+    np.testing.assert_allclose(got, want, **TOL)
+    tgot, twant = _grads_both("warpctc", ins, {"blank": 0}, ["Loss"], seed=1)
+    np.testing.assert_allclose(tgot[("Logits", 0)], twant[("Logits", 0)],
+                               **TOL)
+
+
+def test_warpctc_cases_measured_at_discovery():
+    """The two cases measured when C14 was found: NaN past U, a wrapped
+    end state for LabelLen -1."""
+    for lens, nan_rows in (((4, 2, 7), [True, False, True]),
+                           ((1, -1, 2), [False, False, False])):
+        ins = _ctc_fault_case(label_len=lens)
+        jout, tout = _run_both("warpctc", ins, {"blank": 0})
+        got = tout["Loss"][0][:, 0]
+        assert list(np.isnan(got)) == nan_rows
+        np.testing.assert_allclose(got, jout["Loss"][0][:, 0], **TOL)
+
+
+def _edit_case(hlen, rlen):
+    return {"Hyps": [np.array([[1, 2, 3, 4], [2, 3, 4, 5]], np.int64)],
+            "Refs": [np.array([[1, 2, 4, 0], [2, 2, 2, 2]], np.int64)],
+            "HypsLen": [np.asarray(hlen, np.int64)],
+            "RefsLen": [np.asarray(rlen, np.int64)]}
+
+
+C15_CASES = {"hyps_len_above_u": ((5, 4), (4, 4)),
+             "refs_len_above_u": ((4, 4), (3, 5)),
+             "negative_lengths_wrap": ((-1, 4), (4, -2)),
+             "minus_n_wraps_to_zero": ((-5, 2), (-5, 1)),
+             "below_minus_n": ((-6, 4), (4, -7)),
+             "in_range": ((3, 4), (3, 4))}
+
+
+@pytest.mark.parametrize("normalized", [False, True],
+                         ids=["raw", "normalized"])
+@pytest.mark.parametrize("case", sorted(C15_CASES))
+def test_edit_distance_out_of_range_matches_take_along_axis(case,
+                                                            normalized):
+    hlen, rlen = C15_CASES[case]
+    jout, tout = _run_both("edit_distance", _edit_case(hlen, rlen),
+                           {"normalized": normalized})
+    np.testing.assert_array_equal(tout["Out"][0], jout["Out"][0])
+    np.testing.assert_array_equal(tout["SequenceNum"][0],
+                                  jout["SequenceNum"][0])
+
+
+def test_edit_distance_cases_measured_at_discovery():
+    """The cases measured when C15 was found, not normalized: NaN for a
+    length past the table; -1 and -2 wrap to the last row and column."""
+    cases = (((5, 4), (4, 4), [True, False]), ((4, 4), (5, 4), [True, False]),
+             ((-1, 4), (4, -2), [False, False]))
+    for hlen, rlen, nan_rows in cases:
+        jout, tout = _run_both("edit_distance", _edit_case(hlen, rlen),
+                               {"normalized": False})
+        got = tout["Out"][0][:, 0]
+        assert list(np.isnan(got)) == nan_rows
+        np.testing.assert_array_equal(got, jout["Out"][0][:, 0])

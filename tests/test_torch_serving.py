@@ -17,6 +17,12 @@ The sequence half: the JAX package saves the sentiment conv net
 (dictionary 50, embedding 8, 16 filters, SQRT pools) and answers LoD
 requests with its masked-pool kernel in interpret mode; the port's engine
 serves the same directory with LoD feeds and (batch, seq) buckets.
+
+The engine's own surface: warmup(buckets=), the in-memory form
+(program=, feed_names=, fetch_vars=) under the JAX test's per-fetch row
+policy with describe() and submit_normalized(), and the options that
+raise naming the item they wait for (validate=True: A11; the era-wire
+format: A8; tp: A10).
 """
 import json
 import os
@@ -492,3 +498,77 @@ def test_warmup_covers_the_batch_by_seq_lattice(jax_seq_model,
         assert engine.warmup() == 6 and len(shapes) == 6
     finally:
         engine.close()
+
+
+def test_warmup_takes_explicit_buckets(jax_seq_model, monkeypatch):
+    """warmup(buckets=) runs only the (batch, seq) pairs it is given."""
+    shapes = []
+    real = InferenceEngine._run
+
+    def spy(self, feed):
+        shapes.append(feed["words"].shape[:2])
+        return real(self, feed)
+
+    engine = InferenceEngine(jax_seq_model[0], device="cpu",
+                             batch_buckets=[1, 2], seq_buckets=[8, 16],
+                             warmup=False)
+    monkeypatch.setattr(InferenceEngine, "_run", spy)
+    try:
+        assert engine.warmup(buckets=[(2, 16), (1, 8)]) == 2
+        assert shapes == [(2, 16), (1, 8)]
+    finally:
+        engine.close()
+
+
+def test_in_memory_program_fetch_row_policy():
+    """The in-memory form (program=, feed_names=, fetch_vars=), with the
+    JAX test's per-fetch row policy: a fetched PARAMETER whose leading
+    dim equals the bucket comes back whole, a batch output ("rows") and a
+    non-persistable fetch with a concrete leading dim equal to the bucket
+    ("dynamic") come back as the request's rows. describe() and
+    submit_normalized() serve it as they serve a loaded model."""
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        x = tfluid.layers.data(name="x", shape=[6], dtype="float32")
+        pred = tfluid.layers.fc(input=x, size=3, bias_attr=False,
+                                param_attr=tfluid.ParamAttr(name="w_fc"))
+        fixed = tfluid.layers.fill_constant(shape=[6, 2], dtype="float32",
+                                            value=3.0)
+    engine = InferenceEngine(
+        program=main, feed_names=["x"],
+        fetch_vars=[pred, main.global_block().var("w_fc"), fixed],
+        batch_buckets=[6], max_queue_delay_ms=1, warmup=False,
+        validate=False, device="cpu")
+    try:
+        tfluid.Executor("cpu").run(startup, scope=engine._scope)
+        engine.warmup()
+        rng = np.random.RandomState(2)
+        out = engine.infer({"x": rng.rand(2, 6).astype("f")})
+        assert out[engine.fetch_names[0]].shape == (2, 3)   # rows
+        assert out["w_fc"].shape == (6, 3)                  # whole
+        assert out[fixed.name].shape == (2, 2)              # dynamic
+        norm = engine.normalize_feed({"x": rng.rand(1, 6).astype("f")})
+        got = engine.submit_normalized(norm).result(30).numpy()
+        assert got[engine.fetch_names[0]].shape == (1, 3)
+        d = engine.describe()
+        assert d["name"] == "model" and d["devices"] == ["cpu"]
+        assert d["weights_dtype"] == "fp32" and d["tp"] is None
+        assert d["feeds"] == [{"name": "x", "shape": [-1, 6],
+                               "dtype": "float32", "sequence": False}]
+        assert d["metrics"]["responses_total"] == 2
+    finally:
+        engine.close()
+
+
+def test_engine_options_waiting_for_later_items(jax_model):
+    """validate=True (the analysis tier, A11), the era-wire format (A8)
+    and tp (A10) raise naming their item; a program without fetches it
+    names is refused."""
+    with pytest.raises(NotImplementedError, match="A11"):
+        InferenceEngine(jax_model[0], device="cpu", validate=True)
+    with pytest.raises(NotImplementedError, match="A8"):
+        InferenceEngine(jax_model[0], device="cpu", model_format="reference")
+    with pytest.raises(NotImplementedError, match="A10"):
+        InferenceEngine(jax_model[0], device="cpu", tp=2)
+    with pytest.raises(ValueError, match="in-memory program needs"):
+        InferenceEngine(program=tfluid.Program(), device="cpu")
