@@ -133,6 +133,12 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               (the lower index first among equal values) on the card
               and the CPU, accuracy on a uniform row with label 0 is
               1.0, and abs's gradient at 0 is +1 (`C12:`, `C13:`).
+              Then set_while_condition (csrc/graph_while.cu, the
+              conditional while node's kernel): a captured loop of 0, 1,
+              7 and WHILE_LOOP_ITERS iterations against the same loop on
+              the host reading its condition each iteration (the
+              counters equal), timed alone (a body of
+              WHILE_SET_LAUNCHES launches) and an iteration of the loop.
 4. serving  — the main path: build Transformer-base scoring (vocab 30000,
               d_model 512, 8 heads, 6+6 layers, d_inner 2048, T=256) with
               the port's layers, run its startup program on the card from
@@ -494,11 +500,20 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               decode: host ms (a token's), device ms under the profiler,
               and the synchronizing calls (set_sync_debug_mode("warn"): at
               most the loop's condition reads, the assertion read and one
-              constant's copy). Then a While writing past its array's
-              capacity raises the JAX package's RuntimeError and K5 still
-              runs after it (no device-side assert), and steps=4 on a
-              While program raises GraphCaptureError. A `decode_summary:`
-              line sums up.
+              constant's copy). Then each decode again at
+              Executor.run(steps=DECODE_STEPS): DECODE_STEPS decodes in
+              one CUDA graph, the While a conditional while node whose
+              condition set_while_condition sets on the card: ids and
+              scores equal to the eager run's bit for bit, at most one
+              synchronizing call (the assertion read after the
+              replays), the loop's iterations counted on the card, K5
+              and set_while_condition launched as predicted, host and
+              device ms a token beside the eager numbers. Then a While
+              writing past its array's capacity raises the JAX package's
+              RuntimeError and K5 still runs after it (no device-side
+              assert); at steps=4 the While within capacity gives 11 at
+              each step and the overflow raises the same message. A
+              `decode_summary:` line sums up.
 31. serving  — decode serving, weight dtypes and HTTP (ROADMAP A7).
               (a) bench.py's decode leg at its defaults (DECODE_BENCH:
               slots 8, 48 streams, its mixed budgets about 24 tokens,
@@ -531,6 +546,24 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               up. Phase 3 also prints `C14:` / `C15:` lines: warpctc and
               edit_distance with out-of-range indices on the card equal
               to the CPU, NaN for NaN (faults C14, C15).
+32. readers  — A8's inputs: Transformer-base (phase 19's bf16 AMP program,
+              fused attention, batch 32, T=256) trained from recordio: 16
+              batches of the copy task through a DataFeeder and
+              recordio_writer into two files (READER), read back by
+              open_files(thread_num=2) -> double_buffer -> read_file at
+              Executor.run(steps=4, prefetch=True), two calls (8 steps):
+              the losses and every parameter bit-equal to 8 eager
+              feed-fed steps=1 runs of the same batches in the order the
+              reader gave them (under deterministic algorithms, as phase
+              25), the reader's state_dict 8 records on, no synchronizing
+              call from the reader path, the native recordio library
+              loaded, K1-K5 launched per step as in phase 25 (18/18/18/1/
+              32 through the bf16 K1-K3). Timed over whole passes of the
+              files with prefetch off and on (twice each): step ms,
+              device ms a step and idle share; the io pre-pass's host ms
+              from the runs' spans (exec/host_io inline, the staging
+              thread's exec/prefetch_stage). A `reader_summary:` line
+              sums up.
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run; the bf16 flash kernels counted under
@@ -5538,9 +5571,11 @@ def multistep_program(fluid, path):
 
 
 def host_state(scope):
-    """Every tensor of the scope, on the host."""
+    """Every tensor of the scope, on the host (a reader's host-side state
+    is no tensor)."""
+    import torch
     return {n: scope.get(n).detach().cpu() for n in scope.names()
-            if scope.get(n) is not None}
+            if isinstance(scope.get(n), torch.Tensor)}
 
 
 def state_diff(torch, ref, got):
@@ -6201,17 +6236,19 @@ def _step2_prog(fluid):
     return main, startup, out, counter
 
 
-def _sync_warnings(torch, fn, tag="sequence ops"):
+def _sync_warnings(torch, fn, tag="sequence ops", through=None):
     """(fn()'s result, the number of synchronizing CUDA calls it made),
     counted by torch.cuda.set_sync_debug_mode("warn") (its "called a
-    synchronizing CUDA operation" warnings; setting the mode warns too,
-    and is not counted); the Python lines that made them are printed,
-    each with its count, after `tag`."""
+    synchronizing CUDA operation" warnings, on any thread; setting the
+    mode warns too, and is not counted); the Python lines that made them
+    are printed, each with its count, after `tag`. With `through` (names
+    of files or functions), also the number of those calls whose stack
+    passes through one of them: (result, calls, calls through)."""
     import traceback
     import warnings
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.synchronize()
-    where = []
+    where, hits = [], []
 
     def shown(message, category, filename, lineno, file=None, line=None):
         if "called a synchronizing CUDA operation" in str(message):
@@ -6219,6 +6256,9 @@ def _sync_warnings(torch, fn, tag="sequence ops"):
                      if "/warnings.py" not in f.filename]
             where.append(" <- ".join("%s:%d" % (os.path.basename(
                 f.filename), f.lineno) for f in stack[-4:][::-1]))
+            hits.append(any(os.path.basename(f.filename) in through
+                            or f.name in through for f in stack)
+                        if through else False)
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = shown
@@ -6231,6 +6271,8 @@ def _sync_warnings(torch, fn, tag="sequence ops"):
     for w, n in collections.Counter(where).items():
         print("%s: synchronizing call%s at %s" % (
             tag, " x %d" % n if n > 1 else "", w))
+    if through:
+        return out, len(where), sum(hits)
     return out, len(where)
 
 
@@ -6852,6 +6894,7 @@ DECODE = dict(sentences=8, beam=4, max_out_len=64, min_len=16, max_len=64,
               bos=1, eos=2)
 DECODE_TRAIN_STEPS = 2
 DECODE_SAME_TOKENS = 8   # cached = full, and card = CPU, for this many
+DECODE_STEPS = 2         # Executor.run(steps=K): K decodes, one graph
 DECODE_SCORE_RTOL = 1e-4  # card vs CPU sentence scores (fp32, 8 steps)
 MT_DECODE_LEN = 32
 
@@ -6906,7 +6949,7 @@ def run_one_decode(torch, tag, exe, program, fetch, feed, scope, steps):
     report = {"wall_ms": wall, "ms_per_output_token": wall / steps,
               "device_busy_ms": busy, "port_kernel_ms": port,
               "traced_wall_ms": prof_wall,
-              "idle_share_est": 1 - busy / wall,
+              "idle_share_est": 1 - busy / prof_wall,
               "synchronizing_calls": syncs, "loop_iterations": steps}
     print("%s: %s" % (tag, json.dumps(report)))
     # the condition's steps + 1 reads, the assertion flags' one read, and
@@ -6916,6 +6959,72 @@ def run_one_decode(torch, tag, exe, program, fetch, feed, scope, steps):
           "iterations: the loop reads more than its condition" % (tag, syncs,
                                                                   steps))
     return out, counts, report
+
+
+def run_captured_decode(torch, tag, exe, program, fetch, feed, scope, steps,
+                        eager_out, eager_report):
+    """The decode at Executor.run(steps=DECODE_STEPS): DECODE_STEPS decodes
+    in one CUDA graph, the While a conditional while node whose condition
+    set_while_condition sets on the card. Its first call builds and
+    captures; each decode's ids and scores must equal the eager run's bit
+    for bit. The second call: its launch counts (the body's counted by the
+    iterations the card ran), its synchronizing calls (at most the one
+    assertion read after the replays), host and device ms. Returns (the
+    second call's counts, the report)."""
+    from paddle_tpu_torch.core.executor import to_numpy
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    k = DECODE_STEPS
+
+    def run(return_numpy=True):
+        return exe.run(program, feed=feed, fetch_list=fetch, scope=scope,
+                       steps=k, return_numpy=return_numpy)
+
+    def same(out):
+        return all(got.shape == (k,) + want.shape and all(
+            np.array_equal(got[i], want) for i in range(k))
+            for got, want in zip(out, eager_out))
+
+    t0 = time.perf_counter()
+    first = run()
+    first_s = time.perf_counter() - t0
+    check(same(first), "%s steps=%d: the captured decodes differ from the "
+          "eager run" % (tag, k))
+    runner = next(reversed(exe._cache.values()))
+    check(runner._graph is not None and runner._while_loops,
+          "%s steps=%d captured no conditional while node" % (tag, k))
+    ck.reset_launch_counts()
+    out, syncs = _sync_warnings(torch, lambda: run(False),
+                                "%s steps=%d" % (tag, k))
+    counts = ck.launch_counts()
+    check(same([to_numpy(o) for o in out]), "%s steps=%d: the second call "
+          "differs from the eager run" % (tag, k))
+    check(syncs <= 1, "%s steps=%d made %d synchronizing calls: more than "
+          "the assertion read after the replays" % (tag, k, syncs))
+    iterations = counts["set_while_condition"] - k
+    check(iterations == k * steps, "%s steps=%d: the card ran %d loop "
+          "iterations, %d expected" % (tag, k, iterations, k * steps))
+    wall = call_ms(torch, lambda: run(False))
+    busy, port, prof_wall = device_busy_ms(torch, lambda: run(False))
+    tokens = k * steps
+    report = {"steps": k, "first_call_s": first_s,
+              "warmup_s": runner.warmup_s, "capture_s": runner.capture_s,
+              "wall_ms": wall, "ms_per_output_token": wall / tokens,
+              "device_busy_ms": busy, "port_kernel_ms": port,
+              "device_ms_per_output_token": busy / tokens,
+              "traced_wall_ms": prof_wall,
+              "idle_share_est": 1 - busy / prof_wall,
+              "synchronizing_calls": syncs,
+              "while_iterations": iterations,
+              "eager_ms_per_output_token":
+                  eager_report["ms_per_output_token"],
+              "eager_device_ms_per_output_token":
+                  eager_report["device_busy_ms"]
+                  / eager_report["loop_iterations"],
+              "ids_and_scores_equal_eager": True}
+    print("%s steps=%d: %s" % (tag, k, json.dumps(report)))
+    exe._cache.clear()
+    torch.cuda.empty_cache()
+    return counts, report
 
 
 def run_transformer_decode(torch, card):
@@ -6979,6 +7088,15 @@ def run_transformer_decode(torch, card):
                                                               :12].tolist()})
         report[kind], ids[kind] = r, sid
         paths.append(("transformer_%s_decode" % kind, (counts, expected)))
+        k = DECODE_STEPS
+        counts, r["captured"] = run_captured_decode(
+            torch, tag, exe, prog, fetch, prep(*args), scope, steps,
+            (sid, sscore), r)
+        expected = dict.fromkeys(counts, 0)
+        expected["layer_norm_fwd"] = k * (n_ln[0] + n_ln[1] * steps)
+        expected["set_while_condition"] = k * (1 + steps)
+        paths.append(("transformer_%s_decode_steps%d" % (kind, k),
+                      (counts, expected)))
         del prog
     same = DECODE_SAME_TOKENS + 1
     check(np.array_equal(ids["cached"][:, :, :same],
@@ -7060,9 +7178,17 @@ def run_translator_decode(torch, card):
           "decode: translator ids %s, scores %s" % (sid.shape, sscore))
     report.update({"train_losses": losses, "sentences": b,
                    "first_beam": sid[0, 0, :12].tolist()})
+    k = DECODE_STEPS
+    cap_counts, report["captured"] = run_captured_decode(
+        torch, "decode: translator", exe, prog, list(fetch), dfeed, scope,
+        steps, (sid, sscore), report)
+    cap_expected = dict.fromkeys(cap_counts, 0)
+    cap_expected["set_while_condition"] = k * (1 + steps)
     del scope
     torch.cuda.empty_cache()
-    return (counts, dict.fromkeys(counts, 0)), report
+    return [("translator_decode", (counts, dict.fromkeys(counts, 0))),
+            ("translator_decode_steps%d" % k, (cap_counts, cap_expected))], \
+        report
 
 
 # the JAX package's text for a While writing past its array's capacity 4
@@ -7106,10 +7232,10 @@ def run_control_flow_checks(torch):
     writing past its array's capacity raises the JAX package's
     RuntimeError, and the context still runs a kernel after it (K5
     against its plain version: no device-side assert); within capacity
-    the loop gives 11; Executor.run(steps=4) on a program with a While
-    raises GraphCaptureError naming the op."""
+    the loop gives 11; Executor.run(steps=4) on the program gives 11 at
+    each of its 4 steps through a conditional while node, and the
+    overflowing program raises the same message under steps=4."""
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.core.lowering import GraphCaptureError
     from paddle_tpu_torch.ops import cuda_kernels as ck
 
     exe = fluid.Executor()
@@ -7135,20 +7261,151 @@ def run_control_flow_checks(torch):
     val, = exe.run(main, fetch_list=[out], scope=fluid.Scope())
     check(np.array_equal(val, np.full(4, 11.0, "float32")),
           "decode: the While within capacity gave %s" % val)
+    val4, = exe.run(main, fetch_list=[out], scope=fluid.Scope(), steps=4)
+    check(np.array_equal(val4, np.full((4, 4), 11.0, "float32")),
+          "decode: the While within capacity at steps=4 gave %s" % val4)
+    main, out, name = overflow_program(fluid, 4, 10)
     try:
         exe.run(main, fetch_list=[out], scope=fluid.Scope(), steps=4)
-        refused = None
-    except GraphCaptureError as e:
-        refused = str(e)
-    check(refused is not None and "op 'while'" in refused,
-          "decode: steps=4 on a While program did not raise "
-          "GraphCaptureError naming the op: %r" % refused)
+        raised4 = None
+    except RuntimeError as e:
+        raised4 = str(e)
+    check(raised4 == OVERFLOW_MESSAGE % name, "decode: the overflowing "
+          "While at steps=4 raised %r" % raised4)
     print("decode: an overflowing While raised the JAX package's message, "
-          "then K5 ran (max_abs_err %.3e against its plain version); "
-          "steps=4 on a While program raised GraphCaptureError: %s"
-          % (err, refused.split(":")[0]))
+          "then K5 ran (max_abs_err %.3e against its plain version); at "
+          "steps=4 the While ran as a conditional while node (11 at each "
+          "step) and the overflow raised the same message" % err)
     return {"overflow_raised": True, "k5_after_overflow_err": err,
-            "graph_capture_error": True}
+            "steps4_equal": True, "steps4_overflow_raised": True}
+
+
+# the kernel of the conditional while node (csrc/graph_while.cu): no TPU
+# kernel; it replaces the device-side predicate of the JAX package's While
+# rule, a lax.while_loop
+GRAPH_WHILE_SRC = "paddle_tpu_torch/csrc/graph_while.cu"
+GRAPH_WHILE_REPLACES = "paddle_tpu/ops/control_ops.py:249 (the While " \
+    "rule's lax.while_loop predicate; no pl.pallas_call)"
+WHILE_LOOP_ITERS = 10000   # the timed loop's iterations
+
+
+def graph_while_loop(torch, ck, n):
+    """A CUDA graph holding one conditional while node whose body adds 1
+    to a counter, compares it with n and sets the node's condition
+    (set_while_condition); returns (graph, counter, the tensors the graph
+    reads and writes, which must outlive it). The body allocates
+    nothing."""
+    dev = torch.device("cuda")
+    counter = torch.zeros((1,), dtype=torch.int64, device=dev)
+    limit = torch.full((1,), n, dtype=torch.int64, device=dev)
+    cond = torch.zeros((1,), dtype=torch.bool, device=dev)
+    side, body = torch.cuda.Stream(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        counter.zero_()
+        torch.lt(counter, limit, out=cond)
+        handle = ck.graph_while_begin(cond, body)
+        with torch.cuda.stream(body):
+            counter.add_(1)
+            torch.lt(counter, limit, out=cond)
+            ck.set_while_condition(handle, cond)
+        ck.graph_while_end(body)
+    return graph, counter, (limit, cond)
+
+
+WHILE_SET_LAUNCHES = 1000  # set_while_condition launches in the timed body
+
+
+def graph_while_sets(torch, ck, m):
+    """A CUDA graph holding one conditional while node whose body holds
+    nothing but m launches of set_while_condition on a condition that is
+    already False: the loop enters (its entry condition True) and runs its
+    body once. Returns (graph, the tensors it reads, which must outlive
+    it)."""
+    dev = torch.device("cuda")
+    entry = torch.ones((1,), dtype=torch.bool, device=dev)
+    stop = torch.zeros((1,), dtype=torch.bool, device=dev)
+    side, body = torch.cuda.Stream(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        handle = ck.graph_while_begin(entry, body)
+        with torch.cuda.stream(body):
+            for _ in range(m):
+                ck.set_while_condition(handle, stop)
+        ck.graph_while_end(body)
+    return graph, (entry, stop)
+
+
+def replay_ms(torch, graph, reps=7):
+    """Median device ms of one replay of `graph` (CUDA events around it)."""
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def run_while_kernel(torch, ck, peak_bw):
+    """set_while_condition held against its plain version: the loop of
+    graph_while_loop replayed on the card against the same loop on the
+    host, whose condition set_while_condition_plain reads each iteration
+    (max_abs_err: the counters' difference) at 0, 1, 7 and
+    WHILE_LOOP_ITERS iterations. Timed (CUDA events around a replay,
+    median of 7): the kernel alone (`ms`: graph_while_sets' body of
+    WHILE_SET_LAUNCHES launches, over the launches) and one iteration of
+    the loop (`loop_iteration_ms`: add, compare, set_while_condition,
+    over WHILE_LOOP_ITERS); the plain loop's host wall over its
+    iterations. The bound is the byte it reads. Its launches are counted
+    on phase 30's decodes."""
+    dev = torch.device("cuda")
+    err = 0.0
+    for n in (0, 1, 7, WHILE_LOOP_ITERS):
+        graph, counter, keep = graph_while_loop(torch, ck, n)
+        graph.replay()
+        torch.cuda.synchronize()
+        plain = torch.zeros((1,), dtype=torch.int64, device=dev)
+        while ck.set_while_condition_plain(plain < n):
+            plain.add_(1)
+        err = max(err, float((counter - plain).abs().max()))
+        check(int(counter) == n, "set_while_condition: the loop of %d "
+              "iterations ran %d" % (n, int(counter)))
+    loop_ms = replay_ms(torch, graph) / WHILE_LOOP_ITERS
+    check(int(counter) == WHILE_LOOP_ITERS, "set_while_condition: a timed "
+          "replay ran %d iterations" % int(counter))
+    sets, keep_sets = graph_while_sets(torch, ck, WHILE_SET_LAUNCHES)
+    set_ms = replay_ms(torch, sets) / WHILE_SET_LAUNCHES
+    plain = torch.zeros((1,), dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    while ck.set_while_condition_plain(plain < WHILE_LOOP_ITERS):
+        plain.add_(1)
+    plain_ms = (time.perf_counter() - ts) * 1e3 / WHILE_LOOP_ITERS
+    bms, bby = bound(0, 1, 1, peak_bw)
+    r = {"name": "set_while_condition", "route": "cuda",
+         "source": GRAPH_WHILE_SRC, "replaces": GRAPH_WHILE_REPLACES,
+         "shape": "cond [1] bool; ms: one launch in a body of %d launches "
+                  "and nothing else; loop_iteration_ms: one iteration of a "
+                  "%d-iteration loop of 3 kernels (add, compare, "
+                  "set_while_condition)"
+                  % (WHILE_SET_LAUNCHES, WHILE_LOOP_ITERS),
+         "max_abs_err": err, "ms": set_ms, "loop_iteration_ms": loop_ms,
+         "plain_ms": plain_ms,
+         "plain_covers": "one iteration of the host loop (add, compare, "
+                         "read)",
+         "library_ms": None, "bound_ms": bms, "bound_by": bby}
+    print("kernels: set_while_condition %s" % json.dumps(r))
+    check(err == 0, "set_while_condition's loop differs from the host "
+          "loop by %r" % err)
+    return {"set_while_condition": r}
 
 
 # faults C14 and C15: warpctc and edit_distance with indices out of range
@@ -7716,6 +7973,240 @@ def run_decode_serving(torch, card, peak_flops, peak_bw):
     return paths, summary
 
 
+# ------------------------------------------------------------ readers --
+
+# phase 32: Transformer-base (bench.py's configuration, phase 19's bf16
+# AMP program with fused attention) trained from recordio files: 16
+# batches of the copy task (batch 32, T=256) through a DataFeeder and
+# recordio_writer into two files, read back by open_files(thread_num=2)
+# -> double_buffer -> read_file, at Executor.run(steps=4, prefetch=True)
+READER = dict(batches=16, files=2, threads=2, steps=4, calls=2)
+
+
+def reader_batches(transformer):
+    """The 16 batches of phase 32 as prepare_batch feeds (copy task, full
+    length, a fixed seed)."""
+    rng = np.random.RandomState(SEED + 320)
+    t = MODEL["max_length"]
+    out = []
+    for _ in range(READER["batches"]):
+        srcs = [rng.randint(3, MODEL["vocab"], t).tolist()
+                for _ in range(TRAIN_BATCH)]
+        out.append(transformer.prepare_batch(srcs, srcs, t, labels=True))
+    return out
+
+
+def write_reader_files(fluid, transformer, feed_main, batches, tmp):
+    """The batches, through a DataFeeder over the feed-fed program's data
+    vars and recordio_writer, into READER["files"] recordio files (the
+    batches dealt out in turn); returns the paths."""
+    names = transformer.FUSED_FEED_NAMES
+    feeder = fluid.DataFeeder(feed_list=names, program=feed_main)
+    paths = []
+    for f in range(READER["files"]):
+        mine = batches[f::READER["files"]]
+
+        def rows():
+            for b in mine:
+                yield [tuple(b[n][i] for n in names)
+                       for i in range(TRAIN_BATCH)]
+        path = os.path.join(tmp, "transformer_%d.recordio" % f)
+        check(fluid.recordio_writer.convert_reader_to_recordio_file(
+            path, rows, feeder=feeder) == len(mine),
+            "phase 32: recordio_writer wrote a short file")
+        paths.append(path)
+    return paths
+
+
+def transformer_reader_program(fluid, transformer, paths):
+    """Phase 19's bf16 Transformer-base training program fed by
+    open_files -> double_buffer -> read_file: (main, startup, avg_cost,
+    the read src_word var, the reader var)."""
+    kwargs = dict(TRAIN_VARIANTS["bf16"])
+    kwargs.pop("amp")
+    t = MODEL["max_length"]
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    main.enable_mixed_precision()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        reader = fluid.layers.open_files(
+            filenames=paths, thread_num=READER["threads"],
+            shapes=[[-1, t]] * 4 + [[-1, 1]] * 2 + [[-1, t, 1]] * 2,
+            lod_levels=[0] * 8,
+            dtypes=["int64"] * 4 + ["int32"] * 2 + ["int64", "float32"])
+        reader = fluid.layers.double_buffer(reader)
+        inputs = fluid.layers.read_file(reader)
+        _, avg_cost, _ = transformer.build_train(
+            MODEL["vocab"], MODEL["vocab"], t, d_model=MODEL["d_model"],
+            warmup_steps=WARMUP_STEPS, n_layer=N_LAYER,
+            n_head=MODEL["n_head"], d_key=MODEL["d_key"],
+            d_value=MODEL["d_key"], d_inner_hid=MODEL["d_inner"],
+            label_smooth_eps=0.1, inputs=tuple(inputs), **kwargs)
+    return main, startup, avg_cost, inputs[0], reader
+
+
+def run_reader_training(torch, card):
+    """Phase 32 (see READER and the module's docstring). Returns ((the
+    second checked call's launch counts, 4 x a bf16 step's), the
+    report)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.dispatch import rollback_all_staged
+    from paddle_tpu_torch.observability import trace
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.recordio import _native
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tag = "readers:"
+    k, calls = READER["steps"], READER["calls"]
+    n_steps = k * calls
+    check(_native() is not None, "%s the native recordio library did not "
+          "load" % tag)
+    tmp = tempfile.mkdtemp(prefix="ptt_phase32_")
+    try:
+        t0 = time.perf_counter()
+        feed_main, feed_startup, feed_cost = build_train(
+            fluid, transformer, N_LAYER, variant="bf16")
+        batches = reader_batches(transformer)
+        paths = write_reader_files(fluid, transformer, feed_main, batches,
+                                   tmp)
+        write_s = time.perf_counter() - t0
+        main, startup, avg_cost, src_var, reader_var = \
+            transformer_reader_program(fluid, transformer, paths)
+        exe = fluid.Executor()
+        ref_scope, scope = fluid.Scope(), fluid.Scope()
+        exe.run(feed_startup, scope=ref_scope)
+        exe.run(startup, scope=scope)
+        init = host_state(ref_scope)
+        check(set(init) <= set(host_state(scope)), "%s the reader-fed "
+              "program's parameters are not the feed-fed one's" % tag)
+        for n, v in init.items():
+            scope.set(n, v.cuda())
+        scope._rng_counter = ref_scope._rng_counter
+        reader = scope.get(reader_var.name)
+
+        def call(prefetch=True, fetch=(avg_cost, src_var),
+                 return_numpy=True):
+            return exe.run(main, fetch_list=list(fetch), scope=scope,
+                           steps=k, prefetch=prefetch,
+                           return_numpy=return_numpy)
+
+        deterministic = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            ts = time.perf_counter()
+            losses, srcs = call()
+            first_s = time.perf_counter() - ts
+            ck.reset_launch_counts()
+            # a sync made by the reader path, on any thread
+            out, syncs, stage_syncs = _sync_warnings(
+                torch, call, tag, through=(
+                    "readers.py", "run_host_io_prepass", "HostIoPrefetcher",
+                    "consume_host_io", "kick_next_prepass"))
+            counts = ck.launch_counts()
+            losses = np.concatenate([losses, out[0]])
+            srcs = np.concatenate([srcs, out[1]])
+            state = host_state(scope)
+            rollback_all_staged(scope)
+            consumed = reader.state_dict()["consumed"]
+            # the reference: one eager feed-fed step per batch, in the
+            # order the reader delivered them
+            order = []
+            for i in range(n_steps):
+                hit = [b for b, fb in enumerate(batches)
+                       if np.array_equal(fb["src_word"], srcs[i])]
+                check(len(hit) == 1, "%s step %d's batch is not one of "
+                      "the 16" % (tag, i))
+                order.append(hit[0])
+            ref = [float(exe.run(feed_main, feed=batches[b],
+                                 fetch_list=[feed_cost],
+                                 scope=ref_scope)[0].reshape(-1)[0])
+                   for b in order]
+            ref_state = host_state(ref_scope)
+        finally:
+            torch.use_deterministic_algorithms(deterministic)
+        check(len(set(order)) == n_steps, "%s the reader delivered a batch "
+              "twice: %s" % (tag, order))
+        check(consumed == n_steps, "%s the reader's state_dict advanced "
+              "%d records for %d steps" % (tag, consumed, n_steps))
+        got = [float(x) for x in losses.reshape(-1)]
+        check(got == ref, "%s the steps=%d losses %s differ from %d eager "
+              "feed-fed steps' %s" % (tag, k, got, n_steps, ref))
+        params = {n: v for n, v in ref_state.items() if n in init}
+        same, err, err_at = state_diff(
+            torch, params, {n: state[n] for n in params})
+        check(same, "%s the parameters after %d steps differ from the "
+              "eager feed-fed run's (%s by %r)" % (tag, n_steps, err_at, err))
+        check(stage_syncs == 0, "%s staging made %d synchronizing calls"
+              % (tag, stage_syncs))
+        check(np.isfinite(got).all(), "%s losses %s" % (tag, got))
+
+        # timing from a reset stream: steps=k calls with prefetch off,
+        # then on, then off and on again
+        # (a whole pass over the files a timing)
+        passes = READER["batches"] // k
+
+        def timed(prefetch):
+            rollback_all_staged(scope)
+            reader.reset()
+            trace.clear()
+            ms = [call_ms(torch, lambda: call(prefetch, (avg_cost,), False))
+                  for _ in range(passes)]
+            # the io pre-pass's host ms from the run's spans: a call's
+            # exec/host_io (inline: the whole pre-pass; prefetched: the
+            # take), and the staging thread's exec/prefetch_stage
+            spans = collections.defaultdict(list)
+            for ev in trace.dump(include_open=False)["events"]:
+                spans[ev["name"]].append(ev.get("dur", 0.0) / 1e3)
+            # the device time of one call under the profiler, the second
+            # of a pass (with prefetch, it takes a staged block)
+            rollback_all_staged(scope)
+            reader.reset()
+            call(prefetch, (avg_cost,), False)
+            busy, _, wall = device_busy_ms(
+                torch, lambda: call(prefetch, (avg_cost,), False))
+            return {"step_ms": statistics.median(ms) / k,
+                    "step_ms_calls": [m / k for m in ms],
+                    "device_ms_per_step": busy / k,
+                    "traced_wall_ms_per_step": wall / k,
+                    "idle_share": 1 - busy / wall,
+                    "host_io_ms_calls": spans["exec/host_io"],
+                    "prefetch_stage_ms_calls":
+                        spans["exec/prefetch_stage"]}
+        timing = {}
+        for prefetch in (False, True, False, True):
+            timing.setdefault("prefetch" if prefetch else "inline",
+                              []).append(timed(prefetch))
+        # the inline pre-pass of a block of k in steady state: the median
+        # of the inline legs' exec/host_io spans after each pass's first
+        prepass_ms = statistics.median(
+            d for leg in timing["inline"]
+            for d in leg["host_io_ms_calls"][1:])
+        expected = dict.fromkeys(counts, 0)
+        expected.update({"flash_attention_fwd_bf16": 18 * k,
+                         "flash_attention_bwd_dkdv_bf16": 18 * k,
+                         "flash_attention_bwd_dq_bf16": 18 * k,
+                         "softmax_xent_fwd": k, "layer_norm_fwd": 32 * k})
+        report = {
+            "files": READER["files"], "batches": READER["batches"],
+            "write_s": write_s, "steps": k, "trained_steps": n_steps,
+            "reader_order": order, "losses": got,
+            "equal_to_eager_feed_fed": True,
+            "reader_consumed": consumed, "native_recordio": True,
+            "first_call_s": first_s, "synchronizing_calls": syncs,
+            "staging_synchronizing_calls": stage_syncs,
+            "prepass_host_ms": prepass_ms, "timing": timing,
+            "launches_per_step": {n: c / k for n, c in counts.items() if c},
+            "card": card}
+        print("%s %s" % (tag, json.dumps(report)))
+        exe._cache.clear()
+        del scope, ref_scope
+        torch.cuda.empty_cache()
+        return (counts, expected), report
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
@@ -7833,6 +8324,7 @@ def main(argv=None):
     kernels.update(run_acoustic_kernels(
         torch, ck, peak_flops, peak_bw,
         baseline_source(args.k7_baseline, K7_BASELINE_COMMIT, LSTMP_SRC)))
+    kernels.update(run_while_kernel(torch, ck, peak_bw))
     if args.only == "all":
         stem = args.trace and os.path.splitext(args.trace)[0]
         # each path: the launch counts of its run and the counts it
@@ -7981,8 +8473,9 @@ def main(argv=None):
             "card": card}))
         decode_paths, transformer_decode = run_transformer_decode(torch, card)
         paths += decode_paths
-        run, translator_decode = run_translator_decode(torch, card)
-        paths.append(("translator_decode", run))
+        translator_paths, translator_decode = run_translator_decode(
+            torch, card)
+        paths += translator_paths
         loop_checks = run_control_flow_checks(torch)
         print("decode_summary: " + json.dumps({
             "transformer": transformer_decode,
@@ -7999,6 +8492,13 @@ def main(argv=None):
         kernels["flash_attention_fwd_bf16"]["serving_dispatch"].update(
             decode_serving["weights_dtype"]["bf16_k1_serving_shape"])
         print("decode_serving_summary: " + json.dumps(decode_serving))
+        run, readers = run_reader_training(torch, card)
+        paths.append(("transformer_reader_training", run))
+        print("reader_summary: " + json.dumps({
+            k: readers[k] for k in (
+                "trained_steps", "equal_to_eager_feed_fed",
+                "reader_consumed", "staging_synchronizing_calls",
+                "prepass_host_ms", "timing", "card")}))
         print("clipping_summary: " + json.dumps({
             "fit_a_line": {k: v for k, v in clipping.items() if k != "card"},
             "language_model_clip": {k: lm_clip[k] for k in (

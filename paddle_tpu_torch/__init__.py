@@ -58,6 +58,10 @@ from . import concurrency  # noqa: F401
 from .concurrency import (make_channel, channel_send,  # noqa: F401
                           channel_recv, channel_close, Select)
 from . import reader  # noqa: F401
+from .core.readers import EOFException  # noqa: F401
+from . import datasets  # noqa: F401
+from . import recordio  # noqa: F401
+from . import recordio_writer  # noqa: F401
 from .reader import batch  # noqa: F401
 
 Tensor = LoDTensor

@@ -1,8 +1,9 @@
 """The dispatch core the serving batcher and the executor front.
 
-Parity: the JAX package's core/dispatch.py — its `InflightWindow` and its
-watchdog pair `run_with_deadline` / `dispatch_with_deadline`. The host-io
-prefetcher of that module waits for in-graph reader ops (ROADMAP A8).
+Parity: the JAX package's core/dispatch.py — its `InflightWindow`, its
+host-io prefetcher and its watchdog pair `run_with_deadline` /
+`dispatch_with_deadline`. Its dispatch hooks (the cluster fence and the
+fault taps) come with ROADMAP A9 and A10.
 
   * `InflightWindow` bounds how many dispatches may be outstanding on the
     device at once (the serving batcher's continuous-batching window).
@@ -13,6 +14,15 @@ prefetcher of that module waits for in-graph reader ops (ROADMAP A8).
     a dispatch has finished by the time it returns, so its handle
     completes at once. The completion thread also sums the device's idle
     gaps (one dispatch's completion to the next one's enqueue).
+
+  * `HostIoPrefetcher` runs the NEXT call's host-io pre-pass (reader
+    pops, stacking) on a background thread while the current call's work
+    runs on the device. The staged block is consumed by the next matching
+    `run()` call; anything else (a raise after the kick, a different
+    program / scope / steps, a quiesce) pushes the staged records back
+    exactly (`_StagedBlock.refund`), so the stream replays bit-exactly.
+    `consume_host_io` and `kick_next_prepass` are the executor's two
+    calls into it; `rollback_all_staged` is the quiesce hook.
 
   * `run_step_traced` wraps one Executor run in its `exec/step` span,
     inheriting the thread's ambient trace (the serving batcher scopes
@@ -25,6 +35,7 @@ prefetcher of that module waits for in-graph reader ops (ROADMAP A8).
 import queue
 import threading
 import time
+import weakref
 
 import torch
 
@@ -32,9 +43,13 @@ from ..observability import registry as _obsreg
 from ..observability import trace as _trace
 
 __all__ = ["InflightWindow", "run_with_deadline", "dispatch_with_deadline",
-           "run_step_traced"]
+           "run_step_traced", "HostIoPrefetcher", "has_read_ops",
+           "has_host_io_ops", "kick_next_prepass", "consume_host_io",
+           "rollback_all_staged", "CANCELLED"]
 
 _CLOSE = object()
+# HostIoPrefetcher.take / consume_host_io: the caller's watchdog fired
+CANCELLED = object()
 
 
 def _completion_event(handles):
@@ -219,3 +234,280 @@ def run_step_traced(label, cancelled, body_fn, **span_args):
         return out
     tspan.end()
     return out
+
+
+# ---------------------------------------------------------------------------
+# host-io prefetch (Executor.run(prefetch=True))
+# ---------------------------------------------------------------------------
+
+_live_prefetchers = weakref.WeakSet()
+
+
+class _StagedBlock(object):
+    """One prefetched pre-pass result, parked until the next run.
+
+    Identity (program, scope, steps) decides whether the next run may
+    consume it; `popped` is the exact refund ledger — (reader, records)
+    in pop order, so `refund()` restores every stream position (push_back
+    reversed, like the pre-pass's own rollback)."""
+
+    __slots__ = ("program", "scope", "steps", "feeds", "stacked",
+                 "popped", "error", "dropped")
+
+    def __init__(self, program, scope, steps):
+        self.program = program
+        self.scope = scope
+        self.steps = steps
+        self.feeds = {}
+        self.stacked = set()
+        self.popped = []     # [(reader, [record, ...])]
+        self.error = None
+        self.dropped = False  # cancelled: recovery owns the positions
+
+    def matches(self, program, scope, steps):
+        return (self.program is program and self.scope is scope
+                and self.steps == steps)
+
+    def refund(self):
+        if self.dropped:
+            return
+        for state, records in reversed(self.popped):
+            for rec in reversed(records):
+                state.push_back(rec)
+        self.popped = []
+
+
+class _OrEvent(object):
+    """is_set() over the run's watchdog cancellation and the prefetcher's
+    own abandon flag: the pre-pass's cancellation checkpoints honour
+    either."""
+
+    __slots__ = ("_a", "_b")
+
+    def __init__(self, a, b):
+        self._a, self._b = a, b
+
+    def is_set(self):
+        return (self._a is not None and self._a.is_set()) or \
+            self._b.is_set()
+
+
+class HostIoPrefetcher(object):
+    """Background host-io pre-pass: pops and stacks call N+1's reader
+    records while call N runs on the device (the JAX package's
+    HostIoPrefetcher).
+
+    Protocol (one owner executor, calls from its dispatch thread):
+      * `kick(...)` at the end of a successful run starts the background
+        pre-pass for the next call;
+      * `take(program, scope, steps)` at the top of the next run waits
+        for the staging thread and returns the staged block when the
+        identity matches; a mismatch refunds the staged pops and returns
+        None (the caller runs the pre-pass inline); a staged ERROR raises
+        here, on the consuming thread, with nothing consumed (the staging
+        thread refunded before parking it), and only for the matching
+        identity: an error staged for another signature consumed nothing
+        and is dropped. Returns CANCELLED when the caller's watchdog
+        fired mid-wait;
+      * `rollback()` refunds whatever is staged.
+
+    The staging thread is the ONLY consumer of the readers between kick
+    and take, so the readers need no locking; `reader.eof()` polls race
+    the staging pop and are unsupported while a prefetcher is armed —
+    end epochs on the EOFException instead (it surfaces at take(), the
+    stream position intact). One fresh daemon thread per kick: a staged
+    block's life ends crisply at take/rollback."""
+
+    def __init__(self, name="prefetch"):
+        self.name = name
+        self._lock = threading.Lock()
+        self._thread = None
+        self._inflight = None        # _StagedBlock the thread is filling
+        self._staged = None          # _StagedBlock once the thread ran
+        self._abandon = threading.Event()
+        _live_prefetchers.add(self)
+
+    def has_work(self):
+        """A staging thread is running or a block is parked."""
+        with self._lock:
+            return self._thread is not None or self._staged is not None
+
+    def kick(self, program, scope, steps, device=None, cancelled=None):
+        """Start the background pre-pass for the next call; `device` pins
+        the staging device of a double-buffered reader."""
+        from .executor import run_host_io_prepass
+        if self.has_work():
+            # defensive: the owner always takes or rolls back before it
+            # kicks again; a stale block must not leak records
+            self.rollback()
+        with self._lock:
+            self._abandon.clear()
+            block = _StagedBlock(program, scope, steps)
+            cancel = _OrEvent(cancelled, self._abandon)
+
+            def work():
+                ssp = _trace.span("exec/prefetch_stage", cat="train",
+                                  prefetcher=self.name, steps=steps)
+                try:
+                    run_host_io_prepass(
+                        program, scope, block.feeds, steps=steps,
+                        stacked_out=block.stacked, cancelled=cancel,
+                        device=device, popped_out=block.popped)
+                except BaseException as e:  # noqa: BLE001 — parked for
+                    # the consuming thread; what this block popped before
+                    # failing goes back, so the error consumes NOTHING
+                    block.refund()
+                    block.error = e
+                ssp.end(**({"error": type(block.error).__name__}
+                           if block.error is not None else {}))
+                with self._lock:
+                    self._staged = block
+                    self._inflight = None
+                    self._thread = None
+
+            t = threading.Thread(target=work, daemon=True,
+                                 name="ptt-prefetch-%s" % self.name)
+            self._thread = t
+            self._inflight = block
+            t.start()
+
+    def take(self, program, scope, steps, cancelled=None):
+        """Claim the staged block for this run (see the class doc)."""
+        block = self._wait(cancelled)
+        if block is CANCELLED or block is None:
+            return block
+        if not block.matches(program, scope, steps):
+            if block.error is None:
+                block.refund()
+            return None
+        if block.error is not None:
+            raise block.error
+        return block
+
+    def rollback(self, cancelled=None):
+        """Refund the staged pops. With `cancelled` set the block is
+        dropped WITHOUT refund: the caller's recovery restores reader
+        positions itself."""
+        block = self._wait(cancelled)
+        if block is CANCELLED or block is None:
+            return
+        block.refund()
+
+    def _wait(self, cancelled=None):
+        """Join the staging thread and detach the staged block. On
+        watchdog cancellation mid-wait: abandon the staging thread (it
+        stops at its next pre-pass checkpoint without refunding) and mark
+        its block dropped."""
+        while True:
+            with self._lock:
+                t = self._thread
+                if t is None:
+                    block, self._staged = self._staged, None
+                    if block is not None and block.dropped:
+                        block = None  # parked by an abandoned staging run
+                    return block
+            if cancelled is not None and cancelled.is_set():
+                self._abandon.set()
+                with self._lock:
+                    if self._staged is not None:
+                        self._staged.dropped = True
+                        self._staged = None
+                    if self._inflight is not None:
+                        self._inflight.dropped = True
+                return CANCELLED
+            t.join(timeout=0.05)
+
+    def close(self):
+        """Refund anything staged and forget the prefetcher."""
+        self.rollback()
+        _live_prefetchers.discard(self)
+
+
+def _cached_flag(program, cache, pred):
+    key = (program._uid, program._version)
+    if key not in cache:
+        cache[key] = any(pred(op.type) for op in program.global_block().ops)
+    return cache[key]
+
+
+def has_read_ops(program, cache):
+    """Does `program` pop reader records in its main block? Cached per
+    (uid, version) in the caller's dict."""
+    return _cached_flag(program, cache, lambda t: t == "read")
+
+
+def has_host_io_ops(program, cache):
+    """Does `program`'s main block hold any reader op (creation or
+    `read`)? Cached as has_read_ops."""
+    from .readers import is_host_io_op
+    return _cached_flag(program, cache, is_host_io_op)
+
+
+def kick_next_prepass(executor, program, scope, steps, cancelled, name,
+                      **kick_kw):
+    """Arm the executor's prefetcher (lazily) and kick the next call's
+    pre-pass: a no-op for a readerless program (nothing to stage) and for
+    a cancelled worker (its recovery owns the readers). Returns the
+    prefetcher, or None when none is armed."""
+    if cancelled is not None and cancelled.is_set():
+        return executor._prefetcher
+    if not has_read_ops(program, executor._has_read):
+        return executor._prefetcher
+    pf = executor._prefetcher
+    if pf is None:
+        pf = executor._prefetcher = HostIoPrefetcher(name=name)
+    pf.kick(program, scope, steps, cancelled=cancelled, **kick_kw)
+    return pf
+
+
+def consume_host_io(executor, program, scope, steps, cancelled, feeds,
+                    stacked_names, tspan, **inline_kw):
+    """Claim the prefetcher's staged block when its identity matches
+    (refunding a mismatched one BEFORE the inline pre-pass pops the
+    stream, or the staged records would replay out of order), else run
+    the inline pre-pass; the exec/host_io span closes on every path.
+    Returns the staged block, None (the inline pre-pass ran) or
+    CANCELLED."""
+    from .executor import _DispatchCancelled, run_host_io_prepass
+    pf = executor._prefetcher
+    staged = None
+    iosp = tspan.child("exec/host_io")
+    try:
+        if pf is not None and pf.has_work():
+            # consulted on a prefetch=False call too: a block staged for
+            # another signature must go back before the inline pre-pass
+            staged = pf.take(program, scope, steps, cancelled=cancelled)
+            if staged is CANCELLED:
+                iosp.end(error="DispatchCancelled")
+                return CANCELLED
+        if staged is not None:
+            feeds.update(staged.feeds)
+            stacked_names.update(staged.stacked)
+        else:
+            try:
+                run_host_io_prepass(program, scope, feeds, steps=steps,
+                                    stacked_out=stacked_names,
+                                    cancelled=cancelled, **inline_kw)
+            except _DispatchCancelled:
+                iosp.end(error="DispatchCancelled")
+                return CANCELLED
+    except BaseException as e:  # EOF / reader faults ride up
+        iosp.end(error=type(e).__name__)
+        raise
+    iosp.end(staged=staged is not None)
+    return staged
+
+
+def rollback_all_staged(scope=None):
+    """Quiesce hook: refund every live prefetcher's staged pops (all of
+    them, or only those staging for `scope`). A checkpoint reads reader
+    positions after this: a staged block's records have not trained.
+    Runs on the trainer thread between runs."""
+    for pf in list(_live_prefetchers):
+        if not pf.has_work():
+            continue
+        if scope is not None:
+            block = pf._staged if pf._staged is not None else pf._inflight
+            if block is not None and block.scope is not scope:
+                continue
+        pf.rollback()

@@ -17,9 +17,11 @@ import os
 import numpy as np
 import torch
 
+from . import dispatch as _dispatch
 from .dispatch import dispatch_with_deadline, run_step_traced
 from .framework import convert_dtype, default_main_program, find_var
 from .lod import LoDTensor
+from .readers import ReaderBase, is_host_io_op, run_host_io_op
 from .lowering import (FETCH_REDUCE_POLICIES, Env, LowerCtx, analyze_state,
                        lower_block, lower_multi_step, unread_outputs)
 from .registry import torch_dtype
@@ -105,6 +107,126 @@ def convert_feeds(program, feed):
     return out
 
 
+class _DispatchCancelled(Exception):
+    """A watchdog-abandoned worker reached a cancellation checkpoint of the
+    io pre-pass; the run unwinds without touching more state."""
+
+
+def _read_value(value, var, device):
+    """A reader field as a tensor of the read_file var's declared dtype on
+    the run's device (a field a DoubleBufferReader staged is there
+    already; a host one goes through pinned memory, no host sync)."""
+    t = to_tensor(value, var.dtype if var is not None else None)
+    return t if device is None else _feed_to_device(t, device)
+
+
+def run_host_io_prepass(program, scope, feeds, steps=1, stacked_out=None,
+                        cancelled=None, device=None, popped_out=None):
+    """The io pre-pass (parity: the JAX package's run_host_io_prepass):
+    reader ops run on the host. create_* ops build reader objects in the
+    scope; each `read` op pops the next record and injects its fields as
+    feeds of the step (EOFException propagates: check reader.eof()
+    first). Global block only.
+
+    device: the run's device. A reader that stages asynchronously
+    (DoubleBufferReader) gets it pinned (`pin_place`), so its staging
+    thread copies to the device the run takes place on.
+
+    popped_out: the refund ledger of the prefetcher (core/dispatch.py):
+    every (reader, records) block that stays consumed when this call
+    returns is appended in pop order.
+
+    steps=K: each `read` op pops K records ATOMICALLY (ReaderBase.
+    next_many pushes all K back on a mid-block EOF or a bad record) and
+    stacks each field with a leading K axis; step i of the K-step run
+    reads slice i. Atomicity spans ALL read ops: a failure at the second
+    reader pushes the first reader's block back too, so a failed K-step
+    run consumes nothing anywhere. The stacked feed names go into
+    `stacked_out`. A reader-creation op in the main block is refused
+    under steps=K: it would run once per CALL, not once per step."""
+    multi_blocks = []     # [(reader, records)] popped so far this call
+    multi_stacks = {}     # name -> stacked [K, ...] tensor, committed last
+
+    def _rollback():
+        if cancelled is not None and cancelled.is_set():
+            return  # an abandoned worker: its caller owns the positions
+        for st, recs in reversed(multi_blocks):
+            for rec in reversed(recs):
+                st.push_back(rec)
+
+    for op in program.global_block().ops:
+        if cancelled is not None and cancelled.is_set():
+            raise _DispatchCancelled()
+        if op.type == "read":
+            state = scope.get(op.inputs["Reader"][0])
+            if state is None:
+                raise RuntimeError(
+                    "reader %r has no state; run the startup program "
+                    "first" % op.inputs["Reader"][0])
+            if device is not None:
+                state.pin_place(device)
+            out_names = op.outputs["Out"]
+            out_vars = [find_var(program, n) for n in out_names]
+
+            def _check(record):
+                if len(record) != len(out_names):
+                    raise ValueError(
+                        "reader yielded %d fields but read_file declared "
+                        "%d" % (len(record), len(out_names)))
+
+            if steps == 1:
+                record = state.next()
+                try:
+                    _check(record)
+                except Exception:
+                    state.push_back(record)
+                    raise
+                for out_name, val, var in zip(out_names, record, out_vars):
+                    feeds[out_name] = _read_value(val, var, device)
+                if popped_out is not None:
+                    popped_out.append((state, [record]))
+            else:
+                if hasattr(state, "ensure_staging_depth"):
+                    # a double buffer must be able to pre-stage the NEXT
+                    # K-block while this one computes
+                    state.ensure_staging_depth(steps)
+                try:
+                    records = state.next_many(steps, validate=_check)
+                except Exception:
+                    _rollback()
+                    raise
+                multi_blocks.append((state, records))
+                # stack BEFORE committing: records whose field shapes
+                # differ cannot stack, and that failure must also consume
+                # nothing
+                try:
+                    for i, (out_name, var) in enumerate(zip(out_names,
+                                                            out_vars)):
+                        multi_stacks[out_name] = torch.stack(
+                            [_read_value(rec[i], var, device)
+                             for rec in records])
+                except Exception:
+                    _rollback()
+                    raise
+        elif is_host_io_op(op.type):
+            if steps > 1:
+                _rollback()
+                raise RuntimeError(
+                    "program contains host io op %r in its main block: "
+                    "with steps=%d it would run once per CALL, not once "
+                    "per step like %d sequential runs would. Keep reader "
+                    "creation in the startup program (the standard "
+                    "split), or run this program with steps=1."
+                    % (op.type, steps, steps))
+            run_host_io_op(op, scope, device)
+    if multi_stacks:
+        feeds.update(multi_stacks)
+        if stacked_out is not None:
+            stacked_out.update(multi_stacks)
+    if popped_out is not None:
+        popped_out.extend(multi_blocks)
+
+
 class _ScopeVar(object):
     """A named slot of a Scope (parity: framework::Variable as the
     reference's scope.find_var / scope.var return it)."""
@@ -142,7 +264,10 @@ class Scope(object):
         self._kids = []
 
     def set(self, name, value):
-        self._vars[name] = value if isinstance(value, torch.Tensor) \
+        """A tensor, a host array (made a tensor) or a reader's host-side
+        state (core/readers.ReaderBase, kept as it is)."""
+        self._vars[name] = value if isinstance(
+            value, (torch.Tensor, ReaderBase)) \
             else torch.as_tensor(np.asarray(value))
 
     def get(self, name):
@@ -328,6 +453,12 @@ class Executor(object):
         # of the combined flag when none tripped), no other run
         self.flag_reads = 0
         self._array_safety = array_safety_enabled()
+        # core/dispatch.HostIoPrefetcher, armed by the first
+        # run(prefetch=True) of a reader-fed program
+        self._prefetcher = None
+        # (uid, version) -> the program has `read` ops / any host io op
+        self._has_read = {}
+        self._has_host_io = {}
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True, use_program_cache=True, steps=1,
@@ -360,12 +491,18 @@ class Executor(object):
         deadline raises DispatchTimeoutError carrying the cache key; the
         abandoned worker never writes the scope.
 
-        prefetch=True overlaps a reader-fed program's host input work
-        with the device in the JAX package; the port has no in-graph
-        reader ops (ROADMAP A8), every program is feed-fed, and there the
-        flag changes nothing, as in the JAX package. validate=True and
-        apply_tuned=True (the static analyzer and the tuning store) come
-        with ROADMAP A11 and raise."""
+        A reader-fed program (layers.read_file) gets its records from the
+        io pre-pass (run_host_io_prepass): one record a `read` op, or
+        with steps=K a [K, ...] stack of K records, step i reading slice
+        i. prefetch=True pipelines that pre-pass (core/dispatch.
+        HostIoPrefetcher): after a run of a reader-fed program a staging
+        thread pops the NEXT call's records while this call's work runs
+        on the device, and the next matching run() takes them. A raise
+        after the kick, or a next call of another program, scope or
+        steps, pushes the staged records back, so the stream replays
+        exactly. For a feed-fed program the flag changes nothing, as in
+        the JAX package. validate=True and apply_tuned=True (the static
+        analyzer and the tuning store) come with ROADMAP A11 and raise."""
         if validate:
             raise NotImplementedError(
                 "Executor.run(validate=True): the static program analyzer "
@@ -375,7 +512,7 @@ class Executor(object):
                 "Executor.run(apply_tuned=True): the tuning store comes "
                 "with ROADMAP A11")
         args = (program, feed, fetch_list, scope, return_numpy,
-                use_program_cache, steps, fetch_reduce)
+                use_program_cache, steps, fetch_reduce, prefetch)
         if timeout is None:
             return self._run_impl(*args)
         return dispatch_with_deadline(
@@ -384,20 +521,20 @@ class Executor(object):
             timeout, "Executor.run dispatch")
 
     def _run_impl(self, program, feed, fetch_list, scope, return_numpy,
-                  use_program_cache, steps, fetch_reduce, cancelled=None,
-                  info=None):
+                  use_program_cache, steps, fetch_reduce, prefetch,
+                  cancelled=None, info=None):
         # one `exec/step` span a run, in the ambient trace of a serving
         # batch when there is one (observability/trace: host stamps only)
         return run_step_traced(
             "exe", cancelled,
             lambda tspan: self._run_traced(
                 program, feed, fetch_list, scope, return_numpy,
-                use_program_cache, steps, fetch_reduce, cancelled, info,
-                tspan))
+                use_program_cache, steps, fetch_reduce, prefetch, cancelled,
+                info, tspan))
 
     def _run_traced(self, program, feed, fetch_list, scope, return_numpy,
-                    use_program_cache, steps, fetch_reduce, cancelled, info,
-                    tspan):
+                    use_program_cache, steps, fetch_reduce, prefetch,
+                    cancelled, info, tspan):
         if program is None:
             program = default_main_program()
         scope = scope if scope is not None else global_scope()
@@ -416,9 +553,20 @@ class Executor(object):
             var = find_var(program, name)
             feeds[name] = to_tensor(value,
                                     var.dtype if var is not None else None)
+        stacked = set()
+        if _dispatch.has_host_io_ops(program, self._has_host_io) or (
+                self._prefetcher is not None and
+                self._prefetcher.has_work()):
+            staged = _dispatch.consume_host_io(
+                self, program, scope, steps, cancelled, feeds, stacked,
+                tspan, device=self.device)
+            if staged is _dispatch.CANCELLED or (
+                    cancelled is not None and cancelled.is_set()):
+                return None   # the caller raised: consume nothing more
         key = (program._uid, program._version, _feed_signature(feeds),
                tuple(fetch_names), steps,
-               fetch_reduce if steps > 1 else None, bool(program._amp))
+               fetch_reduce if steps > 1 else None, bool(program._amp),
+               tuple(sorted(stacked)))
         if info is not None:
             info["cache_key"] = key
         ukey = (program._uid, program._version, tuple(fetch_names))
@@ -430,7 +578,7 @@ class Executor(object):
         else:
             runner = self._runner(key, program, scope, feeds, fetch_names,
                                   steps, fetch_reduce, self._unread[ukey],
-                                  use_program_cache)
+                                  use_program_cache, stacked)
             fetches, new_state, errors = runner(
                 scope, feeds, scope.next_seed_block(steps))
         if cancelled is not None:
@@ -446,9 +594,20 @@ class Executor(object):
         # raise: a caller that catches the assertion can still read it
         for name, value in new_state.items():
             scope.set(name, value)
+        if prefetch:
+            # stage the NEXT call's records now, while this call's work
+            # runs on the device
+            _dispatch.kick_next_prepass(self, program, scope, steps,
+                                        cancelled, "exe", device=self.device)
         if errors and self._array_safety:
             self.flag_reads += 1
-            raise_program_errors(errors)
+            try:
+                raise_program_errors(errors)
+            except BaseException:
+                # the failed run consumed its own records, nothing more
+                if self._prefetcher is not None:
+                    self._prefetcher.rollback(cancelled=cancelled)
+                raise
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         return fetches
@@ -466,13 +625,15 @@ class Executor(object):
             lower_block(ctx, program.global_block(), env)
         new_state = {}
         for op in program.global_block().ops:
+            if is_host_io_op(op.type):
+                continue   # the pre-pass put its readers in the scope
             for name in op.all_output_vars():
                 if name in persistable:
                     new_state[name] = env.values[name]
         return [env.read(n) for n in fetch_names], new_state, ctx.op_errors
 
     def _runner(self, key, program, scope, feeds, fetch_names, steps,
-                fetch_reduce, unread, use_program_cache):
+                fetch_reduce, unread, use_program_cache, stacked=()):
         """The cached MultiStepRunner of `key`, or a new one."""
         runner = self._cache.get(key) if use_program_cache else None
         if runner is not None and runner.fits(scope):
@@ -483,7 +644,7 @@ class Executor(object):
         runner = lower_multi_step(
             program, self.device, sorted(feeds), fetch_names, state_rw,
             state_ro, state_out, steps, fetch_reduce=fetch_reduce,
-            unread=unread)
+            unread=unread, stacked_names=stacked)
         if use_program_cache:
             _cache_put_lru(self._cache, key, runner, _jit_cache_capacity())
         return runner

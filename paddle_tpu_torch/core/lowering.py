@@ -31,6 +31,7 @@ import torch
 
 from . import registry
 from .framework import GRAD_SUFFIX
+from .readers import HOST_IO_OPS
 
 # bf16 mixed precision (Program.enable_mixed_precision), the JAX package's
 # tables (its core/lowering.py): the contractions take bf16 operands (f32
@@ -86,10 +87,14 @@ class LowerCtx(object):
         self.unread = unread
         self._op_salt = 0
         self._op_calls = 0
+        self._const_calls = 0
         self._op_outputs = None
         # the iteration index of each enclosing loop (rnn_scan pushes its
         # step), folded into every random op's seed
         self._loop_iters = []
+        # the While loops enclosing the running op in a step of
+        # Executor.run(steps=K) (ops/control_ops._while)
+        self.while_depth = 0
         # the forward ops some grad_of of this run differentiates (uid ->
         # that grad_of's no_grad_names), and their kept local graphs: uid ->
         # ({(slot, i): leaf input}, {name: output}), from the forward op's
@@ -117,7 +122,13 @@ class LowerCtx(object):
     def begin_op(self, salt, outputs=None):
         self._op_salt = salt
         self._op_calls = 0
+        self._const_calls = 0
         self._op_outputs = outputs
+
+    def host_constant(self, arr):
+        """A tensor on the run's device holding the host array `arr`: an
+        op rule's constant (assign_value's values, a shape)."""
+        return torch.from_numpy(np.array(arr, order="C")).to(self.device)
 
     def output_read(self, slot):
         """Whether the running op's `slot` output is read by some op, a
@@ -261,7 +272,11 @@ def lower_block(ctx, block, env):
     ctx.grad_stop = {op.attrs["fwd_uid"]:
                      frozenset(op.attrs.get("no_grad_names", ()))
                      for op in block.ops if op.type == "grad_of"}
-    lower_sub_block(ctx, block, env)
+    # the reader ops ran in the executor's host io pre-pass
+    # (core/executor.run_host_io_prepass): their outputs are feeds here
+    for op in block.ops:
+        if op.type not in HOST_IO_OPS:
+            lower_op(ctx, op, env)
     from ..ops.control_ops import TensorArray
     for name, v in list(env.values.items()):
         if isinstance(v, TensorArray):
@@ -464,6 +479,8 @@ def analyze_state(program, feed_names, fetch_names=()):
 
     for blk in program.blocks:
         for op in blk.ops:
+            if op.type in HOST_IO_OPS:
+                continue  # reader vars hold host-side state, no tensor
             for name in op.all_input_vars():
                 visit_read(name)
             for name in op.all_output_vars():
@@ -531,17 +548,60 @@ class _StepCtx(LowerCtx):
     place in the step (`specs`); with `gens` given (the capture, and
     every step of the CPU's plain version) the call gets the next of
     those generators, which the runner reseeds before each step with the
-    seed an eager run would draw."""
+    seed an eager run would draw.
+
+    A While of the step (ops/control_ops._while_captured) keeps its body's
+    stream and its iteration counter in `while_state` (op uid -> (stream,
+    counter), the runner's, so the warm-up makes them and the capture
+    uses them) and records (its iteration counter, the kernel launches of
+    one body iteration, its body's memory pool) in `while_loops`. A
+    random op inside a While body raises: the graph replays the body's
+    captured draw at every iteration."""
 
     in_multi_step = True
 
-    def __init__(self, program, device, run_seed, unread, gens=None):
+    def __init__(self, program, device, run_seed, unread, gens=None,
+                 while_state=None, constants=None):
         super(_StepCtx, self).__init__(program, device, run_seed=run_seed,
                                        unread=unread)
         self.gens = gens
         self.specs = []
+        self.while_state = {} if while_state is None else while_state
+        self.while_loops = []
+        self.constants = {} if constants is None else constants
+
+    def host_constant(self, arr):
+        """On a card, the constant the warm-up run made for this call of
+        the op (copied once, through pinned memory, without a host sync):
+        the capture reads that tensor and copies nothing from the host.
+        Op rules never write their inputs in place, so it stays as made."""
+        if self.device.type != "cuda":
+            return super(_StepCtx, self).host_constant(arr)
+        self._const_calls += 1
+        key = (self.op.uid if self.op is not None else -1,
+               self._const_calls)
+        t = self.constants.get(key)
+        if t is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise GraphCaptureError(
+                    "the captured step made a constant its warm-up run "
+                    "did not make: its constants depend on something other "
+                    "than the program")
+            t = torch.from_numpy(np.array(arr, order="C")).pin_memory().to(
+                self.device, non_blocking=True)
+            self.constants[key] = t
+        return t
 
     def _generator(self, spec):
+        if self.while_depth:
+            op = self.op
+            raise GraphCaptureError(
+                "op %r (uid %d) draws random numbers inside a While body, "
+                "which Executor.run(steps=K) captures once and replays at "
+                "every iteration: each iteration would draw the same "
+                "numbers. Run the program with steps=1"
+                % (op.type if op is not None else "?",
+                   op.uid if op is not None else -1))
         self.specs.append(spec)
         if self.gens is None:
             return super(_StepCtx, self)._generator(spec)
@@ -555,6 +615,15 @@ class _StepCtx(LowerCtx):
 
 def _storage_ptr(t):
     return t.untyped_storage().data_ptr()
+
+
+def _release_pools(device_index, pools):
+    """Give back the memory pools of a dropped graph's While bodies."""
+    for pool in pools:
+        try:
+            torch._C._cuda_releasePool(device_index, pool)
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
 
 
 def _copy_into(buf, value):
@@ -601,14 +670,19 @@ class MultiStepRunner(object):
 
     def __init__(self, program, device, feed_names, fetch_names, state_rw,
                  state_ro, state_out, steps, fetch_reduce="stack",
-                 unread=frozenset()):
+                 unread=frozenset(), stacked_names=()):
         self.program = program
         self.device = torch.device(device)
         self.feed_names = list(feed_names)
+        # feeds given as a [K, ...] stack (a reader's K-block): step i
+        # reads slice i
+        self.stacked = frozenset(stacked_names)
+        self._stacks = {}      # stacked feed name -> its stack on device
         self.fetch_names = list(fetch_names)
         self.in_names = list(state_rw) + list(state_ro)
         # the state the eager run writes back: global-block outputs
         glob = {n for op in program.global_block().ops
+                if op.type not in HOST_IO_OPS
                 for n in op.all_output_vars() if n}
         self.out_names = [n for n in state_out if n in glob]
         self.steps = int(steps)
@@ -624,7 +698,15 @@ class MultiStepRunner(object):
         self._graph = None
         self._fetch_out = None
         self._errs = {}        # assertion message -> static flag buffer
-        self.launches = {}     # the port's kernels one step launches
+        # the step's While loops as conditional nodes (_StepCtx's
+        # while_loops), and their bodies' streams and counters
+        self._while_loops = []
+        self._while_state = {}
+        # (op uid, call) -> a constant the warm-up made on the card
+        self._constants = {}
+        # the port's kernels one step launches outside its While bodies
+        # (a body's launches count once an iteration: while_loops)
+        self.launches = {}
         self.warmup_s = self.capture_s = None
         self.pool_bytes = None
 
@@ -655,9 +737,17 @@ class MultiStepRunner(object):
 
     def _sync_in(self, scope, feeds):
         """Copy the feeds, and the scope values changed since the last
-        call, into the buffers (no host sync)."""
+        call, into the buffers (no host sync). A stacked feed goes to the
+        device whole; _feed_step copies each step's slice."""
         for n in self.feed_names:
-            _copy_into(self._feed_bufs[n], feeds[n])
+            if n in self.stacked:
+                v = feeds[n]
+                self._stacks[n] = v.pin_memory().to(
+                    self.device, non_blocking=True) \
+                    if v.device.type == "cpu" and self.cuda \
+                    else v.to(self.device)
+            else:
+                _copy_into(self._feed_bufs[n], feeds[n])
         for n, cur in self._read_scope(scope).items():
             seen = self._handed.get(n)
             if seen is not None and seen[0]() is cur and \
@@ -666,19 +756,27 @@ class MultiStepRunner(object):
             _copy_into(self._bufs[n], cur)
             self._handed[n] = (weakref.ref(cur), cur._version)
 
+    def _feed_step(self, i):
+        """Step i's slice of each stacked feed into its buffer: a copy on
+        the device, enqueued before the step (outside the graph)."""
+        for n in self.stacked:
+            self._feed_bufs[n].copy_(self._stacks[n][i])
+
     def _alloc(self, scope, feeds):
         self._bufs, self._handed = {}, {}
-        self._feed_bufs = {n: torch.empty(feeds[n].shape,
-                                          dtype=feeds[n].dtype,
-                                          device=self.device)
-                           for n in self.feed_names}
+        self._feed_bufs = {
+            n: torch.empty(feeds[n].shape[1:] if n in self.stacked
+                           else feeds[n].shape, dtype=feeds[n].dtype,
+                           device=self.device)
+            for n in self.feed_names}
         for n, cur in self._read_scope(scope).items():
             self._bufs[n] = torch.empty_like(cur, device=self.device)
 
     # ------------------------------------------------------------- step --
     def _ctx(self, run_seed, gens=None):
         return _StepCtx(self.program, self.device, run_seed, self.unread,
-                        gens)
+                        gens, while_state=self._while_state,
+                        constants=self._constants)
 
     def _step(self, ctx, copy_back):
         """One step over the buffers under `ctx`: returns (fetches, new
@@ -733,6 +831,7 @@ class MultiStepRunner(object):
         it). Runs no step that the caller sees."""
         self._alloc(scope, feeds)
         self._sync_in(scope, feeds)
+        self._feed_step(0)
         if not self.cuda:
             ctx = self._ctx(run_seed)
             self._write_only_bufs(self._step(ctx, copy_back=False)[1])
@@ -798,6 +897,11 @@ class MultiStepRunner(object):
                 "the captured step drew %d random streams, its warm-up run "
                 "%d" % (len(ctx.specs), len(self._gens)))
         self._graph = graph
+        self._while_loops = ctx.while_loops
+        if ctx.while_loops:
+            # a body's memory pool lives as long as the graph replaying it
+            weakref.finalize(graph, _release_pools, self.device.index,
+                             [pool for _, _, pool in ctx.while_loops])
         self._fetch_out = fetches
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
@@ -840,9 +944,12 @@ class MultiStepRunner(object):
             self._sync_in(scope, feeds)
         for buf in self._errs.values():
             buf.zero_()
+        for iters, _, _ in self._while_loops:
+            iters.zero_()
         out = None
         for i in range(self.steps):
             self._reseed(seed + i)
+            self._feed_step(i)
             if self.cuda:
                 self._graph.replay()
                 fetches = self._fetch_out
@@ -850,9 +957,13 @@ class MultiStepRunner(object):
                 fetches = self._step(self._ctx(seed + i, self._gens),
                                      copy_back=True)[0]
             out = self._collect(i, fetches, out)
-        if self.launches:
+        if self.launches or self._while_loops:
             from ..ops import cuda_kernels as ck
             ck.add_launches(self.launches, self.steps)
+            for iters, body, _ in self._while_loops:
+                # counted by the iterations the card ran, read when the
+                # counts are next read (never here)
+                ck.add_device_launches(body, iters)
         if self.fetch_reduce == "mean":
             out = [a / self.steps for a in out]
         new_state = {}
@@ -883,7 +994,7 @@ class MultiStepRunner(object):
 
 def lower_multi_step(program, device, feed_names, fetch_names, state_rw,
                      state_ro, state_out, steps, fetch_reduce="stack",
-                     unread=frozenset()):
+                     unread=frozenset(), stacked_names=()):
     """The K-step runner of `program` (the JAX package's lower_multi_step,
     whose lax.scan runs the step K times in one dispatch).
 
@@ -891,7 +1002,8 @@ def lower_multi_step(program, device, feed_names, fetch_names, state_rw,
       * a K-step call gives the same bits as K sequential Executor.run
         calls — step i runs with seed + i, the seeds Scope.next_seed would
         have issued, so dropout masks line up;
-      * feeds replay identically every step;
+      * feeds replay identically every step, except the stacked ones
+        (`stacked_names`, a reader's [K, ...] block): step i reads slice i;
       * fetches collapse per `fetch_reduce`: 'last' (step K-1's value),
         'mean' (accumulated in f32, then divided by K), 'stack' (a
         leading-K stack).
@@ -903,4 +1015,5 @@ def lower_multi_step(program, device, feed_names, fetch_names, state_rw,
                          % (FETCH_REDUCE_POLICIES, fetch_reduce))
     return MultiStepRunner(program, device, feed_names, fetch_names,
                            state_rw, state_ro, state_out, steps,
-                           fetch_reduce=fetch_reduce, unread=unread)
+                           fetch_reduce=fetch_reduce, unread=unread,
+                           stacked_names=stacked_names)

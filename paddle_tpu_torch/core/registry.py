@@ -98,6 +98,10 @@ class AbstractCtx(object):
     def add_error(self, message, flag):
         pass  # shape inference runs no assertion
 
+    def host_constant(self, arr):
+        return torch.empty(np.shape(arr), dtype=torch_dtype(
+            np.asarray(arr).dtype.name), device=META)
+
 
 def _meta_for(var, idx=0):
     """Meta tensor for inference pass `idx` (0 = BATCH_SENTINEL,

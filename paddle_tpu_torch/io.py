@@ -17,6 +17,7 @@ import numpy as np
 
 from .core import program_desc as _program_desc
 from .core.executor import Scope, global_scope, to_numpy, to_tensor
+from .core.readers import ReaderBase, is_host_io_op
 from .core.framework import Parameter, Variable, default_main_program
 
 __all__ = ["save_vars", "save_params", "save_persistables", "load_vars",
@@ -43,6 +44,30 @@ def _var_list(main_program, predicate, vars):
     return [v for v in main_program.list_vars() if predicate(v)]
 
 
+def _reader_var_names(program):
+    """Names wired into host-io (reader) ops anywhere in `program`, the
+    JAX package's rule: in-graph reader vars are persistable, but their
+    scope value is a host-side reader, never checkpoint payload, on the
+    save and the load side alike. Found from the OPS, so the rule
+    survives a program_desc round trip."""
+    names = set()
+    if program is None:
+        return names
+    for block in program.blocks:
+        for op in block.ops:
+            if is_host_io_op(op.type):
+                for slot in list(op.inputs.values()) + \
+                        list(op.outputs.values()):
+                    if op.type == "read" and slot is op.outputs.get("Out"):
+                        continue  # the data outputs ARE tensors
+                    names.update(slot)
+    return names
+
+
+def _is_reader_var(v, reader_names=()):
+    return hasattr(v, "reader_shapes") or v.name in reader_names
+
+
 def save_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None, allow_missing=False,
               scope=None):
@@ -52,11 +77,14 @@ def save_vars(executor, dirname, main_program=None, vars=None,
     allow_missing=True. Everything is checked before the first byte is
     written."""
     scope = scope if scope is not None else global_scope()
+    reader_names = _reader_var_names(main_program)
     to_write = []
     for v in _var_list(main_program, predicate or is_persistable, vars):
         val = scope.get(v.name)
+        if isinstance(val, ReaderBase):
+            continue  # live reader state: runtime plumbing, not a tensor
         if val is None:
-            if allow_missing:
+            if allow_missing or _is_reader_var(v, reader_names):
                 continue
             raise RuntimeError(
                 "save_vars: variable %r has no value in the scope; run the "
@@ -102,8 +130,10 @@ def load_vars(executor, dirname, main_program=None, vars=None,
         manifest = json.load(f)
     want = None
     if vars is not None or main_program is not None:
+        reader_names = _reader_var_names(main_program)
         want = set(v.name for v in
-                   _var_list(main_program, predicate or is_persistable, vars))
+                   _var_list(main_program, predicate or is_persistable, vars)
+                   if not _is_reader_var(v, reader_names))
         absent = sorted(want - set(manifest))
         if absent and not allow_missing:
             raise RuntimeError(

@@ -1,6 +1,9 @@
 """Layer functions (the subset the port's models, optimizers and LR
 schedules call)."""
-from .io import data  # noqa: F401
+from .io import (ListenAndServ, Recv, Send,  # noqa: F401
+                 create_double_buffer_reader, create_multi_pass_reader,
+                 create_shuffle_reader, data, double_buffer, multi_pass,
+                 open_files, open_recordio_file, read_file, shuffle)
 from .nn import (accuracy, autoincreased_step_counter,  # noqa: F401
                  batch_norm, chunk_eval, conv2d, conv2d_transpose, cos_sim,
                  crf_decoding, cross_entropy, ctc_greedy_decoder, dropout,

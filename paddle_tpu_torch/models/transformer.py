@@ -262,9 +262,11 @@ def transformer(src_vocab_size, trg_vocab_size, max_length, n_layer=2,
                 n_head=4, d_key=16, d_value=16, d_model=64, d_inner_hid=128,
                 dropout_rate=0.0, label_smooth_eps=0.0,
                 use_fused_attention=False, use_fused_label_smooth=True,
-                use_qkv_fusion=False):
+                use_qkv_fusion=False, inputs=None):
     """Build the training graph; returns (sum_cost, avg_cost, predict).
-    The JAX package's signature and defaults.
+    The JAX package's signature and defaults, plus `inputs`: the feeds as
+    make_inputs declares them (in its order), given by the caller instead
+    — a reader-fed program passes layers.read_file's outputs.
 
     use_fused_attention: every attention core through the fused flash op,
     feeds FUSED_FEED_NAMES (see prepare_batch; a scoring model needs only
@@ -290,7 +292,8 @@ def transformer(src_vocab_size, trg_vocab_size, max_length, n_layer=2,
         raise ValueError("use_fused_attention requires dropout_rate=0 "
                          "(attention-weight dropout can't run inside "
                          "the flash kernel)")
-    inputs = make_inputs(max_length, n_head, use_fused_attention)
+    if inputs is None:
+        inputs = make_inputs(max_length, n_head, use_fused_attention)
     src_word, src_pos, trg_word, trg_pos = inputs[:4]
     lbl_word, lbl_weight = inputs[-2:]
     if use_fused_attention:

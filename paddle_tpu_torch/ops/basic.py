@@ -478,7 +478,7 @@ def _assign_value(ctx, ins, attrs):
         raise KeyError("assign_value: none of values/fp32_values/int32_values "
                        "in attrs %r" % sorted(attrs))
     arr = np.asarray(vals, dtype=dtype).reshape(attrs["shape"])
-    return _out(torch.from_numpy(np.ascontiguousarray(arr)).to(ctx.device))
+    return _out(ctx.host_constant(arr))
 
 
 def _random(ctx, attrs, fill, shape=None):
@@ -584,8 +584,7 @@ def _print(ctx, ins, attrs):
 @register("shape")
 def _shape(ctx, ins, attrs):
     x = single(ins, "Input")
-    return _out(torch.tensor(list(x.shape), dtype=torch.int32,
-                             device=x.device))
+    return _out(ctx.host_constant(np.asarray(x.shape, dtype=np.int32)))
 
 
 @register("arg_max")
@@ -605,13 +604,13 @@ def _fill(ctx, ins, attrs):
     `dtype` (force_cpu places nothing: the program's device holds it)."""
     arr = np.asarray(attrs["value"], dtype=np.float32).reshape(
         attrs["shape"]).astype(_attr_np_dtype(attrs))
-    return _out(torch.from_numpy(np.ascontiguousarray(arr)).to(ctx.device))
+    return _out(ctx.host_constant(arr))
 
 
 @register("is_empty")
 def _is_empty(ctx, ins, attrs):
     x = single(ins, "X")
-    return _out(torch.tensor(x.numel() == 0, device=x.device))
+    return _out(ctx.host_constant(np.asarray(x.numel() == 0)))
 
 
 @register("multiplex")

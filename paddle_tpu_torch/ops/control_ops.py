@@ -17,8 +17,9 @@ lax.scan or lax.cond, so each loop is a Python loop over its sub-block
 - while runs its block while its condition holds: ONE host read of the
   condition per iteration, nothing else leaves the card. The loop
   carries (carry_names) are the vars the block writes that live outside
-  it. A host-read loop cannot be captured in a CUDA graph, so under
-  Executor.run(steps=K) it raises GraphCaptureError;
+  it. Under Executor.run(steps=K) on a card the loop is a conditional
+  while node of the captured graph, its condition set on the device
+  (_while_captured, csrc/graph_while.cu);
 - conditional_block runs its block on every run. Its scalar form selects
   each output against its previous value with torch.where on the
   condition (no host sync, so a Switch stays capturable); its row form
@@ -417,18 +418,160 @@ def _array_to_lod_tensor(ctx, op, env):
 
 # ---------------------------------------------------------------- while --
 
+def _run_body(ctx, sub, env, carry_names, vals, err, it):
+    """One iteration of a While body in a fork of `env` holding the
+    carries `vals` and PROGRAM_ERR `err`; iteration `it` salts the body's
+    random ops. Returns (benv, new carries, the swept overflow flag)."""
+    benv = env.fork()
+    if err is not None:
+        benv.write(PROGRAM_ERR, err)
+    for n, v in zip(carry_names, vals):
+        benv.write(n, v)
+    ctx._loop_iters.append(it)
+    try:
+        lower_sub_block(ctx, sub, benv)
+    finally:
+        ctx._loop_iters.pop()
+    vals = [benv.read(n) if isinstance(v, (TensorArray, RankTable))
+            else benv.read(n).to(v.dtype)
+            for n, v in zip(carry_names, vals)]
+    return benv, vals, _sweep_overflow(benv, err)
+
+
+def _carry_tensors(v):
+    """The tensors of a carry value, in a fixed order."""
+    if isinstance(v, TensorArray):
+        return [v.buffer, v.length, v.overflow]
+    if isinstance(v, RankTable):
+        return [v.lengths, v.index]
+    return [v]
+
+
+def _carry_like(v, tensors):
+    """A carry value of v's kind over `tensors` (_carry_tensors' order)."""
+    if isinstance(v, TensorArray):
+        return TensorArray(*tensors)
+    if isinstance(v, RankTable):
+        return RankTable(*tensors)
+    return tensors[0]
+
+
+def _while_captured(ctx, op, env, sub, cond_name, carry_names, vals, err,
+                    cond):
+    """A While inside a step that Executor.run(steps=K) captures on a
+    card: a conditional WHILE node of the graph (csrc/graph_while.cu).
+
+    Before the node: one fixed buffer for every carry tensor (a tensor
+    array's buffer, length and flag, a rank table's two tensors) holding
+    the carry's value on entry, and the overflow flag. The loop's
+    iteration counter is made in the warm-up, outside the graph: the
+    runner zeroes it before a call's replays and counts the body's kernel
+    launches by it after them, and a tensor the capture allocated could
+    share its memory with a temporary the graph writes earlier in each
+    replay. The entry condition is set on the device; the body is
+    captured ONCE into the node's body graph on a stream of its own,
+    allocating from a memory pool of its own, and ends by writing the new
+    carries into their buffers in place, ORing its overflow flags into
+    the flag buffer, counting the iteration and setting the condition.
+    The graph replays the body while the condition holds; the host reads
+    nothing.
+
+    During the runner's warm-up (on the card, not capturing, host reads
+    an error) the body runs ONCE on its stream with the condition unread:
+    enough to warm its kernels and the stream's state; that run's values
+    are never seen."""
+    from . import cuda_kernels as ck
+    capturing = torch.cuda.is_current_stream_capturing()
+    if op.uid not in ctx.while_state:
+        if capturing:
+            raise GraphCaptureError(
+                "op 'while' (uid %d) was captured without its warm-up run"
+                % op.uid)
+        ctx.while_state[op.uid] = (
+            torch.cuda.Stream(cond.device),
+            torch.zeros((), dtype=torch.int64, device=cond.device))
+    body_stream, iters = ctx.while_state[op.uid]
+    cur = torch.cuda.current_stream(cond.device)
+    if not capturing:
+        body_stream.wait_stream(cur)
+        with torch.cuda.stream(body_stream):
+            _, vals, err = _run_body(ctx, sub, env, carry_names, vals, err,
+                                     0)
+        cur.wait_stream(body_stream)
+        for v in vals:
+            for t in _carry_tensors(v):
+                t.record_stream(cur)
+        if err is not None:
+            err.record_stream(cur)
+        return vals, err
+    bufs = [_carry_like(v, [t.clone() for t in _carry_tensors(v)])
+            for v in vals]
+    err_buf = (err.reshape(()).clone() if err is not None else
+               torch.zeros((), dtype=torch.bool, device=cond.device))
+    entry = cond.reshape(-1)[:1].to(torch.bool).contiguous()
+    dev = cond.device.index
+    handle = ck.graph_while_begin(entry, body_stream)
+    before = ck.launch_snapshot()
+    pool = torch.cuda.graph_pool_handle()
+    try:
+        with torch.cuda.stream(body_stream):
+            torch._C._cuda_beginAllocateCurrentStreamToPool(dev, pool)
+            try:
+                benv, new, new_err = _run_body(
+                    ctx, sub, env, carry_names, bufs, err_buf, 0)
+                new_cond = benv.read(cond_name).reshape(-1)[:1].to(
+                    torch.bool).clone()
+                _write_carries(op, carry_names, bufs, new)
+                torch.logical_or(err_buf, new_err.reshape(()), out=err_buf)
+                iters.add_(1)
+                ck.set_while_condition(handle, new_cond)
+            finally:
+                torch._C._cuda_endAllocateToPool(dev, pool)
+    finally:
+        ck.graph_while_end(body_stream)
+    ctx.while_loops.append((iters, ck.take_launches(before), pool))
+    return bufs, err_buf
+
+
+def _write_carries(op, carry_names, bufs, new):
+    """The body's new carries into their buffers, in place. A new value
+    that shares storage with a buffer (a carry assigned from another) is
+    cloned first, so no copy reads a buffer an earlier copy wrote."""
+    ptrs = {lowering._storage_ptr(t) for b in bufs
+            for t in _carry_tensors(b)}
+    pairs = []
+    for name, b, v in zip(carry_names, bufs, new):
+        for bt, vt in zip(_carry_tensors(b), _carry_tensors(v)):
+            if vt is bt:
+                continue
+            if tuple(vt.shape) != tuple(bt.shape):
+                raise GraphCaptureError(
+                    "op 'while' (uid %d): loop carry %r changes shape from "
+                    "%s to %s inside the loop; a captured loop needs fixed "
+                    "carry shapes (as lax.while_loop does)"
+                    % (op.uid, name, tuple(bt.shape), tuple(vt.shape)))
+            if lowering._storage_ptr(vt) in ptrs:
+                vt = vt.clone()
+            pairs.append((bt, vt))
+    for bt, vt in pairs:
+        bt.copy_(vt)
+
+
 def _while(ctx, op, env):
     """The sub-block runs while the condition holds, in a fork of the Env
     per iteration holding the carries' current values; the iteration
-    index salts the body's random ops. The condition is read on the host
-    once before each iteration, and nothing else is. After the loop the
-    carries are written back, the condition set False, and the swept
-    overflow flags ORed into PROGRAM_ERR."""
-    if ctx.in_multi_step:
-        raise GraphCaptureError(
-            "op 'while' (uid %d) reads its condition on the host at every "
-            "iteration, which a CUDA graph cannot capture: run a program "
-            "with a While loop with steps=1" % op.uid)
+    index salts the body's random ops. Eagerly the condition is read on
+    the host once before each iteration, and nothing else is. After the
+    loop the carries are written back, the condition set False, and the
+    swept overflow flags ORed into PROGRAM_ERR.
+
+    Under Executor.run(steps=K) (ctx.in_multi_step) a While on the card
+    becomes a conditional while node of the captured step
+    (_while_captured); on the CPU it is the same host loop. A random op in
+    its body raises GraphCaptureError there (_StepCtx): a body the graph
+    replays would draw the same numbers every iteration. Its overflow
+    flag always reaches PROGRAM_ERR, so every step raises the same set of
+    assertion messages."""
     sub = ctx.program.blocks[op.attrs["sub_block"]]
     cond_name = op.inputs["Condition"][0]
     carry_names = list(op.attrs["carry_names"])
@@ -446,24 +589,24 @@ def _while(ctx, op, env):
             % missing)
     err = env.values.get(PROGRAM_ERR)
     cond = env.read(cond_name)
-    it = 0
-    while bool(cond.reshape(())):           # the loop's one host read
-        benv = env.fork()
-        if err is not None:
-            benv.write(PROGRAM_ERR, err)
-        for n, v in zip(carry_names, vals):
-            benv.write(n, v)
-        ctx._loop_iters.append(it)
-        try:
-            lower_sub_block(ctx, sub, benv)
-        finally:
-            ctx._loop_iters.pop()
-        vals = [benv.read(n) if isinstance(v, (TensorArray, RankTable))
-                else benv.read(n).to(v.dtype)
-                for n, v in zip(carry_names, vals)]
-        cond = benv.read(cond_name)
-        err = _sweep_overflow(benv, err)
-        it += 1
+    if ctx.in_multi_step:
+        ctx.while_depth += 1
+    try:
+        if ctx.in_multi_step and cond.device.type == "cuda":
+            vals, err = _while_captured(ctx, op, env, sub, cond_name,
+                                        carry_names, vals, err, cond)
+        else:
+            it = 0
+            while bool(cond.reshape(())):       # the loop's one host read
+                benv, vals, err = _run_body(ctx, sub, env, carry_names,
+                                            vals, err, it)
+                cond = benv.read(cond_name)
+                it += 1
+    finally:
+        if ctx.in_multi_step:
+            ctx.while_depth -= 1
+    if ctx.in_multi_step and err is None:
+        err = torch.zeros((), dtype=torch.bool, device=cond.device)
     for n, v in zip(carry_names, vals):
         env.write(n, v)
     env.write(cond_name, torch.zeros((1,), dtype=torch.bool,

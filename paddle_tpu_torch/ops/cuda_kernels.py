@@ -59,6 +59,9 @@ __all__ = ["build", "flash_attention_fwd", "flash_attention_fwd_plain",
            "FlashAttention", "LayerNorm", "SoftmaxXent", "FusedLSTM",
            "FusedLSTMP", "MaskedSoftmax", "MaskedPool", "launch_counts",
            "reset_launch_counts", "take_launches", "add_launches",
+           "add_device_launches", "launch_snapshot", "set_while_condition",
+           "set_while_condition_plain", "graph_while_begin",
+           "graph_while_end",
            "KERNEL_NAMES", "FLASH_HEAD_DIMS",
            "FLASH_DTYPES", "POOL_TYPES"]
 
@@ -69,7 +72,7 @@ SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
            "flash_attention_fwd_bf16.cu", "flash_attention_bwd_dkdv_bf16.cu",
            "flash_attention_bwd_dq_bf16.cu", "softmax_xent_fwd.cu",
            "layer_norm_fwd.cu", "fused_lstm_fwd.cu", "fused_lstmp_fwd.cu",
-           "masked_softmax_fwd.cu", "masked_pool_fwd.cu")
+           "masked_softmax_fwd.cu", "masked_pool_fwd.cu", "graph_while.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -90,8 +93,14 @@ KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
                 "flash_attention_bwd_dq", "softmax_xent_fwd",
                 "layer_norm_fwd", "fused_lstm", "fused_lstmp",
                 "masked_softmax", "masked_pool", "flash_attention_fwd_bf16",
-                "flash_attention_bwd_dkdv_bf16", "flash_attention_bwd_dq_bf16")
+                "flash_attention_bwd_dkdv_bf16", "flash_attention_bwd_dq_bf16",
+                "set_while_condition")
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
+# launches a replayed graph made inside its conditional while bodies:
+# {(name, device): a 0-d int64 tensor on that device}, each a running
+# total the replays' iteration counters are added into on the device and
+# read when the counts are next read
+_device_launches = {}
 
 
 class BuildInfo(object):
@@ -205,6 +214,20 @@ def _bind(lib):
     lib.ptt_masked_softmax_fwd.argtypes = [P, L, P, P, I, I, I, P]
     lib.ptt_masked_softmax_fwd.restype = I
     _bind_pool(lib)
+    _bind_graph_while(lib)
+
+
+def _bind_graph_while(lib):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    U = ctypes.c_ulonglong
+    lib.ptt_graph_while_begin.argtypes = [P, P, P, ctypes.POINTER(U)]
+    lib.ptt_graph_while_begin.restype = I
+    lib.ptt_graph_while_end.argtypes = [P]
+    lib.ptt_graph_while_end.restype = I
+    lib.ptt_set_while_condition.argtypes = [U, P, P]
+    lib.ptt_set_while_condition.restype = I
+    lib.ptt_cuda_error_string.argtypes = [I]
+    lib.ptt_cuda_error_string.restype = ctypes.c_char_p
 
 
 def _bind_pool(lib):
@@ -275,7 +298,19 @@ def _count(name, dtype=torch.float32):
 
 def launch_counts():
     """{kernel name: launches since the last reset}, in KERNEL_NAMES'
-    order."""
+    order. Launches made inside a replayed graph's while bodies are added
+    from their device totals, read here (one read a kernel and card),
+    after the run, never during it."""
+    with _count_lock:
+        counts = dict(_launches)
+        for (name, _), total in _device_launches.items():
+            counts[name] += int(total.item())
+        return counts
+
+
+def launch_snapshot():
+    """The host counts as they stand, without the device totals (a
+    capture in progress must not read the device)."""
     with _count_lock:
         return dict(_launches)
 
@@ -284,6 +319,7 @@ def reset_launch_counts():
     with _count_lock:
         for name in _launches:
             _launches[name] = 0
+        _device_launches.clear()
 
 
 def take_launches(before):
@@ -306,6 +342,22 @@ def add_launches(counts, times=1):
     with _count_lock:
         for name, n in counts.items():
             _launches[name] += n * times
+
+
+def add_device_launches(counts, iterations):
+    """Count `iterations` (a 0-d integer tensor on the device, not read
+    here) launches of each kernel in `counts`: the body of a conditional
+    while node, which ran as many times as the device decided. The
+    product is added on the device, in stream order, into one running
+    total a kernel and card, so the counter may be reset for the next
+    call right after this one."""
+    with _count_lock:
+        for name, n in counts.items():
+            key = (name, iterations.device)
+            if key not in _device_launches:
+                _device_launches[key] = torch.zeros(
+                    (), dtype=torch.int64, device=iterations.device)
+            _device_launches[key].add_(iterations, alpha=n)
 
 
 def _stream_of(t):
@@ -1857,3 +1909,68 @@ class MaskedPool(torch.autograd.Function):
             gf = gf / torch.sqrt(denom)
         m = step_mask(lens, b, t, g.device)[:, :, None]
         return (gf * m).to(ctx.dtype), None, None
+
+
+# ---------------------------------------------------------------------------
+# a while loop inside a captured CUDA graph (csrc/graph_while.cu; replaces
+# no TPU kernel: the JAX package's While is a lax.while_loop whose
+# predicate XLA evaluates on the device)
+# ---------------------------------------------------------------------------
+
+def _cond_arg(cond, what):
+    if cond.device.type != "cuda" or cond.dtype != torch.bool or \
+            cond.numel() != 1 or not cond.is_contiguous():
+        raise ValueError("%s takes a contiguous one-element bool tensor on "
+                         "a card; got %s %s on %s" % (
+                             what, cond.dtype, tuple(cond.shape),
+                             cond.device))
+
+
+def _graph_while_check(lib, err, what):
+    if err != 0:
+        from ..core.lowering import GraphCaptureError
+        raise GraphCaptureError("%s failed: %s (cudaError %d)" % (
+            what, lib.ptt_cuda_error_string(err).decode(), err))
+
+
+def set_while_condition_plain(cond):
+    """Plain version: the value the loop's handle takes, read on the host
+    (the eager loop's one read an iteration)."""
+    return bool(cond.reshape(()))
+
+
+def set_while_condition(handle, cond):
+    """Launch set_while_condition on the current stream: the conditional
+    handle `handle` (of a node being captured) takes cond's value on the
+    device. `cond`: a one-element bool tensor on the card."""
+    _cond_arg(cond, "set_while_condition")
+    lib = build()
+    _graph_while_check(lib, lib.ptt_set_while_condition(
+        handle, cond.data_ptr(), _stream_of(cond)), "set_while_condition")
+    _count("set_while_condition")
+
+
+def graph_while_begin(cond, body_stream):
+    """On the current stream, which is capturing a CUDA graph: a
+    conditional handle, set_while_condition(handle, cond) (the entry
+    test), a WHILE node after the stream's work (what the stream captures
+    next runs after the loop), and `body_stream` capturing into the
+    node's body graph. Returns the handle; end the body's capture with
+    graph_while_end(body_stream)."""
+    _cond_arg(cond, "graph_while_begin")
+    lib = build()
+    handle = ctypes.c_ulonglong()
+    _graph_while_check(lib, lib.ptt_graph_while_begin(
+        _stream_of(cond), ctypes.c_void_p(body_stream.cuda_stream),
+        cond.data_ptr(), ctypes.byref(handle)),
+        "adding a conditional while node to the captured graph")
+    _count("set_while_condition")
+    return handle.value
+
+
+def graph_while_end(body_stream):
+    """End the capture of a while node's body on `body_stream`."""
+    lib = build()
+    _graph_while_check(lib, lib.ptt_graph_while_end(
+        ctypes.c_void_p(body_stream.cuda_stream)),
+        "ending the capture of the while body")

@@ -23,12 +23,13 @@ from paddle_tpu.ops import pallas_kernels as pk
 from paddle_tpu_torch.ops import cuda_kernels as ck
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-# every counted kernel (K1-K9, then K1-K3's bf16 instantiations)
+# every counted kernel (K1-K9, K1-K3's bf16 instantiations, the while
+# node's set_while_condition)
 _KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
             "flash_attention_bwd_dq", "softmax_xent_fwd", "layer_norm_fwd",
             "fused_lstm", "fused_lstmp", "masked_softmax", "masked_pool",
             "flash_attention_fwd_bf16", "flash_attention_bwd_dkdv_bf16",
-            "flash_attention_bwd_dq_bf16")
+            "flash_attention_bwd_dq_bf16", "set_while_condition")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -14,7 +14,7 @@ port against the JAX package, on the CPU.
   the port copies on the device). A While carry with no value before the
   loop raises the JAX package's ValueError; a Python int index past the
   capacity raises IndexError; Executor.run(steps=4) on a program with a
-  While raises GraphCaptureError naming the op.
+  While gives the JAX package's steps=4 fetches.
 - Rank tables (tests/unittests/test_rank_table_ops.py): max_sequence_len,
   reorder_lod_tensor_by_rank (the permuted lengths reach sequence_pool),
   lod_tensor_to_array and back, array_read of rank-ordered steps,
@@ -37,7 +37,6 @@ from paddle_tpu.core.lod import LoDTensor as JLoDTensor
 import paddle_tpu_torch as tfluid
 from paddle_tpu_torch.core import program_desc as tdesc
 from paddle_tpu_torch.core.lod import LoDTensor as TLoDTensor
-from paddle_tpu_torch.core.lowering import GraphCaptureError
 from paddle_tpu_torch.ops.control_ops import TensorArray
 
 TOL = dict(rtol=1e-6, atol=1e-6)
@@ -62,7 +61,8 @@ def _run(fluid, build, feed=None, steps=1):
         with jfluid.scope_guard(scope):
             exe.run(startup)
             return [np.asarray(v) for v in
-                    exe.run(main, feed=feed, fetch_list=list(fetch))]
+                    exe.run(main, feed=feed, fetch_list=list(fetch),
+                            steps=steps)]
     exe, scope = tfluid.Executor("cpu"), tfluid.Scope()
     exe.run(startup, scope=scope)
     return exe.run(main, feed=feed, fetch_list=list(fetch), scope=scope,
@@ -297,8 +297,15 @@ def test_python_int_index_past_capacity_raises_index_error():
 
 
 def test_multi_step_while_raises_graph_capture_error():
-    with pytest.raises(GraphCaptureError, match="op 'while'"):
-        _run(tfluid, loop_program(16, 3), steps=4)
+    """Executor.run(steps=4) on a program with a While raised
+    GraphCaptureError until the loop could run inside a captured step (a
+    conditional while node on the card, the host loop on the CPU): now
+    the four steps' stacked fetches equal the JAX package's steps=4."""
+    jout = _run(jfluid, loop_program(16, 3), steps=4)
+    tout = _run(tfluid, loop_program(16, 3), steps=4)
+    assert [t.shape for t in tout] == [(4, 4), (4, 1)]
+    for j, t in zip(jout, tout):
+        np.testing.assert_allclose(t, j, **TOL)
 
 
 # --------------------------------------------------------- rank tables --

@@ -146,8 +146,11 @@ def test_movielens_metadata_is_the_synthetic_tables():
 
 
 def test_movielens_refuses_the_real_file(tmp_path, monkeypatch):
-    """With ml-1m.zip under the data home the JAX package sizes itself from
-    it; the port's copy raises instead of building other widths."""
+    """With ml-1m.zip under the data home both packages size the
+    recommender from it (tests/test_torch_datasets.py reads a valid one);
+    a file that is no zip is refused by each metadata function, as the
+    JAX package refuses it, and nothing is cached."""
+    import zipfile
     from paddle_tpu_torch.datasets import common
     (tmp_path / "movielens").mkdir()
     (tmp_path / "movielens" / "ml-1m.zip").write_bytes(b"")
@@ -155,8 +158,9 @@ def test_movielens_refuses_the_real_file(tmp_path, monkeypatch):
     for fn in (movielens.max_user_id, movielens.max_movie_id,
                movielens.max_job_id, movielens.movie_categories,
                movielens.get_movie_title_dict):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        with pytest.raises(zipfile.BadZipFile):
             fn()
+    assert movielens._REAL_CACHE is None
 
 
 # ------------------------------------------------------------- training --
