@@ -564,6 +564,40 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               from the runs' spans (exec/host_io inline, the staging
               thread's exec/prefetch_stage). A `reader_summary:` line
               sums up.
+33. persistence — A8's persistence half (PERSIST): (a) phase 32's bf16
+              Transformer-base program fed from ONE recordio file of the
+              16 batches (open_recordio_file -> double_buffer ->
+              read_file, a fixed record order) at steps=4,
+              prefetch=True: 4 calls with an async CheckpointManager
+              save of step 8 after call 2 (0 synchronizing calls on the
+              training thread), then a fresh scope, executor and reader
+              restored from it (restore() returns 8, the reader's
+              state_dict equal) for 2 calls: losses of steps 9-16 and
+              every parameter and Adam moment bit-equal to the straight
+              run under deterministic algorithms, K1-K5 18/18/18/1/32 a
+              step through the bf16 K1-K3; then call ms with no save in
+              flight and with the writer running (PERSIST["timed_calls"]
+              each). (b) phase 20's dropout program at steps=4 saved
+              after call 1 and resumed for calls 2-3: bit-equal, the
+              seed cursor restored, K5 32 a step. (c) (a)'s step-8
+              snapshot served by InferenceEngine.from_checkpoint at
+              phase 4's buckets and requests, in fp32 and with
+              weights_dtype="bf16", each bit-equal to an engine over
+              save_inference_model of the restored scope with the same
+              weights_dtype; the pruned program keeps the training
+              program's mixed precision, so both launch the bf16 K1 (18)
+              and K5 (32) a dispatch; with the newest snapshot's largest
+              parameter file bit-flipped, from_checkpoint serves step 8.
+              (d) Three models written by io.save_reference_model and
+              served by InferenceEngine(model_format="reference") and a
+              ModelServer :predict: test_era_export_roundtrip_
+              transformer_encoder's classifier at Transformer-base's
+              widths (params_filename "__params__"; K5 13 a dispatch),
+              phase 6's stacked LSTM (LoD feeds through
+              adapt_sequence_layout; K6 3) and conv net (K9 2), each
+              within rtol 1e-4, atol 1e-5 of its native engine on the
+              same requests. Snapshots go under a temporary directory
+              the phase removes. A `persistence_summary:` line sums up.
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run; the bf16 flash kernels counted under
@@ -7996,15 +8030,17 @@ def reader_batches(transformer):
     return out
 
 
-def write_reader_files(fluid, transformer, feed_main, batches, tmp):
+def write_reader_files(fluid, transformer, feed_main, batches, tmp,
+                       files=None):
     """The batches, through a DataFeeder over the feed-fed program's data
-    vars and recordio_writer, into READER["files"] recordio files (the
-    batches dealt out in turn); returns the paths."""
+    vars and recordio_writer, into `files` (default READER["files"])
+    recordio files (the batches dealt out in turn); returns the paths."""
+    files = files or READER["files"]
     names = transformer.FUSED_FEED_NAMES
     feeder = fluid.DataFeeder(feed_list=names, program=feed_main)
     paths = []
-    for f in range(READER["files"]):
-        mine = batches[f::READER["files"]]
+    for f in range(files):
+        mine = batches[f::files]
 
         def rows():
             for b in mine:
@@ -8013,36 +8049,42 @@ def write_reader_files(fluid, transformer, feed_main, batches, tmp):
         path = os.path.join(tmp, "transformer_%d.recordio" % f)
         check(fluid.recordio_writer.convert_reader_to_recordio_file(
             path, rows, feeder=feeder) == len(mine),
-            "phase 32: recordio_writer wrote a short file")
+            "recordio_writer wrote a short file")
         paths.append(path)
     return paths
 
 
 def transformer_reader_program(fluid, transformer, paths):
-    """Phase 19's bf16 Transformer-base training program fed by
-    open_files -> double_buffer -> read_file: (main, startup, avg_cost,
-    the read src_word var, the reader var)."""
+    """Phase 19's bf16 Transformer-base training program fed through a
+    double buffer: open_files over `paths` (READER["threads"] threads) or,
+    for one path, open_recordio_file (a fixed record order), then
+    double_buffer -> read_file. Returns (main, startup, avg_cost, the read
+    vars in FUSED_FEED_NAMES order, the reader var, predict)."""
     kwargs = dict(TRAIN_VARIANTS["bf16"])
     kwargs.pop("amp")
     t = MODEL["max_length"]
     main, startup = fluid.Program(), fluid.Program()
     startup.random_seed = SEED
     main.enable_mixed_precision()
+    spec = dict(shapes=[[-1, t]] * 4 + [[-1, 1]] * 2 + [[-1, t, 1]] * 2,
+                lod_levels=[0] * 8,
+                dtypes=["int64"] * 4 + ["int32"] * 2 + ["int64", "float32"])
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
-        reader = fluid.layers.open_files(
-            filenames=paths, thread_num=READER["threads"],
-            shapes=[[-1, t]] * 4 + [[-1, 1]] * 2 + [[-1, t, 1]] * 2,
-            lod_levels=[0] * 8,
-            dtypes=["int64"] * 4 + ["int32"] * 2 + ["int64", "float32"])
+        if len(paths) == 1:
+            reader = fluid.layers.open_recordio_file(filename=paths[0],
+                                                     **spec)
+        else:
+            reader = fluid.layers.open_files(
+                filenames=paths, thread_num=READER["threads"], **spec)
         reader = fluid.layers.double_buffer(reader)
         inputs = fluid.layers.read_file(reader)
-        _, avg_cost, _ = transformer.build_train(
+        _, avg_cost, predict = transformer.build_train(
             MODEL["vocab"], MODEL["vocab"], t, d_model=MODEL["d_model"],
             warmup_steps=WARMUP_STEPS, n_layer=N_LAYER,
             n_head=MODEL["n_head"], d_key=MODEL["d_key"],
             d_value=MODEL["d_key"], d_inner_hid=MODEL["d_inner"],
             label_smooth_eps=0.1, inputs=tuple(inputs), **kwargs)
-    return main, startup, avg_cost, inputs[0], reader
+    return main, startup, avg_cost, list(inputs), reader, predict
 
 
 def run_reader_training(torch, card):
@@ -8071,8 +8113,9 @@ def run_reader_training(torch, card):
         paths = write_reader_files(fluid, transformer, feed_main, batches,
                                    tmp)
         write_s = time.perf_counter() - t0
-        main, startup, avg_cost, src_var, reader_var = \
+        main, startup, avg_cost, inputs, reader_var, _ = \
             transformer_reader_program(fluid, transformer, paths)
+        src_var = inputs[0]
         exe = fluid.Executor()
         ref_scope, scope = fluid.Scope(), fluid.Scope()
         exe.run(feed_startup, scope=ref_scope)
@@ -8205,6 +8248,575 @@ def run_reader_training(torch, card):
         return (counts, expected), report
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ----------------------------------------------------------- persistence --
+
+# phase 33: A8's persistence half. (a) phase 32's bf16 Transformer-base
+# program fed from ONE recordio file of its 16 batches (a fixed record
+# order) at steps=4, prefetch=True: 4 calls straight through with an
+# async save after call 2, then a fresh scope, executor and reader
+# resumed from it for 2 calls; (b) phase 20's dropout program at steps=4,
+# saved after call 1 and resumed for call 2; (c) (a)'s step-8 snapshot
+# served by from_checkpoint; (d) three era-wire models served.
+PERSIST = dict(steps=4, calls=4, save_after=2, resume_calls=2,
+               timed_calls=8)
+ERA_TOL = dict(rtol=1e-4, atol=1e-5)  # the JAX era-wire tests' tolerance
+ERA_ENCODER_CLASSES = 4   # test_era_export_roundtrip_transformer_encoder's
+
+
+def _k5_ops(ops):
+    """layer_norm ops with a scale and a bias: one K5 launch each."""
+    return sum(op.type == "layer_norm" and bool(op.inputs.get("Scale"))
+               and bool(op.inputs.get("Bias")) for op in ops)
+
+
+def persist_resume_bf16(torch, card, tmp):
+    """Phase 33 (a). Returns ((the resumed run's second call's launch
+    counts, 4 x a bf16 step's), the report, what (c) serves)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    tag = "persistence (a):"
+    k, calls, after = PERSIST["steps"], PERSIST["calls"], \
+        PERSIST["save_after"]
+    feed_main, _, _ = build_train(fluid, transformer, N_LAYER,
+                                  variant="bf16")
+    batches = reader_batches(transformer)
+    paths = write_reader_files(fluid, transformer, feed_main, batches, tmp,
+                               files=1)
+    main, startup, avg_cost, inputs, reader_var, predict = \
+        transformer_reader_program(fluid, transformer, paths)
+    ckdir = os.path.join(tmp, "ckpt")
+
+    def fresh():
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        return exe, scope
+
+    def call(exe, scope):
+        return exe.run(main, fetch_list=[avg_cost], scope=scope, steps=k,
+                       prefetch=True)[0].reshape(-1)
+
+    report = {"card": card}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        exe, scope = fresh()
+        reader = scope.get(reader_var.name)
+        mgr = CheckpointManager(ckdir)
+        losses, call_ms_list, in_flight = [], [], []
+        handle = None
+        for c in range(calls):
+            if c == after:
+                # the training thread's syncs: the writer's copies (on
+                # its own thread, after the event) are not the capture's
+                handle, _, syncs = _sync_warnings(
+                    torch, lambda: mgr.save(k * c, program=main,
+                                            scope=scope),
+                    tag, through=("_capture_job",))
+                at_save = reader.state_dict()
+            ts = time.perf_counter()
+            losses.append(call(exe, scope))
+            call_ms_list.append((time.perf_counter() - ts) * 1e3)
+            in_flight.append(handle is not None and not handle.done())
+        handle.result(600)
+        mgr.close()
+        straight = host_state(scope)
+        report.update(
+            save_capture_ms=handle.capture_seconds * 1e3,
+            save_synchronizing_calls=syncs,
+            writer_s=handle.write_seconds,
+            snapshot_bytes=handle.bytes_written,
+            call_ms=call_ms_list, save_in_flight_after_call=in_flight,
+            reader_at_save=at_save)
+        print("%s save(%d) on the training thread %.2f ms, %d synchronizing "
+              "calls; the writer %.2f s for %d bytes; calls %s ms (a save "
+              "in flight at the end of each: %s)"
+              % (tag, k * after, handle.capture_seconds * 1e3, syncs,
+                 handle.write_seconds, handle.bytes_written,
+                 ["%.1f" % m for m in call_ms_list], in_flight))
+        check(syncs == 0, "%s save() made %d synchronizing calls"
+              % (tag, syncs))
+
+        # resume: a fresh scope, executor and reader
+        exe_b, scope_b = fresh()
+        ts = time.perf_counter()
+        with CheckpointManager(ckdir) as mgr_b:
+            step = mgr_b.restore(program=main, scope=scope_b,
+                                 executor=exe_b)
+        torch.cuda.synchronize()
+        report["restore_s"] = time.perf_counter() - ts
+        check(step == k * after, "%s restore() returned %r, expected %d"
+              % (tag, step, k * after))
+        restored_reader = scope_b.get(reader_var.name).state_dict()
+        check(restored_reader == at_save, "%s the restored reader's "
+              "state_dict %s, the straight run's at step %d %s"
+              % (tag, restored_reader, step, at_save))
+        # (c)'s reference: save_inference_model of the feed-fed program
+        # from the restored scope, before it trains on
+        native_dir = os.path.join(tmp, "native_step_%d" % step)
+        fluid.io.save_inference_model(
+            native_dir, transformer.SCORING_FEED_NAMES, [predict.name],
+            exe_b, feed_main, scope=scope_b)
+        resumed = [call(exe_b, scope_b)]
+        ck.reset_launch_counts()
+        resumed.append(call(exe_b, scope_b))
+        counts = ck.launch_counts()
+        resumed_state = host_state(scope_b)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    got = [float(x) for x in np.concatenate(resumed)]
+    want = [float(x) for x in np.concatenate(losses[after:])]
+    check(got == want, "%s the resumed losses of steps %d-%d %s differ from "
+          "the straight run's %s" % (tag, k * after + 1, k * calls, got,
+                                     want))
+    same, err, err_at = state_diff(
+        torch, straight, {n: resumed_state[n] for n in straight})
+    check(same, "%s the state after the resumed run differs from the "
+          "straight run's (%s by %r)" % (tag, err_at, err))
+    check(np.isfinite(want).all(), "%s losses %s" % (tag, want))
+    expected = dict.fromkeys(counts, 0)
+    expected.update({"flash_attention_fwd_bf16": 18 * k,
+                     "flash_attention_bwd_dkdv_bf16": 18 * k,
+                     "flash_attention_bwd_dq_bf16": 18 * k,
+                     "softmax_xent_fwd": k, "layer_norm_fwd": 32 * k})
+    report.update(losses_resumed=got, bit_equal=True,
+                  launches_per_step={n: c / k for n, c in counts.items()
+                                     if c})
+    print("%s restore %.2f s; steps %d-%d bit-equal to the straight run "
+          "(losses and %d arrays), the reader %s"
+          % (tag, report["restore_s"], k * after + 1, k * calls,
+             len(straight), restored_reader))
+    report["timing"] = persist_save_timing(
+        torch, lambda: call(exe, scope), reader,
+        lambda mgr: mgr.save(0, program=main, scope=scope),
+        os.path.join(tmp, "ckpt_timing"))
+    # the newest snapshot, for (c)'s walk-back: the straight run's end
+    with CheckpointManager(ckdir) as mgr:
+        mgr.save(k * calls, program=main, scope=scope, wait=True)
+    del scope, scope_b, straight, resumed_state
+    exe._cache.clear()
+    exe_b._cache.clear()
+    torch.cuda.empty_cache()
+    served = dict(ckdir=ckdir, step=k * after, native_dir=native_dir,
+                  predict=predict.name, read_names=[v.name for v in inputs])
+    return (counts, expected), report, served
+
+
+def persist_save_timing(torch, call, reader, save, ckdir):
+    """The steps=4 call's wall ms (host clock, the loss fetched) over
+    PERSIST["timed_calls"] calls with no save in flight, then as many
+    right after an async save (the writer running through them), the
+    reader reset before each pass of its records; the save's capture ms
+    and the writer's seconds. The snapshot is written to `ckdir`, apart
+    from the checked ones, and removed."""
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.core.dispatch import rollback_all_staged
+    n = PERSIST["timed_calls"]
+    per_pass = READER["batches"] // PERSIST["steps"]
+
+    def calls(flags=None, handle=None):
+        out = []
+        for i in range(n):
+            if i % per_pass == 0:
+                rollback_all_staged()
+                reader.reset()
+            ts = time.perf_counter()
+            call()
+            out.append((time.perf_counter() - ts) * 1e3)
+            if flags is not None:
+                flags.append(not handle.done())
+        return out
+    calls()                      # warm: every call after a reset alike
+    without = calls()
+    rollback_all_staged()
+    reader.reset()
+    with CheckpointManager(ckdir) as mgr:
+        flags = []
+        handle = save(mgr)
+        with_save = calls(flags, handle)
+        handle.result(600)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    return {"call_ms_without_save": without,
+            "call_ms_with_save_in_flight": with_save,
+            "save_in_flight_after_call": flags,
+            "median_without": statistics.median(without),
+            "median_with": statistics.median(with_save),
+            "capture_ms": handle.capture_seconds * 1e3,
+            "writer_s": handle.write_seconds}
+
+
+def persist_resume_dropout(torch, card, tmp):
+    """Phase 33 (b): phase 20's dropout program at steps=4, 3 calls
+    straight through with a save after call 1; then a fresh scope and
+    executor resumed from it for calls 2 and 3 (a runner's first call
+    also counts the launches its capture records, so the second is the
+    one counted)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+
+    tag = "persistence (b):"
+    k = PERSIST["steps"]
+    main, startup, avg_cost, feed = multistep_program(
+        fluid, "transformer_dropout")
+    ckdir = os.path.join(tmp, "ckpt_dropout")
+
+    def call(exe, scope):
+        return exe.run(main, feed=feed, fetch_list=[avg_cost], scope=scope,
+                       steps=k)[0].reshape(-1)
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        exe, scope = fluid.Executor(), fluid.Scope()
+        exe.run(startup, scope=scope)
+        call(exe, scope)
+        with CheckpointManager(ckdir, async_save=False) as mgr:
+            mgr.save(k, program=main, scope=scope)
+        cursor = scope.seed_state()
+        want = np.concatenate([call(exe, scope), call(exe, scope)])
+        straight = host_state(scope)
+        exe_b, scope_b = fluid.Executor(), fluid.Scope()
+        exe_b.run(startup, scope=scope_b)
+        with CheckpointManager(ckdir) as mgr:
+            check(mgr.restore(program=main, scope=scope_b,
+                              executor=exe_b) == k,
+                  "%s restore() did not return %d" % (tag, k))
+        check(scope_b.seed_state() == cursor, "%s the seed cursor %d, "
+              "saved %d" % (tag, scope_b.seed_state(), cursor))
+        got = [call(exe_b, scope_b)]
+        ck.reset_launch_counts()
+        got.append(call(exe_b, scope_b))
+        counts = ck.launch_counts()
+        got = np.concatenate(got)
+        resumed_state = host_state(scope_b)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    check(np.array_equal(got, want), "%s the resumed losses %s differ from "
+          "the straight run's %s" % (tag, got.tolist(), want.tolist()))
+    same, err, err_at = state_diff(
+        torch, straight, {n: resumed_state[n] for n in straight})
+    check(same, "%s the state differs (%s by %r)" % (tag, err_at, err))
+    expected = dict.fromkeys(counts, 0)
+    expected["layer_norm_fwd"] = 32 * k
+    print("%s steps %d-%d bit-equal after resuming at step %d (seed cursor "
+          "%d; losses %s)" % (tag, k + 1, 3 * k, k, cursor,
+                              [float(x) for x in got]))
+    del scope, scope_b
+    exe._cache.clear()
+    exe_b._cache.clear()
+    torch.cuda.empty_cache()
+    return (counts, expected), {"losses_resumed": [float(x) for x in got],
+                                "seed_cursor": cursor, "bit_equal": True,
+                                "card": card}
+
+
+def persist_from_checkpoint(torch, card, served):
+    """Phase 33 (c): (a)'s step-8 snapshot served by from_checkpoint in fp32
+    and with bf16 weights, each against an engine over save_inference_model
+    of the restored scope with the same weights_dtype; then the walk-back
+    past a corrupt newest snapshot. Returns the paths and the report."""
+    from paddle_tpu_torch.checkpoint import load_manifest
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    tag = "persistence (c):"
+    predict, step = served["predict"], served["step"]
+    requests = scoring_requests(transformer)
+    rename = dict(zip(transformer.SCORING_FEED_NAMES, served["read_names"]))
+    ck_requests = [{rename[n]: v for n, v in r.items()} for r in requests]
+    paths, report, first = [], {"card": card}, None
+    for dtype in ("fp32", "bf16"):
+        ts = time.perf_counter()
+        engine = InferenceEngine.from_checkpoint(
+            served["ckdir"], [predict], step=step, batch_buckets=[1, 4, 8],
+            weights_dtype=dtype, name="ckpt_%s" % dtype)
+        engine.run_direct(ck_requests[0])
+        first_s = time.perf_counter() - ts
+        ref = InferenceEngine(served["native_dir"], batch_buckets=[1, 4, 8],
+                              weights_dtype=dtype)
+        try:
+            check(engine.checkpoint_step == step and sorted(
+                engine.feed_names) == sorted(rename[n] for n in
+                                             transformer.SCORING_FEED_NAMES),
+                  "%s engine at step %s with feeds %s" % (
+                      tag, engine.checkpoint_step, engine.feed_names))
+            ops = engine.program.global_block().ops
+            n_flash = sum(op.type == "fused_attention" for op in ops)
+            n_ln = _k5_ops(ops)
+            ck.reset_launch_counts()
+            batches0 = engine.metrics.snapshot()["batches_total"]
+            answers, latencies, futures, wall = serve_burst(
+                engine, ck_requests, predict)
+            counts = ck.launch_counts()
+            batches = engine.metrics.snapshot()["batches_total"] - batches0
+            diff = 0.0
+            for i, fut in enumerate(futures):
+                mine = engine.run_direct(ck_requests[i],
+                                         batch_bucket=fut.bucket[0])[0]
+                theirs = ref.run_direct(requests[i],
+                                        batch_bucket=fut.bucket[0])[0]
+                check(np.array_equal(mine[predict], theirs[predict]),
+                      "%s %s request %d: from_checkpoint differs from the "
+                      "save_inference_model engine by %r" % (
+                          tag, dtype, i, float(np.abs(
+                              mine[predict] - theirs[predict]).max())))
+                diff = max(diff, float(np.abs(
+                    mine[predict] - answers[i]).max()))
+            check(diff <= BUCKET_TOL and all(
+                np.isfinite(a).all() for a in answers),
+                "%s %s coalesced answers differ from run_direct by %r"
+                % (tag, dtype, diff))
+            if dtype == "fp32":
+                first = engine.run_direct(ck_requests[0],
+                                          batch_bucket=1)[0][predict]
+        finally:
+            engine.close()
+            ref.close()
+        # the pruned program keeps the training program's mixed precision
+        # (both packages): every fused_attention runs the bf16 K1
+        expected = dict.fromkeys(counts, 0)
+        expected.update(flash_attention_fwd_bf16=n_flash * batches,
+                        layer_norm_fwd=n_ln * batches)
+        paths.append(("persistence_from_checkpoint_" + dtype,
+                      (counts, expected)))
+        lat = sorted(x * 1e3 for x in latencies)
+        report[dtype] = {
+            "first_answer_s": first_s, "batches": batches,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)), "wall_s": wall,
+            "launches_per_dispatch": {n: c / batches for n, c in
+                                      counts.items() if c},
+            "bucket_max_diff": diff, "bit_equal_to_native": True}
+        print("%s %s: first answer %.1f s after the call, launches %s over "
+              "%d dispatches, bit-equal to save_inference_model's engine"
+              % (tag, dtype, first_s, counts, batches))
+    # the walk-back: the newest snapshot's largest parameter file flipped
+    newest = os.path.join(served["ckdir"], "step_%d" % (
+        PERSIST["steps"] * PERSIST["calls"]))
+    manifest = load_manifest(newest)
+    victim = max((e for e in manifest.values() if e.get("is_param")),
+                 key=lambda e: os.path.getsize(os.path.join(newest,
+                                                            e["file"])))
+    with open(os.path.join(newest, victim["file"]), "r+b") as f:
+        f.seek(-1, os.SEEK_END)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_END)
+        f.write(bytes([b[0] ^ 0xFF]))
+    engine = InferenceEngine.from_checkpoint(
+        served["ckdir"], [predict], batch_buckets=[1], warmup=False)
+    try:
+        got = engine.run_direct(ck_requests[0], batch_bucket=1)[0][predict]
+        back = engine.checkpoint_step
+    finally:
+        engine.close()
+    check(back == step, "%s with %s flipped the engine serves step %s, "
+          "expected %d" % (tag, victim["file"], back, step))
+    check(np.array_equal(got, first), "%s the walked-back engine's answer "
+          "differs from step %d's fp32 engine's" % (tag, step))
+    report["walk_back"] = {"flipped": victim["file"], "served_step": back}
+    print("%s %s flipped in the newest snapshot: from_checkpoint served "
+          "step %d" % (tag, victim["file"], back))
+    torch.cuda.empty_cache()
+    return paths, report
+
+
+def build_era_encoder(fluid, transformer):
+    """test_era_export_roundtrip_transformer_encoder's classifier at
+    Transformer-base's widths (MODEL, N_LAYER layers, dense attention):
+    (main, startup, feed names, prediction)."""
+    t, h = MODEL["max_length"], MODEL["n_head"]
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src = fluid.layers.data(name="src", shape=[t, 1], dtype="int64")
+        pos = fluid.layers.data(name="pos", shape=[t, 1], dtype="int64")
+        bias = fluid.layers.data(name="bias", shape=[h, t, t],
+                                 dtype="float32")
+        enc_in = transformer.prepare_encoder(src, pos, MODEL["vocab"],
+                                             MODEL["d_model"], t)
+        enc = transformer.encoder(
+            enc_in, bias, n_layer=N_LAYER, n_head=h, d_key=MODEL["d_key"],
+            d_value=MODEL["d_key"], d_model=MODEL["d_model"],
+            d_inner_hid=MODEL["d_inner"])
+        pooled = fluid.layers.reduce_mean(enc, dim=[1])
+        pred = fluid.layers.fc(input=pooled, size=ERA_ENCODER_CLASSES,
+                               act="softmax")
+    return main, startup, ["src", "pos", "bias"], pred
+
+
+def era_encoder_requests(n=16):
+    """One-sentence requests of 32-256 tokens: ids, positions and the
+    attention bias (-1e9 on padded keys)."""
+    t, h = MODEL["max_length"], MODEL["n_head"]
+    rng = np.random.RandomState(SEED + 330)
+    out = []
+    for length in rng.randint(t // 8, t + 1, size=n):
+        src = np.zeros((1, t, 1), "int64")
+        src[0, :length, 0] = rng.randint(3, MODEL["vocab"], length)
+        pos = np.arange(t, dtype="int64").reshape(1, t, 1)
+        bias = np.zeros((1, h, t, t), "float32")
+        bias[..., length:] = -1e9
+        out.append({"src": src, "pos": pos, "bias": bias})
+    return out
+
+
+def persist_era_models(torch, card, tmp):
+    """Phase 33 (d): three models written by io.save_reference_model and
+    served through InferenceEngine(model_format="reference") and a
+    ModelServer, against the native engines of the same models on the
+    same requests. Returns the paths and the report."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import InferenceEngine, ModelServer
+
+    tag = "persistence (d):"
+    rng = np.random.RandomState(SEED + 3)   # phase 6's requests
+    lod_requests = [{"words": [rng.randint(0, SENTIMENT["dict_dim"],
+                                           (int(n), 1)).astype("int64")]}
+                    for n in rng.randint(16, 257, size=16)]
+    models = [("encoder", "__params__", era_encoder_requests())]
+    models += [(kind, None, lod_requests) for kind in ("lstm", "conv")]
+    paths, report, engines = [], {"card": card}, {}
+    try:
+        for kind, params_file, requests in models:
+            if kind == "encoder":
+                main, startup, feeds, pred = build_era_encoder(fluid,
+                                                               transformer)
+                seq_buckets = None
+            else:
+                main, startup, pred = build_sentiment(fluid, kind)
+                feeds, seq_buckets = ["words"], SEQ_BUCKETS
+            exe, scope = fluid.Executor(), fluid.Scope()
+            exe.run(startup, scope=scope)
+            era = os.path.join(tmp, "era_" + kind)
+            native = os.path.join(tmp, "native_" + kind)
+            ts = time.perf_counter()
+            fluid.io.save_reference_model(era, feeds, [pred], exe,
+                                          main_program=main, scope=scope,
+                                          params_filename=params_file)
+            save_s = time.perf_counter() - ts
+            fluid.io.save_inference_model(native, feeds, [pred], exe, main,
+                                          scope=scope)
+            del scope
+            ts = time.perf_counter()
+            engine = InferenceEngine(era, name="era_" + kind,
+                                     model_format="reference",
+                                     params_filename=params_file,
+                                     batch_buckets=[1, 4, 8],
+                                     seq_buckets=seq_buckets)
+            load_s = time.perf_counter() - ts
+            engines[kind] = engine
+            ts = time.perf_counter()
+            fluid.io.load_reference_model(era, fluid.Executor(),
+                                          scope=fluid.Scope(),
+                                          params_filename=params_file)
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - ts
+            ref = InferenceEngine(native, batch_buckets=[1, 4, 8],
+                                  seq_buckets=seq_buckets)
+            try:
+                ops = engine.program.global_block().ops
+                per = {"layer_norm_fwd": _k5_ops(ops)}
+                if kind != "encoder":
+                    per = sentiment_launches(ops)
+                fetch = engine.fetch_names[0]
+                ck.reset_launch_counts()
+                batches0 = engine.metrics.snapshot()["batches_total"]
+                answers, latencies, futures, wall = serve_burst(
+                    engine, requests, fetch)
+                counts = ck.launch_counts()
+                batches = engine.metrics.snapshot()["batches_total"] \
+                    - batches0
+                worst = 0.0
+                for i, fut in enumerate(futures):
+                    want = ref.run_direct(requests[i],
+                                          batch_bucket=fut.bucket[0],
+                                          seq_bucket=fut.bucket[1])[0][fetch]
+                    check(np.allclose(answers[i], want, **ERA_TOL) and
+                          np.isfinite(answers[i]).all(),
+                          "%s %s request %d: the era-wire engine differs "
+                          "from the native one by %r" % (
+                              tag, kind, i,
+                              float(np.abs(answers[i] - want).max())))
+                    worst = max(worst, float(np.abs(answers[i] - want)
+                                             .max()))
+            finally:
+                ref.close()
+            expected = dict.fromkeys(counts, 0)
+            expected.update({n: c * batches for n, c in per.items()})
+            paths.append(("persistence_era_" + kind, (counts, expected)))
+            lat = sorted(x * 1e3 for x in latencies)
+            report[kind] = {
+                "save_s": save_s, "engine_load_and_warmup_s": load_s,
+                "load_reference_model_s": read_s, "batches": batches,
+                "max_abs_diff_vs_native": worst,
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99)),
+                "launches_per_dispatch": per,
+                "ops": len(ops), "files": len(os.listdir(era))}
+            print("%s %s: saved %.1f s, read back %.1f s, engine loaded and "
+                  "warmed %.1f s, launches %s over %d dispatches, max |era - "
+                  "native| %.3e" % (tag, kind, save_s, read_s, load_s,
+                                    counts, batches, worst))
+        server = ModelServer({e.name: e for e in engines.values()},
+                             port=0).start()
+        try:
+            base = "http://%s" % server.address
+            for kind, _, requests in models:
+                engine = engines[kind]
+                inputs = {n: ({"sequences": [s.tolist() for s in v]}
+                              if isinstance(v, list) else v.tolist())
+                          for n, v in requests[0].items()}
+                resp = json.loads(http_json(
+                    base + "/v1/models/%s:predict" % engine.name,
+                    {"inputs": inputs}).read())
+                fetch = engine.fetch_names[0]
+                got = np.asarray(resp["outputs"][fetch], dtype="float32")
+                want = engine.run_direct(requests[0],
+                                         batch_bucket=resp["bucket"][0],
+                                         seq_bucket=resp["bucket"][1])[0]
+                check(np.allclose(got, want[fetch], rtol=0,
+                                  atol=BUCKET_TOL),
+                      "%s %s :predict differs from run_direct" % (tag, kind))
+        finally:
+            server.shutdown()
+    finally:
+        for engine in engines.values():
+            engine.close()
+    print("%s :predict over the three era-wire engines equal to run_direct"
+          % tag)
+    torch.cuda.empty_cache()
+    return paths, report
+
+
+def run_persistence(torch, card):
+    """Phase 33 (see PERSIST and the module's docstring): the paths and
+    the `persistence_summary:` report."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="ptt_phase33_")
+    t0 = time.perf_counter()
+    try:
+        run, resume, served = persist_resume_bf16(torch, card, tmp)
+        paths = [("persistence_resume_bf16", run)]
+        run, dropout = persist_resume_dropout(torch, card, tmp)
+        paths.append(("persistence_resume_dropout", run))
+        serve_paths, serving = persist_from_checkpoint(torch, card, served)
+        paths += serve_paths
+        era_paths, era = persist_era_models(torch, card, tmp)
+        paths += era_paths
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = {"resume_bf16": resume, "resume_dropout": dropout,
+               "from_checkpoint": serving, "era_wire": era,
+               "phase_s": time.perf_counter() - t0, "card": card}
+    return paths, summary
 
 
 def main(argv=None):
@@ -8499,6 +9111,9 @@ def main(argv=None):
                 "trained_steps", "equal_to_eager_feed_fed",
                 "reader_consumed", "staging_synchronizing_calls",
                 "prepass_host_ms", "timing", "card")}))
+        persist_paths, persistence = run_persistence(torch, card)
+        paths += persist_paths
+        print("persistence_summary: " + json.dumps(persistence))
         print("clipping_summary: " + json.dumps({
             "fit_a_line": {k: v for k, v in clipping.items() if k != "card"},
             "language_model_clip": {k: lm_clip[k] for k in (

@@ -311,6 +311,16 @@ class Scope(object):
         self._rng_counter += k
         return first
 
+    def seed_state(self):
+        """The rng cursor as checkpoint payload: with it restored
+        (set_seed_state), the runs after a resume draw the seeds the
+        straight-through run would have, so dropout masks and every other
+        in-graph draw replay bit for bit, eager and under steps=K."""
+        return int(self._rng_counter)
+
+    def set_seed_state(self, counter):
+        self._rng_counter = int(counter)
+
 
 _global_scope = Scope()
 

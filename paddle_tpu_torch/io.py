@@ -1,4 +1,5 @@
-"""Model persistence: parameters and inference models.
+"""Model persistence: parameters, inference models, checkpoints and
+reference-era (era-wire) models.
 
 Parity: python/paddle/fluid/io.py and the JAX package's io.py — the same
 on-disk format, so each package loads the other's saved models: a
@@ -9,6 +10,13 @@ Each function takes the Scope it reads or fills (default: the global
 scope, which `scope_guard` sets). The JAX package's keywords are taken
 too: `filename` and `params_filename` (accepted, as there: one file per
 var) and `allow_missing` (a partial save or load on purpose).
+
+`save_checkpoint` / `load_checkpoint` are shims over
+checkpoint.CheckpointManager (atomic snapshots, hash verification,
+retention, bit-exact resume). `save_reference_model` /
+`load_reference_model` write and read the reference's own layout (a
+`__model__` ProgramDesc protobuf and save_op LoDTensor streams,
+reference_format.py).
 """
 import json
 import os
@@ -24,7 +32,8 @@ __all__ = ["save_vars", "save_params", "save_persistables", "load_vars",
            "load_params", "load_persistables", "save_inference_model",
            "load_inference_model", "get_inference_program",
            "get_parameter_value", "get_parameter_value_by_name",
-           "scope_from_numpy"]
+           "scope_from_numpy", "save_checkpoint", "load_checkpoint",
+           "save_reference_model", "load_reference_model"]
 
 
 def is_persistable(var):
@@ -259,3 +268,92 @@ def scope_from_numpy(arrays, device, program=None):
         scope.set(name, to_tensor(arr, var.dtype if var is not None else None,
                                   device))
     return scope
+
+
+def save_reference_model(dirname, feeded_var_names, target_vars, executor,
+                         main_program=None, model_filename=None,
+                         params_filename=None, scope=None):
+    """save_inference_model in the reference's on-disk layout: a
+    `__model__` ProgramDesc protobuf and one save_op LoDTensor stream per
+    parameter (or all of them in one `params_filename`, save_combine's
+    sorted-name order), which reference-era deployments and
+    load_reference_model of either package serve. Returns the pruned
+    inference program."""
+    from . import reference_format as _rf
+    return _rf.save_reference_inference_model(
+        dirname, feeded_var_names, target_vars, executor,
+        main_program=main_program, scope=scope,
+        model_filename=model_filename, params_filename=params_filename)
+
+
+def load_reference_model(dirname, executor, model_filename=None,
+                         params_filename=None, scope=None):
+    """Load a model directory saved in the reference's layout (by
+    reference-era code or save_reference_model): returns (program,
+    feed_names, fetch_vars) like load_inference_model, the parameters
+    loaded into `scope` on the executor's device in their declared dtypes.
+    Sequence models go through the flat-LoD -> padded layout adapter
+    (reference_format.adapt_sequence_layout). Control-flow ops in a loaded
+    desc are not supported: the reference desc carries no loop-carry
+    metadata."""
+    from . import reference_format as rf
+    scope = scope if scope is not None else global_scope()
+    with open(os.path.join(dirname, model_filename or "__model__"),
+              "rb") as f:
+        raw = f.read()
+    blocks = rf._parse_blocks(raw)  # one wire decode for both consumers
+    program = rf.parse_program_desc(blocks)
+    feed_names, fetch_names = rf.strip_feed_fetch(blocks)
+    rf.adapt_sequence_layout(program, feed_names)
+
+    persistables = {v.name: v for v in program.list_vars() if v.persistable}
+    if params_filename:
+        arrays = rf.read_combined_lod_tensor_file(
+            os.path.join(dirname, params_filename), list(persistables))
+    else:
+        arrays = {}
+        for name in persistables:
+            path = os.path.join(dirname, name)
+            if not os.path.exists(path):
+                raise RuntimeError(
+                    "reference model param file missing: %r (a combined "
+                    "save needs params_filename=...)" % path)
+            arrays[name], _lod = rf.read_lod_tensor_file(path)
+    for name, arr in arrays.items():
+        scope.set(name, to_tensor(np.array(arr), persistables[name].dtype,
+                                  executor.device))
+    fetch_vars = [program.global_block().var(n) for n in fetch_names]
+    return program, feed_names, fetch_vars
+
+
+def save_checkpoint(executor, checkpoint_dir, main_program=None,
+                    trainer_id=0, step=0, max_to_keep=None,
+                    keep_every_n_steps=None, scope=None):
+    """Checkpoint save (parity: fluid.io's checkpoint utilities): a
+    synchronous CheckpointManager save, so the one-call API gets atomic
+    publication, per-file hashes, the seed cursor and reader positions,
+    and optional retention (default: keep everything). A long-running
+    trainer holds a CheckpointManager itself for async saves."""
+    from .checkpoint import CheckpointManager
+    mgr = CheckpointManager(checkpoint_dir, max_to_keep=max_to_keep,
+                            keep_every_n_steps=keep_every_n_steps,
+                            async_save=False)
+    try:
+        mgr.save(step, program=main_program, scope=scope)
+    finally:
+        mgr.close()
+
+
+def load_checkpoint(executor, checkpoint_dir, main_program=None,
+                    scope=None):
+    """Checkpoint restore onto the executor's device; returns the restored
+    step, or None (no snapshot, or no directory). The newest snapshot
+    whose hashes verify wins: LATEST is only a hint, and a torn or
+    bit-flipped newest save falls back to the one before it."""
+    from .checkpoint import CheckpointManager
+    mgr = CheckpointManager(checkpoint_dir, async_save=False)
+    try:
+        return mgr.restore(program=main_program, scope=scope,
+                           executor=executor)
+    finally:
+        mgr.close()

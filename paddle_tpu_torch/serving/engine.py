@@ -30,9 +30,13 @@ the feed contract, the decode slot vars); `validate=True` asked for
 explicitly raises NotImplementedError naming A11, so no analysis a
 caller asks for is skipped silently, and `deployment_report` stays None.
 
+`InferenceEngine` loads a native directory, a reference-era (era-wire)
+one (`model_format` "reference", or "auto" on a directory without
+`__model_meta__.json`), or, through `from_checkpoint`, the newest valid
+training snapshot of a checkpoint directory.
+
 Waiting for later slices: tensor parallelism and device meshes (`tp`,
-`mesh_devices`; A10), `from_checkpoint` and the era-wire model format
-(A8), tuned configs (`apply_tuned`; A11).
+`mesh_devices`; A10), tuned configs (`apply_tuned`; A11).
 """
 import os
 import threading
@@ -42,7 +46,8 @@ import numpy as np
 import torch
 
 from .. import io as _io
-from ..core.executor import Executor, Scope, resolve_device, to_numpy
+from ..core.executor import (Executor, Scope, resolve_device, to_numpy,
+                             to_tensor)
 from ..core.framework import Parameter, convert_dtype, find_var
 from ..core.lod import LoDTensor
 from ..observability import trace as _trace
@@ -86,22 +91,41 @@ def _check_validate(validate, what):
 def _load_model(exe, scope, model_dir, model_format, model_filename,
                 params_filename):
     """(program, feed_names, fetch_vars) of a model directory loaded into
-    `scope`. model_format "auto" reads a native directory (its
-    `__model_meta__.json`); the era-wire format waits for ROADMAP A8."""
+    `scope`. model_format "native" reads a save_inference_model directory,
+    "reference" a reference-era (era-wire) one through
+    io.load_reference_model; "auto" reads a directory with a
+    `__model_meta__.json` as native and any other as reference."""
     if model_format not in ("auto", "native", "reference"):
         raise ValueError("model_format must be auto|native|reference, "
                          "got %r" % (model_format,))
-    native = os.path.exists(os.path.join(model_dir, "__model_meta__.json"))
-    if model_format == "reference" or (model_format == "auto"
-                                       and os.path.isdir(model_dir)
-                                       and not native):
-        raise NotImplementedError(
-            "%r is not a native save_inference_model directory: the "
-            "reference-era (era-wire ProgramDesc) format comes with ROADMAP "
-            "A8" % model_dir)
-    return _io.load_inference_model(
-        model_dir, exe, model_filename=model_filename,
-        params_filename=params_filename, scope=scope)
+    if model_format == "auto":
+        native = os.path.exists(os.path.join(model_dir,
+                                             "__model_meta__.json"))
+        model_format = "native" if native else "reference"
+    load = (_io.load_inference_model if model_format == "native"
+            else _io.load_reference_model)
+    return load(model_dir, exe, model_filename=model_filename,
+                params_filename=params_filename, scope=scope)
+
+
+def _strip_host_io(program):
+    """A pruned reader-fed training program as a servable one: its `read`
+    ops and reader vars go, and the records' vars the kept ops read (data
+    vars) become the feeds. An engine has no reader to pull from."""
+    from ..core.readers import is_host_io_op
+    block = program.global_block()
+    io_ops = [op for op in block.ops if is_host_io_op(op.type)]
+    if not io_ops:
+        return
+    block.ops = [op for op in block.ops if not is_host_io_op(op.type)]
+    read = set(n for op in block.ops for ns in op.inputs.values()
+               for n in ns)
+    for op in io_ops:
+        for ns in list(op.inputs.values()) + list(op.outputs.values()):
+            for n in ns:
+                if n not in read:
+                    block.vars.pop(n, None)
+    program._bump_version()
 
 
 def _covering_bucket(buckets, n, what):
@@ -180,7 +204,8 @@ class InferenceEngine(object):
     device: "cuda" (the default) or "cpu" (or a Place); with no card and
     no explicit CPU, construction raises before anything is read.
     model_dir (with model_filename, params_filename and model_format
-    "auto" | "native") or program=, feed_names= and fetch_vars=.
+    "auto" | "native" | "reference") or program=, feed_names= and
+    fetch_vars=; or `from_checkpoint`.
     batch_buckets / max_batch_size: the
     batch lattice (default powers of two up to max_batch_size=32).
     seq_buckets: the padded lengths a sequence model's dispatches run at
@@ -322,6 +347,75 @@ class InferenceEngine(object):
                 # must not leak a live thread per retry
                 self.close(drain=False)
                 raise
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir, fetch_list, feed_names=None,
+                        step=None, warmup=True, **engine_kw):
+        """Serve the newest VALID training snapshot of `checkpoint_dir`
+        (checkpoint.CheckpointManager's layout, either package's): its
+        recorded program pruned to `fetch_list` with for_test=True (as
+        save_inference_model prunes), its hash-verified arrays read once
+        into the engine's scope on the engine's device, in the declared
+        dtypes. A torn or bit-flipped newest snapshot is skipped for the
+        newest one that verifies, unless `step` pins one (then it raises).
+        A reader-fed program serves with its `read` ops' records as the
+        feeds. `weights_dtype` applies after the fp32 masters land; the
+        program keeps the training program's mixed-precision setting, as
+        save_inference_model's does. feed_names defaults to the pruned
+        program's data vars. Sets `checkpoint_step`."""
+        from ..checkpoint import CheckpointManager, load_verified_arrays
+        target_names = [v if isinstance(v, str) else v.name
+                        for v in fetch_list]
+        mgr = CheckpointManager(checkpoint_dir, async_save=False)
+        try:
+            before = None
+            while True:
+                program, found_step, snap_path = mgr.load_program(
+                    step=step, before=before)
+                inference = program.prune(target_names, for_test=True)
+                _strip_host_io(inference)
+                wanted = set(v.name for v in inference.list_vars()
+                             if v.persistable)
+                try:
+                    # single pass: each file is read once, hashed against
+                    # the manifest, and decoded from those bytes
+                    arrays = load_verified_arrays(snap_path, names=wanted)
+                    break
+                except (OSError, ValueError):
+                    if step is not None:
+                        raise  # the caller pinned THIS snapshot
+                    before = found_step  # corrupt arrays: walk back
+        finally:
+            mgr.close()
+        if feed_names is None:
+            feed_names = [v.name for v in inference.list_vars()
+                          if getattr(v, "is_data", False)
+                          and not v.persistable]
+        fetch_vars = [inference.global_block().var(n)
+                      for n in target_names]
+        # weights_dtype is applied here, not by the program= constructor
+        # (which refuses it: an in-memory program has no weights yet)
+        weights_dtype = engine_kw.pop("weights_dtype", None)
+        engine = cls(program=inference, feed_names=feed_names,
+                     fetch_vars=fetch_vars,
+                     name=engine_kw.pop("name", None)
+                     or "ckpt-step-%d" % found_step,
+                     warmup=False, **engine_kw)
+        try:
+            declared = {v.name: v for v in inference.list_vars()}
+            for name, arr in arrays.items():
+                engine._scope.set(name, to_tensor(
+                    np.array(arr), declared[name].dtype, engine.device))
+            # the snapshot on disk stays the fp32 master copy
+            engine._set_weights_dtype(weights_dtype)
+            engine._apply_weights_dtype()
+            if warmup:
+                engine.warmup()
+        except Exception:
+            engine.close(drain=False)  # no thread leak per failed load
+            raise
+        engine.checkpoint_step = found_step
+        return engine
 
     # --------------------------------------------------- weights dtype --
     def _set_weights_dtype(self, weights_dtype):

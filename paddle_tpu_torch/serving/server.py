@@ -1,8 +1,12 @@
 """Stdlib HTTP frontend over one or more serving engines.
 
 Parity: the JAX package's serving/server.py (`ModelServer`, `_Handler`),
-over the port's InferenceEngine and DecodeEngine. The era-wire request
-path waits for ROADMAP A8, and replica pools and fleets for A10.
+over the port's InferenceEngine and DecodeEngine. As there, the server
+has no route of its own for a model's origin: it serves whatever engine
+it is given, so an engine over a reference-era (era-wire) directory
+(`model_format="reference"`) or over a training snapshot
+(`InferenceEngine.from_checkpoint`) answers `:predict` like any other.
+Replica pools and fleets wait for ROADMAP A10.
 
 A `ThreadingHTTPServer` (one thread per connection — request threads only
 normalize + enqueue + wait; the single batcher worker per engine does the

@@ -416,10 +416,15 @@ def test_decode_matches_the_jax_engine_on_its_saved_model(tmp_path, kw):
 
 
 def test_model_dir_format_and_fetch_checks(tmp_path):
+    """A native directory read as the era wire fails in the wire parser,
+    and "auto" on a directory with no __model_meta__.json reads it as an
+    era-wire one (no __model__ there), as in the JAX package."""
     path = str(tmp_path / "decoder")
     _save_jax_decoder(path)
-    with pytest.raises(NotImplementedError, match="A8"):
-        serving.DecodeEngine(path, model_format="reference", place="cpu")
+    for eng in (serving.DecodeEngine, jserving.DecodeEngine):
+        with pytest.raises(ValueError, match="wire type"):
+            eng(path, model_format="reference", place="cpu")
     os.makedirs(str(tmp_path / "empty"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        serving.DecodeEngine(str(tmp_path / "empty"), place="cpu")
+    for eng in (serving.DecodeEngine, jserving.DecodeEngine):
+        with pytest.raises(FileNotFoundError, match="__model__"):
+            eng(str(tmp_path / "empty"), place="cpu")

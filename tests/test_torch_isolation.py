@@ -38,7 +38,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "paddle_tpu_torch.layers.control_flow, "
             "paddle_tpu_torch.ops.control_ops, "
             "paddle_tpu_torch.models.common, "
-            "paddle_tpu_torch.models.machine_translation\n"
+            "paddle_tpu_torch.models.machine_translation, "
+            "paddle_tpu_torch.checkpoint, paddle_tpu_torch.core.utils, "
+            "paddle_tpu_torch.reference_format\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r)\n"
             "print(bad)\n"
@@ -68,6 +70,15 @@ def test_source_imports_nothing_of_jax(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, "%s:%d imports %s" % (path, node.lineno, bad)
+
+
+def test_every_persistence_module_is_checked():
+    """The checkpoint package, the era-wire format and the durability
+    helpers are among the sources the import check above walks."""
+    rel = {os.path.relpath(p, PKG) for p in SOURCES}
+    assert {"checkpoint/__init__.py", "checkpoint/manager.py",
+            "checkpoint/snapshot.py", "checkpoint/retention.py",
+            "core/utils.py", "reference_format.py"} <= rel
 
 
 def test_every_sequence_module_is_checked():

@@ -21,8 +21,8 @@ serves the same directory with LoD feeds and (batch, seq) buckets.
 The engine's own surface: warmup(buckets=), the in-memory form
 (program=, feed_names=, fetch_vars=) under the JAX test's per-fetch row
 policy with describe() and submit_normalized(), and the options that
-raise naming the item they wait for (validate=True: A11; the era-wire
-format: A8; tp: A10).
+raise naming the item they wait for (validate=True: A11; tp: A10); the
+era-wire format loads since A8 (tests/test_torch_checkpoint_serving.py).
 """
 import json
 import os
@@ -562,13 +562,17 @@ def test_in_memory_program_fetch_row_policy():
 
 
 def test_engine_options_waiting_for_later_items(jax_model):
-    """validate=True (the analysis tier, A11), the era-wire format (A8)
-    and tp (A10) raise naming their item; a program without fetches it
-    names is refused."""
+    """validate=True (the analysis tier, A11) and tp (A10) raise naming
+    their item; a native directory forced through the era-wire format
+    (which loads since A8) fails in the wire parser, as in the JAX
+    package; a program without fetches it names is refused."""
     with pytest.raises(NotImplementedError, match="A11"):
         InferenceEngine(jax_model[0], device="cpu", validate=True)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="wire type"):
         InferenceEngine(jax_model[0], device="cpu", model_format="reference")
+    with pytest.raises(ValueError, match="wire type"):
+        jserving.InferenceEngine(jax_model[0], model_format="reference",
+                                 warmup=False)
     with pytest.raises(NotImplementedError, match="A10"):
         InferenceEngine(jax_model[0], device="cpu", tp=2)
     with pytest.raises(ValueError, match="in-memory program needs"):
