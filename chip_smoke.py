@@ -598,6 +598,42 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               within rtol 1e-4, atol 1e-5 of its native engine on the
               same requests. Snapshots go under a temporary directory
               the phase removes. A `persistence_summary:` line sums up.
+34. resilience — ROADMAP A9 (RESIL): phase 33's bf16 Transformer-base
+              program fed from one recordio file (phase 32's 16 batches,
+              then its first 8 again) at steps=4 under
+              install_numeric_guards(loss=avg_cost, grad_norm=True),
+              every check under deterministic algorithms. (a) 8 guarded
+              calls against 8 unguarded ones in turns from the same
+              state: losses bit-equal, medians of the call ms, the
+              guard's kernels and device ms a step (torch.profiler), one
+              synchronizing call (the flag read) a guarded call and none
+              unguarded, K1-K5 18/18/18/1/32 a step; eager steps=1 steps
+              in turns. (b) reader_nan@5 in the second call: it raises
+              NumericalGuardError naming the loss and the gradients, and
+              its state is bit-equal to 8 guarded steps=1 runs under the
+              same plan (step 6 gated, 5, 7 and 8 applied); a Supervisor
+              with skip_batch trains on to step 16 with one
+              numeric:skip_batch, bit-equal to the unsupervised run.
+              (c) loss_spike@13 (lbl_weight x 1000: sum_cost spikes,
+              avg_cost does not), a TrainingSentinel on the first fetch
+              and last_stats["grad_norm"], a snapshot at step 8:
+              rollback_skip_data restores it and skips the 8 records
+              read since; losses and state bit-equal to a fault-free run
+              that skipped them. (d) slow_step at steps 8 and 12 under
+              watchdog_timeout: a bundle and hang:rollback, the next call
+              bit-equal to the straight run, then a bundle and an abort
+              whose bundle read_bundle reads; the sleeping worker pops no
+              record, draws no seed and writes nothing when it wakes.
+              (e) CanaryChecker on the card: one digest over 8 checks,
+              ms a check; bitflip@3 convicts check 3 of device 0; a
+              Supervisor with sdc_every=4 aborts with the
+              SilentCorruptionError. (f) phase 20's program at
+              learning_rate 1e38 under Executor(check_nan_inf=True)
+              raises naming a var; the sweep's ms a call in turns with a
+              run without it. Snapshots and bundles go under a temporary
+              directory the phase removes. A `resilience_summary:` line
+              sums up (with the recoveries' seconds and the sentinel's
+              host us an observe).
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run; the bf16 flash kernels counted under
@@ -3368,10 +3404,11 @@ TRAIN_VARIANTS = {
 
 
 def build_train(fluid, transformer, n_layer, max_length=None,
-                variant="fp32"):
-    """A Transformer-base training program of TRAIN_VARIANTS: returns
-    (main, startup, avg_cost)."""
-    kwargs = dict(TRAIN_VARIANTS[variant])
+                variant="fp32", **extra):
+    """A Transformer-base training program of TRAIN_VARIANTS (`extra`:
+    more transformer.build_train arguments): returns (main, startup,
+    avg_cost)."""
+    kwargs = dict(TRAIN_VARIANTS[variant], **extra)
     amp = kwargs.pop("amp", False)
     main, startup = fluid.Program(), fluid.Program()
     startup.random_seed = SEED
@@ -8819,6 +8856,668 @@ def run_persistence(torch, card):
     return paths, summary
 
 
+# ------------------------------------------------------------ resilience --
+
+# phase 34: ROADMAP A9. Phase 33's bf16 Transformer-base program fed from
+# one recordio file (phase 32's 16 batches, then its first 8 again: 24
+# records) at steps=4, guarded by install_numeric_guards(loss=avg_cost,
+# grad_norm=True): (a) the guard's cost, (b) a NaN record inside a
+# K-block, (c) a finite loss spike, (d) a hang, (e) the canary; (f)
+# FLAGS_check_nan_inf on phase 20's program. Record indices count from 0
+# (the plan's), steps from 1.
+RESIL = dict(steps=4, timed_calls=8, eager_calls=4, nan_record=5,
+             spike_record=13, hang_timeout=3.0, hang_sleep=5.0,
+             canary_checks=8, sentinel_observes=2000, explode_lr=1e38)
+CANARY_DEVICES = None    # the card's CUDA devices
+GUARD_SEGS = 96          # vars a guard_restore launch (kMaxSegs in its .cu)
+GUARD_RESTORE_SRC = "paddle_tpu_torch/csrc/guard_restore.cu"
+GUARD_RESTORE_REPLACES = "paddle_tpu/ops/guard_ops.py:101 (the gate's " \
+    "lax.cond in guard_select_all; no pl.pallas_call)"
+
+
+def guard_state(torch, fluid, gen):
+    """Random tensors shaped as every var install_numeric_guards gates in
+    phase 34's program (Transformer-base, bf16 AMP, Adam on noam), on the
+    card."""
+    from paddle_tpu_torch import resilience as rz
+    from paddle_tpu_torch.core.registry import torch_dtype
+    from paddle_tpu_torch.models import transformer
+    main, _, avg = build_train(fluid, transformer, N_LAYER, variant="bf16")
+    info = rz.install_numeric_guards(main, loss=avg, grad_norm=True)
+    block, dev, out = main.global_block(), torch.device("cuda"), []
+    for n in info["gated"]:
+        v = block.var(n)
+        dt = torch_dtype(v.dtype)
+        shape = tuple(v.shape)
+        out.append(torch.randn(shape, generator=gen, device=dev).to(dt)
+                   if dt.is_floating_point else
+                   torch.randint(0, 1 << 20, shape, generator=gen,
+                                 device=dev, dtype=dt))
+    return out
+
+
+def run_guard_kernel(torch, ck, peak_bw):
+    """guard_restore held against its plain version (a torch.where a var,
+    copied back) on tensors shaped as phase 34's gated state, with the
+    flag True (the healthy step: nothing changes) and False (a trip: every
+    var takes its backup): bit-equal. Timed in a CUDA graph both ways,
+    and the plain version on a healthy step. The bound is the healthy
+    step's work, the flag's byte (a trip's: the bytes copied, read and
+    written, `trip_bound_ms`)."""
+    import paddle_tpu_torch as fluid
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    ys = guard_state(torch, fluid, gen)
+    dev = torch.device("cuda")
+    flags = {v: torch.tensor([v], device=dev) for v in (True, False)}
+    err = 0.0
+    for v, ok in flags.items():
+        xs = guard_state(torch, fluid, gen)
+        want = [x.clone() for x in (xs if v else ys)]
+        plain = [x.clone() for x in xs]
+        ck.guard_restore(ok, xs, ys)
+        ck.guard_restore_plain(ok, plain, ys)
+        for a, b, w in zip(xs, plain, want):
+            check(torch.equal(a, b) and torch.equal(a, w), "guard_restore "
+                  "with the flag %s differs from its plain version" % v)
+            err = max(err, float((a.double() - b.double()).abs().max()))
+    nbytes = sum(x.numel() * x.element_size() for x in xs)
+    ms = time_ms(torch, lambda: ck.guard_restore(flags[True], xs, ys))
+    trip_ms = time_ms(torch, lambda: ck.guard_restore(flags[False], xs, ys),
+                      iters=5)
+    plain_ms = time_ms(torch, lambda: ck.guard_restore_plain(
+        flags[True], xs, ys), iters=5)
+    bms, bby = bound(0, 1, 1, peak_bw)
+    r = {"name": "guard_restore", "route": "cuda",
+         "source": GUARD_RESTORE_SRC, "replaces": GUARD_RESTORE_REPLACES,
+         "shape": "%d vars, %d bytes (phase 34's gated state), %d launches "
+                  "a call" % (len(xs), nbytes, -(-len(xs) // GUARD_SEGS)),
+         "max_abs_err": err, "ms": ms, "trip_ms": trip_ms,
+         "plain_ms": plain_ms, "library_ms": None, "bound_ms": bms,
+         "bound_by": bby, "trip_bound_ms": bound(0, 2 * nbytes, 1,
+                                                  peak_bw)[0]}
+    print("kernels: guard_restore %s" % json.dumps(r))
+    del xs, ys
+    torch.cuda.empty_cache()
+    return {"guard_restore": r}
+
+
+class _ResilProgram(object):
+    """One reader-fed training program of phase 34: its main and startup
+    programs, what a call fetches (sum_cost, avg_cost), its reader var."""
+
+    def __init__(self, fluid, transformer, paths, guard):
+        from paddle_tpu_torch import resilience as rz
+        self.main, self.startup, avg, _, reader, _ = \
+            transformer_reader_program(fluid, transformer, paths)
+        # avg_cost = sum_cost / token_num: the spike scales the records'
+        # only float field, lbl_weight, which the ratio cancels
+        op = next(op for op in self.main.global_block().ops
+                  if avg.name in op.all_output_vars())
+        self.fetch = [op.inputs["X"][0], avg.name]
+        self.reader = reader.name
+        self.guards = rz.install_numeric_guards(
+            self.main, loss=avg, grad_norm=True) if guard else None
+
+
+def _recovery_seconds(sup):
+    """Wrap the supervisor's fault handler: the seconds each recovery
+    took (the action, the restore, the bundle), in a list."""
+    handle, secs = sup._handle_fault, []
+
+    def timed(*a, **kw):
+        ts = time.perf_counter()
+        try:
+            return handle(*a, **kw)
+        finally:
+            secs.append(time.perf_counter() - ts)
+    sup._handle_fault = timed
+    return secs
+
+
+def _kernel_count(torch, fn):
+    """Device kernels fn() runs (torch.profiler; copies and fills not
+    counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset")))
+
+
+def _guard_names(err):
+    import re
+    return sorted(re.findall(r"non-finite value detected in '([^']+)'",
+                             str(err)))
+
+
+def resil_timing(torch, fluid, card, U, G, fresh, call):
+    """Phase 34 (a), timed in the default (nondeterministic) mode a user
+    trains in: RESIL["timed_calls"] guarded steps=4 calls against as many
+    unguarded ones, in turns, from the same state over the same records;
+    the host reads of a call, the kernels and device ms the guard adds a
+    step (torch.profiler), and eager (steps=1) steps in turns."""
+    from paddle_tpu_torch.core.dispatch import rollback_all_staged
+    tag = "resilience (a):"
+    k = RESIL["steps"]
+    exe_u, exe_g = fluid.Executor(), fluid.Executor()
+    su, sg = fresh(U), fresh(G)
+    sides = ((exe_u, U, su), (exe_g, G, sg))
+
+    def both(fn):
+        return [fn(*side) for side in sides]
+
+    def timed(exe, prog, scope, steps=k, prefetch=True):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = call(exe, prog, scope, steps=steps, prefetch=prefetch)
+        torch.cuda.synchronize()
+        check(np.isfinite(out[1]).all(), "%s losses %s" % (tag, out[1]))
+        return (time.perf_counter() - ts) * 1e3
+
+    def reset(exe, prog, scope):
+        rollback_all_staged(scope)
+        scope.get(prog.reader).reset()
+
+    first_ms = both(timed)          # each side captures its step here
+    ms = [[], []]
+    for c in range(RESIL["timed_calls"]):
+        if c % 4 == 0:
+            both(reset)
+        for i, m in enumerate(both(timed)):
+            ms[i].append(m)
+    # from the stream's start again (24 records: 3 calls and 5 eager steps)
+    both(reset)
+    # the host reads of one call each (no fetch copied: return_numpy off)
+    reads0 = exe_g.flag_reads
+    syncs = both(lambda exe, prog, scope: _sync_warnings(
+        torch, lambda: call(exe, prog, scope, rn=False), tag,
+        through=("raise_program_errors",))[1:])
+    reads = exe_g.flag_reads - reads0
+    kernels = both(lambda exe, prog, scope: _kernel_count(
+        torch, lambda: call(exe, prog, scope, rn=False)))
+    busy = both(lambda exe, prog, scope: device_busy_ms(
+        torch, lambda: call(exe, prog, scope, rn=False))[0])
+    eager = [[], []]
+    for c in range(RESIL["eager_calls"] + 1):   # the first warms up
+        for i, m in enumerate(both(lambda *side: timed(
+                *side, steps=1, prefetch=False))):
+            if c:
+                eager[i].append(m)
+    check(reads == 1 and tuple(syncs[1]) == (1, 1) and syncs[0][0] == 0,
+          "%s a guarded call made %s synchronizing calls (through "
+          "raise_program_errors: %s) and %d flag reads, an unguarded one "
+          "%s: expected 1, 1, 1 and 0" % (tag, syncs[1][0], syncs[1][1],
+                                         reads, syncs[0][0]))
+    for exe, prog, scope in sides:
+        rollback_all_staged(scope)
+        exe._cache.clear()
+    med = [statistics.median(v) for v in ms]
+    emed = [statistics.median(v) for v in eager]
+    report = {
+        "mode": "default", "calls_each": RESIL["timed_calls"],
+        "first_call_ms": first_ms,
+        "call_ms_unguarded": ms[0], "call_ms_guarded": ms[1],
+        "median_call_ms_unguarded": med[0], "median_call_ms_guarded": med[1],
+        "guard_ms_per_step": (med[1] - med[0]) / k,
+        "guard_share": med[1] / med[0] - 1,
+        "eager_step_ms_unguarded": eager[0],
+        "eager_step_ms_guarded": eager[1],
+        "eager_guard_ms_per_step": emed[1] - emed[0],
+        "device_ms_per_step_unguarded": busy[0] / k,
+        "device_ms_per_step_guarded": busy[1] / k,
+        "kernels_per_step_unguarded": kernels[0] / k,
+        "kernels_per_step_guarded": kernels[1] / k,
+        "guard_kernels_per_step": (kernels[1] - kernels[0]) / k,
+        "synchronizing_calls_guarded": syncs[1][0],
+        "synchronizing_calls_unguarded": syncs[0][0],
+        "flag_reads_per_call": reads,
+        "watched": len(G.guards["checked"]), "gated": len(G.guards["gated"]),
+        "card": card}
+    print("%s %d calls each in turns, steps=%d: median %.2f ms guarded, "
+          "%.2f unguarded (%.3f ms a step, %+.1f%%); eager steps %.1f / "
+          "%.1f ms; device %.2f / %.2f ms a step; %.1f kernels a step more "
+          "(%d watched, %d gated); %d synchronizing call and %d flag read a "
+          "guarded call, %d unguarded"
+          % (tag, RESIL["timed_calls"], k, med[1], med[0],
+             report["guard_ms_per_step"], 100 * report["guard_share"],
+             emed[1], emed[0], busy[1] / k, busy[0] / k,
+             report["guard_kernels_per_step"], report["watched"],
+             report["gated"], syncs[1][0], reads, syncs[0][0]))
+    return report
+
+
+def resil_equal(torch, fluid, card, U, G, fresh, call):
+    """Phase 34 (a), under deterministic algorithms: two guarded steps=4
+    calls and two unguarded ones from the same state give bit-equal
+    losses (no step trips), the guarded one launching K1-K5 18/18/18/1/32
+    a step and guard_restore once a GUARD_SEGS gated vars. Returns ((the
+    second guarded call's launch counts, the counts predicted), the
+    losses, the guarded executor, whose runner serves (b)-(e))."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    tag = "resilience (a):"
+    k = RESIL["steps"]
+    exe_u, exe_g = fluid.Executor(), fluid.Executor()
+    su, sg = fresh(U), fresh(G)
+    losses = [call(exe_u, U, su)[1], call(exe_g, G, sg)[1]]
+    losses[0] = np.concatenate([losses[0], call(exe_u, U, su)[1]])
+    ck.reset_launch_counts()
+    second = call(exe_g, G, sg)[1]
+    counts = ck.launch_counts()
+    losses[1] = np.concatenate([losses[1], second])
+    check(np.array_equal(losses[0], losses[1]) and
+          np.isfinite(losses[1]).all(), "%s the guarded losses %s differ "
+          "from the unguarded ones %s" % (tag, losses[1].tolist(),
+                                          losses[0].tolist()))
+    exe_u._cache.clear()
+    restores = -(-len(G.guards["gated"]) // GUARD_SEGS)
+    expected = dict.fromkeys(counts, 0)
+    expected.update({"flash_attention_fwd_bf16": 18 * k,
+                     "flash_attention_bwd_dkdv_bf16": 18 * k,
+                     "flash_attention_bwd_dq_bf16": 18 * k,
+                     "softmax_xent_fwd": k, "layer_norm_fwd": 32 * k,
+                     "guard_restore": restores * k})
+    print("%s deterministic: %d guarded and unguarded losses bit-equal; "
+          "launches a step %s" % (tag, losses[1].size, {
+              n: c / k for n, c in counts.items() if c}))
+    return (counts, expected), [float(x) for x in losses[1].reshape(-1)], \
+        exe_g
+
+
+def resil_nan_block(torch, fluid, card, G, fresh, call, exe):
+    """Phase 34 (b): reader_nan at RESIL["nan_record"] inside the second
+    steps=4 call: it raises naming the non-finite vars, and the state is
+    bit-equal to 8 guarded steps=1 runs under the same plan (the poisoned
+    step gated, the three around it applied); then a Supervisor with
+    skip_batch trains on to step 16."""
+    from paddle_tpu_torch import resilience as rz
+    tag = "resilience (b):"
+    k, at = RESIL["steps"], RESIL["nan_record"]
+    spec = ["reader_nan@%d" % at]
+    sb = fresh(G)
+    with rz.FaultPlan(spec):
+        call(exe, G, sb)
+        after_first = host_state(sb)
+        err = None
+        try:
+            call(exe, G, sb)
+        except rz.NumericalGuardError as e:
+            err = e
+    check(err is not None, "%s the K-block with a NaN record did not raise"
+          % tag)
+    names = _guard_names(err)
+    check(G.fetch[1] in names and any(n.endswith("@GRAD") for n in names),
+          "%s the raise names %s" % (tag, names))
+    block = host_state(sb)
+    same, _, _ = state_diff(torch, after_first, block)
+    check(not same, "%s the K-block applied none of its steps" % tag)
+    sr, trips = fresh(G), []
+    ts = time.perf_counter()
+    with rz.FaultPlan(spec):
+        for i in range(2 * k):
+            try:
+                call(exe, G, sr, steps=1, prefetch=False)
+            except rz.NumericalGuardError:
+                trips.append(i)
+    eager_s = time.perf_counter() - ts
+    check(trips == [at], "%s the steps=1 runs tripped at %s" % (tag, trips))
+    same, err_v, err_at = state_diff(torch, host_state(sr), block)
+    check(same, "%s the K-block's state differs from 8 steps=1 runs' (%s "
+          "by %r)" % (tag, err_at, err_v))
+    del sr
+    # the Supervisor: skip_batch, on to step 16; the K-block run above,
+    # two calls on, is its reference
+    for _ in range(2):
+        call(exe, G, sb, prefetch=False)
+    ss = fresh(G)
+    sup = rz.Supervisor(exe, G.main, scope=ss, policies={
+        "numeric": [rz.skip_batch(2), rz.abort()]})
+    secs = _recovery_seconds(sup)
+    try:
+        with rz.FaultPlan(spec):
+            sup.train(4 * k, fetch_list=G.fetch, steps=k)
+    finally:
+        sup.close()
+    acts = [(e["class"], e["action"]) for e in sup.events]
+    check(acts == [("numeric", "skip_batch")] and sup.step == 4 * k,
+          "%s the supervised run logged %s and stopped at step %d"
+          % (tag, acts, sup.step))
+    same, err_v, err_at = state_diff(torch, host_state(sb), host_state(ss))
+    check(same, "%s the supervised run differs from the unsupervised one "
+          "(%s by %r)" % (tag, err_at, err_v))
+    report = {"record": at, "named": names, "trips_steps1": trips,
+              "bit_equal_to_steps1": True, "eager_8_steps_s": eager_s,
+              "supervised_events": acts, "skip_s": secs, "card": card}
+    print("%s record %d (step %d) tripped the second steps=%d call naming "
+          "%d vars; its state bit-equal to 8 steps=1 runs; supervised: %s "
+          "in %s s, step %d" % (tag, at, at + 1, k, len(names), acts,
+                                ["%.4f" % s for s in secs], sup.step))
+    return report
+
+
+def resil_loss_spike(torch, fluid, card, G, fresh, call, exe, tmp):
+    """Phase 34 (c): loss_spike at RESIL["spike_record"] (the 4th call),
+    a TrainingSentinel on the loss (sum_cost: the spike scales lbl_weight)
+    and the guard's grad norm, a snapshot at step 8; rollback_skip_data
+    restores it and skips the 8 records read since. The run is bit-equal
+    to a fault-free run that skipped the same records."""
+    from paddle_tpu_torch import resilience as rz
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.checkpoint.manager import skip_reader_records
+    tag = "resilience (c):"
+    k = RESIL["steps"]
+    ref = fresh(G)
+    ref_losses = [call(exe, G, ref, prefetch=False)[0] for _ in range(2)]
+    check(skip_reader_records(ref, [G.reader], 2 * k) == 2 * k,
+          "%s the reference skipped short" % tag)
+    ref_losses += [call(exe, G, ref, prefetch=False)[0] for _ in range(2)]
+    sc = fresh(G)
+    mgr = CheckpointManager(os.path.join(tmp, "ck_spike"), async_save=False)
+    sentinel = rz.TrainingSentinel(window=8, warmup=3, z_threshold=50.0)
+    sup = rz.Supervisor(exe, G.main, scope=sc, checkpoint_manager=mgr,
+                        sentinel=sentinel, policies={
+                            "loss_spike": [rz.rollback_skip_data(1),
+                                           rz.abort()]})
+    secs = _recovery_seconds(sup)
+    try:
+        with rz.FaultPlan(["loss_spike@%d" % RESIL["spike_record"]]):
+            res = sup.train(4 * k, fetch_list=G.fetch, steps=k,
+                            checkpoint_every=2 * k)
+    finally:
+        sup.close()
+        mgr.close()
+    acts = [(e["class"], e["action"]) for e in sup.events]
+    skip = [e["detail"] for e in sup.events
+            if e["action"] == "rollback_skip"]
+    check(("loss_spike", "rollback") in acts and skip
+          and "skipped %d records" % (2 * k) in skip[0]
+          and sentinel.spikes == 1 and sup.step == 4 * k,
+          "%s events %s, %d spikes, step %d" % (tag, sup.events,
+                                                sentinel.spikes, sup.step))
+    got = [r["fetches"][0] for r in res[-2:]]
+    check(all(np.array_equal(a, b) for a, b in zip(got, ref_losses[2:])),
+          "%s the losses after the rollback %s differ from the reference's "
+          "%s" % (tag, got, ref_losses[2:]))
+    same, err_v, err_at = state_diff(torch, host_state(ref), host_state(sc))
+    check(same, "%s the state differs from the fault-free run that skipped "
+          "the same records (%s by %r)" % (tag, err_at, err_v))
+    report = {"events": acts, "skip_detail": skip[0],
+              "spike": sup.events[0]["error"][:300], "bit_equal": True,
+              "recovery_s": secs, "card": card}
+    print("%s %s; %s; recovery %s s; losses and state bit-equal to the "
+          "run that skipped the same records"
+          % (tag, acts, skip[0], ["%.3f" % s for s in secs]))
+    return report
+
+
+def resil_hang(torch, fluid, card, G, fresh, call, exe, tmp):
+    """Phase 34 (d): slow_step at step 8 with watchdog_timeout set: a
+    DispatchTimeoutError, a bundle, hang:rollback to the step-8 snapshot,
+    the next call bit-equal to the straight run; a second slow step runs
+    the chain dry: an abort with a bundle that read_bundle reads. The
+    sleeping workers, when they wake, pop no record, draw no seed and
+    write nothing."""
+    from paddle_tpu_torch import resilience as rz
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    tag = "resilience (d):"
+    k, t_out, sleep = RESIL["steps"], RESIL["hang_timeout"], \
+        RESIL["hang_sleep"]
+    ref = fresh(G)
+    ref_losses = [call(exe, G, ref, prefetch=False)[0] for _ in range(3)]
+    ref_state = host_state(ref)
+    del ref
+    sd = fresh(G)
+    bundles = os.path.join(tmp, "bundles")
+    mgr = CheckpointManager(os.path.join(tmp, "ck_hang"), async_save=False)
+    sup = rz.Supervisor(exe, G.main, scope=sd, checkpoint_manager=mgr,
+                        watchdog_timeout=t_out, bundle_dir=bundles,
+                        policies={"hang": [rz.rollback(1), rz.abort()]})
+    secs = _recovery_seconds(sup)
+    aborted = None
+    try:
+        with rz.FaultPlan(["slow_step@%d:%g" % (2 * k, sleep),
+                           "slow_step@%d:%g" % (3 * k, sleep)]):
+            try:
+                sup.train(4 * k, fetch_list=G.fetch, steps=k,
+                          checkpoint_every=2 * k)
+            except rz.TrainingAborted as e:
+                aborted = e
+            ts = time.perf_counter()
+            reader = sd.get(G.reader)
+            at = (reader.state_dict()["consumed"], sd.seed_state())
+            state = host_state(sd)
+            # the second sleeper wakes after the deadline: wait it out
+            time.sleep(max(0.0, sleep - t_out + 1.0))
+            woke = (reader.state_dict()["consumed"], sd.seed_state())
+            waited_s = time.perf_counter() - ts
+    finally:
+        sup.close()
+        mgr.close()
+    acts = [(e["class"], e["action"]) for e in sup.events]
+    check(aborted is not None and isinstance(
+        aborted.cause, rz.DispatchTimeoutError), "%s no abort on the second "
+        "hang: %s" % (tag, aborted))
+    check(acts == [("hang", "bundle"), ("hang", "rollback"),
+                   ("hang", "bundle"), ("hang", "abort")],
+          "%s events %s" % (tag, acts))
+    check(at == woke and at[0] == 3 * k, "%s the woken worker moved the "
+          "reader or the seed cursor: %s then %s" % (tag, at, woke))
+    same, err_v, err_at = state_diff(torch, state, host_state(sd))
+    check(same, "%s the woken worker wrote the scope" % tag)
+    same, err_v, err_at = state_diff(torch, ref_state, state)
+    check(same, "%s the state after the rollback's call differs from the "
+          "straight run's at step %d (%s by %r)" % (tag, 3 * k, err_at,
+                                                    err_v))
+    last = [m["fetch0"] for m in sup.metrics][-1]
+    want = float(np.mean(ref_losses[2]))
+    check(last == want, "%s the rolled-back call's mean loss %r, the "
+          "straight run's %r" % (tag, last, want))
+    meta, program, _, saved = rz.read_bundle(aborted.bundle)
+    check(meta["fault_class"] == "hang" and program is not None
+          and saved and meta["thread_stacks"], "%s the bundle %s"
+          % (tag, {k2: meta.get(k2) for k2 in ("fault_class", "step")}))
+    report = {"timeout_s": t_out, "sleep_s": sleep, "events": acts,
+              "recovery_s": secs, "bit_equal_after_rollback": True,
+              "worker_consumed_nothing": True, "waited_s": waited_s,
+              "bundle_state_arrays": len(saved), "card": card}
+    print("%s %s; recovery (bundle + restore, bundle + abort) %s s; the "
+          "step-12 state and loss bit-equal to the straight run; the woken "
+          "worker consumed nothing; the bundle holds %d arrays"
+          % (tag, acts, ["%.2f" % s for s in secs], len(saved)))
+    return report
+
+
+def resil_canary(torch, fluid, card, G, fresh, exe):
+    """Phase 34 (e): CanaryChecker on the card: one digest over
+    RESIL["canary_checks"] checks and its ms a check; bitflip@3 convicts
+    check 3 of device 0; a Supervisor with sdc_every=4 aborts with the
+    SilentCorruptionError as its cause."""
+    from paddle_tpu_torch import resilience as rz
+    tag = "resilience (e):"
+    c = rz.CanaryChecker(devices=CANARY_DEVICES)
+    digests, ms = [], []
+    for _ in range(RESIL["canary_checks"]):
+        ts = time.perf_counter()
+        digests.append(c.check())
+        ms.append((time.perf_counter() - ts) * 1e3)
+    check(len(set(digests)) == 1, "%s digests %s" % (tag, digests))
+    c2 = rz.CanaryChecker(devices=CANARY_DEVICES)
+    got = None
+    with rz.FaultPlan(["bitflip@3"]):
+        try:
+            for _ in range(4):
+                c2.check()
+        except rz.SilentCorruptionError as e:
+            got = e
+    check(got is not None and got.device_index == 0 and c2.checks == 4
+          and got.expected == digests[0], "%s bitflip@3: %r after %d checks"
+          % (tag, got, c2.checks))
+    se = fresh(G)
+    sup = rz.Supervisor(exe, G.main, scope=se, sdc_every=RESIL["steps"],
+                        sdc=rz.CanaryChecker(devices=CANARY_DEVICES))
+    aborted = None
+    try:
+        with rz.FaultPlan(["bitflip@1"]):
+            try:
+                sup.train(4 * RESIL["steps"], fetch_list=G.fetch,
+                          steps=RESIL["steps"])
+            except rz.TrainingAborted as e:
+                aborted = e
+    finally:
+        sup.close()
+    check(aborted is not None and isinstance(
+        aborted.cause, rz.SilentCorruptionError)
+        and ("sdc", "abort") in [(e["class"], e["action"])
+                                 for e in sup.events],
+          "%s the supervised run: %r, events %s" % (tag, aborted,
+                                                    sup.events))
+    report = {"digest": digests[0], "checks": len(digests),
+              "check_ms": ms, "median_check_ms": statistics.median(ms[1:]),
+              "bitflip_check": 3, "supervisor_abort_step": sup.step,
+              "card": card}
+    print("%s digest %s stable over %d checks, %.3f ms a check (the "
+          "median of checks 2-%d; the first %.1f ms); bitflip@3 convicted "
+          "check 3 of device 0; the supervisor aborted at step %d with the "
+          "cause"
+          % (tag, digests[0], len(digests), report["median_check_ms"],
+             len(digests), ms[0], sup.step))
+    return report
+
+
+def resil_check_nan_inf(torch, fluid, card):
+    """Phase 34 (f): phase 20's program (fp32, dense attention, dropout)
+    at learning_rate RESIL["explode_lr"] under Executor(check_nan_inf=
+    True) raises naming a var; at its own rate, RESIL["eager_calls"]
+    steps with the sweep against as many without, in turns."""
+    import re
+    from paddle_tpu_torch.models import transformer
+    tag = "resilience (f):"
+    rng = np.random.RandomState(SEED)
+    t_max = MODEL["max_length"]
+    srcs = [rng.randint(3, MODEL["vocab"], t_max).tolist()
+            for _ in range(TRAIN_BATCH)]
+    feed = transformer.prepare_batch(srcs, srcs, t_max, labels=True,
+                                     n_head=MODEL["n_head"])
+    main, startup, avg = build_train(fluid, transformer, N_LAYER,
+                                     variant="dropout",
+                                     learning_rate=RESIL["explode_lr"])
+    exe, scope = fluid.Executor(check_nan_inf=True), fluid.Scope()
+    exe.run(startup, scope=scope)
+    msg, steps = None, 0
+    for steps in range(1, 4):
+        try:
+            exe.run(main, feed=feed, fetch_list=[avg], scope=scope)
+        except RuntimeError as e:
+            msg = str(e)
+            break
+    check(msg is not None and re.search(r"variable '[^']+' contains "
+                                        r"(NaN|Inf)", msg),
+          "%s the exploding run: %r" % (tag, msg))
+    del scope
+    main, startup, avg = build_train(fluid, transformer, N_LAYER,
+                                     variant="dropout")
+    ms = {True: [], False: []}
+    exes = {on: fluid.Executor(check_nan_inf=on) for on in (False, True)}
+    scopes = {}
+    for on, e in exes.items():
+        scopes[on] = fluid.Scope()
+        e.run(startup, scope=scopes[on])
+    for c in range(RESIL["eager_calls"] + 1):   # the first warms up
+        for on in (False, True):
+            m = call_ms(torch, lambda: exes[on].run(
+                main, feed=feed, fetch_list=[avg], scope=scopes[on]))
+            if c:
+                ms[on].append(m)
+    del scopes
+    sweep = statistics.median(ms[True]) - statistics.median(ms[False])
+    report = {"raised_at_step": steps, "message": msg[:200],
+              "step_ms_with": ms[True], "step_ms_without": ms[False],
+              "sweep_ms_per_call": sweep, "card": card}
+    print("%s raised at step %d: %s; eager step %.1f ms with the sweep, "
+          "%.1f without (%.2f ms a call)"
+          % (tag, steps, msg.split(" (")[0], statistics.median(ms[True]),
+             statistics.median(ms[False]), sweep))
+    return report
+
+
+def sentinel_host_us(torch):
+    """The sentinel's host µs an observe (window 64, a loss and a grad
+    norm, RESIL["sentinel_observes"] healthy calls)."""
+    from paddle_tpu_torch import resilience as rz
+    rng = np.random.RandomState(SEED + 34)
+    vals = (1.0 + 0.01 * rng.rand(RESIL["sentinel_observes"], 2)).tolist()
+    s = rz.TrainingSentinel()
+    ts = time.perf_counter()
+    for loss, gn in vals:
+        s.observe(loss, grad_norm=gn)
+    return (time.perf_counter() - ts) / len(vals) * 1e6
+
+
+def run_resilience(torch, card):
+    """Phase 34 (see RESIL and the module's docstring): the paths and the
+    `resilience_summary:` report."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="ptt_phase34_")
+    t0 = time.perf_counter()
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    try:
+        feed_main, _, _ = build_train(fluid, transformer, N_LAYER,
+                                      variant="bf16")
+        batches = reader_batches(transformer)
+        paths = write_reader_files(fluid, transformer, feed_main,
+                                   batches + batches[:8], tmp, files=1)
+        U = _ResilProgram(fluid, transformer, paths, guard=False)
+        G = _ResilProgram(fluid, transformer, paths, guard=True)
+        exe0, s0 = fluid.Executor(), fluid.Scope()
+        exe0.run(U.startup, scope=s0)
+        init, seed0 = host_state(s0), s0.seed_state()
+        del s0
+
+        def fresh(prog):
+            """A scope with `prog`'s reader and the common initial state."""
+            scope = fluid.Scope()
+            exe0.run(prog.startup, scope=scope)
+            for n, v in init.items():
+                scope.set(n, v.to(exe0.device))
+            scope.set_seed_state(seed0)
+            return scope
+
+        def call(exe, prog, scope, steps=RESIL["steps"], prefetch=True,
+                 rn=True):
+            return exe.run(prog.main, fetch_list=prog.fetch, scope=scope,
+                           steps=steps, prefetch=prefetch, return_numpy=rn)
+
+        # timed as a user trains (the default mode), then every check
+        # under deterministic algorithms, as phases 25 and 32-33
+        overhead = resil_timing(torch, fluid, card, U, G, fresh, call)
+        nan_inf = resil_check_nan_inf(torch, fluid, card)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        run, overhead["deterministic_losses"], exe = resil_equal(
+            torch, fluid, card, U, G, fresh, call)
+        overhead["launches_per_step"] = {
+            n: c / RESIL["steps"] for n, c in run[0].items() if c}
+        nan = resil_nan_block(torch, fluid, card, G, fresh, call, exe)
+        spike = resil_loss_spike(torch, fluid, card, G, fresh, call, exe,
+                                 tmp)
+        hang = resil_hang(torch, fluid, card, G, fresh, call, exe, tmp)
+        canary = resil_canary(torch, fluid, card, G, fresh, exe)
+        exe._cache.clear()
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    summary = {"overhead": overhead, "nan_block": nan, "loss_spike": spike,
+               "hang": hang, "canary": canary, "check_nan_inf": nan_inf,
+               "sentinel_us_per_observe": sentinel_host_us(torch),
+               "phase_s": time.perf_counter() - t0, "card": card}
+    return [("resilience_guarded", run)], summary
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
@@ -8937,6 +9636,7 @@ def main(argv=None):
         torch, ck, peak_flops, peak_bw,
         baseline_source(args.k7_baseline, K7_BASELINE_COMMIT, LSTMP_SRC)))
     kernels.update(run_while_kernel(torch, ck, peak_bw))
+    kernels.update(run_guard_kernel(torch, ck, peak_bw))
     if args.only == "all":
         stem = args.trace and os.path.splitext(args.trace)[0]
         # each path: the launch counts of its run and the counts it
@@ -9114,6 +9814,9 @@ def main(argv=None):
         persist_paths, persistence = run_persistence(torch, card)
         paths += persist_paths
         print("persistence_summary: " + json.dumps(persistence))
+        resil_paths, resilience = run_resilience(torch, card)
+        paths += resil_paths
+        print("resilience_summary: " + json.dumps(resilience))
         print("clipping_summary: " + json.dumps({
             "fit_a_line": {k: v for k, v in clipping.items() if k != "card"},
             "language_model_clip": {k: lm_clip[k] for k in (

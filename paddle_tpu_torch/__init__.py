@@ -63,5 +63,11 @@ from . import datasets  # noqa: F401
 from . import recordio  # noqa: F401
 from . import recordio_writer  # noqa: F401
 from .reader import batch  # noqa: F401
+from . import checkpoint  # noqa: F401
+from .checkpoint import CheckpointManager  # noqa: F401
+from . import resilience  # noqa: F401
+from .resilience import (Supervisor, TrainingAborted,  # noqa: F401
+                         install_numeric_guards, NumericalGuardError,
+                         DispatchTimeoutError)
 
 Tensor = LoDTensor

@@ -66,8 +66,8 @@ __all__ = [
 # --------------------------------------------------------------- faults --
 _fault_counter = {"n": 0}
 
-# The resilience layer's fault plan (ROADMAP A9) points this at its
-# checkpoint-crossing hook; the PTPU_CKPT_FAULT_AT env var works without
+# An armed resilience.FaultPlan points this at its checkpoint-crossing
+# hook (`ckpt_kill@N`); the PTPU_CKPT_FAULT_AT env var works without
 # it (its counter only advances while it is set, preserving the sweep
 # contract).
 _fault_hook = None

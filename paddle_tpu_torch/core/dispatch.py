@@ -2,8 +2,11 @@
 
 Parity: the JAX package's core/dispatch.py — its `InflightWindow`, its
 host-io prefetcher and its watchdog pair `run_with_deadline` /
-`dispatch_with_deadline`. Its dispatch hooks (the cluster fence and the
-fault taps) come with ROADMAP A9 and A10.
+`dispatch_with_deadline` — and its dispatch-guard seam: the pre-dispatch
+hooks (`run_dispatch_hooks`: the cluster step barrier, which comes with
+ROADMAP A10, and the fault-injection tap) and the post-dispatch checks
+(`run_post_dispatch_checks`: the assertion and guard flags, the
+FLAGS_check_nan_inf sweep).
 
   * `InflightWindow` bounds how many dispatches may be outstanding on the
     device at once (the serving batcher's continuous-batching window).
@@ -45,7 +48,8 @@ from ..observability import trace as _trace
 __all__ = ["InflightWindow", "run_with_deadline", "dispatch_with_deadline",
            "run_step_traced", "HostIoPrefetcher", "has_read_ops",
            "has_host_io_ops", "kick_next_prepass", "consume_host_io",
-           "rollback_all_staged", "CANCELLED"]
+           "rollback_all_staged", "run_dispatch_hooks",
+           "run_post_dispatch_checks", "CANCELLED"]
 
 _CLOSE = object()
 # HostIoPrefetcher.take / consume_host_io: the caller's watchdog fired
@@ -511,3 +515,54 @@ def rollback_all_staged(scope=None):
             if block is not None and block.scope is not scope:
                 continue
         pf.rollback()
+
+
+def run_dispatch_hooks(program, steps, feeds, prefetcher=None,
+                       cancelled=None):
+    """The pre-dispatch hooks, as the JAX package runs them: the cluster
+    step barrier first (core.executor._barrier_hook), then the fault-
+    injection tap (core.executor._fault_hook), which may raise, sleep or
+    poison a feed of `feeds` in place. Both fire before the io pre-pass
+    and the seed draw, so a fenced, failed or injected attempt consumes
+    no reader record and no seed, and a retry replays bit-exactly. A raise
+    refunds whatever the prefetcher staged."""
+    from . import executor as _exe
+    try:
+        if _exe._barrier_hook is not None:
+            _exe._barrier_hook("dispatch", program=program, steps=steps)
+        if _exe._fault_hook is not None:
+            _exe._fault_hook("dispatch", program=program, steps=steps,
+                             feed_arrays=feeds)
+    except BaseException:
+        if prefetcher is not None:
+            prefetcher.rollback(cancelled=cancelled)
+        raise
+
+
+def run_post_dispatch_checks(executor, errors, fetches, fetch_names,
+                             new_state, context, cancelled=None):
+    """The post-dispatch checks: the in-graph assertion flags (guard
+    flags raise even under FLAGS_tensor_array_safety=0: a program that
+    installed guards opted into their one read), with the stat channel
+    riding that read into `executor.last_stats`, then the optional
+    FLAGS_check_nan_inf sweep over the fetches and the new state. Any
+    raise refunds the prefetcher's just-kicked next block first, so the
+    stream stands where the failed run left it (its own records
+    consumed, nothing more)."""
+    from .executor import (GUARD_MSG_PREFIX, check_finite, pop_guard_stats,
+                           raise_program_errors)
+    stats = executor.last_stats = pop_guard_stats(errors) if errors else {}
+    try:
+        has_guards = any(m.startswith(GUARD_MSG_PREFIX) for m in errors)
+        if errors and (executor._array_safety or has_guards):
+            executor.flag_reads += 1
+            raise_program_errors(errors,
+                                 include_non_guard=executor._array_safety,
+                                 stats=stats)
+        if executor._check_nan_inf:
+            check_finite(list(zip(fetch_names, fetches)) +
+                         list(new_state.items()), context=context)
+    except BaseException:
+        if executor._prefetcher is not None:
+            executor._prefetcher.rollback(cancelled=cancelled)
+        raise

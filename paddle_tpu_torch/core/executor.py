@@ -364,29 +364,93 @@ def fetch_var(name, scope=None, return_numpy=True):
     return to_numpy(val) if return_numpy else val
 
 
-def raise_program_errors(errors):
+# message prefix check_finite_guard (ops/guard_ops.py) stamps on its
+# assertion flags; raise_program_errors keys the typed raise on it
+GUARD_MSG_PREFIX = "numerical guard:"
+
+
+class NumericalGuardError(RuntimeError):
+    """A device-side numerical guard (resilience.install_numeric_guards)
+    tripped: a non-finite loss, gradient or parameter. The gated state
+    updates of the offending step were skipped on the device, so the
+    scope still holds the last good values: a supervisor can skip the
+    batch, retry or roll back without fearing poisoned parameters."""
+
+
+# Fault-injection hook (resilience/faults.py): None in production. An
+# armed FaultPlan points it at its executor hook, which may raise an
+# injected dispatch error, sleep (slow_step) or poison a feed at chosen
+# step indices. It fires (dispatch.run_dispatch_hooks) before the io
+# pre-pass and the seed draw, so a failed attempt consumes nothing.
+_fault_hook = None
+
+# Step-barrier hook of an elastic cluster worker (ROADMAP A10): None
+# until that layer exists. It fires first, before the fault hook.
+_barrier_hook = None
+
+
+def raise_program_errors(errors, include_non_guard=True, stats=None):
     """Raise on tripped in-graph assertions (LowerCtx.add_error), as the
     JAX package's executor does after a run: ONE host read of the
     combined flag in the clean case, each message's flag read only after
-    it tripped; a RuntimeError listing every tripped message, sorted (the
-    JAX package's jitted step returns its flags as a dict, which comes
-    back in key order), those naming a tensor array first."""
-    if not errors:
+    it tripped. A \\x00-joined message carries a vector of flags (one a
+    sub-message: check_finite_guard's per-var flags), unpacked only
+    after a trip. `stats` ({name: 0-d tensor}, the stat channel) ride
+    that same read: their values come back in place as host floats.
+
+    All tripped messages are listed, in the order the JAX package's
+    jitted step returns its flags (its dict, in key order), those naming
+    a tensor array first. Guard messages (GUARD_MSG_PREFIX) raise
+    NumericalGuardError, anything else RuntimeError; with
+    include_non_guard=False (FLAGS_tensor_array_safety=0 with guards
+    installed) only guard messages count."""
+    stats = {} if stats is None else stats
+    parts = []
+    if errors:
+        parts.append(torch.cat([f.reshape(-1) for f in errors.values()])
+                     .any().reshape(1).float())
+    parts.extend(v.reshape(1).float() for v in stats.values())
+    if not parts:
         return
-    flags = list(errors.values())
-    any_flag = flags[0] if len(flags) == 1 else torch.stack(
-        [f.reshape(()) for f in flags]).any()
-    if not bool(any_flag):
+    host = (parts[0] if len(parts) == 1 else torch.cat(parts)).tolist()
+    if errors:
+        tripped_any, host = bool(host[0]), host[1:]
+    for name, v in zip(list(stats), host):
+        stats[name] = v
+    if not errors or not tripped_any:
         return
-    tripped = sorted(m for m, f in errors.items() if bool(f))
+    tripped = []
+    for msg in sorted(errors):
+        flag = errors[msg]
+        if "\x00" in msg:
+            tripped.extend(m for m, f in zip(msg.split("\x00"),
+                                             flag.reshape(-1).tolist()) if f)
+        elif bool(flag):
+            tripped.append(msg)
+    if not include_non_guard:
+        tripped = [m for m in tripped if m.startswith(GUARD_MSG_PREFIX)]
+    if not tripped:
+        return
     # the JAX package's order: the messages naming an array lead
     named = [m for m in tripped if m.startswith("tensor array '")]
     tripped = named + [m for m in tripped if m not in named]
+    cls = (NumericalGuardError
+           if any(m.startswith(GUARD_MSG_PREFIX) for m in tripped)
+           else RuntimeError)
     if len(tripped) == 1:
-        raise RuntimeError(tripped[0])
-    raise RuntimeError(
+        raise cls(tripped[0])
+    raise cls(
         "%d in-graph assertions tripped in this run:\n- %s"
         % (len(tripped), "\n- ".join(tripped)))
+
+
+def pop_guard_stats(errors):
+    """Move the stat-channel entries (GUARD_STAT_PREFIX: the guard's
+    grad norm) out of a run's error dict, in place: {short name: 0-d
+    device tensor}. No host read here."""
+    from .lowering import GUARD_STAT_PREFIX, is_stat_key
+    return {m[len(GUARD_STAT_PREFIX):]: errors.pop(m)
+            for m in [m for m in errors if is_stat_key(m)]}
 
 
 def array_safety_enabled():
@@ -394,11 +458,46 @@ def array_safety_enabled():
     FLAGS_tensor_array_safety, read when an Executor is made). Checking
     costs one host read of the combined flag per run of a program with an
     asserting op or a tensor array; a decode loop that sizes its arrays
-    can set FLAGS_tensor_array_safety=0 to skip it, and then no
-    assertion raises, as in the JAX package (which keeps only its
-    numerical guards, which the port does not have yet)."""
+    can set FLAGS_tensor_array_safety=0 to skip it, and then no assertion
+    raises but the numerical guards', as in the JAX package (a program
+    that installed guards opted into their one read)."""
     return os.environ.get("FLAGS_tensor_array_safety", "1") not in (
         "0", "false", "False")
+
+
+def _nan_inf_enabled(flag):
+    """A check_nan_inf setting: an explicit flag wins, else the
+    FLAGS_check_nan_inf env var (parity: the reference's gflag of that
+    name, paddle/fluid/framework/operator.cc, and the JAX package)."""
+    if flag is not None:
+        return bool(flag)
+    return os.environ.get("FLAGS_check_nan_inf", "") not in (
+        "", "0", "false", "False")
+
+
+def check_finite(named_tensors, context=""):
+    """Raise naming the first variable holding a NaN or an infinity (the
+    FLAGS_check_nan_inf sweep; parity: paddle/fluid/framework/
+    tensor_util.cc TensorContainsNAN / TensorContainsInf). One stacked
+    device reduction over every float tensor (ops/guard_ops.
+    finite_checks) and one host read; the flags are read one by one
+    only after a trip, to name the variable."""
+    from ..ops.guard_ops import finite_checks
+    floats = [(n, v) for n, v in named_tensors
+              if isinstance(v, torch.Tensor) and v.is_floating_point()]
+    if not floats:
+        return
+    bad = finite_checks([v for _, v in floats])[0]
+    if not bool(bad.any()):
+        return
+    name, v = floats[bad.tolist().index(True)]
+    kind = "NaN" if bool(torch.isnan(v).any()) else "Inf"
+    raise RuntimeError(
+        "Operator output variable %r contains %s%s (first bad of %d "
+        "elements; enable smaller LR / grad clipping, or inspect with "
+        "fluid.debuger)" % (name, kind,
+                            " after %s" % context if context else "",
+                            v.numel()))
 
 
 class DispatchTimeoutError(RuntimeError):
@@ -449,18 +548,27 @@ def _feed_to_device(t, device):
 
 class Executor(object):
     """Runs Programs on one device. `place`: "cuda" (default), "cuda:N",
-    "cpu", a torch.device or a Place (CPUPlace, CUDAPlace, TPUPlace)."""
+    "cpu", a torch.device or a Place (CPUPlace, CUDAPlace, TPUPlace).
+    `check_nan_inf` (default: the FLAGS_check_nan_inf env var) sweeps
+    every run's fetches and new state for NaN and infinity and raises
+    naming the first bad variable (check_finite)."""
 
-    def __init__(self, place=None):
+    def __init__(self, place=None, check_nan_inf=None):
         self.device = resolve_device(place)
+        self._check_nan_inf = _nan_inf_enabled(check_nan_inf)
+        # the guard stat channel of the newest run ({"grad_norm": float}
+        # when guards were installed with grad_norm=True): read with the
+        # run's one flag read, so the sentinel's watch adds no host read
+        self.last_stats = {}
         # (program uid, program version, fetch names) -> the global-block
         # outputs nothing reads in such a run (lowering.unread_outputs)
         self._unread = {}
         # run cache key -> lowering.MultiStepRunner (steps > 1), LRU
         self._cache = collections.OrderedDict()
         # runs that read their in-graph assertion flags on the host: every
-        # run of a program with an asserting op or a tensor array (one read
-        # of the combined flag when none tripped), no other run
+        # run of a program with an asserting op, a tensor array or a
+        # numerical guard (one read of the combined flag, the guard's
+        # statistics riding it, when none tripped), no other run
         self.flag_reads = 0
         self._array_safety = array_safety_enabled()
         # core/dispatch.HostIoPrefetcher, armed by the first
@@ -563,6 +671,13 @@ class Executor(object):
             var = find_var(program, name)
             feeds[name] = to_tensor(value,
                                     var.dtype if var is not None else None)
+        # the cluster barrier and the fault tap fire before the io
+        # pre-pass and the seed draw: a failed attempt consumes nothing
+        _dispatch.run_dispatch_hooks(program, steps, feeds,
+                                     prefetcher=self._prefetcher,
+                                     cancelled=cancelled)
+        if cancelled is not None and cancelled.is_set():
+            return None   # the caller raised: consume nothing, not a seed
         stacked = set()
         if _dispatch.has_host_io_ops(program, self._has_host_io) or (
                 self._prefetcher is not None and
@@ -609,15 +724,9 @@ class Executor(object):
             # runs on the device
             _dispatch.kick_next_prepass(self, program, scope, steps,
                                         cancelled, "exe", device=self.device)
-        if errors and self._array_safety:
-            self.flag_reads += 1
-            try:
-                raise_program_errors(errors)
-            except BaseException:
-                # the failed run consumed its own records, nothing more
-                if self._prefetcher is not None:
-                    self._prefetcher.rollback(cancelled=cancelled)
-                raise
+        _dispatch.run_post_dispatch_checks(self, errors, fetches,
+                                           fetch_names, new_state,
+                                           "Executor.run", cancelled)
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         return fetches

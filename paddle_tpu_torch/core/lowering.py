@@ -109,15 +109,18 @@ class LowerCtx(object):
     def add_error(self, message, flag):
         """Record an in-graph assertion: `flag` (a 0-d bool tensor, never
         read here) is True where the program is at fault. Flags of one
-        message combine by sticky OR. Inside a loop body (an enclosing
-        rnn_scan's step or while's iteration) it records nothing, as the
-        JAX package's rule records nothing inside a lax loop body, whose
-        flags cannot leave the trace; a tensor array's overflow flag
-        leaves a loop through PROGRAM_ERR instead."""
+        message combine by sticky OR; a \\x00-joined message carries a
+        [N] bool vector (one flag a message), and a GUARD_STAT_PREFIX
+        message a 0-d float statistic, combined by max (fold_error).
+        Inside a loop body (an enclosing rnn_scan's step or while's
+        iteration) it records nothing, as the JAX package's rule records
+        nothing inside a lax loop body, whose flags cannot leave the
+        trace; a tensor array's overflow flag leaves a loop through
+        PROGRAM_ERR instead."""
         if self._loop_iters:
             return
-        prev = self.op_errors.get(message)
-        self.op_errors[message] = flag if prev is None else prev | flag
+        self.op_errors[message] = fold_error(
+            message, self.op_errors.get(message), flag)
 
     def begin_op(self, salt, outputs=None):
         self._op_salt = salt
@@ -255,6 +258,28 @@ SUB_BLOCK_OVERFLOW = (
     "a tensor array confined to a loop/conditional sub-block overflowed "
     "its capacity inside traced control flow; pass a larger capacity to "
     "create_array()")
+
+
+# Error-channel keys with this prefix carry a float STATISTIC (the
+# sentinel's global grad norm, ops/guard_ops.py), not an assertion flag:
+# it folds by max (across a steps=K call: the block's worst value), never
+# trips the combined flag, and the executor moves it into `last_stats`
+# (the JAX package's GUARD_STAT_PREFIX). Every other key folds by sticky
+# OR; a \x00-joined key carries a [N] vector of flags, one a message.
+GUARD_STAT_PREFIX = "\x00stat\x00"
+
+
+def is_stat_key(message):
+    return message.startswith(GUARD_STAT_PREFIX)
+
+
+def fold_error(message, prev, flag):
+    """One message's running value with `flag` folded in: max for a stat
+    key, sticky OR for a flag (elementwise for a vector)."""
+    if prev is None:
+        return flag
+    return torch.maximum(prev, flag) if is_stat_key(message) \
+        else prev | flag
 
 
 def accumulate_error(env, flag):
@@ -661,12 +686,14 @@ class MultiStepRunner(object):
     seen), and hands the scope fresh copies of the new state: nothing a
     caller or the scope holds changes under a later replay.
 
-    In-graph assertions (LowerCtx.add_error): one static 0-d bool buffer
-    per message of the step, zeroed at the start of each call and ORed
-    with the step's flag inside the step (inside the captured graph), so
-    after K replays each holds the sticky OR over the K steps, as the
-    JAX package's lax.scan carries its flags (its fold_errors). The
-    caller reads them once, after the K steps."""
+    In-graph assertions (LowerCtx.add_error): one static bool buffer per
+    message of the step (0-d, or [N] for a vector of flags), zeroed at
+    the start of each call and ORed with the step's flag inside the step
+    (inside the captured graph), so after K replays each holds the
+    sticky OR over the K steps, as the JAX package's lax.scan carries
+    its flags (its fold_errors); a statistic's float buffer holds the
+    max over the K steps. The caller reads them once, after the K
+    steps."""
 
     def __init__(self, program, device, feed_names, fetch_names, state_rw,
                  state_ro, state_out, steps, fetch_reduce="stack",
@@ -795,7 +822,7 @@ class MultiStepRunner(object):
 
     def _fold_errors(self, errors):
         """The step's assertion flags ORed into their buffers (sticky
-        across the call's steps)."""
+        across the call's steps), its statistics maxed into theirs."""
         if set(errors) != set(self._errs):
             raise RuntimeError(
                 "the step raised assertions %s, its warm-up run %s: its "
@@ -803,7 +830,10 @@ class MultiStepRunner(object):
                 % (sorted(errors), sorted(self._errs)))
         for m, f in errors.items():
             buf = self._errs[m]
-            torch.logical_or(buf, f.reshape(()), out=buf)
+            if is_stat_key(m):
+                torch.maximum(buf, f.reshape(()).to(buf.dtype), out=buf)
+            else:
+                torch.logical_or(buf, f.reshape(buf.shape), out=buf)
 
     def _copy_back(self, new):
         """New state -> its buffers. A new value that shares storage with
@@ -919,9 +949,14 @@ class MultiStepRunner(object):
             % (self.steps, where, phase, cause))
 
     def _alloc_errors(self, ctx):
-        """One flag buffer per assertion message of the warm-up step."""
-        self._errs = {m: torch.zeros((), dtype=torch.bool, device=self.device)
-                      for m in ctx.op_errors}
+        """One buffer per assertion message of the warm-up step: a 0-d
+        bool, a [N] bool for a vector of flags, a 0-d float32 for a
+        statistic (reset to -inf, max's identity, at each call)."""
+        self._errs = {
+            m: torch.empty((), dtype=torch.float32, device=self.device)
+            if is_stat_key(m) else
+            torch.zeros(f.shape, dtype=torch.bool, device=self.device)
+            for m, f in ctx.op_errors.items()}
 
     def _write_only_bufs(self, new):
         for n in self.out_names:
@@ -942,8 +977,8 @@ class MultiStepRunner(object):
             self._build(scope, feeds, seed)
         else:
             self._sync_in(scope, feeds)
-        for buf in self._errs.values():
-            buf.zero_()
+        for m, buf in self._errs.items():
+            buf.fill_(float("-inf") if is_stat_key(m) else False)
         for iters, _, _ in self._while_loops:
             iters.zero_()
         out = None

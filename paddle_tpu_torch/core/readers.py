@@ -18,8 +18,13 @@ the copies. The consumer's stream waits on that event (no host sync), so
 the host-to-device copy of the next batch overlaps the current step, as
 the reference's double_buffer reader overlapped it with CUDA streams.
 
-The JAX package's fault-injection and supervisor hooks on readers
-(`_fault_hook`, `set_fault_listener`) come with ROADMAP A9.
+Two resilience seams, as in the JAX package: the fault-injection hook
+(`_fault_hook`, armed by resilience.FaultPlan) fires per record at each
+source reader, keyed on that reader's own delivered-record counter, and
+the fault listener (`set_fault_listener`, a Supervisor's) hears a worker
+thread's error the moment the worker dies. A DoubleBufferReader's worker
+pulls each record through the source's hook on the host, before its
+pinned copy to the card: a poisoned record reaches the card poisoned.
 """
 import atexit
 import collections
@@ -34,13 +39,43 @@ import torch
 __all__ = ["EOFException", "HOST_IO_OPS", "run_host_io_op", "is_host_io_op",
            "ReaderBase", "IteratorReader", "RecordIOReader",
            "MultiFileReader", "ShuffleReader", "MultiPassReader",
-           "DoubleBufferReader"]
+           "DoubleBufferReader", "set_fault_listener"]
 
 
 class EOFException(Exception):
     """Raised by a `read` op when the underlying reader is exhausted
     (parity: the reference reader's has_next() turning false;
     `reader.eof()` is the polite way to check first)."""
+
+
+# Fault-injection seam (resilience/faults.py): None in production. An
+# armed FaultPlan points it at its reader hook, which can stall, raise or
+# poison a record at a chosen stream position, keyed on the reader's own
+# delivered-record counter, so it stays deterministic while a
+# DoubleBufferReader worker pre-stages ahead of the training loop.
+_fault_hook = None
+
+# Supervisor fault channel: a reader worker thread that hits an exception
+# tells this listener at once (from the worker), instead of the error
+# surfacing only at the next `read`.
+_fault_listener = None
+
+
+def set_fault_listener(fn):
+    """Install `fn(reader, exc)` as the reader-worker fault channel;
+    returns the previous listener (restore it when done). fn runs ON the
+    worker thread and must be quick and exception-safe."""
+    global _fault_listener
+    old, _fault_listener = _fault_listener, fn
+    return old
+
+
+def _notify_fault(reader, exc):
+    if _fault_listener is not None:
+        try:
+            _fault_listener(reader, exc)
+        except Exception:
+            pass  # a broken listener must not mask the real fault
 
 
 # op types the Executor runs host-side instead of lowering
@@ -73,10 +108,18 @@ class ReaderBase(object):
         self._consumed = 0
 
     def next(self):
+        if _fault_hook is not None:
+            # "read" phase: may sleep (injected stall) or raise (injected
+            # reader error / early EOF) BEFORE the record pops, so the
+            # stream position is untouched by the failure
+            _fault_hook("read", self)
         if self._pending:
             rec = self._pending.popleft()
         else:
             rec = self._next()
+        if _fault_hook is not None:
+            # "record" phase: may poison the popped record (NaN, spike)
+            rec = _fault_hook("record", self, record=rec) or rec
         self._consumed += 1
         return rec
 
@@ -218,6 +261,7 @@ class MultiFileReader(ReaderBase):
                         if gen != self._gen:
                             return
             except Exception as e:  # bad/corrupt file: surface, don't hang
+                _notify_fault(self, e)  # supervisor channel: immediately
                 self._died = _ReaderError(e)  # sticky: dead != exhausted
                 q.put(_ReaderError(e))
                 return
@@ -480,13 +524,17 @@ class DoubleBufferReader(ReaderBase):
                     q.put(_EOF_SENTINEL)
                     return
                 except Exception as e:  # propagate reader errors to next()
+                    # the fault channel first: the supervisor hears of the
+                    # dying pipeline now, not at the next read
+                    _notify_fault(self, e)
                     self._died = _ReaderError(e)  # sticky: dead != EOF
                     q.put(_ReaderError(e))
                     return
                 try:
                     item = self._stage(rec)
                 except Exception as e:  # a staging failure is a reader
-                    self._died = _ReaderError(e)   # error, not an EOF
+                    _notify_fault(self, e)         # error, not an EOF
+                    self._died = _ReaderError(e)
                     q.put(_ReaderError(e))
                     return
                 q.put(item)

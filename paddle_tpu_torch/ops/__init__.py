@@ -3,6 +3,7 @@ from . import basic  # noqa: F401
 from . import control_ops  # noqa: F401
 from . import crf_ops  # noqa: F401
 from . import ctc_ops  # noqa: F401
+from . import guard_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import quant_ops  # noqa: F401

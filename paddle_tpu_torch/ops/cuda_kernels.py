@@ -9,7 +9,9 @@ library with a plain C interface (`build()`), loaded with ctypes.
 Beside each kernel:
   * a wrapper (`flash_attention_fwd`, `flash_attention_bwd_dkdv`,
     `flash_attention_bwd_dq`, `softmax_xent_fwd`, `layer_norm_fwd`,
-    `fused_lstm`, `fused_lstmp`, `masked_softmax`, `masked_pool`) whose
+    `fused_lstm`, `fused_lstmp`, `masked_softmax`, `masked_pool`, and
+    `guard_restore`, the numerical guard's gate, which replaces no TPU
+    kernel) whose
     dispatch rule is the tensor's device: `meta` returns empty outputs of
     the right shape (build-time shape inference), `cpu` runs the plain
     version, `cuda` launches the kernel or raises. Nothing falls back;
@@ -61,7 +63,7 @@ __all__ = ["build", "flash_attention_fwd", "flash_attention_fwd_plain",
            "reset_launch_counts", "take_launches", "add_launches",
            "add_device_launches", "launch_snapshot", "set_while_condition",
            "set_while_condition_plain", "graph_while_begin",
-           "graph_while_end",
+           "graph_while_end", "guard_restore", "guard_restore_plain",
            "KERNEL_NAMES", "FLASH_HEAD_DIMS",
            "FLASH_DTYPES", "POOL_TYPES"]
 
@@ -72,7 +74,8 @@ SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
            "flash_attention_fwd_bf16.cu", "flash_attention_bwd_dkdv_bf16.cu",
            "flash_attention_bwd_dq_bf16.cu", "softmax_xent_fwd.cu",
            "layer_norm_fwd.cu", "fused_lstm_fwd.cu", "fused_lstmp_fwd.cu",
-           "masked_softmax_fwd.cu", "masked_pool_fwd.cu", "graph_while.cu")
+           "masked_softmax_fwd.cu", "masked_pool_fwd.cu", "graph_while.cu",
+           "guard_restore.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -94,7 +97,7 @@ KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dkdv",
                 "layer_norm_fwd", "fused_lstm", "fused_lstmp",
                 "masked_softmax", "masked_pool", "flash_attention_fwd_bf16",
                 "flash_attention_bwd_dkdv_bf16", "flash_attention_bwd_dq_bf16",
-                "set_while_condition")
+                "set_while_condition", "guard_restore")
 _launches = dict.fromkeys(KERNEL_NAMES, 0)
 # launches a replayed graph made inside its conditional while bodies:
 # {(name, device): a 0-d int64 tensor on that device}, each a running
@@ -215,6 +218,9 @@ def _bind(lib):
     lib.ptt_masked_softmax_fwd.restype = I
     _bind_pool(lib)
     _bind_graph_while(lib)
+    lib.ptt_guard_restore.argtypes = [P, I, P, P, P, P,
+                                      ctypes.POINTER(I)]
+    lib.ptt_guard_restore.restype = I
 
 
 def _bind_graph_while(lib):
@@ -1974,3 +1980,59 @@ def graph_while_end(body_stream):
     _graph_while_check(lib, lib.ptt_graph_while_end(
         ctypes.c_void_p(body_stream.cuda_stream)),
         "ending the capture of the while body")
+
+
+# ---------------------------------------------------------------------------
+# the gate of a numerically guarded step (csrc/guard_restore.cu; replaces no
+# TPU kernel: the JAX package's guard_select_all is a lax.cond XLA runs on
+# the device)
+# ---------------------------------------------------------------------------
+
+def guard_restore_plain(ok, xs, ys):
+    """Plain version: each x becomes where(ok, x, y), in place."""
+    ok = ok.reshape(())
+    for x, y in zip(xs, ys):
+        x.copy_(torch.where(ok, x, y))
+
+
+def guard_restore(ok, xs, ys):
+    """Each x <- its y, in place, where the one-element bool `ok` is False;
+    nothing where it is True. xs and ys: contiguous tensors of equal shapes
+    and dtypes on ok's device, no x sharing memory with another x or a y.
+    On the card one launch a csrc/guard_restore.cu kMaxSegs vars, reading
+    `ok` on the device (no host read: it captures into a CUDA graph); on
+    the CPU the plain version."""
+    if ok.device.type == "meta":
+        return
+    if ok.device.type != "cuda":
+        return guard_restore_plain(ok, xs, ys)
+    _cond_arg(ok, "guard_restore")
+    for x, y in zip(xs, ys):
+        if x.shape != y.shape or x.dtype != y.dtype or \
+                x.device != ok.device or y.device != ok.device or \
+                not (x.is_contiguous() and y.is_contiguous()):
+            raise ValueError(
+                "guard_restore takes contiguous pairs of one shape and "
+                "dtype on the flag's card; got %s %s on %s and %s %s on %s"
+                % (tuple(x.shape), x.dtype, x.device, tuple(y.shape),
+                   y.dtype, y.device))
+    n = len(xs)
+    if not n:
+        return
+    ptrs = ctypes.c_void_p * n
+    dst = ptrs(*[x.data_ptr() for x in xs])
+    src = ptrs(*[y.data_ptr() for y in ys])
+    nbytes = (ctypes.c_longlong * n)(*[x.numel() * x.element_size()
+                                       for x in xs])
+    launches = ctypes.c_int()
+    lib = build()
+    err = lib.ptt_guard_restore(
+        ok.data_ptr(), n, ctypes.cast(dst, ctypes.c_void_p),
+        ctypes.cast(src, ctypes.c_void_p), ctypes.cast(nbytes,
+                                                       ctypes.c_void_p),
+        _stream_of(ok), ctypes.byref(launches))
+    if err != 0:
+        raise RuntimeError("guard_restore failed: %s (cudaError %d)" % (
+            lib.ptt_cuda_error_string(err).decode(), err))
+    for _ in range(launches.value):
+        _count("guard_restore")

@@ -1,0 +1,207 @@
+"""Numerical guards: device-side all-finite gating + host-side divergence.
+
+Parity: the JAX package's resilience/guards.py; the same program rewrite
+(the same ops, var names and attrs). What the ops do on the card is in
+ops/guard_ops.py.
+
+Device side (`install_numeric_guards`): rewrites a training program so
+that every step checks loss / parameter gradients (optionally the updated
+params) for NaN/Inf IN-GRAPH and, when anything is non-finite, SKIPS all
+of its persistable state updates on device. Mechanics (ops/guard_ops.py):
+
+    [guard_backup p -> p@GUARD_BK ...]   # prepended: pre-step aliases
+    ... original forward/backward/update ops ...
+    check_finite_guard(loss, grads...) -> __step_all_finite__
+    guard_select_all(flag, [p...], [p@GUARD_BK...])   # the gate
+
+The check rides the sticky in-graph assertion channel
+(`ctx.add_error`): it composes with `steps=K` (flags OR across steps,
+each step gates on the device inside the captured graph — a NaN batch
+inside a K-block skips exactly that step's update while the rest
+proceed) and costs ONE host read of the combined flag a run, not a
+per-tensor copy. On a trip the executor raises the typed
+`NumericalGuardError` naming every non-finite var; because the update
+was gated on the device, the scope still holds the last-good state —
+"skip batch" recovery is exact, not hopeful. The backups are aliases of
+the pre-step tensors (no copy): the update rules return new tensors.
+
+Host side (`DivergenceDetector`): a running EMA of the loss with a
+configurable window; a loss that spikes past `threshold` x EMA (or goes
+non-finite at the host) flags divergence — the slow-motion failure the
+all-finite check cannot see. The Supervisor feeds it every fetched loss.
+"""
+import numpy as np
+
+from ..core.executor import NumericalGuardError  # noqa: F401  (re-export)
+from ..core.framework import GRAD_SUFFIX
+from ..core.readers import is_host_io_op
+
+__all__ = ["install_numeric_guards", "DivergenceDetector",
+           "NumericalGuardError", "GUARD_FLAG_VAR", "BACKUP_SUFFIX"]
+
+GUARD_FLAG_VAR = "__step_all_finite__"
+BACKUP_SUFFIX = "@GUARD_BK"
+
+
+def install_numeric_guards(program, loss=None, check_params=False,
+                           extra_vars=(), gate_updates=True,
+                           granular=True, grad_norm=False):
+    """Install device-side numerical guards into `program` (in place).
+
+    Watched vars: `loss` (Variable or name, optional), every parameter
+    gradient (`<param>@GRAD`) the block declares, `extra_vars`, and with
+    check_params=True the post-update parameters themselves (catches an
+    LR spike overflowing the update even when grads were finite).
+
+    gate_updates=True (default) additionally gates EVERY persistable the
+    program writes — params, optimizer accumulators, BN statistics, LR
+    decay counters — behind the all-finite flag: a tripped step leaves
+    the whole scope bit-identical to not having run (reader consumption
+    and the seed cursor aside). gate_updates=False is detect-only.
+
+    granular=True (default) gives each var its own flag (one [N]
+    vector from two multi-tensor reductions) — the raise names the
+    exact offender. granular=False raises one combined message listing
+    the watched set.
+
+    grad_norm=True additionally emits ONE f32 global L2 norm over the
+    watched parameter gradients on the guard stat channel
+    (ops/guard_ops.py GRAD_NORM_STAT): the executor's one flag read
+    carries it into `last_stats["grad_norm"]` after every run, so the
+    training sentinel (resilience/sentinel.py) watches gradient health
+    with no additional host read. Across a steps=K call the channel
+    folds with max — the block's worst norm, exactly what a blowup
+    detector wants.
+
+    Idempotent per program. Returns {"checked": [...], "gated": [...]}.
+    """
+    if getattr(program, "_numeric_guards", None):
+        return program._numeric_guards
+    block = program.global_block()
+
+    checked = []
+
+    def _watch(name):
+        if name and name not in checked and name in block.vars:
+            checked.append(name)
+
+    if loss is not None:
+        _watch(loss if isinstance(loss, str) else loss.name)
+    params = [p.name for p in block.all_parameters()]
+    for p in params:
+        _watch(p + GRAD_SUFFIX)
+    for n in extra_vars:
+        _watch(n if isinstance(n, str) else n.name)
+    if check_params:
+        for p in params:
+            _watch(p)
+    if not checked:
+        raise ValueError(
+            "install_numeric_guards: nothing to watch — the program has "
+            "no loss/extra_vars and no parameter gradients (run "
+            "optimizer.minimize first, or pass loss=)")
+
+    def _persistable_outs(op):
+        outs = []
+        if not is_host_io_op(op.type):
+            for n in op.all_output_vars():
+                v = block.vars.get(n)
+                if v is not None and v.persistable:
+                    outs.append(n)
+        return outs
+
+    flag = block.create_var(name=GUARD_FLAG_VAR, shape=(1,), dtype="bool",
+                            persistable=False)
+
+    # persistables any op writes: the state set to gate (same walk
+    # lowering.analyze_state does for state_out)
+    gated = []
+    if gate_updates:
+        for op in block.ops:
+            for n in _persistable_outs(op):
+                if n not in gated:
+                    gated.append(n)
+        # pre-step aliases first (prepend order among them is
+        # irrelevant: all read scope state before anything writes). No
+        # copy is made: they keep the pre-step tensor reachable for the
+        # select.
+        for n in gated:
+            v = block.vars[n]
+            block.create_var(name=n + BACKUP_SUFFIX, shape=v.shape,
+                             dtype=v.dtype, persistable=False)
+            block.prepend_op(
+                "guard_backup", inputs={"X": [n]},
+                outputs={"Out": [n + BACKUP_SUFFIX]}, infer_shape=False)
+    attrs = {"var_names": list(checked), "granular": bool(granular)}
+    if grad_norm:
+        attrs["grad_norm_vars"] = [n for n in checked
+                                   if n.endswith(GRAD_SUFFIX)]
+    block.append_op(
+        "check_finite_guard", inputs={"X": list(checked)},
+        outputs={"Out": [flag]},
+        attrs=attrs,
+        infer_shape=False)
+    if gated:
+        # ONE gate op over the whole state set (the JAX package's
+        # lax.cond; here a device-side select a var, ops/guard_ops.py)
+        block.append_op(
+            "guard_select_all",
+            inputs={"Cond": [flag], "X": list(gated),
+                    "Y": [n + BACKUP_SUFFIX for n in gated]},
+            outputs={"Out": list(gated)}, infer_shape=False)
+    info = {"checked": list(checked), "gated": list(gated)}
+    program._numeric_guards = info
+    return info
+
+
+class DivergenceFault(RuntimeError):
+    """Host-side divergence (loss spike vs running EMA, or a non-finite
+    fetched loss). Raised/classified as a numeric-class fault; unlike a
+    device guard trip, the offending step's updates DID apply — the
+    sane policies are rollback (with lr_scale) or abort."""
+
+
+class DivergenceDetector(object):
+    """Running-EMA loss-spike detector.
+
+    update(loss) returns None while healthy, or a detail string when the
+    loss exceeds `threshold` x the EMA (after `window` warmup steps) or
+    goes non-finite at the host. State is tiny and picklable;
+    `state_dict`/`load_state_dict` let a supervisor snapshot it alongside
+    a checkpoint so a resumed run keeps its baseline."""
+
+    def __init__(self, window=20, threshold=10.0, eps=1e-8):
+        self.window = max(1, int(window))
+        self.threshold = float(threshold)
+        self.eps = float(eps)
+        self._alpha = 2.0 / (self.window + 1.0)
+        self._ema = None
+        self._count = 0
+
+    def update(self, loss):
+        v = float(np.asarray(loss).reshape(-1)[0])
+        if not np.isfinite(v):
+            return "non-finite loss %r reached the host" % v
+        detail = None
+        if self._count >= self.window and \
+                abs(v) > self.threshold * (abs(self._ema) + self.eps):
+            detail = ("loss %.6g spiked past %.3gx the running EMA %.6g "
+                      "(window %d)" % (v, self.threshold, self._ema,
+                                       self.window))
+        if detail is None:
+            # diverged samples are NOT folded into the baseline: one huge
+            # loss would drag the EMA up and mask the steps after it
+            self._ema = v if self._ema is None else (
+                (1.0 - self._alpha) * self._ema + self._alpha * v)
+            self._count += 1
+        return detail
+
+    def state_dict(self):
+        return {"ema": self._ema, "count": self._count}
+
+    def load_state_dict(self, state):
+        self._ema = state.get("ema")
+        self._count = int(state.get("count", 0))
+
+    def reset(self):
+        self._ema, self._count = None, 0

@@ -40,7 +40,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "paddle_tpu_torch.models.common, "
             "paddle_tpu_torch.models.machine_translation, "
             "paddle_tpu_torch.checkpoint, paddle_tpu_torch.core.utils, "
-            "paddle_tpu_torch.reference_format\n"
+            "paddle_tpu_torch.reference_format, "
+            "paddle_tpu_torch.resilience, paddle_tpu_torch.ops.guard_ops\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r)\n"
             "print(bad)\n"
@@ -79,6 +80,25 @@ def test_every_persistence_module_is_checked():
     assert {"checkpoint/__init__.py", "checkpoint/manager.py",
             "checkpoint/snapshot.py", "checkpoint/retention.py",
             "core/utils.py", "reference_format.py"} <= rel
+
+
+def test_every_resilience_module_is_checked():
+    """The resilience package and the guard ops are among the sources the
+    import check above walks."""
+    rel = {os.path.relpath(p, PKG) for p in SOURCES}
+    assert {"resilience/__init__.py", "resilience/faults.py",
+            "resilience/guards.py", "resilience/watchdog.py",
+            "resilience/sentinel.py", "resilience/sdc.py",
+            "resilience/supervisor.py", "ops/guard_ops.py"} <= rel
+
+
+def test_canary_checks_the_card_or_the_devices_given(no_card):
+    """No card and no devices=: the canary refuses rather than checking
+    the CPU in the card's place."""
+    from paddle_tpu_torch.resilience import CanaryChecker
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CanaryChecker().check()
+    assert CanaryChecker(shape=(8, 8), devices=["cpu"]).check()
 
 
 def test_every_sequence_module_is_checked():
