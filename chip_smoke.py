@@ -394,7 +394,7 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               and "mean" (MEAN_RTOL) against the eager losses. Recorded:
               the eager steps' median (deterministic; the path's own
               phase times the default one), the step's wall time at K =
-              4 and 16 (median of MULTISTEP_TIMED calls, host clock to a
+              4 (median of MULTISTEP_TIMED calls, host clock to a
               synchronize), the device's busy time (the port's kernels'
               part) and idle share over a K = 4 call (torch.profiler),
               peak memory, the graph's pool, the warm-up and capture
@@ -488,8 +488,8 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               beam_search_decode: Transformer-base (MODEL, N_LAYER
               layers) trained DECODE_TRAIN_STEPS steps as phase 5 trains
               it, then build_cached_decode and build_decode for 8 source
-              sentences of 16-64 tokens, beam 4, max_out_len 64 (DECODE):
-              ids [8, 4, 65] from BOS, the two decodes equal for the first
+              sentences of 16-64 tokens, beam 4, max_out_len 24 (DECODE):
+              ids [8, 4, 25] from BOS, the two decodes equal for the first
               DECODE_SAME_TOKENS tokens, K5 once per layer_norm outside the
               loop and once per loop-block layer_norm an iteration; the
               cached decode cut to DECODE_SAME_TOKENS tokens on the card
@@ -602,8 +602,8 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               program fed from one recordio file (phase 32's 16 batches,
               then its first 8 again) at steps=4 under
               install_numeric_guards(loss=avg_cost, grad_norm=True),
-              every check under deterministic algorithms. (a) 8 guarded
-              calls against 8 unguarded ones in turns from the same
+              every check under deterministic algorithms. (a) 4 guarded
+              calls against 4 unguarded ones in turns from the same
               state: losses bit-equal, medians of the call ms, the
               guard's kernels and device ms a step (torch.profiler), one
               synchronizing call (the flag read) a guarded call and none
@@ -634,6 +634,46 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               directory the phase removes. A `resilience_summary:` line
               sums up (with the recoveries' seconds and the sentinel's
               host us an observe).
+35. parallel — ROADMAP A10's first half (PARALLEL): bench.py's bf16 AMP
+              Transformer-base (batch 32, T=256) through
+              fluid.ParallelExecutor on the card. Timed first, in the
+              default mode, one side after another: eager and steps=4
+              step ms, device ms a step and the state bytes of the
+              Executor, the mesh of the card alone and {"dp": 2} with
+              ZeRO; an eager step's collectives on each mesh (calls,
+              bytes, device ms inside record_function ranges). The op: fused_attention at [32, 256, 8, 64] bf16 on
+              {"sp": 2}, ring and Ulysses, forward and backward, within
+              the bf16 tolerance of the single-card op. Then, under
+              deterministic algorithms: (a) ParallelExecutor(use_cuda=
+              True) on the mesh of the card alone, 4 steps=1 calls and
+              one steps=4, losses and state bit-equal to Executor.run,
+              K1-K5 18/18/18/1/32 a step, its eager collectives through
+              torch.cuda.nccl; (b) {"dp": 2} on the card with
+              sharded_weight_update=True: the first step's summed
+              gradients (Adam's first moments) within 1e-2 of (a)'s by
+              norm, losses within 2e-3 and every state value within
+              twice the summed noam rates of (a), K1-K5 twice a step,
+              the split state as ShardedValues; the same step with lane
+              0's partial sums alone (a planted fault) must read past
+              1e-2;
+              (c) {"dp": 1, "tp": 2} with tp_axis="tp" ("gather"):
+              bit-equal to (a); (d) the program on {"dp": 1, "sp": 2},
+              ring (no K1-K3) and Ulysses (K1-K3 on each of 2 head
+              groups), 4 steps=1 calls and one steps=4 each, losses
+              within 2e-3 of (a)'s, the first step's summed gradients
+              within 5e-2 (ring: fp32 blocks) and 1e-2 (Ulysses);
+              (e) a snapshot saved under (b)'s layout restored onto the
+              card's mesh and onto (b)'s equal to what was saved, the
+              resume on (b)'s layout bit-equal to the straight run; a
+              guarded (b) run under a Supervisor with restore_layout=
+              (b)'s plan takes loss_spike@4 to a rollback, bit-equal to
+              the run without it; (f) the CTR program through the
+              DistributeTranspiler with 2 pservers: the pserver
+              simulation (the trainer program under a {"dp": 2}
+              ParallelExecutor with parameter_shardings) and the sharded
+              monolithic program, within rtol 1e-4 / atol 1e-5 of the
+              monolithic program on one card. A `parallel_summary:` line
+              sums up.
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run; the bf16 flash kernels counted under
@@ -5588,8 +5628,8 @@ MULTISTEP_PATHS = (
     ("transformer_dropout", "phase 20"), ("language_model", "phase 17"),
     ("stacked_lstm", "phase 7"), ("acoustic", "phase 10"),
     ("srl", "phase 28"))
-MULTISTEP_K = (4, 16)    # steps a call: the checked one, then a long one
-MULTISTEP_TIMED = 3      # timed calls at each K
+MULTISTEP_K = 4          # steps a call
+MULTISTEP_TIMED = 2      # timed calls at each K
 MULTISTEP_GAP = 10       # graph vs eager within 10x two eager runs' gap
 MEAN_RTOL = 1e-6         # fetch_reduce="mean" against the eager losses
 
@@ -5708,7 +5748,7 @@ def run_multistep(torch, card, path, reduce_check=False):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    k = MULTISTEP_K[0]
+    k = MULTISTEP_K
     tag = "multistep %s:" % path
     t0 = time.perf_counter()
     main, startup, avg_cost, feed = multistep_program(fluid, path)
@@ -5839,15 +5879,6 @@ def run_multistep(torch, card, path, reduce_check=False):
     del runner, bufs
     exe._cache.clear()
     torch.cuda.empty_cache()
-    for kk in MULTISTEP_K[1:]:
-        run(s, kk, return_numpy=False)
-        report["pool_bytes"][kk] = \
-            next(reversed(exe._cache.values())).pool_bytes
-        times[kk] = sorted(call_ms(torch,
-                                   lambda: run(s, kk, return_numpy=False))
-                           for _ in range(MULTISTEP_TIMED))
-        exe._cache.clear()
-        torch.cuda.empty_cache()
     report["step_ms"] = {kk: statistics.median(t) / kk
                          for kk, t in times.items()}
     if reduce_check:
@@ -5873,6 +5904,7 @@ def run_multistep(torch, card, path, reduce_check=False):
                                 mean - want).max() / np.abs(want).max())}
         exe._cache.clear()
     report["card"] = card
+    report["path_s"] = time.perf_counter() - t0
     print("multistep: " + json.dumps(report))
     del s, init
     torch.cuda.empty_cache()
@@ -6956,12 +6988,12 @@ def run_ocr_serving(torch, card, scope):
 # Transformer-base at bench.py's widths (MODEL, N_LAYER layers) trained
 # as phase 5's fp32 program is (DECODE_TRAIN_STEPS steps of its copy
 # task), then build_cached_decode and build_decode for 8 source
-# sentences of 16-64 tokens, beam 4, max_out_len 64 (the cut: 64 of the
+# sentences of 16-64 tokens, beam 4, max_out_len 24 (the cut: 24 of the
 # 255 output tokens max_length 256 allows); the attention translator at
 # phase 8's widths (MT) trained DECODE_TRAIN_STEPS Adam steps, then
 # build_decode, beam 4, max_length MT_DECODE_LEN, for phase 8's 16
 # source sentences
-DECODE = dict(sentences=8, beam=4, max_out_len=64, min_len=16, max_len=64,
+DECODE = dict(sentences=8, beam=4, max_out_len=24, min_len=16, max_len=64,
               bos=1, eos=2)
 DECODE_TRAIN_STEPS = 2
 DECODE_SAME_TOKENS = 8   # cached = full, and card = CPU, for this many
@@ -7101,7 +7133,7 @@ def run_captured_decode(torch, tag, exe, program, fetch, feed, scope, steps,
 def run_transformer_decode(torch, card):
     """Phase 30's Transformer-base decodes (see DECODE): trained as phase
     5 trains, then the cached and the full decode on the card (ids of
-    [8, 4, 65], BOS first, finite scores; the two equal for the first
+    [8, 4, 25], BOS first, finite scores; the two equal for the first
     DECODE_SAME_TOKENS tokens), K5 once per layer_norm op of the program
     outside the loop and once per op of the loop's block per iteration;
     then the cached decode cut to DECODE_SAME_TOKENS tokens on the card
@@ -8297,7 +8329,7 @@ def run_reader_training(torch, card):
 # saved after call 1 and resumed for call 2; (c) (a)'s step-8 snapshot
 # served by from_checkpoint; (d) three era-wire models served.
 PERSIST = dict(steps=4, calls=4, save_after=2, resume_calls=2,
-               timed_calls=8)
+               timed_calls=4)
 ERA_TOL = dict(rtol=1e-4, atol=1e-5)  # the JAX era-wire tests' tolerance
 ERA_ENCODER_CLASSES = 4   # test_era_export_roundtrip_transformer_encoder's
 
@@ -8865,7 +8897,7 @@ def run_persistence(torch, card):
 # K-block, (c) a finite loss spike, (d) a hang, (e) the canary; (f)
 # FLAGS_check_nan_inf on phase 20's program. Record indices count from 0
 # (the plan's), steps from 1.
-RESIL = dict(steps=4, timed_calls=8, eager_calls=4, nan_record=5,
+RESIL = dict(steps=4, timed_calls=4, eager_calls=2, nan_record=5,
              spike_record=13, hang_timeout=3.0, hang_sleep=5.0,
              canary_checks=8, sentinel_observes=2000, explode_lr=1e38)
 CANARY_DEVICES = None    # the card's CUDA devices
@@ -9518,6 +9550,882 @@ def run_resilience(torch, card):
     return [("resilience_guarded", run)], summary
 
 
+# phase 35: ROADMAP A10's first half. bench.py's bf16 AMP Transformer-base
+# (batch 32, T=256, Adam on noam) trained through fluid.ParallelExecutor on
+# the card: (a) the mesh of the card alone, (b) a 2-replica dp mesh with
+# ZeRO, (c) tensor-parallel "gather" placement, (d) ring and Ulysses
+# attention, (e) resharding restores and a Supervisor rollback onto a
+# layout, (f) the DistributeTranspiler.
+PARALLEL = dict(eager=4, steps=4, timed=2, timed_k=1, ckpt_at=2,
+                sup_steps=5, sup_every=3, spike_at=4, ctr_batch=256,
+                ctr_steps=2)
+PARALLEL_LOSS_RTOL = 2e-3   # bf16 AMP over another split of the batch or
+# the sequence: products tile and sums add in another order (losses of up
+# to 8 steps, relative)
+PARALLEL_FP32_TOL = dict(rtol=1e-4, atol=1e-5)  # fp32 CTR, the JAX tests'
+PARALLEL_GRAD_RTOL = 1e-2   # the first step's summed gradients (Adam's
+# first moments) against (a)'s, ||got - ref|| / ||ref|| over all of them:
+# bf16 products over another split of the batch (2.3e-3 on the card); a
+# reduction that drops a replica's partial sum reads 0.70 there, one that
+# doubles the sum 1.0
+PARALLEL_RING_GRAD_RTOL = 5e-2  # the same on the ring sp step, whose
+# attention blocks run in fp32 where (a)'s run the bf16 flash path (1.1e-2
+# on the card)
+PARALLEL_FAULT = "each batch-axis sum replaced by lane 0's partial sum"
+PAR_DEV = "cuda:0"          # the card every replica of phase 35 shares
+
+
+def parallel_launches(main, split=1, flash=True):
+    """Launches a step of phase 35's bf16 program makes per batch shard:
+    K1-K3 bf16 one each a fused_attention op (`split` a op when Ulysses
+    attends each head group apart; none on the ring), K4 one a hard-label
+    softmax_with_cross_entropy, K5 one a layer_norm."""
+    ops = main.global_block().ops
+    attn = sum(op.type == "fused_attention" for op in ops)
+    grads = sum(op.type == "grad_of" and
+                op.attrs["fwd_type"] == "fused_attention" for op in ops)
+    return {"flash_attention_fwd_bf16": attn * split if flash else 0,
+            "flash_attention_bwd_dkdv_bf16": grads * split if flash else 0,
+            "flash_attention_bwd_dq_bf16": grads * split if flash else 0,
+            "softmax_xent_fwd": sum(op.type == "softmax_with_cross_entropy"
+                                    and not op.attrs.get("soft_label")
+                                    for op in ops),
+            "layer_norm_fwd": sum(op.type == "layer_norm" for op in ops)}
+
+
+def adam_bound(steps):
+    """Twice the noam learning rates summed over `steps` steps: how far
+    two Adam runs whose gradients differ (in sign, at worst) can move a
+    parameter apart (an Adam step moves it by about lr at most). A loose
+    bound on drift only: Adam divides a gradient's scale away, so a wrong
+    reduction passes it; the first step's moments are what tell
+    (parallel_grad_check)."""
+    d, w = MODEL["d_model"], WARMUP_STEPS
+    return 2 * sum(d ** -0.5 * min(i ** -0.5, i * w ** -1.5)
+                   for i in range(1, steps + 1))
+
+
+def state_bytes(torch, scope):
+    """(bytes the scope's state takes on the card, bytes one replica
+    holds): a ShardedValue's distinct pieces, and replica 0's."""
+    from paddle_tpu_torch.core.sharded import ShardedValue
+    total = replica = 0
+    for n in scope.names():
+        v = scope.get_raw(n)
+        if isinstance(v, ShardedValue):
+            seen = {id(p): p for p in v.pieces}
+            total += sum(p.numel() * p.element_size() for p in seen.values())
+            replica += v.pieces[0].numel() * v.pieces[0].element_size()
+        elif isinstance(v, torch.Tensor):
+            total += v.numel() * v.element_size()
+            replica += v.numel() * v.element_size()
+    return total, replica
+
+
+COLLECTIVE_RANGE = "ptt_collective"
+
+
+def collective_profile(torch, fn):
+    """fn()'s collectives under torch.profiler: each of the mesh step's
+    combines (_ParallelStep._all_reduce, _gather_rows, _reduce_piece, and
+    ShardedValue.assemble, the ZeRO gathers) runs inside a record_function
+    range, outermost only. Returns {the device ms the profiler links to
+    the ranges (kernels and copies, NCCL's too, through their launches'
+    correlation; a single-rank NCCL copy is not linked), the ranges' own
+    spans on the device (the profiler's GPU-side annotations: they hold
+    NCCL's copies too), the device ms of all fn()'s work, the collectives'
+    included, the calls, the bytes they take in}."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from paddle_tpu_torch.core.sharded import ShardedValue, take_piece
+    from paddle_tpu_torch.parallel import parallel_executor as pe
+    tally = {"calls": 0, "bytes": 0}
+    depth = [0]
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def wrap(cls, meth, size):
+        orig = getattr(cls, meth)
+
+        def inner(self, *a):
+            if depth[0]:
+                return orig(self, *a)
+            depth[0] += 1
+            tally["calls"] += 1
+            tally["bytes"] += size(self, *a)
+            try:
+                with record_function(COLLECTIVE_RANGE):
+                    return orig(self, *a)
+            finally:
+                depth[0] -= 1
+        setattr(cls, meth, inner)
+        return cls, meth, orig
+
+    patched = [
+        wrap(pe._ParallelStep, "_all_reduce", lambda st, vals: nbytes(vals)),
+        wrap(pe._ParallelStep, "_gather_rows", lambda st, vals: nbytes(vals)),
+        wrap(pe._ParallelStep, "_reduce_piece", lambda st, vals, idx: nbytes(
+            take_piece(v, idx) for v in vals)),
+        wrap(ShardedValue, "assemble", lambda sv, *a: nbytes(
+            {id(p): p for p in sv.pieces}.values()))]
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for cls, meth, orig in reversed(patched):
+            setattr(cls, meth, orig)
+    linked = span = other = 0.0
+    for e in prof.events():
+        on_device = e.device_type == torch.autograd.DeviceType.CUDA
+        if e.name == COLLECTIVE_RANGE:
+            if on_device:
+                span += e.device_time / 1e3
+            else:
+                linked += e.device_time_total / 1e3
+        elif on_device:
+            other += e.device_time / 1e3
+    return {"collective_device_ms": linked, "collective_span_ms": span,
+            "device_ms": other, "collective_calls": tally["calls"],
+            "collective_bytes_in": tally["bytes"]}
+
+
+def first_moments(scope):
+    """Adam's first moments in the scope, on the host. After one step
+    from zeros each is (1 - beta1) x its param's gradient summed over the
+    batch: Adam's update divides a gradient's scale away, its moments
+    keep it."""
+    return {n: scope.get(n).detach().float().cpu() for n in scope.names()
+            if n.startswith("moment1_")}
+
+
+def grad_rel(ref, got):
+    """(||got - ref|| / ||ref|| over all the moments, the largest of one
+    var's own, that var)."""
+    num = den = worst = 0.0
+    where = None
+    for n in sorted(ref):
+        a, b = ref[n].double(), got[n].double()
+        d2, r2 = float(((b - a) ** 2).sum()), float((a * a).sum())
+        num, den = num + d2, den + r2
+        if r2 > 0 and (d2 / r2) ** 0.5 >= worst:
+            worst, where = (d2 / r2) ** 0.5, n
+    return (num / den) ** 0.5, worst, where
+
+
+def parallel_grad_check(tag, ref, got, tol=PARALLEL_GRAD_RTOL):
+    """The first step's summed gradients (Adam's first moments) within
+    `tol` of (a)'s; the reading for the report."""
+    agg, worst, where = grad_rel(ref, got)
+    check(agg <= tol,
+          "%s the first step's summed gradients (Adam's first moments) "
+          "%.3e from (a)'s (tolerance %.0e; worst var %s at %.3e)"
+          % (tag, agg, tol, where, worst))
+    return {"grad_rel_err": agg, "grad_tolerance": tol,
+            "grad_worst_var": where, "grad_worst_var_rel_err": worst}
+
+
+def parallel_grad_fault(torch, C, ref):
+    """The gradient check against a planted fault: (b)'s {"dp": 2} ZeRO
+    step with PARALLEL_FAULT (a reduction that drops a replica), one step
+    from the same state. Its reading must be past the tolerance."""
+    from paddle_tpu_torch.core.sharded import take_piece
+    from paddle_tpu_torch.parallel import parallel_executor as pe
+    tag = "parallel (b) fault:"
+    cls = pe._ParallelStep
+    saved = cls._all_reduce, cls._reduce_piece
+    cls._all_reduce = lambda st, vals: [vals[0]] * len(vals)
+    cls._reduce_piece = lambda st, vals, idx: take_piece(vals[0], idx)
+    try:
+        scope = C.fresh()
+        pexe = C.pexe(scope, mesh=_card_mesh(2, dp=2),
+                      sharded_weight_update=True)
+        pexe.run(C.fetch, feed=C.feed)
+        got = first_moments(scope)
+    finally:
+        cls._all_reduce, cls._reduce_piece = saved
+    del scope, pexe
+    agg, worst, where = grad_rel(ref, got)
+    check(agg > PARALLEL_GRAD_RTOL,
+          "%s %s reads %.3e from (a)'s gradients, within the tolerance "
+          "%.0e: the check cannot see it" % (tag, PARALLEL_FAULT, agg,
+                                              PARALLEL_GRAD_RTOL))
+    print("%s %s: the first step's summed gradients %.3e from (a)'s "
+          "(tolerance %.0e), caught" % (tag, PARALLEL_FAULT, agg,
+                                        PARALLEL_GRAD_RTOL))
+    return {"fault": PARALLEL_FAULT, "grad_rel_err": agg,
+            "grad_worst_var": where, "grad_worst_var_rel_err": worst}
+
+
+class _ParallelCase(object):
+    """Phase 35's program (bench.py's bf16 Transformer-base, optionally
+    guarded), its batch, its startup state and fresh scopes of it."""
+
+    def __init__(self, torch, fluid, transformer, guard=False, init=None):
+        self.torch, self.fluid = torch, fluid
+        self.main, self.startup, avg = build_train(
+            fluid, transformer, N_LAYER, variant="bf16")
+        op = next(op for op in self.main.global_block().ops
+                  if avg.name in op.all_output_vars())
+        self.avg = avg.name
+        self.fetch = [op.inputs["X"][0], avg.name]   # sum_cost, avg_cost
+        self.guards = None
+        if guard:
+            from paddle_tpu_torch import resilience as rz
+            self.guards = rz.install_numeric_guards(self.main, loss=avg,
+                                                    grad_norm=True)
+        rng = np.random.RandomState(SEED)
+        srcs = [rng.randint(3, MODEL["vocab"], MODEL["max_length"]).tolist()
+                for _ in range(TRAIN_BATCH)]
+        self.feed = transformer.prepare_batch(srcs, srcs,
+                                              MODEL["max_length"],
+                                              labels=True)
+        if init is None:
+            scope = fluid.Scope()
+            fluid.Executor(PAR_DEV).run(self.startup, scope=scope)
+            init = (host_state(scope), scope.seed_state())
+        self.init = init
+
+    def fresh(self):
+        scope = self.fluid.Scope()
+        for n, v in self.init[0].items():
+            scope.set(n, v.to(PAR_DEV))
+        scope.set_seed_state(self.init[1])
+        return scope
+
+    def pexe(self, scope, **kw):
+        with self.fluid.scope_guard(scope):
+            return self.fluid.ParallelExecutor(
+                main_program=self.main, loss_name=self.avg, **kw)
+
+
+def _card_mesh(n, **axes):
+    from paddle_tpu_torch.parallel import make_mesh
+    return make_mesh(axes, [PAR_DEV] * n)
+
+
+def _card_alone():
+    """The ParallelExecutor arguments of the mesh of the card alone: the
+    default, every local CUDA device."""
+    return {"use_cuda": True} if PAR_DEV.startswith("cuda") else \
+        {"devices": [PAR_DEV]}
+
+
+def _losses(out):
+    return [float(v) for v in np.ravel(out)]
+
+
+def parallel_timing(torch, C, card):
+    """Phase 35's step times, in the default (nondeterministic) mode a
+    user trains in: eager (steps=1) and captured (steps=4) calls of the
+    Executor, (a)'s mesh of the card alone and (b)'s 2-replica ZeRO mesh,
+    one side after the other (a captured step's memory pool each) from
+    the same state; the state bytes each holds."""
+    tag = "parallel timing:"
+    k = PARALLEL["steps"]
+    sides = {"executor": (C.fluid.Executor(PAR_DEV), C.fresh())}
+    sa = C.fresh()
+    sides["card_mesh"] = (C.pexe(sa, **_card_alone()), sa)
+    sb = C.fresh()
+    sides["dp2_zero"] = (C.pexe(sb, mesh=_card_mesh(2, dp=2),
+                                sharded_weight_update=True), sb)
+
+    def call(name, steps):
+        exe, scope = sides[name]
+        if name == "executor":
+            return exe.run(C.main, feed=C.feed, fetch_list=C.fetch,
+                           scope=scope, steps=steps)
+        return exe.run(C.fetch, feed=C.feed, steps=steps)
+
+    def timed(name, steps):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = call(name, steps)
+        torch.cuda.synchronize()
+        check(np.isfinite(out[1]).all(), "%s %s losses %s"
+              % (tag, name, out[1]))
+        return (time.perf_counter() - ts) * 1e3
+
+    eager, captured, first, busy, pools = {}, {}, {}, {}, {}
+    for name in sides:
+        # one side at a time: each captured step holds a memory pool of
+        # its own, and three at once do not fit beside the eager steps
+        first[name] = [timed(name, 1)]
+        eager[name] = [timed(name, 1) for _ in range(PARALLEL["timed"])]
+        first[name].append(timed(name, k))          # the capture
+        pools[name] = next(iter(sides[name][0]._cache.values())).pool_bytes
+        captured[name] = [timed(name, k) / k
+                          for _ in range(PARALLEL["timed_k"])]
+        busy[name] = device_busy_ms(torch, lambda: call(name, k))[0] / k
+        sides[name][0]._cache.clear()
+        torch.cuda.empty_cache()
+    mem = {name: state_bytes(torch, scope)
+           for name, (_, scope) in sides.items()}
+    # one eager step of each mesh: its collectives' device ms and bytes
+    collectives = {name: collective_profile(torch, lambda: call(name, 1))
+                   for name in ("card_mesh", "dp2_zero")}
+    report = {
+        "eager_step_ms": eager, "captured_step_ms": captured,
+        "median_eager_step_ms": {n: statistics.median(v)
+                                 for n, v in eager.items()},
+        "median_captured_step_ms": {n: statistics.median(v)
+                                    for n, v in captured.items()},
+        "device_ms_per_step": busy, "first_calls_ms": first,
+        "capture_pool_bytes": pools,
+        "eager_collectives": collectives,
+        "state_bytes_on_card": {n: m[0] for n, m in mem.items()},
+        "state_bytes_per_replica": {n: m[1] for n, m in mem.items()},
+        "memory_report_dp2_zero": sides["dp2_zero"][0].plan.memory_report()[
+            "update_state"],
+        "card": card}
+    report["memory_report_dp2_zero"]["params"] = \
+        sides["dp2_zero"][0].plan.memory_report()["params"]
+    print("%s eager step ms (median of %d) %s; captured (steps=%d) %s; on "
+          "the device %s; an eager step's collectives %s; capture pools "
+          "%s; state bytes on the card %s, a replica %s"
+          % (tag, PARALLEL["timed"],
+             {n: round(v, 1) for n, v in
+              report["median_eager_step_ms"].items()}, k,
+             {n: round(v, 2) for n, v in
+              report["median_captured_step_ms"].items()},
+             {n: round(v, 2) for n, v in busy.items()}, collectives,
+             pools, report["state_bytes_on_card"],
+             report["state_bytes_per_replica"]))
+    del sides, sa, sb
+    torch.cuda.empty_cache()
+    return report
+
+
+def parallel_run(C, runner, scope, eager, k, moments=None):
+    """`eager` steps=1 calls then one steps=k call: (the losses, the
+    counts of the port's kernels the calls launched: those of eager + k
+    steps and of the warm-up step the steps=k call runs before it
+    captures). `moments` (a dict) takes the scope's first_moments after
+    the first call."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    ck.reset_launch_counts()
+    out = []
+    for i in range(eager):
+        out += _losses(runner(1)[1])
+        if i == 0 and moments is not None:
+            moments.update(first_moments(scope))
+    if k:
+        out += _losses(runner(k)[1])
+    return out, ck.launch_counts()
+
+
+def parallel_card(torch, C, card):
+    """Phase 35 (a): ParallelExecutor(use_cuda=True) on the mesh of the
+    card alone against Executor.run from the same state: 4 steps=1 calls
+    and one steps=4, losses and state bit-equal; launches those of a
+    single-card step; the transport of the eager calls."""
+    tag = "parallel (a):"
+    E, K = PARALLEL["eager"], PARALLEL["steps"]
+    exe, se = C.fluid.Executor(PAR_DEV), C.fresh()
+    moments = {}
+    ref, _ = parallel_run(C, lambda s: exe.run(
+        C.main, feed=C.feed, fetch_list=C.fetch, scope=se, steps=s),
+        se, E, K, moments)
+    exe._cache.clear()          # its captured step's pool
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    sp = C.fresh()
+    pexe = C.pexe(sp, **_card_alone())
+    check(pexe.device_count == 1 and pexe.mesh.size == 1,
+          "%s the default mesh is %r" % (tag, pexe.mesh))
+    transports = []
+
+    def runner(s):
+        out = pexe.run(C.fetch, feed=C.feed, steps=s)
+        transports.append((pexe.last_transport, pexe.last_nccl_calls))
+        return out
+
+    got, counts = parallel_run(C, runner, sp, E, K)
+    per = parallel_launches(C.main)
+    expected = dict.fromkeys(counts, 0)
+    expected.update({n: c * (E + K + 1) for n, c in per.items()})
+    check(got == ref, "%s losses %s, Executor's %s" % (tag, got, ref))
+    same, err, at = state_diff(torch, host_state(se), host_state(sp))
+    check(same, "%s the state differs from the Executor's (%s by %r)"
+          % (tag, at, err))
+    check(PAR_DEV == "cpu" or transports[0][0] == "nccl" and
+          transports[0][1] > 0 and transports[-1][0] == "torch",
+          "%s transports %s" % (tag, transports))
+    pexe._cache.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated() - m0
+    report = {"losses": got, "bit_equal_to_executor": True,
+              "memory_allocated_state_bytes": mem,
+              "transport_eager": transports[0][0],
+              "nccl_calls_per_eager_step": transports[0][1],
+              "transport_captured": transports[-1][0],
+              "launches_per_step": per, "card": card}
+    print("%s %d steps=1 calls and one steps=%d: losses and state "
+          "bit-equal to Executor.run; eager collectives through %s (%d "
+          "calls a step), captured through %s; the state takes %d bytes "
+          "of the card (memory_allocated); launches a step %s"
+          % (tag, E, K, transports[0][0], transports[0][1],
+             transports[-1][0], mem, per))
+    return (counts, expected), report, (ref, host_state(se), moments)
+
+
+def parallel_close(torch, tag, ref, got, steps):
+    """Held within PARALLEL_LOSS_RTOL (losses) and adam_bound (state):
+    (max loss rel, max state |diff|, its var, the bound)."""
+    (rl, rs), (gl, gs) = ref[:2], got
+    lerr = max(abs(a - b) / abs(a) for a, b in zip(rl, gl))
+    worst, where = 0.0, None
+    for n in sorted(rs):
+        d = float((rs[n].double() - gs[n].double()).abs().max()) \
+            if rs[n].numel() else 0.0
+        if d >= worst:
+            worst, where = d, n
+    lim = adam_bound(steps)
+    check(lerr <= PARALLEL_LOSS_RTOL and worst <= lim,
+          "%s losses within %.2e of (a)'s (tolerance %.0e), the state "
+          "within %.3e (%s; bound %.3e)" % (tag, lerr, PARALLEL_LOSS_RTOL,
+                                             worst, where, lim))
+    return lerr, worst, where, lim
+
+
+def parallel_dp2(torch, C, card, ref):
+    """Phase 35 (b): {"dp": 2} on the card, sharded_weight_update=True:
+    the same 4 + 4 steps, within tolerance of (a); K1-K5 twice a step
+    (each replica's rows); the state split as the plan says."""
+    from paddle_tpu_torch.core.sharded import ShardedValue
+    tag = "parallel (b):"
+    E, K = PARALLEL["eager"], PARALLEL["steps"]
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    scope = C.fresh()
+    pexe = C.pexe(scope, mesh=_card_mesh(2, dp=2),
+                  sharded_weight_update=True)
+    moments = {}
+    got, counts = parallel_run(
+        C, lambda s: pexe.run(C.fetch, feed=C.feed, steps=s), scope, E, K,
+        moments)
+    per = parallel_launches(C.main)
+    expected = dict.fromkeys(counts, 0)
+    expected.update({n: 2 * c * (E + K + 1) for n, c in per.items()})
+    grads = parallel_grad_check(tag, ref[2], moments)
+    lerr, worst, where, lim = parallel_close(
+        torch, tag, ref, (got, host_state(scope)), E + K)
+    split = [e.name for e in pexe.plan if e.kind != "gradient" and
+             e.sharded]
+    check(split and all(isinstance(scope.get_raw(n), ShardedValue)
+                        for n in split),
+          "%s the plan's split vars are not split in the scope" % tag)
+    mem = pexe.plan.memory_report()
+    transport = pexe.last_transport
+    pexe._cache.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - m0
+    report = {"losses": got, "loss_rel_err": lerr,
+              "memory_allocated_state_bytes": allocated,
+              "transport": transport, "state_max_abs": worst,
+              "state_worst_var": where, "state_bound": lim,
+              **grads, "split_vars": len(split),
+              "update_state_bytes": mem["update_state"],
+              "params_bytes": mem["params"],
+              "launches_per_step": {n: 2 * c for n, c in per.items()},
+              "card": card}
+    print("%s the first step's summed gradients within %.3e of (a)'s "
+          "(tolerance %.0e); losses within %.2e of (a)'s, state within "
+          "%.3e (%s, bound %.3e); %d vars split; update state a replica %d "
+          "of %d bytes; the state takes %d bytes of the card "
+          "(memory_allocated); collectives through %s; launches a step %s"
+          % (tag, grads["grad_rel_err"], PARALLEL_GRAD_RTOL, lerr, worst,
+             where, lim, len(split),
+             mem["update_state"]["per_chip_bytes"],
+             mem["update_state"]["replicated_per_chip_bytes"], allocated,
+             transport, report["launches_per_step"]))
+    return (counts, expected), report, scope, pexe
+
+
+def parallel_tp(torch, C, card, ref):
+    """Phase 35 (c): {"dp": 1, "tp": 2} with tp_axis="tp" ("gather"
+    placement: weights split at rest, gathered at the step's entry, every
+    product and the update on full arrays): bit-equal to (a)."""
+    tag = "parallel (c):"
+    E, K = PARALLEL["eager"], PARALLEL["steps"]
+    scope = C.fresh()
+    pexe = C.pexe(scope, mesh=_card_mesh(2, dp=1, tp=2), tp_axis="tp")
+    got, counts = parallel_run(
+        C, lambda s: pexe.run(C.fetch, feed=C.feed, steps=s), scope, E, K)
+    per = parallel_launches(C.main)
+    expected = dict.fromkeys(counts, 0)
+    expected.update({n: c * (E + K + 1) for n, c in per.items()})
+    tp = [e.name for e in pexe.plan if e.kind == "param" and e.sharded]
+    transport = pexe.last_transport
+    same, err, at = state_diff(torch, ref[1], host_state(scope))
+    check(got == ref[0] and same and tp,
+          "%s %d tensor-parallel params; losses %s against (a)'s %s; "
+          "state bit-equal %s (%s by %r)" % (tag, len(tp), got, ref[0],
+                                             same, at, err))
+    pexe._cache.clear()
+    torch.cuda.empty_cache()
+    report = {"tp_params": len(tp), "bit_equal_to_a": True,
+              "transport": transport,
+              "memory_report_params": pexe.plan.memory_report()["params"],
+              "card": card}
+    print("%s %d params split over tp; losses and state bit-equal to "
+          "(a); collectives through %s" % (tag, len(tp), transport))
+    del scope
+    return (counts, expected), report
+
+
+def parallel_sp_op(torch, card):
+    """Phase 35 (d), the op: fused_attention at [32, 256, 8, 64] bf16 on
+    {"sp": 2}, ring and Ulysses (each head group through the bf16 K1-K3),
+    forward and backward, against the single-card op; ms of each."""
+    from paddle_tpu_torch.ops.nn_ops import _attend
+    from paddle_tpu_torch.parallel import (ring_attention_sharded,
+                                           ulysses_attention_sharded)
+    tag = "parallel (d) op:"
+    b, t, h, d = (TRAIN_BATCH, MODEL["max_length"], MODEL["n_head"],
+                  MODEL["d_key"])
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v, go = [torch.randn(b, t, h, d, device="cuda", generator=g,
+                               dtype=torch.bfloat16) for _ in range(4)]
+    mesh = _card_mesh(2, sp=2)
+    fns = {"single": lambda *a: _attend(*a, False, None, None),
+           "ring": lambda *a: ring_attention_sharded(*a, mesh),
+           "ulysses": lambda *a: ulysses_attention_sharded(
+               *a, mesh, attend=_attend)}
+
+    def run(fn):
+        ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*ins)
+        grads = torch.autograd.grad(out, ins, go)
+        return [out.detach()] + list(grads)
+
+    ref = run(fns["single"])
+    report = {"shape": [b, t, h, d], "card": card}
+    for name in ("ring", "ulysses"):
+        got = run(fns[name])
+        errs = [norm_rel(a.float().cpu().numpy(), r.float().cpu().numpy())
+                for a, r in zip(got, ref)]
+        tols = [BF16_KERNEL_TOL] + [2 * BF16_KERNEL_TOL] * 3
+        check(all(e <= tol for e, tol in zip(errs, tols)),
+              "%s %s out, dq, dk, dv off the single-card op by %s "
+              "(tolerances %s)" % (tag, name, errs, tols))
+        report[name] = {"errs_out_dq_dk_dv": errs, "tolerances": tols,
+                        "fwd_bwd_ms": eager_ms(
+                            torch, lambda: run(fns[name]), iters=3, reps=3)}
+    report["single_fwd_bwd_ms"] = eager_ms(torch, lambda: run(fns["single"]),
+                                           iters=3, reps=3)
+    print("%s %s" % (tag, json.dumps(report)))
+    return report
+
+
+def parallel_sp_step(torch, C, card, ref, impl):
+    """Phase 35 (d), the step: the program on {"dp": 1, "sp": 2}, its
+    fused_attention ops through `impl` (ring: plain torch blocks, no
+    K1-K3; ulysses: the bf16 K1-K3 on each of the two head groups), 4
+    steps=1 calls and one steps=4, the losses and the first step's
+    gradients within tolerance of (a)'s."""
+    tag = "parallel (d) %s step:" % impl
+    E, K = PARALLEL["eager"], PARALLEL["steps"]
+    for op in C.main.global_block().ops:
+        if op.type == "fused_attention":
+            op.attrs["sp_impl"] = impl
+    try:
+        scope = C.fresh()
+        # a dp axis of size 1 beside sp: the plan's shard axis defaults
+        # to the batch axis, which must exist (as in the JAX package)
+        pexe = C.pexe(scope, mesh=_card_mesh(2, dp=1, sp=2))
+        moments = {}
+        got, counts = parallel_run(
+            C, lambda s: pexe.run(C.fetch, feed=C.feed, steps=s), scope, E,
+            K, moments)
+        transport = pexe.last_transport
+        pexe._cache.clear()
+    finally:
+        for op in C.main.global_block().ops:
+            if op.type == "fused_attention":
+                op.attrs["sp_impl"] = "ring"
+    per = parallel_launches(C.main, split=2, flash=impl == "ulysses")
+    expected = dict.fromkeys(counts, 0)
+    expected.update({n: c * (E + K + 1) for n, c in per.items()})
+    grads = parallel_grad_check(
+        tag, ref[2], moments,
+        PARALLEL_RING_GRAD_RTOL if impl == "ring" else PARALLEL_GRAD_RTOL)
+    check(len(got) == len(ref[0]), "%s %d losses, (a) %d"
+          % (tag, len(got), len(ref[0])))
+    lerr = max(abs(a - b) / abs(a) for a, b in zip(ref[0], got))
+    check(lerr <= PARALLEL_LOSS_RTOL, "%s losses within %.2e of (a)'s "
+          "(tolerance %.0e)" % (tag, lerr, PARALLEL_LOSS_RTOL))
+    print("%s %d steps=1 calls and one steps=%d: the first step's summed "
+          "gradients within %.3e of (a)'s (tolerance %.0e), losses within "
+          "%.2e of (a)'s; eager collectives through %s; launches a step %s"
+          % (tag, E, K, grads["grad_rel_err"], grads["grad_tolerance"], lerr,
+             transport, per))
+    del scope
+    torch.cuda.empty_cache()
+    return (counts, expected), {"loss_rel_err": lerr, "transport": transport,
+                                **grads, "launches_per_step": per}
+
+
+def parallel_reshard(torch, C, card, tmp):
+    """Phase 35 (e): (b)'s layout trains 2 steps and saves, 2 more; the
+    snapshot restored with restore(layout=) onto (a)'s mesh and (b)'s
+    equals what was saved; resumed on (b)'s layout for 2 steps it is
+    bit-equal to the straight run. A guarded (b) run of 5 steps under a
+    Supervisor with restore_layout=(b)'s plan, a snapshot at step 3,
+    takes loss_spike@4 (lbl_weight x 1000: sum_cost spikes) to a
+    rollback onto the layout, bit-equal to the run without the spike."""
+    from paddle_tpu_torch import resilience as rz
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.core.sharded import ShardedValue
+    from paddle_tpu_torch.parallel import DeviceLayout
+    tag = "parallel (e):"
+    n = PARALLEL["ckpt_at"]
+    lay_b = DeviceLayout(local_device_count=2, devices=[PAR_DEV] * 2)
+    scope = C.fresh()
+    pexe = C.pexe(scope, mesh=lay_b.local_mesh(),
+                  sharded_weight_update=True)
+    for _ in range(n):
+        pexe.run(C.fetch, feed=C.feed)
+    saved = host_state(scope)
+    ckdir = os.path.join(tmp, "ck_reshard")
+    with CheckpointManager(ckdir, async_save=False) as mgr:
+        ts = time.perf_counter()
+        mgr.save(n, program=C.main, scope=scope, layout=lay_b)
+        save_s = time.perf_counter() - ts
+    straight = [_losses(pexe.run(C.fetch, feed=C.feed)[1])
+                for _ in range(n)]
+    want = host_state(scope)
+    restores = {}
+    card_alone = 1 if PAR_DEV.startswith("cuda") else DeviceLayout(
+        local_device_count=1, devices=[PAR_DEV])
+    for name, layout in (("card_mesh", card_alone), ("dp2", pexe.plan)):
+        rs = C.fresh()
+        with CheckpointManager(ckdir, async_save=False) as mgr:
+            ts = time.perf_counter()
+            check(mgr.restore(program=C.main, scope=rs,
+                              layout=layout) == n,
+                  "%s restore onto %s" % (tag, name))
+            restores[name] = time.perf_counter() - ts
+        same, err, at = state_diff(torch, saved, host_state(rs))
+        check(same, "%s restored onto %s, %s differs by %r"
+              % (tag, name, at, err))
+        if name == "dp2":
+            split = [e.name for e in pexe.plan if e.kind != "gradient"
+                     and e.sharded]
+            check(all(isinstance(rs.get_raw(v), ShardedValue)
+                      for v in split), "%s restored unsplit" % tag)
+            p2 = C.pexe(rs, mesh=lay_b.local_mesh(),
+                        sharded_weight_update=True)
+            resumed = [_losses(p2.run(C.fetch, feed=C.feed)[1])
+                       for _ in range(n)]
+            same, err, at = state_diff(torch, want, host_state(rs))
+            check(same and resumed == straight,
+                  "%s the resume on (b)'s layout %s against %s; state %s "
+                  "(%s by %r)" % (tag, resumed, straight, same, at, err))
+        del rs
+    del scope, pexe
+    torch.cuda.empty_cache()
+    # the Supervisor leg, on the guarded program
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+    G = _ParallelCase(torch, fluid, transformer, guard=True, init=C.init)
+
+    def fresh_guarded():
+        sc = G.fresh()
+        return sc, G.pexe(sc, mesh=lay_b.local_mesh(),
+                          sharded_weight_update=True)
+
+    sc, gp = fresh_guarded()     # the run without the spike
+    for _ in range(PARALLEL["sup_steps"]):
+        gp.run(G.fetch, feed=G.feed)
+    clean = host_state(sc)
+    del sc, gp
+    sc, gp = fresh_guarded()
+    mgr = CheckpointManager(os.path.join(tmp, "ck_spike"), async_save=False)
+    sentinel = rz.TrainingSentinel(window=8, warmup=3, z_threshold=50.0)
+    sup = rz.Supervisor(gp, G.main, checkpoint_manager=mgr,
+                        sentinel=sentinel, restore_layout=gp.plan,
+                        policies={"loss_spike": [rz.rollback(1),
+                                                 rz.abort()]})
+    secs = _recovery_seconds(sup)
+    plan = rz.FaultPlan(["loss_spike@%d:1000"
+                         % PARALLEL["spike_at"]]).arm()
+    try:
+        sup.train(PARALLEL["sup_steps"], feed_fn=lambda i: G.feed,
+                  fetch_list=G.fetch, checkpoint_every=PARALLEL["sup_every"])
+    finally:
+        plan.disarm()
+        sup.close()
+        mgr.close()
+    spiked = host_state(sc)
+    acts = [(e["class"], e["action"]) for e in sup.events]
+    same, err, at = state_diff(torch, clean, spiked)
+    check(("loss_spike", "rollback") in acts and sentinel.spikes == 1 and
+          same, "%s events %s, %d spikes; state bit-equal to the run "
+          "without the spike: %s (%s by %r)"
+          % (tag, acts, sentinel.spikes, same, at, err))
+    report = {"save_s": save_s, "restore_s": restores,
+              "restored_equal": True, "resume_bit_equal": True,
+              "supervisor_events": acts, "recovery_s": secs,
+              "rollback_bit_equal": True, "card": card}
+    print("%s save %.2f s; restore onto the card's mesh %.2f s, onto "
+          "(b)'s %.2f s, values equal; the resume on (b)'s layout "
+          "bit-equal; supervisor %s in %s s, bit-equal to the run without "
+          "the spike" % (tag, save_s, restores["card_mesh"],
+                         restores["dp2"], acts,
+                         ["%.2f" % s for s in secs]))
+    return report
+
+
+def parallel_transpiler(torch, card):
+    """Phase 35 (f): the CTR program (phase 14's widths) through the
+    DistributeTranspiler with 2 pservers: the pserver simulation (its
+    trainer program under a 2-replica ParallelExecutor with the
+    transpiler's parameter_shardings, each pserver program's updates by
+    an Executor on the card) and the monolithic program under the same
+    mesh and shardings, each against the monolithic program on one card
+    within rtol 1e-4 / atol 1e-5 (fp32)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel import make_mesh
+    from paddle_tpu_torch.transpiler import DistributeTranspiler
+    tag = "parallel (f):"
+    rng = np.random.RandomState(SEED)
+    cfg = PARALLEL.get("ctr_cfg", CTR)
+    feed = ctr_feed(rng, PARALLEL["ctr_batch"], cfg["sparse"])
+    exe = fluid.Executor(PAR_DEV)
+    main, startup, avg, _ = build_dense(fluid, "ctr", cfg)
+    s0 = fluid.Scope()
+    exe.run(startup, scope=s0)
+    init = host_state(s0)
+    steps = PARALLEL["ctr_steps"]
+    base = [float(exe.run(main, feed=feed, fetch_list=[avg],
+                          scope=s0)[0][0]) for _ in range(steps)]
+
+    def fresh():
+        sc = fluid.Scope()
+        for n, v in init.items():
+            sc.set(n, v.to(PAR_DEV))
+        return sc
+
+    mesh = make_mesh({"dp": 2}, [PAR_DEV] * 2)
+    main2, _, avg2, _ = build_dense(fluid, "ctr", cfg)
+    t = DistributeTranspiler().transpile(0, program=main2,
+                                         pservers="ps0,ps1", trainers=1)
+    shard = t.parameter_shardings(mesh, axis="dp")
+    trainer = t.get_trainer_program()
+    pservers = {ep: t.get_pserver_program(ep) for ep in t.pserver_endpoints}
+    ts = fresh()
+    pscopes = {ep: fluid.Scope() for ep in t.pserver_endpoints}
+    for ep in t.pserver_endpoints:
+        t.scatter_scope(ts, pscopes[ep], ep, pservers[ep])
+    grads = sorted(set(t.param_grad_map.values()))
+    with fluid.scope_guard(ts):
+        tp = fluid.ParallelExecutor(main_program=trainer, mesh=mesh,
+                                    param_shardings=shard)
+    sim = []
+    for _ in range(steps):
+        outs = tp.run([avg2.name] + grads, feed=feed)
+        sim.append(float(outs[0][0]))
+        g = dict(zip(grads, outs[1:]))
+        for ep, prog in pservers.items():
+            pfeed = {}
+            for blk, e, bid in t._numbered_blocks():
+                if e == ep:
+                    gn = t.param_grad_map[blk.varname]
+                    pfeed["%s.block%d" % (gn, bid)] = \
+                        g[gn].reshape(-1)[blk.offset:blk.offset + blk.size]
+            exe.run(prog, feed=pfeed, scope=pscopes[ep])
+        t.gather_scope(pscopes, ts)
+    ms = fresh()
+    with fluid.scope_guard(ms):
+        mp = fluid.ParallelExecutor(main_program=main2, mesh=mesh,
+                                    param_shardings=shard)
+    mono = [float(mp.run([avg2.name], feed=feed)[0][0])
+            for _ in range(steps)]
+    np.testing.assert_allclose(sim, base, **PARALLEL_FP32_TOL)
+    np.testing.assert_allclose(mono, base, **PARALLEL_FP32_TOL)
+    want = host_state(s0)
+    params = [p.name for p in main.all_parameters()]
+    # the simulation's trainer scope holds the params the pservers sent
+    # back; their accumulators stay on the pservers
+    for name, sc, names in (("simulation", ts, params),
+                            ("monolithic", ms, sorted(want))):
+        got = host_state(sc)
+        for n in names:
+            np.testing.assert_allclose(got[n].numpy(), want[n].numpy(),
+                                       err_msg="%s %s" % (name, n),
+                                       **PARALLEL_FP32_TOL)
+    report = {"blocks": len(t.param_blocks), "sharded_vars": len(shard),
+              "base_losses": base, "simulation_losses": sim,
+              "monolithic_sharded_losses": mono, "card": card}
+    print("%s %d blocks over 2 pservers, %d vars split over dp=2; losses "
+          "%s (simulation) and %s (sharded monolithic) against %s"
+          % (tag, len(t.param_blocks), len(shard), sim, mono, base))
+    del ts, ms, s0, pscopes
+    torch.cuda.empty_cache()
+    return report
+
+
+def run_parallel(torch, card):
+    """Phase 35 (see PARALLEL and the module's docstring): the paths and
+    the `parallel_summary:` report."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="ptt_phase35_")
+    t0 = time.perf_counter()
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    try:
+        legs = [t0]
+
+        def leg(name):
+            legs.append(time.perf_counter())
+            leg_s[name] = legs[-1] - legs[-2]
+
+        leg_s = {}
+        C = _ParallelCase(torch, fluid, transformer)
+        leg("build")
+        timing = parallel_timing(torch, C, card)
+        leg("timing")
+        op = parallel_sp_op(torch, card)
+        leg("sp_op")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        run_a, card_mesh, ref = parallel_card(torch, C, card)
+        leg("a")
+        run_b, dp2, _, _ = parallel_dp2(torch, C, card, ref)
+        leg("b")
+        dp2["planted_fault"] = parallel_grad_fault(torch, C, ref[2])
+        leg("b_fault")
+        run_c, tp = parallel_tp(torch, C, card, ref)
+        leg("c")
+        run_ring, ring = parallel_sp_step(torch, C, card, ref, "ring")
+        leg("d_ring")
+        run_uly, uly = parallel_sp_step(torch, C, card, ref, "ulysses")
+        leg("d_ulysses")
+        reshard = parallel_reshard(torch, C, card, tmp)
+        leg("e")
+        pserver = parallel_transpiler(torch, card)
+        leg("f")
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    summary = {"timing": timing, "card_mesh": card_mesh, "dp2_zero": dp2,
+               "tp2_gather": tp, "sp2_op": op, "sp2_ring_step": ring,
+               "sp2_ulysses_step": uly, "reshard": reshard,
+               "transpiler": pserver, "leg_s": leg_s,
+               "phase_s": time.perf_counter() - t0, "card": card}
+    return [("parallel_card_mesh", run_a), ("parallel_dp2_zero", run_b),
+            ("parallel_tp2_gather", run_c), ("parallel_sp2_ring", run_ring),
+            ("parallel_sp2_ulysses", run_uly)], summary
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
@@ -9598,6 +10506,17 @@ def main(argv=None):
           % (card, torch.__version__, torch.version.cuda, peak_flops / 1e12,
              tc_flops / 1e12, bf16_flops / 1e12, peak_bw / 1e12))
 
+    started = time.perf_counter()
+    laps = [started]
+
+    def lap(what):
+        """The seconds `what` took and the run's total so far: where the
+        1200 s budget goes."""
+        now = time.perf_counter()
+        print("clock: %s %.1f s (total %.1f s)"
+              % (what, now - laps[-1], now - started))
+        laps.append(now)
+
     t0 = time.perf_counter()
     ck.build(verbose=args.ptxas)
     print("build: %s in %.1f s" % (os.path.relpath(ck.build_info.path),
@@ -9637,11 +10556,13 @@ def main(argv=None):
         baseline_source(args.k7_baseline, K7_BASELINE_COMMIT, LSTMP_SRC)))
     kernels.update(run_while_kernel(torch, ck, peak_bw))
     kernels.update(run_guard_kernel(torch, ck, peak_bw))
+    lap("build and kernels (phases 1-3)")
     if args.only == "all":
         stem = args.trace and os.path.splitext(args.trace)[0]
         # each path: the launch counts of its run and the counts it
         # predicts (0 for a kernel the path does not run)
         paths = [("transformer_serving", run_serving(torch, card))]
+        lap("transformer serving")
         variants = {}
         run, variants["fp32"] = run_training(torch, card,
                                              trace_path=args.trace)
@@ -9662,6 +10583,7 @@ def main(argv=None):
         summary["bf16_vs_cpu"] = bf16_vs_cpu
         summary["card"] = card
         print("transformer_variants: " + json.dumps(summary))
+        lap("transformer training")
         paths += [("sentiment_serving", run_sequence_serving(torch, card)),
                   ("sentiment_training",
                    run_sequence_training(
@@ -9676,6 +10598,7 @@ def main(argv=None):
                       torch, card,
                       trace_path=stem and stem + "_acoustic.json"))]
         run_acoustic_training_vs_cpu(torch)
+        lap("sequences, translation, acoustic")
         paths.append(("lenet_training", run_lenet_training_vs_cpu(torch)))
         conv = {}
         for bf16 in (False, True):
@@ -9717,6 +10640,7 @@ def main(argv=None):
             if path.startswith(("resnet50", "lenet"))}
         summary["card"] = card
         print("convnet: " + json.dumps(summary))
+        lap("conv nets")
         dense = {}
         for model in ("ctr", "recommender", "word2vec", "language_model"):
             run, dense[model + "_training"] = run_dense_training(
@@ -9737,14 +10661,17 @@ def main(argv=None):
             trace_path=stem and stem + "_language_model_clip.json")
         paths.append(("language_model_clip_training", run))
         paths.append(("verbatim_scripts", run_verbatim_vs_cpu(torch)))
+        lap("dense zoo, optimizers, clipping, verbatim")
         multistep = {}
         for path, _ in MULTISTEP_PATHS:
             run, multistep[path] = run_multistep(
                 torch, card, path, reduce_check=path == "language_model")
             paths.append(("multistep_" + path, run))
         run_capture_refusal(torch)
+        lap("multistep")
         pipelined_paths, pipelined = run_pipelined_serving(torch, card)
         paths += pipelined_paths
+        lap("pipelined serving")
         seq_ops = run_sequence_ops_vs_cpu(torch)
         run, srl_train, srl_scope, _ = run_srl_training(
             torch, card, trace_path=stem and stem + "_srl.json")
@@ -9767,6 +10694,7 @@ def main(argv=None):
                 n: seq_ops[n]["forward_ms"] for n in (
                     "dynamic_gru", "linear_chain_crf", "crf_decoding")},
             "card": card}))
+        lap("sequence ops, srl")
         run, ocr_train, ocr_scope = run_ocr_training(
             torch, card, trace_path=stem and stem + "_ocr.json")
         paths.append(("ocr_training", run))
@@ -9783,6 +10711,7 @@ def main(argv=None):
             "serving": {k: ocr_serve[k] for k in (
                 "p50_ms", "p99_ms", "images_per_s", "batches")},
             "card": card}))
+        lap("ocr")
         decode_paths, transformer_decode = run_transformer_decode(torch, card)
         paths += decode_paths
         translator_paths, translator_decode = run_translator_decode(
@@ -9793,6 +10722,7 @@ def main(argv=None):
             "transformer": transformer_decode,
             "translator": translator_decode, "control_flow": loop_checks,
             "card": card}))
+        lap("decodes")
         serving_paths, decode_serving = run_decode_serving(
             torch, card, peak_flops, peak_bw)
         paths += serving_paths
@@ -9804,6 +10734,7 @@ def main(argv=None):
         kernels["flash_attention_fwd_bf16"]["serving_dispatch"].update(
             decode_serving["weights_dtype"]["bf16_k1_serving_shape"])
         print("decode_serving_summary: " + json.dumps(decode_serving))
+        lap("decode serving")
         run, readers = run_reader_training(torch, card)
         paths.append(("transformer_reader_training", run))
         print("reader_summary: " + json.dumps({
@@ -9811,12 +10742,19 @@ def main(argv=None):
                 "trained_steps", "equal_to_eager_feed_fed",
                 "reader_consumed", "staging_synchronizing_calls",
                 "prepass_host_ms", "timing", "card")}))
+        lap("readers")
         persist_paths, persistence = run_persistence(torch, card)
         paths += persist_paths
         print("persistence_summary: " + json.dumps(persistence))
+        lap("persistence")
         resil_paths, resilience = run_resilience(torch, card)
         paths += resil_paths
         print("resilience_summary: " + json.dumps(resilience))
+        lap("resilience")
+        par_paths, parallel = run_parallel(torch, card)
+        paths += par_paths
+        print("parallel_summary: " + json.dumps(parallel))
+        lap("parallel")
         print("clipping_summary: " + json.dumps({
             "fit_a_line": {k: v for k, v in clipping.items() if k != "card"},
             "language_model_clip": {k: lm_clip[k] for k in (

@@ -65,6 +65,10 @@ from . import recordio_writer  # noqa: F401
 from .reader import batch  # noqa: F401
 from . import checkpoint  # noqa: F401
 from .checkpoint import CheckpointManager  # noqa: F401
+from . import parallel  # noqa: F401
+from .parallel import ParallelExecutor  # noqa: F401
+from . import transpiler  # noqa: F401
+from .transpiler import DistributeTranspiler  # noqa: F401
 from . import resilience  # noqa: F401
 from .resilience import (Supervisor, TrainingAborted,  # noqa: F401
                          install_numeric_guards, NumericalGuardError,

@@ -34,11 +34,22 @@ everything back: values (on the executor's device, else the device of the
 live value each replaces, else the card; in the dtype the program
 declares, else the live value's), reader positions, seed cursor.
 
-Cut here, raising rather than skipping: `save(layout=)` / `restore(
-layout=)` reshard across device meshes (ROADMAP A10; a snapshot the JAX
-package wrote under a mesh holds global arrays and restores on one card
-without it), and `validate` / FLAGS_validate_program, the static
-analysis of the recorded program (ROADMAP A11).
+Reshard-on-restore: a snapshot records the device layout it was
+captured under (`save(layout=)`, a parallel.DeviceLayout, else the active
+one, in snapshot.json) and, per value the scope held as a ParallelExecutor
+ShardedValue, its PartitionSpec (the manifest's "sharding", the JAX
+package's encoding). Arrays are always written as global arrays, so
+`restore(layout=)` re-splits them onto any target mesh (a DeviceLayout, a
+parallel.Mesh, a ShardingPlan whose specs then win, or a device count):
+each value gets its recorded spec adapted to the target (axes the new
+mesh lacks are dropped; a dim the new axis size does not divide is not
+split) and lands in the scope as per-replica pieces. A snapshot the JAX
+package wrote under its 8-device mesh restores onto any port mesh, and
+the values are the ones a plain restore() gives.
+
+Cut here, raising rather than skipping: `validate` /
+FLAGS_validate_program, the static analysis of the recorded program
+(ROADMAP A11).
 """
 import atexit
 import os
@@ -57,13 +68,55 @@ from .retention import RetentionPolicy, apply_retention
 __all__ = ["CheckpointManager", "SaveHandle", "skip_reader_records"]
 
 
-def _refuse_layout(layout, what):
-    if layout is not None:
-        raise NotImplementedError(
-            "CheckpointManager.%s(layout=): resharding a snapshot across "
-            "device meshes comes with ROADMAP A10; a snapshot's arrays are "
-            "global, so restore() without layout= loads one written under "
-            "any mesh onto one device" % what)
+def _spec_to_json(spec):
+    """PartitionSpec -> JSON list (str | [str, ...] | None per dim): the
+    plan's encoding, which the manifest's "sharding" entries share."""
+    from ..parallel.plan import _spec_to_json as impl
+    return impl(spec)
+
+
+def _adapt_spec(spec_json, mesh, shape):
+    """A recorded per-var spec, adapted to the target mesh: axes the mesh
+    lacks are dropped, and a dim whose new combined axis size does not
+    divide it is not split (an uneven split would corrupt the value)."""
+    from ..parallel.mesh import P
+    if not spec_json:
+        return P()
+    out = []
+    for i, ent in enumerate(spec_json[:len(shape)]):
+        axes = (list(ent) if isinstance(ent, (list, tuple))
+                else ([] if ent is None else [ent]))
+        kept = [a for a in axes if a in mesh.shape]
+        if kept:
+            factor = 1
+            for a in kept:
+                factor *= int(mesh.shape[a])
+            if factor <= 0 or int(shape[i]) % factor != 0:
+                kept = []
+        out.append(tuple(kept) if len(kept) > 1
+                   else (kept[0] if kept else None))
+    return P(*out)
+
+
+def _resolve_layout_mesh(layout):
+    """restore(layout=) takes a parallel.DeviceLayout, a parallel.Mesh, a
+    parallel.ShardingPlan (its mesh is the target and its specs win) or a
+    device count: normalized to (mesh, plan or None). An unsatisfiable
+    layout raises here, before anything is read."""
+    from ..parallel.mesh import Mesh
+    if isinstance(layout, Mesh):
+        return layout, None
+    if hasattr(layout, "sharding_for") and hasattr(layout, "mesh"):
+        return layout.mesh, layout
+    if isinstance(layout, int):
+        from ..parallel.distributed import DeviceLayout
+        layout = DeviceLayout(local_device_count=layout)
+    if hasattr(layout, "local_mesh"):
+        return layout.local_mesh(), None
+    raise TypeError(
+        "restore(layout=...) wants a parallel.DeviceLayout, a "
+        "parallel.Mesh, a parallel.ShardingPlan or a device count, got %r"
+        % (layout,))
 
 
 def _validate_flag():
@@ -231,11 +284,15 @@ class CheckpointManager(object):
         thread and this call only pays the capture (device-side clones
         and one event, host dicts; no host synchronization) — unless
         `max_in_flight` older saves are still writing, in which case it
-        blocks until one drains. `layout` (resharding) raises naming
-        ROADMAP A10."""
+        blocks until one drains. `layout` (a parallel.DeviceLayout,
+        default the active one) is recorded as the cohort shape the
+        snapshot was written under; per-value specs of sharded state are
+        recorded either way, for restore(layout=)."""
         if self._closed:
             raise RuntimeError("CheckpointManager is closed")
-        _refuse_layout(layout, "save")
+        if layout is not None and not hasattr(layout, "to_json"):
+            raise TypeError("save(layout=...) records a "
+                            "parallel.DeviceLayout, got %r" % (layout,))
         if self._validate is None and _validate_flag():
             _refuse_validate("CheckpointManager.save with "
                              "FLAGS_validate_program set")
@@ -245,7 +302,7 @@ class CheckpointManager(object):
         csp = _otrace.span("checkpoint/capture", cat="checkpoint",
                            step=int(step))
         try:
-            job = self._capture_job(step, program, scope, extra)
+            job = self._capture_job(step, program, scope, extra, layout)
         except BaseException as e:
             # a failed capture must not strand the span open
             csp.end(error=type(e).__name__)
@@ -277,7 +334,7 @@ class CheckpointManager(object):
         self._queue.put(job)
         return job.handle
 
-    def _capture_job(self, step, program, scope, extra):
+    def _capture_job(self, step, program, scope, extra, layout=None):
         """The synchronous capture half of save(): quiesce staged
         prefetches, snapshot every persistable + reader position + the
         seed cursor, and return the _SaveJob the writer publishes."""
@@ -310,10 +367,12 @@ class CheckpointManager(object):
                 under = getattr(under, "_under", None)
         values, reader_states = [], {}
         events = {}
+        from ..core.sharded import ShardedValue
         for v in program.list_vars():
             if not v.persistable:
                 continue
-            val = scope.get(v.name)
+            raw = scope.get_raw(v.name)
+            val = raw.assemble() if isinstance(raw, ShardedValue) else raw
             # io.save_vars' classification: live readers are runtime
             # plumbing, not tensor payload
             if isinstance(val, ReaderBase) or _is_reader_var(
@@ -333,6 +392,10 @@ class CheckpointManager(object):
                 # optimizer accumulator: tie it to its owner param ("" =
                 # optimizer-global state like the beta pows)
                 entry["owner"] = acc_owner[v.name]
+            if isinstance(raw, ShardedValue) and raw.spec:
+                # the spec this value was split with on its source mesh:
+                # what restore(layout=) adapts to the target
+                entry["sharding"] = _spec_to_json(raw.spec)
             if not isinstance(val, torch.Tensor):
                 val = torch.as_tensor(np.asarray(val))
             values.append((v.name, entry, val.detach().clone()))
@@ -351,6 +414,11 @@ class CheckpointManager(object):
                 "reader_states": reader_states,
                 "program_version": int(getattr(program, "_version", 0)),
                 "wall_time": time.time()}
+        if layout is None:
+            from ..parallel.distributed import active_layout
+            layout = active_layout()
+        if layout is not None:
+            meta["device_layout"] = layout.to_json()
         if extra:
             meta["extra"] = dict(extra)
         return _SaveJob(int(step), values, meta, program, SaveHandle(step))
@@ -503,12 +571,19 @@ class CheckpointManager(object):
         every reader state the snapshot records must have a live reader in
         the scope (run the startup program first). `skip_records` (int, or
         {reader_name: int}) advances each restored reader PAST that many
-        records after its position is replayed. `layout` raises naming
-        ROADMAP A10."""
+        records after its position is replayed.
+
+        `layout` (a parallel.DeviceLayout, a parallel.Mesh, a
+        ShardingPlan or a device count) reshards: each value lands split
+        over the target mesh per its recorded spec adapted to the mesh
+        (a plan's own spec wins), as a ShardedValue (the scope's readers
+        see the same global values a plain restore gives). A layout the
+        process cannot satisfy raises before anything is read."""
         from ..core.dispatch import rollback_all_staged
         from ..core.executor import global_scope
-        _refuse_layout(layout, "restore")
         scope = scope if scope is not None else global_scope()
+        target_mesh, target_plan = (None, None) if layout is None \
+            else _resolve_layout_mesh(layout)
         # pipelined-dispatch quiesce BEFORE reader replay: a staged block
         # refunded after load_state_dict's reset+replay would prepend
         # stale records into the freshly restored stream
@@ -562,9 +637,14 @@ class CheckpointManager(object):
                 continue  # torn or bit-flipped arrays: walk back
             # placed as tensors before the first scope.set: a placement
             # failure must not leave the scope half-restored
-            placed = {name: _placed(arr, scope.get(name),
-                                    declared.get(name), executor)
+            placed = {name: _placed(arr, scope.get_raw(name),
+                                    declared.get(name), executor,
+                                    target_mesh)
                       for name, arr in loaded.items()}
+            if target_mesh is not None:
+                placed = {name: _resharded(name, t, manifest, target_mesh,
+                                           target_plan)
+                          for name, t in placed.items()}
             for name, t in placed.items():
                 scope.set(name, t)
 
@@ -622,17 +702,37 @@ class CheckpointManager(object):
             "no valid snapshot under %r" % self.checkpoint_dir)
 
 
-def _placed(arr, live, var, executor):
-    """One restored array as a tensor: on the executor's device, else the
-    live value's, else the card; in the declared dtype, else the live
-    value's, else the file's."""
+def _resharded(name, t, manifest, mesh, plan):
+    """A restored global tensor split over `mesh` per its recorded spec
+    (the plan's, when it has one) adapted to the mesh; a value the spec
+    does not split stays one tensor on a mesh of one device, else one
+    piece a replica."""
+    from ..core.sharded import ShardedValue
+    spec_json = manifest.get(name, {}).get("sharding")
+    if plan is not None and plan.spec_for(name) is not None:
+        spec_json = _spec_to_json(plan.spec_for(name))
+    spec = _adapt_spec(spec_json, mesh, tuple(t.shape))
+    if any(spec) or len(mesh.distinct_devices()) > 1:
+        return ShardedValue.split(mesh, spec, t)
+    return t
+
+
+def _placed(arr, live, var, executor, mesh=None):
+    """One restored array as a tensor: on the target mesh's first device,
+    else the executor's, else the live value's, else the card; in the
+    declared dtype, else the live value's, else the file's."""
     from ..core.executor import resolve_device, to_tensor
     from ..core.registry import torch_dtype
     from ..core.framework import convert_dtype
+    from ..core.sharded import ShardedValue
+    if isinstance(live, ShardedValue):
+        live = live.pieces[0]
     live_t = live if isinstance(live, torch.Tensor) else None
     if not arr.flags.writeable:     # np.load over the verified bytes
         arr = arr.copy()
-    if executor is not None:
+    if mesh is not None:
+        device = mesh.devices.flat[0]
+    elif executor is not None and hasattr(executor, "device"):
         device = executor.device
     elif live_t is not None:
         device = live_t.device

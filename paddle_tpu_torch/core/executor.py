@@ -25,6 +25,7 @@ from .readers import ReaderBase, is_host_io_op, run_host_io_op
 from .lowering import (FETCH_REDUCE_POLICIES, Env, LowerCtx, analyze_state,
                        lower_block, lower_multi_step, unread_outputs)
 from .registry import torch_dtype
+from .sharded import ShardedValue
 
 
 def resolve_device(device=None):
@@ -236,7 +237,8 @@ class _ScopeVar(object):
         self.name = name
 
     def get_tensor(self):
-        return self.scope._vars.get(self.name)
+        v = self.scope._vars.get(self.name)
+        return v.assemble() if isinstance(v, ShardedValue) else v
 
     def set(self, value, place=None):
         self.scope.set(self.name, value)
@@ -264,16 +266,26 @@ class Scope(object):
         self._kids = []
 
     def set(self, name, value):
-        """A tensor, a host array (made a tensor) or a reader's host-side
-        state (core/readers.ReaderBase, kept as it is)."""
+        """A tensor, a host array (made a tensor), a reader's host-side
+        state (core/readers.ReaderBase) or a ParallelExecutor's sharded
+        state (core/sharded.ShardedValue), the last two kept as they are."""
         self._vars[name] = value if isinstance(
-            value, (torch.Tensor, ReaderBase)) \
+            value, (torch.Tensor, ReaderBase, ShardedValue)) \
             else torch.as_tensor(np.asarray(value))
 
     def get(self, name):
+        """The value of `name` here or in a parent scope; a sharded value
+        comes back assembled (the global tensor, on replica 0's device)."""
+        v = self.get_raw(name)
+        return v.assemble() if isinstance(v, ShardedValue) else v
+
+    def get_raw(self, name):
+        """As get, but a sharded value as its ShardedValue (pieces and
+        spec): what a ParallelExecutor reads its state from."""
         if name in self._vars:
             return self._vars[name]
-        return self._parent.get(name) if self._parent is not None else None
+        return self._parent.get_raw(name) if self._parent is not None \
+            else None
 
     def drop(self, name):
         """Remove `name` from this scope (no-op when absent)."""
@@ -384,8 +396,9 @@ class NumericalGuardError(RuntimeError):
 # pre-pass and the seed draw, so a failed attempt consumes nothing.
 _fault_hook = None
 
-# Step-barrier hook of an elastic cluster worker (ROADMAP A10): None
-# until that layer exists. It fires first, before the fault hook.
+# Step-barrier hook of an elastic cluster worker (ROADMAP A10's second
+# half): None until that layer exists. It fires first, before the fault
+# hook.
 _barrier_hook = None
 
 

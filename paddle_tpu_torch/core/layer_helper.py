@@ -108,11 +108,20 @@ class LayerHelper(object):
         shape = [int(s) for s in shape]
         from .param_attr import WeightNormParamAttr
         if isinstance(attr, WeightNormParamAttr):
+            if getattr(attr, "mesh_axes", None):
+                raise NotImplementedError(
+                    "mesh_axes on WeightNormParamAttr is not supported: the "
+                    "weight-normalized w is a derived variable (g, v are "
+                    "the parameters); shard via "
+                    "ParallelExecutor(param_shardings=...) instead")
             return self._create_weight_normalized(attr, shape, dtype)
         main_block = self.main_program.global_block()
         if main_block.has_var(attr.name):
             # shared parameter (same ParamAttr name reused): one init op only
             existing = main_block.var(attr.name)
+            if getattr(attr, "mesh_axes", None) and \
+                    not getattr(existing, "mesh_axes", None):
+                existing.mesh_axes = tuple(attr.mesh_axes)
             if existing.shape is not None and \
                     tuple(existing.shape) != tuple(shape):
                 raise ValueError(
@@ -126,8 +135,12 @@ class LayerHelper(object):
         if sp.initializer is not None:
             sp.initializer(sp, startup_block)
         # main program: the parameter itself
-        return main_block.create_parameter(
+        p = main_block.create_parameter(
             shape=shape, dtype=dtype, **attr.to_kwargs())
+        if getattr(attr, "mesh_axes", None):
+            p.mesh_axes = tuple(attr.mesh_axes)
+            sp.mesh_axes = tuple(attr.mesh_axes)
+        return p
 
     def _create_weight_normalized(self, attr, shape, dtype):
         """w = g * v / ||v||: parameters v (the user's initializer) and g

@@ -75,6 +75,9 @@ class LowerCtx(object):
     is_abstract = False
     # whether the run is one step of Executor.run(steps=K) (_StepCtx)
     in_multi_step = False
+    # the ParallelExecutor's mesh (parallel/mesh.Mesh) while it runs the
+    # step: fused_attention splits T over its 'sp' axis
+    mesh = None
 
     def __init__(self, program, device, run_seed=0, is_startup=False,
                  unread=frozenset()):

@@ -9,7 +9,7 @@ from .initializer import ConstantInitializer, XavierInitializer
 class ParamAttr(object):
     def __init__(self, name=None, initializer=None, learning_rate=1.0,
                  regularizer=None, trainable=True, gradient_clip=None,
-                 do_model_average=None):
+                 do_model_average=None, mesh_axes=None):
         self.name = name
         self.initializer = initializer
         self.learning_rate = learning_rate
@@ -17,6 +17,10 @@ class ParamAttr(object):
         self.trainable = trainable
         self.gradient_clip = gradient_clip
         self.do_model_average = do_model_average
+        # per-dim mesh-axis annotation: mesh_axes=(None, "tp") shards an fc
+        # weight's output dim over the 'tp' axis under a ParallelExecutor
+        # (parallel/plan.py reads it off the Parameter)
+        self.mesh_axes = tuple(mesh_axes) if mesh_axes is not None else None
 
     def set_default_initializer(self, initializer):
         if self.initializer is None:

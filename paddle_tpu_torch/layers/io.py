@@ -5,13 +5,13 @@ layers/io.py — `data` declares a feed Variable (batch dim prepended as -1,
 like the reference's append_batch_size); open_recordio_file / open_files,
 the reader decorators and read_file mirror layers/io.py:262-366 (reader
 state is host-side, run by the Executor's io pre-pass: core/readers.py).
-ListenAndServ, Send and Recv (the parameter-server markers) come with
-ROADMAP A10 and raise.
+ListenAndServ, Send and Recv are the parameter-server markers
+(transpiler/distribute_transpiler.py runs them).
 """
 from ..core import unique_name
 from ..core.framework import default_main_program, default_startup_program
 
-__all__ = ["data", "Send", "Recv", "ListenAndServ",
+__all__ = ["data", "Send", "Recv", "ListenAndServ", "BlockGuardServ",
            "open_recordio_file", "open_files", "read_file",
            "create_shuffle_reader", "create_double_buffer_reader",
            "create_multi_pass_reader", "shuffle", "double_buffer",
@@ -41,28 +41,112 @@ def data(name, shape, append_batch_size=True, dtype="float32", lod_level=0,
     return main
 
 
-def _parallel_only(what):
-    raise NotImplementedError(
-        "fluid.layers.%s: the parameter-server markers come with the "
-        "parallel runtime (ROADMAP A10)" % what)
+class BlockGuardServ(object):
+    """with server.do(): — collect the optimize block, then complete_op
+    (parity: reference layers/io.py:87)."""
+
+    def __init__(self, server):
+        if not isinstance(server, ListenAndServ):
+            raise TypeError("BlockGuardServ takes a ListenAndServ")
+        self.server = server
+        self.program = default_main_program()
+
+    def __enter__(self):
+        self.block = self.program.create_block()
+        return self.block
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if exc_type is not None:
+            self.program.rollback()  # never leave the server block current
+            return False
+        self.server.complete_op()
+        self.program.rollback()
+        return False
 
 
 class ListenAndServ(object):
-    """The listen_and_serv server block (reference layers/io.py:108):
-    ROADMAP A10."""
+    """Parity: reference layers/io.py:108 — wraps the listen_and_serv op:
+    a server block receiving vars and running the optimize sub-block.
+    There is no RPC loop: the op is the marker the DistributeTranspiler's
+    pserver programs carry, and the collected optimize block runs
+    directly (sharded-parameter semantics, transpiler/
+    distribute_transpiler.py)."""
 
     def __init__(self, endpoint, inputs=None, fan_in=1, optimizer_mode=True):
-        _parallel_only("ListenAndServ")
+        self.inputs = list(inputs or [])
+        self.endpoint = endpoint
+        self.fan_in = fan_in
+        self.optimizer_mode = optimizer_mode
+
+    def do(self):
+        return BlockGuardServ(self)
+
+    def get_params_and_grads(self):
+        prog = default_main_program()
+        block = prog.current_block()
+        params, grads = [], []
+        for op in block.ops:
+            if self.optimizer_mode:
+                if "Grad" in op.inputs and "Param" in op.inputs:
+                    params.append(op.inputs["Param"][0])
+                    grads.append(op.inputs["Grad"][0])
+            else:
+                for names in op.inputs.values():
+                    for n in names:
+                        params.append(n)
+                        grads.append(n)
+        return params, grads
+
+    def complete_op(self):
+        prog = default_main_program()
+        current = prog.current_block()
+        parent = prog.blocks[current.parent_idx]
+        params, grads = self.get_params_and_grads()
+        parent.append_op(
+            type="listen_and_serv", inputs={}, outputs={},
+            attrs={"endpoint": self.endpoint, "Fanin": self.fan_in,
+                   "ParamList": params, "GradList": grads,
+                   "sub_block": current.idx},
+            infer_shape=False)
 
 
 def Send(endpoints, send_vars, get_vars=None):
-    """fluid.layers.Send (reference layers/io.py:179): ROADMAP A10."""
-    _parallel_only("Send")
+    """Parity: fluid.layers.Send (reference layers/io.py:179) — ship vars
+    to parameter servers. Appended as the 'send' marker op the
+    DistributeTranspiler emits; under a ParallelExecutor the exchange is
+    the batch-axis sum onto the owner's shard, so the marker records the
+    placement (endpoints) and runs as nothing."""
+    assert isinstance(send_vars, list)
+    epmap = endpoints.split(",") if isinstance(endpoints, str) \
+        else list(endpoints)
+    block = default_main_program().current_block()
+    block.append_op(
+        type="send",
+        inputs={"X": [v.name if hasattr(v, "name") else v
+                      for v in send_vars]},
+        outputs={},
+        attrs={"endpoints": epmap, "epmap": {}, "sync_mode": True},
+        infer_shape=False)
+    return get_vars
 
 
 def Recv(endpoints, get_vars):
-    """fluid.layers.Recv (reference layers/io.py:207): ROADMAP A10."""
-    _parallel_only("Recv")
+    """Parity: fluid.layers.Recv (reference layers/io.py:207) — fetch vars
+    from parameter servers. With the parameters device-resident, the
+    'recv' is an identity placement marker, kept so transpiled programs
+    round-trip."""
+    assert isinstance(get_vars, list)
+    epmap = endpoints.split(",") if isinstance(endpoints, str) \
+        else list(endpoints)
+    block = default_main_program().current_block()
+    names = [v.name if hasattr(v, "name") else v for v in get_vars]
+    block.append_op(
+        type="recv",
+        inputs={},
+        outputs={"Out": names},
+        attrs={"endpoints": epmap, "epmap": {}},
+        infer_shape=False)
+    return get_vars
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,7 @@ the same Prometheus text path serving exposes.
 
 Waiting for later slices: the profiler's collector (its sync, cache and
 entry counters; ROADMAP A11) and `watch_cluster` / `unwatch_cluster`
-(heartbeat-derived fleet gauges; ROADMAP A10).
+(heartbeat-derived fleet gauges; ROADMAP A10's second half).
 
 Family naming: everything here is `ptpu_<area>_...`; the serving families
 stay `ptpu_serving_*` in serving/metrics.py, and the two renders

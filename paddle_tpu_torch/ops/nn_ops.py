@@ -93,8 +93,10 @@ def _fused_attention(ctx, ins, attrs):
     """Attention of q [B, Tq, H, D] over k, v [B, Tk, H, D] with optional
     [B] / [B, 1] key lengths. kernel_config.flash_at decides flash (the
     CUDA kernel's wrapper, Tq = Tk) or the dense reference (Tq != Tk, or
-    Tq <= 1); the block_q / block_k / sp_impl attrs are TPU and mesh knobs
-    the JAX package reads and this rule ignores.
+    Tq <= 1); the block_q / block_k attrs are TPU knobs the JAX package
+    reads and this rule ignores. Under a ParallelExecutor mesh with an
+    'sp' axis, `sp_impl` picks the sequence-parallel exchange
+    (parallel/ring_attention.py, parallel/ulysses.py).
 
     A row with no valid key (kv_len <= 0) on the flash path comes back as
     the mean of v over all keys where the JAX package would have answered
@@ -112,16 +114,37 @@ def _fused_attention(ctx, ins, attrs):
         kv_len = kv_len.reshape(-1)
     causal = attrs.get("causal", False)
     scale = attrs.get("scale", None)
+    mesh = getattr(ctx, "mesh", None)
+    if mesh is not None and mesh.shape.get("sp", 1) > 1 and \
+            not ctx.is_abstract:
+        # under a ParallelExecutor mesh with an 'sp' axis the sequence
+        # splits over its replicas: sp_impl "ring" (default; K/V blocks
+        # rotate, any head count) or "ulysses" (all-to-all head groups,
+        # each attended by this op's own path below)
+        if attrs.get("sp_impl", "ring") == "ulysses":
+            from ..parallel.ulysses import ulysses_attention_sharded
+            return _out(ulysses_attention_sharded(
+                q, k, v, mesh, causal=causal, scale=scale, kv_len=kv_len,
+                attend=_attend))
+        from ..parallel.ring_attention import ring_attention_sharded
+        return _out(ring_attention_sharded(q, k, v, mesh, causal=causal,
+                                           scale=scale, kv_len=kv_len))
+    return _out(_attend(q, k, v, causal, scale, kv_len))
+
+
+def _attend(q, k, v, causal, scale, kv_len):
+    """fused_attention on one device: the flash kernel's wrapper where
+    kernel_config.flash_at takes it, else the dense reference."""
     t = q.shape[1]
     if not flash_at(t, q.device.type, k.shape[1]):
-        return _out(attention_reference(q, k, v, causal=causal, scale=scale,
-                                        kv_len=kv_len).to(q.dtype))
+        return attention_reference(q, k, v, causal=causal, scale=scale,
+                                   kv_len=kv_len).to(q.dtype)
     out = cuda_kernels.FlashAttention.apply(q, k, v, kv_len, causal, scale)
     if kv_len is not None and reference_is_dense(t):
         empty = (kv_len <= 0).reshape(-1, 1, 1, 1)
         out = torch.where(empty, v.mean(dim=1, keepdim=True).to(out.dtype),
                           out)
-    return _out(out)
+    return out
 
 
 @register("lookup_table")

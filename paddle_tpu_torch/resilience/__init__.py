@@ -33,7 +33,7 @@ and the reader stack:
 
 Cut: the heartbeats and the elastic cluster (HeartbeatWriter,
 HeartbeatMonitor, read_heartbeats, ClusterCoordinator, ElasticWorker)
-come with ROADMAP A10.
+come with the second half of ROADMAP A10.
 
 Quickstart:
 

@@ -24,7 +24,7 @@ Arming a plan installs hooks at three seams:
     of step N is consumed, so the newest snapshot is at most N-1), and
     `heartbeat_stall@N[:secs]` marks the heartbeat stalled from step N
     for `secs` seconds (default: forever) for the heartbeat writer of
-    ROADMAP A10 to consult (`heartbeat_stalled`). The sentinel faults
+    ROADMAP A10's second half to consult (`heartbeat_stalled`). The sentinel faults
     (ARCHITECTURE.md §29) ride here for FEED-FED programs:
     `loss_spike@N[:mag]` / `grad_blowup@N[:mag]` scale every float feed
     of step N by a large-but-FINITE magnitude (defaults 1e3 / 1e6) —
@@ -50,7 +50,7 @@ Arming a plan installs hooks at three seams:
     checkpoint's own `PTPU_CKPT_FAULT_AT` (which keeps working unchanged) under this
     registry.
   * `serving_fault` — the SERVING seam, kept as data here: the replica
-    pool that consults it comes with ROADMAP A10. Its pre-dispatch tap
+    pool that consults it comes with ROADMAP A10's second half. Its pre-dispatch tap
     consults the armed plan before every replica
     dispatch, keyed on that REPLICA's own dispatch count (deterministic
     per replica regardless of routing): `replica_exc@N` raises

@@ -21,7 +21,7 @@ identical on every check.
 suspect device index; the Supervisor classifies it as fault class
 "sdc" (default chain: abort — a bad chip is not recoverable
 in-process). Quarantining the device across a cluster comes with
-ROADMAP A10.
+ROADMAP A10's second half.
 
 Fault injection: `bitflip@N[:device]` (resilience/faults.py) corrupts
 the Nth canary result — optionally waiting until the rotation lands on

@@ -3,9 +3,9 @@
 Parity: the JAX package's resilience/supervisor.py (the same classes,
 chains, actions and event log). The port's Executor is recognised by
 type (it has `.device`, not the JAX executor's `.place`), so it never
-takes the parallel executor's branch. Cut here: `restore_layout=`
-(resharding a restore across a device mesh) raises naming ROADMAP A10,
-and the profiler rows of each action wait for A11's profiler.
+takes the parallel executor's branch; a parallel.ParallelExecutor does.
+`restore_layout=` reshards every rollback onto a device mesh. Cut here:
+the profiler rows of each action wait for A11's profiler.
 
 The TensorFlow-paper stance (arXiv:1605.08695) made concrete: detection
 (device guards, hang watchdog, reader fault channel, host divergence) is
@@ -177,11 +177,12 @@ class Supervisor(object):
         `divergence` is a guards.DivergenceDetector fed every step's
         first fetch. `checkpoint_manager` enables rollback (and
         train(checkpoint_every=)); without one, rollback actions
-        escalate straight past themselves. `restore_layout` (resharding
-        every rollback onto a device mesh) comes with ROADMAP A10 and
-        raises. Registers itself on the reader fault channel so
-        worker-thread errors surface in the event log the moment they
-        happen.
+        escalate straight past themselves. `restore_layout` (a
+        parallel.DeviceLayout, Mesh or ShardingPlan) makes every rollback
+        restore reshard onto that target mesh, so the state lands where
+        the executor's mesh wants it. Registers itself on the reader
+        fault channel so worker-thread errors surface in the event log
+        the moment they happen.
 
         `sentinel` (a sentinel.TrainingSentinel) is fed every healthy
         step's first fetch plus the executor's guard-stat grad norm
@@ -190,14 +191,11 @@ class Supervisor(object):
         divergence fault classes. `sdc` (an sdc.CanaryChecker) runs a
         deterministic canary dispatch every `sdc_every` completed
         steps; a digest mismatch routes through the sdc class."""
-        if restore_layout is not None:
-            raise NotImplementedError(
-                "Supervisor(restore_layout=): resharding a rollback onto a "
-                "device mesh comes with ROADMAP A10")
         self.exe = executor
         self.program = program
-        # a parallel executor (ROADMAP A10) owns its scope and takes no
-        # program/scope per call. The port's Executor is told apart by
+        self.restore_layout = restore_layout
+        # a parallel executor owns its scope and takes no program/scope
+        # per call. The port's Executor is told apart by
         # type: it has `.device`, not the JAX executor's `.place`, so the
         # JAX package's hasattr test would call every one parallel
         self._is_parallel = not isinstance(executor, Executor)
@@ -543,7 +541,8 @@ class Supervisor(object):
             self._last_restore_step, bound)
         restored = self.ckpt.restore(
             program=self.program, scope=self.scope, before=before,
-            executor=None if self._is_parallel else self.exe)
+            executor=None if self._is_parallel else self.exe,
+            layout=self.restore_layout)
         if restored is None:
             self._log("_", "rollback_unavailable",
                       detail="no valid snapshot%s" % (

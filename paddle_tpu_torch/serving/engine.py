@@ -35,8 +35,9 @@ one (`model_format` "reference", or "auto" on a directory without
 `__model_meta__.json`), or, through `from_checkpoint`, the newest valid
 training snapshot of a checkpoint directory.
 
-Waiting for later slices: tensor parallelism and device meshes (`tp`,
-`mesh_devices`; A10), tuned configs (`apply_tuned`; A11).
+Waiting for later slices: tensor-parallel engines over a device mesh
+(`tp`, `mesh_devices`; A10's second half: the training side,
+parallel/, came first), tuned configs (`apply_tuned`; A11).
 """
 import os
 import threading
@@ -217,7 +218,8 @@ class InferenceEngine(object):
     mixed precision on) or "int8" (per-channel quantized weights behind
     `dequantize_channel` ops), applied to a model_dir load; see
     serving/quantize.py. validate: see the module docstring. tp waits for
-    ROADMAP A10 (with int8 it is refused as in the JAX package)."""
+    ROADMAP A10's second half (with int8 it is refused as in the JAX
+    package)."""
 
     def __init__(self, model_dir=None, device=None, name=None,
                  model_filename=None, batch_buckets=None,
@@ -246,7 +248,8 @@ class InferenceEngine(object):
         if self.tp is not None:
             raise NotImplementedError(
                 "InferenceEngine(tp=): tensor-parallel engines come with "
-                "ROADMAP A10")
+                "the second half of ROADMAP A10 (parallel.ParallelExecutor "
+                "trains over a mesh today)")
 
         if program is None:
             if model_dir is None:

@@ -7,7 +7,7 @@ Parity: the JAX package's serving/metrics.py: `ServingMetrics` (one per
 server holds (the decode engines publish through the observability
 registry's decoder collector). Writers are the request threads and the
 batcher workers, readers call `snapshot()`, all under one lock. The
-replica pool's families wait for ROADMAP A10.
+replica pool's families wait for ROADMAP A10's second half.
 """
 import collections
 import threading
@@ -244,7 +244,7 @@ def render_prometheus_all(named_metrics):
     """One valid exposition covering every scoring engine
     ({model: ServingMetrics}): HELP/TYPE exactly once per family, one
     labeled sample per model (the replica pools' families wait for
-    ROADMAP A10)."""
+    ROADMAP A10's second half)."""
     entries = []    # (label_str, snapshot) for the per-engine families
     for name, m in sorted(named_metrics.items()):
         entries.append(('model="%s"' % _escape_label(name), m.snapshot()))

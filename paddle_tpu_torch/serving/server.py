@@ -6,7 +6,7 @@ has no route of its own for a model's origin: it serves whatever engine
 it is given, so an engine over a reference-era (era-wire) directory
 (`model_format="reference"`) or over a training snapshot
 (`InferenceEngine.from_checkpoint`) answers `:predict` like any other.
-Replica pools and fleets wait for ROADMAP A10.
+Replica pools and fleets wait for ROADMAP A10's second half.
 
 A `ThreadingHTTPServer` (one thread per connection — request threads only
 normalize + enqueue + wait; the single batcher worker per engine does the

@@ -17,8 +17,9 @@ test_checkpoint_and_errors.py:
   byte and a corrupt snapshot.json are skipped; retention; a failed async
   save raised at the next save; backpressure and capture isolation; the
   io shims on old layouts and on empty or missing directories; optimizer
-  accumulators tagged with their owners; layout= raising naming A10 and
-  validate naming A11.
+  accumulators tagged with their owners; layout= recording and
+  resharding (tests/test_torch_reshard.py holds it across meshes) and
+  validate raising naming A11.
 """
 import json
 import os
@@ -670,11 +671,16 @@ def test_layout_and_validate_raise_naming_their_slices(tmp_path,
                                                        monkeypatch):
     main, _, _, _, scope, _ = _trained(9)
     with CheckpointManager(str(tmp_path), async_save=False) as mgr:
-        with pytest.raises(NotImplementedError, match="A10"):
+        # layout= reshards: save records a DeviceLayout and refuses
+        # anything else; restore takes a device count too
+        with pytest.raises(TypeError, match="DeviceLayout"):
             mgr.save(1, program=main, scope=scope, layout=1)
-        mgr.save(1, program=main, scope=scope)
-        with pytest.raises(NotImplementedError, match="A10"):
-            mgr.restore(program=main, scope=scope, layout=1)
+        mgr.save(1, program=main, scope=scope,
+                 layout=fluid.parallel.DeviceLayout(
+                     local_device_count=1, devices=["cpu"]))
+        assert mgr.restore(program=main, scope=scope, layout=1) == 1
+        with pytest.raises(ValueError, match="local devices"):
+            mgr.restore(program=main, scope=scope, layout=2)
         monkeypatch.setenv("FLAGS_validate_program", "1")
         with pytest.raises(NotImplementedError, match="A11"):
             mgr.save(2, program=main, scope=scope)

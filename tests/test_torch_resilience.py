@@ -535,5 +535,11 @@ def test_the_port_executor_is_not_a_parallel_executor():
         assert not hasattr(EXE, "place")   # the JAX package's test
     finally:
         sup.close()
-    with pytest.raises(NotImplementedError, match="A10"):
-        rz.Supervisor(EXE, main, restore_layout=object())
+    # restore_layout= reshards every rollback since the parallel slice
+    lay = tfluid.parallel.DeviceLayout(local_device_count=1,
+                                       devices=["cpu"])
+    sup = rz.Supervisor(EXE, main, scope=scope, restore_layout=lay)
+    try:
+        assert sup.restore_layout is lay and sup._is_parallel is False
+    finally:
+        sup.close()
