@@ -380,7 +380,9 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               graph and replayed K times, on seven training paths at the
               full width of the phase each comes from (MULTISTEP_PATHS:
               the Transformer in fp32, bf16 AMP and with dropout, the
-              PTB LM, the stacked LSTM, DeepASR, the SRL of phase 28). From one copied state
+              PTB LM, the stacked LSTM, DeepASR, the SRL of phase 28;
+              the fp32 and dropout Transformers, DeepASR and the SRL cut
+              to 2 layers, MULTISTEP_LAYERS). From one copied state
               and seed counter, under torch.use_deterministic_algorithms
               (index_add_ then sums in a fixed order): two eager runs of
               4 steps, then run(steps=4). Checks: fetches and every
@@ -638,9 +640,9 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               Transformer-base (batch 32, T=256) through
               fluid.ParallelExecutor on the card. Timed first, in the
               default mode, one side after another: eager and steps=4
-              step ms, device ms a step and the state bytes of the
-              Executor, the mesh of the card alone and {"dp": 2} with
-              ZeRO; an eager step's collectives on each mesh (calls,
+              step ms, device ms a step and the state bytes of the mesh
+              of the card alone and {"dp": 2} with ZeRO (the Executor's
+              are phase 25's); an eager step's collectives on each mesh (calls,
               bytes, device ms inside record_function ranges). The op: fused_attention at [32, 256, 8, 64] bf16 on
               {"sp": 2}, ring and Ulysses, forward and backward, within
               the bf16 tolerance of the single-card op. Then, under
@@ -662,7 +664,8 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               groups), 4 steps=1 calls and one steps=4 each, losses
               within 2e-3 of (a)'s, the first step's summed gradients
               within 5e-2 (ring: fp32 blocks) and 1e-2 (Ulysses);
-              (e) a snapshot saved under (b)'s layout restored onto the
+              (e) (at 2 layers) a snapshot saved under (b)'s layout
+              restored onto the
               card's mesh and onto (b)'s equal to what was saved, the
               resume on (b)'s layout bit-equal to the straight run; a
               guarded (b) run under a Supervisor with restore_layout=
@@ -674,6 +677,40 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               monolithic program, within rtol 1e-4 / atol 1e-5 of the
               monolithic program on one card. A `parallel_summary:` line
               sums up.
+36. parallel programs — ROADMAP A10b (PPM), every check under
+              deterministic algorithms, bf16 AMP at Transformer-base's
+              widths, batch 32 x T=256: (a) bench.py's encoder as a
+              language model (encoder_lm: prepare_encoder, a
+              pipelined_stack of 6 encoder_layer stages over fused
+              attention with no mask, the final layer_norm, an fc to
+              30000 and softmax_with_cross_entropy, Adam on noam) on
+              Executor (the stages one after the other) and on {"dp":
+              1, "pp": 6} (8 microbatches of 4 rows through the looped
+              schedule): 4 steps=1 calls and one steps=4 each, the pp
+              run's losses within 2e-3 and its first step's Adam first
+              moments within 1e-2 of the Executor's by norm; eager,
+              captured and device ms a step; the bf16 K1-K3, K4 and K5
+              launches a step (K1-K3 and K5 once a stage call: 8x on
+              pp). (b) the same encoder with every FFN a switch_moe (8
+              experts, d_hidden 2048, capacity 1.25; loss + 0.01 x the
+              summed aux losses) on Executor and on {"dp": 2, "ep": 4}
+              (the moe op on the gathered batch, the rest once a dp
+              shard) and {"dp": 1, "ep": 4}, held as (a) but for the dp2
+              losses (1e-2: routing is discrete, PPM_MOE_LOSS_RTOL); the
+              share of tokens each layer drops and its aux loss on the
+              first step. (c) phase 35's program
+              on {"dp": 1, "tp": 2} under tp_placement="compute" (the
+              weights and their moments on their pieces, each product
+              a piece at a time), held as (a) against phase 35 (a)'s
+              Executor run; step ms, state bytes a replica. (d) phase
+              35's program with enable_rematerialization, 4 steps=1 calls
+              and one steps=4 from (a)'s state: losses and state
+              against phase 35 (a)'s run (bit-equal, else the distance
+              within phase 35 (b)'s bounds); max_memory_allocated
+              eager, at the steps=4 call that captures and at one that
+              replays, with and without remat; step ms of each; the
+              recomputed segments' forward kernels counted in its
+              launches. A `parallel_programs_summary:` line sums up.
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run; the bf16 flash kernels counted under
@@ -5628,20 +5665,27 @@ MULTISTEP_PATHS = (
     ("transformer_dropout", "phase 20"), ("language_model", "phase 17"),
     ("stacked_lstm", "phase 7"), ("acoustic", "phase 10"),
     ("srl", "phase 28"))
+# depth of a phase 25 path where it is cut for the 1200 s budget: the
+# graph is held against eager steps of the same program, and the full
+# depth trains in the path's own phase (Transformer-base in bf16 keeps
+# its 6 + 6 layers: phases 32-36 run it)
+MULTISTEP_LAYERS = {"transformer_fp32": 2, "transformer_dropout": 2,
+                    "acoustic": 2, "srl": 2}
 MULTISTEP_K = 4          # steps a call
 MULTISTEP_TIMED = 2      # timed calls at each K
 MULTISTEP_GAP = 10       # graph vs eager within 10x two eager runs' gap
 MEAN_RTOL = 1e-6         # fetch_reduce="mean" against the eager losses
 
 
-def multistep_program(fluid, path):
+def multistep_program(fluid, path, layers=None):
     """(main, startup, avg_cost, feed) of a phase 25 path, built and fed as
-    the phase it comes from builds and feeds it."""
+    the phase it comes from builds and feeds it; `layers` cuts the depth
+    of a Transformer, DeepASR or the SRL (MULTISTEP_LAYERS)."""
     if path.startswith("transformer_"):
         from paddle_tpu_torch.models import transformer
         variant = path[len("transformer_"):]
-        main, startup, avg = build_train(fluid, transformer, N_LAYER,
-                                         variant=variant)
+        main, startup, avg = build_train(fluid, transformer,
+                                         layers or N_LAYER, variant=variant)
         rng = np.random.RandomState(SEED)
         t_max = MODEL["max_length"]
         srcs = [rng.randint(3, MODEL["vocab"], t_max).tolist()
@@ -5667,14 +5711,15 @@ def multistep_program(fluid, path):
                     "int64")}
         return main, startup, avg, feed
     if path == "srl":
-        main, startup, names, avg, _, _ = build_srl(fluid,
-                                                    dict(SRL, lr=SRL_LR))
+        main, startup, names, avg, _, _ = build_srl(
+            fluid, dict(SRL, lr=SRL_LR, depth=layers or SRL["depth"]))
         rng = np.random.RandomState(SEED + 280)
         lens = rng.randint(SRL["min_len"], SRL["max_len"] + 1, SRL["batch"])
         lens[0] = SRL["max_len"]
         return main, startup, avg, srl_feed(
             fluid, names, srl_rows(rng, SRL, SRL["batch"], lens))
-    main, startup, avg = build_acoustic(fluid, ASR, train=True)
+    main, startup, avg = build_acoustic(
+        fluid, dict(ASR, layers=layers or ASR["layers"]), train=True)
     rng = np.random.RandomState(SEED + 9)
     lens = rng.randint(ASR["min_len"], ASR["max_len"] + 1, size=ASR["batch"])
     lens[0] = ASR["max_len"]
@@ -5751,7 +5796,8 @@ def run_multistep(torch, card, path, reduce_check=False):
     k = MULTISTEP_K
     tag = "multistep %s:" % path
     t0 = time.perf_counter()
-    main, startup, avg_cost, feed = multistep_program(fluid, path)
+    main, startup, avg_cost, feed = multistep_program(
+        fluid, path, MULTISTEP_LAYERS.get(path))
     exe = fluid.Executor()
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
@@ -9558,7 +9604,10 @@ def run_resilience(torch, card):
 # layout, (f) the DistributeTranspiler.
 PARALLEL = dict(eager=4, steps=4, timed=2, timed_k=1, ckpt_at=2,
                 sup_steps=5, sup_every=3, spike_at=4, ctr_batch=256,
-                ctr_steps=2)
+                ctr_steps=2,
+                # (e)'s depth, cut for the 1200 s budget: its checks are
+                # of layouts and snapshots, whatever the depth
+                reshard_layers=2)
 PARALLEL_LOSS_RTOL = 2e-3   # bf16 AMP over another split of the batch or
 # the sequence: products tile and sums add in another order (losses of up
 # to 8 steps, relative)
@@ -9763,10 +9812,12 @@ class _ParallelCase(object):
     """Phase 35's program (bench.py's bf16 Transformer-base, optionally
     guarded), its batch, its startup state and fresh scopes of it."""
 
-    def __init__(self, torch, fluid, transformer, guard=False, init=None):
+    def __init__(self, torch, fluid, transformer, guard=False, init=None,
+                 n_layer=None):
         self.torch, self.fluid = torch, fluid
+        self.n_layer = n_layer or N_LAYER
         self.main, self.startup, avg = build_train(
-            fluid, transformer, N_LAYER, variant="bf16")
+            fluid, transformer, self.n_layer, variant="bf16")
         op = next(op for op in self.main.global_block().ops
                   if avg.name in op.all_output_vars())
         self.avg = avg.name
@@ -9819,13 +9870,14 @@ def _losses(out):
 
 def parallel_timing(torch, C, card):
     """Phase 35's step times, in the default (nondeterministic) mode a
-    user trains in: eager (steps=1) and captured (steps=4) calls of the
-    Executor, (a)'s mesh of the card alone and (b)'s 2-replica ZeRO mesh,
-    one side after the other (a captured step's memory pool each) from
-    the same state; the state bytes each holds."""
+    user trains in: eager (steps=1) and captured (steps=4) calls of (a)'s
+    mesh of the card alone and (b)'s 2-replica ZeRO mesh, one side after
+    the other (a captured step's memory pool each) from the same state;
+    the state bytes each holds. The Executor's own step times on the same
+    program are phase 25's transformer_bf16 lines."""
     tag = "parallel timing:"
     k = PARALLEL["steps"]
-    sides = {"executor": (C.fluid.Executor(PAR_DEV), C.fresh())}
+    sides = {}
     sa = C.fresh()
     sides["card_mesh"] = (C.pexe(sa, **_card_alone()), sa)
     sb = C.fresh()
@@ -9834,9 +9886,6 @@ def parallel_timing(torch, C, card):
 
     def call(name, steps):
         exe, scope = sides[name]
-        if name == "executor":
-            return exe.run(C.main, feed=C.feed, fetch_list=C.fetch,
-                           scope=scope, steps=steps)
         return exe.run(C.fetch, feed=C.feed, steps=steps)
 
     def timed(name, steps):
@@ -10233,7 +10282,8 @@ def parallel_reshard(torch, C, card, tmp):
     # the Supervisor leg, on the guarded program
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import transformer
-    G = _ParallelCase(torch, fluid, transformer, guard=True, init=C.init)
+    G = _ParallelCase(torch, fluid, transformer, guard=True, init=C.init,
+                      n_layer=C.n_layer)
 
     def fresh_guarded():
         sc = G.fresh()
@@ -10408,7 +10458,9 @@ def run_parallel(torch, card):
         leg("d_ring")
         run_uly, uly = parallel_sp_step(torch, C, card, ref, "ulysses")
         leg("d_ulysses")
-        reshard = parallel_reshard(torch, C, card, tmp)
+        reshard = parallel_reshard(torch, _ParallelCase(
+            torch, fluid, transformer, n_layer=PARALLEL["reshard_layers"]),
+            card, tmp)
         leg("e")
         pserver = parallel_transpiler(torch, card)
         leg("f")
@@ -10423,7 +10475,535 @@ def run_parallel(torch, card):
                "phase_s": time.perf_counter() - t0, "card": card}
     return [("parallel_card_mesh", run_a), ("parallel_dp2_zero", run_b),
             ("parallel_tp2_gather", run_c), ("parallel_sp2_ring", run_ring),
-            ("parallel_sp2_ulysses", run_uly)], summary
+            ("parallel_sp2_ulysses", run_uly)], summary, (C, ref)
+
+
+# ------------------------------------------------------------------------
+# Phase 36: the pipeline and MoE ops, "compute" tensor parallelism and
+# rematerialization (ROADMAP A10b)
+# ------------------------------------------------------------------------
+
+PPM = dict(micro=8, experts=8, capacity=1.25, aux=0.01, eager=4, steps=4)
+PPM_LOSS_RTOL = PARALLEL_LOSS_RTOL   # bf16 AMP over smaller products
+# (microbatches of 4 rows, dp shards of 16), losses relative
+PPM_GRAD_RTOL = PARALLEL_GRAD_RTOL   # the first step's Adam first
+# moments against the Executor's, by norm (phase 35's reading)
+PPM_MOE_LOSS_RTOL = 1e-2   # (b) on {"dp": 2, "ep": 4}: top-1 routing is
+# discrete, so a bf16 difference upstream (the dp shards' smaller
+# products) flips the odd token near a tie or at an expert's capacity
+# edge, and Adam carries it on: 8 steps drift to 5.07e-3 (PR 26's first
+# chip call; steps 1-4 within 1e-5). The first step's moments hold the
+# reduction; the {"dp": 1, "ep": 4} leg, whose products are the
+# Executor's, is held to PPM_LOSS_RTOL
+PPM_KERNELS = ("flash_attention_fwd_bf16", "flash_attention_bwd_dkdv_bf16",
+               "flash_attention_bwd_dq_bf16", "softmax_xent_fwd",
+               "layer_norm_fwd")
+
+
+def encoder_lm(fluid, transformer, kind, n_layer=None):
+    """Phase 36's programs: bench.py's Transformer-base encoder (MODEL's
+    widths, fused attention with no mask, bf16 AMP) as a language model:
+    prepare_encoder, n_layer layers, the final layer_norm, an fc to the
+    vocabulary and softmax_with_cross_entropy, Adam on noam (bench.py's
+    build_train). kind "pipeline": the layers are pipelined_stack's
+    stages (encoder_layer), PPM["micro"] microbatches; "moe": each
+    layer's FFN is switch_moe(PPM["experts"], d_hidden d_inner,
+    PPM["capacity"]) and the loss adds PPM["aux"] x the summed aux
+    losses. Returns (main, startup, loss, the moe ops' input names)."""
+    n_layer = n_layer or N_LAYER
+    V, T, d = MODEL["vocab"], MODEL["max_length"], MODEL["d_model"]
+    H, dk = MODEL["n_head"], MODEL["d_key"]
+    main, startup = fluid.Program(), fluid.Program()
+    startup.random_seed = SEED
+    main.enable_mixed_precision()
+    auxes = []
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src = fluid.layers.data("src_word", [T], dtype="int64")
+        pos = fluid.layers.data("src_pos", [T], dtype="int64")
+        lbl = fluid.layers.data("lbl_word", [T, 1], dtype="int64")
+        h = transformer.prepare_encoder(src, pos, V, d, T)
+        if kind == "pipeline":
+            h = fluid.layers.pipelined_stack(
+                h, n_layer, lambda x: transformer.encoder_layer(
+                    x, None, H, dk, dk, d, MODEL["d_inner"],
+                    use_fused=True), num_microbatches=PPM["micro"])
+        else:
+            for _ in range(n_layer):
+                a = transformer.multi_head_attention(
+                    transformer.pre_post_process_layer(None, h, "n"), None,
+                    None, None, dk, dk, d, H, use_fused=True)
+                a = transformer.pre_post_process_layer(h, a, "da")
+                f, aux = fluid.layers.switch_moe(
+                    transformer.pre_post_process_layer(None, a, "n"),
+                    num_experts=PPM["experts"], d_hidden=MODEL["d_inner"],
+                    capacity_factor=PPM["capacity"])
+                auxes.append(aux)
+                h = transformer.pre_post_process_layer(a, f, "da")
+        h = transformer.pre_post_process_layer(None, h, "n")
+        logits = fluid.layers.fc(input=h, size=V, bias_attr=False,
+                                 num_flatten_dims=2)
+        cost = fluid.layers.softmax_with_cross_entropy(
+            logits=fluid.layers.reshape(logits, shape=[-1, V]),
+            label=fluid.layers.reshape(lbl, shape=[-1, 1]))
+        loss = fluid.layers.mean(cost)
+        if auxes:
+            loss = loss + PPM["aux"] * fluid.layers.sums(auxes)
+        lr = fluid.layers.noam_decay(d, WARMUP_STEPS, 1.0)
+        fluid.optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.98,
+                             epsilon=1e-9).minimize(loss)
+    moe_in = [op.inputs["X"][0] for op in main.global_block().ops
+              if op.type == "moe"]
+    return main, startup, loss, moe_in
+
+
+def encoder_feed():
+    """Phase 36's batch: TRAIN_BATCH random sequences of max_length
+    tokens, each token's label the next token."""
+    rng = np.random.RandomState(SEED + 36)
+    B, T = TRAIN_BATCH, MODEL["max_length"]
+    src = rng.randint(3, MODEL["vocab"], (B, T)).astype("int64")
+    return {"src_word": src,
+            "src_pos": np.tile(np.arange(T, dtype="int64"), (B, 1)),
+            "lbl_word": np.roll(src, -1, axis=1)[..., None]}
+
+
+def step_launches(main, lanes=1, micro=1, extra_fwd=()):
+    """The bf16 K1-K3, K4 and K5 launches of one step of `main`: an op of
+    a pipeline op's stage once a stage call (num_stages, times `micro`
+    microbatches on a pp mesh), every other op once, all of it once a
+    lane; `extra_fwd`: forward ops run once more (rematerialized)."""
+    ops = main.global_block().ops
+    grads = {op.attrs["fwd_uid"] for op in ops if op.type == "grad_of"}
+    n = dict.fromkeys(PPM_KERNELS, 0)
+
+    def add(op, times, grad):
+        if op.type == "fused_attention":
+            n["flash_attention_fwd_bf16"] += times
+            if grad:
+                n["flash_attention_bwd_dkdv_bf16"] += times
+                n["flash_attention_bwd_dq_bf16"] += times
+        elif op.type == "softmax_with_cross_entropy" and \
+                not op.attrs.get("soft_label"):
+            n["softmax_xent_fwd"] += times
+        elif op.type == "layer_norm":
+            n["layer_norm_fwd"] += times
+
+    for op in ops:
+        if op.type == "pipeline":
+            calls = int(op.attrs["num_stages"]) * micro
+            for sop in main.blocks[op.attrs["sub_block"]].ops:
+                add(sop, calls, op.uid in grads)
+        elif op.type != "grad_of":
+            add(op, 1, op.uid in grads)
+    for op in extra_fwd:
+        add(op, 1, False)
+    return {k: v * lanes for k, v in n.items()}
+
+
+class _ProgramCase(_ParallelCase):
+    """A phase 36 program, its batch, its startup state on the card and
+    fresh scopes of it (_ParallelCase's interface)."""
+
+    def __init__(self, torch, fluid, built, feed):
+        self.torch, self.fluid = torch, fluid
+        self.main, self.startup, loss, self.moe_in = built
+        self.avg = loss.name
+        self.fetch = [loss.name]
+        self.feed = feed
+        scope = fluid.Scope()
+        fluid.Executor(PAR_DEV).run(self.startup, scope=scope)
+        self.init = (host_state(scope), scope.seed_state())
+
+
+def ppm_run(torch, runner, scope, eager, k, extra_fetch=()):
+    """`eager` steps=1 calls (their wall ms) then one steps=k call:
+    (losses, the kernels' launch counts, the first call's extra fetches,
+    the first step's Adam first moments, eager ms, the steps=k call's
+    wall ms a step)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    ck.reset_launch_counts()
+    losses, eager_ms_, fetched, moments = [], [], None, None
+    for i in range(eager):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = runner(1, list(extra_fetch) if i == 0 else [])
+        torch.cuda.synchronize()
+        eager_ms_.append((time.perf_counter() - ts) * 1e3)
+        losses += _losses(out[-1])
+        if i == 0:
+            fetched = out[:-1]
+            moments = first_moments(scope)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    out = runner(k, [])
+    torch.cuda.synchronize()
+    k_ms = (time.perf_counter() - ts) * 1e3 / k
+    losses += _losses(out[-1])
+    check(np.isfinite(losses).all(), "losses %s" % losses)
+    return losses, ck.launch_counts(), fetched, moments, eager_ms_, k_ms
+
+
+def ppm_close(tag, ref, got, moments, loss_tol=PPM_LOSS_RTOL):
+    """Losses within `loss_tol` and the first moments within
+    PPM_GRAD_RTOL of the reference run's."""
+    lerr = max(abs(a - b) / abs(a) for a, b in zip(ref[0], got))
+    check(len(got) == len(ref[0]) and lerr <= loss_tol,
+          "%s losses %s within %.2e of the reference's %s (tolerance %.0e)"
+          % (tag, got, lerr, ref[0], loss_tol))
+    grads = parallel_grad_check(tag, ref[1], moments, PPM_GRAD_RTOL)
+    return dict(grads, loss_rel_err=lerr, loss_tolerance=loss_tol)
+
+
+def device_top(torch, fn, top=6):
+    """(device kernel ms of fn(), its `top` kernels by device ms as
+    [name, ms]) under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name[:60]] += e.device_time / 1e3
+    return sum(by.values()), [[n, ms] for n, ms in by.most_common(top)]
+
+
+def ppm_expected(counts, per, steps):
+    expected = dict.fromkeys(counts, 0)
+    expected.update({n: c * steps for n, c in per.items()})
+    return expected
+
+
+def ppm_program_leg(torch, C, tag, mesh_kw, lanes=1, micro=1, ref=None,
+                    extra_fetch=(), loss_tol=PPM_LOSS_RTOL):
+    """One side of (a) or (b): Executor (mesh_kw None) or a
+    ParallelExecutor over mesh_kw, E steps=1 calls and one steps=K, under
+    deterministic algorithms. Returns (path entry, report, (losses, first
+    moments), extra fetches)."""
+    E, K = PPM["eager"], PPM["steps"]
+    scope = C.fresh()
+    if mesh_kw is None:
+        exe = C.fluid.Executor(PAR_DEV)
+        runner = lambda s, extra: exe.run(  # noqa: E731
+            C.main, feed=C.feed, fetch_list=extra + C.fetch, scope=scope,
+            steps=s)
+    else:
+        exe = C.pexe(scope, **mesh_kw)
+        runner = lambda s, extra: exe.run(  # noqa: E731
+            extra + C.fetch, feed=C.feed, steps=s)
+    losses, counts, fetched, moments, e_ms, k_ms = ppm_run(
+        torch, runner, scope, E, K, extra_fetch)
+    per = step_launches(C.main, lanes=lanes, micro=micro)
+    report = {"losses": losses, "eager_step_ms": e_ms,
+              "median_eager_step_ms": statistics.median(e_ms[1:]),
+              "steps_k_call_ms_per_step": k_ms,
+              "launches_per_step": per}
+    # a second steps=K call: its step ms, and the device's share of it
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    if mesh_kw is None:
+        exe.run(C.main, feed=C.feed, fetch_list=C.fetch, scope=scope,
+                steps=K)
+    else:
+        exe.run(C.fetch, feed=C.feed, steps=K)
+    torch.cuda.synchronize()
+    report["captured_step_ms"] = (time.perf_counter() - ts) * 1e3 / K
+    busy, top = device_top(torch, lambda: runner(K, []))
+    report["device_ms_per_step"] = busy / K
+    report["top_kernels_ms_per_step"] = [[n, ms / K] for n, ms in top]
+    if ref is not None:
+        report.update(ppm_close(tag, ref, losses, moments, loss_tol))
+    exe._cache.clear()
+    del scope
+    torch.cuda.empty_cache()
+    print("%s %d steps=1 calls and one steps=%d: losses %s; eager step ms "
+          "%s, captured %.2f, on the device %.2f (top kernels %s)%s; "
+          "launches a step %s"
+          % (tag, E, K, [round(v, 4) for v in losses],
+             [round(v, 1) for v in e_ms], report["captured_step_ms"],
+             report["device_ms_per_step"],
+             [[n, round(ms, 2)] for n, ms in
+              report["top_kernels_ms_per_step"]],
+             "" if ref is None else
+             "; the first step's summed gradients within %.3e of the "
+             "Executor's (tolerance %.0e), losses within %.2e"
+             % (report["grad_rel_err"], PPM_GRAD_RTOL,
+                report["loss_rel_err"]), per))
+    return (counts, ppm_expected(counts, per, E + K + 1)), report, \
+        (losses, moments), fetched
+
+
+def ppm_pipeline(torch, fluid, transformer, card):
+    """Phase 36 (a): the pipelined encoder LM on Executor (the stages one
+    after the other) and on {"dp": 1, "pp": 6} (8 microbatches of 4
+    rows through the looped schedule)."""
+    tag = "pipeline (a)"
+    C = _ProgramCase(torch, fluid, encoder_lm(fluid, transformer,
+                                              "pipeline"), encoder_feed())
+    run_e, rep_e, ref, _ = ppm_program_leg(torch, C, tag + " executor:",
+                                           None)
+    run_p, rep_p, _, _ = ppm_program_leg(
+        torch, C, tag + " pp6:",
+        {"mesh": _card_mesh(N_LAYER, dp=1, pp=N_LAYER)},
+        micro=PPM["micro"], ref=ref)
+    return [("pipeline_encoder_executor", run_e),
+            ("pipeline_encoder_pp6", run_p)], \
+        {"executor": rep_e, "pp6": rep_p, "card": card}
+
+
+def ppm_moe(torch, fluid, transformer, card):
+    """Phase 36 (b): the switch-MoE encoder LM on Executor, on {"dp": 1,
+    "ep": 4} (the expert products in 4 groups, everything else the
+    Executor's) and on {"dp": 2, "ep": 4}: the tokens each layer drops at
+    capacity 1.25 on the first step, its aux losses, step ms."""
+    from paddle_tpu_torch.parallel import moe
+    tag = "moe (b)"
+    C = _ProgramCase(torch, fluid, encoder_lm(fluid, transformer, "moe"),
+                     encoder_feed())
+    aux = [op.outputs["AuxLoss"][0] for op in C.main.global_block().ops
+           if op.type == "moe"]
+    gates = [op.inputs["Gate"][0] for op in C.main.global_block().ops
+             if op.type == "moe"]
+    run_e, rep_e, ref, fetched = ppm_program_leg(
+        torch, C, tag + " executor:", None, extra_fetch=C.moe_in + aux)
+    n = len(C.moe_in)
+    dropped = []
+    for x, gate in zip(fetched[:n], gates):
+        x = torch.as_tensor(np.asarray(x)).to(PAR_DEV).reshape(
+            -1, MODEL["d_model"])
+        g = C.init[0][gate].to(PAR_DEV)
+        probs = torch.softmax((x.float() @ g.float()), dim=-1)
+        cap = int(np.ceil(x.shape[0] / PPM["experts"] * PPM["capacity"]))
+        keep = moe.route(probs, cap)[3]
+        dropped.append(float((~keep).float().mean()))
+    rep_e["dropped_share_per_layer"] = dropped
+    rep_e["aux_loss_per_layer"] = [float(np.ravel(a)[0])
+                                   for a in fetched[n:]]
+    run_q, rep_q, _, _ = ppm_program_leg(
+        torch, C, tag + " dp1 ep4:",
+        {"mesh": _card_mesh(4, dp=1, ep=4)}, ref=ref)
+    run_p, rep_p, _, _ = ppm_program_leg(
+        torch, C, tag + " dp2 ep4:",
+        {"mesh": _card_mesh(8, dp=2, ep=4)}, lanes=2, ref=ref,
+        loss_tol=PPM_MOE_LOSS_RTOL)
+    print("%s the first step drops %s of the tokens a layer (capacity "
+          "%.2f); aux losses %s" % (tag, [round(v, 4) for v in dropped],
+                                    PPM["capacity"],
+                                    [round(v, 4) for v in
+                                     rep_e["aux_loss_per_layer"]]))
+    return [("moe_encoder_executor", run_e), ("moe_encoder_dp1_ep4", run_q),
+            ("moe_encoder_dp2_ep4", run_p)], \
+        {"executor": rep_e, "dp1_ep4": rep_q, "dp2_ep4": rep_p,
+         "card": card}
+
+
+def ppm_tp_compute(torch, C, card, ref):
+    """Phase 36 (c): phase 35's bf16 Transformer-base on {"dp": 1, "tp":
+    2} under tp_placement="compute" (weights and their Adam moments on
+    their pieces through the step, each product a piece at a time)
+    against (a)'s Executor run, which the "gather" placement equals bit
+    for bit (phase 35 (c))."""
+    from paddle_tpu_torch.parallel import ShardingPlan
+    tag = "tp compute (c):"
+    E, K = PARALLEL["eager"], PARALLEL["steps"]
+    scope = C.fresh()
+    plan = ShardingPlan.build(C.main, _card_mesh(2, dp=1, tp=2),
+                              tp_axis="tp", tp_placement="compute")
+    pexe = C.pexe(scope, plan=plan)
+    times = []
+
+    def runner(s):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = pexe.run(C.fetch, feed=C.feed, steps=s)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - ts) * 1e3 / s)
+        return out
+
+    moments = {}
+    got, counts = parallel_run(C, runner, scope, E, K, moments)
+    per = parallel_launches(C.main)
+    kinds = collections.Counter(
+        next(iter(pexe._steps.values())).last_ran.values())
+    check(kinds["tp_local"] > 0, "%s no product ran a piece at a time: %s"
+          % (tag, dict(kinds)))
+    res = ppm_close(tag, (ref[0], ref[2]), got, moments)
+    total, replica = state_bytes(torch, scope)
+    runner(K)       # a call that replays the captured step
+    report = dict(res, losses=got, eager_step_ms=times[:E],
+                  median_eager_step_ms=statistics.median(times[1:E]),
+                  steps_k_call_ms_per_step=times[E],
+                  captured_step_ms=times[E + 1],
+                  piecewise_products=kinds["tp_local"],
+                  state_bytes_on_card=total,
+                  state_bytes_per_replica=replica,
+                  launches_per_step=per, card=card)
+    pexe._cache.clear()
+    del scope, pexe
+    torch.cuda.empty_cache()
+    print("%s %d products a piece at a time; the first step's summed "
+          "gradients within %.3e of (a)'s (tolerance %.0e), losses within "
+          "%.2e; eager step ms %s, steps=%d %.2f a step (the capturing "
+          "call), %.2f (a replaying one); state %d bytes on the card, %d a "
+          "replica"
+          % (tag, kinds["tp_local"], res["grad_rel_err"], PPM_GRAD_RTOL,
+             res["loss_rel_err"], [round(v, 1) for v in times[:E]], K,
+             times[E], times[E + 1], total, replica))
+    return (counts, ppm_expected(counts, per, E + K + 1)), report
+
+
+def ppm_remat(torch, fluid, transformer, C, card, ref):
+    """Phase 36 (d): phase 35's bf16 Transformer-base with
+    enable_rematerialization, 4 steps=1 calls and one steps=4 from (a)'s
+    state: losses and state against (a)'s Executor run (bit-equal under
+    deterministic algorithms unless a kernel's bits change on a
+    recompute); max_memory_allocated eager and under steps=4 with and
+    without remat, step ms of each."""
+    from paddle_tpu_torch.core import lowering
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    tag = "remat (d):"
+    E, K = PARALLEL["eager"], PARALLEL["steps"]
+    main_r, _, avg = build_train(fluid, transformer, N_LAYER,
+                                 variant="bf16")
+    fluid.memory_optimization_transpiler.enable_rematerialization(main_r)
+    fetch = [next(op.inputs["X"][0] for op in main_r.global_block().ops
+                  if avg.name in op.all_output_vars()), avg.name]
+    plan, _ = lowering.remat_plan(
+        main_r, [op for op in main_r.global_block().ops
+                 if op.type not in lowering.HOST_IO_OPS], fetch)
+    extra = [op for seg, interior in plan if interior for op in seg]
+    side = {}
+    for name, program in (("remat", main_r), ("plain", C.main)):
+        exe = fluid.Executor(PAR_DEV)
+        scope = C.fresh()
+        eager_n = E if name == "remat" else 2
+        for k0 in lowering.REMAT_COUNTS:
+            lowering.REMAT_COUNTS[k0] = 0
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        at_start = torch.cuda.memory_allocated()
+        losses, ms = [], []
+        for _ in range(eager_n):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            losses += _losses(exe.run(program, feed=C.feed,
+                                      fetch_list=fetch, scope=scope)[1])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - ts) * 1e3)
+        peak_eager = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses += _losses(exe.run(program, feed=C.feed, fetch_list=fetch,
+                                  scope=scope, steps=K)[1])
+        torch.cuda.synchronize()
+        peak_capture = torch.cuda.max_memory_allocated()
+        counts = ck.launch_counts()
+        if name == "remat":
+            state = host_state(scope)
+            rcounts = counts
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        exe.run(program, feed=C.feed, fetch_list=fetch, scope=scope,
+                steps=K)
+        torch.cuda.synchronize()
+        k_ms = (time.perf_counter() - ts) * 1e3 / K
+        side[name] = {
+            "losses": losses, "eager_step_ms": ms,
+            "captured_step_ms": k_ms,
+            "mem_at_start_bytes": at_start,
+            "peak_eager_bytes": peak_eager,
+            "peak_steps4_first_call_bytes": peak_capture,
+            "peak_steps4_replay_bytes": torch.cuda.max_memory_allocated(),
+            "capture_pool_bytes": next(iter(exe._cache.values())).pool_bytes,
+            "remat_counts": dict(lowering.REMAT_COUNTS)}
+        exe._cache.clear()
+        del scope, exe
+        torch.cuda.empty_cache()
+    r = side["remat"]
+    check(r["remat_counts"]["recomputed_segments"] > 0 and
+          r["remat_counts"]["recomputed_segments"] ==
+          r["remat_counts"]["deferred_segments"],
+          "%s segments %s" % (tag, r["remat_counts"]))
+    same, err, at = state_diff(torch, ref[1], state)
+    lerr = max(abs(a - b) / abs(a) for a, b in zip(ref[0], r["losses"]))
+    r.update(bit_equal_to_a=same and r["losses"] == ref[0],
+             state_rel_err=err, state_worst_var=at, loss_rel_err=lerr)
+    if not r["bit_equal_to_a"]:
+        # not bit-equal on the card: held as (b) of phase 35 is, and the
+        # distance reported
+        lim = adam_bound(E + K)
+        worst = max(float((ref[1][n].double() - state[n].double())
+                          .abs().max()) if state[n].numel() else 0.0
+                    for n in ref[1])
+        check(lerr <= PPM_LOSS_RTOL and worst <= lim,
+              "%s losses within %.2e of (a)'s, state within %.3e (bound "
+              "%.3e)" % (tag, lerr, worst, lim))
+        r["state_max_abs"] = worst
+    per = step_launches(C.main)
+    per_r = step_launches(main_r, extra_fwd=extra)
+    steps = E + K + 1
+    expected = dict.fromkeys(rcounts, 0)
+    expected.update({n: per_r[n] * steps for n in per_r})
+    p = side["plain"]
+    print("%s %d segments deferred a step; losses and state %s (a)'s%s; "
+          "max_memory_allocated eager %.2f GB (without remat %.2f), "
+          "steps=%d first call %.2f GB (%.2f), replays %.2f GB (%.2f); "
+          "step ms eager %s (%s), captured %.2f (%.2f); launches a step %s"
+          % (tag, r["remat_counts"]["deferred_segments"] // (E + K + 2),
+             "bit-equal to" if r["bit_equal_to_a"] else "within tolerance "
+             "of", "" if r["bit_equal_to_a"] else
+             " (losses %.2e, state %.2e at %s)" % (lerr, err, at),
+             r["peak_eager_bytes"] / 1e9, p["peak_eager_bytes"] / 1e9, K,
+             r["peak_steps4_first_call_bytes"] / 1e9,
+             p["peak_steps4_first_call_bytes"] / 1e9,
+             r["peak_steps4_replay_bytes"] / 1e9,
+             p["peak_steps4_replay_bytes"] / 1e9,
+             [round(v, 1) for v in r["eager_step_ms"]],
+             [round(v, 1) for v in p["eager_step_ms"]],
+             r["captured_step_ms"], p["captured_step_ms"], per_r))
+    return [("remat_bf16", (rcounts, expected))], \
+        {"remat": r, "plain": p, "launches_per_step": per_r,
+         "launches_per_step_plain": per, "card": card}
+
+
+def run_parallel_programs(torch, card, C, ref):
+    """Phase 36 (see PPM and the module's docstring): the paths and the
+    `parallel_programs_summary:` report. C and ref: phase 35's bf16
+    Transformer-base case and (a)'s Executor run (losses, state, the
+    first step's moments)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    leg_s, legs = {}, [t0]
+
+    def leg(name):
+        legs.append(time.perf_counter())
+        leg_s[name] = legs[-1] - legs[-2]
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        paths, pipe = ppm_pipeline(torch, fluid, transformer, card)
+        leg("a")
+        more, moe_rep = ppm_moe(torch, fluid, transformer, card)
+        paths += more
+        leg("b")
+        run_c, tp = ppm_tp_compute(torch, C, card, ref)
+        paths.append(("tp2_compute", run_c))
+        leg("c")
+        more, remat = ppm_remat(torch, fluid, transformer, C, card, ref)
+        paths += more
+        leg("d")
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    torch.cuda.empty_cache()
+    return paths, {"pipeline": pipe, "moe": moe_rep, "tp_compute": tp,
+                   "remat": remat, "leg_s": leg_s,
+                   "phase_s": time.perf_counter() - t0, "card": card}
 
 
 def main(argv=None):
@@ -10751,10 +11331,16 @@ def main(argv=None):
         paths += resil_paths
         print("resilience_summary: " + json.dumps(resilience))
         lap("resilience")
-        par_paths, parallel = run_parallel(torch, card)
+        par_paths, parallel, (case35, ref35) = run_parallel(torch, card)
         paths += par_paths
         print("parallel_summary: " + json.dumps(parallel))
         lap("parallel")
+        ppm_paths, programs = run_parallel_programs(torch, card, case35,
+                                                    ref35)
+        paths += ppm_paths
+        del case35, ref35
+        print("parallel_programs_summary: " + json.dumps(programs))
+        lap("parallel programs")
         print("clipping_summary: " + json.dumps({
             "fit_a_line": {k: v for k, v in clipping.items() if k != "card"},
             "language_model_clip": {k: lm_clip[k] for k in (

@@ -65,6 +65,9 @@ from . import recordio_writer  # noqa: F401
 from .reader import batch  # noqa: F401
 from . import checkpoint  # noqa: F401
 from .checkpoint import CheckpointManager  # noqa: F401
+from . import memory_optimization_transpiler  # noqa: F401
+from .memory_optimization_transpiler import (memory_optimize,  # noqa: F401
+                                             release_memory)
 from . import parallel  # noqa: F401
 from .parallel import ParallelExecutor  # noqa: F401
 from . import transpiler  # noqa: F401

@@ -753,6 +753,7 @@ class Executor(object):
             env.write(name, _feed_to_device(value, self.device))
         ctx = LowerCtx(program, self.device, run_seed=scope.next_seed(),
                        unread=unread)
+        ctx.remat_keep = frozenset(fetch_names)
         with torch.no_grad():
             lower_block(ctx, program.global_block(), env)
         new_state = {}

@@ -22,7 +22,18 @@ Sub-blocks: a control-flow op (rnn_scan, ops/control_ops.py) runs its
 body through `lower_sub_block`, inside its own rule. The body's ops are
 part of that one op: they run under whatever grad mode the op runs in,
 keep no graphs of their own, and leave the run's `grad_of` table alone.
+
+Rematerialization (memory_optimization_transpiler.enable_rematerialization,
+the JAX package's _lower_block_remat): the forward region of a global
+block with a backward splits into ~sqrt(n)-op segments; a segment whose
+products only the backward reads runs without kept graphs, those products
+leave the Env, and the segment runs again from its boundary values, with
+graphs, at the first backward op that needs it. Below the gate, and
+where no segment pass runs (ParallelExecutor), each differentiated op
+keeps only its inputs and runs again at its grad_of.
 """
+import math
+import os
 import time
 import weakref
 
@@ -95,6 +106,9 @@ class LowerCtx(object):
         # the iteration index of each enclosing loop (rnn_scan pushes its
         # step), folded into every random op's seed
         self._loop_iters = []
+        # other indices folded into the seed that, unlike a loop's, leave
+        # add_error on: the stage of an enclosing pipeline op
+        self._rng_extra = []
         # the While loops enclosing the running op in a step of
         # Executor.run(steps=K) (ops/control_ops._while)
         self.while_depth = 0
@@ -105,6 +119,14 @@ class LowerCtx(object):
         self.grad_stop = {}
         self.saved = {}
         self.op = None
+        # rematerialization: the segment pass is running (its forward
+        # ops of a deferred segment keep no graph while _remat_nograd);
+        # uid -> the deferred segment holding that forward op; names the
+        # pass never defers (the run's fetches)
+        self._segment_pass = False
+        self._remat_nograd = False
+        self.remat = {}
+        self.remat_keep = frozenset()
         # message -> 0-d bool tensor on the run's device: the in-graph
         # assertions, raised on the host after the run (raise_op_errors)
         self.op_errors = {}
@@ -152,12 +174,14 @@ class LowerCtx(object):
         pins the stream independent of the run counter. Inside a loop
         body each enclosing loop's iteration is folded in after that, the
         user seed too (as the JAX package's rng folds its loop stack), so
-        a random op in an RNN step draws anew at every step. The streams
-        are the port's own: they do not reproduce the JAX package's
-        bits."""
+        a random op in an RNN step draws anew at every step; inside a
+        pipeline stage the stage's index is folded in the same way. The
+        streams are the port's own: they do not reproduce the JAX
+        package's bits."""
         self._op_calls += 1
         return self._generator((int(seed), self._op_salt, self._op_calls,
-                                salt, tuple(self._loop_iters)))
+                                salt, tuple(self._rng_extra)
+                                + tuple(self._loop_iters)))
 
     def _generator(self, spec):
         """The generator of one rng call, `spec` its place in the run
@@ -302,8 +326,10 @@ def lower_block(ctx, block, env):
                      for op in block.ops if op.type == "grad_of"}
     # the reader ops ran in the executor's host io pre-pass
     # (core/executor.run_host_io_prepass): their outputs are feeds here
-    for op in block.ops:
-        if op.type not in HOST_IO_OPS:
+    ops = [op for op in block.ops if op.type not in HOST_IO_OPS]
+    if not (getattr(ctx.program, "_rematerialize", False)
+            and not ctx.is_startup and _lower_block_remat(ctx, ops, env)):
+        for op in ops:
             lower_op(ctx, op, env)
     from ..ops.control_ops import TensorArray
     for name, v in list(env.values.items()):
@@ -313,6 +339,184 @@ def lower_block(ctx, block, env):
     sub_err = env.values.get(PROGRAM_ERR)
     if sub_err is not None:
         ctx.add_error(SUB_BLOCK_OVERFLOW, sub_err)
+
+
+# What rematerialization did, summed over runs (tests and chip_smoke.py
+# read it): forward segments run without graphs, segments run again,
+# forward ops run again alone at their grad_of (the per-op form)
+REMAT_COUNTS = {"deferred_segments": 0, "recomputed_segments": 0,
+                "replayed_ops": 0}
+
+
+def remat_segment_len_flag():
+    """FLAGS_remat_segment_len: ops a rematerialized segment (unset: the
+    sqrt(n) default -> None); a value below 4 is taken as 4. Non-numeric
+    values raise, as in the JAX package."""
+    v = os.environ.get("FLAGS_remat_segment_len", "")
+    if not v:
+        return None
+    try:
+        n = int(v)
+    except ValueError:
+        raise ValueError(
+            "FLAGS_remat_segment_len=%r: expected an integer (ops per "
+            "remat segment) or unset" % v)
+    return max(4, n)
+
+
+def _op_reads(program, op):
+    """The names `op` reads, its sub-blocks' reads included."""
+    names = [n for n in op.all_input_vars() if n]
+    for key in ("sub_block", "step_block", "true_block", "false_block"):
+        idx = op.attrs.get(key)
+        if isinstance(idx, int) and 0 < idx < len(program.blocks):
+            for sop in program.blocks[idx].ops:
+                names.extend(_op_reads(program, sop))
+    return names
+
+
+class _Segment(object):
+    """A forward segment the remat pass ran without kept graphs: its ops,
+    the values it read from before it (its boundary), and which of its
+    products the backward's non-grad_of ops read (`restore`)."""
+
+    def __init__(self, ops, boundary, restore):
+        self.ops = ops
+        self.boundary = boundary
+        self.restore = restore
+
+    def recompute(self, ctx, env):
+        """Run the segment again from its boundary, keeping the graphs of
+        its differentiated ops (ctx.saved) for their grad_ofs; its random
+        ops draw their forward bits again (ctx.begin_op seeds from the op)."""
+        if self.boundary is None:
+            return
+        sub = Env(None, (), env._device)
+        sub.values.update(self.boundary)
+        self.boundary = None
+        for op in self.ops:
+            lower_op(ctx, op, sub)
+        for nm in self.restore:
+            env.values[nm] = sub.values[nm]
+        REMAT_COUNTS["recomputed_segments"] += 1
+
+
+def remat_plan(program, ops, keep=()):
+    """The segment plan of rematerializing `ops` (a global block's ops
+    less its host io ops; `keep`: names never deferred, the fetches):
+    None below the gate, else (forward segments as [(ops, interior names
+    or None)], backward ops). A segment with a special op (its sub-block
+    reads the Env wholesale), or with no interior value, gets None: it
+    runs as it would without remat."""
+    first_bwd = None
+    for i, op in enumerate(ops):
+        if op.type == "grad_of" or any(
+                n.endswith(GRAD_SUFFIX) for n in op.all_output_vars() if n):
+            first_bwd = i
+            break
+    if first_bwd is None or first_bwd < 8:
+        return None
+    fwd_ops, bwd_ops = ops[:first_bwd], ops[first_bwd:]
+    writes = {}
+    for op in fwd_ops:
+        for nm in op.all_output_vars():
+            if nm:
+                writes[nm] = writes.get(nm, 0) + 1
+    read_by_bwd = {nm for op in bwd_ops for nm in _op_reads(program, op)}
+    keep = set(keep)
+    keep.update(v.name for v in program.list_vars() if v.persistable)
+    seg_len = remat_segment_len_flag() or max(
+        4, int(math.ceil(math.sqrt(len(fwd_ops)))))
+    segments = [fwd_ops[i:i + seg_len]
+                for i in range(0, len(fwd_ops), seg_len)]
+    seg_reads = [{nm for op in seg for nm in _op_reads(program, op)}
+                 for seg in segments]
+    # names a LATER forward segment reads stay alive (the checkpoints)
+    plan, later = [], set()
+    for k in range(len(segments) - 1, -1, -1):
+        seg = segments[k]
+        interior = None
+        if not any(registry.get(op.type).special for op in seg):
+            interior = {nm for op in seg for nm in op.all_output_vars()
+                        if nm and nm in read_by_bwd and nm not in later
+                        and nm not in keep and writes.get(nm) == 1} or None
+        plan.append((seg, interior))
+        later |= seg_reads[k]
+    plan.reverse()
+    return plan, bwd_ops
+
+
+def _lower_block_remat(ctx, ops, env):
+    """Segment rematerialization of a global block (parity: the JAX
+    package's _lower_block_remat, same gate and segments: remat_plan).
+
+    The forward region (the ops before the first gradient op) splits into
+    segments of ~sqrt(n) ops (FLAGS_remat_segment_len). A segment's
+    interior values are its products that only the backward reads: no
+    later forward segment, no fetch, no persistable, written once. A
+    segment with interior values runs without kept graphs and its interior
+    values leave the Env after it, so only segment boundaries stay alive
+    across the forward -> backward gap; the first backward op that reads
+    one of its values, or is the grad_of of one of its ops, runs it again
+    from its boundary with graphs. Returns False when the block has no
+    backward region of at least 8 forward ops."""
+    program = ctx.program
+    planned = remat_plan(program, ops, ctx.remat_keep)
+    if planned is None:
+        return False
+    segments, bwd_ops = planned
+    read_by_plain_bwd = {nm for op in bwd_ops if op.type != "grad_of"
+                         for nm in _op_reads(program, op)}
+    pending = {}        # interior name -> its segment
+    ctx._segment_pass = True
+    try:
+        for seg, interior in segments:
+            if interior is None:
+                for op in seg:
+                    lower_op(ctx, op, env)
+                continue
+            boundary, written = {}, set()
+            for op in seg:
+                for nm in _op_reads(program, op):
+                    if nm not in written and nm not in boundary:
+                        try:
+                            boundary[nm] = env.read(nm)
+                        except EnvReadError:
+                            pass   # the op itself raises, naming it
+                written.update(n for n in op.all_output_vars() if n)
+            ctx._remat_nograd = True
+            try:
+                for op in seg:
+                    lower_op(ctx, op, env)
+            finally:
+                ctx._remat_nograd = False
+            interior = {nm for nm in interior
+                        if isinstance(env.values.get(nm), torch.Tensor)}
+            record = _Segment(seg, boundary,
+                              sorted(interior & read_by_plain_bwd))
+            for nm in interior:
+                del env.values[nm]
+                pending[nm] = record
+            for op in seg:
+                if op.uid in ctx.grad_stop:
+                    ctx.remat[op.uid] = record
+            REMAT_COUNTS["deferred_segments"] += 1
+        for op in bwd_ops:
+            if registry.is_registered(op.type) and \
+                    registry.get(op.type).special:
+                # a sub-block reads the Env wholesale: every deferred
+                # value back first
+                for record in set(pending.values()):
+                    record.recompute(ctx, env)
+            else:
+                for nm in _op_reads(program, op):
+                    if nm in pending:
+                        pending[nm].recompute(ctx, env)
+            lower_op(ctx, op, env)
+    finally:
+        ctx._segment_pass = False
+        ctx.remat = {}
+    return True
 
 
 def lower_sub_block(ctx, block, env):
@@ -345,7 +549,7 @@ def _lower_op_inner(ctx, op, env):
         _lower_grad_of(ctx, op, env)
         return
     od = registry.get(op.type)
-    stop = ctx.grad_stop.get(op.uid)
+    stop = None if ctx._remat_nograd else ctx.grad_stop.get(op.uid)
     if od.special:
         if stop is not None and op.type not in SPECIAL_GRADS:
             raise NotImplementedError(
@@ -362,8 +566,27 @@ def _lower_op_inner(ctx, op, env):
             ins = _apply_amp(op.type, ins)
         _write_outputs(op, od.lower(ctx, ins, op.attrs), env)
         return
-    # keep this op's local graph for its grad_of: leaves are the float
-    # inputs the gradient may reach (not the program's no-grad names)
+    if getattr(ctx.program, "_rematerialize", False) and \
+            not ctx._segment_pass and not ctx.is_startup:
+        # rematerialization, one op (the JAX package's per-op
+        # jax.checkpoint): keep the inputs only, run again at the grad_of
+        outs = od.lower(ctx, _apply_amp(op.type, ins) if ctx.amp else ins,
+                        op.attrs)
+        _write_outputs(op, outs, env)
+        ctx.saved[op.uid] = _Replay(op, ins, stop)
+        return
+    leaves, kept, outs = _run_kept(ctx, op, ins, stop)
+    ctx.saved[op.uid] = (leaves, kept)
+    _write_outputs(op, {slot: [v.detach() if v is not None else v
+                               for v in vals]
+                        for slot, vals in outs.items()}, env)
+
+
+def _run_kept(ctx, op, ins, stop):
+    """Run `op`'s rule keeping its local graph: (leaves, kept outputs,
+    outs). The leaves are the float inputs the gradient may reach (not
+    the program's no-grad names), detached copies that require grad."""
+    ins = {slot: list(vals) for slot, vals in ins.items()}
     leaves = {}
     for slot, names in op.inputs.items():
         for i, name in enumerate(names):
@@ -374,16 +597,33 @@ def _lower_op_inner(ctx, op, env):
     with torch.enable_grad():
         if ctx.amp:
             ins = _apply_amp(op.type, ins)
-        outs = od.lower(ctx, ins, op.attrs)
+        outs = registry.get(op.type).lower(ctx, ins, op.attrs)
     kept = {}
     for slot, names in op.outputs.items():
         for name, val in zip(names, outs.get(slot) or ()):
             if name and val is not None and val.requires_grad:
                 kept[name] = val
-    ctx.saved[op.uid] = (leaves, kept)
-    _write_outputs(op, {slot: [v.detach() if v is not None else v
-                               for v in vals]
-                        for slot, vals in outs.items()}, env)
+    return leaves, kept, outs
+
+
+class _Replay(object):
+    """A forward op run without its graph under rematerialization: its
+    inputs, run again with the graph at its grad_of."""
+
+    def __init__(self, op, ins, stop):
+        self.op, self.ins, self.stop = op, ins, stop
+
+    def run(self, ctx):
+        op = self.op
+        outer = ctx.op
+        ctx.op = op
+        ctx.begin_op(op.uid, op.outputs)
+        try:
+            leaves, kept, _ = _run_kept(ctx, op, self.ins, self.stop)
+        finally:
+            ctx.op = outer
+        REMAT_COUNTS["replayed_ops"] += 1
+        return leaves, kept
 
 
 def _write_outputs(op, outs, env):
@@ -425,10 +665,13 @@ def _lower_grad_of(ctx, op, env):
         SPECIAL_GRADS[fwd_type]["fn"](ctx, op, env)
         return
     uid = op.attrs["fwd_uid"]
+    if uid not in ctx.saved and uid in ctx.remat:
+        ctx.remat[uid].recompute(ctx, env)
     if uid not in ctx.saved:
         raise RuntimeError("grad_of %r (fwd uid %d): the forward op kept no "
                            "graph in this run" % (fwd_type, uid))
-    leaves, kept = ctx.saved.pop(uid)
+    entry = ctx.saved.pop(uid)
+    leaves, kept = entry.run(ctx) if isinstance(entry, _Replay) else entry
     fwd_inputs = op.attrs["fwd_inputs"]
     outs, cots = [], []
     for slot, names in sorted(op.attrs["fwd_outputs"].items()):
@@ -804,9 +1047,11 @@ class MultiStepRunner(object):
 
     # ------------------------------------------------------------- step --
     def _ctx(self, run_seed, gens=None):
-        return _StepCtx(self.program, self.device, run_seed, self.unread,
-                        gens, while_state=self._while_state,
-                        constants=self._constants)
+        ctx = _StepCtx(self.program, self.device, run_seed, self.unread,
+                       gens, while_state=self._while_state,
+                       constants=self._constants)
+        ctx.remat_keep = frozenset(self.fetch_names)
+        return ctx
 
     def _step(self, ctx, copy_back):
         """One step over the buffers under `ctx`: returns (fetches, new

@@ -23,6 +23,7 @@ from .sequence import (beam_search, beam_search_decode,  # noqa: F401
                        sequence_last_step, sequence_pool, sequence_reshape,
                        sequence_softmax)
 from .extras import sequence_concat, sequence_slice  # noqa: F401
+from .parallel_layers import pipelined_stack, switch_moe  # noqa: F401
 from .control_flow import (ConditionalBlock, DynamicRNN,  # noqa: F401
                            IfElse, Print, StaticRNN, Switch, While,
                            WhileGuard, array_length, array_read,

@@ -1,0 +1,266 @@
+"""Fluid layers for the parallel subsystems: pipelined_stack (PP) and
+switch_moe (EP).
+
+Parity: the JAX package's layers/parallel_layers.py, whose build-time
+checks and program bytes these keep. Build the model with them like any
+other layer, train it with Executor on one device (the stages one after
+the other, the experts on one device), and hand the same Program to
+ParallelExecutor with a mesh carrying a 'pp' / 'ep' axis for the looped
+microbatch schedule / the expert products split over the axis
+(ops/parallel_ops.py). The reference era (mozga-intel/Paddle, 2018)
+predates both; its only partitioning is the pserver parameter split
+(python/paddle/fluid/distribute_transpiler.py).
+"""
+from ..core.framework import Variable
+from ..core.layer_helper import LayerHelper
+from ..core.param_attr import ParamAttr
+from ..core import unique_name
+
+__all__ = ["pipelined_stack", "switch_moe"]
+
+
+def _freeze(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    return v
+
+
+def _block_sig(program, block, canon=None):
+    """Structural signature of a stage sub-block: op types, attrs, AND
+    dataflow wiring (recursing into nested sub-blocks, whose indices
+    differ per stage even when their contents match). Execution always
+    uses stage 0's template, so ANY divergence across stages — attrs
+    (fc(act='relu') vs 'tanh') or topology (fc(fc(x)) vs fc(x)) — must be
+    a build error, not silent stage-0 math. Wiring is compared through
+    first-seen canonical ids, so the generated var names themselves may
+    legitimately differ per stage."""
+    canon = {} if canon is None else canon
+
+    def cid(n):
+        if n not in canon:
+            canon[n] = len(canon)
+        return canon[n]
+
+    sig = []
+    for op in block.ops:
+        attrs = []
+        for k in sorted(op.attrs):
+            if k == "sub_block":
+                idx = op.attrs[k]
+                attrs.append((k, _block_sig(program, program.blocks[idx],
+                                            canon)))
+            elif k.endswith(("_name", "_names")):
+                # binding metadata holds per-stage generated var names
+                # (rnn_scan in_names, conditional out_names, ...); their
+                # wiring is canonicalized like op input/output names
+                v = op.attrs[k]
+                names = v if isinstance(v, (list, tuple)) else [v]
+                attrs.append((k, tuple(cid(x) for x in names
+                                       if isinstance(x, str))))
+            else:
+                attrs.append((k, _freeze(op.attrs[k])))
+        wiring = tuple(
+            (kind, slot, tuple(cid(n) for n in names if n))
+            for kind, slots in (("in", op.inputs), ("out", op.outputs))
+            for slot, names in sorted(slots.items()))
+        sig.append((op.type, tuple(attrs), wiring))
+    return tuple(sig)
+
+
+def _check_stage_block(program, blk, avail, s):
+    """Validate one stage sub-block (recursively): every read resolves
+    inside the stage, and nothing writes persistable state. Nested
+    sub-block lowerings bind their own placeholder names via *_name(s)
+    attrs (rnn_scan in_names/pre_names/..., conditional out_names);
+    those count as available inside the nested block."""
+    for op in blk.ops:
+        for n in op.all_input_vars():
+            if n and n not in avail:
+                raise ValueError(
+                    "pipeline stage %d op %r reads %r from outside the "
+                    "stage; stages must be self-contained (only their "
+                    "own parameters and the stage input)" % (s, op.type, n))
+        bound = set()
+        for k, v in op.attrs.items():
+            if k.endswith("_names") and isinstance(v, (list, tuple)):
+                bound.update(x for x in v if isinstance(x, str))
+            elif k.endswith("_name") and isinstance(v, str):
+                bound.add(v)
+        idx = op.attrs.get("sub_block")
+        if isinstance(idx, int):
+            _check_stage_block(program, program.blocks[idx],
+                               avail | bound, s)
+        for n in op.all_output_vars():
+            if not n:
+                continue
+            v = blk.var_recursive(n) if blk.has_var_recursive(n) else None
+            if v is not None and getattr(v, "persistable", False):
+                raise ValueError(
+                    "pipeline stage %d op %r writes persistable %r; "
+                    "stages must be stateless (no in-stage batch_norm "
+                    "stat updates)" % (s, op.type, n))
+            avail.add(n)
+
+
+def pipelined_stack(input, num_stages, build_stage, num_microbatches=None,
+                    name=None):
+    """Run `input` through `num_stages` copies of a builder-defined stage,
+    as ONE `pipeline` op (lowering: ops/parallel_ops.py).
+
+    build_stage(x) -> y is called once per stage inside its own sub-block;
+    parameters it creates become that stage's private weights (stage s
+    gets an independent init draw). Stages must be homogeneous — same op
+    sequence and parameter shapes — and shape-preserving (y.shape ==
+    x.shape), the classic pipeline regime (e.g. a transformer encoder
+    layer, a resnet block stack at fixed width).
+
+    Execution:
+      * Executor / mesh without a 'pp' axis: the stages run one after
+        the other over the whole batch.
+      * ParallelExecutor with mesh {'pp': num_stages, ...}: the GPipe
+        looped schedule of parallel/pipeline.py over num_microbatches
+        microbatches (default num_stages), stage s taking microbatch
+        t - s at tick t; on a dp axis each batch shard runs its own
+        schedule when every op of the stage is batch-local.
+    Fully differentiable (the op's grad_of differentiates its kept graph
+    through every stage).
+
+    Constraints (checked at build time): stages may not write persistable
+    state (no batch_norm stat updates inside a stage), may not read
+    variables from outside the stage other than their own parameters, and
+    must consume/produce plain dense tensors. Random ops inside a stage
+    draw per-stage (not per-microbatch) keys.
+    """
+    if not isinstance(input, Variable):
+        raise TypeError("pipelined_stack input must be a Variable")
+    if int(num_stages) < 1:
+        raise ValueError("pipelined_stack needs num_stages >= 1, got %r"
+                         % (num_stages,))
+    helper = LayerHelper("pipeline", name=name)
+    main = helper.main_program
+    gb = main.global_block()
+
+    stage_params = []      # [ [param names] per stage ]
+    stage_sigs = []        # op-type sequences, for the homogeneity check
+    sub0 = None
+    in_name = out_name = None
+
+    for s in range(num_stages):
+        before = [p.name for p in gb.all_parameters()]
+        blk = main.create_block()
+        try:
+            ph = blk.create_var(
+                name=unique_name.generate("pipeline_stage_in"),
+                dtype=input.dtype, shape=input.shape)
+            out_v = build_stage(ph)
+        finally:
+            main.rollback()
+        if not isinstance(out_v, Variable):
+            raise TypeError("build_stage must return a Variable")
+        if out_v.dtype != input.dtype or (
+                out_v.shape is not None and input.shape is not None
+                and tuple(out_v.shape) != tuple(input.shape)):
+            raise ValueError(
+                "pipeline stages must be shape-preserving: stage %d maps "
+                "%s %s -> %s %s" % (s, input.shape, input.dtype,
+                                    out_v.shape, out_v.dtype))
+        seen = set(before)
+        new_params = [p.name for p in gb.all_parameters()
+                      if p.name not in seen]
+        # self-containment: reads resolve to the placeholder, the stage's
+        # own params, or values produced earlier in the stage (recursing
+        # into nested control-flow sub-blocks)
+        _check_stage_block(main, blk, {ph.name} | set(new_params), s)
+        if not new_params:
+            raise ValueError(
+                "pipeline stage %d creates no parameters; per-stage "
+                "weights are what pipeline parallelism distributes — a "
+                "parameterless transform belongs inline, not in "
+                "pipelined_stack" % s)
+        stage_params.append(new_params)
+        stage_sigs.append(_block_sig(main, blk))
+        if s == 0:
+            sub0, in_name, out_name = blk, ph.name, out_v.name
+        else:
+            if stage_sigs[s] != stage_sigs[0]:
+                raise ValueError(
+                    "pipeline stages are not homogeneous (op types/attrs "
+                    "differ between stage %d and stage 0; every stage "
+                    "executes stage 0's template, so divergence would be "
+                    "silently ignored): %s vs %s"
+                    % (s, stage_sigs[s], stage_sigs[0]))
+            if len(new_params) != len(stage_params[0]):
+                raise ValueError(
+                    "pipeline stage %d created %d parameters but stage 0 "
+                    "created %d" % (s, len(new_params),
+                                    len(stage_params[0])))
+            for a, b in zip(stage_params[0], new_params):
+                sa, sb = gb.var(a).shape, gb.var(b).shape
+                if tuple(sa or ()) != tuple(sb or ()):
+                    raise ValueError(
+                        "pipeline stage %d param %r shape %s != stage 0 "
+                        "param %r shape %s" % (s, b, sb, a, sa))
+
+    M = int(num_microbatches) if num_microbatches else 0
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="pipeline",
+        inputs={"X": [input],
+                "StageParams": [n for ps in stage_params for n in ps]},
+        outputs={"Out": [out]},
+        attrs={"sub_block": sub0.idx, "num_stages": int(num_stages),
+               "params_per_stage": len(stage_params[0]),
+               "param_names": list(stage_params[0]),
+               "in_name": in_name, "out_name": out_name,
+               "num_microbatches": M})
+    return out
+
+
+def switch_moe(input, num_experts, d_hidden, capacity_factor=1.25,
+               param_attr=None, name=None):
+    """Top-1 switch mixture-of-experts FFN (lowering: ops/parallel_ops.py
+    -> parallel/moe.py moe_layer). input [..., D] -> (out [..., D],
+    aux_loss [1]).
+
+    Each token routes to its argmax expert (fixed capacity
+    ceil(N/E * capacity_factor); overflow tokens pass through with zero
+    expert output). aux_loss is the GShard load-balance term — add a small
+    multiple to the training loss. Under ParallelExecutor with a mesh
+    carrying an 'ep' axis the expert products split over its replicas;
+    the routing always sees the whole batch (its capacity couples every
+    token).
+    """
+    helper = LayerHelper("moe", name=name)
+    dtype = input.dtype
+    d = int(input.shape[-1])
+    e, h = int(num_experts), int(d_hidden)
+    base = ParamAttr.to_attr(param_attr)
+    if base is False:
+        raise ValueError("switch_moe requires parameters")
+
+    def attr(suffix, shape, is_bias=False):
+        a = ParamAttr(
+            name=(base.name + "." + suffix) if base.name else None,
+            initializer=base.initializer,
+            learning_rate=base.learning_rate,
+            regularizer=base.regularizer, trainable=base.trainable,
+            gradient_clip=base.gradient_clip)
+        return helper.create_parameter(attr=a, shape=shape, dtype=dtype,
+                                       is_bias=is_bias)
+
+    gate = attr("gate", [d, e])
+    w1 = attr("w1", [e, d, h])
+    b1 = attr("b1", [e, h], is_bias=True)
+    w2 = attr("w2", [e, h, d])
+    b2 = attr("b2", [e, d], is_bias=True)
+    out = helper.create_variable_for_type_inference(dtype)
+    aux = helper.create_variable_for_type_inference("float32")
+    helper.append_op(
+        type="moe",
+        inputs={"X": [input], "Gate": [gate], "W1": [w1], "B1": [b1],
+                "W2": [w2], "B2": [b2]},
+        outputs={"Out": [out], "AuxLoss": [aux]},
+        attrs={"capacity_factor": float(capacity_factor)})
+    return out, aux

@@ -1,0 +1,122 @@
+"""Memory optimization: liveness analysis and rematerialization control.
+
+Parity: python/paddle/fluid/memory_optimization_transpiler.py and the JAX
+package's module of the same name. The reference rewrites the program to
+reuse variable buffers from a dataflow liveness analysis
+(ControlFlowGraph with live_in / live_out). The port runs op by op over
+PyTorch's caching allocator, which hands a freed block to the next
+tensor of a fitting size, so renaming vars would change nothing about
+which memory is reused. This module therefore:
+
+- runs the same liveness analysis and returns / prints the reuse report
+  (`memory_optimize(program, print_log=True)`), the JAX package's tuples
+  for the same program;
+- `enable_rematerialization(program)` marks the program so the
+  interpreter drops the activations of forward segments that only the
+  backward reads and recomputes each segment at its first gradient
+  (core/lowering.py): the memory lever for a training step that does not
+  fit the card.
+"""
+import numpy as np
+
+__all__ = ["memory_optimize", "release_memory", "enable_rematerialization"]
+
+
+_PROCESSED_FLAG = "__memopt_analyzed__"
+
+
+class ControlFlowGraph(object):
+    """Backward liveness over a block's op list (straight-line; sub-blocks
+    are handled by their own pass, like the reference's sub_block walk)."""
+
+    def __init__(self, block, skip_grads=False):
+        self.block = block
+        self.ops = [op for op in block.ops]
+        self.uses = []
+        self.defs = []
+        for op in self.ops:
+            u = {n for ns in op.inputs.values() for n in ns if n}
+            d = {n for ns in op.outputs.values() for n in ns if n}
+            if skip_grads:
+                u = {n for n in u if "@GRAD" not in n}
+                d = {n for n in d if "@GRAD" not in n}
+            self.uses.append(u)
+            self.defs.append(d)
+
+    def liveness(self):
+        """(live_in, live_out): one set of names per op, iterated to the
+        fixed point."""
+        n = len(self.ops)
+        live_in = [set() for _ in range(n)]
+        live_out = [set() for _ in range(n)]
+        changed = True
+        while changed:
+            changed = False
+            for i in range(n - 1, -1, -1):
+                out = live_in[i + 1] if i + 1 < n else set()
+                inn = self.uses[i] | (out - self.defs[i])
+                if out != live_out[i] or inn != live_in[i]:
+                    live_out[i], live_in[i] = out, inn
+                    changed = True
+        return live_in, live_out
+
+
+def _var_bytes(block, name):
+    var = block.var_recursive(name) if block.has_var_recursive(name) else None
+    if var is None or var.shape is None:
+        return 0
+    numel = 1
+    for d in var.shape:
+        numel *= abs(int(d)) if d != -1 else 1
+    return numel * np.dtype(var.dtype or "float32").itemsize
+
+
+def memory_optimize(input_program, print_log=False, level=0):
+    """Liveness-based reuse report.
+
+    Returns a list of (dead_var, reused_for, op_index, bytes) tuples: the
+    reuse pairs the reference transpiler would create."""
+    report = []
+    for block in input_program.blocks:
+        cfg = ControlFlowGraph(block)
+        live_in, live_out = cfg.liveness()
+        free_pool = []  # (name, bytes, op index it died at)
+        for i, op in enumerate(cfg.ops):
+            # vars that die after this op are reusable
+            dead = (live_in[i] | cfg.defs[i]) - live_out[i]
+            for name in sorted(dead):
+                b = _var_bytes(block, name)
+                if b > 0:
+                    free_pool.append((name, b, i))
+            for out in sorted(cfg.defs[i] & live_out[i]):
+                want = _var_bytes(block, out)
+                for j, (cand, b, died_at) in enumerate(free_pool):
+                    if b >= want > 0 and cand != out:
+                        report.append((cand, out, i, want))
+                        free_pool.pop(j)
+                        break
+    input_program.__dict__[_PROCESSED_FLAG] = True
+    if print_log:
+        total = sum(r[3] for r in report)
+        print("memory_optimize: %d reuse pairs, ~%.1f MB coalesced "
+              "(the caching allocator reuses freed blocks the same way)"
+              % (len(report), total / 1e6))
+        for cand, out, i, b in report[:50]:
+            print("  op#%-4d %s -> %s (%d bytes)" % (i, cand, out, b))
+    return report
+
+
+def release_memory(input_program):
+    """Parity stub: the reference inserts delete_var ops; here a tensor
+    no op, Env or kept graph refers to goes back to the caching
+    allocator when its last reference does."""
+    return input_program
+
+
+def enable_rematerialization(program):
+    """Mark the program so its run drops the activations of forward
+    segments that only the backward reads and recomputes them at the
+    segment's first gradient (core/lowering.py)."""
+    program._rematerialize = True
+    program._bump_version()  # a runner built before keeps no segments
+    return program

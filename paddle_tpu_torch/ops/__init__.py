@@ -6,6 +6,7 @@ from . import ctc_ops  # noqa: F401
 from . import guard_ops  # noqa: F401
 from . import nn_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import parallel_ops  # noqa: F401
 from . import quant_ops  # noqa: F401
 from . import sequence_ops  # noqa: F401
 from . import tail_ops  # noqa: F401

@@ -24,13 +24,21 @@ block once; each op runs in one of four ways:
   * replicated — an op with no batch-sharded input (the optimizer, the
     LR schedule): it runs once per device, its outputs shared by the
     replicas on that device;
-  * sharded update — an optimizer rule over a ZeRO-placed param: it runs
-    on each owner's shard of the param, its gradient and accumulators.
+  * sharded update — an optimizer rule over a ZeRO-placed param (or a
+    "compute"-placed tensor-parallel one): it runs on each owner's shard
+    of the param, its gradient and accumulators;
+  * piece-wise product — under tp_placement="compute", a mul / matmul
+    whose weight the plan splits over the tp axis: it runs once a piece
+    of the weight (column-parallel: output columns, concatenated;
+    row-parallel: partial products over the input's slice, summed over
+    tp), and the weight's gradient lands on its pieces.
 A replicated input's gradient from a local op is a partial sum; it is
 summed over the batch axis only (never averaged: `mean` is global), where
 GSPMD would insert the all-reduce, when something reads it. An op the
 analysis cannot place (a control-flow op reading batch-sharded vars)
-raises at construction, naming it.
+raises at construction, naming it. A `pipeline` op is batch-local when
+every op of its stage is (each batch shard then runs its own microbatch
+schedule); a `moe` op is global (its capacity counts the whole batch).
 
 Transport. Replicas that share a device combine with torch ops (cat,
 add, narrow). Distinct cards, and the size-1 mesh on a card, combine
@@ -40,7 +48,8 @@ multi-replica step into one CUDA graph (core/lowering.MultiStepRunner);
 over distinct cards it raises GraphCaptureError. Sequence parallelism
 ('sp', fused_attention's ring or Ulysses exchange) reproduces the JAX
 package's semantics on replicas that share a device; over distinct cards
-it raises, since nothing would be split between them yet.
+it raises, since nothing would be split between them yet, and so do 'pp'
+and 'ep' axes and "compute" tensor parallelism.
 
 State. The scope holds a var the plan splits as a core/sharded.
 ShardedValue (per-replica pieces plus the spec); every reader of the
@@ -63,11 +72,11 @@ from ..core.framework import GRAD_SUFFIX, default_main_program, find_var
 from ..core.lowering import (FETCH_REDUCE_POLICIES, ARRAY_OVERFLOW,
                              PROGRAM_ERR, SUB_BLOCK_OVERFLOW, Env,
                              GraphCaptureError, LowerCtx, MultiStepRunner,
-                             _StepCtx, analyze_state, fold_error, lower_op,
-                             unread_outputs)
+                             _StepCtx, _apply_amp, analyze_state,
+                             fold_error, lower_op, unread_outputs)
 from ..core.readers import HOST_IO_OPS
 from ..core.sharded import (ShardedValue, mesh_coords, piece_index,
-                            spec_is_sharded, take_piece)
+                            spec_axes, spec_is_sharded, take_piece)
 from .mesh import data_parallel_mesh
 from .plan import ShardingPlan
 
@@ -84,7 +93,16 @@ UPDATE_OPS = frozenset([
 # the whole batch: they run on the gathered batch
 GLOBAL_OPS = frozenset([
     "mean", "batch_norm", "accuracy", "auc", "chunk_eval", "gather",
-    "scatter", "precision_recall", "positive_negative_pair"])
+    "scatter", "precision_recall", "positive_negative_pair",
+    # the expert capacity and each token's place in its expert's queue
+    # count every token of the batch: per-shard routing keeps and drops
+    # other tokens
+    "moe"])
+
+# the ops "compute" tensor parallelism runs on a parameter's tp pieces
+# (their Y input): column-parallel (outputs concatenated) or
+# row-parallel (partial products summed over tp)
+TP_PRODUCT_OPS = frozenset(["mul", "matmul"])
 
 # attrs that name a dim of the op's input: one naming dim 0 of a
 # batch-sharded input makes the op global
@@ -180,6 +198,8 @@ def _classify(program, op, sharded, dp, lead):
         return "local"
     od = registry.get(op.type)
     ins = [n for n in op.all_input_vars() if n]
+    if op.type == "pipeline" and not _stages_local(program, op, dp, lead):
+        return "global"
     if od.special:
         reads = set(ins) | set(_sub_block_reads(program, op))
         raise ParallelPlacementError(
@@ -204,6 +224,30 @@ def _classify(program, op, sharded, dp, lead):
         if n and lead(n) is not True:
             return "global"
     return "local"
+
+
+def _stages_local(program, op, dp, lead):
+    """Whether a `pipeline` op can run on each batch shard apart (its
+    microbatches then split the shard's rows, as the JAX package's
+    batch_axis='dp' splits each microbatch): every op of its template
+    stage that reads the stage input, or a value made from it, is
+    batch-local."""
+    sub = program.blocks[op.attrs["sub_block"]]
+    sharded = {op.attrs["in_name"]}
+    for sop in sub.ops:
+        od = registry.get(sop.type)
+        reads = set(n for n in sop.all_input_vars() if n)
+        if od.special:
+            reads |= set(_sub_block_reads(program, sop))
+        if not reads & sharded:
+            continue
+        if od.special or \
+                _classify(program, sop, sharded, dp, lead) != "local":
+            return False
+        for n in sop.all_output_vars():
+            if n and lead(n) is True:
+                sharded.add(n)
+    return True
 
 
 def analyze_batch_placement(program, dp, sharded_feeds):
@@ -296,6 +340,19 @@ class _ParallelStep(object):
                 "of ROADMAP A10's second half); put every replica of the "
                 "'sp' axis on one device"
                 % [str(d) for d in mesh.distinct_devices()])
+        for axis, op_type, what in (("pp", "pipeline", "pipeline stages"),
+                                    ("ep", "moe", "expert groups")):
+            if not self.single_device and \
+                    int(mesh.shape.get(axis, 1)) > 1 and \
+                    any(op.type == op_type for blk in program.blocks
+                        for op in blk.ops):
+                raise NotImplementedError(
+                    "ParallelExecutor: a %r axis over distinct cards (%s) "
+                    "is not distributed yet: its %s would each run on "
+                    "every card (ROADMAP §A item 5); put every replica "
+                    "of the %r axis on one device"
+                    % (axis, [str(d) for d in mesh.distinct_devices()],
+                       what, axis))
         if self.single_device:
             self.lanes = [_Lane(i, i, devs[0]) for i in range(self.dp)]
             self.lane_of_replica = [c.get(batch_axis, 0)
@@ -329,10 +386,32 @@ class _ParallelStep(object):
             if n in self.sharded_specs and (e.kind == "param"
                                             or n in gather))
         self.nccl_calls = 0     # the newest run's NCCL calls
+        self.last_ran = {}
+        # "compute" tensor parallelism: its params stay on their tp
+        # pieces (no gather at entry), the products that read them run
+        # a piece at a time (TP_PRODUCT_OPS), and their update runs on
+        # the pieces
+        self.tp_params = set()
+        tp_axis = plan.tp_axis
+        if tp_axis and plan.tp_placement == "compute" and \
+                int(mesh.shape.get(tp_axis, 1)) > 1:
+            if not self.single_device:
+                raise NotImplementedError(
+                    "ParallelExecutor: tp_placement='compute' over distinct "
+                    "cards (%s) is not distributed yet (ROADMAP §A item "
+                    "5); put every replica on one device, or build the "
+                    "plan with tp_placement='gather'"
+                    % [str(d) for d in mesh.distinct_devices()])
+            self.tp_params = set(
+                n for n, e in plan.entries.items()
+                if e.kind == "param" and n in self.sharded_specs
+                and plan._spec_uses_tp(e.spec))
+            self.entry_gather -= self.tp_params
         # params whose update runs on the owner's shard
         self.zero_params = set(
             n for n in self.entry_gather
-            if plan.entries[n].kind == "param" and n not in gather)
+            if plan.entries[n].kind == "param" and n not in gather) \
+            | self.tp_params
 
     # ----------------------------------------------------------- state --
     def load_state(self, scope, name):
@@ -505,6 +584,10 @@ class _ParallelStep(object):
         if op.type == "grad_of":
             self._exec_grad(op)
             return
+        mode = self._tp_mode(op)
+        if mode is not None:
+            self._exec_tp(op, mode)
+            return
         names = [n for n in op.all_input_vars() if n]
         zup = op.type in UPDATE_OPS and \
             (op.inputs.get("Param") or [None])[0] in self.zero_params
@@ -572,6 +655,178 @@ class _ParallelStep(object):
         for n in outs:
             self.place[n] = "S" if self.lead(n) is True else "R"
 
+    # ------------------------------------------- "compute" tensor par --
+    def _tp_mode(self, op):
+        """'col' or 'row' when `op` is a product over a "compute"-placed
+        tensor-parallel weight it can run a piece at a time, else None."""
+        if op.type not in TP_PRODUCT_OPS or not self.tp_params:
+            return None
+        y = (op.inputs.get("Y") or [None])[0]
+        if y not in self.tp_params or self.place.get(y) != "Z" or \
+                len(op.inputs.get("X") or ()) != 1:
+            return None
+        if op.type == "matmul" and (op.attrs.get("transpose_X") or
+                                    op.attrs.get("transpose_Y")):
+            return None
+        if op.type == "mul" and int(op.attrs.get("y_num_col_dims", 1)) != 1:
+            return None
+        if len(self.zshape[y]) != 2:
+            return None
+        axes = (spec_axes(self.zspec[y]) + [(), ()])[:2]
+        tp = (self.plan.tp_axis,)
+        return {((), tp): "col", (tp, ()): "row"}.get(tuple(axes))
+
+    def _tp_pieces(self, y):
+        """The distinct pieces of Z-placed `y` in order along its split
+        dim: [(piece index, replicas holding it, tensor)]."""
+        units = sorted(self._units(self.zspec[y]), key=lambda u: u[0])
+        return [(idx, reps, self.zv[y][reps[0]]) for idx, _, reps in units]
+
+    @staticmethod
+    def _row_part(op, x, j, n):
+        """Piece j of n of x's contracted dim (the dims the op flattens
+        into the product's K)."""
+        k = int(op.attrs.get("x_num_col_dims", 1)) if op.type == "mul" \
+            else x.dim() - 1
+        lead = tuple(x.shape[:k])
+        flat = x.reshape(lead + (-1,))
+        step = flat.shape[-1] // n
+        return flat.narrow(-1, j * step, step)
+
+    def _exec_tp(self, op, mode):
+        """A product over a "compute"-placed weight: each tp piece of the
+        weight with the whole input (column-parallel: the output's
+        columns, concatenated) or with the matching slice of the input's
+        contracted dim (row-parallel: partial products, summed over tp in
+        piece order, the Megatron all-reduce). A differentiated product
+        keeps (input, pieces, output) a lane for its grad_of."""
+        x = op.inputs["X"][0]
+        y = op.inputs["Y"][0]
+        out = op.outputs["Out"][0]
+        if self.place.get(x) in ("P", "Z"):
+            self._to_R(x)
+        local = self.place.get(x) == "S"
+        pieces = [p for _, _, p in self._tp_pieces(y)]
+        od = registry.get(op.type)
+        lanes = [ln.index for ln in self.lanes] if local else self.rep_lanes
+        for li in lanes:
+            ctx, env = self.ctxs[li], self.envs[li]
+            stop = ctx.grad_stop.get(op.uid)
+            xv = env.values[x]
+            ctx.begin_op(op.uid, op.outputs)
+            keep = stop is not None
+            if keep:
+                if xv.is_floating_point() and x not in stop:
+                    xv = xv.detach().requires_grad_(True)
+                ps = [p.detach().requires_grad_(y not in stop)
+                      for p in pieces]
+            else:
+                ps = pieces
+            with torch.enable_grad() if keep else torch.no_grad():
+                parts = []
+                for j, p in enumerate(ps):
+                    xin = xv if mode == "col" else \
+                        self._row_part(op, xv, j, len(ps))
+                    ins = {"X": [xin], "Y": [p]}
+                    if ctx.amp:
+                        ins = _apply_amp(op.type, ins)
+                    parts.append(od.lower(ctx, ins, op.attrs)["Out"][0])
+                if mode == "col":
+                    val = torch.cat(parts, -1)
+                else:
+                    val = parts[0]
+                    for part in parts[1:]:
+                        val = val + part
+            if keep:
+                self.tp_saved[(li, op.uid)] = (xv, ps, val)
+            env.values[out] = val.detach()
+        if local:
+            self.place[out] = "S"
+        else:
+            for ln, env in zip(self.lanes, self.envs):
+                env.values[out] = self.envs[ln.rep].values[out]
+            self.place[out] = "R"
+        self.ran[op.uid] = "tp_local" if local else "tp_rep"
+
+    def _exec_tp_grad(self, op, kind):
+        """The grad_of of a piece-wise product: its input's gradient as a
+        local (or replicated) op's, the weight's as Z pieces summed over
+        the batch axis (each piece on the replicas that hold it)."""
+        uid = op.attrs["fwd_uid"]
+        x = op.attrs["fwd_inputs"]["X"][0]
+        y = op.attrs["fwd_inputs"]["Y"][0]
+        out = op.attrs["fwd_outputs"]["Out"][0]
+        go = out + GRAD_SUFFIX
+        if go not in self.envs[0].values:
+            return
+        local = kind == "tp_local"
+        if self.place.get(go) in ("P", "Z") or (
+                not local and self.place.get(go) == "S"):
+            self._to_R(go)
+        v = self.envs[0].values[go]
+        if local and self.place.get(go) == "R" and v.dim() and \
+                v.shape[0] > 1:
+            for ln, env in zip(self.lanes, self.envs):
+                env.values[go] = self._rows(env.values[go], ln)
+            self.place[go] = "S"
+        gx, gy = x + GRAD_SUFFIX, y + GRAD_SUFFIX
+        if local and self.place.get(x) != "S" and self.place.get(gx) == "R":
+            self._r_to_p(gx)
+        lanes = [ln.index for ln in self.lanes] if local else self.rep_lanes
+        piece_sums, xgrads = None, {}
+        for li in lanes:
+            xv, ps, val = self.tp_saved.pop((li, uid))
+            g = self.envs[li].values[go].to(val.dtype)
+            if g.shape != val.shape:
+                g = g.broadcast_to(val.shape)
+            targets = ([xv] if xv.requires_grad else []) + \
+                [p for p in ps if p.requires_grad]
+            grads = list(torch.autograd.grad(val, targets, g,
+                                             allow_unused=True))
+            if xv.requires_grad:
+                gv = grads.pop(0)
+                xgrads[li] = gv if gv is not None else torch.zeros_like(xv)
+            if grads:
+                grads = [gp if gp is not None else torch.zeros_like(p)
+                         for gp, p in zip(grads, ps)]
+                piece_sums = grads if piece_sums is None else \
+                    [a + b for a, b in zip(piece_sums, grads)]
+        if xgrads:
+            if local:
+                for li, gv in xgrads.items():
+                    self.envs[li].accumulate(gx, gv)
+                self.place[gx] = "S" if self.place.get(x) == "S" else "P"
+            else:
+                self._merge_replicated_grad(gx, xgrads)
+        if piece_sums is not None:
+            self._add_z_grad(gy, y, piece_sums)
+
+    def _add_z_grad(self, gy, y, piece_sums):
+        """Add per-piece gradients (in _tp_pieces order) into `gy`, which
+        lands on `y`'s pieces (Z)."""
+        units = self._tp_pieces(y)
+        cur = self.place.get(gy)
+        if cur == "P":      # the weight also feeds a product run whole
+            self._to_R(gy)
+            cur = "R"
+        if cur == "R":
+            full = self.envs[0].values[gy]
+            piece_sums = [g + take_piece(full, idx).to(g.dtype)
+                          for (idx, _, _), g in zip(units, piece_sums)]
+        elif cur == "Z":
+            piece_sums = [g + self.zv[gy][reps[0]]
+                          for (_, reps, _), g in zip(units, piece_sums)]
+        pieces = [None] * len(self.coords)
+        for (_, reps, _), g in zip(units, piece_sums):
+            for r in reps:
+                pieces[r] = g
+        self.zv[gy] = pieces
+        self.zspec[gy] = self.zspec[y]
+        self.zshape[gy] = self.zshape[y]
+        self.place[gy] = "Z"
+        for env in self.envs:
+            env.values.pop(gy, None)
+
     def _exec_grad(self, op):
         uid = op.attrs["fwd_uid"]
         kind = self.ran.get(uid)
@@ -579,6 +834,9 @@ class _ParallelStep(object):
             raise RuntimeError("grad_of %r (fwd uid %d): the forward op "
                                "did not run in this step"
                                % (op.attrs["fwd_type"], uid))
+        if kind in ("tp_local", "tp_rep"):
+            self._exec_tp_grad(op, kind)
+            return
         ins = [n for ns in op.attrs["fwd_inputs"].values() for n in ns
                if n]
         outs = [n for ns in op.attrs["fwd_outputs"].values() for n in ns
@@ -755,6 +1013,9 @@ class _ParallelStep(object):
         out = st._run(ctxs, feeds, state, fetch_names, out_names, nccl,
                       sharded_feeds)
         self.nccl_calls = st.nccl_calls
+        # how each forward op of the newest run ran (local, global, rep,
+        # zupdate, tp_local, tp_rep), by uid
+        self.last_ran = st.ran
         return out
 
     def _run(self, ctxs, feeds, state, fetch_names, out_names, nccl,
@@ -767,6 +1028,7 @@ class _ParallelStep(object):
         self.zv, self.zspec, self.zshape = {}, {}, {}
         self.gcache = {}
         self.ran = {}
+        self.tp_saved = {}
         grad_stop = {op.attrs["fwd_uid"]:
                      frozenset(op.attrs.get("no_grad_names", ()))
                      for op in self.program.global_block().ops
@@ -965,8 +1227,9 @@ class _ParallelMultiStepRunner(MultiStepRunner):
 
 
 class ParallelExecutor(object):
-    """Data-parallel (and ZeRO, tensor-parallel "gather", sequence-
-    parallel) training over a device mesh, from one controller.
+    """Data-parallel (and ZeRO, tensor-parallel "gather" and "compute",
+    sequence-, pipeline- and expert-parallel) training over a device
+    mesh, from one controller.
 
     use_cuda (default True) takes every local CUDA device; use_cuda=False
     or devices=["cpu"] * n the CPU (one replica, or n). `mesh` (a
@@ -1024,13 +1287,6 @@ class ParallelExecutor(object):
                 self._program, self.mesh, batch_axis=self._batch_axis,
                 shard_axis=shard_axis, shard_update=sharded_weight_update,
                 overrides=param_shardings, tp_axis=tp_axis)
-        if plan.tp_axis and plan.tp_placement == "compute" and \
-                self.mesh.shape.get(plan.tp_axis, 1) > 1:
-            raise NotImplementedError(
-                "ShardingPlan tp_placement='compute' (Megatron partial "
-                "sums over %r) comes with the next parallel slice "
-                "(ROADMAP A10, second half); build the plan with "
-                "tp_placement='gather'" % plan.tp_axis)
         self.plan = plan
         self._param_shardings = plan.spec_map()
         self._check_nan_inf = _nan_inf_enabled(check_nan_inf)

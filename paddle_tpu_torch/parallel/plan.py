@@ -23,8 +23,10 @@ fallback). Precedence per var: explicit overrides (`param_shardings`) >
 ParamAttr(mesh_axes=) > the tensor-parallel per-family rule (tp_axis=,
 by the param's consumer ops: the matmul family column- then row-parallel,
 embeddings vocab-parallel, convs output-channel-parallel) > the ZeRO rule
-(shard_update=True) > replicated. `tp_placement="compute"` (Megatron
-partial sums) builds, and the port's ParallelExecutor refuses it.
+(shard_update=True) > replicated. Under `tp_placement="compute"`
+(Megatron partial products) a tensor-parallel param and its accumulators
+stay on their pieces through the step: the products that read it run a
+piece at a time and its update runs on the pieces.
 """
 import hashlib
 import json

@@ -43,7 +43,12 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "paddle_tpu_torch.reference_format, "
             "paddle_tpu_torch.resilience, paddle_tpu_torch.ops.guard_ops, "
             "paddle_tpu_torch.parallel, paddle_tpu_torch.transpiler, "
-            "paddle_tpu_torch.core.sharded\n"
+            "paddle_tpu_torch.core.sharded, "
+            "paddle_tpu_torch.parallel.pipeline, "
+            "paddle_tpu_torch.parallel.moe, "
+            "paddle_tpu_torch.ops.parallel_ops, "
+            "paddle_tpu_torch.layers.parallel_layers, "
+            "paddle_tpu_torch.memory_optimization_transpiler\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r)\n"
             "print(bad)\n"

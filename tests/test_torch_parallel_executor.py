@@ -477,13 +477,19 @@ def test_refusals_name_what_is_missing():
         tfluid.ParallelExecutor(main_program=main, devices=CPU8)
     # on a 1-way batch axis the same program runs
     tfluid.ParallelExecutor(main_program=main, devices=["cpu"])
-    # Megatron partial sums: the next slice
+    # Megatron partial sums: they run on replicas that share a device
+    # (tests/test_torch_program_parallelism.py); over distinct cards the
+    # construction raises, naming the placement
     main, startup, loss = _mlp(tfluid)
     mesh = make_mesh({"dp": 2, "tp": 4}, CPU8)
     plan = ShardingPlan.build(main, mesh, tp_axis="tp",
                               tp_placement="compute")
+    tfluid.ParallelExecutor(main_program=main, plan=plan)
+    apart = ShardingPlan.build(main, make_mesh({"dp": 1, "tp": 2},
+                                               ["cpu", "cuda:0"]),
+                               tp_axis="tp", tp_placement="compute")
     with pytest.raises(NotImplementedError, match="compute"):
-        tfluid.ParallelExecutor(main_program=main, plan=plan)
+        tfluid.ParallelExecutor(main_program=main, plan=apart)
     with pytest.raises(ValueError, match="pass one or the other"):
         tfluid.ParallelExecutor(main_program=main, plan=plan,
                                 mesh=make_mesh({"dp": 8}, CPU8))
