@@ -381,8 +381,8 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               full width of the phase each comes from (MULTISTEP_PATHS:
               the Transformer in fp32, bf16 AMP and with dropout, the
               PTB LM, the stacked LSTM, DeepASR, the SRL of phase 28;
-              the fp32 and dropout Transformers, DeepASR and the SRL cut
-              to 2 layers, MULTISTEP_LAYERS). From one copied state
+              the fp32 and dropout Transformers cut to 2 layers, DeepASR
+              and the SRL to 1, MULTISTEP_LAYERS). From one copied state
               and seed counter, under torch.use_deterministic_algorithms
               (index_add_ then sums in a fixed order): two eager runs of
               4 steps, then run(steps=4). Checks: fetches and every
@@ -711,6 +711,48 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               replays, with and without remat; step ms of each; the
               recomputed segments' forward kernels counted in its
               launches. A `parallel_programs_summary:` line sums up.
+
+37. serving fleet — ROADMAP A10c, the serving side of A10, over phase
+              4's Transformer-base scoring model (batch buckets [1, 4, 8];
+              weights from SEED, the reload's and the canaries' from
+              FLEET_SEED; phase 4's first 8 requests), every answer held
+              bit for bit to a lone engine's run_direct at its bucket:
+              (a) ReplicaPool(replicas=2) (both replicas on cuda:0) and
+              the lone engine under a closed loop of 16 client threads x
+              6 batch-1 requests (x 3 in (b) and (c)'s loops): p50,
+              p99, items a second, K1 and K5 launches a dispatch, and the
+              device's idle share over a shorter loop under
+              torch.profiler; (b) replica_exc, replica_poison (the finite
+              check must fire), replica_crash, replica_wedge (4 s behind
+              a 0.4 s attempt timeout, 4 clients) through the replicas'
+              taps, and
+              kill_replica mid-loop: zero client errors, the failed-over
+              requests' worst latency, pool_state()'s replica states;
+              (c) reload(model_dir=) to FLEET_SEED's weights mid-loop
+              (generations 1, later answers the new weights'), then
+              promote(traffic_fraction=0.25) of a canary_poison canary
+              (rolled back, every answer the incumbent's) and of a
+              healthy one (promoted); (d) a ModelFleet of the model at
+              priorities 1 and 0 behind a ModelServer: under the top
+              tier's closed loop the lower tier answers 429 with
+              Retry-After over HTTP, and answers after the load; an
+              autoscale=True pool over [1, 3] replicas (queue capacity
+              8) under 32 clients that retry their 429s grows and
+              contracts back to 1 with no accepted request failing,
+              last_scale_up_s; (e) InferenceEngine(tp=2, mesh_devices=
+              ["cuda:0"] * 2) bit-equal to the one-card engine at every
+              bucket in fp32 and with weights_dtype="bf16", K1 (or the
+              bf16 K1) and K5 launches a dispatch, one dispatch's ms at
+              bucket 8 beside the one-card engine's; a 2-replica tp pool
+              through engine_factory under kill_replica; (f) a
+              DecodePool of two DecodeEngines over phase 31 (b)'s step:
+              every stream's tokens equal the solo decode's; tokens a
+              second beside one engine; (g) two HeartbeatWriters and
+              write_plan in a cluster directory that watch_cluster
+              puts on (d)'s /metrics (ptpu_cluster_worker_steps_behind
+              at the writers' lag, beside the pool families, each TYPE
+              once), /healthz with `pools` and `fleet`. A
+              `serving_fleet_summary:` line sums up.
 
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run; the bf16 flash kernels counted under
@@ -3313,12 +3355,12 @@ def run_acoustic_kernels(torch, ck, peak_flops, peak_bw,
 
 # --------------------------------------------------------------- serving --
 
-def build_scoring(fluid, transformer, n_layer=N_LAYER):
+def build_scoring(fluid, transformer, n_layer=N_LAYER, seed=SEED):
     """Transformer-base scoring (MODEL, fused attention, startup seeded
-    by SEED): (main, startup, predict)."""
+    by `seed`): (main, startup, predict)."""
     vocab, t_max = MODEL["vocab"], MODEL["max_length"]
     main, startup = fluid.Program(), fluid.Program()
-    startup.random_seed = SEED
+    startup.random_seed = seed
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         _, _, predict = transformer.transformer(
             vocab, vocab, t_max, n_layer=n_layer, n_head=MODEL["n_head"],
@@ -5670,7 +5712,7 @@ MULTISTEP_PATHS = (
 # depth trains in the path's own phase (Transformer-base in bf16 keeps
 # its 6 + 6 layers: phases 32-36 run it)
 MULTISTEP_LAYERS = {"transformer_fp32": 2, "transformer_dropout": 2,
-                    "acoustic": 2, "srl": 2}
+                    "acoustic": 1, "srl": 1}
 MULTISTEP_K = 4          # steps a call
 MULTISTEP_TIMED = 2      # timed calls at each K
 MULTISTEP_GAP = 10       # graph vs eager within 10x two eager runs' gap
@@ -5766,11 +5808,12 @@ def call_ms(torch, fn):
 
 def device_busy_ms(torch, fn):
     """(device kernel ms, of which the port's kernels', host wall ms) of
-    fn() under torch.profiler."""
+    fn() under torch.profiler, tracing the device only (no host ops: their
+    events cost seconds to record and process, and slow the host the wall
+    measures)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         ts = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -11006,6 +11049,642 @@ def run_parallel_programs(torch, card, C, ref):
                    "phase_s": time.perf_counter() - t0, "card": card}
 
 
+# --------------------------------------------------------- serving fleet --
+
+# phase 37: ROADMAP A10c, the serving side of A10, over phase 4's
+# Transformer-base scoring model (weights from SEED; the reload's and the
+# canary's candidate from FLEET_SEED) on the card
+FLEET_SEED = SEED + 37
+FLEET_BUCKETS = [1, 4, 8]     # phase 4's batch buckets
+FLEET_REQUESTS = 8            # distinct scoring requests (phase 4's first)
+FLEET_CLIENTS = 16            # closed-loop client threads
+FLEET_PER_CLIENT = 6          # batch-1 requests each client sends in (a)
+FLEET_LEG_PER_CLIENT = 3      # ... and in each leg of (b) and (c)
+FLEET_WEDGE_S = 4.0           # the wedged dispatch's sleep: ten times
+FLEET_ATTEMPT_S = 0.4         # the attempt timeout, itself ten times a
+FLEET_WEDGE_CLIENTS = 4       # 4-client loop's dispatch on the card
+FLEET_CLUSTER_STEPS = (40, 33)  # the heartbeat writers' step cursors
+FLEET_CARD = "cuda:0"         # every replica's card, and the tp mesh's
+
+
+class FleetRefs(object):
+    """run_direct answers of a lone engine, by (request, batch bucket),
+    made once (a pool's answer at a bucket is bit-equal to them)."""
+
+    def __init__(self, engine, requests, fetch):
+        self.engine, self.requests, self.fetch = engine, requests, fetch
+        self._cache = {}
+        self._lock = threading.Lock()
+
+    def get(self, i, bucket):
+        with self._lock:
+            key = (i, bucket)
+            if key not in self._cache:
+                self._cache[key] = self.engine.run_direct(
+                    self.requests[i], batch_bucket=bucket)[0][self.fetch]
+            return self._cache[key]
+
+    def fill(self):
+        for i in range(len(self.requests)):
+            for b in FLEET_BUCKETS:
+                self.get(i, b)
+
+
+def fleet_loop(target, requests, fetch, refs, clients=FLEET_CLIENTS,
+               per_client=FLEET_PER_CLIENT, mid=None, retry_429=False):
+    """A closed loop: `clients` threads each send `per_client` batch-1
+    requests to `target` (a pool, an engine or a fleet entry), the next
+    after the last answer; `mid()` runs once half of them are answered.
+    Every answer is checked against `refs` (a list of FleetRefs: equal to
+    one of them, bit for bit, at its bucket or, for a canary's answer,
+    another) as it arrives. Returns a dict:
+    latencies (s), wall (s), answered, errors, mismatches, failed-over
+    latencies (s), 429s retried."""
+    total = clients * per_client
+    lat, over, errors, bad = [], [], [], []
+    done = [0, 0]               # answered, 429s retried
+    lock = threading.Lock()
+    half = threading.Event()
+
+    def client(c):
+        for k in range(per_client):
+            i = (c * per_client + k) % len(requests)
+            ts = time.perf_counter()
+            while True:
+                try:
+                    fut = target.submit(requests[i])
+                    out = fut.result(600).numpy()[fetch]
+                    break
+                except Exception as e:  # noqa: BLE001 — counted below
+                    if retry_429 and type(e).__name__ == "QueueFullError":
+                        with lock:
+                            done[1] += 1
+                        time.sleep(getattr(e, "retry_after_s", 0.05))
+                        continue
+                    with lock:
+                        errors.append(repr(e))
+                    out = None
+                    break
+            dt = time.perf_counter() - ts
+            if out is None:
+                continue
+            # a canary's answer rides its mirror's bucket label: it is
+            # held to each bucket's reference when the labelled one differs
+            buckets = [fut.bucket[0]] + [b for b in FLEET_BUCKETS
+                                         if b != fut.bucket[0]]
+            ok = np.isfinite(out).all() and any(
+                np.array_equal(out, r.get(i, b)) for b in buckets
+                for r in refs)
+            with lock:
+                lat.append(dt)
+                if getattr(fut, "_retries_used", 0):
+                    over.append(dt)
+                if not ok:
+                    bad.append(i)
+                done[0] += 1
+                if done[0] >= total // 2:
+                    half.set()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    tw = time.perf_counter()
+    for th in threads:
+        th.start()
+    if mid is not None:
+        half.wait(600)
+        mid()
+    for th in threads:
+        th.join(900)
+    wall = time.perf_counter() - tw
+    check(not any(th.is_alive() for th in threads),
+          "a fleet client thread did not finish")
+    return {"latencies": lat, "wall": wall, "answered": done[0],
+            "errors": errors, "mismatches": bad, "failover": over,
+            "retried_429": done[1]}
+
+
+def fleet_row(r):
+    lat = sorted(x * 1e3 for x in r["latencies"]) or [float("nan")]
+    row = {"requests": r["answered"] + len(r["errors"]),
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "items_per_s": r["answered"] / r["wall"],
+           "client_errors": len(r["errors"]),
+           "mismatches": len(r["mismatches"])}
+    if r["failover"]:
+        row["failed_over"] = len(r["failover"])
+        row["failover_max_ms"] = max(r["failover"]) * 1e3
+    if r["retried_429"]:
+        row["retried_429"] = r["retried_429"]
+    return row
+
+
+def fleet_check(tag, r):
+    check(not r["errors"] and not r["mismatches"],
+          "serving fleet %s: %d client errors (%s), %d answers not "
+          "bit-equal to the lone engine's" % (
+              tag, len(r["errors"]), r["errors"][:2], len(r["mismatches"])))
+
+
+def fleet_idle_share(torch, target, requests, fetch, refs):
+    """The device's idle share over a shorter closed loop (8 clients x 3
+    requests) under torch.profiler: 1 - device kernel ms / wall ms."""
+    box = {}
+    busy, _, wall = device_busy_ms(torch, lambda: box.update(r=fleet_loop(
+        target, requests, fetch, refs, clients=8, per_client=3)))
+    fleet_check("idle share", box["r"])
+    return {"idle_share": 1.0 - busy / wall, "device_busy_ms": busy,
+            "wall_ms": wall}
+
+
+def fleet_states(pool):
+    return [r["state"] + ("/dead" if r["dead"] else "")
+            for r in pool.pool_state()["replicas"]]
+
+
+def fleet_pool_vs_engine(torch, d1, requests, fetch, refs, per):
+    """(a): ReplicaPool(replicas=2) against the lone engine under the
+    closed loop (counts zeroed just before each loop, read just after)."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import ReplicaPool
+    rows, paths = {}, []
+    t0 = time.perf_counter()
+    pool = ReplicaPool(d1, replicas=2, batch_buckets=FLEET_BUCKETS,
+                       name="scoring")
+    build_s = time.perf_counter() - t0
+    try:
+        check([r["devices"] for r in pool.pool_state()["replicas"]]
+              == [[FLEET_CARD], [FLEET_CARD]],
+              "serving fleet (a): replicas placed on %r" % (
+                  [r["devices"] for r in pool.pool_state()["replicas"]],))
+        for tag, target, batches in (
+                ("pool", pool, lambda: sum(
+                    m.snapshot()["batches_total"]
+                    for m in pool.replica_metrics().values())),
+                ("engine", refs.engine, lambda: refs.engine.metrics
+                 .snapshot()["batches_total"])):
+            b0 = batches()
+            ck.reset_launch_counts()
+            r = fleet_loop(target, requests, fetch, [refs])
+            counts = ck.launch_counts()
+            n = batches() - b0
+            fleet_check("(a) " + tag, r)
+            expected = dict.fromkeys(counts, 0)
+            expected.update({k: v * n for k, v in per.items()})
+            paths.append(("serving_fleet_%s" % tag, (counts, expected)))
+            rows[tag] = fleet_row(r)
+            rows[tag]["dispatches"] = n
+            rows[tag].update(fleet_idle_share(torch, target, requests,
+                                              fetch, [refs]))
+            rows[tag]["launches_per_dispatch"] = {
+                k: counts[k] / max(n, 1) for k in per}
+        rows["pool"]["build_s"] = build_s
+        rows["pool"]["replica_dispatches"] = [
+            r.dispatches for r in pool._replicas]
+        check(all(r.dispatches for r in pool._replicas),
+              "serving fleet (a): a replica took no dispatch: %r"
+              % rows["pool"]["replica_dispatches"])
+    finally:
+        pool.close()
+    return rows, paths
+
+
+FLEET_FAULTS = [
+    # (leg, fault plan, pool options, the pool metric the fault must move,
+    # client threads)
+    ("replica_wedge", ["replica_wedge@1:%g" % FLEET_WEDGE_S],
+     dict(attempt_timeout_s=FLEET_ATTEMPT_S, eject_consecutive=2,
+          eject_cooldown_s=60.0), "attempt_timeouts_total",
+     FLEET_WEDGE_CLIENTS),
+    ("replica_exc", ["replica_exc@3"], dict(eject_consecutive=3),
+     "retries_total", FLEET_CLIENTS),
+    ("replica_poison", ["replica_poison@3"], dict(eject_consecutive=2),
+     "poisoned_results_total", FLEET_CLIENTS),
+    ("replica_crash", ["replica_crash@3"], dict(eject_consecutive=2),
+     "retries_total", FLEET_CLIENTS),
+    ("kill_replica", [], dict(), "replica_kills_total", FLEET_CLIENTS),
+]
+
+
+def fleet_faults(d1, requests, fetch, refs):
+    """(b): each serving fault kind through the replicas' taps (and
+    kill_replica) under the closed loop: zero client errors, every
+    answer bit-equal to the lone engine's. The wedge leg runs 4 clients
+    (its attempt timeout must sit far above a healthy answer's latency)
+    and waits for the wedged worker to wake before the next leg."""
+    from paddle_tpu_torch.resilience.faults import FaultPlan
+    from paddle_tpu_torch.serving import ReplicaPool
+    rows = {}
+    for leg, plan, opts, metric, clients in FLEET_FAULTS:
+        pool = ReplicaPool(d1, replicas=2, batch_buckets=FLEET_BUCKETS,
+                           name="scoring-" + leg, retries=3, **opts)
+        try:
+            mid = (lambda: pool.kill_replica(1)) if leg == "kill_replica" \
+                else None
+            with FaultPlan(plan):
+                r = fleet_loop(pool, requests, fetch, [refs],
+                               clients=clients,
+                               per_client=FLEET_LEG_PER_CLIENT, mid=mid)
+            fleet_check("(b) " + leg, r)
+            snap = pool.metrics.snapshot()
+            check(snap[metric] >= 1 and snap["errors_total"] == 0,
+                  "serving fleet (b) %s: %s = %d, errors_total %d"
+                  % (leg, metric, snap[metric], snap["errors_total"]))
+            rows[leg] = fleet_row(r)
+            rows[leg].update({
+                metric: snap[metric], "retries": snap["retries_total"],
+                "states": fleet_states(pool),
+                "events": [e[1] for e in pool.events]})
+            if leg == "replica_poison":
+                check(snap["poisoned_results_total"] >= 1
+                      and any(s.startswith("ejected")
+                              for s in rows[leg]["states"]),
+                      "serving fleet (b): the finite check never fired")
+        finally:
+            pool.close(timeout=60)
+            # a wedged worker wakes and finishes its dispatch: before the
+            # next leg, so no later path counts its launches
+            for rep in pool._replicas:
+                for w in rep.engine._batcher._workers:
+                    w.join(FLEET_WEDGE_S + 30)
+        print("serving fleet (b) %s: %s" % (leg, json.dumps(rows[leg])))
+    return rows
+
+
+def fleet_reload_promote(d1, d2, requests, fetch, refs, refs2):
+    """(c): reload to FLEET_SEED's weights under the loop, then promote()
+    with canary_poison (rolled back) and a healthy canary (promoted)."""
+    from paddle_tpu_torch.resilience.faults import FaultPlan
+    from paddle_tpu_torch.serving import ReplicaPool
+    rows = {}
+    pool = ReplicaPool(d1, replicas=2, batch_buckets=FLEET_BUCKETS,
+                       name="scoring-reload")
+    try:
+        box = {}
+
+        def reload():
+            t0 = time.perf_counter()
+            pool.reload(model_dir=d2)
+            box["s"] = time.perf_counter() - t0
+
+        r = fleet_loop(pool, requests, fetch, [refs, refs2], mid=reload,
+                       per_client=FLEET_LEG_PER_CLIENT)
+        fleet_check("(c) reload", r)
+        gens = [rep.generation for rep in pool._replicas]
+        check(gens == [1, 1], "serving fleet (c): generations %r" % gens)
+        after = fleet_loop(pool, requests, fetch, [refs2], clients=4,
+                           per_client=2)
+        fleet_check("(c) after the reload", after)
+        rows["reload"] = fleet_row(r)
+        rows["reload"].update(reload_s=box["s"], generations=gens)
+        for leg, plan, kw in (
+                ("canary_poison", ["canary_poison@0"],
+                 dict(model_dir=d1, traffic_fraction=0.25, min_requests=64,
+                      max_breaches=2)),
+                ("healthy_canary", [],
+                 dict(model_dir=d2, traffic_fraction=0.25, min_requests=4,
+                      max_breaches=2))):
+            with FaultPlan(plan):
+                t0 = time.perf_counter()
+                ctrl = pool.promote(latency_ratio=None, **kw)
+                build_s = time.perf_counter() - t0
+                r = fleet_loop(pool, requests, fetch, [refs2],
+                               per_client=FLEET_LEG_PER_CLIENT)
+                limit = time.monotonic() + 120
+                while ctrl.state()["state"] in ("canary", "promoting") \
+                        and time.monotonic() < limit:
+                    time.sleep(0.05)
+            fleet_check("(c) " + leg, r)
+            st = ctrl.state()
+            want = "rolled_back" if plan else "promoted"
+            check(st["state"] == want, "serving fleet (c) %s: %r"
+                  % (leg, st))
+            rows[leg] = fleet_row(r)
+            rows[leg].update({k: st[k] for k in (
+                "state", "sampled", "oks", "breaches", "breach_kinds",
+                "max_divergence")})
+            rows[leg]["canary_build_s"] = build_s
+        rows["generations"] = [rep.generation for rep in pool._replicas]
+    finally:
+        pool.close()
+    for k, v in rows.items():
+        print("serving fleet (c) %s: %s" % (k, json.dumps(v)))
+    return rows
+
+
+def fleet_brownout_autoscale(d1, requests, fetch, refs, cluster_dir):
+    """(d) and (g): a ModelFleet of the model at two priorities behind a
+    ModelServer (the top tier under a closed loop, the lower one asked
+    over HTTP: 429 with Retry-After), the cluster directory watched on
+    its /metrics; then an autoscale=True pool over [1, 3] under a burst
+    that sheds, contracted back to 1."""
+    import urllib.error
+    from paddle_tpu_torch.observability import registry as obsreg
+    from paddle_tpu_torch.serving import ModelFleet, ModelServer, ReplicaPool
+    rows = {}
+    fleet = ModelFleet(shed_dwell_s=0.0, pressure_high=0.5,
+                       pressure_low=0.25)
+    # the top tier's admission ceiling is its queue capacity, 12: its 12
+    # closed-loop clients hold it past pressure_high
+    fleet.add_model("live", priority=1, weight=4.0, model_dir=d1,
+                    replicas=1, queue_capacity=12,
+                    batch_buckets=FLEET_BUCKETS)
+    fleet.add_model("bulk", priority=0, weight=1.0, model_dir=d1,
+                    replicas=1, queue_capacity=12,
+                    batch_buckets=FLEET_BUCKETS)
+    obsreg.watch_cluster(cluster_dir, heartbeat_timeout=600.0)
+    server = ModelServer(fleet, port=0).start()
+    base = "http://%s" % server.address
+    # a 1 ms deadline: an admitted request expires in the queue (504)
+    # instead of returning [1, 256, 30000] logits as JSON
+    body = {"inputs": {k: np.asarray(v).tolist()
+                       for k, v in requests[0].items()}, "deadline_ms": 1}
+    shed, codes = [], []
+    try:
+        def ask_bulk():
+            for _ in range(40):
+                try:
+                    http_json(base + "/v1/models/bulk:predict", body)
+                    codes.append(200)
+                except urllib.error.HTTPError as e:
+                    codes.append(e.code)
+                    if e.code == 429:
+                        shed.append(int(e.headers["Retry-After"]))
+                        return
+                time.sleep(0.02)
+
+        live = fleet.registry()["live"]
+        r = fleet_loop(live, requests, fetch, [refs], clients=12,
+                       per_client=6, mid=ask_bulk)
+        fleet_check("(d) the top tier", r)
+        check(shed and shed[0] >= 1, "serving fleet (d): the lower tier "
+              "was never browned out (HTTP codes %r)" % codes)
+        rows["brownout"] = fleet_row(r)
+        rows["brownout"].update(
+            bulk_http_codes=codes, retry_after=shed[0],
+            shed_total=fleet.fleet_state()["models"]["bulk"]["shed_total"])
+        # after the load the pressure falls and the lower tier answers
+        out = fleet.infer("bulk", requests[1], timeout=600)[fetch]
+        check(np.array_equal(out, refs.get(1, 1)),
+              "serving fleet (d): the lower tier's answer after the load")
+        health = json.loads(http_json(base + "/healthz").read())
+        check(sorted(health.get("pools", {})) == ["bulk", "live"]
+              and "brownout_level" in health.get("fleet", {}),
+              "serving fleet (g): /healthz lacks pools or fleet: %r"
+              % sorted(health))
+        text = http_json(base + "/metrics").read().decode()
+        lag = FLEET_CLUSTER_STEPS[0] - FLEET_CLUSTER_STEPS[1]
+        want_line = ('ptpu_cluster_worker_steps_behind{cluster="%s",'
+                     'worker="w1"} %d' % (os.path.basename(cluster_dir),
+                                          lag))
+        types = [ln.split()[2] for ln in text.splitlines()
+                 if ln.startswith("# TYPE ")]
+        check(want_line in text
+              and 'ptpu_serving_pool_requests_total{model="live"}' in text
+              and 'ptpu_serving_replica_state{model="bulk",replica="0"}'
+              in text and len(types) == len(set(types)),
+              "serving fleet (g): /metrics lacks the cluster lag, the "
+              "pool families, or repeats a TYPE")
+        rows["scrape"] = {"metrics_lines": len(text.splitlines()),
+                          "families": len(types),
+                          "cluster_line": want_line,
+                          "healthz_status": health["status"],
+                          "brownout_level": health["fleet"]
+                          ["brownout_level"]}
+    finally:
+        obsreg.unwatch_cluster(cluster_dir)
+        server.shutdown()
+
+    pool = ReplicaPool(d1, replicas=1, batch_buckets=FLEET_BUCKETS,
+                       name="scoring-autoscale", queue_capacity=8,
+                       autoscale=True, min_replicas=1, max_replicas=3,
+                       autoscale_kw=dict(interval_s=0.05, down_idle_s=1.0,
+                                         scale_up_cooldown_s=0.5,
+                                         scale_down_cooldown_s=1.0))
+    try:
+        r = fleet_loop(pool, requests, fetch, [refs], clients=32,
+                       per_client=3, retry_429=True)
+        fleet_check("(d) autoscale", r)
+        st = pool._autoscaler.state()
+        peak = 1 + st["scale_ups"]
+        limit = time.monotonic() + 60
+        while pool.live_replica_count() > 1 and time.monotonic() < limit:
+            time.sleep(0.05)
+        st = pool._autoscaler.state()
+        check(st["scale_ups"] >= 1 and pool.live_replica_count() == 1
+              and pool.metrics.snapshot()["errors_total"] == 0,
+              "serving fleet (d): autoscale %r, live %d" % (
+                  st, pool.live_replica_count()))
+        rows["autoscale"] = fleet_row(r)
+        rows["autoscale"].update(
+            peak_replicas=peak, scale_ups=st["scale_ups"],
+            scale_downs=st["scale_downs"],
+            last_scale_up_s=st["last_scale_up_s"],
+            rejected_429=pool.metrics.snapshot()["rejected_queue_full"])
+    finally:
+        pool.close()
+    for k, v in rows.items():
+        print("serving fleet (d) %s: %s" % (k, json.dumps(v)))
+    return rows
+
+
+def fleet_tp(torch, d1, requests, fetch, refs, per):
+    """(e): InferenceEngine(tp=2, mesh_devices=[FLEET_CARD] * 2) against the
+    one-card engine at every bucket, fp32 and bf16; its dispatch ms; a
+    2-replica tp pool through engine_factory under kill_replica."""
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.serving import InferenceEngine, ReplicaPool
+    rows, paths = {}, []
+    for wd in ("fp32", "bf16"):
+        one = InferenceEngine(d1, batch_buckets=FLEET_BUCKETS,
+                              weights_dtype=wd, name="one-" + wd)
+        tpe = InferenceEngine(d1, batch_buckets=FLEET_BUCKETS,
+                              weights_dtype=wd, tp=2,
+                              mesh_devices=[FLEET_CARD] * 2, name="tp-" + wd)
+        try:
+            check(tpe.device_span() == [FLEET_CARD] * 2
+                  and any(e.sharded for e in tpe.plan if e.kind == "param"),
+                  "serving fleet (e): the tp engine spans %r"
+                  % tpe.device_span())
+            for b in FLEET_BUCKETS:
+                for i in range(2):
+                    a = tpe.run_direct(requests[i], batch_bucket=b)[0][fetch]
+                    w = one.run_direct(requests[i], batch_bucket=b)[0][fetch]
+                    check(np.array_equal(a, w), "serving fleet (e) %s: the "
+                          "tp engine differs from one card at bucket %d"
+                          % (wd, b))
+            flash = "flash_attention_fwd_bf16" if wd == "bf16" \
+                else "flash_attention_fwd"
+            kper = {flash: per["flash_attention_fwd"],
+                    "layer_norm_fwd": per["layer_norm_fwd"]}
+            b0 = tpe.metrics.snapshot()["batches_total"]
+            ck.reset_launch_counts()
+            futs = [tpe.submit(q) for q in requests]
+            outs = [f.result(600).numpy()[fetch] for f in futs]
+            counts = ck.launch_counts()
+            n = tpe.metrics.snapshot()["batches_total"] - b0
+            check(all(np.isfinite(o).all() for o in outs),
+                  "serving fleet (e): a non-finite tp answer")
+            expected = dict.fromkeys(counts, 0)
+            expected.update({k: v * n for k, v in kper.items()})
+            paths.append(("serving_fleet_tp_" + wd, (counts, expected)))
+            feed = tpe._pad_batch([tpe.normalize_feed(requests[0])],
+                                  FLEET_BUCKETS[-1], None)
+            for e in (one, tpe):
+                e._run(feed)
+            torch.cuda.synchronize()
+            ms = {tag: statistics.median(call_ms(torch, lambda e=e: e._run(
+                feed)) for _ in range(5)) for tag, e in (("one", one),
+                                                          ("tp", tpe))}
+            rows[wd] = {"dispatch_ms_bucket8": ms["tp"],
+                        "one_card_dispatch_ms_bucket8": ms["one"],
+                        "dispatches": n,
+                        "launches_per_dispatch": {
+                            k: counts[k] / max(n, 1) for k in kper},
+                        "bit_equal_buckets": FLEET_BUCKETS}
+        finally:
+            one.close()
+            tpe.close()
+            print("serving fleet (e) %s: %s" % (wd, json.dumps(rows[wd])))
+
+    def factory(idx, place):
+        return InferenceEngine(d1, batch_buckets=FLEET_BUCKETS, tp=2,
+                               mesh_devices=[FLEET_CARD] * 2,
+                               name="tp@%d" % idx)
+
+    pool = ReplicaPool(engine_factory=factory, replicas=2, name="tp",
+                       retries=3)
+    try:
+        r = fleet_loop(pool, requests, fetch, [refs], clients=8,
+                       per_client=4, mid=lambda: pool.kill_replica(0))
+        fleet_check("(e) tp pool", r)
+        rows["tp_pool"] = fleet_row(r)
+        rows["tp_pool"]["states"] = fleet_states(pool)
+        rows["tp_pool"]["devices"] = [
+            rep["devices"] for rep in pool.pool_state()["replicas"]]
+    finally:
+        pool.close()
+    print("serving fleet (e) tp pool: %s" % json.dumps(rows["tp_pool"]))
+    return rows, paths
+
+
+def fleet_decode_pool():
+    """(f): a DecodePool of two DecodeEngines over phase 31 (b)'s decode
+    step against one engine and the solo decode."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.serving import DecodeEngine, DecodePool
+    cfg = DECODE_LN
+    feeds, budgets = decode_streams(cfg)
+    engines = []
+    for i in range(3):
+        main, startup, nxt, fin = build_decode_step(fluid, cfg)
+        engines.append(DecodeEngine(
+            program=main, startup_program=startup, token_var=nxt,
+            finished_var=fin, max_slots=cfg["slots"],
+            name="decode-pool-%d" % i, queue_capacity=1024,
+            default_max_new_tokens=max(budgets)))
+    solo = engines[0].solo_clone(name="decode-pool-solo")
+    pool = DecodePool(engines[1:], name="decode-pool")
+    try:
+        want = [np.asarray(solo.decode(f, max_new_tokens=b)).reshape(-1)
+                for f, b in zip(feeds, budgets)]
+        rows = {}
+        for tag, target in (("one_engine", engines[0]), ("pool", pool)):
+            t0 = time.perf_counter()
+            got = decode_burst(target, feeds, budgets)
+            dt = time.perf_counter() - t0
+            bad = sum(not np.array_equal(g, w) for g, w in zip(got, want))
+            check(bad == 0, "serving fleet (f) %s: %d streams differ from "
+                  "the solo decode" % (tag, bad))
+            tokens = int(sum(len(g) for g in got))
+            rows[tag] = {"streams": len(feeds), "tokens": tokens,
+                         "s": dt, "tokens_per_s": tokens / dt}
+        rows["pool"]["replica_streams"] = [
+            e.decode_stats()["streams_completed"] for e in engines[1:]]
+    finally:
+        pool.close()
+        engines[0].close()
+        solo.close()
+    print("serving fleet (f): %s" % json.dumps(rows))
+    return rows
+
+
+def run_serving_fleet(torch, card):
+    """Phase 37 (see the module's docstring). Returns [(path, (launch
+    counts, the counts predicted))] and the report."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.resilience import HeartbeatWriter, write_plan
+    from paddle_tpu_torch.serving import InferenceEngine
+
+    report, paths = {"card": card}, []
+    per = {"flash_attention_fwd": 3 * N_LAYER,
+           "layer_norm_fwd": 5 * N_LAYER + 2}
+    with tempfile.TemporaryDirectory(prefix="ptt_fleet_") as tmp:
+        t0 = time.perf_counter()
+        dirs = []
+        for seed in (SEED, FLEET_SEED):
+            main, startup, predict = build_scoring(fluid, transformer,
+                                                   seed=seed)
+            exe, scope = fluid.Executor(), fluid.Scope()
+            exe.run(startup, scope=scope)
+            d = os.path.join(tmp, "scoring_%d" % seed)
+            fluid.io.save_inference_model(
+                d, transformer.SCORING_FEED_NAMES, [predict], exe, main,
+                scope=scope)
+            dirs.append(d)
+            del scope
+        d1, d2 = dirs
+        fetch = predict.name
+        requests = scoring_requests(transformer, n=FLEET_REQUESTS)
+        refs = FleetRefs(InferenceEngine(d1, batch_buckets=FLEET_BUCKETS,
+                                         name="scoring-lone"),
+                         requests, fetch)
+        refs2 = FleetRefs(InferenceEngine(d2, batch_buckets=FLEET_BUCKETS,
+                                          name="scoring-lone-2"),
+                          requests, fetch)
+        refs.fill()
+        refs2.fill()
+        report["setup_s"] = time.perf_counter() - t0
+        print("serving fleet: saved seeds %d and %d, lone engines' "
+              "answers at buckets %s in %.1f s" % (
+                  SEED, FLEET_SEED, FLEET_BUCKETS, report["setup_s"]))
+        cluster_dir = os.path.join(tmp, "cluster")
+        writers = [HeartbeatWriter(cluster_dir, "w%d" % i, interval=0.5)
+                   for i in range(2)]
+        try:
+            for w, step in zip(writers, FLEET_CLUSTER_STEPS):
+                w.start()
+                w.update(status="running", step=step)
+            write_plan(cluster_dir, {"gen": 1, "phase": "run",
+                                     "members": ["w0", "w1"],
+                                     "quarantine": {}})
+            rows, ps = fleet_pool_vs_engine(torch, d1, requests, fetch,
+                                            refs, per)
+            paths += ps
+            report["pool_vs_engine"] = rows
+            print("serving fleet (a): %s" % json.dumps(rows))
+            refs2.engine.close()
+            report["faults"] = fleet_faults(d1, requests, fetch, refs)
+            report["reload_promote"] = fleet_reload_promote(
+                d1, d2, requests, fetch, refs, refs2)
+            report["fleet"] = fleet_brownout_autoscale(
+                d1, requests, fetch, refs, cluster_dir)
+            refs.engine.close()
+            del refs2
+            torch.cuda.empty_cache()
+            report["tp"], ps = fleet_tp(torch, d1, requests, fetch, refs,
+                                        per)
+            paths += ps
+        finally:
+            for w in writers:
+                w.close()
+        torch.cuda.empty_cache()
+    report["decode_pool"] = fleet_decode_pool()
+    torch.cuda.empty_cache()
+    return paths, report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
@@ -11341,6 +12020,10 @@ def main(argv=None):
         del case35, ref35
         print("parallel_programs_summary: " + json.dumps(programs))
         lap("parallel programs")
+        fleet_paths, fleet = run_serving_fleet(torch, card)
+        paths += fleet_paths
+        print("serving_fleet_summary: " + json.dumps(fleet))
+        lap("serving fleet")
         print("clipping_summary: " + json.dumps({
             "fit_a_line": {k: v for k, v in clipping.items() if k != "card"},
             "language_model_clip": {k: lm_clip[k] for k in (

@@ -6,7 +6,8 @@ host-io prefetcher and its watchdog pair `run_with_deadline` /
 hooks (`run_dispatch_hooks`: the cluster step barrier, which comes with
 ROADMAP A10's second half, and the fault-injection tap) and the
 post-dispatch checks (`run_post_dispatch_checks`: the assertion and
-guard flags, the FLAGS_check_nan_inf sweep).
+guard flags, the FLAGS_check_nan_inf sweep), and the serving side of
+that seam: a replica pool's `ReplicaTap` over its `TapCounter`.
 
   * `InflightWindow` bounds how many dispatches may be outstanding on the
     device at once (the serving batcher's continuous-batching window).
@@ -34,6 +35,11 @@ guard flags, the FLAGS_check_nan_inf sweep).
   * `run_with_deadline` runs a function on a worker thread and gives up
     on it after `timeout` seconds; `dispatch_with_deadline` is the
     executor's wrapper that attaches the run's cache key to the raise.
+
+  * `TapCounter` / `ReplicaTap`: the serving engine fires its
+    `_replica_tap` at the top of every batch dispatch; a replica pool
+    attaches one per replica engine, which consults the armed fault
+    plan's `serving_fault` keyed on the replica's own dispatch count.
 """
 import queue
 import threading
@@ -49,7 +55,8 @@ __all__ = ["InflightWindow", "run_with_deadline", "dispatch_with_deadline",
            "run_step_traced", "HostIoPrefetcher", "has_read_ops",
            "has_host_io_ops", "kick_next_prepass", "consume_host_io",
            "rollback_all_staged", "run_dispatch_hooks",
-           "run_post_dispatch_checks", "CANCELLED"]
+           "run_post_dispatch_checks", "TapCounter", "ReplicaTap",
+           "CANCELLED"]
 
 _CLOSE = object()
 # HostIoPrefetcher.take / consume_host_io: the caller's watchdog fired
@@ -566,3 +573,50 @@ def run_post_dispatch_checks(executor, errors, fetches, fetch_names,
         if executor._prefetcher is not None:
             executor._prefetcher.rollback(cancelled=cancelled)
         raise
+
+
+class TapCounter(object):
+    """A replica's monotone dispatch counter, the key serving faults fire
+    on. Owned by the pool's replica slot (not the tap), so the count
+    survives engine swaps: `reload()` attaches a fresh ReplicaTap to each
+    new engine, and a fault plan keyed on dispatch N sees one consistent
+    sequence a replica across generations."""
+
+    __slots__ = ("_lock", "n")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.n = 0
+
+    def take(self):
+        with self._lock:
+            n, self.n = self.n, self.n + 1
+            return n
+
+
+class ReplicaTap(object):
+    """The serving side of the fault-injection seam (resilience/faults.py
+    `serving_fault`). A ReplicaPool attaches one to each replica engine
+    (and one to a canary engine, replica_id="canary"); the engine fires it
+    at the top of every batch dispatch, before padding, so a raise fails
+    only that group and the batcher turns it into per-request exceptions
+    the pool fails over.
+
+    The tap holds the engine it was attached to and never follows the
+    replica's engine pointer: during a swap the outgoing engine's drain
+    still dispatches, and a replica_poison fired there poisons the engine
+    being drained, not the new one."""
+
+    __slots__ = ("replica_id", "engine", "counter")
+
+    def __init__(self, replica_id, engine, counter=None):
+        self.replica_id = replica_id
+        self.engine = engine
+        self.counter = counter if counter is not None else TapCounter()
+
+    def __call__(self):
+        count = self.counter.take()
+        from ..resilience import faults as _faults
+        plan = _faults.active_plan()
+        if plan is not None:
+            plan.serving_fault(self.replica_id, count, engine=self.engine)

@@ -15,10 +15,14 @@ the same Prometheus text path serving exposes.
     server's `/metrics`; `serve_metrics(port=)` gives a training process
     the same scrape endpoint without the serving stack;
     `write_textfile(path)` dumps the rendering atomically.
+  * `watch_cluster(dir)` / `unwatch_cluster(dir)`: heartbeat-derived
+    fleet gauges (`ptpu_cluster_worker_*`, read through
+    resilience/heartbeat.HeartbeatMonitor.fleet_view at every render)
+    and the plan's quarantine list, labeled {cluster, worker},
+    reference-counted a directory.
 
-Waiting for later slices: the profiler's collector (its sync, cache and
-entry counters; ROADMAP A11) and `watch_cluster` / `unwatch_cluster`
-(heartbeat-derived fleet gauges; ROADMAP A10's second half).
+Waiting for a later slice: the profiler's collector (its sync, cache and
+entry counters; ROADMAP A11).
 
 Family naming: everything here is `ptpu_<area>_...`; the serving families
 stay `ptpu_serving_*` in serving/metrics.py, and the two renders
@@ -30,7 +34,7 @@ import weakref
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "REGISTRY", "note_window", "note_batcher", "note_decoder",
-           "serve_metrics", "MetricsServer", "write_textfile"]
+           "watch_cluster", "unwatch_cluster", "serve_metrics", "MetricsServer", "write_textfile"]
 
 
 def _escape_label(value):
@@ -166,6 +170,11 @@ class MetricsRegistry(object):
         self._lock = threading.Lock()
         self._metrics = {}     # name -> metric (insertion-ordered)
         self._collectors = []  # fn() -> [(name, type, help, samples)]
+        # watch_cluster's dedup state: abspath -> [collector, refcount,
+        # label]. Its own lock: watch_cluster calls register_collector,
+        # which takes _lock
+        self._watched_dirs = {}
+        self._watch_lock = threading.Lock()
 
     # ----------------------------------------------------- get-or-create --
     def _get(self, name, cls, help_text, **kw):
@@ -400,6 +409,136 @@ def _trace_collector():
          "spans started but not yet ended",
          [({}, s["open"])]),
     ]
+
+
+# ---------------------------------------------------------- fleet gauges --
+def watch_cluster(cluster_dir, heartbeat_timeout=3.0, registry=None):
+    """Register heartbeat-derived fleet gauges for `cluster_dir`:
+    per-worker generation, beat age, step cursor, steps-behind (the lag
+    behind the cohort's front-runner) and liveness — read fresh from
+    the heartbeat files at every render, through
+    `HeartbeatMonitor.fleet_view()`. Idempotent per directory; every family carries a
+    `cluster` label (the directory's basename), so two watched
+    clusters with overlapping worker ids cannot collide into duplicate
+    series. A vanished directory renders zero samples (collectors are
+    sampled live, never cached)."""
+    registry = registry or REGISTRY
+    # the collector reads the ABSOLUTE path: a later chdir must not
+    # silently point every render at a different directory
+    cdir = os.path.abspath(str(cluster_dir))
+    with registry._watch_lock:
+        entry = registry._watched_dirs.get(cdir)
+        if entry is not None:
+            entry[1] += 1  # refcounted: two in-process watchers of one
+            return entry[0]  # dir share the collector; the first
+            # unwatch must not strip the survivor's gauges
+    # label picked (and re-checked) under the registration lock below —
+    # a placeholder here; the closure reads the final value
+    cluster_label = os.path.basename(cdir) or cdir
+
+    def _cluster_collector():
+        from ..resilience.heartbeat import HeartbeatMonitor
+        rows = HeartbeatMonitor(cdir,
+                                timeout=heartbeat_timeout).fleet_view()
+        gen, age, step, behind, alive = [], [], [], [], []
+        zscores, spikes, checks, mism = [], [], [], []
+        for r in rows:
+            lbl = {"cluster": cluster_label, "worker": r["worker"]}
+            gen.append((lbl, r["gen"]))
+            age.append((lbl, r["beat_age_s"]))
+            step.append((lbl, r["step"]))
+            if r["steps_behind"] is not None:
+                # a worker that never reported a step has UNKNOWN lag:
+                # no sample (absent series), not a fake caught-up 0 a
+                # lag alert would sleep through
+                behind.append((lbl, r["steps_behind"]))
+            alive.append((lbl, 1.0 if r["alive"] else 0.0))
+            sent = r.get("sentinel") or {}
+            if sent.get("z") is not None:
+                zscores.append((lbl, float(sent["z"])))
+            if sent:
+                spikes.append((lbl, int(sent.get("spikes", 0))))
+            sdc = r.get("sdc") or {}
+            if sdc:
+                checks.append((lbl, int(sdc.get("checks", 0))))
+                mism.append((lbl, int(sdc.get("mismatches", 0))))
+        # the per-device quarantine list lives in the PLAN, not in any
+        # worker's heartbeat (the convicted worker may be gone)
+        quar = []
+        from ..resilience.cluster import read_plan
+        plan = read_plan(cdir) or {}
+        for wid, devs in sorted((plan.get("quarantine") or {}).items()):
+            quar.append(({"cluster": cluster_label, "worker": wid},
+                         len(devs)))
+        return [
+            ("ptpu_cluster_worker_generation", "gauge",
+             "plan generation each worker last reported", gen),
+            ("ptpu_cluster_worker_beat_age_seconds", "gauge",
+             "seconds since each worker's last heartbeat", age),
+            ("ptpu_cluster_worker_step", "gauge",
+             "each worker's step cursor", step),
+            ("ptpu_cluster_worker_steps_behind", "gauge",
+             "steps behind the cohort's front-runner", behind),
+            ("ptpu_cluster_worker_alive", "gauge",
+             "the heartbeat monitor's liveness verdict (staleness + "
+             "same-host pid check)", alive),
+            ("ptpu_cluster_worker_loss_zscore", "gauge",
+             "the training sentinel's last robust loss z-score",
+             zscores),
+            ("ptpu_cluster_worker_loss_spikes_total", "counter",
+             "loss/grad spikes the sentinel detected on this worker",
+             spikes),
+            ("ptpu_cluster_worker_sdc_checks_total", "counter",
+             "SDC canary checks this worker ran", checks),
+            ("ptpu_cluster_worker_sdc_mismatches_total", "counter",
+             "canary digest mismatches (silent-data-corruption "
+             "convictions)", mism),
+            ("ptpu_cluster_quarantined_devices", "gauge",
+             "devices the coordinator quarantined per worker (from the "
+             "published plan)", quar),
+        ]
+
+    with registry._watch_lock:
+        entry = registry._watched_dirs.get(cdir)
+        if entry is not None:  # lost a race: share the winner's
+            entry[1] += 1      # collector instead of double-sampling
+            return entry[0]
+        if cluster_label in {e[2]
+                             for e in registry._watched_dirs.values()}:
+            # two DIFFERENT dirs sharing a basename (/jobA/el,
+            # /jobB/el) must not collide into duplicate series — an
+            # invalid scrape; a short path digest keeps the common
+            # case readable (the collector closure reads the rebound
+            # label)
+            import hashlib
+            cluster_label = "%s-%s" % (
+                cluster_label,
+                hashlib.sha1(cdir.encode("utf-8")).hexdigest()[:6])
+        registry.register_collector(_cluster_collector)
+        registry._watched_dirs[cdir] = [_cluster_collector, 1,
+                                        cluster_label]
+    return _cluster_collector
+
+
+def unwatch_cluster(cluster_dir, registry=None):
+    """Drop one watch_cluster reference for `cluster_dir` — the
+    teardown hook (a worker calls it when its generation's run ends)
+    so a long-lived process cycling through many cluster dirs
+    doesn't accumulate collectors reading dead directories on every
+    render. The collector unregisters when the LAST watcher leaves;
+    no-op for an unwatched dir."""
+    registry = registry or REGISTRY
+    cdir = os.path.abspath(str(cluster_dir))
+    with registry._watch_lock:
+        entry = registry._watched_dirs.get(cdir)
+        if entry is None:
+            return
+        entry[1] -= 1
+        if entry[1] > 0:
+            return
+        del registry._watched_dirs[cdir]
+        fn = entry[0]
+    registry.unregister_collector(fn)
 
 
 # ------------------------------------------------------------- endpoints --

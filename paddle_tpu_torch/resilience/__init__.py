@@ -31,9 +31,15 @@ and the reader stack:
                 kills, finite bad batches and canary bit flips at chosen
                 indices, so every recovery path above is provable.
 
-Cut: the heartbeats and the elastic cluster (HeartbeatWriter,
-HeartbeatMonitor, read_heartbeats, ClusterCoordinator, ElasticWorker)
-come with the second half of ROADMAP A10.
+  * heartbeat — each worker's liveness file (HeartbeatWriter) and the
+                monitor over a cluster directory (HeartbeatMonitor,
+                read_heartbeats; `fleet_view()` feeds
+                observability.registry.watch_cluster).
+  * cluster   — the plan file's helpers (write_plan, read_plan,
+                default_checkpoint_dir).
+
+Cut: the elastic cluster's ClusterCoordinator and ElasticWorker come with
+the next slice of ROADMAP A10.
 
 Quickstart:
 
@@ -59,6 +65,8 @@ from .supervisor import (DEFAULT_POLICIES, FAULT_CLASSES, Action,
                          Supervisor, TrainingAborted, abort, retry,
                          rollback, rollback_skip_data, skip_batch)
 from .watchdog import read_bundle, write_bundle
+from .heartbeat import HeartbeatMonitor, HeartbeatWriter, read_heartbeats
+from .cluster import default_checkpoint_dir, read_plan, write_plan
 
 __all__ = [
     "Supervisor", "TrainingAborted", "Action", "skip_batch", "retry",
@@ -71,4 +79,6 @@ __all__ = [
     "FaultPlan", "InjectedFault", "InjectedDispatchError",
     "InjectedReaderError", "active_plan",
     "write_bundle", "read_bundle",
+    "HeartbeatWriter", "HeartbeatMonitor", "read_heartbeats",
+    "write_plan", "read_plan", "default_checkpoint_dir",
 ]

@@ -23,8 +23,8 @@ Arming a plan installs hooks at three seams:
     `host_death@N` SIGKILLs the whole worker process at step N (nothing
     of step N is consumed, so the newest snapshot is at most N-1), and
     `heartbeat_stall@N[:secs]` marks the heartbeat stalled from step N
-    for `secs` seconds (default: forever) for the heartbeat writer of
-    ROADMAP A10's second half to consult (`heartbeat_stalled`). The sentinel faults
+    for `secs` seconds (default: forever): resilience/heartbeat.py's
+    `HeartbeatWriter.beat()` consults `heartbeat_stalled`. The sentinel faults
     (ARCHITECTURE.md §29) ride here for FEED-FED programs:
     `loss_spike@N[:mag]` / `grad_blowup@N[:mag]` scale every float feed
     of step N by a large-but-FINITE magnitude (defaults 1e3 / 1e6) —
@@ -49,9 +49,9 @@ Arming a plan installs hooks at three seams:
     Nth durability crossing of the write protocol, subsuming the
     checkpoint's own `PTPU_CKPT_FAULT_AT` (which keeps working unchanged) under this
     registry.
-  * `serving_fault` — the SERVING seam, kept as data here: the replica
-    pool that consults it comes with ROADMAP A10's second half. Its pre-dispatch tap
-    consults the armed plan before every replica
+  * `serving_fault` — the SERVING seam: the replica pool's pre-dispatch
+    tap (core/dispatch.ReplicaTap, fired by InferenceEngine at the top
+    of every batch dispatch) consults the armed plan before every replica
     dispatch, keyed on that REPLICA's own dispatch count (deterministic
     per replica regardless of routing): `replica_exc@N` raises
     InjectedReplicaError inside the Nth dispatch (the batcher's group

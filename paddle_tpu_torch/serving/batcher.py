@@ -156,6 +156,14 @@ class _Request(object):
         self.qspan = _trace._NOOP
 
 
+def _set_card(device):
+    """A worker thread that drives an engine's card makes it the thread's
+    current device (a CPU engine's worker makes no CUDA call)."""
+    if device is not None and getattr(device, "type", None) == "cuda":
+        import torch
+        torch.cuda.set_device(device)
+
+
 def _span_closer(span):
     """Future done-callback that ends the request's root span — runs on
     the completing thread (scatter or failure), cheap by contract."""
@@ -182,12 +190,13 @@ class Batcher(object):
 
     def __init__(self, dispatch_fn, max_batch_size=32, max_queue_delay_ms=5,
                  queue_capacity=256, metrics=None, name="batcher",
-                 pipeline_depth=2):
+                 pipeline_depth=2, device=None):
         if max_batch_size < 1:
             raise ValueError("max_batch_size must be >= 1")
         if pipeline_depth < 0:
             raise ValueError("pipeline_depth must be >= 0")
         self._dispatch = dispatch_fn
+        self.device = device     # the dispatching thread's card
         self.max_batch_size = int(max_batch_size)
         self.max_queue_delay_s = float(max_queue_delay_ms) / 1e3
         self.queue_capacity = int(queue_capacity)
@@ -430,6 +439,7 @@ class Batcher(object):
 
     def _loop(self):
         """Serial mode (pipeline_depth=0): form -> dispatch, one thread."""
+        _set_card(self.device)
         while True:
             batch, expired = self._collect_batch()
             if batch is None:
@@ -496,6 +506,7 @@ class Batcher(object):
         """Pipelined dispatch: pads and enqueues formed batches behind
         the in-flight window; exits once formation has exited and the
         formed queue is drained."""
+        _set_card(self.device)
         while True:
             with self._cond:
                 while not self._formed and not self._form_done:
@@ -886,12 +897,7 @@ class DecodeBatcher(object):
             self._free.append(slot)
 
     def _step_loop(self):
-        dev = self.device
-        if dev is not None and getattr(dev, "type", None) == "cuda":
-            # this thread drives the card: its current device is the
-            # engine's (a CPU engine makes no CUDA call at all)
-            import torch
-            torch.cuda.set_device(dev)
+        _set_card(self.device)
         while True:
             admits, active = self._collect_iteration()
             if admits is None:

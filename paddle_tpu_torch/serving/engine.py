@@ -35,9 +35,18 @@ one (`model_format` "reference", or "auto" on a directory without
 `__model_meta__.json`), or, through `from_checkpoint`, the newest valid
 training snapshot of a checkpoint directory.
 
-Waiting for later slices: tensor-parallel engines over a device mesh
-(`tp`, `mesh_devices`; A10's second half: the training side,
-parallel/, came first), tuned configs (`apply_tuned`; A11).
+Tensor-parallel engines: `tp=M` serves over the mesh {"dp": 1, "tp": M}
+of `mesh_devices` (default: the first M CUDA devices; a device listed
+twice is a mesh of replicas that share it), its weights placed by the
+ShardingPlan's tensor-parallel rule with "gather" placement and every
+dispatch run by a parallel.ParallelExecutor bound to the engine's program
+and Scope: the answers are bit-equal to a one-device engine's.
+
+The pre-dispatch tap: `_replica_tap`, when a ReplicaPool sets it, fires
+at the top of every batch dispatch, before padding (core/dispatch.
+ReplicaTap): a raise there fails only that group.
+
+Waiting for a later slice: tuned configs (`apply_tuned`; A11).
 """
 import os
 import threading
@@ -217,9 +226,10 @@ class InferenceEngine(object):
     weights_dtype: None/"fp32", "bf16" (weights cast, the program's
     mixed precision on) or "int8" (per-channel quantized weights behind
     `dequantize_channel` ops), applied to a model_dir load; see
-    serving/quantize.py. validate: see the module docstring. tp waits for
-    ROADMAP A10's second half (with int8 it is refused as in the JAX
-    package)."""
+    serving/quantize.py. validate: see the module docstring. tp /
+    mesh_devices: a tensor-parallel engine (the module docstring); the
+    model loads on `device` (default: the mesh's first device), int8
+    weights are refused with it as in the JAX package."""
 
     def __init__(self, model_dir=None, device=None, name=None,
                  model_filename=None, batch_buckets=None,
@@ -229,11 +239,25 @@ class InferenceEngine(object):
                  latency_window=2048, pipeline_depth=None,
                  params_filename=None, model_format="auto", program=None,
                  feed_names=None, fetch_vars=None, weights_dtype=None,
-                 validate=ENGINE_CHECKS, tp=None):
+                 validate=ENGINE_CHECKS, tp=None, mesh_devices=None):
         _check_validate(validate, "InferenceEngine")
         if tp is not None and int(tp) < 1:
+            # before the falsy mapping: tp=0 must raise, not serve on one
+            # device
             raise ValueError("tp must be >= 1, got %r" % (tp,))
         self.tp = int(tp) if tp is not None else None
+        mesh_devices = list(mesh_devices) if mesh_devices else None
+        if mesh_devices is not None and self.tp is None:
+            self.tp = len(mesh_devices)
+        self.mesh = None
+        self.plan = None
+        self._pexe = None
+        self.quantize_report = None
+        self._set_weights_dtype(weights_dtype)
+        if self.tp is not None:
+            mesh_devices = self._tp_devices(mesh_devices)
+            if device is None:
+                device = mesh_devices[0]
         self.device = resolve_device(device)
         self.name = name or (os.path.basename(os.path.normpath(model_dir))
                              if model_dir else "model")
@@ -243,13 +267,6 @@ class InferenceEngine(object):
         self.default_deadline_ms = default_deadline_ms
         self.closed = False
         self.deployment_report = None   # the analysis tier: ROADMAP A11
-        self.quantize_report = None
-        self._set_weights_dtype(weights_dtype)
-        if self.tp is not None:
-            raise NotImplementedError(
-                "InferenceEngine(tp=): tensor-parallel engines come with "
-                "the second half of ROADMAP A10 (parallel.ParallelExecutor "
-                "trains over a mesh today)")
 
         if program is None:
             if model_dir is None:
@@ -311,6 +328,19 @@ class InferenceEngine(object):
             else:
                 self._fetch_row_policy[n] = "dynamic"
 
+        if self.tp is not None:
+            from ..parallel.mesh import make_mesh
+            from ..parallel.parallel_executor import ParallelExecutor
+            from ..parallel.plan import ShardingPlan
+            # dp stays in the mesh at size 1: request batches replicate
+            # over tp, so the buckets need not divide by anything
+            self.mesh = make_mesh({"dp": 1, "tp": self.tp}, mesh_devices)
+            self.plan = ShardingPlan.build(self.program, self.mesh,
+                                           tp_axis="tp")
+            self._pexe = ParallelExecutor(main_program=self.program,
+                                          plan=self.plan)
+            self._pexe._scope = self._scope
+
         if batch_buckets:
             self.batch_buckets = sorted(set(int(b) for b in batch_buckets))
             self.max_batch_size = (int(max_batch_size) if max_batch_size
@@ -340,7 +370,8 @@ class InferenceEngine(object):
             self._dispatch, max_batch_size=self.max_batch_size,
             max_queue_delay_ms=max_queue_delay_ms,
             queue_capacity=queue_capacity, metrics=self.metrics,
-            name=self.name, pipeline_depth=pipeline_depth)
+            name=self.name, pipeline_depth=pipeline_depth,
+            device=self.device)
         self.pipeline_depth = self._batcher.pipeline_depth
         if warmup:
             try:
@@ -420,6 +451,26 @@ class InferenceEngine(object):
         engine.checkpoint_step = found_step
         return engine
 
+    def _tp_devices(self, mesh_devices):
+        """The mesh's devices: `mesh_devices` (its length must be tp), or
+        the first tp CUDA devices (never a device twice on its own: a
+        repeated device comes only from an explicit list)."""
+        if mesh_devices is None:
+            from ..parallel.mesh import default_devices
+            try:
+                avail = default_devices()
+            except RuntimeError:
+                avail = []   # no card: none visible
+            if len(avail) < self.tp:
+                raise ValueError(
+                    "tp=%d needs %d devices but only %d are visible"
+                    % (self.tp, self.tp, len(avail)))
+            return avail[:self.tp]
+        if len(mesh_devices) != self.tp:
+            raise ValueError("tp=%d but mesh_devices has %d devices"
+                             % (self.tp, len(mesh_devices)))
+        return mesh_devices
+
     # --------------------------------------------------- weights dtype --
     def _set_weights_dtype(self, weights_dtype):
         """Validate and record the weight-dtype contract."""
@@ -431,9 +482,9 @@ class InferenceEngine(object):
         if self.weights_dtype == "int8" and self.tp is not None:
             raise ValueError(
                 "weights_dtype='int8' does not compose with "
-                "tensor-parallel engines (a sharding plan partitions the "
-                "fp32 param names, not the @QVAL rewrite); use "
-                "weights_dtype='bf16' for TP replicas")
+                "tensor-parallel engines yet (the sharding plan "
+                "partitions the fp32 param names, not the @QVAL "
+                "rewrite); use weights_dtype='bf16' for TP replicas")
 
     def _apply_weights_dtype(self):
         """Apply weights_dtype to the loaded (program, scope) pair once,
@@ -585,8 +636,13 @@ class InferenceEngine(object):
     # -------------------------------------------------------- dispatch --
     def _run(self, feed):
         """One executor run under the run lock; returns the fetch tensors
-        (left on the device: no host sync here)."""
+        (left on the device: no host sync here). A tensor-parallel engine
+        runs through its mesh-bound ParallelExecutor (the same Scope, the
+        same buckets, the same fetch tensors)."""
         with self._run_lock:
+            if self._pexe is not None:
+                return self._pexe.run(self.fetch_names, feed=feed,
+                                      return_numpy=False)
             return self._exe.run(self.program, feed=feed,
                                  fetch_list=self.fetch_names,
                                  scope=self._scope, return_numpy=False)
@@ -610,9 +666,17 @@ class InferenceEngine(object):
                 self.metrics.on_error(len(reqs))
         return handles
 
+    # the pre-dispatch tap: a ReplicaPool points it at its per-replica
+    # ReplicaTap (dispatch counting, injected replica faults). A raise
+    # here fails only this group; the pool fails its requests over
+    _replica_tap = None
+
     def _dispatch_group(self, requests):
         """Pad one shape-compatible group -> one run -> scatter; returns
         the run's fetch tensors."""
+        tap = self._replica_tap
+        if tap is not None:
+            tap()
         normalized = [req.feed for req in requests]
         traces = [getattr(req, "trace", None) for req in requests]
         rows = sum(r.rows for r in normalized)
@@ -730,7 +794,10 @@ class InferenceEngine(object):
         return self._batcher.pipeline_stats()
 
     def device_span(self):
-        """The devices this engine's dispatches run on (one)."""
+        """The devices this engine's dispatches run on: the mesh's (tp
+        entries) for a tensor-parallel engine, else its one device."""
+        if self.mesh is not None:
+            return [str(d) for d in self.mesh.devices.flat]
         return [str(self.device)]
 
     def describe(self):

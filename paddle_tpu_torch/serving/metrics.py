@@ -5,9 +5,11 @@ Parity: the JAX package's serving/metrics.py: `ServingMetrics` (one per
 `InferenceEngine`), `DecodeMetrics` (one per `DecodeEngine`) and
 `render_prometheus_all`, the `/metrics` text of every scoring engine a
 server holds (the decode engines publish through the observability
-registry's decoder collector). Writers are the request threads and the
-batcher workers, readers call `snapshot()`, all under one lock. The
-replica pool's families wait for ROADMAP A10's second half.
+registry's decoder collector), with `pools=` the replica pools' families:
+one sample a replica labeled {model, replica}, the replica state and
+device gauges, and the pool-level counters and client latency. Writers
+are the request threads and the batcher workers, readers call
+`snapshot()`, all under one lock.
 """
 import collections
 import threading
@@ -240,14 +242,50 @@ def _escape_label(value):
         .replace("\n", "\\n")
 
 
-def render_prometheus_all(named_metrics):
-    """One valid exposition covering every scoring engine
-    ({model: ServingMetrics}): HELP/TYPE exactly once per family, one
-    labeled sample per model (the replica pools' families wait for
-    ROADMAP A10's second half)."""
+# pool-level families, read from PoolMetrics.snapshot() (one labeled
+# sample per pool; HELP/TYPE once, like everything else)
+_POOL_FAMILIES = [
+    ("pool_requests_total", "counter", "requests accepted by the pool",
+     "requests_total"),
+    ("pool_responses_total", "counter", "pool requests completed",
+     "responses_total"),
+    ("pool_errors_total", "counter",
+     "client-visible pool failures (after failover exhausted)",
+     "errors_total"),
+    ("pool_retries_total", "counter",
+     "failover resubmissions onto a different replica", "retries_total"),
+    ("pool_hedges_total", "counter", "tail-hedge duplicate attempts",
+     "hedges_total"),
+    ("pool_rejected_total", "counter",
+     "admission/backpressure rejections (429s)", "rejected_queue_full"),
+    ("pool_attempt_timeouts_total", "counter",
+     "per-attempt timeouts (wedged-replica detections)",
+     "attempt_timeouts_total"),
+    ("pool_poisoned_results_total", "counter",
+     "non-finite replica outputs caught before the client",
+     "poisoned_results_total"),
+    ("pool_reloads_total", "counter", "zero-downtime weight reloads",
+     "reloads_total"),
+    ("pool_ejections_total", "counter", "circuit-breaker ejections",
+     "ejections_total"),
+]
+
+
+def render_prometheus_all(named_metrics, pools=None):
+    """One valid exposition covering plain engines
+    ({model: ServingMetrics}) and replica pools ({model: ReplicaPool}).
+    A pool's replicas each emit one sample per serving family labeled
+    {model, replica}; pool-level families (replica state gauge, retry /
+    hedge / admission / reload counters, client latency) follow —
+    HELP/TYPE still exactly once per family across everything."""
     entries = []    # (label_str, snapshot) for the per-engine families
     for name, m in sorted(named_metrics.items()):
         entries.append(('model="%s"' % _escape_label(name), m.snapshot()))
+    pools = dict(pools or {})
+    for name, pool in sorted(pools.items()):
+        for ridx, m in sorted(pool.replica_metrics().items()):
+            entries.append(('model="%s",replica="%s"'
+                            % (_escape_label(name), ridx), m.snapshot()))
     lines = []
     for family, mtype, help_text, key in _FAMILIES:
         lines.append("# HELP ptpu_serving_%s %s" % (family, help_text))
@@ -262,4 +300,51 @@ def render_prometheus_all(named_metrics):
         for q in ("p50", "p95", "p99"):
             lines.append('ptpu_serving_latency_ms{%s,quantile="%s"} %s'
                          % (labels, q, s["latency_ms"][q]))
+    if pools:
+        from .pool import _STATE_GAUGE
+        lines.append("# HELP ptpu_serving_replica_state replica health "
+                     "(0=healthy, 1=degraded, 2=ejected; +4 when dead)")
+        lines.append("# TYPE ptpu_serving_replica_state gauge")
+        pool_replica_states = {name: pool.pool_state()["replicas"]
+                               for name, pool in sorted(pools.items())}
+        for name, reps in pool_replica_states.items():
+            model = _escape_label(name)
+            for r in reps:
+                val = _STATE_GAUGE[r["state"]] + (4 if r["dead"] else 0)
+                lines.append('ptpu_serving_replica_state{model="%s",'
+                             'replica="%s"} %d' % (model, r["replica"],
+                                                   val))
+        # device ownership: one sample per (replica, device) — a
+        # tensor-parallel replica spans M devices, so operators can see
+        # exactly which cards each replica holds
+        lines.append("# HELP ptpu_serving_replica_device 1 for each "
+                     "device in a replica's span (tensor-parallel "
+                     "replicas span tp devices)")
+        lines.append("# TYPE ptpu_serving_replica_device gauge")
+        for name, reps in pool_replica_states.items():
+            model = _escape_label(name)
+            for r in reps:
+                for dev in r.get("devices", ()):
+                    lines.append(
+                        'ptpu_serving_replica_device{model="%s",'
+                        'replica="%s",device="%s"} 1'
+                        % (model, r["replica"], _escape_label(dev)))
+        psnaps = {name: pool.metrics.snapshot()
+                  for name, pool in sorted(pools.items())}
+        for family, mtype, help_text, key in _POOL_FAMILIES:
+            lines.append("# HELP ptpu_serving_%s %s" % (family, help_text))
+            lines.append("# TYPE ptpu_serving_%s %s" % (family, mtype))
+            for name, s in psnaps.items():
+                lines.append('ptpu_serving_%s{model="%s"} %s'
+                             % (family, _escape_label(name), s[key]))
+        lines.append("# HELP ptpu_serving_pool_latency_ms client-observed "
+                     "pool latency percentiles (submit -> result, "
+                     "failovers included)")
+        lines.append("# TYPE ptpu_serving_pool_latency_ms gauge")
+        for name, s in psnaps.items():
+            for q in ("p50", "p95", "p99"):
+                lines.append('ptpu_serving_pool_latency_ms{model="%s",'
+                             'quantile="%s"} %s'
+                             % (_escape_label(name), q,
+                                s["latency_ms"][q]))
     return "\n".join(lines) + "\n"

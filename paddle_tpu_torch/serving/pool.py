@@ -1,0 +1,1508 @@
+"""ReplicaPool: N InferenceEngine replicas behind one submit surface.
+
+Parity: the JAX package's serving/pool.py (`PoolMetrics`, `_Admission`,
+`_Replica`, `PoolFuture`, `ReplicaPool`, `DecodePool`), the same host
+logic over the port's engines. Placement: replica i serves on
+CUDAPlace(i modulo the card count), so on one card every replica shares
+it (and its default CUDA stream: their dispatches serialize on the
+device, and what a pool adds over one engine there is the overlap of its
+replicas' host work). Each replica's batcher worker sets its card.
+There is no AOT compile cache (ROADMAP A11): `reload`, `restart_replica`
+and `add_replica` build and warm an eager engine.
+
+The high-availability layer: one wedged or
+poisoned engine must never take every request down with it, and
+promoting a new checkpoint must never drop a request. The TensorFlow
+system paper's stance (replica-level fault tolerance is RUNTIME design,
+not deployment glue) applied to this repo's serving stack:
+
+  * N `InferenceEngine` replicas, each with its own private Scope and
+    batcher, placed round-robin over the visible devices. One program,
+    one weight set — at a fixed bucket shape every replica produces
+    BIT-IDENTICAL rows, so routing (and failover) is invisible in the
+    results.
+  * least-loaded routing over the replicas the health machine calls
+    routable, with a per-replica state machine
+
+        healthy -> degraded -> ejected -> (cooldown probe) -> healthy
+
+    driven by rolling error-rate and latency circuit breakers plus a
+    consecutive-failure fast path. Ejected replicas take no traffic
+    until their cooldown passes; then ONE live request probes them
+    (half-open breaker) — success readmits as degraded, failure re-arms
+    the cooldown.
+  * bounded retry-with-backoff onto a DIFFERENT replica for retryable
+    failures (dispatch errors, a replica closing mid-swap, non-finite
+    outputs from poisoned weights, per-attempt timeouts — the only
+    signal a silently wedged replica emits), plus optional tail hedging
+    (`hedge_delay_ms`): after the delay, a duplicate attempt races on
+    another replica and the first completion wins.
+  * adaptive admission control: an AIMD limit on pool-wide in-flight
+    attempts shrinks multiplicatively on overload signals (every queue
+    full, attempt timeouts) and recovers additively on successes, so
+    overload degrades to fast 429s instead of collapsing latency for
+    everyone.
+  * zero-downtime weight reload: `pool.reload()` warms a FRESH engine
+    per replica off the newest valid snapshot or re-read model dir, atomically swaps the engine pointer under the
+    replica's submit lock, then drains the outgoing engine with the
+    batcher's shared drain — every accepted request completes against
+    the weights it was accepted under; every request after the flip
+    sees the new ones. A training job promotes snapshots into serving
+    with zero dropped requests.
+
+Fault injection: the pre-dispatch tap (core/dispatch.ReplicaTap)
+consults the armed `resilience.faults.FaultPlan` (`replica_exc@N` /
+`replica_wedge@N[:s]` / `replica_poison@N` / `replica_slow@N[:s]` /
+`replica_crash@N`, keyed on the replica's own dispatch count), so every
+failover path above is provable on the CPU and on the card.
+"""
+import collections
+import os
+import threading
+import time
+
+import numpy as np
+
+from ..core import dispatch as _dispatch
+from ..observability import trace as _otrace
+from .batcher import (DeadlineExceededError, QueueFullError,
+                      RequestTooLargeError, ServingClosedError,
+                      ServingError)
+from .engine import InferenceEngine, InvalidRequestError
+
+__all__ = ["ReplicaPool", "PoolFuture", "PoolResult", "PoolMetrics",
+           "AttemptTimeoutError", "PoisonedOutputError", "DecodePool",
+           "HEALTHY", "DEGRADED", "EJECTED"]
+
+HEALTHY, DEGRADED, EJECTED = "healthy", "degraded", "ejected"
+_STATE_GAUGE = {HEALTHY: 0, DEGRADED: 1, EJECTED: 2}
+
+
+class AttemptTimeoutError(ServingError):
+    """One replica attempt exceeded `attempt_timeout_s` — the replica is
+    presumed wedged; the request fails over. Never client-visible unless
+    every retry also fails."""
+
+
+class PoisonedOutputError(ServingError):
+    """A replica returned non-finite values (`check_finite=True`):
+    treated as a replica failure — retried elsewhere, counted against
+    the replica's breaker — never returned to the client as a 200."""
+
+
+def _retryable(exc):
+    """Failures that are the REPLICA's fault (or transient) retry on a
+    different replica; failures that are the request's own fault (bad
+    feed, too large, deadline passed) never do — retrying them would
+    burn capacity reproducing a 4xx."""
+    if isinstance(exc, (InvalidRequestError, RequestTooLargeError,
+                        DeadlineExceededError)):
+        return False
+    return True
+
+
+class PoolResult(object):
+    """A materialized pool response (`check_finite` pools validate the
+    arrays before handing them over, so the lazy slice is already paid
+    for). Duck-types ResultSlice.numpy()."""
+
+    __slots__ = ("_outputs", "bucket")
+
+    def __init__(self, outputs, bucket):
+        self._outputs = outputs
+        self.bucket = bucket
+
+    def numpy(self):
+        return self._outputs
+
+
+class PoolMetrics(object):
+    """Pool-level counters + a bounded client-latency window (submit ->
+    terminal). Per-replica QPS/occupancy/queue metrics stay on each
+    replica engine's own ServingMetrics — /metrics labels them
+    {model, replica}."""
+
+    def __init__(self, latency_window=2048):
+        self._lock = threading.Lock()
+        self.requests_total = 0
+        self.responses_total = 0
+        self.errors_total = 0            # client-visible failures
+        self.retries_total = 0           # failover resubmissions
+        self.hedges_total = 0            # tail-hedge duplicates fired
+        self.rejected_queue_full = 0     # admission + all-queues-full 429s
+        self.attempt_timeouts_total = 0  # wedge detections
+        self.poisoned_results_total = 0  # non-finite outputs caught
+        self.reloads_total = 0
+        self.replica_kills_total = 0
+        self.ejections_total = 0
+        self._latencies = collections.deque(maxlen=latency_window)
+
+    def _bump(self, field, n=1):
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+
+    def on_submit(self):
+        self._bump("requests_total")
+
+    def on_success(self, latency_s):
+        with self._lock:
+            self.responses_total += 1
+            if latency_s is not None:
+                self._latencies.append(latency_s)
+
+    def on_error(self):
+        self._bump("errors_total")
+
+    def on_retry(self):
+        self._bump("retries_total")
+
+    def on_hedge(self):
+        self._bump("hedges_total")
+
+    def on_queue_full(self):
+        self._bump("rejected_queue_full")
+
+    def on_attempt_timeout(self):
+        self._bump("attempt_timeouts_total")
+
+    def on_poisoned(self):
+        self._bump("poisoned_results_total")
+
+    def on_reload(self):
+        self._bump("reloads_total")
+        _otrace.instant("pool/reload", cat="serving")
+
+    def on_kill(self):
+        self._bump("replica_kills_total")
+        _otrace.instant("pool/kill_replica", cat="serving")
+
+    def on_eject(self):
+        self._bump("ejections_total")
+        # flight-recorder instant: breaker trips
+        # land in the same timeline as the dispatch spans they follow
+        _otrace.instant("pool/eject", cat="serving")
+
+    def snapshot(self):
+        from .metrics import _percentile
+        with self._lock:
+            lat = sorted(self._latencies)
+            return {
+                "requests_total": self.requests_total,
+                "responses_total": self.responses_total,
+                "errors_total": self.errors_total,
+                "retries_total": self.retries_total,
+                "hedges_total": self.hedges_total,
+                "rejected_queue_full": self.rejected_queue_full,
+                "attempt_timeouts_total": self.attempt_timeouts_total,
+                "poisoned_results_total": self.poisoned_results_total,
+                "reloads_total": self.reloads_total,
+                "replica_kills_total": self.replica_kills_total,
+                "ejections_total": self.ejections_total,
+                "latency_ms": {
+                    "p50": round(_percentile(lat, 0.50) * 1e3, 3),
+                    "p95": round(_percentile(lat, 0.95) * 1e3, 3),
+                    "p99": round(_percentile(lat, 0.99) * 1e3, 3),
+                    "window": len(lat),
+                },
+            }
+
+
+class _Admission(object):
+    """AIMD concurrency limit over pool-wide in-flight attempts. Starts
+    wide open (the sum of replica queue capacities); every overload
+    signal multiplies it down, every success creeps it back up (+1 per
+    `limit` successes). The floor keeps one slot per replica so the pool
+    can always probe its way out of a shrunken limit."""
+
+    def __init__(self, hi, lo, decrease=0.85):
+        self._lock = threading.Lock()
+        self.hi = float(max(hi, lo))
+        self.lo = float(max(lo, 1))
+        self.limit = self.hi
+        self._decrease = decrease
+
+    def allow(self, inflight):
+        with self._lock:
+            return inflight < self.limit
+
+    def on_success(self):
+        with self._lock:
+            self.limit = min(self.hi, self.limit + 1.0 / max(self.limit, 1))
+
+    def on_overload(self):
+        with self._lock:
+            self.limit = max(self.lo, self.limit * self._decrease)
+
+    def set_bounds(self, hi, lo):
+        """Pool membership changed (autoscale / kill / restart). On a
+        GROWN ceiling the limit opens straight to it — the whole point
+        of scaling up under load is absorbing the overload NOW, not
+        after additive +1-per-success recovery crawls there; on a shrunk
+        ceiling the limit clamps into the new bounds."""
+        with self._lock:
+            grew = float(max(hi, lo)) > self.hi
+            self.hi = float(max(hi, lo))
+            self.lo = float(max(lo, 1))
+            self.limit = self.hi if grew else min(self.limit, self.hi)
+            self.limit = max(self.limit, self.lo)
+
+    def retry_after_s(self):
+        """The 429 `Retry-After` hint, derived from the AIMD state: the
+        deeper the limit has shrunk below the ceiling (= the more
+        overload signals the pool has absorbed recently), the longer
+        clients should back off. Bounded [0.05s, 5s]."""
+        with self._lock:
+            pressure = self.hi / max(self.limit, 1.0)
+        return min(5.0, max(0.05, 0.05 * pressure))
+
+
+class _Replica(object):
+    __slots__ = ("idx", "engine", "state", "dead", "retired", "inflight",
+                 "tap_counter", "generation", "window",
+                 "consecutive_failures", "ejected_until", "probe_inflight",
+                 "lock", "swap_lock")
+
+    def __init__(self, idx, engine, window):
+        self.idx = idx
+        self.engine = engine
+        self.state = HEALTHY
+        self.dead = False          # hard-killed: never routed, no probes
+        self.retired = False       # autoscale drain-down: never routed,
+        # but in-flight/queued work still completes (then it is removed)
+        self.inflight = 0          # attempts submitted, not yet completed
+        # pre-dispatch tap count (the serving fault key) — pool-owned so
+        # the sequence survives engine swaps (core/dispatch.TapCounter)
+        self.tap_counter = _dispatch.TapCounter()
+        self.generation = 0        # bumps on every engine swap
+        self.window = collections.deque(maxlen=window)  # (ok, latency_s)
+        self.consecutive_failures = 0
+        self.ejected_until = 0.0
+        self.probe_inflight = False
+        self.lock = threading.Lock()       # health state + counters
+        self.swap_lock = threading.Lock()  # engine pointer flips
+
+    @property
+    def dispatches(self):
+        return self.tap_counter.n
+
+
+class _Attempt(object):
+    __slots__ = ("replica", "generation", "future", "started_at",
+                 "timeout_at", "hedge", "probe", "consumed", "timed_out")
+
+    def __init__(self, replica, future, timeout_s, hedge=False,
+                 probe=False):
+        self.replica = replica
+        self.generation = replica.generation
+        self.future = future
+        self.started_at = time.monotonic()
+        self.timeout_at = (self.started_at + timeout_s
+                           if timeout_s is not None else None)
+        self.hedge = hedge
+        self.probe = probe
+        self.consumed = False    # result() has judged this attempt
+        self.timed_out = False
+
+
+class PoolFuture(object):
+    """Completion handle for one pool request. `result(timeout)` drives
+    the failover machine on the CALLER's thread: it waits on the live
+    attempts, fails retryable errors over to other replicas (bounded,
+    with exponential backoff), fires the optional tail hedge, validates
+    outputs, and returns a PoolResult (or the lazy ResultSlice when
+    `check_finite=False`). Attempt completions recorded by the batcher
+    workers only set a wake flag — no device or blocking work ever runs
+    on a dispatch thread."""
+
+    def __init__(self, pool, norm, deadline_ms):
+        self._pool = pool
+        self._norm = norm
+        self._t0 = time.monotonic()
+        self._deadline_at = (self._t0 + deadline_ms / 1e3
+                             if deadline_ms is not None else None)
+        self._attempts = []
+        self._drive_lock = threading.Lock()  # one result() caller drives
+        self._wake = threading.Event()
+        self._value = None
+        self._error = None
+        self._retries_used = 0
+        self._hedged = False
+        self._last_error = None
+        self.latency_s = None
+        self.bucket = None
+
+    def done(self):
+        """Terminal only: a pool future is done once a `result()` call
+        has produced a value or a final error. The failover machine is
+        caller-driven, so an attempt completing with a RETRYABLE error
+        does not make the future done — result() may still rescue it on
+        another replica."""
+        return self._value is not None or self._error is not None
+
+    def remaining_deadline_ms(self):
+        if self._deadline_at is None:
+            return None
+        rem = (self._deadline_at - time.monotonic()) * 1e3
+        if rem <= 0:
+            raise DeadlineExceededError(
+                "deadline passed after %.1fms (during failover)"
+                % ((time.monotonic() - self._t0) * 1e3))
+        return rem
+
+    # ------------------------------------------------------------ drive --
+    def result(self, timeout=None):
+        with self._drive_lock:
+            if self._error is not None:
+                raise self._error
+            if self._value is not None:
+                return self._value
+            return self._drive(timeout)
+
+    def _fail(self, exc):
+        self._error = exc
+        self._pool.metrics.on_error()
+        raise exc
+
+    def _succeed(self, att, value):
+        self.latency_s = time.monotonic() - self._t0
+        self.bucket = att.future.bucket
+        if hasattr(value, "bucket") and value.bucket is None:
+            value.bucket = self.bucket
+        self._value = value
+        self._pool.metrics.on_success(self.latency_s)
+        return value
+
+    def _drive(self, timeout):
+        pool = self._pool
+        end = time.monotonic() + timeout if timeout is not None else None
+        while True:
+            now = time.monotonic()
+            wake_at = []
+            for att in list(self._attempts):
+                if att.consumed:
+                    continue
+                if att.future.done():
+                    att.consumed = True
+                    err = att.future._error
+                    if err is None:
+                        ok, payload = pool._validate_result(att)
+                        if ok:
+                            return self._succeed(att, payload)
+                        err = payload
+                    if not _retryable(err):
+                        self._fail(err)
+                    self._last_error = err
+                elif att.timeout_at is not None and now >= att.timeout_at:
+                    att.consumed = True
+                    att.timed_out = True
+                    pool._on_attempt_timeout(att)
+                    self._last_error = AttemptTimeoutError(
+                        "replica %d did not answer within %.3fs (presumed "
+                        "wedged); failing over" % (att.replica.idx,
+                                                   pool.attempt_timeout_s))
+                elif att.timeout_at is not None:
+                    wake_at.append(att.timeout_at)
+
+            live = [a for a in self._attempts if not a.consumed]
+            if not live:
+                if self._deadline_at is not None \
+                        and now >= self._deadline_at:
+                    self._fail(DeadlineExceededError(
+                        "deadline passed after %.1fms (all attempts "
+                        "failed or timed out)" % ((now - self._t0) * 1e3)))
+                if self._retries_used >= pool.retries:
+                    self._fail(self._last_error if self._last_error
+                               is not None else RuntimeError(
+                                   "pool request ended with no attempts"))
+                delay = pool.retry_backoff_s * (2 ** self._retries_used)
+                self._retries_used += 1
+                pool.metrics.on_retry()
+                if delay > 0:
+                    if end is not None:
+                        delay = min(delay, max(end - time.monotonic(), 0))
+                    time.sleep(delay)
+                try:
+                    pool._submit_attempt(
+                        self, exclude={a.replica for a in self._attempts})
+                except DeadlineExceededError as e:
+                    self._fail(e)
+                except (QueueFullError, ServingClosedError) as e:
+                    # transient: capacity may free / swap may finish —
+                    # loop again and spend another retry on it. Keep the
+                    # FIRST real failure as the reported cause: a
+                    # poisoned/wedged outage must not surface to the
+                    # client dressed up as a capacity 429 just because
+                    # the failed replicas are now all excluded
+                    if self._last_error is None:
+                        self._last_error = e
+                continue
+
+            # tail hedging: one duplicate attempt on another replica once
+            # the primary has been quiet for hedge_delay
+            if (pool.hedge_delay_s is not None and not self._hedged
+                    and len(live) == 1 and not live[0].hedge):
+                hedge_due = live[0].started_at + pool.hedge_delay_s
+                if now >= hedge_due:
+                    self._hedged = True
+                    try:
+                        pool._submit_attempt(
+                            self,
+                            exclude={a.replica for a in self._attempts},
+                            hedge=True)
+                        pool.metrics.on_hedge()
+                    except (QueueFullError, ServingClosedError,
+                            DeadlineExceededError):
+                        pass   # hedging is best-effort by definition
+                    continue
+                wake_at.append(hedge_due)
+
+            if end is not None:
+                if now >= end:
+                    raise TimeoutError(
+                        "pool request not completed within %rs" % timeout)
+                wake_at.append(end)
+            dt = min(wake_at) - now if wake_at else None
+            self._wake.wait(dt if dt is None or dt > 0 else 0)
+            self._wake.clear()
+
+
+class ReplicaPool(object):
+    """N engine replicas behind one engine-shaped surface (submit /
+    infer / run_direct / describe / metrics / close), plus the pool
+    verbs: reload, kill_replica, restart_replica, pool_state."""
+
+    def __init__(self, model_dir=None, replicas=2, place=None, name=None,
+                 checkpoint_dir=None, fetch_list=None, feed_names=None,
+                 step=None, engine_factory=None, tp=None,
+                 # failover / hedging
+                 retries=2, retry_backoff_ms=5.0, attempt_timeout_s=30.0,
+                 hedge_delay_ms=None, check_finite=True,
+                 # health machine / breakers
+                 window=64, min_samples=8, degrade_error_rate=0.25,
+                 eject_error_rate=0.5, eject_consecutive=3,
+                 latency_degrade_s=None, eject_cooldown_s=2.0,
+                 recover_samples=4,
+                 # admission
+                 admission=True, default_deadline_ms=None,
+                 latency_window=2048,
+                 # autoscale (serving/autoscaler.py): replicas= is the
+                 # STARTING size; the controller grows/shrinks between
+                 # [min_replicas, max_replicas] off the admission/queue/
+                 # idle signals the pool already measures
+                 autoscale=False, min_replicas=None, max_replicas=None,
+                 autoscale_kw=None, **engine_kw):
+        if int(replicas) < 1:
+            raise ValueError("ReplicaPool needs replicas >= 1, got %r"
+                             % (replicas,))
+        if not autoscale and (min_replicas is not None
+                              or max_replicas is not None):
+            # validate BEFORE any engine builds: a raise below this
+            # point would leak live batcher workers per failed ctor
+            raise ValueError("min_replicas/max_replicas need "
+                             "autoscale=True")
+        self._autoscale_bounds = None
+        if autoscale:
+            # `is not None`, not truthiness: an explicit 0 must hit the
+            # validation below, not silently fall back to the default
+            _mn = (int(min_replicas) if min_replicas is not None
+                   else int(replicas))
+            _mx = (int(max_replicas) if max_replicas is not None
+                   else 2 * int(replicas))
+            if _mn < 1 or _mx < _mn:
+                raise ValueError(
+                    "autoscale wants 1 <= min_replicas <= max_replicas, "
+                    "got [%r, %r]" % (min_replicas, max_replicas))
+            if int(replicas) > _mx:
+                raise ValueError(
+                    "replicas=%d starts ABOVE max_replicas=%d: the "
+                    "controller could never shrink past its own "
+                    "ceiling; raise max_replicas or start smaller"
+                    % (int(replicas), _mx))
+            self._autoscale_bounds = (_mn, _mx)
+        if engine_factory is None and model_dir is None \
+                and checkpoint_dir is None:
+            raise ValueError("need model_dir, checkpoint_dir or an "
+                             "engine_factory")
+        self.name = name or self._default_name(model_dir, checkpoint_dir)
+        self.num_replicas = int(replicas)
+        self.retries = int(retries)
+        self.retry_backoff_s = float(retry_backoff_ms) / 1e3
+        self.attempt_timeout_s = (float(attempt_timeout_s)
+                                  if attempt_timeout_s else None)
+        self.hedge_delay_s = (float(hedge_delay_ms) / 1e3
+                              if hedge_delay_ms is not None else None)
+        self.check_finite = bool(check_finite)
+        self.window = int(window)
+        self.min_samples = int(min_samples)
+        self.degrade_error_rate = float(degrade_error_rate)
+        self.eject_error_rate = float(eject_error_rate)
+        self.eject_consecutive = int(eject_consecutive)
+        self.latency_degrade_s = latency_degrade_s
+        self.eject_cooldown_s = float(eject_cooldown_s)
+        self.recover_samples = int(recover_samples)
+        self.default_deadline_ms = default_deadline_ms
+        self.closed = False
+        self.metrics = PoolMetrics(latency_window=latency_window)
+        self.events = []              # (monotonic, kind, replica, detail)
+        self._events_lock = threading.Lock()
+        self._route_lock = threading.Lock()
+        self._reload_lock = threading.Lock()
+        self._source = {"model_dir": model_dir,
+                        "checkpoint_dir": checkpoint_dir,
+                        "fetch_list": fetch_list,
+                        "feed_names": feed_names, "step": step}
+        self._factory = engine_factory
+        if engine_factory is not None and \
+                (engine_kw.get("weights_dtype") or "fp32") != "fp32":
+            # a factory builds its engines itself — weights_dtype would
+            # be silently dropped, and fp32 replicas serving under a
+            # bf16/int8 label pass every divergence gate trivially (the
+            # same refusal InferenceEngine makes for program= builds)
+            raise ValueError(
+                "weights_dtype=%r is ignored with engine_factory: pass "
+                "it to InferenceEngine inside the factory instead"
+                % (engine_kw["weights_dtype"],))
+        self._place = place
+        # tensor-parallel replicas: tp=M makes
+        # every replica an M-device engine — replica i owns the
+        # contiguous device span [i*M, (i+1)*M) (modulo the visible
+        # count: more replica-devices than cards share spans, same as
+        # the 1-device round-robin). Health/failover/reload all stay
+        # replica-granular: a replica IS its M-device engine.
+        if tp is not None and int(tp) < 1:
+            # before the falsy mapping: tp=0 must raise, not silently
+            # run single-device replicas (see InferenceEngine)
+            raise ValueError("tp must be >= 1, got %r" % (tp,))
+        self.tp = int(tp) if tp is not None else None
+        self._engine_kw = dict(engine_kw)
+
+        self._replicas = []
+        self._next_idx = self.num_replicas   # stable ids across scaling
+        self._canary = None                  # CanaryController when a
+        # promotion is in flight (serving/canary.py)
+        try:
+            for i in range(self.num_replicas):
+                eng = self._build_engine(i)
+                rep = _Replica(i, eng, self.window)
+                self._attach_tap(rep)
+                self._replicas.append(rep)
+        except Exception:
+            for rep in self._replicas:   # no thread leak per failed ctor
+                rep.engine.close(drain=False)
+            raise
+        cap = sum(r.engine._batcher.queue_capacity for r in self._replicas)
+        self._admission = _Admission(hi=cap, lo=self.num_replicas) \
+            if admission else None
+        self._autoscaler = None
+        if autoscale:
+            from .autoscaler import PoolAutoscaler
+            mn, mx = self._autoscale_bounds
+            self._autoscaler = PoolAutoscaler(
+                self, min_replicas=mn, max_replicas=mx,
+                **(autoscale_kw or {}))
+            self._autoscaler.start()
+
+    # ------------------------------------------------------------ build --
+    @staticmethod
+    def _default_name(model_dir, checkpoint_dir):
+        for d in (model_dir, checkpoint_dir):
+            if d:
+                return os.path.basename(os.path.normpath(d))
+        return "pool"
+
+    def _place_for(self, idx):
+        """Round-robin placement over the visible cards. An explicit
+        place (or list of places) wins; default CUDAPlace(idx modulo the
+        card count), which raises where there is no card (the CPU is
+        asked for: place="cpu" or CPUPlace()). A tensor-parallel replica
+        gets None: its engine loads on the first device of its own span
+        (never a card inside another replica's span)."""
+        from ..places import CUDAPlace
+        place = self._place
+        if isinstance(place, (list, tuple)):
+            return place[idx % len(place)]
+        if place is not None:
+            return place
+        if self.tp is not None:
+            return None
+        import torch
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 1
+        return CUDAPlace(idx % n)
+
+    def _tp_span(self, idx):
+        """Replica idx's contiguous tp-device span over the visible cards.
+        The span START wraps modulo the card count (an over-subscribed
+        pool shares cards ACROSS replicas as 1-device replicas do under
+        round-robin), but one span never exceeds the visible cards: it
+        repeats no card on its own. A one-card tp pool (a mesh of one
+        card listed tp times) is built through `engine_factory`."""
+        from ..parallel.mesh import default_devices
+        try:
+            devs = default_devices()
+        except RuntimeError:
+            devs = []   # no card: none visible
+        if self.tp > len(devs):
+            raise ValueError(
+                "tp=%d needs %d devices per replica but only %d are "
+                "visible" % (self.tp, self.tp, len(devs)))
+        return [devs[(idx * self.tp + k) % len(devs)]
+                for k in range(self.tp)]
+
+    def _build_engine(self, idx, source=None, ename=None):
+        """One warmed replica engine off the current source (or, for a
+        canary, an explicit candidate `source`): an eager engine, warmed
+        at every bucket (no AOT compile cache until ROADMAP A11)."""
+        place = self._place_for(idx)
+        ename = ename or "%s@%d" % (self.name, idx)
+        if self._factory is not None:
+            return self._factory(idx, place)
+        kw = dict(self._engine_kw)
+        if self.tp is not None:
+            kw["tp"] = self.tp
+            kw["mesh_devices"] = self._tp_span(idx)
+        src = source if source is not None else self._source
+        if src["checkpoint_dir"] is not None:
+            if src["fetch_list"] is None:
+                raise ValueError("checkpoint_dir serving needs fetch_list")
+            return InferenceEngine.from_checkpoint(
+                src["checkpoint_dir"], src["fetch_list"],
+                feed_names=src["feed_names"], step=src["step"],
+                device=place, name=ename, **kw)
+        return InferenceEngine(src["model_dir"], device=place, name=ename,
+                               **kw)
+
+    def _attach_tap(self, rep, engine=None):
+        # the fault-tap plumbing lives once in the shared dispatch core
+        # (core/dispatch.ReplicaTap): it captures the engine it is
+        # ATTACHED to (a replica_poison landing in a draining outgoing
+        # engine must not NaN the freshly promoted replacement), while
+        # the pool-owned TapCounter keeps the per-replica dispatch
+        # sequence consistent across engine swaps
+        eng = engine if engine is not None else rep.engine
+        eng._replica_tap = _dispatch.ReplicaTap(rep.idx, eng,
+                                                rep.tap_counter)
+
+    def _event(self, kind, replica, detail=""):
+        with self._events_lock:
+            self.events.append((time.monotonic(), kind, replica, detail))
+
+    # ----------------------------------------------------------- health --
+    def _record_outcome(self, rep, ok, latency_s=None):
+        """One attempt outcome -> the replica's rolling window -> state
+        transitions. Called from done-callbacks (failures, and successes
+        on check_finite=False pools) and from result() validation."""
+        now = time.monotonic()
+        with rep.lock:
+            rep.window.append((1 if ok else 0, latency_s))
+            was_probe, rep.probe_inflight = rep.probe_inflight, False
+            if ok:
+                rep.consecutive_failures = 0
+            else:
+                rep.consecutive_failures += 1
+            if rep.dead:
+                return
+            if rep.state == EJECTED:
+                if was_probe and ok:
+                    rep.state = DEGRADED     # half-open probe succeeded
+                    rep.window.clear()
+                    rep.window.append((1, latency_s))
+                    self._event("probe_ok", rep.idx)
+                elif not ok:
+                    rep.ejected_until = now + self.eject_cooldown_s
+                    if was_probe:
+                        self._event("probe_failed", rep.idx)
+                return
+            n = len(rep.window)
+            errs = sum(1 for o, _ in rep.window if not o)
+            if rep.consecutive_failures >= self.eject_consecutive or (
+                    n >= self.min_samples
+                    and errs / n >= self.eject_error_rate):
+                rep.state = EJECTED
+                rep.ejected_until = now + self.eject_cooldown_s
+                self.metrics.on_eject()
+                self._event("eject", rep.idx,
+                            "%d consecutive failures, %d/%d window errors"
+                            % (rep.consecutive_failures, errs, n))
+                return
+            if n >= self.min_samples \
+                    and errs / n >= self.degrade_error_rate:
+                if rep.state != DEGRADED:
+                    rep.state = DEGRADED
+                    self._event("degrade", rep.idx,
+                                "error rate %d/%d" % (errs, n))
+                return
+            if self.latency_degrade_s is not None and n >= self.min_samples:
+                lats = sorted(l for _, l in rep.window if l is not None)
+                if lats:
+                    p99 = lats[min(len(lats) - 1,
+                                   int(round(0.99 * (len(lats) - 1))))]
+                    if p99 > self.latency_degrade_s:
+                        if rep.state != DEGRADED:
+                            rep.state = DEGRADED
+                            self._event("degrade", rep.idx,
+                                        "p99 %.3fs" % p99)
+                        return
+            if rep.state == DEGRADED and n >= self.recover_samples:
+                tail = list(rep.window)[-self.recover_samples:]
+                if all(o for o, _ in tail):
+                    rep.state = HEALTHY
+                    self._event("recover", rep.idx)
+
+    def _release_probe(self, att):
+        """Unblock the half-open slot when a probe attempt ends WITHOUT
+        reaching _record_outcome (deadline expiry, engine closed):
+        neither outcome says anything about replica health, but leaving
+        probe_inflight set would block every future probe and strand
+        the replica in EJECTED forever."""
+        if att.probe:
+            with att.replica.lock:
+                att.replica.probe_inflight = False
+
+    def _on_attempt_timeout(self, att):
+        self.metrics.on_attempt_timeout()
+        if self._admission is not None:
+            self._admission.on_overload()
+        if att.generation == att.replica.generation:
+            self._record_outcome(att.replica, ok=False)
+
+    def _attempt_done(self, fut, att):
+        """Inner-future done-callback: bookkeeping only (the caller's
+        result() drive does the judging). Runs on the completing batcher
+        worker — must stay cheap and non-blocking."""
+        rep = att.replica
+        with rep.lock:
+            rep.inflight -= 1
+        err = att.future._error
+        if att.timed_out:
+            pass          # already counted as a failure at timeout time
+        elif err is None:
+            if self._admission is not None:
+                self._admission.on_success()
+            if not self.check_finite:
+                # finite-checking pools record success at validation
+                self._record_outcome(rep, ok=True,
+                                     latency_s=att.future.latency_s)
+        elif isinstance(err, DeadlineExceededError):
+            # not the replica's fault (client deadline), but a deadline
+            # expiring IN QUEUE is the latency-collapse signal adaptive
+            # admission exists for: shed earlier next time
+            if self._admission is not None:
+                self._admission.on_overload()
+            self._release_probe(att)
+        elif isinstance(err, ServingClosedError):
+            # swap/kill closed the engine: no health signal
+            self._release_probe(att)
+        elif att.generation != rep.generation:
+            pass          # outcome of a swapped-out engine: stale signal
+        else:
+            self._record_outcome(rep, ok=False)
+        fut._wake.set()
+
+    def _validate_result(self, att):
+        """Judge a completed attempt's payload on the caller's thread.
+        check_finite pools materialize here (the client was about to
+        anyway) and treat non-finite floats as a replica failure —
+        poisoned weights produce well-formed NaN tensors, which is
+        exactly the corruption a 200 must never carry."""
+        slice_ = att.future._value
+        if not self.check_finite:
+            return True, slice_
+        try:
+            outputs = slice_.numpy()
+        except Exception as e:  # noqa: BLE001 — materialize failure =
+            if att.generation == att.replica.generation:  # replica fault
+                self._record_outcome(att.replica, ok=False)
+            return False, e
+        for fname, arr in outputs.items():
+            a = np.asarray(arr)
+            if np.issubdtype(a.dtype, np.floating) \
+                    and not np.isfinite(a).all():
+                self.metrics.on_poisoned()
+                if att.generation == att.replica.generation:
+                    self._record_outcome(att.replica, ok=False)
+                return False, PoisonedOutputError(
+                    "replica %d returned non-finite values in fetch %r"
+                    % (att.replica.idx, fname))
+        if att.generation == att.replica.generation:
+            self._record_outcome(att.replica, ok=True,
+                                 latency_s=att.future.latency_s)
+        # a stale-generation success (engine swapped mid-flight) is still
+        # a valid result for the client — it just isn't a health signal
+        return True, PoolResult(outputs, att.future.bucket)
+
+    # ---------------------------------------------------------- routing --
+    def _pick(self, exclude=()):
+        """(replica, is_probe) — least-loaded healthy first; degraded
+        only when no healthy candidate exists; a cooldown-expired
+        ejected replica gets ONE concurrent live-traffic probe
+        (half-open breaker) ahead of regular routing, else ejected
+        replicas are last-resort only."""
+        now = time.monotonic()
+        with self._route_lock:
+            healthy, degraded, last_resort = [], [], []
+            probe = None
+            for rep in self._replicas:
+                if rep.dead or rep.retired or rep in exclude:
+                    continue
+                with rep.lock:
+                    state, load = rep.state, rep.inflight
+                    probe_due = (state == EJECTED and not rep.probe_inflight
+                                 and now >= rep.ejected_until)
+                if state == HEALTHY:
+                    healthy.append((load, rep.idx, rep))
+                elif state == DEGRADED:
+                    degraded.append((load, rep.idx, rep))
+                elif probe_due and probe is None:
+                    probe = rep
+                else:
+                    last_resort.append((load, rep.idx, rep))
+            if probe is not None:
+                with probe.lock:
+                    probe.probe_inflight = True
+                return probe, True
+            for bucket in (healthy, degraded, last_resort):
+                if bucket:
+                    return min(bucket)[2], False
+        return None, False
+
+    def _submit_attempt(self, fut, exclude=(), hedge=False):
+        """Route one attempt; on a full/closed replica move on to the
+        next candidate. Raises QueueFullError when EVERY routable
+        replica rejected (the admission controller hears about it)."""
+        tried = set(exclude)
+        rejected_any = False
+        deadline_ms = fut.remaining_deadline_ms()   # raises when spent
+        while True:
+            rep, probe = self._pick(exclude=tried)
+            if rep is None:
+                # overload signals (admission shrink, 429 counter) only
+                # when a replica actually REJECTED here — exhausting the
+                # exclude set on a failover is the request running out
+                # of replicas, not the pool running out of capacity
+                if rejected_any:
+                    if self._admission is not None:
+                        self._admission.on_overload()
+                    self.metrics.on_queue_full()
+                exc = QueueFullError(
+                    "no replica can accept the request (all full, "
+                    "ejected or excluded); retry with backoff")
+                if rejected_any and self._admission is not None:
+                    exc.retry_after_s = self._admission.retry_after_s()
+                raise exc
+            try:
+                with rep.swap_lock:
+                    inner = rep.engine.submit_normalized(
+                        fut._norm, deadline_ms=deadline_ms)
+            except (QueueFullError, ServingClosedError):
+                if probe:
+                    with rep.lock:
+                        rep.probe_inflight = False
+                tried.add(rep)
+                rejected_any = True
+                continue
+            except Exception:
+                if probe:
+                    with rep.lock:
+                        rep.probe_inflight = False
+                raise
+            with rep.lock:
+                rep.inflight += 1
+            att = _Attempt(rep, inner, self.attempt_timeout_s,
+                           hedge=hedge, probe=probe)
+            fut._attempts.append(att)
+            inner.add_done_callback(
+                lambda _f, a=att, f=fut: self._attempt_done(f, a))
+            return att
+
+    # ----------------------------------------------------------- public --
+    def submit(self, feed, deadline_ms=None):
+        """Normalize once (caller's thread — malformed requests fail
+        fast, before any routing), admission-check, route the first
+        attempt. Returns a PoolFuture."""
+        if self.closed:
+            raise ServingClosedError("replica pool is shut down")
+        if deadline_ms is None:
+            deadline_ms = self.default_deadline_ms
+        norm = self._any_engine().normalize_feed(feed)
+        if self._admission is not None and not self._admission.allow(
+                self.total_inflight()):
+            self.metrics.on_queue_full()
+            exc = QueueFullError(
+                "pool admission limit %.0f reached (overload shedding); "
+                "retry with backoff" % self._admission.limit)
+            # the 429 carries an intelligent backoff hint instead of
+            # letting every client hammer a saturated fleet in lockstep
+            exc.retry_after_s = self._admission.retry_after_s()
+            raise exc
+        can = self._canary
+        if can is not None:
+            # an in-flight promotion claims its deterministic traffic
+            # slice: the request rides the canary engine AND an
+            # incumbent mirror (serving/canary.py) — the mirror is what
+            # makes a corrupt canary invisible to the client
+            cfut = can.maybe_submit(norm, deadline_ms)
+            if cfut is not None:
+                self.metrics.on_submit()
+                return cfut
+        fut = PoolFuture(self, norm, deadline_ms)
+        self._submit_attempt(fut)
+        self.metrics.on_submit()
+        return fut
+
+    def infer(self, feed, deadline_ms=None, timeout=30.0):
+        return self.submit(feed, deadline_ms=deadline_ms) \
+            .result(timeout).numpy()
+
+    def run_direct(self, feed, batch_bucket=None, seq_bucket=None):
+        """The single-request reference path, on any live replica — the
+        pool invariant is that WHICH replica is unobservable in the
+        bits."""
+        return self._any_engine().run_direct(
+            feed, batch_bucket=batch_bucket, seq_bucket=seq_bucket)
+
+    def _any_engine(self):
+        for rep in list(self._replicas):
+            if not rep.dead and not rep.retired and not rep.engine.closed:
+                return rep.engine
+        raise ServingClosedError("no live replica in the pool")
+
+    def _replica(self, idx):
+        """Replica by STABLE id (autoscaling means ids are not list
+        positions — a removed replica's id is never reused)."""
+        for rep in list(self._replicas):
+            if rep.idx == idx:
+                return rep
+        raise KeyError("no replica %r in the pool (have %r)"
+                       % (idx, [r.idx for r in self._replicas]))
+
+    def total_inflight(self):
+        return sum(rep.inflight for rep in list(self._replicas))
+
+    def live_replica_count(self):
+        """Replicas that can take NEW traffic (not dead, not retired)."""
+        return sum(1 for rep in list(self._replicas)
+                   if not rep.dead and not rep.retired)
+
+    def queue_capacity_total(self):
+        return sum(rep.engine._batcher.queue_capacity
+                   for rep in list(self._replicas)
+                   if not rep.dead and not rep.retired)
+
+    @property
+    def fetch_names(self):
+        return self._any_engine().fetch_names
+
+    @property
+    def feed_names(self):
+        return self._any_engine().feed_names
+
+    @property
+    def max_batch_size(self):
+        return self._any_engine().max_batch_size
+
+    @property
+    def batch_buckets(self):
+        return self._any_engine().batch_buckets
+
+    @property
+    def seq_buckets(self):
+        return self._any_engine().seq_buckets
+
+    def queue_depth(self):
+        return sum(rep.engine.queue_depth() for rep in list(self._replicas)
+                   if not rep.dead)
+
+    def replica_metrics(self):
+        """{replica_index: ServingMetrics} for /metrics labeling."""
+        return {rep.idx: rep.engine.metrics
+                for rep in list(self._replicas)}
+
+    def pool_state(self):
+        """The /healthz payload: per-replica state + aggregate counts."""
+        reps = []
+        counts = {HEALTHY: 0, DEGRADED: 0, EJECTED: 0}
+        for rep in list(self._replicas):
+            with rep.lock:
+                st = rep.state
+                entry = {"replica": rep.idx, "state": st,
+                         "dead": rep.dead, "retired": rep.retired,
+                         "inflight": rep.inflight,
+                         "dispatches": rep.tap_counter.n,
+                         "generation": rep.generation,
+                         # per-replica engine config (mixed-config pools
+                         # must be VISIBLE, not silent): dtype + depth
+                         # ride /healthz
+                         "weights_dtype": getattr(rep.engine,
+                                                  "weights_dtype", "fp32"),
+                         "pipeline_depth": getattr(rep.engine,
+                                                   "pipeline_depth", None),
+                         # the device span this replica's engine owns —
+                         # M entries for a tensor-parallel replica, so
+                         # an operator can map replicas to cards
+                         "tp": getattr(rep.engine, "tp", None),
+                         "devices": rep.engine.device_span()
+                         if hasattr(rep.engine, "device_span") else []}
+                # continuous-batching window:
+                # per-replica device in-flight/idle accounting — the
+                # operator's view of whether this replica's device is
+                # actually kept busy behind the pipeline
+                ws = rep.engine._batcher.pipeline_stats()
+                if ws is not None:
+                    entry["pipeline"] = {
+                        "depth": ws["depth"],
+                        "completed": ws["completed"],
+                        "device_idle_s": round(ws["idle_s"], 4)}
+            reps.append(entry)
+            counts[st] += 1
+        out = {"replicas": reps, "healthy": counts[HEALTHY],
+               "degraded": counts[DEGRADED], "ejected": counts[EJECTED],
+               "inflight": self.total_inflight()}
+        if self._admission is not None:
+            out["admission_limit"] = round(self._admission.limit, 1)
+        if self._autoscaler is not None:
+            out["autoscale"] = self._autoscaler.state()
+        can = self._canary
+        if can is not None:
+            out["promotion"] = can.state()
+        return out
+
+    def describe(self):
+        base = self._any_engine().describe()
+        base["name"] = self.name
+        base["status"] = "closed" if self.closed else "serving"
+        base["pool"] = self.pool_state()
+        base["metrics"] = self.metrics.snapshot()
+        return base
+
+    # -------------------------------------------------- reload / verbs --
+    def reload(self, checkpoint_dir=None, model_dir=None, step=None,
+               timeout=None):
+        """Zero-downtime weight promotion, one replica at a time: build
+        and WARM a fresh engine off the newest valid snapshot of
+        `checkpoint_dir` (or re-read `model_dir`; no argument = re-read
+        the pool's current source, which for a checkpoint pool means
+        "newest valid snapshot NOW" — the trainer-promotes flow), then
+        atomically swap it in under the replica's submit lock and drain
+        the outgoing engine. Requests accepted before a replica's flip
+        complete against the old weights; requests after it get the new
+        ones; nothing is ever dropped, and the other replicas keep
+        serving throughout. Returns the served checkpoint step (None
+        for model-dir pools)."""
+        with self._reload_lock:
+            if self.closed:
+                raise ServingClosedError("replica pool is shut down")
+            can = self._canary
+            if can is not None and can.is_routing():
+                raise RuntimeError(
+                    "a canary promotion is in flight (%s); let it "
+                    "finish, or cancel_promotion() first — an unguarded "
+                    "reload would promote around the gate"
+                    % can.state()["state"])
+            if checkpoint_dir is not None:
+                self._source["checkpoint_dir"] = checkpoint_dir
+                self._source["model_dir"] = None
+            if model_dir is not None:
+                self._source["model_dir"] = model_dir
+                self._source["checkpoint_dir"] = None
+            if step is not None:
+                self._source["step"] = step
+            served_step = None
+            for rep in list(self._replicas):
+                if rep.dead or rep.retired:
+                    continue    # killed replicas stay down (restart_
+                                # replica is the explicit revive);
+                                # retired ones are mid-drain-out
+                fresh = self._build_engine(rep.idx)
+                served_step = getattr(fresh, "checkpoint_step",
+                                      served_step)
+                with rep.swap_lock:
+                    old, rep.engine = rep.engine, fresh
+                    rep.generation += 1
+                self._attach_tap(rep, engine=fresh)
+                with rep.lock:
+                    was_ejected = rep.state == EJECTED
+                    rep.window.clear()
+                    rep.consecutive_failures = 0
+                    rep.probe_inflight = False
+                    if rep.state == DEGRADED:
+                        rep.state = HEALTHY
+                    elif was_ejected:
+                        # new weights cure a poisoned-weights ejection,
+                        # but a wedge-class cause can be environmental
+                        # (the old worker may literally still be stuck):
+                        # keep the half-open path — the cooldown
+                        # restarts and ONE live probe readmits a
+                        # genuinely recovered replica immediately,
+                        # instead of routing preferred traffic straight
+                        # back into a bad device
+                        rep.ejected_until = (time.monotonic()
+                                             + self.eject_cooldown_s)
+                self._event("swap", rep.idx,
+                            "generation %d" % rep.generation)
+                # close rides the batcher's shared drain: everything
+                # accepted pre-flip completes (old weights) before the
+                # old engine's worker joins. An EJECTED replica's old
+                # engine may be WEDGED mid-dispatch — draining it could
+                # block this reload (and, via _reload_lock, every future
+                # reload) forever; its queued work was already failed
+                # over, so fail the leftovers fast instead
+                if was_ejected:
+                    old.close(drain=False, timeout=1.0)
+                else:
+                    old.close(drain=True, timeout=timeout)
+            self.metrics.on_reload()
+            return served_step
+
+    def promote(self, checkpoint_dir=None, model_dir=None, step=None,
+                traffic_fraction=0.05, shadow=False, **canary_kw):
+        """Gated promotion (serving/canary.py): build and WARM one
+        canary engine off the candidate (`checkpoint_dir`/`model_dir`/
+        `step`; no argument = the pool's current source re-read, i.e.
+        "newest valid snapshot NOW"), route `traffic_fraction` of
+        requests to it with incumbent mirroring, gate every canaried
+        request on finite outputs + output divergence
+        (PADDLE_TPU_CANARY_BOUND / divergence_bound()) + latency vs the
+        mirror, and:
+
+          * breaches >= max_breaches  -> AUTO-ROLLBACK, zero client
+            errors (breached requests already served mirror answers);
+          * oks >= min_requests       -> promote to 100% via the
+            ordinary zero-downtime reload().
+
+        shadow=True judges the canary entirely off the response path
+        (clients always get the incumbent). Returns the
+        CanaryController; watch it via pool_state()["promotion"].
+        canary_kw: min_requests, max_breaches, divergence_bound,
+        latency_ratio, latency_margin_s, canary_wait_s, auto_finalize."""
+        from .canary import CanaryController, CANARY, SHADOW
+        with self._reload_lock:
+            if self.closed:
+                raise ServingClosedError("replica pool is shut down")
+            old = self._canary
+            if old is not None and old.is_routing():
+                raise RuntimeError(
+                    "a promotion is already in flight (%s); cancel it "
+                    "first" % old.state()["state"])
+            source = dict(self._source)
+            if checkpoint_dir is not None:
+                source["checkpoint_dir"] = checkpoint_dir
+                source["model_dir"] = None
+            if model_dir is not None:
+                source["model_dir"] = model_dir
+                source["checkpoint_dir"] = None
+            if step is not None:
+                source["step"] = step
+            # RESERVE a placement id: peeking _next_idx would collide
+            # with a concurrent autoscale add_replica and stack the new
+            # replica on the canary's device span (ids need not be
+            # dense, so burning one is free)
+            with self._route_lock:
+                cidx = self._next_idx
+                self._next_idx += 1
+            eng = self._build_engine(cidx, source=source,
+                                     ename="%s@canary" % self.name)
+            # the canary fronts the same fault-tap seam as every
+            # replica, under the reserved id the canary_poison fault
+            # kind targets
+            eng._replica_tap = _dispatch.ReplicaTap("canary", eng)
+            ctrl = CanaryController(
+                self, eng,
+                # the final reload's source arguments (reload re-reads
+                # a checkpoint source, so a trainer that kept writing
+                # promotes the newest snapshot >= the judged one; pin
+                # step= to promote exactly the judged snapshot)
+                {"checkpoint_dir": checkpoint_dir,
+                 "model_dir": model_dir, "step": step},
+                mode=SHADOW if shadow else CANARY,
+                traffic_fraction=traffic_fraction, **canary_kw)
+            self._canary = ctrl
+        self._event("canary_start", "canary",
+                    "%s %.0f%% of traffic" % (ctrl.mode,
+                                              100 * traffic_fraction))
+        _otrace.instant("pool/canary_start", cat="serving")
+        return ctrl
+
+    def cancel_promotion(self, reason="operator cancel"):
+        can = self._canary
+        if can is not None:
+            can.cancel(reason)
+
+    def promotion_state(self):
+        """The current (or last finished) promotion's state dict, or
+        None if this pool never promoted."""
+        can = self._canary
+        return can.state() if can is not None else None
+
+    def kill_replica(self, idx, drain=False):
+        """Hard-eject one replica (deploy gates, ops): never routed
+        again, no probes, engine closed. Queued requests on it fail
+        with ServingClosedError and the pool fails them over — the
+        kill-a-replica invariant is zero client-visible errors."""
+        rep = self._replica(idx)
+        with rep.lock:
+            rep.dead = True
+            rep.state = EJECTED
+            rep.ejected_until = float("inf")
+        self.metrics.on_kill()
+        self._event("kill", idx)
+        # drain=False by default: a kill simulates failure, and a WEDGED
+        # engine's close(drain=True) would never return. Admission
+        # bounds deliberately NOT rebalanced: kill/restart are FAULT
+        # verbs — the pool should shed via real overload signals (AIMD
+        # shrink below the static ceiling), not have the ceiling
+        # quietly redefined under it; only the SCALING
+        # verbs (add/remove_replica) move the bounds.
+        rep.engine.close(drain=drain, timeout=1.0)
+
+    def restart_replica(self, idx):
+        """Revive a killed (or just unhealthy) replica with a freshly
+        built engine off the current source."""
+        rep = self._replica(idx)
+        fresh = self._build_engine(idx)
+        with rep.swap_lock:
+            old, rep.engine = rep.engine, fresh
+            rep.generation += 1
+        self._attach_tap(rep, engine=fresh)
+        with rep.lock:
+            rep.dead = False
+            rep.state = HEALTHY
+            rep.window.clear()
+            rep.consecutive_failures = 0
+            rep.probe_inflight = False
+            rep.ejected_until = 0.0
+        self._event("restart", idx, "generation %d" % rep.generation)
+        if not old.closed:
+            old.close(drain=True, timeout=1.0)
+
+    # ------------------------------------------------------- autoscale --
+    def _rebalance_admission(self):
+        """Re-derive the AIMD bounds from the CURRENT live membership.
+        Called by the SCALING verbs only (add/remove_replica): the
+        fault verbs (kill/restart) deliberately keep the original
+        bounds so overload after a kill still sheds via real AIMD
+        shrink below the static ceiling."""
+        if self._admission is None:
+            return
+        self._admission.set_bounds(hi=max(self.queue_capacity_total(), 1),
+                                   lo=max(self.live_replica_count(), 1))
+
+    def add_replica(self):
+        """Grow the pool by one freshly built, WARMED replica (an eager
+        engine warmed at every bucket; the autoscaler's
+        `last_scale_up_s` times it). The new replica gets a stable never-reused id, joins routing
+        atomically, and the admission ceiling opens to the grown
+        capacity immediately. Returns the new replica id."""
+        with self._reload_lock:
+            if self.closed:
+                raise ServingClosedError("replica pool is shut down")
+            with self._route_lock:
+                idx = self._next_idx
+                self._next_idx += 1
+            eng = self._build_engine(idx)     # build OUTSIDE the route
+            rep = _Replica(idx, eng, self.window)  # lock: it compiles/
+            self._attach_tap(rep)                  # loads artifacts
+            with self._route_lock:
+                self._replicas.append(rep)
+            self._rebalance_admission()
+            self._event("scale_up", idx)
+            _otrace.instant("pool/scale_up", cat="serving")
+            return idx
+
+    def remove_replica(self, idx=None, timeout=None):
+        """Shrink the pool by one replica — DRAINING, never killing:
+        the victim stops taking new traffic (retired), everything
+        already accepted on it completes against its engine, then the
+        engine closes and the replica leaves the pool. Default victim:
+        the youngest (highest-id) live replica. Refuses to remove the
+        last live replica. Returns the removed replica id."""
+        with self._reload_lock:
+            with self._route_lock:
+                live = [r for r in self._replicas
+                        if not r.dead and not r.retired]
+                if idx is None:
+                    if len(live) <= 1:
+                        raise ValueError(
+                            "cannot remove the last live replica")
+                    rep = max(live, key=lambda r: r.idx)
+                else:
+                    rep = self._replica(idx)
+                    if rep.dead or rep.retired:
+                        raise ValueError(
+                            "replica %r is already %s" % (
+                                idx, "dead" if rep.dead else "retired"))
+                    if len(live) <= 1:
+                        raise ValueError(
+                            "cannot remove the last live replica")
+                rep.retired = True   # _pick holds this lock: from here
+                # on no new attempt routes to it
+            self._event("scale_down", rep.idx)
+            _otrace.instant("pool/scale_down", cat="serving")
+            # drain completes every accepted request (zero dropped); an
+            # EJECTED victim may be wedged — fail its leftovers fast
+            # instead of holding the reload lock forever (its queued
+            # work was already failed over by attempt timeouts)
+            with rep.lock:
+                wedged = rep.state == EJECTED
+            rep.engine.close(drain=not wedged,
+                             timeout=1.0 if wedged else timeout)
+            with self._route_lock:
+                try:
+                    self._replicas.remove(rep)
+                except ValueError:
+                    pass
+            self._rebalance_admission()
+            return rep.idx
+
+    def close(self, drain=True, timeout=None):
+        self.closed = True
+        if self._autoscaler is not None:
+            self._autoscaler.stop()
+        if self._canary is not None:
+            self._canary.cancel("pool closed")
+        for rep in list(self._replicas):
+            if rep.dead:
+                continue
+            # never drain an EJECTED replica: a wedged worker would hold
+            # the close forever, and its queued requests were already
+            # failed over (attempt timeouts) — fail the leftovers fast
+            rep_drain = drain and rep.state != EJECTED
+            rep.engine.close(drain=rep_drain,
+                             timeout=timeout if rep_drain else 1.0)
+
+
+class DecodePool(object):
+    """N DecodeEngine replicas behind one ``submit()`` surface.
+
+    Continuous-batched decode shifts what
+    "least-loaded" means: an engine's capacity is its FREE SLOTS, not
+    its queue depth — a replica with 6 of 8 slots open can absorb six
+    new streams at the very next iteration boundary, while a full one
+    parks them in its pending queue.  Routing therefore picks the
+    replica with the most free slots (free = max_slots - occupied -
+    already-pending streams, floored at the pending backlog penalty),
+    breaking ties by fewest pending.  Because every replica compiles
+    the SAME fixed-[max_slots] step and per-stream results depend only
+    on that stream's row (the bucket-lattice invariant, §27), routing
+    is invisible in the tokens: any replica decodes any stream
+    bit-identically.
+
+    Deliberately thinner than :class:`ReplicaPool`: a decode stream is
+    STATEFUL (its KV rows live in one replica's scope), so there is no
+    mid-stream failover, hedging, or retry — a replica failure fails
+    its resident streams typed and the caller resubmits.  What it does
+    share: ``pool_state()`` for /healthz (per-replica
+    ``decode_stats()``), drain/close semantics, and the observability
+    registry gauges each engine already exports.
+    """
+
+    def __init__(self, engines, name="decode-pool"):
+        if not engines:
+            raise ValueError("DecodePool needs at least one DecodeEngine")
+        self.name = name
+        self._engines = list(engines)
+        self._route_lock = threading.Lock()
+        self._rr = 0  # tiebreak rotation so equal replicas share load
+        self.closed = False
+
+    # ---------------------------------------------------- routing --
+    def _free_slots(self, eng):
+        st = eng.decode_stats()
+        return (st.get("slots", 0) - st.get("occupied_slots", 0)
+                - st.get("pending_streams", 0))
+
+    def _pick(self):
+        with self._route_lock:
+            engines = list(self._engines)
+            n = len(engines)
+            order = [engines[(self._rr + i) % n] for i in range(n)]
+            self._rr = (self._rr + 1) % n
+        best, best_key = None, None
+        for eng in order:
+            try:
+                st = eng.decode_stats()
+            except Exception:
+                continue
+            key = (st.get("slots", 0) - st.get("occupied_slots", 0)
+                   - st.get("pending_streams", 0),
+                   -st.get("pending_streams", 0))
+            if best_key is None or key > best_key:
+                best, best_key = eng, key
+        if best is None:
+            raise ServingClosedError("no live decode replicas")
+        return best
+
+    def submit(self, feeds=None, max_new_tokens=None, deadline_ms=None):
+        if self.closed:
+            raise ServingClosedError("decode pool %r is closed" % self.name)
+        return self._pick().submit(feeds=feeds, max_new_tokens=max_new_tokens,
+                                   deadline_ms=deadline_ms)
+
+    def decode(self, feeds=None, max_new_tokens=None, deadline_ms=None,
+               timeout=None):
+        return self.submit(feeds=feeds, max_new_tokens=max_new_tokens,
+                           deadline_ms=deadline_ms).result(timeout=timeout)
+
+    # ------------------------------------------------ introspection --
+    @property
+    def replicas(self):
+        return list(self._engines)
+
+    def queue_depth(self):
+        return sum(e.queue_depth() for e in self._engines)
+
+    def decode_stats(self):
+        """Aggregate decode stats (sums over replicas; rates summed)."""
+        total = {"replicas": len(self._engines), "slots": 0,
+                 "occupied_slots": 0, "active_streams": 0,
+                 "pending_streams": 0, "tokens_total": 0,
+                 "streams_completed": 0, "tokens_per_s": 0.0}
+        for eng in self._engines:
+            st = eng.decode_stats()
+            for k in ("slots", "occupied_slots", "active_streams",
+                      "pending_streams", "tokens_total",
+                      "streams_completed"):
+                total[k] += st.get(k, 0)
+            total["tokens_per_s"] += st.get("tokens_per_s", 0.0)
+        total["tokens_per_s"] = round(total["tokens_per_s"], 3)
+        return total
+
+    def pool_state(self):
+        """The /healthz payload: per-replica decode stats + aggregate."""
+        reps = []
+        for i, eng in enumerate(self._engines):
+            st = eng.decode_stats()
+            reps.append({"replica": i, "name": eng.name,
+                         "slots": st.get("slots", 0),
+                         "occupied_slots": st.get("occupied_slots", 0),
+                         "active_streams": st.get("active_streams", 0),
+                         "pending_streams": st.get("pending_streams", 0),
+                         "tokens_total": st.get("tokens_total", 0),
+                         "tokens_per_s": st.get("tokens_per_s", 0.0),
+                         "inter_token_p50_ms":
+                             st.get("inter_token_p50_ms", 0.0),
+                         "inter_token_p99_ms":
+                             st.get("inter_token_p99_ms", 0.0),
+                         "devices": eng.device_span()})
+        agg = self.decode_stats()
+        agg["mode"] = "decode"
+        agg["replicas"] = reps
+        return agg
+
+    def describe(self):
+        base = self._engines[0].describe()
+        base["name"] = self.name
+        base["status"] = "closed" if self.closed else "serving"
+        base["pool"] = self.pool_state()
+        return base
+
+    # ----------------------------------------------------- lifecycle --
+    def drain(self, timeout=None):
+        ok = True
+        for eng in self._engines:
+            ok = eng.drain(timeout=timeout) and ok
+        return ok
+
+    def close(self, drain=True, timeout=None):
+        self.closed = True
+        for eng in self._engines:
+            eng.close(drain=drain, timeout=timeout)

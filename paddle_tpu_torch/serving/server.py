@@ -6,7 +6,12 @@ has no route of its own for a model's origin: it serves whatever engine
 it is given, so an engine over a reference-era (era-wire) directory
 (`model_format="reference"`) or over a training snapshot
 (`InferenceEngine.from_checkpoint`) answers `:predict` like any other.
-Replica pools and fleets wait for ROADMAP A10's second half.
+A ReplicaPool or DecodePool registers like an engine: `/healthz` carries
+every pool's `pool_state()` and reads unavailable when no entry can
+serve, `/metrics` renders the pools' {model, replica} families. A
+ModelFleet given as `engines` routes every `:predict` through the fleet
+(a browned-out model answers 429 with Retry-After), `/healthz` carries
+its brownout level, and `shutdown` closes the fleet's intake first.
 
 A `ThreadingHTTPServer` (one thread per connection — request threads only
 normalize + enqueue + wait; the single batcher worker per engine does the
@@ -164,23 +169,56 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self):
         self._drain_body()
         if self.path == "/healthz":
-            alive = any(not e.closed for e in self.registry.values())
-            self._reply(200 if alive else 503,
-                        {"status": "ok" if alive else "unavailable"})
+            # an entry can serve when it is not closed and (a pool) at
+            # least one replica is routable: a pool whose every replica
+            # is ejected or dead reads unhealthy though the process is
+            # up. pool_state() takes every replica's lock: it is called once a pool
+            pool_states = {name: e.pool_state()
+                           for name, e in sorted(self.registry.items())
+                           if hasattr(e, "pool_state")}
+
+            def _can_serve(name, e):
+                if e.closed:
+                    return False
+                s = pool_states.get(name)
+                if s is not None and "healthy" in s:
+                    # a decode pool carries no health machine: it serves
+                    # while open
+                    return (s["healthy"] + s["degraded"]) > 0
+                return True
+
+            alive = any(_can_serve(n, e)
+                        for n, e in self.registry.items())
+            payload = {"status": "ok" if alive else "unavailable"}
+            if pool_states:
+                payload["pools"] = pool_states
+            fleet = getattr(self.server_ref, "fleet", None)
+            if fleet is not None:
+                payload["fleet"] = {
+                    "brownout_level": fleet.brownout_level(),
+                    "pressure": round(fleet._pressure(), 4)}
+            self._reply(200 if alive else 503, payload)
             return
         if self.path == "/metrics":
             from ..observability.registry import REGISTRY
             from .metrics import render_prometheus_all
-            # decode engines publish through the registry's decoder
-            # collector (ptpu_decode_* families): their DecodeMetrics
-            # snapshot is not ServingMetrics-shaped
-            plain = {name: e.metrics for name, e in self.registry.items()
-                     if not hasattr(e, "decode_stats")}
+            plain, pools = {}, {}
+            for name, e in self.registry.items():
+                if hasattr(e, "decode_stats"):
+                    # decode engines and pools publish through the
+                    # registry's decoder collector (ptpu_decode_*
+                    # families): not ServingMetrics-shaped
+                    continue
+                if hasattr(e, "replica_metrics"):
+                    pools[name] = e
+                else:
+                    plain[name] = e.metrics
             # one exposition: the serving families + the runtime registry
-            # (windows, batcher queues, decoders, traces); family names
-            # are disjoint, so HELP/TYPE stays once each
-            text = render_prometheus_all(plain) + \
-                REGISTRY.render_prometheus()
+            # (windows, batcher queues, decoders, traces, watched
+            # clusters); family names are disjoint, so HELP/TYPE stays
+            # once each
+            text = (render_prometheus_all(plain, pools=pools)
+                    + REGISTRY.render_prometheus())
             self._reply(200, text.encode("utf-8"),
                         content_type="text/plain; version=0.0.4")
             return
@@ -334,14 +372,21 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class ModelServer(object):
-    """HTTP frontend wrapping a {name: engine} registry (a bare engine is
-    accepted and registered under its own name). Engines are
-    InferenceEngines (`:predict`) or DecodeEngines (streamed `:decode`).
-    port=0 picks a free port (read `address`)."""
+    """HTTP frontend wrapping a {name: engine} registry (a bare engine or
+    pool is accepted and registered under its own name), or a ModelFleet
+    (its `registry()`, fleet-routed). Entries are InferenceEngines and
+    ReplicaPools (`:predict`) or DecodeEngines and DecodePools (streamed
+    `:decode`). port=0 picks a free port (read `address`)."""
 
     def __init__(self, engines, host="127.0.0.1", port=8080,
                  verbose=False, max_body_bytes=_DEFAULT_MAX_BODY_BYTES):
-        if not isinstance(engines, dict):
+        self.fleet = None
+        if hasattr(engines, "registry") and callable(engines.registry):
+            # a ModelFleet: its entries route submits through the fleet
+            # (priority brownout); metrics stay per model
+            self.fleet = engines
+            engines = engines.registry()
+        elif not isinstance(engines, dict):
             engines = {engines.name: engines}
         self.registry = dict(engines)
         self.verbose = verbose
@@ -380,6 +425,8 @@ class ModelServer(object):
         engines AFTER server_close would deadlock: the join would wait
         on handlers that wait on futures only the drain resolves."""
         self.httpd.shutdown()
+        if self.fleet is not None:
+            self.fleet.closed = True   # stop fleet-routed intake first
         for engine in self.registry.values():
             engine.close(drain=drain)
         self.httpd.server_close()   # joins non-daemon handler threads

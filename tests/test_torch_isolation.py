@@ -48,7 +48,14 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "paddle_tpu_torch.parallel.moe, "
             "paddle_tpu_torch.ops.parallel_ops, "
             "paddle_tpu_torch.layers.parallel_layers, "
-            "paddle_tpu_torch.memory_optimization_transpiler\n"
+            "paddle_tpu_torch.memory_optimization_transpiler, "
+            "paddle_tpu_torch.serving.pool, "
+            "paddle_tpu_torch.serving.canary, "
+            "paddle_tpu_torch.serving.fleet, "
+            "paddle_tpu_torch.serving.autoscaler, "
+            "paddle_tpu_torch.resilience.heartbeat, "
+            "paddle_tpu_torch.resilience.cluster, "
+            "paddle_tpu_torch.observability.registry\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r)\n"
             "print(bad)\n"
@@ -97,6 +104,28 @@ def test_every_resilience_module_is_checked():
             "resilience/guards.py", "resilience/watchdog.py",
             "resilience/sentinel.py", "resilience/sdc.py",
             "resilience/supervisor.py", "ops/guard_ops.py"} <= rel
+
+
+def test_every_serving_fleet_module_is_checked():
+    """The replica pool, canary, fleet, autoscaler, heartbeat and plan
+    modules are among the sources the import check above walks."""
+    rel = {os.path.relpath(p, PKG) for p in SOURCES}
+    assert {"serving/pool.py", "serving/canary.py", "serving/fleet.py",
+            "serving/autoscaler.py", "resilience/heartbeat.py",
+            "resilience/cluster.py", "observability/registry.py",
+            "core/dispatch.py"} <= rel
+
+
+def test_pool_and_tp_engine_need_a_card_or_an_explicit_cpu(no_card,
+                                                             tmp_path):
+    """No card: a pool's default placement (CUDAPlace(i)) refuses before
+    any model is read, and a tp engine with no mesh_devices finds no
+    device to span; nothing falls back to the CPU."""
+    from paddle_tpu_torch.serving import ReplicaPool
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReplicaPool(str(tmp_path / "absent"), replicas=2)
+    with pytest.raises(ValueError, match="only 0 are visible"):
+        InferenceEngine(str(tmp_path / "absent"), tp=2)
 
 
 def test_canary_checks_the_card_or_the_devices_given(no_card):

@@ -13,9 +13,18 @@ need neither the era-wire model format (ROADMAP A8) nor the verifier
 - two models: each family's HELP/TYPE once, one sample per model;
 - a DecodeEngine: :decode streams one NDJSON line per token, the tokens
   equal the solo decode's exactly, :predict on it is a 400, and /metrics
-  carries ptpu_decode_slots and ptpu_decode_tokens_total.
+  carries ptpu_decode_slots and ptpu_decode_tokens_total;
+- a ModelFleet of two ReplicaPools (priorities 0 and 1, brownout forced
+  by a pressure threshold of 0) with a watched cluster directory:
+  /healthz carries `pools` and `fleet` (the JAX server's keys), the
+  browned-out model answers 429 with a Retry-After header while the top
+  tier answers like the lone engine, and /metrics is one exposition
+  (HELP and TYPE once per family) with the pools' {model, replica}
+  families and ptpu_cluster_worker_steps_behind at the writers' lag; a
+  pool whose every replica is dead reads unavailable (503).
 """
 import json
+import os
 import socket
 import threading
 import urllib.error
@@ -31,6 +40,7 @@ from paddle_tpu import serving as jserving
 import paddle_tpu_torch as fluid
 from paddle_tpu_torch import serving
 from paddle_tpu_torch.observability import registry as obsreg
+from paddle_tpu_torch.resilience.heartbeat import HeartbeatWriter
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -250,3 +260,111 @@ def test_streamed_decode_and_decode_metrics():
         solo.close(drain=False)
         _forget(engine)
         _forget(solo)
+
+
+def _forget_pool(pool):
+    for rep in pool._replicas:
+        _forget(rep.engine)
+
+
+def _exposition_families(text):
+    """Each family's TYPE line count; raises on a sample whose family has
+    no TYPE line before it."""
+    typed = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            name = line.split()[2]
+            typed[name] = typed.get(name, 0) + 1
+        elif line and not line.startswith("#"):
+            name = line.split("{")[0].split(" ")[0]
+            base = name[:-len("_bucket")] if name.endswith("_bucket") \
+                else name
+            for suffix in ("_sum", "_count"):
+                if base.endswith(suffix) and base[:-len(suffix)] in typed:
+                    base = base[:-len(suffix)]
+            assert base in typed, "sample before its TYPE: " + line
+    return typed
+
+
+def test_fleet_pools_and_cluster_over_http(tmp_path):
+    d = _save_dense_model(tmp_path)
+    xs = np.random.RandomState(5).rand(1, 6).astype("f")
+    kw = dict(replicas=2, place="cpu", batch_buckets=[1, 4],
+              max_queue_delay_ms=1)
+    fleet = serving.ModelFleet(shed_dwell_s=0.0, pressure_high=0.0,
+                               pressure_low=-1.0)
+    bulk = fleet.add_model("bulk", priority=0, model_dir=d, **kw)
+    live = fleet.add_model("live", priority=1, model_dir=d, **kw)
+    lone = serving.InferenceEngine(d, name="lone", batch_buckets=[1],
+                                   device="cpu", pipeline_depth=0)
+    cdir = str(tmp_path / "cluster")
+    writers = [HeartbeatWriter(cdir, "w%d" % i, interval=60.0)
+               for i in range(2)]
+    for w, step in zip(writers, (20, 14)):
+        w.update(status="running", step=step)
+    obsreg.watch_cluster(cdir, heartbeat_timeout=600.0)
+    server = serving.ModelServer(fleet, port=0).start()
+    base = "http://%s" % server.address
+    body = {"inputs": {"x": xs.tolist()}}
+    try:
+        with pytest.raises(urllib.error.HTTPError) as he:
+            _post(base + "/v1/models/bulk:predict", body)
+        assert he.value.code == 429
+        assert int(he.value.headers["Retry-After"]) >= 1
+        err = json.loads(he.value.read())
+        assert err["code"] == "BrownoutError" and err["retry_after_s"] > 0
+        resp = json.loads(_post(base + "/v1/models/live:predict",
+                                body).read())
+        name = lone.fetch_names[0]
+        want, _ = lone.run_direct({"x": xs}, batch_bucket=1)
+        np.testing.assert_array_equal(
+            np.asarray(resp["outputs"][name], dtype="f"), want[name])
+
+        health = json.loads(urllib.request.urlopen(
+            base + "/healthz").read())
+        assert health["status"] == "ok"
+        assert sorted(health["pools"]) == ["bulk", "live"]
+        assert health["pools"]["live"]["healthy"] == 2
+        assert health["fleet"]["brownout_level"] == 1
+
+        text = urllib.request.urlopen(base + "/metrics").read().decode()
+        typed = _exposition_families(text)
+        assert all(n == 1 for n in typed.values()), \
+            [k for k, n in typed.items() if n != 1]
+        assert 'ptpu_serving_requests_total{model="live",replica="0"}' \
+            in text
+        assert 'ptpu_serving_pool_requests_total{model="live"} 1' in text
+        assert 'ptpu_serving_replica_state{model="bulk",replica="1"} 0' \
+            in text
+        assert 'ptpu_serving_replica_device{model="live",replica="0",' \
+            'device="cpu"} 1' in text
+        cl = os.path.basename(cdir)
+        assert 'ptpu_cluster_worker_steps_behind{cluster="%s",' \
+            'worker="w1"} 6' % cl in text
+        assert "ptpu_cluster_worker_alive" in typed
+
+        # every replica of one pool dead: that entry cannot serve; the
+        # other keeps the process healthy, then none: 503
+        for idx in (0, 1):
+            bulk.kill_replica(idx)
+        health = json.loads(urllib.request.urlopen(
+            base + "/healthz").read())
+        assert health["status"] == "ok"
+        assert health["pools"]["bulk"]["healthy"] == 0
+        for idx in (0, 1):
+            live.kill_replica(idx)
+        with pytest.raises(urllib.error.HTTPError) as he:
+            urllib.request.urlopen(base + "/healthz")
+        assert he.value.code == 503
+    finally:
+        obsreg.unwatch_cluster(cdir)
+        server.shutdown()
+        for w in writers:
+            w.close()
+        for pool in (bulk, live):
+            _forget_pool(pool)
+        lone.close()
+        _forget(lone)
+    assert fleet.closed
+    with pytest.raises(serving.ServingClosedError):
+        fleet.submit("live", {"x": xs})

@@ -169,11 +169,20 @@ def test_quantized_engine_batched_bit_identical_to_direct(tmp_path):
 
 
 def test_int8_rejects_tensor_parallel(tmp_path):
+    """int8 weights are refused with tp (with or without a mesh); bf16
+    weights compose with it."""
     d, _ = _save_mlp(tmp_path)
     with pytest.raises(ValueError, match="int8"):
         _engine(d, weights_dtype="int8", tp=1, warmup=False)
-    with pytest.raises(NotImplementedError, match="A10"):
-        _engine(d, tp=1, warmup=False)
+    with pytest.raises(ValueError, match="int8"):
+        _engine(d, weights_dtype="int8", tp=1, mesh_devices=["cpu"],
+                warmup=False)
+    eng = _engine(d, weights_dtype="bf16", tp=1, mesh_devices=["cpu"],
+                  warmup=False)
+    try:
+        assert (eng.tp, eng.device_span()) == (1, ["cpu"])
+    finally:
+        eng.close(drain=False)
 
 
 def test_bad_weights_dtype_rejected(tmp_path):

@@ -21,8 +21,9 @@ serves the same directory with LoD feeds and (batch, seq) buckets.
 The engine's own surface: warmup(buckets=), the in-memory form
 (program=, feed_names=, fetch_vars=) under the JAX test's per-fetch row
 policy with describe() and submit_normalized(), and the options that
-raise naming the item they wait for (validate=True: A11; tp: A10); the
-era-wire format loads since A8 (tests/test_torch_checkpoint_serving.py).
+raise naming the item they wait for (validate=True: A11), and tp without
+a device to span; the era-wire format loads since A8
+(tests/test_torch_checkpoint_serving.py).
 """
 import json
 import os
@@ -563,8 +564,10 @@ def test_in_memory_program_fetch_row_policy():
 
 
 def test_engine_options_waiting_for_later_items(jax_model):
-    """validate=True (the analysis tier, A11) and tp (A10) raise naming
-    their item; a native directory forced through the era-wire format
+    """validate=True (the analysis tier, A11) raises naming its item; tp
+    with no mesh_devices takes the CUDA devices and raises, as the JAX
+    package does, when fewer than tp are visible (none here); a native
+    directory forced through the era-wire format
     (which loads since A8) fails in the wire parser, as in the JAX
     package; a program without fetches it names is refused."""
     with pytest.raises(NotImplementedError, match="A11"):
@@ -574,7 +577,8 @@ def test_engine_options_waiting_for_later_items(jax_model):
     with pytest.raises(ValueError, match="wire type"):
         jserving.InferenceEngine(jax_model[0], model_format="reference",
                                  warmup=False)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="tp=2 needs 2 devices but only 0 "
+                       "are visible"):
         InferenceEngine(jax_model[0], device="cpu", tp=2)
     with pytest.raises(ValueError, match="in-memory program needs"):
         InferenceEngine(program=tfluid.Program(), device="cpu")
