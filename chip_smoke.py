@@ -754,6 +754,47 @@ Phases, each reported on lines of its own; any failure exits non-zero:
               once), /healthz with `pools` and `fleet`. A
               `serving_fleet_summary:` line sums up.
 
+38. elastic cluster — ROADMAP A10's last module (resilience/cluster.py
+              and the port's launcher, paddle_tpu_torch.tools.
+              ptpu_elastic), with real worker processes on the card:
+              `python3 chip_smoke.py elastic-worker` is the workers'
+              --worker-cmd (it refuses to run without CUDA or off CUDA
+              devices), under deterministic algorithms with
+              CUBLAS_WORKSPACE_CONFIG set; see ELASTIC. (a) A
+              ClusterCoordinator(num_workers=2, total_device_count=4) in
+              a thread; two workers, spawned by the launcher's
+              _WorkerPool with PTPU_HOST_DEVICES=4 (the card four times,
+              as the JAX leg's workers see four devices), train phase
+              35's bf16 AMP Transformer-base on the plan's {"dp": 2}
+              (sharded_weight_update, rank 0 checkpointing every 2
+              steps); host_death kills w1 at exactly step
+              ELASTIC["death_at"] (rc -9); w0 is fenced, restores the
+              newest valid snapshot onto {"dp": 4}, and its steps until
+              the grow are bit-equal to `chip_smoke.py
+              elastic-reference`, a process of its own restored from the
+              same snapshot on the same mesh shape; a standby replacement
+              spawned when the cohort forms starts up, waits at its gate
+              until w0 holds at step ELASTIC["hold_at"], joins at that
+              step barrier (no aborted step) and its stream is w0's. Formation s, death to
+              `detected`, the fence s, restore ms, the death to the first
+              step after the rescale, the join to the first grown step,
+              eager step ms on {"dp": 2} and {"dp": 4}, save ms,
+              max_memory_allocated of each worker; the workers' kernel
+              launches (written at exit) against phase 35's counts a lane
+              for each mesh. (b) slow_step against a watchdog: a bundle
+              and a same-size rollback, every step once in the final
+              history. (c) bitflip on the canary of local device 1: the
+              device quarantined in every later plan, the next mesh
+              built around it. (d) `python -m
+              paddle_tpu_torch.tools.ptpu_elastic launch` with
+              heartbeat_stall on w1: fenced out on missed beats alone,
+              the cohort finishes; w0's /metrics read while it trains
+              (ptpu_cluster_worker_steps_behind); after it, `status
+              --json` (the stall; (c)'s shows the quarantine). (b)-(d)
+              train the launcher's demo MLP beside (a), each in a
+              directory of its own, started once (a)'s cohort has formed.
+              An `elastic_summary:` line sums up.
+
 Every path counts launches from zero and predicts each kernel's count on
 it (0 for a kernel it does not run; the bf16 flash kernels counted under
 their own names); each kernel must also launch on at least one path. The
@@ -765,6 +806,7 @@ import collections
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1818,6 +1860,17 @@ def flash_bf16_call(torch, ck, lib, part):
     return call
 
 
+def device_events(torch, prof):
+    """[(name, us)] of every event a finished torch.profiler session
+    recorded on the device, read from its raw results: parsing them into
+    FunctionEvents (`prof.events()`) costs seconds a session for the same
+    names and durations."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
 def device_kernel_names(torch, fn):
     """The device kernels one call of fn runs (from a torch.profiler
     trace): what a library yardstick is."""
@@ -1826,8 +1879,7 @@ def device_kernel_names(torch, fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    return sorted({name for name, _ in device_events(torch, prof)})
 
 
 def run_flash_bwd_kernels(torch, ck, gen, peak_flops, peak_bw, tc_flops,
@@ -3636,11 +3688,10 @@ def profile_step(torch, step, trace_path=None):
         prof.export_chrome_trace(trace)
         rows, outermost = op_breakdown(trace)
     kernels, n_kernels = {}, 0
-    for e in prof.events():
+    for name, us in device_events(torch, prof):
         # the op ranges show on the device's timeline too: not kernels
-        if e.device_type == torch.autograd.DeviceType.CUDA and \
-                not e.name.startswith("op:"):
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time
+        if not name.startswith("op:"):
+            kernels[name] = kernels.get(name, 0.0) + us
             n_kernels += 1
     busy = sum(kernels.values())
     groups = {"port kernels": 0.0, "convolutions": 0.0,
@@ -5806,11 +5857,11 @@ def call_ms(torch, fn):
     return (time.perf_counter() - ts) * 1e3
 
 
-def device_busy_ms(torch, fn):
-    """(device kernel ms, of which the port's kernels', host wall ms) of
-    fn() under torch.profiler, tracing the device only (no host ops: their
-    events cost seconds to record and process, and slow the host the wall
-    measures)."""
+def device_trace(torch, fn):
+    """(device ms, of which the port's kernels', host wall ms, device
+    kernels: copies and fills not counted) of fn() under torch.profiler,
+    tracing the device only (no host ops: their events cost seconds to
+    record and process, and slow the host the wall measures)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -5819,12 +5870,19 @@ def device_busy_ms(torch, fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - ts) * 1e3
     busy = port = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy += e.device_time / 1e3
-            if any(k in e.name.lower() for k in PORT_KERNEL_PARTS):
-                port += e.device_time / 1e3
-    return busy, port, wall
+    kernels = 0
+    for name, us in device_events(torch, prof):
+        busy += us / 1e3
+        if any(k in name.lower() for k in PORT_KERNEL_PARTS):
+            port += us / 1e3
+        kernels += not name.startswith(("Memcpy", "Memset"))
+    return busy, port, wall, kernels
+
+
+def device_busy_ms(torch, fn):
+    """(device ms, of which the port's kernels', host wall ms) of fn():
+    `device_trace` without the kernel count."""
+    return device_trace(torch, fn)[:3]
 
 
 def run_multistep(torch, card, path, reduce_check=False):
@@ -8548,13 +8606,11 @@ def persist_resume_bf16(torch, card, tmp):
           "(losses and %d arrays), the reader %s"
           % (tag, report["restore_s"], k * after + 1, k * calls,
              len(straight), restored_reader))
+    # the timed save is the newest snapshot, the one (c)'s walk-back
+    # corrupts
     report["timing"] = persist_save_timing(
         torch, lambda: call(exe, scope), reader,
-        lambda mgr: mgr.save(0, program=main, scope=scope),
-        os.path.join(tmp, "ckpt_timing"))
-    # the newest snapshot, for (c)'s walk-back: the straight run's end
-    with CheckpointManager(ckdir) as mgr:
-        mgr.save(k * calls, program=main, scope=scope, wait=True)
+        lambda mgr: mgr.save(k * calls, program=main, scope=scope), ckdir)
     del scope, scope_b, straight, resumed_state
     exe._cache.clear()
     exe_b._cache.clear()
@@ -8569,8 +8625,7 @@ def persist_save_timing(torch, call, reader, save, ckdir):
     PERSIST["timed_calls"] calls with no save in flight, then as many
     right after an async save (the writer running through them), the
     reader reset before each pass of its records; the save's capture ms
-    and the writer's seconds. The snapshot is written to `ckdir`, apart
-    from the checked ones, and removed."""
+    and the writer's seconds. The snapshot is written to `ckdir`."""
     from paddle_tpu_torch.checkpoint import CheckpointManager
     from paddle_tpu_torch.core.dispatch import rollback_all_staged
     n = PERSIST["timed_calls"]
@@ -8597,7 +8652,6 @@ def persist_save_timing(torch, call, reader, save, ckdir):
         handle = save(mgr)
         with_save = calls(flags, handle)
         handle.result(600)
-    shutil.rmtree(ckdir, ignore_errors=True)
     return {"call_ms_without_save": without,
             "call_ms_with_save_in_flight": with_save,
             "save_in_flight_after_call": flags,
@@ -8987,7 +9041,7 @@ def run_persistence(torch, card):
 # FLAGS_check_nan_inf on phase 20's program. Record indices count from 0
 # (the plan's), steps from 1.
 RESIL = dict(steps=4, timed_calls=4, eager_calls=2, nan_record=5,
-             spike_record=13, hang_timeout=3.0, hang_sleep=5.0,
+             spike_record=13, hang_timeout=2.0, hang_sleep=3.0,
              canary_checks=8, sentinel_observes=2000, explode_lr=1e38)
 CANARY_DEVICES = None    # the card's CUDA devices
 GUARD_SEGS = 96          # vars a guard_restore launch (kMaxSegs in its .cu)
@@ -9095,19 +9149,6 @@ def _recovery_seconds(sup):
     return secs
 
 
-def _kernel_count(torch, fn):
-    """Device kernels fn() runs (torch.profiler; copies and fills not
-    counted)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset")))
-
-
 def _guard_names(err):
     import re
     return sorted(re.findall(r"non-finite value detected in '([^']+)'",
@@ -9149,7 +9190,7 @@ def resil_timing(torch, fluid, card, U, G, fresh, call):
             both(reset)
         for i, m in enumerate(both(timed)):
             ms[i].append(m)
-    # from the stream's start again (24 records: 3 calls and 5 eager steps)
+    # from the stream's start again (24 records: 2 calls and 3 eager steps)
     both(reset)
     # the host reads of one call each (no fetch copied: return_numpy off)
     reads0 = exe_g.flag_reads
@@ -9157,10 +9198,11 @@ def resil_timing(torch, fluid, card, U, G, fresh, call):
         torch, lambda: call(exe, prog, scope, rn=False), tag,
         through=("raise_program_errors",))[1:])
     reads = exe_g.flag_reads - reads0
-    kernels = both(lambda exe, prog, scope: _kernel_count(
+    # one profiler session a side: its device ms and its kernels
+    traced = both(lambda exe, prog, scope: device_trace(
         torch, lambda: call(exe, prog, scope, rn=False)))
-    busy = both(lambda exe, prog, scope: device_busy_ms(
-        torch, lambda: call(exe, prog, scope, rn=False))[0])
+    busy = [t[0] for t in traced]
+    kernels = [t[3] for t in traced]
     eager = [[], []]
     for c in range(RESIL["eager_calls"] + 1):   # the first warms up
         for i, m in enumerate(both(lambda *side: timed(
@@ -10707,9 +10749,8 @@ def device_top(torch, fn, top=6):
         fn()
         torch.cuda.synchronize()
     by = collections.Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by[e.name[:60]] += e.device_time / 1e3
+    for name, us in device_events(torch, prof):
+        by[name[:60]] += us / 1e3
     return sum(by.values()), [[n, ms] for n, ms in by.most_common(top)]
 
 
@@ -11685,7 +11726,851 @@ def run_serving_fleet(torch, card):
     return paths, report
 
 
+# ------------------------------------------------------- elastic cluster --
+
+# phase 38: ROADMAP A10's last module, the elastic cluster. Real worker
+# processes on the card, spawned through the port's launcher
+# (paddle_tpu_torch.tools.ptpu_elastic: its _WorkerPool, or `launch`) with
+# this script's own `elastic-worker` subcommand as --worker-cmd: (a)
+# bench.py's bf16 AMP Transformer-base trained by two workers on {"dp": 2}
+# of the card shared twice (sharded_weight_update, a budget of 4 devices),
+# host_death@ELASTIC["death_at"] kills w1, w0 reshards onto {"dp": 4} and
+# is held bit for bit to a reference process, a replacement joins at a
+# step barrier; (b) a hang escalated to a same-size rollback; (c) a canary
+# conviction quarantining local device 1; (d) `launch` with a heartbeat
+# stall, `status --json` and a worker's /metrics. (b)-(d) train the
+# launcher's demo MLP beside (a). Every worker runs under deterministic
+# algorithms with CUBLAS_WORKSPACE_CONFIG set, TF32 off.
+ELASTIC = dict(steps=7, death_at=3, hold_at=5, checkpoint_every=2,
+               budget=4, tiny_host_devices=2,
+               # host deaths are seen by the vanished pid: the monitors'
+               # timeouts exceed ten process starts
+               monitor_timeout=600.0, fence_timeout=300.0,
+               hold_timeout=180.0,
+               # (b)'s watchdog outlasts a fresh process's first steps on
+               # the card (cuBLAS and the kernels load there)
+               tiny_steps=8, hang_at=3, hang_sleep=8.0, hang_timeout=5.0,
+               sdc_every=2, stall_at=4, stall_steps=32, stall_delay=0.15,
+               stall_timeout=3.0, deadline=300.0)
+ELASTIC_CUBLAS = ":4096:8"   # CUBLAS_WORKSPACE_CONFIG in every process
+
+
+def _elastic_devices_on_card(layout):
+    """A phase 38 worker trains on the card or not at all."""
+    import torch
+    devs = layout.local_devices()
+    if not torch.cuda.is_available() or not devs or any(
+            torch.device(d).type != "cuda" for d in devs):
+        raise RuntimeError("phase 38's workers train on CUDA devices; this "
+                           "one sees %s (cuda available: %s)"
+                           % ([str(d) for d in devs],
+                              torch.cuda.is_available()))
+
+
+def elastic_transformer_build(layout):
+    """The ElasticWorker build_fn of (a): phase 35's bf16 AMP
+    Transformer-base program (startup seeded by SEED), four batches of
+    TRAIN_BATCH sequences from SEED fed in turn."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+    _elastic_devices_on_card(layout)
+    main, startup, avg = build_train(fluid, transformer, N_LAYER,
+                                     variant="bf16")
+    main.random_seed = SEED
+    rng = np.random.RandomState(SEED)
+    batches = []
+    for _ in range(4):
+        srcs = [rng.randint(3, MODEL["vocab"], MODEL["max_length"]).tolist()
+                for _ in range(TRAIN_BATCH)]
+        batches.append(transformer.prepare_batch(
+            srcs, srcs, MODEL["max_length"], labels=True))
+    return {"main": main, "startup": startup, "loss": avg,
+            "feed_fn": lambda i: batches[i % len(batches)]}
+
+
+def elastic_demo_build(layout):
+    """The ElasticWorker build_fn of (b)-(d): the launcher's demo MLP, on
+    the card."""
+    from paddle_tpu_torch.tools.ptpu_elastic import demo_build
+    _elastic_devices_on_card(layout)
+    return demo_build(layout)
+
+
+def _elastic_determinism():
+    """The settings every phase 38 process trains under, set before the
+    first CUDA call (cuBLAS reads its workspace config at init)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ELASTIC_CUBLAS)
+    import torch
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch
+
+
+def elastic_worker_main(argv):
+    """`python3 chip_smoke.py elastic-worker [--model transformer|demo]
+    ...`: one ElasticWorker of phase 38, on the card (exit 3 without
+    one). The launcher appends --cluster-dir, --worker-id and --steps.
+    At exit it writes stats_<id>.json to the cluster directory: each
+    generation's mesh, steps and kernel launches, each step's wall
+    time, the save and restore ms, max_memory_allocated."""
+    ap = argparse.ArgumentParser(prog="chip_smoke.py elastic-worker")
+    ap.add_argument("--model", choices=("transformer", "demo"),
+                    default="demo")
+    ap.add_argument("--cluster-dir",
+                    default=os.environ.get("PTPU_CLUSTER_DIR"))
+    ap.add_argument("--worker-id", default=os.environ.get("PTPU_WORKER_ID"))
+    ap.add_argument("--steps", type=int,
+                    default=int(os.environ.get("PTPU_ELASTIC_STEPS", "8")))
+    ap.add_argument("--checkpoint-every", type=int, default=2)
+    ap.add_argument("--watchdog-timeout", type=float, default=None)
+    ap.add_argument("--sdc-every", type=int, default=0)
+    ap.add_argument("--step-delay", type=float, default=0.0)
+    ap.add_argument("--hold-at", type=int, default=None,
+                    help="in a world of one (after a shrink), wait after "
+                         "step HOLD_AT - 1 until the plan moves on: the "
+                         "replacement then joins mid-run")
+    ap.add_argument("--join-gate", action="store_true",
+                    help="start up, then join only once a survivor holds "
+                         "(hold.json in the cluster directory)")
+    ap.add_argument("--metrics-port", type=int,
+                    default=(int(os.environ["PTPU_METRICS_PORT"])
+                             if os.environ.get("PTPU_METRICS_PORT")
+                             else None))
+    args = ap.parse_args(argv)
+    # the worker's output goes to <cluster dir>/<id>.log
+    os.makedirs(args.cluster_dir, exist_ok=True)
+    log = os.open(os.path.join(args.cluster_dir, "%s.log" % args.worker_id),
+                  os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.dup2(log, 1)
+    os.dup2(log, 2)
+    os.close(log)
+    torch = _elastic_determinism()
+    if not torch.cuda.is_available():
+        print("elastic-worker: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 3
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.resilience import cluster as cl
+    from paddle_tpu_torch.resilience.cluster import (ClusterAborted,
+                                                     ElasticWorker)
+    ck.build()
+    transformer = args.model == "transformer"
+    stats = {"worker": args.worker_id, "model": args.model, "gens": [],
+             "steps": [], "save_ms": [], "restore_ms": [], "gen": None}
+    build = elastic_transformer_build if transformer else elastic_demo_build
+
+    def build_counted(layout):
+        """The generation's program, and phase 35's launch counts of one
+        lane's step of it."""
+        built = build(layout)
+        stats["lane"] = parallel_launches(built["main"])
+        return built
+    worker = ElasticWorker(
+        args.cluster_dir, args.worker_id, build_counted,
+        checkpoint_every=args.checkpoint_every,
+        watchdog_timeout=args.watchdog_timeout,
+        sharded_weight_update=transformer, async_save=transformer,
+        step_delay=args.step_delay, metrics_port=args.metrics_port,
+        sdc=bool(args.sdc_every) or None, sdc_every=args.sdc_every or 64)
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            ts = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                stats[name].append(
+                    [stats["gen"], (time.perf_counter() - ts) * 1e3])
+        return wrapper
+    CheckpointManager.save = timed("save_ms", CheckpointManager.save)
+    CheckpointManager.restore = timed("restore_ms", CheckpointManager.restore)
+    record = worker._record
+
+    def record_timed(gen, step, fetches):
+        stats["steps"].append([gen, int(step), time.time()])
+        out = record(gen, step, fetches)
+        if args.hold_at is not None and step == args.hold_at - 1:
+            _hold_for_grow(cl, args.cluster_dir, gen)
+        return out
+    worker._record = record_timed
+    run_generation = worker._run_generation
+
+    def run_generation_counted(plan, num_steps):
+        ck.reset_launch_counts()
+        stats["gen"] = plan["gen"]
+        n0 = len(stats["steps"])
+        try:
+            return run_generation(plan, num_steps)
+        finally:
+            layout = worker._layout_for(plan)
+            stats["gens"].append({
+                "gen": plan["gen"],
+                "local_device_count": layout.resolved_local_device_count(),
+                "skip_local_devices": list(layout.skip_local_devices),
+                "devices": [str(d) for d in layout.local_devices()],
+                "steps": len(stats["steps"]) - n0,
+                "lane": stats.get("lane"),
+                "launches": ck.launch_counts()})
+    worker._run_generation = run_generation_counted
+    rc = 0
+    if args.join_gate:
+        # started up (torch, the card, the kernels): wait to join
+        stats["ready"] = time.time()
+        deadline = time.monotonic() + ELASTIC["hold_timeout"]
+        while not os.path.exists(os.path.join(args.cluster_dir,
+                                              "hold.json")) \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+    try:
+        out = worker.run(args.steps)
+        print("elastic-worker %s finished: %s" % (args.worker_id, out))
+    except ClusterAborted as e:
+        print("elastic-worker %s: %s" % (args.worker_id, e), file=sys.stderr)
+        rc = 1
+    finally:
+        stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        with open(os.path.join(args.cluster_dir,
+                               "stats_%s.json" % args.worker_id), "w") as f:
+            json.dump(stats, f)
+    return rc
+
+
+def _hold_for_grow(cl, cluster_dir, gen):
+    """A survivor alone in its world (after the shrink) waits at its step
+    barrier until the coordinator moves the plan on (the replacement's
+    grow fence), for at most ELASTIC["hold_timeout"] s: the grow then
+    lands at that step, with steps of the shrunk mesh before it."""
+    plan = cl.read_plan(cluster_dir) or {}
+    if plan.get("gen") != gen or len(plan.get("world", {})) != 1:
+        return
+    # opens the replacement's gate (`elastic-worker --join-gate`)
+    with open(os.path.join(cluster_dir, "hold.json.tmp"), "w") as f:
+        json.dump({"gen": gen, "wall_time": time.time()}, f)
+    os.replace(os.path.join(cluster_dir, "hold.json.tmp"),
+               os.path.join(cluster_dir, "hold.json"))
+    deadline = time.monotonic() + ELASTIC["hold_timeout"]
+    while time.monotonic() < deadline:
+        plan = cl.read_plan(cluster_dir) or {}
+        if plan.get("gen", gen) != gen:
+            return
+        time.sleep(0.02)
+
+
+def elastic_reference_main(argv):
+    """`python3 chip_smoke.py elastic-reference CKPT RESTORE UPTO OUT`:
+    phase 38 (a)'s from-scratch run: (a)'s program restored from CKPT's
+    step RESTORE onto {"dp": ELASTIC["budget"]} of the card (as many
+    replicas, sharded_weight_update), stepped to UPTO under the workers'
+    settings; the per-step losses written to OUT as JSON."""
+    ckpt, restore, upto, out = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    torch = _elastic_determinism()
+    if not torch.cuda.is_available():
+        print("elastic-reference: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 3
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.ops import cuda_kernels as ck
+    from paddle_tpu_torch.parallel import DeviceLayout
+    ck.build()
+    layout = DeviceLayout(local_device_count=ELASTIC["budget"],
+                          devices=["cuda:0"] * ELASTIC["budget"])
+    mesh = layout.local_mesh()
+    built = elastic_transformer_build(layout)
+    scope = fluid.Scope()
+    rows = {}
+    with fluid.scope_guard(scope):
+        fluid.Executor(mesh.devices.flat[0]).run(built["startup"])
+        with CheckpointManager(ckpt, async_save=False) as mgr:
+            got = mgr.restore(program=built["main"], scope=scope,
+                              step=restore, layout=layout)
+        check(got == restore, "restored %r, not %d" % (got, restore))
+        pexe = fluid.ParallelExecutor(main_program=built["main"], mesh=mesh,
+                                      sharded_weight_update=True)
+        for i in range(restore, upto):
+            v, = pexe.run([built["loss"].name], feed=built["feed_fn"](i))
+            rows[i] = float(np.asarray(v).reshape(-1)[0])
+    with open(out, "w") as f:
+        json.dump(rows, f)
+    return 0
+
+
+class _ElasticProcs(object):
+    """Every process phase 38 starts, each with the time it exited (a
+    watcher polls it; the launcher's pool reaps its own at once): killed
+    in `close`."""
+
+    def __init__(self):
+        self.procs = []
+        self.groups = []
+        self.exit_time = {}
+        self._lock = threading.Lock()
+
+    def watch(self, name, proc):
+        with self._lock:
+            self.procs.append(proc)
+
+        def poll():
+            while proc.poll() is None:
+                time.sleep(0.01)
+            self.exit_time[name] = time.time()
+        threading.Thread(target=poll, daemon=True).start()
+        return proc
+
+    def spawn(self, name, cmd, log, env=None):
+        """A process in a session of its own: `close` kills its whole
+        group, the workers a launcher started included."""
+        out = open(log, "w")
+        try:
+            proc = subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT, env=env,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                start_new_session=True)
+        finally:
+            out.close()
+        with self._lock:
+            self.groups.append(proc.pid)
+        return self.watch(name, proc)
+
+    def close(self):
+        with self._lock:
+            procs, groups = list(self.procs), list(self.groups)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for pgid in groups:
+            try:
+                os.killpg(pgid, signal.SIGKILL)
+            except OSError:
+                pass   # the group has no process left
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+
+
+def _elastic_coord(cl, d, **kw):
+    """A ClusterCoordinator over `d` in a thread of this process; returns
+    (coordinator, thread, result box)."""
+    coord = cl.ClusterCoordinator(
+        d, heartbeat_timeout=ELASTIC["monitor_timeout"], poll_interval=0.05,
+        fence_timeout=ELASTIC["fence_timeout"], **kw)
+    box = {}
+
+    def run():
+        try:
+            box["summary"] = coord.run(deadline=ELASTIC["deadline"])
+        except Exception as e:  # noqa: BLE001 — checked by the leg
+            box["error"] = e
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return coord, t, box
+
+
+def _elastic_event(coord, name, timeout):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        ev = [e for e in coord.events if e["event"] == name]
+        if ev:
+            return ev[-1]
+        time.sleep(0.02)
+    raise SmokeFailure("phase 38: no %r event within %.0f s; events %s"
+                       % (name, timeout, [e["event"] for e in coord.events]))
+
+
+def _elastic_rows(d, wid):
+    path = os.path.join(d, "results_%s.jsonl" % wid)
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _elastic_stats(d, wid):
+    path = os.path.join(d, "stats_%s.json" % wid)
+    check(os.path.exists(path), "phase 38: worker %s wrote no stats; its "
+          "log: %s" % (wid, _elastic_log_tail(os.path.join(d, "%s.log"
+                                                            % wid))))
+    with open(path) as f:
+        return json.load(f)
+
+
+def _elastic_log_tail(path, n=2000):
+    try:
+        with open(path) as f:
+            return f.read()[-n:]
+    except OSError:
+        return "(no log)"
+
+
+def _worker_cmd(model, *extra):
+    return " ".join([sys.executable, os.path.abspath(__file__),
+                     "elastic-worker", "--model", model] + list(extra))
+
+
+def _step_ms(stats, gen):
+    """Median ms between a generation's successive recorded steps."""
+    t = [s[2] for s in stats["steps"] if s[0] == gen]
+    d = [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+    return statistics.median(d) if d else None
+
+
+def elastic_kill_and_grow(torch, card, tmp, procs, on_formed=None):
+    """Phase 38 (a); `on_formed()` is called once the cohort has formed.
+    Returns ((launch counts, the counts predicted), the report)."""
+    import argparse as _ap
+    from paddle_tpu_torch.resilience import cluster as cl
+    from paddle_tpu_torch.tools import ptpu_elastic as tool
+    tag = "elastic (a):"
+    E = ELASTIC
+    d = os.path.join(tmp, "a")
+    os.makedirs(d)
+    steps, death = E["steps"], E["death_at"]
+    times, spawned = {}, {}
+    args = _ap.Namespace(
+        cluster_dir=d, steps=steps, host_devices=E["budget"],
+        fault_plan="host_death@%d" % death, metrics_port_base=None,
+        worker_cmd=_worker_cmd("transformer", "--checkpoint-every",
+                               str(E["checkpoint_every"]), "--hold-at",
+                               str(E["hold_at"])))
+    pool = tool._WorkerPool(args)
+    ref_out = os.path.join(tmp, "reference.json")
+
+    def on_event(ev):
+        # the reference run, started the moment the cohort has rescaled
+        if ev["event"] == "rescale" and "reference" not in spawned:
+            spawned["reference"] = True
+            env = dict(os.environ, PYTHONPATH=tool.REPO,
+                       CUBLAS_WORKSPACE_CONFIG=ELASTIC_CUBLAS)
+            env.pop("PTPU_FAULT_PLAN", None)
+            procs.spawn("reference", [
+                sys.executable, os.path.abspath(__file__),
+                "elastic-reference", cl.default_checkpoint_dir(d),
+                str(ev["restore_step"]), str(E["hold_at"]), ref_out],
+                os.path.join(tmp, "reference.log"), env=env)
+
+    coord, t, box = _elastic_coord(
+        cl, d, num_workers=2, total_device_count=E["budget"],
+        on_event=on_event)
+    try:
+        times["spawn"] = time.time()
+        for i in range(2):
+            wid = pool.spawn(with_fault=i == 1)
+            spawned[wid] = procs.watch(wid, pool.procs[wid])
+        formed = _elastic_event(coord, "formed", 300)
+        # the replacement: a standby that starts up now and joins once the
+        # survivor holds (`--join-gate`), so its start-up is off the path
+        times["replacement_spawned"] = time.time()
+        pool.args.worker_cmd += " --join-gate"
+        wid = pool.spawn(with_fault=False)
+        spawned[wid] = procs.watch(wid, pool.procs[wid])
+        if on_formed is not None:
+            on_formed()
+        resc = _elastic_event(coord, "rescale", 300)
+        grow = _elastic_event(coord, "grow", 300)
+        t.join(E["deadline"])
+        check("summary" in box, "%s the coordinator ended %s; events %s; "
+              "w0's log: %s" % (tag, box, [e["event"] for e in coord.events],
+                                _elastic_log_tail(os.path.join(d,
+                                                               "w0.log"))))
+        for wid in ("w0", "w2"):
+            check(spawned[wid].wait(timeout=120) == 0, "%s %s exited %s"
+                  % (tag, wid, spawned[wid].returncode))
+        rc1 = spawned["w1"].wait(timeout=60)
+        deadline = time.monotonic() + 300
+        while "reference" not in procs.exit_time \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+    finally:
+        pool.kill_all()
+    check(rc1 == -9, "%s w1 exited %s, not -9 (SIGKILL)" % (tag, rc1))
+    summary = box["summary"]
+    check(sorted(summary["world"]) == ["w0", "w2"]
+          and summary["steps"] == {"w0": steps, "w2": steps},
+          "%s the final world %s, steps %s" % (tag, summary["world"],
+                                               summary["steps"]))
+    names = [e["event"] for e in coord.events]
+    check("abort" not in names and "refence" not in names,
+          "%s events %s" % (tag, names))
+    rows0, rows1, rows2 = (_elastic_rows(d, w) for w in ("w0", "w1", "w2"))
+    # the death at exactly step `death`
+    check(sorted(r["step"] for r in rows1) == list(range(death)),
+          "%s w1 recorded steps %s, expected 0-%d" % (
+              tag, [r["step"] for r in rows1], death - 1))
+    before = {r["step"]: r["value"] for r in rows0 if r["gen"] < resc["gen"]}
+    check(all(before[r["step"]] == r["value"] for r in rows1
+              if r["step"] in before), "%s w0 and w1 disagreed before the "
+          "death" % tag)
+    check(resc["survivors"] == ["w0"], "%s rescale %s" % (tag, resc))
+    restore, G = resc["restore_step"], grow["restore_step"]
+    check(restore is not None and restore <= death
+          and restore < G == E["hold_at"] < steps,
+          "%s restore step %s, grow step %s of %d (the survivor held at %d)"
+          % (tag, restore, G, steps, E["hold_at"]))
+    plan_r = next(p for p in coord._plans if p["gen"] == resc["gen"])
+    check(plan_r["world"] == {"w0": {"rank": 0, "local_device_count":
+                                     E["budget"]}},
+          "%s the rescaled world %s" % (tag, plan_r["world"]))
+    post = {}
+    for r in rows0:
+        if r["gen"] >= resc["gen"]:
+            check(r["step"] not in post, "%s step %d recorded twice after "
+                  "the rescale" % (tag, r["step"]))
+            post[r["step"]] = r["value"]
+    check(sorted(post) == list(range(restore, steps)),
+          "%s w0's steps after the rescale %s" % (tag, sorted(post)))
+    check(procs.exit_time.get("reference") is not None
+          and os.path.exists(ref_out), "%s the reference run failed: %s"
+          % (tag, _elastic_log_tail(os.path.join(tmp, "reference.log"))))
+    with open(ref_out) as f:
+        ref = {int(k): v for k, v in json.load(f).items()}
+    small = {s: v for s, v in post.items() if s < G}
+    check(small == {s: ref[s] for s in small}, "%s w0's stream on {'dp': "
+          "%d} %s differs from the reference process's %s"
+          % (tag, E["budget"], small, {s: ref[s] for s in small}))
+    pre_grow = [r["step"] for r in rows0
+                if resc["gen"] <= r["gen"] < grow["gen"]]
+    post_grow = [r["step"] for r in rows0 if r["gen"] >= grow["gen"]]
+    check(pre_grow and post_grow and max(pre_grow) + 1 == min(post_grow)
+          == G, "%s the grow at step %d aborted a step: %s then %s"
+          % (tag, G, pre_grow, post_grow))
+    joined = {r["step"]: r["value"] for r in rows2 if r["gen"] >= grow["gen"]}
+    check(sorted(joined) == list(range(G, steps))
+          and joined == {s: post[s] for s in joined},
+          "%s the joiner's stream %s, w0's %s" % (
+              tag, joined, {s: post[s] for s in joined}))
+    st = {w: _elastic_stats(d, w) for w in ("w0", "w2")}
+    # the launches: each generation's recorded steps x the mesh's lanes x
+    # a lane's step of its program (phase 35's counts)
+    counts, expected = None, None
+    for s in st.values():
+        for g in s["gens"]:
+            check(all(dev.startswith("cuda") for dev in g["devices"]),
+                  "%s a generation trained on %s" % (tag, g["devices"]))
+            if counts is None:
+                counts = dict.fromkeys(g["launches"], 0)
+                expected = dict.fromkeys(g["launches"], 0)
+            for n, c in g["launches"].items():
+                counts[n] += c
+            for n, c in g["lane"].items():
+                expected[n] += c * g["steps"] * g["local_device_count"]
+    ev = {e["event"]: e for e in coord.events}
+    i = names.index("detected")
+    fence = coord.events[names.index("fence", i)]
+    fenced = coord.events[names.index("fenced", i)]
+    death_t = procs.exit_time["w1"]
+    first_after = min(s[2] for s in st["w0"]["steps"]
+                      if s[0] >= resc["gen"])
+    first_grown = min(s[2] for w in ("w0", "w2") for s in st[w]["steps"]
+                      if s[0] >= grow["gen"])
+    gen1 = min(g["gen"] for g in st["w0"]["gens"])
+    rescale_gen = resc["gen"]
+    report = {
+        "steps": steps, "death_at": death, "restore_step": restore,
+        "grow_step": G, "events": names,
+        "formation_s": formed["wall_time"] - times["spawn"],
+        "death_to_detected_s": ev["detected"]["wall_time"] - death_t,
+        "fence_s": fenced["wall_time"] - fence["wall_time"],
+        "restore_ms_after_rescale": [
+            ms for g, ms in st["w0"]["restore_ms"] if g == resc["gen"]],
+        "death_to_first_step_s": first_after - death_t,
+        "replacement_start_up_s":
+            st["w2"]["ready"] - times["replacement_spawned"],
+        "join_to_first_grown_step_s":
+            first_grown - ev["join_detected"]["wall_time"],
+        "eager_step_ms_dp2": _step_ms(st["w2"], grow["gen"]),
+        "eager_step_ms_dp2_w0_first_gen": _step_ms(st["w0"], gen1),
+        "eager_step_ms_dp4": _step_ms(st["w0"], rescale_gen),
+        "save_ms": {w: s["save_ms"] for w, s in st.items()},
+        "restore_ms": {w: s["restore_ms"] for w, s in st.items()},
+        "max_memory_allocated": {w: s["max_memory_allocated"]
+                                 for w, s in st.items()},
+        "bit_equal_to_reference": sorted(small),
+        "launches_by_gen": {w: [(g["gen"], g["local_device_count"],
+                                 g["steps"]) for g in s["gens"]]
+                            for w, s in st.items()},
+        "card": card}
+    print("%s formed in %.1f s; w1 killed at step %d (rc -9), detected "
+          "%+.3f s from this process's reading of its exit (both poll), "
+          "fence %.3f s, restore %s ms, first step on {'dp': "
+          "%d} %.1f s after the death; steps %d-%d bit-equal to the "
+          "reference process; the replacement started up in %.1f s (then "
+          "gated until the survivor held), its first grown step %.1f s "
+          "after its join (grow at step %d, no aborted step); eager step "
+          "ms dp2 %s, dp4 %s; save ms %s; "
+          "max_memory_allocated %s; %s"
+          % (tag, report["formation_s"], death,
+             report["death_to_detected_s"], report["fence_s"],
+             ["%.0f" % m for m in report["restore_ms_after_rescale"]],
+             E["budget"], report["death_to_first_step_s"], restore, G - 1,
+             report["replacement_start_up_s"],
+             report["join_to_first_grown_step_s"], G,
+             report["eager_step_ms_dp2"], report["eager_step_ms_dp4"],
+             ["%.0f" % m for _, m in report["save_ms"]["w0"]],
+             report["max_memory_allocated"], card))
+    return (counts, expected), report
+
+
+def elastic_hang(tmp, procs, pool_cls, cl, card):
+    """Phase 38 (b): slow_step@hang_at for hang_sleep s against a
+    watchdog of hang_timeout s: a local abort with a bundle, escalated
+    through the heartbeat to a same-size rollback."""
+    import argparse as _ap
+    E, tag = ELASTIC, "elastic (b):"
+    d = os.path.join(tmp, "b")
+    os.makedirs(d)
+    pool = pool_cls(_ap.Namespace(
+        cluster_dir=d, steps=E["tiny_steps"], host_devices=E["tiny_host_devices"],
+        fault_plan="slow_step@%d:%g" % (E["hang_at"], E["hang_sleep"]),
+        metrics_port_base=None, worker_cmd=_worker_cmd(
+            "demo", "--checkpoint-every", "2", "--watchdog-timeout",
+            str(E["hang_timeout"]))))
+    coord, t, box = _elastic_coord(cl, d, num_workers=1,
+                                   local_device_count=E["tiny_host_devices"])
+    try:
+        procs.watch("b/w0", pool.procs[pool.spawn(with_fault=True)])
+        t.join(E["deadline"])
+    finally:
+        pool.kill_all()
+    check("summary" in box, "%s the coordinator ended %s (events %s)"
+          % (tag, box, [e["event"] for e in coord.events]))
+    det = next(e for e in coord.events if e["event"] == "detected")
+    resc = next(e for e in coord.events if e["event"] == "rescale")
+    rows = _elastic_rows(d, "w0")
+    final = max(r["gen"] for r in rows)
+    check(det["faulted"] == ["w0"] and det["dead"] == []
+          and resc["survivors"] == ["w0"]
+          and resc["restore_step"] == E["hang_at"] // 2 * 2,
+          "%s detected %s, rescale %s" % (tag, det, resc))
+    check(sorted(r["step"] for r in rows if r["gen"] == final)
+          == list(range(resc["restore_step"], E["tiny_steps"]))
+          and sorted({r["step"] for r in rows})
+          == list(range(E["tiny_steps"])),
+          "%s the final history %s" % (tag, rows))
+    broot = os.path.join(d, "bundles", "w0")
+    check(os.path.isdir(broot) and os.listdir(broot),
+          "%s no bundle under %s" % (tag, broot))
+    report = {"events": [e["event"] for e in coord.events],
+              "restore_step": resc["restore_step"],
+              "bundles": sorted(os.listdir(broot)),
+              "detected_to_rescale_s": resc["wall_time"] - det["wall_time"]}
+    print("%s slow_step@%d (%.1f s) against a %.1f s watchdog: %s; rolled "
+          "back to step %d at the same size in %.2f s; bundle %s; every "
+          "step once in the final history; %s"
+          % (tag, E["hang_at"], E["hang_sleep"], E["hang_timeout"],
+             report["events"], resc["restore_step"],
+             report["detected_to_rescale_s"], report["bundles"], card))
+    return report
+
+
+def elastic_quarantine(tmp, procs, pool_cls, cl, card):
+    """Phase 38 (c): the canary every sdc_every steps, bitflip@1 on local
+    device 1: quarantined, every later plan carries it, the worker's next
+    mesh is built around it."""
+    import argparse as _ap
+    E, tag = ELASTIC, "elastic (c):"
+    d = os.path.join(tmp, "c")
+    os.makedirs(d)
+    pool = pool_cls(_ap.Namespace(
+        cluster_dir=d, steps=E["tiny_steps"], host_devices=E["tiny_host_devices"],
+        fault_plan="bitflip@1:1", metrics_port_base=None,
+        worker_cmd=_worker_cmd("demo", "--sdc-every", str(E["sdc_every"]))))
+    coord, t, box = _elastic_coord(cl, d, num_workers=1,
+                                   local_device_count=E["tiny_host_devices"])
+    try:
+        procs.watch("c/w0", pool.procs[pool.spawn(with_fault=True)])
+        t.join(E["deadline"])
+        check(pool.procs["w0"].wait(timeout=120) == 0,
+              "%s the worker exited %s" % (tag, pool.procs["w0"].returncode))
+    finally:
+        pool.kill_all()
+    check("summary" in box, "%s the coordinator ended %s (events %s)"
+          % (tag, box, [e["event"] for e in coord.events]))
+    q = next(e for e in coord.events if e["event"] == "quarantine")
+    check(q["worker"] == "w0" and q["device"] == 1, "%s %s" % (tag, q))
+    later = [p for p in coord._plans if p["gen"] > q["gen"]]
+    check(later and all(p["quarantine"] == {"w0": [1]} for p in later),
+          "%s plans after the quarantine %s" % (
+              tag, [p.get("quarantine") for p in later]))
+    st = _elastic_stats(d, "w0")
+    first, last = st["gens"][0], st["gens"][-1]
+    check(first["local_device_count"] == 2 and last["local_device_count"]
+          == 1 and last["skip_local_devices"] == [1]
+          and last["devices"] == ["cuda:0"],
+          "%s the meshes %s" % (tag, st["gens"]))
+    rows = _elastic_rows(d, "w0")
+    check(sorted({r["step"] for r in rows}) == list(range(E["tiny_steps"])),
+          "%s steps %s" % (tag, rows))
+    status = elastic_status(d, tag)
+    check(status["plan"]["quarantine"] == {"w0": [1]},
+          "%s status --json %s" % (tag, status["plan"]))
+    report = {"events": [e["event"] for e in coord.events],
+              "quarantine": later[-1]["quarantine"],
+              "status_quarantine": status["plan"]["quarantine"],
+              "meshes": [(g["gen"], g["local_device_count"],
+                          g["skip_local_devices"]) for g in st["gens"]]}
+    print("%s canary every %d steps, bitflip@1 on local device 1: %s; "
+          "quarantine %s in every later plan and in `status --json`; "
+          "meshes (gen, devices, skipped) %s; %s"
+          % (tag, E["sdc_every"], report["events"], report["quarantine"],
+             report["meshes"], card))
+    return report
+
+
+def elastic_launch_stall(tmp, procs, card):
+    """Phase 38 (d): `python -m paddle_tpu_torch.tools.ptpu_elastic
+    launch` with heartbeat_stall@stall_at on w1: fenced out on missed
+    beats alone, the cohort finishes; w0's /metrics while it trains;
+    `status --json` after it."""
+    import urllib.request
+    from paddle_tpu_torch.tools import ptpu_elastic as tool
+    E, tag = ELASTIC, "elastic (d):"
+    d = os.path.join(tmp, "d")
+    env = dict(os.environ, PYTHONPATH=tool.REPO)
+    env.pop("PTPU_FAULT_PLAN", None)
+    cmd = [sys.executable, "-m", tool.MODULE, "launch", "--cluster-dir", d,
+           "--workers", "2", "--steps", str(E["stall_steps"]),
+           "--host-devices", str(E["tiny_host_devices"]), "--local-devices",
+           str(E["tiny_host_devices"]), "--heartbeat-timeout",
+           str(E["stall_timeout"]), "--fault-worker", "1", "--fault-plan",
+           "heartbeat_stall@%d" % E["stall_at"], "--deadline",
+           str(E["deadline"]), "--worker-cmd", _worker_cmd(
+               "demo", "--metrics-port", "0", "--step-delay",
+               str(E["stall_delay"]))]
+    log = os.path.join(tmp, "launch.log")
+    launch = procs.spawn("launch", cmd, log, env=env)
+    scrape = None
+    deadline = time.monotonic() + E["deadline"]
+    while launch.poll() is None and time.monotonic() < deadline:
+        if scrape is None:
+            try:
+                with open(os.path.join(d, "hb_w0.json")) as f:
+                    hb = json.load(f)
+            except (OSError, ValueError):
+                hb = {}
+            if hb.get("metrics_port") and hb.get("step", -1) >= 1:
+                try:
+                    with urllib.request.urlopen(
+                            "http://127.0.0.1:%d/metrics"
+                            % hb["metrics_port"], timeout=10) as r:
+                        scrape = r.read().decode()
+                except OSError:
+                    pass
+        time.sleep(0.05)
+    rc = launch.wait(timeout=60)
+    with open(log) as f:
+        out = f.read()
+    check(rc == 0, "%s launch exited %s: %s" % (tag, rc, out[-3000:]))
+    done = [ln for ln in out.splitlines()
+            if ln.startswith("[ptpu_elastic] done: ")]
+    check(done, "%s no done line: %s" % (tag, out[-2000:]))
+    summary = json.loads(done[-1].split("done: ", 1)[1])
+    check(summary["steps"].get("w0") == E["stall_steps"]
+          and summary["rescales"] >= 1 and "rescale" in summary["events"],
+          "%s %s" % (tag, summary))
+    check(scrape is not None and "ptpu_cluster_worker_steps_behind" in scrape,
+          "%s w0's /metrics %s" % (tag, (scrape or "not reached")[:500]))
+    status = elastic_status(d, tag)
+    rows = {r["worker"]: r for r in status["workers"]}
+    # the stalled w1: fenced out of the plan's world, its last beat left
+    # at the generation it stalled in, short of the steps
+    plan = status["plan"]
+    check(plan["phase"] == "done" and plan["gen"] >= 3
+          and plan["num_workers"] == 1
+          and rows["w1"]["status"] == "left"
+          and rows["w1"]["gen"] == 1 < plan["gen"]
+          and rows["w1"]["step"] < E["stall_steps"]
+          and rows["w0"]["status"] == "done"
+          and rows["w0"]["step"] == E["stall_steps"],
+          "%s status --json %s" % (tag, status))
+    report = {"summary": summary, "status_plan": plan,
+              "stalled_row": {k: rows["w1"][k] for k in (
+                  "status", "alive", "step", "gen")},
+              "steps_behind_lines": [
+                  ln for ln in scrape.splitlines()
+                  if ln.startswith("ptpu_cluster_worker_steps_behind")]}
+    print("%s launch rc 0: %s; status --json: plan gen %s %s, the stalled "
+          "w1 %s; w0's /metrics %s; %s"
+          % (tag, summary, plan["gen"], plan["phase"],
+             report["stalled_row"], report["steps_behind_lines"], card))
+    return report
+
+
+def elastic_status(d, tag):
+    """`python -m paddle_tpu_torch.tools.ptpu_elastic status --json` of
+    cluster directory `d` (its monitor's timeout ten process starts and
+    more), parsed."""
+    from paddle_tpu_torch.tools import ptpu_elastic as tool
+    cp = subprocess.run(
+        [sys.executable, "-m", tool.MODULE, "status", "--cluster-dir", d,
+         "--json", "--heartbeat-timeout", str(ELASTIC["monitor_timeout"])],
+        env=dict(os.environ, PYTHONPATH=tool.REPO), capture_output=True,
+        text=True, timeout=300)
+    check(cp.returncode == 0, "%s status: %s" % (tag, cp.stderr[-2000:]))
+    return json.loads(cp.stdout)
+
+
+def run_elastic_cluster(torch, card):
+    """Phase 38 (see ELASTIC and the module's docstring): the paths and
+    the `elastic_summary:` report. (b), (c) and (d) start once (a)'s
+    cohort has formed (its two processes start on a quieter host) and run
+    beside it, each in a cluster directory of its own."""
+    from paddle_tpu_torch.resilience import cluster as cl
+    from paddle_tpu_torch.tools import ptpu_elastic as tool
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="ptt_phase38_")
+    procs = _ElasticProcs()
+    t0 = time.perf_counter()
+    side, threads = {}, []
+
+    def beside(name, fn, *a):
+        try:
+            side[name] = fn(*a)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            side[name] = e
+
+    def start_beside():
+        for name, fn, a in (
+                ("hang", elastic_hang,
+                 (tmp, procs, tool._WorkerPool, cl, card)),
+                ("quarantine", elastic_quarantine,
+                 (tmp, procs, tool._WorkerPool, cl, card)),
+                ("stall", elastic_launch_stall, (tmp, procs, card))):
+            threads.append(threading.Thread(target=beside,
+                                            args=(name, fn) + a))
+            threads[-1].start()
+    try:
+        run, kill_grow = elastic_kill_and_grow(torch, card, tmp, procs,
+                                               on_formed=start_beside)
+        for th in threads:
+            th.join(ELASTIC["deadline"])
+        for name in ("hang", "quarantine", "stall"):
+            check(name in side, "phase 38: %s did not end" % name)
+            if isinstance(side[name], BaseException):
+                raise side[name]
+    finally:
+        procs.close()
+        for th in threads:
+            th.join(60)
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = {"kill_and_grow": kill_grow, "hang": side["hang"],
+               "quarantine": side["quarantine"],
+               "launch_stall": side["stall"],
+               "phase_s": time.perf_counter() - t0, "card": card}
+    return [("elastic_cluster", run)], summary
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "elastic-worker":
+        return elastic_worker_main(argv[1:])
+    if argv and argv[0] == "elastic-reference":
+        return elastic_reference_main(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("all", "kernels"), default="all")
     ap.add_argument("--k7-baseline", metavar="SRC",
@@ -12024,6 +12909,10 @@ def main(argv=None):
         paths += fleet_paths
         print("serving_fleet_summary: " + json.dumps(fleet))
         lap("serving fleet")
+        elastic_paths, elastic = run_elastic_cluster(torch, card)
+        paths += elastic_paths
+        print("elastic_summary: " + json.dumps(elastic))
+        lap("elastic cluster")
         print("clipping_summary: " + json.dumps({
             "fit_a_line": {k: v for k, v in clipping.items() if k != "card"},
             "language_model_clip": {k: lm_clip[k] for k in (

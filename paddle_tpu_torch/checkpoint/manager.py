@@ -311,7 +311,14 @@ class CheckpointManager(object):
                 sync=bool(wait or not self.async_save))
         job.handle.capture_seconds = time.perf_counter() - t0
         if wait or not self.async_save:
-            # inline write: raises on failure (the sync contract)
+            # inline write: raises on failure (the sync contract). An
+            # async save still writing the same step would share its tmp
+            # directory (named by step and pid): drain the writer first
+            with self._lock:
+                same_step = any(h.step == job.handle.step and not h.done()
+                                for h in self._pending)
+            if same_step:
+                self.wait()
             self._run_job(job, reraise=True)
             return job.handle
         with self._lock:

@@ -3,8 +3,8 @@
 Parity: the JAX package's core/dispatch.py — its `InflightWindow`, its
 host-io prefetcher and its watchdog pair `run_with_deadline` /
 `dispatch_with_deadline` — and its dispatch-guard seam: the pre-dispatch
-hooks (`run_dispatch_hooks`: the cluster step barrier, which comes with
-ROADMAP A10's second half, and the fault-injection tap) and the
+hooks (`run_dispatch_hooks`: the cluster step barrier an
+`ElasticWorker` installs, and the fault-injection tap) and the
 post-dispatch checks (`run_post_dispatch_checks`: the assertion and
 guard flags, the FLAGS_check_nan_inf sweep), and the serving side of
 that seam: a replica pool's `ReplicaTap` over its `TapCounter`.

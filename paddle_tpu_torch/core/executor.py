@@ -396,9 +396,11 @@ class NumericalGuardError(RuntimeError):
 # pre-pass and the seed draw, so a failed attempt consumes nothing.
 _fault_hook = None
 
-# Step-barrier hook of an elastic cluster worker (ROADMAP A10's second
-# half): None until that layer exists. It fires first, before the fault
-# hook.
+# Step-barrier hook of an elastic cluster worker: None outside one.
+# resilience.cluster.ElasticWorker installs its _barrier_check here for
+# the span of a generation (raising ClusterFenced once the plan moves
+# on) and restores the previous hook after it. It fires first, before
+# the fault hook.
 _barrier_hook = None
 
 

@@ -38,8 +38,25 @@ _client = False
 _layout = None
 
 
+# The port's counterpart of the JAX launcher's
+# XLA_FLAGS=--xla_force_host_platform_device_count=N: with
+# PTPU_HOST_DEVICES=N set (`ptpu_elastic launch --host-devices N` sets
+# it), this process sees its one device N times, replicas that share it.
+HOST_DEVICES_ENV = "PTPU_HOST_DEVICES"
+
+
 def _local_devices():
-    """This process's devices: every CUDA device, else the CPU once."""
+    """This process's devices: every CUDA device, else the CPU once; with
+    PTPU_HOST_DEVICES=N, N entries of the one device (cuda:0 on a card,
+    else the CPU)."""
+    n = os.environ.get(HOST_DEVICES_ENV)
+    if n not in (None, ""):
+        one = torch.device("cuda", 0) if torch.cuda.is_available() \
+            else torch.device("cpu")
+        if int(n) < 1:
+            raise ValueError("%s=%s: a process needs at least one device"
+                             % (HOST_DEVICES_ENV, n))
+        return [one] * int(n)
     if torch.cuda.is_available():
         return default_devices()
     return [torch.device("cpu")]
@@ -54,7 +71,8 @@ class DeviceLayout(object):
 
     `devices` (not serialized) lists the devices `local_mesh()` draws
     from, a device repeated for replicas that share it; default every
-    local CUDA device, else the CPU once."""
+    local CUDA device, else the CPU once (PTPU_HOST_DEVICES=N: the one
+    device N times)."""
 
     __slots__ = ("num_processes", "process_index", "local_device_count",
                  "mesh_axes", "batch_axis", "shard_axis",

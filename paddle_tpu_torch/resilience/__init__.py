@@ -35,11 +35,13 @@ and the reader stack:
                 monitor over a cluster directory (HeartbeatMonitor,
                 read_heartbeats; `fleet_view()` feeds
                 observability.registry.watch_cluster).
-  * cluster   — the plan file's helpers (write_plan, read_plan,
-                default_checkpoint_dir).
-
-Cut: the elastic cluster's ClusterCoordinator and ElasticWorker come with
-the next slice of ROADMAP A10.
+  * cluster   — the elastic cohort: ClusterCoordinator (fence,
+                rollback, reshard, grow, quarantine, abort with a merged
+                bundle), ElasticWorker (the guarded loop that follows the
+                plan), ClusterFenced / ClusterAborted and the plan file's
+                helpers (write_plan, read_plan, default_checkpoint_dir).
+                Its operator front end is
+                `python -m paddle_tpu_torch.tools.ptpu_elastic`.
 
 Quickstart:
 
@@ -66,7 +68,9 @@ from .supervisor import (DEFAULT_POLICIES, FAULT_CLASSES, Action,
                          rollback, rollback_skip_data, skip_batch)
 from .watchdog import read_bundle, write_bundle
 from .heartbeat import HeartbeatMonitor, HeartbeatWriter, read_heartbeats
-from .cluster import default_checkpoint_dir, read_plan, write_plan
+from .cluster import (ClusterAborted, ClusterCoordinator, ClusterFenced,
+                      ElasticWorker, default_checkpoint_dir, read_plan,
+                      write_plan)
 
 __all__ = [
     "Supervisor", "TrainingAborted", "Action", "skip_batch", "retry",
@@ -81,4 +85,6 @@ __all__ = [
     "write_bundle", "read_bundle",
     "HeartbeatWriter", "HeartbeatMonitor", "read_heartbeats",
     "write_plan", "read_plan", "default_checkpoint_dir",
+    "ClusterCoordinator", "ElasticWorker", "ClusterFenced",
+    "ClusterAborted",
 ]

@@ -3,9 +3,9 @@
 Parity: the JAX package's resilience/heartbeat.py, copied (pure Python):
 the same file names and JSON payloads written by the same
 `core/utils.atomic_write_json`, so a cluster directory written by either
-package reads in the other. The coordinator that consumes them
-(`ClusterCoordinator`, `ElasticWorker`) comes with the next slice of
-ROADMAP A10; `observability.registry.watch_cluster` renders them today.
+package reads in the other. `resilience.cluster.ClusterCoordinator`
+consumes them, an `ElasticWorker` writes them, and
+`observability.registry.watch_cluster` renders them.
 
 Each elastic worker runs ONE `HeartbeatWriter` thread that periodically
 publishes a small JSON payload — step cursor, lifecycle status, the
@@ -68,6 +68,7 @@ class HeartbeatWriter(object):
         self.path = heartbeat_path(cluster_dir, worker_id)
         self.interval = float(interval)
         self._lock = threading.Lock()
+        self._write_lock = threading.Lock()
         self._payload = {"worker_id": self.worker_id,
                          "pid": os.getpid(),
                          "host": socket.gethostname(),
@@ -92,17 +93,22 @@ class HeartbeatWriter(object):
         plan = _faults.active_plan()
         if plan is not None and plan.heartbeat_stalled():
             return False
-        with self._lock:
-            self._seq += 1
-            payload = dict(self._payload, seq=self._seq,
-                           wall_time=time.time())
-        try:
-            # liveness signal, not durable state: no fsync (beats fire
-            # every fraction of a second; a lost-on-power-cut beat is
-            # indistinguishable from a missed one)
-            _atomic_write_json(self.path, payload)
-        except OSError:
-            return False  # a missed beat is survivable; a crash is not
+        # one write at a time: the beat thread and an update() from the
+        # training loop share the pid-named tmp file of the atomic write,
+        # and two writers at once could replace the beat with a torn
+        # document the monitor cannot read (a live worker read as dead)
+        with self._write_lock:
+            with self._lock:
+                self._seq += 1
+                payload = dict(self._payload, seq=self._seq,
+                               wall_time=time.time())
+            try:
+                # liveness signal, not durable state: no fsync (beats
+                # fire every fraction of a second; a lost-on-power-cut
+                # beat is indistinguishable from a missed one)
+                _atomic_write_json(self.path, payload)
+            except OSError:
+                return False  # a missed beat is survivable; a crash is not
         return True
 
     def update(self, **fields):

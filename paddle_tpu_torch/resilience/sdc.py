@@ -20,8 +20,9 @@ identical on every check.
 `CanaryChecker.check()` raises `SilentCorruptionError` carrying the
 suspect device index; the Supervisor classifies it as fault class
 "sdc" (default chain: abort — a bad chip is not recoverable
-in-process). Quarantining the device across a cluster comes with
-ROADMAP A10's second half.
+in-process). Across a cluster, an `ElasticWorker` escalates the
+conviction with `sdc_device` and the `ClusterCoordinator` quarantines the
+device (resilience/cluster.py).
 
 Fault injection: `bitflip@N[:device]` (resilience/faults.py) corrupts
 the Nth canary result — optionally waiting until the rotation lands on

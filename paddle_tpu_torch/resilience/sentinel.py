@@ -181,8 +181,8 @@ class TrainingSentinel(object):
     DivergenceError. State is tiny and JSON-able
     (state_dict/load_state_dict) so a supervisor can snapshot it beside
     a checkpoint; `status()` is the heartbeat payload (last z-scores,
-    spike count) that lets `ptpu_elastic status` show WHY a worker
-    fenced."""
+    spike count) that lets `python -m paddle_tpu_torch.tools.ptpu_elastic
+    status` show WHY a worker fenced."""
 
     def __init__(self, window=64, warmup=16, z_threshold=8.0,
                  grad_z_threshold=None, divergence_factor=3.0,

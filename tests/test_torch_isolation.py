@@ -55,6 +55,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "paddle_tpu_torch.serving.autoscaler, "
             "paddle_tpu_torch.resilience.heartbeat, "
             "paddle_tpu_torch.resilience.cluster, "
+            "paddle_tpu_torch.tools.ptpu_elastic, "
             "paddle_tpu_torch.observability.registry\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r)\n"
@@ -114,6 +115,25 @@ def test_every_serving_fleet_module_is_checked():
             "serving/autoscaler.py", "resilience/heartbeat.py",
             "resilience/cluster.py", "observability/registry.py",
             "core/dispatch.py"} <= rel
+
+
+def test_every_elastic_cluster_module_is_checked():
+    """The elastic cluster (coordinator and worker) and the port's own
+    launcher are among the sources the import check above walks, and the
+    launcher runs as a module of the port."""
+    rel = {os.path.relpath(p, PKG) for p in SOURCES}
+    assert {"resilience/cluster.py", "tools/__init__.py",
+            "tools/ptpu_elastic.py", "parallel/distributed.py"} <= rel
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys, runpy; sys.argv = ['ptpu_elastic']; "
+         "runpy.run_module('paddle_tpu_torch.tools.ptpu_elastic', "
+         "run_name='__main__')\n"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 2, proc.stdout + proc.stderr
+    assert "launch" in proc.stdout and "status" in proc.stdout
+    assert not [m for m in proc.stderr.split() if _forbidden(m)]
 
 
 def test_pool_and_tp_engine_need_a_card_or_an_explicit_cpu(no_card,
